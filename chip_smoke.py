@@ -8,20 +8,28 @@ Phases (any failure raises and the script exits non-zero, printing no result):
 2. build: compile the CUDA kernels of qspec_tpu_torch (one nvcc call) and
    print the build seconds and the `-Xptxas -v` summary;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, max error beside the stated tolerance;
+   shapes of the main path, max error beside the stated tolerance (the
+   attention kernel also over int8, fp8_e4m3 and fp8_e5m2 caches filled
+   through update_layer);
 4. timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, timed with CUDA events over
    CUDA-graph replays; the least time the card could take (bound_ms);
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
-   the CPU (plain versions), same weights; then the tiny model through the
-   engine on the card, QSpec against its oracle (drafts are accepted there);
-6. end to end: LLM(model="llama3-8b", lm_head_quant="bf16",
-   num_speculative_tokens=3) with random weights made on the card, 4 prompts
-   of 64-192 random token ids, 32 greedy tokens each, through QSpec and then
-   through the qspec_null oracle (the same rounds with proposals nulled);
-   tokens must be identical and every kernel's launch count must have risen
-   during the QSpec run; then the same with the W4A8 draft, whose drafts are
-   accepted at this width.
+   the CPU (plain versions), same weights, with the bf16 head over a bf16
+   cache and at the defaults (int8 head) over an int8 cache; then the tiny
+   model through the engine on the card, QSpec against its oracle (drafts
+   are accepted there), with the bf16 head and, at the defaults, once per
+   8-bit KV cache;
+6. end to end: LLM(model="llama3-8b", num_speculative_tokens=3) with random
+   weights made on the card, 4 prompts of 64-192 random token ids, 32 greedy
+   tokens each, through QSpec and then through the qspec_null oracle (the
+   same rounds with proposals nulled); tokens must be identical, and every
+   kernel of the path, and no other, must have launched during the QSpec run
+   (counts set to 0 just before it and read just after; the attention kernel
+   is counted per instantiation); then the same with the W4A8 draft,
+   whose drafts are accepted at this width. Two paths: the first slice's
+   (lm_head_quant="bf16", bf16 cache) and the JAX package's defaults (the
+   int8 head by matmul_w8a16) with kv_cache_dtype="int8".
 
 It prints the kernel summary as one JSON line and, last, the device JSON line.
 """
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -117,7 +126,12 @@ def phase_build():
     t0 = time.perf_counter()
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s)")
-    log("ptxas: " + json.dumps(_build.build_info.get("ptxas", {})))
+    # kernel names unmangled as far as a reader needs: name<template args>
+    short = {}
+    for fn, v in _build.build_info.get("ptxas", {}).items():
+        m = re.search(r"_cu_[0-9a-f]{8}\d+?([a-z]\w*?_kernel)(?:I(\w+?)E)?", fn)
+        short[(m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else fn] = v
+    log("ptxas: " + json.dumps(short))
 
 
 def _w4(gen, k, n):
@@ -151,6 +165,46 @@ def check_gemms(gen, report):
     log(f"check matmul_w4a4: max_abs_err {err4:.3g} (tol rtol=atol=1e-2; int4 and int8 activations)")
 
 
+HEAD_SHAPE = (16, 4096, 128256)     # verify width M x hidden x vocab
+TRUNK_STACK = (2, 4096, 14336)      # L x K x N of a stacked W8A16 trunk
+
+
+def _w8(gen, k, n, layers=None):
+    from qspec_tpu_torch.ops.packing import quantize_weight_int8_torch
+    if layers is None:
+        return quantize_weight_int8_torch(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+    qw = torch.empty(layers, k, n, dtype=torch.int8, device="cuda")
+    qs = torch.empty(layers, n, device="cuda")
+    for li in range(layers):
+        qw[li], qs[li] = quantize_weight_int8_torch(
+            torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+    return qw, qs
+
+
+def check_w8a16(gen, report):
+    """The int8 head at its shape (f32 out) and a stacked trunk shape
+    (bf16 out), at the JAX test's tolerance."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    m, k, n = HEAD_SHAPE
+    qw, qs = _w8(gen, k, n)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    out = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
+    ref = lk.matmul_w8a16_ref(x, qw, qs, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    err = (out - ref).abs().max().item()
+    del qw, qs, out, ref
+    L, k, n = TRUNK_STACK
+    qw, qs = _w8(gen, k, n, layers=L)
+    for li in range(L):
+        out = lk.matmul_w8a16(x, qw, qs, layer_idx=li)
+        ref = lk.matmul_w8a16_ref(x, qw[li], qs[li])
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+    report["matmul_w8a16"].update(max_err=err, tol="rtol=atol=2e-2")
+    log(f"check matmul_w8a16: max_abs_err {err:.3g} (tol rtol=atol=2e-2; head "
+        f"M,K,N={HEAD_SHAPE} f32 out, stacked L,K,N={TRUNK_STACK} bf16 out)")
+
+
 def check_norms(gen, report):
     from qspec_tpu_torch.ops import rmsnorm_quant as rq
     e_n = e_s = 0.0
@@ -180,9 +234,14 @@ def check_norms(gen, report):
         f">= {worst_exact:.5f} (tol > 0.99); scale max rel err {e_s:.3g} (tol 1e-3)")
 
 
+def _ctx_lens(q_len, S=128):
+    """Context lengths of the attention inputs' four rows (1-4 pages)."""
+    return [max(c, q_len) for c in (3 * S - 5, 2 * S + 7, 4 * S, 40)]
+
+
 def _attn_inputs(gen, q_len, B=4, Hq=32, Hkv=8, D=128, S=128):
     from qspec_tpu_torch.ops.kv_cache import PagedKVCache
-    ctx = [max(c, q_len) for c in (3 * S - 5, 2 * S + 7, 4 * S, 40)]
+    ctx = _ctx_lens(q_len, S)
     pages = [-(-c // S) for c in ctx]
     P = 1 + sum(pages)
     kv = (torch.randn(2, P, 2, Hkv, S, D, generator=gen, device="cuda")).to(torch.bfloat16)
@@ -195,6 +254,41 @@ def _attn_inputs(gen, q_len, B=4, Hq=32, Hkv=8, D=128, S=128):
     q = torch.randn(B, q_len, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
     return q, PagedKVCache(kv), tables.cuda(), ctx_t
+
+
+KV8 = ("int8", "fp8_e4m3", "fp8_e5m2")
+KV8_TOL = {"int8": 4e-2, "fp8_e4m3": 4e-2, "fp8_e5m2": 8e-2}
+
+
+def _attn_inputs_kv(gen, q_len, kv_dtype, B=4, Hq=32, Hkv=8, D=128, S=128):
+    """The shapes of _attn_inputs over a cache of ``kv_dtype``, every page of
+    layer 1 filled through update_layer (the production write)."""
+    from qspec_tpu_torch.ops import kv_cache as kvc
+    q, bf16_cache, tables, ctx = _attn_inputs(gen, q_len, B, Hq, Hkv, D, S)
+    P = bf16_cache.kv_pages.shape[1]
+    cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, P, S, kv_dtype), "cuda")
+    T = (P - 1) * S
+    k_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    v_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kvc.update_layer(cache, 1, k_new, v_new, torch.arange(T, device="cuda") + S)
+    return q, cache, tables, ctx
+
+
+def check_attention_kv8(gen, report):
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    for kv_dtype in KV8:
+        err, tol = 0.0, KV8_TOL[kv_dtype]
+        for q_len in (1, 4, 128):
+            q, cache, tables, ctx = _attn_inputs_kv(gen, q_len, kv_dtype)
+            out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5,
+                                       layer=1, kv_scales=cache.kv_scales)
+            ref = paged_attention_ref(q, cache, 1, tables, ctx, 128 ** -0.5)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+            err = max(err, (out.float() - ref.float()).abs().max().item())
+        report[f"paged_attention_{kv_dtype}"].update(max_err=err, tol=f"rtol=atol={tol}")
+        log(f"check paged_attention {kv_dtype} KV: max_abs_err {err:.3g} "
+            f"(tol rtol=atol={tol}; Q in 1,4,128; cache filled by update_layer)")
 
 
 def check_attention(gen, report):
@@ -211,7 +305,7 @@ def check_attention(gen, report):
     log(f"check paged_attention: max_abs_err {err:.3g} (tol rtol=atol=3e-2; Q in 1,2,4,128)")
 
 
-def time_kernels(gen, report, detail):
+def time_kernels(gen, report):
     """Per kernel, at the main path's shape: kernel, plain version, library
     call; bound from the bytes and operations of this call's inputs."""
     from qspec_tpu_torch.ops import linear_kernels as lk
@@ -251,9 +345,6 @@ def time_kernels(gen, report, detail):
                 nbytes = m * k + 4 * m + wbytes + m * n * 2
                 b, kind = bound_ms(nbytes, 2 * m * k * n, "int8")
             t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
-            detail.append({"kernel": name, "M": m, "K": k, "N": n, "ms": t_k,
-                           "plain_ms": t_p, "bound_ms": b, "bound_by": kind,
-                           "gbytes_per_s": nbytes / (t_k * 1e-3) / 1e9})
             log(f"time {name} M={m} K={k} N={n}: {t_k:.4f} ms, plain {t_p:.4f} ms, "
                 f"bound {b:.4f} ms ({kind}), {nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s")
             tot["ms"] += t_k
@@ -283,38 +374,107 @@ def time_kernels(gen, report, detail):
     log(f"time rmsnorm_quant M=4 H=4096: {t_k:.4f} ms, plain {t_p:.4f}, "
         f"bound {b:.5f} ({kind})")
 
-    # attention at the verify width: B=4, Q=4, contexts of 1-4 pages
+    # the int8 head: draft width M=4 and verify width M=16; the yardstick is
+    # torch._weight_int8pack_mm (same function, weights [N, K], bf16 out)
+    _, k, n = HEAD_SHAPE
+    wbytes = k * n + 4 * n
+    rot = Rotating(lambda: _w8(gen, k, n), wbytes)
+
+    def transposed():
+        qw, qs = _w8(gen, k, n)
+        return qw.t().contiguous(), qs.to(torch.bfloat16)
+    rot_t = Rotating(transposed, wbytes)
+    for m in (4, 16):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def kern():
+            qw, qs = rot.next()
+            lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
+
+        def plain():
+            qw, qs = rot.next()
+            lk.matmul_w8a16_ref(x, qw, qs, out_dtype=torch.float32)
+
+        def library():
+            qwt, qsb = rot_t.next()
+            torch._weight_int8pack_mm(x, qwt, qsb)
+        nbytes = m * k * 2 + wbytes + m * n * 4
+        b, kind = bound_ms(nbytes, 2 * m * k * n, "bf16")
+        t_k, t_p, t_l = graph_ms(kern), graph_ms(plain, reps=3), graph_ms(library)
+        log(f"time matmul_w8a16 M={m} K={k} N={n}: {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"_weight_int8pack_mm {t_l:.4f} ms, bound {b:.4f} ms ({kind}), "
+            f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s")
+        if m == 16:
+            report["matmul_w8a16"].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                          bound_ms=b, bound_by=kind,
+                                          shape=f"lm_head M=16, K={k}, N={n}, f32 out")
+    del rot, rot_t
+    torch.cuda.empty_cache()
+
+    # attention at the verify width (B=4, contexts of 1-4 pages) over the
+    # bf16 cache and the 8-bit ones (1-byte entries, + f32 per-token scales
+    # for int8 and e4m3); each input set rotated past L2, as the GEMMs' are
     for q_len in (1, 4, 128):
-        q, cache, tables, ctx = _attn_inputs(gen, q_len)
-        t_k = graph_ms(lambda: paged_attention_cuda(q, cache.kv_pages, tables, ctx,
-                                                    128 ** -0.5, layer=1))
-        t_p = graph_ms(lambda: paged_attention_ref(q, cache, 1, tables, ctx, 128 ** -0.5),
-                       reps=3)
-        live = ctx.cpu().tolist()
-        B, _, Hq, D = q.shape
-        Hkv = cache.kv_pages.shape[3]
-        kv_bytes = sum(live) * Hkv * D * 2 * 2
-        nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + 8 * B
-        # causal work: query i of a row sees ctx - Q + i + 1 positions
-        seen = sum(sum(c - q_len + i + 1 for i in range(q_len)) for c in live)
-        b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
-        detail.append({"kernel": "paged_attention", "B": B, "Q": q_len, "ctx": live,
-                       "ms": t_k, "plain_ms": t_p, "bound_ms": b, "bound_by": kind})
-        log(f"time paged_attention B=4 Q={q_len} ctx={live}: {t_k:.4f} ms, "
-            f"plain {t_p:.4f}, bound {b:.5f} ({kind})")
-        if q_len == 4:
-            report["paged_attention"].update(ms=t_k, plain_ms=t_p, library_ms=None,
-                                             bound_ms=b, bound_by=kind,
-                                             shape=f"B=4, Q=4, ctx={live}")
+        t_bf16 = None
+        for kv_dtype in ("bfloat16", *KV8):
+            name = "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
+            live = _ctx_lens(q_len)
+            B, Hq, Hkv, D = 4, 32, 8, 128
+            entry = 2 if kv_dtype == "bfloat16" else 1
+            kv_bytes = sum(live) * Hkv * D * 2 * entry
+            sc_bytes = sum(live) * Hkv * 2 * 4 if kv_dtype in ("int8", "fp8_e4m3") else 0
+            rot = Rotating(lambda: (_attn_inputs(gen, q_len) if kv_dtype == "bfloat16"
+                                    else _attn_inputs_kv(gen, q_len, kv_dtype)),
+                           kv_bytes + sc_bytes)
+            q, _, tables, _ = rot.sets[0]
+
+            def kern():
+                q, cache, tables, ctx = rot.next()
+                paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5,
+                                     layer=1, kv_scales=cache.kv_scales)
+
+            def plain():
+                q, cache, tables, ctx = rot.next()
+                paged_attention_ref(q, cache, 1, tables, ctx, 128 ** -0.5)
+            t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
+            nbytes = 2 * q.numel() * 2 + kv_bytes + sc_bytes + tables.numel() * 4 + 8 * B
+            # causal work: query i of a row sees ctx - Q + i + 1 positions
+            seen = sum(sum(c - q_len + i + 1 for i in range(q_len)) for c in live)
+            b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+            if kv_dtype == "bfloat16":
+                t_bf16 = t_k
+            log(f"time {name} B=4 Q={q_len} ctx={live}: {t_k:.4f} ms (bf16 cache "
+                f"{t_bf16:.4f}), plain {t_p:.4f}, bound {b:.5f} ({kind})")
+            if q_len == 4:
+                report[name].update(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b,
+                                    bound_by=kind, shape=f"B=4, Q=4, ctx={live}, "
+                                    f"{kv_dtype} KV")
+            del rot, q, tables
+        torch.cuda.empty_cache()
 
 
-def phase_small_reference():
+def bound_w4a16_g():
+    """The bound of matmul_w4a16_g (not ported yet) at Llama-3-8B AWQ
+    shapes, computed from its inputs: one layer's four projections at M=16,
+    group 128, packed int4 weights plus f32 scales and offsets per (group,
+    column) (model_loader/grouped.py), bf16 x and out."""
+    m, g = 16, 128
+    nbytes = ops = 0
+    for k, n in GEMM_SHAPES:
+        nbytes += k * n // 2 + 2 * (k // g) * n * 4 + m * k * 2 + m * n * 2
+        ops += 2 * m * k * n
+    b, kind = bound_ms(nbytes, ops, "bf16")
+    log(f"bound matmul_w4a16_g (computed, not measured): one layer's qkv+o+gate_up+down "
+        f"at M={m}, g={g}: {nbytes} bytes, {ops} operations -> {b:.5f} ms ({kind})")
+
+
+def phase_small_reference(lm_head_quant: str, kv_dtype: str):
     """The tiny model on the card (kernels) against the same weights on the
     CPU (plain versions)."""
     from qspec_tpu_torch.config import ModelConfig
     from qspec_tpu_torch.models.llama import AttentionBatch, init_params, model_forward
     from qspec_tpu_torch.ops import kv_cache as kvc
-    cfg = ModelConfig.tiny(lm_head_quant="bf16")
+    cfg = ModelConfig.tiny(lm_head_quant=lm_head_quant)
     cpu = init_params(cfg, seed=3, device="cpu")
 
     def to(tree, dev):
@@ -332,7 +492,7 @@ def phase_small_reference():
         outs = []
         for dev, params in (("cpu", cpu), ("cuda", gpu)):
             cache = kvc.allocate(kvc.KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
-                                                   cfg.cache_head_dim, 8, S), dev)
+                                                   cfg.cache_head_dim, 8, S, kv_dtype), dev)
             pos = torch.arange(Q, device=dev).repeat(B, 1)
             tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
             slot = tables.to(torch.int64).gather(1, pos // S) * S + pos % S
@@ -345,15 +505,31 @@ def phase_small_reference():
         if out.shape != (B, Q, cfg.vocab_size) or not torch.isfinite(out).all():
             raise AssertionError(f"tiny {scheme}: bad logits {tuple(out.shape)}")
         rel = ((out - ref).norm() / ref.norm()).item()
-        log(f"check tiny model_forward {scheme}: relative L2 error {rel:.3g} vs the "
-            f"CPU plain versions (tol {tol}), max abs {(out - ref).abs().max().item():.3g}")
+        log(f"check tiny model_forward {scheme} (head {lm_head_quant}, {kv_dtype} KV): "
+            f"relative L2 error {rel:.3g} vs the CPU plain versions (tol {tol}), "
+            f"max abs {(out - ref).abs().max().item():.3g}")
         if rel > tol:
             raise AssertionError(f"tiny {scheme} logits differ: relative L2 {rel} > {tol}")
 
 
+TRUNK_KERNELS = ("matmul_w4a16", "matmul_w4a4", "rmsnorm", "rmsnorm_quant")
+
+
+def path_kernels(kw: dict) -> set:
+    """The kernels (attention: the instantiation) that the engine path of
+    ``kw`` launches: the trunk's, the int8 head's unless the head is bf16,
+    and the attention instantiation of its KV entry type."""
+    kv = kw.get("kv_cache_dtype", "bfloat16")
+    return {*TRUNK_KERNELS,
+            "paged_attention" if kv == "bfloat16" else f"paged_attention_{kv}",
+            *(() if kw.get("lm_head_quant") == "bf16" else ("matmul_w8a16",))}
+
+
 def spec_vs_oracle(kw: dict, prompts, max_tokens: int):
     """Greedy generation through QSpec, then through the qspec_null oracle on
-    the same weights; the launch counts are those of the QSpec run only."""
+    the same weights; the launch counts are those of the QSpec run only (set
+    to 0 just before it, read just after): every kernel of the path must have
+    launched, and no other (each attention instantiation on its own path)."""
     from qspec_tpu_torch import LLM, SamplingParams
     from qspec_tpu_torch.ops import kernel_wrappers
     sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
@@ -362,14 +538,14 @@ def spec_vs_oracle(kw: dict, prompts, max_tokens: int):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
 
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     spec = [o.output_token_ids for o in llm.generate(prompts, sp)]
     torch.cuda.synchronize()
     t_spec = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: c.launches for name, c in counters.items()}
     m = llm.spec_metrics
 
     params = llm.llm_engine.runner.params
@@ -381,16 +557,19 @@ def spec_vs_oracle(kw: dict, prompts, max_tokens: int):
     torch.cuda.synchronize()
     t_ar = time.perf_counter() - t0
 
-    log(f"e2e {kw['model']}: prompt lengths {[len(p) for p in prompts]}, "
+    log(f"e2e {kw['model']} (head {kw.get('lm_head_quant', 'auto')}, "
+        f"{kw.get('kv_cache_dtype', 'bfloat16')} KV, "
+        f"{kw.get('speculative_draft_scheme', 'w4a4')} draft): prompt lengths {[len(p) for p in prompts]}, "
         f"{max_tokens} greedy tokens each")
-    log(f"e2e {kw['model']} qspec tokens: {spec}")
-    log(f"e2e {kw['model']} oracle tokens: {ar}")
+    log(f"e2e {kw['model']} qspec tokens, first 8 of each: {[t[:8] for t in spec]}")
+    log(f"e2e {kw['model']} oracle tokens, first 8 of each: {[t[:8] for t in ar]}")
     if any(len(t) != max_tokens for t in spec) or spec != ar:
         raise AssertionError(f"{kw['model']}: greedy QSpec tokens differ from the "
                              "qspec_null oracle")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    launched = {n for n, c in launches.items() if c > 0}
+    if launched != path_kernels(kw):
+        raise AssertionError(f"kernels launched on the path: {sorted(launched)}, expected "
+                             f"{sorted(path_kernels(kw))}")
     n_tok = sum(len(t) for t in spec)
     return launches, {
         "acceptance_rate": m.draft_acceptance_rate,
@@ -414,19 +593,26 @@ def phase_tiny_end_to_end():
     log("e2e tiny: greedy QSpec == oracle: " + json.dumps(summary))
     if summary["acceptance_rate"] <= 0:
         raise AssertionError("tiny model: no draft token was accepted")
+    # the defaults (int8 head) over each 8-bit cache
+    kw.pop("lm_head_quant")
+    launches = {}
+    for kv_dtype in KV8:
+        launches[kv_dtype], summary = spec_vs_oracle({**kw, "kv_cache_dtype": kv_dtype},
+                                                     prompts, 20)
+        log(f"e2e tiny, int8 head, {kv_dtype} KV: greedy QSpec == oracle: "
+            + json.dumps(summary))
+        if summary["acceptance_rate"] <= 0:
+            raise AssertionError(f"tiny model, {kv_dtype} KV: no draft token was accepted")
+    return launches
 
 
-def phase_end_to_end(smi: str):
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, 128000, size=int(n)).tolist()
-               for n in rng.integers(64, 193, size=4)]
-    kw = dict(model="llama3-8b", device="cuda", quantization="qspec",
-              lm_head_quant="bf16", num_speculative_tokens=3, max_model_len=512,
-              max_num_seqs=4, seed=0)
+def _e2e_8b(kw: dict, prompts, smi: str):
+    """One 8B path: the W4A4 draft (launch counts read from it), then the
+    W4A8 draft, whose drafts are accepted at this width."""
     torch.cuda.reset_peak_memory_stats()
     launches, summary = spec_vs_oracle(kw, prompts, 32)
     summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=smi)
-    log("e2e llama3-8b: greedy QSpec == oracle, all kernels launched: "
+    log("e2e llama3-8b: greedy QSpec == oracle, the path's kernels launched: "
         + json.dumps(summary))
     # random weights leave the W4A4 draft no agreement with the target at
     # this width; the W4A8 draft (same kernels, 8-bit activations) does
@@ -435,7 +621,22 @@ def phase_end_to_end(smi: str):
     log("e2e llama3-8b, w4a8 draft: greedy QSpec == oracle: " + json.dumps(w4a8))
     if w4a8["acceptance_rate"] <= 0:
         raise AssertionError("llama3-8b w4a8 draft: no draft token was accepted")
-    return launches, summary
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_end_to_end(smi: str):
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 128000, size=int(n)).tolist()
+               for n in rng.integers(64, 193, size=4)]
+    base = dict(model="llama3-8b", device="cuda", quantization="qspec",
+                num_speculative_tokens=3, max_model_len=512, max_num_seqs=4, seed=0)
+    # the first slice's path: the bf16 head over a bf16 cache
+    first = _e2e_8b({**base, "lm_head_quant": "bf16"}, prompts, smi)
+    # this slice's path: LLM(model="llama3-8b") at the JAX package's
+    # defaults (no head argument: the int8 head) with an int8 KV cache
+    default = _e2e_8b({**base, "kv_cache_dtype": "int8"}, prompts, smi)
+    return first, default
 
 
 KERNEL_META = {
@@ -449,34 +650,55 @@ KERNEL_META = {
                       "qspec_tpu/ops/rmsnorm_quant.py:68 (_rmsnorm_quant_kernel)"),
     "paged_attention": ("qspec_tpu_torch/csrc/paged_attention.cu",
                         "qspec_tpu/ops/attention_pallas.py:52 (_paged_attn_kernel)"),
+    "matmul_w8a16": ("qspec_tpu_torch/csrc/w8a16.cu",
+                     "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel)"),
 }
+# the 8-bit instantiations of the attention kernel: (source, TPU kernel)
+KV8_META = {f"paged_attention_{dt}": (
+    "qspec_tpu_torch/csrc/paged_attention.cu",
+    "qspec_tpu/ops/attention_pallas.py:52 (_paged_attn_kernel, 8-bit KV option)")
+    for dt in KV8}
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = {name: {} for name in KERNEL_META}
+    report = {name: {} for name in (*KERNEL_META, *KV8_META)}
     check_gemms(gen, report)
+    check_w8a16(gen, report)
     check_norms(gen, report)
     check_attention(gen, report)
-    detail = []
-    time_kernels(gen, report, detail)
-    phase_small_reference()
-    phase_tiny_end_to_end()
-    launches, _ = phase_end_to_end(smi)
+    check_attention_kv8(gen, report)
+    time_kernels(gen, report)
+    bound_w4a16_g()
+    phase_small_reference("bf16", "bfloat16")
+    phase_small_reference("auto", "int8")
+    tiny = phase_tiny_end_to_end()
+    first, default = phase_end_to_end(smi)
 
+    # each row's launches from the 8B run of its own path (W4A4 draft): the
+    # bf16 instantiation from the first slice's (bf16 head, bf16 KV), the
+    # rest from this slice's (defaults, int8 KV); the fp8 instantiations,
+    # which no 8B run takes, from the tiny model's run over their cache
     kernels = []
-    for name, (source, replaces) in KERNEL_META.items():
+    for name, (source, replaces) in {**KERNEL_META, **KV8_META}.items():
         r = report[name]
+        if name == "paged_attention":
+            n_launch, where = first[name], "llama3-8b, bf16 head, bf16 KV, w4a4 draft"
+        elif name.startswith("paged_attention_fp8"):
+            dt = name.split("_", 2)[2]
+            n_launch, where = tiny[dt][name], f"tiny, int8 head, {dt} KV, w4a4 draft"
+        else:
+            n_launch, where = default[name], "llama3-8b, int8 head, int8 KV, w4a4 draft"
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "tpu_kernel": replaces, "launches": launches[name],
-            "max_abs_err": r["max_err"], "max_err": r["max_err"], "tol": r["tol"],
-            "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],
+            "tol": r["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"], "card": smi})
-    log("detail: " + json.dumps(detail))
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,10 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("w4a16.cu", "w4a4.cu", "rmsnorm.cu", "paged_attention.cu")
+SOURCES = ("w4a16.cu", "w4a4.cu", "w8a16.cu", "rmsnorm.cu", "paged_attention.cu")
+# seconds the nvcc call may take before the build is abandoned (a hung
+# compiler would otherwise hang the first kernel launch)
+NVCC_TIMEOUT_S = 300
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,10 +40,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "qspec_w4a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_w4a4": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "qspec_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_rmsnorm": (_P, _P, _P, _I, _I, _F, _P),
     "qspec_rmsnorm_quant": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
-    "qspec_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _F, _P),
+    "qspec_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _P),
 }
 
 _lib = None
@@ -102,7 +106,14 @@ def build() -> Path:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
            *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        tmp.unlink(missing_ok=True)
+        out = "".join(x.decode() if isinstance(x, bytes) else (x or "")
+                      for x in (e.stderr, e.stdout))
+        raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s:\n{out}") from e
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}"

@@ -30,8 +30,8 @@ class ModelConfig:
     max_position_embeddings: int = 8192
     # "w4": QuaRot packed int4, per-channel symmetric (dual-scheme QSpec)
     quant: str = "w4"
-    # vocab-projection weight dtype; "auto" = int8 for w4 checkpoints. Only
-    # "bf16" is ported so far (the int8 head's kernel, matmul_w8a16, is not)
+    # vocab-projection weight dtype; "auto" = int8 for w4 checkpoints (the
+    # int8 head runs matmul_w8a16, the int4 head matmul_w4a16)
     lm_head_quant: str = "auto"       # "auto" | "bf16" | "int8" | "int4"
 
     @property
@@ -83,7 +83,8 @@ class CacheConfig:
 
     page_size: int = 128
     num_pages: Optional[int] = None      # None -> derive from free memory
-    kv_cache_dtype: str = "bfloat16"     # only "bfloat16" is ported
+    # "bfloat16" | "int8" | "fp8_e4m3" | "fp8_e5m2" (ops/kv_cache.py)
+    kv_cache_dtype: str = "bfloat16"
     enable_prefix_caching: bool = True
     gpu_memory_utilization: float = 0.9
 

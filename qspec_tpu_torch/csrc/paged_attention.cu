@@ -1,20 +1,29 @@
 // Paged attention for Hopper: decode (Q=1), QSpec verify (Q=k+1), the draft's
-// Q=2 backfill step and chunked prefill, over the bf16 paged KV cache.
+// Q=2 backfill step and chunked prefill, over the paged KV cache with bf16,
+// int8, fp8_e4m3 or fp8_e5m2 entries.
 //
 // Replaces the TPU kernel qspec_tpu/ops/attention_pallas.py:_paged_attn_kernel
-// (entry paged_attention_pallas), its bf16 causal core: flash attention with
-// an online softmax over the sequence's live pages, GQA rows
-// G = (Hq / Hkv) * Q per kv head (Q minor), a causal mask by absolute
+// (entry paged_attention_pallas), its causal core and its 8-bit KV option:
+// flash attention with an online softmax over the sequence's live pages, GQA
+// rows G = (Hq / Hkv) * Q per kv head (Q minor), a causal mask by absolute
 // position (query i of row b sits at q_start[b] + i).
 //
-// Layouts: q [B, Q, Hq, D] bf16; the layer's cache [P, 2, Hkv, S, D] bf16
-// (K at index 0, V at 1; page 0 is the null page); block_tables [B, PPS]
-// int32; ctx_lens [B] int32 (tokens including the new ones); out like q.
+// Layouts: q [B, Q, Hq, D] bf16; the layer's cache [P, 2, Hkv, S, D] of
+// entries T (K at index 0, V at 1; page 0 is the null page); for int8 and
+// fp8_e4m3 the layer's scales [P, 2, Hkv, S] f32, one per (k/v, head,
+// token); block_tables [B, PPS] int32; ctx_lens [B] int32 (tokens including
+// the new ones); out like q.
+//
+// 8-bit entries, with the Pallas kernel's semantics: K's per-token scale
+// multiplies the token's scores, V's multiplies its probabilities before
+// P.V (the softmax sum takes the unscaled probabilities); fp8_e5m2 is a bare
+// cast. Entries are widened to f32 exactly at the staging load.
 //
 // What bounds it on the H100: every live K/V byte is read once per
 // (sequence, kv head, query tile) and used for 4 operations per element per
 // query row, so at decode and verify widths (G = 4..16 rows) it is bound by
-// device-memory bytes; at prefill (G in the hundreds) by operations.
+// device-memory bytes; at prefill (G in the hundreds) by operations. 8-bit
+// entries halve the bytes.
 //
 // What the design does about that: one block per (query tile of 8 GQA rows,
 // kv head, sequence), so the group's query heads share each K/V read. The
@@ -31,6 +40,7 @@
 // walks. Rows with ctx_len == 0 (padding) read nothing and write zeros.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,7 +58,7 @@ struct Smem {
   union {
     struct {
       float k[kWarps][kWarpTok][kD + 1];  // +1: conflict-free token-per-lane reads
-      float v[kWarps][kWarpTok][kD];
+      float v[kWarps][kWarpTok][kD + 4];  // +4: fewer conflicts on 1-byte staging
     } kv;
     float acc[kWarps][kRows][kD];       // per-warp P.V, for the final merge
   } u;
@@ -58,9 +68,17 @@ struct Smem {
   float l[kWarps][kRows];
 };
 
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) { return static_cast<float>(v); }
+
+// T: the cache's entry type; kScaled: per-token scales (int8, fp8_e4m3)
+template <typename T, bool kScaled>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ kv,
+                       const T* __restrict__ kv,
+                       const float* __restrict__ kv_scales,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ ctx_lens,
                        const int* __restrict__ q_start,
@@ -131,27 +149,37 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t head_stride = (size_t)S * kD;
   const size_t page_stride = 2 * (size_t)Hkv * head_stride;
   float (*ks)[kD + 1] = sm.u.kv.k[warp];
-  float (*vs)[kD] = sm.u.kv.v[warp];
+  float (*vs)[kD + 4] = sm.u.kv.v[warp];
+  constexpr int kVec = 16 / sizeof(T);      // entries per 16-byte load
+  constexpr int kVecs = kD / kVec;          // 16-byte loads per token row
 
   for (int t0 = warp * kWarpTok; t0 < n_tok; t0 += kStep) {
     const int page = block_tables[(size_t)b * pages_per_seq + t0 / S];
     const int off = t0 % S;   // 16 tokens never straddle a page (S % 16 == 0)
-    const __nv_bfloat16* kb = kv + (size_t)page * page_stride + h * head_stride + (size_t)off * kD;
-    const __nv_bfloat16* vb = kb + (size_t)Hkv * head_stride;
+    const T* kb = kv + (size_t)page * page_stride + h * head_stride + (size_t)off * kD;
+    const T* vb = kb + (size_t)Hkv * head_stride;
 #pragma unroll
-    for (int it = 0; it < kWarpTok * (kD / 8) / 32; ++it) {
+    for (int it = 0; it < kWarpTok * kVecs / 32; ++it) {
       const int idx = it * 32 + lane;
-      const int tt = idx / (kD / 8);
-      const int c8 = idx % (kD / 8);
-      const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kb + tt * kD + c8 * 8));
-      const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vb + tt * kD + c8 * 8));
-      const __nv_bfloat16* ke = reinterpret_cast<const __nv_bfloat16*>(&kr);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vr);
+      // bf16: a lane walks along a token row; 1-byte entries: neighbouring
+      // lanes take neighbouring tokens (conflict-free f32 stores)
+      const int tt = sizeof(T) == 2 ? idx / kVecs : idx % kWarpTok;
+      const int cv = sizeof(T) == 2 ? idx % kVecs : idx / kWarpTok;
+      const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kb + tt * kD + cv * kVec));
+      const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vb + tt * kD + cv * kVec));
+      const T* ke = reinterpret_cast<const T*>(&kr);
+      const T* ve = reinterpret_cast<const T*>(&vr);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        ks[tt][c8 * 8 + i] = __bfloat162float(ke[i]);
-        vs[tt][c8 * 8 + i] = __bfloat162float(ve[i]);
+      for (int i = 0; i < kVec; ++i) {
+        ks[tt][cv * kVec + i] = to_f32(ke[i]);
+        vs[tt][cv * kVec + i] = to_f32(ve[i]);
       }
+    }
+    float k_sc = 1.f, v_sc = 1.f;   // this lane's token's scales
+    if (kScaled) {
+      const float* sb = kv_scales + (size_t)page * 2 * Hkv * S + (size_t)h * S + off + tok;
+      k_sc = __ldg(sb);
+      v_sc = __ldg(sb + (size_t)Hkv * S);
     }
     __syncwarp();
 
@@ -161,6 +189,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float s = 0.f;
 #pragma unroll 8
       for (int d = 0; d < kD; ++d) s = fmaf(sm.q[rl][d], ks[tok][d], s);
+      if (kScaled) s *= k_sc;
       const int kv_pos = t0 + tok;
       const bool live = kv_pos <= qpos[rr] && kv_pos < ctx;
       float cm = live ? s : kNegInf;
@@ -174,7 +203,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int o = 8; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
       l_run[rr] = l_run[rr] * alpha + psum;
       m_run[rr] = m_new;
-      sm.p[warp][rl][tok] = p;
+      sm.p[warp][rl][tok] = kScaled ? p * v_sc : p;
       if (tok == 0) sm.alpha[warp][rl] = alpha;
     }
     __syncwarp();
@@ -241,31 +270,63 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   *reinterpret_cast<uint4*>(out + ((size_t)(b * Q + qi) * Hq + hq) * kD + d0) = packed;
 }
 
-}  // namespace
-
-// q [B, Q, Hq, 128] bf16; kv = the layer's [P, 2, Hkv, S, 128] bf16 pages;
-// block_tables [B, pages_per_seq] int32; ctx_lens, q_start [B] int32;
-// out [B, Q, Hq, 128] bf16. S % 16 == 0, Hq % Hkv == 0.
-extern "C" int qspec_paged_attention(const void* q, const void* kv,
-                                     const void* block_tables,
-                                     const void* ctx_lens, const void* q_start,
-                                     void* out, int B, int Q, int Hq, int Hkv,
-                                     int S, int pages_per_seq, float scale,
-                                     void* stream) {
+template <typename T, bool kScaled>
+int launch(const void* q, const void* kv, const void* kv_scales,
+           const void* block_tables, const void* ctx_lens, const void* q_start,
+           void* out, int B, int Q, int Hq, int Hkv, int S, int pages_per_seq,
+           float scale, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem));   // above the 48 KB default
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        paged_attention_kernel<T, kScaled>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int G = (Hq / Hkv) * Q;
   dim3 grid((G + kRows - 1) / kRows, Hkv, B);
-  paged_attention_kernel<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
-      static_cast<const int*>(block_tables), static_cast<const int*>(ctx_lens),
-      static_cast<const int*>(q_start), static_cast<__nv_bfloat16*>(out), Q, Hq,
-      Hkv, S, pages_per_seq, scale);
+  paged_attention_kernel<T, kScaled><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kv),
+      static_cast<const float*>(kv_scales), static_cast<const int*>(block_tables),
+      static_cast<const int*>(ctx_lens), static_cast<const int*>(q_start),
+      static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, S, pages_per_seq, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q [B, Q, Hq, 128] bf16; kv = the layer's [P, 2, Hkv, S, 128] pages of
+// kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2; kv_scales = the layer's
+// [P, 2, Hkv, S] f32 scales for int8 and fp8_e4m3 (else unused);
+// block_tables [B, pages_per_seq] int32; ctx_lens, q_start [B] int32;
+// out [B, Q, Hq, 128] bf16. S % 16 == 0, Hq % Hkv == 0.
+extern "C" int qspec_paged_attention(const void* q, const void* kv,
+                                     const void* kv_scales,
+                                     const void* block_tables,
+                                     const void* ctx_lens, const void* q_start,
+                                     void* out, int B, int Q, int Hq, int Hkv,
+                                     int S, int pages_per_seq, int kv_dtype,
+                                     float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kv_dtype) {
+    case 0:
+      return launch<__nv_bfloat16, false>(q, kv, kv_scales, block_tables, ctx_lens,
+                                          q_start, out, B, Q, Hq, Hkv, S,
+                                          pages_per_seq, scale, st);
+    case 1:
+      return launch<int8_t, true>(q, kv, kv_scales, block_tables, ctx_lens,
+                                  q_start, out, B, Q, Hq, Hkv, S, pages_per_seq,
+                                  scale, st);
+    case 2:
+      return launch<__nv_fp8_e4m3, true>(q, kv, kv_scales, block_tables, ctx_lens,
+                                         q_start, out, B, Q, Hq, Hkv, S,
+                                         pages_per_seq, scale, st);
+    case 3:
+      return launch<__nv_fp8_e5m2, false>(q, kv, kv_scales, block_tables, ctx_lens,
+                                          q_start, out, B, Q, Hq, Hkv, S,
+                                          pages_per_seq, scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -26,7 +26,8 @@ class EngineArgs:
     block_size: int = 128
     num_pages: Optional[int] = None      # None -> derive from free memory
     gpu_memory_utilization: float = 0.9
-    lm_head_quant: str = "auto"          # auto|bf16|int8|int4 (bf16 ported)
+    lm_head_quant: str = "auto"          # auto|bf16|int8|int4
+    kv_cache_dtype: str = "bfloat16"     # bfloat16|int8|fp8_e4m3|fp8_e5m2
     enable_chunked_prefill: bool = True
     prefill_chunk_size: int = 512
     enable_prefix_caching: bool = True
@@ -61,6 +62,7 @@ class EngineArgs:
             model=self.model_config(),
             cache=CacheConfig(page_size=self.block_size,
                               num_pages=self.num_pages,
+                              kv_cache_dtype=self.kv_cache_dtype,
                               enable_prefix_caching=self.enable_prefix_caching,
                               gpu_memory_utilization=self.gpu_memory_utilization),
             scheduler=SchedulerConfig(

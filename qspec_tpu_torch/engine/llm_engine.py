@@ -22,6 +22,7 @@ from qspec_tpu_torch.core.scheduler import ScheduledBatch, Scheduler
 from qspec_tpu_torch.core.sequence import Sequence
 from qspec_tpu_torch.engine.model_runner import ModelRunner, make_sampling_tensors
 from qspec_tpu_torch.models.llama import resolve_device
+from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.metrics import SpecDecodeMetrics
 
@@ -83,8 +84,11 @@ class LLMEngine:
         if self.device.type != "cuda":
             return need
         free, _ = torch.cuda.mem_get_info(self.device)
-        page_bytes = (2 * mc.num_layers * cc.page_size * mc.cache_kv_heads
-                      * mc.cache_head_dim * 2)
+        # one page of every layer: entries plus, for int8 / e4m3, its scales
+        page_bytes = kvc.kv_cache_bytes(kvc.KVCacheConfig(
+            num_layers=mc.num_layers, num_kv_heads=mc.cache_kv_heads,
+            head_dim=mc.cache_head_dim, num_pages=1, page_size=cc.page_size,
+            dtype=cc.kv_cache_dtype))
         n_caches = 2 if self.spec is not None else 1
         fit = int(free * cc.gpu_memory_utilization // (page_bytes * n_caches))
         return max(2, min(need, fit))

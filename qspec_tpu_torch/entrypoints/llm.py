@@ -3,8 +3,12 @@
 Port of ``qspec_tpu/entrypoints/llm.py`` for token-id prompts:
 
     from qspec_tpu_torch import LLM, SamplingParams
-    llm = LLM(model="llama3-8b", lm_head_quant="bf16", num_speculative_tokens=3)
+    llm = LLM(model="llama3-8b", num_speculative_tokens=3)
     outs = llm.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=32))
+
+At the JAX package's defaults the head is int8 (``lm_head_quant="auto"``)
+and the KV cache bf16; ``kv_cache_dtype="int8"``, ``"fp8_e4m3"`` or
+``"fp8_e5m2"`` halves the cache's bytes.
 
 Without ``params`` the weights are random, made on the device from ``seed``
 (``models.llama.init_params``).

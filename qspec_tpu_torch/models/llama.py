@@ -13,7 +13,9 @@ Per layer (QuaRot checkpoints, norms weightless):
       - down(w4) - +residual
 
 Parameters are a plain dict with the JAX package's layout: ``embed`` [V, H]
-bf16; ``lm_head`` [H, V] bf16; ``layers[name] = {"qw": int32 [L, K//8, N],
+bf16; ``lm_head`` by ``ModelConfig.lm_head_quant``: ``{"qw8": int8 [H, V],
+"qs": f32 [V]}`` (int8, the default for w4), ``{"qw": int32 [H//8, V],
+"qs"}`` (int4) or a dense bf16 [H, V]; ``layers[name] = {"qw": int32 [L, K//8, N],
 "qs": f32 [L, N]}`` for qkv / o / gate_up / down; ``rope_cache``;
 ``hadamards``. The layer-stacked weights are read in place by the kernels
 (``layer_idx``).
@@ -37,8 +39,12 @@ from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import paged_attention
 from qspec_tpu_torch.ops.hadamard import decompose_dim, hadamard_matrix
-from qspec_tpu_torch.ops.linear_kernels import matmul_w4a4, matmul_w4a16
-from qspec_tpu_torch.ops.packing import quantize_weight_int4_torch
+from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
+                                                matmul_w8a16)
+from qspec_tpu_torch.ops.packing import (quantize_weight_int4,
+                                         quantize_weight_int4_torch,
+                                         quantize_weight_int8,
+                                         quantize_weight_int8_torch)
 from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
 from qspec_tpu_torch.ops.rmsnorm_quant import rmsnorm, rmsnorm_quant
 from qspec_tpu_torch.ops.rotary import apply_rope, make_rope_cache
@@ -177,17 +183,22 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
 
 
 def compute_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
-    """Vocab projection with a dense bf16 [H, V] head -> f32 logits.
+    """Vocab projection -> f32 logits. ``lm_head`` is a quantized dict
+    (``{"qw8", "qs"}``: int8 by ``matmul_w8a16``; ``{"qw", "qs"}``: packed
+    int4 by ``matmul_w4a16``) or a dense bf16 [H, V] array.
 
-    On the card: one bf16 GEMM with an f32 result, its rows padded to a
-    multiple of 128 so the GEMM library sees one shape whatever the batch
-    (the head is bound by its 1 GB of weight bytes, so the padding rows cost
-    nothing) and a row's logits do not depend on the batch size. On the CPU:
-    float64, whose sums of bf16 products are exact.
+    The dense head on the card: one bf16 GEMM with an f32 result, its rows
+    padded to a multiple of 128 so the GEMM library sees one shape whatever
+    the batch (the head is bound by its 1 GB of weight bytes, so the padding
+    rows cost nothing) and a row's logits do not depend on the batch size.
+    On the CPU: float64, whose sums of bf16 products are exact. The
+    quantized heads' kernels are row-independent by design.
     """
     if isinstance(lm_head, dict):
-        raise NotImplementedError("int8/int4 lm_head (matmul_w8a16) is not "
-                                  "ported yet; use lm_head_quant='bf16'")
+        if "qw8" in lm_head:
+            return matmul_w8a16(x, lm_head["qw8"], lm_head["qs"],
+                                out_dtype=torch.float32)
+        return matmul_w4a16(x, lm_head["qw"], lm_head["qs"], out_dtype=torch.float32)
     if not x.is_cuda:
         return (x.to(torch.float64) @ lm_head.to(torch.float64)).to(torch.float32)
     m = x.shape[0]
@@ -228,11 +239,41 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_head(cfg: ModelConfig) -> None:
-    if cfg.resolved_lm_head_quant != "bf16":
-        raise NotImplementedError(
-            f"lm_head_quant={cfg.resolved_lm_head_quant!r}: only the bf16 head "
-            "is ported (pass lm_head_quant='bf16')")
+HEAD_KINDS = ("bf16", "int8", "int4")
+
+
+def _head_kind(cfg: ModelConfig) -> str:
+    kind = cfg.resolved_lm_head_quant
+    if kind not in HEAD_KINDS:
+        raise ValueError(f"lm_head_quant={cfg.lm_head_quant!r}: not one of "
+                         f"'auto', {', '.join(map(repr, HEAD_KINDS))}")
+    return kind
+
+
+def pack_lm_head(w, cfg: ModelConfig, device="cpu"):
+    """Host-side lm_head packing per ``cfg.lm_head_quant`` (the JAX
+    package's ``pack_lm_head``). w: [H, V] float numpy array."""
+    kind = _head_kind(cfg)
+    dev = torch.device(device)
+    if kind == "int8":
+        q, s = quantize_weight_int8(w)
+        return {"qw8": torch.as_tensor(q, device=dev), "qs": torch.as_tensor(s, device=dev)}
+    if kind == "int4":
+        qw, qs = quantize_weight_int4(w)
+        return {"qw": torch.as_tensor(qw, device=dev), "qs": torch.as_tensor(qs, device=dev)}
+    return torch.as_tensor(np.asarray(w, np.float32), device=dev).to(torch.bfloat16)
+
+
+def _make_lm_head(w: torch.Tensor, kind: str):
+    """The resolved head from a float [H, V] tensor, on its device (the JAX
+    package's ``init_params_device.make_lm_head``)."""
+    if kind == "int8":
+        q, s = quantize_weight_int8_torch(w)
+        return {"qw8": q, "qs": s}
+    if kind == "int4":
+        qw, qs = quantize_weight_int4_torch(w)
+        return {"qw": qw, "qs": qs}
+    return w.to(torch.bfloat16)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -242,7 +283,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     :func:`params_from_numpy`."""
     if cfg.quant != "w4":
         raise NotImplementedError("only QuaRot w4 checkpoints are ported")
-    _check_head(cfg)
+    head_kind = _head_kind(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     H, L = cfg.hidden_size, cfg.num_layers
@@ -259,7 +300,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
         layers[name] = {"qw": qw, "qs": qs}
     return {
         "embed": normal(cfg.vocab_size, H).to(torch.bfloat16),
-        "lm_head": normal(H, cfg.vocab_size).to(torch.bfloat16),
+        "lm_head": _make_lm_head(normal(H, cfg.vocab_size), head_kind),
         "layers": layers,
         "rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
                                       cfg.rope_theta, rope_scaling=cfg.rope_scaling,
@@ -277,18 +318,19 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """Carry the JAX package's parameter tree (leaves converted with
-    ``np.asarray``) over to the port. Packed int4 stays as it is: the
-    kernels read the interchange layout directly."""
+    ``np.asarray``) over to the port. Packed int4 and the int8 head stay as
+    they are: the kernels read the interchange layouts directly."""
     if cfg.quant != "w4":
         raise NotImplementedError("only QuaRot w4 checkpoints are ported")
-    _check_head(cfg)
+    _head_kind(cfg)
     dev = resolve_device(device)
     layers = {name: {"qw": _tensor(tree["layers"][name]["qw"], dev),
                      "qs": _tensor(tree["layers"][name]["qs"], dev)}
               for name in PROJECTIONS}
     return {
         "embed": _tensor(tree["embed"], dev),
-        "lm_head": _tensor(tree["lm_head"], dev),
+        "lm_head": ({k: _tensor(v, dev) for k, v in tree["lm_head"].items()}
+                    if isinstance(tree["lm_head"], dict) else _tensor(tree["lm_head"], dev)),
         "layers": layers,
         "rope_cache": _tensor(tree["rope_cache"], dev).to(torch.float32),
         "hadamards": make_hadamards(cfg, dev),

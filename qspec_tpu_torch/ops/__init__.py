@@ -2,11 +2,20 @@
 
 
 def kernel_wrappers() -> dict:
-    """name -> wrapper of every CUDA kernel; each wrapper carries an integer
-    ``launches`` count, raised by one at each launch of its kernel."""
-    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
-    from qspec_tpu_torch.ops.linear_kernels import matmul_w4a4, matmul_w4a16
+    """name -> launch counter of every CUDA kernel: an object with an integer
+    ``launches`` count, raised by one at each launch of its kernel. A GEMM or
+    norm kernel's counter is its wrapper; the paged-attention kernel has one
+    counter per instantiation (KV entry type): ``paged_attention`` for the
+    bf16 cache, ``paged_attention_<kv dtype>`` for the 8-bit ones."""
+    import torch
+    from qspec_tpu_torch.ops.attention_cuda import LAUNCHES
+    from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
+                                                    matmul_w8a16)
     from qspec_tpu_torch.ops.rmsnorm_quant import rmsnorm, rmsnorm_quant
     return {"matmul_w4a16": matmul_w4a16, "matmul_w4a4": matmul_w4a4,
+            "matmul_w8a16": matmul_w8a16,
             "rmsnorm": rmsnorm, "rmsnorm_quant": rmsnorm_quant,
-            "paged_attention": paged_attention_cuda}
+            "paged_attention": LAUNCHES[torch.bfloat16],
+            "paged_attention_int8": LAUNCHES[torch.int8],
+            "paged_attention_fp8_e4m3": LAUNCHES[torch.float8_e4m3fn],
+            "paged_attention_fp8_e5m2": LAUNCHES[torch.float8_e5m2]}

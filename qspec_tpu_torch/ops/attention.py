@@ -1,17 +1,18 @@
 """Attention over the paged KV cache.
 
-Port of ``qspec_tpu/ops/attention.py`` (bf16 cache, causal). One chunked
-formulation serves every phase:
+Port of ``qspec_tpu/ops/attention.py`` (causal; bf16, int8, fp8_e4m3 and
+fp8_e5m2 caches). One chunked formulation serves every phase:
 
 * decode:  Q = 1 new token per sequence;
 * verify:  Q = k + 1 speculative positions per sequence, scored in one pass;
 * the draft's Q = 2 backfill step and chunked prefill.
 
-``paged_attention_ref`` is the plain version (gather the pages, dense masked
-softmax in f32); ``paged_attention`` dispatches CUDA tensors to the kernel
-(``attention_cuda.py``). The JAX package's other options (sliding window,
-logit softcap, ALiBi, the Medusa tree mask, int8/fp8 caches) are not ported
-yet and raise.
+``paged_attention_ref`` is the plain version (gather the pages, dequantized
+to bf16 when the cache is 8-bit, dense masked softmax in f32);
+``paged_attention`` dispatches CUDA tensors to the kernel
+(``attention_cuda.py``), which reads 8-bit pages and their scales as they
+are. The JAX package's other options (sliding window, logit softcap, ALiBi,
+the Medusa tree mask) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
     if q.is_cuda:
         from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
         out = paged_attention_cuda(q, cache.kv_pages, block_tables, ctx_lens,
-                                   scale, q_positions=q_positions, layer=layer)
+                                   scale, q_positions=q_positions, layer=layer,
+                                   kv_scales=cache.kv_scales)
     else:
         out = paged_attention_ref(q, cache, layer, block_tables, ctx_lens,
                                   scale, q_positions=q_positions)

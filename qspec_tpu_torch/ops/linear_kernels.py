@@ -1,8 +1,8 @@
-"""The two packed-int4 GEMMs of QSpec: plain PyTorch versions and the wrappers
-of their CUDA kernels.
+"""The quantized GEMMs: plain PyTorch versions and the wrappers of their
+CUDA kernels.
 
 Port of ``qspec_tpu/ops/linear_kernels.py``. One packed-int4 weight buffer
-(see packing.py) serves both:
+(see packing.py) serves the two GEMMs of QSpec:
 
 * ``matmul_w4a16``: the verify GEMM, bf16 activations x int4 weights with
   f32 accumulation (kernel ``csrc/w4a16.cu``). At prefill widths it takes
@@ -13,6 +13,14 @@ Port of ``qspec_tpu/ops/linear_kernels.py``. One packed-int4 weight buffer
 * ``matmul_w4a4``: the draft GEMM, int8 activations (int4 range for w4a4,
   full for w4a8) x int4 weights with exact int32 accumulation and a
   per-token x per-channel scale epilogue (kernel ``csrc/w4a4.cu``).
+
+and an int8 [K, N] weight with per-channel scales serves
+
+* ``matmul_w8a16``: bf16 activations x int8 weights with f32 accumulation,
+  the default (int8) lm_head of QuaRot checkpoints (kernel
+  ``csrc/w8a16.cu``). Past the same prefill threshold it is one
+  ``torch.mm`` over the weights widened to bf16, with an f32 result, as the
+  JAX package leaves that case to XLA.
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; each launch adds one to the
@@ -64,10 +72,30 @@ def matmul_w4a4_ref(x_q: torch.Tensor, x_scales: torch.Tensor,
     return out.to(torch.bfloat16)
 
 
+def matmul_w8a16_ref(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, *,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version: x [M, K] bf16, w_q int8 [K, N], scales [N]. The sums
+    of bf16 x int8 products are taken in float64, where they are exact at
+    these widths, then rounded to f32: a row's result does not depend on
+    the batch (the CPU path keeps greedy QSpec equal to greedy AR)."""
+    acc = x.to(torch.bfloat16).to(torch.float64) @ w_q.to(torch.float64)
+    out = acc.to(torch.float32) * w_scales.to(torch.float32)[None, :]
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
+    return out.to(out_dtype)
+
+
 def _layer(w_packed, w_scales, layer_idx):
     if layer_idx is None:
         return w_packed, w_scales
     return w_packed[layer_idx], w_scales[layer_idx]
+
+
+def _bigm(m: int, k: int) -> bool:
+    """The JAX package's prefill threshold: the bf16 activation tile,
+    rounded up to 16 rows, exceeds BIGM_BYTES."""
+    return max(-(-m // 16) * 16, 16) * 2 * k > BIGM_BYTES
 
 
 def _check_w4(k: int, w: torch.Tensor, s: torch.Tensor, name: str) -> int:
@@ -102,7 +130,7 @@ def matmul_w4a16(x: torch.Tensor, w_packed: torch.Tensor, w_scales: torch.Tensor
     if not x.is_cuda:
         return matmul_w4a16_ref(x, w, s, bias, out_dtype=out_dtype)
     m, k = x.shape
-    if max(-(-m // 16) * 16, 16) * 2 * k > BIGM_BYTES:
+    if _bigm(m, k):
         out = _w4a16_bigm(x, w, s, out_dtype)
     else:
         n = _check_w4(k, w, s, "matmul_w4a16")
@@ -151,3 +179,44 @@ def matmul_w4a4(x_q: torch.Tensor, x_scales: torch.Tensor, w_packed: torch.Tenso
 
 
 matmul_w4a4.launches = 0
+
+
+def matmul_w8a16(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
+                 layer_idx: Optional[int] = None) -> torch.Tensor:
+    """x [M, K] bf16 @ int8 w [K, N] (per-channel scales [N]) -> [M, N]
+    out_dtype. With ``layer_idx`` the weights are the stacked [L, K, N] /
+    [L, N] arrays and the kernel reads layer ``layer_idx`` in place."""
+    w, s = _layer(w_q, w_scales, layer_idx)
+    if not x.is_cuda:
+        return matmul_w8a16_ref(x, w, s, bias, out_dtype=out_dtype)
+    m, k = x.shape
+    _build.require(w.dtype == torch.int8 and w.dim() == 2 and w.shape[0] == k,
+                   f"matmul_w8a16: int8 weights [K, N] with K={k}")
+    n = w.shape[1]
+    _build.require(s.dtype == torch.float32 and tuple(s.shape) == (n,),
+                   "matmul_w8a16: weight scales f32 [N]")
+    if _bigm(m, k):
+        # prefill width: widen the weights once, one bf16 GEMM, f32 result
+        acc = torch.mm(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                       out_dtype=torch.float32)
+        out = (acc * s[None, :]).to(out_dtype)
+    else:
+        _build.require(k % 16 == 0 and n % 8 == 0,
+                       f"matmul_w8a16: K % 16 == 0 and N % 8 == 0, got K={k} N={n}")
+        _build.require(x.dtype == torch.bfloat16, "matmul_w8a16: x bf16")
+        _build.require(out_dtype in (torch.bfloat16, torch.float32),
+                       "matmul_w8a16: out_dtype bf16 or f32")
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+        if m:
+            _build.cuda_args_ok(x, w, s, out)
+            _build.check("matmul_w8a16", _build.lib().qspec_w8a16(
+                x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+                m, k, n, int(out_dtype == torch.float32), _build.stream_of(x)))
+            matmul_w8a16.launches += 1
+    if bias is not None:
+        out = out + bias[None, :].to(out.dtype)
+    return out
+
+
+matmul_w8a16.launches = 0

@@ -10,6 +10,9 @@ w[r + in//2] (halves pairing), both stored excess-8 (v + 8, range [0, 15]).
 This is the layout of ``qspec_tpu/ops/packing.py:pack_int4``; the CUDA GEMMs
 (``csrc/w4a16.cu``, ``csrc/w4a4.cu``) decode it in registers as it is, so no
 repacking happens at load.
+
+The int8 lm_head is plain int8 ``[in, out]`` with one f32 scale per output
+channel (``quantize_weight_int8``), read as it is by ``csrc/w8a16.cu``.
 """
 
 from __future__ import annotations
@@ -90,3 +93,21 @@ def quantize_weight_int4_torch(w: torch.Tensor):
     scale = absmax.clamp_min(1e-8) / 7.0
     q = torch.clamp(torch.round(w / scale), -8, 7)
     return pack_int4(q), scale.squeeze(0).to(torch.float32)
+
+
+def quantize_weight_int8(w: np.ndarray):
+    """Symmetric per-output-channel int8 quantization of a float [in, out]
+    weight (the lm_head): scale = max(absmax, 1e-8) / 127, values clamped to
+    [-128, 127]. Returns (int8 [in, out], scales f32 [out])."""
+    absmax = np.abs(w).max(axis=0, keepdims=True)
+    scale = np.maximum(absmax, 1e-8) / 127.0
+    q = np.clip(np.rint(w / scale), -128, 127).astype(np.int8)
+    return q, scale.squeeze(0).astype(np.float32)
+
+
+def quantize_weight_int8_torch(w: torch.Tensor):
+    """:func:`quantize_weight_int8` on a tensor, on its own device."""
+    absmax = w.abs().amax(dim=0, keepdim=True)
+    scale = absmax.clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale), -128, 127).to(torch.int8)
+    return q, scale.squeeze(0).to(torch.float32)

@@ -61,8 +61,20 @@ def _sched(**over):
     return d
 
 
-def run_port(cfg, params, prompts, spec=None, **sched):
-    eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16),
+@pytest.fixture(scope="module")
+def setup_default(setup):
+    """The same tiny model at the JAX package's defaults: the int8 head."""
+    jcfg = JModel.tiny(quant="w4")
+    jparams = jllama.init_params(jcfg, seed=0)
+    cfg = ModelConfig.tiny(quant="w4")
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), cfg,
+                               device="cpu")
+    return jcfg, jparams, cfg, params, setup[4]
+
+
+def run_port(cfg, params, prompts, spec=None, kv_cache_dtype="bfloat16", **sched):
+    eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16,
+                                                              kv_cache_dtype=kv_cache_dtype),
                                  scheduler=SchedulerConfig(**_sched(**sched)),
                                  speculative=spec), params, device="cpu")
     for p in prompts:
@@ -77,15 +89,25 @@ def run_port(cfg, params, prompts, spec=None, **sched):
     return [outs[i] for i in range(len(prompts))], eng
 
 
-@pytest.mark.parametrize("k", [1, 3, 5])
-def test_greedy_spec_equals_ar_oracle(setup, k):
+@pytest.mark.parametrize("k,kv_dtype", [
+    pytest.param(1, None, id="1"), pytest.param(3, None, id="3"),
+    pytest.param(5, None, id="5"),
+    # the defaults (int8 head) over each 8-bit KV cache
+    pytest.param(3, "int8", id="3-int8"), pytest.param(3, "fp8_e4m3", id="3-fp8_e4m3"),
+    pytest.param(3, "fp8_e5m2", id="3-fp8_e5m2")])
+def test_greedy_spec_equals_ar_oracle(request, k, kv_dtype):
     """Greedy QSpec == the qspec_null oracle (same rounds, proposals nulled)
-    == plain AR decode, bit for bit."""
-    _, _, cfg, params, prompts = setup
-    spec, eng = run_port(cfg, params, prompts, SpeculativeConfig(num_speculative_tokens=k))
+    == plain AR decode, bit for bit: with the bf16 head over the bf16 cache,
+    and at the defaults (int8 head) over each 8-bit cache."""
+    _, _, cfg, params, prompts = request.getfixturevalue(
+        "setup" if kv_dtype is None else "setup_default")
+    kv = kv_dtype or "bfloat16"
+    spec, eng = run_port(cfg, params, prompts, SpeculativeConfig(num_speculative_tokens=k),
+                         kv_cache_dtype=kv)
     oracle, _ = run_port(cfg, params, prompts,
-                         SpeculativeConfig(num_speculative_tokens=k, method="qspec_null"))
-    ar, _ = run_port(cfg, params, prompts)
+                         SpeculativeConfig(num_speculative_tokens=k, method="qspec_null"),
+                         kv_cache_dtype=kv)
+    ar, _ = run_port(cfg, params, prompts, kv_cache_dtype=kv)
     assert spec == oracle == ar
     assert all(len(t) == MAX_TOKENS for t in spec)
     m = eng.spec_metrics
@@ -104,12 +126,13 @@ def test_greedy_invariant_while_batch_changes(setup):
     assert spec == ar
 
 
-def _jax_last_logits(jcfg, jparams, ids):
+def _jax_last_logits(jcfg, jparams, ids, kv_dtype="bfloat16"):
     """JAX logits of the token after ``ids`` (one prefill rectangle)."""
     S, Q = 16, len(ids)
     n_pages = -(-Q // S)
     cache = jkv.allocate(jkv.KVCacheConfig(jcfg.num_layers, jcfg.num_kv_heads,
-                                           jcfg.cache_head_dim, n_pages + 1, S))
+                                           jcfg.cache_head_dim, n_pages + 1, S,
+                                           kv_dtype))
     pos = np.arange(Q, dtype=np.int32)[None]
     tables = np.arange(1, n_pages + 1, dtype=np.int32)[None]
     batch = jllama.AttentionBatch(jnp.asarray(pos), jnp.asarray(pos + S),
@@ -119,9 +142,11 @@ def _jax_last_logits(jcfg, jparams, ids):
     return np.asarray(logits[0, -1])
 
 
-def test_greedy_tokens_match_jax_engine(setup):
+def _check_against_jax_engine(setup, kv_dtype):
+    """Greedy tokens of the JAX engine (AR) and of the port's QSpec on the
+    same weights and prompts agree up to a near-tie in the JAX logits."""
     jcfg, jparams, cfg, params, prompts = setup
-    jeng = JLLMEngine(JEngine(model=jcfg, cache=JCache(page_size=16),
+    jeng = JLLMEngine(JEngine(model=jcfg, cache=JCache(page_size=16, kv_cache_dtype=kv_dtype),
                               scheduler=JSched(**_sched())), jparams)
     for p in prompts:
         jeng.add_request(p, JSamplingParams(temperature=0.0, max_tokens=MAX_TOKENS))
@@ -130,14 +155,24 @@ def test_greedy_tokens_match_jax_engine(setup):
         for o in jeng.step():
             if o.finished:
                 jout[o.request_id] = o.output_token_ids
-    port, _ = run_port(cfg, params, prompts, SpeculativeConfig(num_speculative_tokens=3))
+    port, _ = run_port(cfg, params, prompts, SpeculativeConfig(num_speculative_tokens=3),
+                       kv_cache_dtype=kv_dtype)
     for i, p in enumerate(prompts):
         ref, got = jout[i], port[i]
         diff = [j for j, (a, b) in enumerate(zip(ref, got)) if a != b]
         if diff:
             j = diff[0]
-            top2 = np.sort(_jax_last_logits(jcfg, jparams, p + ref[:j]))[-2:]
+            top2 = np.sort(_jax_last_logits(jcfg, jparams, p + ref[:j], kv_dtype))[-2:]
             assert top2[1] - top2[0] < TIE_GAP, (i, j, top2)
+
+
+def test_greedy_tokens_match_jax_engine(setup):
+    _check_against_jax_engine(setup, "bfloat16")
+
+
+def test_greedy_tokens_match_jax_engine_int8_kv(setup_default):
+    """The defaults (int8 head) over an int8 KV cache."""
+    _check_against_jax_engine(setup_default, "int8")
 
 
 def test_llm_entry_point_on_cpu(setup):

@@ -7,7 +7,9 @@ is present and skips here, on a machine without one. On the H100:
 (``--noconftest``: tests/conftest.py imports jax, which the port's machine
 need not have; these tests use no fixture of it.)
 
-Tolerances are those of tests/test_torch_ops.py (the JAX kernel tests').
+Tolerances are those of tests/test_torch_ops.py (the JAX kernel tests'):
+w8a16 rtol/atol 2e-2; attention over an 8-bit cache 4e-2 (8e-2 for
+fp8_e5m2, which keeps 2 mantissa bits).
 """
 
 import numpy as np
@@ -20,8 +22,10 @@ from qspec_tpu_torch.ops import linear_kernels as lk
 from qspec_tpu_torch.ops import rmsnorm_quant as rq
 from qspec_tpu_torch.ops.attention import paged_attention_ref
 from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.kv_cache import PagedKVCache
-from qspec_tpu_torch.ops.packing import quantize_weight_int4_torch
+from qspec_tpu_torch.ops.packing import (quantize_weight_int4_torch,
+                                         quantize_weight_int8_torch)
 from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
 
 pytestmark = pytest.mark.gpu
@@ -55,6 +59,42 @@ def test_w4a16_rows_independent_of_batch(gen):
     full = lk.matmul_w4a16(x, qw, qs)
     assert torch.equal(lk.matmul_w4a16(x[5:9].contiguous(), qw, qs), full[5:9])
     assert torch.equal(lk.matmul_w4a16(x.flip(0).contiguous(), qw, qs), full.flip(0))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 256, 128), (7, 512, 384), (16, 1024, 256),
+                                   (16, 4096, 128256), (33, 448, 200)])
+def test_w8a16_kernel(gen, m, k, n):
+    qw, qs = quantize_weight_int8_torch(torch.randn(k, n, generator=gen, device="cuda") * 0.05)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    before = lk.matmul_w8a16.launches
+    for dt in (torch.float32, torch.bfloat16):
+        out = lk.matmul_w8a16(x, qw, qs, out_dtype=dt)
+        assert out.dtype == dt and tuple(out.shape) == (m, n)
+        torch.testing.assert_close(out.float(), lk.matmul_w8a16_ref(x, qw, qs, out_dtype=dt).float(),
+                                   rtol=2e-2, atol=2e-2)
+    assert lk.matmul_w8a16.launches == before + 2
+
+
+def test_w8a16_stacked_and_rows_independent(gen):
+    """The stacked form reads layer ``layer_idx`` in place; a row's result
+    does not depend on M or on its place in the batch."""
+    L, k, n = 2, 4096, 14336
+    w = torch.randn(L, k, n, generator=gen, device="cuda") * 0.05
+    qw = torch.empty(L, k, n, dtype=torch.int8, device="cuda")
+    qs = torch.empty(L, n, device="cuda")
+    for li in range(L):
+        qw[li], qs[li] = quantize_weight_int8_torch(w[li])
+    x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for li in range(L):
+        out = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32, layer_idx=li)
+        torch.testing.assert_close(out, lk.matmul_w8a16_ref(x, qw[li], qs[li],
+                                                            out_dtype=torch.float32),
+                                   rtol=2e-2, atol=2e-2)
+    full = lk.matmul_w8a16(x, qw[1], qs[1], out_dtype=torch.float32)
+    assert torch.equal(lk.matmul_w8a16(x[5:9].contiguous(), qw[1], qs[1],
+                                       out_dtype=torch.float32), full[5:9])
+    assert torch.equal(lk.matmul_w8a16(x.flip(0).contiguous(), qw[1], qs[1],
+                                       out_dtype=torch.float32), full.flip(0))
 
 
 @pytest.mark.parametrize("m", [1, 16, 512])
@@ -93,19 +133,66 @@ def test_paged_attention_kernel(gen, q_len, S):
     assert torch.count_nonzero(out[2]) == 0
 
 
-def test_greedy_spec_equals_oracle_on_card(gen):
+@pytest.mark.parametrize("q_len", [1, 4, 128])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3", "fp8_e5m2"])
+def test_paged_attention_kernel_8bit(gen, kv_dtype, q_len):
+    """The 8-bit instantiations, on a cache filled through update_layer,
+    against the plain version over the dequantized gather."""
+    B, Hq, Hkv, D, S = 3, 32, 8, 128, 128
+    ctx = [max(c, q_len) for c in (S + 3, 3 * S, 5)]
+    pages = [-(-c // S) for c in ctx]
+    cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, 1 + sum(pages), S, kv_dtype), "cuda")
+    T = sum(pages) * S
+    k_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    v_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kvc.update_layer(cache, 1, k_new, v_new, torch.arange(T, device="cuda") + S)
+    tables = torch.zeros(B, max(pages), dtype=torch.int32)
+    start = 1
+    for b, n in enumerate(pages):
+        tables[b, :n] = torch.arange(start, start + n)
+        start += n
+    q = torch.randn(B, q_len, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    counters = kernel_wrappers()
+    before = {n: c.launches for n, c in counters.items()}
+    out = paged_attention_cuda(q, cache.kv_pages, tables.cuda(), ctx_t, D ** -0.5, layer=1,
+                               kv_scales=cache.kv_scales)
+    # only this entry type's instantiation counts the launch
+    assert {n: c.launches - before[n] for n, c in counters.items() if c.launches != before[n]} \
+        == {f"paged_attention_{kv_dtype}": 1}
+    ref = paged_attention_ref(q, cache, 1, tables.cuda(), ctx_t, D ** -0.5)
+    tol = 8e-2 if kv_dtype == "fp8_e5m2" else 4e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# the kernels each head's path launches over a bf16 cache; no other launches
+TRUNK_KERNELS = ("matmul_w4a16", "matmul_w4a4", "rmsnorm", "rmsnorm_quant",
+                 "paged_attention")
+
+
+@pytest.mark.parametrize("lm_head_quant,expect", [
+    ("bf16", TRUNK_KERNELS),
+    (None, TRUNK_KERNELS + ("matmul_w8a16",)),
+], ids=["bf16_head", "default_int8_head"])
+def test_greedy_spec_equals_oracle_on_card(gen, lm_head_quant, expect):
+    """The tiny model through the engine, with the dense bf16 head (rows
+    padded so cuBLAS sees one shape) and at the defaults (int8 head): the
+    kernels of that path launch, no other does, and greedy QSpec equals its
+    oracle."""
     from qspec_tpu_torch import LLM, SamplingParams
-    kw = dict(model="tiny", device="cuda", lm_head_quant="bf16", num_speculative_tokens=3,
+    kw = dict(model="tiny", device="cuda", num_speculative_tokens=3,
               block_size=16, max_model_len=256, max_num_seqs=4, prefill_chunk_size=64)
+    if lm_head_quant is not None:
+        kw["lm_head_quant"] = lm_head_quant
     rng = np.random.default_rng(7)
     prompts = [rng.integers(1, 500, size=int(n)).tolist() for n in (5, 17, 33, 9)]
     sp = SamplingParams(temperature=0.0, max_tokens=24)
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
     llm = LLM(**kw)
     spec = [o.output_token_ids for o in llm.generate(prompts, sp)]
-    assert all(fn.launches > 0 for fn in wrappers.values())
+    assert {n for n, c in counters.items() if c.launches > 0} == set(expect)
     oracle = LLM(params=llm.llm_engine.runner.params, speculative_method="qspec_null", **kw)
     assert spec == [o.output_token_ids for o in oracle.generate(prompts, sp)]
     assert ModelConfig.tiny().vocab_size > max(max(t) for t in spec)

@@ -130,8 +130,11 @@ def test_init_params_layout():
 
 
 def test_unported_heads_raise():
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(ModelConfig.tiny(), seed=0, device="cpu")   # auto -> int8 head
+    """Every head of the JAX package is ported (bf16, int8, int4; "auto" is
+    int8 for w4); a kind it does not know is refused."""
+    with pytest.raises(ValueError):
+        tllama.init_params(ModelConfig.tiny(lm_head_quant="fp8"), seed=0, device="cpu")
+    assert "qw8" in tllama.init_params(ModelConfig.tiny(), seed=0, device="cpu")["lm_head"]
 
 
 def test_cuda_entry_point_without_card_raises(monkeypatch):
