@@ -10,16 +10,21 @@ Phases (any failure raises and the script exits non-zero, printing no result):
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, max error beside the stated tolerance (the
    attention kernel also over int8, fp8_e4m3 and fp8_e5m2 caches filled
-   through update_layer);
+   through update_layer, and under a sliding window; the norm with and
+   without a gamma; the grouped GEMM at the
+   Llama-3-8B AWQ shapes, stacked and not, and a row's bits across batch
+   sizes);
 4. timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, timed with CUDA events over
-   CUDA-graph replays; the least time the card could take (bound_ms);
+   CUDA-graph replays; the least time the card could take (bound_ms); the
+   windowed attention at context 2048 beside the unwindowed kernel;
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
    the CPU (plain versions), same weights, with the bf16 head over a bf16
-   cache and at the defaults (int8 head) over an int8 cache; then the tiny
+   cache, at the defaults (int8 head) over an int8 cache, and as an AWQ
+   checkpoint (w4g, W4A16, int8 head) over a bf16 cache; then the tiny
    model through the engine on the card, QSpec against its oracle (drafts
    are accepted there), with the bf16 head and, at the defaults, once per
-   8-bit KV cache;
+   8-bit KV cache, and once with a windowed W4A8 draft on its ring pool;
 6. end to end: LLM(model="llama3-8b", num_speculative_tokens=3) with random
    weights made on the card, 4 prompts of 64-192 random token ids, 32 greedy
    tokens each, through QSpec and then through the qspec_null oracle (the
@@ -29,7 +34,16 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    is counted per instantiation); then the same with the W4A8 draft,
    whose drafts are accepted at this width. Two paths: the first slice's
    (lm_head_quant="bf16", bf16 cache) and the JAX package's defaults (the
-   int8 head by matmul_w8a16) with kv_cache_dtype="int8".
+   int8 head by matmul_w8a16) with kv_cache_dtype="int8";
+7. the AWQ slice: Llama-3-8B widths, 32 layers, an AWQ checkpoint (g = 128)
+   made on the card from normal(0.02) weights (model_loader.grouped: the
+   torch make_awq_tensors, then load_awq) with the int8 head, through
+   LLMEngine with the same prompts, QSpec with the W4A16 draft (a) under
+   draft_kv_window=64 on its ring pool and (b) with no window, each against
+   its qspec_null oracle, and (a) again on a full draft pool, which must give
+   the ring's tokens and draft counts; each QSpec run launches exactly the grouped GEMM,
+   the gamma norm, the bf16-cache attention and the int8 head, and (b), whose
+   draft is arithmetically the target, accepts more than 80% of its drafts.
 
 It prints the kernel summary as one JSON line and, last, the device JSON line.
 """
@@ -38,6 +52,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -205,6 +220,91 @@ def check_w8a16(gen, report):
         f"M,K,N={HEAD_SHAPE} f32 out, stacked L,K,N={TRUNK_STACK} bf16 out)")
 
 
+GROUP = 128                         # AWQ / GPTQ group size of the 8B checkpoint
+
+
+def _w4g(gen, k, n, layers=None):
+    """AWQ weights made on the card (model_loader.grouped's torch writer),
+    unpacked and repacked by the loader: packed int4, f32 scales and offsets
+    per (group, column); layer-stacked when ``layers`` is given."""
+    from qspec_tpu_torch.model_loader import grouped as tg
+
+    def one():
+        t = tg.make_awq_tensors(torch.randn(k, n, generator=gen, device="cuda") * 0.02, GROUP)
+        return tg.pack_grouped_proj(*tg.unpack_awq(t["qweight"], t["qzeros"], t["scales"]))
+    ps = [one() for _ in range(layers or 1)]
+    return tuple(torch.stack([p[key] for p in ps]) if layers else ps[0][key]
+                 for key in ("qw", "qs_g", "qo_g"))
+
+
+def check_w4a16_g(gen, report):
+    """The grouped GEMM at the four Llama-3-8B projections, M = 4 and 16,
+    plain and stacked (2 layers), at the JAX test's tolerance; a row's bits
+    at M = 1, 4 and 16 are the same; the prefill branch once."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    err = 0.0
+    for k, n in GEMM_SHAPES:
+        qw, qs, qo = _w4g(gen, k, n, layers=2)
+        x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+        for m in (4, 16):
+            for li in (None, 1):
+                w = (qw[1], qs[1], qo[1]) if li is None else (qw, qs, qo)
+                out = lk.matmul_w4a16_g(x[:m], *w, layer_idx=li)
+                ref = lk.matmul_w4a16_g_ref(x[:m], qw[1], qs[1], qo[1])
+                torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+        full = lk.matmul_w4a16_g(x, qw, qs, qo, layer_idx=0)
+        for rows in (slice(0, 1), slice(5, 9), slice(12, 16)):
+            if not torch.equal(lk.matmul_w4a16_g(x[rows].contiguous(), qw, qs, qo,
+                                                 layer_idx=0), full[rows]):
+                raise AssertionError(f"matmul_w4a16_g K={k} N={n}: a row's bits depend on M")
+    # the prefill branch on the last shape's layer 0
+    xb = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
+    before = lk.matmul_w4a16_g.launches
+    out = lk.matmul_w4a16_g(xb, qw[0], qs[0], qo[0])
+    if lk.matmul_w4a16_g.launches != before:
+        raise AssertionError("matmul_w4a16_g at M=1024 launched the kernel")
+    ref = lk.matmul_w4a16_g_ref(xb, qw[0], qs[0], qo[0])
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    report["matmul_w4a16_g"].update(max_err=err, tol="rtol=atol=2e-2")
+    log(f"check matmul_w4a16_g: max_abs_err {err:.3g} (tol rtol=atol=2e-2; g={GROUP}, "
+        f"M in 4,16, stacked and not); a row's bits equal at M=1,4,16; prefill "
+        f"branch (M=1024, no launch) max_abs_err "
+        f"{(out.float() - ref.float()).abs().max().item():.3g}")
+
+
+def _int4pack(qw, qs, qo):
+    """The same grouped weights for torch._weight_int4pack_mm (the
+    yardstick): w = (q - 8) * s + (8 s - o), nibbles two to a byte along K
+    ([N, K/2] uint8, even k high), scales and zeros bf16 [K/g, N, 2]."""
+    from qspec_tpu_torch.ops.packing import unpack_int4
+    q = (unpack_int4(qw).to(torch.int32) + 8).t().contiguous()          # [N, K]
+    packed = torch._convert_weight_to_int4pack(
+        (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([qs, 8 * qs - qo], dim=-1).to(torch.bfloat16).contiguous()
+    return packed, sz
+
+
+def check_int4pack(gen):
+    """Whether torch._weight_int4pack_mm runs here and computes the grouped
+    GEMM (bf16 scales and zeros: a relative L2 within 2e-2 of the plain
+    version); the reason when not."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    k, n = GEMM_SHAPES[1]
+    try:
+        qw, qs, qo = _w4g(gen, k, n)
+        x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+        packed, sz = _int4pack(qw, qs, qo)
+        out = torch._weight_int4pack_mm(x, packed, GROUP, sz).float()
+    except (AttributeError, TypeError, RuntimeError, NotImplementedError) as e:
+        return f"torch._weight_int4pack_mm unavailable: {type(e).__name__}: {str(e)[:160]}"
+    ref = lk.matmul_w4a16_g_ref(x, qw, qs, qo).float()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log(f"check torch._weight_int4pack_mm (yardstick): relative L2 {rel:.3g} vs the plain "
+        "version (tol 2e-2: bf16 scales and zeros)")
+    return None if rel <= 2e-2 else f"torch._weight_int4pack_mm disagrees (relative L2 {rel:.3g})"
+
+
 def check_norms(gen, report):
     from qspec_tpu_torch.ops import rmsnorm_quant as rq
     e_n = e_s = 0.0
@@ -226,10 +326,20 @@ def check_norms(gen, report):
             worst_exact = min(worst_exact, exact)
             e_q = max(e_q, int(d.max().item()))
             e_s = max(e_s, ((a.scales - b.scales).abs() / b.scales).max().item())
-    report["rmsnorm"].update(max_err=e_n, tol="rtol=atol=2e-2")
+    # the gamma form, which the w4g path launches (its input, post and final
+    # norms), at the draft's and the verify's M
+    e_g = 0.0
+    for m in (4, 16):
+        x = (torch.randn(m, 4096, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        g = (1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")).to(torch.bfloat16)
+        out, ref = rq.rmsnorm(x, g), rq.rmsnorm_ref(x, g)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+        e_g = max(e_g, (out.float() - ref.float()).abs().max().item())
+    report["rmsnorm"].update(max_err=max(e_n, e_g), gamma_max_err=e_g, tol="rtol=atol=2e-2")
     report["rmsnorm_quant"].update(
         max_err=float(e_q), tol="int values within 1, >99% exact; scales rtol 1e-3")
-    log(f"check rmsnorm: max_abs_err {e_n:.3g} (tol rtol=atol=2e-2)")
+    log(f"check rmsnorm: max_abs_err {e_n:.3g}, with a gamma (M=4, 16) {e_g:.3g} "
+        "(tol rtol=atol=2e-2)")
     log(f"check rmsnorm_quant: int values max diff {e_q} (tol 1), exact share "
         f">= {worst_exact:.5f} (tol > 0.99); scale max rel err {e_s:.3g} (tol 1e-3)")
 
@@ -303,6 +413,68 @@ def check_attention(gen, report):
         err = max(err, (out.float() - ref.float()).abs().max().item())
     report["paged_attention"].update(max_err=err, tol="rtol=atol=3e-2")
     log(f"check paged_attention: max_abs_err {err:.3g} (tol rtol=atol=3e-2; Q in 1,2,4,128)")
+
+
+WINDOW_CTX = (40, 300, 1100, 2048)     # the windowed attention's rows
+
+
+def _attn_window_inputs(gen, q_len, kv_dtype, ctx=WINDOW_CTX, Hq=32, Hkv=8, D=128, S=128,
+                        live_pages=None):
+    """One row per context of ``ctx`` (1-16 pages of 128), pages shuffled;
+    layer 1 filled through update_layer for an 8-bit cache. ``live_pages``:
+    only each row's last ``live_pages`` logical pages get pages of their
+    own, the earlier ones map to the null page (a windowed walk never reads
+    them), so many input sets fit in memory."""
+    from qspec_tpu_torch.ops import kv_cache as kvc
+    from qspec_tpu_torch.ops.kv_cache import PagedKVCache
+    B = len(ctx)
+    ctx = [max(c, q_len) for c in ctx]
+    pages = [-(-c // S) for c in ctx]
+    own = [n if live_pages is None else min(n, live_pages) for n in pages]
+    P = 1 + sum(own)
+    if kv_dtype == "bfloat16":
+        cache = PagedKVCache(torch.randn(2, P, 2, Hkv, S, D, generator=gen,
+                                         device="cuda").to(torch.bfloat16))
+    else:
+        cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, P, S, kv_dtype), "cuda")
+        T = (P - 1) * S
+        kvc.update_layer(cache, 1,
+                         torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.arange(T, device="cuda") + S)
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(q_len)) + 1
+    tables = torch.zeros(B, max(pages), dtype=torch.int32)
+    o = 0
+    for b, (n, m) in enumerate(zip(pages, own)):
+        tables[b, n - m:n] = ids[o:o + m]
+        o += m
+    q = torch.randn(B, q_len, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, cache, tables.cuda(), torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+
+def check_attention_window(gen, report):
+    """The sliding window against the plain version: Q = 1, 4, 128, bf16 and
+    int8 caches, windows 64 and 128, contexts 40-2048 (rows skip pages)."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    errs = {}
+    for kv_dtype, tol in (("bfloat16", 3e-2), ("int8", 4e-2)):
+        err = 0.0
+        for q_len in (1, 4, 128):
+            q, cache, tables, ctx = _attn_window_inputs(gen, q_len, kv_dtype)
+            for window in (64, 128):
+                out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5,
+                                           layer=1, kv_scales=cache.kv_scales, window=window)
+                ref = paged_attention_ref(q, cache, 1, tables, ctx, 128 ** -0.5,
+                                          window=window)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+        errs[kv_dtype] = err
+    report["paged_attention"]["window"] = {"max_abs_err": errs["bfloat16"],
+                                           "max_abs_err_int8": errs["int8"]}
+    log(f"check paged_attention window: max_abs_err bf16 {errs['bfloat16']:.3g} (tol 3e-2), "
+        f"int8 {errs['int8']:.3g} (tol 4e-2); Q in 1,4,128, window 64 and 128, "
+        f"ctx {list(WINDOW_CTX)}")
 
 
 def time_kernels(gen, report):
@@ -453,29 +625,117 @@ def time_kernels(gen, report):
         torch.cuda.empty_cache()
 
 
-def bound_w4a16_g():
-    """The bound of matmul_w4a16_g (not ported yet) at Llama-3-8B AWQ
-    shapes, computed from its inputs: one layer's four projections at M=16,
-    group 128, packed int4 weights plus f32 scales and offsets per (group,
-    column) (model_loader/grouped.py), bf16 x and out."""
-    m, g = 16, 128
-    nbytes = ops = 0
-    for k, n in GEMM_SHAPES:
-        nbytes += k * n // 2 + 2 * (k // g) * n * 4 + m * k * 2 + m * n * 2
-        ops += 2 * m * k * n
-    b, kind = bound_ms(nbytes, ops, "bf16")
-    log(f"bound matmul_w4a16_g (computed, not measured): one layer's qkv+o+gate_up+down "
-        f"at M={m}, g={g}: {nbytes} bytes, {ops} operations -> {b:.5f} ms ({kind})")
+def time_w4a16_g(gen, report, int4pack_missing):
+    """The grouped GEMM per layer (the four projections) at the verify width
+    M=16 and the draft width M=4, g = 128, weights rotated past L2; the
+    yardstick torch._weight_int4pack_mm on the same weights converted once
+    outside the timing."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    for m in (4, 16):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        nbytes_tot = ops_tot = 0
+        for k, n in GEMM_SHAPES:
+            wbytes = k * n // 2 + 2 * (k // GROUP) * n * 4
+            rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n), wbytes)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+
+            def kern():
+                lk.matmul_w4a16_g(x, *rot.next())
+
+            def plain():
+                lk.matmul_w4a16_g_ref(x, *rot.next())
+            nbytes = m * k * 2 + wbytes + m * n * 2
+            b, kind = bound_ms(nbytes, 2 * m * k * n, "bf16")
+            t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
+            t_l = None
+            if int4pack_missing is None:
+                rot_l = Rotating(lambda k=k, n=n: _int4pack(*_w4g(gen, k, n)), wbytes)
+
+                def library():
+                    packed, sz = rot_l.next()
+                    torch._weight_int4pack_mm(x, packed, GROUP, sz)
+                t_l = graph_ms(library)
+                tot["library_ms"] += t_l
+                del rot_l
+            log(f"time matmul_w4a16_g M={m} K={k} N={n} g={GROUP}: {t_k:.4f} ms, plain "
+                f"{t_p:.4f} ms, _weight_int4pack_mm "
+                f"{'none' if t_l is None else f'{t_l:.4f} ms'}, bound {b:.4f} ms ({kind}), "
+                f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s")
+            tot["ms"] += t_k
+            tot["plain_ms"] += t_p
+            tot["bound_ms"] += b
+            nbytes_tot += nbytes
+            ops_tot += 2 * m * k * n
+            del rot
+            torch.cuda.empty_cache()
+        log(f"time matmul_w4a16_g one layer at M={m}: {tot['ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({nbytes_tot} bytes)")
+        if m == 16:
+            report["matmul_w4a16_g"].update(
+                tot, bound_by=bound_ms(nbytes_tot, ops_tot, "bf16")[1],
+                library_ms=None if int4pack_missing else tot["library_ms"],
+                shape=f"one layer's qkv+o+gate_up+down at M=16, g={GROUP}")
+            if int4pack_missing:
+                report["matmul_w4a16_g"]["library_note"] = int4pack_missing
 
 
-def phase_small_reference(lm_head_quant: str, kv_dtype: str):
+def time_attention_window(gen, report):
+    """The draft's attention at B=4, context 2048, window 128, Q=1 (a draft
+    step) and Q=4, beside the unwindowed kernel on the same inputs; the
+    windowed bound counts only the pages the window reaches."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    B, Hq, Hkv, D, S, W, C = 4, 32, 8, 128, 128, 128, 2048
+    for q_len in (1, 4):
+        ctx = (C,) * B
+        q_start = C - q_len
+        first = max(q_start - W + 1, 0) // S
+        n_pages = -(-C // S) - first              # the pages the window reaches
+        kv_bytes = B * n_pages * S * Hkv * D * 2 * 2
+        # each timing rotates its inputs past L2: whole caches without the
+        # window, only the reachable pages with it
+        rots = {None: Rotating(lambda: _attn_window_inputs(gen, q_len, "bfloat16", ctx),
+                               B * C * Hkv * D * 2 * 2),
+                W: Rotating(lambda: _attn_window_inputs(gen, q_len, "bfloat16", ctx,
+                                                        live_pages=n_pages), kv_bytes)}
+        times = {}
+        for window, rot in rots.items():
+            def kern(window=window, rot=rot):
+                q, cache, tables, c = rot.next()
+                paged_attention_cuda(q, cache.kv_pages, tables, c, 128 ** -0.5, layer=1,
+                                     window=window)
+            # one graph replays every input set once
+            times[window] = graph_ms(kern, reps=max(20, len(rot.sets)))
+
+        def plain():
+            q, cache, tables, c = rots[W].next()
+            paged_attention_ref(q, cache, 1, tables, c, 128 ** -0.5, window=W)
+        t_p = graph_ms(plain, reps=3)
+        nbytes = 2 * B * q_len * Hq * D * 2 + kv_bytes + B * (C // S) * 4 + 8 * B
+        seen = B * sum(min(W, q_start + i + 1) for i in range(q_len))
+        b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+        log(f"time paged_attention window={W} B={B} Q={q_len} ctx={C}: {times[W]:.4f} ms "
+            f"(no window {times[None]:.4f} ms), plain {t_p:.4f}, bound {b:.5f} ({kind}; "
+            f"{n_pages} of {C // S} pages per row)")
+        if q_len == 1:
+            report["paged_attention"]["window"].update(
+                ms=times[W], no_window_ms=times[None], plain_ms=t_p, bound_ms=b,
+                bound_by=kind, shape=f"B={B}, Q=1, ctx={C}, window={W}, bf16 KV")
+        del rots
+        torch.cuda.empty_cache()
+
+
+def phase_small_reference(lm_head_quant: str, kv_dtype: str, quant: str = "w4"):
     """The tiny model on the card (kernels) against the same weights on the
-    CPU (plain versions)."""
+    CPU (plain versions). w4g: an AWQ checkpoint (g = 128, so the MLP is
+    widened to 512 for the kernel's K % 256), W4A16 only."""
     from qspec_tpu_torch.config import ModelConfig
     from qspec_tpu_torch.models.llama import AttentionBatch, init_params, model_forward
     from qspec_tpu_torch.ops import kv_cache as kvc
-    cfg = ModelConfig.tiny(lm_head_quant=lm_head_quant)
-    cpu = init_params(cfg, seed=3, device="cpu")
+    w4g = quant == "w4g"
+    cfg = ModelConfig.tiny(lm_head_quant=lm_head_quant, quant=quant,
+                           **({"intermediate_size": 512} if w4g else {}))
+    cpu = init_params(cfg, seed=3, device="cpu", group_size=GROUP)
 
     def to(tree, dev):
         return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
@@ -488,7 +748,8 @@ def phase_small_reference(lm_head_quant: str, kv_dtype: str):
     # looser because rsqrt and sums round differently on the card and on the
     # CPU, which flips activations that sit on a quantizer rounding tie (see
     # tests/test_torch_model.py, which holds the port to the JAX package alike)
-    for scheme, tol in (("w4a16", 2e-2), ("w4a8", 5e-2), ("w4a4", 0.3)):
+    schemes = (("w4a16", 2e-2),) + (() if w4g else (("w4a8", 5e-2), ("w4a4", 0.3)))
+    for scheme, tol in schemes:
         outs = []
         for dev, params in (("cpu", cpu), ("cuda", gpu)):
             cache = kvc.allocate(kvc.KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
@@ -505,7 +766,7 @@ def phase_small_reference(lm_head_quant: str, kv_dtype: str):
         if out.shape != (B, Q, cfg.vocab_size) or not torch.isfinite(out).all():
             raise AssertionError(f"tiny {scheme}: bad logits {tuple(out.shape)}")
         rel = ((out - ref).norm() / ref.norm()).item()
-        log(f"check tiny model_forward {scheme} (head {lm_head_quant}, {kv_dtype} KV): "
+        log(f"check tiny {quant} model_forward {scheme} (head {lm_head_quant}, {kv_dtype} KV): "
             f"relative L2 error {rel:.3g} vs the CPU plain versions (tol {tol}), "
             f"max abs {(out - ref).abs().max().item():.3g}")
         if rel > tol:
@@ -525,59 +786,93 @@ def path_kernels(kw: dict) -> set:
             *(() if kw.get("lm_head_quant") == "bf16" else ("matmul_w8a16",))}
 
 
-def spec_vs_oracle(kw: dict, prompts, max_tokens: int):
-    """Greedy generation through QSpec, then through the qspec_null oracle on
-    the same weights; the launch counts are those of the QSpec run only (set
-    to 0 just before it, read just after): every kernel of the path must have
-    launched, and no other (each attention instantiation on its own path)."""
-    from qspec_tpu_torch import LLM, SamplingParams
-    from qspec_tpu_torch.ops import kernel_wrappers
+def generate(engine, prompts, max_tokens: int):
+    """Greedy tokens of each prompt through an LLMEngine (LLM.generate's loop)."""
+    from qspec_tpu_torch import SamplingParams
     sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
+    ids = [engine.add_request(list(p), sp) for p in prompts]
+    outs = {}
+    while engine.has_unfinished_requests():
+        for o in engine.step():
+            if o.finished:
+                outs[o.request_id] = o.output_token_ids
+    return [outs[i] for i in ids]
+
+
+def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int):
+    """Greedy generation through QSpec, then through the qspec_null oracle on
+    the same weights. ``make(method, params)`` builds the LLMEngine (params
+    None: the factory makes them). The launch counts are those of the QSpec
+    run only (set to 0 just before it, read just after): every kernel of
+    ``expect`` must have launched, and no other (each attention
+    instantiation on its own path); the attention's windowed launches are
+    counted apart."""
+    from qspec_tpu_torch.ops import kernel_wrappers
     t0 = time.perf_counter()
-    llm = LLM(**kw)
+    eng = make("qspec", None)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
 
     counters = kernel_wrappers()
+    attn = {n: c for n, c in counters.items() if n.startswith("paged_attention")}
     for c in counters.values():
         c.launches = 0
+    for c in attn.values():
+        c.window_launches = 0
     t0 = time.perf_counter()
-    spec = [o.output_token_ids for o in llm.generate(prompts, sp)]
+    spec = generate(eng, prompts, max_tokens)
     torch.cuda.synchronize()
     t_spec = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
-    m = llm.spec_metrics
+    window = {name: c.window_launches for name, c in attn.items()}
+    m = eng.spec_metrics
 
-    params = llm.llm_engine.runner.params
-    del llm
+    params = eng.runner.params
+    del eng
     torch.cuda.empty_cache()
-    oracle = LLM(params=params, speculative_method="qspec_null", **kw)
+    oracle = make("qspec_null", params)
     t0 = time.perf_counter()
-    ar = [o.output_token_ids for o in oracle.generate(prompts, sp)]
+    ar = generate(oracle, prompts, max_tokens)
     torch.cuda.synchronize()
     t_ar = time.perf_counter() - t0
+    del oracle
 
-    log(f"e2e {kw['model']} (head {kw.get('lm_head_quant', 'auto')}, "
-        f"{kw.get('kv_cache_dtype', 'bfloat16')} KV, "
-        f"{kw.get('speculative_draft_scheme', 'w4a4')} draft): prompt lengths {[len(p) for p in prompts]}, "
-        f"{max_tokens} greedy tokens each")
-    log(f"e2e {kw['model']} qspec tokens, first 8 of each: {[t[:8] for t in spec]}")
-    log(f"e2e {kw['model']} oracle tokens, first 8 of each: {[t[:8] for t in ar]}")
+    log(f"e2e {label}: prompt lengths {[len(p) for p in prompts]}, {max_tokens} greedy "
+        f"tokens each; qspec tokens, first 4 of each: {[t[:4] for t in spec]}")
     if any(len(t) != max_tokens for t in spec) or spec != ar:
-        raise AssertionError(f"{kw['model']}: greedy QSpec tokens differ from the "
-                             "qspec_null oracle")
+        raise AssertionError(f"{label}: greedy QSpec tokens differ from the qspec_null "
+                             f"oracle: {[t[:8] for t in ar]}")
     launched = {n for n, c in launches.items() if c > 0}
-    if launched != path_kernels(kw):
-        raise AssertionError(f"kernels launched on the path: {sorted(launched)}, expected "
-                             f"{sorted(path_kernels(kw))}")
+    if launched != expect:
+        raise AssertionError(f"{label}: kernels launched on the path: {sorted(launched)}, "
+                             f"expected {sorted(expect)}")
     n_tok = sum(len(t) for t in spec)
-    return launches, {
+    return spec, launches, window, {
         "acceptance_rate": m.draft_acceptance_rate,
         "emitted_per_round_per_seq": m.num_emitted_tokens / max(
             m.num_emitted_tokens - m.num_draft_accepted, 1),
         "qspec_tokens_per_s": n_tok / t_spec, "qspec_wall_s": t_spec,
         "oracle_tokens_per_s": n_tok / t_ar, "oracle_wall_s": t_ar,
-        "init_s": t_init, "launches": launches}
+        "init_s": t_init, "drafted_accepted_emitted": [
+            m.num_draft_tokens, m.num_draft_accepted, m.num_emitted_tokens],
+        **({"window_launches": {n: c for n, c in window.items() if c}}
+                             if any(window.values()) else {})}
+
+
+def llm_engine(kw: dict):
+    """The engine factory of an LLM(**kw) path (random weights from its seed
+    on the first call)."""
+    from qspec_tpu_torch import LLM
+    return lambda method, params: LLM(params=params, speculative_method=method,
+                                      **kw).llm_engine
+
+
+def llm_label(kw: dict) -> str:
+    return (f"{kw['model']} (head {kw.get('lm_head_quant', 'auto')}, "
+            f"{kw.get('kv_cache_dtype', 'bfloat16')} KV, "
+            f"{kw.get('speculative_draft_scheme', 'w4a4')} draft"
+            + (f", window {kw['spec_draft_kv_window']}" if kw.get("spec_draft_kv_window")
+               else "") + ")")
 
 
 def phase_tiny_end_to_end():
@@ -589,20 +884,23 @@ def phase_tiny_end_to_end():
     kw = dict(model="tiny", device="cuda", lm_head_quant="bf16",
               num_speculative_tokens=3, block_size=16, max_model_len=256,
               max_num_seqs=4, prefill_chunk_size=64, seed=0)
-    _, summary = spec_vs_oracle(kw, prompts, 20)
-    log("e2e tiny: greedy QSpec == oracle: " + json.dumps(summary))
-    if summary["acceptance_rate"] <= 0:
-        raise AssertionError("tiny model: no draft token was accepted")
+    runs = [(kw, None)]
     # the defaults (int8 head) over each 8-bit cache
-    kw.pop("lm_head_quant")
+    base = {k: v for k, v in kw.items() if k != "lm_head_quant"}
+    runs += [({**base, "kv_cache_dtype": dt}, dt) for dt in KV8]
+    # the windowed W4A8 draft on its ring pool (window 24: 4 pages of 16)
+    runs.append(({**kw, "speculative_draft_scheme": "w4a8", "spec_draft_kv_window": 24},
+                 "window"))
     launches = {}
-    for kv_dtype in KV8:
-        launches[kv_dtype], summary = spec_vs_oracle({**kw, "kv_cache_dtype": kv_dtype},
-                                                     prompts, 20)
-        log(f"e2e tiny, int8 head, {kv_dtype} KV: greedy QSpec == oracle: "
-            + json.dumps(summary))
+    for run_kw, key in runs:
+        _, launches[key], window, summary = spec_vs_oracle(
+            llm_engine(run_kw), llm_label(run_kw), path_kernels(run_kw), prompts, 20)
+        log(f"e2e {llm_label(run_kw)}: greedy QSpec == oracle: " + json.dumps(summary))
         if summary["acceptance_rate"] <= 0:
-            raise AssertionError(f"tiny model, {kv_dtype} KV: no draft token was accepted")
+            raise AssertionError(f"{llm_label(run_kw)}: no draft token was accepted")
+        if (key == "window") != any(window.values()):
+            raise AssertionError(f"{llm_label(run_kw)}: windowed attention launches "
+                                 f"{window}")
     return launches
 
 
@@ -610,14 +908,17 @@ def _e2e_8b(kw: dict, prompts, smi: str):
     """One 8B path: the W4A4 draft (launch counts read from it), then the
     W4A8 draft, whose drafts are accepted at this width."""
     torch.cuda.reset_peak_memory_stats()
-    launches, summary = spec_vs_oracle(kw, prompts, 32)
+    _, launches, _, summary = spec_vs_oracle(llm_engine(kw), llm_label(kw), path_kernels(kw),
+                                          prompts, 32)
     summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=smi)
     log("e2e llama3-8b: greedy QSpec == oracle, the path's kernels launched: "
         + json.dumps(summary))
     # random weights leave the W4A4 draft no agreement with the target at
     # this width; the W4A8 draft (same kernels, 8-bit activations) does
     # agree, which holds the invariant on accepted positions at full width
-    _, w4a8 = spec_vs_oracle({**kw, "speculative_draft_scheme": "w4a8"}, prompts, 32)
+    w4a8_kw = {**kw, "speculative_draft_scheme": "w4a8"}
+    _, _, _, w4a8 = spec_vs_oracle(llm_engine(w4a8_kw), llm_label(w4a8_kw),
+                                path_kernels(w4a8_kw), prompts, 32)
     log("e2e llama3-8b, w4a8 draft: greedy QSpec == oracle: " + json.dumps(w4a8))
     if w4a8["acceptance_rate"] <= 0:
         raise AssertionError("llama3-8b w4a8 draft: no draft token was accepted")
@@ -625,18 +926,94 @@ def _e2e_8b(kw: dict, prompts, smi: str):
     return launches
 
 
-def phase_end_to_end(smi: str):
+def e2e_prompts():
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, 128000, size=int(n)).tolist()
-               for n in rng.integers(64, 193, size=4)]
+    return [rng.integers(1, 128000, size=int(n)).tolist()
+            for n in rng.integers(64, 193, size=4)]
+
+
+def phase_end_to_end(smi: str):
+    prompts = e2e_prompts()
     base = dict(model="llama3-8b", device="cuda", quantization="qspec",
                 num_speculative_tokens=3, max_model_len=512, max_num_seqs=4, seed=0)
     # the first slice's path: the bf16 head over a bf16 cache
     first = _e2e_8b({**base, "lm_head_quant": "bf16"}, prompts, smi)
-    # this slice's path: LLM(model="llama3-8b") at the JAX package's
+    # the second slice's path: LLM(model="llama3-8b") at the JAX package's
     # defaults (no head argument: the int8 head) with an int8 KV cache
     default = _e2e_8b({**base, "kv_cache_dtype": "int8"}, prompts, smi)
     return first, default
+
+
+# the kernels of the w4g path: no Hadamards and no quantized activations
+W4G_KERNELS = {"matmul_w4a16_g", "rmsnorm", "paged_attention", "matmul_w8a16"}
+
+
+def phase_awq_8b(smi: str):
+    """This slice's path: an AWQ Llama-3-8B (g = 128, all 32 layers) made on
+    the card (model_loader.grouped: the torch make_awq_tensors, then
+    load_awq) with the int8 head, through LLMEngine, QSpec with the W4A16
+    draft (a) under draft_kv_window=64 on its ring pool and (b) with no
+    window, each against its qspec_null oracle. (a) runs again on a full
+    draft pool (QSPEC_RING_DRAFT=0): the same tokens and draft counts, or
+    the ring read a stale page. (b)'s draft is arithmetically the target, so
+    its acceptance holds the grouped GEMM's row independence between the
+    draft's M and the verify's."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, ModelConfig,
+                                 SchedulerConfig, SpeculativeConfig)
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.llama3_8b(quant="w4g")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda", group_size=GROUP)
+    torch.cuda.synchronize()
+    log(f"e2e llama3-8b AWQ g={GROUP}: checkpoint made and loaded on the card in "
+        f"{time.perf_counter() - t0:.1f} s, head {sorted(params['lm_head'])}")
+    prompts = e2e_prompts()
+    out = {}
+    def make(method, p, window, ring_pages):
+        spec = SpeculativeConfig(num_speculative_tokens=3, draft_scheme="w4a16",
+                                 draft_kv_window=window, method=method)
+        eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=128),
+                                     scheduler=SchedulerConfig(max_num_seqs=4,
+                                                               max_model_len=512),
+                                     speculative=spec), p or params,
+                        device="cuda", seed=0)
+        if eng.runner._ring_pages != ring_pages:
+            raise AssertionError(f"draft pool: {eng.runner._ring_pages} ring pages")
+        return eng
+
+    for key, window in (("a", 64), ("b", None)):
+        label = f"llama3-8b AWQ g={GROUP} (int8 head, bf16 KV, w4a16 draft, " + \
+            (f"window {window}, ring pool)" if window else "no window)")
+        spec, launches, wl, summary = spec_vs_oracle(
+            lambda m, p, w=window: make(m, p, w, 3 if w else 0), label, W4G_KERNELS,
+            prompts, 32)
+        summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=smi)
+        log(f"e2e {label}: greedy QSpec == oracle: " + json.dumps(summary))
+        if (wl["paged_attention"] > 0) != bool(window):
+            raise AssertionError(f"{label}: windowed attention launches {wl}")
+        out[key] = (launches, wl, summary)
+        if key == "a":
+            os.environ["QSPEC_RING_DRAFT"] = "0"
+            eng = make("qspec", None, window, 0)
+            del os.environ["QSPEC_RING_DRAFT"]
+            full = generate(eng, prompts, 32)
+            m = eng.spec_metrics
+            counts = [m.num_draft_tokens, m.num_draft_accepted, m.num_emitted_tokens]
+            del eng
+            torch.cuda.empty_cache()
+            log(f"e2e {label} on a full draft pool: draft counts {counts}, tokens "
+                f"{'==' if full == spec else '!='} the ring's")
+            if full != spec or counts != summary["drafted_accepted_emitted"]:
+                raise AssertionError(f"{label}: the ring pool and the full pool differ: "
+                                     f"counts {summary['drafted_accepted_emitted']} vs "
+                                     f"{counts}")
+    if out["b"][2]["acceptance_rate"] <= 0.8:
+        raise AssertionError(f"AWQ w4a16 draft, no window: acceptance "
+                             f"{out['b'][2]['acceptance_rate']} <= 0.8")
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 KERNEL_META = {
@@ -652,6 +1029,9 @@ KERNEL_META = {
                         "qspec_tpu/ops/attention_pallas.py:52 (_paged_attn_kernel)"),
     "matmul_w8a16": ("qspec_tpu_torch/csrc/w8a16.cu",
                      "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel)"),
+    "matmul_w4a16_g": ("qspec_tpu_torch/csrc/w4a16_g.cu",
+                       "qspec_tpu/ops/linear_kernels.py:372 (_w4a16_g_kernel; stacked "
+                       "_stacked_g_kernel, :402)"),
 }
 # the 8-bit instantiations of the attention kernel: (source, TPU kernel)
 KV8_META = {f"paged_attention_{dt}": (
@@ -667,26 +1047,42 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {name: {} for name in (*KERNEL_META, *KV8_META)}
     check_gemms(gen, report)
+    check_w4a16_g(gen, report)
+    int4pack_missing = check_int4pack(gen)
     check_w8a16(gen, report)
     check_norms(gen, report)
     check_attention(gen, report)
+    check_attention_window(gen, report)
     check_attention_kv8(gen, report)
     time_kernels(gen, report)
-    bound_w4a16_g()
+    time_w4a16_g(gen, report, int4pack_missing)
+    time_attention_window(gen, report)
     phase_small_reference("bf16", "bfloat16")
     phase_small_reference("auto", "int8")
+    phase_small_reference("auto", "bfloat16", quant="w4g")
     tiny = phase_tiny_end_to_end()
     first, default = phase_end_to_end(smi)
+    awq = phase_awq_8b(smi)
 
-    # each row's launches from the 8B run of its own path (W4A4 draft): the
-    # bf16 instantiation from the first slice's (bf16 head, bf16 KV), the
-    # rest from this slice's (defaults, int8 KV); the fp8 instantiations,
-    # which no 8B run takes, from the tiny model's run over their cache
+    # each row's launches from the 8B run of its own path (its first draft):
+    # the bf16 instantiation from the first slice's (bf16 head, bf16 KV), the
+    # grouped GEMM and the attention's windowed launches from this slice's
+    # (a), the rest from the second slice's (defaults, int8 KV); the fp8
+    # instantiations, which no 8B run takes, from the tiny model's run over
+    # their cache
     kernels = []
     for name, (source, replaces) in {**KERNEL_META, **KV8_META}.items():
         r = report[name]
+        extra = {}
         if name == "paged_attention":
             n_launch, where = first[name], "llama3-8b, bf16 head, bf16 KV, w4a4 draft"
+            extra = {"window_launches": awq["a"][1][name],
+                     "window_launches_in": "llama3-8b AWQ, w4a16 draft, window 64",
+                     "window": r["window"]}
+        elif name == "matmul_w4a16_g":
+            n_launch, where = awq["a"][0][name], "llama3-8b AWQ, w4a16 draft, window 64"
+            if "library_note" in r:
+                extra = {"library_note": r["library_note"]}
         elif name.startswith("paged_attention_fp8"):
             dt = name.split("_", 2)[2]
             n_launch, where = tiny[dt][name], f"tiny, int8 head, {dt} KV, w4a4 draft"
@@ -697,7 +1093,7 @@ def main():
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],
             "tol": r["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"], **extra})
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

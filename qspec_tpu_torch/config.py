@@ -28,17 +28,37 @@ class ModelConfig:
     rope_scaling: Optional[dict] = None
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 8192
-    # "w4": QuaRot packed int4, per-channel symmetric (dual-scheme QSpec)
+    # quantization of the stored checkpoint:
+    # "w4"   QuaRot packed int4, per-channel symmetric (dual-scheme QSpec);
+    #        weightless norms, Hadamard rotations
+    # "w4g"  grouped asymmetric int4 (AWQ / GPTQ, model_loader/grouped.py);
+    #        gamma norms, no rotations, W4A16 only
     quant: str = "w4"
-    # vocab-projection weight dtype; "auto" = int8 for w4 checkpoints (the
-    # int8 head runs matmul_w8a16, the int4 head matmul_w4a16)
+    # vocab-projection weight dtype; "auto" = int8 for quantized checkpoints
+    # (the int8 head runs matmul_w8a16, the int4 head matmul_w4a16)
     lm_head_quant: str = "auto"       # "auto" | "bf16" | "int8" | "int4"
+    # Mistral-style sliding-window attention: each query attends only to the
+    # last `sliding_window` positions; None = full causal attention
+    sliding_window: Optional[int] = None
+    # layers alternating sliding / global (gemma2) are not ported: 1 only
+    sliding_window_pattern: int = 1
+
+    def __post_init__(self):
+        if self.quant not in ("w4", "w4g"):
+            raise NotImplementedError(f"quant={self.quant!r}: only QuaRot w4 "
+                                      "and grouped w4g checkpoints are ported")
+        if self.sliding_window_pattern != 1:
+            raise NotImplementedError("sliding_window_pattern != 1 (layers "
+                                      "alternating sliding / global) is not "
+                                      "ported")
 
     @property
     def resolved_lm_head_quant(self) -> str:
         if self.lm_head_quant != "auto":
             return self.lm_head_quant
-        return "int8" if self.quant == "w4" else "bf16"
+        # the JAX package's default: int8 for every quantized checkpoint,
+        # which every checkpoint the port takes is
+        return "int8"
 
     @property
     def cache_kv_heads(self) -> int:
@@ -113,7 +133,9 @@ class SpeculativeConfig:
     """QSpec speculative decoding over shared weights."""
 
     num_speculative_tokens: int = 3
-    # draft scheme; verify is always w4a16. "w4a4" is the QSpec method.
+    # draft scheme; verify is always w4a16. "w4a4" is the QSpec method;
+    # "w4a16" drafts with the target's own arithmetic (the only shared-weights
+    # draft of a w4g checkpoint, usually under draft_kv_window)
     draft_scheme: str = "w4a4"
     # complete draft+verify rounds per engine step
     rounds_per_step: int = 1
@@ -122,6 +144,11 @@ class SpeculativeConfig:
     # "qspec": shared-weights draft; "qspec_null": the same rounds with the
     # proposals nulled, which emit exactly the greedy AR tokens (the oracle)
     method: str = "qspec"
+    # sliding-window cap on the shared-weights draft's attention (MagicDec):
+    # the draft reads only the last `draft_kv_window` KV positions and keeps
+    # its KV in a small per-sequence ring of pages; verification stays
+    # full-context, so only acceptance depends on it. None = full context.
+    draft_kv_window: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

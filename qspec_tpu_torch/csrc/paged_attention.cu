@@ -3,10 +3,11 @@
 // int8, fp8_e4m3 or fp8_e5m2 entries.
 //
 // Replaces the TPU kernel qspec_tpu/ops/attention_pallas.py:_paged_attn_kernel
-// (entry paged_attention_pallas), its causal core and its 8-bit KV option:
-// flash attention with an online softmax over the sequence's live pages, GQA
-// rows G = (Hq / Hkv) * Q per kv head (Q minor), a causal mask by absolute
-// position (query i of row b sits at q_start[b] + i).
+// (entry paged_attention_pallas), its causal core, its sliding window and its
+// 8-bit KV option: flash attention with an online softmax over the
+// sequence's live pages, GQA rows G = (Hq / Hkv) * Q per kv head (Q minor),
+// a causal mask by absolute position (query i of row b sits at
+// q_start[b] + i) and, under a window W, the mask q_pos - W < kv_pos <= q_pos.
 //
 // Layouts: q [B, Q, Hq, D] bf16; the layer's cache [P, 2, Hkv, S, D] of
 // entries T (K at index 0, V at 1; page 0 is the null page); for int8 and
@@ -38,6 +39,16 @@
 // tokens contribute exact zeros, and the merge order is fixed, so a row's
 // result does not depend on Q, on the other rows or on how far the block
 // walks. Rows with ctx_len == 0 (padding) read nothing and write zeros.
+//
+// The sliding window (a launch argument: it may differ per layer; 1 << 30
+// means none): a block starts its walk at the row's first in-window page,
+// clamp((q_start - W + 1) / S, 0, n_pages - 1) as the Pallas kernel does,
+// so a decode reads about W / S pages however long the context. The start
+// and each warp's tokens follow from logical positions only (warp w still
+// takes the 16-token slices at 16w mod 64 from that page on), so a ring of
+// recycled pages and a full pool walk the same tokens in the same order and
+// give the same bits; pages before the start, which in a ring hold newer
+// tokens of the same row, are never read.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -83,7 +94,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ ctx_lens,
                        const int* __restrict__ q_start,
                        __nv_bfloat16* __restrict__ out, int Q, int Hq, int Hkv,
-                       int S, int pages_per_seq, float scale) {
+                       int S, int pages_per_seq, float scale, int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -124,6 +135,13 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   int max_qi = -1;
   for (int r = row0; r < row0 + kRows && r < G; ++r) max_qi = max(max_qi, r % Q);
   const int n_tok = min(ctx, min(qs + max_qi + 1, pages_per_seq * S));
+  // the first in-window page of the row's first query (0 without a window);
+  // warp w starts at its first 16-token slice (16w mod 64) on or after it
+  const int n_pages = max(1, (ctx + S - 1) / S);
+  const int w_first = qs - window + 1;
+  const int first_tok = min(w_first > 0 ? w_first / S : 0, n_pages - 1) * S;
+  int t_begin = (first_tok / kStep) * kStep + warp * kWarpTok;
+  if (t_begin < first_tok) t_begin += kStep;
 
   // per lane: score slot (row 2*rr + lane/16, token lane%16), rr = 0..3
   const int tok = lane & 15;
@@ -153,7 +171,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kVec = 16 / sizeof(T);      // entries per 16-byte load
   constexpr int kVecs = kD / kVec;          // 16-byte loads per token row
 
-  for (int t0 = warp * kWarpTok; t0 < n_tok; t0 += kStep) {
+  for (int t0 = t_begin; t0 < n_tok; t0 += kStep) {
     const int page = block_tables[(size_t)b * pages_per_seq + t0 / S];
     const int off = t0 % S;   // 16 tokens never straddle a page (S % 16 == 0)
     const T* kb = kv + (size_t)page * page_stride + h * head_stride + (size_t)off * kD;
@@ -191,7 +209,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int d = 0; d < kD; ++d) s = fmaf(sm.q[rl][d], ks[tok][d], s);
       if (kScaled) s *= k_sc;
       const int kv_pos = t0 + tok;
-      const bool live = kv_pos <= qpos[rr] && kv_pos < ctx;
+      const bool live = kv_pos <= qpos[rr] && kv_pos > qpos[rr] - window && kv_pos < ctx;
       float cm = live ? s : kNegInf;
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
@@ -274,7 +292,7 @@ template <typename T, bool kScaled>
 int launch(const void* q, const void* kv, const void* kv_scales,
            const void* block_tables, const void* ctx_lens, const void* q_start,
            void* out, int B, int Q, int Hq, int Hkv, int S, int pages_per_seq,
-           float scale, cudaStream_t stream) {
+           float scale, int window, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem));   // above the 48 KB default
   static bool attr_set = false;
   if (!attr_set) {
@@ -290,7 +308,8 @@ int launch(const void* q, const void* kv, const void* kv_scales,
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kv),
       static_cast<const float*>(kv_scales), static_cast<const int*>(block_tables),
       static_cast<const int*>(ctx_lens), static_cast<const int*>(q_start),
-      static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, S, pages_per_seq, scale);
+      static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, S, pages_per_seq, scale,
+      window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,32 +319,33 @@ int launch(const void* q, const void* kv, const void* kv_scales,
 // kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2; kv_scales = the layer's
 // [P, 2, Hkv, S] f32 scales for int8 and fp8_e4m3 (else unused);
 // block_tables [B, pages_per_seq] int32; ctx_lens, q_start [B] int32;
-// out [B, Q, Hq, 128] bf16. S % 16 == 0, Hq % Hkv == 0.
+// out [B, Q, Hq, 128] bf16; window >= 1 (1 << 30: no window).
+// S % 16 == 0, Hq % Hkv == 0.
 extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      const void* kv_scales,
                                      const void* block_tables,
                                      const void* ctx_lens, const void* q_start,
                                      void* out, int B, int Q, int Hq, int Hkv,
                                      int S, int pages_per_seq, int kv_dtype,
-                                     float scale, void* stream) {
+                                     float scale, int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case 0:
       return launch<__nv_bfloat16, false>(q, kv, kv_scales, block_tables, ctx_lens,
                                           q_start, out, B, Q, Hq, Hkv, S,
-                                          pages_per_seq, scale, st);
+                                          pages_per_seq, scale, window, st);
     case 1:
       return launch<int8_t, true>(q, kv, kv_scales, block_tables, ctx_lens,
                                   q_start, out, B, Q, Hq, Hkv, S, pages_per_seq,
-                                  scale, st);
+                                  scale, window, st);
     case 2:
       return launch<__nv_fp8_e4m3, true>(q, kv, kv_scales, block_tables, ctx_lens,
                                          q_start, out, B, Q, Hq, Hkv, S,
-                                         pages_per_seq, scale, st);
+                                         pages_per_seq, scale, window, st);
     case 3:
       return launch<__nv_fp8_e5m2, false>(q, kv, kv_scales, block_tables, ctx_lens,
                                           q_start, out, B, Q, Hq, Hkv, S,
-                                          pages_per_seq, scale, st);
+                                          pages_per_seq, scale, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,9 +33,11 @@ class EngineArgs:
     enable_prefix_caching: bool = True
     mix_decode_with_prefill: bool = True
     num_speculative_tokens: Optional[int] = None
-    speculative_draft_scheme: str = "w4a4"
+    speculative_draft_scheme: str = "w4a4"   # w4a4|w4a8|w4a16
     speculative_disable_by_batch_size: Optional[int] = None
     spec_rounds_per_step: int = 1
+    # MagicDec-style sliding window on the shared-weights draft KV reads
+    spec_draft_kv_window: Optional[int] = None
     # "qspec" or "qspec_null" (same rounds, proposals nulled: the AR oracle)
     speculative_method: str = "qspec"
     seed: int = 0
@@ -57,7 +59,8 @@ class EngineArgs:
                 draft_scheme=self.speculative_draft_scheme,
                 disable_by_batch_size=self.speculative_disable_by_batch_size,
                 method=self.speculative_method,
-                rounds_per_step=self.spec_rounds_per_step)
+                rounds_per_step=self.spec_rounds_per_step,
+                draft_kv_window=self.spec_draft_kv_window)
         return EngineConfig(
             model=self.model_config(),
             cache=CacheConfig(page_size=self.block_size,

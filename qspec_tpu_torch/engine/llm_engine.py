@@ -3,9 +3,11 @@
 Port of the prefill / decode / spec-round paths of
 ``qspec_tpu/engine/llm_engine.py``. ``speculative=None`` gives plain W4A16
 autoregressive continuous batching; a SpeculativeConfig turns every decode
-step into draft (w4a4) + verify (w4a16) rounds over shared weights with
-per-phase KV caches. Requests are token ids: the port has no tokenizer, so
-stop strings and grammar-guided decoding are not ported and are rejected.
+step into draft (w4a4, w4a8 or w4a16, optionally under a sliding window) +
+verify (w4a16) rounds over shared weights with per-phase KV caches. Requests
+are token ids: the port has no tokenizer, so stop strings and grammar-guided
+decoding are not ported and are rejected, as are the sampling knobs no
+sampler applies (repetition_penalty, a per-request seed).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from qspec_tpu_torch.config import EngineConfig
 from qspec_tpu_torch.core.block_manager import BlockManager
 from qspec_tpu_torch.core.scheduler import ScheduledBatch, Scheduler
 from qspec_tpu_torch.core.sequence import Sequence
-from qspec_tpu_torch.engine.model_runner import ModelRunner, make_sampling_tensors
+from qspec_tpu_torch.engine.model_runner import (ModelRunner, make_sampling_tensors,
+                                                 ring_pages, ring_rows)
 from qspec_tpu_torch.models.llama import resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.sampling_params import SamplingParams
@@ -43,7 +46,7 @@ def _check_supported(config: EngineConfig) -> None:
         if spec.method not in ("qspec", "qspec_null"):
             raise NotImplementedError(f"speculative method {spec.method!r} is "
                                       "not ported (qspec, qspec_null)")
-        if spec.draft_scheme not in ("w4a4", "w4a8"):
+        if spec.draft_scheme not in ("w4a4", "w4a8", "w4a16"):
             raise NotImplementedError(f"draft_scheme {spec.draft_scheme!r}")
     if config.scheduler.preemption_mode != "recompute":
         raise NotImplementedError("only recompute preemption is ported")
@@ -89,8 +92,16 @@ class LLMEngine:
             num_layers=mc.num_layers, num_kv_heads=mc.cache_kv_heads,
             head_dim=mc.cache_head_dim, num_pages=1, page_size=cc.page_size,
             dtype=cc.kv_cache_dtype))
-        n_caches = 2 if self.spec is not None else 1
-        fit = int(free * cc.gpu_memory_utilization // (page_bytes * n_caches))
+        budget = free * cc.gpu_memory_utilization
+        n_caches = 1
+        if self.spec is not None:
+            ring = ring_pages(self.config)
+            if ring:
+                # the windowed draft's small fixed ring pool
+                budget -= (ring_rows(self.config) * ring + 1) * page_bytes
+            else:
+                n_caches = 2
+        fit = int(budget // (page_bytes * n_caches))
         return max(2, min(need, fit))
 
     # ------------------------------------------------------------------
@@ -104,6 +115,13 @@ class LLMEngine:
                                       "not ported")
         if (sp.logprobs or 0) > 1:
             raise NotImplementedError("top-n logprobs are not ported")
+        if sp.repetition_penalty != 1.0:
+            raise NotImplementedError("repetition_penalty is not ported: no "
+                                      "sampler applies it")
+        if sp.seed is not None and not sp.greedy:
+            raise NotImplementedError("a per-request seed for sampled decoding "
+                                      "is not ported: the engine's generator "
+                                      "(LLMEngine seed) samples every request")
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
         self.scheduler.add_seq(Sequence(seq_id=rid,
@@ -117,6 +135,9 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def step(self) -> List[RequestOutput]:
         batch = self.scheduler.schedule()
+        for s in self.scheduler.waiting:
+            # a preempted sequence re-prefills its draft KV into a new row
+            self.runner.free_ring_row(s)
         rejected = [self._to_output(s) for s in self.scheduler.rejected]
         self.scheduler.rejected = []
         if batch.is_empty:
@@ -139,6 +160,7 @@ class LLMEngine:
             if s.num_computed_tokens >= s.prefill_len:
                 s.check_stop(self.eos_token_id)
         for s in self.scheduler.free_finished():
+            self.runner.free_ring_row(s)
             outputs.append(self._to_output(s))
         for s in touched:
             if not s.is_finished:
@@ -201,8 +223,7 @@ class LLMEngine:
             sp = s.sampling_params
             if ((not sp.ignore_eos and self.eos_token_id is not None)
                     or sp.stop_token_ids
-                    or sp.presence_penalty or sp.frequency_penalty
-                    or sp.repetition_penalty != 1.0):
+                    or sp.presence_penalty or sp.frequency_penalty):
                 return 1
             rem = max(rem, sp.max_tokens - len(s.output_token_ids))
         chain = min(MAXCHAIN, max(1, -(-rem // max(per_call, 1))))

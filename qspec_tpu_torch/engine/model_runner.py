@@ -4,8 +4,14 @@ Port of the QSpec path of ``qspec_tpu/engine/model_runner.py``. The JAX
 package compiles one executable per (phase, bucket); here the steps are
 plain functions that launch the kernels eagerly on the caller's device. The
 QSpec scheme switch is the same as there: ``draft_steps`` runs the forward
-under the w4a4 (or w4a8) scheme and ``verify_step`` under w4a16, on the same
-parameters. Batches keep the JAX package's bucketed shapes.
+under the draft scheme (w4a4, w4a8, or w4a16 for a checkpoint without
+rotations) and ``verify_step`` under w4a16, on the same parameters.
+Batches keep the JAX package's bucketed shapes.
+
+Under ``SpeculativeConfig.draft_kv_window`` the draft (same weights, its own
+KV) attends only to the last ``window`` positions (MagicDec), and its KV
+lives in a small per-sequence ring of pages instead of a second full-size
+pool (see ``ModelRunner``).
 
 All control flow inside a step (token advancement, accepted lengths, budgets)
 stays in tensors on the device, so a fused call reads nothing back until the
@@ -14,6 +20,8 @@ caller asks for the tokens.
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -43,14 +51,24 @@ def _slot_of(block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> t
 
 
 def prefill_step(params, cache, token_ids, positions, block_tables, ctx_len, *,
-                 cfg, scheme):
+                 cfg, scheme, ring_cap=None):
     """One prompt-chunk rectangle. token_ids [B, Q]; returns the logits of
     each row's last valid position ([B, V]) and the cache (written in
     place). ``ctx_len`` [B] counts tokens including this chunk; padded tail
-    positions write to the null page and are masked out of attention."""
+    positions write to the null page and are masked out of attention.
+
+    ``ring_cap``: the ring-buffer KV write floor of the windowed draft's
+    cache (ModelRunner ring layout): ``block_tables`` wraps with period
+    ring_pages, so within one rectangle only the final ``ring_cap``
+    positions before each row's ctx_len may be written; older positions
+    would alias the same physical pages in a single scatter (undefined write
+    order). Their KV is dead anyway: the windowed draft never reads past the
+    window, and early-query attention outputs of a prefill are discarded."""
     page_size = cache.page_size
     Q = token_ids.shape[1]
     valid = positions < ctx_len[:, None]
+    if ring_cap is not None:
+        valid &= positions >= ctx_len[:, None] - ring_cap
     slot = torch.where(valid, _slot_of(block_tables, positions, page_size),
                        torch.zeros_like(positions, dtype=torch.int64))
     batch = AttentionBatch(positions=positions, slot_mapping=slot,
@@ -77,7 +95,7 @@ def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
 
 
 def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
-                *, cfg, scheme, k, prev_tokens=None):
+                *, cfg, scheme, k, prev_tokens=None, keep_prev=None):
     """k sequential draft forwards; returns (tokens [B, k], probs [B, k, V],
     cache).
 
@@ -87,13 +105,24 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
     round, so a fully accepted round would leave a hole in the draft cache
     that later draft attention reads. Rows at start_pos == 0 send the
     phantom query's KV write to the null page; its output is discarded.
+
+    ``keep_prev`` [B] bool: rows whose draft KV at ``start_pos - 1`` is
+    already in the cache from the draft's prefill (the first round after a
+    (re)prefill) send that write to the null page too, so the slot keeps
+    the prefill's value. The prefill computed it at prefill width, as the
+    target's prefill computed the target's; recomputing it at draft width
+    (another GEMM path, other roundings) would make a W4A16 draft differ
+    from its target at that position for the rest of the sequence.
     """
     page_size = cache.page_size
     first_k = k
     toks0 = probs0 = None
     if prev_tokens is not None:
         p2 = torch.stack([start_pos - 1, start_pos], dim=1)       # [B, 2]
-        slot2 = torch.where(p2 >= 0, _slot_of(block_tables, p2.clamp_min(0), page_size),
+        write = p2 >= 0
+        if keep_prev is not None:
+            write[:, 0] &= ~keep_prev
+        slot2 = torch.where(write, _slot_of(block_tables, p2.clamp_min(0), page_size),
                             torch.zeros_like(p2, dtype=torch.int64))
         batch = AttentionBatch(positions=p2, slot_mapping=slot2,
                                block_tables=block_tables,
@@ -164,8 +193,15 @@ def verify_step(params, cache, last_tokens, draft_tokens, draft_probs, start_pos
 def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
                      start_pos, block_tables, draft_block_tables, max_new,
                      enable: bool, st, gen, *, cfg, draft_scheme, verify_scheme,
-                     k, num_rounds=1):
+                     k, num_rounds=1, draft_cfg=None, keep_prev=None):
     """``num_rounds`` full QSpec rounds (k drafts + verify + rejection).
+
+    ``draft_cfg``: the draft's cfg when it differs from the target's (the
+    sliding-window variant of SpeculativeConfig.draft_kv_window);
+    ``draft_block_tables`` map the draft cache's logical pages (the target's
+    tables when the draft pool shares its page ids, ring tables under the
+    windowed draft's ring pool). ``keep_prev`` [B]: rows whose first
+    round keeps the draft prefill's KV at ``start_pos - 1`` (_draft_impl).
 
     ``max_new`` [B] caps the tokens emitted per sequence. ``enable=False``
     nulls every proposal (tokens -> -1, draft probs -> 0, so the recovery
@@ -179,10 +215,11 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     last, prev, pos, budget = last_tokens, prev_tokens, start_pos, max_new
     out_t, out_a, out_l = [], [], []
     slots = torch.arange(k + 1, device=last.device)[None, :]
-    for _ in range(num_rounds):
+    for r in range(num_rounds):
         d_toks, d_probs, draft_cache = _draft_impl(
             params, draft_cache, last, pos, draft_block_tables, st, gen,
-            cfg=cfg, scheme=draft_scheme, k=k, prev_tokens=prev)
+            cfg=cfg if draft_cfg is None else draft_cfg, scheme=draft_scheme,
+            k=k, prev_tokens=prev, keep_prev=keep_prev if r == 0 else None)
         if not enable:
             d_toks = torch.full_like(d_toks, -1)
             d_probs = torch.zeros_like(d_probs)
@@ -221,8 +258,47 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
 # ---------------------------------------------------------------------------
 
 
+def draft_window(config: EngineConfig) -> Optional[int]:
+    """The windowed draft's window: SpeculativeConfig.draft_kv_window, capped
+    by the model's own sliding window; None without a draft window."""
+    spec = config.speculative
+    if spec is None or spec.draft_kv_window is None:
+        return None
+    w = spec.draft_kv_window
+    if config.model.sliding_window is not None:
+        w = min(w, config.model.sliding_window)
+    return w
+
+
+def ring_pages(config: EngineConfig) -> int:
+    """Pages per sequence of the windowed draft's ring pool, 0 when the
+    draft keeps a full pool (no window, or QSPEC_RING_DRAFT=0, the JAX
+    package's switch). The draft reads the last ``window`` positions and
+    writes at most k + 1 ahead; the +2 pages cover a span straddling page
+    boundaries and the window's off-by-ones."""
+    w = draft_window(config)
+    if w is None or os.environ.get("QSPEC_RING_DRAFT", "1") == "0":
+        return 0
+    k = config.speculative.num_speculative_tokens
+    return -(-(w + k + 1) // config.cache.page_size) + 2
+
+
+def ring_rows(config: EngineConfig) -> int:
+    """Rows of the ring pool: one per decode-batch slot plus a scratch row
+    for padded batch lanes."""
+    return max(config.scheduler.decode_batch_buckets) + 1
+
+
 class ModelRunner:
-    """Owns params + paged caches and runs bucketed steps on one device."""
+    """Owns params + paged caches and runs bucketed steps on one device.
+
+    The draft keeps its own KV (computed under the draft scheme). Without a
+    draft window it is a second pool with the target's page ids. Under
+    ``draft_kv_window`` it is a RING pool (MagicDec): each sequence holds a
+    row of R = :func:`ring_pages` pages, and the ring block table maps
+    logical page lp -> 1 + row * R + lp % R, so the steps are unchanged: the
+    indirection lives in the table. Page 0 stays the null page.
+    """
 
     def __init__(self, config: EngineConfig, params, num_pages: int,
                  need_draft_cache: bool = False, device="cuda", seed: int = 0):
@@ -231,18 +307,36 @@ class ModelRunner:
         self.params = params
         self.device = resolve_device(device)
         page_size = config.cache.page_size
+        spec = config.speculative
+        if (spec is not None and self.cfg.quant == "w4g"
+                and spec.draft_scheme != "w4a16"):
+            raise ValueError(
+                "AWQ/GPTQ (w4g) checkpoints have no QuaRot rotations, so the "
+                "shared-weights w4a4/w4a8 draft scheme is unavailable; use "
+                "draft_scheme='w4a16' (with draft_kv_window)")
         kv_cfg = kvc.KVCacheConfig(
             num_layers=self.cfg.num_layers, num_kv_heads=self.cfg.cache_kv_heads,
             head_dim=self.cfg.cache_head_dim, num_pages=num_pages,
             page_size=page_size, dtype=config.cache.kv_cache_dtype)
         self.cache = kvc.allocate(kv_cfg, self.device)
-        # the draft keeps its own KV (computed under the draft scheme) in a
-        # second pool with the same page ids
-        self.draft_cache = kvc.allocate(kv_cfg, self.device) if need_draft_cache else None
+        window = draft_window(config)
+        # the windowed draft: same params, attention (and prompt prefill)
+        # under a sliding window
+        self.draft_cfg = (self.cfg if window is None else
+                          dataclasses.replace(self.cfg, sliding_window=window,
+                                              sliding_window_pattern=1))
         self.page_size = page_size
         self.max_pages_per_seq = -(-config.scheduler.max_model_len // page_size)
+        self._ring_pages = ring_pages(config) if need_draft_cache else 0
+        self._ring_rows = ring_rows(config) if self._ring_pages else 0
+        self._ring_slot: dict = {}
+        if self._ring_pages:
+            # wrap pattern of every table row: 1 + ring_row * R + lp % R
+            self._ring_base = np.arange(self.max_pages_per_seq,
+                                        dtype=np.int32) % self._ring_pages
+            kv_cfg = kv_cfg._replace(num_pages=self._ring_rows * self._ring_pages + 1)
+        self.draft_cache = kvc.allocate(kv_cfg, self.device) if need_draft_cache else None
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        spec = config.speculative
         self.k = spec.num_speculative_tokens if spec else 1
         self.draft_scheme = spec.draft_scheme if spec else "w4a4"
         self.verify_scheme = "w4a16"
@@ -314,11 +408,19 @@ class ModelRunner:
             positions[i] = np.arange(start, start + Q, dtype=np.int32)
             ctx[i] = end
             tables[i] = seq.page_ids
-        cache = self.draft_cache if draft else self.cache
+        ring = draft and self._ring_pages
+        tables = (self._t(self._ring_tables([c[0] for c in chunks], B)) if ring
+                  else self._pad_block_tables(tables))
+        if draft:
+            for seq, _, end in chunks:
+                if end == seq.prefill_len:
+                    seq.draft_prefill_end = end
         logits, _ = prefill_step(
-            self.params, cache, self._t(toks), self._t(positions),
-            self._pad_block_tables(tables), self._t(ctx), cfg=self.cfg,
-            scheme=self.draft_scheme if draft else self.verify_scheme)
+            self.params, self.draft_cache if draft else self.cache,
+            self._t(toks), self._t(positions), tables, self._t(ctx),
+            cfg=self.draft_cfg if draft else self.cfg,
+            scheme=self.draft_scheme if draft else self.verify_scheme,
+            ring_cap=self.ring_cap if ring else None)
         return logits
 
     def sample_tokens(self, logits, st: SamplingTensors):
@@ -367,19 +469,64 @@ class ModelRunner:
         B, last, prev, pos, max_new, tables = self._decode_inputs(seqs)
         st = self.sampling_tensors(sampling, len(seqs), B)
         state = (self._t(last), self._t(prev), self._t(pos), self._t(max_new))
+        d_tables = self._t(self._ring_tables(seqs, B)) if self._ring_pages else tables
+        keep = np.zeros(B, bool)
+        keep[:len(seqs)] = [s.draft_prefill_end == pos[i] for i, s in enumerate(seqs)]
+        keep_prev = torch.as_tensor(keep, device=self.device)
         parts = []
-        for _ in range(max(1, chain)):
+        for c in range(max(1, chain)):
             toks, accs, lps, state, _, _ = spec_rounds_step(
                 self.params, self.draft_cache, self.cache, *state[:3], tables,
-                tables, state[3], enable, st, self.gen, cfg=self.cfg,
+                d_tables, state[3], enable, st, self.gen, cfg=self.cfg,
                 draft_scheme=self.draft_scheme, verify_scheme=self.verify_scheme,
-                k=self.k, num_rounds=num_rounds)
+                k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg,
+                keep_prev=keep_prev if c == 0 else None)
             parts.append((toks, accs, lps))
         n = len(seqs)
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()
         accs = torch.cat([p[1] for p in parts]).cpu().numpy()
         lps = torch.cat([p[2] for p in parts]).cpu().numpy()
         return toks[:, :n], accs[:, :n], lps[:, :n]
+
+    # -- ring-buffer draft KV (windowed shared-weights draft) --------------
+    @property
+    def ring_cap(self) -> int:
+        """Ring write floor: only the last ring_cap positions of a prefill
+        rectangle may be written (older ones would alias ring pages within
+        one scatter). Always >= window + k + page_size."""
+        return (self._ring_pages - 1) * self.page_size
+
+    def _ring_row_for(self, seq, live_ids) -> int:
+        """Assign (or reuse) a draft-KV ring row for a sequence; evict rows
+        of sequences not in the current batch when full (acceptance-only
+        cost: the evictee's draft window rebuilds through backfill)."""
+        sid = seq.seq_id
+        if sid in self._ring_slot:
+            return self._ring_slot[sid]
+        used = set(self._ring_slot.values())
+        # the last row is the padded-lane scratch ring, never assigned
+        row = next((r for r in range(self._ring_rows - 1) if r not in used), None)
+        if row is None:
+            victim = next(s for s in self._ring_slot if s not in live_ids)
+            row = self._ring_slot.pop(victim)
+        self._ring_slot[sid] = row
+        return row
+
+    def _ring_tables(self, seqs, B: int) -> np.ndarray:
+        """[B, max_pages_per_seq] draft block tables under the ring layout:
+        entry lp -> 1 + row * R + lp % R. Padded lanes ride the scratch
+        ring."""
+        live = {s.seq_id for s in seqs}
+        scratch = 1 + (self._ring_rows - 1) * self._ring_pages
+        out = np.empty((B, self.max_pages_per_seq), np.int32)
+        out[:] = scratch + self._ring_base
+        for i, s in enumerate(seqs):
+            out[i] = 1 + self._ring_row_for(s, live) * self._ring_pages + self._ring_base
+        return out
+
+    def free_ring_row(self, seq) -> None:
+        """Release a sequence's ring row (a no-op without a ring or a row)."""
+        self._ring_slot.pop(seq.seq_id, None)
 
 
 def make_sampling_tensors(seqs, vocab_size: Optional[int] = None,

@@ -1,24 +1,36 @@
-"""Dual-scheme QuaRot Llama: one packed-int4 parameter tree, two forwards.
+"""Dual-scheme Llama: one packed-int4 parameter tree, two forwards.
 
 Port of the dense-Llama path of ``qspec_tpu/models/llama.py``. The QSpec
-property, W4A4 draft and W4A16 verify sharing the same weight buffers, is a
-``scheme`` argument: the draft forward and the verify forward read the same
+property, the draft and the W4A16 verify sharing the same weight buffers, is
+a ``scheme`` argument: the draft forward and the verify forward read the same
 tensors; nothing is copied on a switch.
 
-Per layer (QuaRot checkpoints, norms weightless):
+Per layer of a QuaRot checkpoint (``quant="w4"``, norms weightless):
 
     x - rmsnorm[+quant] - qkv(w4) - rope - paged KV write - attention
       - head Hadamard - [quant] - o(w4) - +residual
       - rmsnorm[+quant] - gate_up(w4) - silu*up - Hadamard(I) - [quant]
       - down(w4) - +residual
 
+and of an AWQ / GPTQ checkpoint (``quant="w4g"``, W4A16 only: no rotations,
+gamma norms, the grouped int4 GEMM ``matmul_w4a16_g``):
+
+    x - rmsnorm(gamma) - qkv - rope - paged KV write - attention - o
+      - +residual - rmsnorm(gamma) - gate_up - silu*up - down - +residual
+
+Attention runs under ``cfg.sliding_window`` when it is set (the windowed
+draft's cfg sets it).
+
 Parameters are a plain dict with the JAX package's layout: ``embed`` [V, H]
 bf16; ``lm_head`` by ``ModelConfig.lm_head_quant``: ``{"qw8": int8 [H, V],
 "qs": f32 [V]}`` (int8, the default for w4), ``{"qw": int32 [H//8, V],
 "qs"}`` (int4) or a dense bf16 [H, V]; ``layers[name] = {"qw": int32 [L, K//8, N],
 "qs": f32 [L, N]}`` for qkv / o / gate_up / down; ``rope_cache``;
-``hadamards``. The layer-stacked weights are read in place by the kernels
-(``layer_idx``).
+``hadamards``. A w4g tree has ``layers[name] = {"qw", "qs_g": f32
+[L, K//g, N], "qo_g": f32 [L, K//g, N]}`` (model_loader/grouped.py), the
+gammas ``layers["input_norm"]``, ``layers["post_norm"]`` bf16 [L, H] and
+``final_norm`` bf16 [H], and no Hadamards. The layer-stacked weights are read
+in place by the kernels (``layer_idx``).
 
 The Hadamard rotations are computed in float64: their ±1 sums of bf16
 inputs are then exact, so the result does not depend on how the GEMM library
@@ -40,7 +52,7 @@ from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import paged_attention
 from qspec_tpu_torch.ops.hadamard import decompose_dim, hadamard_matrix
 from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
-                                                matmul_w8a16)
+                                                matmul_w4a16_g, matmul_w8a16)
 from qspec_tpu_torch.ops.packing import (quantize_weight_int4,
                                          quantize_weight_int4_torch,
                                          quantize_weight_int8,
@@ -65,17 +77,21 @@ class AttentionBatch(NamedTuple):
 
 
 def _linear(x, w, scheme, xq=None, li=None):
-    """One projection by scheme; ``w`` holds the layer-stacked "qw"/"qs"."""
+    """One projection by scheme; ``w`` holds the layer-stacked "qw"/"qs"
+    (QuaRot) or "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only)."""
+    if "qo_g" in w:
+        return matmul_w4a16_g(x, w["qw"], w["qs_g"], w["qo_g"], layer_idx=li)
     if scheme == "w4a16":
         return matmul_w4a16(x, w["qw"], w["qs"], layer_idx=li)
     return matmul_w4a4(xq.values, xq.scales, w["qw"], w["qs"], layer_idx=li)
 
 
-def _norm_maybe_quant(x, eps, scheme):
-    """The weightless QuaRot norm: (normed bf16 or None, quantized or None)."""
+def _norm_maybe_quant(x, gamma, eps, scheme):
+    """(normed bf16 or None, quantized or None). The quantized-activation
+    schemes run only on QuaRot checkpoints, whose norms are weightless."""
     if scheme in QUANT_ACT_SCHEMES:
         return None, rmsnorm_quant(x, eps=eps, bits=4 if scheme == "w4a4" else 8)
-    return rmsnorm(x, None, eps=eps), None
+    return rmsnorm(x, gamma, eps=eps), None
 
 
 def _act_quant(x, scheme):
@@ -117,8 +133,11 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
     T = B * Q
     eps = cfg.rms_norm_eps
     quant_act = scheme in QUANT_ACT_SCHEMES
+    quarot = cfg.quant == "w4"
+    gamma_in = None if quarot else layers["input_norm"][li]
+    gamma_post = None if quarot else layers["post_norm"][li]
 
-    xn, xq = _norm_maybe_quant(x, eps, scheme)
+    xn, xq = _norm_maybe_quant(x, gamma_in, eps, scheme)
     qkv = _linear(xn, layers["qkv"], scheme, xq, li)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
     q = q.reshape(T, cfg.num_heads, cfg.head_dim)
@@ -131,9 +150,11 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
     kvc.update_layer(cache, li, k, v, batch.slot_mapping.reshape(-1))
     attn = paged_attention(q.reshape(B, Q, cfg.num_heads, cfg.head_dim).contiguous(),
                            cache, li, batch.block_tables, batch.ctx_lens,
-                           cfg.head_dim ** -0.5, q_positions=batch.positions)
-    attn = _head_hadamard(attn.reshape(T, cfg.num_heads, cfg.head_dim),
-                          hadamards["heads"])
+                           cfg.head_dim ** -0.5, q_positions=batch.positions,
+                           window=cfg.sliding_window)
+    attn = attn.reshape(T, cfg.num_heads, cfg.head_dim)
+    if quarot:
+        attn = _head_hadamard(attn, hadamards["heads"])
     attn_flat = attn.reshape(T, cfg.q_size)
     if quant_act:
         o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), li)
@@ -141,11 +162,12 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
         o = _linear(attn_flat, layers["o"], scheme, li=li)
     x = x + o.to(x.dtype)
 
-    xn, xq = _norm_maybe_quant(x, eps, scheme)
+    xn, xq = _norm_maybe_quant(x, gamma_post, eps, scheme)
     gate_up = _linear(xn, layers["gate_up"], scheme, xq, li)
     i_size = gate_up.shape[-1] // 2
     act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:])
-    act = _mlp_hadamard(act, hadamards["mlp_K"], hadamards["mlp_P"])
+    if quarot:
+        act = _mlp_hadamard(act, hadamards["mlp_K"], hadamards["mlp_P"])
     if quant_act:
         down = _linear(None, layers["down"], scheme, _act_quant(act, scheme), li)
     else:
@@ -165,19 +187,22 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     """
     if scheme not in SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {SCHEMES}")
-    if cfg.quant != "w4":
-        raise NotImplementedError("only QuaRot w4 checkpoints are ported")
+    if scheme in QUANT_ACT_SCHEMES and cfg.quant == "w4g":
+        raise ValueError("w4a4/w4a8 drafting requires a QuaRot (quant='w4') "
+                         "checkpoint; AWQ/GPTQ (w4g) models are "
+                         "weight-only-quant")
     B, Q = token_ids.shape
     x = params["embed"][token_ids.reshape(-1).to(torch.int64)].to(torch.bfloat16)
     for li in range(cfg.num_layers):
         x, cache = decoder_layer(x, params["layers"], cache, li, cfg, batch,
-                                 params["rope_cache"], params["hadamards"],
+                                 params["rope_cache"], params.get("hadamards"),
                                  scheme)
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q
         x = x[flat]
         Q = 1
-    x = rmsnorm(x, None, eps=cfg.rms_norm_eps)
+    x = rmsnorm(x, None if cfg.quant == "w4" else params["final_norm"],
+                eps=cfg.rms_norm_eps)
     logits = compute_logits(x, params["lm_head"])
     return logits.reshape(B, Q, -1), cache
 
@@ -276,15 +301,21 @@ def _make_lm_head(w: torch.Tensor, kind: str):
     return w.to(torch.bfloat16)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                group_size: int = 128):
     """Random parameters made on ``device`` from a torch.Generator: normal
-    weights (std 0.02) quantized per output channel to packed int4 there, so
-    an 8B-wide model never passes through host memory. Same layout as
-    :func:`params_from_numpy`."""
-    if cfg.quant != "w4":
-        raise NotImplementedError("only QuaRot w4 checkpoints are ported")
+    weights (std 0.02) quantized there, so an 8B-wide model never passes
+    through host memory. Same layout as :func:`params_from_numpy`. QuaRot
+    (w4): per output channel to packed int4. w4g: an AWQ checkpoint of
+    ``group_size`` (model_loader.grouped.make_grouped_state_dict) through
+    ``load_awq``."""
     head_kind = _head_kind(cfg)
     dev = resolve_device(device)
+    if cfg.quant == "w4g":
+        from qspec_tpu_torch.model_loader.grouped import (load_awq,
+                                                          make_grouped_state_dict)
+        sd = make_grouped_state_dict(cfg, "awq", group_size, seed, dev)
+        return load_awq(sd, cfg, device=dev)[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
     H, L = cfg.hidden_size, cfg.num_layers
 
@@ -318,20 +349,26 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """Carry the JAX package's parameter tree (leaves converted with
-    ``np.asarray``) over to the port. Packed int4 and the int8 head stay as
-    they are: the kernels read the interchange layouts directly."""
-    if cfg.quant != "w4":
-        raise NotImplementedError("only QuaRot w4 checkpoints are ported")
+    ``np.asarray``) over to the port: ``init_params`` of a QuaRot model, or
+    ``load_awq`` / ``load_gptq`` of a w4g one. Packed int4 (plain or
+    grouped, with its scales and offsets), the gammas and the int8 head stay
+    as they are: the kernels read the interchange layouts directly."""
     _head_kind(cfg)
     dev = resolve_device(device)
-    layers = {name: {"qw": _tensor(tree["layers"][name]["qw"], dev),
-                     "qs": _tensor(tree["layers"][name]["qs"], dev)}
+    keys = ("qw", "qs") if cfg.quant == "w4" else ("qw", "qs_g", "qo_g")
+    layers = {name: {k: _tensor(tree["layers"][name][k], dev) for k in keys}
               for name in PROJECTIONS}
-    return {
+    params = {
         "embed": _tensor(tree["embed"], dev),
         "lm_head": ({k: _tensor(v, dev) for k, v in tree["lm_head"].items()}
                     if isinstance(tree["lm_head"], dict) else _tensor(tree["lm_head"], dev)),
         "layers": layers,
         "rope_cache": _tensor(tree["rope_cache"], dev).to(torch.float32),
-        "hadamards": make_hadamards(cfg, dev),
     }
+    if cfg.quant == "w4":
+        params["hadamards"] = make_hadamards(cfg, dev)
+    else:
+        layers["input_norm"] = _tensor(tree["layers"]["input_norm"], dev)
+        layers["post_norm"] = _tensor(tree["layers"]["post_norm"], dev)
+        params["final_norm"] = _tensor(tree["final_norm"], dev)
+    return params

@@ -6,13 +6,16 @@ def kernel_wrappers() -> dict:
     ``launches`` count, raised by one at each launch of its kernel. A GEMM or
     norm kernel's counter is its wrapper; the paged-attention kernel has one
     counter per instantiation (KV entry type): ``paged_attention`` for the
-    bf16 cache, ``paged_attention_<kv dtype>`` for the 8-bit ones."""
+    bf16 cache, ``paged_attention_<kv dtype>`` for the 8-bit ones; each of
+    those also counts its launches under a sliding window in
+    ``window_launches``."""
     import torch
     from qspec_tpu_torch.ops.attention_cuda import LAUNCHES
     from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
-                                                    matmul_w8a16)
+                                                    matmul_w4a16_g, matmul_w8a16)
     from qspec_tpu_torch.ops.rmsnorm_quant import rmsnorm, rmsnorm_quant
-    return {"matmul_w4a16": matmul_w4a16, "matmul_w4a4": matmul_w4a4,
+    return {"matmul_w4a16": matmul_w4a16, "matmul_w4a16_g": matmul_w4a16_g,
+            "matmul_w4a4": matmul_w4a4,
             "matmul_w8a16": matmul_w8a16,
             "rmsnorm": rmsnorm, "rmsnorm_quant": rmsnorm_quant,
             "paged_attention": LAUNCHES[torch.bfloat16],

@@ -1,7 +1,8 @@
 """Attention over the paged KV cache.
 
-Port of ``qspec_tpu/ops/attention.py`` (causal; bf16, int8, fp8_e4m3 and
-fp8_e5m2 caches). One chunked formulation serves every phase:
+Port of ``qspec_tpu/ops/attention.py`` (causal, optionally under a sliding
+window; bf16, int8, fp8_e4m3 and fp8_e5m2 caches). One chunked formulation
+serves every phase:
 
 * decode:  Q = 1 new token per sequence;
 * verify:  Q = k + 1 speculative positions per sequence, scored in one pass;
@@ -11,8 +12,8 @@ fp8_e5m2 caches). One chunked formulation serves every phase:
 to bf16 when the cache is 8-bit, dense masked softmax in f32);
 ``paged_attention`` dispatches CUDA tensors to the kernel
 (``attention_cuda.py``), which reads 8-bit pages and their scales as they
-are. The JAX package's other options (sliding window, logit softcap, ALiBi,
-the Medusa tree mask) are not ported yet and raise.
+are. The JAX package's other options (logit softcap, ALiBi, the Medusa
+tree mask) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,12 +27,15 @@ NEG_INF = -1e30
 
 def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
                         block_tables: torch.Tensor, ctx_lens: torch.Tensor,
-                        scale: float, q_positions: torch.Tensor = None) -> torch.Tensor:
+                        scale: float, q_positions: torch.Tensor = None,
+                        window: int = None) -> torch.Tensor:
     """q: [B, Q, Hq, D]; ctx_lens[b] counts tokens *including* the new ones.
 
     ``q_positions`` [B, Q] gives each query's absolute position; query i
     attends to kv positions <= its own. When omitted, queries are the *last*
-    Q positions (decode/verify windows).
+    Q positions (decode/verify windows). ``window`` limits a query at
+    position p to the kv positions in (p - window, p] (Mistral's sliding
+    window, the windowed draft).
     """
     B, Q, Hq, D = q.shape
     if q_positions is None:
@@ -44,6 +48,8 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     C = k.shape[2]
     kv_pos = torch.arange(C, device=q.device)[None, :]
     mask = kv_pos[None] <= q_positions[:, :, None]             # [B, Q, C]
+    if window is not None:
+        mask = mask & (kv_pos[None] > q_positions[:, :, None] - window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
@@ -57,10 +63,9 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
                     window=None, softcap=None, alibi=None,
                     tree=None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version on the CPU."""
-    if window is not None or softcap is not None or alibi is not None \
-            or tree is not None:
-        raise NotImplementedError("sliding window, softcap, ALiBi and the "
-                                  "tree mask are not ported yet")
+    if softcap is not None or alibi is not None or tree is not None:
+        raise NotImplementedError("softcap, ALiBi and the tree mask are not "
+                                  "ported yet")
     head_dim = q.shape[-1]
     cache_dim = cache.kv_pages.shape[-1]
     if cache_dim != head_dim:
@@ -71,8 +76,8 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
         from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
         out = paged_attention_cuda(q, cache.kv_pages, block_tables, ctx_lens,
                                    scale, q_positions=q_positions, layer=layer,
-                                   kv_scales=cache.kv_scales)
+                                   kv_scales=cache.kv_scales, window=window)
     else:
         out = paged_attention_ref(q, cache, layer, block_tables, ctx_lens,
-                                  scale, q_positions=q_positions)
+                                  scale, q_positions=q_positions, window=window)
     return out[..., :head_dim] if cache_dim != head_dim else out

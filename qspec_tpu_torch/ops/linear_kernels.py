@@ -14,6 +14,15 @@ Port of ``qspec_tpu/ops/linear_kernels.py``. One packed-int4 weight buffer
   full for w4a8) x int4 weights with exact int32 accumulation and a
   per-token x per-channel scale epilogue (kernel ``csrc/w4a4.cu``).
 
+A group-quantized packed-int4 weight (AWQ / GPTQ checkpoints, quant="w4g",
+model_loader/grouped.py) serves
+
+* ``matmul_w4a16_g``: bf16 activations x int4 weights dequantized per
+  (group, column) to ``bf16(q * s_g - o_g)``, f32 accumulation (kernel
+  ``csrc/w4a16_g.cu``); the verify GEMM and the w4a16 draft's. Its
+  prefill-width branch is ``_w4a16_g_bigm`` (the JAX package's, at the same
+  threshold): dequantize once with torch ops, then ``torch.mm``.
+
 and an int8 [K, N] weight with per-channel scales serves
 
 * ``matmul_w8a16``: bf16 activations x int8 weights with f32 accumulation,
@@ -86,10 +95,38 @@ def matmul_w8a16_ref(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _layer(w_packed, w_scales, layer_idx):
-    if layer_idx is None:
-        return w_packed, w_scales
-    return w_packed[layer_idx], w_scales[layer_idx]
+def _dequant_g(q: torch.Tensor, w_scales_g: torch.Tensor,
+               w_offs_g: torch.Tensor) -> torch.Tensor:
+    """Unsigned nibbles q [k, N] dequantized to ``bf16(q * s - o)`` with
+    their group's scale and offset ([k // g, N]), rounded as the JAX package
+    rounds it (an f32 product, then an f32 difference)."""
+    g = q.shape[0] // w_scales_g.shape[0]
+    s = torch.repeat_interleave(w_scales_g.to(torch.float32), g, dim=0)
+    o = torch.repeat_interleave(w_offs_g.to(torch.float32), g, dim=0)
+    return (q.to(torch.float32) * s - o).to(torch.bfloat16)
+
+
+def matmul_w4a16_g_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                       w_scales_g: torch.Tensor, w_offs_g: torch.Tensor,
+                       bias: Optional[torch.Tensor] = None, *,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version: x [M, K] bf16, w_packed int32 [K//8, N] holding the
+    unsigned q (model_loader/grouped.py), scales and offsets (zp * s) f32
+    [K//g, N]. The weights are dequantized to bf16 per (group, column); the
+    sums of bf16 products are taken in float64, where they do not depend on
+    their order at these widths, then rounded to f32: a row's result does
+    not depend on the batch (the CPU path keeps greedy QSpec equal to
+    greedy AR)."""
+    w = _dequant_g(unpack_int4(w_packed) + 8, w_scales_g, w_offs_g)
+    out = (x.to(torch.bfloat16).to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
+    return out.to(out_dtype)
+
+
+def _layer(layer_idx, *weights):
+    """The weight-side arrays of layer ``layer_idx`` (views: no copy)."""
+    return weights if layer_idx is None else tuple(a[layer_idx] for a in weights)
 
 
 def _bigm(m: int, k: int) -> bool:
@@ -126,7 +163,7 @@ def matmul_w4a16(x: torch.Tensor, w_packed: torch.Tensor, w_scales: torch.Tensor
                  bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
                  layer_idx: Optional[int] = None) -> torch.Tensor:
     """x [M, K] bf16 @ packed-int4 w [K//8, N] -> [M, N] out_dtype."""
-    w, s = _layer(w_packed, w_scales, layer_idx)
+    w, s = _layer(layer_idx, w_packed, w_scales)
     if not x.is_cuda:
         return matmul_w4a16_ref(x, w, s, bias, out_dtype=out_dtype)
     m, k = x.shape
@@ -152,12 +189,78 @@ def matmul_w4a16(x: torch.Tensor, w_packed: torch.Tensor, w_scales: torch.Tensor
 matmul_w4a16.launches = 0
 
 
+def _w4a16_g_bigm(x, w_packed, w_scales_g, w_offs_g, out_dtype):
+    """Prefill-width branch (the JAX package's _w4a16_g_bigm): dequantize
+    each nibble plane once to bf16 (the low plane holds groups [0, G/2), the
+    high plane the rest), two bf16 GEMMs (the halves pairing maps onto two
+    contiguous products) with f32 results."""
+    G2 = w_scales_g.shape[0] // 2
+    lo = _dequant_g(unpack_int4_low(w_packed) + 8, w_scales_g[:G2], w_offs_g[:G2])
+    hi = _dequant_g(unpack_int4_high(w_packed) + 8, w_scales_g[G2:], w_offs_g[G2:])
+    kh = lo.shape[0]
+    xb = x.to(torch.bfloat16)
+    acc = (torch.mm(xb[:, :kh], lo, out_dtype=torch.float32)
+           + torch.mm(xb[:, kh:], hi, out_dtype=torch.float32))
+    return acc.to(out_dtype)
+
+
+def matmul_w4a16_g(x: torch.Tensor, w_packed: torch.Tensor,
+                   w_scales_g: torch.Tensor, w_offs_g: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
+                   layer_idx: Optional[int] = None) -> torch.Tensor:
+    """x [M, K] bf16 @ group-quantized int4 w -> [M, N] out_dtype (AWQ /
+    GPTQ weights). w_packed [K//8, N] int32 (nibbles = unsigned q),
+    w_scales_g and w_offs_g = zp * s f32 [K//g, N]. With ``layer_idx`` the
+    weight-side arrays carry a leading stacked-layer dim and the kernel
+    reads layer ``layer_idx`` in place. The kernel takes K % 256 == 0, an
+    even group count and a group size that is a multiple of 16 dividing
+    K/2."""
+    w, s, o = _layer(layer_idx, w_packed, w_scales_g, w_offs_g)
+    if not x.is_cuda:
+        return matmul_w4a16_g_ref(x, w, s, o, bias, out_dtype=out_dtype)
+    m, k = x.shape
+    _build.require(w.dtype == torch.int32 and w.dim() == 2 and w.shape[0] * 8 == k,
+                   f"matmul_w4a16_g: packed weights int32 [K//8, N] with K={k}")
+    n = w.shape[1]
+    G = s.shape[0]
+    _build.require(s.dtype == torch.float32 and o.dtype == torch.float32
+                   and tuple(s.shape) == (G, n) and tuple(o.shape) == (G, n),
+                   "matmul_w4a16_g: scales and offsets f32 [K//g, N]")
+    _build.require(k % 256 == 0, f"matmul_w4a16_g: K % 256 == 0, got K={k}")
+    _build.require(G % 2 == 0 and k % G == 0 and (k // 2) % (k // G) == 0
+                   and (k // G) % 16 == 0,
+                   f"matmul_w4a16_g: an even group count whose group size is a "
+                   f"multiple of 16 dividing K/2, got K={k}, G={G}")
+    if _bigm(m, k):
+        out = _w4a16_g_bigm(x, w, s, o, out_dtype)
+    else:
+        _build.require(x.dtype == torch.bfloat16, "matmul_w4a16_g: x bf16")
+        _build.require(out_dtype in (torch.bfloat16, torch.float32),
+                       "matmul_w4a16_g: out_dtype bf16 or f32")
+        _build.require(G * 256 + 16384 <= 232448,
+                       f"matmul_w4a16_g: {G} groups exceed the block's shared memory")
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+        if m:
+            _build.cuda_args_ok(x, w, s, o, out)
+            _build.check("matmul_w4a16_g", _build.lib().qspec_w4a16_g(
+                x.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(),
+                out.data_ptr(), m, k, n, G, int(out_dtype == torch.float32),
+                _build.stream_of(x)))
+            matmul_w4a16_g.launches += 1
+    if bias is not None:
+        out = out + bias[None, :].to(out.dtype)
+    return out
+
+
+matmul_w4a16_g.launches = 0
+
+
 def matmul_w4a4(x_q: torch.Tensor, x_scales: torch.Tensor, w_packed: torch.Tensor,
                 w_scales: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 *, layer_idx: Optional[int] = None) -> torch.Tensor:
     """Quantized activations x_q int8 [M, K] (scales [M] or [M, 1]) @
     packed-int4 w [K//8, N] -> bf16 [M, N]."""
-    w, s = _layer(w_packed, w_scales, layer_idx)
+    w, s = _layer(layer_idx, w_packed, w_scales)
     if not x_q.is_cuda:
         return matmul_w4a4_ref(x_q, x_scales, w, s, bias)
     m, k = x_q.shape
@@ -187,7 +290,7 @@ def matmul_w8a16(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
     """x [M, K] bf16 @ int8 w [K, N] (per-channel scales [N]) -> [M, N]
     out_dtype. With ``layer_idx`` the weights are the stacked [L, K, N] /
     [L, N] arrays and the kernel reads layer ``layer_idx`` in place."""
-    w, s = _layer(w_q, w_scales, layer_idx)
+    w, s = _layer(layer_idx, w_q, w_scales)
     if not x.is_cuda:
         return matmul_w8a16_ref(x, w, s, bias, out_dtype=out_dtype)
     m, k = x.shape

@@ -8,8 +8,8 @@ is present and skips here, on a machine without one. On the H100:
 need not have; these tests use no fixture of it.)
 
 Tolerances are those of tests/test_torch_ops.py (the JAX kernel tests'):
-w8a16 rtol/atol 2e-2; attention over an 8-bit cache 4e-2 (8e-2 for
-fp8_e5m2, which keeps 2 mantissa bits).
+w8a16 and the grouped w4a16_g rtol/atol 2e-2; attention over an 8-bit cache
+4e-2 (8e-2 for fp8_e5m2, which keeps 2 mantissa bits).
 """
 
 import numpy as np
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from qspec_tpu_torch.config import ModelConfig
+from qspec_tpu_torch.model_loader import grouped as tg
 from qspec_tpu_torch.ops import kernel_wrappers
 from qspec_tpu_torch.ops import linear_kernels as lk
 from qspec_tpu_torch.ops import rmsnorm_quant as rq
@@ -196,3 +197,176 @@ def test_greedy_spec_equals_oracle_on_card(gen, lm_head_quant, expect):
     oracle = LLM(params=llm.llm_engine.runner.params, speculative_method="qspec_null", **kw)
     assert spec == [o.output_token_ids for o in oracle.generate(prompts, sp)]
     assert ModelConfig.tiny().vocab_size > max(max(t) for t in spec)
+
+
+def _grouped(gen, k, n, g, layers=None):
+    """AWQ weights made on the card (the torch writer), repacked by the
+    loader's unpack / pack: the w4g layout, optionally layer-stacked."""
+    def one():
+        t = tg.make_awq_tensors(torch.randn(k, n, generator=gen, device="cuda") * 0.02, g)
+        return tg.pack_grouped_proj(*tg.unpack_awq(t["qweight"], t["qzeros"], t["scales"]))
+    if layers is None:
+        p = one()
+        return p["qw"], p["qs_g"], p["qo_g"]
+    ps = [one() for _ in range(layers)]
+    return tuple(torch.stack([p[key] for p in ps]) for key in ("qw", "qs_g", "qo_g"))
+
+
+@pytest.mark.parametrize("m,k,n,g", [(1, 256, 128, 128), (8, 512, 384, 64),
+                                     (33, 512, 1536, 128), (16, 14336, 4096, 128),
+                                     (4, 4096, 6144, 32)])
+def test_w4a16_g_kernel(gen, m, k, n, g):
+    """The grouped GEMM at the JAX kernel test's shapes and Llama-3-8B ones,
+    bf16 and f32 out, against its plain version."""
+    qw, qs, qo = _grouped(gen, k, n, g)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    before = lk.matmul_w4a16_g.launches
+    for dt in (torch.float32, torch.bfloat16):
+        out = lk.matmul_w4a16_g(x, qw, qs, qo, out_dtype=dt)
+        assert out.dtype == dt and tuple(out.shape) == (m, n)
+        torch.testing.assert_close(out.float(),
+                                   lk.matmul_w4a16_g_ref(x, qw, qs, qo, out_dtype=dt).float(),
+                                   rtol=2e-2, atol=2e-2)
+    assert lk.matmul_w4a16_g.launches == before + 2
+
+
+def test_w4a16_g_stacked_rows_independent_and_bigm(gen):
+    """The stacked form reads layer ``layer_idx`` in place; a row's bits do
+    not depend on M or on its place in the batch; the prefill branch
+    (dequantize once, torch.mm) agrees with the plain version and launches
+    no kernel."""
+    L, k, n, g = 3, 4096, 4096, 128
+    qw, qs, qo = _grouped(gen, k, n, g, layers=L)
+    x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for li in range(L):
+        torch.testing.assert_close(lk.matmul_w4a16_g(x, qw, qs, qo, layer_idx=li).float(),
+                                   lk.matmul_w4a16_g_ref(x, qw[li], qs[li], qo[li]).float(),
+                                   rtol=2e-2, atol=2e-2)
+    full = lk.matmul_w4a16_g(x, qw, qs, qo, layer_idx=1)
+    for rows in (slice(5, 9), slice(0, 1), slice(3, 11)):
+        assert torch.equal(lk.matmul_w4a16_g(x[rows].contiguous(), qw, qs, qo, layer_idx=1),
+                           full[rows])
+    assert torch.equal(lk.matmul_w4a16_g(x.flip(0).contiguous(), qw, qs, qo, layer_idx=1),
+                       full.flip(0))
+    big = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
+    before = lk.matmul_w4a16_g.launches
+    out = lk.matmul_w4a16_g(big, qw, qs, qo, layer_idx=2)
+    assert lk.matmul_w4a16_g.launches == before
+    torch.testing.assert_close(out.float(), lk.matmul_w4a16_g_ref(big, qw[2], qs[2], qo[2]).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def _window_case(gen, q_len, kv_dtype, ctx, S=16, B=3, Hq=32, Hkv=8, D=128):
+    """A cache of ``kv_dtype`` filled through update_layer, one row per
+    context length, pages in a shuffled order."""
+    pages = [-(-c // S) for c in ctx]
+    P = 1 + sum(pages)
+    cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, P, S, kv_dtype), "cuda")
+    T = (P - 1) * S
+    k_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    v_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kvc.update_layer(cache, 1, k_new, v_new, torch.arange(T, device="cuda") + S)
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(q_len)) + 1
+    tables = torch.zeros(B, max(pages), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(pages):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    q = torch.randn(B, q_len, Hq, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, cache, tables.cuda(), torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("q_len,window", [(1, 8), (4, 8), (4, 21), (1, 40), (2, 64),
+                                          (16, 33)])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_paged_attention_kernel_window(gen, kv_dtype, q_len, window):
+    """The sliding window (test_attention.py's windows, page 16) against the
+    plain version; contexts long enough that leading pages are skipped; the
+    windowed launches are counted apart."""
+    S = 16
+    q, cache, tables, ctx = _window_case(gen, q_len, kv_dtype,
+                                         [q_len + 3, 4 * S + q_len, 8 * S - 2])
+    counter = kernel_wrappers()["paged_attention" if kv_dtype == "bfloat16"
+                                else "paged_attention_int8"]
+    before = (counter.launches, counter.window_launches)
+    out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5, layer=1,
+                               kv_scales=cache.kv_scales, window=window)
+    assert (counter.launches, counter.window_launches) == (before[0] + 1, before[1] + 1)
+    ref = paged_attention_ref(q, cache, 1, tables, ctx, 128 ** -0.5, window=window)
+    tol = 3e-2 if kv_dtype == "bfloat16" else 4e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_paged_attention_window_skips_stale_pages(gen):
+    """The pages before a row's first in-window page are never read (a ring
+    holds newer tokens there): poisoning them with NaN changes no bit, and a
+    ring table over the same logical pages gives the full pool's bits."""
+    S, window, q_len = 16, 24, 2
+    ctx = [200, 130, 47]
+    q, cache, tables, ctx_t = _window_case(gen, q_len, "bfloat16", ctx, S=S)
+    out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, 128 ** -0.5, layer=1,
+                               window=window)
+    poisoned = cache.kv_pages.clone()
+    for b, c in enumerate(ctx):
+        first = max(c - q_len - window + 1, 0) // S
+        for lp in range(first):
+            poisoned[1, tables[b, lp]] = float("nan")
+    out2 = paged_attention_cuda(q, poisoned, tables, ctx_t, 128 ** -0.5, layer=1,
+                                window=window)
+    assert torch.equal(out, out2)
+    # the same logical pages through a 4-page ring per row: copy each live
+    # page to 1 + row * 4 + lp % 4, oldest first, so newer pages overwrite
+    R = 4
+    ring = torch.full_like(cache.kv_pages, float("nan"))
+    rtab = torch.zeros_like(tables)
+    for b, c in enumerate(ctx):
+        for lp in range(-(-c // S)):
+            ring[1, 1 + b * R + lp % R] = cache.kv_pages[1, tables[b, lp]]
+        rtab[b] = 1 + b * R + torch.arange(tables.shape[1], device="cuda") % R
+    out3 = paged_attention_cuda(q, ring, rtab, ctx_t, 128 ** -0.5, layer=1, window=window)
+    assert torch.equal(out, out3)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_w4g_greedy_spec_equals_oracle_on_card(gen, window):
+    """A tiny AWQ model (g = 128) through the engine with the W4A16 draft,
+    windowed on its ring pool and not: greedy QSpec equals its oracle, and
+    exactly the w4g path's kernels launch (the grouped GEMM, the gamma
+    norm, the bf16-cache attention, the int8 head)."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SamplingParams,
+                                 SchedulerConfig, SpeculativeConfig)
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.tiny(quant="w4g", intermediate_size=512)
+    params = init_params(cfg, seed=0, device="cuda", group_size=128)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 500, size=int(n)).tolist() for n in (5, 17, 33, 9)]
+
+    def run(method):
+        spec = SpeculativeConfig(num_speculative_tokens=3, draft_scheme="w4a16",
+                                 draft_kv_window=window, method=method)
+        eng = LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=16),
+            scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
+                                      prefill_chunk_size=64),
+            speculative=spec), params, device="cuda")
+        for p in prompts:
+            eng.add_request(p, SamplingParams(temperature=0.0, max_tokens=24))
+        outs = {}
+        while eng.has_unfinished_requests():
+            for o in eng.step():
+                if o.finished:
+                    outs[o.request_id] = o.output_token_ids
+        return [outs[i] for i in range(len(prompts))], eng
+
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    counters["paged_attention"].window_launches = 0
+    spec, eng = run("qspec")
+    assert {n for n, c in counters.items() if c.launches > 0} == {
+        "matmul_w4a16_g", "rmsnorm", "paged_attention", "matmul_w8a16"}
+    assert (counters["paged_attention"].window_launches > 0) == (window is not None)
+    assert eng.runner._ring_pages == (0 if window is None else 4)
+    assert eng.spec_metrics.num_draft_accepted > 0
+    oracle, _ = run("qspec_null")
+    assert spec == oracle

@@ -20,13 +20,15 @@ PROBE = r"""
 import importlib, json, pkgutil, sys
 import qspec_tpu_torch
 from qspec_tpu_torch.engine.llm_engine import LLMEngine
+from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
 for m in pkgutil.walk_packages(qspec_tpu_torch.__path__, "qspec_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "qspec_tpu"
              or m.startswith("qspec_tpu."))
-print(json.dumps(bad))
+port = sorted(m for m in sys.modules if m.startswith("qspec_tpu_torch."))
+print(json.dumps([bad, port]))
 """
 
 
@@ -40,7 +42,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    bad, port = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    # every module was imported, the checkpoint loaders' among them
+    assert {"qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
+            "qspec_tpu_torch.ops.linear_kernels",
+            "qspec_tpu_torch.engine.model_runner"} <= set(port)
 
 
 def test_port_sources_name_no_jax():
