@@ -1,9 +1,10 @@
 """Configuration dataclasses.
 
 The port's own copy of the parts of ``qspec_tpu/config.py`` that the dense
-Llama QSpec path reads, with the same field names and defaults. Fields of
-model families, loaders, parallelism and proposers that are not ported yet
-are left out rather than accepted and ignored.
+Llama QSpec path and the Gemma-2 grouped-int4 path read, with the same field
+names and defaults. Fields of model families, loaders, parallelism and
+proposers that are not ported yet are left out rather than accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of one dense Llama-family model."""
+    """Architecture hyperparameters of one dense Llama or Gemma-2 model."""
 
-    arch: str = "llama"
+    arch: str = "llama"               # "llama" | "gemma2"
     vocab_size: int = 128256
     hidden_size: int = 4096
     intermediate_size: int = 14336
@@ -28,6 +29,16 @@ class ModelConfig:
     rope_scaling: Optional[dict] = None
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = False
+    # MLP activation: "silu" (llama) | "gelu_tanh" (gemma's approximate
+    # GeGLU, HF gelu_pytorch_tanh)
+    hidden_act: str = "silu"
+    # multiply embeddings by this after lookup (gemma: sqrt(hidden_size)),
+    # in the hidden dtype
+    embed_scale: Optional[float] = None
+    # gemma RMSNorm computes x * (1 + w): loaders fold the +1 into the
+    # stored gamma so the runtime norm stays the standard x * gamma
+    norm_weight_offset: float = 0.0
     # quantization of the stored checkpoint:
     # "w4"   QuaRot packed int4, per-channel symmetric (dual-scheme QSpec);
     #        weightless norms, Hadamard rotations
@@ -40,17 +51,26 @@ class ModelConfig:
     # Mistral-style sliding-window attention: each query attends only to the
     # last `sliding_window` positions; None = full causal attention
     sliding_window: Optional[int] = None
-    # layers alternating sliding / global (gemma2) are not ported: 1 only
+    # gemma2: layer li is sliding iff li % sliding_window_pattern == 0, else
+    # global (2 = even layers sliding); tanh softcaps on the attention scores
+    # and the final logits; the query scale from query_pre_attn_scalar;
+    # post-attention and pre+post-feedforward norms around each block
     sliding_window_pattern: int = 1
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    post_norms: bool = False
 
     def __post_init__(self):
         if self.quant not in ("w4", "w4g"):
             raise NotImplementedError(f"quant={self.quant!r}: only QuaRot w4 "
                                       "and grouped w4g checkpoints are ported")
-        if self.sliding_window_pattern != 1:
-            raise NotImplementedError("sliding_window_pattern != 1 (layers "
-                                      "alternating sliding / global) is not "
-                                      "ported")
+        if self.arch not in ("llama", "gemma2"):
+            raise NotImplementedError(f"arch={self.arch!r}: only the llama and "
+                                      "gemma2 graphs are ported")
+        if self.hidden_act not in ("silu", "gelu_tanh"):
+            raise NotImplementedError(f"hidden_act={self.hidden_act!r}: silu "
+                                      "and gelu_tanh are ported")
 
     @property
     def resolved_lm_head_quant(self) -> str:
@@ -88,6 +108,50 @@ class ModelConfig:
         return ModelConfig(**over)
 
     @staticmethod
+    def gemma2_9b(**over) -> "ModelConfig":
+        """google/gemma-2-9b's published config.json, as from_hf_config
+        reads it; ``over`` replaces fields of the result."""
+        return dataclasses.replace(ModelConfig.from_hf_config(GEMMA2_9B_HF), **over)
+
+    @staticmethod
+    def from_hf_config(hf: dict) -> "ModelConfig":
+        """Build from a Hugging Face config.json dict of model type "llama"
+        or "gemma2", with the fields ``qspec_tpu/config.py``'s
+        ``from_hf_config`` gives them; other model types raise."""
+        mt = hf.get("model_type", "")
+        if mt not in ("llama", "gemma2"):
+            raise NotImplementedError(f"model_type {mt!r}: only llama and gemma2 "
+                                      "configs are ported")
+        gemma2 = mt == "gemma2"
+        nh = hf["num_attention_heads"]
+        return ModelConfig(
+            arch=mt,
+            sliding_window_pattern=2 if gemma2 else 1,
+            attn_logit_softcap=hf.get("attn_logit_softcapping") if gemma2 else None,
+            final_logit_softcap=hf.get("final_logit_softcapping") if gemma2 else None,
+            query_pre_attn_scalar=hf.get("query_pre_attn_scalar") if gemma2 else None,
+            post_norms=gemma2,
+            hidden_act=("gelu_tanh" if gemma2 or "gelu" in
+                        hf.get("hidden_act", hf.get("hidden_activation", ""))
+                        else "silu"),
+            embed_scale=hf["hidden_size"] ** 0.5 if gemma2 else None,
+            norm_weight_offset=1.0 if gemma2 else 0.0,
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_layers=hf["num_hidden_layers"],
+            num_heads=nh,
+            num_kv_heads=hf.get("num_key_value_heads", nh),
+            head_dim=hf.get("head_dim", hf["hidden_size"] // nh),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rope_scaling=hf.get("rope_scaling"),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            max_position_embeddings=hf.get("max_position_embeddings", 8192),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            sliding_window=hf.get("sliding_window"),
+        )
+
+    @staticmethod
     def tiny(**over) -> "ModelConfig":
         """Small config for tests: real structure, CPU-sized."""
         d = dict(vocab_size=512, hidden_size=256, intermediate_size=448,
@@ -95,6 +159,18 @@ class ModelConfig:
                  rope_theta=10000.0, max_position_embeddings=512)
         d.update(over)
         return ModelConfig(**d)
+
+
+# google/gemma-2-9b's config.json (Hugging Face), the fields the port reads
+GEMMA2_9B_HF = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 3584, "intermediate_size": 14336,
+    "num_hidden_layers": 42, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "head_dim": 256, "query_pre_attn_scalar": 256, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "max_position_embeddings": 8192,
+    "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+}
 
 
 @dataclasses.dataclass(frozen=True)

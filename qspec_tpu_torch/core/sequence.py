@@ -92,11 +92,6 @@ class Sequence:
     # incremental detokenization state (detokenizer.DetokState), created
     # lazily by the engine's stop-string / streaming-text paths
     detok: Optional[object] = None
-    # the end of the draft's last completed prefill of this sequence: the
-    # first spec round after it starts at this position and keeps that
-    # prefill's draft KV at start_pos - 1 (model_runner._draft_impl's
-    # keep_prev); later rounds start further on
-    draft_prefill_end: int = -1
 
     @property
     def num_tokens(self) -> int:

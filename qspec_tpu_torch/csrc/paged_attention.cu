@@ -3,22 +3,31 @@
 // int8, fp8_e4m3 or fp8_e5m2 entries.
 //
 // Replaces the TPU kernel qspec_tpu/ops/attention_pallas.py:_paged_attn_kernel
-// (entry paged_attention_pallas), its causal core, its sliding window and its
-// 8-bit KV option: flash attention with an online softmax over the
+// (entry paged_attention_pallas), its causal core, its sliding window, its
+// logit softcap, its 8-bit KV option and head dims 128 and 256 (a template
+// parameter): flash attention with an online softmax over the
 // sequence's live pages, GQA rows G = (Hq / Hkv) * Q per kv head (Q minor),
 // a causal mask by absolute position (query i of row b sits at
 // q_start[b] + i) and, under a window W, the mask q_pos - W < kv_pos <= q_pos.
 //
-// Layouts: q [B, Q, Hq, D] bf16; the layer's cache [P, 2, Hkv, S, D] of
-// entries T (K at index 0, V at 1; page 0 is the null page); for int8 and
-// fp8_e4m3 the layer's scales [P, 2, Hkv, S] f32, one per (k/v, head,
-// token); block_tables [B, PPS] int32; ctx_lens [B] int32 (tokens including
-// the new ones); out like q.
+// Layouts (D = kD, 128 or 256): q [B, Q, Hq, D] bf16; the layer's cache
+// [P, 2, Hkv, S, D] of entries T (K at index 0, V at 1; page 0 is the null
+// page); for int8 and fp8_e4m3 the layer's scales [P, 2, Hkv, S] f32, one
+// per (k/v, head, token); block_tables [B, PPS] int32; ctx_lens [B] int32
+// (tokens including the new ones); out like q.
 //
 // 8-bit entries, with the Pallas kernel's semantics: K's per-token scale
 // multiplies the token's scores, V's multiplies its probabilities before
 // P.V (the softmax sum takes the unscaled probabilities); fp8_e5m2 is a bare
 // cast. Entries are widened to f32 exactly at the staging load.
+//
+// The logit softcap (a launch argument, 0 = none; Gemma-2's
+// attn_logit_softcapping), s = tanhf(s * (1 / cap)) * cap on the f32 score,
+// in the Pallas body's order: after the query scale and K's per-token scale,
+// before the causal / window mask. A capped launch takes instantiations of
+// its own, so the uncapped ones carry no branch in the score loop. Masked
+// tokens still contribute exact zeros, so the cap changes no
+// row-independence argument below.
 //
 // What bounds it on the H100: every live K/V byte is read once per
 // (sequence, kv head, query tile) and used for 4 operations per element per
@@ -35,6 +44,10 @@
 // a fixed order. Only the pages the tile can see are read (up to its last
 // query's position, never past ctx_len). Scores and P.V are f32 on the CUDA
 // cores: simple and right first; the tensor-core version is later work.
+// Shared memory: K and V are staged as f32, so a block takes about 72 KB at
+// D = 128 (three blocks per SM) and 140 KB at D = 256 (one block per SM, of
+// the H100's 227 KB); the token slices stay 16 per warp at both widths, so
+// the walk, the merge and the bits of a row are the same function of D.
 // Which warp takes a token depends only on the token's position, masked
 // tokens contribute exact zeros, and the merge order is fixed, so a row's
 // result does not depend on Q, on the other rows or on how far the block
@@ -57,13 +70,14 @@
 
 namespace {
 
-constexpr int kD = 128;                 // head dim (the cache's, 128-padded)
 constexpr int kWarps = 4;
 constexpr int kRows = 8;                // query rows per block
 constexpr int kWarpTok = 16;            // tokens per warp per step
 constexpr int kStep = kWarps * kWarpTok;  // tokens per block step
+constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 
+template <int kD>                       // head dim (the cache's, 128-padded)
 struct Smem {
   float q[kRows][kD + 4];               // pre-scaled queries
   union {
@@ -84,9 +98,11 @@ __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v)
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) { return static_cast<float>(v); }
 
-// T: the cache's entry type; kScaled: per-token scales (int8, fp8_e4m3)
-template <typename T, bool kScaled>
-__global__ void __launch_bounds__(kWarps * 32)
+// T: the cache's entry type; kScaled: per-token scales (int8, fp8_e4m3);
+// kD: the head dim; kCap: the logit softcap (a template flag, so the
+// uncapped instantiations carry no branch in the score loop)
+template <typename T, bool kScaled, int kD, bool kCap>
+__global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const T* __restrict__ kv,
                        const float* __restrict__ kv_scales,
@@ -94,9 +110,11 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ ctx_lens,
                        const int* __restrict__ q_start,
                        __nv_bfloat16* __restrict__ out, int Q, int Hq, int Hkv,
-                       int S, int pages_per_seq, float scale, int window) {
+                       int S, int pages_per_seq, float scale, float softcap,
+                       int window) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
+  constexpr int kLaneDims = kD / 32;    // P.V dims per lane: a float4 per 128 dims
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -108,10 +126,10 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int ctx = ctx_lens[b];
   const int qs = q_start[b];
 
-  // query tile, pre-scaled, f32: 8 rows x 16 vectors of 8 = one per thread
-  {
-    const int rl = threadIdx.x / (kD / 8);
-    const int c8 = threadIdx.x % (kD / 8);
+  // query tile, pre-scaled, f32: 8 rows x kD/8 vectors of 8, kD/128 per thread
+  for (int idx = threadIdx.x; idx < kRows * (kD / 8); idx += kThreads) {
+    const int rl = idx / (kD / 8);
+    const int c8 = idx % (kD / 8);
     const int r = row0 + rl;
     float vals[8];
     if (r < G) {
@@ -158,11 +176,13 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     m_run[rr] = kNegInf;
     l_run[rr] = 0.f;
   }
-  float acc[kRows][4];
+  // lane's P.V dims: 4 consecutive dims in each 128-wide group c
+  float acc[kRows][kLaneDims];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kLaneDims; ++j) acc[i][j] = 0.f;
+  const float inv_cap = kCap ? 1.f / softcap : 0.f;
 
   const size_t head_stride = (size_t)S * kD;
   const size_t page_stride = 2 * (size_t)Hkv * head_stride;
@@ -208,6 +228,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 8
       for (int d = 0; d < kD; ++d) s = fmaf(sm.q[rl][d], ks[tok][d], s);
       if (kScaled) s *= k_sc;
+      if (kCap) s = tanhf(s * inv_cap) * softcap;
       const int kv_pos = t0 + tok;
       const bool live = kv_pos <= qpos[rr] && kv_pos > qpos[rr] - window && kv_pos < ctx;
       float cm = live ? s : kNegInf;
@@ -230,15 +251,18 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < kRows; ++i) {
       const float a = sm.alpha[warp][i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= a;
+      for (int j = 0; j < kLaneDims; ++j) acc[i][j] *= a;
 #pragma unroll
       for (int tt = 0; tt < kWarpTok; ++tt) {
         const float p = sm.p[warp][i][tt];
-        const float4 v4 = *reinterpret_cast<const float4*>(&vs[tt][lane * 4]);
-        acc[i][0] = fmaf(p, v4.x, acc[i][0]);
-        acc[i][1] = fmaf(p, v4.y, acc[i][1]);
-        acc[i][2] = fmaf(p, v4.z, acc[i][2]);
-        acc[i][3] = fmaf(p, v4.w, acc[i][3]);
+#pragma unroll
+        for (int c = 0; c < kD / 128; ++c) {
+          const float4 v4 = *reinterpret_cast<const float4*>(&vs[tt][c * 128 + lane * 4]);
+          acc[i][4 * c] = fmaf(p, v4.x, acc[i][4 * c]);
+          acc[i][4 * c + 1] = fmaf(p, v4.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(p, v4.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(p, v4.w, acc[i][4 * c + 3]);
+        }
       }
     }
     __syncwarp();   // the next step overwrites this warp's K/V/P slices
@@ -255,97 +279,126 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
-    *reinterpret_cast<float4*>(&sm.u.acc[warp][i][lane * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+#pragma unroll
+    for (int c = 0; c < kD / 128; ++c)
+      *reinterpret_cast<float4*>(&sm.u.acc[warp][i][c * 128 + lane * 4]) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                      acc[i][4 * c + 3]);
   __syncthreads();
 
-  // 8 rows x 128 dims: 8 consecutive dims per thread
-  const int rl = threadIdx.x / (kD / 8);
-  const int d0 = (threadIdx.x % (kD / 8)) * 8;
-  const int r = row0 + rl;
-  if (r >= G) return;
-  float mx = kNegInf;
+  // 8 rows x kD dims: 8 consecutive dims per thread and pass, kD/128 passes
+  for (int idx = threadIdx.x; idx < kRows * (kD / 8); idx += kThreads) {
+    const int rl = idx / (kD / 8);
+    const int d0 = (idx % (kD / 8)) * 8;
+    const int r = row0 + rl;
+    if (r >= G) continue;
+    float mx = kNegInf;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm.m[w][rl]);
-  float wgt[kWarps];
-  float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm.m[w][rl]);
+    float wgt[kWarps];
+    float l = 0.f;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wgt[w] = expf(sm.m[w][rl] - mx);
-    l += sm.l[w][rl] * wgt[w];
+    for (int w = 0; w < kWarps; ++w) {
+      wgt[w] = expf(sm.m[w][rl] - mx);
+      l += sm.l[w][rl] * wgt[w];
+    }
+    uint4 packed;
+    __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&packed);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += sm.u.acc[w][rl][d0 + i] * wgt[w];
+      o[i] = __float2bfloat16_rn(l > 0.f ? v / l : 0.f);
+    }
+    const int hq = h * group + r / Q;
+    const int qi = r % Q;
+    *reinterpret_cast<uint4*>(out + ((size_t)(b * Q + qi) * Hq + hq) * kD + d0) = packed;
   }
-  uint4 packed;
-  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += sm.u.acc[w][rl][d0 + i] * wgt[w];
-    o[i] = __float2bfloat16_rn(l > 0.f ? v / l : 0.f);
-  }
-  const int hq = h * group + r / Q;
-  const int qi = r % Q;
-  *reinterpret_cast<uint4*>(out + ((size_t)(b * Q + qi) * Hq + hq) * kD + d0) = packed;
 }
 
-template <typename T, bool kScaled>
+template <typename T, bool kScaled, int kD, bool kCap>
 int launch(const void* q, const void* kv, const void* kv_scales,
            const void* block_tables, const void* ctx_lens, const void* q_start,
            void* out, int B, int Q, int Hq, int Hkv, int S, int pages_per_seq,
-           float scale, int window, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem));   // above the 48 KB default
+           float scale, float softcap, int window, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(Smem<kD>));   // above the 48 KB default
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, kScaled>,
+        paged_attention_kernel<T, kScaled, kD, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int G = (Hq / Hkv) * Q;
   dim3 grid((G + kRows - 1) / kRows, Hkv, B);
-  paged_attention_kernel<T, kScaled><<<grid, kWarps * 32, smem, stream>>>(
+  paged_attention_kernel<T, kScaled, kD, kCap><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kv),
       static_cast<const float*>(kv_scales), static_cast<const int*>(block_tables),
       static_cast<const int*>(ctx_lens), static_cast<const int*>(q_start),
       static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, S, pages_per_seq, scale,
-      window);
+      softcap, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the (head dim, softcap) instantiations of one entry type
+template <typename T, bool kScaled>
+int launch_dim(int head_dim, const void* q, const void* kv, const void* kv_scales,
+               const void* block_tables, const void* ctx_lens, const void* q_start,
+               void* out, int B, int Q, int Hq, int Hkv, int S, int pages_per_seq,
+               float scale, float softcap, int window, cudaStream_t stream) {
+#define QSPEC_ATTN_LAUNCH(D, CAP)                                                    \
+  launch<T, kScaled, D, CAP>(q, kv, kv_scales, block_tables, ctx_lens, q_start, out, \
+                             B, Q, Hq, Hkv, S, pages_per_seq, scale, softcap, window, \
+                             stream)
+  const bool cap = softcap > 0.f;
+  switch (head_dim) {
+    case 128:
+      return cap ? QSPEC_ATTN_LAUNCH(128, true) : QSPEC_ATTN_LAUNCH(128, false);
+    case 256:
+      return cap ? QSPEC_ATTN_LAUNCH(256, true) : QSPEC_ATTN_LAUNCH(256, false);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QSPEC_ATTN_LAUNCH
 }
 
 }  // namespace
 
-// q [B, Q, Hq, 128] bf16; kv = the layer's [P, 2, Hkv, S, 128] pages of
-// kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2; kv_scales = the layer's
-// [P, 2, Hkv, S] f32 scales for int8 and fp8_e4m3 (else unused);
-// block_tables [B, pages_per_seq] int32; ctx_lens, q_start [B] int32;
-// out [B, Q, Hq, 128] bf16; window >= 1 (1 << 30: no window).
-// S % 16 == 0, Hq % Hkv == 0.
+// q [B, Q, Hq, D] bf16, D = head_dim in {128, 256}; kv = the layer's
+// [P, 2, Hkv, S, D] pages of kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3,
+// 3 fp8_e5m2; kv_scales = the layer's [P, 2, Hkv, S] f32 scales for int8 and
+// fp8_e4m3 (else unused); block_tables [B, pages_per_seq] int32; ctx_lens,
+// q_start [B] int32; out [B, Q, Hq, D] bf16; softcap > 0 caps the scores
+// (0: no cap); window >= 1 (1 << 30: no window). S % 16 == 0,
+// Hq % Hkv == 0.
 extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      const void* kv_scales,
                                      const void* block_tables,
                                      const void* ctx_lens, const void* q_start,
                                      void* out, int B, int Q, int Hq, int Hkv,
                                      int S, int pages_per_seq, int kv_dtype,
-                                     float scale, int window, void* stream) {
+                                     int head_dim, float scale, float softcap,
+                                     int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case 0:
-      return launch<__nv_bfloat16, false>(q, kv, kv_scales, block_tables, ctx_lens,
-                                          q_start, out, B, Q, Hq, Hkv, S,
-                                          pages_per_seq, scale, window, st);
+      return launch_dim<__nv_bfloat16, false>(head_dim, q, kv, kv_scales, block_tables,
+                                              ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
+                                              pages_per_seq, scale, softcap, window, st);
     case 1:
-      return launch<int8_t, true>(q, kv, kv_scales, block_tables, ctx_lens,
-                                  q_start, out, B, Q, Hq, Hkv, S, pages_per_seq,
-                                  scale, window, st);
+      return launch_dim<int8_t, true>(head_dim, q, kv, kv_scales, block_tables,
+                                      ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
+                                      pages_per_seq, scale, softcap, window, st);
     case 2:
-      return launch<__nv_fp8_e4m3, true>(q, kv, kv_scales, block_tables, ctx_lens,
-                                         q_start, out, B, Q, Hq, Hkv, S,
-                                         pages_per_seq, scale, window, st);
+      return launch_dim<__nv_fp8_e4m3, true>(head_dim, q, kv, kv_scales, block_tables,
+                                             ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
+                                             pages_per_seq, scale, softcap, window, st);
     case 3:
-      return launch<__nv_fp8_e5m2, false>(q, kv, kv_scales, block_tables, ctx_lens,
-                                          q_start, out, B, Q, Hq, Hkv, S,
-                                          pages_per_seq, scale, window, st);
+      return launch_dim<__nv_fp8_e5m2, false>(head_dim, q, kv, kv_scales, block_tables,
+                                              ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
+                                              pages_per_seq, scale, softcap, window, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,10 @@
 """EngineArgs: flat arguments -> composed EngineConfig.
 
 Port of ``qspec_tpu/engine/arg_utils.py`` for the flags the port serves; the
-names are the JAX package's. ``model`` names a preset ("tiny" or
-"llama3-8b"): loading checkpoints is not ported yet.
+names are the JAX package's. ``model`` names a preset ("tiny", "llama3-8b"
+or "gemma2-9b"): loading checkpoints is not ported yet. ``quantization``
+"qspec" is a QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one,
+the only kind a Gemma-2 is served as.
 """
 
 from __future__ import annotations
@@ -13,13 +15,16 @@ from typing import Optional
 from qspec_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
                                     SchedulerConfig, SpeculativeConfig)
 
-PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "tiny": ModelConfig.tiny}
+PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "gemma2-9b": ModelConfig.gemma2_9b,
+           "tiny": ModelConfig.tiny}
+# quantization -> ModelConfig.quant
+QUANT = {"qspec": "w4", "w4": "w4", "int4": "w4", "awq": "w4g", "gptq": "w4g"}
 
 
 @dataclasses.dataclass
 class EngineArgs:
     model: str = "tiny"                  # preset name
-    quantization: Optional[str] = "qspec"  # "qspec" (QuaRot w4)
+    quantization: Optional[str] = "qspec"  # "qspec" (QuaRot w4) | "awq" | "gptq" (w4g)
     max_model_len: int = 4096
     max_num_seqs: int = 8
     max_num_batched_tokens: int = 2048
@@ -46,10 +51,11 @@ class EngineArgs:
         if self.model not in PRESETS:
             raise NotImplementedError(f"model {self.model!r}: only the presets "
                                       f"{sorted(PRESETS)} are ported")
-        if self.quantization not in ("qspec", "w4", "int4"):
-            raise NotImplementedError("only QuaRot w4 (quantization='qspec') "
-                                      "is ported")
-        return PRESETS[self.model](quant="w4", lm_head_quant=self.lm_head_quant)
+        if self.quantization not in QUANT:
+            raise NotImplementedError(f"quantization {self.quantization!r}: only "
+                                      f"{sorted(QUANT)} are ported")
+        return PRESETS[self.model](quant=QUANT[self.quantization],
+                                   lm_head_quant=self.lm_head_quant)
 
     def create_engine_config(self) -> EngineConfig:
         spec = None

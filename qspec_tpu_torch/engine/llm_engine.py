@@ -24,7 +24,7 @@ from qspec_tpu_torch.core.scheduler import ScheduledBatch, Scheduler
 from qspec_tpu_torch.core.sequence import Sequence
 from qspec_tpu_torch.engine.model_runner import (ModelRunner, make_sampling_tensors,
                                                  ring_pages, ring_rows)
-from qspec_tpu_torch.models.llama import resolve_device
+from qspec_tpu_torch.models.llama import check_served, resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.metrics import SpecDecodeMetrics
@@ -41,6 +41,7 @@ class RequestOutput:
 
 
 def _check_supported(config: EngineConfig) -> None:
+    check_served(config.model)
     spec = config.speculative
     if spec is not None:
         if spec.method not in ("qspec", "qspec_null"):

@@ -95,7 +95,7 @@ def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
 
 
 def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
-                *, cfg, scheme, k, prev_tokens=None, keep_prev=None):
+                *, cfg, scheme, k, prev_tokens=None):
     """k sequential draft forwards; returns (tokens [B, k], probs [B, k, V],
     cache).
 
@@ -105,14 +105,6 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
     round, so a fully accepted round would leave a hole in the draft cache
     that later draft attention reads. Rows at start_pos == 0 send the
     phantom query's KV write to the null page; its output is discarded.
-
-    ``keep_prev`` [B] bool: rows whose draft KV at ``start_pos - 1`` is
-    already in the cache from the draft's prefill (the first round after a
-    (re)prefill) send that write to the null page too, so the slot keeps
-    the prefill's value. The prefill computed it at prefill width, as the
-    target's prefill computed the target's; recomputing it at draft width
-    (another GEMM path, other roundings) would make a W4A16 draft differ
-    from its target at that position for the rest of the sequence.
     """
     page_size = cache.page_size
     first_k = k
@@ -120,8 +112,6 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
     if prev_tokens is not None:
         p2 = torch.stack([start_pos - 1, start_pos], dim=1)       # [B, 2]
         write = p2 >= 0
-        if keep_prev is not None:
-            write[:, 0] &= ~keep_prev
         slot2 = torch.where(write, _slot_of(block_tables, p2.clamp_min(0), page_size),
                             torch.zeros_like(p2, dtype=torch.int64))
         batch = AttentionBatch(positions=p2, slot_mapping=slot2,
@@ -193,15 +183,14 @@ def verify_step(params, cache, last_tokens, draft_tokens, draft_probs, start_pos
 def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
                      start_pos, block_tables, draft_block_tables, max_new,
                      enable: bool, st, gen, *, cfg, draft_scheme, verify_scheme,
-                     k, num_rounds=1, draft_cfg=None, keep_prev=None):
+                     k, num_rounds=1, draft_cfg=None):
     """``num_rounds`` full QSpec rounds (k drafts + verify + rejection).
 
     ``draft_cfg``: the draft's cfg when it differs from the target's (the
     sliding-window variant of SpeculativeConfig.draft_kv_window);
     ``draft_block_tables`` map the draft cache's logical pages (the target's
     tables when the draft pool shares its page ids, ring tables under the
-    windowed draft's ring pool). ``keep_prev`` [B]: rows whose first
-    round keeps the draft prefill's KV at ``start_pos - 1`` (_draft_impl).
+    windowed draft's ring pool).
 
     ``max_new`` [B] caps the tokens emitted per sequence. ``enable=False``
     nulls every proposal (tokens -> -1, draft probs -> 0, so the recovery
@@ -215,11 +204,11 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     last, prev, pos, budget = last_tokens, prev_tokens, start_pos, max_new
     out_t, out_a, out_l = [], [], []
     slots = torch.arange(k + 1, device=last.device)[None, :]
-    for r in range(num_rounds):
+    for _ in range(num_rounds):
         d_toks, d_probs, draft_cache = _draft_impl(
             params, draft_cache, last, pos, draft_block_tables, st, gen,
             cfg=cfg if draft_cfg is None else draft_cfg, scheme=draft_scheme,
-            k=k, prev_tokens=prev, keep_prev=keep_prev if r == 0 else None)
+            k=k, prev_tokens=prev)
         if not enable:
             d_toks = torch.full_like(d_toks, -1)
             d_probs = torch.zeros_like(d_probs)
@@ -411,10 +400,6 @@ class ModelRunner:
         ring = draft and self._ring_pages
         tables = (self._t(self._ring_tables([c[0] for c in chunks], B)) if ring
                   else self._pad_block_tables(tables))
-        if draft:
-            for seq, _, end in chunks:
-                if end == seq.prefill_len:
-                    seq.draft_prefill_end = end
         logits, _ = prefill_step(
             self.params, self.draft_cache if draft else self.cache,
             self._t(toks), self._t(positions), tables, self._t(ctx),
@@ -470,17 +455,13 @@ class ModelRunner:
         st = self.sampling_tensors(sampling, len(seqs), B)
         state = (self._t(last), self._t(prev), self._t(pos), self._t(max_new))
         d_tables = self._t(self._ring_tables(seqs, B)) if self._ring_pages else tables
-        keep = np.zeros(B, bool)
-        keep[:len(seqs)] = [s.draft_prefill_end == pos[i] for i, s in enumerate(seqs)]
-        keep_prev = torch.as_tensor(keep, device=self.device)
         parts = []
-        for c in range(max(1, chain)):
+        for _ in range(max(1, chain)):
             toks, accs, lps, state, _, _ = spec_rounds_step(
                 self.params, self.draft_cache, self.cache, *state[:3], tables,
                 d_tables, state[3], enable, st, self.gen, cfg=self.cfg,
                 draft_scheme=self.draft_scheme, verify_scheme=self.verify_scheme,
-                k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg,
-                keep_prev=keep_prev if c == 0 else None)
+                k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg)
             parts.append((toks, accs, lps))
         n = len(seqs)
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()

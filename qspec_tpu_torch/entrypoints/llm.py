@@ -8,7 +8,11 @@ Port of ``qspec_tpu/entrypoints/llm.py`` for token-id prompts:
 
 At the JAX package's defaults the head is int8 (``lm_head_quant="auto"``)
 and the KV cache bf16; ``kv_cache_dtype="int8"``, ``"fp8_e4m3"`` or
-``"fp8_e5m2"`` halves the cache's bytes.
+``"fp8_e5m2"`` halves the cache's bytes. A Gemma-2 is served as an AWQ /
+GPTQ checkpoint, drafted by its own weights at W4A16:
+
+    llm = LLM(model="gemma2-9b", quantization="awq", num_speculative_tokens=3,
+              speculative_draft_scheme="w4a16", spec_draft_kv_window=64)
 
 Without ``params`` the weights are random, made on the device from ``seed``
 (``models.llama.init_params``).

@@ -163,13 +163,16 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
         return tuple(torch.cat(xs, dim=1) for xs in zip(*parts))
 
     def norm_w(name):
-        return _t(sd[name], dev).to(torch.float32).to(torch.bfloat16)
+        # gemma's (1 + w) norms: the offset is folded into the stored gamma
+        return (_t(sd[name], dev).to(torch.float32) + cfg.norm_weight_offset
+                ).to(torch.bfloat16)
 
     layers = []
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}.self_attn."
         mp = f"model.layers.{i}.mlp."
-        layers.append({
+        ln = f"model.layers.{i}."
+        layer = {
             "qkv": pack_grouped_proj(
                 *cat([proj(p + "q_proj"), proj(p + "k_proj"), proj(p + "v_proj")]),
                 col_blocks=(cfg.q_size, cfg.kv_size, cfg.kv_size), tp_size=tp_size),
@@ -180,9 +183,15 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
                 tp_size=tp_size),
             "down": pack_grouped_proj(*proj(mp + "down_proj"), shard_in=True,
                                       tp_size=tp_size),
-            "input_norm": norm_w(f"model.layers.{i}.input_layernorm.weight"),
-            "post_norm": norm_w(f"model.layers.{i}.post_attention_layernorm.weight"),
-        })
+            "input_norm": norm_w(ln + "input_layernorm.weight"),
+            # the MLP's pre-norm: Gemma-2 names it pre_feedforward_layernorm
+            "post_norm": norm_w(ln + ("pre_feedforward_layernorm.weight" if cfg.post_norms
+                                      else "post_attention_layernorm.weight")),
+        }
+        if cfg.post_norms:   # Gemma-2's norms on the block outputs
+            layer["post_attn_norm"] = norm_w(ln + "post_attention_layernorm.weight")
+            layer["post_ffw_norm"] = norm_w(ln + "post_feedforward_layernorm.weight")
+        layers.append(layer)
     stacked = {}
     for name, first in layers[0].items():
         if isinstance(first, dict):
@@ -192,6 +201,7 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
             stacked[name] = torch.stack([lay[name] for lay in layers])
     del layers
     embed = _t(sd["model.embed_tokens.weight"], dev)
+    # a tied head (Gemma-2) falls back to the embedding
     lm = _t(sd["lm_head.weight"], dev) if "lm_head.weight" in sd else embed
     params = {
         "embed": embed.to(torch.float32).to(torch.bfloat16),
@@ -285,11 +295,14 @@ def _group_quantize(w: torch.Tensor, g: int, seed: int):
 
 def make_grouped_state_dict(cfg: ModelConfig, fmt: str = "awq",
                             group_size: int = 128, seed: int = 0, device="cuda"):
-    """A Hugging Face-named AWQ or GPTQ state dict of a Llama of ``cfg``'s
-    shapes, made on ``device`` from a torch.Generator: normal(0.02) float
-    weights quantized by the writers above, norm gammas 1 + normal(0.05),
-    float embeddings and lm_head. An 8B-wide checkpoint so never passes
-    through host memory."""
+    """A Hugging Face-named AWQ or GPTQ state dict of a Llama or a Gemma-2
+    of ``cfg``'s shapes, made on ``device`` from a torch.Generator:
+    normal(0.02) float weights quantized by the writers above, float
+    embeddings and (unless ``tie_word_embeddings``) lm_head. Norm gammas are
+    ``norm_weight_offset``-free: 1 + normal(0.05) for a Llama, normal(0.05)
+    around 0 for a Gemma-2, whose loader adds the offset; a Gemma-2 also gets
+    its pre- and post-feedforward norms. An 8B-wide checkpoint so never
+    passes through host memory."""
     make = make_awq_tensors if fmt == "awq" else make_gptq_tensors
     gen = torch.Generator(device=device).manual_seed(seed)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -297,17 +310,23 @@ def make_grouped_state_dict(cfg: ModelConfig, fmt: str = "awq",
     def normal(*shape, std=0.02):
         return torch.randn(shape, generator=gen, device=device) * std
 
-    sd = {"model.embed_tokens.weight": normal(V, H),
-          "lm_head.weight": normal(V, H),
-          "model.norm.weight": 1 + normal(H, std=0.05)}
+    def gamma():
+        return 1 - cfg.norm_weight_offset + normal(H, std=0.05)
+
+    sd = {"model.embed_tokens.weight": normal(V, H)}
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = normal(V, H)
+    sd["model.norm.weight"] = gamma()
     shapes = {"self_attn.q_proj": (H, cfg.q_size), "self_attn.k_proj": (H, cfg.kv_size),
               "self_attn.v_proj": (H, cfg.kv_size), "self_attn.o_proj": (cfg.q_size, H),
               "mlp.gate_proj": (H, I), "mlp.up_proj": (H, I), "mlp.down_proj": (I, H)}
+    norms = ("input_layernorm", "post_attention_layernorm") + (
+        ("pre_feedforward_layernorm", "post_feedforward_layernorm") if cfg.post_norms else ())
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
         for name, (k, n) in shapes.items():
             for key, val in make(normal(k, n), group_size).items():
                 sd[f"{p}{name}.{key}"] = val
-        sd[p + "input_layernorm.weight"] = 1 + normal(H, std=0.05)
-        sd[p + "post_attention_layernorm.weight"] = 1 + normal(H, std=0.05)
+        for name in norms:
+            sd[f"{p}{name}.weight"] = gamma()
     return sd

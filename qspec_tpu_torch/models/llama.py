@@ -18,8 +18,18 @@ gamma norms, the grouped int4 GEMM ``matmul_w4a16_g``):
     x - rmsnorm(gamma) - qkv - rope - paged KV write - attention - o
       - +residual - rmsnorm(gamma) - gate_up - silu*up - down - +residual
 
-Attention runs under ``cfg.sliding_window`` when it is set (the windowed
-draft's cfg sets it).
+Gemma-2 (``arch="gemma2"``, served as ``quant="w4g"``) is the same w4g
+graph with its own knobs, as in the JAX package: embeddings times
+``embed_scale`` in bf16; the query scale ``query_pre_attn_scalar ** -0.5``
+and the attention-logit softcap in the attention kernel; the post-attention
+and post-feedforward norms on the block outputs before each residual add
+(``layers["post_norm"]`` is then the MLP's pre-norm); GeGLU with the tanh
+gelu; the final-logit softcap after the head.
+
+Attention runs under ``cfg.sliding_window`` on every layer, or under
+Gemma-2's alternation on the layers ``li % sliding_window_pattern == 0``
+(the others are global); the windowed draft's cfg sets a window with pattern
+1.
 
 Parameters are a plain dict with the JAX package's layout: ``embed`` [V, H]
 bf16; ``lm_head`` by ``ModelConfig.lm_head_quant``: ``{"qw8": int8 [H, V],
@@ -28,8 +38,9 @@ bf16; ``lm_head`` by ``ModelConfig.lm_head_quant``: ``{"qw8": int8 [H, V],
 "qs": f32 [L, N]}`` for qkv / o / gate_up / down; ``rope_cache``;
 ``hadamards``. A w4g tree has ``layers[name] = {"qw", "qs_g": f32
 [L, K//g, N], "qo_g": f32 [L, K//g, N]}`` (model_loader/grouped.py), the
-gammas ``layers["input_norm"]``, ``layers["post_norm"]`` bf16 [L, H] and
-``final_norm`` bf16 [H], and no Hadamards. The layer-stacked weights are read
+gammas ``layers["input_norm"]``, ``layers["post_norm"]`` bf16 [L, H] (with
+``post_norms`` also ``layers["post_attn_norm"]``, ``layers["post_ffw_norm"]``)
+and ``final_norm`` bf16 [H], and no Hadamards. The layer-stacked weights are read
 in place by the kernels (``layer_idx``).
 
 The Hadamard rotations are computed in float64: their ±1 sums of bf16
@@ -118,9 +129,32 @@ def _mlp_hadamard(x, hK, hP):
     return (xf.reshape(x.shape) * (1.0 / math.sqrt(n))).to(x.dtype).contiguous()
 
 
-def _glu_act(gate, up):
+def _glu_act(gate, up, hidden_act: str):
+    """Gated-MLP activation in f32: silu (llama) or the tanh-approximate
+    gelu (gemma's GeGLU)."""
     g32 = gate.to(torch.float32)
-    return (torch.nn.functional.silu(g32) * up.to(torch.float32)).to(torch.bfloat16)
+    a = (torch.nn.functional.silu(g32) if hidden_act == "silu"
+         else torch.nn.functional.gelu(g32, approximate="tanh"))
+    return (a * up.to(torch.float32)).to(torch.bfloat16)
+
+
+def layer_window(cfg: ModelConfig, li: int) -> Optional[int]:
+    """The sliding window of layer ``li``: ``cfg.sliding_window`` on every
+    layer, or with Gemma-2's alternation only on the layers
+    ``li % sliding_window_pattern == 0`` (None: global attention)."""
+    if cfg.sliding_window is None or li % cfg.sliding_window_pattern:
+        return None
+    return cfg.sliding_window
+
+
+def check_served(cfg: ModelConfig) -> None:
+    """Raise for a configuration the port does not serve: Gemma-2 comes
+    only as a grouped-int4 checkpoint (the QuaRot pipeline's gamma folding
+    does not compose with its post-block norms, as in the JAX package)."""
+    if cfg.arch == "gemma2" and cfg.quant != "w4g":
+        raise NotImplementedError("Gemma-2 is served as an AWQ / GPTQ "
+                                  "(quant='w4g') checkpoint only; QuaRot w4 "
+                                  "does not compose with its post-block norms")
 
 
 def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
@@ -150,8 +184,9 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
     kvc.update_layer(cache, li, k, v, batch.slot_mapping.reshape(-1))
     attn = paged_attention(q.reshape(B, Q, cfg.num_heads, cfg.head_dim).contiguous(),
                            cache, li, batch.block_tables, batch.ctx_lens,
-                           cfg.head_dim ** -0.5, q_positions=batch.positions,
-                           window=cfg.sliding_window)
+                           (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
+                           q_positions=batch.positions, window=layer_window(cfg, li),
+                           softcap=cfg.attn_logit_softcap)
     attn = attn.reshape(T, cfg.num_heads, cfg.head_dim)
     if quarot:
         attn = _head_hadamard(attn, hadamards["heads"])
@@ -160,18 +195,23 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
         o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), li)
     else:
         o = _linear(attn_flat, layers["o"], scheme, li=li)
+    if cfg.post_norms:
+        # Gemma-2's post-attention norm, on the block output before the add
+        o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][li], eps=eps)
     x = x + o.to(x.dtype)
 
     xn, xq = _norm_maybe_quant(x, gamma_post, eps, scheme)
     gate_up = _linear(xn, layers["gate_up"], scheme, xq, li)
     i_size = gate_up.shape[-1] // 2
-    act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:])
+    act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:], cfg.hidden_act)
     if quarot:
         act = _mlp_hadamard(act, hadamards["mlp_K"], hadamards["mlp_P"])
     if quant_act:
         down = _linear(None, layers["down"], scheme, _act_quant(act, scheme), li)
     else:
         down = _linear(act, layers["down"], scheme, li=li)
+    if cfg.post_norms:
+        down = rmsnorm(down.to(torch.bfloat16), layers["post_ffw_norm"][li], eps=eps)
     return x + down.to(x.dtype), cache
 
 
@@ -191,8 +231,13 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         raise ValueError("w4a4/w4a8 drafting requires a QuaRot (quant='w4') "
                          "checkpoint; AWQ/GPTQ (w4g) models are "
                          "weight-only-quant")
+    check_served(cfg)
     B, Q = token_ids.shape
     x = params["embed"][token_ids.reshape(-1).to(torch.int64)].to(torch.bfloat16)
+    if cfg.embed_scale is not None:
+        # gemma scales the embeddings by sqrt(hidden) in the hidden dtype:
+        # the scale is rounded to bf16 first, as the JAX package rounds it
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
     for li in range(cfg.num_layers):
         x, cache = decoder_layer(x, params["layers"], cache, li, cfg, batch,
                                  params["rope_cache"], params.get("hadamards"),
@@ -204,6 +249,9 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     x = rmsnorm(x, None if cfg.quant == "w4" else params["final_norm"],
                 eps=cfg.rms_norm_eps)
     logits = compute_logits(x, params["lm_head"])
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
     return logits.reshape(B, Q, -1), cache
 
 
@@ -309,6 +357,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     (w4): per output channel to packed int4. w4g: an AWQ checkpoint of
     ``group_size`` (model_loader.grouped.make_grouped_state_dict) through
     ``load_awq``."""
+    check_served(cfg)
     head_kind = _head_kind(cfg)
     dev = resolve_device(device)
     if cfg.quant == "w4g":
@@ -368,7 +417,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     if cfg.quant == "w4":
         params["hadamards"] = make_hadamards(cfg, dev)
     else:
-        layers["input_norm"] = _tensor(tree["layers"]["input_norm"], dev)
-        layers["post_norm"] = _tensor(tree["layers"]["post_norm"], dev)
+        norms = ("input_norm", "post_norm") + (
+            ("post_attn_norm", "post_ffw_norm") if cfg.post_norms else ())
+        for name in norms:
+            layers[name] = _tensor(tree["layers"][name], dev)
         params["final_norm"] = _tensor(tree["final_norm"], dev)
     return params

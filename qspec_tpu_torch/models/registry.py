@@ -1,0 +1,27 @@
+"""Model registry: Hugging Face architecture names -> ModelConfig.
+
+Port of ``qspec_tpu/models/registry.py::resolve`` for the two architectures
+whose graph the port has: ``LlamaForCausalLM`` and ``Gemma2ForCausalLM``
+(both the llama graph of ``models/llama.py``, Gemma-2 with its softcaps,
+post-block norms and alternating window). Any other architecture raises.
+"""
+
+from __future__ import annotations
+
+from qspec_tpu_torch.config import ModelConfig
+
+# architecture (or, as in the JAX package's registry, the bare "gemma2"
+# model type) -> the model type its config is read as
+ARCHITECTURES = {"LlamaForCausalLM": "llama", "Gemma2ForCausalLM": "gemma2",
+                 "gemma2": "gemma2"}
+
+
+def resolve(hf_config: dict) -> ModelConfig:
+    """The ModelConfig of a Hugging Face config.json dict, by its first
+    ported architecture."""
+    archs = hf_config.get("architectures") or [hf_config.get("model_type", "")]
+    for a in archs:
+        if a in ARCHITECTURES:
+            return ModelConfig.from_hf_config({**hf_config, "model_type": ARCHITECTURES[a]})
+    raise NotImplementedError(f"unsupported architectures {archs}; ported: "
+                              f"{sorted(ARCHITECTURES)}")

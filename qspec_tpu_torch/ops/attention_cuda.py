@@ -1,7 +1,8 @@
 """Wrapper of the paged-attention CUDA kernel (``csrc/paged_attention.cu``).
 
 Counterpart of ``qspec_tpu/ops/attention_pallas.py:paged_attention_pallas``
-(causal core and sliding window; bf16, int8, fp8_e4m3 and fp8_e5m2 caches).
+(causal core, sliding window and logit softcap; head dims 128 and 256; bf16,
+int8, fp8_e4m3 and fp8_e5m2 caches).
 The plain version it is held against is ``ops/attention.py:paged_attention_ref``.
 """
 
@@ -18,10 +19,15 @@ KV_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
             torch.float8_e5m2: 3}
 # entry types whose pages carry per-token scales
 SCALED = (torch.int8, torch.float8_e4m3fn)
-# entry type -> the launch counts of its instantiation: ``launches`` is
-# raised by one at each launch of that instantiation (ops.kernel_wrappers
-# names each), ``window_launches`` also at each launch under a window
-LAUNCHES = {dtype: SimpleNamespace(launches=0, window_launches=0)
+# the head dims the kernel is instantiated for (csrc/paged_attention.cu)
+HEAD_DIMS = (128, 256)
+# entry type -> the launch counts of its instantiations: ``launches`` is
+# raised by one at each launch of that entry type (ops.kernel_wrappers names
+# each); ``window_launches`` also at each launch under a window,
+# ``softcap_launches`` at each launch with a logit softcap and
+# ``d256_launches`` at each launch of the head-dim-256 instantiation
+LAUNCHES = {dtype: SimpleNamespace(launches=0, window_launches=0,
+                                   softcap_launches=0, d256_launches=0)
             for dtype in KV_CODES}
 # the sliding-window sentinel (qspec_tpu/ops/attention_pallas.py NO_WINDOW):
 # far past any position, so the window never masks and the walk starts at 0
@@ -32,16 +38,17 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                          block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                          scale: float, q_positions: torch.Tensor = None,
                          layer: int = 0, kv_scales: torch.Tensor = None,
-                         window: int = None) -> torch.Tensor:
-    """q: [B, Q, Hq, 128] bf16; kv_pages: the whole stacked cache
-    [L, P, 2, Hkv, S, 128] of bf16, int8, fp8_e4m3 or fp8_e5m2 entries
+                         window: int = None, softcap: float = None) -> torch.Tensor:
+    """q: [B, Q, Hq, D] bf16, D 128 or 256; kv_pages: the whole stacked cache
+    [L, P, 2, Hkv, S, D] of bf16, int8, fp8_e4m3 or fp8_e5m2 entries
     (layer ``layer`` is read in place); kv_scales [L, P, 2, Hkv, S] f32 for
     int8 and fp8_e4m3, else None; block_tables [B, PPS]; ctx_lens [B].
     ``q_positions`` [B, Q] must be consecutive per row; only column 0 is
     read (else the queries are the last Q positions). ``window``: a query at
     position p sees the kv positions in (p - window, p]; the pages before a
-    row's first in-window position are not read. Returns [B, Q, Hq, 128]
-    bf16."""
+    row's first in-window position are not read. ``softcap``: the scores
+    become softcap * tanh(score / softcap) before the mask (Gemma-2's
+    attn_logit_softcapping). Returns [B, Q, Hq, D] bf16."""
     _build.require(q.is_cuda, "paged_attention_cuda: CUDA tensors")
     B, Q, Hq, D = q.shape
     L, P, two, Hkv, S, D2 = kv_pages.shape
@@ -54,13 +61,16 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
         _build.require(kv_scales.dtype == torch.float32
                        and tuple(kv_scales.shape) == (L, P, 2, Hkv, S),
                        "paged_attention_cuda: kv_scales f32 [L, P, 2, Hkv, S]")
-    _build.require(D == 128 and D2 == 128 and two == 2,
-                   "paged_attention_cuda: head dim 128")
+    _build.require(D == D2 and D in HEAD_DIMS and two == 2,
+                   f"paged_attention_cuda: head dim 128 or 256 (q and cache alike), "
+                   f"got q {D}, cache {D2}")
     _build.require(Hq % Hkv == 0 and S % 16 == 0,
                    "paged_attention_cuda: Hq % Hkv == 0 and page size % 16 == 0")
     _build.require(0 <= layer < L, "paged_attention_cuda: layer in range")
     win = NO_WINDOW if window is None else int(window)
     _build.require(0 < win <= NO_WINDOW, "paged_attention_cuda: window >= 1")
+    cap = 0.0 if softcap is None else float(softcap)
+    _build.require(softcap is None or cap > 0, "paged_attention_cuda: softcap > 0")
     tables = block_tables.to(torch.int32).contiguous()
     ctx = ctx_lens.to(torch.int32).contiguous()
     _build.require(tuple(tables.shape[:1]) == (B,) and tuple(ctx.shape) == (B,),
@@ -82,9 +92,11 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
     _build.check("paged_attention", _build.lib().qspec_paged_attention(
         q.data_ptr(), kv_layer.data_ptr(), sc_ptr, tables.data_ptr(),
         ctx.data_ptr(), q_start.data_ptr(), out.data_ptr(), B, Q, Hq, Hkv, S,
-        tables.shape[1], KV_CODES[kv_pages.dtype], float(scale), win,
+        tables.shape[1], KV_CODES[kv_pages.dtype], D, float(scale), cap, win,
         _build.stream_of(q)))
-    LAUNCHES[kv_pages.dtype].launches += 1
-    if window is not None:
-        LAUNCHES[kv_pages.dtype].window_launches += 1
+    count = LAUNCHES[kv_pages.dtype]
+    count.launches += 1
+    count.window_launches += window is not None
+    count.softcap_launches += softcap is not None
+    count.d256_launches += D == 256
     return out

@@ -370,3 +370,138 @@ def test_w4g_greedy_spec_equals_oracle_on_card(gen, window):
     assert eng.spec_metrics.num_draft_accepted > 0
     oracle, _ = run("qspec_null")
     assert spec == oracle
+
+
+@pytest.mark.parametrize("q_len", [1, 4, 128])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+def test_paged_attention_kernel_d256_softcap(gen, kv_dtype, q_len):
+    """The head-dim-256 instantiations with Gemma-2's logit softcap (50, and
+    5, which bites at these scores), with and without a window, on every
+    entry type, against the plain version; the launches are counted as D=256
+    and softcapped; a row's bits do not depend on Q."""
+    B, Hq, Hkv, D, S = 3, 16, 8, 256, 128
+    ctx = [max(c, q_len) for c in (S + 3, 3 * S, 5)]
+    pages = [-(-c // S) for c in ctx]
+    cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, 1 + sum(pages), S, kv_dtype), "cuda")
+    T = sum(pages) * S
+    k_new = (2 * torch.randn(T, Hkv, D, generator=gen, device="cuda")).to(torch.bfloat16)
+    v_new = torch.randn(T, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kvc.update_layer(cache, 1, k_new, v_new, torch.arange(T, device="cuda") + S)
+    tables = torch.zeros(B, max(pages), dtype=torch.int32)
+    start = 1
+    for b, n in enumerate(pages):
+        tables[b, :n] = torch.arange(start, start + n)
+        start += n
+    tables = tables.cuda()
+    q = (2 * torch.randn(B, q_len, Hq, D, generator=gen, device="cuda")).to(torch.bfloat16)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    counter = kernel_wrappers()["paged_attention" if kv_dtype == "bfloat16"
+                                else f"paged_attention_{kv_dtype}"]
+    tol = {"bfloat16": 3e-2, "fp8_e5m2": 8e-2}.get(kv_dtype, 4e-2)
+    scale = 256 ** -0.5
+    for cap in (50.0, 5.0):
+        for window in (None, 128):
+            before = (counter.launches, counter.softcap_launches, counter.d256_launches)
+            out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1,
+                                       kv_scales=cache.kv_scales, window=window, softcap=cap)
+            assert (counter.launches, counter.softcap_launches, counter.d256_launches) == \
+                tuple(n + 1 for n in before)
+            ref = paged_attention_ref(q, cache, 1, tables, ctx_t, scale, window=window,
+                                      softcap=cap)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if q_len > 1:
+        # the row at the last position, alone (Q=1) and in its Q-block
+        one = paged_attention_cuda(q[:, -1:].contiguous(), cache.kv_pages, tables, ctx_t,
+                                   scale, layer=1, kv_scales=cache.kv_scales, softcap=50.0)
+        out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1,
+                                   kv_scales=cache.kv_scales, softcap=50.0)
+        assert torch.equal(one[:, 0], out[:, -1])
+
+
+def test_paged_attention_kernel_refuses_other_head_dims(gen):
+    cache = kvc.allocate(kvc.KVCacheConfig(1, 2, 192, 2, 16), "cuda")
+    q = torch.zeros(1, 1, 4, 192, dtype=torch.bfloat16, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim 128 or 256"):
+        paged_attention_cuda(q, cache.kv_pages, one[None], one, 0.1)
+
+
+def _tiny_gemma2(head_dim):
+    """A tiny Gemma-2 (every knob of the 9B: softcaps, post norms, the
+    alternating window, tied int8 head) as an AWQ checkpoint, g = 128."""
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.from_hf_config(dict(
+        model_type="gemma2", vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=head_dim, query_pre_attn_scalar=24, sliding_window=16,
+        attn_logit_softcapping=50.0, final_logit_softcapping=30.0, rms_norm_eps=1e-6,
+        tie_word_embeddings=True, max_position_embeddings=256))
+    cfg = ModelConfig(**{**cfg.__dict__, "quant": "w4g"})
+    return cfg, init_params(cfg, seed=3, device="cpu", group_size=128)
+
+
+@pytest.mark.parametrize("head_dim", [64, 256])
+def test_tiny_gemma2_on_card_matches_cpu(gen, head_dim):
+    """The tiny AWQ Gemma-2 on the card (kernels; head dim 64 pads to the
+    128 instantiation, 256 takes its own) against the same weights on the
+    CPU (plain versions): logits within a relative L2 of 2e-2, bounded by
+    the final softcap; then through the engine on the card, greedy QSpec
+    with the windowed W4A16 draft equals its oracle, with the D=256 and
+    softcapped attention launched when head_dim is 256."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SamplingParams,
+                                 SchedulerConfig, SpeculativeConfig)
+    from qspec_tpu_torch.models.llama import AttentionBatch, model_forward
+    cfg, cpu = _tiny_gemma2(head_dim)
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    gpu = to(cpu, "cuda")
+    B, Q, S = 2, 40, 16
+    toks = np.random.default_rng(3).integers(1, cfg.vocab_size, size=(B, Q))
+    outs = []
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        cache = kvc.allocate(kvc.KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
+                                               cfg.cache_head_dim, 8, S), dev)
+        pos = torch.arange(Q, device=dev).repeat(B, 1)
+        tables = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32, device=dev)
+        slot = tables.to(torch.int64).gather(1, pos // S) * S + pos % S
+        batch = AttentionBatch(pos, slot, tables,
+                               torch.full((B,), Q, dtype=torch.int32, device=dev))
+        logits, _ = model_forward(params, cfg, torch.tensor(toks, device=dev), cache, batch)
+        outs.append(logits.float().cpu())
+    ref, out = outs
+    assert torch.isfinite(out).all() and out.abs().max() <= 30.0
+    assert ((out - ref).norm() / ref.norm()).item() <= 2e-2
+
+    prompts = [np.random.default_rng(7).integers(1, 500, size=int(n)).tolist()
+               for n in (5, 17, 33, 9)]
+
+    def run(method):
+        spec = SpeculativeConfig(num_speculative_tokens=3, draft_scheme="w4a16",
+                                 draft_kv_window=24, method=method)
+        eng = LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=16),
+            scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
+                                      prefill_chunk_size=64),
+            speculative=spec), gpu, device="cuda")
+        for p in prompts:
+            eng.add_request(p, SamplingParams(temperature=0.0, max_tokens=24))
+        res = {}
+        while eng.has_unfinished_requests():
+            for o in eng.step():
+                if o.finished:
+                    res[o.request_id] = o.output_token_ids
+        return [res[i] for i in range(len(prompts))]
+
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    attn = counters["paged_attention"]
+    attn.softcap_launches = attn.d256_launches = 0
+    spec = run("qspec")
+    assert {n for n, c in counters.items() if c.launches > 0} == {
+        "matmul_w4a16_g", "rmsnorm", "paged_attention", "matmul_w8a16"}
+    assert attn.softcap_launches == attn.launches
+    assert attn.d256_launches == (attn.launches if head_dim == 256 else 0)
+    assert spec == run("qspec_null")

@@ -255,8 +255,7 @@ def test_paged_attention_pads_small_head_dim(rng):
 def test_paged_attention_options_not_ported(rng):
     _, tc = _cache_pair(rng, L=1)
     q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16)
-    for option in ({"softcap": 30.0}, {"alibi": torch.ones(4)},
-                   {"tree": (1, np.ones((2, 2)))}):
+    for option in ({"alibi": torch.ones(4)}, {"tree": (1, np.ones((2, 2)))}):
         with pytest.raises(NotImplementedError):
             paged_attention(q, tc, 0, torch.tensor([[1]]), torch.tensor([1]), 0.1,
                             **option)

@@ -1,6 +1,7 @@
 """The sliding window of the port's attention and the windowed draft's ring
-pool, on the CPU, and the engine's refusals of the sampling knobs no sampler
-applies.
+pool, on the CPU, the engine's refusals of the sampling knobs no sampler
+applies, and the first draft backfill after a prefill, which rewrites the
+last prompt position's draft KV as the JAX package's does.
 
 * The windowed plain attention against the JAX package's
   ``paged_attention_ref(window=...)`` and its Pallas kernel in interpret mode,
@@ -199,41 +200,6 @@ def test_preempted_sequence_releases_its_ring_row(monkeypatch):
     assert not eng.runner._ring_slot
 
 
-def test_resumed_sequence_keeps_its_draft_prefill_kv(monkeypatch):
-    """keep_prev is read from the sequence (Sequence.draft_prefill_end): the
-    first round after each completed draft prefill, a preempted sequence's
-    re-prefill included, keeps that prefill's KV; no other round does."""
-    from qspec_tpu_torch.engine import model_runner as mr
-    eng, _, _ = _preempting_engine(monkeypatch)
-    prefilled, kept, batch = [], [], []
-    run_prefill, run_rounds, rounds_step = (eng.runner.run_prefill_chunks,
-                                            eng.runner.run_spec_rounds,
-                                            mr.spec_rounds_step)
-
-    def prefill_spy(chunks, *, draft=False):
-        if draft:
-            prefilled.extend((s.seq_id, end) for s, _, end in chunks if end == s.prefill_len)
-        return run_prefill(chunks, draft=draft)
-
-    def rounds_spy(seqs, *a, **kw):
-        batch[:] = [(s.seq_id, s.num_tokens - 1) for s in seqs]
-        return run_rounds(seqs, *a, **kw)
-
-    def step_spy(*a, keep_prev=None, **kw):
-        if keep_prev is not None:
-            kept.extend(b for b, k in zip(batch, keep_prev.tolist()) if k)
-        return rounds_step(*a, keep_prev=keep_prev, **kw)
-
-    eng.runner.run_prefill_chunks = prefill_spy
-    eng.runner.run_spec_rounds = rounds_spy
-    monkeypatch.setattr(mr, "spec_rounds_step", step_spy)
-    _, waiting_seen = _drive_preempting(eng, prompts(4))
-    ids = [sid for sid, _ in prefilled]
-    # the resumed sequences re-prefilled (each id more than once)
-    assert set(waiting_seen) <= {sid for sid in ids if ids.count(sid) > 1}
-    assert kept == prefilled
-
-
 def _preempting_engine(monkeypatch):
     """A windowed W4A8 ring draft over a KV pool too small for four
     sequences: recompute preemption happens."""
@@ -304,28 +270,104 @@ def test_w4g_head_defaults_to_int8():
     assert params["lm_head"]["qw8"].dtype == torch.int8
 
 
-def test_first_round_keeps_the_draft_prefill_kv(monkeypatch):
-    """The first draft backfill after a prefill does not rewrite the last
-    prompt position's draft KV (its write goes to the null page, slot 0):
-    the draft prefill wrote it at prefill width, as the target's prefill
-    wrote the target's. Later backfills do write (they repair the slot the
-    previous round's k-th proposal left)."""
+# ------------------------------------------- the first draft backfill
+
+def _backfill_spy(monkeypatch):
+    """Record (positions, slots, block tables) of every Q=2 draft backfill."""
     from qspec_tpu_torch.engine import model_runner as mr
     backfills = []
     real = mr.model_forward
 
     def spy(params, cfg, tokens, cache, batch, **kw):
         if tokens.shape[1] == 2:
-            backfills.append(batch.slot_mapping[0].tolist())
+            backfills.append((batch.positions.clone(), batch.slot_mapping.clone(),
+                              batch.block_tables.clone(), batch.ctx_lens.clone()))
         return real(params, cfg, tokens, cache, batch, **kw)
 
     monkeypatch.setattr(mr, "model_forward", spy)
-    mc = ModelConfig.tiny(quant="w4")
-    eng = LLMEngine(EngineConfig(model=mc, cache=CacheConfig(page_size=16),
-                                 scheduler=_sched(),
-                                 speculative=SpeculativeConfig(num_speculative_tokens=3)),
-                    init_params(mc, seed=0, device="cpu"), device="cpu")
-    drive(eng, [list(range(1, 21))], 12)
+    return backfills
+
+
+@pytest.mark.parametrize("case", ["fresh", "preempted"])
+def test_first_backfill_writes_the_last_prompt_position(monkeypatch, case):
+    """Every Q=2 draft backfill, the first after a prefill or a resumed
+    sequence's re-prefill included, writes the draft KV at start_pos - 1 to
+    that position's own slot (never the null page), as the JAX package's
+    does: the draft's path recomputes it."""
+    backfills = _backfill_spy(monkeypatch)
+    if case == "fresh":
+        mc = ModelConfig.tiny(quant="w4")
+        eng = LLMEngine(EngineConfig(model=mc, cache=CacheConfig(page_size=16),
+                                     scheduler=_sched(),
+                                     speculative=SpeculativeConfig(num_speculative_tokens=3)),
+                        init_params(mc, seed=0, device="cpu"), device="cpu")
+        drive(eng, [list(range(1, 21))], 12)
+        # the first round's backfill: the last prompt position, 19
+        pos, slot, tables, _ = backfills[0]
+        assert pos[0].tolist() == [19, 20]
+        assert slot[0, 0].item() == tables[0, 1].item() * 16 + 3 != 0
+    else:
+        eng, _, _ = _preempting_engine(monkeypatch)
+        _drive_preempting(eng, prompts(4))
     assert len(backfills) >= 2
-    assert backfills[0][0] == 0 and backfills[0][1] != 0
-    assert all(b[0] != 0 for b in backfills[1:])
+    for pos, slot, tables, ctx in backfills:
+        live = (ctx > 0) & (pos[:, 0] >= 0)
+        p0 = pos[:, :1].clamp_min(0)
+        want = tables.to(torch.int64).gather(1, p0 // 16) * 16 + p0 % 16
+        assert live.any()
+        assert torch.equal(slot[live, 0], want[live, 0])
+        assert (slot[live, 0] != 0).all()
+
+
+def test_first_backfill_overwrites_like_jax():
+    """After the draft prefill, the draft KV at the last prompt position is
+    overwritten with a marker in both packages' caches (same tiny weights,
+    same prompt); one engine step later both have rewritten it through the
+    draft's Q=2 backfill, and the port's slot holds the JAX package's values
+    within the KV tolerance (rtol / atol 2e-2 x max|ref|, the logits'
+    tolerance of tests/test_torch_grouped.py)."""
+    import jax
+    from qspec_tpu.config import CacheConfig as JCache
+    from qspec_tpu.config import EngineConfig as JEngine
+    from qspec_tpu.config import SchedulerConfig as JSched
+    from qspec_tpu.config import SpeculativeConfig as JSpec
+    from qspec_tpu.engine.llm_engine import LLMEngine as JLLMEngine
+    from qspec_tpu.models import llama as jllama
+    from qspec_tpu.sampling_params import SamplingParams as JSamplingParams
+    from qspec_tpu_torch.models.llama import params_from_numpy
+
+    jcfg = JModel.tiny(quant="w4", lm_head_quant="bf16")
+    jparams = jllama.init_params(jcfg, seed=0)
+    cfg = ModelConfig.tiny(quant="w4", lm_head_quant="bf16")
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), cfg,
+                               device="cpu")
+    prompt = list(map(int, np.random.default_rng(3).integers(1, 500, size=21)))
+    last = len(prompt) - 1
+    sched = dict(max_num_seqs=2, max_model_len=128, prefill_chunk_size=32,
+                 decode_batch_buckets=(2,), prefill_token_buckets=(32,))
+    jeng = JLLMEngine(JEngine(model=jcfg, cache=JCache(page_size=16),
+                              scheduler=JSched(**sched),
+                              speculative=JSpec(num_speculative_tokens=3,
+                                                draft_scheme="w4a16")), jparams)
+    eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16),
+                                 scheduler=SchedulerConfig(**sched),
+                                 speculative=SpeculativeConfig(num_speculative_tokens=3,
+                                                               draft_scheme="w4a16")),
+                    params, device="cpu")
+    jeng.add_request(prompt, JSamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True))
+    eng.add_request(prompt, SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True))
+    jeng.step()                    # the prefill: the target's and the draft's
+    eng.step()
+    marker = 7.0
+    jpage = jeng.scheduler.running[0].page_ids[last // 16]
+    page = eng.scheduler.running[0].page_ids[last // 16]
+    jr, r = jeng.runner, eng.runner
+    jr.draft_cache = jr.draft_cache._replace(
+        kv_pages=jr.draft_cache.kv_pages.at[:, jpage, :, :, last % 16].set(marker))
+    r.draft_cache.kv_pages[:, page, :, :, last % 16] = marker
+    jeng.step()                    # one spec call: its first round backfills
+    eng.step()
+    ref = np32(np.asarray(jr.draft_cache.kv_pages[:, jpage, :, :, last % 16], np.float32))
+    got = np32(r.draft_cache.kv_pages[:, page, :, :, last % 16])
+    assert not (ref == marker).any() and not (got == marker).any()
+    np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2 * np.abs(ref).max())
