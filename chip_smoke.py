@@ -1,24 +1,40 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --ab PARENT_DIR . . PARENT_DIR
+
+The second form times the paged-attention kernel's instantiations without
+the tree mask of each checkout named (a repository root), in turns on one
+card, each in a process of its own with that checkout's qspec_tpu_torch
+(its kernels built there), at the verify shapes the first form times them
+at: B=4, Q=4, page 128, contexts 379/263/512/40; D=128 (Hq=32, Hkv=8) over
+bf16 and int8 caches, D=256 (Hq=16, Hkv=8) bf16 with and without the
+softcap 50. It prints one JSON line per checkout, with the kernels' ptxas
+registers, and no result line.
 
 Phases (any failure raises and the script exits non-zero, printing no result):
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the CUDA kernels of qspec_tpu_torch (one nvcc call) and
-   print the build seconds and the `-Xptxas -v` summary;
+2. build: compile the CUDA kernels of qspec_tpu_torch (one nvcc process per
+   source, all at once, then a link) and print the build seconds and the
+   `-Xptxas -v` summary;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes of the main path, max error beside the stated tolerance (the
    attention kernel also over int8, fp8_e4m3 and fp8_e5m2 caches filled
    through update_layer, under a sliding window, and at head dim 256 with
-   Gemma-2's logit softcap on every entry type; the norm with and without a
-   gamma; the grouped GEMM at the Llama-3-8B AWQ shapes, stacked and not,
-   and a row's bits across batch sizes);
+   Gemma-2's logit softcap on every entry type, and under the Medusa tree
+   mask on every entry type at head dims 128 and 256 (with and without the
+   softcap and a window, and the JAX kernel test's structural check); the
+   norm with and without a gamma; the grouped GEMM at the Llama-3-8B AWQ
+   shapes, stacked and not, and a row's bits across batch sizes);
 4. timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, timed with CUDA events over
    CUDA-graph replays; the least time the card could take (bound_ms); the
    windowed attention at context 2048 beside the unwindowed kernel; the
    attention at Gemma-2-9B's verify shape (D=256) with and without softcap;
+   the tree-masked attention at the Llama-3-8B tree-verify rectangle (Q=15)
+   beside the kernel without the tree; matmul_w4a16 also at the tree
+   verify's M=60, with torch._weight_int4pack_mm as its yardstick;
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
    the CPU (plain versions), same weights, with the bf16 head over a bf16
    cache, at the defaults (int8 head) over an int8 cache, and as an AWQ
@@ -47,10 +63,19 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    the gamma norm, the bf16-cache attention and the int8 head, and (b), whose
    draft is arithmetically the target but for the last prompt position,
    accepts more than half of its drafts;
-8. this slice's path: the same two runs on Gemma-2-9B's published widths
+8. the Gemma-2 slice: the same two runs on Gemma-2-9B's published widths
    (42 layers, hidden 3584, head dim 256, vocab 256000, softcaps 50 / 30,
    the alternating window of 4096, tied int8 head), every attention launch
-   the D=256 instantiation with the softcap.
+   the D=256 instantiation with the softcap; then, on the same checkpoint,
+   Medusa's candidate tree (4 lm_head-seeded heads, DEFAULT_TREE) against
+   its medusa_null oracle, which must accept more than half its proposals;
+9. the Medusa slice: LLM(model="llama3-8b", num_speculative_tokens=4,
+   speculative_model="[medusa]") at the JAX package's defaults (int8 head,
+   bf16 KV) with 4 lm_head-seeded heads made on the card, (c) the chain and
+   (d) the tree (spec_medusa_tree="default"), each against its medusa_null
+   oracle; each launches exactly matmul_w4a16, rmsnorm, the bf16 attention
+   and the int8 head (no draft: no w4a4, no rmsnorm_quant), (d) the tree
+   mask on layers x rounds attention launches and (c) on none.
 
 It prints the kernel summary as one JSON line and, last, the device JSON line.
 """
@@ -74,8 +99,15 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 L2_BYTES = 50 * 1024 * 1024
 
 
+# every line also goes to chiprun_out/chip_smoke.log beside the script, for
+# a runner that keeps only the end of the standard output
+_LOG = []
+
+
 def log(*a):
     print(*a, flush=True)
+    for f in _LOG:
+        print(*a, file=f, flush=True)
 
 
 # ---------------------------------------------------------------- timing
@@ -160,14 +192,18 @@ def phase_build():
     from qspec_tpu_torch import _build
     t0 = time.perf_counter()
     _build.lib()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s)")
-    # registers (r), spilled bytes (s) and static shared memory per kernel
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s, "
+        f"per source {json.dumps(_build.build_info.get('compile_seconds', {}))})")
+    # registers (r), spilled bytes (s) and static shared memory per kernel;
+    # attn<entry, scaled, head dim, softcap, tree> is paged_attention_kernel
     short = {}
     for fn, v in _build.build_info.get("ptxas", {}).items():
-        short[_kernel_name(fn)] = f"{v.get('regs')}r" + (
+        name = _kernel_name(fn).replace("paged_attention_kernel", "attn").replace(
+            "bfloat16", "bf16")
+        short[name] = f"{v.get('regs')}r" + (
             f" {v['spill_stores']}s" if v.get("spill_stores") else "") + (
             f" smem {v['smem']}" if v.get("smem") else "")
-    log("ptxas: " + json.dumps(short))
+    log("ptxas: " + json.dumps(short, separators=(",", ":")))
 
 
 def _w4(gen, k, n):
@@ -184,7 +220,7 @@ def check_gemms(gen, report):
     err16 = err4 = 0.0
     for k, n in GEMM_SHAPES:
         qw, qs = _w4(gen, k, n)
-        for m in (4, 16):
+        for m in (4, 16, 60):
             x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
             out = lk.matmul_w4a16(x, qw, qs)
             ref = lk.matmul_w4a16_ref(x, qw, qs)
@@ -197,8 +233,9 @@ def check_gemms(gen, report):
                 err4 = max(err4, (out.float() - ref.float()).abs().max().item())
     report["matmul_w4a16"].update(max_err=err16, tol="rtol=atol=2e-2")
     report["matmul_w4a4"].update(max_err=err4, tol="rtol=atol=1e-2")
-    log(f"check matmul_w4a16: max_abs_err {err16:.3g} (tol rtol=atol=2e-2)")
-    log(f"check matmul_w4a4: max_abs_err {err4:.3g} (tol rtol=atol=1e-2; int4 and int8 activations)")
+    log(f"check matmul_w4a16: max_abs_err {err16:.3g} (tol rtol=atol=2e-2; M in 4,16,60)")
+    log(f"check matmul_w4a4: max_abs_err {err4:.3g} (tol rtol=atol=1e-2; M in 4,16,60; int4 and "
+        "int8 activations)")
 
 
 HEAD_SHAPE = (16, 4096, 128256)     # verify width M x hidden x vocab
@@ -306,6 +343,13 @@ def _int4pack(qw, qs, qo):
     return packed, sz
 
 
+def _int4pack_w4(qw, qs):
+    """QuaRot weights ((q - 8) * s per column) for torch._weight_int4pack_mm:
+    the column scale repeated over groups of 128, zero 0 (o = 8 s)."""
+    qs_g = qs[None].expand(qw.shape[0] * 8 // GROUP, -1).contiguous()
+    return _int4pack(qw, qs_g, 8 * qs_g)
+
+
 def check_int4pack(gen):
     """Whether torch._weight_int4pack_mm runs here and computes the grouped
     GEMM (bf16 scales and zeros: a relative L2 within 2e-2 of the plain
@@ -321,9 +365,17 @@ def check_int4pack(gen):
         return f"torch._weight_int4pack_mm unavailable: {type(e).__name__}: {str(e)[:160]}"
     ref = lk.matmul_w4a16_g_ref(x, qw, qs, qo).float()
     rel = ((out - ref).norm() / ref.norm()).item()
-    log(f"check torch._weight_int4pack_mm (yardstick): relative L2 {rel:.3g} vs the plain "
-        "version (tol 2e-2: bf16 scales and zeros)")
-    return None if rel <= 2e-2 else f"torch._weight_int4pack_mm disagrees (relative L2 {rel:.3g})"
+    # the same call on QuaRot weights, the matmul_w4a16 row's yardstick
+    qw, qs = _w4(gen, k, n)
+    packed, sz = _int4pack_w4(qw, qs)
+    out = torch._weight_int4pack_mm(x, packed, GROUP, sz).float()
+    ref = lk.matmul_w4a16_ref(x, qw, qs).float()
+    rel4 = ((out - ref).norm() / ref.norm()).item()
+    log(f"check torch._weight_int4pack_mm (yardstick): relative L2 {rel:.3g} vs the grouped "
+        f"plain version, {rel4:.3g} vs matmul_w4a16_ref (tol 2e-2: bf16 scales and zeros)")
+    if max(rel, rel4) > 2e-2:
+        return f"torch._weight_int4pack_mm disagrees (relative L2 {rel:.3g}, {rel4:.3g})"
+    return None
 
 
 def check_norms(gen, report):
@@ -370,9 +422,9 @@ def _ctx_lens(q_len, S=128):
     return [max(c, q_len) for c in (3 * S - 5, 2 * S + 7, 4 * S, 40)]
 
 
-def _attn_inputs(gen, q_len, B=4, Hq=32, Hkv=8, D=128, S=128):
+def _attn_inputs(gen, q_len, B=4, Hq=32, Hkv=8, D=128, S=128, ctx=None):
     from qspec_tpu_torch.ops.kv_cache import PagedKVCache
-    ctx = _ctx_lens(q_len, S)
+    ctx = ctx or _ctx_lens(q_len, S)
     pages = [-(-c // S) for c in ctx]
     P = 1 + sum(pages)
     kv = (torch.randn(2, P, 2, Hkv, S, D, generator=gen, device="cuda")).to(torch.bfloat16)
@@ -544,7 +596,207 @@ def check_attention_d256(gen, report):
         "a row's bits equal at Q=1 and Q=4")
 
 
-def time_kernels(gen, report):
+TREE_TOL = {"bfloat16": 3e-2, "int8": 4e-2, "fp8_e4m3": 4e-2, "fp8_e5m2": 8e-2}
+TREE_ROOTS = (17, 30)          # the JAX kernel test's roots (two rows)
+
+
+def _tree_inputs(gen, prefix, kv_dtype, D, tspec, Hq=4, Hkv=2, S=16, P=24, scale_q=1.0):
+    """The JAX kernel test's tree rectangle (tests/kernels/test_attention.py::
+    test_tree_mask_pallas_matches_ref: B=2, Hq=4, Hkv=2, roots 17 and 30,
+    shuffled tables of 10 pages; page 16, the kernel's least) at head dim
+    ``D`` over a cache of ``kv_dtype`` (8-bit: layer 1 filled through
+    update_layer). Returns q, cache, tables, ctx, positions."""
+    from qspec_tpu_torch.ops import kv_cache as kvc
+    from qspec_tpu_torch.ops.kv_cache import PagedKVCache
+    T = tspec.num_nodes
+    B, Q = len(TREE_ROOTS), prefix + T
+    if kv_dtype == "bfloat16":
+        cache = PagedKVCache(torch.randn(2, P, 2, Hkv, S, D, generator=gen,
+                                         device="cuda").to(torch.bfloat16))
+    else:
+        cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, P, S, kv_dtype), "cuda")
+        n = (P - 1) * S
+        kvc.update_layer(cache, 1,
+                         torch.randn(n, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.randn(n, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.arange(n, device="cuda") + S)
+    tables = (torch.randperm(20, generator=torch.Generator().manual_seed(prefix)) + 1
+              ).reshape(2, 10).to(torch.int32).cuda()
+    pos = torch.tensor(TREE_ROOTS, device="cuda")
+    depth = torch.tensor(tspec.depth, device="cuda")
+    positions = torch.cat([pos[:, None] - (prefix - 1) + torch.arange(prefix, device="cuda"),
+                           pos[:, None] + depth[None]], 1)
+    q = (torch.randn(B, Q, Hq, D, generator=gen, device="cuda") * scale_q).to(torch.bfloat16)
+    ctx = (pos + 1 + T).to(torch.int32)
+    return q, cache, tables, ctx, positions
+
+
+def check_attention_tree(gen, report):
+    """The tree mask against its plain version: DEFAULT_TREE, prefix 3 and 5,
+    head dims 128 and 256, every entry type, softcap none and 50, window
+    none and 12 (shorter than every context: it bounds the prefix rows and,
+    relative to the root, the tree rows); then the JAX test's structural
+    check on the kernel: a node's KV slot changed, the rows that are not its
+    descendants keep their bits, its child's row changes."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref, tree_mask
+    from qspec_tpu_torch.ops.attention_cuda import LAUNCHES, paged_attention_cuda
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    tspec = build_tree(DEFAULT_TREE)
+    errs = {}
+    n_tree = sum(c.tree_launches for c in LAUNCHES.values())
+    n_calls = 0
+    for kv_dtype, tol in TREE_TOL.items():
+        err = 0.0
+        for D in (128, 256):
+            for prefix in (3, 5):
+                q, cache, tables, ctx, positions = _tree_inputs(gen, prefix, kv_dtype, D, tspec,
+                                                                scale_q=4.0)
+                tree = tree_mask(prefix, tspec.ancestors, "cuda")
+                for cap in (None, 50.0):
+                    for window in (None, 12):
+                        kw = dict(q_positions=positions, window=window, softcap=cap, tree=tree)
+                        out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5,
+                                                   layer=1, kv_scales=cache.kv_scales, **kw)
+                        ref = paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, **kw)
+                        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+                        err = max(err, (out.float() - ref.float()).abs().max().item())
+                        n_calls += 1
+        errs[kv_dtype] = err
+        name = "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
+        report[name]["tree"] = {"max_abs_err": err, "tol": f"rtol=atol={tol}"}
+    if sum(c.tree_launches for c in LAUNCHES.values()) - n_tree != n_calls:
+        raise AssertionError("paged_attention tree: tree launches not counted")
+    # structural: perturb node (1,)'s slot of row 0 in a bf16 cache
+    prefix = 5
+    q, cache, tables, ctx, positions = _tree_inputs(gen, prefix, "bfloat16", 128, tspec)
+    kw = dict(q_positions=positions, tree=tree_mask(prefix, tspec.ancestors, "cuda"))
+    before = paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5, layer=1, **kw)
+    node = tspec.choices.index((1,))
+    slot = TREE_ROOTS[0] + 1 + node
+    page = int(tables[0, slot // 16])
+    cache.kv_pages[1, page, :, :, slot % 16] = 99.0
+    after = paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5, layer=1, **kw)
+    desc = [i for i in range(tspec.num_nodes) if tspec.ancestors[i][node]]
+    keep = [r for r in range(q.shape[1]) if r - prefix not in desc]
+    child = prefix + tspec.choices.index((1, 0))
+    if not torch.equal(before[0, keep], after[0, keep]) or torch.equal(
+            before[0, child], after[0, child]) or not torch.equal(before[1], after[1]):
+        raise AssertionError("paged_attention tree: a node's slot reached a row that is not "
+                             "its descendant, or missed its child")
+    log("check paged_attention tree (DEFAULT_TREE, prefix 3 and 5, D=128 and 256, softcap none "
+        "and 50, window none and 12): max_abs_err "
+        + ", ".join(f"{k} {v:.3g} (tol {TREE_TOL[k]})" for k, v in errs.items())
+        + f"; node (1,)'s slot changed: {len(keep)} rows keep their bits, its child's row moves")
+
+
+TREE_PREFIX = 5       # DEFAULT_TREE's depth 4 + 1: the engine's verify prefix
+# the main paths' tree-verify rectangles: (model, Hq, D, softcaps, windows);
+# Gemma-2's local layers take its window 4096, 128 bites at these contexts
+TREE_MAIN = (("llama3-8b", 32, 128, (None,), (None,)),
+             ("gemma2-9b", 16, 256, (50.0,), (None, 4096, 128)))
+
+
+def _tree_rect(tspec):
+    """The engine's tree-verify rectangle: B=4, prefix 5 + the tree's T
+    nodes (Q=15 for DEFAULT_TREE), roots at the ends of contexts of 1-4
+    pages of 128 (_ctx_lens). Returns the rows' positions [4, Q] and the
+    contexts with the tree's slots."""
+    T = tspec.num_nodes
+    base = _ctx_lens(TREE_PREFIX + T)
+    root = torch.tensor(base, device="cuda") - 1
+    depth = torch.tensor(tspec.depth, device="cuda")
+    positions = torch.cat([root[:, None] - (TREE_PREFIX - 1)
+                           + torch.arange(TREE_PREFIX, device="cuda"), root[:, None] + depth[None]], 1)
+    return positions, [c + T for c in base]
+
+
+def check_attention_tree_main(gen, report):
+    """The tree mask at the main paths' rectangles (_tree_rect, Hkv=8, bf16
+    cache): Llama-3-8B's (Hq=32, D=128) and Gemma-2-9B's (Hq=16, D=256,
+    softcap 50, window none, 4096 and 128), queries 4 x normal, against the
+    plain version."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref, tree_mask
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    tspec = build_tree(DEFAULT_TREE)
+    positions, live = _tree_rect(tspec)
+    tree = tree_mask(TREE_PREFIX, tspec.ancestors, "cuda")
+    tol = TREE_TOL["bfloat16"]
+    errs = {}
+    for model, Hq, D, caps, windows in TREE_MAIN:
+        q, cache, tables, ctx = _attn_inputs(gen, positions.shape[1], Hq=Hq, D=D, ctx=live)
+        q = q * 4
+        err = 0.0
+        for cap in caps:
+            for window in windows:
+                kw = dict(q_positions=positions, window=window, softcap=cap, tree=tree)
+                out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1,
+                                           **kw)
+                ref = paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, **kw)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+        errs[model] = err
+    report["paged_attention"]["tree"]["main_path_max_abs_err"] = errs
+    log(f"check paged_attention tree at the main paths' rectangles (B=4, Q=15, ctx={live}, bf16 "
+        "KV; llama3-8b Hq=32 D=128; gemma2-9b Hq=16 D=256 softcap 50, window none/4096/128): "
+        f"max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol})")
+
+
+def time_attention_tree(gen, report):
+    """The Llama-3-8B tree-verify rectangle (_tree_rect: Hq=32, Hkv=8,
+    D=128, bf16 cache); beside it the kernel without the tree at the same Q
+    on the same inputs (causal over 15 consecutive rows), and the plain
+    version; the kernel's output on the first input set held against the
+    plain version's."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref, tree_mask, tree_slot_mask
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    tspec = build_tree(DEFAULT_TREE)
+    B, Hq, Hkv, D, prefix = 4, 32, 8, 128, TREE_PREFIX
+    Q = prefix + tspec.num_nodes
+    positions, live = _tree_rect(tspec)
+    tree = tree_mask(prefix, tspec.ancestors, "cuda")
+    kv_bytes = sum(live) * Hkv * D * 2 * 2
+    rot = Rotating(lambda: _attn_inputs(gen, Q, ctx=live), kv_bytes)
+    q, cache, tables, ctx = rot.sets[0]
+    out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1,
+                               q_positions=positions, tree=tree)
+    ref = paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, q_positions=positions,
+                              tree=tree)
+    tol = TREE_TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    err = (out.float() - ref.float()).abs().max().item()
+    times = {}
+    for mode in ("tree", "causal"):
+        def kern(mode=mode):
+            q, cache, tables, ctx = rot.next()
+            if mode == "tree":
+                paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1,
+                                     q_positions=positions, tree=tree)
+            else:
+                paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1)
+        times[mode] = graph_ms(kern, reps=max(20, len(rot.sets)))
+
+    def plain():
+        q, cache, tables, ctx = rot.next()
+        paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, q_positions=positions,
+                            tree=tree)
+    t_p = graph_ms(plain, reps=3)
+    nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + 8 * B
+    seen = int(tree_slot_mask(prefix, Q, positions[:, 0], tree.ancestors, max(live)).sum())
+    b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+    log(f"time paged_attention tree B=4 Q=15 (prefix 5, DEFAULT_TREE) ctx={live}: "
+        f"{times['tree']:.4f} ms (no tree, Q=15: {times['causal']:.4f}), plain {t_p:.4f}, "
+        f"bound {b:.5f} ({kind}); max_abs_err {err:.3g} (tol {tol})")
+    report["paged_attention"]["tree"].update(
+        ms=times["tree"], no_tree_ms=times["causal"], plain_ms=t_p, bound_ms=b, bound_by=kind,
+        timed_max_abs_err=err,
+        shape=f"B=4, Q=15 (prefix 5 + DEFAULT_TREE), Hq=32, Hkv=8, D=128, ctx={live}, bf16 KV")
+    del rot
+    torch.cuda.empty_cache()
+
+
+def time_kernels(gen, report, int4pack_missing):
     """Per kernel, at the main path's shape: kernel, plain version, library
     call; bound from the bytes and operations of this call's inputs."""
     from qspec_tpu_torch.ops import linear_kernels as lk
@@ -554,10 +806,15 @@ def time_kernels(gen, report):
     from qspec_tpu_torch.ops.quant import sym_quant_int4
 
     # GEMMs: one decoder layer's four projections at the verify width (M=16:
-    # 4 sequences x (k+1) positions) and the draft width (M=4)
-    for name, m in (("matmul_w4a16", 16), ("matmul_w4a4", 4)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    # 4 sequences x (k+1) positions), the Medusa tree verify's (M=60: 4 x
+    # (prefix 5 + 10 nodes)) and the draft width (M=4); the w4a16 yardstick
+    # torch._weight_int4pack_mm on the same weights (per-column scales
+    # repeated over groups of 128, zero 0: its (q - 8) * s is QuaRot's)
+    for name, m in (("matmul_w4a16", 16), ("matmul_w4a16", 60), ("matmul_w4a4", 4)):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         kinds = set()
+        library = name == "matmul_w4a16" and int4pack_missing is None
+        per = []
         for k, n in GEMM_SHAPES:
             wbytes = k * n // 2 + 4 * n
             rot = Rotating(lambda k=k, n=n: _w4(gen, k, n), wbytes)
@@ -584,14 +841,33 @@ def time_kernels(gen, report):
                 nbytes = m * k + 4 * m + wbytes + m * n * 2
                 b, kind = bound_ms(nbytes, 2 * m * k * n, "int8")
             t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
-            log(f"time {name} M={m} K={k} N={n}: {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                f"bound {b:.4f} ms ({kind}), {nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s")
+            if library:
+                rot_l = Rotating(lambda k=k, n=n: _int4pack_w4(*_w4(gen, k, n)), wbytes)
+
+                def lib_call():
+                    packed, sz = rot_l.next()
+                    torch._weight_int4pack_mm(x, packed, GROUP, sz)
+                tot["library_ms"] += graph_ms(lib_call)
+                del rot_l
+            per.append(f"{t_k:.4f}")
             tot["ms"] += t_k
             tot["plain_ms"] += t_p
             tot["bound_ms"] += b
             kinds.add(kind)
-        report[name].update(tot, bound_by="/".join(sorted(kinds)), library_ms=None,
-                            shape=f"one layer's qkv+o+gate_up+down at M={m}")
+            del rot
+        if not library:
+            tot["library_ms"] = None
+        log(f"time {name} M={m}, one layer (K,N in {[list(s) for s in GEMM_SHAPES]}: "
+            f"{', '.join(per)} ms): {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+            + (f"_weight_int4pack_mm {tot['library_ms']:.4f}, " if library else "")
+            + f"bound {tot['bound_ms']:.4f} ({'/'.join(sorted(kinds))})")
+        row = dict(tot, bound_by="/".join(sorted(kinds)),
+                   shape=f"one layer's qkv+o+gate_up+down at M={m}")
+        if m == 60:
+            report[name]["m60_tree_verify"] = row
+        else:
+            report[name].update(row)
+        torch.cuda.empty_cache()
 
     # norms: verify side M=16 (rmsnorm), draft side M=4 (rmsnorm_quant), H=4096
     H = 4096
@@ -654,7 +930,7 @@ def time_kernels(gen, report):
     # bf16 cache and the 8-bit ones (1-byte entries, + f32 per-token scales
     # for int8 and e4m3); each input set rotated past L2, as the GEMMs' are
     for q_len in (1, 4, 128):
-        t_bf16 = None
+        parts = []
         for kv_dtype in ("bfloat16", *KV8):
             name = "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
             live = _ctx_lens(q_len)
@@ -680,15 +956,14 @@ def time_kernels(gen, report):
             # causal work: query i of a row sees ctx - Q + i + 1 positions
             seen = sum(sum(c - q_len + i + 1 for i in range(q_len)) for c in live)
             b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
-            if kv_dtype == "bfloat16":
-                t_bf16 = t_k
-            log(f"time {name} B=4 Q={q_len} ctx={live}: {t_k:.4f} ms (bf16 cache "
-                f"{t_bf16:.4f}), plain {t_p:.4f}, bound {b:.5f} ({kind})")
+            parts.append(f"{kv_dtype} {t_k:.4f} (plain {t_p:.4f}, bound {b:.5f} {kind})")
             if q_len == 4:
                 report[name].update(ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b,
                                     bound_by=kind, shape=f"B=4, Q=4, ctx={live}, "
                                     f"{kv_dtype} KV")
             del rot, q, tables
+        log(f"time paged_attention B=4 Q={q_len} ctx={live}, ms by KV entry: "
+            + "; ".join(parts))
         torch.cuda.empty_cache()
 
 
@@ -701,6 +976,7 @@ def time_w4a16_g(gen, report, int4pack_missing):
     for m in (4, 16):
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         nbytes_tot = ops_tot = 0
+        per = []
         for k, n in GEMM_SHAPES:
             wbytes = k * n // 2 + 2 * (k // GROUP) * n * 4
             rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n), wbytes)
@@ -724,10 +1000,7 @@ def time_w4a16_g(gen, report, int4pack_missing):
                 t_l = graph_ms(library)
                 tot["library_ms"] += t_l
                 del rot_l
-            log(f"time matmul_w4a16_g M={m} K={k} N={n} g={GROUP}: {t_k:.4f} ms, plain "
-                f"{t_p:.4f} ms, _weight_int4pack_mm "
-                f"{'none' if t_l is None else f'{t_l:.4f} ms'}, bound {b:.4f} ms ({kind}), "
-                f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s")
+            per.append(f"{t_k:.4f}" + ("" if t_l is None else f"/{t_l:.4f}"))
             tot["ms"] += t_k
             tot["plain_ms"] += t_p
             tot["bound_ms"] += b
@@ -735,8 +1008,10 @@ def time_w4a16_g(gen, report, int4pack_missing):
             ops_tot += 2 * m * k * n
             del rot
             torch.cuda.empty_cache()
-        log(f"time matmul_w4a16_g one layer at M={m}: {tot['ms']:.4f} ms, bound "
-            f"{tot['bound_ms']:.4f} ms ({nbytes_tot} bytes)")
+        log(f"time matmul_w4a16_g M={m} g={GROUP}, one layer (kernel/_weight_int4pack_mm per "
+            f"projection: {', '.join(per)} ms): {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+            f"library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} ms "
+            f"({nbytes_tot} bytes)")
         if m == 16:
             report["matmul_w4a16_g"].update(
                 tot, bound_by=bound_ms(nbytes_tot, ops_tot, "bf16")[1],
@@ -922,25 +1197,26 @@ def generate(engine, prompts, max_tokens: int):
     return [outs[i] for i in ids]
 
 
-ATTN_OPTIONS = ("window", "softcap", "d256")
+ATTN_OPTIONS = ("window", "softcap", "d256", "tree")
 
 
 def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
-                   every_launch=()):
-    """Greedy generation through QSpec, then through the qspec_null oracle on
-    the same weights. ``make(method, params)`` builds the LLMEngine (params
-    None: the factory makes them). The launch counts are those of the QSpec
-    run only (set to 0 just before it, read just after): every kernel of
-    ``expect`` must have launched, and no other (each attention
-    instantiation on its own path). The attention's launches under a window,
-    with a softcap and at head dim 256 are counted apart: each option of
-    ``every_launch`` must be on every attention launch, the softcap and D=256
-    on none otherwise."""
+                   every_launch=(), methods=("qspec", "qspec_null")):
+    """Greedy generation through the speculative method ``methods[0]``, then
+    through its oracle ``methods[1]`` (the same rounds with the proposals
+    nulled) on the same weights. ``make(method, params)`` builds the
+    LLMEngine (params None: the factory makes them). The launch counts are
+    those of the speculative run only (set to 0 just before it, read just
+    after): every kernel of ``expect`` must have launched, and no other (each
+    attention instantiation on its own path). The attention's launches under
+    a window, with a softcap, at head dim 256 and under a tree mask are
+    counted apart: each option of ``every_launch`` must be on every attention
+    launch, the softcap and D=256 on none otherwise; the tree launches are
+    returned (``rounds_run`` beside them: the verify passes of the run) for
+    the caller to check."""
     from qspec_tpu_torch.ops import kernel_wrappers
-    t0 = time.perf_counter()
-    eng = make("qspec", None)
+    eng = make(methods[0], None)
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
 
     counters = kernel_wrappers()
     attn = {n: c for n, c in counters.items() if n.startswith("paged_attention")}
@@ -957,11 +1233,12 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     opts = {name: {opt: getattr(c, f"{opt}_launches") for opt in ATTN_OPTIONS}
             for name, c in attn.items()}
     m = eng.spec_metrics
+    rounds_run = eng.runner.spec_rounds_run
 
     params = eng.runner.params
     del eng
     torch.cuda.empty_cache()
-    oracle = make("qspec_null", params)
+    oracle = make(methods[1], params)
     t0 = time.perf_counter()
     ar = generate(oracle, prompts, max_tokens)
     torch.cuda.synchronize()
@@ -969,8 +1246,9 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     del oracle
 
     if any(len(t) != max_tokens for t in spec) or spec != ar:
-        raise AssertionError(f"{label}: greedy QSpec tokens differ from the qspec_null "
-                             f"oracle: {[t[:8] for t in spec]} vs {[t[:8] for t in ar]}")
+        raise AssertionError(f"{label}: greedy {methods[0]} tokens differ from the "
+                             f"{methods[1]} oracle: {[t[:8] for t in spec]} vs "
+                             f"{[t[:8] for t in ar]}")
     launched = {n for n, c in launches.items() if c > 0}
     if launched != expect:
         raise AssertionError(f"{label}: kernels launched on the path: {sorted(launched)}, "
@@ -985,21 +1263,22 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
         "acceptance_rate": m.draft_acceptance_rate,
         "emitted_per_round_per_seq": m.num_emitted_tokens / max(
             m.num_emitted_tokens - m.num_draft_accepted, 1),
-        "qspec_tokens_per_s": n_tok / t_spec, "qspec_wall_s": t_spec,
+        "spec_tokens_per_s": n_tok / t_spec, "spec_wall_s": t_spec,
         "oracle_tokens_per_s": n_tok / t_ar, "oracle_wall_s": t_ar,
-        "init_s": t_init, "drafted_accepted_emitted": [
+        "drafted_accepted_emitted": [
             m.num_draft_tokens, m.num_draft_accepted, m.num_emitted_tokens],
+        **({"rounds_run": rounds_run} if rounds_run else {}),
         **({"attn_option_launches": {n: {k: v for k, v in o.items() if v}
                                      for n, o in opts.items() if any(o.values())}}
            if any(any(o.values()) for o in opts.values()) else {})}
 
 
 def e2e_log(label: str, prompts, spec, summary: dict):
-    """One line per end-to-end run: the prompts, the first tokens, the
+    """One line per end-to-end run: its token and prompt counts and its
     summary (floats to 5 significant digits, to keep the output short)."""
     short = {k: float(f"{v:.5g}") if isinstance(v, float) else v for k, v in summary.items()}
-    log(f"e2e {label}: prompts {[len(p) for p in prompts]}, {len(spec[0])} greedy tokens, "
-        f"QSpec == oracle, first tokens {[t[:3] for t in spec]}: {json.dumps(short)}")
+    log(f"e2e {label}: {len(spec[0])} greedy tokens of {len(prompts)} prompts == oracle's: "
+        f"{json.dumps(short, separators=(',', ':'))}")
 
 
 def llm_engine(kw: dict):
@@ -1076,6 +1355,7 @@ def e2e_prompts():
 
 def phase_end_to_end(smi: str):
     prompts = e2e_prompts()
+    log(f"e2e prompts of the 8B runs: {[len(p) for p in prompts]} random token ids")
     base = dict(model="llama3-8b", device="cuda", quantization="qspec",
                 num_speculative_tokens=3, max_model_len=512, max_num_seqs=4, seed=0)
     # the first slice's path: the bf16 head over a bf16 cache
@@ -1115,6 +1395,7 @@ def phase_grouped_8b(model: str, smi: str):
     from qspec_tpu_torch.config import GEMMA2_9B_HF
     from qspec_tpu_torch.models.llama import init_params
     from qspec_tpu_torch.models.registry import resolve
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE
     gemma = model == "gemma2-9b"
     # Gemma-2-9B's published config.json, written out in config.py
     cfg = (dataclasses.replace(resolve(GEMMA2_9B_HF), quant="w4g") if gemma
@@ -1174,7 +1455,93 @@ def phase_grouped_8b(model: str, smi: str):
     if acc_b <= MIN_ACCEPT_B[model]:
         raise AssertionError(f"{model} AWQ w4a16 draft, no window: acceptance {acc_b} <= "
                              f"{MIN_ACCEPT_B[model]}")
+    if gemma:
+        # the Medusa tree on the same checkpoint: every attention launch is the
+        # D=256 softcap instantiation, layers x rounds of them tree-masked; the
+        # random Gemma-2 repeats its last token, so the lm_head-seeded heads'
+        # proposals are accepted (the descending walk and the re-proposal
+        # from the last accepted node's hidden state, at full width)
+        params["medusa"] = medusa_heads(params, cfg)
+
+        def make_medusa(method, p):
+            spec = SpeculativeConfig(num_speculative_tokens=MEDUSA_K, method=method,
+                                     medusa_tree=DEFAULT_TREE)
+            return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=128),
+                                          scheduler=SchedulerConfig(max_num_seqs=4,
+                                                                    max_model_len=512),
+                                          speculative=spec), p or params,
+                             device="cuda", seed=0)
+        out["tree"] = medusa_run(make_medusa, f"{model} AWQ Medusa tree (int8 head, bf16 KV)",
+                                 W4G_KERNELS, prompts, cfg.num_layers, True,
+                                 every_launch=("softcap", "d256"))
+        acc = out["tree"][2]["acceptance_rate"]
+        if acc <= 0.5:
+            raise AssertionError(f"{model} AWQ Medusa tree: acceptance {acc} <= 0.5")
     log(f"e2e {model} AWQ: card {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# the kernels of the Medusa path on a QuaRot checkpoint: the verify scheme's
+# only (no draft forward: no w4a4, no rmsnorm_quant)
+MEDUSA_KERNELS = {"matmul_w4a16", "rmsnorm", "paged_attention", "matmul_w8a16"}
+MEDUSA_K = 4
+
+
+def medusa_heads(params, cfg):
+    """MEDUSA_K heads seeded from the model's own head (w1 = 0: each
+    proposes the t + 1 token), made on the card."""
+    from qspec_tpu_torch.spec_decode.medusa import init_medusa_params, lm_head_weight
+    lm = lm_head_weight(params["lm_head"])
+    heads = init_medusa_params(cfg.hidden_size, cfg.vocab_size, MEDUSA_K, lm_head=lm)
+    del lm
+    torch.cuda.empty_cache()
+    return heads
+
+
+def medusa_run(make, label, expect, prompts, layers: int, tree: bool, every_launch=()):
+    """A Medusa run (chain or tree) against its medusa_null oracle: greedy
+    tokens equal, exactly the ``expect`` kernels launched, and the tree mask
+    on layers x rounds attention launches in a tree run, on none in a chain
+    run."""
+    spec, launches, opts, summary = spec_vs_oracle(
+        make, label, expect, prompts, 32, every_launch=every_launch,
+        methods=("medusa", "medusa_null"))
+    n_tree = sum(o["tree"] for o in opts.values())
+    want = layers * summary.get("rounds_run", 0) if tree else 0
+    if n_tree != want or (tree and not want):
+        raise AssertionError(f"{label}: {n_tree} tree launches, expected {want} "
+                             f"({layers} layers x {summary.get('rounds_run')} rounds)")
+    summary["tree_launches"] = n_tree
+    summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    e2e_log(label, prompts, spec, summary)
+    return launches, opts, summary
+
+
+def phase_medusa_8b(smi: str):
+    """Medusa at Llama-3-8B width through LLM: QuaRot, the JAX package's
+    defaults (int8 head, bf16 KV), random weights and 4 lm_head-seeded heads
+    made on the card; (c) the chain, k = 4, (d) the candidate tree
+    (DEFAULT_TREE: 10 nodes, prefix 5, Q = 15)."""
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import ModelConfig
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda")
+    params["medusa"] = medusa_heads(params, cfg)
+    prompts = e2e_prompts()
+    out = {}
+    for key, tree in (("c", None), ("d", "default")):
+        kw = dict(model="llama3-8b", device="cuda", num_speculative_tokens=MEDUSA_K,
+                  speculative_model="[medusa]", spec_medusa_tree=tree, max_model_len=512,
+                  max_num_seqs=4, seed=0)
+        label = f"llama3-8b Medusa {'tree' if tree else 'chain'} (int8 head, bf16 KV, k=4)"
+        out[key] = medusa_run(
+            lambda m, p, kw=kw: LLM(params=p or params, speculative_method=m, **kw).llm_engine,
+            label, MEDUSA_KERNELS, prompts, cfg.num_layers, tree is not None)
+    log(f"e2e llama3-8b Medusa: card {smi}")
     del params
     torch.cuda.empty_cache()
     return out
@@ -1191,7 +1558,8 @@ KERNEL_META = {
                       "qspec_tpu/ops/rmsnorm_quant.py:68 (_rmsnorm_quant_kernel)"),
     "paged_attention": ("qspec_tpu_torch/csrc/paged_attention.cu",
                         "qspec_tpu/ops/attention_pallas.py:52 (_paged_attn_kernel; "
-                        "window, softcap :183, head dims 128 and 256)"),
+                        "window, softcap :183, head dims 128 and 256, tree mask "
+                        ":131-139,188-194)"),
     "matmul_w8a16": ("qspec_tpu_torch/csrc/w8a16.cu",
                      "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel)"),
     "matmul_w4a16_g": ("qspec_tpu_torch/csrc/w4a16_g.cu",
@@ -1208,6 +1576,9 @@ KV8_META = {f"paged_attention_{dt}": (
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    _LOG.append(open(os.path.join(out_dir, "chip_smoke.log"), "w"))
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {name: {} for name in (*KERNEL_META, *KV8_META)}
@@ -1220,10 +1591,13 @@ def main():
     check_attention_window(gen, report)
     check_attention_kv8(gen, report)
     check_attention_d256(gen, report)
-    time_kernels(gen, report)
+    check_attention_tree(gen, report)
+    check_attention_tree_main(gen, report)
+    time_kernels(gen, report, int4pack_missing)
     time_w4a16_g(gen, report, int4pack_missing)
     time_attention_window(gen, report)
     time_attention_d256(gen, report)
+    time_attention_tree(gen, report)
     phase_small_reference("bf16", "bfloat16")
     phase_small_reference("auto", "int8")
     phase_small_reference("auto", "bfloat16", quant="w4g")
@@ -1232,14 +1606,16 @@ def main():
     first, default = phase_end_to_end(smi)
     awq = phase_grouped_8b("llama3-8b", smi)
     gemma = phase_grouped_8b("gemma2-9b", smi)
+    medusa = phase_medusa_8b(smi)
 
     # each row's launches from the 8B run of its own path (its first draft):
     # the bf16 instantiation from the first slice's (bf16 head, bf16 KV), the
     # grouped GEMM and the attention's windowed launches from the third
     # slice's (a), the rest from the second slice's (defaults, int8 KV); the
     # fp8 instantiations, which no 8B run takes, from the tiny model's run
-    # over their cache; and, for the four kernels of this slice's path, their
-    # launches in the Gemma-2-9B run (a) beside
+    # over their cache; and, beside, the w4g kernels' launches in the
+    # Gemma-2-9B run (a) and the Medusa path's kernels' in the Llama-3-8B tree
+    # run (d) and the Gemma-2-9B tree run
     kernels = []
     for name, (source, replaces) in {**KERNEL_META, **KV8_META}.items():
         r = report[name]
@@ -1249,7 +1625,13 @@ def main():
             extra = {"window_launches": awq["a"][1][name]["window"],
                      "window_launches_in": "llama3-8b AWQ, w4a16 draft, window 64",
                      "window": r["window"],
-                     "d256_softcap_launches": gemma["a"][1][name]["d256"]}
+                     "d256_softcap_launches": gemma["a"][1][name]["d256"],
+                     "tree": r["tree"],
+                     "tree_launches": {"llama3-8b Medusa tree": medusa["d"][1][name]["tree"],
+                                       "llama3-8b Medusa chain": medusa["c"][1][name]["tree"],
+                                       "gemma2-9b Medusa tree": gemma["tree"][1][name]["tree"]},
+                     "medusa_rounds": {"llama3-8b tree": medusa["d"][2]["rounds_run"],
+                                       "gemma2-9b tree": gemma["tree"][2]["rounds_run"]}}
         elif name == "matmul_w4a16_g":
             n_launch, where = awq["a"][0][name], "llama3-8b AWQ, w4a16 draft, window 64"
             if "library_note" in r:
@@ -1261,6 +1643,12 @@ def main():
             n_launch, where = default[name], "llama3-8b, int8 head, int8 KV, w4a4 draft"
         if name in W4G_KERNELS:
             extra["gemma2_launches"] = gemma["a"][0][name]
+        if name in MEDUSA_KERNELS:
+            extra["medusa_tree_launches"] = medusa["d"][0][name]
+        if "m60_tree_verify" in r:
+            extra["m60_tree_verify"] = r["m60_tree_verify"]
+        if "tree" in r and name != "paged_attention":
+            extra["tree"] = r["tree"]
         if "d256_softcap" in r:
             extra["d256_softcap"] = r["d256_softcap"]
         kernels.append({
@@ -1270,11 +1658,64 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], **extra})
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels}, separators=(",", ":")))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
 
 
+AB_SHAPES = (("d128_bf16", 128, 32, "bfloat16", None), ("d128_int8", 128, 32, "int8", None),
+             ("d256_bf16_cap50", 256, 16, "bfloat16", 50.0),
+             ("d256_bf16", 256, 16, "bfloat16", None))
+
+
+def ab_time_attention(root: str):
+    """One checkout's attention times at AB_SHAPES and its attention
+    kernels' ptxas registers, as one JSON line (--ab's child process)."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from qspec_tpu_torch import _build
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    if not _build.__file__.startswith(root + os.sep):
+        raise SystemExit(f"chip_smoke --ab: {root} holds no qspec_tpu_torch")
+    _build.lib()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for label, D, Hq, kv, cap in AB_SHAPES:
+        def make(D=D, Hq=Hq, kv=kv):
+            if kv == "bfloat16":
+                return _attn_inputs(gen, 4, Hq=Hq, D=D)
+            return _attn_inputs_kv(gen, 4, kv, Hq=Hq, D=D)
+        rot = Rotating(make, sum(_ctx_lens(4)) * 8 * D * 2 * (2 if kv == "bfloat16" else 1))
+
+        def kern(D=D, cap=cap):
+            q, cache, tables, ctx = rot.next()
+            paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1,
+                                 kv_scales=cache.kv_scales, softcap=cap)
+        out[label] = graph_ms(kern, reps=max(20, len(rot.sets)))
+        del rot
+        torch.cuda.empty_cache()
+    regs = {_kernel_name(k): v.get("regs") for k, v in _build.build_info.get("ptxas", {}).items()
+            if "paged_attention" in k}
+    print(json.dumps({"checkout": root, "ms": out, "ptxas_regs": regs},
+                     separators=(",", ":")), flush=True)
+
+
+def ab_attention(roots):
+    """--ab: each checkout of ``roots`` timed by a process of its own, in
+    the order given."""
+    if not roots:
+        raise SystemExit(__doc__)
+    phase_device()
+    for root in roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-child", root],
+                       check=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ab"]:
+        ab_attention(sys.argv[2:])
+    elif sys.argv[1:2] == ["--ab-child"]:
+        ab_time_attention(sys.argv[2])
+    else:
+        main()

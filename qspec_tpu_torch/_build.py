@@ -1,8 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
-All sources under ``csrc/`` are compiled by ONE ``nvcc`` call for ``sm_90a``
-into a shared library with a plain ``extern "C"`` interface, loaded with
-``ctypes``. Nothing includes PyTorch's headers, so the build takes seconds.
+Each source under ``csrc/`` is compiled for ``sm_90a`` by an ``nvcc`` process
+of its own, all started together, and one more ``nvcc`` call links the
+objects into a shared library with a plain ``extern "C"`` interface, loaded
+with ``ctypes``. Nothing includes PyTorch's headers, so the build takes
+seconds; its wall time is that of the slowest source.
 The library lands in ``_build/<hash>/libqspec_kernels.so``, keyed by a hash of
 the sources and flags, and is built at the first kernel launch of a process.
 
@@ -29,11 +31,11 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("w4a16.cu", "w4a16_g.cu", "w4a4.cu", "w8a16.cu", "rmsnorm.cu",
            "paged_attention.cu")
-# seconds the nvcc call may take before the build is abandoned (a hung
-# compiler would otherwise hang the first kernel launch)
+# seconds the build may take before it is abandoned (a hung compiler would
+# otherwise hang the first kernel launch)
 NVCC_TIMEOUT_S = 300
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,12 +48,12 @@ SIGNATURES = {
     "qspec_rmsnorm": (_P, _P, _P, _I, _I, _F, _P),
     "qspec_rmsnorm_quant": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "qspec_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _F, _I, _P),
+                              _I, _I, _I, _F, _F, _I, _P, _I, _P),
 }
 
 _lib = None
-# seconds the nvcc call took (0.0 when the library was already built) and
-# the per-kernel `-Xptxas -v` summary of that build
+# seconds the build took (0.0 when the library was already built), each
+# source's compile seconds and the per-kernel `-Xptxas -v` summary
 build_info: dict = {}
 
 
@@ -97,6 +99,33 @@ def library_path() -> Path:
     return BUILD_DIR / h.hexdigest()[:16] / "libqspec_kernels.so"
 
 
+def _run_all(cmds: dict, deadline: float) -> dict:
+    """Run the commands of ``cmds`` (name -> argv) together; name ->
+    (seconds, combined output). Raises on a failure or past ``deadline``
+    (time.perf_counter), killing what still runs."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, cmd in cmds.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            try:
+                log, _ = proc.communicate(timeout=max(deadline - time.perf_counter(), 0))
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s "
+                                   f"({name})") from e
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):\n{log}")
+            out[name] = (time.perf_counter() - t0, log)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def build() -> Path:
     """Compile the sources if this hash has no library yet; return its path."""
     path = library_path()
@@ -104,25 +133,24 @@ def build() -> Path:
         build_info.setdefault("seconds", 0.0)
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objs = {s: path.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES}
+    tmp = path.with_name(f"{path.name}.{tag}")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    deadline = t0 + NVCC_TIMEOUT_S
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        tmp.unlink(missing_ok=True)
-        out = "".join(x.decode() if isinstance(x, bytes) else (x or "")
-                      for x in (e.stderr, e.stdout))
-        raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s:\n{out}") from e
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                           f"\n{proc.stdout}")
-    os.replace(tmp, path)
-    build_info["seconds"] = seconds
-    build_info["ptxas"] = _ptxas_summary(proc.stderr + proc.stdout)
+        compiled = _run_all({s: [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                             for s, o in objs.items()}, deadline)
+        _run_all({"link": [nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *(str(o) for o in objs.values())]}, deadline)
+        os.replace(tmp, path)
+    finally:
+        for o in (*objs.values(), tmp):
+            o.unlink(missing_ok=True)
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["compile_seconds"] = {s: round(t, 2) for s, (t, _) in compiled.items()}
+    build_info["ptxas"] = _ptxas_summary("\n".join(log for _, log in compiled.values()))
     return path
 
 

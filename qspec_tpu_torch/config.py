@@ -206,7 +206,7 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpeculativeConfig:
-    """QSpec speculative decoding over shared weights."""
+    """Speculative decoding: QSpec over shared weights, or Medusa heads."""
 
     num_speculative_tokens: int = 3
     # draft scheme; verify is always w4a16. "w4a4" is the QSpec method;
@@ -218,13 +218,22 @@ class SpeculativeConfig:
     # disable speculation at or above this batch size
     disable_by_batch_size: Optional[int] = None
     # "qspec": shared-weights draft; "qspec_null": the same rounds with the
-    # proposals nulled, which emit exactly the greedy AR tokens (the oracle)
+    # proposals nulled, which emit exactly the greedy AR tokens (the oracle);
+    # "medusa": trained heads (params["medusa"], spec_decode/medusa.py) that
+    # read the verify pass's hidden state, no draft forward and no draft
+    # cache; "medusa_null": the Medusa rounds with the proposals nulled (its
+    # oracle)
     method: str = "qspec"
     # sliding-window cap on the shared-weights draft's attention (MagicDec):
     # the draft reads only the last `draft_kv_window` KV positions and keeps
     # its KV in a small per-sequence ring of pages; verification stays
     # full-context, so only acceptance depends on it. None = full context.
     draft_kv_window: Optional[int] = None
+    # Medusa candidate tree: a tuple of paths in Medusa-choices format, e.g.
+    # ((0,), (1,), (0, 0), ...) (spec_decode/medusa_tree.py, DEFAULT_TREE);
+    # each round verifies the whole tree in one pass under the tree mask and
+    # walks it. None: one top-1 chain of k proposals per round.
+    medusa_tree: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)

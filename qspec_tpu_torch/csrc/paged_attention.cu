@@ -1,11 +1,11 @@
 // Paged attention for Hopper: decode (Q=1), QSpec verify (Q=k+1), the draft's
-// Q=2 backfill step and chunked prefill, over the paged KV cache with bf16,
-// int8, fp8_e4m3 or fp8_e5m2 entries.
+// Q=2 backfill step, chunked prefill and the Medusa tree verify, over the
+// paged KV cache with bf16, int8, fp8_e4m3 or fp8_e5m2 entries.
 //
 // Replaces the TPU kernel qspec_tpu/ops/attention_pallas.py:_paged_attn_kernel
 // (entry paged_attention_pallas), its causal core, its sliding window, its
-// logit softcap, its 8-bit KV option and head dims 128 and 256 (a template
-// parameter): flash attention with an online softmax over the
+// logit softcap, its 8-bit KV option, its Medusa tree mask and head dims 128
+// and 256 (a template parameter): flash attention with an online softmax over the
 // sequence's live pages, GQA rows G = (Hq / Hkv) * Q per kv head (Q minor),
 // a causal mask by absolute position (query i of row b sits at
 // q_start[b] + i) and, under a window W, the mask q_pos - W < kv_pos <= q_pos.
@@ -62,11 +62,41 @@
 // recycled pages and a full pool walk the same tokens in the same order and
 // give the same bits; pages before the start, which in a ring hold newer
 // tokens of the same row, are never read.
+//
+// The Medusa tree mask (a template flag: the instantiations without it carry
+// no tree code at all), with the Pallas body's semantics: the rectangle is
+// [prefix rows | T tree rows]; prefix row i sits at q_start + i, the last of
+// them (row prefix-1) is the root, and tree node t is stored at slot
+// root + 1 + t. A tree row takes the root as its causal bound (and as the
+// reference point of the window) and also sees the slots of its ancestors and
+// itself: live = (kv <= q_eff && kv > q_eff - W) || anc[node] bit
+// (kv - root - 1), q_eff = root for tree rows. The ancestor sets are one
+// 64-bit word per node (bit j: node j is an ancestor of the node or the node
+// itself), built once per tree (ops/attention.py:tree_mask) and kept on the
+// device, so a tree has at most 64 nodes. Each lane holds its rows' words in registers; the
+// walk, the token split and the merge are those of the plain rows.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// the launch arguments of one call, as the entry point takes them
+struct AttnArgs {
+  const void* q;
+  const void* kv;
+  const void* kv_scales;
+  const void* block_tables;
+  const void* ctx_lens;
+  const void* q_start;
+  void* out;
+  int B, Q, Hq, Hkv, S, pages_per_seq;
+  float scale, softcap;
+  int window;
+  const void* tree_anc;
+  int tree_prefix;
+  cudaStream_t stream;
+};
 
 namespace {
 
@@ -100,8 +130,9 @@ __device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) { return static_cast<fl
 
 // T: the cache's entry type; kScaled: per-token scales (int8, fp8_e4m3);
 // kD: the head dim; kCap: the logit softcap (a template flag, so the
-// uncapped instantiations carry no branch in the score loop)
-template <typename T, bool kScaled, int kD, bool kCap>
+// uncapped instantiations carry no branch in the score loop); kTree: the
+// Medusa tree mask (tree_anc / tree_prefix are read only when it is set)
+template <typename T, bool kScaled, int kD, bool kCap, bool kTree>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const T* __restrict__ kv,
@@ -111,7 +142,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ q_start,
                        __nv_bfloat16* __restrict__ out, int Q, int Hq, int Hkv,
                        int S, int pages_per_seq, float scale, float softcap,
-                       int window) {
+                       int window, const unsigned long long* __restrict__ tree_anc,
+                       int tree_prefix) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
   constexpr int kLaneDims = kD / 32;    // P.V dims per lane: a float4 per 128 dims
@@ -165,10 +197,18 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tok = lane & 15;
   const int half = lane >> 4;
   int qpos[kRows / 2];
+  unsigned long long anc[kRows / 2];    // tree rows' ancestor words (kTree)
+  const int tree_base = qs + tree_prefix;   // slot of tree node 0 (root + 1)
 #pragma unroll
   for (int rr = 0; rr < kRows / 2; ++rr) {
     const int r = row0 + 2 * rr + half;
     qpos[rr] = r < G ? qs + r % Q : -1;   // -1: row never live
+    if (kTree) {
+      const int node = r % Q - tree_prefix;
+      const bool tree_row = r < G && node >= 0;
+      anc[rr] = tree_row ? __ldg(tree_anc + node) : 0ull;
+      if (tree_row) qpos[rr] = tree_base - 1;   // the root bounds a tree row
+    }
   }
   float m_run[kRows / 2], l_run[kRows / 2];
 #pragma unroll
@@ -230,7 +270,12 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       if (kScaled) s *= k_sc;
       if (kCap) s = tanhf(s * inv_cap) * softcap;
       const int kv_pos = t0 + tok;
-      const bool live = kv_pos <= qpos[rr] && kv_pos > qpos[rr] - window && kv_pos < ctx;
+      bool live = kv_pos <= qpos[rr] && kv_pos > qpos[rr] - window && kv_pos < ctx;
+      if (kTree) {
+        // node (kv_pos - root - 1)'s slot, when it is an ancestor or self
+        const unsigned t = static_cast<unsigned>(kv_pos - tree_base);
+        live = live || (t < 64u && ((anc[rr] >> t) & 1ull) && kv_pos < ctx);
+      }
       float cm = live ? s : kNegInf;
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
@@ -317,51 +362,61 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, bool kScaled, int kD, bool kCap>
-int launch(const void* q, const void* kv, const void* kv_scales,
-           const void* block_tables, const void* ctx_lens, const void* q_start,
-           void* out, int B, int Q, int Hq, int Hkv, int S, int pages_per_seq,
-           float scale, float softcap, int window, cudaStream_t stream) {
+template <typename T, bool kScaled, int kD, bool kCap, bool kTree>
+int launch(const AttnArgs& a) {
   const int smem = static_cast<int>(sizeof(Smem<kD>));   // above the 48 KB default
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, kScaled, kD, kCap>,
+        paged_attention_kernel<T, kScaled, kD, kCap, kTree>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
-  const int G = (Hq / Hkv) * Q;
-  dim3 grid((G + kRows - 1) / kRows, Hkv, B);
-  paged_attention_kernel<T, kScaled, kD, kCap><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(kv),
-      static_cast<const float*>(kv_scales), static_cast<const int*>(block_tables),
-      static_cast<const int*>(ctx_lens), static_cast<const int*>(q_start),
-      static_cast<__nv_bfloat16*>(out), Q, Hq, Hkv, S, pages_per_seq, scale,
-      softcap, window);
+  const int G = (a.Hq / a.Hkv) * a.Q;
+  dim3 grid((G + kRows - 1) / kRows, a.Hkv, a.B);
+  paged_attention_kernel<T, kScaled, kD, kCap, kTree><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.kv),
+      static_cast<const float*>(a.kv_scales), static_cast<const int*>(a.block_tables),
+      static_cast<const int*>(a.ctx_lens), static_cast<const int*>(a.q_start),
+      static_cast<__nv_bfloat16*>(a.out), a.Q, a.Hq, a.Hkv, a.S, a.pages_per_seq,
+      a.scale, a.softcap, a.window,
+      static_cast<const unsigned long long*>(a.tree_anc), a.tree_prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the (head dim, softcap) instantiations of one entry type
-template <typename T, bool kScaled>
-int launch_dim(int head_dim, const void* q, const void* kv, const void* kv_scales,
-               const void* block_tables, const void* ctx_lens, const void* q_start,
-               void* out, int B, int Q, int Hq, int Hkv, int S, int pages_per_seq,
-               float scale, float softcap, int window, cudaStream_t stream) {
-#define QSPEC_ATTN_LAUNCH(D, CAP)                                                    \
-  launch<T, kScaled, D, CAP>(q, kv, kv_scales, block_tables, ctx_lens, q_start, out, \
-                             B, Q, Hq, Hkv, S, pages_per_seq, scale, softcap, window, \
-                             stream)
-  const bool cap = softcap > 0.f;
+template <typename T, bool kScaled, bool kTree>
+int launch_dim(int head_dim, const AttnArgs& a) {
+  const bool cap = a.softcap > 0.f;
   switch (head_dim) {
     case 128:
-      return cap ? QSPEC_ATTN_LAUNCH(128, true) : QSPEC_ATTN_LAUNCH(128, false);
+      return cap ? launch<T, kScaled, 128, true, kTree>(a)
+                 : launch<T, kScaled, 128, false, kTree>(a);
     case 256:
-      return cap ? QSPEC_ATTN_LAUNCH(256, true) : QSPEC_ATTN_LAUNCH(256, false);
+      return cap ? launch<T, kScaled, 256, true, kTree>(a)
+                 : launch<T, kScaled, 256, false, kTree>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef QSPEC_ATTN_LAUNCH
+}
+
+// every instantiation with (kTree) or without the tree mask, by entry type:
+// 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
+template <bool kTree>
+int dispatch(int kv_dtype, int head_dim, const AttnArgs& a) {
+  switch (kv_dtype) {
+    case 0:
+      return launch_dim<__nv_bfloat16, false, kTree>(head_dim, a);
+    case 1:
+      return launch_dim<int8_t, true, kTree>(head_dim, a);
+    case 2:
+      return launch_dim<__nv_fp8_e4m3, true, kTree>(head_dim, a);
+    case 3:
+      return launch_dim<__nv_fp8_e5m2, false, kTree>(head_dim, a);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -372,7 +427,10 @@ int launch_dim(int head_dim, const void* q, const void* kv, const void* kv_scale
 // fp8_e4m3 (else unused); block_tables [B, pages_per_seq] int32; ctx_lens,
 // q_start [B] int32; out [B, Q, Hq, D] bf16; softcap > 0 caps the scores
 // (0: no cap); window >= 1 (1 << 30: no window). S % 16 == 0,
-// Hq % Hkv == 0.
+// Hq % Hkv == 0. tree_anc: null, or the Medusa tree's [T] ancestor words
+// (T <= 64, bit j of word t: node j is an ancestor of node t or t itself);
+// the rows with q index >= tree_prefix are then tree nodes, node t at slot
+// q_start + tree_prefix + t.
 extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      const void* kv_scales,
                                      const void* block_tables,
@@ -380,26 +438,11 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      void* out, int B, int Q, int Hq, int Hkv,
                                      int S, int pages_per_seq, int kv_dtype,
                                      int head_dim, float scale, float softcap,
-                                     int window, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kv_dtype) {
-    case 0:
-      return launch_dim<__nv_bfloat16, false>(head_dim, q, kv, kv_scales, block_tables,
-                                              ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
-                                              pages_per_seq, scale, softcap, window, st);
-    case 1:
-      return launch_dim<int8_t, true>(head_dim, q, kv, kv_scales, block_tables,
-                                      ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
-                                      pages_per_seq, scale, softcap, window, st);
-    case 2:
-      return launch_dim<__nv_fp8_e4m3, true>(head_dim, q, kv, kv_scales, block_tables,
-                                             ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
-                                             pages_per_seq, scale, softcap, window, st);
-    case 3:
-      return launch_dim<__nv_fp8_e5m2, false>(head_dim, q, kv, kv_scales, block_tables,
-                                              ctx_lens, q_start, out, B, Q, Hq, Hkv, S,
-                                              pages_per_seq, scale, softcap, window, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                     int window, const void* tree_anc,
+                                     int tree_prefix, void* stream) {
+  const AttnArgs a{q, kv, kv_scales, block_tables, ctx_lens, q_start, out,
+                   B, Q, Hq, Hkv, S, pages_per_seq, scale, softcap, window,
+                   tree_anc, tree_prefix, static_cast<cudaStream_t>(stream)};
+  if (tree_anc != nullptr) return dispatch<true>(kv_dtype, head_dim, a);
+  return dispatch<false>(kv_dtype, head_dim, a);
 }

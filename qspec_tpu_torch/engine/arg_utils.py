@@ -4,16 +4,20 @@ Port of ``qspec_tpu/engine/arg_utils.py`` for the flags the port serves; the
 names are the JAX package's. ``model`` names a preset ("tiny", "llama3-8b"
 or "gemma2-9b"): loading checkpoints is not ported yet. ``quantization``
 "qspec" is a QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one,
-the only kind a Gemma-2 is served as.
+the only kind a Gemma-2 is served as. ``speculative_model="[medusa]"``
+(heads in ``params["medusa"]``) or a heads ``.npz`` (loaded by the ``LLM``
+entry point) selects Medusa, ``spec_medusa_tree`` its candidate tree.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 from typing import Optional
 
 from qspec_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
                                     SchedulerConfig, SpeculativeConfig)
+from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE
 
 PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "gemma2-9b": ModelConfig.gemma2_9b,
            "tiny": ModelConfig.tiny}
@@ -43,8 +47,19 @@ class EngineArgs:
     spec_rounds_per_step: int = 1
     # MagicDec-style sliding window on the shared-weights draft KV reads
     spec_draft_kv_window: Optional[int] = None
-    # "qspec" or "qspec_null" (same rounds, proposals nulled: the AR oracle)
-    speculative_method: str = "qspec"
+    # "qspec" | "qspec_null" | "medusa" | "medusa_null" (the "_null" forms:
+    # the same rounds, proposals nulled: the AR oracle); None: "qspec", or
+    # what speculative_model names
+    speculative_method: Optional[str] = None
+    # the reference's --speculative-model: "[medusa]" selects Medusa heads
+    # (params must carry a "medusa" subtree), a path to an .npz of heads
+    # loads them (LLM); "[ngram]", "[eagle]", "[mlp_speculator]" are not
+    # ported and raise; None: QSpec's shared-weights draft
+    speculative_model: Optional[str] = None
+    # Medusa candidate tree: "default" (DEFAULT_TREE without the paths deeper
+    # than num_speculative_tokens) or a literal choices tuple such as
+    # "((0,),(1,),(0,0))"; None: the single top-1 chain
+    spec_medusa_tree: Optional[str] = None
     seed: int = 0
 
     def model_config(self) -> ModelConfig:
@@ -57,16 +72,47 @@ class EngineArgs:
         return PRESETS[self.model](quant=QUANT[self.quantization],
                                    lm_head_quant=self.lm_head_quant)
 
+    def spec_method(self) -> str:
+        """The speculative method: ``speculative_method`` where given (it
+        must agree with ``speculative_model``), else what
+        ``speculative_model`` names, else "qspec"."""
+        net = self.speculative_model
+        named = None
+        if net is not None:
+            if net.startswith("[") and net.endswith("]"):
+                named = net.strip("[]").lower()
+            elif net.endswith(".npz"):
+                named = "medusa"   # LLM checks that the file holds Medusa heads
+            else:
+                raise NotImplementedError(f"speculative_model {net!r}: a separate "
+                                          "draft checkpoint is not ported")
+        if self.speculative_method is None:
+            return named or "qspec"
+        if named is not None and self.speculative_method not in (named, f"{named}_null"):
+            raise ValueError(f"speculative_method={self.speculative_method!r} does "
+                             f"not go with speculative_model={net!r}")
+        return self.speculative_method
+
+    def medusa_tree(self) -> Optional[tuple]:
+        if not self.spec_medusa_tree:
+            return None
+        if self.spec_medusa_tree.strip().lower() == "default":
+            return tuple(p for p in DEFAULT_TREE if len(p) <= self.num_speculative_tokens)
+        return tuple(tuple(p) for p in ast.literal_eval(self.spec_medusa_tree))
+
     def create_engine_config(self) -> EngineConfig:
         spec = None
+        if self.speculative_model is not None and not self.num_speculative_tokens:
+            raise ValueError("speculative_model needs num_speculative_tokens")
         if self.num_speculative_tokens:
             spec = SpeculativeConfig(
                 num_speculative_tokens=self.num_speculative_tokens,
                 draft_scheme=self.speculative_draft_scheme,
                 disable_by_batch_size=self.speculative_disable_by_batch_size,
-                method=self.speculative_method,
+                method=self.spec_method(),
                 rounds_per_step=self.spec_rounds_per_step,
-                draft_kv_window=self.spec_draft_kv_window)
+                draft_kv_window=self.spec_draft_kv_window,
+                medusa_tree=self.medusa_tree())
         return EngineConfig(
             model=self.model_config(),
             cache=CacheConfig(page_size=self.block_size,

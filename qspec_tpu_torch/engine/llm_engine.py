@@ -4,7 +4,9 @@ Port of the prefill / decode / spec-round paths of
 ``qspec_tpu/engine/llm_engine.py``. ``speculative=None`` gives plain W4A16
 autoregressive continuous batching; a SpeculativeConfig turns every decode
 step into draft (w4a4, w4a8 or w4a16, optionally under a sliding window) +
-verify (w4a16) rounds over shared weights with per-phase KV caches. Requests
+verify (w4a16) rounds over shared weights with per-phase KV caches, or, with
+``method="medusa"``, into Medusa rounds (the heads ride the verify pass: no
+draft forward, no draft cache; a chain or a candidate tree). Requests
 are token ids: the port has no tokenizer, so stop strings and grammar-guided
 decoding are not ported and are rejected, as are the sampling knobs no
 sampler applies (repetition_penalty, a per-request seed).
@@ -40,13 +42,20 @@ class RequestOutput:
     logprobs: Optional[List[float]] = None
 
 
+SPEC_METHODS = ("qspec", "qspec_null", "medusa", "medusa_null")
+# Medusa's rounds: the heads propose, the "_null" form nulls the proposals
+MEDUSA_METHODS = ("medusa", "medusa_null")
+
+
 def _check_supported(config: EngineConfig) -> None:
     check_served(config.model)
     spec = config.speculative
     if spec is not None:
-        if spec.method not in ("qspec", "qspec_null"):
+        if spec.method not in SPEC_METHODS:
             raise NotImplementedError(f"speculative method {spec.method!r} is "
-                                      "not ported (qspec, qspec_null)")
+                                      f"not ported ({', '.join(SPEC_METHODS)})")
+        if spec.medusa_tree is not None and spec.method not in MEDUSA_METHODS:
+            raise ValueError("medusa_tree needs method='medusa' or 'medusa_null'")
         if spec.draft_scheme not in ("w4a4", "w4a8", "w4a16"):
             raise NotImplementedError(f"draft_scheme {spec.draft_scheme!r}")
     if config.scheduler.preemption_mode != "recompute":
@@ -63,10 +72,17 @@ class LLMEngine:
         self.spec = config.speculative
         lookahead = ((self.spec.num_speculative_tokens + 1)
                      * self.spec.rounds_per_step) if self.spec else 1
+        if self.spec is not None and self.spec.medusa_tree is not None:
+            # a tree round writes T node slots past the position and
+            # advances at most D + 1: the tables must reach the (T - D) more
+            lookahead += len(self.spec.medusa_tree) + 1
+        # Medusa proposes from the verify pass's hidden state: no draft cache
+        self._medusa = self.spec is not None and self.spec.method in MEDUSA_METHODS
+        self._draft_cache = self.spec is not None and not self._medusa
         if num_pages is None:
             num_pages = self._derive_num_pages()
         self.runner = ModelRunner(config, params, num_pages,
-                                  need_draft_cache=self.spec is not None,
+                                  need_draft_cache=self._draft_cache,
                                   device=self.device, seed=seed)
         self.block_manager = BlockManager(
             num_pages, config.cache.page_size,
@@ -95,7 +111,7 @@ class LLMEngine:
             dtype=cc.kv_cache_dtype))
         budget = free * cc.gpu_memory_utilization
         n_caches = 1
-        if self.spec is not None:
+        if self._draft_cache:
             ring = ring_pages(self.config)
             if ring:
                 # the windowed draft's small fixed ring pool
@@ -181,7 +197,7 @@ class LLMEngine:
     def _run_prefill(self, batch: ScheduledBatch) -> None:
         chunks = [(c.seq, c.start, c.end) for c in (batch.chunks or [batch.chunk])]
         logits = self.runner.run_prefill_chunks(chunks)
-        if self.spec is not None:
+        if self._draft_cache:
             # the draft keeps its own (draft-scheme) KV of the prompt
             self.runner.run_prefill_chunks(chunks, draft=True)
         # rows that completed a FRESH prompt sample their first token; a
@@ -245,11 +261,15 @@ class LLMEngine:
         per_call = (k + 1) * self.spec.rounds_per_step
         chain = 1 if mixed else self._chain_for(seqs, per_call)
         t0 = time.perf_counter()
-        # "qspec_null" runs the SAME rounds with nulled proposals: the
-        # bit-exact AR oracle of the model-draft path
-        tokens, accepted, lps = self.runner.run_spec_rounds(
-            seqs, st, num_rounds=self.spec.rounds_per_step, chain=chain,
-            enable=self.spec.method != "qspec_null")
+        # the "_null" methods run the SAME rounds with nulled proposals: the
+        # bit-exact AR oracle of their path
+        if self._medusa:
+            tokens, accepted, lps = self.runner.run_medusa_rounds(
+                seqs, st, enable=self.spec.method == "medusa", chain=chain)
+        else:
+            tokens, accepted, lps = self.runner.run_spec_rounds(
+                seqs, st, num_rounds=self.spec.rounds_per_step, chain=chain,
+                enable=self.spec.method != "qspec_null")
         dt = time.perf_counter() - t0
         for i, s in enumerate(seqs):
             # the emitted rectangle is -1-masked past each round's accepted

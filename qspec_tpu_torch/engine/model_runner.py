@@ -13,6 +13,15 @@ KV) attends only to the last ``window`` positions (MagicDec), and its KV
 lives in a small per-sequence ring of pages instead of a second full-size
 pool (see ``ModelRunner``).
 
+Medusa (``method="medusa"``) has no draft forward and no draft cache: each
+round's verify pass also returns the post-final-norm hidden state, and the
+heads (``params["medusa"]``) read it at the last accepted position to
+propose the next round's tokens (``medusa_rounds_step``); with
+``SpeculativeConfig.medusa_tree`` a round verifies a whole candidate tree in
+one rectangle under the tree mask and walks it
+(``medusa_tree_rounds_step``). The proposals and the tree's prefix tokens
+live in per-sequence rows of small device tensors (``ModelRunner``).
+
 All control flow inside a step (token advancement, accepted lengths, budgets)
 stays in tensors on the device, so a fused call reads nothing back until the
 caller asks for the tokens.
@@ -30,9 +39,12 @@ import torch
 from qspec_tpu_torch.config import EngineConfig
 from qspec_tpu_torch.models.llama import AttentionBatch, model_forward, resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
+from qspec_tpu_torch.ops.attention import TreeMask, tree_mask
 from qspec_tpu_torch.ops.sampling import (SamplingTensors, rejection_sample,
-                                          sample, sample_with_logprob,
-                                          sampling_probs)
+                                          rejection_sample_onehot, sample,
+                                          sample_with_logprob, sampling_probs)
+from qspec_tpu_torch.spec_decode.medusa import medusa_propose, medusa_propose_tree
+from qspec_tpu_torch.spec_decode.medusa_tree import TreeSpec, build_tree
 
 
 def _slot_of(block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -151,24 +163,38 @@ def draft_steps(params, cache, last_tokens, start_pos, block_tables, st, gen,
                        gen, cfg=cfg, scheme=scheme, k=k)
 
 
+def _repeat_rows(st: SamplingTensors, n: int) -> SamplingTensors:
+    """Each sequence's knobs for its n scored positions (the [B, V] mask and
+    bias are row-repeated by the sampler itself)."""
+    return st._replace(temperature=torch.repeat_interleave(st.temperature, n),
+                       top_k=torch.repeat_interleave(st.top_k, n),
+                       top_p=torch.repeat_interleave(st.top_p, n),
+                       min_p=torch.repeat_interleave(st.min_p, n))
+
+
 def _verify_impl(params, cache, last_tokens, draft_tokens, draft_probs, start_pos,
-                 block_tables, st, gen, *, cfg, scheme):
+                 block_tables, st, gen, *, cfg, scheme, return_hidden=False):
+    """Score [last, d_1..d_k] in one pass and rejection-sample. ``draft_probs``
+    None: deterministic proposals (Medusa), verified by the one-hot rule.
+    ``return_hidden``: ((result, hidden [B, k+1, H]), cache)."""
     B, k = draft_tokens.shape
     tokens = torch.cat([last_tokens[:, None], draft_tokens], dim=1)  # [B, k+1]
     positions = start_pos[:, None] + torch.arange(k + 1, device=start_pos.device)[None, :]
     slot = _slot_of(block_tables, positions, cache.page_size)
     batch = AttentionBatch(positions=positions, slot_mapping=slot,
                            block_tables=block_tables, ctx_lens=start_pos + k + 1)
-    logits, cache = model_forward(params, cfg, tokens, cache, batch, scheme=scheme)
+    out = model_forward(params, cfg, tokens, cache, batch, scheme=scheme,
+                        return_hidden=return_hidden)
+    logits, cache = out[0], out[-1]
     V = logits.shape[-1]
-    st_rep = st._replace(
-        temperature=torch.repeat_interleave(st.temperature, k + 1),
-        top_k=torch.repeat_interleave(st.top_k, k + 1),
-        top_p=torch.repeat_interleave(st.top_p, k + 1),
-        min_p=torch.repeat_interleave(st.min_p, k + 1))
-    target_probs = sampling_probs(logits.reshape(B * (k + 1), V), st_rep)
-    result = rejection_sample(draft_tokens, draft_probs,
-                              target_probs.reshape(B, k + 1, V), gen)
+    target_probs = sampling_probs(logits.reshape(B * (k + 1), V), _repeat_rows(st, k + 1))
+    target_probs = target_probs.reshape(B, k + 1, V)
+    if draft_probs is None:
+        result = rejection_sample_onehot(draft_tokens, target_probs, gen)
+    else:
+        result = rejection_sample(draft_tokens, draft_probs, target_probs, gen)
+    if return_hidden:
+        return (result, out[1]), cache
     return result, cache
 
 
@@ -242,6 +268,196 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
             (last, prev, pos, budget), draft_cache, cache)
 
 
+def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
+                       block_tables, max_new, enable: bool, st, gen, *, cfg, scheme,
+                       k, num_rounds=1):
+    """``num_rounds`` Medusa rounds (the single top-1 chain): each verifies
+    the k proposals of its sequence's row of ``props`` under the one-hot
+    rule, and the heads then read the verify pass's hidden state at the
+    last emitted token (index acc - 1: its head output is that token, so
+    head j proposes the token j + 1 past the next one) and write the next
+    round's proposals into the row. No draft forward runs.
+
+    ``props`` [rows, K] int32, updated in place: one row per sequence
+    (-1 = no proposal yet: the round then emits one AR token and seeds the
+    heads); ``prop_rows`` [B] the rows of the batch (padded lanes share a
+    scratch row). ``enable=False`` nulls every proposal: each round emits
+    exactly the AR token through the same computation (the oracle).
+
+    Returns (tokens [R, B, k+1] (-1 padded), accepted [R, B], logprobs
+    [R, B, k+1], (last, pos, budget), cache).
+    """
+    rows = prop_rows.to(torch.int64)
+    last, pos, budget = last_tokens, start_pos, max_new
+    out_t, out_a, out_l = [], [], []
+    slots = torch.arange(k + 1, device=last.device)[None, :]
+    for _ in range(num_rounds):
+        p_b = props[rows][:, :k]
+        if not enable:
+            p_b = torch.full_like(p_b, -1)
+        (result, hidden), cache = _verify_impl(params, cache, last, p_b, None, pos,
+                                               block_tables, st, gen, cfg=cfg,
+                                               scheme=scheme, return_hidden=True)
+        active = budget > 0
+        acc = torch.minimum(result.accepted_len, budget.clamp_min(0))
+        acc = torch.where(active, acc.clamp_min(1), torch.zeros_like(acc))
+        live = slots < acc[:, None]
+        toks = torch.where(live, result.tokens, torch.full_like(result.tokens, -1))
+        lps = torch.where(live, result.token_logprobs,
+                          torch.zeros_like(result.token_logprobs))
+        idx = (acc - 1).clamp_min(0).to(torch.int64)[:, None]
+        new_last = torch.where(active, result.tokens.gather(1, idx)[:, 0], last)
+        h_star = hidden.gather(1, idx[:, :, None].expand(-1, 1, hidden.shape[-1]))[:, 0]
+        new_p = medusa_propose(params["medusa"], h_star)              # [B, K]
+        props[rows] = torch.where(active[:, None], new_p, props[rows])
+        last, pos, budget = new_last, pos + acc, budget - acc
+        out_t.append(toks)
+        out_a.append(acc)
+        out_l.append(lps)
+    return (torch.stack(out_t), torch.stack(out_a), torch.stack(out_l),
+            (last, pos, budget), cache)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TreeTensors:
+    """A Medusa tree's static data on the runner's device, made once per
+    runner (:func:`tree_tensors`): the attention's mask (prefix = depth + 1
+    rows), each node's depth [T], and per depth level the level's nodes and
+    their parents + 1 (0 = the root), which the acceptance walk indexes."""
+    spec: TreeSpec
+    mask: TreeMask
+    depth: torch.Tensor
+    levels: tuple
+
+
+def tree_tensors(tspec: TreeSpec, device) -> TreeTensors:
+    levels = []
+    for d in range(1, tspec.max_depth + 1):
+        nodes = [i for i in range(tspec.num_nodes) if tspec.depth[i] == d]
+        levels.append((torch.tensor(nodes, device=device),
+                       torch.tensor([tspec.parent[i] + 1 for i in nodes], device=device)))
+    return TreeTensors(tspec, tree_mask(tspec.max_depth + 1, tspec.ancestors, device),
+                       torch.tensor(tspec.depth, device=device), tuple(levels))
+
+
+def _verify_tree_impl(params, cache, recent_tokens, tree_tokens, start_pos,
+                      block_tables, st, gen, *, cfg, scheme, tree: TreeTensors):
+    """One Medusa tree verify pass over the rectangle [prefix | tree].
+
+    ``recent_tokens`` [B, prefix]: the last committed tokens, the rightmost
+    at ``start_pos`` (the root). Scoring them again gives the root its
+    logits and rewrites their KV slots, which the previous round's accepted
+    tokens left holding tree-slot KV. Tree node i carries token
+    ``tree_tokens[:, i]`` at rope position start_pos + depth(i) and KV slot
+    start_pos + 1 + i; it attends the context up to the root and its
+    ancestors (the tree mask). Prefix rows before position 0 (a prompt
+    shorter than the prefix) write to the null page; their outputs are not
+    read.
+
+    Returns (sampled [B, 1+T], logprobs [B, 1+T], hidden [B, 1+T, H],
+    cache): the target's sample (greedy: argmax) at the root and at every
+    node, each distributed as the target given that node's path.
+    """
+    B, prefix = recent_tokens.shape
+    T = tree.spec.num_nodes
+    dev = start_pos.device
+    depth = tree.depth
+    tokens = torch.cat([recent_tokens, tree_tokens], dim=1)
+    prefix_pos = start_pos[:, None] - (prefix - 1) + torch.arange(prefix, device=dev)[None, :]
+    tree_slot = start_pos[:, None] + 1 + torch.arange(T, device=dev)[None, :]
+    positions = torch.cat([prefix_pos.clamp_min(0), start_pos[:, None] + depth[None]], 1)
+    slot_idx = torch.cat([prefix_pos.clamp_min(0), tree_slot], 1)
+    slot = _slot_of(block_tables, slot_idx, cache.page_size)
+    write = torch.cat([prefix_pos >= 0, torch.ones_like(tree_slot, dtype=torch.bool)], 1)
+    slot = torch.where(write, slot, torch.zeros_like(slot))
+    batch = AttentionBatch(positions=positions, slot_mapping=slot,
+                           block_tables=block_tables, ctx_lens=start_pos + 1 + T)
+    logits, hidden, cache = model_forward(params, cfg, tokens, cache, batch,
+                                          scheme=scheme, return_hidden=True,
+                                          tree=tree.mask)
+    n = T + 1
+    lg = logits[:, prefix - 1:]                                       # [B, 1+T, V]
+    samp, lp = sample_with_logprob(lg.reshape(B * n, lg.shape[-1]), _repeat_rows(st, n), gen)
+    return samp.reshape(B, n), lp.reshape(B, n), hidden[:, prefix - 1:], cache
+
+
+def medusa_tree_rounds_step(params, cache, props, recent_bank, prop_rows, start_pos,
+                            block_tables, max_new, enable: bool, st, gen, *, cfg,
+                            scheme, tree: TreeTensors, num_rounds=1):
+    """``num_rounds`` Medusa tree rounds. Each verifies its sequence's tree
+    of proposals (``props`` row, [T]) in one rectangle and walks it: from
+    the root, the target's sampled token either equals the proposal of a
+    child of the current node (the walk descends into the first such child
+    and emits the token) or ends the round as the bonus / recovery token.
+    The heads then read the hidden state at the last accepted node and
+    propose the next tree. Greedy output equals AR's; ``enable=False``
+    nulls the proposals, so each round emits exactly the root's sample (the
+    oracle). The walk is tensor operations over the static tree (no host
+    read inside a round).
+
+    ``props`` [rows, T] and ``recent_bank`` [rows, D+1] (each sequence's
+    last D+1 committed tokens, the verify prefix) are updated in place;
+    ``prop_rows`` [B] (padded lanes share a scratch row).
+
+    Returns (tokens [R, B, D+1] (-1 padded), accepted [R, B], logprobs,
+    (pos, budget), cache).
+    """
+    D = tree.spec.max_depth
+    prefix = recent_bank.shape[1]
+    rows = prop_rows.to(torch.int64)
+    pos, budget = start_pos, max_new
+    dev = pos.device
+    slots = torch.arange(D + 1, device=dev)[None, :]
+    roll = torch.arange(prefix, device=dev)[None, :]
+    out_t, out_a, out_l = [], [], []
+    for _ in range(num_rounds):
+        recent = recent_bank[rows]                                    # [B, prefix]
+        p_b = props[rows]                                             # [B, T]
+        if not enable:
+            p_b = torch.full_like(p_b, -1)
+        t_samp, t_lp, hid, cache = _verify_tree_impl(
+            params, cache, recent, p_b, pos, block_tables, st, gen, cfg=cfg,
+            scheme=scheme, tree=tree)
+        # the walk: cur = the last accepted node (0 = root, i + 1 = node i)
+        cur = torch.zeros_like(pos, dtype=torch.int64)
+        alive = torch.ones_like(pos, dtype=torch.bool)
+        e = t_samp[:, 0]
+        emitted, lps_l = [e], [t_lp[:, 0]]
+        acc = torch.ones_like(pos)
+        for nodes, parents in tree.levels:
+            cand = p_b[:, nodes]                                      # [B, n]
+            m = (alive[:, None] & (cur[:, None] == parents[None]) & (cand == e[:, None])
+                 & (cand >= 0))
+            alive = alive & m.any(dim=1)
+            cur = torch.where(alive, nodes[m.to(torch.int32).argmax(dim=1)] + 1, cur)
+            e_next = t_samp.gather(1, cur[:, None])[:, 0]
+            lp_next = t_lp.gather(1, cur[:, None])[:, 0]
+            e = torch.where(alive, e_next, e)
+            emitted.append(torch.where(alive, e_next, torch.full_like(e_next, -1)))
+            lps_l.append(torch.where(alive, lp_next, torch.zeros_like(lp_next)))
+            acc = acc + alive.to(acc.dtype)
+        active = budget > 0
+        acc = torch.minimum(acc, budget.clamp_min(0))
+        acc = torch.where(active, acc.clamp_min(1), torch.zeros_like(acc))
+        live = slots < acc[:, None]
+        toks = torch.where(live, torch.stack(emitted, 1), -1)
+        lps = torch.where(live, torch.stack(lps_l, 1), 0.0)
+        # roll the recent window forward by acc
+        combined = torch.cat([recent, toks.clamp_min(0).to(recent.dtype)], 1)
+        new_recent = combined.gather(1, acc.to(torch.int64)[:, None] + roll)
+        recent_bank[rows] = torch.where(active[:, None], new_recent, recent)
+        # the next tree from the hidden state at the last accepted node
+        h_star = hid.gather(1, cur[:, None, None].expand(-1, 1, hid.shape[-1]))[:, 0]
+        new_p = medusa_propose_tree(params["medusa"], h_star, tree.spec)
+        props[rows] = torch.where(active[:, None], new_p, p_b)
+        pos, budget = pos + acc, budget - acc
+        out_t.append(toks)
+        out_a.append(acc)
+        out_l.append(lps)
+    return (torch.stack(out_t), torch.stack(out_a), torch.stack(out_l), (pos, budget),
+            cache)
+
+
 # ---------------------------------------------------------------------------
 # runner
 # ---------------------------------------------------------------------------
@@ -287,6 +503,13 @@ class ModelRunner:
     row of R = :func:`ring_pages` pages, and the ring block table maps
     logical page lp -> 1 + row * R + lp % R, so the steps are unchanged: the
     indirection lives in the table. Page 0 stays the null page.
+
+    Medusa keeps its state in device tensors of one row per decode-batch
+    slot plus a scratch row that padded batch lanes read and write: the
+    proposals ``_mprops`` ([rows, K] for the chain, [rows, T] for a tree)
+    and, for a tree, ``_mrecent`` [rows, D+1], the verify prefix, written
+    from the host when a sequence takes a row or when its tokens moved on
+    without the rounds, and rolled forward on the device by the rounds.
     """
 
     def __init__(self, config: EngineConfig, params, num_pages: int,
@@ -297,7 +520,8 @@ class ModelRunner:
         self.device = resolve_device(device)
         page_size = config.cache.page_size
         spec = config.speculative
-        if (spec is not None and self.cfg.quant == "w4g"
+        self._medusa = spec is not None and spec.method in ("medusa", "medusa_null")
+        if (spec is not None and not self._medusa and self.cfg.quant == "w4g"
                 and spec.draft_scheme != "w4a16"):
             raise ValueError(
                 "AWQ/GPTQ (w4g) checkpoints have no QuaRot rotations, so the "
@@ -329,6 +553,36 @@ class ModelRunner:
         self.k = spec.num_speculative_tokens if spec else 1
         self.draft_scheme = spec.draft_scheme if spec else "w4a4"
         self.verify_scheme = "w4a16"
+        # verify passes run by run_medusa_rounds (each a forward of the target)
+        self.spec_rounds_run = 0
+        self._mprops = self._mtree = self._mrecent = None
+        self._mprop_slot: dict = {}
+        self._mrecent_synced: dict = {}
+        if self._medusa:
+            self._init_medusa(spec, params)
+
+    def _init_medusa(self, spec, params) -> None:
+        if "medusa" not in params:
+            raise ValueError(f"speculative.method={spec.method!r} but params carry no "
+                             "'medusa' net (load it with spec_decode.medusa.load_medusa)")
+        n_heads = int(params["medusa"]["head"].shape[0])
+        if self.k > n_heads:
+            raise ValueError(f"num_speculative_tokens={self.k} exceeds the {n_heads} "
+                             "trained proposer heads")
+        rows = max(self.config.scheduler.decode_batch_buckets) + 1   # + the scratch row
+        if spec.medusa_tree is None:
+            self._mprops = torch.full((rows, n_heads), -1, dtype=torch.int32,
+                                      device=self.device)
+            return
+        tspec = build_tree(spec.medusa_tree)
+        if tspec.max_depth > n_heads:
+            raise ValueError(f"medusa_tree depth {tspec.max_depth} exceeds the "
+                             f"{n_heads} trained proposer heads")
+        self._mtree = tree_tensors(tspec, self.device)
+        self._mprops = torch.full((rows, tspec.num_nodes), -1, dtype=torch.int32,
+                                  device=self.device)
+        self._mrecent = torch.zeros((rows, tspec.max_depth + 1), dtype=torch.int32,
+                                    device=self.device)
 
     # -- helpers ----------------------------------------------------------
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -467,6 +721,94 @@ class ModelRunner:
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()
         accs = torch.cat([p[1] for p in parts]).cpu().numpy()
         lps = torch.cat([p[2] for p in parts]).cpu().numpy()
+        return toks[:, :n], accs[:, :n], lps[:, :n]
+
+    # -- Medusa ------------------------------------------------------------
+    def _mprop_row_for(self, seq, live_ids) -> int:
+        """Assign (or reuse) a proposal row; a fresh row is reset to -1 (no
+        proposal: its first round emits one AR token and seeds the heads).
+        When every row is taken, a sequence outside the batch gives its row
+        up. The last row is the padded lanes' scratch row, never assigned."""
+        sid = seq.seq_id
+        if sid in self._mprop_slot:
+            return self._mprop_slot[sid]
+        used = set(self._mprop_slot.values())
+        row = next((r for r in range(self._mprops.shape[0] - 1) if r not in used), None)
+        if row is None:
+            victim = next(s for s in self._mprop_slot if s not in live_ids)
+            row = self._mprop_slot.pop(victim)
+            self._mrecent_synced.pop(victim, None)
+        self._mprop_slot[sid] = row
+        self._mprops[row] = -1
+        return row
+
+    def _sync_recent(self, seqs, prop_rows) -> None:
+        """Write each sequence's last D+1 tokens (left-padded with its first)
+        into its row of the verify-prefix bank, unless the rounds already
+        rolled that row to the sequence's current length."""
+        W = self._mrecent.shape[1]
+        rows, vals = [], []
+        for i, s in enumerate(seqs):
+            if self._mrecent_synced.get(s.seq_id) != (prop_rows[i], s.num_tokens):
+                tail = s.token_ids[-W:]
+                rows.append(prop_rows[i])
+                vals.append([tail[0]] * (W - len(tail)) + list(tail))
+        if rows:
+            self._mrecent[self._t(rows, torch.int64)] = self._t(vals)
+
+    def run_medusa_rounds(self, seqs, sampling: SamplingTensors, enable: bool = True,
+                          chain: int = 1):
+        """``rounds_per_step`` Medusa rounds (the chain, or the tree under
+        ``medusa_tree``) per call, ``chain`` calls back to back on
+        device-resident state. ``enable=False``: the same rounds with the
+        proposals nulled (the AR oracle). Returns numpy (tokens
+        [chain*R, n, width] (-1 padded), accepted [chain*R, n], logprobs)."""
+        B = self._bucket_batch(len(seqs))
+        live_ids = {s.seq_id for s in seqs}
+        last = np.zeros(B, np.int32)
+        pos = np.zeros(B, np.int32)
+        max_new = np.zeros(B, np.int32)
+        # padded lanes take the scratch row: in range, and never a live row
+        prop_rows = np.full(B, self._mprops.shape[0] - 1, np.int64)
+        tables = [[] for _ in range(B)]
+        for i, s in enumerate(seqs):
+            last[i] = s.last_token()
+            pos[i] = s.num_tokens - 1
+            max_new[i] = max(s.sampling_params.max_tokens - len(s.output_token_ids), 0)
+            tables[i] = s.page_ids
+            prop_rows[i] = self._mprop_row_for(s, live_ids)
+        st = self.sampling_tensors(sampling, len(seqs), B)
+        rows_d = self._t(prop_rows, torch.int64)
+        tables_d = self._pad_block_tables(tables)
+        pos_d, budget_d = self._t(pos), self._t(max_new)
+        rounds = self.config.speculative.rounds_per_step
+        if self._mtree is not None:
+            self._sync_recent(seqs, prop_rows)
+        else:
+            last_d = self._t(last)
+        parts = []
+        for _ in range(max(1, chain)):
+            if self._mtree is not None:
+                toks, accs, lps, (pos_d, budget_d), _ = medusa_tree_rounds_step(
+                    self.params, self.cache, self._mprops, self._mrecent, rows_d, pos_d,
+                    tables_d, budget_d, enable, st, self.gen, cfg=self.cfg,
+                    scheme=self.verify_scheme, tree=self._mtree, num_rounds=rounds)
+            else:
+                toks, accs, lps, (last_d, pos_d, budget_d), _ = medusa_rounds_step(
+                    self.params, self.cache, self._mprops, rows_d, last_d, pos_d,
+                    tables_d, budget_d, enable, st, self.gen, cfg=self.cfg,
+                    scheme=self.verify_scheme, k=self.k, num_rounds=rounds)
+            parts.append((toks, accs, lps))
+        n = len(seqs)
+        toks = torch.cat([p[0] for p in parts]).cpu().numpy()
+        accs = torch.cat([p[1] for p in parts]).cpu().numpy()
+        lps = torch.cat([p[2] for p in parts]).cpu().numpy()
+        self.spec_rounds_run += toks.shape[0]
+        if self._mtree is not None:
+            for i, s in enumerate(seqs):
+                # the rounds rolled this row to the length the tokens give
+                self._mrecent_synced[s.seq_id] = (prop_rows[i],
+                                                  s.num_tokens + int(accs[:, i].sum()))
         return toks[:, :n], accs[:, :n], lps[:, :n]
 
     # -- ring-buffer draft KV (windowed shared-weights draft) --------------

@@ -14,6 +14,15 @@ GPTQ checkpoint, drafted by its own weights at W4A16:
     llm = LLM(model="gemma2-9b", quantization="awq", num_speculative_tokens=3,
               speculative_draft_scheme="w4a16", spec_draft_kv_window=64)
 
+Medusa heads serve through the same entry point, from ``params["medusa"]``
+or from an .npz of trained heads:
+
+    llm = LLM(model="llama3-8b", params={**params, "medusa": heads},
+              num_speculative_tokens=4, speculative_model="[medusa]",
+              spec_medusa_tree="default")
+    llm = LLM(model="tiny", num_speculative_tokens=4,
+              speculative_model="heads.npz")
+
 Without ``params`` the weights are random, made on the device from ``seed``
 (``models.llama.init_params``).
 """
@@ -22,10 +31,13 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Union
 
+import numpy as np
+
 from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
-from qspec_tpu_torch.models.llama import init_params
+from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
+from qspec_tpu_torch.spec_decode.medusa import load_medusa
 
 
 class LLM:
@@ -36,6 +48,14 @@ class LLM:
         self.engine_config = args.create_engine_config()
         if params is None:
             params = init_params(self.engine_config.model, seed=seed, device=device)
+        net = args.speculative_model
+        if net is not None and net.endswith(".npz"):
+            # a proposer net saved as arrays: Medusa heads carry w1 / b1 / head
+            with np.load(net) as z:
+                if "w1" not in z.files:
+                    raise NotImplementedError(f"speculative_model {net!r}: only Medusa "
+                                              "heads (w1 / b1 / head) are ported")
+            params = {**params, "medusa": load_medusa(net, device=resolve_device(device))}
         self.llm_engine = LLMEngine(self.engine_config, params,
                                     eos_token_id=eos_token_id, device=device,
                                     seed=seed)

@@ -158,10 +158,12 @@ def check_served(cfg: ModelConfig) -> None:
 
 
 def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
-                  batch: AttentionBatch, rope_cache, hadamards, scheme: str):
+                  batch: AttentionBatch, rope_cache, hadamards, scheme: str,
+                  tree=None):
     """One decoder layer. x: [T, hidden] bf16; ``layers`` is the
     layer-stacked param dict and ``li`` selects both the weight layer and
-    the KV-cache layer. Returns (x_out, cache); the cache is written in
+    the KV-cache layer; ``tree``: the Medusa tree mask of the attention
+    (ops/attention.py). Returns (x_out, cache); the cache is written in
     place."""
     B, Q = batch.positions.shape
     T = B * Q
@@ -186,7 +188,7 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
                            cache, li, batch.block_tables, batch.ctx_lens,
                            (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
                            q_positions=batch.positions, window=layer_window(cfg, li),
-                           softcap=cfg.attn_logit_softcap)
+                           softcap=cfg.attn_logit_softcap, tree=tree)
     attn = attn.reshape(T, cfg.num_heads, cfg.head_dim)
     if quarot:
         attn = _head_hadamard(attn, hadamards["heads"])
@@ -218,12 +220,17 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
 def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
                   cache: kvc.PagedKVCache, batch: AttentionBatch, *,
                   scheme: str = "w4a16",
-                  logits_indices: Optional[torch.Tensor] = None):
+                  logits_indices: Optional[torch.Tensor] = None,
+                  return_hidden: bool = False, tree=None):
     """Full forward. token_ids: [B, Q] -> (logits [B, Q, V] f32, cache).
 
     ``logits_indices`` [B]: compute logits only at one query index per row
     (prefill needs only the last prompt position); the output is then
-    [B, 1, V].
+    [B, 1, V]. ``return_hidden``: (logits, hidden [B, Q, H], cache), the
+    post-final-norm hidden state beside the logits (a QuaRot checkpoint's
+    stays in the rotated basis; the Medusa heads read it). ``tree``: an
+    ops.attention.TreeMask; every layer's attention runs under the Medusa
+    tree mask (the tree-verify rectangle).
     """
     if scheme not in SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {SCHEMES}")
@@ -241,7 +248,7 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     for li in range(cfg.num_layers):
         x, cache = decoder_layer(x, params["layers"], cache, li, cfg, batch,
                                  params["rope_cache"], params.get("hadamards"),
-                                 scheme)
+                                 scheme, tree)
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q
         x = x[flat]
@@ -252,6 +259,8 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
+    if return_hidden:
+        return logits.reshape(B, Q, -1), x.reshape(B, Q, -1), cache
     return logits.reshape(B, Q, -1), cache
 
 
@@ -401,7 +410,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     ``np.asarray``) over to the port: ``init_params`` of a QuaRot model, or
     ``load_awq`` / ``load_gptq`` of a w4g one. Packed int4 (plain or
     grouped, with its scales and offsets), the gammas and the int8 head stay
-    as they are: the kernels read the interchange layouts directly."""
+    as they are: the kernels read the interchange layouts directly. A
+    ``"medusa"`` subtree (``spec_decode/medusa.py``'s heads) comes along."""
     _head_kind(cfg)
     dev = resolve_device(device)
     keys = ("qw", "qs") if cfg.quant == "w4" else ("qw", "qs_g", "qo_g")
@@ -422,4 +432,6 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
         for name in norms:
             layers[name] = _tensor(tree["layers"][name], dev)
         params["final_norm"] = _tensor(tree["final_norm"], dev)
+    if "medusa" in tree:
+        params["medusa"] = {k: _tensor(v, dev) for k, v in tree["medusa"].items()}
     return params

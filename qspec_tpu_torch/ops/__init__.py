@@ -8,8 +8,9 @@ def kernel_wrappers() -> dict:
     counter per instantiation (KV entry type): ``paged_attention`` for the
     bf16 cache, ``paged_attention_<kv dtype>`` for the 8-bit ones; each of
     those also counts its launches under a sliding window in
-    ``window_launches``, with a logit softcap in ``softcap_launches`` and of
-    its head-dim-256 instantiation in ``d256_launches``."""
+    ``window_launches``, with a logit softcap in ``softcap_launches``, of
+    its head-dim-256 instantiation in ``d256_launches`` and under a Medusa
+    tree mask in ``tree_launches``."""
     import torch
     from qspec_tpu_torch.ops.attention_cuda import LAUNCHES
     from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,

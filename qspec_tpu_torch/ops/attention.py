@@ -1,35 +1,111 @@
 """Attention over the paged KV cache.
 
 Port of ``qspec_tpu/ops/attention.py`` (causal, optionally under a sliding
-window and with Gemma-2's logit softcap; bf16, int8, fp8_e4m3 and fp8_e5m2
-caches). One chunked formulation
+window and with Gemma-2's logit softcap, or under the Medusa tree mask;
+bf16, int8, fp8_e4m3 and fp8_e5m2 caches). One chunked formulation
 serves every phase:
 
 * decode:  Q = 1 new token per sequence;
 * verify:  Q = k + 1 speculative positions per sequence, scored in one pass;
-* the draft's Q = 2 backfill step and chunked prefill.
+* the draft's Q = 2 backfill step and chunked prefill;
+* the Medusa tree verify: [prefix | T tree nodes] in one rectangle.
 
 ``paged_attention_ref`` is the plain version (gather the pages, dequantized
 to bf16 when the cache is 8-bit, dense masked softmax in f32);
 ``paged_attention`` dispatches CUDA tensors to the kernel
 (``attention_cuda.py``), which reads 8-bit pages and their scales as they
-are. The JAX package's other options (ALiBi, the Medusa tree mask) are not
-ported yet and raise.
+are. ALiBi is not ported yet and raises.
+
+Under the tree mask with a window, the window bounds a tree row relative to
+the root, as the JAX package's Pallas kernel does; its plain version
+ignores the window in tree mode. The port's two versions follow the kernel.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
 from qspec_tpu_torch.ops.kv_cache import PagedKVCache, gather_layer
 
 NEG_INF = -1e30
+# the most tree nodes the attention kernel takes: one 64-bit ancestor word per node
+MAX_TREE_NODES = 64
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TreeMask:
+    """A Medusa tree-verify rectangle's mask on one device: rows
+    0..prefix-1 are ordinary queries ending at the root (row prefix-1), the
+    next T rows the tree's nodes, node t at slot root + 1 + t.
+    ``ancestors`` [T, T] bool (ancestors[t, j]: node j is an ancestor of
+    node t or t itself; the plain version reads it); ``words`` [T] int64,
+    bit j of word t = ancestors[t, j] (the kernel reads them), None past
+    MAX_TREE_NODES. Made once per tree by :func:`tree_mask`."""
+    prefix: int
+    ancestors: torch.Tensor
+    words: Optional[torch.Tensor]
+
+
+def tree_mask(prefix: int, ancestors, device) -> TreeMask:
+    """The TreeMask of a TreeSpec's static ``ancestors`` [T, T] bools under
+    ``prefix`` rows, on ``device``. A CUDA device takes at most
+    MAX_TREE_NODES nodes (the kernel's bound)."""
+    rows = [[bool(x) for x in row] for row in ancestors]
+    T = len(rows)
+    if torch.device(device).type == "cuda" and not 0 < T <= MAX_TREE_NODES:
+        raise ValueError(f"paged attention: a tree of 1..{MAX_TREE_NODES} nodes on CUDA "
+                         f"(one 64-bit ancestor word per node), got {T}")
+    words = None
+    if T <= MAX_TREE_NODES:
+        vals = [sum(1 << j for j, bit in enumerate(row) if bit) for row in rows]
+        words = torch.tensor([w - (1 << 64) if w >= 1 << 63 else w for w in vals],
+                             dtype=torch.int64, device=device)   # as int64
+    return TreeMask(prefix, torch.tensor(rows, dtype=torch.bool, device=device), words)
+
+
+def tree_slot_mask(prefix: int, num_q: int, q_start: torch.Tensor, ancestors,
+                   C: int, window: int = None) -> torch.Tensor:
+    """[B, num_q, C] live mask of a tree-verify rectangle, in slot space
+    (``qspec_tpu/ops/attention.py:tree_slot_mask``).
+
+    Queries 0..prefix-1 are consecutive positions ending at the root
+    (query prefix-1); queries prefix..num_q-1 are tree nodes stored at
+    slots root + 1 + node. A tree query attends every slot up to the root
+    plus its ancestors' and its own slots. q_start [B]: the slot of query 0
+    (root - prefix + 1). ancestors: [T, T] bools (a tensor or nested
+    sequences), ancestors[i][j] = node j is an ancestor of node i or i
+    itself. ``window``: the causal part of a row at bound p keeps only
+    (p - window, p], p = the root for tree rows (the Pallas kernel's rule);
+    the ancestor slots stay live.
+    """
+    dev = q_start.device
+    T = num_q - prefix
+    anc = torch.as_tensor(ancestors, dtype=torch.bool, device=dev).reshape(T, T)
+    kv = torch.arange(C, device=dev)[None, None, :]                  # [1, 1, C]
+    rows = torch.arange(num_q, device=dev)[None, :, None]            # [1, Q, 1]
+    qs = q_start.to(torch.int64)[:, None, None]                       # [B, 1, 1]
+    root = qs + prefix - 1
+    bound = torch.where(rows < prefix, qs + rows, root)               # [B, Q, 1]
+    live = kv <= bound
+    if window is not None:
+        live = live & (kv > bound - window)
+    node = (rows[0, :, 0] - prefix).clamp(0, T - 1)                  # [Q]
+    kv_node = (kv - root - 1)[:, 0]                                   # [B, C]
+    in_tree = (kv_node >= 0) & (kv_node < T)
+    # row q's bit for the node stored at each slot: [B, Q, C]
+    tree_live = anc[node][:, kv_node.clamp(0, T - 1)].permute(1, 0, 2)
+    tree_live = tree_live & in_tree[:, None] & (rows >= prefix)
+    return live | tree_live
 
 
 def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
                         block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                         scale: float, q_positions: torch.Tensor = None,
-                        window: int = None, softcap: float = None) -> torch.Tensor:
+                        window: int = None, softcap: float = None,
+                        tree=None) -> torch.Tensor:
     """q: [B, Q, Hq, D]; ctx_lens[b] counts tokens *including* the new ones.
 
     ``q_positions`` [B, Q] gives each query's absolute position; query i
@@ -38,7 +114,9 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     position p to the kv positions in (p - window, p] (Mistral's sliding
     window, the windowed draft). ``softcap``: the f32 scores become
     softcap * tanh(score / softcap) after the scale and before the mask
-    (Gemma-2's attention-logit cap).
+    (Gemma-2's attention-logit cap). ``tree``: a :class:`TreeMask`, the
+    Medusa tree-verify mask of :func:`tree_slot_mask`, its root at
+    ``q_positions[:, tree.prefix - 1]``.
     """
     B, Q, Hq, D = q.shape
     if q_positions is None:
@@ -52,9 +130,13 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
         scores = torch.tanh(scores / softcap) * softcap
     C = k.shape[2]
     kv_pos = torch.arange(C, device=q.device)[None, :]
-    mask = kv_pos[None] <= q_positions[:, :, None]             # [B, Q, C]
-    if window is not None:
-        mask = mask & (kv_pos[None] > q_positions[:, :, None] - window)
+    if tree is not None:
+        q_start = q_positions[:, tree.prefix - 1] - (tree.prefix - 1)
+        mask = tree_slot_mask(tree.prefix, Q, q_start, tree.ancestors, C, window)
+    else:
+        mask = kv_pos[None] <= q_positions[:, :, None]         # [B, Q, C]
+        if window is not None:
+            mask = mask & (kv_pos[None] > q_positions[:, :, None] - window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
@@ -68,8 +150,8 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
                     window=None, softcap=None, alibi=None,
                     tree=None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version on the CPU."""
-    if alibi is not None or tree is not None:
-        raise NotImplementedError("ALiBi and the tree mask are not ported yet")
+    if alibi is not None:
+        raise NotImplementedError("ALiBi is not ported yet")
     head_dim = q.shape[-1]
     cache_dim = cache.kv_pages.shape[-1]
     if cache_dim != head_dim:
@@ -81,9 +163,9 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
         out = paged_attention_cuda(q, cache.kv_pages, block_tables, ctx_lens,
                                    scale, q_positions=q_positions, layer=layer,
                                    kv_scales=cache.kv_scales, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, tree=tree)
     else:
         out = paged_attention_ref(q, cache, layer, block_tables, ctx_lens,
                                   scale, q_positions=q_positions, window=window,
-                                  softcap=softcap)
+                                  softcap=softcap, tree=tree)
     return out[..., :head_dim] if cache_dim != head_dim else out

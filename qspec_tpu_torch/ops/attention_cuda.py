@@ -1,8 +1,8 @@
 """Wrapper of the paged-attention CUDA kernel (``csrc/paged_attention.cu``).
 
 Counterpart of ``qspec_tpu/ops/attention_pallas.py:paged_attention_pallas``
-(causal core, sliding window and logit softcap; head dims 128 and 256; bf16,
-int8, fp8_e4m3 and fp8_e5m2 caches).
+(causal core, sliding window, logit softcap and the Medusa tree mask; head
+dims 128 and 256; bf16, int8, fp8_e4m3 and fp8_e5m2 caches).
 The plain version it is held against is ``ops/attention.py:paged_attention_ref``.
 """
 
@@ -13,6 +13,7 @@ from types import SimpleNamespace
 import torch
 
 from qspec_tpu_torch import _build
+from qspec_tpu_torch.ops.attention import MAX_TREE_NODES
 
 # entry type -> the kernel's instantiation code (csrc/paged_attention.cu)
 KV_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
@@ -24,10 +25,12 @@ HEAD_DIMS = (128, 256)
 # entry type -> the launch counts of its instantiations: ``launches`` is
 # raised by one at each launch of that entry type (ops.kernel_wrappers names
 # each); ``window_launches`` also at each launch under a window,
-# ``softcap_launches`` at each launch with a logit softcap and
-# ``d256_launches`` at each launch of the head-dim-256 instantiation
+# ``softcap_launches`` at each launch with a logit softcap,
+# ``d256_launches`` at each launch of the head-dim-256 instantiation and
+# ``tree_launches`` at each launch under a Medusa tree mask
 LAUNCHES = {dtype: SimpleNamespace(launches=0, window_launches=0,
-                                   softcap_launches=0, d256_launches=0)
+                                   softcap_launches=0, d256_launches=0,
+                                   tree_launches=0)
             for dtype in KV_CODES}
 # the sliding-window sentinel (qspec_tpu/ops/attention_pallas.py NO_WINDOW):
 # far past any position, so the window never masks and the walk starts at 0
@@ -38,17 +41,24 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                          block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                          scale: float, q_positions: torch.Tensor = None,
                          layer: int = 0, kv_scales: torch.Tensor = None,
-                         window: int = None, softcap: float = None) -> torch.Tensor:
+                         window: int = None, softcap: float = None,
+                         tree=None) -> torch.Tensor:
     """q: [B, Q, Hq, D] bf16, D 128 or 256; kv_pages: the whole stacked cache
     [L, P, 2, Hkv, S, D] of bf16, int8, fp8_e4m3 or fp8_e5m2 entries
     (layer ``layer`` is read in place); kv_scales [L, P, 2, Hkv, S] f32 for
     int8 and fp8_e4m3, else None; block_tables [B, PPS]; ctx_lens [B].
     ``q_positions`` [B, Q] must be consecutive per row; only column 0 is
-    read (else the queries are the last Q positions). ``window``: a query at
+    read (else the queries are the last Q positions; under ``tree`` only
+    column prefix - 1). ``window``: a query at
     position p sees the kv positions in (p - window, p]; the pages before a
     row's first in-window position are not read. ``softcap``: the scores
     become softcap * tanh(score / softcap) before the mask (Gemma-2's
-    attn_logit_softcapping). Returns [B, Q, Hq, D] bf16."""
+    attn_logit_softcapping). ``tree``: an ops.attention.TreeMask on q's
+    device, the Medusa tree verify rectangle (ops/attention.tree_slot_mask):
+    row prefix-1 is the root, at q_positions[:, prefix - 1]; rows past it
+    are the T <= 64 tree nodes, node t at slot root + 1 + t, each
+    seeing the context up to the root (under the window, relative to the
+    root) and its ancestors' and its own slots. Returns [B, Q, Hq, D] bf16."""
     _build.require(q.is_cuda, "paged_attention_cuda: CUDA tensors")
     B, Q, Hq, D = q.shape
     L, P, two, Hkv, S, D2 = kv_pages.shape
@@ -75,7 +85,22 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
     ctx = ctx_lens.to(torch.int32).contiguous()
     _build.require(tuple(tables.shape[:1]) == (B,) and tuple(ctx.shape) == (B,),
                    "paged_attention_cuda: block_tables [B, PPS], ctx_lens [B]")
-    if q_positions is None:
+    anc_ptr, prefix = None, 0
+    if tree is not None:
+        prefix = tree.prefix
+        _build.require(tree.words is not None,
+                       f"paged_attention_cuda: a tree of at most {MAX_TREE_NODES} nodes "
+                       "(one 64-bit ancestor word per node)")
+        _build.require(q_positions is not None and 1 <= prefix
+                       and prefix + tree.words.shape[0] == Q,
+                       "paged_attention_cuda: a tree rectangle of prefix + T rows "
+                       "with q_positions")
+        _build.cuda_args_ok(q, tree.words)
+        anc_ptr = tree.words.data_ptr()
+        # row 0's slot: the root's position less the prefix rows before it
+        # (negative for phantom rows of a short prompt, which see nothing)
+        q_start = (q_positions[:, prefix - 1].to(torch.int32) - (prefix - 1)).contiguous()
+    elif q_positions is None:
         q_start = (ctx - Q).contiguous()
     else:
         q_start = q_positions[:, 0].to(torch.int32).contiguous()
@@ -93,10 +118,11 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
         q.data_ptr(), kv_layer.data_ptr(), sc_ptr, tables.data_ptr(),
         ctx.data_ptr(), q_start.data_ptr(), out.data_ptr(), B, Q, Hq, Hkv, S,
         tables.shape[1], KV_CODES[kv_pages.dtype], D, float(scale), cap, win,
-        _build.stream_of(q)))
+        anc_ptr, prefix, _build.stream_of(q)))
     count = LAUNCHES[kv_pages.dtype]
     count.launches += 1
     count.window_launches += window is not None
     count.softcap_launches += softcap is not None
     count.d256_launches += D == 256
+    count.tree_launches += tree is not None
     return out

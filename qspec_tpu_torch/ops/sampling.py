@@ -184,3 +184,51 @@ def rejection_sample(draft_tokens: torch.Tensor, draft_probs: torch.Tensor,
                        torch.zeros_like(p_at_out))
     return RejectionResult(out.to(torch.int32), (n_acc + 1).to(torch.int32),
                            n_acc.to(torch.int32), logp.to(torch.float32))
+
+
+def rejection_sample_onehot(draft_tokens: torch.Tensor, target_probs: torch.Tensor,
+                            gen: Optional[torch.Generator] = None,
+                            uniforms: Optional[torch.Tensor] = None) -> RejectionResult:
+    """:func:`rejection_sample` for deterministic proposals (the draft's q_i
+    is the one-hot at d_i: the Medusa chain), without a [B, k, V] draft
+    distribution. With q = delta(d_i) the lossless rule becomes: accept d_i
+    with probability p_i(d_i); at the first rejection sample the recovery
+    from p_i with entry d_i zeroed; if all k are accepted, the bonus from
+    p_k. A -1 slot carries no proposal: it is never accepted and masks
+    nothing. ``uniforms`` [B, k] replaces the accept draws (tests inject
+    them). Port of ``qspec_tpu/ops/sampling.py:rejection_sample_onehot``.
+    """
+    B, k = draft_tokens.shape
+    dev = target_probs.device
+    V = target_probs.shape[-1]
+    d = draft_tokens.to(torch.int64)
+    p_at_d = target_probs[:, :k].gather(-1, d.clamp_min(0)[..., None])[..., 0]
+    u = uniforms if uniforms is not None else torch.rand(
+        (B, k), generator=gen, device=dev)
+    accept = (u < p_at_d) & (d >= 0)
+
+    rejected = ~accept
+    any_rej = rejected.any(dim=1)
+    first_rej = rejected.to(torch.int32).argmax(dim=1)
+    n_acc = torch.where(any_rej, first_rej, torch.full_like(first_rej, k))
+
+    pos = n_acc.clamp(max=k - 1).to(torch.int64)
+    p_rej = target_probs.gather(1, pos[:, None, None].expand(B, 1, V))[:, 0]
+    d_rej = d.gather(1, pos[:, None])                                # [B, 1]
+    mask_d = (torch.arange(V, device=dev)[None, :] == d_rej) & (d_rej >= 0)
+    resid = torch.where(mask_d, torch.zeros_like(p_rej), p_rej)
+    resid = torch.where(resid.sum(dim=-1, keepdim=True) > 1e-9, resid, p_rej)
+    recovery = torch.multinomial(resid, 1, generator=gen)[:, 0]
+    bonus = torch.multinomial(target_probs[:, k], 1, generator=gen)[:, 0]
+
+    final_tok = torch.where(n_acc == k, bonus, recovery)
+    slots = torch.arange(k + 1, device=dev)[None, :]
+    padded = torch.cat([d, torch.full((B, 1), -1, dtype=torch.int64, device=dev)], 1)
+    n_acc64 = n_acc.to(torch.int64)[:, None]
+    out = torch.where(slots < n_acc64, padded, torch.full_like(padded, -1))
+    out = torch.where(slots == n_acc64, final_tok[:, None], out)
+    p_at_out = target_probs.gather(-1, out.clamp_min(0)[..., None])[..., 0]
+    logp = torch.where(out >= 0, torch.log(p_at_out.clamp_min(1e-30)),
+                       torch.zeros_like(p_at_out))
+    return RejectionResult(out.to(torch.int32), (n_acc + 1).to(torch.int32),
+                           n_acc.to(torch.int32), logp.to(torch.float32))

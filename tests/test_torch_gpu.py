@@ -21,7 +21,7 @@ from qspec_tpu_torch.model_loader import grouped as tg
 from qspec_tpu_torch.ops import kernel_wrappers
 from qspec_tpu_torch.ops import linear_kernels as lk
 from qspec_tpu_torch.ops import rmsnorm_quant as rq
-from qspec_tpu_torch.ops.attention import paged_attention_ref
+from qspec_tpu_torch.ops.attention import paged_attention_ref, tree_mask
 from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.kv_cache import PagedKVCache
@@ -505,3 +505,75 @@ def test_tiny_gemma2_on_card_matches_cpu(gen, head_dim):
     assert attn.softcap_launches == attn.launches
     assert attn.d256_launches == (attn.launches if head_dim == 256 else 0)
     assert spec == run("qspec_null")
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+def test_paged_attention_kernel_tree(gen, kv_dtype, D):
+    """The Medusa tree mask (DEFAULT_TREE after prefix 3 and 5, roots 17 and
+    30, page 16) on every entry type at head dims 128 and 256, with and
+    without the softcap and a window shorter than the contexts, against the
+    plain version; each launch counted as a tree launch."""
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    tspec = build_tree(DEFAULT_TREE)
+    T, B, Hq, Hkv, S, P = tspec.num_nodes, 2, 4, 2, 16, 24
+    cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, P, S, kv_dtype), "cuda")
+    n = (P - 1) * S
+    kvc.update_layer(cache, 1, torch.randn(n, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16),
+                     torch.randn(n, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16),
+                     torch.arange(n, device="cuda") + S)
+    tables = (torch.randperm(20, generator=torch.Generator().manual_seed(D)) + 1
+              ).reshape(2, 10).to(torch.int32).cuda()
+    root = torch.tensor([17, 30], device="cuda")
+    ctx = (root + 1 + T).to(torch.int32)
+    counter = kernel_wrappers()["paged_attention" if kv_dtype == "bfloat16"
+                                else f"paged_attention_{kv_dtype}"]
+    tol = {"bfloat16": 3e-2, "fp8_e5m2": 8e-2}.get(kv_dtype, 4e-2)
+    for prefix in (3, 5):
+        positions = torch.cat([root[:, None] - (prefix - 1) + torch.arange(prefix, device="cuda"),
+                               root[:, None] + torch.tensor(tspec.depth, device="cuda")[None]], 1)
+        q = (3 * torch.randn(B, prefix + T, Hq, D, generator=gen, device="cuda")).to(torch.bfloat16)
+        tree = tree_mask(prefix, tspec.ancestors, "cuda")
+        for cap in (None, 50.0):
+            for window in (None, 12):
+                kw = dict(q_positions=positions, window=window, softcap=cap, tree=tree)
+                before = counter.tree_launches
+                out = paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1,
+                                           kv_scales=cache.kv_scales, **kw)
+                assert counter.tree_launches == before + 1
+                ref = paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, **kw)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tree", [False, True], ids=["chain", "tree"])
+def test_medusa_greedy_equals_oracle_on_card(gen, tree):
+    """The tiny model with 4 lm_head-seeded Medusa heads through LLM on the
+    card: greedy Medusa (chain or DEFAULT_TREE) equals its medusa_null
+    oracle; only the verify path's kernels launch (no w4a4, no
+    rmsnorm_quant), the tree mask on every layer of every tree round."""
+    from qspec_tpu_torch import LLM, SamplingParams
+    from qspec_tpu_torch.models.llama import init_params
+    from qspec_tpu_torch.spec_decode.medusa import init_medusa_params, lm_head_weight
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, seed=0, device="cuda")
+    params["medusa"] = init_medusa_params(cfg.hidden_size, cfg.vocab_size, 4,
+                                          lm_head=lm_head_weight(params["lm_head"]))
+    kw = dict(model="tiny", device="cuda", num_speculative_tokens=4, block_size=16,
+              max_model_len=256, max_num_seqs=4, prefill_chunk_size=64,
+              speculative_model="[medusa]", spec_medusa_tree="default" if tree else None)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 500, size=int(n)).tolist() for n in (5, 17, 33, 9)]
+    sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    attn = counters["paged_attention"]
+    attn.tree_launches = 0
+    llm = LLM(params=params, **kw)
+    spec = [o.output_token_ids for o in llm.generate(prompts, sp)]
+    assert {n for n, c in counters.items() if c.launches > 0} == {
+        "matmul_w4a16", "rmsnorm", "paged_attention", "matmul_w8a16"}
+    rounds = llm.llm_engine.runner.spec_rounds_run
+    assert attn.tree_launches == (cfg.num_layers * rounds if tree else 0) and rounds > 0
+    oracle = LLM(params=params, speculative_method="medusa_null", **kw)
+    assert spec == [o.output_token_ids for o in oracle.generate(prompts, sp)]
