@@ -24,17 +24,20 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    through update_layer, under a sliding window, and at head dim 256 with
    Gemma-2's logit softcap on every entry type, and under the Medusa tree
    mask on every entry type at head dims 128 and 256 (with and without the
-   softcap and a window, and the JAX kernel test's structural check); the
-   norm with and without a gamma; the grouped GEMM at the Llama-3-8B AWQ
-   shapes, stacked and not, and a row's bits across batch sizes);
+   softcap and a window, the windowed tree rows also against AR, and the JAX
+   kernel test's structural check), and ALiBi on every entry type at
+   BLOOM-7B1's shapes and the JAX kernel test's GQA shape; the norm with and
+   without a gamma; the grouped GEMM at the Llama-3-8B AWQ shapes, stacked
+   and not, and a row's bits across batch sizes);
 4. timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, timed with CUDA events over
    CUDA-graph replays; the least time the card could take (bound_ms); the
    windowed attention at context 2048 beside the unwindowed kernel; the
    attention at Gemma-2-9B's verify shape (D=256) with and without softcap;
    the tree-masked attention at the Llama-3-8B tree-verify rectangle (Q=15)
-   beside the kernel without the tree; matmul_w4a16 also at the tree
-   verify's M=60, with torch._weight_int4pack_mm as its yardstick;
+   beside the kernel without the tree; ALiBi at BLOOM-7B1's n-gram verify
+   (Q=4, Hq=Hkv=32) beside the same inputs without it; matmul_w4a16 also at
+   the tree verify's M=60, with torch._weight_int4pack_mm as its yardstick;
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
    the CPU (plain versions), same weights, with the bf16 head over a bf16
    cache, at the defaults (int8 head) over an int8 cache, and as an AWQ
@@ -75,9 +78,19 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    (d) the tree (spec_medusa_tree="default"), each against its medusa_null
    oracle; each launches exactly matmul_w4a16, rmsnorm, the bf16 attention
    and the int8 head (no draft: no w4a4, no rmsnorm_quant), (d) the tree
-   mask on layers x rounds attention launches and (c) on none.
+   mask on layers x rounds attention launches and (c) on none;
+10. the float slice: BLOOM-7B1 at its published widths, bf16 weights made
+   on the card as a Hugging Face state dict and converted by convert_bloom,
+   n-gram lookup (k = 3) through LLMEngine against its "null" oracle:
+   tokens equal, only the bf16 attention launched, every launch ALiBi, 30
+   per forward (phase_bloom_7b1);
+11. an MPT-7B-width checkpoint directory (2 layers) written by the script
+   and served by LLM(model=<dir>, quantization=None), n-gram against AR
+   (phase_mpt_dir).
 
 It prints the kernel summary as one JSON line and, last, the device JSON line.
+Every line also goes to chiprun_out/chip_smoke.log, with the kernels' full
+`-Xptxas -v` summary, which the standard output gives in short.
 """
 
 from __future__ import annotations
@@ -104,8 +117,9 @@ L2_BYTES = 50 * 1024 * 1024
 _LOG = []
 
 
-def log(*a):
-    print(*a, flush=True)
+def log(*a, stdout: bool = True):
+    if stdout:
+        print(*a, flush=True)
     for f in _LOG:
         print(*a, file=f, flush=True)
 
@@ -195,7 +209,8 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s, "
         f"per source {json.dumps(_build.build_info.get('compile_seconds', {}))})")
     # registers (r), spilled bytes (s) and static shared memory per kernel;
-    # attn<entry, scaled, head dim, softcap, tree> is paged_attention_kernel
+    # attn<entry, scaled, head dim, softcap, tree, alibi> is
+    # paged_attention_kernel; in full to the log file, in short to stdout
     short = {}
     for fn, v in _build.build_info.get("ptxas", {}).items():
         name = _kernel_name(fn).replace("paged_attention_kernel", "attn").replace(
@@ -203,7 +218,13 @@ def phase_build():
         short[name] = f"{v.get('regs')}r" + (
             f" {v['spill_stores']}s" if v.get("spill_stores") else "") + (
             f" smem {v['smem']}" if v.get("smem") else "")
-    log("ptxas: " + json.dumps(short, separators=(",", ":")))
+    log("ptxas: " + json.dumps(short, separators=(",", ":")), stdout=False)
+    attn = {k: v for k, v in short.items() if k.startswith("attn")}
+    regs = sorted(int(v.split("r")[0]) for v in attn.values())
+    log(f"ptxas: {len(short)} kernels ({len(attn)} attention, {regs[0]}-{regs[-1]} registers; "
+        f"spills {json.dumps({k: v for k, v in attn.items() if 's' in v.split('r')[1]})}); "
+        + json.dumps({k: v for k, v in short.items() if not k.startswith("attn")},
+                     separators=(",", ":")))
 
 
 def _w4(gen, k, n):
@@ -634,17 +655,18 @@ def _tree_inputs(gen, prefix, kv_dtype, D, tspec, Hq=4, Hkv=2, S=16, P=24, scale
 def check_attention_tree(gen, report):
     """The tree mask against its plain version: DEFAULT_TREE, prefix 3 and 5,
     head dims 128 and 256, every entry type, softcap none and 50, window
-    none and 12 (shorter than every context: it bounds the prefix rows and,
-    relative to the root, the tree rows); then the JAX test's structural
-    check on the kernel: a node's KV slot changed, the rows that are not its
-    descendants keep their bits, its child's row changes."""
+    none and 12 (shorter than every context: it bounds the prefix rows and
+    each tree row by its node's own position root + depth); the tree rows
+    under the window also against AR (tree_rows_ar); then the JAX test's
+    structural check on the kernel: a node's KV slot changed, the rows that
+    are not its descendants keep their bits, its child's row changes."""
     from qspec_tpu_torch.ops.attention import paged_attention_ref, tree_mask
     from qspec_tpu_torch.ops.attention_cuda import LAUNCHES, paged_attention_cuda
     from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
     tspec = build_tree(DEFAULT_TREE)
     errs = {}
     n_tree = sum(c.tree_launches for c in LAUNCHES.values())
-    n_calls = 0
+    n_calls, err_ar = 0, 0.0
     for kv_dtype, tol in TREE_TOL.items():
         err = 0.0
         for D in (128, 256):
@@ -661,6 +683,12 @@ def check_attention_tree(gen, report):
                         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
                         err = max(err, (out.float() - ref.float()).abs().max().item())
                         n_calls += 1
+                        if window and cap is None:
+                            ar = tree_rows_ar(q, cache, 1, tables, positions, tspec, prefix,
+                                              D ** -0.5, window)
+                            torch.testing.assert_close(out[:, prefix:].float(), ar, rtol=tol,
+                                                       atol=tol)
+                            err_ar = max(err_ar, (out[:, prefix:].float() - ar).abs().max().item())
         errs[kv_dtype] = err
         name = "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
         report[name]["tree"] = {"max_abs_err": err, "tol": f"rtol=atol={tol}"}
@@ -683,10 +711,182 @@ def check_attention_tree(gen, report):
             before[0, child], after[0, child]) or not torch.equal(before[1], after[1]):
         raise AssertionError("paged_attention tree: a node's slot reached a row that is not "
                              "its descendant, or missed its child")
+    report["paged_attention"]["tree"]["window_vs_ar_max_abs_err"] = err_ar
     log("check paged_attention tree (DEFAULT_TREE, prefix 3 and 5, D=128 and 256, softcap none "
         "and 50, window none and 12): max_abs_err "
         + ", ".join(f"{k} {v:.3g} (tol {TREE_TOL[k]})" for k, v in errs.items())
-        + f"; node (1,)'s slot changed: {len(keep)} rows keep their bits, its child's row moves")
+        + f"; tree rows under window 12 vs AR {err_ar:.3g}; node (1,)'s slot changed: "
+        f"{len(keep)} rows keep their bits, its child's row moves")
+
+
+def tree_rows_ar(q, cache, layer, tables, positions, tspec, prefix, scale, window):
+    """AR's rows of a tree rectangle's nodes, f32 [B, T, Hq, D]: node t's
+    query at position root + depth(t) over the context 0..root and its path
+    (ancestors and itself, by depth) at consecutive positions, under the
+    window: what AR computes once the path's tokens are committed."""
+    from qspec_tpu_torch.ops.kv_cache import gather_layer
+    k, v = (x.double() for x in gather_layer(cache, layer, tables))
+    B, _, Hq, D = q.shape
+    group = Hq // k.shape[1]
+    out = torch.zeros(B, tspec.num_nodes, Hq, D, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        root = int(positions[b, prefix - 1])
+        for t in range(tspec.num_nodes):
+            path = sorted((j for j in range(tspec.num_nodes) if tspec.ancestors[t][j]),
+                          key=lambda j: tspec.depth[j])
+            slots = torch.tensor(list(range(root + 1)) + [root + 1 + j for j in path],
+                                 device=q.device)
+            slots = slots[torch.arange(len(slots), device=q.device)
+                          > root + tspec.depth[t] - window]
+            kk, vv = k[b, :, slots].repeat_interleave(group, 0), v[b, :, slots].repeat_interleave(
+                group, 0)                                                   # [Hq, n, D]
+            w = torch.softmax(torch.einsum("hnd,hd->hn", kk, q[b, prefix + t].double()) * scale,
+                              -1)
+            out[b, t] = torch.einsum("hn,hnd->hd", w, vv)
+    return out.float()
+
+
+ALIBI_TOL = {"bfloat16": 3e-2, "int8": 4e-2, "fp8_e4m3": 4e-2, "fp8_e5m2": 8e-2}
+
+
+def _alibi_gqa_inputs(gen, q_len, kv_dtype, S=16):
+    """The JAX kernel test's ALiBi shape (tests/kernels/test_attention.py::
+    test_alibi_pallas_matches_ref: B=3, Hq=4, Hkv=2, head dim 64, contexts
+    Q+3, S+Q, 2S+Q) at page 16, the kernel's least; the head dim padded into
+    the 128-wide cache by update_layer and paged_attention."""
+    from qspec_tpu_torch.ops import kv_cache as kvc
+    cache = kvc.allocate(kvc.KVCacheConfig(2, 2, 128, 13, S, kv_dtype), "cuda")
+    n = 12 * S
+    kvc.update_layer(cache, 1, torch.randn(n, 2, 64, generator=gen, device="cuda").to(torch.bfloat16),
+                     torch.randn(n, 2, 64, generator=gen, device="cuda").to(torch.bfloat16),
+                     torch.arange(n, device="cuda") + S)
+    tables = (torch.randperm(12, generator=torch.Generator().manual_seed(q_len)) + 1
+              ).reshape(3, 4).to(torch.int32).cuda()
+    ctx = torch.tensor([q_len + 3, S + q_len, 2 * S + q_len], dtype=torch.int32, device="cuda")
+    q = torch.randn(3, q_len, 4, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    return q, cache, tables, ctx
+
+
+def check_attention_alibi(gen, report):
+    """ALiBi against its plain version on every entry type: BLOOM-7B1's
+    attention (B=4, Hq=Hkv=32, D=128, page 128, contexts of 1-4 pages) at
+    the decode's Q=1 (one live row of the block's 8), the n-gram verify's
+    Q=4 and a prompt forward's Q=128, and the JAX kernel test's GQA shape at
+    Q=1 and 4 (through paged_attention, head dim 64 padded); every launch
+    counted as an ALiBi launch, and every output differs from the same
+    launch without ALiBi."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes, paged_attention, paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import LAUNCHES, paged_attention_cuda
+    errs = {}
+    n_alibi = sum(c.alibi_launches for c in LAUNCHES.values())
+    n_calls = 0
+    for kv_dtype, tol in ALIBI_TOL.items():
+        err = 0.0
+        for shape, q_lens in (("bloom", (1, 4, 128)), ("gqa", (1, 4))):
+            for q_len in q_lens:
+                if shape == "gqa":
+                    q, cache, tables, ctx = _alibi_gqa_inputs(gen, q_len, kv_dtype)
+                    fn, D = paged_attention, 64
+                else:
+                    q, cache, tables, ctx = (
+                        _attn_inputs(gen, q_len, Hkv=32) if kv_dtype == "bfloat16"
+                        else _attn_inputs_kv(gen, q_len, kv_dtype, Hkv=32))
+                    D = 128
+
+                    def fn(q, cache, layer, tables, ctx, scale, **kw):
+                        return paged_attention_cuda(q, cache.kv_pages, tables, ctx, scale,
+                                                    layer=layer, kv_scales=cache.kv_scales, **kw)
+                slopes = torch.as_tensor(alibi_slopes(q.shape[2]), device="cuda")
+                out = fn(q, cache, 1, tables, ctx, D ** -0.5, alibi=slopes)
+                ref = paged_attention_ref(torch.nn.functional.pad(q, (0, 128 - D)), cache, 1,
+                                          tables, ctx, D ** -0.5, alibi=slopes)[..., :D]
+                torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+                if torch.allclose(out.float(), fn(q, cache, 1, tables, ctx, D ** -0.5).float(),
+                                  atol=tol):
+                    raise AssertionError(f"paged_attention ALiBi {kv_dtype} {shape} Q={q_len}: "
+                                         "the bias does not move the output")
+                n_calls += 1
+        errs[kv_dtype] = err
+        name = "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
+        report[name]["alibi"] = {"max_abs_err": err, "tol": f"rtol=atol={tol}"}
+    if sum(c.alibi_launches for c in LAUNCHES.values()) - n_alibi != n_calls:
+        raise AssertionError("paged_attention ALiBi: launches not counted")
+    log("check paged_attention ALiBi (BLOOM-7B1: B=4 Hq=Hkv=32 D=128 page 128 Q=1,4,128; GQA: "
+        "B=3 Hq=4 Hkv=2 D=64 page 16 Q=1,4): max_abs_err "
+        + ", ".join(f"{k} {v:.3g} (tol {ALIBI_TOL[k]})" for k, v in errs.items())
+        + "; every output moved by the bias")
+
+
+def time_attention_alibi(gen, report):
+    """BLOOM-7B1's attention at the n-gram verify (B=4, Q=4, Hq=Hkv=32,
+    D=128, bf16 cache, contexts of 1-4 pages) with ALiBi, beside the same
+    inputs without it and the plain version; inputs rotated past L2."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes, paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    B, q_len, Hq, Hkv, D = 4, 4, 32, 32, 128
+    live = _ctx_lens(q_len)
+    kv_bytes = sum(live) * Hkv * D * 2 * 2
+    rot = Rotating(lambda: _attn_inputs(gen, q_len, Hkv=Hkv), kv_bytes)
+    slopes = torch.as_tensor(alibi_slopes(Hq), device="cuda")
+    times = {}
+    for with_alibi in (True, False):
+        def kern(a=slopes if with_alibi else None):
+            q, cache, tables, ctx = rot.next()
+            paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1, alibi=a)
+        times[with_alibi] = graph_ms(kern, reps=max(20, len(rot.sets)))
+
+    def plain():
+        q, cache, tables, ctx = rot.next()
+        paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, alibi=slopes)
+    t_p = graph_ms(plain, reps=3)
+    q, _, tables, _ = rot.sets[0]
+    nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + 8 * B + 4 * Hq
+    seen = sum(sum(c - q_len + i + 1 for i in range(q_len)) for c in live)
+    b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+    log(f"time paged_attention ALiBi B=4 Q=4 Hq=Hkv=32 ctx={live}: {times[True]:.4f} ms "
+        f"(no ALiBi {times[False]:.4f}), plain {t_p:.4f}, bound {b:.5f} ({kind})")
+    report["paged_attention"]["alibi"].update(
+        ms=times[True], no_alibi_ms=times[False], plain_ms=t_p, bound_ms=b, bound_by=kind,
+        shape=f"B=4, Q=4, Hq=Hkv=32, D=128, ctx={live}, bf16 KV (BLOOM-7B1's n-gram verify)")
+    del rot
+    torch.cuda.empty_cache()
+
+
+BLOOM_PROJ = ((4096, 12288), (4096, 4096), (4096, 16384), (16384, 4096))   # qkv, o, up, down
+
+
+def time_bloom_projections(gen):
+    """What the bf16 scheme's row padding costs: one BLOOM-7B1 layer's four
+    projections at the decode's M=4 and the n-gram verify's M=16, as
+    ``_f32_matmul`` runs them (rows padded to 128, f32 out) beside the same
+    torch.mm on the unpadded rows; 402 MB of weights, past L2 on their own."""
+    from qspec_tpu_torch.models.llama import _f32_matmul
+    ws = [torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
+          for k, n in BLOOM_PROJ]
+    out = {}
+    for m in (4, 16):
+        xs = [torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k, _ in BLOOM_PROJ]
+
+        def padded():
+            for x, w in zip(xs, ws):
+                _f32_matmul(x, w)
+
+        def unpadded():
+            for x, w in zip(xs, ws):
+                torch.mm(x, w, out_dtype=torch.float32)
+        t = {fn: [] for fn in (padded, unpadded)}
+        for fn in (padded, unpadded, unpadded, padded):
+            t[fn].append(graph_ms(fn, reps=10))
+        nbytes = sum(k * n * 2 + m * k * 2 + m * n * 4 for k, n in BLOOM_PROJ)
+        b, _ = bound_ms(nbytes, sum(2 * m * k * n for k, n in BLOOM_PROJ), "bf16")
+        out[m] = (min(t[padded]), min(t[unpadded]), b)
+    log("time BLOOM-7B1 layer's bf16 projections (qkv,o,up,down), rows padded to 128 vs "
+        "unpadded: " + "; ".join(f"M={m} {p:.4f} vs {u:.4f} ms (bound {b:.5f})"
+                                 for m, (p, u, b) in out.items()))
+    del ws
+    torch.cuda.empty_cache()
 
 
 TREE_PREFIX = 5       # DEFAULT_TREE's depth 4 + 1: the engine's verify prefix
@@ -1118,18 +1318,25 @@ TINY_GEMMA2 = dict(model_type="gemma2", vocab_size=512, hidden_size=256, interme
                    rms_norm_eps=1e-6, tie_word_embeddings=True, max_position_embeddings=256)
 
 
+TINY_BLOOM = dict(model_type="bloom", vocab_size=512, hidden_size=256, n_layer=2, n_head=4)
+
+
 def phase_small_reference(lm_head_quant: str, kv_dtype: str, quant: str = "w4"):
     """The tiny model on the card (kernels) against the same weights on the
     CPU (plain versions). w4g: an AWQ checkpoint (g = 128, so the MLP is
     widened to 512 for the kernel's K % 256), W4A16 only; "gemma2": a tiny
     AWQ Gemma-2 (head dim 256, softcaps, post norms, the alternating window
-    over 24 > 16 positions, tied int8 head)."""
+    over 24 > 16 positions, tied int8 head); "bloom": a tiny bf16 BLOOM
+    (the bf16 scheme, ALiBi at head dim 64 padded, LayerNorm, biases, the
+    embedding LayerNorm, tied bf16 head)."""
     from qspec_tpu_torch.config import ModelConfig
     from qspec_tpu_torch.models.llama import AttentionBatch, init_params, model_forward
     from qspec_tpu_torch.ops import kv_cache as kvc
     w4g = quant in ("w4g", "gemma2")
     if quant == "gemma2":
         cfg = dataclasses.replace(ModelConfig.from_hf_config(TINY_GEMMA2), quant="w4g")
+    elif quant == "bloom":
+        cfg = ModelConfig.from_hf_config(TINY_BLOOM)
     else:
         cfg = ModelConfig.tiny(lm_head_quant=lm_head_quant, quant=quant,
                                **({"intermediate_size": 512} if w4g else {}))
@@ -1146,7 +1353,8 @@ def phase_small_reference(lm_head_quant: str, kv_dtype: str, quant: str = "w4"):
     # looser because rsqrt and sums round differently on the card and on the
     # CPU, which flips activations that sit on a quantizer rounding tie (see
     # tests/test_torch_model.py, which holds the port to the JAX package alike)
-    schemes = (("w4a16", 2e-2),) + (() if w4g else (("w4a8", 5e-2), ("w4a4", 0.3)))
+    schemes = ((("bf16", 2e-2),) if quant == "bloom" else
+               (("w4a16", 2e-2),) + (() if w4g else (("w4a8", 5e-2), ("w4a4", 0.3))))
     for scheme, tol in schemes:
         outs = []
         for dev, params in (("cpu", cpu), ("cuda", gpu)):
@@ -1197,7 +1405,7 @@ def generate(engine, prompts, max_tokens: int):
     return [outs[i] for i in ids]
 
 
-ATTN_OPTIONS = ("window", "softcap", "d256", "tree")
+ATTN_OPTIONS = ("window", "softcap", "d256", "tree", "alibi")
 
 
 def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
@@ -1211,9 +1419,10 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     attention instantiation on its own path). The attention's launches under
     a window, with a softcap, at head dim 256 and under a tree mask are
     counted apart: each option of ``every_launch`` must be on every attention
-    launch, the softcap and D=256 on none otherwise; the tree launches are
-    returned (``rounds_run`` beside them: the verify passes of the run) for
-    the caller to check."""
+    launch, the softcap, D=256 and ALiBi on none otherwise; the tree
+    launches are returned (``rounds_run`` beside them: the verify passes of
+    the run, and ``forwards``: those and the prompt forwards) for the caller
+    to check."""
     from qspec_tpu_torch.ops import kernel_wrappers
     eng = make(methods[0], None)
     torch.cuda.synchronize()
@@ -1234,6 +1443,7 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
             for name, c in attn.items()}
     m = eng.spec_metrics
     rounds_run = eng.runner.spec_rounds_run
+    forwards = eng.runner.target_forwards
 
     params = eng.runner.params
     del eng
@@ -1254,7 +1464,7 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
         raise AssertionError(f"{label}: kernels launched on the path: {sorted(launched)}, "
                              f"expected {sorted(expect)}")
     for name, o in opts.items():
-        for opt in ("softcap", "d256", *every_launch):
+        for opt in ("softcap", "d256", "alibi", *every_launch):
             if o[opt] != (launches[name] if opt in every_launch else 0):
                 raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
                                      f"{o[opt]} of them with {opt}")
@@ -1263,11 +1473,10 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
         "acceptance_rate": m.draft_acceptance_rate,
         "emitted_per_round_per_seq": m.num_emitted_tokens / max(
             m.num_emitted_tokens - m.num_draft_accepted, 1),
-        "spec_tokens_per_s": n_tok / t_spec, "spec_wall_s": t_spec,
-        "oracle_tokens_per_s": n_tok / t_ar, "oracle_wall_s": t_ar,
+        "spec_tokens_per_s": n_tok / t_spec, "oracle_tokens_per_s": n_tok / t_ar,
         "drafted_accepted_emitted": [
             m.num_draft_tokens, m.num_draft_accepted, m.num_emitted_tokens],
-        **({"rounds_run": rounds_run} if rounds_run else {}),
+        **({"rounds_run": rounds_run, "forwards": forwards} if rounds_run else {}),
         **({"attn_option_launches": {n: {k: v for k, v in o.items() if v}
                                      for n, o in opts.items() if any(o.values())}}
            if any(any(o.values()) for o in opts.values()) else {})}
@@ -1547,6 +1756,199 @@ def phase_medusa_8b(smi: str):
     return out
 
 
+# the kernels of the float (bf16) path: its GEMMs, LayerNorm, GELU and head
+# are torch ops, as they are XLA in the JAX package
+FLOAT_KERNELS = {"paged_attention"}
+
+
+def random_state_dict(entries, seed: int) -> dict:
+    """A Hugging Face state dict of random bf16 tensors made on the card:
+    ``entries`` (name, shape, kind): "w" normal(0.02), "b" normal(0.01),
+    "one" / "zero" a LayerNorm's gamma / beta."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for name, shape, kind in entries:
+        if kind in ("w", "b"):
+            t = torch.randn(shape, generator=gen, device="cuda") * (0.02 if kind == "w" else 0.01)
+            sd[name] = t.to(torch.bfloat16)
+            del t
+        else:
+            sd[name] = (torch.ones if kind == "one" else torch.zeros)(
+                shape, dtype=torch.bfloat16, device="cuda")
+    return sd
+
+
+def bloom_entries(cfg):
+    """BLOOM's checkpoint names and shapes (transformer.*, the
+    head-interleaved query_key_value, biases everywhere, the embedding
+    LayerNorm; no lm_head.weight: the head is tied)."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    out = [("transformer.word_embeddings.weight", (V, H), "w")]
+    norm = [("{}.weight", (H,), "one"), ("{}.bias", (H,), "zero")]
+    out += [(n.format("transformer.word_embeddings_layernorm"), s, k) for n, s, k in norm]
+    for li in range(cfg.num_layers):
+        p = f"transformer.h.{li}."
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            out += [(n.format(p + ln), s, k) for n, s, k in norm]
+        for name, n_out, n_in in (("self_attention.query_key_value", 3 * H, H),
+                                  ("self_attention.dense", H, H),
+                                  ("mlp.dense_h_to_4h", 4 * H, H), ("mlp.dense_4h_to_h", H, 4 * H)):
+            out += [(p + name + ".weight", (n_out, n_in), "w"), (p + name + ".bias", (n_out,), "b")]
+    return out + [(n.format("transformer.ln_f"), s, k) for n, s, k in norm]
+
+
+def mpt_entries(cfg):
+    """MPT's checkpoint names and shapes under no_bias (transformer.blocks.*,
+    the fused Wqkv, bias-free LayerNorms, the head tied to wte)."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    out = [("transformer.wte.weight", (V, H), "w")]
+    for li in range(cfg.num_layers):
+        p = f"transformer.blocks.{li}."
+        out += [(p + "norm_1.weight", (H,), "one"), (p + "attn.Wqkv.weight", (3 * H, H), "w"),
+                (p + "attn.out_proj.weight", (H, H), "w"), (p + "norm_2.weight", (H,), "one"),
+                (p + "ffn.up_proj.weight", (cfg.intermediate_size, H), "w"),
+                (p + "ffn.down_proj.weight", (H, cfg.intermediate_size), "w")]
+    return out + [("transformer.norm_f.weight", (H,), "one")]
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A .safetensors file: the 8-byte little-endian header length, the JSON
+    header (dtype, shape, byte range of each tensor, padded to 8 bytes) and
+    the raw little-endian buffers."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+
+
+def float_prompts(vocab: int):
+    """e2e_prompts' lengths (98-173 tokens) over ``vocab``; two of them repeat
+    a span (40 and 24 tokens), so prompt lookup has proposals from the start."""
+    rng = np.random.default_rng(0)
+    ps = [rng.integers(1, vocab, size=int(n)).tolist() for n in rng.integers(64, 193, size=4)]
+    ps[0] = (ps[0][:40] * 5)[:len(ps[0])]
+    ps[2] = (ps[2][:24] * 8)[:len(ps[2])]
+    return ps
+
+
+def phase_bloom_7b1(smi: str):
+    """BLOOM-7B1 at bigscience/bloom-7b1's published widths (config.py's
+    BLOOM_7B1_HF: hidden 4096, 32 heads, 30 layers, vocab 250880, tied head)
+    with random bf16 weights made on the card as a Hugging Face state dict
+    (about 14 GB) and converted by model_loader.families.convert_bloom (the
+    embedding LayerNorm and the query_key_value de-interleave at full width;
+    each source tensor freed as it is converted). Through LLMEngine, n-gram
+    lookup (k = 3) against its "null" oracle on float_prompts: greedy tokens
+    equal, only the bf16 attention launched, every launch its ALiBi
+    instantiation, 30 per forward."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    from qspec_tpu_torch.config import BLOOM_7B1_HF
+    from qspec_tpu_torch.model_loader.families import load_family_float
+    from qspec_tpu_torch.models.registry import resolve
+    cfg = resolve(BLOOM_7B1_HF)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = random_state_dict(bloom_entries(cfg), seed=0)
+    n_bytes = sum(t.numel() * 2 for t in sd.values())
+    params, cfg = load_family_float(sd, cfg)
+    torch.cuda.synchronize()
+    log(f"e2e bloom-7b1: {cfg.num_layers} layers, hidden {cfg.hidden_size}, vocab "
+        f"{cfg.vocab_size}: {n_bytes / 1e9:.2f} GB of bf16 made and converted on the card in "
+        f"{time.perf_counter() - t0:.1f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB, tied head {params['lm_head'].data_ptr() == params['embed'].data_ptr()}")
+    torch.cuda.reset_peak_memory_stats()         # the serving runs' own peak below
+    prompts = float_prompts(cfg.vocab_size)
+
+    def make(method, p):
+        spec = SpeculativeConfig(num_speculative_tokens=3, method=method)
+        return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=128),
+                                      scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=512),
+                                      speculative=spec), p or params, device="cuda", seed=0)
+    label = "bloom-7b1 bf16 (tied head, bf16 KV, n-gram k=3)"
+    spec, launches, opts, summary = spec_vs_oracle(
+        make, label, FLOAT_KERNELS, prompts, 32, every_launch=("alibi",),
+        methods=("ngram", "null"))
+    if launches["paged_attention"] != cfg.num_layers * summary["forwards"]:
+        raise AssertionError(f"{label}: {launches['paged_attention']} attention launches, "
+                             f"not {cfg.num_layers} x {summary['forwards']} forwards")
+    summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    e2e_log(label, prompts, spec, summary)
+    log(f"e2e bloom-7b1: card {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, opts, summary
+
+
+def phase_mpt_dir(smi: str):
+    """MPT-7B's widths (config.py's MPT_7B_HF, mosaicml/mpt-7b's
+    config.json: d_model 4096, 32 heads, vocab 50432, no_bias, expansion 4)
+    cut to 2 layers, as a checkpoint directory written here (config.json and
+    model.safetensors of random bf16 weights made on the card), served by
+    LLM(model=<dir>, quantization=None): the port's safetensors reader,
+    config_from_hf_dir and the family route. Greedy tokens of n-gram lookup
+    (k = 3) equal AR's; the n-gram run launches only the ALiBi attention,
+    2 per forward."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import MPT_7B_HF, ModelConfig
+    from qspec_tpu_torch.ops import kernel_wrappers
+    hf = {**MPT_7B_HF, "n_layers": 2}
+    cfg = ModelConfig.from_hf_config(hf)
+    prompts = float_prompts(cfg.vocab_size)
+    with tempfile.TemporaryDirectory() as d:
+        sd = random_state_dict(mpt_entries(cfg), seed=1)
+        write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        del sd
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f)
+        kw = dict(model=d, quantization=None, device="cuda", max_model_len=512,
+                  max_num_seqs=4, seed=0)
+        out, walls = {}, {}
+        for key, extra in (("ar", {}), ("ngram", dict(num_speculative_tokens=3,
+                                                      speculative_model="[ngram]"))):
+            eng = LLM(**kw, **extra).llm_engine
+            counters = kernel_wrappers()
+            attn = counters["paged_attention"]
+            for c in counters.values():
+                c.launches = 0
+            attn.alibi_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[key] = generate(eng, prompts, 32)
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            launched = {n for n, c in counters.items() if c.launches > 0}
+            forwards = eng.runner.target_forwards
+            if not (launched == FLOAT_KERNELS and attn.alibi_launches == attn.launches
+                    == cfg.num_layers * forwards):
+                raise AssertionError(f"mpt-7b dir {key}: launched {sorted(launched)}, "
+                                     f"{attn.alibi_launches} ALiBi of {attn.launches} attention "
+                                     f"launches, {forwards} forwards")
+            if key == "ngram":
+                summary = {"acceptance_rate": eng.spec_metrics.draft_acceptance_rate,
+                           "alibi_launches": attn.alibi_launches, "forwards": forwards}
+            del eng
+            torch.cuda.empty_cache()
+    if out["ngram"] != out["ar"]:
+        raise AssertionError("mpt-7b dir: greedy n-gram tokens differ from AR's")
+    n_tok = sum(len(t) for t in out["ar"])
+    summary.update(ngram_tokens_per_s=n_tok / walls["ngram"], ar_tokens_per_s=n_tok / walls["ar"])
+    e2e_log(f"mpt-7b widths, 2 layers, LLM(model=<dir>) n-gram vs AR", prompts, out["ngram"],
+            summary)
+    return summary
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4a16.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -1559,7 +1961,7 @@ KERNEL_META = {
     "paged_attention": ("qspec_tpu_torch/csrc/paged_attention.cu",
                         "qspec_tpu/ops/attention_pallas.py:52 (_paged_attn_kernel; "
                         "window, softcap :183, head dims 128 and 256, tree mask "
-                        ":131-139,188-194)"),
+                        ":131-139,188-194, ALiBi :175-182)"),
     "matmul_w8a16": ("qspec_tpu_torch/csrc/w8a16.cu",
                      "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel)"),
     "matmul_w4a16_g": ("qspec_tpu_torch/csrc/w4a16_g.cu",
@@ -1593,20 +1995,26 @@ def main():
     check_attention_d256(gen, report)
     check_attention_tree(gen, report)
     check_attention_tree_main(gen, report)
+    check_attention_alibi(gen, report)
     time_kernels(gen, report, int4pack_missing)
     time_w4a16_g(gen, report, int4pack_missing)
     time_attention_window(gen, report)
     time_attention_d256(gen, report)
     time_attention_tree(gen, report)
+    time_attention_alibi(gen, report)
+    time_bloom_projections(gen)
     phase_small_reference("bf16", "bfloat16")
     phase_small_reference("auto", "int8")
     phase_small_reference("auto", "bfloat16", quant="w4g")
     phase_small_reference("auto", "bfloat16", quant="gemma2")
+    phase_small_reference("auto", "bfloat16", quant="bloom")
     tiny = phase_tiny_end_to_end()
     first, default = phase_end_to_end(smi)
     awq = phase_grouped_8b("llama3-8b", smi)
     gemma = phase_grouped_8b("gemma2-9b", smi)
     medusa = phase_medusa_8b(smi)
+    bloom = phase_bloom_7b1(smi)
+    mpt = phase_mpt_dir(smi)
 
     # each row's launches from the 8B run of its own path (its first draft):
     # the bf16 instantiation from the first slice's (bf16 head, bf16 KV), the
@@ -1631,7 +2039,11 @@ def main():
                                        "llama3-8b Medusa chain": medusa["c"][1][name]["tree"],
                                        "gemma2-9b Medusa tree": gemma["tree"][1][name]["tree"]},
                      "medusa_rounds": {"llama3-8b tree": medusa["d"][2]["rounds_run"],
-                                       "gemma2-9b tree": gemma["tree"][2]["rounds_run"]}}
+                                       "gemma2-9b tree": gemma["tree"][2]["rounds_run"]},
+                     "alibi": r["alibi"],
+                     "alibi_launches": {"bloom-7b1 n-gram": bloom[1][name]["alibi"],
+                                        "mpt-7b 2-layer n-gram": mpt["alibi_launches"]},
+                     "bloom_forwards": bloom[2]["forwards"]}
         elif name == "matmul_w4a16_g":
             n_launch, where = awq["a"][0][name], "llama3-8b AWQ, w4a16 draft, window 64"
             if "library_note" in r:
@@ -1647,8 +2059,9 @@ def main():
             extra["medusa_tree_launches"] = medusa["d"][0][name]
         if "m60_tree_verify" in r:
             extra["m60_tree_verify"] = r["m60_tree_verify"]
-        if "tree" in r and name != "paged_attention":
-            extra["tree"] = r["tree"]
+        for opt in ("tree", "alibi"):
+            if opt in r and name != "paged_attention":
+                extra[opt] = r[opt]
         if "d256_softcap" in r:
             extra["d256_softcap"] = r["d256_softcap"]
         kernels.append({

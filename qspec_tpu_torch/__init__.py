@@ -1,5 +1,7 @@
 """PyTorch/CUDA port of qspec_tpu: QSpec's W4A4-draft / W4A16-verify loop on
-one NVIDIA H100, with the TPU kernels of that path written by hand in CUDA.
+one NVIDIA H100 (QuaRot and AWQ / GPTQ checkpoints, Medusa heads) and the
+bf16 ALiBi families with n-gram lookup, with the TPU kernels of those paths
+written by hand in CUDA.
 
 It imports torch and numpy only, never jax or qspec_tpu.
 """

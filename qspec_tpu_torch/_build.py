@@ -48,7 +48,7 @@ SIGNATURES = {
     "qspec_rmsnorm": (_P, _P, _P, _I, _I, _F, _P),
     "qspec_rmsnorm_quant": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
     "qspec_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _F, _I, _P, _I, _P),
+                              _I, _I, _I, _F, _F, _I, _P, _I, _P, _P),
 }
 
 _lib = None

@@ -1,10 +1,10 @@
 """Configuration dataclasses.
 
 The port's own copy of the parts of ``qspec_tpu/config.py`` that the dense
-Llama QSpec path and the Gemma-2 grouped-int4 path read, with the same field
-names and defaults. Fields of model families, loaders, parallelism and
-proposers that are not ported yet are left out rather than accepted and
-ignored.
+Llama QSpec path, the Gemma-2 grouped-int4 path and the BLOOM / MPT bf16
+path read, with the same field names and defaults. Fields of model
+families, loaders, parallelism and proposers that are not ported yet are
+left out rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of one dense Llama or Gemma-2 model."""
+    """Architecture hyperparameters of one dense Llama, Gemma-2, BLOOM or MPT
+    model."""
 
-    arch: str = "llama"               # "llama" | "gemma2"
+    arch: str = "llama"               # "llama" | "gemma2" | "bloom" | "mpt"
     vocab_size: int = 128256
     hidden_size: int = 4096
     intermediate_size: int = 14336
@@ -31,7 +32,7 @@ class ModelConfig:
     max_position_embeddings: int = 8192
     tie_word_embeddings: bool = False
     # MLP activation: "silu" (llama) | "gelu_tanh" (gemma's approximate
-    # GeGLU, HF gelu_pytorch_tanh)
+    # GeGLU, HF gelu_pytorch_tanh; BLOOM's gelu) | "gelu" (exact, MPT)
     hidden_act: str = "silu"
     # multiply embeddings by this after lookup (gemma: sqrt(hidden_size)),
     # in the hidden dtype
@@ -44,9 +45,11 @@ class ModelConfig:
     #        weightless norms, Hadamard rotations
     # "w4g"  grouped asymmetric int4 (AWQ / GPTQ, model_loader/grouped.py);
     #        gamma norms, no rotations, W4A16 only
+    # "none" bf16 weights (the float families: BLOOM, MPT), the bf16 scheme
     quant: str = "w4"
     # vocab-projection weight dtype; "auto" = int8 for quantized checkpoints
-    # (the int8 head runs matmul_w8a16, the int4 head matmul_w4a16)
+    # (the int8 head runs matmul_w8a16, the int4 head matmul_w4a16), bf16
+    # for quant="none"
     lm_head_quant: str = "auto"       # "auto" | "bf16" | "int8" | "int4"
     # Mistral-style sliding-window attention: each query attends only to the
     # last `sliding_window` positions; None = full causal attention
@@ -60,25 +63,38 @@ class ModelConfig:
     final_logit_softcap: Optional[float] = None
     query_pre_attn_scalar: Optional[float] = None
     post_norms: bool = False
+    # the GPT-family graph knobs of the float families (BLOOM, MPT), served
+    # as bf16 checkpoints only: "layernorm" is mean-subtracting with an
+    # optional bias (layers.input_norm_b / post_norm_b, final_norm_b)
+    norm_type: str = "rmsnorm"        # "rmsnorm" | "layernorm"
+    # False: fc1 -> act -> fc2, "gate_up" holding fc1 [H, I]
+    mlp_gated: bool = True
+    # "alibi": per-head slopes bias the attention scores (ops/attention.py
+    # alibi_slopes), no rope
+    position_embedding: str = "rope"  # "rope" | "alibi"
+    # a bias on every projection, o and down included
+    linear_bias: bool = False
+    # clamp the qkv projection to [-clip_qkv, clip_qkv] (MPT attn_config)
+    clip_qkv: Optional[float] = None
 
     def __post_init__(self):
-        if self.quant not in ("w4", "w4g"):
-            raise NotImplementedError(f"quant={self.quant!r}: only QuaRot w4 "
-                                      "and grouped w4g checkpoints are ported")
-        if self.arch not in ("llama", "gemma2"):
-            raise NotImplementedError(f"arch={self.arch!r}: only the llama and "
-                                      "gemma2 graphs are ported")
-        if self.hidden_act not in ("silu", "gelu_tanh"):
-            raise NotImplementedError(f"hidden_act={self.hidden_act!r}: silu "
-                                      "and gelu_tanh are ported")
+        allowed = (("quant", ("w4", "w4g", "none")),
+                   ("arch", ("llama", "gemma2", "bloom", "mpt")),
+                   ("hidden_act", ("silu", "gelu_tanh", "gelu")),
+                   ("norm_type", ("rmsnorm", "layernorm")),
+                   ("position_embedding", ("rope", "alibi")))
+        for name, values in allowed:
+            if getattr(self, name) not in values:
+                raise NotImplementedError(f"{name}={getattr(self, name)!r}: the port "
+                                          f"takes {', '.join(map(repr, values))}")
 
     @property
     def resolved_lm_head_quant(self) -> str:
         if self.lm_head_quant != "auto":
             return self.lm_head_quant
-        # the JAX package's default: int8 for every quantized checkpoint,
-        # which every checkpoint the port takes is
-        return "int8"
+        # the JAX package's default: int8 for a quantized checkpoint, the
+        # bf16 head of a float one
+        return "bf16" if self.quant == "none" else "int8"
 
     @property
     def cache_kv_heads(self) -> int:
@@ -114,14 +130,24 @@ class ModelConfig:
         return dataclasses.replace(ModelConfig.from_hf_config(GEMMA2_9B_HF), **over)
 
     @staticmethod
+    def bloom_7b1(**over) -> "ModelConfig":
+        """bigscience/bloom-7b1's published config.json, as from_hf_config
+        reads it; ``over`` replaces fields of the result."""
+        return dataclasses.replace(ModelConfig.from_hf_config(BLOOM_7B1_HF), **over)
+
+    @staticmethod
     def from_hf_config(hf: dict) -> "ModelConfig":
-        """Build from a Hugging Face config.json dict of model type "llama"
-        or "gemma2", with the fields ``qspec_tpu/config.py``'s
+        """Build from a Hugging Face config.json dict of model type "llama",
+        "gemma2", "bloom" or "mpt", with the fields ``qspec_tpu/config.py``'s
         ``from_hf_config`` gives them; other model types raise."""
         mt = hf.get("model_type", "")
+        if mt == "bloom":
+            return _from_bloom(hf)
+        if mt == "mpt":
+            return _from_mpt(hf)
         if mt not in ("llama", "gemma2"):
-            raise NotImplementedError(f"model_type {mt!r}: only llama and gemma2 "
-                                      "configs are ported")
+            raise NotImplementedError(f"model_type {mt!r}: only llama, gemma2, bloom "
+                                      "and mpt configs are ported")
         gemma2 = mt == "gemma2"
         nh = hf["num_attention_heads"]
         return ModelConfig(
@@ -160,6 +186,61 @@ class ModelConfig:
         d.update(over)
         return ModelConfig(**d)
 
+
+def _from_bloom(hf: dict) -> ModelConfig:
+    """BLOOM: ALiBi, LayerNorm with biases, a non-gated tanh-gelu MLP of
+    width 4H, the head-interleaved fused query_key_value (de-interleaved by
+    model_loader.families.convert_bloom), an embedding LayerNorm, the tied
+    head; a bf16 checkpoint (``qspec_tpu/config.py``'s bloom branch)."""
+    nh = hf["n_head"]
+    return ModelConfig(
+        arch="bloom", norm_type="layernorm", mlp_gated=False,
+        position_embedding="alibi", linear_bias=True, hidden_act="gelu_tanh",
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=4 * hf["hidden_size"], num_layers=hf["n_layer"],
+        num_heads=nh, num_kv_heads=nh, head_dim=hf["hidden_size"] // nh,
+        max_position_embeddings=hf.get("seq_length", 8192),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5), quant="none",
+        tie_word_embeddings=True)
+
+
+def _from_mpt(hf: dict) -> ModelConfig:
+    """MPT: ALiBi, LayerNorm (bias-free under no_bias), the fused Wqkv in
+    q|k|v order, a non-gated exact-gelu MLP of expansion_ratio * d_model,
+    the tied head, an optional clip_qkv; a bf16 checkpoint
+    (``qspec_tpu/config.py``'s mpt branch, with its refusals)."""
+    ac = hf.get("attn_config", {}) or {}
+    if not ac.get("alibi", True):
+        raise ValueError("MPT without ALiBi (learned positions) is not supported")
+    if ac.get("qk_ln"):
+        raise ValueError("MPT qk_ln is not supported")
+    nh = hf["n_heads"]
+    return ModelConfig(
+        arch="mpt", norm_type="layernorm", mlp_gated=False,
+        position_embedding="alibi", linear_bias=not hf.get("no_bias", True),
+        clip_qkv=ac.get("clip_qkv"), hidden_act="gelu",
+        vocab_size=hf["vocab_size"], hidden_size=hf["d_model"],
+        intermediate_size=int(hf.get("expansion_ratio", 4) * hf["d_model"]),
+        num_layers=hf["n_layers"], num_heads=nh,
+        num_kv_heads=ac.get("kv_n_heads", nh) or nh, head_dim=hf["d_model"] // nh,
+        max_position_embeddings=hf.get("max_seq_len", 2048),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5), quant="none",
+        tie_word_embeddings=True)
+
+
+# bigscience/bloom-7b1's config.json (Hugging Face), the fields the port reads
+BLOOM_7B1_HF = {
+    "architectures": ["BloomForCausalLM"], "model_type": "bloom",
+    "vocab_size": 250880, "hidden_size": 4096, "n_layer": 30, "n_head": 32,
+    "layer_norm_epsilon": 1e-5,
+}
+# mosaicml/mpt-7b's config.json (Hugging Face), the fields the port reads
+MPT_7B_HF = {
+    "architectures": ["MPTForCausalLM"], "model_type": "mpt",
+    "d_model": 4096, "n_heads": 32, "n_layers": 32, "expansion_ratio": 4,
+    "max_seq_len": 2048, "vocab_size": 50432, "no_bias": True,
+    "attn_config": {"alibi": True, "clip_qkv": None, "qk_ln": False},
+}
 
 # google/gemma-2-9b's config.json (Hugging Face), the fields the port reads
 GEMMA2_9B_HF = {
@@ -206,7 +287,8 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpeculativeConfig:
-    """Speculative decoding: QSpec over shared weights, or Medusa heads."""
+    """Speculative decoding: QSpec over shared weights, Medusa heads, or
+    n-gram prompt lookup."""
 
     num_speculative_tokens: int = 3
     # draft scheme; verify is always w4a16. "w4a4" is the QSpec method;
@@ -222,7 +304,10 @@ class SpeculativeConfig:
     # "medusa": trained heads (params["medusa"], spec_decode/medusa.py) that
     # read the verify pass's hidden state, no draft forward and no draft
     # cache; "medusa_null": the Medusa rounds with the proposals nulled (its
-    # oracle)
+    # oracle); "ngram": prompt lookup over the sequence's own tokens, matched
+    # on the device (ops/ngram.py), no draft forward and no draft cache (the
+    # proposer of a bf16 checkpoint, which has no int4 weights to draft
+    # with); "null": the n-gram rounds with the proposals nulled (its oracle)
     method: str = "qspec"
     # sliding-window cap on the shared-weights draft's attention (MagicDec):
     # the draft reads only the last `draft_kv_window` KV positions and keeps
@@ -234,6 +319,10 @@ class SpeculativeConfig:
     # each round verifies the whole tree in one pass under the tree mask and
     # walks it. None: one top-1 chain of k proposals per round.
     medusa_tree: Optional[tuple] = None
+    # n-gram prompt lookup: the longest tail n-gram, n in [min, max], that
+    # occurred before proposes the k tokens after its latest occurrence
+    ngram_prompt_lookup_max: int = 4
+    ngram_prompt_lookup_min: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernel qspec_tpu/ops/attention_pallas.py:_paged_attn_kernel
 // (entry paged_attention_pallas), its causal core, its sliding window, its
-// logit softcap, its 8-bit KV option, its Medusa tree mask and head dims 128
-// and 256 (a template parameter): flash attention with an online softmax over the
+// logit softcap, its ALiBi bias, its 8-bit KV option, its Medusa tree mask and
+// head dims 128 and 256 (a template parameter): flash attention with an online
+// softmax over the
 // sequence's live pages, GQA rows G = (Hq / Hkv) * Q per kv head (Q minor),
 // a causal mask by absolute position (query i of row b sits at
 // q_start[b] + i) and, under a window W, the mask q_pos - W < kv_pos <= q_pos.
@@ -67,14 +68,26 @@
 // no tree code at all), with the Pallas body's semantics: the rectangle is
 // [prefix rows | T tree rows]; prefix row i sits at q_start + i, the last of
 // them (row prefix-1) is the root, and tree node t is stored at slot
-// root + 1 + t. A tree row takes the root as its causal bound (and as the
-// reference point of the window) and also sees the slots of its ancestors and
-// itself: live = (kv <= q_eff && kv > q_eff - W) || anc[node] bit
-// (kv - root - 1), q_eff = root for tree rows. The ancestor sets are one
-// 64-bit word per node (bit j: node j is an ancestor of the node or the node
-// itself), built once per tree (ops/attention.py:tree_mask) and kept on the
-// device, so a tree has at most 64 nodes. Each lane holds its rows' words in registers; the
-// walk, the token split and the merge are those of the plain rows.
+// root + 1 + t. A tree row takes the root as its causal bound and its own AR
+// position root + d as the window's reference (d = its depth = the popcount
+// of its ancestor word, which holds the node itself), and also sees the slots
+// of its ancestors and itself: live = (kv <= root && kv > root + d - W) ||
+// anc[node] bit (kv - root - 1). (The Pallas body takes the root as the
+// window's reference too, which is not AR's mask; the walk's first page,
+// from row 0's position, still covers every row, since root + d - W + 1 >
+// q_start - W.) The ancestor sets are one 64-bit word per node (bit j: node j
+// is an ancestor of the node or the node itself), built once per tree
+// (ops/attention.py:tree_mask) and kept on the device, so a tree has at most
+// 64 nodes. Each lane holds its rows' words in registers; the walk, the
+// token split and the merge are those of the plain rows.
+//
+// ALiBi (a template flag, instantiated only where the JAX package reaches it:
+// head dim 128, no softcap, no tree; BLOOM, MPT), with the Pallas body's
+// semantics: score += slope[hq] * (kv_pos - q_pos) in f32 after K's scale and
+// before the mask, hq the query head of the row (h * group + r / Q). The
+// slopes are one [Hq] f32 array per model, read once per lane and row; the
+// bias of a masked token is never used, and padded rows (r >= G) carry slope 0
+// and see nothing, as without it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -95,6 +108,7 @@ struct AttnArgs {
   int window;
   const void* tree_anc;
   int tree_prefix;
+  const void* alibi;
   cudaStream_t stream;
 };
 
@@ -131,8 +145,9 @@ __device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) { return static_cast<fl
 // T: the cache's entry type; kScaled: per-token scales (int8, fp8_e4m3);
 // kD: the head dim; kCap: the logit softcap (a template flag, so the
 // uncapped instantiations carry no branch in the score loop); kTree: the
-// Medusa tree mask (tree_anc / tree_prefix are read only when it is set)
-template <typename T, bool kScaled, int kD, bool kCap, bool kTree>
+// Medusa tree mask (tree_anc / tree_prefix are read only when it is set);
+// kAlibi: the ALiBi bias (alibi, [Hq] f32 slopes, read only when it is set)
+template <typename T, bool kScaled, int kD, bool kCap, bool kTree, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const T* __restrict__ kv,
@@ -143,7 +158,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ out, int Q, int Hq, int Hkv,
                        int S, int pages_per_seq, float scale, float softcap,
                        int window, const unsigned long long* __restrict__ tree_anc,
-                       int tree_prefix) {
+                       int tree_prefix, const float* __restrict__ alibi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<kD>& sm = *reinterpret_cast<Smem<kD>*>(smem_raw);
   constexpr int kLaneDims = kD / 32;    // P.V dims per lane: a float4 per 128 dims
@@ -197,7 +212,9 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tok = lane & 15;
   const int half = lane >> 4;
   int qpos[kRows / 2];
+  int wpos[kRows / 2];                  // tree rows' window reference (kTree)
   unsigned long long anc[kRows / 2];    // tree rows' ancestor words (kTree)
+  float slope[kRows / 2];               // the rows' ALiBi slopes (kAlibi)
   const int tree_base = qs + tree_prefix;   // slot of tree node 0 (root + 1)
 #pragma unroll
   for (int rr = 0; rr < kRows / 2; ++rr) {
@@ -207,8 +224,13 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const int node = r % Q - tree_prefix;
       const bool tree_row = r < G && node >= 0;
       anc[rr] = tree_row ? __ldg(tree_anc + node) : 0ull;
-      if (tree_row) qpos[rr] = tree_base - 1;   // the root bounds a tree row
+      wpos[rr] = qpos[rr];
+      if (tree_row) {
+        qpos[rr] = tree_base - 1;   // the root bounds a tree row
+        wpos[rr] = qpos[rr] + __popcll(anc[rr]);   // its AR position root + depth
+      }
     }
+    if (kAlibi) slope[rr] = r < G ? __ldg(alibi + h * group + r / Q) : 0.f;
   }
   float m_run[kRows / 2], l_run[kRows / 2];
 #pragma unroll
@@ -268,9 +290,11 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll 8
       for (int d = 0; d < kD; ++d) s = fmaf(sm.q[rl][d], ks[tok][d], s);
       if (kScaled) s *= k_sc;
-      if (kCap) s = tanhf(s * inv_cap) * softcap;
       const int kv_pos = t0 + tok;
-      bool live = kv_pos <= qpos[rr] && kv_pos > qpos[rr] - window && kv_pos < ctx;
+      if (kAlibi) s += slope[rr] * static_cast<float>(kv_pos - qpos[rr]);
+      if (kCap) s = tanhf(s * inv_cap) * softcap;
+      const int wref = kTree ? wpos[rr] : qpos[rr];
+      bool live = kv_pos <= qpos[rr] && kv_pos > wref - window && kv_pos < ctx;
       if (kTree) {
         // node (kv_pos - root - 1)'s slot, when it is an ancestor or self
         const unsigned t = static_cast<unsigned>(kv_pos - tree_base);
@@ -362,58 +386,66 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename T, bool kScaled, int kD, bool kCap, bool kTree>
+template <typename T, bool kScaled, int kD, bool kCap, bool kTree, bool kAlibi>
 int launch(const AttnArgs& a) {
   const int smem = static_cast<int>(sizeof(Smem<kD>));   // above the 48 KB default
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, kScaled, kD, kCap, kTree>,
+        paged_attention_kernel<T, kScaled, kD, kCap, kTree, kAlibi>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int G = (a.Hq / a.Hkv) * a.Q;
   dim3 grid((G + kRows - 1) / kRows, a.Hkv, a.B);
-  paged_attention_kernel<T, kScaled, kD, kCap, kTree><<<grid, kThreads, smem, a.stream>>>(
+  paged_attention_kernel<T, kScaled, kD, kCap, kTree, kAlibi>
+      <<<grid, kThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.kv),
       static_cast<const float*>(a.kv_scales), static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.ctx_lens), static_cast<const int*>(a.q_start),
       static_cast<__nv_bfloat16*>(a.out), a.Q, a.Hq, a.Hkv, a.S, a.pages_per_seq,
       a.scale, a.softcap, a.window,
-      static_cast<const unsigned long long*>(a.tree_anc), a.tree_prefix);
+      static_cast<const unsigned long long*>(a.tree_anc), a.tree_prefix,
+      static_cast<const float*>(a.alibi));
   return static_cast<int>(cudaGetLastError());
 }
 
-// the (head dim, softcap) instantiations of one entry type
-template <typename T, bool kScaled, bool kTree>
+// the (head dim, softcap) instantiations of one entry type; with ALiBi only
+// head dim 128 without the softcap or the tree (where the JAX package takes it)
+template <typename T, bool kScaled, bool kTree, bool kAlibi>
 int launch_dim(int head_dim, const AttnArgs& a) {
   const bool cap = a.softcap > 0.f;
-  switch (head_dim) {
-    case 128:
-      return cap ? launch<T, kScaled, 128, true, kTree>(a)
-                 : launch<T, kScaled, 128, false, kTree>(a);
-    case 256:
-      return cap ? launch<T, kScaled, 256, true, kTree>(a)
-                 : launch<T, kScaled, 256, false, kTree>(a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kAlibi) {
+    if (kTree || cap || head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<T, kScaled, 128, false, false, true>(a);
+  } else {
+    switch (head_dim) {
+      case 128:
+        return cap ? launch<T, kScaled, 128, true, kTree, false>(a)
+                   : launch<T, kScaled, 128, false, kTree, false>(a);
+      case 256:
+        return cap ? launch<T, kScaled, 256, true, kTree, false>(a)
+                   : launch<T, kScaled, 256, false, kTree, false>(a);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
-// every instantiation with (kTree) or without the tree mask, by entry type:
-// 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
-template <bool kTree>
+// every instantiation with (kTree) or without the tree mask, with (kAlibi)
+// or without ALiBi, by entry type: 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
+template <bool kTree, bool kAlibi>
 int dispatch(int kv_dtype, int head_dim, const AttnArgs& a) {
   switch (kv_dtype) {
     case 0:
-      return launch_dim<__nv_bfloat16, false, kTree>(head_dim, a);
+      return launch_dim<__nv_bfloat16, false, kTree, kAlibi>(head_dim, a);
     case 1:
-      return launch_dim<int8_t, true, kTree>(head_dim, a);
+      return launch_dim<int8_t, true, kTree, kAlibi>(head_dim, a);
     case 2:
-      return launch_dim<__nv_fp8_e4m3, true, kTree>(head_dim, a);
+      return launch_dim<__nv_fp8_e4m3, true, kTree, kAlibi>(head_dim, a);
     case 3:
-      return launch_dim<__nv_fp8_e5m2, false, kTree>(head_dim, a);
+      return launch_dim<__nv_fp8_e5m2, false, kTree, kAlibi>(head_dim, a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -430,7 +462,8 @@ int dispatch(int kv_dtype, int head_dim, const AttnArgs& a) {
 // Hq % Hkv == 0. tree_anc: null, or the Medusa tree's [T] ancestor words
 // (T <= 64, bit j of word t: node j is an ancestor of node t or t itself);
 // the rows with q index >= tree_prefix are then tree nodes, node t at slot
-// q_start + tree_prefix + t.
+// q_start + tree_prefix + t. alibi: null, or the [Hq] f32 ALiBi slopes (head
+// dim 128, no softcap and no tree: else cudaErrorInvalidValue).
 extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      const void* kv_scales,
                                      const void* block_tables,
@@ -439,10 +472,15 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      int S, int pages_per_seq, int kv_dtype,
                                      int head_dim, float scale, float softcap,
                                      int window, const void* tree_anc,
-                                     int tree_prefix, void* stream) {
+                                     int tree_prefix, const void* alibi,
+                                     void* stream) {
   const AttnArgs a{q, kv, kv_scales, block_tables, ctx_lens, q_start, out,
                    B, Q, Hq, Hkv, S, pages_per_seq, scale, softcap, window,
-                   tree_anc, tree_prefix, static_cast<cudaStream_t>(stream)};
-  if (tree_anc != nullptr) return dispatch<true>(kv_dtype, head_dim, a);
-  return dispatch<false>(kv_dtype, head_dim, a);
+                   tree_anc, tree_prefix, alibi, static_cast<cudaStream_t>(stream)};
+  if (alibi != nullptr) {
+    if (tree_anc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<false, true>(kv_dtype, head_dim, a);
+  }
+  if (tree_anc != nullptr) return dispatch<true, false>(kv_dtype, head_dim, a);
+  return dispatch<false, false>(kv_dtype, head_dim, a);
 }

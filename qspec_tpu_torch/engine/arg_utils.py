@@ -2,33 +2,42 @@
 
 Port of ``qspec_tpu/engine/arg_utils.py`` for the flags the port serves; the
 names are the JAX package's. ``model`` names a preset ("tiny", "llama3-8b"
-or "gemma2-9b"): loading checkpoints is not ported yet. ``quantization``
-"qspec" is a QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one,
-the only kind a Gemma-2 is served as. ``speculative_model="[medusa]"``
-(heads in ``params["medusa"]``) or a heads ``.npz`` (loaded by the ``LLM``
-entry point) selects Medusa, ``spec_medusa_tree`` its candidate tree.
+or "gemma2-9b") or a Hugging Face checkpoint directory, whose config.json
+gives the ModelConfig (``model_loader/loader.py::config_from_hf_dir``; the
+``LLM`` entry point loads its weights). ``quantization`` "qspec" is a
+QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one, the only
+kind a Gemma-2 is served as, None a float one (bf16 weights, the only kind
+a BLOOM or an MPT is served as). ``speculative_model="[medusa]"`` (heads in
+``params["medusa"]``) or a heads ``.npz`` (loaded by the ``LLM`` entry
+point) selects Medusa, ``spec_medusa_tree`` its candidate tree;
+``"[ngram]"`` selects prompt lookup, ``ngram_prompt_lookup_min/max`` its
+n-gram lengths.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import os
 from typing import Optional
 
 from qspec_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
                                     SchedulerConfig, SpeculativeConfig)
+from qspec_tpu_torch.model_loader.loader import config_from_hf_dir
 from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE
 
 PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "gemma2-9b": ModelConfig.gemma2_9b,
            "tiny": ModelConfig.tiny}
 # quantization -> ModelConfig.quant
-QUANT = {"qspec": "w4", "w4": "w4", "int4": "w4", "awq": "w4g", "gptq": "w4g"}
+QUANT = {"qspec": "w4", "w4": "w4", "int4": "w4", "awq": "w4g", "gptq": "w4g",
+         None: "none"}
 
 
 @dataclasses.dataclass
 class EngineArgs:
-    model: str = "tiny"                  # preset name
-    quantization: Optional[str] = "qspec"  # "qspec" (QuaRot w4) | "awq" | "gptq" (w4g)
+    model: str = "tiny"                  # preset name or checkpoint directory
+    # "qspec" (QuaRot w4) | "awq" | "gptq" (w4g) | None (bf16)
+    quantization: Optional[str] = "qspec"
     max_model_len: int = 4096
     max_num_seqs: int = 8
     max_num_batched_tokens: int = 2048
@@ -47,30 +56,41 @@ class EngineArgs:
     spec_rounds_per_step: int = 1
     # MagicDec-style sliding window on the shared-weights draft KV reads
     spec_draft_kv_window: Optional[int] = None
-    # "qspec" | "qspec_null" | "medusa" | "medusa_null" (the "_null" forms:
-    # the same rounds, proposals nulled: the AR oracle); None: "qspec", or
-    # what speculative_model names
+    # "qspec" | "qspec_null" | "medusa" | "medusa_null" | "ngram" | "null"
+    # (the "null" forms: the same rounds, proposals nulled: the AR oracle);
+    # None: "qspec", or what speculative_model names
     speculative_method: Optional[str] = None
     # the reference's --speculative-model: "[medusa]" selects Medusa heads
     # (params must carry a "medusa" subtree), a path to an .npz of heads
-    # loads them (LLM); "[ngram]", "[eagle]", "[mlp_speculator]" are not
-    # ported and raise; None: QSpec's shared-weights draft
+    # loads them (LLM), "[ngram]" prompt lookup; "[eagle]" and
+    # "[mlp_speculator]" are not ported and raise; None: QSpec's
+    # shared-weights draft
     speculative_model: Optional[str] = None
     # Medusa candidate tree: "default" (DEFAULT_TREE without the paths deeper
     # than num_speculative_tokens) or a literal choices tuple such as
     # "((0,),(1,),(0,0))"; None: the single top-1 chain
     spec_medusa_tree: Optional[str] = None
+    # prompt lookup's n-gram lengths (SpeculativeConfig)
+    ngram_prompt_lookup_max: int = 4
+    ngram_prompt_lookup_min: int = 1
     seed: int = 0
 
     def model_config(self) -> ModelConfig:
-        if self.model not in PRESETS:
-            raise NotImplementedError(f"model {self.model!r}: only the presets "
-                                      f"{sorted(PRESETS)} are ported")
         if self.quantization not in QUANT:
             raise NotImplementedError(f"quantization {self.quantization!r}: only "
-                                      f"{sorted(QUANT)} are ported")
-        return PRESETS[self.model](quant=QUANT[self.quantization],
-                                   lm_head_quant=self.lm_head_quant)
+                                      f"{sorted(map(str, QUANT))} are ported")
+        quant = QUANT[self.quantization]
+        if os.path.isdir(self.model):
+            if quant == "w4g":
+                raise NotImplementedError(
+                    "loading an AWQ / GPTQ checkpoint directory is not ported "
+                    "(ROADMAP queue 1 item 6); load_awq / load_gptq take a state dict")
+            return dataclasses.replace(config_from_hf_dir(self.model), quant=quant,
+                                       lm_head_quant=self.lm_head_quant)
+        if self.model not in PRESETS:
+            raise NotImplementedError(f"model {self.model!r}: neither a checkpoint "
+                                      f"directory nor a preset ({sorted(PRESETS)})")
+        return PRESETS[self.model](quant=quant, lm_head_quant=self.lm_head_quant)
 
     def spec_method(self) -> str:
         """The speculative method: ``speculative_method`` where given (it
@@ -88,7 +108,8 @@ class EngineArgs:
                                           "draft checkpoint is not ported")
         if self.speculative_method is None:
             return named or "qspec"
-        if named is not None and self.speculative_method not in (named, f"{named}_null"):
+        oracle = "null" if named == "ngram" else f"{named}_null"
+        if named is not None and self.speculative_method not in (named, oracle):
             raise ValueError(f"speculative_method={self.speculative_method!r} does "
                              f"not go with speculative_model={net!r}")
         return self.speculative_method
@@ -112,7 +133,9 @@ class EngineArgs:
                 method=self.spec_method(),
                 rounds_per_step=self.spec_rounds_per_step,
                 draft_kv_window=self.spec_draft_kv_window,
-                medusa_tree=self.medusa_tree())
+                medusa_tree=self.medusa_tree(),
+                ngram_prompt_lookup_max=self.ngram_prompt_lookup_max,
+                ngram_prompt_lookup_min=self.ngram_prompt_lookup_min)
         return EngineConfig(
             model=self.model_config(),
             cache=CacheConfig(page_size=self.block_size,

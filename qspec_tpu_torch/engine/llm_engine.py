@@ -1,12 +1,15 @@
 """LLMEngine: request lifecycle + continuous-batching event loop.
 
 Port of the prefill / decode / spec-round paths of
-``qspec_tpu/engine/llm_engine.py``. ``speculative=None`` gives plain W4A16
-autoregressive continuous batching; a SpeculativeConfig turns every decode
-step into draft (w4a4, w4a8 or w4a16, optionally under a sliding window) +
-verify (w4a16) rounds over shared weights with per-phase KV caches, or, with
-``method="medusa"``, into Medusa rounds (the heads ride the verify pass: no
-draft forward, no draft cache; a chain or a candidate tree). Requests
+``qspec_tpu/engine/llm_engine.py``. ``speculative=None`` gives plain
+autoregressive continuous batching (W4A16, or bf16 for a float checkpoint);
+a SpeculativeConfig turns every decode step into draft (w4a4, w4a8 or
+w4a16, optionally under a sliding window) + verify (w4a16) rounds over
+shared weights with per-phase KV caches, with ``method="medusa"`` into
+Medusa rounds (the heads ride the verify pass: no draft forward, no draft
+cache; a chain or a candidate tree), or with ``method="ngram"`` into
+prompt-lookup rounds (proposals matched on the device from the sequence's
+own tokens, no draft forward: the proposer of a bf16 checkpoint). Requests
 are token ids: the port has no tokenizer, so stop strings and grammar-guided
 decoding are not ported and are rejected, as are the sampling knobs no
 sampler applies (repetition_penalty, a per-request seed).
@@ -42,9 +45,11 @@ class RequestOutput:
     logprobs: Optional[List[float]] = None
 
 
-SPEC_METHODS = ("qspec", "qspec_null", "medusa", "medusa_null")
+SPEC_METHODS = ("qspec", "qspec_null", "medusa", "medusa_null", "ngram", "null")
 # Medusa's rounds: the heads propose, the "_null" form nulls the proposals
 MEDUSA_METHODS = ("medusa", "medusa_null")
+# prompt lookup's rounds: "null" nulls the proposals (the AR oracle)
+NGRAM_METHODS = ("ngram", "null")
 
 
 def _check_supported(config: EngineConfig) -> None:
@@ -56,6 +61,10 @@ def _check_supported(config: EngineConfig) -> None:
                                       f"not ported ({', '.join(SPEC_METHODS)})")
         if spec.medusa_tree is not None and spec.method not in MEDUSA_METHODS:
             raise ValueError("medusa_tree needs method='medusa' or 'medusa_null'")
+        if spec.method in NGRAM_METHODS and not (
+                1 <= spec.ngram_prompt_lookup_min <= spec.ngram_prompt_lookup_max):
+            raise ValueError("n-gram lookup needs 1 <= ngram_prompt_lookup_min <= "
+                             "ngram_prompt_lookup_max")
         if spec.draft_scheme not in ("w4a4", "w4a8", "w4a16"):
             raise NotImplementedError(f"draft_scheme {spec.draft_scheme!r}")
     if config.scheduler.preemption_mode != "recompute":
@@ -76,9 +85,11 @@ class LLMEngine:
             # a tree round writes T node slots past the position and
             # advances at most D + 1: the tables must reach the (T - D) more
             lookahead += len(self.spec.medusa_tree) + 1
-        # Medusa proposes from the verify pass's hidden state: no draft cache
+        # Medusa proposes from the verify pass's hidden state, n-gram lookup
+        # from the tokens: neither has a draft cache
         self._medusa = self.spec is not None and self.spec.method in MEDUSA_METHODS
-        self._draft_cache = self.spec is not None and not self._medusa
+        self._ngram = self.spec is not None and self.spec.method in NGRAM_METHODS
+        self._draft_cache = self.spec is not None and not (self._medusa or self._ngram)
         if num_pages is None:
             num_pages = self._derive_num_pages()
         self.runner = ModelRunner(config, params, num_pages,
@@ -177,7 +188,7 @@ class LLMEngine:
             if s.num_computed_tokens >= s.prefill_len:
                 s.check_stop(self.eos_token_id)
         for s in self.scheduler.free_finished():
-            self.runner.free_ring_row(s)
+            self.runner.free_rows(s)
             outputs.append(self._to_output(s))
         for s in touched:
             if not s.is_finished:
@@ -266,6 +277,9 @@ class LLMEngine:
         if self._medusa:
             tokens, accepted, lps = self.runner.run_medusa_rounds(
                 seqs, st, enable=self.spec.method == "medusa", chain=chain)
+        elif self._ngram:
+            tokens, accepted, lps = self.runner.run_ngram_rounds(
+                seqs, st, enable=self.spec.method == "ngram", chain=chain)
         else:
             tokens, accepted, lps = self.runner.run_spec_rounds(
                 seqs, st, num_rounds=self.spec.rounds_per_step, chain=chain,

@@ -22,6 +22,12 @@ one rectangle under the tree mask and walks it
 (``medusa_tree_rounds_step``). The proposals and the tree's prefix tokens
 live in per-sequence rows of small device tensors (``ModelRunner``).
 
+N-gram prompt lookup (``method="ngram"``, the proposer of a bf16
+checkpoint) also has no draft forward: each sequence's tokens live in a row
+of a device history bank, the proposals are matched there
+(``ops/ngram.py``), verified under the one-hot rule, and the accepted
+tokens appended to the row, all inside ``ngram_rounds_step``.
+
 All control flow inside a step (token advancement, accepted lengths, budgets)
 stays in tensors on the device, so a fused call reads nothing back until the
 caller asks for the tokens.
@@ -40,6 +46,7 @@ from qspec_tpu_torch.config import EngineConfig
 from qspec_tpu_torch.models.llama import AttentionBatch, model_forward, resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import TreeMask, tree_mask
+from qspec_tpu_torch.ops.ngram import ngram_match_device
 from qspec_tpu_torch.ops.sampling import (SamplingTensors, rejection_sample,
                                           rejection_sample_onehot, sample,
                                           sample_with_logprob, sampling_probs)
@@ -229,7 +236,6 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     """
     last, prev, pos, budget = last_tokens, prev_tokens, start_pos, max_new
     out_t, out_a, out_l = [], [], []
-    slots = torch.arange(k + 1, device=last.device)[None, :]
     for _ in range(num_rounds):
         d_toks, d_probs, draft_cache = _draft_impl(
             params, draft_cache, last, pos, draft_block_tables, st, gen,
@@ -241,23 +247,14 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
         result, cache = _verify_impl(params, cache, last, d_toks, d_probs, pos,
                                      block_tables, st, gen, cfg=cfg,
                                      scheme=verify_scheme)
-        active = budget > 0
-        acc = torch.minimum(result.accepted_len, budget.clamp_min(0))
-        acc = torch.where(active, acc.clamp_min(1), torch.zeros_like(acc))
-        live = slots < acc[:, None]
-        toks = torch.where(live, result.tokens, torch.full_like(result.tokens, -1))
-        lps = torch.where(live, result.token_logprobs,
-                          torch.zeros_like(result.token_logprobs))
         # advance: the next input is the last emitted token, position += acc
-        idx1 = (acc - 1).clamp_min(0).to(torch.int64)[:, None]
-        new_last = result.tokens.gather(1, idx1)[:, 0]
-        new_last = torch.where(active, new_last, last)
+        acc, toks, lps, new_last = _advance(result, budget, last, k)
         # predecessor (at the new position - 1) for the next draft's backfill:
         # emitted[acc-2] when >= 2 tokens were emitted, else this round's last
         idx2 = (acc - 2).clamp_min(0).to(torch.int64)[:, None]
         cand = result.tokens.gather(1, idx2)[:, 0]
         new_prev = torch.where(acc >= 2, cand, last)
-        prev = torch.where(active, new_prev, prev)
+        prev = torch.where(budget > 0, new_prev, prev)
         last = new_last
         pos = pos + acc
         budget = budget - acc
@@ -266,6 +263,66 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
         out_l.append(lps)
     return (torch.stack(out_t), torch.stack(out_a), torch.stack(out_l),
             (last, prev, pos, budget), draft_cache, cache)
+
+
+def _advance(result, budget, last, k: int):
+    """A verified round's emitted rectangle and advance: ``acc`` [B] tokens
+    emitted (at least 1 while the budget lasts, 0 after), the tokens and
+    logprobs -1 / 0 past it, and the next input token (the last emitted)."""
+    active = budget > 0
+    acc = torch.minimum(result.accepted_len, budget.clamp_min(0))
+    acc = torch.where(active, acc.clamp_min(1), torch.zeros_like(acc))
+    live = torch.arange(k + 1, device=last.device)[None, :] < acc[:, None]
+    toks = torch.where(live, result.tokens, torch.full_like(result.tokens, -1))
+    lps = torch.where(live, result.token_logprobs, torch.zeros_like(result.token_logprobs))
+    idx = (acc - 1).clamp_min(0).to(torch.int64)[:, None]
+    new_last = torch.where(active, result.tokens.gather(1, idx)[:, 0], last)
+    return acc, toks, lps, new_last
+
+
+def ngram_rounds_step(params, cache, history, hist_rows, hist_len, last_tokens,
+                      start_pos, block_tables, max_new, enable: bool, st, gen, *,
+                      cfg, scheme, k, num_rounds=1, nmin=1, nmax=4):
+    """``num_rounds`` prompt-lookup rounds (``qspec_tpu/engine/model_runner.py::
+    ngram_rounds_step``): each matches its sequence's row of ``history``
+    (ops/ngram.py), verifies the k proposals under the one-hot rule in one
+    pass and appends the emitted tokens to the row. No draft forward runs
+    and nothing is read back to the host.
+
+    ``history`` [rows, Hmax + 1] int32, updated in place: one row per
+    sequence, tokens 0..hist_len-1 valid, the last column a trash slot that
+    takes the writes of unemitted slots; ``hist_rows`` [B] the batch's rows
+    (padded lanes share a scratch row, and append nothing: their budget is 0).
+    ``enable=False`` nulls every proposal: each round emits exactly the AR
+    token through the same computation at the same shapes (the oracle,
+    ``method="null"``).
+
+    Returns (tokens [R, B, k+1] (-1 padded), accepted [R, B], logprobs
+    [R, B, k+1], (last, pos, hist_len, budget), cache).
+    """
+    rows = hist_rows.to(torch.int64)
+    trash = history.shape[1] - 1
+    last, pos, hlen, budget = last_tokens, start_pos, hist_len, max_new
+    slots = torch.arange(k + 1, device=last.device)[None, :]
+    out_t, out_a, out_l = [], [], []
+    for _ in range(num_rounds):
+        props = ngram_match_device(history[rows, :trash], hlen, k=k, nmin=nmin, nmax=nmax)
+        if not enable:
+            props = torch.full_like(props, -1)
+        result, cache = _verify_impl(params, cache, last, props, None, pos, block_tables,
+                                     st, gen, cfg=cfg, scheme=scheme)
+        acc, toks, lps, last = _advance(result, budget, last, k)
+        # append the emitted tokens to each row; the slots past a round's
+        # tokens (and past the bank's end) go to the trash column
+        cols = hlen.to(torch.int64)[:, None] + slots
+        cols = torch.where((slots < acc[:, None]) & (cols < trash), cols, trash)
+        history.index_put_((rows[:, None].expand_as(cols), cols), toks.to(history.dtype))
+        pos, hlen, budget = pos + acc, hlen + acc, budget - acc
+        out_t.append(toks)
+        out_a.append(acc)
+        out_l.append(lps)
+    return (torch.stack(out_t), torch.stack(out_a), torch.stack(out_l),
+            (last, pos, hlen, budget), cache)
 
 
 def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
@@ -290,7 +347,6 @@ def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
     rows = prop_rows.to(torch.int64)
     last, pos, budget = last_tokens, start_pos, max_new
     out_t, out_a, out_l = [], [], []
-    slots = torch.arange(k + 1, device=last.device)[None, :]
     for _ in range(num_rounds):
         p_b = props[rows][:, :k]
         if not enable:
@@ -298,18 +354,11 @@ def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
         (result, hidden), cache = _verify_impl(params, cache, last, p_b, None, pos,
                                                block_tables, st, gen, cfg=cfg,
                                                scheme=scheme, return_hidden=True)
-        active = budget > 0
-        acc = torch.minimum(result.accepted_len, budget.clamp_min(0))
-        acc = torch.where(active, acc.clamp_min(1), torch.zeros_like(acc))
-        live = slots < acc[:, None]
-        toks = torch.where(live, result.tokens, torch.full_like(result.tokens, -1))
-        lps = torch.where(live, result.token_logprobs,
-                          torch.zeros_like(result.token_logprobs))
+        acc, toks, lps, new_last = _advance(result, budget, last, k)
         idx = (acc - 1).clamp_min(0).to(torch.int64)[:, None]
-        new_last = torch.where(active, result.tokens.gather(1, idx)[:, 0], last)
         h_star = hidden.gather(1, idx[:, :, None].expand(-1, 1, hidden.shape[-1]))[:, 0]
         new_p = medusa_propose(params["medusa"], h_star)              # [B, K]
-        props[rows] = torch.where(active[:, None], new_p, props[rows])
+        props[rows] = torch.where((budget > 0)[:, None], new_p, props[rows])
         last, pos, budget = new_last, pos + acc, budget - acc
         out_t.append(toks)
         out_a.append(acc)
@@ -463,6 +512,36 @@ def medusa_tree_rounds_step(params, cache, props, recent_bank, prop_rows, start_
 # ---------------------------------------------------------------------------
 
 
+class RowBank:
+    """Which row of a per-sequence device bank each sequence holds. The bank
+    has one row per decode-batch slot plus a last row, the scratch row that
+    padded batch lanes read and write, never assigned. ``synced`` keeps, per
+    sequence, what the host last knew its row to hold; it goes with the row."""
+
+    def __init__(self, rows: int):
+        self.scratch = rows - 1
+        self.slot: dict = {}
+        self.synced: dict = {}
+
+    def assign(self, sid, live_ids) -> tuple:
+        """(row, new): the sequence's row, a fresh one if it held none. When
+        every row is taken, a sequence outside the batch gives its row up."""
+        if sid in self.slot:
+            return self.slot[sid], False
+        used = set(self.slot.values())
+        row = next((r for r in range(self.scratch) if r not in used), None)
+        if row is None:
+            victim = next(s for s in self.slot if s not in live_ids)
+            row = self.slot.pop(victim)
+            self.synced.pop(victim, None)
+        self.slot[sid] = row
+        return row, True
+
+    def free(self, sid) -> None:
+        self.slot.pop(sid, None)
+        self.synced.pop(sid, None)
+
+
 def draft_window(config: EngineConfig) -> Optional[int]:
     """The windowed draft's window: SpeculativeConfig.draft_kv_window, capped
     by the model's own sliding window; None without a draft window."""
@@ -521,12 +600,17 @@ class ModelRunner:
         page_size = config.cache.page_size
         spec = config.speculative
         self._medusa = spec is not None and spec.method in ("medusa", "medusa_null")
-        if (spec is not None and not self._medusa and self.cfg.quant == "w4g"
-                and spec.draft_scheme != "w4a16"):
-            raise ValueError(
-                "AWQ/GPTQ (w4g) checkpoints have no QuaRot rotations, so the "
-                "shared-weights w4a4/w4a8 draft scheme is unavailable; use "
-                "draft_scheme='w4a16' (with draft_kv_window)")
+        self._ngram = spec is not None and spec.method in ("ngram", "null")
+        if spec is not None and not (self._medusa or self._ngram):
+            if self.cfg.quant == "none":
+                raise ValueError("a bf16 (quant='none') checkpoint has no int4 "
+                                 "weights, so QSpec's shared-weights draft cannot "
+                                 "run on it; use method='ngram' or 'medusa'")
+            if self.cfg.quant == "w4g" and spec.draft_scheme != "w4a16":
+                raise ValueError(
+                    "AWQ/GPTQ (w4g) checkpoints have no QuaRot rotations, so the "
+                    "shared-weights w4a4/w4a8 draft scheme is unavailable; use "
+                    "draft_scheme='w4a16' (with draft_kv_window)")
         kv_cfg = kvc.KVCacheConfig(
             num_layers=self.cfg.num_layers, num_kv_heads=self.cfg.cache_kv_heads,
             head_dim=self.cfg.cache_head_dim, num_pages=num_pages,
@@ -542,7 +626,7 @@ class ModelRunner:
         self.max_pages_per_seq = -(-config.scheduler.max_model_len // page_size)
         self._ring_pages = ring_pages(config) if need_draft_cache else 0
         self._ring_rows = ring_rows(config) if self._ring_pages else 0
-        self._ring_slot: dict = {}
+        self._ring = RowBank(self._ring_rows)
         if self._ring_pages:
             # wrap pattern of every table row: 1 + ring_row * R + lp % R
             self._ring_base = np.arange(self.max_pages_per_seq,
@@ -552,16 +636,30 @@ class ModelRunner:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.k = spec.num_speculative_tokens if spec else 1
         self.draft_scheme = spec.draft_scheme if spec else "w4a4"
-        self.verify_scheme = "w4a16"
-        # verify passes run by run_medusa_rounds (each a forward of the target)
+        # the target's scheme: bf16 for a float checkpoint, else W4A16
+        self.verify_scheme = "bf16" if self.cfg.quant == "none" else "w4a16"
+        # verify passes run by run_medusa_rounds / run_ngram_rounds, and every
+        # forward of the target (prompt chunks, decode steps, verify passes)
         self.spec_rounds_run = 0
+        self.target_forwards = 0
+        # the Medusa and n-gram banks: one row per decode-batch slot plus
+        # the scratch row
+        rows = max(config.scheduler.decode_batch_buckets) + 1
         self._mprops = self._mtree = self._mrecent = None
-        self._mprop_slot: dict = {}
-        self._mrecent_synced: dict = {}
+        self._mbank = RowBank(rows)
         if self._medusa:
-            self._init_medusa(spec, params)
+            self._init_medusa(spec, params, rows)
+        # the n-gram rounds' token history, a row long enough for a whole
+        # sequence and one call's rounds
+        self._hist = None
+        self._hbank = RowBank(rows)
+        if self._ngram:
+            hmax = (config.scheduler.max_model_len
+                    + (self.k + 1) * max(spec.rounds_per_step, 1) + 8)
+            self._hist = torch.zeros((rows, hmax + 1), dtype=torch.int32,
+                                     device=self.device)
 
-    def _init_medusa(self, spec, params) -> None:
+    def _init_medusa(self, spec, params, rows: int) -> None:
         if "medusa" not in params:
             raise ValueError(f"speculative.method={spec.method!r} but params carry no "
                              "'medusa' net (load it with spec_decode.medusa.load_medusa)")
@@ -569,7 +667,6 @@ class ModelRunner:
         if self.k > n_heads:
             raise ValueError(f"num_speculative_tokens={self.k} exceeds the {n_heads} "
                              "trained proposer heads")
-        rows = max(self.config.scheduler.decode_batch_buckets) + 1   # + the scratch row
         if spec.medusa_tree is None:
             self._mprops = torch.full((rows, n_heads), -1, dtype=torch.int32,
                                       device=self.device)
@@ -654,6 +751,7 @@ class ModelRunner:
         ring = draft and self._ring_pages
         tables = (self._t(self._ring_tables([c[0] for c in chunks], B)) if ring
                   else self._pad_block_tables(tables))
+        self.target_forwards += not draft
         logits, _ = prefill_step(
             self.params, self.draft_cache if draft else self.cache,
             self._t(toks), self._t(positions), tables, self._t(ctx),
@@ -692,6 +790,7 @@ class ModelRunner:
         toks, lps, _ = decode_step(self.params, self.cache, self._t(last),
                                    self._t(pos), tables, st, self.gen,
                                    cfg=self.cfg, scheme=self.verify_scheme)
+        self.target_forwards += 1
         n = len(seqs)
         return toks.cpu().numpy()[None, :n], lps.cpu().numpy()[None, :n]
 
@@ -721,26 +820,33 @@ class ModelRunner:
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()
         accs = torch.cat([p[1] for p in parts]).cpu().numpy()
         lps = torch.cat([p[2] for p in parts]).cpu().numpy()
+        self.target_forwards += toks.shape[0]
         return toks[:, :n], accs[:, :n], lps[:, :n]
 
-    # -- Medusa ------------------------------------------------------------
-    def _mprop_row_for(self, seq, live_ids) -> int:
-        """Assign (or reuse) a proposal row; a fresh row is reset to -1 (no
-        proposal: its first round emits one AR token and seeds the heads).
-        When every row is taken, a sequence outside the batch gives its row
-        up. The last row is the padded lanes' scratch row, never assigned."""
-        sid = seq.seq_id
-        if sid in self._mprop_slot:
-            return self._mprop_slot[sid]
-        used = set(self._mprop_slot.values())
-        row = next((r for r in range(self._mprops.shape[0] - 1) if r not in used), None)
-        if row is None:
-            victim = next(s for s in self._mprop_slot if s not in live_ids)
-            row = self._mprop_slot.pop(victim)
-            self._mrecent_synced.pop(victim, None)
-        self._mprop_slot[sid] = row
-        self._mprops[row] = -1
-        return row
+    # -- Medusa and n-gram rounds ------------------------------------------
+    def _round_inputs(self, seqs, bank: RowBank):
+        """``_decode_inputs`` (less ``prev``) and each sequence's row of
+        ``bank``: padded lanes take the scratch row, in range and never a
+        live row. Also the rows newly assigned."""
+        B, last, _, pos, max_new, tables = self._decode_inputs(seqs)
+        live_ids = {s.seq_id for s in seqs}
+        rows = np.full(B, bank.scratch, np.int64)
+        new = []
+        for i, s in enumerate(seqs):
+            rows[i], fresh = bank.assign(s.seq_id, live_ids)
+            if fresh:
+                new.append(int(rows[i]))
+        return B, last, pos, max_new, rows, new, tables
+
+    def _chained(self, step, chain: int, n: int):
+        """``step()`` issued ``chain`` times back to back (its state stays on
+        the device), then read back once: numpy (tokens, accepted, logprobs)
+        of the ``n`` live lanes, each [chain*R, n, ...]."""
+        parts = [step() for _ in range(max(1, chain))]
+        toks, accs, lps = (torch.cat([p[j] for p in parts]).cpu().numpy() for j in range(3))
+        self.spec_rounds_run += toks.shape[0]
+        self.target_forwards += toks.shape[0]
+        return toks[:, :n], accs[:, :n], lps[:, :n]
 
     def _sync_recent(self, seqs, prop_rows) -> None:
         """Write each sequence's last D+1 tokens (left-padded with its first)
@@ -749,7 +855,7 @@ class ModelRunner:
         W = self._mrecent.shape[1]
         rows, vals = [], []
         for i, s in enumerate(seqs):
-            if self._mrecent_synced.get(s.seq_id) != (prop_rows[i], s.num_tokens):
+            if self._mbank.synced.get(s.seq_id) != s.num_tokens:
                 tail = s.token_ids[-W:]
                 rows.append(prop_rows[i])
                 vals.append([tail[0]] * (W - len(tail)) + list(tail))
@@ -760,56 +866,78 @@ class ModelRunner:
                           chain: int = 1):
         """``rounds_per_step`` Medusa rounds (the chain, or the tree under
         ``medusa_tree``) per call, ``chain`` calls back to back on
-        device-resident state. ``enable=False``: the same rounds with the
-        proposals nulled (the AR oracle). Returns numpy (tokens
-        [chain*R, n, width] (-1 padded), accepted [chain*R, n], logprobs)."""
-        B = self._bucket_batch(len(seqs))
-        live_ids = {s.seq_id for s in seqs}
-        last = np.zeros(B, np.int32)
-        pos = np.zeros(B, np.int32)
-        max_new = np.zeros(B, np.int32)
-        # padded lanes take the scratch row: in range, and never a live row
-        prop_rows = np.full(B, self._mprops.shape[0] - 1, np.int64)
-        tables = [[] for _ in range(B)]
-        for i, s in enumerate(seqs):
-            last[i] = s.last_token()
-            pos[i] = s.num_tokens - 1
-            max_new[i] = max(s.sampling_params.max_tokens - len(s.output_token_ids), 0)
-            tables[i] = s.page_ids
-            prop_rows[i] = self._mprop_row_for(s, live_ids)
+        device-resident state. A new row's proposals are reset to -1 (no
+        proposal: its first round emits one AR token and seeds the heads).
+        ``enable=False``: the same rounds with the proposals nulled (the AR
+        oracle). Returns numpy (tokens [chain*R, n, width] (-1 padded),
+        accepted [chain*R, n], logprobs)."""
+        B, last, pos, max_new, prop_rows, new, tables_d = self._round_inputs(seqs, self._mbank)
+        if new:
+            self._mprops[self._t(new, torch.int64)] = -1
         st = self.sampling_tensors(sampling, len(seqs), B)
         rows_d = self._t(prop_rows, torch.int64)
-        tables_d = self._pad_block_tables(tables)
-        pos_d, budget_d = self._t(pos), self._t(max_new)
+        state = [self._t(last), self._t(pos), self._t(max_new)]
         rounds = self.config.speculative.rounds_per_step
         if self._mtree is not None:
             self._sync_recent(seqs, prop_rows)
-        else:
-            last_d = self._t(last)
-        parts = []
-        for _ in range(max(1, chain)):
+
+        def step():
             if self._mtree is not None:
-                toks, accs, lps, (pos_d, budget_d), _ = medusa_tree_rounds_step(
-                    self.params, self.cache, self._mprops, self._mrecent, rows_d, pos_d,
-                    tables_d, budget_d, enable, st, self.gen, cfg=self.cfg,
+                toks, accs, lps, state[1:], _ = medusa_tree_rounds_step(
+                    self.params, self.cache, self._mprops, self._mrecent, rows_d, state[1],
+                    tables_d, state[2], enable, st, self.gen, cfg=self.cfg,
                     scheme=self.verify_scheme, tree=self._mtree, num_rounds=rounds)
             else:
-                toks, accs, lps, (last_d, pos_d, budget_d), _ = medusa_rounds_step(
-                    self.params, self.cache, self._mprops, rows_d, last_d, pos_d,
-                    tables_d, budget_d, enable, st, self.gen, cfg=self.cfg,
+                toks, accs, lps, state[:], _ = medusa_rounds_step(
+                    self.params, self.cache, self._mprops, rows_d, *state[:2],
+                    tables_d, state[2], enable, st, self.gen, cfg=self.cfg,
                     scheme=self.verify_scheme, k=self.k, num_rounds=rounds)
-            parts.append((toks, accs, lps))
-        n = len(seqs)
-        toks = torch.cat([p[0] for p in parts]).cpu().numpy()
-        accs = torch.cat([p[1] for p in parts]).cpu().numpy()
-        lps = torch.cat([p[2] for p in parts]).cpu().numpy()
-        self.spec_rounds_run += toks.shape[0]
+            return toks, accs, lps
+        toks, accs, lps = self._chained(step, chain, len(seqs))
         if self._mtree is not None:
             for i, s in enumerate(seqs):
                 # the rounds rolled this row to the length the tokens give
-                self._mrecent_synced[s.seq_id] = (prop_rows[i],
-                                                  s.num_tokens + int(accs[:, i].sum()))
-        return toks[:, :n], accs[:, :n], lps[:, :n]
+                self._mbank.synced[s.seq_id] = s.num_tokens + int(accs[:, i].sum())
+        return toks, accs, lps
+
+    def run_ngram_rounds(self, seqs, sampling: SamplingTensors, enable: bool = True,
+                         chain: int = 1):
+        """``rounds_per_step`` prompt-lookup rounds per call, ``chain`` calls
+        back to back on device-resident state (``ngram_rounds_step``). A
+        sequence's history row is written from the host only when its tokens
+        moved on without the rounds (a new row, a prefill, a preemption).
+        ``enable=False``: the same rounds with the proposals nulled (the AR
+        oracle, ``method="null"``). Returns numpy (tokens [chain*R, n, k+1]
+        (-1 padded), accepted [chain*R, n], logprobs)."""
+        B, last, pos, max_new, hist_rows, _, tables_d = self._round_inputs(seqs, self._hbank)
+        hist_len = np.zeros(B, np.int32)
+        for i, s in enumerate(seqs):
+            if self._hbank.synced.get(s.seq_id) != s.num_tokens:
+                self._hist[int(hist_rows[i]), :s.num_tokens] = self._t(s.token_ids)
+            hist_len[i] = s.num_tokens
+        st = self.sampling_tensors(sampling, len(seqs), B)
+        spec = self.config.speculative
+        state = [self._t(last), self._t(pos), self._t(hist_len), self._t(max_new)]
+        rows_d = self._t(hist_rows, torch.int64)
+
+        def step():
+            toks, accs, lps, state[:], _ = ngram_rounds_step(
+                self.params, self.cache, self._hist, rows_d, state[2], state[0], state[1],
+                tables_d, state[3], enable, st, self.gen, cfg=self.cfg,
+                scheme=self.verify_scheme, k=self.k, num_rounds=spec.rounds_per_step,
+                nmin=spec.ngram_prompt_lookup_min, nmax=spec.ngram_prompt_lookup_max)
+            return toks, accs, lps
+        toks, accs, lps = self._chained(step, chain, len(seqs))
+        for i, s in enumerate(seqs):
+            # the rounds appended this row's emitted tokens
+            self._hbank.synced[s.seq_id] = s.num_tokens + int(accs[:, i].sum())
+        return toks, accs, lps
+
+    def free_rows(self, seq) -> None:
+        """Release a finished sequence's rows of every bank (each a no-op
+        without one)."""
+        for bank in (self._ring, self._mbank, self._hbank):
+            bank.free(seq.seq_id)
 
     # -- ring-buffer draft KV (windowed shared-weights draft) --------------
     @property
@@ -819,37 +947,23 @@ class ModelRunner:
         one scatter). Always >= window + k + page_size."""
         return (self._ring_pages - 1) * self.page_size
 
-    def _ring_row_for(self, seq, live_ids) -> int:
-        """Assign (or reuse) a draft-KV ring row for a sequence; evict rows
-        of sequences not in the current batch when full (acceptance-only
-        cost: the evictee's draft window rebuilds through backfill)."""
-        sid = seq.seq_id
-        if sid in self._ring_slot:
-            return self._ring_slot[sid]
-        used = set(self._ring_slot.values())
-        # the last row is the padded-lane scratch ring, never assigned
-        row = next((r for r in range(self._ring_rows - 1) if r not in used), None)
-        if row is None:
-            victim = next(s for s in self._ring_slot if s not in live_ids)
-            row = self._ring_slot.pop(victim)
-        self._ring_slot[sid] = row
-        return row
-
     def _ring_tables(self, seqs, B: int) -> np.ndarray:
         """[B, max_pages_per_seq] draft block tables under the ring layout:
         entry lp -> 1 + row * R + lp % R. Padded lanes ride the scratch
-        ring."""
+        ring. A sequence takes a free row, or the row of one outside the
+        batch (acceptance-only cost: the evictee's draft window rebuilds
+        through backfill)."""
         live = {s.seq_id for s in seqs}
-        scratch = 1 + (self._ring_rows - 1) * self._ring_pages
+        scratch = 1 + self._ring.scratch * self._ring_pages
         out = np.empty((B, self.max_pages_per_seq), np.int32)
         out[:] = scratch + self._ring_base
         for i, s in enumerate(seqs):
-            out[i] = 1 + self._ring_row_for(s, live) * self._ring_pages + self._ring_base
+            out[i] = 1 + self._ring.assign(s.seq_id, live)[0] * self._ring_pages + self._ring_base
         return out
 
     def free_ring_row(self, seq) -> None:
         """Release a sequence's ring row (a no-op without a ring or a row)."""
-        self._ring_slot.pop(seq.seq_id, None)
+        self._ring.free(seq.seq_id)
 
 
 def make_sampling_tensors(seqs, vocab_size: Optional[int] = None,

@@ -23,18 +23,29 @@ or from an .npz of trained heads:
     llm = LLM(model="tiny", num_speculative_tokens=4,
               speculative_model="heads.npz")
 
-Without ``params`` the weights are random, made on the device from ``seed``
-(``models.llama.init_params``).
+A BLOOM or MPT checkpoint directory (Hugging Face layout: config.json and
+``*.safetensors``) is served in bf16 with n-gram prompt lookup, or
+autoregressively without ``num_speculative_tokens``:
+
+    llm = LLM(model="/path/to/bloom-7b1", quantization=None,
+              num_speculative_tokens=3, speculative_model="[ngram]")
+
+Without ``params`` or a directory the weights are random, made on the
+device from ``seed`` (``models.llama.init_params``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
 from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
+from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
+from qspec_tpu_torch.model_loader.loader import read_safetensors
 from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.medusa import load_medusa
@@ -46,7 +57,9 @@ class LLM:
                  **engine_kwargs):
         args = EngineArgs(model=model, seed=seed, **engine_kwargs)
         self.engine_config = args.create_engine_config()
-        if params is None:
+        if params is None and os.path.isdir(model):
+            params = self._load_dir(model, device)
+        elif params is None:
             params = init_params(self.engine_config.model, seed=seed, device=device)
         net = args.speculative_model
         if net is not None and net.endswith(".npz"):
@@ -59,6 +72,22 @@ class LLM:
         self.llm_engine = LLMEngine(self.engine_config, params,
                                     eos_token_id=eos_token_id, device=device,
                                     seed=seed)
+
+    def _load_dir(self, path: str, device):
+        """A float checkpoint directory of a ported family: its safetensors,
+        converted on ``device`` (``qspec_tpu/entrypoints/llm.py``'s family
+        route). The JAX package's other routes raise."""
+        cfg = self.engine_config.model
+        if cfg.quant != "none" or cfg.arch not in CONVERTERS:
+            raise NotImplementedError(
+                f"{path}: only the float checkpoints of {sorted(CONVERTERS)} load "
+                "(quantization=None); QuaRot quantization of a float checkpoint "
+                "(quantize_float), llama-keyed float checkpoints (load_hf_float) and "
+                "QSpec checkpoints (load_qspec) are ROADMAP queue 1 item 1")
+        params, cfg = load_family_float(read_safetensors(path), cfg,
+                                        device=resolve_device(device))
+        self.engine_config = dataclasses.replace(self.engine_config, model=cfg)
+        return params
 
     def generate(self, prompts: Sequence[List[int]],
                  sampling_params: Optional[Union[SamplingParams,

@@ -18,6 +18,14 @@ gamma norms, the grouped int4 GEMM ``matmul_w4a16_g``):
     x - rmsnorm(gamma) - qkv - rope - paged KV write - attention - o
       - +residual - rmsnorm(gamma) - gate_up - silu*up - down - +residual
 
+A float checkpoint (``quant="none"``: BLOOM, MPT) runs the bf16 scheme, a
+plain bf16 GEMM with an f32 result per projection (``jnp.dot`` in the JAX
+package, no Pallas kernel there either), with the GPT-family knobs:
+
+    x - [embed LayerNorm] - LayerNorm(+beta) - qkv(+b) - [clip] - paged KV
+      write - attention with ALiBi (no rope) - o(+b) - +residual
+      - LayerNorm(+beta) - fc1(+b) - gelu - fc2(+b) - +residual
+
 Gemma-2 (``arch="gemma2"``, served as ``quant="w4g"``) is the same w4g
 graph with its own knobs, as in the JAX package: embeddings times
 ``embed_scale`` in bf16; the query scale ``query_pre_attn_scalar ** -0.5``
@@ -40,8 +48,14 @@ bf16; ``lm_head`` by ``ModelConfig.lm_head_quant``: ``{"qw8": int8 [H, V],
 [L, K//g, N], "qo_g": f32 [L, K//g, N]}`` (model_loader/grouped.py), the
 gammas ``layers["input_norm"]``, ``layers["post_norm"]`` bf16 [L, H] (with
 ``post_norms`` also ``layers["post_attn_norm"]``, ``layers["post_ffw_norm"]``)
-and ``final_norm`` bf16 [H], and no Hadamards. The layer-stacked weights are read
-in place by the kernels (``layer_idx``).
+and ``final_norm`` bf16 [H], and no Hadamards. A bf16 tree (``quant="none"``)
+has ``layers[name] = {"w": bf16 [L, K, N]}`` with ``"b": bf16 [L, N]`` under
+``linear_bias`` (BLOOM: every projection; MPT: none), the gammas, under
+LayerNorm the betas ``layers["input_norm_b"]`` / ``["post_norm_b"]`` and
+``final_norm_b`` where the checkpoint has them, BLOOM's ``embed_norm`` /
+``embed_norm_b``, a bf16 head (tied: a view of ``embed``'s storage) and,
+under ALiBi, ``alibi_slopes`` f32 [Hq] and no rope cache. The layer-stacked
+weights are read in place by the kernels (``layer_idx``).
 
 The Hadamard rotations are computed in float64: their ±1 sums of bf16
 inputs are then exact, so the result does not depend on how the GEMM library
@@ -60,7 +74,7 @@ import torch
 
 from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.ops import kv_cache as kvc
-from qspec_tpu_torch.ops.attention import paged_attention
+from qspec_tpu_torch.ops.attention import alibi_slopes, paged_attention
 from qspec_tpu_torch.ops.hadamard import decompose_dim, hadamard_matrix
 from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
                                                 matmul_w4a16_g, matmul_w8a16)
@@ -72,7 +86,7 @@ from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
 from qspec_tpu_torch.ops.rmsnorm_quant import rmsnorm, rmsnorm_quant
 from qspec_tpu_torch.ops.rotary import apply_rope, make_rope_cache
 
-SCHEMES = ("w4a4", "w4a8", "w4a16")
+SCHEMES = ("w4a4", "w4a8", "w4a16", "bf16")
 QUANT_ACT_SCHEMES = ("w4a4", "w4a8")  # draft schemes with quantized activations
 PROJECTIONS = ("qkv", "o", "gate_up", "down")
 
@@ -89,17 +103,60 @@ class AttentionBatch(NamedTuple):
 
 def _linear(x, w, scheme, xq=None, li=None):
     """One projection by scheme; ``w`` holds the layer-stacked "qw"/"qs"
-    (QuaRot) or "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only)."""
-    if "qo_g" in w:
-        return matmul_w4a16_g(x, w["qw"], w["qs_g"], w["qo_g"], layer_idx=li)
-    if scheme == "w4a16":
-        return matmul_w4a16(x, w["qw"], w["qs"], layer_idx=li)
-    return matmul_w4a4(xq.values, xq.scales, w["qw"], w["qs"], layer_idx=li)
+    (QuaRot), "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only) or "w" (bf16),
+    and a bias "b" where the checkpoint has one."""
+    if scheme == "bf16":
+        out = bf16_matmul(x, w["w"][li])
+    elif "qo_g" in w:
+        out = matmul_w4a16_g(x, w["qw"], w["qs_g"], w["qo_g"], layer_idx=li)
+    elif scheme == "w4a16":
+        out = matmul_w4a16(x, w["qw"], w["qs"], layer_idx=li)
+    else:
+        out = matmul_w4a4(xq.values, xq.scales, w["qw"], w["qs"], layer_idx=li)
+    if "b" in w:
+        out = out + w["b"][li].to(out.dtype)
+    return out
 
 
-def _norm_maybe_quant(x, gamma, eps, scheme):
+def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] bf16 @ w [K, N] bf16 with an f32 result, a row's bits
+    independent of M. On the card one GEMM with an f32 output (f32
+    accumulation), its rows padded to a multiple of 128 so the GEMM library
+    sees one shape for every decode and verify batch (these GEMMs are bound
+    by their weight bytes, so the padding rows cost little); on the CPU in
+    float64, whose sums of bf16 products are exact to far below f32."""
+    if not x.is_cuda:
+        return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
+    m = x.shape[0]
+    m_pad = -(-max(m, 1) // 128) * 128
+    xp = torch.nn.functional.pad(x, (0, 0, 0, m_pad - m))
+    return torch.mm(xp, w, out_dtype=torch.float32)[:m]
+
+
+def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The bf16 scheme's projection: ``jnp.dot(x, w,
+    preferred_element_type=f32).astype(bf16)``."""
+    return _f32_matmul(x, w).to(torch.bfloat16)
+
+
+def layernorm(x, gamma, beta, eps):
+    """Mean-subtracting LayerNorm with an optional bias, in f32, bf16 out
+    (``qspec_tpu/models/llama.py::layernorm``; XLA there, torch ops here)."""
+    x32 = x.to(torch.float32)
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    out = xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    out = out * gamma.to(torch.float32)
+    if beta is not None:
+        out = out + beta.to(torch.float32)
+    return out.to(torch.bfloat16)
+
+
+def _norm_maybe_quant(x, gamma, eps, scheme, beta=None, norm_type="rmsnorm"):
     """(normed bf16 or None, quantized or None). The quantized-activation
-    schemes run only on QuaRot checkpoints, whose norms are weightless."""
+    schemes run only on QuaRot checkpoints, whose norms are weightless;
+    LayerNorm only on float ones."""
+    if norm_type == "layernorm":
+        return layernorm(x, gamma, beta, eps), None
     if scheme in QUANT_ACT_SCHEMES:
         return None, rmsnorm_quant(x, eps=eps, bits=4 if scheme == "w4a4" else 8)
     return rmsnorm(x, gamma, eps=eps), None
@@ -138,6 +195,19 @@ def _glu_act(gate, up, hidden_act: str):
     return (a * up.to(torch.float32)).to(torch.bfloat16)
 
 
+def _plain_act(x, hidden_act: str):
+    """Non-gated MLP activation in f32, bf16 out: the exact gelu (MPT), the
+    tanh-approximate one (BLOOM) or silu."""
+    x32 = x.to(torch.float32)
+    if hidden_act == "gelu":
+        a = torch.nn.functional.gelu(x32)
+    elif hidden_act == "gelu_tanh":
+        a = torch.nn.functional.gelu(x32, approximate="tanh")
+    else:
+        a = torch.nn.functional.silu(x32)
+    return a.to(torch.bfloat16)
+
+
 def layer_window(cfg: ModelConfig, li: int) -> Optional[int]:
     """The sliding window of layer ``li``: ``cfg.sliding_window`` on every
     layer, or with Gemma-2's alternation only on the layers
@@ -147,24 +217,37 @@ def layer_window(cfg: ModelConfig, li: int) -> Optional[int]:
     return cfg.sliding_window
 
 
+def float_knobs(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` takes a knob of the GPT-family float graph: LayerNorm,
+    the non-gated MLP, ALiBi, linear biases or clip_qkv."""
+    return (cfg.norm_type != "rmsnorm" or not cfg.mlp_gated or cfg.linear_bias
+            or cfg.position_embedding != "rope" or cfg.clip_qkv is not None)
+
+
 def check_served(cfg: ModelConfig) -> None:
     """Raise for a configuration the port does not serve: Gemma-2 comes
     only as a grouped-int4 checkpoint (the QuaRot pipeline's gamma folding
-    does not compose with its post-block norms, as in the JAX package)."""
+    does not compose with its post-block norms, as in the JAX package); the
+    float families' knobs come only with bf16 weights (the JAX package
+    serves BLOOM and MPT as float checkpoints)."""
     if cfg.arch == "gemma2" and cfg.quant != "w4g":
         raise NotImplementedError("Gemma-2 is served as an AWQ / GPTQ "
                                   "(quant='w4g') checkpoint only; QuaRot w4 "
                                   "does not compose with its post-block norms")
+    if float_knobs(cfg) and cfg.quant != "none":
+        raise NotImplementedError("LayerNorm, the non-gated MLP, ALiBi, linear "
+                                  "biases and clip_qkv are served with bf16 "
+                                  "weights (quant='none') only")
 
 
 def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
                   batch: AttentionBatch, rope_cache, hadamards, scheme: str,
-                  tree=None):
+                  tree=None, alibi=None):
     """One decoder layer. x: [T, hidden] bf16; ``layers`` is the
     layer-stacked param dict and ``li`` selects both the weight layer and
     the KV-cache layer; ``tree``: the Medusa tree mask of the attention
-    (ops/attention.py). Returns (x_out, cache); the cache is written in
-    place."""
+    (ops/attention.py); ``alibi``: the [Hq] f32 ALiBi slopes, in place of
+    rope. Returns (x_out, cache); the cache is written in place."""
     B, Q = batch.positions.shape
     T = B * Q
     eps = cfg.rms_norm_eps
@@ -172,14 +255,19 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
     quarot = cfg.quant == "w4"
     gamma_in = None if quarot else layers["input_norm"][li]
     gamma_post = None if quarot else layers["post_norm"][li]
+    beta_in, beta_post = (layers[n][li] if n in layers else None
+                          for n in ("input_norm_b", "post_norm_b"))
 
-    xn, xq = _norm_maybe_quant(x, gamma_in, eps, scheme)
+    xn, xq = _norm_maybe_quant(x, gamma_in, eps, scheme, beta_in, cfg.norm_type)
     qkv = _linear(xn, layers["qkv"], scheme, xq, li)
+    if cfg.clip_qkv is not None:
+        qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
     q = q.reshape(T, cfg.num_heads, cfg.head_dim)
     k = k.reshape(T, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(T, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
-    q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache)
+    if alibi is None:
+        q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache)
     q = q.to(torch.bfloat16)
     k = k.to(torch.bfloat16)
 
@@ -188,7 +276,7 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
                            cache, li, batch.block_tables, batch.ctx_lens,
                            (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
                            q_positions=batch.positions, window=layer_window(cfg, li),
-                           softcap=cfg.attn_logit_softcap, tree=tree)
+                           softcap=cfg.attn_logit_softcap, alibi=alibi, tree=tree)
     attn = attn.reshape(T, cfg.num_heads, cfg.head_dim)
     if quarot:
         attn = _head_hadamard(attn, hadamards["heads"])
@@ -202,10 +290,14 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
         o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][li], eps=eps)
     x = x + o.to(x.dtype)
 
-    xn, xq = _norm_maybe_quant(x, gamma_post, eps, scheme)
+    xn, xq = _norm_maybe_quant(x, gamma_post, eps, scheme, beta_post, cfg.norm_type)
     gate_up = _linear(xn, layers["gate_up"], scheme, xq, li)
-    i_size = gate_up.shape[-1] // 2
-    act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:], cfg.hidden_act)
+    if cfg.mlp_gated:
+        i_size = gate_up.shape[-1] // 2
+        act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:], cfg.hidden_act)
+    else:
+        # fc1 -> act -> fc2: "gate_up" holds fc1 [H, I]
+        act = _plain_act(gate_up, cfg.hidden_act)
     if quarot:
         act = _mlp_hadamard(act, hadamards["mlp_K"], hadamards["mlp_P"])
     if quant_act:
@@ -234,6 +326,10 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     """
     if scheme not in SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {SCHEMES}")
+    if (scheme == "bf16") != (cfg.quant == "none"):
+        raise ValueError(f"scheme {scheme!r} on a quant={cfg.quant!r} checkpoint: "
+                         "the bf16 scheme serves float (quant='none') checkpoints, "
+                         "and only it does")
     if scheme in QUANT_ACT_SCHEMES and cfg.quant == "w4g":
         raise ValueError("w4a4/w4a8 drafting requires a QuaRot (quant='w4') "
                          "checkpoint; AWQ/GPTQ (w4g) models are "
@@ -245,16 +341,24 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         # gemma scales the embeddings by sqrt(hidden) in the hidden dtype:
         # the scale is rounded to bf16 first, as the JAX package rounds it
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
+    if "embed_norm" in params:
+        # BLOOM's word_embeddings_layernorm, before layer 0
+        x = layernorm(x, params["embed_norm"], params["embed_norm_b"], cfg.rms_norm_eps)
+    alibi = params["alibi_slopes"] if cfg.position_embedding == "alibi" else None
     for li in range(cfg.num_layers):
         x, cache = decoder_layer(x, params["layers"], cache, li, cfg, batch,
-                                 params["rope_cache"], params.get("hadamards"),
-                                 scheme, tree)
+                                 params.get("rope_cache"), params.get("hadamards"),
+                                 scheme, tree, alibi)
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q
         x = x[flat]
         Q = 1
-    x = rmsnorm(x, None if cfg.quant == "w4" else params["final_norm"],
-                eps=cfg.rms_norm_eps)
+    if cfg.norm_type == "layernorm":
+        x = layernorm(x, params["final_norm"], params.get("final_norm_b"),
+                      cfg.rms_norm_eps)
+    else:
+        x = rmsnorm(x, None if cfg.quant == "w4" else params["final_norm"],
+                    eps=cfg.rms_norm_eps)
     logits = compute_logits(x, params["lm_head"])
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
@@ -267,26 +371,17 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
 def compute_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
     """Vocab projection -> f32 logits. ``lm_head`` is a quantized dict
     (``{"qw8", "qs"}``: int8 by ``matmul_w8a16``; ``{"qw", "qs"}``: packed
-    int4 by ``matmul_w4a16``) or a dense bf16 [H, V] array.
-
-    The dense head on the card: one bf16 GEMM with an f32 result, its rows
-    padded to a multiple of 128 so the GEMM library sees one shape whatever
-    the batch (the head is bound by its 1 GB of weight bytes, so the padding
-    rows cost nothing) and a row's logits do not depend on the batch size.
-    On the CPU: float64, whose sums of bf16 products are exact. The
-    quantized heads' kernels are row-independent by design.
+    int4 by ``matmul_w4a16``) or a dense bf16 [H, V] array (a tied head:
+    a transposed view of the embedding), by :func:`_f32_matmul`, so a row's
+    logits do not depend on the batch size. The quantized heads' kernels are
+    row-independent by design.
     """
     if isinstance(lm_head, dict):
         if "qw8" in lm_head:
             return matmul_w8a16(x, lm_head["qw8"], lm_head["qs"],
                                 out_dtype=torch.float32)
         return matmul_w4a16(x, lm_head["qw"], lm_head["qs"], out_dtype=torch.float32)
-    if not x.is_cuda:
-        return (x.to(torch.float64) @ lm_head.to(torch.float64)).to(torch.float32)
-    m = x.shape[0]
-    m_pad = -(-max(m, 1) // 128) * 128
-    xp = torch.nn.functional.pad(x, (0, 0, 0, m_pad - m))
-    return torch.mm(xp, lm_head, out_dtype=torch.float32)[:m]
+    return _f32_matmul(x, lm_head)
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +464,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     check_served(cfg)
     head_kind = _head_kind(cfg)
     dev = resolve_device(device)
+    if cfg.quant == "none":
+        return _init_float_params(cfg, seed, dev)
     if cfg.quant == "w4g":
         from qspec_tpu_torch.model_loader.grouped import (load_awq,
                                                           make_grouped_state_dict)
@@ -398,6 +495,57 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     }
 
 
+def alibi_params(cfg: ModelConfig, device) -> dict:
+    """``{"alibi_slopes": f32 [Hq]}`` on ``device`` for an ALiBi model, made
+    once per model (the attention kernel indexes them by query head), else
+    ``{}``."""
+    if cfg.position_embedding != "alibi":
+        return {}
+    return {"alibi_slopes": torch.as_tensor(alibi_slopes(cfg.num_heads), device=device)}
+
+
+def _init_float_params(cfg: ModelConfig, seed: int, dev: torch.device):
+    """Random bf16 weights made on ``dev`` (the JAX package's init_params
+    of a float checkpoint: normal(0.02) weights, normal(0.01) biases, unit
+    gammas, zero betas), BLOOM's embedding LayerNorm, a tied head sharing
+    the embedding's storage."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, L = cfg.hidden_size, cfg.num_layers
+
+    def normal(*shape, std=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+
+    shapes = _proj_shapes(cfg)
+    if not cfg.mlp_gated:
+        shapes["gate_up"] = (H, cfg.intermediate_size)
+    layers = {}
+    for name, (k, n) in shapes.items():
+        layers[name] = {"w": normal(L, k, n)}
+        if cfg.linear_bias:
+            layers[name]["b"] = normal(L, n, std=0.01)
+    layers["input_norm"], layers["post_norm"] = ones(L, H), ones(L, H)
+    params = {"embed": normal(cfg.vocab_size, H), "layers": layers,
+              "final_norm": ones(H), **alibi_params(cfg, dev)}
+    if cfg.norm_type == "layernorm":
+        layers["input_norm_b"], layers["post_norm_b"] = zeros(L, H), zeros(L, H)
+        params["final_norm_b"] = zeros(H)
+    if cfg.arch == "bloom":
+        params["embed_norm"], params["embed_norm_b"] = ones(H), zeros(H)
+    if cfg.position_embedding == "rope":
+        params["rope_cache"] = make_rope_cache(
+            cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
+            rope_scaling=cfg.rope_scaling, device=dev)
+    params["lm_head"] = (params["embed"].t() if cfg.tie_word_embeddings
+                         else normal(H, cfg.vocab_size))
+    return params
+
+
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes bf16: exact through float32
@@ -407,31 +555,40 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """Carry the JAX package's parameter tree (leaves converted with
-    ``np.asarray``) over to the port: ``init_params`` of a QuaRot model, or
-    ``load_awq`` / ``load_gptq`` of a w4g one. Packed int4 (plain or
-    grouped, with its scales and offsets), the gammas and the int8 head stay
-    as they are: the kernels read the interchange layouts directly. A
-    ``"medusa"`` subtree (``spec_decode/medusa.py``'s heads) comes along."""
+    ``np.asarray``) over to the port: ``init_params`` of a QuaRot model,
+    ``load_awq`` / ``load_gptq`` of a w4g one, or ``init_params`` /
+    ``load_family_float`` of a float one (bf16 weights and biases, the
+    gammas and LayerNorm betas, BLOOM's ``embed_norm``, the bf16 head).
+    Packed int4 (plain or grouped, with its scales and offsets), the gammas
+    and the int8 head stay as they are: the kernels read the interchange
+    layouts directly. A ``"medusa"`` subtree (``spec_decode/medusa.py``'s
+    heads) comes along. An ALiBi model gets its ``alibi_slopes``."""
     _head_kind(cfg)
     dev = resolve_device(device)
-    keys = ("qw", "qs") if cfg.quant == "w4" else ("qw", "qs_g", "qo_g")
-    layers = {name: {k: _tensor(tree["layers"][name][k], dev) for k in keys}
+    keys = {"w4": ("qw", "qs"), "w4g": ("qw", "qs_g", "qo_g"), "none": ("w", "b")}[cfg.quant]
+    layers = {name: {k: _tensor(tree["layers"][name][k], dev) for k in keys
+                     if k in tree["layers"][name]}
               for name in PROJECTIONS}
     params = {
         "embed": _tensor(tree["embed"], dev),
         "lm_head": ({k: _tensor(v, dev) for k, v in tree["lm_head"].items()}
                     if isinstance(tree["lm_head"], dict) else _tensor(tree["lm_head"], dev)),
         "layers": layers,
-        "rope_cache": _tensor(tree["rope_cache"], dev).to(torch.float32),
+        **alibi_params(cfg, dev),
     }
+    if cfg.position_embedding == "rope":
+        params["rope_cache"] = _tensor(tree["rope_cache"], dev).to(torch.float32)
     if cfg.quant == "w4":
         params["hadamards"] = make_hadamards(cfg, dev)
     else:
-        norms = ("input_norm", "post_norm") + (
+        norms = ("input_norm", "post_norm", "input_norm_b", "post_norm_b") + (
             ("post_attn_norm", "post_ffw_norm") if cfg.post_norms else ())
         for name in norms:
-            layers[name] = _tensor(tree["layers"][name], dev)
-        params["final_norm"] = _tensor(tree["final_norm"], dev)
+            if name in tree["layers"]:
+                layers[name] = _tensor(tree["layers"][name], dev)
+        for name in ("final_norm", "final_norm_b", "embed_norm", "embed_norm_b"):
+            if name in tree:
+                params[name] = _tensor(tree[name], dev)
     if "medusa" in tree:
         params["medusa"] = {k: _tensor(v, dev) for k, v in tree["medusa"].items()}
     return params

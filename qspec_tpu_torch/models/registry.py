@@ -1,19 +1,22 @@
 """Model registry: Hugging Face architecture names -> ModelConfig.
 
-Port of ``qspec_tpu/models/registry.py::resolve`` for the two architectures
-whose graph the port has: ``LlamaForCausalLM`` and ``Gemma2ForCausalLM``
-(both the llama graph of ``models/llama.py``, Gemma-2 with its softcaps,
-post-block norms and alternating window). Any other architecture raises.
+Port of ``qspec_tpu/models/registry.py::resolve`` for the architectures
+whose graph the port has, all the llama graph of ``models/llama.py`` with
+its knobs: ``LlamaForCausalLM``, ``Gemma2ForCausalLM`` (softcaps, post-block
+norms, alternating window), ``BloomForCausalLM`` and ``MPTForCausalLM``
+(ALiBi, LayerNorm, non-gated MLP; bf16 checkpoints,
+``model_loader/families.py``). Any other architecture raises.
 """
 
 from __future__ import annotations
 
 from qspec_tpu_torch.config import ModelConfig
 
-# architecture (or, as in the JAX package's registry, the bare "gemma2"
-# model type) -> the model type its config is read as
+# architecture (or, as in the JAX package's registry, the bare model type)
+# -> the model type its config is read as
 ARCHITECTURES = {"LlamaForCausalLM": "llama", "Gemma2ForCausalLM": "gemma2",
-                 "gemma2": "gemma2"}
+                 "gemma2": "gemma2", "BloomForCausalLM": "bloom", "bloom": "bloom",
+                 "MPTForCausalLM": "mpt", "MptForCausalLM": "mpt", "mpt": "mpt"}
 
 
 def resolve(hf_config: dict) -> ModelConfig:

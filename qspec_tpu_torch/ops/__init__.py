@@ -9,8 +9,9 @@ def kernel_wrappers() -> dict:
     bf16 cache, ``paged_attention_<kv dtype>`` for the 8-bit ones; each of
     those also counts its launches under a sliding window in
     ``window_launches``, with a logit softcap in ``softcap_launches``, of
-    its head-dim-256 instantiation in ``d256_launches`` and under a Medusa
-    tree mask in ``tree_launches``."""
+    its head-dim-256 instantiation in ``d256_launches``, under a Medusa
+    tree mask in ``tree_launches`` and of its ALiBi instantiation in
+    ``alibi_launches``."""
     import torch
     from qspec_tpu_torch.ops.attention_cuda import LAUNCHES
     from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,

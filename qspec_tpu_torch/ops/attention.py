@@ -1,8 +1,8 @@
 """Attention over the paged KV cache.
 
 Port of ``qspec_tpu/ops/attention.py`` (causal, optionally under a sliding
-window and with Gemma-2's logit softcap, or under the Medusa tree mask;
-bf16, int8, fp8_e4m3 and fp8_e5m2 caches). One chunked formulation
+window, with Gemma-2's logit softcap or with ALiBi, or under the Medusa tree
+mask; bf16, int8, fp8_e4m3 and fp8_e5m2 caches). One chunked formulation
 serves every phase:
 
 * decode:  Q = 1 new token per sequence;
@@ -14,18 +14,25 @@ serves every phase:
 to bf16 when the cache is 8-bit, dense masked softmax in f32);
 ``paged_attention`` dispatches CUDA tensors to the kernel
 (``attention_cuda.py``), which reads 8-bit pages and their scales as they
-are. ALiBi is not ported yet and raises.
+are.
 
-Under the tree mask with a window, the window bounds a tree row relative to
-the root, as the JAX package's Pallas kernel does; its plain version
-ignores the window in tree mode. The port's two versions follow the kernel.
+Under the tree mask with a window, a tree node at depth d is bounded as AR
+bounds the query at its own position root + d: it sees the context in
+(root + d - window, root] and its ancestors' slots (AR's mask wherever the
+window is longer than the tree is deep). The JAX package departs from AR
+there: its Pallas kernel takes the root as the window's reference and its
+plain version ignores the window in tree mode. ALiBi under the tree mask
+raises: the JAX kernel would bias a tree row by slot distance, where AR
+biases by the node's position.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from qspec_tpu_torch.ops.kv_cache import PagedKVCache, gather_layer
@@ -33,6 +40,24 @@ from qspec_tpu_torch.ops.kv_cache import PagedKVCache, gather_layer
 NEG_INF = -1e30
 # the most tree nodes the attention kernel takes: one 64-bit ancestor word per node
 MAX_TREE_NODES = 64
+
+
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes, float32 [n_heads] (``qspec_tpu/ops/attention.py::
+    alibi_slopes``, the same float arithmetic; Press et al. 2022). For n a
+    power of two the geometric sequence starting at 2^(-8/n) with that
+    ratio; otherwise the sequence of the power of two below n, followed by
+    the odd elements of the sequence of twice that power."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        out = pow2_slopes(n_heads)
+    else:
+        base = 2 ** math.floor(math.log2(n_heads))
+        out = pow2_slopes(base) + pow2_slopes(2 * base)[0::2][: n_heads - base]
+    return np.asarray(out, np.float32)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -77,9 +102,11 @@ def tree_slot_mask(prefix: int, num_q: int, q_start: torch.Tensor, ancestors,
     plus its ancestors' and its own slots. q_start [B]: the slot of query 0
     (root - prefix + 1). ancestors: [T, T] bools (a tensor or nested
     sequences), ancestors[i][j] = node j is an ancestor of node i or i
-    itself. ``window``: the causal part of a row at bound p keeps only
-    (p - window, p], p = the root for tree rows (the Pallas kernel's rule);
-    the ancestor slots stay live.
+    itself. ``window``: the causal part of a row keeps only the positions
+    past (its own position - window): a prefix row's position is its slot,
+    tree node t's is root + depth(t), depth(t) = the number of its
+    ancestors, itself included (AR's bound); the causal bound of a tree row
+    stays the root and its ancestor slots stay live.
     """
     dev = q_start.device
     T = num_q - prefix
@@ -89,10 +116,11 @@ def tree_slot_mask(prefix: int, num_q: int, q_start: torch.Tensor, ancestors,
     qs = q_start.to(torch.int64)[:, None, None]                       # [B, 1, 1]
     root = qs + prefix - 1
     bound = torch.where(rows < prefix, qs + rows, root)               # [B, Q, 1]
+    node = (rows[0, :, 0] - prefix).clamp(0, T - 1)                  # [Q]
     live = kv <= bound
     if window is not None:
-        live = live & (kv > bound - window)
-    node = (rows[0, :, 0] - prefix).clamp(0, T - 1)                  # [Q]
+        depth = torch.where(rows[0, :, 0] >= prefix, anc[node].sum(dim=1), 0)
+        live = live & (kv > bound + depth[None, :, None] - window)
     kv_node = (kv - root - 1)[:, 0]                                   # [B, C]
     in_tree = (kv_node >= 0) & (kv_node < T)
     # row q's bit for the node stored at each slot: [B, Q, C]
@@ -105,7 +133,7 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
                         block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                         scale: float, q_positions: torch.Tensor = None,
                         window: int = None, softcap: float = None,
-                        tree=None) -> torch.Tensor:
+                        alibi: torch.Tensor = None, tree=None) -> torch.Tensor:
     """q: [B, Q, Hq, D]; ctx_lens[b] counts tokens *including* the new ones.
 
     ``q_positions`` [B, Q] gives each query's absolute position; query i
@@ -114,9 +142,12 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     position p to the kv positions in (p - window, p] (Mistral's sliding
     window, the windowed draft). ``softcap``: the f32 scores become
     softcap * tanh(score / softcap) after the scale and before the mask
-    (Gemma-2's attention-logit cap). ``tree``: a :class:`TreeMask`, the
-    Medusa tree-verify mask of :func:`tree_slot_mask`, its root at
-    ``q_positions[:, tree.prefix - 1]``.
+    (Gemma-2's attention-logit cap). ``alibi``: [Hq] f32 slopes
+    (:func:`alibi_slopes`); slope * (kv_pos - q_pos) is added to the f32
+    scores after the scale, before the softcap and the mask, in the JAX
+    Pallas kernel's order. ``tree``: a :class:`TreeMask`, the Medusa
+    tree-verify mask of :func:`tree_slot_mask`, its root at
+    ``q_positions[:, tree.prefix - 1]``; not with ``alibi``.
     """
     B, Q, Hq, D = q.shape
     if q_positions is None:
@@ -126,10 +157,16 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     group = Hq // Hkv
     qf = (q.to(torch.float32) * scale).reshape(B, Q, Hkv, group, D)
     scores = torch.einsum("bqhgd,bhcd->bhgqc", qf, k.to(torch.float32))
-    if softcap is not None:
-        scores = torch.tanh(scores / softcap) * softcap
     C = k.shape[2]
     kv_pos = torch.arange(C, device=q.device)[None, :]
+    if alibi is not None:
+        _check_alibi(alibi, Hq, tree)
+        delta = (kv_pos[None].to(torch.float32)
+                 - q_positions[:, :, None].to(torch.float32))       # [B, Q, C]
+        sl = alibi.to(torch.float32).reshape(Hkv, group)
+        scores = scores + sl[None, :, :, None, None] * delta[:, None, None]
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
     if tree is not None:
         q_start = q_positions[:, tree.prefix - 1] - (tree.prefix - 1)
         mask = tree_slot_mask(tree.prefix, Q, q_start, tree.ancestors, C, window)
@@ -144,6 +181,16 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     return out.reshape(B, Q, Hq, D).to(q.dtype)
 
 
+def _check_alibi(alibi: torch.Tensor, num_heads: int, tree) -> None:
+    if tree is not None:
+        raise NotImplementedError(
+            "ALiBi under the Medusa tree mask: the JAX kernel biases a tree row "
+            "by its slot's distance, AR by the node's position root + depth; "
+            "the port serves neither")
+    if tuple(alibi.shape) != (num_heads,):
+        raise ValueError(f"alibi: [{num_heads}] slopes, got {tuple(alibi.shape)}")
+
+
 def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
                     block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                     scale: float, q_positions: torch.Tensor = None,
@@ -151,7 +198,7 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
                     tree=None) -> torch.Tensor:
     """The kernel for CUDA tensors, the plain version on the CPU."""
     if alibi is not None:
-        raise NotImplementedError("ALiBi is not ported yet")
+        _check_alibi(alibi, q.shape[2], tree)
     head_dim = q.shape[-1]
     cache_dim = cache.kv_pages.shape[-1]
     if cache_dim != head_dim:
@@ -163,9 +210,9 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
         out = paged_attention_cuda(q, cache.kv_pages, block_tables, ctx_lens,
                                    scale, q_positions=q_positions, layer=layer,
                                    kv_scales=cache.kv_scales, window=window,
-                                   softcap=softcap, tree=tree)
+                                   softcap=softcap, alibi=alibi, tree=tree)
     else:
         out = paged_attention_ref(q, cache, layer, block_tables, ctx_lens,
                                   scale, q_positions=q_positions, window=window,
-                                  softcap=softcap, tree=tree)
+                                  softcap=softcap, alibi=alibi, tree=tree)
     return out[..., :head_dim] if cache_dim != head_dim else out

@@ -577,3 +577,166 @@ def test_medusa_greedy_equals_oracle_on_card(gen, tree):
     assert attn.tree_launches == (cfg.num_layers * rounds if tree else 0) and rounds > 0
     oracle = LLM(params=params, speculative_method="medusa_null", **kw)
     assert spec == [o.output_token_ids for o in oracle.generate(prompts, sp)]
+
+
+@pytest.mark.parametrize("q_len,S", [(1, 128), (4, 128), (4, 16), (128, 128)])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+def test_paged_attention_kernel_alibi(gen, kv_dtype, q_len, S):
+    """The ALiBi instantiations against the plain version on every entry
+    type: MHA (BLOOM's and MPT's layout: one live row of 8 per block at
+    decode) and GQA, contexts of 1-4 pages; each launch counted as an ALiBi
+    launch; the bias moves the output."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes
+    counter = kernel_wrappers()["paged_attention" if kv_dtype == "bfloat16"
+                                else f"paged_attention_{kv_dtype}"]
+    tol = {"bfloat16": 3e-2, "fp8_e5m2": 8e-2}.get(kv_dtype, 4e-2)
+    for Hq, Hkv in ((8, 8), (8, 2)):
+        ctx = [max(c, q_len) for c in (3 * S - 5, 2 * S + 7, 4 * S, 40)]
+        pages = [-(-c // S) for c in ctx]
+        P = 1 + sum(pages)
+        cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, 128, P, S, kv_dtype), "cuda")
+        n = (P - 1) * S
+        kvc.update_layer(cache, 1,
+                         torch.randn(n, Hkv, 128, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.randn(n, Hkv, 128, generator=gen, device="cuda").to(torch.bfloat16),
+                         torch.arange(n, device="cuda") + S)
+        ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(q_len)) + 1
+        tables = torch.zeros(4, max(pages), dtype=torch.int32)
+        o = 0
+        for b, m in enumerate(pages):
+            tables[b, :m] = ids[o:o + m]
+            o += m
+        tables, ctx_t = tables.cuda(), torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        q = (2 * torch.randn(4, q_len, Hq, 128, generator=gen, device="cuda")).to(torch.bfloat16)
+        slopes = torch.as_tensor(alibi_slopes(Hq), device="cuda")
+        before = (counter.launches, counter.alibi_launches)
+        out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, 128 ** -0.5, layer=1,
+                                   kv_scales=cache.kv_scales, alibi=slopes)
+        assert (counter.launches, counter.alibi_launches) == (before[0] + 1, before[1] + 1)
+        ref = paged_attention_ref(q, cache, 1, tables, ctx_t, 128 ** -0.5, alibi=slopes)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        plain = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, 128 ** -0.5, layer=1,
+                                     kv_scales=cache.kv_scales)
+        assert not torch.allclose(out.float(), plain.float(), atol=tol)
+
+
+def test_paged_attention_kernel_alibi_refusals(gen):
+    """The CUDA wrapper takes ALiBi where the kernel is instantiated for it
+    (head dim 128, no softcap, no tree) and refuses the rest."""
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    for D in (128, 256):
+        cache = kvc.allocate(kvc.KVCacheConfig(1, 2, D, 4, 16, "bfloat16"), "cuda")
+        tables = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+        ctx = torch.tensor([20], dtype=torch.int32, device="cuda")
+        slopes = torch.ones(4, device="cuda")
+        q = torch.zeros(1, 1, 4, D, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="ALiBi"):
+            if D == 256:
+                paged_attention_cuda(q, cache.kv_pages, tables, ctx, 0.1, alibi=slopes)
+            else:
+                paged_attention_cuda(q, cache.kv_pages, tables, ctx, 0.1, alibi=slopes,
+                                     softcap=50.0)
+    t = build_tree(DEFAULT_TREE)
+    q = torch.zeros(1, 1 + t.num_nodes, 4, 128, dtype=torch.bfloat16, device="cuda")
+    cache = kvc.allocate(kvc.KVCacheConfig(1, 2, 128, 4, 16, "bfloat16"), "cuda")
+    with pytest.raises(ValueError, match="ALiBi"):
+        paged_attention_cuda(q, cache.kv_pages, torch.tensor([[1, 2]], dtype=torch.int32,
+                                                             device="cuda"),
+                             torch.tensor([20], dtype=torch.int32, device="cuda"), 0.1,
+                             q_positions=torch.full((1, q.shape[1]), 9, device="cuda"),
+                             alibi=torch.ones(4, device="cuda"),
+                             tree=tree_mask(1, t.ancestors, "cuda"))
+
+
+def _tree_rows_ar(q, cache, layer, tables, positions, tspec, prefix, scale, window):
+    """AR's rows of a tree rectangle's nodes, f32 [B, T, Hq, D]: node t's
+    query at position root + depth(t) over the context 0..root and its path
+    at consecutive positions, under the window."""
+    k, v = (x.double() for x in kvc.gather_layer(cache, layer, tables))
+    B, _, Hq, D = q.shape
+    group = Hq // k.shape[1]
+    out = torch.zeros(B, tspec.num_nodes, Hq, D, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        root = int(positions[b, prefix - 1])
+        for t in range(tspec.num_nodes):
+            path = sorted((j for j in range(tspec.num_nodes) if tspec.ancestors[t][j]),
+                          key=lambda j: tspec.depth[j])
+            slots = torch.tensor(list(range(root + 1)) + [root + 1 + j for j in path],
+                                 device=q.device)
+            p_q = root + tspec.depth[t]
+            slots = slots[torch.arange(len(slots), device=q.device) > p_q - window]
+            for h in range(Hq):
+                kk, vv = k[b, h // group, slots], v[b, h // group, slots]
+                out[b, t, h] = torch.softmax(kk @ q[b, prefix + t, h].double() * scale, 0) @ vv
+    return out.float()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_paged_attention_kernel_tree_window_is_ar(gen, kv_dtype):
+    """Under a window shorter than the contexts the kernel's tree rows equal
+    AR's (node t bounded by its own position root + depth(t)), and its
+    prefix rows the plain version's."""
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    tspec = build_tree(DEFAULT_TREE)
+    T, B, Hq, Hkv, S, P, prefix, W = tspec.num_nodes, 2, 4, 2, 16, 24, 5, 12
+    cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, 128, P, S, kv_dtype), "cuda")
+    n = (P - 1) * S
+    kvc.update_layer(cache, 1, torch.randn(n, Hkv, 128, generator=gen, device="cuda").to(torch.bfloat16),
+                     torch.randn(n, Hkv, 128, generator=gen, device="cuda").to(torch.bfloat16),
+                     torch.arange(n, device="cuda") + S)
+    tables = (torch.randperm(20, generator=torch.Generator().manual_seed(3)) + 1
+              ).reshape(2, 10).to(torch.int32).cuda()
+    root = torch.tensor([17, 30], device="cuda")
+    positions = torch.cat([root[:, None] - (prefix - 1) + torch.arange(prefix, device="cuda"),
+                           root[:, None] + torch.tensor(tspec.depth, device="cuda")[None]], 1)
+    q = (3 * torch.randn(B, prefix + T, Hq, 128, generator=gen, device="cuda")).to(torch.bfloat16)
+    kw = dict(q_positions=positions, window=W, tree=tree_mask(prefix, tspec.ancestors, "cuda"))
+    out = paged_attention_cuda(q, cache.kv_pages, tables, (root + 1 + T).to(torch.int32),
+                               128 ** -0.5, layer=1, kv_scales=cache.kv_scales, **kw)
+    ar = _tree_rows_ar(q, cache, 1, tables, positions, tspec, prefix, 128 ** -0.5, W)
+    tol = 3e-2 if kv_dtype == "bfloat16" else 4e-2
+    torch.testing.assert_close(out[:, prefix:].float(), ar, rtol=tol, atol=tol)
+    ref = paged_attention_ref(q, cache, 1, tables, (root + 1 + T).to(torch.int32), 128 ** -0.5,
+                              **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_tiny_bloom_ngram_equals_oracle_on_card(gen):
+    """A tiny BLOOM (bf16, ALiBi, LayerNorm, biases, embedding LayerNorm) on
+    the card: greedy n-gram == the "null" oracle; only the bf16 attention
+    launches, every launch its ALiBi instantiation."""
+    from qspec_tpu_torch import LLMEngine, SamplingParams
+    from qspec_tpu_torch.config import (CacheConfig, EngineConfig, SchedulerConfig,
+                                        SpeculativeConfig)
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.from_hf_config({"model_type": "bloom", "vocab_size": 512,
+                                      "hidden_size": 256, "n_layer": 2, "n_head": 4})
+    params = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 500, size=int(n)).tolist() for n in (5, 17, 33, 9)]
+    prompts[1] = prompts[1][:6] * 3
+    sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+
+    def run(method):
+        eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16),
+                                     scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256),
+                                     speculative=SpeculativeConfig(num_speculative_tokens=3,
+                                                                   method=method)),
+                        params, device="cuda")
+        ids = [eng.add_request(p, sp) for p in prompts]
+        outs = {}
+        while eng.has_unfinished_requests():
+            for o in eng.step():
+                if o.finished:
+                    outs[o.request_id] = o.output_token_ids
+        return [outs[i] for i in ids], eng.runner.target_forwards
+
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    attn = counters["paged_attention"]
+    attn.alibi_launches = 0
+    spec, forwards = run("ngram")
+    assert {n for n, c in counters.items() if c.launches > 0} == {"paged_attention"}
+    assert attn.alibi_launches == attn.launches == cfg.num_layers * forwards > 0
+    assert spec == run("null")[0]

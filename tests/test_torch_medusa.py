@@ -41,6 +41,7 @@ from qspec_tpu_torch import (LLM, CacheConfig, EngineConfig, LLMEngine, ModelCon
 from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.models import llama as tllama
 from qspec_tpu_torch.ops import kv_cache as tkv
+from qspec_tpu_torch.ops.kv_cache import gather_layer
 from qspec_tpu_torch.ops.attention import (MAX_TREE_NODES, paged_attention_ref, tree_mask,
                                            tree_slot_mask)
 from qspec_tpu_torch.ops.sampling import rejection_sample_onehot
@@ -250,14 +251,42 @@ def test_tree_slot_mask_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
+def tree_rows_ar(q, cache, tables, positions, tspec, prefix, scale, window):
+    """The AR oracle of a tree rectangle's tree rows, [B, T, Hq, D] f32:
+    node t's row is plain causal attention of its query at position
+    root + depth(t) over the context 0..root followed by its path (its
+    ancestors and itself, by depth) at consecutive positions, under the
+    window: what AR computes when the path's tokens are committed."""
+    k, v = (x.double() for x in gather_layer(cache, 0, tables))     # [B, Hkv, C, D]
+    B, Q, Hq, D = q.shape
+    group = Hq // k.shape[1]
+    out = torch.zeros(B, tspec.num_nodes, Hq, D, dtype=torch.float64)
+    for b in range(B):
+        root = int(positions[b, prefix - 1])
+        for t in range(tspec.num_nodes):
+            path = sorted((j for j in range(tspec.num_nodes) if tspec.ancestors[t][j]),
+                          key=lambda j: tspec.depth[j])
+            slots = list(range(root + 1)) + [root + 1 + j for j in path]
+            p_q = root + tspec.depth[t]
+            keep = [i for i, _ in enumerate(slots) if window is None or i > p_q - window]
+            sl = torch.tensor([slots[i] for i in keep])
+            for h in range(Hq):
+                kk, vv = k[b, h // group, sl], v[b, h // group, sl]
+                w = torch.softmax(kk @ q[b, prefix + t, h].double() * scale, dim=0)
+                out[b, t, h] = w @ vv
+    return out.float()
+
+
 @pytest.mark.parametrize("prefix,kv_dtype,window", [
     (3, "bfloat16", None), (5, "bfloat16", None), (3, "int8", None), (5, "int8", None),
     (5, "bfloat16", 12), (3, "int8", 9)])
 def test_tree_attention_matches_pallas(prefix, kv_dtype, window):
     """The plain version under the tree mask against the JAX Pallas kernel in
-    interpret mode; ``window`` (shorter than both contexts) bounds the tree
-    rows relative to the root, as that kernel does (the JAX plain version
-    ignores the window in tree mode)."""
+    interpret mode wherever the two agree: every row without a window, the
+    prefix rows under a window shorter than both contexts. There the JAX
+    kernel bounds a tree row's window by the root, which is not AR's mask;
+    the port bounds node t by its own position root + depth(t), so its tree
+    rows are held against the AR oracle (:func:`tree_rows_ar`) instead."""
     rng = np.random.default_rng(prefix + (window or 0))
     tspec, (q, jcache, jtab, jctx, jpos), (tq, tcache, ttab, tctx, tpos) = _tree_case(
         rng, prefix, kv_dtype)
@@ -267,13 +296,17 @@ def test_tree_attention_matches_pallas(prefix, kv_dtype, window):
                                   kv_scales=jcache.kv_scales, window=window, tree=tree)
     got = paged_attention_ref(tq, tcache, 0, ttab, tctx, scale, q_positions=tpos,
                               window=window, tree=tree_mask(prefix, tspec.ancestors, "cpu"))
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               atol=3e-2, rtol=3e-2)
+    rows = slice(None) if window is None else slice(0, prefix)
+    np.testing.assert_allclose(got[:, rows].float().numpy(),
+                               np.asarray(want, np.float32)[:, rows], atol=3e-2, rtol=3e-2)
     if window is None:
         # the JAX plain version agrees too where the window plays no part
         jref = j_attention_ref(q, jcache, 0, jtab, jctx, scale, q_positions=jpos, tree=tree)
         np.testing.assert_allclose(got.float().numpy(), np.asarray(jref, np.float32),
                                    atol=3e-2, rtol=3e-2)
+    ar = tree_rows_ar(tq, tcache, ttab, tpos, tspec, prefix, scale, window)
+    np.testing.assert_allclose(got[:, prefix:].float().numpy(), ar.numpy(),
+                               atol=3e-2, rtol=3e-2)
 
 
 def test_tree_attention_ignores_non_ancestors():
@@ -507,6 +540,28 @@ def test_greedy_medusa_batch_changes_and_preemption(tiny):
     assert outs[0] == ref
 
 
+def test_windowed_tree_equals_oracle_past_the_window(tiny):
+    """A sliding window of 8 on every layer, contexts well past it, heads
+    seeded from lm_head (accepted proposals): greedy tree tokens equal the
+    medusa_null oracle's (AR's). Each tree row is bounded as AR bounds its
+    node's own position root + depth; bounding it by the root, as the JAX
+    kernel does, lets a depth-d node see d positions AR does not, and its
+    accepted samples then leave AR's tokens."""
+    _, _, cfg, params = tiny
+    wcfg = dataclasses.replace(cfg, sliding_window=8)
+    seeded = {**params, "medusa": tmedusa.init_medusa_params(
+        cfg.hidden_size, cfg.vocab_size, 4, lm_head=tmedusa.lm_head_weight(params["lm_head"]))}
+    prompts = _prompts(4, seed=11)
+    outs = []
+    for method in ("medusa", "medusa_null"):
+        out, eng = run_port(wcfg, seeded, prompts, SpeculativeConfig(
+            num_speculative_tokens=4, method=method, medusa_tree=DEFAULT_TREE), max_tokens=32)
+        outs.append(out)
+        if method == "medusa":
+            assert eng.spec_metrics.num_draft_accepted > 20
+    assert outs[0] == outs[1]
+
+
 def test_tree_on_prompts_shorter_than_the_prefix(tiny):
     """Prompts of 1-3 tokens put the first rounds' prefix rows before
     position 0 (phantom rows, written to the null page). The port takes the
@@ -585,7 +640,7 @@ def test_llm_entry_points(tiny, tmp_path):
     with pytest.raises(NotImplementedError, match="Medusa"):
         LLM(model="tiny", params=bare, speculative_model=str(tmp_path / "other.npz"), **kw)
     with pytest.raises(NotImplementedError):
-        LLM(model="tiny", params=bare, speculative_model="[ngram]", **kw)
+        LLM(model="tiny", params=bare, speculative_model="[eagle]", **kw)
 
 
 # ---------------------------------------------------------------- real weights

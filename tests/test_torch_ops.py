@@ -253,13 +253,21 @@ def test_paged_attention_pads_small_head_dim(rng):
 
 
 def test_paged_attention_options_not_ported(rng):
-    """ALiBi is the JAX kernel's one option not ported yet: it raises. (The
-    Medusa tree mask is ported and held in tests/test_torch_medusa.py.)"""
+    """The one combination of the JAX kernel's options the port refuses on
+    every device: ALiBi under the Medusa tree mask (the JAX kernel would
+    bias a tree row by its slot's distance, AR by the node's position). Each
+    option alone is ported (ALiBi: tests/test_torch_alibi.py; the tree:
+    tests/test_torch_medusa.py); the CUDA wrapper's own refusals (ALiBi with
+    the softcap or at head dim 256) are checked on the card
+    (tests/test_torch_gpu.py)."""
+    from qspec_tpu_torch.ops.attention import tree_mask
     _, tc = _cache_pair(rng, L=1)
-    q = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        paged_attention(q, tc, 0, torch.tensor([[1]]), torch.tensor([1]), 0.1,
-                        alibi=torch.ones(4))
+    q = torch.zeros(1, 3, 4, 128, dtype=torch.bfloat16)
+    tree = tree_mask(1, [[True, False], [False, True]], "cpu")
+    with pytest.raises(NotImplementedError, match="tree"):
+        paged_attention(q, tc, 0, torch.tensor([[1, 2]]), torch.tensor([12]), 0.1,
+                        q_positions=torch.tensor([[9, 10, 10]]), alibi=torch.ones(4),
+                        tree=tree)
 
 
 # ---------------------------------------------------------------- rope

@@ -179,8 +179,8 @@ def test_ring_rows_recycle(monkeypatch):
     # 9 sequences through a 4-row (+1 scratch) ring bank, batches of <= 4
     outs = drive(eng, ps, 30)
     assert len(outs) == 9
-    assert len(eng.runner._ring_slot) <= rows - 1
-    assert not eng.runner._ring_slot      # every finished sequence let go
+    assert len(eng.runner._ring.slot) <= rows - 1
+    assert not eng.runner._ring.slot      # every finished sequence let go
 
 
 def test_preempted_sequence_releases_its_ring_row(monkeypatch):
@@ -197,7 +197,7 @@ def test_preempted_sequence_releases_its_ring_row(monkeypatch):
                          params, device="cpu"), ps, 40)
     assert outs == ar
     assert set(waiting_seen) <= set(freed)
-    assert not eng.runner._ring_slot
+    assert not eng.runner._ring.slot
 
 
 def _preempting_engine(monkeypatch):
