@@ -3,14 +3,17 @@
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --ab PARENT_DIR . . PARENT_DIR
 
-The second form times the paged-attention kernel's instantiations without
-the tree mask of each checkout named (a repository root), in turns on one
-card, each in a process of its own with that checkout's qspec_tpu_torch
-(its kernels built there), at the verify shapes the first form times them
-at: B=4, Q=4, page 128, contexts 379/263/512/40; D=128 (Hq=32, Hkv=8) over
-bf16 and int8 caches, D=256 (Hq=16, Hkv=8) bf16 with and without the
-softcap 50. It prints one JSON line per checkout, with the kernels' ptxas
-registers, and no result line.
+The second form times, for each checkout named (a repository root), in
+turns on one card, each in a process of its own with that checkout's
+qspec_tpu_torch (its kernels built there): the paged-attention kernel's
+instantiations without the tree mask at the verify shapes the first form
+times them at (B=4, Q=4, page 128, contexts 379/263/512/40; D=128 (Hq=32,
+Hkv=8) over bf16 and int8 caches, D=256 (Hq=16, Hkv=8) bf16 with and without
+the softcap 50), then the grouped GEMM matmul_w4a16_g per layer of
+Llama-3-8B and of Gemma-2-9B (its four projections, g = 128, weights made
+by that checkout's model_loader.grouped) at M = 4, 16 and 60. It prints
+one JSON line per checkout, with those kernels' ptxas registers, and no
+result line.
 
 Phases (any failure raises and the script exits non-zero, printing no result):
 
@@ -27,8 +30,9 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    softcap and a window, the windowed tree rows also against AR, and the JAX
    kernel test's structural check), and ALiBi on every entry type at
    BLOOM-7B1's shapes and the JAX kernel test's GQA shape; the norm with and
-   without a gamma; the grouped GEMM at the Llama-3-8B AWQ shapes, stacked
-   and not, and a row's bits across batch sizes);
+   without a gamma; the grouped GEMM at the Llama-3-8B and Gemma-2-9B AWQ
+   shapes, M up to the prefill threshold, stacked and not, a row's bits
+   across batch sizes and places, on a second call and on graph replay);
 4. timing: each kernel, its plain version and (where one exists) the one
    PyTorch call that computes the same function, timed with CUDA events over
    CUDA-graph replays; the least time the card could take (bound_ms); the
@@ -38,6 +42,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    beside the kernel without the tree; ALiBi at BLOOM-7B1's n-gram verify
    (Q=4, Hq=Hkv=32) beside the same inputs without it; matmul_w4a16 also at
    the tree verify's M=60, with torch._weight_int4pack_mm as its yardstick;
+   the grouped GEMM per Llama-3-8B and Gemma-2-9B layer at M = 4, 16 and 60
+   beside the same yardstick;
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
    the CPU (plain versions), same weights, with the bf16 head over a bf16
    cache, at the defaults (int8 head) over an int8 cache, and as an AWQ
@@ -221,10 +227,16 @@ def phase_build():
     log("ptxas: " + json.dumps(short, separators=(",", ":")), stdout=False)
     attn = {k: v for k, v in short.items() if k.startswith("attn")}
     regs = sorted(int(v.split("r")[0]) for v in attn.values())
+    # the grouped GEMM's instantiations <m16 tiles, N % 4 == 0> in one entry
+    w4g = {k: v for k, v in short.items() if k.startswith("w4a16_g")}
+    rest = {k: v for k, v in short.items() if not k.startswith(("attn", "w4a16_g"))}
+    if w4g:
+        g_regs = sorted(int(v.split("r")[0]) for v in w4g.values())
+        rest[f"w4a16_g x{len(w4g)}"] = f"{g_regs[0]}-{g_regs[-1]}r" + (
+            " spills" if any("s" in v.split("r")[1] for v in w4g.values()) else "")
     log(f"ptxas: {len(short)} kernels ({len(attn)} attention, {regs[0]}-{regs[-1]} registers; "
         f"spills {json.dumps({k: v for k, v in attn.items() if 's' in v.split('r')[1]})}); "
-        + json.dumps({k: v for k, v in short.items() if not k.startswith("attn")},
-                     separators=(",", ":")))
+        + json.dumps(rest, separators=(",", ":")))
 
 
 def _w4(gen, k, n):
@@ -316,27 +328,73 @@ def _w4g(gen, k, n, layers=None):
                  for key in ("qw", "qs_g", "qo_g"))
 
 
+# Gemma-2-9B's projections: qkv, o, gate_up, down
+GEMMA_SHAPES = ((3584, 8192), (4096, 3584), (3584, 28672), (14336, 3584))
+
+
+def _max_kernel_m(k: int) -> int:
+    """The largest M the grouped GEMM takes at K before its prefill branch."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    return max(m for m in range(1, 4096) if not lk._bigm(m, k))
+
+
+def _replay_bits(fn) -> bool:
+    """Whether ``fn()``, captured in a CUDA graph, replays (twice) to the
+    bits of an eager call."""
+    eager = fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    same = True
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, eager)
+    return same
+
+
 def check_w4a16_g(gen, report):
-    """The grouped GEMM at the four Llama-3-8B projections, M = 4 and 16,
-    plain and stacked (2 layers), at the JAX test's tolerance; a row's bits
-    at M = 1, 4 and 16 are the same; the prefill branch once."""
+    """The grouped GEMM at the four Llama-3-8B and the four Gemma-2-9B
+    projections, M = 4, 16, 60 and the largest M before the prefill branch
+    (640 at K = 4096, 176 at 14336), plain and stacked (2 layers, Llama), at
+    the JAX test's tolerance; a row's bits at M = 1, 4, 16, 60, 64, a middle
+    slice and the reversed batch equal the prefill-size call's; the same
+    bits on a second call and on CUDA-graph replay; the prefill branch once."""
     from qspec_tpu_torch.ops import linear_kernels as lk
     err = 0.0
-    for k, n in GEMM_SHAPES:
+    for k, n in GEMM_SHAPES + GEMMA_SHAPES:
+        llama = (k, n) in GEMM_SHAPES
         qw, qs, qo = _w4g(gen, k, n, layers=2)
-        x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
-        for m in (4, 16):
-            for li in (None, 1):
+        mbig = _max_kernel_m(k)
+        x = torch.randn(mbig, k, generator=gen, device="cuda").to(torch.bfloat16)
+        for m in (4, 16, 60, mbig):
+            for li in ((None, 1) if llama else (1,)):
                 w = (qw[1], qs[1], qo[1]) if li is None else (qw, qs, qo)
                 out = lk.matmul_w4a16_g(x[:m], *w, layer_idx=li)
                 ref = lk.matmul_w4a16_g_ref(x[:m], qw[1], qs[1], qo[1])
                 torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
                 err = max(err, (out.float() - ref.float()).abs().max().item())
-        full = lk.matmul_w4a16_g(x, qw, qs, qo, layer_idx=0)
-        for rows in (slice(0, 1), slice(5, 9), slice(12, 16)):
-            if not torch.equal(lk.matmul_w4a16_g(x[rows].contiguous(), qw, qs, qo,
-                                                 layer_idx=0), full[rows]):
+        full = lk.matmul_w4a16_g(x, qw, qs, qo, layer_idx=0, out_dtype=torch.float32)
+        if not torch.equal(lk.matmul_w4a16_g(x, qw, qs, qo, layer_idx=0,
+                                             out_dtype=torch.float32), full):
+            raise AssertionError(f"matmul_w4a16_g K={k} N={n}: two calls differ")
+        for rows in (slice(0, 1), slice(0, 4), slice(0, 16), slice(0, 60), slice(0, 64),
+                     slice(5, 9), slice(mbig // 2, mbig // 2 + 60)):
+            if not torch.equal(lk.matmul_w4a16_g(x[rows].contiguous(), qw, qs, qo, layer_idx=0,
+                                                 out_dtype=torch.float32), full[rows]):
                 raise AssertionError(f"matmul_w4a16_g K={k} N={n}: a row's bits depend on M")
+        if not torch.equal(lk.matmul_w4a16_g(x.flip(0).contiguous(), qw, qs, qo, layer_idx=0,
+                                             out_dtype=torch.float32), full.flip(0)):
+            raise AssertionError(f"matmul_w4a16_g K={k} N={n}: a row's bits depend on its place")
+        for m in (4, 16, 60):
+            if not _replay_bits(lambda m=m: lk.matmul_w4a16_g(x[:m], qw, qs, qo, layer_idx=1)):
+                raise AssertionError(f"matmul_w4a16_g K={k} N={n} M={m}: graph replay differs")
     # the prefill branch on the last shape's layer 0
     xb = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
     before = lk.matmul_w4a16_g.launches
@@ -346,10 +404,10 @@ def check_w4a16_g(gen, report):
     ref = lk.matmul_w4a16_g_ref(xb, qw[0], qs[0], qo[0])
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
     report["matmul_w4a16_g"].update(max_err=err, tol="rtol=atol=2e-2")
-    log(f"check matmul_w4a16_g: max_abs_err {err:.3g} (tol rtol=atol=2e-2; g={GROUP}, "
-        f"M in 4,16, stacked and not); a row's bits equal at M=1,4,16; prefill "
-        f"branch (M=1024, no launch) max_abs_err "
-        f"{(out.float() - ref.float()).abs().max().item():.3g}")
+    log(f"check matmul_w4a16_g: max_abs_err {err:.3g} (tol rtol=atol=2e-2; g={GROUP}, Llama and "
+        f"Gemma-2 projections, M 4/16/60/pre-prefill, stacked and not); row bits independent of "
+        f"M and place, equal on a 2nd call and graph replay; prefill branch (M=1024, no launch) "
+        f"max_abs_err {(out.float() - ref.float()).abs().max().item():.3g}")
 
 
 def _int4pack(qw, qs, qo):
@@ -1167,58 +1225,77 @@ def time_kernels(gen, report, int4pack_missing):
         torch.cuda.empty_cache()
 
 
-def time_w4a16_g(gen, report, int4pack_missing):
-    """The grouped GEMM per layer (the four projections) at the verify width
-    M=16 and the draft width M=4, g = 128, weights rotated past L2; the
-    yardstick torch._weight_int4pack_mm on the same weights converted once
-    outside the timing."""
+def _time_w4g_layer(gen, shapes, m, library: bool) -> dict:
+    """One layer's four grouped projections at M = ``m``: kernel, plain
+    version and torch._weight_int4pack_mm (weights converted once, outside
+    the timing), each input set rotated past L2; the bound from this call's
+    bytes (x, packed weights, scales and offsets, out) and operations."""
     from qspec_tpu_torch.ops import linear_kernels as lk
-    for m in (4, 16):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        nbytes_tot = ops_tot = 0
-        per = []
-        for k, n in GEMM_SHAPES:
-            wbytes = k * n // 2 + 2 * (k // GROUP) * n * 4
-            rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n), wbytes)
-            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0 if library else None}
+    nbytes_tot = ops_tot = 0
+    per = []
+    for k, n in shapes:
+        wbytes = k * n // 2 + 2 * (k // GROUP) * n * 4
+        rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n), wbytes)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
 
-            def kern():
-                lk.matmul_w4a16_g(x, *rot.next())
+        def kern():
+            lk.matmul_w4a16_g(x, *rot.next())
 
-            def plain():
-                lk.matmul_w4a16_g_ref(x, *rot.next())
-            nbytes = m * k * 2 + wbytes + m * n * 2
-            b, kind = bound_ms(nbytes, 2 * m * k * n, "bf16")
-            t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
-            t_l = None
-            if int4pack_missing is None:
-                rot_l = Rotating(lambda k=k, n=n: _int4pack(*_w4g(gen, k, n)), wbytes)
+        def plain():
+            lk.matmul_w4a16_g_ref(x, *rot.next())
+        nbytes = m * k * 2 + wbytes + m * n * 2
+        tot["bound_ms"] += bound_ms(nbytes, 2 * m * k * n, "bf16")[0]
+        t_k = graph_ms(kern, reps=max(20, len(rot.sets)))
+        tot["ms"] += t_k
+        tot["plain_ms"] += graph_ms(plain, reps=3)
+        t_l = None
+        if library:
+            rot_l = Rotating(lambda k=k, n=n: _int4pack(*_w4g(gen, k, n)), wbytes)
 
-                def library():
-                    packed, sz = rot_l.next()
-                    torch._weight_int4pack_mm(x, packed, GROUP, sz)
-                t_l = graph_ms(library)
-                tot["library_ms"] += t_l
-                del rot_l
-            per.append(f"{t_k:.4f}" + ("" if t_l is None else f"/{t_l:.4f}"))
-            tot["ms"] += t_k
-            tot["plain_ms"] += t_p
-            tot["bound_ms"] += b
-            nbytes_tot += nbytes
-            ops_tot += 2 * m * k * n
-            del rot
-            torch.cuda.empty_cache()
-        log(f"time matmul_w4a16_g M={m} g={GROUP}, one layer (kernel/_weight_int4pack_mm per "
-            f"projection: {', '.join(per)} ms): {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
-            f"library {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f} ms "
-            f"({nbytes_tot} bytes)")
-        if m == 16:
-            report["matmul_w4a16_g"].update(
-                tot, bound_by=bound_ms(nbytes_tot, ops_tot, "bf16")[1],
-                library_ms=None if int4pack_missing else tot["library_ms"],
-                shape=f"one layer's qkv+o+gate_up+down at M=16, g={GROUP}")
-            if int4pack_missing:
-                report["matmul_w4a16_g"]["library_note"] = int4pack_missing
+            def lib_call():
+                packed, sz = rot_l.next()
+                torch._weight_int4pack_mm(x, packed, GROUP, sz)
+            t_l = graph_ms(lib_call, reps=max(20, len(rot_l.sets)))
+            tot["library_ms"] += t_l
+            del rot_l
+        per.append(f"{t_k:.4f}" + ("" if t_l is None else f"/{t_l:.4f}"))
+        nbytes_tot += nbytes
+        ops_tot += 2 * m * k * n
+        del rot
+        torch.cuda.empty_cache()
+    return dict(tot, bound_by=bound_ms(nbytes_tot, ops_tot, "bf16")[1], per=per,
+                nbytes=nbytes_tot)
+
+
+def time_w4a16_g(gen, report, int4pack_missing):
+    """The grouped GEMM per layer (the four projections) of Llama-3-8B and
+    Gemma-2-9B at the draft width M=4, the verify width M=16 and the Medusa
+    tree verify's M=60 (4 x (prefix 5 + 10 nodes)), g = 128, beside the
+    yardstick torch._weight_int4pack_mm on the same weights."""
+    library = int4pack_missing is None
+    rows = {}
+    for model, shapes in (("llama3-8b", GEMM_SHAPES), ("gemma2-9b", GEMMA_SHAPES)):
+        for m in (4, 16, 60):
+            r = _time_w4g_layer(gen, shapes, m, library)
+            per, nbytes = r.pop("per"), r.pop("nbytes")
+            r["shape"] = f"{model}: one layer's qkv+o+gate_up+down at M={m}, g={GROUP}"
+            rows[(model, m)] = r
+            line = (f"time matmul_w4a16_g {model} M={m} g={GROUP}, one layer: {r['ms']:.4f} ms, "
+                    f"plain {r['plain_ms']:.4f}, library "
+                    + (f"{r['library_ms']:.4f}" if library else "none")
+                    + f", bound {r['bound_ms']:.4f} ms, {r['ms'] / m:.5f} ms/row")
+            log(line)
+            log(f"  per projection (kernel" + ("/_weight_int4pack_mm" if library else "")
+                + f"): {', '.join(per)} ms; {nbytes} bytes", stdout=False)
+    report["matmul_w4a16_g"].update(rows[("llama3-8b", 16)])
+    # the other rows without their shape string: the key names it
+    rest = {key: {k: v for k, v in r.items() if k != "shape"} for key, r in rows.items()}
+    report["matmul_w4a16_g"]["m4_draft"] = rest[("llama3-8b", 4)]
+    report["matmul_w4a16_g"]["m60_tree_verify"] = rest[("llama3-8b", 60)]
+    report["matmul_w4a16_g"]["gemma2_9b"] = {f"m{m}": rest[("gemma2-9b", m)] for m in (4, 16, 60)}
+    if int4pack_missing:
+        report["matmul_w4a16_g"]["library_note"] = int4pack_missing
 
 
 def time_attention_window(gen, report):
@@ -2046,8 +2123,8 @@ def main():
                      "bloom_forwards": bloom[2]["forwards"]}
         elif name == "matmul_w4a16_g":
             n_launch, where = awq["a"][0][name], "llama3-8b AWQ, w4a16 draft, window 64"
-            if "library_note" in r:
-                extra = {"library_note": r["library_note"]}
+            extra = {key: r[key] for key in ("m4_draft", "gemma2_9b", "library_note") if key in r}
+            extra["gemma2_tree_launches"] = gemma["tree"][0][name]
         elif name.startswith("paged_attention_fp8"):
             dt = name.split("_", 2)[2]
             n_launch, where = tiny[dt][name], f"tiny, int8 head, {dt} KV, w4a4 draft"
@@ -2082,12 +2159,16 @@ AB_SHAPES = (("d128_bf16", 128, 32, "bfloat16", None), ("d128_int8", 128, 32, "i
              ("d256_bf16", 256, 16, "bfloat16", None))
 
 
-def ab_time_attention(root: str):
-    """One checkout's attention times at AB_SHAPES and its attention
-    kernels' ptxas registers, as one JSON line (--ab's child process)."""
+def ab_child(root: str):
+    """One checkout's attention times at AB_SHAPES, its grouped GEMM's per
+    layer (the four projections, kernel only, weights made by that
+    checkout's model_loader.grouped) of Llama-3-8B and Gemma-2-9B at M = 4,
+    16 and 60, and those kernels' ptxas registers, as one JSON line (--ab's
+    child process)."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     from qspec_tpu_torch import _build
+    from qspec_tpu_torch.ops import linear_kernels as lk
     from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
     if not _build.__file__.startswith(root + os.sep):
         raise SystemExit(f"chip_smoke --ab: {root} holds no qspec_tpu_torch")
@@ -2108,13 +2189,24 @@ def ab_time_attention(root: str):
         out[label] = graph_ms(kern, reps=max(20, len(rot.sets)))
         del rot
         torch.cuda.empty_cache()
+    for model, shapes in (("llama3-8b", GEMM_SHAPES), ("gemma2-9b", GEMMA_SHAPES)):
+        for m in (4, 16, 60):
+            per = []
+            for k, n in shapes:
+                rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n), k * n // 2 + (k // GROUP) * n * 8)
+                x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+                per.append(graph_ms(lambda: lk.matmul_w4a16_g(x, *rot.next()),
+                                    reps=max(20, len(rot.sets))))
+                del rot
+                torch.cuda.empty_cache()
+            out[f"w4a16_g_{model}_m{m}"] = [sum(per), per]
     regs = {_kernel_name(k): v.get("regs") for k, v in _build.build_info.get("ptxas", {}).items()
-            if "paged_attention" in k}
+            if "paged_attention" in k or "w4a16_g" in k}
     print(json.dumps({"checkout": root, "ms": out, "ptxas_regs": regs},
                      separators=(",", ":")), flush=True)
 
 
-def ab_attention(roots):
+def ab(roots):
     """--ab: each checkout of ``roots`` timed by a process of its own, in
     the order given."""
     if not roots:
@@ -2127,8 +2219,8 @@ def ab_attention(roots):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:
-        ab_attention(sys.argv[2:])
+        ab(sys.argv[2:])
     elif sys.argv[1:2] == ["--ab-child"]:
-        ab_time_attention(sys.argv[2])
+        ab_child(sys.argv[2])
     else:
         main()

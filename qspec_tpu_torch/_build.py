@@ -17,6 +17,7 @@ fallback to the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -42,7 +43,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "qspec_w4a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "qspec_w4a16_g": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "qspec_w4a16_g": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "qspec_w4a4": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "qspec_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_rmsnorm": (_P, _P, _P, _I, _I, _F, _P),
@@ -173,6 +174,12 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = lib().qspec_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device``'s card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -40,6 +40,7 @@ layer-stacked ``[L, K//8, N]`` / ``[L, N]`` arrays and the kernel reads layer
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -204,21 +205,81 @@ def _w4a16_g_bigm(x, w_packed, w_scales_g, w_offs_g, out_dtype):
     return acc.to(out_dtype)
 
 
-def matmul_w4a16_g(x: torch.Tensor, w_packed: torch.Tensor,
-                   w_scales_g: torch.Tensor, w_offs_g: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
-                   layer_idx: Optional[int] = None) -> torch.Tensor:
-    """x [M, K] bf16 @ group-quantized int4 w -> [M, N] out_dtype (AWQ /
-    GPTQ weights). w_packed [K//8, N] int32 (nibbles = unsigned q),
-    w_scales_g and w_offs_g = zp * s f32 [K//g, N]. With ``layer_idx`` the
-    weight-side arrays carry a leading stacked-layer dim and the kernel
-    reads layer ``layer_idx`` in place. The kernel takes K % 256 == 0, an
-    even group count and a group size that is a multiple of 16 dividing
-    K/2."""
-    w, s, o = _layer(layer_idx, w_packed, w_scales_g, w_offs_g)
-    if not x.is_cuda:
-        return matmul_w4a16_g_ref(x, w, s, o, bias, out_dtype=out_dtype)
-    m, k = x.shape
+# csrc/w4a16_g.cu's tiling: output columns per block, k per pipeline stage
+# (64 of each nibble plane); the most K-slices the planner gives a stripe
+W4G_COLS = 128
+W4G_STAGE_K = 128
+W4G_MAX_SPLITS = 16
+# k-stages a K-slice keeps where it can (the depth of the kernel's ring)
+W4G_MIN_STAGES = 4
+# the verify width at which the planner prices the slices' partial sums
+W4G_PLAN_ROWS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def w4g_splits(k: int, n: int, n_sm: int) -> int:
+    """K-slices per 128-column stripe of csrc/w4a16_g.cu for a [K/8, N]
+    weight on a card of ``n_sm`` SMs: slice i of S takes the k-stages
+    [i T / S, (i + 1) T / S) of the T = K / 128. A function of the weight's
+    shape and the card only, never of M, so a row's sum has the same order
+    at every batch size.
+
+    Among the S that give at least one (stripe, slice) unit per SM, and
+    keep ``W4G_MIN_STAGES`` stages a slice where any does, it takes the one
+    of least estimated traffic: the weight bytes of the busiest SM's stages
+    (its units, one wave of n_sm after another, of the longest slice) times
+    the SM count, plus the partial sums written and read back at M = 16."""
+    stages = k // W4G_STAGE_K
+    stripes = -(-n // W4G_COLS)
+    fits = [s for s in range(1, min(stages, W4G_MAX_SPLITS) + 1) if stripes * s >= n_sm]
+    if not fits:
+        return min(stages, W4G_MAX_SPLITS)
+    deep = [s for s in fits if stages // s >= W4G_MIN_STAGES] or fits[:1]
+
+    def cost(s):
+        busiest = -(-stripes * s // n_sm) * -(-stages // s)
+        partials = 8 * W4G_PLAN_ROWS * n * s if s > 1 else 0
+        return busiest * W4G_STAGE_K * W4G_COLS // 2 * n_sm + partials
+    return min(deep, key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def w4g_scale_slots(k: int, G: int) -> int:
+    """The most groups that one stage's 64 k of a nibble plane touch: the
+    (scale, offset) rows a stage of csrc/w4a16_g.cu copies (1 for g >= 64
+    dividing or divided by 64, at most 4 for g >= 16)."""
+    g = k // G
+    span = W4G_STAGE_K // 2
+    return max((a + span - 1) // g - a // g + 1 for a in range(0, k // 2, span))
+
+
+def w4g_plan(m: int, k: int, n: int, G: int, n_sm: int) -> tuple:
+    """(splits, scale slots, counter tiles) of one csrc/w4a16_g.cu launch
+    at M = ``m``: the split and the slots do not depend on ``m``; the
+    counters are one per (64-row block, 128-column stripe)."""
+    return (w4g_splits(k, n, n_sm), w4g_scale_slots(k, G),
+            -(-n // W4G_COLS) * -(-m // 64))
+
+
+# per device: the kernel's split counters, int32 zeros that each launch
+# leaves at zero (so launches on one device must not overlap in time on two
+# streams)
+_W4G_COUNTERS: dict = {}
+
+
+def _w4g_counters(x: torch.Tensor, tiles: int) -> torch.Tensor:
+    buf = _W4G_COUNTERS.get(x.device)
+    if buf is None or buf.numel() < tiles:
+        _build.require(not torch.cuda.is_current_stream_capturing(),
+                       "matmul_w4a16_g: call it once on this device before a CUDA "
+                       "graph capture (its split counters are allocated then)")
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=x.device)
+        _W4G_COUNTERS[x.device] = buf
+    return buf
+
+
+def _check_w4g(k: int, w: torch.Tensor, s: torch.Tensor, o: torch.Tensor) -> tuple:
+    """(N, G) of a grouped weight csrc/w4a16_g.cu takes; raises otherwise."""
     _build.require(w.dtype == torch.int32 and w.dim() == 2 and w.shape[0] * 8 == k,
                    f"matmul_w4a16_g: packed weights int32 [K//8, N] with K={k}")
     n = w.shape[1]
@@ -231,20 +292,45 @@ def matmul_w4a16_g(x: torch.Tensor, w_packed: torch.Tensor,
                    and (k // G) % 16 == 0,
                    f"matmul_w4a16_g: an even group count whose group size is a "
                    f"multiple of 16 dividing K/2, got K={k}, G={G}")
+    return n, G
+
+
+def matmul_w4a16_g(x: torch.Tensor, w_packed: torch.Tensor,
+                   w_scales_g: torch.Tensor, w_offs_g: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
+                   layer_idx: Optional[int] = None) -> torch.Tensor:
+    """x [M, K] bf16 @ group-quantized int4 w -> [M, N] out_dtype (AWQ /
+    GPTQ weights). w_packed [K//8, N] int32 (nibbles = unsigned q),
+    w_scales_g and w_offs_g = zp * s f32 [K//g, N]. With ``layer_idx`` the
+    weight-side arrays carry a leading stacked-layer dim and the kernel
+    reads layer ``layer_idx`` in place. The kernel takes K % 256 == 0, an
+    even group count and a group size that is a multiple of 16 dividing
+    K/2. It splits K into ``w4g_splits`` slices per 128-column stripe; their
+    partial sums go to an f32 workspace and are added in a fixed order by
+    the kernel (one launch per call)."""
+    w, s, o = _layer(layer_idx, w_packed, w_scales_g, w_offs_g)
+    if not x.is_cuda:
+        return matmul_w4a16_g_ref(x, w, s, o, bias, out_dtype=out_dtype)
+    m, k = x.shape
+    n, G = _check_w4g(k, w, s, o)
     if _bigm(m, k):
         out = _w4a16_g_bigm(x, w, s, o, out_dtype)
     else:
         _build.require(x.dtype == torch.bfloat16, "matmul_w4a16_g: x bf16")
         _build.require(out_dtype in (torch.bfloat16, torch.float32),
                        "matmul_w4a16_g: out_dtype bf16 or f32")
-        _build.require(G * 256 + 16384 <= 232448,
-                       f"matmul_w4a16_g: {G} groups exceed the block's shared memory")
+        _build.require(k < 2 ** 17, f"matmul_w4a16_g: K < 131072, got K={k}")
         out = torch.empty((m, n), dtype=out_dtype, device=x.device)
         if m:
-            _build.cuda_args_ok(x, w, s, o, out)
+            splits, slots, tiles = w4g_plan(m, k, n, G, _build.sm_count(x.device))
+            ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+                  if splits > 1 else out)
+            counters = _w4g_counters(x, tiles)
+            _build.cuda_args_ok(x, w, s, o, out, ws)
             _build.check("matmul_w4a16_g", _build.lib().qspec_w4a16_g(
                 x.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(),
-                out.data_ptr(), m, k, n, G, int(out_dtype == torch.float32),
+                out.data_ptr(), ws.data_ptr(), counters.data_ptr(), m, k, n, G,
+                splits, slots, int(out_dtype == torch.float32),
                 _build.stream_of(x)))
             matmul_w4a16_g.launches += 1
     if bias is not None:

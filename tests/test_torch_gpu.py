@@ -212,13 +212,27 @@ def _grouped(gen, k, n, g, layers=None):
     return tuple(torch.stack([p[key] for p in ps]) for key in ("qw", "qs_g", "qo_g"))
 
 
+def _grouped_direct(gen, k, n, g):
+    """Grouped weights of any width N (the AWQ writer packs 8 columns a
+    word): q, zp, s of the writer's quantizer, packed by the loader."""
+    q, zp, s = tg._group_quantize(torch.randn(k, n, generator=gen, device="cuda") * 0.02, g, 0)
+    p = tg.pack_grouped_proj(q, zp, s)
+    return p["qw"], p["qs_g"], p["qo_g"]
+
+
 @pytest.mark.parametrize("m,k,n,g", [(1, 256, 128, 128), (8, 512, 384, 64),
                                      (33, 512, 1536, 128), (16, 14336, 4096, 128),
-                                     (4, 4096, 6144, 32)])
+                                     (4, 4096, 6144, 32), (17, 4096, 4096, 128),
+                                     (60, 3584, 8192, 128), (64, 4096, 3584, 64),
+                                     (200, 3584, 8192, 128), (176, 14336, 3584, 128),
+                                     (60, 1024, 200, 32), (5, 512, 130, 64)])
 def test_w4a16_g_kernel(gen, m, k, n, g):
-    """The grouped GEMM at the JAX kernel test's shapes and Llama-3-8B ones,
-    bf16 and f32 out, against its plain version."""
-    qw, qs, qo = _grouped(gen, k, n, g)
+    """The grouped GEMM at the JAX kernel test's shapes and Llama-3-8B and
+    Gemma-2-9B ones, M up to 200 (past the 64 rows of one block; 176 is the
+    largest the kernel takes at K = 14336), g 32, 64 and 128, N not a
+    multiple of the block's 128 columns (and, at 130, of 4), bf16 and f32
+    out, against its plain version."""
+    qw, qs, qo = _grouped(gen, k, n, g) if n % 8 == 0 else _grouped_direct(gen, k, n, g)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
     before = lk.matmul_w4a16_g.launches
     for dt in (torch.float32, torch.bfloat16):
@@ -232,9 +246,10 @@ def test_w4a16_g_kernel(gen, m, k, n, g):
 
 def test_w4a16_g_stacked_rows_independent_and_bigm(gen):
     """The stacked form reads layer ``layer_idx`` in place; a row's bits do
-    not depend on M or on its place in the batch; the prefill branch
-    (dequantize once, torch.mm) agrees with the plain version and launches
-    no kernel."""
+    not depend on M (1 to 64 and a prefill-size 640, the largest M the
+    kernel takes at K = 4096) or on its place in the batch; the prefill
+    branch (dequantize once, torch.mm) agrees with the plain version and
+    launches no kernel."""
     L, k, n, g = 3, 4096, 4096, 128
     qw, qs, qo = _grouped(gen, k, n, g, layers=L)
     x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -248,12 +263,46 @@ def test_w4a16_g_stacked_rows_independent_and_bigm(gen):
                            full[rows])
     assert torch.equal(lk.matmul_w4a16_g(x.flip(0).contiguous(), qw, qs, qo, layer_idx=1),
                        full.flip(0))
+    assert not lk._bigm(640, k) and lk._bigm(641, k)
+    xl = torch.randn(640, k, generator=gen, device="cuda").to(torch.bfloat16)
+    full = lk.matmul_w4a16_g(xl, qw, qs, qo, layer_idx=1, out_dtype=torch.float32)
+    for m in (1, 4, 15, 16, 17, 33, 48, 60, 64, 65, 200):
+        assert torch.equal(lk.matmul_w4a16_g(xl[:m], qw, qs, qo, layer_idx=1,
+                                             out_dtype=torch.float32), full[:m]), m
+    assert torch.equal(lk.matmul_w4a16_g(xl[100:160].contiguous(), qw, qs, qo, layer_idx=1,
+                                         out_dtype=torch.float32), full[100:160])
+    assert torch.equal(lk.matmul_w4a16_g(xl.flip(0).contiguous(), qw, qs, qo, layer_idx=1,
+                                         out_dtype=torch.float32), full.flip(0))
     big = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16)
     before = lk.matmul_w4a16_g.launches
     out = lk.matmul_w4a16_g(big, qw, qs, qo, layer_idx=2)
     assert lk.matmul_w4a16_g.launches == before
     torch.testing.assert_close(out.float(), lk.matmul_w4a16_g_ref(big, qw[2], qs[2], qo[2]).float(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 28672), (14336, 3584)])
+def test_w4a16_g_graph_replay_bits(gen, k, n):
+    """A call captured in a CUDA graph replays to the bits of an eager call,
+    twice (the split counters reset themselves), at projections with a K
+    split (o, Gemma-2's down) and without (gate_up)."""
+    qw, qs, qo = _grouped(gen, k, n, 128)
+    x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+    eager = lk.matmul_w4a16_g(x, qw, qs, qo)
+    assert torch.equal(lk.matmul_w4a16_g(x, qw, qs, qo), eager)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        lk.matmul_w4a16_g(x, qw, qs, qo)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lk.matmul_w4a16_g(x, qw, qs, qo)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 def _window_case(gen, q_len, kv_dtype, ctx, S=16, B=3, Hq=32, Hkv=8, D=128):
