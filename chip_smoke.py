@@ -5,15 +5,18 @@
 
 The second form times, for each checkout named (a repository root), in
 turns on one card, each in a process of its own with that checkout's
-qspec_tpu_torch (its kernels built there): the paged-attention kernel's
-instantiations without the tree mask at the verify shapes the first form
-times them at (B=4, Q=4, page 128, contexts 379/263/512/40; D=128 (Hq=32,
-Hkv=8) over bf16 and int8 caches, D=256 (Hq=16, Hkv=8) bf16 with and without
-the softcap 50), then the grouped GEMM matmul_w4a16_g per layer of
+qspec_tpu_torch (its kernels built there): the paged-attention kernel at
+AB_SHAPES (the verify shapes of the timing phase over bf16 and int8 caches,
+D=256 with and without the softcap 50, context 8192 over bf16 and int8,
+the window-128 decode at context 2048 and the same decode without it, the
+tree verify at Q=15, BLOOM-7B1's ALiBi verify) and at each of its 36
+instantiations, then the grouped GEMM matmul_w4a16_g per layer of
 Llama-3-8B and of Gemma-2-9B (its four projections, g = 128, weights made
-by that checkout's model_loader.grouped) at M = 4, 16 and 60. It prints
-one JSON line per checkout, with those kernels' ptxas registers, and no
-result line.
+by that checkout's model_loader.grouped) at M = 4, 16 and 60. It prints,
+per AB_SHAPES entry, the times in the order given and the ratio of the
+first checkout's mean to the second's, and a summary of the 36; every
+checkout's JSON line (with its ptxas registers and spills) and the
+per-instantiation times go to chiprun_out/chip_smoke.log. No result line.
 
 Phases (any failure raises and the script exits non-zero, printing no result):
 
@@ -38,6 +41,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    CUDA-graph replays; the least time the card could take (bound_ms); the
    windowed attention at context 2048 beside the unwindowed kernel; the
    attention at Gemma-2-9B's verify shape (D=256) with and without softcap;
+   the attention at context 8192 over bf16 and int8 caches and a prefill
+   chunk (Q=512 on one row of context 512), where bytes set its bound;
    the tree-masked attention at the Llama-3-8B tree-verify rectangle (Q=15)
    beside the kernel without the tree; ALiBi at BLOOM-7B1's n-gram verify
    (Q=4, Hq=Hkv=32) beside the same inputs without it; matmul_w4a16 also at
@@ -208,6 +213,20 @@ def _kernel_name(mangled: str) -> str:
     return m.group(1) + (f"<{args}>" if args else "")
 
 
+def attention_smem(entry: int, scaled: bool, D: int) -> int:
+    """Bytes of dynamic shared memory a block of csrc/paged_attention.cu
+    takes (its Smem<T, kD, kScaled>::kBytes): a ring of 16-token K and V
+    slices per warp (2 stages at D=128, 3 at 256), the widened bf16 V slice
+    of 8-bit entries, the scales, the warps' P.V dump (aliasing them), the
+    query tile and, at D=256, the fold."""
+    stages = 2 if D == 128 else 3
+    ring = 4 * stages * 2 * 16 * D * entry
+    pipe = (ring + (4 * 16 * D * 2 if entry == 1 else 0)
+            + (4 * stages * 2 * 16 * 4 if scaled else 0))
+    dump = 4 * 16 * (D + 8) * 4 + 2 * 4 * 16 * 4
+    return max(pipe, dump) + 16 * D * 2 + (0 if D == 128 else 16 * D * 4)
+
+
 def phase_build():
     from qspec_tpu_torch import _build
     t0 = time.perf_counter()
@@ -226,16 +245,26 @@ def phase_build():
             f" smem {v['smem']}" if v.get("smem") else "")
     log("ptxas: " + json.dumps(short, separators=(",", ":")), stdout=False)
     attn = {k: v for k, v in short.items() if k.startswith("attn")}
+    # the attention instantiations one a line, with the dynamic shared
+    # memory a block takes (csrc/paged_attention.cu: Smem<T, kD, kScaled>)
+    for name, v in sorted(attn.items()):
+        entry, scaled, D = name[5:-1].split(",")[:3]
+        log(f"ptxas {name}: {v}, dynamic smem "
+            f"{attention_smem(1 if entry != 'bf16' else 2, scaled == '1', int(D))} bytes",
+            stdout=False)
     regs = sorted(int(v.split("r")[0]) for v in attn.values())
+
+    def spills(v: str) -> bool:      # "<regs>r <bytes>s ...": a spill entry
+        return re.search(r" \d+s\b", v) is not None
     # the grouped GEMM's instantiations <m16 tiles, N % 4 == 0> in one entry
     w4g = {k: v for k, v in short.items() if k.startswith("w4a16_g")}
     rest = {k: v for k, v in short.items() if not k.startswith(("attn", "w4a16_g"))}
     if w4g:
         g_regs = sorted(int(v.split("r")[0]) for v in w4g.values())
         rest[f"w4a16_g x{len(w4g)}"] = f"{g_regs[0]}-{g_regs[-1]}r" + (
-            " spills" if any("s" in v.split("r")[1] for v in w4g.values()) else "")
+            " spills" if any(spills(v) for v in w4g.values()) else "")
     log(f"ptxas: {len(short)} kernels ({len(attn)} attention, {regs[0]}-{regs[-1]} registers; "
-        f"spills {json.dumps({k: v for k, v in attn.items() if 's' in v.split('r')[1]})}); "
+        f"spills {json.dumps({k: v for k, v in attn.items() if spills(v)})}); "
         + json.dumps(rest, separators=(",", ":")))
 
 
@@ -522,11 +551,11 @@ KV8 = ("int8", "fp8_e4m3", "fp8_e5m2")
 KV8_TOL = {"int8": 4e-2, "fp8_e4m3": 4e-2, "fp8_e5m2": 8e-2}
 
 
-def _attn_inputs_kv(gen, q_len, kv_dtype, B=4, Hq=32, Hkv=8, D=128, S=128):
+def _attn_inputs_kv(gen, q_len, kv_dtype, B=4, Hq=32, Hkv=8, D=128, S=128, ctx=None):
     """The shapes of _attn_inputs over a cache of ``kv_dtype``, every page of
     layer 1 filled through update_layer (the production write)."""
     from qspec_tpu_torch.ops import kv_cache as kvc
-    q, bf16_cache, tables, ctx = _attn_inputs(gen, q_len, B, Hq, Hkv, D, S)
+    q, bf16_cache, tables, ctx = _attn_inputs(gen, q_len, B, Hq, Hkv, D, S, ctx)
     P = bf16_cache.kv_pages.shape[1]
     cache = kvc.allocate(kvc.KVCacheConfig(2, Hkv, D, P, S, kv_dtype), "cuda")
     T = (P - 1) * S
@@ -669,7 +698,8 @@ def check_attention_d256(gen, report):
         report[name]["d256_softcap"] = {"max_abs_err": err, "tol": f"rtol=atol={tol}"}
     if not same:
         raise AssertionError("paged_attention D=256 softcap: a row's bits depend on Q")
-    log("check paged_attention D=256 (softcap 50, 5, none) and D=128 (softcap 50, 5): max_abs_err "
+    log("check paged_attention D=256 (softcap 50, 5, none) and D=128 (softcap 50, 5): "
+        "max_abs_err (tol: rtol=atol) "
         + ", ".join(f"{k} {v:.3g} (tol {D256_TOL[k]})" for k, v in errs.items())
         + f"; Q in 1,4,128, window none and 128, ctx {list(WINDOW_CTX)}; "
         "a row's bits equal at Q=1 and Q=4")
@@ -771,7 +801,7 @@ def check_attention_tree(gen, report):
                              "its descendant, or missed its child")
     report["paged_attention"]["tree"]["window_vs_ar_max_abs_err"] = err_ar
     log("check paged_attention tree (DEFAULT_TREE, prefix 3 and 5, D=128 and 256, softcap none "
-        "and 50, window none and 12): max_abs_err "
+        "and 50, window none and 12): max_abs_err (tol: rtol=atol) "
         + ", ".join(f"{k} {v:.3g} (tol {TREE_TOL[k]})" for k, v in errs.items())
         + f"; tree rows under window 12 vs AR {err_ar:.3g}; node (1,)'s slot changed: "
         f"{len(keep)} rows keep their bits, its child's row moves")
@@ -1221,7 +1251,7 @@ def time_kernels(gen, report, int4pack_missing):
                                     f"{kv_dtype} KV")
             del rot, q, tables
         log(f"time paged_attention B=4 Q={q_len} ctx={live}, ms by KV entry: "
-            + "; ".join(parts))
+            + "; ".join(parts), stdout=q_len == 4)   # Q=1 and 128 in the log
         torch.cuda.empty_cache()
 
 
@@ -1388,6 +1418,57 @@ def time_attention_d256(gen, report):
         torch.cuda.empty_cache()
 
 
+LONG_CTX = 8192      # the long-context rows: 32 splits of 256 tokens
+
+
+def time_attention_long(gen, report):
+    """Where the bytes, not launch latency, set the bound: B=4, Q=4, context
+    8192 (Hq=32, Hkv=8, D=128, page 128) over a bf16 and an int8 cache, and a
+    prefill chunk of Q=512 on one row of context 512 (bf16); each input set
+    rotated past L2."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    Hq, Hkv, D = 32, 8, 128
+    rows = {}
+    for label, q_len, ctx, kv_dtype in (("ctx8192_bf16", 4, (LONG_CTX,) * 4, "bfloat16"),
+                                        ("ctx8192_int8", 4, (LONG_CTX,) * 4, "int8"),
+                                        ("prefill_q512_ctx512", 512, (512,), "bfloat16")):
+        B = len(ctx)
+        entry = 2 if kv_dtype == "bfloat16" else 1
+        kv_bytes = sum(ctx) * Hkv * D * 2 * entry
+        sc_bytes = sum(ctx) * Hkv * 2 * 4 if kv_dtype == "int8" else 0
+        q_bytes = B * q_len * Hq * D * 2
+        rot = Rotating(lambda: _attn_window_inputs(gen, q_len, kv_dtype, ctx),
+                       kv_bytes + sc_bytes + 2 * q_bytes)
+
+        def kern():
+            q, cache, tables, c = rot.next()
+            paged_attention_cuda(q, cache.kv_pages, tables, c, D ** -0.5, layer=1,
+                                 kv_scales=cache.kv_scales)
+
+        def plain():
+            q, cache, tables, c = rot.next()
+            paged_attention_ref(q, cache, 1, tables, c, D ** -0.5)
+        q, cache, tables, c = rot.sets[0]
+        err = (paged_attention_cuda(q, cache.kv_pages, tables, c, D ** -0.5, layer=1,
+                                    kv_scales=cache.kv_scales).float()
+               - paged_attention_ref(q, cache, 1, tables, c, D ** -0.5).float()).abs().max().item()
+        t_k = graph_ms(kern, reps=max(20, len(rot.sets)))
+        t_p = graph_ms(plain, reps=2)
+        nbytes = 2 * q_bytes + kv_bytes + sc_bytes + tables.numel() * 4 + 8 * B
+        seen = sum(sum(n - q_len + i + 1 for i in range(q_len)) for n in ctx)
+        b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+        rows[label] = dict(ms=t_k, plain_ms=t_p, bound_ms=b, bound_by=kind,
+                           share_of_bound=b / t_k, max_abs_err=err,
+                           shape=f"B={B}, Q={q_len}, Hq=32, Hkv=8, D=128, ctx={ctx[0]}, "
+                           f"{kv_dtype} KV")
+        log(f"time paged_attention {label} (B={B} Q={q_len}): {t_k:.4f} ms, plain {t_p:.4f}, "
+            f"bound {b:.5f} ({kind}, {100 * b / t_k:.1f}%); max_abs_err {err:.3g}")
+        del rot, q, cache, tables, c
+        torch.cuda.empty_cache()
+    report["paged_attention"]["long"] = rows
+
+
 TINY_GEMMA2 = dict(model_type="gemma2", vocab_size=512, hidden_size=256, intermediate_size=512,
                    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
                    head_dim=256, query_pre_attn_scalar=24, sliding_window=16,
@@ -1450,7 +1531,7 @@ def phase_small_reference(lm_head_quant: str, kv_dtype: str, quant: str = "w4"):
             raise AssertionError(f"tiny {scheme}: bad logits {tuple(out.shape)}")
         rel = ((out - ref).norm() / ref.norm()).item()
         log(f"check tiny {quant} model_forward {scheme} (head {lm_head_quant}, {kv_dtype} KV): "
-            f"relative L2 error {rel:.3g} vs the CPU plain versions (tol {tol}), "
+            f"rel L2 {rel:.3g} vs the CPU (tol {tol}), "
             f"max abs {(out - ref).abs().max().item():.3g}")
         if rel > tol:
             raise AssertionError(f"tiny {scheme} logits differ: relative L2 {rel} > {tol}")
@@ -1559,12 +1640,21 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
            if any(any(o.values()) for o in opts.values()) else {})}
 
 
+# the summary keys an end-to-end line shows on the standard output (the log
+# has them all)
+E2E_KEYS = ("acceptance_rate", "emitted_per_round_per_seq", "spec_tokens_per_s",
+            "oracle_tokens_per_s")
+
+
 def e2e_log(label: str, prompts, spec, summary: dict):
     """One line per end-to-end run: its token and prompt counts and its
-    summary (floats to 5 significant digits, to keep the output short)."""
+    summary (floats to 5 significant digits), in full to the log and its
+    E2E_KEYS to the standard output."""
     short = {k: float(f"{v:.5g}") if isinstance(v, float) else v for k, v in summary.items()}
-    log(f"e2e {label}: {len(spec[0])} greedy tokens of {len(prompts)} prompts == oracle's: "
-        f"{json.dumps(short, separators=(',', ':'))}")
+    head = f"e2e {label}: {len(spec[0])} greedy tokens of {len(prompts)} prompts == oracle's: "
+    log(head + json.dumps(short, separators=(",", ":")), stdout=False)
+    print(head + json.dumps({k: short[k] for k in E2E_KEYS if k in short},
+                            separators=(",", ":")), flush=True)
 
 
 def llm_engine(kw: dict):
@@ -2077,6 +2167,7 @@ def main():
     time_w4a16_g(gen, report, int4pack_missing)
     time_attention_window(gen, report)
     time_attention_d256(gen, report)
+    time_attention_long(gen, report)
     time_attention_tree(gen, report)
     time_attention_alibi(gen, report)
     time_bloom_projections(gen)
@@ -2118,6 +2209,8 @@ def main():
                      "medusa_rounds": {"llama3-8b tree": medusa["d"][2]["rounds_run"],
                                        "gemma2-9b tree": gemma["tree"][2]["rounds_run"]},
                      "alibi": r["alibi"],
+                     "long": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                              for k, v in r["long"].items()},
                      "alibi_launches": {"bloom-7b1 n-gram": bloom[1][name]["alibi"],
                                         "mpt-7b 2-layer n-gram": mpt["alibi_launches"]},
                      "bloom_forwards": bloom[2]["forwards"]}
@@ -2154,41 +2247,101 @@ def main():
                                            "count": torch.cuda.device_count()}}))
 
 
-AB_SHAPES = (("d128_bf16", 128, 32, "bfloat16", None), ("d128_int8", 128, 32, "int8", None),
-             ("d256_bf16_cap50", 256, 16, "bfloat16", 50.0),
-             ("d256_bf16", 256, 16, "bfloat16", None))
+# the attention shapes --ab times, each (label, KV entry, head dim, Hq, Hkv,
+# Q, contexts, option): the verify shapes of time_kernels and
+# time_attention_d256, the long contexts of time_attention_long, the
+# draft's window and the same decode without it (time_attention_window), the
+# tree verify (time_attention_tree) and BLOOM's ALiBi (time_attention_alibi)
+AB_SHAPES = (
+    ("d128_bf16", "bfloat16", 128, 32, 8, 4, None, {}),
+    ("d128_int8", "int8", 128, 32, 8, 4, None, {}),
+    ("d256_bf16_cap50", "bfloat16", 256, 16, 8, 4, None, {"softcap": 50.0}),
+    ("d256_bf16", "bfloat16", 256, 16, 8, 4, None, {}),
+    ("ctx8192_bf16", "bfloat16", 128, 32, 8, 4, (LONG_CTX,) * 4, {}),
+    ("ctx8192_int8", "int8", 128, 32, 8, 4, (LONG_CTX,) * 4, {}),
+    ("window128_ctx2048_q1", "bfloat16", 128, 32, 8, 1, (2048,) * 4, {"window": 128}),
+    ("ctx2048_q1", "bfloat16", 128, 32, 8, 1, (2048,) * 4, {}),
+    ("tree_q15", "bfloat16", 128, 32, 8, None, None, {"tree": True}),
+    ("alibi_bloom_q4", "bfloat16", 128, 32, 32, 4, None, {"alibi": True}))
+AB_KV = ("bfloat16", "int8", "fp8_e4m3", "fp8_e5m2")
+
+
+def instantiations():
+    """The attention kernel's 36 instantiations as --ab shapes: every entry
+    type x head dim 128 / 256 x softcap 50 or none x the tree or not, at the
+    verify shape (B=4, Q=4, or the tree rectangle, Q=15; Hq=32 at D=128, 16
+    at D=256, Hkv=8; contexts 379/263/512/40), and ALiBi on every entry type
+    at BLOOM-7B1's (Hq=Hkv=32, Q=4)."""
+    out = []
+    for kv in AB_KV:
+        for D in (128, 256):
+            for cap in (None, 50.0):
+                for tree in (False, True):
+                    opt = {"softcap": cap} if cap else {}
+                    if tree:
+                        opt["tree"] = True
+                    out.append((f"{kv}/D{D}/cap{int(bool(cap))}/tree{int(tree)}", kv, D,
+                                32 if D == 128 else 16, 8, None if tree else 4, None, opt))
+        out.append((f"{kv}/D128/alibi", kv, 128, 32, 32, 4, None, {"alibi": True}))
+    return out
+
+
+def ab_attention_ms(gen, shape) -> float:
+    """One --ab shape's kernel time: inputs rotated past L2, CUDA-graph
+    replays (graph_ms); only the kernel's wrapper of the checkout runs."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes, tree_mask
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    _, kv, D, Hq, Hkv, q_len, ctx, opt = shape
+    kw = {k: v for k, v in opt.items() if k in ("softcap", "window")}
+    if opt.get("tree"):
+        tspec = build_tree(DEFAULT_TREE)
+        positions, ctx = _tree_rect(tspec)
+        q_len = positions.shape[1]
+        kw.update(q_positions=positions, tree=tree_mask(TREE_PREFIX, tspec.ancestors, "cuda"))
+    if opt.get("alibi"):
+        kw["alibi"] = torch.as_tensor(alibi_slopes(Hq), device="cuda")
+    ctx = ctx or _ctx_lens(q_len)
+    nbytes = sum(ctx) * Hkv * D * 2 * (2 if kv == "bfloat16" else 1)
+    live_pages = None
+    if "window" in kw:      # only the pages the window reaches get pages of their own
+        live_pages = -(-ctx[0] // 128) - max(ctx[0] - q_len - kw["window"] + 1, 0) // 128
+        nbytes = nbytes * live_pages * 128 // ctx[0]
+    if len(set(ctx)) == 1:
+        rot = Rotating(lambda: _attn_window_inputs(gen, q_len, kv, ctx, Hq=Hq, Hkv=Hkv, D=D,
+                                                   live_pages=live_pages), nbytes)
+    elif kv == "bfloat16":
+        rot = Rotating(lambda: _attn_inputs(gen, q_len, Hq=Hq, Hkv=Hkv, D=D, ctx=ctx), nbytes)
+    else:
+        rot = Rotating(lambda: _attn_inputs_kv(gen, q_len, kv, Hq=Hq, Hkv=Hkv, D=D, ctx=ctx),
+                       nbytes)
+
+    def kern():
+        q, cache, tables, c = rot.next()
+        paged_attention_cuda(q, cache.kv_pages, tables, c, D ** -0.5, layer=1,
+                             kv_scales=cache.kv_scales, **kw)
+    ms = graph_ms(kern, reps=max(20, len(rot.sets)))
+    del rot
+    torch.cuda.empty_cache()
+    return ms
 
 
 def ab_child(root: str):
-    """One checkout's attention times at AB_SHAPES, its grouped GEMM's per
-    layer (the four projections, kernel only, weights made by that
-    checkout's model_loader.grouped) of Llama-3-8B and Gemma-2-9B at M = 4,
-    16 and 60, and those kernels' ptxas registers, as one JSON line (--ab's
-    child process)."""
+    """One checkout's attention times at AB_SHAPES and at the 36
+    instantiations, its grouped GEMM's per layer (the four projections,
+    kernel only, weights made by that checkout's model_loader.grouped) of
+    Llama-3-8B and Gemma-2-9B at M = 4, 16 and 60, and those kernels' ptxas
+    registers and spills, as one JSON line (--ab's child process)."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     from qspec_tpu_torch import _build
     from qspec_tpu_torch.ops import linear_kernels as lk
-    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
     if not _build.__file__.startswith(root + os.sep):
         raise SystemExit(f"chip_smoke --ab: {root} holds no qspec_tpu_torch")
     _build.lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {}
-    for label, D, Hq, kv, cap in AB_SHAPES:
-        def make(D=D, Hq=Hq, kv=kv):
-            if kv == "bfloat16":
-                return _attn_inputs(gen, 4, Hq=Hq, D=D)
-            return _attn_inputs_kv(gen, 4, kv, Hq=Hq, D=D)
-        rot = Rotating(make, sum(_ctx_lens(4)) * 8 * D * 2 * (2 if kv == "bfloat16" else 1))
-
-        def kern(D=D, cap=cap):
-            q, cache, tables, ctx = rot.next()
-            paged_attention_cuda(q, cache.kv_pages, tables, ctx, D ** -0.5, layer=1,
-                                 kv_scales=cache.kv_scales, softcap=cap)
-        out[label] = graph_ms(kern, reps=max(20, len(rot.sets)))
-        del rot
-        torch.cuda.empty_cache()
+    out = {shape[0]: ab_attention_ms(gen, shape) for shape in AB_SHAPES}
+    inst = {shape[0]: ab_attention_ms(gen, shape) for shape in instantiations()}
     for model, shapes in (("llama3-8b", GEMM_SHAPES), ("gemma2-9b", GEMMA_SHAPES)):
         for m in (4, 16, 60):
             per = []
@@ -2200,21 +2353,52 @@ def ab_child(root: str):
                 del rot
                 torch.cuda.empty_cache()
             out[f"w4a16_g_{model}_m{m}"] = [sum(per), per]
-    regs = {_kernel_name(k): v.get("regs") for k, v in _build.build_info.get("ptxas", {}).items()
+    regs = {_kernel_name(k): [v.get("regs"), v.get("spill_stores", 0)]
+            for k, v in _build.build_info.get("ptxas", {}).items()
             if "paged_attention" in k or "w4a16_g" in k}
-    print(json.dumps({"checkout": root, "ms": out, "ptxas_regs": regs},
-                     separators=(",", ":")), flush=True)
+    print(json.dumps({"checkout": root, "ms": out, "instantiations_ms": inst,
+                      "ptxas_regs_spills": regs}, separators=(",", ":")), flush=True)
 
 
 def ab(roots):
     """--ab: each checkout of ``roots`` timed by a process of its own, in
-    the order given."""
+    the order given. Every child's JSON line goes to the log; the standard
+    output gets, per AB_SHAPES entry, the times in that order and the ratio
+    of the first checkout's mean time to the second's, and for the 36
+    instantiations how many the second checkout runs faster."""
     if not roots:
         raise SystemExit(__doc__)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    _LOG.append(open(os.path.join(out_dir, "chip_smoke.log"), "a"))
     phase_device()
+    res = []
     for root in roots:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-child", root],
-                       check=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-child", root],
+                              check=True, stdout=subprocess.PIPE, text=True)
+        line = proc.stdout.strip().splitlines()[-1]
+        log(line, stdout=False)
+        res.append(json.loads(line))
+    names = list(dict.fromkeys(r["checkout"] for r in res))
+
+    def val(x):          # a grouped GEMM's entry is [layer ms, per projection]
+        return x[0] if isinstance(x, list) else x
+
+    def ratio(key, label):
+        mean = [np.mean([val(r[key][label]) for r in res if r["checkout"] == n])
+                for n in names]
+        return mean[0] / mean[-1]
+    log(f"ab checkouts: {' / '.join(r['checkout'] for r in res)}")
+    for label in res[0]["ms"]:
+        vals = [val(r["ms"][label]) for r in res]
+        log(f"ab {label}: " + " / ".join(f"{v:.5f}" for v in vals)
+            + f" ({ratio('ms', label):.2f}x)")
+    inst = {label: ratio("instantiations_ms", label) for label in res[0]["instantiations_ms"]}
+    for label, x in inst.items():
+        log(f"ab instantiation {label}: " + " / ".join(
+            f"{r['instantiations_ms'][label]:.5f}" for r in res) + f" ({x:.2f}x)", stdout=False)
+    log(f"ab instantiations: the second checkout faster at {sum(x > 1 for x in inst.values())} "
+        f"of {len(inst)}, {min(inst.values()):.2f}-{max(inst.values()):.2f}x (each in the log)")
 
 
 if __name__ == "__main__":

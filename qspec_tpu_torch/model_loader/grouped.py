@@ -232,10 +232,10 @@ def load_gptq(path_or_sd, cfg: Optional[ModelConfig] = None, tp_size: int = 1,
 def _resolve(path_or_sd, cfg):
     if not isinstance(path_or_sd, dict):
         raise NotImplementedError(
-            "loading an AWQ / GPTQ checkpoint directory needs a safetensors "
-            "reader and config_from_hf_dir, which come with the port of the "
-            "float-checkpoint loader (qspec_tpu/model_loader/loader.py); pass "
-            "a state dict and a ModelConfig")
+            "the directory form of load_awq / load_gptq is not ported yet "
+            "(ROADMAP queue 1 item 6: its safetensors shards through "
+            "model_loader.loader's reader and config_from_hf_dir); pass a "
+            "state dict and a ModelConfig")
     if cfg is None:
         raise ValueError("a state dict needs its ModelConfig")
     return path_or_sd

@@ -8,12 +8,14 @@ The plain version it is held against is ``ops/attention.py:paged_attention_ref``
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
 
 import torch
 
 from qspec_tpu_torch import _build
-from qspec_tpu_torch.ops.attention import MAX_TREE_NODES
+from qspec_tpu_torch.ops.attention import MAX_TREE_NODES, NEG_INF, tree_slot_mask
+from qspec_tpu_torch.ops.kv_cache import gather_layer
 
 # entry type -> the kernel's instantiation code (csrc/paged_attention.cu)
 KV_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
@@ -36,6 +38,78 @@ LAUNCHES = {dtype: SimpleNamespace(launches=0, window_launches=0,
 # the sliding-window sentinel (qspec_tpu/ops/attention_pallas.py NO_WINDOW):
 # far past any position, so the window never masks and the walk starts at 0
 NO_WINDOW = 1 << 30
+
+# csrc/paged_attention.cu's plan: a block takes ROWS GQA rows (one m16 tile);
+# its warps take the SLICE-token slices at SLICE * w mod STEP; a split is the
+# fewest whole pages that hold SPLIT_MIN tokens
+ROWS = 16
+SLICE = 16
+STEP = 4 * SLICE
+SPLIT_MIN = 256
+# a launch of at most this many row tiles takes one split a block (decode,
+# verify, the tree: B x Hkv x splits blocks); more tiles take all of a tile's
+# splits in one block (prefill). The folds are the same, so is every bit.
+MAX_SPLIT_TILES = 4
+
+
+def split_tokens(page_size: int) -> int:
+    """Tokens a split: the fewest whole pages holding SPLIT_MIN tokens. Token
+    t lies in split t // split_tokens(S), whatever B, Q or the card."""
+    return page_size * -(-SPLIT_MIN // page_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """One launch of csrc/paged_attention.cu, from shapes alone: ``split``
+    tokens a split, ``n_splits`` of them over the block table,
+    ``splits_per_block`` (1, or all), the ``grid`` (row tiles, split blocks,
+    B * Hkv) and the floats of the f32 workspace of split states that the
+    merge kernel folds (0 when a block takes every split, and then no merge
+    kernel runs)."""
+    split: int
+    n_splits: int
+    splits_per_block: int
+    grid: tuple
+    ws_floats: int
+
+
+def attention_plan(B: int, Q: int, Hq: int, Hkv: int, D: int, S: int,
+                   pages_per_seq: int) -> AttentionPlan:
+    """The split plan and schedule of a launch. The splits follow from the
+    page size and the block table's width; the schedule (one split a block or
+    all of them) from the row tiles, and changes no bit."""
+    split = split_tokens(S)
+    n_splits = max(1, -(-pages_per_seq * S // split))
+    G = Hq // Hkv * Q
+    tiles = -(-G // ROWS)
+    spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits
+    grid_y = -(-n_splits // spb)
+    return AttentionPlan(split, n_splits, spb, (tiles, grid_y, B * Hkv),
+                         B * Hkv * n_splits * G * (D + 2) if grid_y > 1 else 0)
+
+
+def tile_walk(ctx: int, q_start: int, q_last: int, window: int, S: int,
+              pages_per_seq: int) -> list:
+    """The token ranges a row tile of the kernel walks, split by split:
+    [(split, lo, hi)] in ascending order, from the first in-window page of
+    the sequence's first query (``q_start``; page 0 without a window) up to
+    its last query ``q_last`` and ctx_len; each warp takes the 16-token
+    slices of a range at 16 w mod 64. Empty for ctx_len 0."""
+    win = NO_WINDOW if window is None else window
+    split = split_tokens(S)
+    n_tok = min(ctx, q_last + 1, pages_per_seq * S)
+    n_pages = max(1, -(-ctx // S))
+    w_first = q_start - win + 1
+    first = min(w_first // S if w_first > 0 else 0, n_pages - 1) * S
+    return [(s, max(s * split, first), min((s + 1) * split, n_tok))
+            for s in range(first // split, -(-n_tok // split) if n_tok > first else 0)]
+
+
+def warp_slices(lo: int, hi: int, warp: int) -> range:
+    """The starts of the 16-token slices of [lo, hi) that warp ``warp`` of
+    a block takes: those at 16 * warp mod 64 (lo and hi multiples of 16)."""
+    t0 = lo // STEP * STEP + SLICE * warp
+    return range(t0 + STEP if t0 < lo else t0, hi, STEP)
 
 
 def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -113,27 +187,40 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                        "with q_positions")
         _build.cuda_args_ok(q, tree.words)
         anc_ptr = tree.words.data_ptr()
-        # row 0's slot: the root's position less the prefix rows before it
-        # (negative for phantom rows of a short prompt, which see nothing)
-        q_start = (q_positions[:, prefix - 1].to(torch.int32) - (prefix - 1)).contiguous()
-    elif q_positions is None:
-        q_start = (ctx - Q).contiguous()
-    else:
-        q_start = q_positions[:, 0].to(torch.int32).contiguous()
+    # the kernel reads row 0's position in place: column 0 of q_positions or,
+    # under a tree, the root's position less the prefix rows before it
+    # (negative for phantom rows of a short prompt, which see nothing); the
+    # last Q positions without q_positions
+    pos_ptr, pos_stride, pos_i64, pos_col = None, 0, 0, prefix - 1 if tree is not None else 0
+    if q_positions is not None:
+        _build.require(q_positions.dim() == 2 and q_positions.shape[0] == B
+                       and q_positions.shape[1] > pos_col
+                       and q_positions.dtype in (torch.int32, torch.int64)
+                       and q_positions.device == q.device,
+                       "paged_attention_cuda: q_positions int32 / int64 [B, Q] on q's device")
+        col = q_positions[:, pos_col]
+        pos_ptr, pos_stride = col.data_ptr(), col.stride(0)
+        pos_i64 = int(q_positions.dtype == torch.int64)
     out = torch.empty_like(q)
     if B == 0 or Q == 0:
         return out
     kv_layer = kv_pages[layer]
-    _build.cuda_args_ok(q, kv_layer, tables, ctx, q_start, out)
+    _build.cuda_args_ok(q, kv_layer, tables, ctx, out)
     sc_ptr = None
     if scaled:
         sc_layer = kv_scales[layer]
         _build.cuda_args_ok(q, sc_layer)
         sc_ptr = sc_layer.data_ptr()
+    plan = attention_plan(B, Q, Hq, Hkv, D, S, tables.shape[1])
+    ws = None
+    if plan.ws_floats:   # the split blocks' states, for the merge kernel
+        ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=q.device)
     _build.check("paged_attention", _build.lib().qspec_paged_attention(
         q.data_ptr(), kv_layer.data_ptr(), sc_ptr, tables.data_ptr(),
-        ctx.data_ptr(), q_start.data_ptr(), out.data_ptr(), B, Q, Hq, Hkv, S,
-        tables.shape[1], KV_CODES[kv_pages.dtype], D, float(scale), cap, win,
+        ctx.data_ptr(), pos_ptr, pos_stride, pos_i64, pos_col, out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, Q,
+        Hq, Hkv, S, tables.shape[1], plan.split, plan.n_splits,
+        plan.splits_per_block, KV_CODES[kv_pages.dtype], D, float(scale), cap, win,
         anc_ptr, prefix, alibi_ptr, _build.stream_of(q)))
     count = LAUNCHES[kv_pages.dtype]
     count.launches += 1
@@ -143,3 +230,82 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
     count.tree_launches += tree is not None
     count.alibi_launches += alibi is not None
     return out
+
+
+def _fold(state, part):
+    """The kernel's fold of a softmax state (m, l, o) into another."""
+    M, L, O = state
+    m, l, o = part
+    mn = torch.maximum(M, m)
+    a, b = torch.exp(M - mn), torch.exp(m - mn)
+    return mn, L * a + l * b, O * a[..., None] + o * b[..., None]
+
+
+def paged_attention_split_ref(q: torch.Tensor, cache, layer: int,
+                              block_tables: torch.Tensor, ctx_lens: torch.Tensor,
+                              scale: float, q_positions: torch.Tensor = None,
+                              window: int = None, softcap: float = None,
+                              alibi: torch.Tensor = None, tree=None) -> torch.Tensor:
+    """The kernel's split-then-merge in plain f32 (no bf16 rounding of q or
+    p), with ``ops.attention.paged_attention_ref``'s arguments and scores:
+    each row walks :func:`tile_walk`'s ranges; in a range, warp w keeps an
+    online softmax over the 16-token slices at 16 w mod 64; a split's state
+    is the fold of the four warps' in order, the row's the fold of its
+    splits in ascending order. Equal to the plain version up to f32
+    rounding."""
+    B, Q, Hq, D = q.shape
+    if q_positions is None:
+        q_positions = (ctx_lens[:, None] - Q) + torch.arange(Q, device=q.device)[None, :]
+    k, v = gather_layer(cache, layer, block_tables)       # [B, Hkv, C, D]
+    Hkv, C = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    S = cache.kv_pages.shape[4]
+    qf = (q.to(torch.float32) * scale).reshape(B, Q, Hkv, group, D)
+    scores = torch.einsum("bqhgd,bhcd->bhgqc", qf, k.to(torch.float32))
+    kv_pos = torch.arange(C, device=q.device)[None, :]
+    if alibi is not None:
+        delta = kv_pos[None].to(torch.float32) - q_positions[:, :, None].to(torch.float32)
+        scores = scores + alibi.to(torch.float32).reshape(Hkv, group)[None, :, :, None, None] \
+            * delta[:, None, None]
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    if tree is not None:
+        q_start = q_positions[:, tree.prefix - 1] - (tree.prefix - 1)
+        mask = tree_slot_mask(tree.prefix, Q, q_start, tree.ancestors, C, window)
+    else:
+        q_start = q_positions[:, 0]
+        mask = kv_pos[None] <= q_positions[:, :, None]
+        if window is not None:
+            mask = mask & (kv_pos[None] > q_positions[:, :, None] - window)
+    mask = mask & (kv_pos[None] < ctx_lens[:, None, None])            # [B, Q, C]
+    G = group * Q
+    s = scores.reshape(B, Hkv, G, C)
+    live = mask[:, None, None].expand(B, 1, group, Q, C).reshape(B, 1, G, C)
+    vf = v.to(torch.float32)
+    out = torch.zeros(B, Hkv, G, D, dtype=torch.float32, device=q.device)
+
+    def init():
+        return (torch.full((Hkv, G), NEG_INF, device=q.device),
+                torch.zeros(Hkv, G, device=q.device),
+                torch.zeros(Hkv, G, D, device=q.device))
+    for b in range(B):
+        qs = int(q_start[b])
+        state = init()
+        for _, lo, hi in tile_walk(int(ctx_lens[b]), qs, qs + Q - 1, window, S,
+                                   block_tables.shape[1]):
+            part = init()
+            for w in range(STEP // SLICE):
+                m, l, o = init()
+                for t in warp_slices(lo, hi, w):
+                    sl, lv = s[b, :, :, t:t + SLICE], live[b, :, :, t:t + SLICE]
+                    mn = torch.maximum(m, torch.where(lv, sl, NEG_INF).amax(-1))
+                    a = torch.exp(m - mn)
+                    p = torch.where(lv, torch.exp(sl - mn[..., None]), 0.0)
+                    m, l = mn, l * a + p.sum(-1)
+                    o = o * a[..., None] + p @ vf[b, :, t:t + SLICE]
+                part = _fold(part, (m, l, o))
+            state = _fold(state, part)
+        M, L, O = state
+        out[b] = torch.where(L[..., None] > 0, O / torch.where(L > 0, L, 1.0)[..., None], 0.0)
+    return (out.reshape(B, Hkv, group, Q, D).permute(0, 3, 1, 2, 4)
+            .reshape(B, Q, Hq, D).to(q.dtype))

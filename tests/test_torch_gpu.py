@@ -789,3 +789,122 @@ def test_tiny_bloom_ngram_equals_oracle_on_card(gen):
     assert {n for n, c in counters.items() if c.launches > 0} == {"paged_attention"}
     assert attn.alibi_launches == attn.launches == cfg.num_layers * forwards > 0
     assert spec == run("null")[0]
+
+
+# contexts at page 128 (a split of the attention kernel is 256 tokens, two
+# pages): 8192, the split boundaries k * 256 - 1, k * 256, k * 256 + 1 and a
+# padding row
+SPLIT_CTX = (8192, 255, 256, 257, 511, 512, 513, 0)
+
+
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("q_len", [1, 4])
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+def test_paged_attention_kernel_splits(gen, kv_dtype, q_len, window):
+    """Every entry type against the plain version at context 8192 (32
+    splits, folded by the last block of each tile) and at split boundaries,
+    with and without a window whose first token lies inside a split; the
+    padding row (ctx_len 0) writes zeros."""
+    ctx = [max(c, q_len) if c else 0 for c in SPLIT_CTX]
+    q, cache, tables, ctx_t = _window_case(gen, q_len, kv_dtype, ctx, S=128, B=len(ctx))
+    out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, 128 ** -0.5, layer=1,
+                               kv_scales=cache.kv_scales, window=window)
+    assert torch.count_nonzero(out[-1]) == 0
+    ref = paged_attention_ref(q[:-1], cache, 1, tables[:-1], ctx_t[:-1], 128 ** -0.5,
+                              window=window)
+    tol = {"bfloat16": 3e-2, "fp8_e5m2": 8e-2}.get(kv_dtype, 4e-2)
+    torch.testing.assert_close(out[:-1].float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _replayed(fn, want):
+    """``fn()`` captured in a CUDA graph replays to ``want``'s bits, twice
+    (the attention kernel and, where a tile spans splits, its merge kernel,
+    with the split states in the graph's own memory)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("mode", ["d128", "d256", "alibi", "tree", "tree_d256"])
+def test_paged_attention_kernel_row_bits(gen, mode):
+    """A row's bits do not depend on Q (1, 2 and 4 last positions; the tree
+    rows under prefix 3 and 5), on B, on its place in the batch, on a much
+    longer row beside it (a wider block table: more splits in the grid), on
+    a second call or on CUDA-graph replay; contexts across splits (page 16,
+    256 tokens a split)."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    D = 256 if mode.endswith("d256") else 128
+    Hq, Hkv = {"d128": (32, 8), "alibi": (8, 8)}.get(mode, (16, 8))
+    S, ctx = 16, [300, 700, 45, 256, 4000]
+    tspec = build_tree(DEFAULT_TREE)
+    tree = mode.startswith("tree")
+    prefix = 5
+    q_len = prefix + tspec.num_nodes if tree else 4
+    if tree:   # the tree's slots end each context: root = ctx - 1 - T
+        ctx = [c + tspec.num_nodes for c in ctx]
+    q, cache, tables, ctx_t = _window_case(gen, q_len, "bfloat16", ctx, S=S, B=len(ctx),
+                                           Hq=Hq, Hkv=Hkv, D=D)
+    q = (2 * q.float()).to(torch.bfloat16)
+    kw = {}
+    if mode == "alibi":
+        kw["alibi"] = torch.as_tensor(alibi_slopes(Hq), device="cuda")
+
+    def positions(pre, rows):
+        root = ctx_t[rows].long() - 1 - tspec.num_nodes
+        return torch.cat([root[:, None] - (pre - 1) + torch.arange(pre, device="cuda"),
+                          root[:, None] + torch.tensor(tspec.depth, device="cuda")[None]], 1)
+
+    def inputs(rows, pre=prefix, width=None):
+        """The launch's tensors, made before any graph capture."""
+        rows = torch.as_tensor(rows, device="cuda")
+        qq = q[rows][:, prefix - pre:] if tree else q[rows]
+        tab = tables[rows][:, :width] if width else tables[rows]
+        extra = dict(kw)
+        if tree:
+            extra.update(q_positions=positions(pre, rows), tree=tree_mask(pre, tspec.ancestors,
+                                                                          "cuda"))
+        return qq.contiguous(), tab.contiguous(), ctx_t[rows].contiguous(), extra
+
+    def launch(args):
+        qq, tab, c, extra = args
+        return paged_attention_cuda(qq, cache.kv_pages, tab, c, D ** -0.5, layer=1, **extra)
+
+    def run(rows, pre=prefix, width=None):
+        return launch(inputs(rows, pre, width))
+
+    narrow = -(-max(ctx[:4]) // S)          # the first four rows' table width
+    full = run([0, 1, 2, 3, 4])
+    four = run([0, 1, 2, 3], width=narrow)
+    assert torch.equal(four, full[:4])                       # beside a longer row
+    assert torch.equal(run([2, 0], width=narrow), full[[2, 0]])     # B and place
+    assert torch.equal(run([4, 3, 2, 1, 0]), full.flip(0))
+    assert torch.equal(run([0, 1, 2, 3, 4]), full)           # a second call
+    if tree:
+        # prefix 3: the same tree rows and the last three prefix rows
+        assert torch.equal(run([0, 1, 2, 3, 4], pre=3), full[:, prefix - 3:])
+        ref = paged_attention_ref(q, cache, 1, tables, ctx_t, D ** -0.5,
+                                  q_positions=positions(prefix, torch.arange(5, device="cuda")),
+                                  tree=tree_mask(prefix, tspec.ancestors, "cuda"))
+    else:
+        for ql in (1, 2):
+            one = paged_attention_cuda(q[:, -ql:].contiguous(), cache.kv_pages, tables, ctx_t,
+                                       D ** -0.5, layer=1, **kw)
+            assert torch.equal(one, full[:, -ql:])
+        ref = paged_attention_ref(q, cache, 1, tables, ctx_t, D ** -0.5, **kw)
+    torch.testing.assert_close(full.float(), ref.float(), rtol=3e-2, atol=3e-2)
+    every, first4 = inputs([0, 1, 2, 3, 4]), inputs([0, 1, 2, 3], width=narrow)
+    assert _replayed(lambda: launch(every), full)
+    assert _replayed(lambda: launch(first4), full[:4])
