@@ -12,8 +12,10 @@ the window-128 decode at context 2048 and the same decode without it, the
 tree verify at Q=15, BLOOM-7B1's ALiBi verify) and at each of its 36
 instantiations, then the grouped GEMM matmul_w4a16_g per layer of
 Llama-3-8B and of Gemma-2-9B (its four projections, g = 128, weights made
-by that checkout's model_loader.grouped) at M = 4, 16 and 60. It prints,
-per AB_SHAPES entry, the times in the order given and the ratio of the
+by that checkout's model_loader.grouped) at M = 4, 16 and 60, then
+matmul_w4a16 and matmul_w4a4 at W4_TIMED (per Llama-3-8B layer: w4a16 at
+M = 16 and 60 and the int4 head at M = 16; w4a4 at M = 4, 8 and 1024). It
+prints, per AB_SHAPES entry, the times in the order given and the ratio of the
 first checkout's mean to the second's, and a summary of the 36; every
 checkout's JSON line (with its ptxas registers and spills) and the
 per-instantiation times go to chiprun_out/chip_smoke.log. No result line.
@@ -33,7 +35,11 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    softcap and a window, the windowed tree rows also against AR, and the JAX
    kernel test's structural check), and ALiBi on every entry type at
    BLOOM-7B1's shapes and the JAX kernel test's GQA shape; the norm with and
-   without a gamma; the grouped GEMM at the Llama-3-8B and Gemma-2-9B AWQ
+   without a gamma; matmul_w4a16 and matmul_w4a4 (csrc/w4.cu) at the four
+   Llama-3-8B projections, M = 4, 8, 16, 60, 64 and, w4a4 only, the draft
+   prefill's 1024, w4a4 bit for bit equal to its plain version on int4 and
+   int8 activations, and the int4 head (w4a16, f32 out, N = 128256); the
+   grouped GEMM at the Llama-3-8B and Gemma-2-9B AWQ
    shapes, M up to the prefill threshold, stacked and not, a row's bits
    across batch sizes and places, on a second call and on graph replay);
 4. timing: each kernel, its plain version and (where one exists) the one
@@ -45,8 +51,12 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    chunk (Q=512 on one row of context 512), where bytes set its bound;
    the tree-masked attention at the Llama-3-8B tree-verify rectangle (Q=15)
    beside the kernel without the tree; ALiBi at BLOOM-7B1's n-gram verify
-   (Q=4, Hq=Hkv=32) beside the same inputs without it; matmul_w4a16 also at
-   the tree verify's M=60, with torch._weight_int4pack_mm as its yardstick;
+   (Q=4, Hq=Hkv=32) beside the same inputs without it; matmul_w4a16 per
+   Llama-3-8B layer at M = 16 and the tree verify's 60 and the int4 head,
+   with torch._weight_int4pack_mm as its yardstick; matmul_w4a4 per layer at
+   M = 4, 8 and the draft prefill's 1024, with torch._int_mm on the weights
+   widened to int8 once, plus the scale epilogue (at M = 17 where it refuses
+   smaller M);
    the grouped GEMM per Llama-3-8B and Gemma-2-9B layer at M = 4, 16 and 60
    beside the same yardstick;
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
@@ -256,13 +266,15 @@ def phase_build():
 
     def spills(v: str) -> bool:      # "<regs>r <bytes>s ...": a spill entry
         return re.search(r" \d+s\b", v) is not None
-    # the grouped GEMM's instantiations <m16 tiles, N % 4 == 0> in one entry
-    w4g = {k: v for k, v in short.items() if k.startswith("w4a16_g")}
-    rest = {k: v for k, v in short.items() if not k.startswith(("attn", "w4a16_g"))}
-    if w4g:
-        g_regs = sorted(int(v.split("r")[0]) for v in w4g.values())
-        rest[f"w4a16_g x{len(w4g)}"] = f"{g_regs[0]}-{g_regs[-1]}r" + (
-            " spills" if any(spills(v) for v in w4g.values()) else "")
+    # the instantiations of the grouped GEMM <m16 tiles, N % 4 == 0> and of
+    # csrc/w4.cu <int8, m16 tiles, N % 4 == 0, whole mode> in one entry each
+    rest = {k: v for k, v in short.items() if not k.startswith(("attn", "w4a16_g", "w4_"))}
+    for prefix in ("w4a16_g", "w4_kernel"):
+        group = {k: v for k, v in short.items() if k.startswith(prefix)}
+        if group:
+            g_regs = sorted(int(v.split("r")[0]) for v in group.values())
+            rest[f"{prefix} x{len(group)}"] = f"{g_regs[0]}-{g_regs[-1]}r" + (
+                " spills" if any(spills(v) for v in group.values()) else "")
     log(f"ptxas: {len(short)} kernels ({len(attn)} attention, {regs[0]}-{regs[-1]} registers; "
         f"spills {json.dumps({k: v for k, v in attn.items() if spills(v)})}); "
         + json.dumps(rest, separators=(",", ":")))
@@ -276,27 +288,57 @@ def _w4(gen, k, n):
 GEMM_SHAPES = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
 
 
-def check_gemms(gen, report):
+def check_gemms(gen, gen_w4, report):
+    """matmul_w4a16 and matmul_w4a4 (csrc/w4.cu) at the four Llama-3-8B
+    projections: w4a16 at M = 4, 8, 16, 60, 64 within the JAX tests'
+    tolerance, w4a4 bit for bit equal to its plain version at the same M and
+    the draft prefill's 1024, on int4 and int8 activations; then the int4
+    head (w4a16, f32 out, N = 128256) at M = 4 and 16. The inputs at M = 4,
+    16 and 60 come from ``gen`` as in the checks before M = 8, 64 and 1024
+    were added; those and the head's from ``gen_w4``, so the later phases'
+    inputs do not change with them."""
     from qspec_tpu_torch.ops import linear_kernels as lk
     from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
     err16 = err4 = 0.0
     for k, n in GEMM_SHAPES:
         qw, qs = _w4(gen, k, n)
-        for m in (4, 16, 60):
-            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-            out = lk.matmul_w4a16(x, qw, qs)
-            ref = lk.matmul_w4a16_ref(x, qw, qs)
-            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-            err16 = max(err16, (out.float() - ref.float()).abs().max().item())
+        xs = {m: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for m in (4, 16, 60)}
+        x = torch.randn(1024, k, generator=gen_w4, device="cuda").to(torch.bfloat16)
+        xs.update({m: x[:m] for m in (8, 64, 1024)})
+        for m in (4, 8, 16, 60, 64, 1024):
+            x = xs[m]
+            if m <= 64:
+                out = lk.matmul_w4a16(x, qw, qs)
+                ref = lk.matmul_w4a16_ref(x, qw, qs)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+                err16 = max(err16, (out.float() - ref.float()).abs().max().item())
             for xq in (sym_quant_int4(x), sym_quant_int8(x)):
                 out = lk.matmul_w4a4(xq.values, xq.scales, qw, qs)
                 ref = lk.matmul_w4a4_ref(xq.values, xq.scales, qw, qs)
-                torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"matmul_w4a4 K={k} N={n} M={m}: not bit-equal to "
+                                         f"its plain version (max abs err "
+                                         f"{(out.float() - ref.float()).abs().max().item():.3g})")
                 err4 = max(err4, (out.float() - ref.float()).abs().max().item())
-    report["matmul_w4a16"].update(max_err=err16, tol="rtol=atol=2e-2")
-    report["matmul_w4a4"].update(max_err=err4, tol="rtol=atol=1e-2")
-    log(f"check matmul_w4a16: max_abs_err {err16:.3g} (tol rtol=atol=2e-2; M in 4,16,60)")
-    log(f"check matmul_w4a4: max_abs_err {err4:.3g} (tol rtol=atol=1e-2; M in 4,16,60; int4 and "
+        del qw, qs, x
+    _, k, n = HEAD_SHAPE
+    qw, qs = _w4(gen_w4, k, n)
+    x = torch.randn(16, k, generator=gen_w4, device="cuda").to(torch.bfloat16)
+    err_h = 0.0
+    for m in (4, 16):
+        out = lk.matmul_w4a16(x[:m], qw, qs, out_dtype=torch.float32)
+        ref = lk.matmul_w4a16_ref(x[:m], qw, qs, out_dtype=torch.float32)
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+        err_h = max(err_h, (out - ref).abs().max().item())
+    del qw, qs, out, ref
+    torch.cuda.empty_cache()
+    report["matmul_w4a16"].update(max_err=max(err16, err_h), head_max_err=err_h,
+                                  tol="rtol=atol=2e-2")
+    report["matmul_w4a4"].update(max_err=err4, tol="bit-equal (torch.equal)")
+    log(f"check matmul_w4a16: max_abs_err {err16:.3g} (tol rtol=atol=2e-2; M in 4,8,16,60,64); "
+        f"int4 head M=4,16 K,N={HEAD_SHAPE[1:]} f32 out {err_h:.3g}")
+    log(f"check matmul_w4a4: bit-equal to its plain version (M in 4,8,16,60,64,1024; int4 and "
         "int8 activations)")
 
 
@@ -1084,77 +1126,147 @@ def time_attention_tree(gen, report):
     torch.cuda.empty_cache()
 
 
-def time_kernels(gen, report, int4pack_missing):
+# the GEMM timings of csrc/w4.cu: (wrapper, M, key of the row in the
+# kernels line; "" the wrapper's own row). The first three draw their
+# inputs from the shared generator as before the others were added
+W4_TIMED = (("matmul_w4a16", 16, ""), ("matmul_w4a16", 60, "m60"), ("matmul_w4a4", 4, ""),
+            ("matmul_w4a16", HEAD_SHAPE[0], "head"), ("matmul_w4a4", 8, "m8"),
+            ("matmul_w4a4", 1024, "m1024"))
+W4_KEYS = {"m60": "m60_tree_verify", "head": "int4_head", "m8": "m8_backfill",
+           "m1024": "m1024_draft_prefill"}
+
+
+def _int_mm_rows(x8, w8) -> int:
+    """The least M >= len(x8) at which torch._int_mm takes [M, K] x [K, N]
+    on this card (it has refused M <= 16); 0 when it takes none."""
+    for rows in (x8.shape[0], 17, 32):
+        if rows < x8.shape[0]:
+            continue
+        try:
+            torch._int_mm(torch.zeros(rows, x8.shape[1], dtype=torch.int8, device="cuda"), w8)
+            return rows
+        except RuntimeError:
+            continue
+    return 0
+
+
+def time_w4_layer(gen, name: str, m: int, head: bool = False, plain: bool = True,
+                  library: bool = True, gen_lib=None) -> dict:
+    """One Llama-3-8B layer's four projections (``head``: the int4 head, K=4096,
+    N=128256, f32 out) at M = ``m`` through ``name`` (csrc/w4.cu), each input
+    set rotated past L2: kernel, plain version, library call
+    (torch._weight_int4pack_mm for w4a16; for w4a4 torch._int_mm on the
+    weights widened to int8 once, column-major (its fast layout for int8),
+    plus the scale epilogue, at the least M it takes;
+    its widened weights drawn from ``gen_lib``, default ``gen``)
+    and the bound from this call's bytes and operations."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    from qspec_tpu_torch.ops.packing import unpack_int4
+    from qspec_tpu_torch.ops.quant import sym_quant_int4
+    w4a4 = name == "matmul_w4a4"
+    shapes = (HEAD_SHAPE[1:],) if head else GEMM_SHAPES
+    out_dtype = torch.float32 if head else torch.bfloat16
+    tot = {"ms": 0.0, "plain_ms": 0.0 if plain else None, "bound_ms": 0.0,
+           "library_ms": 0.0 if library else None}
+    nbytes_tot = ops_tot = 0
+    per, lib_rows = [], m
+    for k, n in shapes:
+        wbytes = k * n // 2 + 4 * n
+        rot = Rotating(lambda k=k, n=n: _w4(gen, k, n), wbytes)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        xq = sym_quant_int4(x)
+        if w4a4:
+            def kern():
+                lk.matmul_w4a4(xq.values, xq.scales, *rot.next())
+
+            def plain_fn():
+                qw, qs = rot.next()
+                lk.matmul_w4a4_ref(xq.values, xq.scales, qw, qs)
+            nbytes = m * k + 4 * m + wbytes + m * n * 2
+        else:
+            def kern():
+                lk.matmul_w4a16(x, *rot.next(), out_dtype=out_dtype)
+
+            def plain_fn():
+                qw, qs = rot.next()
+                lk.matmul_w4a16_ref(x, qw, qs, out_dtype=out_dtype)
+            nbytes = m * k * 2 + wbytes + m * n * out_dtype.itemsize
+        nbytes_tot += nbytes
+        ops_tot += 2 * m * k * n
+        tot["bound_ms"] += bound_ms(nbytes, 2 * m * k * n, "int8" if w4a4 else "bf16")[0]
+        t_k = graph_ms(kern, reps=max(20, len(rot.sets)))
+        tot["ms"] += t_k
+        if plain:
+            tot["plain_ms"] += graph_ms(plain_fn, reps=3)
+        t_l = None
+        if library and w4a4:
+            def widened(k=k, n=n):   # column-major: _int_mm's fast int8 layout
+                qw, qs = _w4(gen_lib or gen, k, n)
+                return unpack_int4(qw).to(torch.int8).t().contiguous().t(), qs
+            rot_l = Rotating(widened, k * n + 4 * n)
+            lib_rows = _int_mm_rows(xq.values, rot_l.sets[0][0])
+            if lib_rows:
+                xl = torch.zeros(lib_rows, k, dtype=torch.int8, device="cuda")
+                xl[:m] = xq.values
+                sx = torch.ones(lib_rows, 1, device="cuda")
+                sx[:m] = xq.scales.reshape(-1, 1)
+
+                def lib_call():
+                    w8, sw = rot_l.next()
+                    ((torch._int_mm(xl, w8).float() * sx) * sw[None, :]).to(torch.bfloat16)
+                t_l = graph_ms(lib_call, reps=max(20, len(rot_l.sets)))
+            del rot_l
+        elif library:
+            rot_l = Rotating(lambda k=k, n=n: _int4pack_w4(*_w4(gen, k, n)), wbytes)
+
+            def lib_call():
+                packed, sz = rot_l.next()
+                torch._weight_int4pack_mm(x, packed, GROUP, sz)
+            t_l = graph_ms(lib_call, reps=max(20, len(rot_l.sets)))
+            del rot_l
+        if library:
+            tot["library_ms"] = None if t_l is None or tot["library_ms"] is None \
+                else tot["library_ms"] + t_l
+        per.append(f"{t_k:.4f}" + ("" if t_l is None else f"/{t_l:.4f}"))
+        del rot
+        torch.cuda.empty_cache()
+    lib = (("_int_mm" + (f" at M={lib_rows}" if lib_rows != m else "")) if w4a4
+           else "_weight_int4pack_mm") if tot["library_ms"] is not None else None
+    shape = (f"int4 head M={m}, K,N={HEAD_SHAPE[1:]}, f32 out" if head
+             else f"one layer's qkv+o+gate_up+down at M={m}")
+    return dict(tot, bound_by=bound_ms(nbytes_tot, ops_tot, "int8" if w4a4 else "bf16")[1],
+                per=per, library=lib, shape=shape)
+
+
+def time_kernels(gen, gen_w4, report, int4pack_missing):
     """Per kernel, at the main path's shape: kernel, plain version, library
     call; bound from the bytes and operations of this call's inputs."""
     from qspec_tpu_torch.ops import linear_kernels as lk
     from qspec_tpu_torch.ops import rmsnorm_quant as rq
     from qspec_tpu_torch.ops.attention import paged_attention_ref
     from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
-    from qspec_tpu_torch.ops.quant import sym_quant_int4
 
-    # GEMMs: one decoder layer's four projections at the verify width (M=16:
-    # 4 sequences x (k+1) positions), the Medusa tree verify's (M=60: 4 x
-    # (prefix 5 + 10 nodes)) and the draft width (M=4); the w4a16 yardstick
-    # torch._weight_int4pack_mm on the same weights (per-column scales
-    # repeated over groups of 128, zero 0: its (q - 8) * s is QuaRot's)
-    for name, m in (("matmul_w4a16", 16), ("matmul_w4a16", 60), ("matmul_w4a4", 4)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        kinds = set()
-        library = name == "matmul_w4a16" and int4pack_missing is None
-        per = []
-        for k, n in GEMM_SHAPES:
-            wbytes = k * n // 2 + 4 * n
-            rot = Rotating(lambda k=k, n=n: _w4(gen, k, n), wbytes)
-            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-            xq = sym_quant_int4(x)
-            if name == "matmul_w4a16":
-                def kern():
-                    qw, qs = rot.next()
-                    lk.matmul_w4a16(x, qw, qs)
-
-                def plain():
-                    qw, qs = rot.next()
-                    lk.matmul_w4a16_ref(x, qw, qs)
-                nbytes = m * k * 2 + wbytes + m * n * 2
-                b, kind = bound_ms(nbytes, 2 * m * k * n, "bf16")
-            else:
-                def kern():
-                    qw, qs = rot.next()
-                    lk.matmul_w4a4(xq.values, xq.scales, qw, qs)
-
-                def plain():
-                    qw, qs = rot.next()
-                    lk.matmul_w4a4_ref(xq.values, xq.scales, qw, qs)
-                nbytes = m * k + 4 * m + wbytes + m * n * 2
-                b, kind = bound_ms(nbytes, 2 * m * k * n, "int8")
-            t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
-            if library:
-                rot_l = Rotating(lambda k=k, n=n: _int4pack_w4(*_w4(gen, k, n)), wbytes)
-
-                def lib_call():
-                    packed, sz = rot_l.next()
-                    torch._weight_int4pack_mm(x, packed, GROUP, sz)
-                tot["library_ms"] += graph_ms(lib_call)
-                del rot_l
-            per.append(f"{t_k:.4f}")
-            tot["ms"] += t_k
-            tot["plain_ms"] += t_p
-            tot["bound_ms"] += b
-            kinds.add(kind)
-            del rot
-        if not library:
-            tot["library_ms"] = None
-        log(f"time {name} M={m}, one layer (K,N in {[list(s) for s in GEMM_SHAPES]}: "
-            f"{', '.join(per)} ms): {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
-            + (f"_weight_int4pack_mm {tot['library_ms']:.4f}, " if library else "")
-            + f"bound {tot['bound_ms']:.4f} ({'/'.join(sorted(kinds))})")
-        row = dict(tot, bound_by="/".join(sorted(kinds)),
-                   shape=f"one layer's qkv+o+gate_up+down at M={m}")
-        if m == 60:
-            report[name]["m60_tree_verify"] = row
+    # GEMMs (csrc/w4.cu): one decoder layer's four projections at the
+    # verify width (M=16: 4 sequences x (k+1) positions), the Medusa tree
+    # verify's (M=60: 4 x (prefix 5 + 10 nodes)), the draft width (M=4), the
+    # backfill draft step's (M=8) and the draft prefill's (M=1024: 4 x 256),
+    # and the int4 head; the yardsticks torch._weight_int4pack_mm (w4a16)
+    # and torch._int_mm on int8 weights plus the scale epilogue (w4a4)
+    for i, (name, m, key) in enumerate(W4_TIMED):
+        r = time_w4_layer(gen if i < 3 else gen_w4, name, m, head=key == "head", plain=m <= 64,
+                          library=name == "matmul_w4a4" or int4pack_missing is None,
+                          gen_lib=gen_w4)
+        per = r.pop("per")
+        log(f"time {name} M={m}{' ' + key if key == 'head' else ''}, "
+            + ("" if key == "head" else "one layer ")
+            + f"({', '.join(per)} ms): {r['ms']:.4f} ms, plain "
+            + (f"{r['plain_ms']:.4f}" if r["plain_ms"] is not None else "not timed")
+            + (f", {r['library']} {r['library_ms']:.4f}" if r["library_ms"] is not None else "")
+            + f", bound {r['bound_ms']:.4f} ({r['bound_by']})", stdout=key in ("", "m60"))
+        if key:
+            report[name][W4_KEYS[key]] = r
         else:
-            report[name].update(row)
+            report[name].update(r)
         torch.cuda.empty_cache()
 
     # norms: verify side M=16 (rmsnorm), draft side M=4 (rmsnorm_quant), H=4096
@@ -2117,9 +2229,9 @@ def phase_mpt_dir(smi: str):
 
 
 KERNEL_META = {
-    "matmul_w4a16": ("qspec_tpu_torch/csrc/w4a16.cu",
+    "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
-    "matmul_w4a4": ("qspec_tpu_torch/csrc/w4a4.cu",
+    "matmul_w4a4": ("qspec_tpu_torch/csrc/w4.cu",
                     "qspec_tpu/ops/linear_kernels.py:160 (_w4a4_kernel)"),
     "rmsnorm": ("qspec_tpu_torch/csrc/rmsnorm.cu",
                 "qspec_tpu/ops/rmsnorm_quant.py:78 (_rmsnorm_kernel)"),
@@ -2150,8 +2262,9 @@ def main():
     _LOG.append(open(os.path.join(out_dir, "chip_smoke.log"), "w"))
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gen_w4 = torch.Generator(device="cuda").manual_seed(1)
     report = {name: {} for name in (*KERNEL_META, *KV8_META)}
-    check_gemms(gen, report)
+    check_gemms(gen, gen_w4, report)
     check_w4a16_g(gen, report)
     int4pack_missing = check_int4pack(gen)
     check_w8a16(gen, report)
@@ -2163,7 +2276,7 @@ def main():
     check_attention_tree(gen, report)
     check_attention_tree_main(gen, report)
     check_attention_alibi(gen, report)
-    time_kernels(gen, report, int4pack_missing)
+    time_kernels(gen, gen_w4, report, int4pack_missing)
     time_w4a16_g(gen, report, int4pack_missing)
     time_attention_window(gen, report)
     time_attention_d256(gen, report)
@@ -2227,8 +2340,12 @@ def main():
             extra["gemma2_launches"] = gemma["a"][0][name]
         if name in MEDUSA_KERNELS:
             extra["medusa_tree_launches"] = medusa["d"][0][name]
-        if "m60_tree_verify" in r:
-            extra["m60_tree_verify"] = r["m60_tree_verify"]
+        if r.get("library"):
+            extra["library"] = r["library"]
+        for key in W4_KEYS.values():
+            if key in r:
+                extra[key] = {f: r[key][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")}
         for opt in ("tree", "alibi"):
             if opt in r and name != "paged_attention":
                 extra[opt] = r[opt]
@@ -2330,7 +2447,8 @@ def ab_child(root: str):
     """One checkout's attention times at AB_SHAPES and at the 36
     instantiations, its grouped GEMM's per layer (the four projections,
     kernel only, weights made by that checkout's model_loader.grouped) of
-    Llama-3-8B and Gemma-2-9B at M = 4, 16 and 60, and those kernels' ptxas
+    Llama-3-8B and Gemma-2-9B at M = 4, 16 and 60, its matmul_w4a16 and
+    matmul_w4a4 at W4_TIMED (kernel only), and those kernels' ptxas
     registers and spills, as one JSON line (--ab's child process)."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -2353,9 +2471,13 @@ def ab_child(root: str):
                 del rot
                 torch.cuda.empty_cache()
             out[f"w4a16_g_{model}_m{m}"] = [sum(per), per]
+    for name, m, key in W4_TIMED:
+        r = time_w4_layer(gen, name, m, head=key == "head", plain=False, library=False)
+        out[f"{name[7:]}_m{m}" + ("_head" if key == "head" else "")] = [r["ms"], r["per"]]
     regs = {_kernel_name(k): [v.get("regs"), v.get("spill_stores", 0)]
             for k, v in _build.build_info.get("ptxas", {}).items()
-            if "paged_attention" in k or "w4a16_g" in k}
+            if any(f in k for f in ("paged_attention", "w4a16_g", "w4_kernel", "w4a4_kernel",
+                                    "w4a16_kernel"))}
     print(json.dumps({"checkout": root, "ms": out, "instantiations_ms": inst,
                       "ptxas_regs_spills": regs}, separators=(",", ":")), flush=True)
 

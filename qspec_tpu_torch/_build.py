@@ -30,8 +30,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("w4a16.cu", "w4a16_g.cu", "w4a4.cu", "w8a16.cu", "rmsnorm.cu",
-           "paged_attention.cu")
+SOURCES = ("w4.cu", "w4a16_g.cu", "w8a16.cu", "rmsnorm.cu", "paged_attention.cu")
 # seconds the build may take before it is abandoned (a hung compiler would
 # otherwise hang the first kernel launch)
 NVCC_TIMEOUT_S = 300
@@ -42,9 +41,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    "qspec_w4a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qspec_w4a16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "qspec_w4a16_g": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "qspec_w4a4": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "qspec_w4a4": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_rmsnorm": (_P, _P, _P, _I, _I, _F, _P),
     "qspec_rmsnorm_quant": (_P, _P, _P, _I, _I, _F, _F, _F, _P),

@@ -4,15 +4,22 @@ CUDA kernels.
 Port of ``qspec_tpu/ops/linear_kernels.py``. One packed-int4 weight buffer
 (see packing.py) serves the two GEMMs of QSpec:
 
-* ``matmul_w4a16``: the verify GEMM, bf16 activations x int4 weights with
-  f32 accumulation (kernel ``csrc/w4a16.cu``). At prefill widths it takes
+* ``matmul_w4a16``: the verify GEMM and the int4 head, bf16 activations x
+  int4 weights with f32 accumulation (kernel ``csrc/w4.cu``). At prefill
+  widths it takes
   the dequantize-once branch of ``_w4a16_bigm`` (``linear_kernels.py:294``
   in the JAX package, threshold ``:349``): the weight planes are unpacked
   once with torch ops and multiplied with ``torch.mm`` (bf16 operands, f32
   result), as the JAX package leaves that case to XLA.
 * ``matmul_w4a4``: the draft GEMM, int8 activations (int4 range for w4a4,
   full for w4a8) x int4 weights with exact int32 accumulation and a
-  per-token x per-channel scale epilogue (kernel ``csrc/w4a4.cu``).
+  per-token x per-channel scale epilogue (the same kernel template,
+  ``csrc/w4.cu``). It has no prefill branch: the draft prefill (M = 1024)
+  runs the kernel too.
+
+Both cut the weight's (128-column stripe, 256-k stage) units into
+``w4_workers`` equal runs, one a block, and add a stripe's pieces in a fixed
+order (``matmul_w4_split_ref`` is that order in plain PyTorch).
 
 A group-quantized packed-int4 weight (AWQ / GPTQ checkpoints, quant="w4g",
 model_loader/grouped.py) serves
@@ -136,14 +143,20 @@ def _bigm(m: int, k: int) -> bool:
     return max(-(-m // 16) * 16, 16) * 2 * k > BIGM_BYTES
 
 
-def _check_w4(k: int, w: torch.Tensor, s: torch.Tensor, name: str) -> int:
+def _check_w4_call(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, act_dtype,
+                   name: str) -> tuple:
+    """(M, K, N) of a call csrc/w4.cu takes; raises otherwise."""
+    _build.require(x.dtype == act_dtype and x.dim() == 2,
+                   f"{name}: activations {act_dtype} [M, K]")
+    m, k = x.shape
     _build.require(w.dtype == torch.int32 and w.dim() == 2 and w.shape[0] * 8 == k,
                    f"{name}: packed weights int32 [K//8, N] with K={k}")
     n = w.shape[1]
     _build.require(s.dtype == torch.float32 and tuple(s.shape) == (n,),
                    f"{name}: weight scales f32 [N]")
     _build.require(k % 32 == 0, f"{name}: K must be a multiple of 32, got {k}")
-    return n
+    _build.require(k < 2 ** 17, f"{name}: K < 131072, got K={k}")
+    return m, k, n
 
 
 def _w4a16_bigm(x, w_packed, w_scales, out_dtype):
@@ -171,16 +184,17 @@ def matmul_w4a16(x: torch.Tensor, w_packed: torch.Tensor, w_scales: torch.Tensor
     if _bigm(m, k):
         out = _w4a16_bigm(x, w, s, out_dtype)
     else:
-        n = _check_w4(k, w, s, "matmul_w4a16")
-        _build.require(x.dtype == torch.bfloat16, "matmul_w4a16: x bf16")
+        m, k, n = _check_w4_call(x, w, s, torch.bfloat16, "matmul_w4a16")
         _build.require(out_dtype in (torch.bfloat16, torch.float32),
                        "matmul_w4a16: out_dtype bf16 or f32")
         out = torch.empty((m, n), dtype=out_dtype, device=x.device)
         if m:
-            _build.cuda_args_ok(x, w, s, out)
+            workers, ws, counters = _w4_scratch(x, m, k, n, torch.float32, out)
+            _build.cuda_args_ok(x, w, s, out, ws)
             _build.check("matmul_w4a16", _build.lib().qspec_w4a16(
-                x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                m, k, n, int(out_dtype == torch.float32), _build.stream_of(x)))
+                x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                counters.data_ptr(), m, k, n, workers, int(out_dtype == torch.float32),
+                _build.stream_of(x)))
             matmul_w4a16.launches += 1
     if bias is not None:
         out = out + bias[None, :].to(out.dtype)
@@ -261,21 +275,114 @@ def w4g_plan(m: int, k: int, n: int, G: int, n_sm: int) -> tuple:
             -(-n // W4G_COLS) * -(-m // 64))
 
 
-# per device: the kernel's split counters, int32 zeros that each launch
-# leaves at zero (so launches on one device must not overlap in time on two
-# streams)
-_W4G_COUNTERS: dict = {}
+# per device: the split counters of csrc/w4a16_g.cu and csrc/w4.cu, int32
+# zeros that each launch leaves at zero (so launches on one device must not
+# overlap in time on two streams), at least SPLIT_COUNTERS of them
+_SPLIT_COUNTERS: dict = {}
+SPLIT_COUNTERS = 4096
 
 
-def _w4g_counters(x: torch.Tensor, tiles: int) -> torch.Tensor:
-    buf = _W4G_COUNTERS.get(x.device)
+def _split_counters(x: torch.Tensor, tiles: int) -> torch.Tensor:
+    buf = _SPLIT_COUNTERS.get(x.device)
     if buf is None or buf.numel() < tiles:
         _build.require(not torch.cuda.is_current_stream_capturing(),
-                       "matmul_w4a16_g: call it once on this device before a CUDA "
-                       "graph capture (its split counters are allocated then)")
-        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=x.device)
-        _W4G_COUNTERS[x.device] = buf
+                       "the int4 GEMMs' split counters are allocated at their first "
+                       "call on a device: make one before a CUDA graph capture")
+        buf = torch.zeros(max(tiles, SPLIT_COUNTERS), dtype=torch.int32, device=x.device)
+        _SPLIT_COUNTERS[x.device] = buf
     return buf
+
+
+# csrc/w4.cu's tiling: output columns per stripe, k per pipeline stage (128
+# of each nibble plane), the rows a block carries (past them, a block owns
+# one 64-row block of one stripe over all of K: no workspace)
+W4_COLS = 128
+W4_STAGE_K = 256
+W4_BLOCK_ROWS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def w4_workers(k: int, n: int, n_sm: int) -> int:
+    """The number of runs P that csrc/w4.cu cuts a [K/8, N] weight into on a
+    card of ``n_sm`` SMs. A unit is a (128-column stripe, 256-k stage) pair;
+    the U = ceil(N / 128) ceil(K / 256) units, stripe after stripe, are cut
+    into P = min(n_sm, U) runs, run p taking [p U / P, (p + 1) U / P): one a
+    block, every SM a run, no run more than one unit longer than another. A
+    function of the weight's shape and the card only, never of M, so a
+    row's sum has the same order at every batch size."""
+    return min(n_sm, -(-n // W4_COLS) * -(-k // W4_STAGE_K))
+
+
+def w4_runs(k: int, n: int, n_sm: int) -> list:
+    """[(first, end)] units of each run of csrc/w4.cu, in block order."""
+    units = -(-n // W4_COLS) * -(-k // W4_STAGE_K)
+    p = w4_workers(k, n, n_sm)
+    return [(i * units // p, (i + 1) * units // p) for i in range(p)]
+
+
+def w4_segments(k: int, n: int, n_sm: int) -> list:
+    """Per 128-column stripe, its segments in the order csrc/w4.cu adds
+    them: the k range [a, b) of each nibble plane that one run covers (of
+    the low plane; the high plane's are K/2 + a .. K/2 + b)."""
+    T = -(-k // W4_STAGE_K)
+    half = W4_STAGE_K // 2
+    segs = [[] for _ in range(-(-n // W4_COLS))]
+    for u0, u1 in w4_runs(k, n, n_sm):
+        u = u0
+        while u < u1:
+            s, end = u // T, min(u1, (u // T + 1) * T)
+            segs[s].append(((u - s * T) * half, min((end - s * T) * half, k // 2)))
+            u = end
+    return segs
+
+
+def w4_plan(m: int, k: int, n: int, n_sm: int) -> tuple:
+    """(runs, whole mode, workspace slots) of one csrc/w4.cu launch at M =
+    ``m``: the runs do not depend on ``m``; past 64 rows the kernel takes
+    its whole mode (a block per 64-row block and stripe, the same segments
+    added in the same order inside it), which needs no workspace."""
+    workers = w4_workers(k, n, n_sm)
+    whole = m > W4_BLOCK_ROWS
+    return workers, whole, 0 if whole else 2 * workers
+
+
+def _w4_scratch(x: torch.Tensor, m: int, k: int, n: int, ws_dtype,
+                out: torch.Tensor) -> tuple:
+    """(runs, workspace, counters) of one csrc/w4.cu launch: the segments'
+    sums [2 runs, M, 128] (in whole mode none: ``out`` stands in, unread)
+    and the per-device split counters, one per stripe."""
+    workers, _, slots = w4_plan(m, k, n, _build.sm_count(x.device))
+    ws = torch.empty((slots, m, W4_COLS), dtype=ws_dtype, device=x.device) if slots else out
+    return workers, ws, _split_counters(x, -(-n // W4_COLS))
+
+
+def matmul_w4_split_ref(x: torch.Tensor, w_packed: torch.Tensor, w_scales: torch.Tensor,
+                        x_scales: Optional[torch.Tensor] = None, *, n_sm: int,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """csrc/w4.cu's order of sums in plain PyTorch: per stripe, each
+    segment's sum over both nibble planes (exact in float64), rounded to
+    f32 (w4a16) or kept exact (w4a4), the segments added in block order
+    (in f32, or exactly), then the plain version's epilogue. w4a16 when
+    ``x_scales`` is None (x bf16 [M, K]); otherwise w4a4 (x int8, out bf16)."""
+    int8 = x_scales is not None
+    m, k = x.shape
+    n = w_packed.shape[1]
+    w = unpack_int4(w_packed).to(torch.float64)
+    xd = (x if int8 else x.to(torch.bfloat16)).to(torch.float64)
+    kh = k // 2
+    acc = torch.empty((m, n), dtype=torch.float64 if int8 else torch.float32)
+    for s, segs in enumerate(w4_segments(k, n, n_sm)):
+        cols = slice(s * W4_COLS, min((s + 1) * W4_COLS, n))
+        total = None
+        for a, b in segs:
+            part = xd[:, a:b] @ w[a:b, cols] + xd[:, kh + a:kh + b] @ w[kh + a:kh + b, cols]
+            part = part if int8 else part.to(torch.float32)
+            total = part if total is None else total + part
+        acc[:, cols] = total
+    if int8:
+        out = acc.to(torch.float32) * x_scales.reshape(-1, 1).to(torch.float32)
+        return (out * w_scales.to(torch.float32)[None, :]).to(torch.bfloat16)
+    return (acc * w_scales.to(torch.float32)[None, :]).to(out_dtype)
 
 
 def _check_w4g(k: int, w: torch.Tensor, s: torch.Tensor, o: torch.Tensor) -> tuple:
@@ -325,7 +432,7 @@ def matmul_w4a16_g(x: torch.Tensor, w_packed: torch.Tensor,
             splits, slots, tiles = w4g_plan(m, k, n, G, _build.sm_count(x.device))
             ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                   if splits > 1 else out)
-            counters = _w4g_counters(x, tiles)
+            counters = _split_counters(x, tiles)
             _build.cuda_args_ok(x, w, s, o, out, ws)
             _build.check("matmul_w4a16_g", _build.lib().qspec_w4a16_g(
                 x.data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(),
@@ -349,18 +456,17 @@ def matmul_w4a4(x_q: torch.Tensor, x_scales: torch.Tensor, w_packed: torch.Tenso
     w, s = _layer(layer_idx, w_packed, w_scales)
     if not x_q.is_cuda:
         return matmul_w4a4_ref(x_q, x_scales, w, s, bias)
-    m, k = x_q.shape
-    n = _check_w4(k, w, s, "matmul_w4a4")
+    m, k, n = _check_w4_call(x_q, w, s, torch.int8, "matmul_w4a4")
     sx = x_scales.reshape(-1)
-    _build.require(x_q.dtype == torch.int8, "matmul_w4a4: x_q int8")
     _build.require(sx.dtype == torch.float32 and sx.shape[0] == m,
                    "matmul_w4a4: x_scales f32 [M] or [M, 1]")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x_q.device)
     if m:
-        _build.cuda_args_ok(x_q, sx, w, s, out)
+        workers, ws, counters = _w4_scratch(x_q, m, k, n, torch.int32, out)
+        _build.cuda_args_ok(x_q, sx, w, s, out, ws)
         _build.check("matmul_w4a4", _build.lib().qspec_w4a4(
-            x_q.data_ptr(), sx.data_ptr(), w.data_ptr(), s.data_ptr(),
-            out.data_ptr(), m, k, n, _build.stream_of(x_q)))
+            x_q.data_ptr(), sx.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), counters.data_ptr(), m, k, n, workers, _build.stream_of(x_q)))
         matmul_w4a4.launches += 1
     if bias is not None:
         out = out + bias[None, :].to(out.dtype)

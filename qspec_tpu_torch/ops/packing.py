@@ -8,7 +8,7 @@ Layout ``[in // 8, out]`` int32, "SWAR" words: byte b (little-endian) of word
 row s is packed row r = 4*s + b, whose low nibble holds w[r] and high nibble
 w[r + in//2] (halves pairing), both stored excess-8 (v + 8, range [0, 15]).
 This is the layout of ``qspec_tpu/ops/packing.py:pack_int4``; the CUDA GEMMs
-(``csrc/w4a16.cu``, ``csrc/w4a4.cu``) decode it in registers as it is, so no
+(``csrc/w4.cu``, one template for both) decode it in registers as it is, so no
 repacking happens at load.
 
 The int8 lm_head is plain int8 ``[in, out]`` with one f32 scale per output

@@ -62,6 +62,90 @@ def test_w4a16_rows_independent_of_batch(gen):
     assert torch.equal(lk.matmul_w4a16(x.flip(0).contiguous(), qw, qs), full.flip(0))
 
 
+def _w4_stacked(gen, k, n, layers=2):
+    """Layer-stacked QuaRot weights [L, K/8, N], scales [L, N], made on the card."""
+    ws = [quantize_weight_int4_torch(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+          for _ in range(layers)]
+    return torch.stack([w for w, _ in ws]), torch.stack([s for _, s in ws])
+
+
+@pytest.mark.parametrize("k,n", [(256, 200), (256, 130), (4096, 200), (4096, 130),
+                                 (14336, 200), (14336, 130), (4096, 4096)])
+def test_w4a4_kernel_bits(gen, k, n):
+    """csrc/w4.cu's int8 instantiations equal the plain version bit for bit
+    (exact int32 sums, the plain epilogue's two f32 products) at M from 1
+    to the draft prefill's 1024 (split mode up to 64 rows, whole mode past
+    them), N not a multiple of 128 (and, at 130, of 4), int4 and int8
+    activations, read in place from a layer stack (where N % 4 == 0: a
+    stacked row of 130 scales is not 16-byte aligned, which the wrappers
+    refuse); one launch a call."""
+    qw, qs = _w4_stacked(gen, k, n)
+    w = (qw, qs, 1) if n % 4 == 0 else (qw[1].clone(), qs[1].clone(), None)
+    x = torch.randn(1024, k, generator=gen, device="cuda").to(torch.bfloat16) * 3
+    for m in (1, 4, 8, 16, 17, 60, 64, 65, 200, 1024):
+        for xq in (sym_quant_int4(x[:m]), sym_quant_int8(x[:m])):
+            before = lk.matmul_w4a4.launches
+            out = lk.matmul_w4a4(xq.values, xq.scales, w[0], w[1], layer_idx=w[2])
+            assert lk.matmul_w4a4.launches == before + 1
+            assert out.dtype == torch.bfloat16 and tuple(out.shape) == (m, n)
+            ref = lk.matmul_w4a4_ref(xq.values, xq.scales, qw[1], qs[1])
+            assert torch.equal(out, ref), (m, k, n)
+
+
+# (K, N): Llama-3-8B's o (many segments a stripe), gate_up (one or two) and
+# down (K = 14336, prefill branch past M = 182), and a 2-stripe shape
+W4A16_BITS_SHAPES = [(4096, 4096), (4096, 28672), (14336, 4096), (448, 200)]
+
+
+@pytest.mark.parametrize("k,n", W4A16_BITS_SHAPES)
+def test_w4a16_kernel_row_bits(gen, k, n):
+    """A w4a16 row's bits do not depend on M (1 to the largest M the kernel
+    takes before the prefill branch: split mode to 64 rows, whole mode past
+    them), on its place in the batch or the batch's order, and equal a
+    second call's and a CUDA-graph replay's; the result agrees with the
+    plain version (rtol = atol = 2e-2, bf16 and f32 out)."""
+    qw, qs = _w4_stacked(gen, k, n)
+    mbig = max(m for m in range(1, 1025) if not lk._bigm(m, k))
+    x = torch.randn(mbig, k, generator=gen, device="cuda").to(torch.bfloat16)
+    full = lk.matmul_w4a16(x, qw, qs, layer_idx=1, out_dtype=torch.float32)
+    torch.testing.assert_close(full, lk.matmul_w4a16_ref(x, qw[1], qs[1], out_dtype=torch.float32),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(lk.matmul_w4a16(x, qw, qs, layer_idx=1, out_dtype=torch.float32), full)
+    for m in (1, 4, 8, 15, 16, 17, 33, 48, 60, 64, 65, 128, 200, 640):
+        if m <= mbig:
+            out = lk.matmul_w4a16(x[:m], qw, qs, layer_idx=1, out_dtype=torch.float32)
+            assert torch.equal(out, full[:m]), m
+    for rows in (slice(5, 9), slice(mbig // 2, mbig // 2 + 60), slice(3, mbig)):
+        assert torch.equal(lk.matmul_w4a16(x[rows].contiguous(), qw, qs, layer_idx=1,
+                                           out_dtype=torch.float32), full[rows])
+    assert torch.equal(lk.matmul_w4a16(x.flip(0).contiguous(), qw, qs, layer_idx=1,
+                                       out_dtype=torch.float32), full.flip(0))
+    bf = lk.matmul_w4a16(x[:16], qw, qs, layer_idx=1)
+    assert torch.equal(bf, full[:16].to(torch.bfloat16))
+    for m in (4, 16, 60, min(mbig, 100)):
+        want = full[:m].to(torch.bfloat16)
+        assert _replayed(lambda m=m: lk.matmul_w4a16(x[:m], qw, qs, layer_idx=1), want), m
+
+
+def test_w4a16_int4_head(gen):
+    """The int4 head: matmul_w4a16 with an f32 out at K=4096, N=128256 (the
+    Llama-3 vocabulary), M = 4 and 16, against its plain version; a w4a4
+    call's graph replay on the same weights gives its eager bits."""
+    k, n = 4096, 128256
+    qw, qs = quantize_weight_int4_torch(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+    x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for m in (4, 16):
+        before = lk.matmul_w4a16.launches
+        out = lk.matmul_w4a16(x[:m], qw, qs, out_dtype=torch.float32)
+        assert lk.matmul_w4a16.launches == before + 1
+        torch.testing.assert_close(out, lk.matmul_w4a16_ref(x[:m], qw, qs, out_dtype=torch.float32),
+                                   rtol=2e-2, atol=2e-2)
+    xq = sym_quant_int8(x)
+    want = lk.matmul_w4a4_ref(xq.values, xq.scales, qw, qs)
+    assert torch.equal(lk.matmul_w4a4(xq.values, xq.scales, qw, qs), want)
+    assert _replayed(lambda: lk.matmul_w4a4(xq.values, xq.scales, qw, qs), want)
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 256, 128), (7, 512, 384), (16, 1024, 256),
                                    (16, 4096, 128256), (33, 448, 200)])
 def test_w8a16_kernel(gen, m, k, n):
