@@ -14,7 +14,10 @@ instantiations, then the grouped GEMM matmul_w4a16_g per layer of
 Llama-3-8B and of Gemma-2-9B (its four projections, g = 128, weights made
 by that checkout's model_loader.grouped) at M = 4, 16 and 60, then
 matmul_w4a16 and matmul_w4a4 at W4_TIMED (per Llama-3-8B layer: w4a16 at
-M = 16 and 60 and the int4 head at M = 16; w4a4 at M = 4, 8 and 1024). It
+M = 16 and 60 and the int4 head at M = 16; w4a4 at M = 4, 8 and 1024),
+then the norms at NORM_TIMED alone and after the residual add (for a
+checkout whose norm takes no residual, the torch add and the norm in one
+graph). It
 prints, per AB_SHAPES entry, the times in the order given and the ratio of the
 first checkout's mean to the second's, and a summary of the 36; every
 checkout's JSON line (with its ptxas registers and spills) and the
@@ -34,8 +37,12 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    mask on every entry type at head dims 128 and 256 (with and without the
    softcap and a window, the windowed tree rows also against AR, and the JAX
    kernel test's structural check), and ALiBi on every entry type at
-   BLOOM-7B1's shapes and the JAX kernel test's GQA shape; the norm with and
-   without a gamma; matmul_w4a16 and matmul_w4a4 (csrc/w4.cu) at the four
+   BLOOM-7B1's shapes and the JAX kernel test's GQA shape, and the tree rows
+   at the main paths' rectangles also against the plain version that rounds
+   where the Pallas body does; the norm with and without a gamma, and with
+   and without the residual add at every NORM_TIMED shape (h bit for bit the
+   torch add, a row's bits across M, place, a second call and graph
+   replay); matmul_w4a16 and matmul_w4a4 (csrc/w4.cu) at the four
    Llama-3-8B projections, M = 4, 8, 16, 60, 64 and, w4a4 only, the draft
    prefill's 1024, w4a4 bit for bit equal to its plain version on int4 and
    int8 activations, and the int4 head (w4a16, f32 out, N = 128256); the
@@ -58,7 +65,9 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    widened to int8 once, plus the scale epilogue (at M = 17 where it refuses
    smaller M);
    the grouped GEMM per Llama-3-8B and Gemma-2-9B layer at M = 4, 16 and 60
-   beside the same yardstick;
+   beside the same yardstick; the norms at NORM_TIMED alone, with the
+   residual add and as the torch add plus the norm, beside an empty kernel
+   launched the same way (the launch floor) and F.rms_norm;
 5. small-input reference: the tiny model's logits on the card (kernels) vs on
    the CPU (plain versions), same weights, with the bf16 head over a bf16
    cache, at the defaults (int8 head) over an int8 cache, and as an AWQ
@@ -73,7 +82,9 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    same rounds with proposals nulled); tokens must be identical, and every
    kernel of the path, and no other, must have launched during the QSpec run
    (counts set to 0 just before it and read just after; the attention kernel
-   is counted per instantiation); then the same with the W4A8 draft,
+   is counted per instantiation; each norm kernel must have launched both
+   with the residual add and, for each forward's first input norm, without
+   it); then the same with the W4A8 draft,
    whose drafts are accepted at this width. Two paths: the first slice's
    (lm_head_quant="bf16", bf16 cache) and the JAX package's defaults (the
    int8 head by matmul_w8a16) with kv_cache_dtype="int8";
@@ -266,10 +277,12 @@ def phase_build():
 
     def spills(v: str) -> bool:      # "<regs>r <bytes>s ...": a spill entry
         return re.search(r" \d+s\b", v) is not None
-    # the instantiations of the grouped GEMM <m16 tiles, N % 4 == 0> and of
-    # csrc/w4.cu <int8, m16 tiles, N % 4 == 0, whole mode> in one entry each
-    rest = {k: v for k, v in short.items() if not k.startswith(("attn", "w4a16_g", "w4_"))}
-    for prefix in ("w4a16_g", "w4_kernel"):
+    # the instantiations of the grouped GEMM <m16 tiles, N % 4 == 0>, of
+    # csrc/w4.cu <int8, m16 tiles, N % 4 == 0, whole mode> and of the norm
+    # <quant, gamma, residual, vectors a thread> in one entry each
+    rest = {k: v for k, v in short.items()
+            if not k.startswith(("attn", "w4a16_g", "w4_", "rmsnorm_kernel"))}
+    for prefix in ("w4a16_g", "w4_kernel", "rmsnorm_kernel"):
         group = {k: v for k, v in short.items() if k.startswith(prefix)}
         if group:
             g_regs = sorted(int(v.split("r")[0]) for v in group.values())
@@ -565,6 +578,189 @@ def check_norms(gen, report):
         "(tol rtol=atol=2e-2)")
     log(f"check rmsnorm_quant: int values max diff {e_q} (tol 1), exact share "
         f">= {worst_exact:.5f} (tol > 0.99); scale max rel err {e_s:.3g} (tol 1e-3)")
+
+
+# the norms' timed and checked shapes, (wrapper, M, H, bits, gamma):
+# rmsnorm_quant at the draft's M = 4, the backfill step's 8 and the draft
+# prefill's 1024, bits 4 (W4A4) and 8 (W4A8); the weightless rmsnorm at
+# the draft step's final norm (4), the verify's 16, the tree verify's 60
+# and a prefill's 512; with a gamma at Gemma-2-9B's H = 3584, its draft's
+# and verify's M
+NORM_TIMED = (*(("rmsnorm_quant", m, 4096, b, False) for m in (4, 8, 1024) for b in (4, 8)),
+              *(("rmsnorm", m, 4096, None, False) for m in (4, 16, 60, 512)),
+              ("rmsnorm", 4, 3584, None, True), ("rmsnorm", 16, 3584, None, True))
+
+
+def norm_label(name, m, h, bits, gamma) -> str:
+    kind = f"quant{bits}" if name == "rmsnorm_quant" else ("gamma" if gamma else "rmsnorm")
+    return f"{kind}_m{m}_h{h}"
+
+
+def _norm_set(gen, m, h):
+    """x (3 x normal) and a residual (normal), bf16 [m, h]."""
+    x = (torch.randn(m, h, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    return x, torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _gamma(gen, h):
+    return (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(torch.bfloat16)
+
+
+def _norm_rot(gen, m, h) -> Rotating:
+    """(x, residual) sets, rotated past L2 at M >= 512 (two sets, both in
+    L2, below: where a decode-sized norm finds its inputs)."""
+    return Rotating(lambda: _norm_set(gen, m, h), 2 * m * h * 2 if m >= 512 else 2 * L2_BYTES)
+
+
+def _norm_wrapper(name, bits, gamma, ref=False):
+    """The checkout's norm wrapper (``ref``: its plain version) of ``name``
+    and its keyword arguments."""
+    from qspec_tpu_torch.ops import rmsnorm_quant as rq
+    if name == "rmsnorm_quant":
+        return (rq.rmsnorm_quant_ref if ref else rq.rmsnorm_quant), {"bits": bits}
+    return (rq.rmsnorm_ref if ref else rq.rmsnorm), {"gamma": gamma}
+
+
+def norm_fn(name, bits, gamma, ref=False):
+    """(x, residual or None) -> the outputs of the norm wrapper (``ref``: its
+    plain version) as a tuple of tensors: (values, scales) or (out,), then h
+    when a residual is given."""
+    fn, kw = _norm_wrapper(name, bits, gamma, ref)
+
+    def run(x, r=None):
+        res = fn(x, residual=r, **kw)
+        out, h = res if r is not None else (res, None)
+        return (*(out if isinstance(out, tuple) else (out,)), *(() if h is None else (h,)))
+    return run
+
+
+def check_norms_fused(report):
+    """The norm kernels with and without the residual add at every shape of
+    NORM_TIMED against their plain versions (check_norms' tolerances), h bit
+    for bit the torch add; a row's bits (outputs, scale, h) the same across
+    M, its place in the batch, a second call and CUDA-graph replay. Inputs
+    from a generator of their own, so the other checks' stay as they were."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    e_n, e_q, worst_exact = 0.0, 0, 1.0
+    for name, m, h, bits, gamma in NORM_TIMED:
+        x, r = _norm_set(gen, m, h)
+        g = _gamma(gen, h) if gamma else None
+        for res in (None, r):
+            got, want = norm_fn(name, bits, g)(x, res), norm_fn(name, bits, g, True)(x, res)
+            if res is not None and not (torch.equal(got[-1], x + r)
+                                        and torch.equal(want[-1], x + r)):
+                raise AssertionError(f"{norm_label(name, m, h, bits, gamma)}: h is not x + r")
+            if name == "rmsnorm_quant":
+                torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=0)
+                d = (got[0].int() - want[0].int()).abs()
+                exact = (d == 0).float().mean().item()
+                if d.max().item() > 1 or exact <= 0.99:
+                    raise AssertionError(f"{norm_label(name, m, h, bits, gamma)}: values "
+                                         f"max diff {d.max().item()}, exact share {exact}")
+                e_q, worst_exact = max(e_q, int(d.max().item())), min(worst_exact, exact)
+            else:
+                torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                                           atol=2e-2)
+                e_n = max(e_n, (got[0].float() - want[0].float()).abs().max().item())
+    for name, h, gamma in (("rmsnorm_quant", 4096, False), ("rmsnorm", 4096, False),
+                           ("rmsnorm", 3584, True)):
+        x, r = _norm_set(gen, 64, h)
+        fn = norm_fn(name, 8, _gamma(gen, h) if gamma else None)
+        for res in (None, r):
+            full = fn(x, res)
+            same = all(torch.equal(a, b) for a, b in zip(fn(x, res), full))
+            for lo, hi in ((0, 1), (5, 9), (17, 64), (63, 64)):
+                part = fn(x[lo:hi].contiguous(), None if res is None else res[lo:hi].contiguous())
+                same = same and all(torch.equal(a, b[lo:hi]) for a, b in zip(part, full))
+            flip = fn(x.flip(0).contiguous(), None if res is None else res.flip(0).contiguous())
+            same = same and all(torch.equal(a, b.flip(0)) for a, b in zip(flip, full))
+            same = same and all(_replay_bits(lambda i=i: fn(x, res)[i]) for i in range(len(full)))
+            if not same:
+                raise AssertionError(f"{name} H={h} residual={res is not None}: a row's bits "
+                                     "depend on M, its place, the call or graph replay")
+    report["rmsnorm"]["fused_max_err"] = e_n
+    report["rmsnorm_quant"]["fused_max_err"] = e_q
+    log(f"check norms with the residual add ({len(NORM_TIMED)} shapes, each also without "
+        f"it): rmsnorm max_abs_err {e_n:.3g} (tol 2e-2), rmsnorm_quant values max diff {e_q} "
+        f"(tol 1), exact share >= {worst_exact:.5f}; h == x + r bit for bit; row bits the "
+        "same across M, place, a second call and graph replay")
+
+
+def time_norms(report):
+    """Each NORM_TIMED shape: the kernel alone and with the residual add
+    (fused), the torch add followed by the kernel alone in one graph (the
+    pair the fusion replaces), the launch floor (an empty kernel launched
+    as the norm is, csrc/rmsnorm.cu's qspec_norm_launch_floor), the plain
+    versions, F.rms_norm (the rmsnorm rows), and the byte bounds alone and
+    fused (x, the residual and gamma read once; out, h and the scales
+    written once). Inputs rotated past L2 at M >= 512. One line a shape to
+    the log, a summary to the standard output."""
+    from qspec_tpu_torch import _build
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    lib = _build.lib()
+    rows = {}
+    for name, m, h, bits, gamma in NORM_TIMED:
+        label = norm_label(name, m, h, bits, gamma)
+        rot = _norm_rot(gen, m, h)
+        g = _gamma(gen, h) if gamma else None
+        kern, plain = norm_fn(name, bits, g), norm_fn(name, bits, g, True)
+        reps = max(20, len(rot.sets))
+
+        def run(fn, fused):
+            x, r = rot.next()
+            fn(x, r if fused else None)
+
+        def pair():
+            x, r = rot.next()
+            kern(x + r)
+
+        def floor():
+            _build.check("launch floor", lib.qspec_norm_launch_floor(
+                m, h, torch.cuda.current_stream().cuda_stream))
+        t = {"ms": graph_ms(lambda: run(kern, False), reps),
+             "fused_ms": graph_ms(lambda: run(kern, True), reps),
+             "pair_ms": graph_ms(pair, reps), "floor_ms": graph_ms(floor),
+             "plain_ms": graph_ms(lambda: run(plain, False), reps),
+             "plain_fused_ms": graph_ms(lambda: run(plain, True), reps), "library_ms": None}
+        if name == "rmsnorm":
+            def library():
+                x, _ = rot.next()
+                torch.nn.functional.rms_norm(x, (h,), weight=g, eps=1e-5)
+            t["library_ms"] = graph_ms(library, reps)
+        out_bytes = m * h + 4 * m if name == "rmsnorm_quant" else m * h * 2
+        nb = m * h * 2 + (2 * h if gamma else 0) + out_bytes
+        ops = (6 if name == "rmsnorm_quant" else 4) * m * h
+        t["bound_ms"], t["bound_by"] = bound_ms(nb, ops, "f32")
+        t["fused_bound_ms"] = bound_ms(nb + 2 * m * h * 2, ops + m * h, "f32")[0]
+        rows[label] = t
+        log(f"time {name} {label}: alone {t['ms']:.5f} ms, fused {t['fused_ms']:.5f}, "
+            f"add + alone {t['pair_ms']:.5f}, floor {t['floor_ms']:.5f}, plain "
+            f"{t['plain_ms']:.5f} / fused {t['plain_fused_ms']:.5f}"
+            + (f", F.rms_norm {t['library_ms']:.5f}" if t["library_ms"] else "")
+            + f", bound {t['bound_ms']:.6f} / fused {t['fused_bound_ms']:.6f} "
+            f"({t['bound_by']})", stdout=False)
+        del rot
+        torch.cuda.empty_cache()
+    # the rows of the kernels line: the verify's rmsnorm (M=16) and the
+    # W4A4 draft's rmsnorm_quant (M=4), alone and fused
+    for name, label in (("rmsnorm", "rmsnorm_m16_h4096"), ("rmsnorm_quant", "quant4_m4_h4096")):
+        t = rows[label]
+        report[name].update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                            floor_ms=t["floor_ms"], shape=label)
+        report[name]["fused"] = {"ms": t["fused_ms"], "plain_ms": t["plain_fused_ms"],
+                                 "bound_ms": t["fused_bound_ms"], "bound_by": t["bound_by"],
+                                 "library_ms": None, "floor_ms": t["floor_ms"],
+                                 "add_plus_norm_ms": t["pair_ms"]}
+    log("norm timings: " + json.dumps({k: {f: float(f"{v:.6g}") if isinstance(v, float) else v
+                                           for f, v in t.items()} for k, t in rows.items()},
+                                      separators=(",", ":")), stdout=False)
+    for short in (False, True):     # three rows to the standard output, all to the log
+        log("time norms, ms alone / fused / add + alone / floor: " + "; ".join(
+            f"{k} {t['ms']:.4f}/{t['fused_ms']:.4f}/{t['pair_ms']:.4f}/{t['floor_ms']:.4f}"
+            for k, t in rows.items()
+            if not short or k in ("quant4_m4_h4096", "rmsnorm_m16_h4096", "quant4_m1024_h4096")),
+            stdout=short)
 
 
 def _ctx_lens(q_len, S=128):
@@ -1044,7 +1240,11 @@ def check_attention_tree_main(gen, report):
     """The tree mask at the main paths' rectangles (_tree_rect, Hkv=8, bf16
     cache): Llama-3-8B's (Hq=32, D=128) and Gemma-2-9B's (Hq=16, D=256,
     softcap 50, window none, 4096 and 128), queries 4 x normal, against the
-    plain version."""
+    plain version in f32 (rtol = atol = 3e-2) and against the plain version
+    that rounds where the Pallas body does (bf16_products: q times the scale
+    and the probabilities to bf16), at the tolerance of those roundings
+    alone (tests/test_torch_attention_rounding.py): a probability's rounding,
+    2^-8 max|v|, and one bf16 ulp of the output, rtol 2^-7."""
     from qspec_tpu_torch.ops.attention import paged_attention_ref, tree_mask
     from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
     from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
@@ -1052,11 +1252,12 @@ def check_attention_tree_main(gen, report):
     positions, live = _tree_rect(tspec)
     tree = tree_mask(TREE_PREFIX, tspec.ancestors, "cuda")
     tol = TREE_TOL["bfloat16"]
-    errs = {}
+    errs, errs_r = {}, {}
     for model, Hq, D, caps, windows in TREE_MAIN:
         q, cache, tables, ctx = _attn_inputs(gen, positions.shape[1], Hq=Hq, D=D, ctx=live)
         q = q * 4
-        err = 0.0
+        atol_r = 2.0 ** -8 * cache.kv_pages[1, :, 1].float().abs().max().item()
+        err = err_r = 0.0
         for cap in caps:
             for window in windows:
                 kw = dict(q_positions=positions, window=window, softcap=cap, tree=tree)
@@ -1065,11 +1266,18 @@ def check_attention_tree_main(gen, report):
                 ref = paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5, **kw)
                 torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
                 err = max(err, (out.float() - ref.float()).abs().max().item())
-        errs[model] = err
+                ref = paged_attention_ref(q, cache, 1, tables, ctx, D ** -0.5,
+                                          bf16_products=True, **kw)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=atol_r)
+                err_r = max(err_r, (out.float() - ref.float()).abs().max().item())
+        errs[model], errs_r[model] = err, err_r
     report["paged_attention"]["tree"]["main_path_max_abs_err"] = errs
+    report["paged_attention"]["tree"]["main_path_max_abs_err_bf16_products"] = errs_r
     log(f"check paged_attention tree at the main paths' rectangles (B=4, Q=15, ctx={live}, bf16 "
         "KV; llama3-8b Hq=32 D=128; gemma2-9b Hq=16 D=256 softcap 50, window none/4096/128): "
-        f"max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol})")
+        f"max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol}); "
+        "against the Pallas body's bf16 rounding " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs_r.items()) + " (tol 2^-8 max|v|, rtol 2^-7)")
 
 
 def time_attention_tree(gen, report):
@@ -1242,7 +1450,6 @@ def time_kernels(gen, gen_w4, report, int4pack_missing):
     """Per kernel, at the main path's shape: kernel, plain version, library
     call; bound from the bytes and operations of this call's inputs."""
     from qspec_tpu_torch.ops import linear_kernels as lk
-    from qspec_tpu_torch.ops import rmsnorm_quant as rq
     from qspec_tpu_torch.ops.attention import paged_attention_ref
     from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
 
@@ -1269,25 +1476,8 @@ def time_kernels(gen, gen_w4, report, int4pack_missing):
             report[name].update(r)
         torch.cuda.empty_cache()
 
-    # norms: verify side M=16 (rmsnorm), draft side M=4 (rmsnorm_quant), H=4096
-    H = 4096
-    x16 = torch.randn(16, H, generator=gen, device="cuda").to(torch.bfloat16)
-    t_k = graph_ms(lambda: rq.rmsnorm(x16))
-    t_p = graph_ms(lambda: rq.rmsnorm_ref(x16))
-    t_l = graph_ms(lambda: torch.nn.functional.rms_norm(x16, (H,), eps=1e-5))
-    b, kind = bound_ms(16 * H * 4, 4 * 16 * H, "f32")
-    report["rmsnorm"].update(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b,
-                             bound_by=kind, shape="M=16, H=4096")
-    log(f"time rmsnorm M=16 H=4096: {t_k:.4f} ms, plain {t_p:.4f}, "
-        f"F.rms_norm {t_l:.4f}, bound {b:.5f} ({kind})")
-    x4 = torch.randn(4, H, generator=gen, device="cuda").to(torch.bfloat16)
-    t_k = graph_ms(lambda: rq.rmsnorm_quant(x4))
-    t_p = graph_ms(lambda: rq.rmsnorm_quant_ref(x4))
-    b, kind = bound_ms(4 * H * 3 + 16, 6 * 4 * H, "f32")
-    report["rmsnorm_quant"].update(ms=t_k, plain_ms=t_p, library_ms=None,
-                                   bound_ms=b, bound_by=kind, shape="M=4, H=4096")
-    log(f"time rmsnorm_quant M=4 H=4096: {t_k:.4f} ms, plain {t_p:.4f}, "
-        f"bound {b:.5f} ({kind})")
+    # the norms, alone and with the residual add, beside their launch floor
+    time_norms(report)
 
     # the int8 head: draft width M=4 and verify width M=16; the yardstick is
     # torch._weight_int8pack_mm (same function, weights [N, K], bf16 out)
@@ -1676,6 +1866,7 @@ def generate(engine, prompts, max_tokens: int):
 
 
 ATTN_OPTIONS = ("window", "softcap", "d256", "tree", "alibi")
+NORMS = ("rmsnorm", "rmsnorm_quant")
 
 
 def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
@@ -1704,11 +1895,14 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     for c in attn.values():
         for opt in ATTN_OPTIONS:
             setattr(c, f"{opt}_launches", 0)
+    for name in NORMS:
+        counters[name].fused_launches = 0
     t0 = time.perf_counter()
     spec = generate(eng, prompts, max_tokens)
     torch.cuda.synchronize()
     t_spec = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    fused = {name: counters[name].fused_launches for name in NORMS}
     opts = {name: {opt: getattr(c, f"{opt}_launches") for opt in ATTN_OPTIONS}
             for name, c in attn.items()}
     m = eng.spec_metrics
@@ -1733,6 +1927,13 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     if launched != expect:
         raise AssertionError(f"{label}: kernels launched on the path: {sorted(launched)}, "
                              f"expected {sorted(expect)}")
+    # every forward's first input norm has no residual, and every norm
+    # after an add takes it in (models/llama.py): some of each
+    for name, k in fused.items():
+        if launches[name] and not 0 < k < launches[name]:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, {k} of "
+                                 "them with the residual add")
+        launches[f"{name}_fused"] = k
     for name, o in opts.items():
         for opt in ("softcap", "d256", "alibi", *every_launch):
             if o[opt] != (launches[name] if opt in every_launch else 0):
@@ -2269,6 +2470,7 @@ def main():
     int4pack_missing = check_int4pack(gen)
     check_w8a16(gen, report)
     check_norms(gen, report)
+    check_norms_fused(report)
     check_attention(gen, report)
     check_attention_window(gen, report)
     check_attention_kv8(gen, report)
@@ -2340,6 +2542,9 @@ def main():
             extra["gemma2_launches"] = gemma["a"][0][name]
         if name in MEDUSA_KERNELS:
             extra["medusa_tree_launches"] = medusa["d"][0][name]
+        if name in NORMS:
+            extra.update(floor_ms=r["floor_ms"], fused=dict(
+                r["fused"], launches=default[f"{name}_fused"], max_abs_err=r["fused_max_err"]))
         if r.get("library"):
             extra["library"] = r["library"]
         for key in W4_KEYS.values():
@@ -2443,6 +2648,35 @@ def ab_attention_ms(gen, shape) -> float:
     return ms
 
 
+def ab_norms_ms() -> dict:
+    """The checkout's norm kernels at NORM_TIMED (time_norms' inputs and
+    rotation): alone, and after the residual add: in the kernel where the
+    checkout's norm takes ``residual``, else the torch add and the norm in
+    one graph, so that both checkouts do the same work."""
+    import inspect
+    from qspec_tpu_torch.ops import rmsnorm_quant as rq
+    takes_residual = "residual" in inspect.signature(rq.rmsnorm).parameters
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for name, m, h, bits, gamma in NORM_TIMED:
+        rot = _norm_rot(gen, m, h)
+        norm, kw = _norm_wrapper(name, bits, _gamma(gen, h) if gamma else None)
+
+        def alone():
+            norm(rot.next()[0], **kw)
+
+        def fused():
+            x, r = rot.next()
+            norm(x, residual=r, **kw) if takes_residual else norm(x + r, **kw)
+        label = norm_label(name, m, h, bits, gamma)
+        reps = max(20, len(rot.sets))
+        out[f"norm_{label}"] = graph_ms(alone, reps)
+        out[f"norm_{label}_add"] = graph_ms(fused, reps)
+        del rot
+        torch.cuda.empty_cache()
+    return out
+
+
 def ab_child(root: str):
     """One checkout's attention times at AB_SHAPES and at the 36
     instantiations, its grouped GEMM's per layer (the four projections,
@@ -2474,10 +2708,11 @@ def ab_child(root: str):
     for name, m, key in W4_TIMED:
         r = time_w4_layer(gen, name, m, head=key == "head", plain=False, library=False)
         out[f"{name[7:]}_m{m}" + ("_head" if key == "head" else "")] = [r["ms"], r["per"]]
+    out.update(ab_norms_ms())
     regs = {_kernel_name(k): [v.get("regs"), v.get("spill_stores", 0)]
             for k, v in _build.build_info.get("ptxas", {}).items()
             if any(f in k for f in ("paged_attention", "w4a16_g", "w4_kernel", "w4a4_kernel",
-                                    "w4a16_kernel"))}
+                                    "w4a16_kernel", "rmsnorm_kernel"))}
     print(json.dumps({"checkout": root, "ms": out, "instantiations_ms": inst,
                       "ptxas_regs_spills": regs}, separators=(",", ":")), flush=True)
 

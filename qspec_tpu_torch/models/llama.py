@@ -18,6 +18,11 @@ gamma norms, the grouped int4 GEMM ``matmul_w4a16_g``):
     x - rmsnorm(gamma) - qkv - rope - paged KV write - attention - o
       - +residual - rmsnorm(gamma) - gate_up - silu*up - down - +residual
 
+On these rmsnorm graphs each "+residual" runs inside the norm after it
+(``rmsnorm`` / ``rmsnorm_quant`` with ``residual``: one kernel forms
+x + o, stores it and normalizes it), the last one inside the final norm; a
+layer hands its ``down`` to the next unadded.
+
 A float checkpoint (``quant="none"``: BLOOM, MPT) runs the bf16 scheme, a
 plain bf16 GEMM with an f32 result per projection (``jnp.dot`` in the JAX
 package, no Pallas kernel there either), with the GPT-family knobs:
@@ -151,15 +156,23 @@ def layernorm(x, gamma, beta, eps):
     return out.to(torch.bfloat16)
 
 
-def _norm_maybe_quant(x, gamma, eps, scheme, beta=None, norm_type="rmsnorm"):
-    """(normed bf16 or None, quantized or None). The quantized-activation
-    schemes run only on QuaRot checkpoints, whose norms are weightless;
-    LayerNorm only on float ones."""
+def _norm_maybe_quant(x, residual, gamma, eps, bits=None, beta=None,
+                      norm_type="rmsnorm"):
+    """(normed bf16 or None, quantized or None, h): h = x + residual (x
+    when ``residual`` is None) is the residual stream, and the norm is h's.
+    The rmsnorm kernels add the residual in their own pass; LayerNorm runs
+    after a torch add. ``bits`` (4 or 8) quantizes the normed rows: the
+    quantized-activation schemes run only on QuaRot checkpoints, whose norms
+    are weightless; LayerNorm only on float ones."""
     if norm_type == "layernorm":
-        return layernorm(x, gamma, beta, eps), None
-    if scheme in QUANT_ACT_SCHEMES:
-        return None, rmsnorm_quant(x, eps=eps, bits=4 if scheme == "w4a4" else 8)
-    return rmsnorm(x, gamma, eps=eps), None
+        h = x if residual is None else x + residual
+        return layernorm(h, gamma, beta, eps), None, h
+    if bits is None:
+        out = rmsnorm(x, gamma, eps=eps, residual=residual)
+    else:
+        out = rmsnorm_quant(x, eps=eps, bits=bits, residual=residual)
+    normed, h = (out, x) if residual is None else out
+    return (None, normed, h) if bits else (normed, None, h)
 
 
 def _act_quant(x, scheme):
@@ -240,25 +253,29 @@ def check_served(cfg: ModelConfig) -> None:
                                   "weights (quant='none') only")
 
 
-def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
+def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
                   batch: AttentionBatch, rope_cache, hadamards, scheme: str,
                   tree=None, alibi=None):
-    """One decoder layer. x: [T, hidden] bf16; ``layers`` is the
-    layer-stacked param dict and ``li`` selects both the weight layer and
-    the KV-cache layer; ``tree``: the Medusa tree mask of the attention
+    """One decoder layer. x: [T, hidden] bf16, and ``addend`` [T, hidden]
+    bf16 or None: the previous layer's MLP output, not yet added to x (the
+    layer's input is x + addend, added inside its input norm); ``layers``
+    is the layer-stacked param dict and ``li`` selects both the weight layer
+    and the KV-cache layer; ``tree``: the Medusa tree mask of the attention
     (ops/attention.py); ``alibi``: the [Hq] f32 ALiBi slopes, in place of
-    rope. Returns (x_out, cache); the cache is written in place."""
+    rope. Returns (x, down, cache): the layer's output is x + down, left
+    for the next norm to add; the cache is written in place."""
     B, Q = batch.positions.shape
     T = B * Q
     eps = cfg.rms_norm_eps
     quant_act = scheme in QUANT_ACT_SCHEMES
+    bits = {"w4a4": 4, "w4a8": 8}.get(scheme)
     quarot = cfg.quant == "w4"
     gamma_in = None if quarot else layers["input_norm"][li]
     gamma_post = None if quarot else layers["post_norm"][li]
     beta_in, beta_post = (layers[n][li] if n in layers else None
                           for n in ("input_norm_b", "post_norm_b"))
 
-    xn, xq = _norm_maybe_quant(x, gamma_in, eps, scheme, beta_in, cfg.norm_type)
+    xn, xq, x = _norm_maybe_quant(x, addend, gamma_in, eps, bits, beta_in, cfg.norm_type)
     qkv = _linear(xn, layers["qkv"], scheme, xq, li)
     if cfg.clip_qkv is not None:
         qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
@@ -288,9 +305,9 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
     if cfg.post_norms:
         # Gemma-2's post-attention norm, on the block output before the add
         o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][li], eps=eps)
-    x = x + o.to(x.dtype)
 
-    xn, xq = _norm_maybe_quant(x, gamma_post, eps, scheme, beta_post, cfg.norm_type)
+    xn, xq, x = _norm_maybe_quant(x, o.to(x.dtype), gamma_post, eps, bits, beta_post,
+                                  cfg.norm_type)
     gate_up = _linear(xn, layers["gate_up"], scheme, xq, li)
     if cfg.mlp_gated:
         i_size = gate_up.shape[-1] // 2
@@ -306,7 +323,7 @@ def decoder_layer(x, layers, cache, li: int, cfg: ModelConfig,
         down = _linear(act, layers["down"], scheme, li=li)
     if cfg.post_norms:
         down = rmsnorm(down.to(torch.bfloat16), layers["post_ffw_norm"][li], eps=eps)
-    return x + down.to(x.dtype), cache
+    return x, down.to(x.dtype), cache
 
 
 def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
@@ -345,20 +362,19 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         # BLOOM's word_embeddings_layernorm, before layer 0
         x = layernorm(x, params["embed_norm"], params["embed_norm_b"], cfg.rms_norm_eps)
     alibi = params["alibi_slopes"] if cfg.position_embedding == "alibi" else None
+    addend = None
     for li in range(cfg.num_layers):
-        x, cache = decoder_layer(x, params["layers"], cache, li, cfg, batch,
-                                 params.get("rope_cache"), params.get("hadamards"),
-                                 scheme, tree, alibi)
+        x, addend, cache = decoder_layer(x, addend, params["layers"], cache, li, cfg, batch,
+                                         params.get("rope_cache"), params.get("hadamards"),
+                                         scheme, tree, alibi)
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q
-        x = x[flat]
+        x, addend = x[flat], addend[flat]
         Q = 1
-    if cfg.norm_type == "layernorm":
-        x = layernorm(x, params["final_norm"], params.get("final_norm_b"),
-                      cfg.rms_norm_eps)
-    else:
-        x = rmsnorm(x, None if cfg.quant == "w4" else params["final_norm"],
-                    eps=cfg.rms_norm_eps)
+    # the last layer's add, inside the final norm
+    x, _, _ = _norm_maybe_quant(x, addend, None if cfg.quant == "w4" else params["final_norm"],
+                                cfg.rms_norm_eps, beta=params.get("final_norm_b"),
+                                norm_type=cfg.norm_type)
     logits = compute_logits(x, params["lm_head"])
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap

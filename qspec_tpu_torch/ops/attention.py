@@ -133,7 +133,8 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
                         block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                         scale: float, q_positions: torch.Tensor = None,
                         window: int = None, softcap: float = None,
-                        alibi: torch.Tensor = None, tree=None) -> torch.Tensor:
+                        alibi: torch.Tensor = None, tree=None,
+                        bf16_products: bool = False) -> torch.Tensor:
     """q: [B, Q, Hq, D]; ctx_lens[b] counts tokens *including* the new ones.
 
     ``q_positions`` [B, Q] gives each query's absolute position; query i
@@ -148,14 +149,23 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     Pallas kernel's order. ``tree``: a :class:`TreeMask`, the Medusa
     tree-verify mask of :func:`tree_slot_mask`, its root at
     ``q_positions[:, tree.prefix - 1]``; not with ``alibi``.
+    ``bf16_products``: round where the JAX Pallas body rounds for its bf16
+    products (``qspec_tpu/ops/attention_pallas.py:128, 208``), over a bf16
+    cache: q times the scale to bf16 before the scores, and the
+    probabilities to bf16 before P.V, the row sums taken unrounded.
     """
     B, Q, Hq, D = q.shape
+    if bf16_products and cache.kv_pages.dtype != torch.bfloat16:
+        raise ValueError("bf16_products: a bf16 cache only")
     if q_positions is None:
         q_positions = (ctx_lens[:, None] - Q) + torch.arange(Q, device=q.device)[None, :]
     k, v = gather_layer(cache, layer, block_tables)  # [B, Hkv, C, D]
     Hkv = k.shape[1]
     group = Hq // Hkv
-    qf = (q.to(torch.float32) * scale).reshape(B, Q, Hkv, group, D)
+    qf = q.to(torch.float32) * scale
+    if bf16_products:
+        qf = qf.to(torch.bfloat16).to(torch.float32)
+    qf = qf.reshape(B, Q, Hkv, group, D)
     scores = torch.einsum("bqhgd,bhcd->bhgqc", qf, k.to(torch.float32))
     C = k.shape[2]
     kv_pos = torch.arange(C, device=q.device)[None, :]
@@ -176,7 +186,11 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
             mask = mask & (kv_pos[None] > q_positions[:, :, None] - window)
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
+    if bf16_products:
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        probs = p.to(torch.bfloat16).to(torch.float32) / p.sum(dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqc,bhcd->bqhgd", probs, v.to(torch.float32))
     return out.reshape(B, Q, Hq, D).to(q.dtype)
 

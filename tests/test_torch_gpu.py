@@ -992,3 +992,93 @@ def test_paged_attention_kernel_row_bits(gen, mode):
     every, first4 = inputs([0, 1, 2, 3, 4]), inputs([0, 1, 2, 3], width=narrow)
     assert _replayed(lambda: launch(every), full)
     assert _replayed(lambda: launch(first4), full[:4])
+
+
+# the norms' timed shapes (chip_smoke.py time_norms): (kind, M, H, bits);
+# "quant" rmsnorm_quant, "norm" the weightless rmsnorm, "gamma" with a gamma
+NORM_CASES = ([("quant", m, 4096, bits) for m in (4, 8, 1024) for bits in (4, 8)]
+              + [("norm", m, 4096, None) for m in (4, 16, 60, 512)]
+              + [("gamma", m, 3584, None) for m in (4, 16)])
+
+
+def _norm_inputs(gen, m, h):
+    x = (torch.randn(m, h, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    r = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+    g = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(torch.bfloat16)
+    return x, r, g
+
+
+def _norm(kind, x, g, bits, residual=None, ref=False):
+    """The norm of ``kind`` (kernel or plain version) as a tuple of tensors:
+    (values, scales) or (out,), then h when a residual is given."""
+    if kind == "quant":
+        fn = rq.rmsnorm_quant_ref if ref else rq.rmsnorm_quant
+        res = fn(x, bits=bits or 4, residual=residual)
+    else:
+        fn = rq.rmsnorm_ref if ref else rq.rmsnorm
+        res = fn(x, g if kind == "gamma" else None, residual=residual)
+    out, h = (res, None) if residual is None else res
+    return (tuple(out) if kind == "quant" else (out,)) + (() if h is None else (h,))
+
+
+@pytest.mark.parametrize("kind,m,h,bits", NORM_CASES)
+def test_norm_kernel_fused(gen, kind, m, h, bits):
+    """The kernel with and without the residual add against its plain
+    version at every timed shape (norm rtol = atol = 2e-2; quant scales
+    rtol 1e-3, values within 1 and > 99% exact); h is the torch add, bit
+    for bit."""
+    x, r, g = _norm_inputs(gen, m, h)
+    for residual in (None, r):
+        got, want = _norm(kind, x, g, bits, residual), _norm(kind, x, g, bits, residual, True)
+        if residual is not None:
+            assert torch.equal(got[-1], x + r) and torch.equal(want[-1], x + r)
+        if kind == "quant":
+            torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=0)
+            d = (got[0].int() - want[0].int()).abs()
+            assert d.max().item() <= 1 and (d == 0).float().mean().item() > 0.99
+        else:
+            torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind,h", [("quant", 4096), ("norm", 4096), ("gamma", 3584)])
+@pytest.mark.parametrize("fused", [False, True])
+def test_norm_kernel_row_bits(gen, kind, h, fused):
+    """A row's bits (output, scale, h) do not depend on M, on its place in
+    the batch, on a second call or on CUDA-graph replay."""
+    x, r, g = _norm_inputs(gen, 64, h)
+    res = r if fused else None
+    full = _norm(kind, x, g, 8, res)
+    for lo, hi in ((0, 1), (5, 9), (17, 64), (63, 64)):
+        part = _norm(kind, x[lo:hi].contiguous(), g, 8,
+                     None if res is None else res[lo:hi].contiguous())
+        assert all(torch.equal(a, b[lo:hi]) for a, b in zip(part, full)), (lo, hi)
+    flipped = _norm(kind, x.flip(0).contiguous(), g, 8,
+                    None if res is None else res.flip(0).contiguous())
+    assert all(torch.equal(a, b.flip(0)) for a, b in zip(flipped, full))
+    assert all(torch.equal(a, b) for a, b in zip(_norm(kind, x, g, 8, res), full))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _norm(kind, x, g, 8, res)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _norm(kind, x, g, 8, res)
+    for _ in range(2):
+        for t in outs:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, full))
+
+
+def test_norm_kernel_refusals(gen):
+    """What the kernel does not take raises: a row past 16384, a residual
+    of another shape or type."""
+    x, r, _ = _norm_inputs(gen, 4, 4096)
+    with pytest.raises(ValueError, match="16384"):
+        rq.rmsnorm(torch.zeros(2, 16392, dtype=torch.bfloat16, device="cuda"))
+    with pytest.raises(ValueError, match="residual"):
+        rq.rmsnorm(x, residual=r[:2])
+    with pytest.raises(ValueError, match="residual"):
+        rq.rmsnorm_quant(x, residual=r.float())
