@@ -118,11 +118,33 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    per forward (phase_bloom_7b1);
 11. an MPT-7B-width checkpoint directory (2 layers) written by the script
    and served by LLM(model=<dir>, quantization=None), n-gram against AR
-   (phase_mpt_dir).
+   (phase_mpt_dir);
+12. real-weights loaders, (A): a Hugging Face Llama float state dict at
+   meta-llama/Meta-Llama-3-8B's widths (random bf16 made on the card, norm
+   gammas 1 + 0.1 N(0, 1)) rotated and quantized on the card by
+   quantize_float (seconds and peak GiB printed), then QSpec (k = 3) at W4A4
+   and W4A8 through LLMEngine against qspec_null, exactly the QuaRot
+   kernels launched (phase_quarot_float_8b);
+13. (B) that model verifying a separate draft at bench.py's "1b" widths
+   (16 layers, hidden 2048), made and quantized the same way, drafting at
+   W4A4 on its own KV pool: tokens == the oracle's, the kernel set exact,
+   the draft's forwards counted on its own layers (phase_draft_1b);
+14. (C) forced acceptance (force_accept_len=3, k = 3) on (A)'s model: every
+   round of every sequence emits 4 tokens short of the budget; tok/s beside
+   qspec_null's, no token claim (phase_forced_8b);
+15. (D) LLM(model=<dir>) on directories written by the script at
+   Meta-Llama-3-8B's widths cut to 2 layers: a float directory in bf16
+   (quantization=None), n-gram == AR; the same directory quantized at load,
+   QSpec == oracle; a reference-format QSpec directory written from (A)'s
+   layers 0-1, which loads to (A)'s packed tensors bit for bit, QSpec ==
+   oracle (phase_llama_dirs).
 
-It prints the kernel summary as one JSON line and, last, the device JSON line.
-Every line also goes to chiprun_out/chip_smoke.log, with the kernels' full
-`-Xptxas -v` summary, which the standard output gives in short.
+It prints the kernel summary as one JSON line (every field of each kernel,
+with its launches in the paths of phases 12-15) and, last, the device JSON
+line. Every line also goes to chiprun_out/chip_smoke.log, which alone has
+the per-case detail the standard output gives in short (the kernels' full
+`-Xptxas -v` summary, each tiny forward check, each long attention check,
+each grouped-GEMM shape's time).
 """
 
 from __future__ import annotations
@@ -940,7 +962,10 @@ def check_attention_d256(gen, report):
         "max_abs_err (tol: rtol=atol) "
         + ", ".join(f"{k} {v:.3g} (tol {D256_TOL[k]})" for k, v in errs.items())
         + f"; Q in 1,4,128, window none and 128, ctx {list(WINDOW_CTX)}; "
-        "a row's bits equal at Q=1 and Q=4")
+        "a row's bits equal at Q=1 and Q=4", stdout=False)
+    print("check paged_attention D=256 / softcap: max_abs_err " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + " (within tolerance; the log has the cases)",
+        flush=True)
 
 
 TREE_TOL = {"bfloat16": 3e-2, "int8": 4e-2, "fp8_e4m3": 4e-2, "fp8_e5m2": 8e-2}
@@ -1042,7 +1067,10 @@ def check_attention_tree(gen, report):
         "and 50, window none and 12): max_abs_err (tol: rtol=atol) "
         + ", ".join(f"{k} {v:.3g} (tol {TREE_TOL[k]})" for k, v in errs.items())
         + f"; tree rows under window 12 vs AR {err_ar:.3g}; node (1,)'s slot changed: "
-        f"{len(keep)} rows keep their bits, its child's row moves")
+        f"{len(keep)} rows keep their bits, its child's row moves", stdout=False)
+    print("check paged_attention tree: max_abs_err " + ", ".join(
+        f"{k} {v:.3g}" for k, v in errs.items()) + " (within tolerance; the log has the cases)",
+        flush=True)
 
 
 def tree_rows_ar(q, cache, layer, tables, positions, tspec, prefix, scale, window):
@@ -1277,7 +1305,10 @@ def check_attention_tree_main(gen, report):
         "KV; llama3-8b Hq=32 D=128; gemma2-9b Hq=16 D=256 softcap 50, window none/4096/128): "
         f"max_abs_err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {tol}); "
         "against the Pallas body's bf16 rounding " + ", ".join(
-            f"{k} {v:.3g}" for k, v in errs_r.items()) + " (tol 2^-8 max|v|, rtol 2^-7)")
+            f"{k} {v:.3g}" for k, v in errs_r.items()) + " (tol 2^-8 max|v|, rtol 2^-7)",
+        stdout=False)
+    print("check paged_attention tree at the main paths' rectangles: within tolerance "
+          "(the log has each)", flush=True)
 
 
 def time_attention_tree(gen, report):
@@ -1617,7 +1648,7 @@ def time_w4a16_g(gen, report, int4pack_missing):
                     f"plain {r['plain_ms']:.4f}, library "
                     + (f"{r['library_ms']:.4f}" if library else "none")
                     + f", bound {r['bound_ms']:.4f} ms, {r['ms'] / m:.5f} ms/row")
-            log(line)
+            log(line, stdout=False)
             log(f"  per projection (kernel" + ("/_weight_int4pack_mm" if library else "")
                 + f"): {', '.join(per)} ms; {nbytes} bytes", stdout=False)
     report["matmul_w4a16_g"].update(rows[("llama3-8b", 16)])
@@ -1834,7 +1865,7 @@ def phase_small_reference(lm_head_quant: str, kv_dtype: str, quant: str = "w4"):
         rel = ((out - ref).norm() / ref.norm()).item()
         log(f"check tiny {quant} model_forward {scheme} (head {lm_head_quant}, {kv_dtype} KV): "
             f"rel L2 {rel:.3g} vs the CPU (tol {tol}), "
-            f"max abs {(out - ref).abs().max().item():.3g}")
+            f"max abs {(out - ref).abs().max().item():.3g}", stdout=False)
         if rel > tol:
             raise AssertionError(f"tiny {scheme} logits differ: relative L2 {rel} > {tol}")
 
@@ -1908,6 +1939,7 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     m = eng.spec_metrics
     rounds_run = eng.runner.spec_rounds_run
     forwards = eng.runner.target_forwards
+    draft_forwards = eng.runner.draft_forwards
 
     params = eng.runner.params
     del eng
@@ -1948,6 +1980,8 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
         "drafted_accepted_emitted": [
             m.num_draft_tokens, m.num_draft_accepted, m.num_emitted_tokens],
         **({"rounds_run": rounds_run, "forwards": forwards} if rounds_run else {}),
+        **({"target_forwards": forwards, "draft_forwards": draft_forwards}
+           if draft_forwards else {}),
         **({"attn_option_launches": {n: {k: v for k, v in o.items() if v}
                                      for n, o in opts.items() if any(o.values())}}
            if any(any(o.values()) for o in opts.values()) else {})}
@@ -1964,7 +1998,7 @@ def e2e_log(label: str, prompts, spec, summary: dict):
     summary (floats to 5 significant digits), in full to the log and its
     E2E_KEYS to the standard output."""
     short = {k: float(f"{v:.5g}") if isinstance(v, float) else v for k, v in summary.items()}
-    head = f"e2e {label}: {len(spec[0])} greedy tokens of {len(prompts)} prompts == oracle's: "
+    head = f"e2e {label}: {len(prompts)}x{len(spec[0])} greedy tokens == oracle's: "
     log(head + json.dumps(short, separators=(",", ":")), stdout=False)
     print(head + json.dumps({k: short[k] for k in E2E_KEYS if k in short},
                             separators=(",", ":")), flush=True)
@@ -2166,7 +2200,7 @@ def phase_grouped_8b(model: str, smi: str):
         acc = out["tree"][2]["acceptance_rate"]
         if acc <= 0.5:
             raise AssertionError(f"{model} AWQ Medusa tree: acceptance {acc} <= 0.5")
-    log(f"e2e {model} AWQ: card {smi}")
+    log(f"e2e {model} AWQ: card {smi}", stdout=False)
     del params
     torch.cuda.empty_cache()
     return out
@@ -2230,7 +2264,7 @@ def phase_medusa_8b(smi: str):
         out[key] = medusa_run(
             lambda m, p, kw=kw: LLM(params=p or params, speculative_method=m, **kw).llm_engine,
             label, MEDUSA_KERNELS, prompts, cfg.num_layers, tree is not None)
-    log(f"e2e llama3-8b Medusa: card {smi}")
+    log(f"e2e llama3-8b Medusa: card {smi}", stdout=False)
     del params
     torch.cuda.empty_cache()
     return out
@@ -2244,13 +2278,14 @@ FLOAT_KERNELS = {"paged_attention"}
 def random_state_dict(entries, seed: int) -> dict:
     """A Hugging Face state dict of random bf16 tensors made on the card:
     ``entries`` (name, shape, kind): "w" normal(0.02), "b" normal(0.01),
-    "one" / "zero" a LayerNorm's gamma / beta."""
+    "gamma" 1 + normal(0.1), "one" / "zero" a LayerNorm's gamma / beta."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     sd = {}
     for name, shape, kind in entries:
-        if kind in ("w", "b"):
-            t = torch.randn(shape, generator=gen, device="cuda") * (0.02 if kind == "w" else 0.01)
-            sd[name] = t.to(torch.bfloat16)
+        if kind in ("w", "b", "gamma"):
+            t = torch.randn(shape, generator=gen, device="cuda") * {"w": 0.02, "b": 0.01,
+                                                                    "gamma": 0.1}[kind]
+            sd[name] = (t + (kind == "gamma")).to(torch.bfloat16)
             del t
         else:
             sd[name] = (torch.ones if kind == "one" else torch.zeros)(
@@ -2298,7 +2333,8 @@ def write_safetensors(path: str, tensors: dict) -> None:
     header, off = {}, 0
     for name, t in tensors.items():
         n = t.numel() * t.element_size()
-        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32"}[t.dtype],
+        header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32",
+                                  torch.uint8: "U8"}[t.dtype],
                         "shape": list(t.shape), "data_offsets": [off, off + n]}
         off += n
     raw = json.dumps(header).encode()
@@ -2364,7 +2400,7 @@ def phase_bloom_7b1(smi: str):
                              f"not {cfg.num_layers} x {summary['forwards']} forwards")
     summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     e2e_log(label, prompts, spec, summary)
-    log(f"e2e bloom-7b1: card {smi}")
+    log(f"e2e bloom-7b1: card {smi}", stdout=False)
     del params
     torch.cuda.empty_cache()
     return launches, opts, summary
@@ -2429,6 +2465,289 @@ def phase_mpt_dir(smi: str):
     return summary
 
 
+# ------------------------------------------------------- real-weights loaders
+
+# the kernels of a QuaRot Llama's QSpec path at the JAX package's defaults
+# over a bf16 cache: the trunk's, the bf16 attention, the int8 head
+QUAROT_KERNELS = {*TRUNK_KERNELS, "paged_attention", "matmul_w8a16"}
+# a Llama float checkpoint in bf16: its GEMMs and head are torch ops (jnp.dot
+# in the JAX package); its gamma norms and attention are kernels
+FLOAT_LLAMA_KERNELS = {"rmsnorm", "paged_attention"}
+# bench.py's "1b" configuration (Llama-3.2-1B-like), the separate draft
+DRAFT_1B = dict(hidden_size=2048, intermediate_size=8192, num_layers=16, num_heads=16,
+                num_kv_heads=8, head_dim=128)
+FORCE = 3            # phase (C)'s forced accepted length, at k = 3
+
+
+def llama_entries(cfg):
+    """A Hugging Face Llama's checkpoint names and shapes (model.*, split
+    q / k / v and gate / up, an untied lm_head); each norm's gamma
+    "gamma": 1 + 0.1 N(0, 1), so quantize_float's folds are exercised."""
+    H, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        out += [(p + "input_layernorm.weight", (H,), "gamma"),
+                (p + "self_attn.q_proj.weight", (cfg.q_size, H), "w"),
+                (p + "self_attn.k_proj.weight", (cfg.kv_size, H), "w"),
+                (p + "self_attn.v_proj.weight", (cfg.kv_size, H), "w"),
+                (p + "self_attn.o_proj.weight", (H, cfg.q_size), "w"),
+                (p + "post_attention_layernorm.weight", (H,), "gamma"),
+                (p + "mlp.gate_proj.weight", (I, H), "w"), (p + "mlp.up_proj.weight", (I, H), "w"),
+                (p + "mlp.down_proj.weight", (H, I), "w")]
+    return out + [("model.norm.weight", (H,), "gamma"), ("lm_head.weight", (V, H), "w")]
+
+
+def quantize_on_card(cfg, seed: int, label: str):
+    """A Llama float state dict of ``cfg``'s widths made on the card, then
+    quantize_float(device="cuda") on it (the dict consumed as it goes):
+    (params, cfg, seconds, peak GiB of the conversion, the state dict's
+    included)."""
+    from qspec_tpu_torch.model_loader.loader import quantize_float
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sd = random_state_dict(llama_entries(cfg), seed=seed)
+    n_bytes = sum(t.numel() * 2 for t in sd.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qcfg = quantize_float(sd, cfg, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if sd:
+        raise AssertionError(f"{label}: quantize_float left {len(sd)} tensors unconverted")
+    log(f"load {label}: {cfg.num_layers} layers, hidden {cfg.hidden_size}, intermediate "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}", stdout=False)
+    log(f"load {label}: {n_bytes / 1e9:.2f} GB bf16, quantize_float on the card "
+        f"{secs:.2f} s, peak {peak:.2f} GiB")
+    return params, qcfg, secs, peak
+
+
+def qspec_engine(cfg, params, draft=None, **spec_kw):
+    """The factory of an LLMEngine of ``cfg`` serving QSpec (k = 3) with
+    ``spec_kw``; ``draft``: (draft cfg, draft params), a separate draft."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+
+    def make(method, p):
+        spec = SpeculativeConfig(num_speculative_tokens=3, method=method,
+                                 draft_model=draft and draft[0], **spec_kw)
+        return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=128),
+                                      scheduler=SchedulerConfig(max_num_seqs=4,
+                                                                max_model_len=512),
+                                      speculative=spec), p or params, device="cuda",
+                         seed=0, draft_params=draft and draft[1])
+    return make
+
+
+def phase_quarot_float_8b(smi: str):
+    """(A) A Hugging Face Llama float checkpoint at meta-llama/Meta-Llama-3-8B's
+    widths (config.py's LLAMA3_8B_HF), random bf16 made on the card, rotated
+    and quantized there by quantize_float, then QSpec (k = 3) at W4A4 and at
+    W4A8 through LLMEngine against qspec_null: tokens equal, exactly
+    QUAROT_KERNELS launched."""
+    from qspec_tpu_torch.config import LLAMA3_8B_HF
+    from qspec_tpu_torch.models.registry import resolve
+    params, cfg, secs, peak = quantize_on_card(resolve(LLAMA3_8B_HF), 10, "(A) llama3-8b")
+    prompts = e2e_prompts()
+    out = {"seconds": secs, "peak_gib": peak}
+    for scheme in ("w4a4", "w4a8"):
+        label = f"(A) llama3-8b quantize_float ({scheme} draft, int8 head, bf16 KV)"
+        torch.cuda.reset_peak_memory_stats()
+        spec, launches, _, summary = spec_vs_oracle(
+            qspec_engine(cfg, params, draft_scheme=scheme), label, QUAROT_KERNELS, prompts, 32)
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        e2e_log(label, prompts, spec, summary)
+        out[scheme] = (launches, summary)
+    log(f"e2e (A): card {smi}", stdout=False)
+    return params, cfg, out
+
+
+def phase_draft_1b(params, cfg, smi: str):
+    """(B) (A)'s Llama-3-8B verified by a separate draft at bench.py's "1b"
+    widths (16 layers, hidden 2048, 16 / 8 heads of 128, intermediate 8192,
+    vocab 128256), made and quantized the same way, drafting at W4A4 with
+    its own KV pool: tokens equal qspec_null's, exactly QUAROT_KERNELS
+    launched, and the draft's forwards counted on the draft's layers only:
+    w4a4 (the target never runs it) 4 x 16 a draft forward, rmsnorm_quant
+    2 x 16, the int8 head one a forward of either model, the attention 32 a
+    target forward and 16 a draft forward."""
+    dcfg = dataclasses.replace(cfg, quant="w4", **DRAFT_1B)
+    dparams, dcfg, secs, peak = quantize_on_card(dcfg, 11, "(B) 1b draft")
+    prompts = e2e_prompts()
+    label = "(B) llama3-8b + separate 1b draft (w4a4 draft, int8 heads, bf16 KV)"
+    torch.cuda.reset_peak_memory_stats()
+    spec, launches, _, summary = spec_vs_oracle(
+        qspec_engine(cfg, params, draft=(dcfg, dparams)), label, QUAROT_KERNELS, prompts, 32)
+    summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    t_fw, d_fw = summary["target_forwards"], summary["draft_forwards"]
+    dl, tl = dcfg.num_layers, cfg.num_layers
+    want = {"matmul_w4a4": 4 * dl * d_fw, "rmsnorm_quant": 2 * dl * d_fw,
+            "matmul_w8a16": t_fw + d_fw, "paged_attention": tl * t_fw + dl * d_fw}
+    got = {n: launches[n] for n in want}
+    if got != want or not d_fw:
+        raise AssertionError(f"{label}: launches {got}, expected {want} "
+                             f"({t_fw} target and {d_fw} draft forwards)")
+    summary.update(draft_seconds=secs, draft_peak_gib=peak)
+    e2e_log(label, prompts, spec, summary)
+    del dparams
+    torch.cuda.empty_cache()
+    log(f"e2e (B): card {smi}", stdout=False)
+    return launches, summary
+
+
+def phase_forced_8b(params, cfg, smi: str):
+    """(C) (A)'s model with force_accept_len=FORCE at k = 3 (timing mode): every
+    round of every live sequence emits min(FORCE + 1, k + 1) tokens, short
+    of the 32-token budget (31 after the prompt's token: 7 rounds of 4 and
+    one of 3), exactly QUAROT_KERNELS launched; tok/s beside qspec_null's.
+    No token claim: the forced tokens are not the greedy continuation."""
+    from qspec_tpu_torch.ops import kernel_wrappers
+    prompts = e2e_prompts()
+    per_round = min(FORCE + 1, 4)
+    full, rest = divmod(31, per_round)
+    want = {per_round: full * len(prompts), **({rest: len(prompts)} if rest else {})}
+    out = {}
+    for method, force in (("qspec", FORCE), ("qspec_null", None)):
+        eng = qspec_engine(cfg, params, force_accept_len=force)(method, None)
+        counters = kernel_wrappers()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = generate(eng, prompts, 32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[method] = {"tokens_per_s": sum(map(len, toks)) / wall,
+                       "emitted_per_seq_round": dict(eng.spec_metrics.emitted_per_seq_round),
+                       "launches": {n: c.launches for n, c in counters.items() if c.launches}}
+        del eng
+        torch.cuda.empty_cache()
+    forced = out["qspec"]
+    if forced["emitted_per_seq_round"] != want or set(forced["launches"]) != QUAROT_KERNELS:
+        raise AssertionError(f"(C) forced acceptance: tokens a round {forced} , expected "
+                             f"{want} and the kernels {sorted(QUAROT_KERNELS)}")
+    summary = {"forced_accept": FORCE, "spec_tokens_per_s": forced["tokens_per_s"],
+               "oracle_tokens_per_s": out["qspec_null"]["tokens_per_s"],
+               "emitted_per_seq_round": forced["emitted_per_seq_round"]}
+    log(f"e2e (C) llama3-8b forced acceptance {FORCE}/3 (w4a4 draft; no token claim): "
+        + json.dumps({k: float(f"{v:.5g}") if isinstance(v, float) else v
+                      for k, v in summary.items()}, separators=(",", ":")))
+    log(f"e2e (C): card {smi}", stdout=False)
+    return forced["launches"], summary
+
+
+def write_config(path: str, hf: dict) -> None:
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+
+
+def phase_llama_dirs(params8, cfg8, smi: str):
+    """(D) LLM(model=<dir>) on directories written here at Meta-Llama-3-8B's
+    widths cut to 2 layers: (D1) a llama-keyed float directory (random bf16,
+    gammas 1 + 0.1 N) at quantization=None, served in bf16 (load_hf_float),
+    n-gram (k = 3) == AR, only FLOAT_LLAMA_KERNELS launched; (D2) the same
+    directory under the default quantization (quantize_float at load),
+    QSpec == qspec_null with QUAROT_KERNELS; (D3) a reference-format QSpec
+    directory (uint8 [out, in // 2] + weight_scales, the o / down weights
+    under the reference's ``o_proj.1.`` / ``down_proj.1.`` keys) written
+    from (A)'s layers 0-1, its rotated embedding and its int8 head
+    dequantized, which must load (load_qspec) to (A)'s packed tensors bit
+    for bit, QSpec == qspec_null."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import LLAMA3_8B_HF
+    from qspec_tpu_torch.models.registry import resolve
+    from qspec_tpu_torch.ops import kernel_wrappers
+    from qspec_tpu_torch.ops.packing import pack_reference, unpack_int4
+    hf = {**LLAMA3_8B_HF, "num_hidden_layers": 2}
+    cfg = resolve(hf)
+    kw = dict(device="cuda", max_model_len=512, max_num_seqs=4, seed=0)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        sd = random_state_dict(llama_entries(cfg), seed=12)
+        write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        del sd
+        write_config(d, hf)
+        prompts = float_prompts(cfg.vocab_size)
+        toks, walls = {}, {}
+        for key, extra in (("ar", {}), ("ngram", dict(num_speculative_tokens=3,
+                                                      speculative_model="[ngram]"))):
+            llm = LLM(model=d, quantization=None, **kw, **extra)
+            counters = kernel_wrappers()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks[key] = generate(llm.llm_engine, prompts, 32)
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            launched = {n for n, c in counters.items() if c.launches}
+            if llm.engine_config.model.quant != "none" or launched != FLOAT_LLAMA_KERNELS:
+                raise AssertionError(f"(D1) float dir {key}: quant "
+                                     f"{llm.engine_config.model.quant}, launched {sorted(launched)}")
+            if key == "ngram":
+                n_tok = sum(map(len, toks[key]))
+                out["D1"] = ({n: c.launches for n, c in counters.items() if c.launches},
+                             {"acceptance_rate": llm.spec_metrics.draft_acceptance_rate,
+                              "ngram_tokens_per_s": n_tok / walls["ngram"],
+                              "ar_tokens_per_s": n_tok / walls["ar"]})
+            del llm
+            torch.cuda.empty_cache()
+        if toks["ngram"] != toks["ar"]:
+            raise AssertionError("(D1) float dir: greedy n-gram tokens differ from AR's")
+        e2e_log("(D1) llama3-8b widths, 2 layers, LLM(model=<dir>, quantization=None) "
+                "n-gram vs AR", prompts, toks["ngram"], out["D1"][1])
+        prompts = e2e_prompts()
+        label = "(D2) llama3-8b widths, 2 layers, LLM(model=<float dir>) quantize_float"
+        spec, launches, _, summary = spec_vs_oracle(
+            lambda m, p: LLM(model=d, num_speculative_tokens=3, speculative_method=m,
+                             **kw).llm_engine, label, QUAROT_KERNELS, prompts, 32)
+        e2e_log(label, prompts, spec, summary)
+        out["D2"] = (launches, summary)
+    with tempfile.TemporaryDirectory() as d:
+        sd = {"model.embed_tokens.weight": params8["embed"],
+              "lm_head.weight": (params8["lm_head"]["qw8"].float()
+                                 * params8["lm_head"]["qs"]).t().to(torch.bfloat16)}
+        modules = {"qkv": (("self_attn.q_proj", cfg.q_size), ("self_attn.k_proj", cfg.kv_size),
+                           ("self_attn.v_proj", cfg.kv_size)),
+                   "o": (("self_attn.o_proj.1", cfg.hidden_size),),
+                   "gate_up": (("mlp.gate_proj", cfg.intermediate_size),
+                               ("mlp.up_proj", cfg.intermediate_size)),
+                   "down": (("mlp.down_proj.1", cfg.hidden_size),)}
+        for li in range(cfg.num_layers):
+            for name, parts in modules.items():
+                vals = unpack_int4(params8["layers"][name]["qw"][li])
+                start = 0
+                for module, width in parts:
+                    key = f"model.layers.{li}.{module}"
+                    sd[key + ".weight"] = pack_reference(vals[:, start:start + width])
+                    sd[key + ".weight_scales"] = params8["layers"][name]["qs"][li,
+                                                                             start:start + width]
+                    start += width
+                del vals
+        write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        del sd
+        write_config(d, hf)
+        label = "(D3) llama3-8b widths, 2 layers, LLM(model=<reference QSpec dir>) load_qspec"
+        llm = LLM(model=d, num_speculative_tokens=3, **kw)
+        loaded = llm.llm_engine.runner.params
+        same = all(torch.equal(loaded["layers"][n][k], params8["layers"][n][k][:2])
+                   for n in modules for k in ("qw", "qs"))
+        if not (same and torch.equal(loaded["embed"], params8["embed"])):
+            raise AssertionError(f"{label}: the packed tensors differ from (A)'s layers 0-1")
+        del llm, loaded
+        torch.cuda.empty_cache()
+        spec, launches, _, summary = spec_vs_oracle(
+            lambda m, p: LLM(model=d, num_speculative_tokens=3, speculative_method=m,
+                             **kw).llm_engine, label, QUAROT_KERNELS, prompts, 32)
+        e2e_log(label + ", == (A)'s layers 0-1 bit for bit", prompts, spec, summary)
+        out["D3"] = (launches, summary)
+    log(f"e2e (D): card {smi}", stdout=False)
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -2491,6 +2810,9 @@ def main():
     phase_small_reference("auto", "bfloat16", quant="w4g")
     phase_small_reference("auto", "bfloat16", quant="gemma2")
     phase_small_reference("auto", "bfloat16", quant="bloom")
+    print("check tiny model_forward, 9 cases (w4 at w4a16/w4a8/w4a4 with two heads and "
+          "KVs, w4g, gemma2, bloom): each within its tolerance vs the CPU (the log has "
+          "each)", flush=True)
     tiny = phase_tiny_end_to_end()
     first, default = phase_end_to_end(smi)
     awq = phase_grouped_8b("llama3-8b", smi)
@@ -2498,6 +2820,17 @@ def main():
     medusa = phase_medusa_8b(smi)
     bloom = phase_bloom_7b1(smi)
     mpt = phase_mpt_dir(smi)
+    params8, cfg8, quarot = phase_quarot_float_8b(smi)
+    draft = phase_draft_1b(params8, cfg8, smi)
+    forced = phase_forced_8b(params8, cfg8, smi)
+    dirs = phase_llama_dirs(params8, cfg8, smi)
+    del params8
+    torch.cuda.empty_cache()
+    # each kernel's launches in the real-weights loaders' paths: (A) W4A4 and
+    # W4A8, (B) the separate draft, (C) forced, (D1) the bf16 directory,
+    # (D2) the float directory quantized at load, (D3) the QSpec directory
+    new_paths = {"A_w4a4": quarot["w4a4"][0], "A_w4a8": quarot["w4a8"][0], "B": draft[0],
+                 "C": forced[0], "D1": dirs["D1"][0], "D2": dirs["D2"][0], "D3": dirs["D3"][0]}
 
     # each row's launches from the 8B run of its own path (its first draft):
     # the bf16 instantiation from the first slice's (bf16 head, bf16 KV), the
@@ -2556,6 +2889,9 @@ def main():
                 extra[opt] = r[opt]
         if "d256_softcap" in r:
             extra["d256_softcap"] = r["d256_softcap"]
+        loaders = {k: v[name] for k, v in new_paths.items() if v.get(name)}
+        if loaders:
+            extra["loader_launches"] = loaders
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],

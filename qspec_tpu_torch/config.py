@@ -242,6 +242,16 @@ MPT_7B_HF = {
     "attn_config": {"alibi": True, "clip_qkv": None, "qk_ln": False},
 }
 
+# meta-llama/Meta-Llama-3-8B's config.json (Hugging Face), the fields the
+# port reads: ModelConfig.llama3_8b()'s widths
+LLAMA3_8B_HF = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "rope_theta": 500000.0, "rms_norm_eps": 1e-5, "max_position_embeddings": 8192,
+    "hidden_act": "silu", "tie_word_embeddings": False,
+}
+
 # google/gemma-2-9b's config.json (Hugging Face), the fields the port reads
 GEMMA2_9B_HF = {
     "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
@@ -287,8 +297,8 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SpeculativeConfig:
-    """Speculative decoding: QSpec over shared weights, Medusa heads, or
-    n-gram prompt lookup."""
+    """Speculative decoding: QSpec over shared weights or with a separate
+    draft model, Medusa heads, or n-gram prompt lookup."""
 
     num_speculative_tokens: int = 3
     # draft scheme; verify is always w4a16. "w4a4" is the QSpec method;
@@ -323,6 +333,19 @@ class SpeculativeConfig:
     # occurred before proposes the k tokens after its latest occurrence
     ngram_prompt_lookup_max: int = 4
     ngram_prompt_lookup_min: int = 1
+    # a SEPARATE draft model (methods "qspec" / "qspec_null"): a smaller LM
+    # with its own parameters (passed to the engine as draft_params) and its
+    # own KV pool over the target's page ids, which must share the target's
+    # vocabulary; a quant="w4" draft runs ``draft_scheme``, a float one the
+    # bf16 scheme. None: the shared-weights draft.
+    draft_model: Optional[ModelConfig] = None
+    # TIMING ONLY: every QSpec round emits exactly min(force_accept_len + 1,
+    # k + 1) tokens whatever the verify decided (the slots past the real
+    # acceptance hold token 0). All device work still runs, so the wall time
+    # is a round's at that acceptance; the tokens are not the target's
+    # greedy continuation, except at 0, where a round emits the verify's
+    # first token, the AR token. None: the real acceptance.
+    force_accept_len: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)

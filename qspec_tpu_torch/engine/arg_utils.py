@@ -11,7 +11,8 @@ a BLOOM or an MPT is served as). ``speculative_model="[medusa]"`` (heads in
 ``params["medusa"]``) or a heads ``.npz`` (loaded by the ``LLM`` entry
 point) selects Medusa, ``spec_medusa_tree`` its candidate tree;
 ``"[ngram]"`` selects prompt lookup, ``ngram_prompt_lookup_min/max`` its
-n-gram lengths.
+n-gram lengths; a checkpoint directory is a separate draft model for
+QSpec (the ``LLM`` entry point loads it and records its cfg).
 """
 
 from __future__ import annotations
@@ -62,9 +63,9 @@ class EngineArgs:
     speculative_method: Optional[str] = None
     # the reference's --speculative-model: "[medusa]" selects Medusa heads
     # (params must carry a "medusa" subtree), a path to an .npz of heads
-    # loads them (LLM), "[ngram]" prompt lookup; "[eagle]" and
-    # "[mlp_speculator]" are not ported and raise; None: QSpec's
-    # shared-weights draft
+    # loads them (LLM), "[ngram]" prompt lookup, a checkpoint directory a
+    # separate draft model (QSpec); "[eagle]" and "[mlp_speculator]" are
+    # not ported and raise; None: QSpec's shared-weights draft
     speculative_model: Optional[str] = None
     # Medusa candidate tree: "default" (DEFAULT_TREE without the paths deeper
     # than num_speculative_tokens) or a literal choices tuple such as
@@ -103,9 +104,11 @@ class EngineArgs:
                 named = net.strip("[]").lower()
             elif net.endswith(".npz"):
                 named = "medusa"   # LLM checks that the file holds Medusa heads
+            elif os.path.isdir(net):
+                named = "qspec"    # a separate draft model
             else:
-                raise NotImplementedError(f"speculative_model {net!r}: a separate "
-                                          "draft checkpoint is not ported")
+                raise ValueError(f"speculative_model {net!r}: neither a proposer "
+                                 "name, a heads .npz nor a checkpoint directory")
         if self.speculative_method is None:
             return named or "qspec"
         oracle = "null" if named == "ngram" else f"{named}_null"

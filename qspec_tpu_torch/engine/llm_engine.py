@@ -5,7 +5,9 @@ Port of the prefill / decode / spec-round paths of
 autoregressive continuous batching (W4A16, or bf16 for a float checkpoint);
 a SpeculativeConfig turns every decode step into draft (w4a4, w4a8 or
 w4a16, optionally under a sliding window) + verify (w4a16) rounds over
-shared weights with per-phase KV caches, with ``method="medusa"`` into
+shared weights with per-phase KV caches, or with a separate draft model
+(``SpeculativeConfig.draft_model``, its parameters ``draft_params``: its own
+KV pool and, for a float draft, the bf16 scheme), with ``method="medusa"`` into
 Medusa rounds (the heads ride the verify pass: no draft forward, no draft
 cache; a chain or a candidate tree), or with ``method="ngram"`` into
 prompt-lookup rounds (proposals matched on the device from the sequence's
@@ -67,13 +69,20 @@ def _check_supported(config: EngineConfig) -> None:
                              "ngram_prompt_lookup_max")
         if spec.draft_scheme not in ("w4a4", "w4a8", "w4a16"):
             raise NotImplementedError(f"draft_scheme {spec.draft_scheme!r}")
+        qspec = spec.method in ("qspec", "qspec_null")
+        if spec.draft_model is not None and not qspec:
+            raise ValueError("draft_model drafts for method='qspec' / 'qspec_null'")
+        if spec.force_accept_len is not None and not (qspec and spec.force_accept_len >= 0):
+            raise ValueError("force_accept_len (>= 0) times the QSpec rounds "
+                             "(method='qspec' / 'qspec_null')")
     if config.scheduler.preemption_mode != "recompute":
         raise NotImplementedError("only recompute preemption is ported")
 
 
 class LLMEngine:
     def __init__(self, config: EngineConfig, params, num_pages: Optional[int] = None,
-                 eos_token_id: Optional[int] = None, device="cuda", seed: int = 0):
+                 eos_token_id: Optional[int] = None, device="cuda", seed: int = 0,
+                 draft_params=None):
         _check_supported(config)
         self.config = config
         self.eos_token_id = eos_token_id
@@ -94,7 +103,8 @@ class LLMEngine:
             num_pages = self._derive_num_pages()
         self.runner = ModelRunner(config, params, num_pages,
                                   need_draft_cache=self._draft_cache,
-                                  device=self.device, seed=seed)
+                                  device=self.device, seed=seed,
+                                  draft_params=draft_params)
         self.block_manager = BlockManager(
             num_pages, config.cache.page_size,
             enable_prefix_caching=config.cache.enable_prefix_caching)
@@ -124,9 +134,17 @@ class LLMEngine:
         n_caches = 1
         if self._draft_cache:
             ring = ring_pages(self.config)
+            dm = self.spec.draft_model
             if ring:
                 # the windowed draft's small fixed ring pool
                 budget -= (ring_rows(self.config) * ring + 1) * page_bytes
+            elif dm is not None:
+                # a separate draft's pool: the same page count at its own
+                # (usually much smaller) bytes a page
+                n_caches = 1 + kvc.kv_cache_bytes(kvc.KVCacheConfig(
+                    num_layers=dm.num_layers, num_kv_heads=dm.cache_kv_heads,
+                    head_dim=dm.cache_head_dim, num_pages=1, page_size=cc.page_size,
+                    dtype=cc.kv_cache_dtype)) / page_bytes
             else:
                 n_caches = 2
         fit = int(budget // (page_bytes * n_caches))
@@ -302,7 +320,7 @@ class LLMEngine:
         self.spec_metrics.record(
             num_draft_tokens=active_rounds * k, k=k,
             draft_accepted=emitted - active_rounds,
-            emitted=emitted, wall_s=dt)
+            emitted=emitted, wall_s=dt, per_seq_round=accepted[accepted > 0])
 
     # ------------------------------------------------------------------
     def _to_output(self, seq: Sequence, finished: bool = True) -> RequestOutput:

@@ -11,7 +11,9 @@ Batches keep the JAX package's bucketed shapes.
 Under ``SpeculativeConfig.draft_kv_window`` the draft (same weights, its own
 KV) attends only to the last ``window`` positions (MagicDec), and its KV
 lives in a small per-sequence ring of pages instead of a second full-size
-pool (see ``ModelRunner``).
+pool (see ``ModelRunner``). With ``SpeculativeConfig.draft_model`` a separate,
+smaller model drafts: its own parameters and cfg, its own KV pool of its own
+geometry over the target's page ids and tables.
 
 Medusa (``method="medusa"``) has no draft forward and no draft cache: each
 round's verify pass also returns the post-final-norm hidden state, and the
@@ -43,7 +45,8 @@ import numpy as np
 import torch
 
 from qspec_tpu_torch.config import EngineConfig
-from qspec_tpu_torch.models.llama import AttentionBatch, model_forward, resolve_device
+from qspec_tpu_torch.models.llama import (AttentionBatch, check_served, model_forward,
+                                          resolve_device)
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import TreeMask, tree_mask
 from qspec_tpu_torch.ops.ngram import ngram_match_device
@@ -216,14 +219,21 @@ def verify_step(params, cache, last_tokens, draft_tokens, draft_probs, start_pos
 def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
                      start_pos, block_tables, draft_block_tables, max_new,
                      enable: bool, st, gen, *, cfg, draft_scheme, verify_scheme,
-                     k, num_rounds=1, draft_cfg=None):
+                     k, num_rounds=1, draft_cfg=None, draft_params=None,
+                     force_accept=None):
     """``num_rounds`` full QSpec rounds (k drafts + verify + rejection).
 
-    ``draft_cfg``: the draft's cfg when it differs from the target's (the
-    sliding-window variant of SpeculativeConfig.draft_kv_window);
-    ``draft_block_tables`` map the draft cache's logical pages (the target's
-    tables when the draft pool shares its page ids, ring tables under the
-    windowed draft's ring pool).
+    ``draft_params`` / ``draft_cfg``: a separate draft model's (None: the
+    drafts read the target's parameters under ``draft_scheme``; ``draft_cfg``
+    may still be the sliding-window variant of the target's cfg,
+    SpeculativeConfig.draft_kv_window); ``draft_block_tables`` map the draft
+    cache's logical pages (the target's tables when the draft pool shares
+    its page ids, ring tables under the windowed draft's ring pool).
+
+    ``force_accept`` (SpeculativeConfig.force_accept_len, timing only): each
+    round's accepted length becomes min(force_accept + 1, k + 1) whatever
+    the verify decided, and the emitted slots past the real acceptance
+    (-1) become token 0; every draft and verify forward still runs.
 
     ``max_new`` [B] caps the tokens emitted per sequence. ``enable=False``
     nulls every proposal (tokens -> -1, draft probs -> 0, so the recovery
@@ -234,19 +244,24 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     Returns (tokens [R, B, k+1] (-1 padded), accepted_len [R, B],
     logprobs [R, B, k+1], (last, prev, pos, budget), draft_cache, cache).
     """
+    d_params = params if draft_params is None else draft_params
+    d_cfg = cfg if draft_cfg is None else draft_cfg
     last, prev, pos, budget = last_tokens, prev_tokens, start_pos, max_new
     out_t, out_a, out_l = [], [], []
     for _ in range(num_rounds):
         d_toks, d_probs, draft_cache = _draft_impl(
-            params, draft_cache, last, pos, draft_block_tables, st, gen,
-            cfg=cfg if draft_cfg is None else draft_cfg, scheme=draft_scheme,
-            k=k, prev_tokens=prev)
+            d_params, draft_cache, last, pos, draft_block_tables, st, gen,
+            cfg=d_cfg, scheme=draft_scheme, k=k, prev_tokens=prev)
         if not enable:
             d_toks = torch.full_like(d_toks, -1)
             d_probs = torch.zeros_like(d_probs)
         result, cache = _verify_impl(params, cache, last, d_toks, d_probs, pos,
                                      block_tables, st, gen, cfg=cfg,
                                      scheme=verify_scheme)
+        if force_accept is not None:
+            result = result._replace(
+                accepted_len=torch.full_like(result.accepted_len, min(force_accept + 1, k + 1)),
+                tokens=result.tokens.clamp_min(0))
         # advance: the next input is the last emitted token, position += acc
         acc, toks, lps, new_last = _advance(result, budget, last, k)
         # predecessor (at the new position - 1) for the next draft's backfill:
@@ -544,9 +559,11 @@ class RowBank:
 
 def draft_window(config: EngineConfig) -> Optional[int]:
     """The windowed draft's window: SpeculativeConfig.draft_kv_window, capped
-    by the model's own sliding window; None without a draft window."""
+    by the model's own sliding window; None without a draft window, and
+    with a separate draft model (which keeps a full pool of its own, as in
+    the JAX package)."""
     spec = config.speculative
-    if spec is None or spec.draft_kv_window is None:
+    if spec is None or spec.draft_kv_window is None or spec.draft_model is not None:
         return None
     w = spec.draft_kv_window
     if config.model.sliding_window is not None:
@@ -573,11 +590,29 @@ def ring_rows(config: EngineConfig) -> int:
     return max(config.scheduler.decode_batch_buckets) + 1
 
 
+def _check_draft_model(dc, cfg, draft_params) -> None:
+    """Raise for a separate draft model the runner cannot serve beside the
+    target ``cfg`` (the JAX package's checks, made at construction)."""
+    if draft_params is None:
+        raise ValueError("speculative.draft_model set but no draft_params passed to "
+                         "the engine")
+    if dc.vocab_size != cfg.vocab_size:
+        raise ValueError(f"draft and target must share a vocabulary (rejection "
+                         f"sampling): draft vocab {dc.vocab_size}, target {cfg.vocab_size}")
+    check_served(dc)
+    if dc.quant not in ("w4", "none"):
+        raise ValueError(f"a separate draft model of quant={dc.quant!r}: a 'w4' draft "
+                         "runs draft_scheme and a float ('none') one the bf16 scheme")
+
+
 class ModelRunner:
     """Owns params + paged caches and runs bucketed steps on one device.
 
     The draft keeps its own KV (computed under the draft scheme). Without a
-    draft window it is a second pool with the target's page ids. Under
+    draft window it is a second pool with the target's page ids; a separate
+    draft model's pool has the draft's geometry (layers, KV heads, head dim)
+    over the same page ids and tables, and its forwards read
+    ``draft_params``. Under
     ``draft_kv_window`` it is a RING pool (MagicDec): each sequence holds a
     row of R = :func:`ring_pages` pages, and the ring block table maps
     logical page lp -> 1 + row * R + lp % R, so the steps are unchanged: the
@@ -592,7 +627,8 @@ class ModelRunner:
     """
 
     def __init__(self, config: EngineConfig, params, num_pages: int,
-                 need_draft_cache: bool = False, device="cuda", seed: int = 0):
+                 need_draft_cache: bool = False, device="cuda", seed: int = 0,
+                 draft_params=None):
         self.config = config
         self.cfg = config.model
         self.params = params
@@ -601,7 +637,14 @@ class ModelRunner:
         spec = config.speculative
         self._medusa = spec is not None and spec.method in ("medusa", "medusa_null")
         self._ngram = spec is not None and spec.method in ("ngram", "null")
-        if spec is not None and not (self._medusa or self._ngram):
+        sep_draft = spec is not None and spec.draft_model is not None
+        if draft_params is not None and not sep_draft:
+            raise ValueError("draft_params passed without speculative.draft_model, "
+                             "the draft's ModelConfig")
+        self.draft_params = draft_params
+        if sep_draft:
+            _check_draft_model(spec.draft_model, self.cfg, draft_params)
+        elif spec is not None and not (self._medusa or self._ngram):
             if self.cfg.quant == "none":
                 raise ValueError("a bf16 (quant='none') checkpoint has no int4 "
                                  "weights, so QSpec's shared-weights draft cannot "
@@ -619,7 +662,7 @@ class ModelRunner:
         window = draft_window(config)
         # the windowed draft: same params, attention (and prompt prefill)
         # under a sliding window
-        self.draft_cfg = (self.cfg if window is None else
+        self.draft_cfg = (spec.draft_model if sep_draft else self.cfg if window is None else
                           dataclasses.replace(self.cfg, sliding_window=window,
                                               sliding_window_pattern=1))
         self.page_size = page_size
@@ -632,16 +675,26 @@ class ModelRunner:
             self._ring_base = np.arange(self.max_pages_per_seq,
                                         dtype=np.int32) % self._ring_pages
             kv_cfg = kv_cfg._replace(num_pages=self._ring_rows * self._ring_pages + 1)
+        if sep_draft:
+            kv_cfg = kv_cfg._replace(num_layers=self.draft_cfg.num_layers,
+                                     num_kv_heads=self.draft_cfg.cache_kv_heads,
+                                     head_dim=self.draft_cfg.cache_head_dim)
         self.draft_cache = kvc.allocate(kv_cfg, self.device) if need_draft_cache else None
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.k = spec.num_speculative_tokens if spec else 1
         self.draft_scheme = spec.draft_scheme if spec else "w4a4"
+        if sep_draft and self.draft_cfg.quant == "none":
+            # a float draft model runs the bf16 scheme
+            self.draft_scheme = "bf16"
+        self.force_accept = spec.force_accept_len if spec else None
         # the target's scheme: bf16 for a float checkpoint, else W4A16
         self.verify_scheme = "bf16" if self.cfg.quant == "none" else "w4a16"
-        # verify passes run by run_medusa_rounds / run_ngram_rounds, and every
+        # verify passes run by run_medusa_rounds / run_ngram_rounds, every
         # forward of the target (prompt chunks, decode steps, verify passes)
+        # and every forward into the draft cache (prompt chunks, draft steps)
         self.spec_rounds_run = 0
         self.target_forwards = 0
+        self.draft_forwards = 0
         # the Medusa and n-gram banks: one row per decode-batch slot plus
         # the scratch row
         rows = max(config.scheduler.decode_batch_buckets) + 1
@@ -752,8 +805,10 @@ class ModelRunner:
         tables = (self._t(self._ring_tables([c[0] for c in chunks], B)) if ring
                   else self._pad_block_tables(tables))
         self.target_forwards += not draft
+        self.draft_forwards += draft
         logits, _ = prefill_step(
-            self.params, self.draft_cache if draft else self.cache,
+            self.draft_params if draft and self.draft_params is not None else self.params,
+            self.draft_cache if draft else self.cache,
             self._t(toks), self._t(positions), tables, self._t(ctx),
             cfg=self.draft_cfg if draft else self.cfg,
             scheme=self.draft_scheme if draft else self.verify_scheme,
@@ -814,13 +869,15 @@ class ModelRunner:
                 self.params, self.draft_cache, self.cache, *state[:3], tables,
                 d_tables, state[3], enable, st, self.gen, cfg=self.cfg,
                 draft_scheme=self.draft_scheme, verify_scheme=self.verify_scheme,
-                k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg)
+                k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg,
+                draft_params=self.draft_params, force_accept=self.force_accept)
             parts.append((toks, accs, lps))
         n = len(seqs)
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()
         accs = torch.cat([p[1] for p in parts]).cpu().numpy()
         lps = torch.cat([p[2] for p in parts]).cpu().numpy()
         self.target_forwards += toks.shape[0]
+        self.draft_forwards += toks.shape[0] * self.k
         return toks[:, :n], accs[:, :n], lps[:, :n]
 
     # -- Medusa and n-gram rounds ------------------------------------------

@@ -23,12 +23,25 @@ or from an .npz of trained heads:
     llm = LLM(model="tiny", num_speculative_tokens=4,
               speculative_model="heads.npz")
 
-A BLOOM or MPT checkpoint directory (Hugging Face layout: config.json and
-``*.safetensors``) is served in bf16 with n-gram prompt lookup, or
-autoregressively without ``num_speculative_tokens``:
+A checkpoint directory (Hugging Face layout: config.json and
+``*.safetensors``) loads by its kind, as in the JAX package: under the
+default ``quantization="qspec"`` a reference-format QSpec checkpoint
+(``load_qspec``) or, failing that, a Llama float checkpoint rotated and
+quantized at load (QuaRot, ``quantize_float``); with ``quantization=None`` a
+Llama float checkpoint in bf16 (``load_hf_float``) or a BLOOM / MPT one
+(``load_family_float``), which speculate by n-gram prompt lookup:
 
+    llm = LLM(model="/path/to/Meta-Llama-3-8B", num_speculative_tokens=3)
     llm = LLM(model="/path/to/bloom-7b1", quantization=None,
               num_speculative_tokens=3, speculative_model="[ngram]")
+
+A separate, smaller draft model comes from a directory (quantized by
+``quantize_float``), or as a cfg with its parameters:
+
+    llm = LLM(model="/path/to/Meta-Llama-3-8B", num_speculative_tokens=3,
+              speculative_model="/path/to/Llama-3.2-1B")
+    llm = LLM(model="llama3-8b", num_speculative_tokens=3,
+              draft_model=draft_cfg, draft_params=draft_params)
 
 Without ``params`` or a directory the weights are random, made on the
 device from ``seed`` (``models.llama.init_params``).
@@ -42,10 +55,13 @@ from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
+from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
 from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
-from qspec_tpu_torch.model_loader.loader import read_safetensors
+from qspec_tpu_torch.model_loader.loader import (config_from_hf_dir, load_hf_float,
+                                                 load_qspec, quantize_float,
+                                                 read_safetensors)
 from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.medusa import load_medusa
@@ -54,13 +70,19 @@ from qspec_tpu_torch.spec_decode.medusa import load_medusa
 class LLM:
     def __init__(self, model: str = "tiny", params=None, seed: int = 0,
                  device="cuda", eos_token_id: Optional[int] = None,
-                 **engine_kwargs):
+                 draft_model: Optional[Union[str, ModelConfig]] = None,
+                 draft_params=None, **engine_kwargs):
         args = EngineArgs(model=model, seed=seed, **engine_kwargs)
         self.engine_config = args.create_engine_config()
         if params is None and os.path.isdir(model):
             params = self._load_dir(model, device)
         elif params is None:
             params = init_params(self.engine_config.model, seed=seed, device=device)
+        if draft_model is None and args.speculative_model is not None \
+                and os.path.isdir(args.speculative_model):
+            draft_model = args.speculative_model
+        if draft_model is not None or draft_params is not None:
+            draft_params = self._draft(draft_model, draft_params, device)
         net = args.speculative_model
         if net is not None and net.endswith(".npz"):
             # a proposer net saved as arrays: Medusa heads carry w1 / b1 / head
@@ -71,23 +93,52 @@ class LLM:
             params = {**params, "medusa": load_medusa(net, device=resolve_device(device))}
         self.llm_engine = LLMEngine(self.engine_config, params,
                                     eos_token_id=eos_token_id, device=device,
-                                    seed=seed)
+                                    seed=seed, draft_params=draft_params)
 
     def _load_dir(self, path: str, device):
-        """A float checkpoint directory of a ported family: its safetensors,
-        converted on ``device`` (``qspec_tpu/entrypoints/llm.py``'s family
-        route). The JAX package's other routes raise."""
+        """A checkpoint directory, loaded on ``device`` by the routes of
+        ``qspec_tpu/entrypoints/llm.py``: under QuaRot quantization a QSpec
+        checkpoint, else (no ``weight_scales``) a float one quantized at load;
+        without quantization the family converter of a BLOOM / MPT, else the
+        llama-keyed float loader. (AWQ / GPTQ directories raise in
+        EngineArgs.)"""
         cfg = self.engine_config.model
-        if cfg.quant != "none" or cfg.arch not in CONVERTERS:
-            raise NotImplementedError(
-                f"{path}: only the float checkpoints of {sorted(CONVERTERS)} load "
-                "(quantization=None); QuaRot quantization of a float checkpoint "
-                "(quantize_float), llama-keyed float checkpoints (load_hf_float) and "
-                "QSpec checkpoints (load_qspec) are ROADMAP queue 1 item 1")
-        params, cfg = load_family_float(read_safetensors(path), cfg,
-                                        device=resolve_device(device))
+        dev = resolve_device(device)
+        sd = read_safetensors(path)
+        if cfg.quant == "w4":
+            try:
+                params, cfg = load_qspec(sd, cfg, device=dev)
+            except KeyError:
+                params, cfg = quantize_float(sd, cfg, device=dev)
+        elif cfg.arch in CONVERTERS:
+            params, cfg = load_family_float(sd, cfg, device=dev)
+        else:
+            params, cfg = load_hf_float(sd, cfg, device=dev)
         self.engine_config = dataclasses.replace(self.engine_config, model=cfg)
         return params
+
+    def _draft(self, draft_model, draft_params, device):
+        """The separate draft model's parameters, its cfg recorded in the
+        speculative config: a directory is loaded (``quantize_float`` for a
+        QuaRot cfg, the JAX package's default for a draft directory, else
+        ``load_hf_float``); a ModelConfig comes with its ``draft_params``."""
+        spec = self.engine_config.speculative
+        if spec is None:
+            raise ValueError("a separate draft model needs num_speculative_tokens")
+        if isinstance(draft_model, str) and draft_params is None:
+            if not os.path.isdir(draft_model):
+                raise ValueError(f"draft_model {draft_model!r} is not a directory")
+            dcfg = config_from_hf_dir(draft_model)
+            load = quantize_float if dcfg.quant == "w4" else load_hf_float
+            draft_params, dcfg = load(draft_model, dcfg, device=resolve_device(device))
+        elif isinstance(draft_model, ModelConfig) and draft_params is not None:
+            dcfg = draft_model
+        else:
+            raise ValueError("a separate draft model is a checkpoint directory, or a "
+                             "ModelConfig with its draft_params")
+        self.engine_config = dataclasses.replace(
+            self.engine_config, speculative=dataclasses.replace(spec, draft_model=dcfg))
+        return draft_params
 
     def generate(self, prompts: Sequence[List[int]],
                  sampling_params: Optional[Union[SamplingParams,

@@ -1,24 +1,63 @@
-"""Checkpoint directories: a safetensors reader of the port's own and the
-config of a Hugging Face directory.
+"""Checkpoint ingestion of llama-keyed checkpoints, and checkpoint
+directories.
 
-Port of ``qspec_tpu/model_loader/loader.py::_read_safetensors`` and
-``config_from_hf_dir``. The reader needs no ``safetensors`` package: a file
-is an 8-byte little-endian header length, a JSON header naming each
-tensor's dtype, shape and byte range, and the raw little-endian buffers.
-It returns torch tensors of the stored dtype (numpy has no bf16; the JAX
-reader goes through ``.float()`` instead).
+Port of ``qspec_tpu/model_loader/loader.py``:
+
+- ``read_safetensors`` / ``config_from_hf_dir``: a directory's tensors and
+  its config.json. The reader needs no ``safetensors`` package: a file is
+  an 8-byte little-endian header length, a JSON header naming each
+  tensor's dtype, shape and byte range, and the raw little-endian buffers.
+  It returns torch tensors of the stored dtype (numpy has no bf16; the JAX
+  reader goes through ``.float()`` instead).
+- ``load_hf_float``: a Hugging Face Llama float checkpoint -> the bf16 tree
+  (``quant="none"``, gamma norms), served by the bf16 scheme.
+- ``quantize_float``: the same checkpoint -> QuaRot-rotated, int4-quantized
+  parameters (``quant="w4"``, weightless norms): the norm gammas folded
+  into the projections after them, the residual stream rotated by a random
+  orthonormal Hadamard Q, the per-head Hadamard on o's input and the
+  intermediate one on down's (H_I, whose Paley factor is not symmetric:
+  H_28 in 14336 = 28 * 512), so that the model's online Hadamards undo
+  them around the quantized activations. The rotations are float32 torch
+  products on ``device``, one layer at a time (at Llama-3-8B width the dense
+  H_I @ W_down alone is about 1.7 TFLOP a layer), with TF32 off: TF32 would
+  round every input to a 10-bit mantissa and move int4 codes wholesale.
+  The JAX package does the same algebra in numpy float32; the two agree but
+  for the order of a product's sums, so an int4 code may differ by one step
+  where w / scale falls within rounding of a tie.
+- ``load_qspec``: a reference-format QSpec checkpoint (uint8 [out, in // 2]
+  + ``weight_scales``) -> the interchange format (``ops/packing.py``).
+
+Scope: dense Llama graphs without tensor parallelism, split or fused (phi-3)
+q/k/v and gate/up. The other layouts the JAX loaders take (MoE, per-head
+q/k norms, biased projections, the families its ``LLAMA_KEY_REMAPS`` maps
+onto llama keys, sequence-classification heads, tensor-parallel layouts,
+the VLM and audio towers) raise ``NotImplementedError`` naming their
+ROADMAP item. The state-dict loaders ``load_hf_float`` and
+``quantize_float`` consume the dict they are given (each entry is removed
+as it is converted, as ``families.py`` does), so the peak memory stays
+near one copy of the float weights; ``load_qspec`` leaves it as it is.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from qspec_tpu_torch.config import ModelConfig
+from qspec_tpu_torch.model_loader.families import _Stacker, _take
+from qspec_tpu_torch.models.llama import (_f32_tensor, check_served, make_hadamards,
+                                          pack_lm_head, pack_proj_weight, resolve_device)
 from qspec_tpu_torch.models.registry import resolve
+from qspec_tpu_torch.ops.hadamard import (decompose_dim, hadamard_matrix,
+                                          random_hadamard_matrix)
+from qspec_tpu_torch.ops.packing import repack_from_reference
+from qspec_tpu_torch.ops.rotary import make_rope_cache
 
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
           "I32": torch.int32, "I8": torch.int8, "U8": torch.uint8}
@@ -75,3 +114,276 @@ def config_from_hf_dir(path: str) -> ModelConfig:
     if hf.get("architectures"):
         return resolve(hf)
     return ModelConfig.from_hf_config(hf)
+
+
+# ---------------------------------------------------------------------------
+# llama-keyed checkpoints
+# ---------------------------------------------------------------------------
+
+# key fragments of the layouts the JAX loaders take and the port does not,
+# each with what it is and its ROADMAP item
+UNPORTED_KEYS = (
+    ((".mlp.experts.", ".block_sparse_moe.", ".mlp.shared_expert."),
+     "a mixture-of-experts MLP (_moe_block)", "queue 1 item 9"),
+    (("self_attn.q_norm.", "self_attn.k_norm."),
+     "per-head q/k norms (qk_norm)", "queue 1 item 9"),
+    (("self_attn.q_proj.bias", "self_attn.qkv_proj.bias", "self_attn.o_proj.bias",
+      "mlp.down_proj.bias"),
+     "biased projections (qkv_bias, attention_bias)", "queue 1 item 9"),
+    (("self_attn.W_pack.", "attention.wqkv.", "model.tok_embeddings.", "attn.c_attn.",
+      "attn.attention.q_proj.", "self_attention.query."),
+     "a layout the JAX package maps onto llama keys (LLAMA_KEY_REMAPS: baichuan, "
+     "internlm2, qwen, exaone, telechat2)", "queue 1 item 9"),
+    (("score.weight", "score.0.weight", "classifier.weight", "v_head.weight"),
+     "a sequence-classification / reward head (score_head)", "queue 1 item 10"),
+)
+
+
+def _check_llama_keyed(sd: Dict, cfg: ModelConfig) -> None:
+    """Raise for what the port's llama-keyed loaders do not take: Gemma-2's
+    post-block norms under QuaRot (the JAX package refuses them too) and the
+    layouts of ``UNPORTED_KEYS``."""
+    if cfg.post_norms and cfg.quant == "w4":
+        raise NotImplementedError(
+            "QuaRot folds each norm's gamma into the projections after it, and "
+            "Gemma-2's post-block norms break that adjacency (the JAX package "
+            "refuses it too): serve Gemma-2 as AWQ / GPTQ (load_awq / load_gptq; "
+            "directories: ROADMAP queue 1 item 6)")
+    for fragments, what, item in UNPORTED_KEYS:
+        hit = next((k for k in sd if any(f in k for f in fragments)), None)
+        if hit is not None:
+            raise NotImplementedError(f"checkpoint key {hit!r}: {what} is not ported "
+                                      f"(ROADMAP {item})")
+
+
+def _source(path_or_sd, cfg: Optional[ModelConfig]):
+    """(state dict, cfg) of a state dict (its cfg required) or a directory
+    (its config.json unless ``cfg`` is given)."""
+    if isinstance(path_or_sd, dict):
+        if cfg is None:
+            raise ValueError("a state dict needs its ModelConfig")
+        return path_or_sd, cfg
+    return read_safetensors(path_or_sd), cfg or config_from_hf_dir(path_or_sd)
+
+
+def _common(cfg: ModelConfig, device) -> dict:
+    """The rope cache (``loader.py::_common`` of the JAX package)."""
+    return {"rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
+                                          cfg.rope_theta, rope_scaling=cfg.rope_scaling,
+                                          device=device)}
+
+
+def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
+    """A Hugging Face Llama float checkpoint (a directory, or a state dict of
+    numpy arrays or tensors, consumed) -> (the bf16 tree, cfg with
+    ``quant="none"``) on ``device`` (the card unless the caller asks for the
+    CPU), the
+    JAX ``load_hf_float``'s llama-keyed branch: q|k|v and gate|up
+    concatenated (or phi-3's fused ``qkv_proj`` / ``gate_up_proj``), the
+    gammas (plus ``norm_weight_offset``) in bf16, the head tied to the
+    embedding's storage when the checkpoint has no ``lm_head.weight``."""
+    sd, cfg = _source(path_or_sd, cfg)
+    cfg = dataclasses.replace(cfg, quant="none")
+    check_served(cfg)
+    _check_llama_keyed(sd, cfg)
+    dev = resolve_device(device)
+    st = _Stacker(sd, cfg.num_layers, dev)
+
+    def t(name):
+        return _take(sd, name, dev).t()
+
+    def norm(name):
+        return (_f32_tensor(sd.pop(name), dev) + cfg.norm_weight_offset).to(torch.bfloat16)
+
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        if p + "self_attn.qkv_proj.weight" in sd:
+            st.put("qkv", li, t(p + "self_attn.qkv_proj.weight"))
+        else:
+            st.put("qkv", li, torch.cat([t(p + f"self_attn.{n}_proj.weight")
+                                         for n in "qkv"], dim=1))
+        st.put("o", li, t(p + "self_attn.o_proj.weight"))
+        if p + "mlp.gate_up_proj.weight" in sd:
+            st.put("gate_up", li, t(p + "mlp.gate_up_proj.weight"))
+        else:
+            st.put("gate_up", li, torch.cat([t(p + "mlp.gate_proj.weight"),
+                                             t(p + "mlp.up_proj.weight")], dim=1))
+        st.put("down", li, t(p + "mlp.down_proj.weight"))
+        st.put("input_norm", li, norm(p + "input_layernorm.weight"))
+        st.put("post_norm", li, norm(p + "post_attention_layernorm.weight"))
+    o = st.out
+    layers = {name: {"w": o[name]} for name in ("qkv", "o", "gate_up", "down")}
+    layers.update(input_norm=o["input_norm"], post_norm=o["post_norm"])
+    embed = _take(sd, "model.embed_tokens.weight", dev)
+    head = (_take(sd, "lm_head.weight", dev).t().contiguous() if "lm_head.weight" in sd
+            else embed.t())
+    params = {"embed": embed, "lm_head": head, "layers": layers,
+              "final_norm": norm("model.norm.weight"), **_common(cfg, dev)}
+    return params, cfg
+
+
+def _require_exact_f32(device: torch.device) -> None:
+    """Raise unless float32 products on ``device`` are IEEE float32 (no
+    TF32, which keeps 10 mantissa bits of each input)."""
+    if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                                  or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError("quantize_float needs float32 matmuls without TF32 "
+                           "(torch.backends.cuda.matmul.allow_tf32 = False and "
+                           "torch.set_float32_matmul_precision('highest')): TF32 "
+                           "rounds every input to a 10-bit mantissa")
+
+
+def _hadamard_f32(n: int, device) -> torch.Tensor:
+    """(H_K (x) H_P) / sqrt(n) in float32, n = K * P (decompose_dim), made
+    on ``device``: the JAX ``quantize_float``'s dense H_I (np.kron, then
+    float32, then the float32 division) value for value."""
+    K, P = decompose_dim(n)
+    f32 = dict(dtype=torch.float32, device=device)
+    h = torch.kron(torch.as_tensor(hadamard_matrix(K), **f32),
+                   torch.as_tensor(hadamard_matrix(P), **f32))
+    return h / torch.tensor(math.sqrt(n), **f32)
+
+
+def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
+                   bits: Optional[int] = 4, device="cuda"):
+    """Offline QuaRot rotation and int4 quantization of a Hugging Face
+    Llama float checkpoint (a directory, or a state dict of numpy arrays or
+    tensors, consumed) -> (params, cfg with ``quant="w4"``), the JAX
+    ``quantize_float``'s dense path. With Q = random_hadamard_matrix(H,
+    seed), per layer and in float32 on ``device`` (the card unless the
+    caller asks for the CPU):
+
+        qkv      <- Q^T (gamma_in * W_qkv)
+        o        <- (H_heads mixing the heads of W_o's rows) Q
+        gate|up  <- Q^T (gamma_post * W)
+        down     <- (H_I W_down) Q
+        embed    <- embed Q;  lm_head <- Q^T (gamma_final * W_lm)
+
+    each projection quantized per output channel and packed
+    (``pack_proj_weight``), the head by ``pack_lm_head``. ``bits=None``
+    keeps the rotated weights in bf16 (the rotation algebra without
+    quantization). Each layer's float tensors are freed as it is packed."""
+    if bits not in (4, None):
+        raise ValueError(f"bits={bits!r}: 4 or None")
+    sd, cfg = _source(path_or_sd, cfg)
+    cfg = dataclasses.replace(cfg, quant="w4")
+    _check_llama_keyed(sd, cfg)
+    check_served(cfg)
+    dev = resolve_device(device)
+    _require_exact_f32(dev)
+    kind = "w4" if bits == 4 else "none"
+    H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    nh, hd = cfg.num_heads, cfg.head_dim
+    f32 = dict(dtype=torch.float32, device=dev)
+    Q = torch.as_tensor(random_hadamard_matrix(H, seed=seed).astype(np.float32), device=dev)
+    H_heads = (torch.as_tensor(hadamard_matrix(nh), **f32)
+               / torch.tensor(math.sqrt(nh), **f32))
+    H_I = _hadamard_f32(I, dev)
+
+    def t(name):
+        return _f32_tensor(sd.pop(name), dev).t()       # [in, out]
+
+    def gamma(name):
+        return _f32_tensor(sd.pop(name), dev) + cfg.norm_weight_offset
+
+    layers: Dict[str, dict] = {}
+
+    def put(name, li, d):
+        for key, v in d.items():
+            stack = layers.setdefault(name, {})
+            if key not in stack:
+                stack[key] = torch.empty((L, *v.shape), dtype=v.dtype, device=dev)
+            stack[key][li].copy_(v)
+
+    for li in range(L):
+        p = f"model.layers.{li}."
+        gin = gamma(p + "input_layernorm.weight")[:, None]
+        gpost = gamma(p + "post_attention_layernorm.weight")[:, None]
+        if p + "self_attn.qkv_proj.weight" in sd:           # phi-3's fused layout
+            qkv = Q.T @ (gin * t(p + "self_attn.qkv_proj.weight"))
+        else:
+            qkv = torch.cat([Q.T @ (gin * t(p + f"self_attn.{n}_proj.weight"))
+                             for n in "qkv"], dim=1)
+        put("qkv", li, pack_proj_weight(qkv, kind, col_blocks=(cfg.q_size, cfg.kv_size,
+                                                                 cfg.kv_size)))
+        del qkv
+        # o's input: undo the online per-head Hadamard; its output: Q
+        o_w = t(p + "self_attn.o_proj.weight").reshape(nh, hd, H)
+        o_w = torch.einsum("jh,hdk->jdk", H_heads, o_w).reshape(nh * hd, H) @ Q
+        put("o", li, pack_proj_weight(o_w, kind))
+        del o_w
+        if p + "mlp.gate_up_proj.weight" in sd:             # phi-3's fused layout
+            gate_up = Q.T @ (gpost * t(p + "mlp.gate_up_proj.weight"))
+        else:
+            gate_up = torch.cat([Q.T @ (gpost * t(p + "mlp.gate_proj.weight")),
+                                 Q.T @ (gpost * t(p + "mlp.up_proj.weight"))], dim=1)
+        put("gate_up", li, pack_proj_weight(gate_up, kind, col_blocks=(I, I)))
+        del gate_up
+        # the online transform is y_row = a_row @ H_I^T, so the weight takes
+        # the untransposed H_I (H_28 is not symmetric)
+        down = (H_I @ t(p + "mlp.down_proj.weight")) @ Q
+        put("down", li, pack_proj_weight(down, kind))
+        del down
+
+    gfin = gamma("model.norm.weight")[:, None]
+    embed = _f32_tensor(sd.pop("model.embed_tokens.weight"), dev)
+    lm = t("lm_head.weight") if "lm_head.weight" in sd else embed.t()
+    lm_head = pack_lm_head(Q.T @ (gfin * lm), cfg, dev)
+    del lm
+    params = {"embed": (embed @ Q).to(torch.bfloat16), "lm_head": lm_head,
+              "layers": layers, "hadamards": make_hadamards(cfg, dev), **_common(cfg, dev)}
+    return params, cfg
+
+
+def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
+    """A reference-format QSpec checkpoint (a directory or a state dict,
+    left as it is) -> (params, cfg with ``quant="w4"``) on ``device``
+    (the card unless the caller asks for the CPU), the JAX ``load_qspec``
+    at ``tp_size=1``: each projection's uint8 [out, in // 2] weight and its
+    ``weight_scales`` repacked into the interchange format
+    (``repack_from_reference``), the reference's ``o_proj.1.`` /
+    ``down_proj.1.`` keys remapped, split or fused q/k/v and gate/up
+    concatenated, the float head packed by ``pack_lm_head``. A checkpoint
+    without ``weight_scales`` (a float one) raises KeyError."""
+    sd, cfg = _source(path_or_sd, cfg)
+    cfg = dataclasses.replace(cfg, quant="w4")
+    check_served(cfg)
+    sd = {k.replace("o_proj.1.", "o_proj.").replace("down_proj.1.", "down_proj."): v
+          for k, v in sd.items()}
+    _check_llama_keyed(sd, cfg)
+    dev = resolve_device(device)
+
+    def qproj(prefix):
+        scales = _f32_tensor(sd[prefix + ".weight_scales"], dev).reshape(-1)
+        packed = torch.as_tensor(repack_from_reference(sd[prefix + ".weight"]), device=dev)
+        return packed, scales
+
+    def cat(prefixes):
+        parts = [qproj(p) for p in prefixes]
+        return {"qw": torch.cat([q for q, _ in parts], dim=1),
+                "qs": torch.cat([s for _, s in parts])}
+
+    layers = []
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        fused_qkv = p + "self_attn.qkv_proj.weight" in sd
+        fused_gu = p + "mlp.gate_up_proj.weight" in sd
+        layers.append({
+            "qkv": cat([p + "self_attn.qkv_proj"] if fused_qkv else
+                       [p + f"self_attn.{n}_proj" for n in "qkv"]),
+            "o": cat([p + "self_attn.o_proj"]),
+            "gate_up": cat([p + "mlp.gate_up_proj"] if fused_gu else
+                           [p + "mlp.gate_proj", p + "mlp.up_proj"]),
+            "down": cat([p + "mlp.down_proj"]),
+        })
+    lm = sd.get("lm_head.weight", sd["model.embed_tokens.weight"])
+    params = {
+        "embed": _f32_tensor(sd["model.embed_tokens.weight"], dev).to(torch.bfloat16),
+        "lm_head": pack_lm_head(_f32_tensor(lm, dev).t(), cfg, dev),
+        "layers": {name: {key: torch.stack([layer[name][key] for layer in layers])
+                          for key in ("qw", "qs")}
+                   for name in ("qkv", "o", "gate_up", "down")},
+        "hadamards": make_hadamards(cfg, dev),
+        **_common(cfg, dev),
+    }
+    return params, cfg

@@ -83,9 +83,7 @@ from qspec_tpu_torch.ops.attention import alibi_slopes, paged_attention
 from qspec_tpu_torch.ops.hadamard import decompose_dim, hadamard_matrix
 from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
                                                 matmul_w4a16_g, matmul_w8a16)
-from qspec_tpu_torch.ops.packing import (quantize_weight_int4,
-                                         quantize_weight_int4_torch,
-                                         quantize_weight_int8,
+from qspec_tpu_torch.ops.packing import (quantize_weight_int4_torch,
                                          quantize_weight_int8_torch)
 from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
 from qspec_tpu_torch.ops.rmsnorm_quant import rmsnorm, rmsnorm_quant
@@ -108,9 +106,10 @@ class AttentionBatch(NamedTuple):
 
 def _linear(x, w, scheme, xq=None, li=None):
     """One projection by scheme; ``w`` holds the layer-stacked "qw"/"qs"
-    (QuaRot), "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only) or "w" (bf16),
-    and a bias "b" where the checkpoint has one."""
-    if scheme == "bf16":
+    (QuaRot), "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only) or "w" (bf16:
+    a float checkpoint, or ``quantize_float(bits=None)``'s rotated weights
+    under W4A16), and a bias "b" where the checkpoint has one."""
+    if "w" in w:
         out = bf16_matmul(x, w["w"][li])
     elif "qo_g" in w:
         out = matmul_w4a16_g(x, w["qw"], w["qs_g"], w["qo_g"], layer_idx=li)
@@ -443,18 +442,48 @@ def _head_kind(cfg: ModelConfig) -> str:
     return kind
 
 
-def pack_lm_head(w, cfg: ModelConfig, device="cpu"):
-    """Host-side lm_head packing per ``cfg.lm_head_quant`` (the JAX
-    package's ``pack_lm_head``). w: [H, V] float numpy array."""
-    kind = _head_kind(cfg)
-    dev = torch.device(device)
-    if kind == "int8":
-        q, s = quantize_weight_int8(w)
-        return {"qw8": torch.as_tensor(q, device=dev), "qs": torch.as_tensor(s, device=dev)}
-    if kind == "int4":
-        qw, qs = quantize_weight_int4(w)
-        return {"qw": torch.as_tensor(qw, device=dev), "qs": torch.as_tensor(qs, device=dev)}
-    return torch.as_tensor(np.asarray(w, np.float32), device=dev).to(torch.bfloat16)
+def pack_lm_head(w, cfg: ModelConfig, device=None):
+    """The lm_head per ``cfg.lm_head_quant`` (the JAX package's
+    ``pack_lm_head``): w [H, V] float, a numpy array or a tensor (a
+    transposed view too), packed on ``device`` (default: the tensor's, or
+    the CPU for an array) into contiguous tensors, as the kernels read them."""
+    return _make_lm_head(_f32_tensor(w, device).contiguous(), _head_kind(cfg))
+
+
+def _f32_tensor(w, device=None) -> torch.Tensor:
+    """A float32 tensor of ``w`` (numpy array or tensor) on ``device``
+    (default: the tensor's own, or the CPU for an array)."""
+    if not isinstance(w, torch.Tensor):
+        w = torch.as_tensor(np.asarray(w, np.float32))
+    return w.to(device=w.device if device is None else device, dtype=torch.float32)
+
+
+def pack_proj_weight(w, cfg_quant: str, *, col_blocks=None, bias=None,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    """One projection's parameters from a float [in, out] weight (numpy or
+    a tensor, packed on ``device``, default the tensor's): ``cfg_quant``
+    "w4" gives ``{"qw": int32 [in // 8, out], "qs": f32 [out]}``
+    (per-output-channel int4, ``quantize_weight_int4_torch``), "none" ``{"w":
+    bf16 [in, out]}``; ``bias`` adds ``"b"`` in ``dtype``. The JAX package's
+    ``pack_proj_weight`` at ``tp_size=1``, where the ``col_blocks`` parts
+    (qkv's q, k, v; gate_up's gate, up) stay their plain concatenation; its
+    tensor-parallel layouts (``shard_in``, ``tp_size``) are not ported
+    (ROADMAP queue 1 items 7 and 11)."""
+    w = _f32_tensor(w, device).contiguous()
+    if col_blocks is not None and sum(col_blocks) != w.shape[1]:
+        raise ValueError(f"col_blocks {tuple(col_blocks)} do not add up to the "
+                         f"{w.shape[1]} output columns")
+    if cfg_quant == "w4":
+        qw, qs = quantize_weight_int4_torch(w)
+        d = {"qw": qw, "qs": qs}
+    elif cfg_quant == "none":
+        d = {"w": w.to(dtype)}
+    else:
+        raise NotImplementedError(f"pack_proj_weight kind {cfg_quant!r}: the port "
+                                  "packs 'w4' and 'none'")
+    if bias is not None:
+        d["b"] = _f32_tensor(bias, w.device).to(dtype)
+    return d
 
 
 def _make_lm_head(w: torch.Tensor, kind: str):

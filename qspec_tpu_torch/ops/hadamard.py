@@ -7,7 +7,9 @@ factors are applied as matmuls (for n = 14336 = 28 * 512: one [*, 512] x
 [512, 512] product and one [28, 28] x [28, *] product), which is what the JAX
 package does too; the non-power-of-two factors are constructed (Sylvester,
 Paley I, Paley II) in numpy, not vendored, and each is checked
-H @ H.T == n * I when built.
+H @ H.T == n * I when built. ``random_hadamard_matrix`` is the residual
+rotation Q of the offline QuaRot pipeline (``model_loader/loader.py::
+quantize_float``), the JAX package's matrix bit for bit for the same seed.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["hadamard_matrix", "decompose_dim", "hadamard_transform"]
+__all__ = ["hadamard_matrix", "decompose_dim", "hadamard_transform",
+           "random_hadamard_matrix"]
 
 
 def _sylvester(k: int) -> np.ndarray:
@@ -246,3 +249,15 @@ def hadamard_transform(x: torch.Tensor, scale: float | None = None) -> torch.Ten
     if K > 1:
         xf = torch.einsum("jk,...kp->...jp", hK, xf)
     return (xf.reshape(x.shape) * scale).to(x.dtype)
+
+
+def random_hadamard_matrix(n: int, seed: int = 0) -> np.ndarray:
+    """Randomized orthonormal Hadamard Q = H_n * diag(+-1) / sqrt(n), float64
+    (``qspec_tpu/ops/hadamard.py::random_hadamard_matrix``: the same numpy
+    generator draws the same signs, and the same Kronecker factors give the
+    same H_n)."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2, size=n) * 2 - 1
+    K, P = decompose_dim(n)
+    H = np.kron(hadamard_matrix(K), hadamard_matrix(P)).astype(np.float64)
+    return (H * d[None, :]) / math.sqrt(n)

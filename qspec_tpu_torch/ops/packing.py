@@ -13,6 +13,12 @@ repacking happens at load.
 
 The int8 lm_head is plain int8 ``[in, out]`` with one f32 scale per output
 channel (``quantize_weight_int8``), read as it is by ``csrc/w8a16.cu``.
+
+A reference-format QSpec checkpoint stores each weight as uint8 ``[out,
+in // 2]``, byte c of a row holding in-positions 2c (low nibble) and 2c + 1
+(high), two's complement (QuaRot's ``quarot_nn/linear.py`` layout);
+``repack_from_reference`` turns it into the interchange format at load and
+``pack_reference`` writes it.
 """
 
 from __future__ import annotations
@@ -74,6 +80,42 @@ def pack_int4_np(w: np.ndarray) -> np.ndarray:
     word = (byte[0::4] | (byte[1::4] << 8) | (byte[2::4] << 16)
             | (byte[3::4] << 24))
     return word.astype(np.uint32).view(np.int32)
+
+
+def unpack_int4_np(packed: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`unpack_int4`: int32 [in // 8, out] -> int8
+    [in, out]."""
+    u = packed.view(np.uint32).astype(np.uint64)
+    halves = []
+    for shift0 in (0, 4):  # low plane, high plane
+        vals = [((u >> (8 * b + shift0)) & 0x0F).astype(np.int64) - 8 for b in range(4)]
+        halves.append(np.stack(vals, axis=1).reshape(packed.shape[0] * 4, packed.shape[1]))
+    return np.concatenate(halves, axis=0).astype(np.int8)
+
+
+def repack_from_reference(ref_weight) -> np.ndarray:
+    """A reference-layout weight (uint8 [out, in // 2], numpy or a tensor)
+    -> the interchange format int32 [in // 8, out]
+    (``qspec_tpu/ops/packing.py::repack_from_reference``)."""
+    b = np.asarray(ref_weight.cpu() if isinstance(ref_weight, torch.Tensor) else ref_weight,
+                   np.uint8).astype(np.int32)
+    lo = b & 0x0F
+    lo = np.where(lo < 8, lo, lo - 16).astype(np.int8)      # in-position 2c
+    hi = b >> 4
+    hi = np.where(hi < 8, hi, hi - 16).astype(np.int8)      # in-position 2c + 1
+    unpacked = np.empty((b.shape[1] * 2, b.shape[0]), dtype=np.int8)
+    unpacked[0::2] = lo.T
+    unpacked[1::2] = hi.T
+    return pack_int4_np(unpacked)
+
+
+def pack_reference(w: torch.Tensor) -> torch.Tensor:
+    """int4 values [in, out] (range [-8, 7]) -> the reference layout, uint8
+    [out, in // 2], on ``w``'s device: the inverse of
+    :func:`repack_from_reference` after :func:`unpack_int4`, used to write
+    reference-format checkpoints."""
+    wt = w.t().to(torch.int32) & 0x0F                          # [out, in]
+    return (wt[:, 0::2] | (wt[:, 1::2] << 4)).to(torch.uint8)
 
 
 def quantize_weight_int4(w: np.ndarray):

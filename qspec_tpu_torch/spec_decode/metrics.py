@@ -9,6 +9,7 @@ designates as the headline numbers.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, field
 
 
@@ -20,10 +21,13 @@ class SpecDecodeMetrics:
     num_emitted_tokens: int = 0
     total_wall_s: float = 0.0
     per_round_wall: list = field(default_factory=list)
+    # tokens emitted by one sequence in one round -> how many (round,
+    # sequence) pairs emitted that many
+    emitted_per_seq_round: Counter = field(default_factory=Counter)
 
     def record(self, num_seqs: int = 0, k: int = 0, draft_accepted: int = 0,
                emitted: int = 0, wall_s: float = 0.0,
-               num_draft_tokens: int = None) -> None:
+               num_draft_tokens: int = None, per_seq_round=()) -> None:
         self.num_spec_rounds += 1
         if num_draft_tokens is None:
             num_draft_tokens = num_seqs * k
@@ -32,6 +36,7 @@ class SpecDecodeMetrics:
         self.num_emitted_tokens += emitted
         self.total_wall_s += wall_s
         self.per_round_wall.append(wall_s)
+        self.emitted_per_seq_round.update(int(n) for n in per_seq_round)
 
     @property
     def draft_acceptance_rate(self) -> float:

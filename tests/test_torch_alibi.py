@@ -449,12 +449,14 @@ def test_llm_directory_equals_jax_engine(tmp_path, family):
 
 
 def test_directory_routes_not_ported(tmp_path):
-    """A float directory under QuaRot quantization (quantize_float), a
-    llama-keyed float directory (load_hf_float) and an AWQ directory raise,
-    naming the ROADMAP item."""
+    """A BLOOM directory under QuaRot quantization raises the port's
+    check_served refusal (the JAX package's quantize_float finds no llama
+    keys there); an AWQ directory raises naming ROADMAP item 6; a
+    llama-keyed float directory at quantization=None loads and serves in
+    bf16 (load_hf_float, tests/test_torch_checkpoint_routes.py)."""
     hf, _ = _hf_bloom()
     d = _save(hf, tmp_path / "bloom")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="served with bf16 weights"):
         LLM(model=str(d), device="cpu")                       # quantization="qspec"
     with pytest.raises(NotImplementedError, match="item 6"):
         EngineArgs(model=str(d), quantization="awq").model_config()
@@ -463,5 +465,9 @@ def test_directory_routes_not_ported(tmp_path):
     torch.manual_seed(0)
     ld = _save(transformers.LlamaForCausalLM(lcfg), tmp_path / "llama")
     assert json.loads((ld / "config.json").read_text())["architectures"] == ["LlamaForCausalLM"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        LLM(model=str(ld), device="cpu", quantization=None)
+    llm = LLM(model=str(ld), device="cpu", quantization=None, block_size=16,
+              max_model_len=128)
+    assert llm.engine_config.model.quant == "none"
+    out = llm.generate([[1, 2, 3, 4, 5]], SamplingParams(temperature=0.0, max_tokens=6,
+                                                         ignore_eos=True))
+    assert len(out[0].output_token_ids) == 6

@@ -1082,3 +1082,112 @@ def test_norm_kernel_refusals(gen):
         rq.rmsnorm(x, residual=r[:2])
     with pytest.raises(ValueError, match="residual"):
         rq.rmsnorm_quant(x, residual=r.float())
+
+
+# ------------------------------------------- real weights and separate drafts
+
+INDUCTION = "checkpoints/induction_lm_v2"
+
+
+def _induction_prompts(n: int, prompt_len: int, vocab: int, seed: int = 0):
+    """bench.py's ``induction_prompts`` (a random segment of period 16..64
+    tiled to prompt_len), the trained checkpoint's distribution."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        period = int(rng.integers(16, 65))
+        seg = rng.integers(2, vocab, size=period)
+        out.append([int(x) for x in np.tile(seg, prompt_len // period + 1)[:prompt_len]])
+    return out
+
+
+def _greedy(eng, prompts, max_tokens):
+    from qspec_tpu_torch import SamplingParams
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
+    ids = [eng.add_request(p, sp) for p in prompts]
+    done = {}
+    while eng.has_unfinished_requests():
+        for o in eng.step():
+            if o.finished:
+                done[o.request_id] = o.output_token_ids
+    return [done[i] for i in ids]
+
+
+def _qspec_engine(cfg, params, method, draft=None, **spec_kw):
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    spec = SpeculativeConfig(num_speculative_tokens=3, method=method,
+                             draft_model=draft and draft[0], **spec_kw)
+    return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16),
+                                  scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=512,
+                                                            prefill_chunk_size=128),
+                                  speculative=spec), params, device="cuda", seed=0,
+                     draft_params=draft and draft[1])
+
+
+def test_induction_lm_w4a4_qspec_on_card(gen):
+    """The trained checkpoint (3 layers, hidden 512) quantized by
+    quantize_float on the card: greedy QSpec with the W4A4 draft equals the
+    qspec_null oracle, the draft is accepted, and the QuaRot kernels (and
+    only they) launch. The acceptance and the tokens a round go to stdout."""
+    import dataclasses
+    import json
+    from qspec_tpu_torch.model_loader.loader import quantize_float
+    with open(INDUCTION + ".json") as f:
+        meta = json.load(f)["cfg"]
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{k: v for k, v in meta.items() if k in names})
+    with np.load(INDUCTION + ".npz") as z:
+        sd = {k: torch.as_tensor(z[k]).cuda() for k in z.files}
+    params, cfg = quantize_float(sd, cfg, device="cuda")
+    prompts = _induction_prompts(4, 128, cfg.vocab_size)
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    eng = _qspec_engine(cfg, params, "qspec")
+    spec = _greedy(eng, prompts, 32)
+    assert {n for n, c in counters.items() if c.launches > 0} == {
+        "matmul_w4a16", "matmul_w4a4", "rmsnorm", "rmsnorm_quant", "paged_attention"}
+    assert spec == _greedy(_qspec_engine(cfg, params, "qspec_null"), prompts, 32)
+    m = eng.spec_metrics
+    print(f"induction_lm_v2 W4A4 QSpec on the card: acceptance {m.draft_acceptance_rate}, "
+          f"tokens a round per sequence {dict(sorted(m.emitted_per_seq_round.items()))}, "
+          f"{m.num_emitted_tokens / max(m.num_emitted_tokens - m.num_draft_accepted, 1)} "
+          "a round on average")
+    assert m.draft_acceptance_rate > 0.5
+
+
+@pytest.mark.parametrize("draft_quant", ["w4", "none"])
+def test_separate_draft_and_forced_acceptance_on_card(gen, draft_quant):
+    """The tiny QuaRot target with a separate 1-layer draft (W4A4, or bf16)
+    on the card: greedy == qspec_null, the draft's forwards launch on its
+    own layer only; force_accept_len=2 emits 3 tokens a round short of the
+    budget, and 0 the oracle's tokens."""
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.tiny()
+    params = init_params(cfg, seed=0, device="cuda")
+    dcfg = ModelConfig.tiny(quant=draft_quant, num_layers=1, hidden_size=128,
+                            intermediate_size=192, num_heads=2, num_kv_heads=2)
+    draft = (dcfg, init_params(dcfg, seed=3, device="cuda"))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, 500, size=int(n)).tolist() for n in (5, 17, 33, 9)]
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    eng = _qspec_engine(cfg, params, "qspec", draft)
+    spec = _greedy(eng, prompts, 20)
+    launches = {n: c.launches for n, c in counters.items()}
+    oracle = _greedy(_qspec_engine(cfg, params, "qspec_null", draft), prompts, 20)
+    assert spec == oracle
+    d_fw = eng.runner.draft_forwards
+    assert d_fw > 0
+    if draft_quant == "w4":
+        assert launches["matmul_w4a4"] == 4 * d_fw
+        assert launches["rmsnorm_quant"] == 2 * d_fw
+    else:
+        assert launches["matmul_w4a4"] == launches["rmsnorm_quant"] == 0
+    forced = _qspec_engine(cfg, params, "qspec", draft, force_accept_len=2)
+    _greedy(forced, prompts, 20)
+    assert dict(forced.spec_metrics.emitted_per_seq_round) == {3: 6 * 4, 1: 4}
+    zero = _qspec_engine(cfg, params, "qspec", draft, force_accept_len=0)
+    assert _greedy(zero, prompts, 20) == oracle

@@ -23,7 +23,11 @@ from qspec_tpu_torch.engine.llm_engine import LLMEngine
 from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
 from qspec_tpu_torch.spec_decode.medusa import load_medusa, medusa_propose_tree
 from qspec_tpu_torch.model_loader.families import convert_bloom, convert_mpt
-from qspec_tpu_torch.model_loader.loader import read_safetensors, config_from_hf_dir
+from qspec_tpu_torch.model_loader.loader import (read_safetensors, config_from_hf_dir,
+                                                 load_hf_float, load_qspec, quantize_float)
+from qspec_tpu_torch.ops.hadamard import random_hadamard_matrix
+from qspec_tpu_torch.ops.packing import pack_reference, repack_from_reference
+from qspec_tpu_torch.models.llama import pack_proj_weight
 from qspec_tpu_torch.ops.ngram import ngram_match_device
 for m in pkgutil.walk_packages(qspec_tpu_torch.__path__, "qspec_tpu_torch."):
     importlib.import_module(m.name)
@@ -48,12 +52,13 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     bad, port = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
-    # every module was imported, the checkpoint loaders', Medusa's and the
-    # n-gram matcher's among them
+    # every module was imported, the checkpoint loaders' (the float and
+    # QSpec Llama loaders among them), Medusa's and the n-gram matcher's
     assert {"qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
             "qspec_tpu_torch.model_loader.families", "qspec_tpu_torch.model_loader.loader",
             "qspec_tpu_torch.ops.linear_kernels", "qspec_tpu_torch.ops.ngram",
-            "qspec_tpu_torch.engine.model_runner",
+            "qspec_tpu_torch.engine.model_runner", "qspec_tpu_torch.ops.hadamard",
+            "qspec_tpu_torch.ops.packing", "qspec_tpu_torch.entrypoints.llm",
             "qspec_tpu_torch.spec_decode.medusa",
             "qspec_tpu_torch.spec_decode.medusa_tree"} <= set(port)
 
