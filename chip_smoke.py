@@ -137,10 +137,19 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    (quantization=None), n-gram == AR; the same directory quantized at load,
    QSpec == oracle; a reference-format QSpec directory written from (A)'s
    layers 0-1, which loads to (A)'s packed tensors bit for bit, QSpec ==
-   oracle (phase_llama_dirs).
+   oracle (phase_llama_dirs);
+16. the proposers (phase_proposers_8b): (E1) EAGLE at Llama-3-8B width
+   through LLM(speculative_model="[eagle]") at the defaults (int8 head,
+   bf16 KV, k = 3) with a random EAGLE net made on the card, greedy tokens
+   == the same target's AR tokens; (E2) MLPSpeculator
+   (speculative_model="[mlp_speculator]", a random net made on the card) ==
+   its medusa_null oracle; each launches exactly matmul_w4a16, the int8
+   head, rmsnorm (EAGLE's layer with a gamma too) and the bf16 attention,
+   in the counts its target forwards and EAGLE's layer passes give (the
+   kernel line's ``proposer_launches``: [E1, E2]).
 
 It prints the kernel summary as one JSON line (every field of each kernel,
-with its launches in the paths of phases 12-15) and, last, the device JSON
+with its launches in the paths of phases 12-16) and, last, the device JSON
 line. Every line also goes to chiprun_out/chip_smoke.log, which alone has
 the per-case detail the standard output gives in short (the kernels' full
 `-Xptxas -v` summary, each tiny forward check, each long attention check,
@@ -1911,8 +1920,10 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     attention instantiation on its own path). The attention's launches under
     a window, with a softcap, at head dim 256 and under a tree mask are
     counted apart: each option of ``every_launch`` must be on every attention
-    launch, the softcap, D=256 and ALiBi on none otherwise; the tree
-    launches are returned (``rounds_run`` beside them: the verify passes of
+    launch, the softcap, D=256 and ALiBi on none otherwise; the launches
+    come back with each norm's fused ones (``<norm>_fused``) and rmsnorm's
+    with a gamma (``rmsnorm_gamma``); the tree launches are returned
+    (``rounds_run`` beside them: the verify passes of
     the run, and ``forwards``: those and the prompt forwards) for the caller
     to check."""
     from qspec_tpu_torch.ops import kernel_wrappers
@@ -1928,12 +1939,14 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
             setattr(c, f"{opt}_launches", 0)
     for name in NORMS:
         counters[name].fused_launches = 0
+    counters["rmsnorm"].gamma_launches = 0
     t0 = time.perf_counter()
     spec = generate(eng, prompts, max_tokens)
     torch.cuda.synchronize()
     t_spec = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     fused = {name: counters[name].fused_launches for name in NORMS}
+    gamma = counters["rmsnorm"].gamma_launches
     opts = {name: {opt: getattr(c, f"{opt}_launches") for opt in ATTN_OPTIONS}
             for name, c in attn.items()}
     m = eng.spec_metrics
@@ -1966,6 +1979,7 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
             raise AssertionError(f"{label}: {name} launched {launches[name]} times, {k} of "
                                  "them with the residual add")
         launches[f"{name}_fused"] = k
+    launches["rmsnorm_gamma"] = gamma
     for name, o in opts.items():
         for opt in ("softcap", "d256", "alibi", *every_launch):
             if o[opt] != (launches[name] if opt in every_launch else 0):
@@ -2748,6 +2762,80 @@ def phase_llama_dirs(params8, cfg8, smi: str):
     return out
 
 
+# the kernels of the EAGLE and MLPSpeculator paths on a QuaRot target:
+# the verify scheme's; EAGLE's layer adds the gamma norm and the bf16
+# attention over its own cache, and drafts through the int8 head
+PROPOSER_KERNELS = MEDUSA_KERNELS
+PROPOSER_K = 3
+
+
+def proposer_launches(cfg, summary: dict, k: int, eagle: bool) -> dict:
+    """The launches an EAGLE (``eagle``) or MLPSpeculator run must make:
+    per target forward (prompt chunk or verify pass) 1 attention a layer, 2
+    norms a layer and the final norm, and the head once, and per verify
+    pass 4 w4a16 a layer (the prompt rectangle of e2e_prompts is past
+    BIGM_BYTES on every projection: its GEMMs take the dequantize-once
+    branch, no kernel); per pass of EAGLE's layer (prompt chunk, span
+    re-feed, draft step) the attention once and 3 norms, 2 of them gamma
+    norms; per round of EAGLE k more heads."""
+    L, t_fw = cfg.num_layers, summary["forwards"]
+    d_fw = summary.get("draft_forwards", 0) if eagle else 0
+    rounds = summary["rounds_run"]
+    return {"matmul_w4a16": 4 * L * rounds, "paged_attention": L * t_fw + d_fw,
+            "rmsnorm": (2 * L + 1) * t_fw + 3 * d_fw, "rmsnorm_gamma": 2 * d_fw,
+            "matmul_w8a16": t_fw + (k * rounds if eagle else 0)}
+
+
+def phase_proposers_8b(smi: str):
+    """(E1) EAGLE and (E2) MLPSpeculator at Llama-3-8B width through LLM
+    (QuaRot, the JAX package's defaults: int8 head, bf16 KV), random target
+    weights made on the card, k = 3: (E1) speculative_model="[eagle]" with
+    a random EAGLE net of the target's widths (init_eagle_params, about
+    0.5 GB bf16), its tokens == AR's (the same LLM without speculation);
+    (E2) speculative_model="[mlp_speculator]" with a random net
+    (init_mlp_speculator_params, inner width = hidden), == its medusa_null
+    oracle. Each launches exactly PROPOSER_KERNELS, in the counts
+    proposer_launches gives from its forwards."""
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import ModelConfig
+    from qspec_tpu_torch.models.llama import init_params
+    from qspec_tpu_torch.spec_decode.eagle import init_eagle_params
+    from qspec_tpu_torch.spec_decode.mlp_speculator import init_mlp_speculator_params
+    cfg = ModelConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device="cuda")
+    prompts = e2e_prompts()
+    kw = dict(model="llama3-8b", device="cuda", max_model_len=512, max_num_seqs=4, seed=0)
+    out = {}
+    for key, net, method, oracle in (("E1", "eagle", "eagle", "ar"),
+                                     ("E2", "mlp_spec", "mlp_speculator", "medusa_null")):
+        params.pop("eagle", None)
+        params[net] = (init_eagle_params(cfg, seed=5, device="cuda") if net == "eagle" else
+                       init_mlp_speculator_params(cfg.hidden_size, cfg.vocab_size, PROPOSER_K,
+                                                  seed=6, device="cuda"))
+
+        def make(m, _, method=method):
+            spec_kw = {} if m == "ar" else dict(
+                num_speculative_tokens=PROPOSER_K, speculative_model=f"[{method}]",
+                speculative_method=m)
+            return LLM(params=params, **spec_kw, **kw).llm_engine
+        label = f"({key}) llama3-8b {method} (int8 head, bf16 KV, k=3)"
+        spec, launches, _, summary = spec_vs_oracle(make, label, PROPOSER_KERNELS, prompts, 32,
+                                                    methods=(method, oracle))
+        want = proposer_launches(cfg, summary, PROPOSER_K, net == "eagle")
+        got = {n: launches[n] for n in want}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, expected {want} ({summary})")
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        e2e_log(label, prompts, spec, summary)
+        out[key] = (launches, summary)
+        torch.cuda.empty_cache()
+    log(f"e2e (E): card {smi}", stdout=False)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -2826,6 +2914,7 @@ def main():
     dirs = phase_llama_dirs(params8, cfg8, smi)
     del params8
     torch.cuda.empty_cache()
+    proposers = phase_proposers_8b(smi)
     # each kernel's launches in the real-weights loaders' paths: (A) W4A4 and
     # W4A8, (B) the separate draft, (C) forced, (D1) the bf16 directory,
     # (D2) the float directory quantized at load, (D3) the QSpec directory
@@ -2892,6 +2981,8 @@ def main():
         loaders = {k: v[name] for k, v in new_paths.items() if v.get(name)}
         if loaders:
             extra["loader_launches"] = loaders
+        if name in PROPOSER_KERNELS:
+            extra["proposer_launches"] = [proposers[k][0][name] for k in ("E1", "E2")]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],

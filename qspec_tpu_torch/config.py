@@ -298,7 +298,8 @@ class SchedulerConfig:
 @dataclasses.dataclass(frozen=True)
 class SpeculativeConfig:
     """Speculative decoding: QSpec over shared weights or with a separate
-    draft model, Medusa heads, or n-gram prompt lookup."""
+    draft model, Medusa heads, MLPSpeculator, EAGLE, or n-gram prompt
+    lookup."""
 
     num_speculative_tokens: int = 3
     # draft scheme; verify is always w4a16. "w4a4" is the QSpec method;
@@ -314,7 +315,12 @@ class SpeculativeConfig:
     # "medusa": trained heads (params["medusa"], spec_decode/medusa.py) that
     # read the verify pass's hidden state, no draft forward and no draft
     # cache; "medusa_null": the Medusa rounds with the proposals nulled (its
-    # oracle); "ngram": prompt lookup over the sequence's own tokens, matched
+    # oracle, and MLPSpeculator's); "mlp_speculator": MLPSpeculator's
+    # recurrent heads (params["mlp_spec"], spec_decode/mlp_speculator.py) in
+    # the same rounds; "eagle": a one-layer draft net (params["eagle"],
+    # spec_decode/eagle.py) over the target's hidden states with its own
+    # one-layer KV pool (greedy AR is its oracle); "ngram": prompt lookup
+    # over the sequence's own tokens, matched
     # on the device (ops/ngram.py), no draft forward and no draft cache (the
     # proposer of a bf16 checkpoint, which has no int4 weights to draft
     # with); "null": the n-gram rounds with the proposals nulled (its oracle)

@@ -81,9 +81,10 @@ class Sequence:
     # whisper: mel features [T_mel, num_mel] for the audio encoder
     # (models/whisper.py); the prompt_token_ids are the DECODER stream
     audio_features: Optional[object] = None
-    # EAGLE span carry between engine steps: (true hiddens [<=k+1, H],
-    # paired tokens, span start position, span length) — see
-    # spec_decode/eagle.py and model_runner.run_eagle_rounds
+    # EAGLE's span seed, set by the prompt's prefill: (the hidden state at
+    # the prompt's last position [1, H], the token after it [1], that
+    # position, 1); the rounds keep the span on the device from there
+    # (engine/model_runner.py run_eagle_rounds)
     eagle_span: Optional[tuple] = None
     # watermark of output tokens already scanned for stop conditions
     # (truncate_stop_overshoot): keeps the per-step stop scan O(new tokens)

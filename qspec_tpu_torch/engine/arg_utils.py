@@ -8,10 +8,13 @@ gives the ModelConfig (``model_loader/loader.py::config_from_hf_dir``; the
 QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one, the only
 kind a Gemma-2 is served as, None a float one (bf16 weights, the only kind
 a BLOOM or an MPT is served as). ``speculative_model="[medusa]"`` (heads in
-``params["medusa"]``) or a heads ``.npz`` (loaded by the ``LLM`` entry
-point) selects Medusa, ``spec_medusa_tree`` its candidate tree;
-``"[ngram]"`` selects prompt lookup, ``ngram_prompt_lookup_min/max`` its
-n-gram lengths; a checkpoint directory is a separate draft model for
+``params["medusa"]``) selects Medusa, ``spec_medusa_tree`` its candidate
+tree; ``"[mlp_speculator]"`` (``params["mlp_spec"]``) MLPSpeculator,
+``"[eagle]"`` (``params["eagle"]``) EAGLE; a proposer net's ``.npz``
+(loaded by the ``LLM`` entry point) selects its method by its arrays, as in
+the JAX package: ``w1`` Medusa, ``proj_first`` MLPSpeculator, otherwise
+EAGLE. ``"[ngram]"`` selects prompt lookup, ``ngram_prompt_lookup_min/max``
+its n-gram lengths; a checkpoint directory is a separate draft model for
 QSpec (the ``LLM`` entry point loads it and records its cfg).
 """
 
@@ -21,6 +24,8 @@ import ast
 import dataclasses
 import os
 from typing import Optional
+
+import numpy as np
 
 from qspec_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
                                     SchedulerConfig, SpeculativeConfig)
@@ -32,6 +37,20 @@ PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "gemma2-9b": ModelConfig.gemma2_9
 # quantization -> ModelConfig.quant
 QUANT = {"qspec": "w4", "w4": "w4", "int4": "w4", "awq": "w4g", "gptq": "w4g",
          None: "none"}
+# a proposer method -> the method of its oracle (the same rounds with the
+# proposals nulled); EAGLE has none: AR is its oracle
+ORACLE = {"qspec": "qspec_null", "medusa": "medusa_null",
+          "mlp_speculator": "medusa_null", "ngram": "null"}
+
+
+def proposer_of(path: str) -> str:
+    """The speculative method of a proposer net saved as an .npz, by its
+    arrays (``qspec_tpu/entrypoints/llm.py``'s routing): Medusa heads carry
+    ``w1``, an MLPSpeculator ``proj_first``, anything else is an EAGLE
+    net."""
+    with np.load(path) as z:
+        files = set(z.files)
+    return "medusa" if "w1" in files else "mlp_speculator" if "proj_first" in files else "eagle"
 
 
 @dataclasses.dataclass
@@ -57,15 +76,17 @@ class EngineArgs:
     spec_rounds_per_step: int = 1
     # MagicDec-style sliding window on the shared-weights draft KV reads
     spec_draft_kv_window: Optional[int] = None
-    # "qspec" | "qspec_null" | "medusa" | "medusa_null" | "ngram" | "null"
-    # (the "null" forms: the same rounds, proposals nulled: the AR oracle);
-    # None: "qspec", or what speculative_model names
+    # "qspec" | "qspec_null" | "medusa" | "medusa_null" | "mlp_speculator" |
+    # "eagle" | "ngram" | "null" (the "null" forms: the same rounds,
+    # proposals nulled: the AR oracle; "medusa_null" is MLPSpeculator's
+    # too); None: "qspec", or what speculative_model names
     speculative_method: Optional[str] = None
-    # the reference's --speculative-model: "[medusa]" selects Medusa heads
-    # (params must carry a "medusa" subtree), a path to an .npz of heads
-    # loads them (LLM), "[ngram]" prompt lookup, a checkpoint directory a
-    # separate draft model (QSpec); "[eagle]" and "[mlp_speculator]" are
-    # not ported and raise; None: QSpec's shared-weights draft
+    # the reference's --speculative-model: "[medusa]", "[mlp_speculator]" or
+    # "[eagle]" select the proposer net that params carry ("medusa",
+    # "mlp_spec", "eagle"), a path to a net's .npz loads it (LLM; its
+    # arrays name the method), "[ngram]" prompt lookup, a checkpoint
+    # directory a separate draft model (QSpec); None: QSpec's
+    # shared-weights draft
     speculative_model: Optional[str] = None
     # Medusa candidate tree: "default" (DEFAULT_TREE without the paths deeper
     # than num_speculative_tokens) or a literal choices tuple such as
@@ -103,7 +124,7 @@ class EngineArgs:
             if net.startswith("[") and net.endswith("]"):
                 named = net.strip("[]").lower()
             elif net.endswith(".npz"):
-                named = "medusa"   # LLM checks that the file holds Medusa heads
+                named = proposer_of(net)
             elif os.path.isdir(net):
                 named = "qspec"    # a separate draft model
             else:
@@ -111,8 +132,7 @@ class EngineArgs:
                                  "name, a heads .npz nor a checkpoint directory")
         if self.speculative_method is None:
             return named or "qspec"
-        oracle = "null" if named == "ngram" else f"{named}_null"
-        if named is not None and self.speculative_method not in (named, oracle):
+        if named is not None and self.speculative_method not in (named, ORACLE.get(named)):
             raise ValueError(f"speculative_method={self.speculative_method!r} does "
                              f"not go with speculative_model={net!r}")
         return self.speculative_method

@@ -9,7 +9,11 @@ shared weights with per-phase KV caches, or with a separate draft model
 (``SpeculativeConfig.draft_model``, its parameters ``draft_params``: its own
 KV pool and, for a float draft, the bf16 scheme), with ``method="medusa"`` into
 Medusa rounds (the heads ride the verify pass: no draft forward, no draft
-cache; a chain or a candidate tree), or with ``method="ngram"`` into
+cache; a chain or a candidate tree), with ``method="mlp_speculator"`` into
+the same chain rounds proposed by MLPSpeculator's recurrent heads, with
+``method="eagle"`` into EAGLE rounds (a one-layer draft net over the
+target's hidden states, with its own one-layer KV pool, whose prompt pass is
+fused into the target's prefill), or with ``method="ngram"`` into
 prompt-lookup rounds (proposals matched on the device from the sequence's
 own tokens, no draft forward: the proposer of a bf16 checkpoint). Requests
 are token ids: the port has no tokenizer, so stop strings and grammar-guided
@@ -23,6 +27,7 @@ import time
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from qspec_tpu_torch.config import EngineConfig
@@ -34,6 +39,7 @@ from qspec_tpu_torch.engine.model_runner import (ModelRunner, make_sampling_tens
 from qspec_tpu_torch.models.llama import check_served, resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.sampling_params import SamplingParams
+from qspec_tpu_torch.spec_decode.eagle import eagle_cfg_for
 from qspec_tpu_torch.spec_decode.metrics import SpecDecodeMetrics
 
 
@@ -47,9 +53,11 @@ class RequestOutput:
     logprobs: Optional[List[float]] = None
 
 
-SPEC_METHODS = ("qspec", "qspec_null", "medusa", "medusa_null", "ngram", "null")
-# Medusa's rounds: the heads propose, the "_null" form nulls the proposals
-MEDUSA_METHODS = ("medusa", "medusa_null")
+SPEC_METHODS = ("qspec", "qspec_null", "medusa", "medusa_null", "mlp_speculator",
+                "ngram", "null", "eagle")
+# Medusa's rounds: the heads (or MLPSpeculator's chain) propose, the "_null"
+# form nulls the proposals (the oracle of both nets)
+MEDUSA_METHODS = ("medusa", "medusa_null", "mlp_speculator")
 # prompt lookup's rounds: "null" nulls the proposals (the AR oracle)
 NGRAM_METHODS = ("ngram", "null")
 
@@ -61,8 +69,12 @@ def _check_supported(config: EngineConfig) -> None:
         if spec.method not in SPEC_METHODS:
             raise NotImplementedError(f"speculative method {spec.method!r} is "
                                       f"not ported ({', '.join(SPEC_METHODS)})")
-        if spec.medusa_tree is not None and spec.method not in MEDUSA_METHODS:
-            raise ValueError("medusa_tree needs method='medusa' or 'medusa_null'")
+        if spec.medusa_tree is not None and spec.method not in ("medusa", "medusa_null"):
+            raise ValueError("medusa_tree needs method='medusa' or 'medusa_null' (the "
+                             "tree of EAGLE or MLPSpeculator proposals is not ported)")
+        if spec.method == "eagle" and spec.draft_kv_window is not None:
+            raise ValueError("draft_kv_window windows QSpec's shared-weights draft; "
+                             "EAGLE's layer attends over the whole context")
         if spec.method in NGRAM_METHODS and not (
                 1 <= spec.ngram_prompt_lookup_min <= spec.ngram_prompt_lookup_max):
             raise ValueError("n-gram lookup needs 1 <= ngram_prompt_lookup_min <= "
@@ -95,9 +107,11 @@ class LLMEngine:
             # advances at most D + 1: the tables must reach the (T - D) more
             lookahead += len(self.spec.medusa_tree) + 1
         # Medusa proposes from the verify pass's hidden state, n-gram lookup
-        # from the tokens: neither has a draft cache
+        # from the tokens: neither has a draft cache; EAGLE's one-layer net
+        # has one, built by the target's prefill
         self._medusa = self.spec is not None and self.spec.method in MEDUSA_METHODS
         self._ngram = self.spec is not None and self.spec.method in NGRAM_METHODS
+        self._eagle = self.spec is not None and self.spec.method == "eagle"
         self._draft_cache = self.spec is not None and not (self._medusa or self._ngram)
         if num_pages is None:
             num_pages = self._derive_num_pages()
@@ -134,13 +148,13 @@ class LLMEngine:
         n_caches = 1
         if self._draft_cache:
             ring = ring_pages(self.config)
-            dm = self.spec.draft_model
+            dm = eagle_cfg_for(mc) if self._eagle else self.spec.draft_model
             if ring:
                 # the windowed draft's small fixed ring pool
                 budget -= (ring_rows(self.config) * ring + 1) * page_bytes
             elif dm is not None:
-                # a separate draft's pool: the same page count at its own
-                # (usually much smaller) bytes a page
+                # a separate draft's or EAGLE's pool: the same page count at
+                # its own (usually much smaller) bytes a page
                 n_caches = 1 + kvc.kv_cache_bytes(kvc.KVCacheConfig(
                     num_layers=dm.num_layers, num_kv_heads=dm.cache_kv_heads,
                     head_dim=dm.cache_head_dim, num_pages=1, page_size=cc.page_size,
@@ -225,8 +239,13 @@ class LLMEngine:
 
     def _run_prefill(self, batch: ScheduledBatch) -> None:
         chunks = [(c.seq, c.start, c.end) for c in (batch.chunks or [batch.chunk])]
-        logits = self.runner.run_prefill_chunks(chunks)
-        if self._draft_cache:
+        eagle_h = None
+        if self._eagle:
+            # the target's chunk and, fused, EAGLE's draft KV of it
+            logits, eagle_h = self.runner.run_prefill_chunks_eagle(chunks)
+        else:
+            logits = self.runner.run_prefill_chunks(chunks)
+        if self._draft_cache and not self._eagle:
             # the draft keeps its own (draft-scheme) KV of the prompt
             self.runner.run_prefill_chunks(chunks, draft=True)
         # rows that completed a FRESH prompt sample their first token; a
@@ -246,6 +265,14 @@ class LLMEngine:
             toks, lps = self.runner.sample_tokens(logits, st)
             for i in completing:
                 chunks[i][0].append_token(int(toks[i]), float(lps[i]))
+        if eagle_h is not None:
+            # the span seed: the hidden state at a finished prompt's last
+            # position pairs with the token after it (the one just sampled,
+            # or a resumed sequence's preserved last token)
+            for i, (s, _, end) in enumerate(chunks):
+                if end == s.prefill_len:
+                    s.eagle_span = (eagle_h[i][None], np.asarray([s.last_token()], np.int32),
+                                    end - 1, 1)
 
     def _run_decode(self, seqs: List[Sequence]) -> None:
         if not seqs:
@@ -292,9 +319,11 @@ class LLMEngine:
         t0 = time.perf_counter()
         # the "_null" methods run the SAME rounds with nulled proposals: the
         # bit-exact AR oracle of their path
-        if self._medusa:
+        if self._eagle:
+            tokens, accepted, lps = self.runner.run_eagle_rounds(seqs, st, chain=chain)
+        elif self._medusa:
             tokens, accepted, lps = self.runner.run_medusa_rounds(
-                seqs, st, enable=self.spec.method == "medusa", chain=chain)
+                seqs, st, enable=self.spec.method != "medusa_null", chain=chain)
         elif self._ngram:
             tokens, accepted, lps = self.runner.run_ngram_rounds(
                 seqs, st, enable=self.spec.method == "ngram", chain=chain)

@@ -23,6 +23,18 @@ propose the next round's tokens (``medusa_rounds_step``); with
 one rectangle under the tree mask and walks it
 (``medusa_tree_rounds_step``). The proposals and the tree's prefix tokens
 live in per-sequence rows of small device tensors (``ModelRunner``).
+MLPSpeculator (``method="mlp_speculator"``, ``params["mlp_spec"]``) serves
+through the same chain rounds: its recurrent heads read the hidden state
+with the last emitted token.
+
+EAGLE (``method="eagle"``, ``params["eagle"]``) drafts with a one-layer bf16
+net over (embedding, target hidden) features that keeps its own one-layer KV
+pool over the target's page ids: the prompt's features stream through it in
+the target's prefill (``prefill_eagle_step``), and each round re-feeds the
+previous round's accepted span with its true hidden states, drafts k tokens
+on predicted hidden states and verifies them under the one-hot rule
+(``eagle_rounds_step``). The span lives in per-sequence rows of a device
+bank between engine steps.
 
 N-gram prompt lookup (``method="ngram"``, the proposer of a bf16
 checkpoint) also has no draft forward: each sequence's tokens live in a row
@@ -45,16 +57,18 @@ import numpy as np
 import torch
 
 from qspec_tpu_torch.config import EngineConfig
-from qspec_tpu_torch.models.llama import (AttentionBatch, check_served, model_forward,
-                                          resolve_device)
+from qspec_tpu_torch.models.llama import (AttentionBatch, check_served, compute_logits,
+                                          embed_rows, model_forward, resolve_device)
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import TreeMask, tree_mask
 from qspec_tpu_torch.ops.ngram import ngram_match_device
 from qspec_tpu_torch.ops.sampling import (SamplingTensors, rejection_sample,
                                           rejection_sample_onehot, sample,
                                           sample_with_logprob, sampling_probs)
+from qspec_tpu_torch.spec_decode.eagle import eagle_cfg_for, eagle_layer_step, fuse_features
 from qspec_tpu_torch.spec_decode.medusa import medusa_propose, medusa_propose_tree
 from qspec_tpu_torch.spec_decode.medusa_tree import TreeSpec, build_tree
+from qspec_tpu_torch.spec_decode.mlp_speculator import mlp_speculator_propose
 
 
 def _slot_of(block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -342,13 +356,16 @@ def ngram_rounds_step(params, cache, history, hist_rows, hist_len, last_tokens,
 
 def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
                        block_tables, max_new, enable: bool, st, gen, *, cfg, scheme,
-                       k, num_rounds=1):
-    """``num_rounds`` Medusa rounds (the single top-1 chain): each verifies
-    the k proposals of its sequence's row of ``props`` under the one-hot
-    rule, and the heads then read the verify pass's hidden state at the
-    last emitted token (index acc - 1: its head output is that token, so
-    head j proposes the token j + 1 past the next one) and write the next
-    round's proposals into the row. No draft forward runs.
+                       k, num_rounds=1, net="medusa"):
+    """``num_rounds`` Medusa or MLPSpeculator rounds (the single top-1
+    chain): each verifies the k proposals of its sequence's row of ``props``
+    under the one-hot rule, and the proposer ``params[net]`` then reads the
+    verify pass's hidden state at the last emitted token (index acc - 1: its
+    head output is that token, so head j proposes the token j + 1 past the
+    next one) and writes the next round's proposals into the row: the
+    Medusa heads (``net="medusa"``) from the hidden state alone, the
+    MLPSpeculator chain (``net="mlp_spec"``) also from the last emitted
+    token. No draft forward runs.
 
     ``props`` [rows, K] int32, updated in place: one row per sequence
     (-1 = no proposal yet: the round then emits one AR token and seeds the
@@ -372,7 +389,10 @@ def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
         acc, toks, lps, new_last = _advance(result, budget, last, k)
         idx = (acc - 1).clamp_min(0).to(torch.int64)[:, None]
         h_star = hidden.gather(1, idx[:, :, None].expand(-1, 1, hidden.shape[-1]))[:, 0]
-        new_p = medusa_propose(params["medusa"], h_star)              # [B, K]
+        if net == "mlp_spec":
+            new_p = mlp_speculator_propose(params["mlp_spec"], h_star, new_last)  # [B, K]
+        else:
+            new_p = medusa_propose(params["medusa"], h_star)
         props[rows] = torch.where((budget > 0)[:, None], new_p, props[rows])
         last, pos, budget = new_last, pos + acc, budget - acc
         out_t.append(toks)
@@ -522,6 +542,117 @@ def medusa_tree_rounds_step(params, cache, props, recent_bank, prop_rows, start_
             cache)
 
 
+def prefill_eagle_step(params, cache, draft_cache, token_ids, shifted_tokens, feat_len,
+                       positions, block_tables, ctx_len, *, cfg, ecfg, scheme):
+    """A target prompt chunk (``prefill_step``) that also streams the
+    chunk's features through the EAGLE layer into the draft cache.
+
+    ``shifted_tokens`` [B, Q] holds x_{p+1} for each position p of the
+    chunk; ``feat_len`` [B] counts the valid features (the chunk's length,
+    or one less on a prompt's final chunk, whose last feature pairs with the
+    token yet to be sampled: the decode rounds' span covers it). Returns
+    (logits of each row's last position [B, V], the hidden state there
+    [B, H], cache, draft_cache)."""
+    page_size = cache.page_size
+    Q = token_ids.shape[1]
+    valid = positions < ctx_len[:, None]
+    slot = torch.where(valid, _slot_of(block_tables, positions, page_size),
+                       torch.zeros_like(positions, dtype=torch.int64))
+    batch = AttentionBatch(positions=positions, slot_mapping=slot,
+                           block_tables=block_tables, ctx_lens=ctx_len)
+    last_idx = (ctx_len - 1 - positions[:, 0]).clamp(0, Q - 1)
+    logits, hidden, cache = model_forward(params, cfg, token_ids, cache, batch, scheme=scheme,
+                                          logits_indices=last_idx, return_hidden="all")
+    feats = fuse_features(params["eagle"], embed_rows(params, cfg, shifted_tokens), hidden)
+    start = positions[:, 0]
+    fvalid = positions < (start + feat_len)[:, None]
+    fbatch = AttentionBatch(positions=positions,
+                            slot_mapping=torch.where(fvalid, slot, torch.zeros_like(slot)),
+                            block_tables=block_tables, ctx_lens=start + feat_len)
+    _, draft_cache = eagle_layer_step(params["eagle"], ecfg, draft_cache, feats, fbatch)
+    idx = last_idx.to(torch.int64)[:, None, None].expand(-1, 1, hidden.shape[-1])
+    return logits[:, 0], hidden.gather(1, idx)[:, 0], cache, draft_cache
+
+
+def eagle_rounds_step(params, draft_cache, cache, espan_h, espan_t, espan_pos, espan_len,
+                      rows, block_tables, max_new, st, gen, *, cfg, ecfg, scheme, k,
+                      num_rounds=1):
+    """``num_rounds`` EAGLE rounds over the span bank.
+
+    The bank holds, per sequence row, the previous round's accepted
+    positions with their true hidden states: ``espan_h`` [rows, k+1, H]
+    bf16, the paired tokens ``espan_t`` [rows, k+1] (t[i] is the token at
+    position espan_pos + i + 1), ``espan_pos`` and ``espan_len`` [rows];
+    ``rows`` [B] maps each lane to its row (padded lanes share a scratch
+    row). The bank is updated in place. Each round (1) re-feeds the span
+    through the draft layer, overwriting the KV the previous round's
+    drafting wrote there (the EAGLE rollback), and takes the prediction at
+    its last position; (2) drafts k tokens, each the argmax of the target's
+    head on the predicted hidden state, feeding each back with that hidden
+    state; (3) verifies them under the one-hot rule (greedy output is AR's
+    for any net); (4) makes the verify pass's hidden states and emitted
+    tokens the next span.
+
+    Returns (tokens [R, B, k+1] (-1 padded), accepted [R, B], logprobs
+    [R, B, k+1], budget, draft_cache, cache).
+    """
+    page_size = cache.page_size
+    eagle, lm_head = params["eagle"], params["lm_head"]
+    rows = rows.to(torch.int64)
+    h_span, t_span = espan_h[rows], espan_t[rows]
+    span_pos, span_len = espan_pos[rows], espan_len[rows]
+    budget = max_new
+    dev = budget.device
+    span_w = k + 1
+    H = h_span.shape[-1]
+    out_t, out_a, out_l = [], [], []
+    for _ in range(num_rounds):
+        pos = span_pos + span_len               # the position of the pending last token
+        at_last = (span_len - 1).clamp_min(0).to(torch.int64)[:, None]
+        last = t_span.gather(1, at_last)[:, 0]
+        # (1) the span, with its true hidden states
+        feats = fuse_features(eagle, embed_rows(params, cfg, t_span), h_span)
+        fpos = span_pos[:, None] + torch.arange(span_w, device=dev)[None, :]
+        fvalid = torch.arange(span_w, device=dev)[None, :] < span_len[:, None]
+        fslot = torch.where(fvalid, _slot_of(block_tables, fpos, page_size),
+                            torch.zeros_like(fpos, dtype=torch.int64))
+        a, draft_cache = eagle_layer_step(eagle, ecfg, draft_cache, feats, AttentionBatch(
+            positions=fpos, slot_mapping=fslot, block_tables=block_tables, ctx_lens=pos))
+        h_hat = a.gather(1, at_last[:, :, None].expand(-1, 1, H))[:, 0]
+        # (2) k drafts on predicted hidden states (top-1)
+        props = []
+        for j in range(k):
+            d = compute_logits(h_hat, lm_head).argmax(dim=-1).to(torch.int32)  # @ pos+1+j
+            props.append(d)
+            fp = (pos + j)[:, None]
+            f = fuse_features(eagle, embed_rows(params, cfg, d[:, None]), h_hat[:, None])
+            a1, draft_cache = eagle_layer_step(eagle, ecfg, draft_cache, f, AttentionBatch(
+                positions=fp, slot_mapping=_slot_of(block_tables, fp, page_size),
+                block_tables=block_tables, ctx_lens=pos + j + 1))
+            h_hat = a1[:, 0]
+        # (3) verify under the one-hot rule
+        (result, hidden), cache = _verify_impl(params, cache, last, torch.stack(props, 1),
+                                               None, pos, block_tables, st, gen, cfg=cfg,
+                                               scheme=scheme, return_hidden=True)
+        acc, toks, lps, _ = _advance(result, budget, last, k)
+        # (4) the next span: the true hidden states at pos .. pos + k paired
+        # with the emitted tokens
+        active = budget > 0
+        h_span = torch.where(active[:, None, None], hidden.to(h_span.dtype), h_span)
+        t_span = torch.where(active[:, None], result.tokens.clamp_min(0).to(t_span.dtype),
+                             t_span)
+        span_pos = torch.where(active, pos, span_pos)
+        span_len = torch.where(active, acc.to(span_len.dtype), span_len)
+        budget = budget - acc
+        out_t.append(toks)
+        out_a.append(acc)
+        out_l.append(lps)
+    espan_h[rows], espan_t[rows] = h_span, t_span
+    espan_pos[rows], espan_len[rows] = span_pos, span_len
+    return (torch.stack(out_t), torch.stack(out_a), torch.stack(out_l), budget,
+            draft_cache, cache)
+
+
 # ---------------------------------------------------------------------------
 # runner
 # ---------------------------------------------------------------------------
@@ -605,6 +736,18 @@ def _check_draft_model(dc, cfg, draft_params) -> None:
                          "runs draft_scheme and a float ('none') one the bf16 scheme")
 
 
+def _check_eagle(cfg, params) -> None:
+    """Raise for an EAGLE configuration the runner cannot serve."""
+    if "eagle" not in params:
+        raise ValueError("speculative.method='eagle' but params carry no 'eagle' draft "
+                         "net (load it with spec_decode.eagle.load_eagle)")
+    if cfg.arch != "llama" or cfg.quant not in ("w4", "none"):
+        raise NotImplementedError(
+            f"EAGLE on an {cfg.arch} quant={cfg.quant!r} target is not ported: its draft "
+            "layer serves Llama targets, QuaRot (quant='w4') or bf16 ('none'); an AWQ / "
+            "GPTQ (w4g) target waits")
+
+
 class ModelRunner:
     """Owns params + paged caches and runs bucketed steps on one device.
 
@@ -624,6 +767,14 @@ class ModelRunner:
     and, for a tree, ``_mrecent`` [rows, D+1], the verify prefix, written
     from the host when a sequence takes a row or when its tokens moved on
     without the rounds, and rolled forward on the device by the rounds.
+    MLPSpeculator keeps the chain's proposals the same way.
+
+    EAGLE's draft cache is a pool of the one-layer draft net's geometry
+    (``eagle_cfg_for``) over the target's page ids and tables, and its span
+    bank (``_espan_h`` [rows, k+1, H], ``_espan_t``, ``_espan_pos``,
+    ``_espan_len``) has the same rows; a row is written from the host (the
+    sequence's ``eagle_span`` seed) when a sequence takes it or when its
+    tokens moved on without the rounds.
     """
 
     def __init__(self, config: EngineConfig, params, num_pages: int,
@@ -635,8 +786,10 @@ class ModelRunner:
         self.device = resolve_device(device)
         page_size = config.cache.page_size
         spec = config.speculative
-        self._medusa = spec is not None and spec.method in ("medusa", "medusa_null")
+        self._medusa = spec is not None and spec.method in ("medusa", "medusa_null",
+                                                            "mlp_speculator")
         self._ngram = spec is not None and spec.method in ("ngram", "null")
+        self._eagle = spec is not None and spec.method == "eagle"
         sep_draft = spec is not None and spec.draft_model is not None
         if draft_params is not None and not sep_draft:
             raise ValueError("draft_params passed without speculative.draft_model, "
@@ -644,6 +797,8 @@ class ModelRunner:
         self.draft_params = draft_params
         if sep_draft:
             _check_draft_model(spec.draft_model, self.cfg, draft_params)
+        elif self._eagle:
+            _check_eagle(self.cfg, params)
         elif spec is not None and not (self._medusa or self._ngram):
             if self.cfg.quant == "none":
                 raise ValueError("a bf16 (quant='none') checkpoint has no int4 "
@@ -662,7 +817,8 @@ class ModelRunner:
         window = draft_window(config)
         # the windowed draft: same params, attention (and prompt prefill)
         # under a sliding window
-        self.draft_cfg = (spec.draft_model if sep_draft else self.cfg if window is None else
+        self.draft_cfg = (spec.draft_model if sep_draft else eagle_cfg_for(self.cfg)
+                          if self._eagle else self.cfg if window is None else
                           dataclasses.replace(self.cfg, sliding_window=window,
                                               sliding_window_pattern=1))
         self.page_size = page_size
@@ -675,11 +831,13 @@ class ModelRunner:
             self._ring_base = np.arange(self.max_pages_per_seq,
                                         dtype=np.int32) % self._ring_pages
             kv_cfg = kv_cfg._replace(num_pages=self._ring_rows * self._ring_pages + 1)
-        if sep_draft:
+        if sep_draft or self._eagle:
+            # a pool of the draft's own geometry over the same page ids
             kv_cfg = kv_cfg._replace(num_layers=self.draft_cfg.num_layers,
                                      num_kv_heads=self.draft_cfg.cache_kv_heads,
                                      head_dim=self.draft_cfg.cache_head_dim)
-        self.draft_cache = kvc.allocate(kv_cfg, self.device) if need_draft_cache else None
+        self.draft_cache = (kvc.allocate(kv_cfg, self.device)
+                            if need_draft_cache or self._eagle else None)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.k = spec.num_speculative_tokens if spec else 1
         self.draft_scheme = spec.draft_scheme if spec else "w4a4"
@@ -689,9 +847,10 @@ class ModelRunner:
         self.force_accept = spec.force_accept_len if spec else None
         # the target's scheme: bf16 for a float checkpoint, else W4A16
         self.verify_scheme = "bf16" if self.cfg.quant == "none" else "w4a16"
-        # verify passes run by run_medusa_rounds / run_ngram_rounds, every
-        # forward of the target (prompt chunks, decode steps, verify passes)
-        # and every forward into the draft cache (prompt chunks, draft steps)
+        # verify passes run by run_medusa_rounds / run_ngram_rounds /
+        # run_eagle_rounds, every forward of the target (prompt chunks,
+        # decode steps, verify passes) and every forward into the draft
+        # cache (prompt chunks, draft steps; EAGLE: each pass of its layer)
         self.spec_rounds_run = 0
         self.target_forwards = 0
         self.draft_forwards = 0
@@ -711,12 +870,31 @@ class ModelRunner:
                     + (self.k + 1) * max(spec.rounds_per_step, 1) + 8)
             self._hist = torch.zeros((rows, hmax + 1), dtype=torch.int32,
                                      device=self.device)
+        # EAGLE's span bank
+        self._ebank = RowBank(rows)
+        if self._eagle:
+            H = self.cfg.hidden_size
+            self._espan_h = torch.zeros((rows, self.k + 1, H), dtype=torch.bfloat16,
+                                        device=self.device)
+            self._espan_t = torch.zeros((rows, self.k + 1), dtype=torch.int32,
+                                        device=self.device)
+            self._espan_pos = torch.zeros(rows, dtype=torch.int32, device=self.device)
+            self._espan_len = torch.zeros(rows, dtype=torch.int32, device=self.device)
 
     def _init_medusa(self, spec, params, rows: int) -> None:
-        if "medusa" not in params:
+        # the proposer net: MLPSpeculator's for its method, Medusa's heads
+        # for "medusa"; the oracle ("medusa_null") runs either, Medusa's
+        # where params carry both
+        net = {"mlp_speculator": "mlp_spec", "medusa": "medusa"}.get(
+            spec.method, "mlp_spec" if "mlp_spec" in params and "medusa" not in params
+            else "medusa")
+        if net not in params:
+            loader = ("spec_decode.mlp_speculator.load_mlp_speculator" if net == "mlp_spec"
+                      else "spec_decode.medusa.load_medusa")
             raise ValueError(f"speculative.method={spec.method!r} but params carry no "
-                             "'medusa' net (load it with spec_decode.medusa.load_medusa)")
-        n_heads = int(params["medusa"]["head"].shape[0])
+                             f"{net!r} net (load it with {loader})")
+        self._mnet = net
+        n_heads = int(params[net]["head"].shape[0])
         if self.k > n_heads:
             raise ValueError(f"num_speculative_tokens={self.k} exceeds the {n_heads} "
                              "trained proposer heads")
@@ -724,6 +902,9 @@ class ModelRunner:
             self._mprops = torch.full((rows, n_heads), -1, dtype=torch.int32,
                                       device=self.device)
             return
+        if net != "medusa":
+            raise ValueError("a Medusa tree (medusa_tree) needs Medusa heads "
+                             "(params['medusa']); MLPSpeculator serves the chain")
         tspec = build_tree(spec.medusa_tree)
         if tspec.max_depth > n_heads:
             raise ValueError(f"medusa_tree depth {tspec.max_depth} exceeds the "
@@ -948,7 +1129,8 @@ class ModelRunner:
                 toks, accs, lps, state[:], _ = medusa_rounds_step(
                     self.params, self.cache, self._mprops, rows_d, *state[:2],
                     tables_d, state[2], enable, st, self.gen, cfg=self.cfg,
-                    scheme=self.verify_scheme, k=self.k, num_rounds=rounds)
+                    scheme=self.verify_scheme, k=self.k, num_rounds=rounds,
+                    net=self._mnet)
             return toks, accs, lps
         toks, accs, lps = self._chained(step, chain, len(seqs))
         if self._mtree is not None:
@@ -990,10 +1172,97 @@ class ModelRunner:
             self._hbank.synced[s.seq_id] = s.num_tokens + int(accs[:, i].sum())
         return toks, accs, lps
 
+    # -- EAGLE -------------------------------------------------------------
+    def run_prefill_chunks_eagle(self, chunks):
+        """Prompt chunks through the target and, fused, their features
+        through the EAGLE layer into the draft cache (``prefill_eagle_step``).
+        Returns (device logits [B, V] of each row's last valid position,
+        numpy f32 [B, H] hidden states there: each pairs with the token
+        after it to seed the sequence's decode span)."""
+        B = self._bucket_batch(len(chunks))
+        Q = self._bucket_tokens(max(end - start for _, start, end in chunks))
+        toks = np.zeros((B, Q), np.int32)
+        shifted = np.zeros((B, Q), np.int32)
+        feat_len = np.zeros(B, np.int32)
+        positions = np.zeros((B, Q), np.int32)
+        ctx = np.zeros(B, np.int32)
+        tables = [[] for _ in range(B)]
+        for i, (seq, start, end) in enumerate(chunks):
+            ids = seq.token_ids
+            piece = ids[start:end]
+            toks[i, :len(piece)] = piece
+            # x_{p+1} for each position p of the chunk; a fresh prompt's last
+            # position pairs with the token sampled after this call, which
+            # the decode span covers: feat_len leaves it out
+            nxt = ids[start + 1:min(end + 1, seq.num_tokens)]
+            shifted[i, :len(nxt)] = nxt
+            feat_len[i] = len(nxt)
+            positions[i] = np.arange(start, start + Q, dtype=np.int32)
+            ctx[i] = end
+            tables[i] = seq.page_ids
+        self.target_forwards += 1
+        self.draft_forwards += 1
+        logits, h_last, _, _ = prefill_eagle_step(
+            self.params, self.cache, self.draft_cache, self._t(toks), self._t(shifted),
+            self._t(feat_len), self._t(positions), self._pad_block_tables(tables),
+            self._t(ctx), cfg=self.cfg, ecfg=self.draft_cfg, scheme=self.verify_scheme)
+        return logits, h_last.to(torch.float32).cpu().numpy()
+
+    def _sync_espan(self, seqs, rows) -> None:
+        """Write each sequence's span seed (``seq.eagle_span``: one position,
+        the hidden state at the prompt's last position paired with the token
+        after it) into its bank row, unless the rounds already carried the
+        row to the sequence's length. A seed that no longer ends at the
+        pending last token (the sequence moved on without the rounds: decode
+        steps with speculation disabled) gives way to a one-position span at
+        the right place: the last token with a zero hidden state, which costs
+        one round's draft quality and no correctness."""
+        H = self.cfg.hidden_size
+        for s, row in zip(seqs, rows):
+            if self._ebank.synced.get(s.seq_id) == s.num_tokens:
+                continue
+            h, t, p, n = s.eagle_span
+            if int(p) + int(n) != s.num_tokens - 1:
+                h, t, p = np.zeros((1, H), np.float32), [s.last_token()], s.num_tokens - 2
+            row = int(row)
+            self._espan_h[row] = 0
+            self._espan_h[row, 0] = self._t(h[0], torch.float32).to(torch.bfloat16)
+            self._espan_t[row] = 0
+            self._espan_t[row, 0] = int(t[0])
+            self._espan_pos[row] = int(p)
+            self._espan_len[row] = 1
+            self._ebank.synced[s.seq_id] = s.num_tokens
+
+    def run_eagle_rounds(self, seqs, sampling: SamplingTensors, chain: int = 1):
+        """``rounds_per_step`` EAGLE rounds per call (``eagle_rounds_step``),
+        ``chain`` calls back to back on the device-resident span bank.
+        Returns numpy (tokens [chain*R, n, k+1] (-1 padded), accepted
+        [chain*R, n], logprobs)."""
+        B, _, _, max_new, rows, _, tables_d = self._round_inputs(seqs, self._ebank)
+        self._sync_espan(seqs, rows[:len(seqs)])
+        st = self.sampling_tensors(sampling, len(seqs), B)
+        rounds = self.config.speculative.rounds_per_step
+        rows_d = self._t(rows, torch.int64)
+        budget = [self._t(max_new)]
+
+        def step():
+            toks, accs, lps, budget[0], _, _ = eagle_rounds_step(
+                self.params, self.draft_cache, self.cache, self._espan_h, self._espan_t,
+                self._espan_pos, self._espan_len, rows_d, tables_d, budget[0], st, self.gen,
+                cfg=self.cfg, ecfg=self.draft_cfg, scheme=self.verify_scheme, k=self.k,
+                num_rounds=rounds)
+            return toks, accs, lps
+        toks, accs, lps = self._chained(step, chain, len(seqs))
+        self.draft_forwards += toks.shape[0] * (self.k + 1)
+        for i, s in enumerate(seqs):
+            # the rounds carried this row to the length the tokens give
+            self._ebank.synced[s.seq_id] = s.num_tokens + int(accs[:, i].sum())
+        return toks, accs, lps
+
     def free_rows(self, seq) -> None:
         """Release a finished sequence's rows of every bank (each a no-op
         without one)."""
-        for bank in (self._ring, self._mbank, self._hbank):
+        for bank in (self._ring, self._mbank, self._hbank, self._ebank):
             bank.free(seq.seq_id)
 
     # -- ring-buffer draft KV (windowed shared-weights draft) --------------

@@ -14,12 +14,16 @@ GPTQ checkpoint, drafted by its own weights at W4A16:
     llm = LLM(model="gemma2-9b", quantization="awq", num_speculative_tokens=3,
               speculative_draft_scheme="w4a16", spec_draft_kv_window=64)
 
-Medusa heads serve through the same entry point, from ``params["medusa"]``
-or from an .npz of trained heads:
+Medusa heads, an MLPSpeculator or an EAGLE net serve through the same
+entry point, from ``params["medusa"]``, ``params["mlp_spec"]`` or
+``params["eagle"]``, or from a trained net's .npz, whose arrays name the
+method (``w1``: Medusa, ``proj_first``: MLPSpeculator, else EAGLE):
 
     llm = LLM(model="llama3-8b", params={**params, "medusa": heads},
               num_speculative_tokens=4, speculative_model="[medusa]",
               spec_medusa_tree="default")
+    llm = LLM(model="llama3-8b", params={**params, "eagle": net},
+              num_speculative_tokens=3, speculative_model="[eagle]")
     llm = LLM(model="tiny", num_speculative_tokens=4,
               speculative_model="heads.npz")
 
@@ -53,10 +57,8 @@ import dataclasses
 import os
 from typing import List, Optional, Sequence, Union
 
-import numpy as np
-
 from qspec_tpu_torch.config import ModelConfig
-from qspec_tpu_torch.engine.arg_utils import EngineArgs
+from qspec_tpu_torch.engine.arg_utils import EngineArgs, proposer_of
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
 from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
 from qspec_tpu_torch.model_loader.loader import (config_from_hf_dir, load_hf_float,
@@ -64,7 +66,9 @@ from qspec_tpu_torch.model_loader.loader import (config_from_hf_dir, load_hf_flo
                                                  read_safetensors)
 from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
+from qspec_tpu_torch.spec_decode.eagle import load_eagle
 from qspec_tpu_torch.spec_decode.medusa import load_medusa
+from qspec_tpu_torch.spec_decode.mlp_speculator import load_mlp_speculator
 
 
 class LLM:
@@ -85,12 +89,17 @@ class LLM:
             draft_params = self._draft(draft_model, draft_params, device)
         net = args.speculative_model
         if net is not None and net.endswith(".npz"):
-            # a proposer net saved as arrays: Medusa heads carry w1 / b1 / head
-            with np.load(net) as z:
-                if "w1" not in z.files:
-                    raise NotImplementedError(f"speculative_model {net!r}: only Medusa "
-                                              "heads (w1 / b1 / head) are ported")
-            params = {**params, "medusa": load_medusa(net, device=resolve_device(device))}
+            # a proposer net saved as arrays, loaded by the method its
+            # arrays name (EngineArgs.spec_method)
+            dev = resolve_device(device)
+            method = proposer_of(net)
+            if method == "medusa":
+                params = {**params, "medusa": load_medusa(net, device=dev)}
+            elif method == "mlp_speculator":
+                params = {**params, "mlp_spec": load_mlp_speculator(net, device=dev)}
+            else:
+                params = {**params, "eagle": load_eagle(net, self.engine_config.model,
+                                                        device=dev)}
         self.llm_engine = LLMEngine(self.engine_config, params,
                                     eos_token_id=eos_token_id, device=device,
                                     seed=seed, draft_params=draft_params)

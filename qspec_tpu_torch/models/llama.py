@@ -325,20 +325,33 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
     return x, down.to(x.dtype), cache
 
 
+def embed_rows(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of a token tensor [...] -> [..., H] bf16. Gemma
+    scales them by sqrt(hidden) in the hidden dtype: the scale is rounded to
+    bf16 first, as the JAX package rounds it."""
+    x = params["embed"][tokens.reshape(-1).to(torch.int64)].to(torch.bfloat16)
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
+    return x.reshape(*tokens.shape, x.shape[-1])
+
+
 def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
                   cache: kvc.PagedKVCache, batch: AttentionBatch, *,
                   scheme: str = "w4a16",
                   logits_indices: Optional[torch.Tensor] = None,
-                  return_hidden: bool = False, tree=None):
+                  return_hidden=False, tree=None):
     """Full forward. token_ids: [B, Q] -> (logits [B, Q, V] f32, cache).
 
     ``logits_indices`` [B]: compute logits only at one query index per row
     (prefill needs only the last prompt position); the output is then
-    [B, 1, V]. ``return_hidden``: (logits, hidden [B, Q, H], cache), the
+    [B, 1, V]. ``return_hidden``: (logits, hidden, cache), the
     post-final-norm hidden state beside the logits (a QuaRot checkpoint's
-    stays in the rotated basis; the Medusa heads read it). ``tree``: an
-    ops.attention.TreeMask; every layer's attention runs under the Medusa
-    tree mask (the tree-verify rectangle).
+    stays in the rotated basis; the Medusa heads and the EAGLE net read it),
+    at the positions of the logits; ``"all"``: at every position ([B, Q, H])
+    even under ``logits_indices`` (EAGLE's prefill; the norm is one row at
+    a time, so the rows at ``logits_indices`` are those the gathered form
+    gives). ``tree``: an ops.attention.TreeMask; every layer's attention
+    runs under the Medusa tree mask (the tree-verify rectangle).
     """
     if scheme not in SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {SCHEMES}")
@@ -352,11 +365,7 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
                          "weight-only-quant")
     check_served(cfg)
     B, Q = token_ids.shape
-    x = params["embed"][token_ids.reshape(-1).to(torch.int64)].to(torch.bfloat16)
-    if cfg.embed_scale is not None:
-        # gemma scales the embeddings by sqrt(hidden) in the hidden dtype:
-        # the scale is rounded to bf16 first, as the JAX package rounds it
-        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
+    x = embed_rows(params, cfg, token_ids.reshape(-1))
     if "embed_norm" in params:
         # BLOOM's word_embeddings_layernorm, before layer 0
         x = layernorm(x, params["embed_norm"], params["embed_norm_b"], cfg.rms_norm_eps)
@@ -366,21 +375,26 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         x, addend, cache = decoder_layer(x, addend, params["layers"], cache, li, cfg, batch,
                                          params.get("rope_cache"), params.get("hadamards"),
                                          scheme, tree, alibi)
+    flat = None
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q
-        x, addend = x[flat], addend[flat]
-        Q = 1
+        if return_hidden != "all":
+            x, addend = x[flat], addend[flat]
     # the last layer's add, inside the final norm
     x, _, _ = _norm_maybe_quant(x, addend, None if cfg.quant == "w4" else params["final_norm"],
                                 cfg.rms_norm_eps, beta=params.get("final_norm_b"),
                                 norm_type=cfg.norm_type)
+    hidden = x.reshape(B, -1, x.shape[-1])
+    if flat is not None and return_hidden == "all":
+        x = x[flat]
     logits = compute_logits(x, params["lm_head"])
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
+    logits = logits.reshape(B, -1, logits.shape[-1])
     if return_hidden:
-        return logits.reshape(B, Q, -1), x.reshape(B, Q, -1), cache
-    return logits.reshape(B, Q, -1), cache
+        return logits, hidden, cache
+    return logits, cache
 
 
 def compute_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
@@ -606,8 +620,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     gammas and LayerNorm betas, BLOOM's ``embed_norm``, the bf16 head).
     Packed int4 (plain or grouped, with its scales and offsets), the gammas
     and the int8 head stay as they are: the kernels read the interchange
-    layouts directly. A ``"medusa"`` subtree (``spec_decode/medusa.py``'s
-    heads) comes along. An ALiBi model gets its ``alibi_slopes``."""
+    layouts directly. The proposer nets come along: ``"medusa"``
+    (``spec_decode/medusa.py``'s heads), ``"mlp_spec"`` (an MLPSpeculator)
+    and ``"eagle"`` (EAGLE's fc, layer and rope cache). An ALiBi model gets
+    its ``alibi_slopes``."""
     _head_kind(cfg)
     dev = resolve_device(device)
     keys = {"w4": ("qw", "qs"), "w4g": ("qw", "qs_g", "qo_g"), "none": ("w", "b")}[cfg.quant]
@@ -634,6 +650,11 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
         for name in ("final_norm", "final_norm_b", "embed_norm", "embed_norm_b"):
             if name in tree:
                 params[name] = _tensor(tree[name], dev)
-    if "medusa" in tree:
-        params["medusa"] = {k: _tensor(v, dev) for k, v in tree["medusa"].items()}
+
+    def subtree(t):
+        return {k: subtree(v) for k, v in t.items()} if isinstance(t, dict) else _tensor(t, dev)
+
+    for net in ("medusa", "mlp_spec", "eagle"):
+        if net in tree:
+            params[net] = subtree(tree[net])
     return params

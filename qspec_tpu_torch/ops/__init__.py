@@ -12,7 +12,8 @@ def kernel_wrappers() -> dict:
     its head-dim-256 instantiation in ``d256_launches``, under a Medusa
     tree mask in ``tree_launches`` and of its ALiBi instantiation in
     ``alibi_launches``; a norm's launches with the residual add are also
-    counted in its ``fused_launches``."""
+    counted in its ``fused_launches``, and rmsnorm's with a gamma in its
+    ``gamma_launches``."""
     import torch
     from qspec_tpu_torch.ops.attention_cuda import LAUNCHES
     from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,

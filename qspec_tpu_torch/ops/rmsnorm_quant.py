@@ -107,11 +107,13 @@ def rmsnorm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
             eps, _build.stream_of(x)))
         rmsnorm.launches += 1
         rmsnorm.fused_launches += residual is not None
+        rmsnorm.gamma_launches += gamma is not None
     return out if residual is None else (out, hs)
 
 
 rmsnorm.launches = 0
 rmsnorm.fused_launches = 0     # those of them with the residual add
+rmsnorm.gamma_launches = 0     # those of them with a gamma
 
 
 def rmsnorm_quant(x: torch.Tensor, eps: float = 1e-5, bits: int = 4,

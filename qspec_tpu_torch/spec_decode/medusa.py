@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qspec_tpu_torch.models.llama import resolve_device
 from qspec_tpu_torch.spec_decode.medusa_tree import TreeSpec
 
 
@@ -101,9 +102,10 @@ def init_medusa_params(hidden_size: int, vocab_size: int, k: int, seed: int = 0,
             "head": head}
 
 
-def load_medusa(path: str, dtype=torch.bfloat16, device="cpu") -> dict:
+def load_medusa(path: str, dtype=torch.bfloat16, device="cuda") -> dict:
     """Heads saved as an .npz of stacked w1 / b1 / head arrays (the JAX
-    package's benchmarks/train_medusa.py writes them)."""
+    package's benchmarks/train_medusa.py writes them), on ``device``."""
+    dev = resolve_device(device)
     with np.load(path) as z:
-        return {name: torch.as_tensor(np.asarray(z[name], np.float32), device=device).to(dtype)
+        return {name: torch.as_tensor(np.asarray(z[name], np.float32), device=dev).to(dtype)
                 for name in ("w1", "b1", "head")}

@@ -213,7 +213,7 @@ def test_sampled_decoding_runs_and_is_seeded(setup):
 def test_unported_options_raise(setup):
     _, _, cfg, params, _ = setup
     with pytest.raises(NotImplementedError):
-        LLMEngine(EngineConfig(model=cfg, speculative=SpeculativeConfig(method="eagle")),
+        LLMEngine(EngineConfig(model=cfg, speculative=SpeculativeConfig(method="lookahead")),
                   params, device="cpu")
     eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16, num_pages=8),
                                  scheduler=SchedulerConfig(**_sched())), params,

@@ -1191,3 +1191,100 @@ def test_separate_draft_and_forced_acceptance_on_card(gen, draft_quant):
     assert dict(forced.spec_metrics.emitted_per_seq_round) == {3: 6 * 4, 1: 4}
     zero = _qspec_engine(cfg, params, "qspec", draft, force_accept_len=0)
     assert _greedy(zero, prompts, 20) == oracle
+
+
+# ------------------------------------------------------ EAGLE and MLPSpeculator
+
+EAGLE_NET = "checkpoints/induction_eagle_v1.npz"
+# tests/test_torch_eagle.py::test_trained_pair_matches_jax_engine: the trained
+# pair at k = 4, 2 rounds a step, on _induction_prompts(4, 128, seed=13), 32
+# greedy tokens, TRAINED_SCHED; both packages on the CPU drafted 112 tokens,
+# accepted 96 and emitted 124
+TRAINED_COUNTS = (112, 96, 124)
+TRAINED_SCHED = dict(max_num_seqs=4, max_model_len=512, prefill_chunk_size=128,
+                     decode_batch_buckets=(4,), prefill_token_buckets=(128,))
+
+
+def _engine(cfg, params, spec, **sched):
+    from qspec_tpu_torch import CacheConfig, EngineConfig, LLMEngine, SchedulerConfig
+    return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16),
+                                  scheduler=SchedulerConfig(**sched), speculative=spec),
+                     params, device="cuda", seed=0)
+
+
+def _launched(counters) -> dict:
+    return {n: c.launches for n, c in counters.items() if c.launches}
+
+
+def test_trained_eagle_pair_on_card(gen):
+    """induction_lm_v2 quantized by quantize_float on the card with the
+    trained induction_eagle_v1 net: greedy EAGLE (k = 4) == AR, the
+    acceptance the CPU's (TRAINED_COUNTS), and only the verify scheme's
+    kernels launched (EAGLE's layer: the gamma norm and the bf16 attention;
+    the bf16 head of this checkpoint is a torch product)."""
+    import dataclasses
+    import json
+    from qspec_tpu_torch import SpeculativeConfig
+    from qspec_tpu_torch.model_loader.loader import quantize_float
+    from qspec_tpu_torch.spec_decode.eagle import load_eagle
+    with open(INDUCTION + ".json") as f:
+        meta = json.load(f)["cfg"]
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{k: v for k, v in meta.items() if k in names})
+    with np.load(INDUCTION + ".npz") as z:
+        sd = {k: torch.as_tensor(z[k]).cuda() for k in z.files}
+    params, cfg = quantize_float(sd, cfg, device="cuda")
+    params["eagle"] = load_eagle(EAGLE_NET, cfg)
+    assert params["eagle"]["fc"].is_cuda
+    prompts = _induction_prompts(4, 128, cfg.vocab_size, seed=13)
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    rq.rmsnorm.gamma_launches = 0
+    eng = _engine(cfg, params, SpeculativeConfig(num_speculative_tokens=4, method="eagle",
+                                                 rounds_per_step=2), **TRAINED_SCHED)
+    spec = _greedy(eng, prompts, 32)
+    launched = _launched(counters)
+    assert set(launched) == {"matmul_w4a16", "rmsnorm", "paged_attention"}
+    assert rq.rmsnorm.gamma_launches == 2 * eng.runner.draft_forwards > 0
+    assert spec == _greedy(_engine(cfg, params, None, **TRAINED_SCHED), prompts, 32)
+    m = eng.spec_metrics
+    print(f"trained EAGLE pair on the card: acceptance {m.draft_acceptance_rate}, tokens a "
+          f"round per sequence {dict(sorted(m.emitted_per_seq_round.items()))}, drafted / "
+          f"accepted / emitted {m.num_draft_tokens} {m.num_draft_accepted} "
+          f"{m.num_emitted_tokens}")
+    assert (m.num_draft_tokens, m.num_draft_accepted, m.num_emitted_tokens) == TRAINED_COUNTS
+
+
+@pytest.mark.parametrize("method", ["eagle", "mlp_speculator"])
+def test_proposers_at_8b_width_on_card(gen, method):
+    """chip_smoke.py's (E1) / (E2) at Llama-3-8B widths cut to 2 layers:
+    greedy EAGLE == AR and MLPSpeculator == medusa_null, with random nets
+    made on the card, each launching only matmul_w4a16, the int8 head,
+    rmsnorm and the bf16 attention."""
+    import dataclasses
+    from qspec_tpu_torch import SpeculativeConfig
+    from qspec_tpu_torch.models.llama import init_params
+    from qspec_tpu_torch.spec_decode.eagle import init_eagle_params
+    from qspec_tpu_torch.spec_decode.mlp_speculator import init_mlp_speculator_params
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), num_layers=2)
+    params = init_params(cfg, seed=0, device="cuda")
+    if method == "eagle":
+        params["eagle"] = init_eagle_params(cfg, seed=5)
+    else:
+        params["mlp_spec"] = init_mlp_speculator_params(cfg.hidden_size, cfg.vocab_size, 3,
+                                                        seed=6)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 128000, size=int(n)).tolist() for n in (64, 100, 150, 192)]
+    sched = dict(max_num_seqs=4, max_model_len=512)
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    eng = _engine(cfg, params, SpeculativeConfig(num_speculative_tokens=3, method=method),
+                  **sched)
+    spec = _greedy(eng, prompts, 24)
+    assert set(_launched(counters)) == {"matmul_w4a16", "matmul_w8a16", "rmsnorm",
+                                        "paged_attention"}
+    oracle = (None if method == "eagle" else
+              SpeculativeConfig(num_speculative_tokens=3, method="medusa_null"))
+    assert spec == _greedy(_engine(cfg, params, oracle, **sched), prompts, 24)

@@ -22,6 +22,8 @@ import qspec_tpu_torch
 from qspec_tpu_torch.engine.llm_engine import LLMEngine
 from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
 from qspec_tpu_torch.spec_decode.medusa import load_medusa, medusa_propose_tree
+from qspec_tpu_torch.spec_decode.eagle import load_eagle, eagle_layer_step
+from qspec_tpu_torch.spec_decode.mlp_speculator import load_mlp_speculator
 from qspec_tpu_torch.model_loader.families import convert_bloom, convert_mpt
 from qspec_tpu_torch.model_loader.loader import (read_safetensors, config_from_hf_dir,
                                                  load_hf_float, load_qspec, quantize_float)
@@ -53,14 +55,16 @@ def test_port_imports_no_jax():
     bad, port = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
     # every module was imported, the checkpoint loaders' (the float and
-    # QSpec Llama loaders among them), Medusa's and the n-gram matcher's
+    # QSpec Llama loaders among them), Medusa's, EAGLE's, MLPSpeculator's
+    # and the n-gram matcher's
     assert {"qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
             "qspec_tpu_torch.model_loader.families", "qspec_tpu_torch.model_loader.loader",
             "qspec_tpu_torch.ops.linear_kernels", "qspec_tpu_torch.ops.ngram",
             "qspec_tpu_torch.engine.model_runner", "qspec_tpu_torch.ops.hadamard",
             "qspec_tpu_torch.ops.packing", "qspec_tpu_torch.entrypoints.llm",
             "qspec_tpu_torch.spec_decode.medusa",
-            "qspec_tpu_torch.spec_decode.medusa_tree"} <= set(port)
+            "qspec_tpu_torch.spec_decode.medusa_tree", "qspec_tpu_torch.spec_decode.eagle",
+            "qspec_tpu_torch.spec_decode.mlp_speculator"} <= set(port)
 
 
 def test_port_sources_name_no_jax():

@@ -167,7 +167,7 @@ def test_load_medusa_npz(tmp_path):
     heads = _heads(rng, 2, 16, 32)
     path = tmp_path / "heads.npz"
     np.savez(path, **heads)
-    got, want = tmedusa.load_medusa(str(path)), jmedusa.load_medusa(str(path))
+    got, want = tmedusa.load_medusa(str(path), device="cpu"), jmedusa.load_medusa(str(path))
     for k in heads:
         np.testing.assert_array_equal(got[k].float().numpy(), np.asarray(want[k], np.float32))
 
@@ -619,7 +619,8 @@ def test_tree_guided_rejected(tiny):
 
 def test_llm_entry_points(tiny, tmp_path):
     """LLM with speculative_model="[medusa]" and the default tree, and with
-    an .npz of heads; a net that is not Medusa's is refused."""
+    an .npz of heads; an .npz of another proposer names that proposer's
+    method, and "[eagle]" wants an EAGLE net in params."""
     _, _, cfg, params = tiny
     kw = dict(device="cpu", num_speculative_tokens=4, block_size=16, max_model_len=160,
               max_num_seqs=4, prefill_chunk_size=64, num_pages=32, seed=0)
@@ -637,9 +638,9 @@ def test_llm_entry_points(tiny, tmp_path):
     assert b.engine_config.speculative.method == "medusa"
     assert [o.output_token_ids for o in b.generate(prompts, sp)] == outs_a
     np.savez(tmp_path / "other.npz", proj_first=np.zeros(2, np.float32))
-    with pytest.raises(NotImplementedError, match="Medusa"):
-        LLM(model="tiny", params=bare, speculative_model=str(tmp_path / "other.npz"), **kw)
-    with pytest.raises(NotImplementedError):
+    assert EngineArgs(num_speculative_tokens=4, speculative_model=str(tmp_path / "other.npz")
+                      ).spec_method() == "mlp_speculator"
+    with pytest.raises(ValueError, match="eagle"):
         LLM(model="tiny", params=bare, speculative_model="[eagle]", **kw)
 
 
