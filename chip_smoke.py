@@ -2001,21 +2001,18 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
            if any(any(o.values()) for o in opts.values()) else {})}
 
 
-# the summary keys an end-to-end line shows on the standard output (the log
-# has them all)
-E2E_KEYS = ("acceptance_rate", "emitted_per_round_per_seq", "spec_tokens_per_s",
-            "oracle_tokens_per_s")
+# the labels of the end-to-end runs logged (the standard output has their
+# count, the log each one's line)
+_E2E = []
 
 
 def e2e_log(label: str, prompts, spec, summary: dict):
-    """One line per end-to-end run: its token and prompt counts and its
-    summary (floats to 5 significant digits), in full to the log and its
-    E2E_KEYS to the standard output."""
+    """One line per end-to-end run to the log: its token and prompt counts
+    and its summary (floats to 5 significant digits)."""
     short = {k: float(f"{v:.5g}") if isinstance(v, float) else v for k, v in summary.items()}
     head = f"e2e {label}: {len(prompts)}x{len(spec[0])} greedy tokens == oracle's: "
     log(head + json.dumps(short, separators=(",", ":")), stdout=False)
-    print(head + json.dumps({k: short[k] for k in E2E_KEYS if k in short},
-                            separators=(",", ":")), flush=True)
+    _E2E.append(label)
 
 
 def llm_engine(kw: dict):
@@ -2348,7 +2345,7 @@ def write_safetensors(path: str, tensors: dict) -> None:
     for name, t in tensors.items():
         n = t.numel() * t.element_size()
         header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32",
-                                  torch.uint8: "U8"}[t.dtype],
+                                  torch.float16: "F16", torch.uint8: "U8"}[t.dtype],
                         "shape": list(t.shape), "data_offsets": [off, off + n]}
         off += n
     raw = json.dumps(header).encode()
@@ -2762,6 +2759,308 @@ def phase_llama_dirs(params8, cfg8, smi: str):
     return out
 
 
+# ---------------------------------------------------------------- (F) the server
+
+NEVER = "<-1>"
+
+
+class SmokeTokenizer:
+    """Lossless: id i <-> "<i>", so a reply's text, streamed or not, parses
+    back to its token ids (the port ships no tokenizer and the card's machine
+    has no transformers). A chat template joins the messages' ids."""
+
+    eos_token_id = None
+
+    def encode(self, text):
+        return [int(t) for t in re.findall(r"<(\d+)>", text)]
+
+    def decode(self, ids):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+    def apply_chat_template(self, messages, tokenize=True, add_generation_prompt=True):
+        return [t for m in messages for t in self.encode(m["content"])]
+
+
+def http_json(port: int, path: str, body: dict):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    r = c.getresponse()
+    data = json.loads(r.read())
+    c.close()
+    if r.status != 200:
+        raise AssertionError(f"(F) {path}: HTTP {r.status} {data}")
+    return data
+
+
+def http_stream(port: int, path: str, body: dict):
+    """An SSE answer read line by line: (chunks, host-clock seconds from the
+    send to each chunk); fails without the closing data: [DONE]."""
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    c.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    r = c.getresponse()
+    if r.status != 200:
+        raise AssertionError(f"(F) {path} stream: HTTP {r.status} {r.read()[:300]}")
+    chunks, times = [], []
+    while True:
+        line = r.readline()
+        if not line:
+            raise AssertionError(f"(F) {path} stream ended without data: [DONE]")
+        line = line.strip()
+        if line == b"data: [DONE]":
+            break
+        if line:
+            chunks.append(json.loads(line[len(b"data: "):]))
+            times.append(time.perf_counter() - t0)
+    c.close()
+    return chunks, times
+
+
+def serve_requests(server, port: int, jobs):
+    """``jobs``: (path, body, streamed), one connection each. A job is sent
+    once the one before it has queued its add_request on the engine's worker
+    thread, and the first add_request waits there until every job has
+    queued its own: the engine admits them in job order and all before its
+    first step, as LLM.generate admits its prompts. (Which request comes
+    fifth, and so waits for a slot, and where a prompt falls in the prefill
+    chunks, change the bf16 GEMMs' shapes, and so may flip a near-tie of
+    the random weights' logits.) Returns (answer, chunk times) a job: a
+    streamed answer is its chunks."""
+    import asyncio
+    import threading
+    aeng = server.engine
+    queued, gate = [], threading.Event()
+    call, add = aeng._call, aeng.engine.add_request
+
+    def gated(*a, **kw):
+        gate.wait(60)
+        return add(*a, **kw)
+
+    async def counted(fn, *a):
+        fut = asyncio.get_running_loop().run_in_executor(aeng._worker, fn, *a)
+        if fn is gated:  # queued behind the ones before it
+            queued.append(1)
+        return await fut
+    aeng._call, aeng.engine.add_request = counted, gated
+    out, errors = [None] * len(jobs), []
+
+    def one(i, path, body, streamed):
+        try:
+            out[i] = http_stream(port, path, body) if streamed else (http_json(port, path, body),
+                                                                     None)
+        except BaseException as e:
+            errors.append(e)
+    threads = [threading.Thread(target=one, args=(i, *job)) for i, job in enumerate(jobs)]
+    try:
+        for i, t in enumerate(threads):
+            t.start()
+            deadline = time.time() + 60
+            while len(queued) <= i and time.time() < deadline and not errors:
+                time.sleep(0.001)
+            if len(queued) <= i:
+                break
+    finally:
+        gate.set()
+        for t in threads:
+            if t.ident is not None:  # started
+                t.join()
+        aeng._call, aeng.engine.add_request = call, add
+    if errors:
+        raise errors[0]
+    if len(queued) != len(jobs):
+        raise AssertionError(f"(F) {len(queued)} of {len(jobs)} requests reached the engine")
+    return out
+
+
+def reply_tokens(tok, answer, streamed: bool):
+    """A reply's token ids, its finish reason and completion tokens (None
+    for a stream): a stream's text is its chunks' joined, its finish reason
+    the last chunk's (every other None)."""
+    if streamed:
+        chunks = answer
+        ch = [c["choices"][0] for c in chunks]
+        if any(c["finish_reason"] is not None for c in ch[:-1]):
+            raise AssertionError("(F) a finish_reason before the last chunk")
+        text = "".join(c.get("text", c.get("delta", {}).get("content", "")) for c in ch)
+        return tok.encode(text), ch[-1]["finish_reason"], None, [len(tok.encode(
+            c.get("text", ""))) for c in ch]
+    c = answer["choices"][0]
+    text = c["text"] if "text" in c else c["message"]["content"]
+    toks = tok.encode(text)
+    if c["logprobs"] is not None and [int(t) for t in c["logprobs"]["tokens"]] != toks:
+        raise AssertionError("(F) the reply's text does not parse to its tokens")
+    return toks, c["finish_reason"], answer["usage"], None
+
+
+def serve_and_check(label, args, params, prompts, chat_prompt, streamed, expect, max_tokens,
+                    device="cuda"):
+    """``build_server(args, params=)`` on the card in a thread; the prompts'
+    completions (those in ``streamed`` streamed) and, with ``chat_prompt``,
+    a chat completion, sent at once; then the same engine config's
+    LLM.generate and its qspec_null oracle on the same prompts. Each reply's
+    tokens must equal both, its finish reason be "length" and its usage
+    right, and exactly the kernels of ``expect`` launch while the server
+    answers. Returns (summary, engine, launches)."""
+    from qspec_tpu_torch import LLM, SamplingParams
+    from qspec_tpu_torch.entrypoints.openai.api_server import ServerThread, build_server
+    from qspec_tpu_torch.ops import kernel_wrappers
+    tok = SmokeTokenizer()
+    server = build_server(args, model_name=label, params=params, tokenizer=tok, device=device)
+    eng = server.engine.engine
+    # a stop string (never emitted: ids are not negative) makes the engine
+    # read the tokens after every round, as it must for a client's stop
+    # strings, so a stream carries one chunk a round
+    base = {"max_tokens": max_tokens, "temperature": 0.0, "ignore_eos": True, "logprobs": 1,
+            "stop": [NEVER]}
+    jobs = [("/v1/completions", {**base, "prompt": p, "stream": i in streamed}, i in streamed)
+            for i, p in enumerate(prompts)]
+    if chat_prompt is not None:
+        jobs.append(("/v1/chat/completions",
+                     {**base, "messages": [{"role": "user", "content": tok.decode(chat_prompt)}]},
+                     False))
+    counters = kernel_wrappers()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with ServerThread(server) as st:
+        replies = serve_requests(server, st.port, jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    m = eng.spec_metrics
+    summary = {"acceptance_rate": m.draft_acceptance_rate,
+               "drafted_accepted_emitted": [m.num_draft_tokens, m.num_draft_accepted,
+                                            m.num_emitted_tokens], "wall_s": wall}
+    del server, eng
+    torch.cuda.empty_cache()
+    all_prompts = list(prompts) + ([chat_prompt] if chat_prompt is not None else [])
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True, stop=[NEVER])
+    kw = {**dataclasses.asdict(args), "device": device, "tokenizer": tok}
+    llm = [o.output_token_ids for o in LLM(params=params, **kw).generate(all_prompts, sp)]
+    torch.cuda.empty_cache()
+    oracle = [o.output_token_ids for o in LLM(params=params, **{
+        **kw, "speculative_method": "qspec_null"}).generate(all_prompts, sp)]
+    torch.cuda.empty_cache()
+    ttft, gaps, multi = [], [], 0
+    for i, ((path, body, st_), (answer, times), want, orc, p) in enumerate(
+            zip(jobs, replies, llm, oracle, all_prompts)):
+        toks, finish, usage, per_chunk = reply_tokens(tok, answer, st_)
+        if toks != want or toks != orc:
+            raise AssertionError(f"{label} job {i} {path}{' (streamed)' if st_ else ''}: tokens "
+                                 f"{toks[:8]} vs LLM.generate {want[:8]} vs oracle {orc[:8]}")
+        if finish != "length" or len(toks) != max_tokens:
+            raise AssertionError(f"{label} {path}: finish {finish}, {len(toks)} tokens")
+        if usage is not None and usage != {"prompt_tokens": len(p), "completion_tokens":
+                                           max_tokens, "total_tokens": len(p) + max_tokens}:
+            raise AssertionError(f"{label} {path}: usage {usage}")
+        if times:
+            ttft.append(times[0])
+            gaps += [b - a for a, b in zip(times, times[1:])]
+            multi += sum(n > 1 for n in per_chunk)
+            # the stream's text equals the text not streamed
+            if SmokeTokenizer().decode(toks) != SmokeTokenizer().decode(want):
+                raise AssertionError(f"{label}: streamed text differs")
+    if set(launches) != expect:
+        raise AssertionError(f"{label}: kernels launched while serving: {sorted(launches)}, "
+                             f"expected {sorted(expect)}")
+    summary.update(ttft_s=ttft, median_chunk_gap_ms=float(np.median(gaps)) * 1e3,
+                   chunks_of_several_tokens=multi, streamed_chunks=len(gaps) + len(ttft))
+    return summary, launches
+
+
+def induction_dir(d: str) -> None:
+    """checkpoints/induction_lm_v2 as a Hugging Face Llama directory
+    (config.json from its cfg, model.safetensors from its arrays)."""
+    with open(INDUCTION + ".json") as f:
+        c = json.load(f)["cfg"]
+    write_config(d, {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                     "vocab_size": c["vocab_size"], "hidden_size": c["hidden_size"],
+                     "intermediate_size": c["intermediate_size"],
+                     "num_hidden_layers": c["num_layers"],
+                     "num_attention_heads": c["num_heads"],
+                     "num_key_value_heads": c["num_kv_heads"], "head_dim": c["head_dim"],
+                     "rope_theta": c["rope_theta"], "rms_norm_eps": c["rms_norm_eps"],
+                     "max_position_embeddings": c["max_position_embeddings"],
+                     "tie_word_embeddings": c["tie_word_embeddings"]})
+    with np.load(INDUCTION + ".npz") as z:
+        write_safetensors(os.path.join(d, "model.safetensors"),
+                          {k: torch.as_tensor(z[k]) for k in z.files})
+
+
+INDUCTION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints",
+                         "induction_lm_v2")
+# greedy W4A4 QSpec (k = 3) on induction_lm_v2, 4 prompts of 128, 32 tokens:
+# 92 of 96 drafts, on the CPU (tests/test_torch_quantize_float.py) and on
+# the card (tests/test_torch_gpu.py)
+INDUCTION_ACCEPT = 23 / 24
+INDUCTION_KERNELS = {"matmul_w4a16", "matmul_w4a4", "rmsnorm", "rmsnorm_quant",
+                     "paged_attention"}
+
+
+def induction_prompts(n: int, prompt_len: int, vocab: int, seed: int = 0):
+    """bench.py's induction prompts: a random segment of period 16..64 tiled."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        period = int(rng.integers(16, 65))
+        seg = rng.integers(2, vocab, size=period)
+        out.append([int(x) for x in np.tile(seg, prompt_len // period + 1)[:prompt_len]])
+    return out
+
+
+def phase_server_8b(params8, cfg8, smi: str):
+    """(F) The OpenAI-compatible server (build_server, ServerThread, HTTP
+    from this thread) over QSpec at Llama-3-8B width: (A)'s parameters, the
+    int8 head, the bf16 KV cache, the W4A8 draft, k = 3; four completions of
+    e2e_prompts() at once (two streamed) and a chat completion, 32 greedy
+    tokens each, == LLM.generate == qspec_null, exactly QUAROT_KERNELS
+    launched while it answers. Then induction_lm_v2 served from a directory
+    (quantize_float at load, W4A4, bf16 head), four streams of which two are
+    streamed: == LLM.generate == oracle, acceptance INDUCTION_ACCEPT, and
+    chunks that carry several tokens."""
+    import tempfile
+    from qspec_tpu_torch.engine.arg_utils import EngineArgs
+    t0 = time.perf_counter()
+    args = EngineArgs(model="llama3-8b", num_speculative_tokens=3,
+                      speculative_draft_scheme="w4a8", max_model_len=512, max_num_seqs=4)
+    if args.model_config() != cfg8:
+        raise AssertionError(f"(F) the llama3-8b preset differs from (A)'s config: {cfg8}")
+    prompts = e2e_prompts()
+    label = "(F) llama3-8b server (w4a8 draft, int8 head, bf16 KV, k=3)"
+    s8, launches = serve_and_check(label, args, params8, prompts, prompts[0][:96],
+                                   streamed=(1, 3), expect=QUAROT_KERNELS, max_tokens=32)
+    if s8["acceptance_rate"] <= 0:
+        raise AssertionError(f"{label}: no draft token was accepted")
+    with tempfile.TemporaryDirectory() as d:
+        induction_dir(d)
+        args_i = EngineArgs(model=d, num_speculative_tokens=3, lm_head_quant="bf16",
+                            block_size=16, prefill_chunk_size=128, max_model_len=512,
+                            max_num_seqs=4)
+        prompts_i = induction_prompts(4, 128, args_i.model_config().vocab_size)
+        label_i = "(F) induction_lm_v2 server (quantize_float, w4a4 draft, bf16 head, k=3)"
+        si, _ = serve_and_check(label_i, args_i, None, prompts_i, None, streamed=(0, 2),
+                                expect=INDUCTION_KERNELS, max_tokens=32)
+    if abs(si["acceptance_rate"] - INDUCTION_ACCEPT) > 1e-9 or not si["chunks_of_several_tokens"]:
+        raise AssertionError(f"{label_i}: acceptance {si['acceptance_rate']} (want "
+                             f"{INDUCTION_ACCEPT}), {si['chunks_of_several_tokens']} chunks "
+                             "of several tokens")
+    wall = time.perf_counter() - t0
+    full = {"llama3_8b": s8, "induction_lm_v2": si, "phase_wall_s": wall}
+    log("server (F) " + json.dumps(full, separators=(",", ":")), stdout=False)
+    log(f"server (F) llama3-8b over HTTP, 4 completions (2 streamed) + 1 chat, 32 tokens "
+        f"each == LLM.generate == qspec_null: TTFT {max(s8['ttft_s']):.4g} s, median chunk "
+        f"gap {s8['median_chunk_gap_ms']:.4g} ms (host clock), acceptance "
+        f"{s8['acceptance_rate']:.5g}, serve wall {s8['wall_s']:.4g} s")
+    log(f"server (F) induction_lm_v2 from a directory: acceptance {si['acceptance_rate']:.5g} "
+        f"(the CPU's), {si['chunks_of_several_tokens']} of {si['streamed_chunks']} streamed "
+        f"chunks carry several tokens, median gap {si['median_chunk_gap_ms']:.4g} ms; "
+        f"phase {wall:.1f} s; card {smi}")
+    return launches, full
+
+
 # the kernels of the EAGLE and MLPSpeculator paths on a QuaRot target:
 # the verify scheme's; EAGLE's layer adds the gamma norm and the bf16
 # attention over its own cache, and drafts through the int8 head
@@ -2912,9 +3211,13 @@ def main():
     draft = phase_draft_1b(params8, cfg8, smi)
     forced = phase_forced_8b(params8, cfg8, smi)
     dirs = phase_llama_dirs(params8, cfg8, smi)
+    server = phase_server_8b(params8, cfg8, smi)
     del params8
     torch.cuda.empty_cache()
     proposers = phase_proposers_8b(smi)
+    log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
+        "BLOOM-7B1, MPT, (A)-(E)), each greedy == its oracle; chip_smoke.log has each "
+        "run's line")
     # each kernel's launches in the real-weights loaders' paths: (A) W4A4 and
     # W4A8, (B) the separate draft, (C) forced, (D1) the bf16 directory,
     # (D2) the float directory quantized at load, (D3) the QSpec directory
@@ -2983,6 +3286,8 @@ def main():
             extra["loader_launches"] = loaders
         if name in PROPOSER_KERNELS:
             extra["proposer_launches"] = [proposers[k][0][name] for k in ("E1", "E2")]
+        if name in server[0]:
+            extra["server_launches"] = server[0][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],

@@ -1,5 +1,10 @@
 """EngineArgs: flat arguments -> composed EngineConfig.
 
+``EngineArgs.add_cli_args`` adds one command-line flag a field
+(``--num-speculative-tokens``, ``--kv-cache-dtype``, ...; a bool field also
+gets its ``--no-`` form, and an Optional one takes "none"), and
+``from_cli_args`` reads them back, as in the JAX package.
+
 Port of ``qspec_tpu/engine/arg_utils.py`` for the flags the port serves; the
 names are the JAX package's. ``model`` names a preset ("tiny", "llama3-8b"
 or "gemma2-9b") or a Hugging Face checkpoint directory, whose config.json
@@ -20,6 +25,7 @@ QSpec (the ``LLM`` entry point loads it and records its cfg).
 
 from __future__ import annotations
 
+import argparse
 import ast
 import dataclasses
 import os
@@ -51,6 +57,16 @@ def proposer_of(path: str) -> str:
     with np.load(path) as z:
         files = set(z.files)
     return "medusa" if "w1" in files else "mlp_speculator" if "proj_first" in files else "eagle"
+
+
+def _cli_type(annotation: str):
+    """A flag's parser from its field's annotation (a string here): int,
+    float or str, and for an Optional field also "none" -> None."""
+    base = {"int": int, "float": float, "str": str}[
+        annotation.removeprefix("Optional[").removesuffix("]")]
+    if not annotation.startswith("Optional["):
+        return base
+    return lambda v: None if v.lower() in ("none", "") else base(v)
 
 
 @dataclasses.dataclass
@@ -96,6 +112,23 @@ class EngineArgs:
     ngram_prompt_lookup_max: int = 4
     ngram_prompt_lookup_min: int = 1
     seed: int = 0
+
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        """One flag a field, typed by the field's annotation."""
+        for f in dataclasses.fields(EngineArgs):
+            name = "--" + f.name.replace("_", "-")
+            if f.type == "bool":
+                parser.add_argument(name, action=argparse.BooleanOptionalAction,
+                                    default=f.default)
+            else:
+                parser.add_argument(name, type=_cli_type(f.type), default=f.default)
+        return parser
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "EngineArgs":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(args).items() if k in names})
 
     def model_config(self) -> ModelConfig:
         if self.quantization not in QUANT:

@@ -15,17 +15,25 @@ the same chain rounds proposed by MLPSpeculator's recurrent heads, with
 target's hidden states, with its own one-layer KV pool, whose prompt pass is
 fused into the target's prefill), or with ``method="ngram"`` into
 prompt-lookup rounds (proposals matched on the device from the sequence's
-own tokens, no draft forward: the proposer of a bf16 checkpoint). Requests
-are token ids: the port has no tokenizer, so stop strings and grammar-guided
-decoding are not ported and are rejected, as are the sampling knobs no
-sampler applies (repetition_penalty, a per-request seed).
+own tokens, no draft forward: the proposer of a bf16 checkpoint).
+
+Requests are token ids. With a ``tokenizer`` (anything with ``decode``) the
+engine also enforces stop strings (``SamplingParams.stop``, detokenized
+incrementally) and fills ``RequestOutput.text``; ``logprobs`` > 1 returns
+the top-n alternatives of each position sampled by a prefill or an AR step
+(a speculative round's positions get None, as in the JAX package). Every
+request carries a ``tracing.RequestTrace``; ``stat_loggers`` receive one
+``metrics.Stats`` a step. Still refused: grammar-guided decoding (ROADMAP
+queue 1 item 7), and ``repetition_penalty`` and a per-request ``seed`` for
+sampled requests, which the JAX package accepts and ignores (no sampler
+applies them).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import List, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,7 +41,9 @@ import torch
 from qspec_tpu_torch.config import EngineConfig
 from qspec_tpu_torch.core.block_manager import BlockManager
 from qspec_tpu_torch.core.scheduler import ScheduledBatch, Scheduler
-from qspec_tpu_torch.core.sequence import Sequence
+from qspec_tpu_torch.core.sequence import Sequence, SequenceStatus
+from qspec_tpu_torch.detokenizer import DetokState, detokenize_incrementally
+from qspec_tpu_torch.engine.metrics import Stats
 from qspec_tpu_torch.engine.model_runner import (ModelRunner, make_sampling_tensors,
                                                  ring_pages, ring_rows)
 from qspec_tpu_torch.models.llama import check_served, resolve_device
@@ -41,6 +51,7 @@ from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.eagle import eagle_cfg_for
 from qspec_tpu_torch.spec_decode.metrics import SpecDecodeMetrics
+from qspec_tpu_torch.tracing import RequestTrace, init_tracer, stage_range
 
 
 @dataclass
@@ -50,7 +61,13 @@ class RequestOutput:
     output_token_ids: List[int]
     finished: bool
     finish_reason: Optional[str] = None
+    text: str = ""
     logprobs: Optional[List[float]] = None
+    # per-position {token_id: logprob} dicts when logprobs > 1 was requested
+    top_logprobs: Optional[List[Optional[dict]]] = None
+    # a finished request's latencies in seconds from its RequestTrace:
+    # time_in_queue, time_to_first_token, e2e
+    metrics: dict = field(default_factory=dict)
 
 
 SPEC_METHODS = ("qspec", "qspec_null", "medusa", "medusa_null", "mlp_speculator",
@@ -94,10 +111,11 @@ def _check_supported(config: EngineConfig) -> None:
 class LLMEngine:
     def __init__(self, config: EngineConfig, params, num_pages: Optional[int] = None,
                  eos_token_id: Optional[int] = None, device="cuda", seed: int = 0,
-                 draft_params=None):
+                 draft_params=None, tokenizer=None):
         _check_supported(config)
         self.config = config
         self.eos_token_id = eos_token_id
+        self.tokenizer = tokenizer
         self.device = resolve_device(device)
         self.spec = config.speculative
         lookahead = ((self.spec.num_speculative_tokens + 1)
@@ -126,6 +144,17 @@ class LLMEngine:
                                    lookahead=lookahead)
         self._next_id = 0
         self.spec_metrics = SpecDecodeMetrics()
+        self._num_total_pages = num_pages
+        self.stat_loggers = []
+        self.tracer = None            # set by enable_tracing()
+        self._traces: Dict[int, RequestTrace] = {}
+
+    def enable_tracing(self, otlp_endpoint: Optional[str] = None,
+                       service_name: str = "qspec_tpu_torch") -> bool:
+        """Emit one OpenTelemetry span per finished request; False (and no
+        spans) without OpenTelemetry."""
+        self.tracer = init_tracer(service_name, otlp_endpoint)
+        return self.tracer is not None
 
     def _derive_num_pages(self) -> int:
         """Size the cache: what the scheduler can address, capped by
@@ -165,16 +194,17 @@ class LLMEngine:
         return max(2, min(need, fit))
 
     # ------------------------------------------------------------------
-    def add_request(self, prompt_token_ids: List[int],
-                    sampling_params: Optional[SamplingParams] = None,
-                    request_id: Optional[int] = None) -> int:
-        sp = sampling_params or SamplingParams()
-        if sp.stop or sp.guided_regex or sp.guided_json is not None \
-                or sp.guided_choice:
-            raise NotImplementedError("stop strings and guided decoding are "
-                                      "not ported")
-        if (sp.logprobs or 0) > 1:
-            raise NotImplementedError("top-n logprobs are not ported")
+    def check_request(self, sp: SamplingParams) -> None:
+        """Raise for a request option the port does not serve (what
+        ``add_request`` refuses); it changes no state, so a caller on another
+        thread may call it while a step runs."""
+        if sp.guided_regex or sp.guided_json is not None or sp.guided_choice:
+            raise NotImplementedError("guided decoding is not ported (ROADMAP "
+                                      "queue 1 item 7)")
+        if sp.stop and self.tokenizer is None:
+            # the token ids cannot be matched against text without one
+            raise NotImplementedError("stop strings need a tokenizer (LLMEngine "
+                                      "tokenizer=)")
         if sp.repetition_penalty != 1.0:
             raise NotImplementedError("repetition_penalty is not ported: no "
                                       "sampler applies it")
@@ -182,12 +212,30 @@ class LLMEngine:
             raise NotImplementedError("a per-request seed for sampled decoding "
                                       "is not ported: the engine's generator "
                                       "(LLMEngine seed) samples every request")
+
+    def add_request(self, prompt_token_ids: List[int],
+                    sampling_params: Optional[SamplingParams] = None,
+                    request_id: Optional[int] = None) -> int:
+        sp = sampling_params or SamplingParams()
+        self.check_request(sp)
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
         self.scheduler.add_seq(Sequence(seq_id=rid,
                                         prompt_token_ids=list(prompt_token_ids),
                                         sampling_params=sp))
+        self._traces[rid] = RequestTrace()
         return rid
+
+    def abort_request(self, request_id: int) -> None:
+        """Drop a request wherever it is (waiting or running) and release
+        its pages and rows; no output follows."""
+        seq = next((s for q in (self.scheduler.waiting, self.scheduler.running)
+                    for s in q if s.seq_id == request_id), None)
+        if seq is None:
+            return
+        self.scheduler.abort_seq(request_id)
+        self.runner.free_rows(seq)
+        self._traces.pop(request_id, None)
 
     def has_unfinished_requests(self) -> bool:
         return self.scheduler.has_unfinished()
@@ -198,18 +246,22 @@ class LLMEngine:
         for s in self.scheduler.waiting:
             # a preempted sequence re-prefills its draft KV into a new row
             self.runner.free_ring_row(s)
-        rejected = [self._to_output(s) for s in self.scheduler.rejected]
+        rejected = [self._to_output(s, trace=self._traces.pop(s.seq_id, None))
+                    for s in self.scheduler.rejected]
         self.scheduler.rejected = []
         if batch.is_empty:
             return rejected
         if batch.kind == "prefill":
-            self._run_prefill(batch)
+            with stage_range("prefill"):
+                self._run_prefill(batch)
             if batch.decode_seqs:
                 # mixed chunked-prefill iteration: running decodes advance in
                 # the same engine step so admissions don't stall them
-                self._run_decode_phase(batch.decode_seqs, mixed=True)
+                with stage_range("decode"):
+                    self._run_decode_phase(batch.decode_seqs, mixed=True)
         else:
-            self._run_decode_phase(batch.seqs)
+            with stage_range("decode"):
+                self._run_decode_phase(batch.seqs)
 
         outputs = rejected
         touched = (batch.seqs if batch.kind == "decode" else
@@ -219,13 +271,72 @@ class LLMEngine:
         for s in list(self.scheduler.running):
             if s.num_computed_tokens >= s.prefill_len:
                 s.check_stop(self.eos_token_id)
+                self._check_stop_strings(s)
+        for s in (batch.seqs if batch.kind == "decode"
+                  else [c.seq for c in batch.chunks] + batch.decode_seqs):
+            tr = self._traces.get(s.seq_id)
+            if tr is not None:
+                tr.mark_scheduled()
+                if s.output_token_ids:
+                    tr.mark_first_token()
         for s in self.scheduler.free_finished():
             self.runner.free_rows(s)
-            outputs.append(self._to_output(s))
+            outputs.append(self._to_output(s, trace=self._traces.pop(s.seq_id, None)))
         for s in touched:
             if not s.is_finished:
                 outputs.append(self._to_output(s, finished=False))
+        if self.stat_loggers:
+            self._log_stats(batch)
         return outputs
+
+    def _log_stats(self, batch: ScheduledBatch) -> None:
+        m = self.spec_metrics
+        stats = Stats(
+            num_running=len(self.scheduler.running),
+            num_waiting=len(self.scheduler.waiting),
+            num_free_pages=self.block_manager.num_free_pages,
+            num_total_pages=self._num_total_pages,
+            prompt_tokens=sum(c.end - c.start for c in batch.chunks)
+            if batch.kind == "prefill" else 0,
+            generation_tokens=len(batch.seqs) if batch.kind == "decode" else 0,
+            spec_draft_acceptance_rate=m.draft_acceptance_rate
+            if m.num_spec_rounds else None,
+            spec_system_efficiency=m.system_efficiency
+            if m.num_spec_rounds else None)
+        for logger in self.stat_loggers:
+            logger.record(stats)
+
+    def _check_stop_strings(self, seq: Sequence) -> None:
+        """Enforce SamplingParams.stop (stop *strings*), as the JAX package
+        does: detokenize incrementally and search only the newly decoded text
+        (plus the last len(stop) - 1 characters before it); at a hit, cut the
+        output to the shortest token prefix whose text holds the stop string.
+        The text excludes the stop string unless include_stop_str_in_output."""
+        sp = seq.sampling_params
+        if not sp.stop or seq.is_finished:
+            return
+        if seq.detok is None:
+            seq.detok = DetokState()
+        old_len = len(seq.detok.text)
+        text = detokenize_incrementally(self.tokenizer, seq.output_token_ids, seq.detok)
+        # a stop string can only appear in the new text, or straddle the
+        # boundary by at most len(stop) - 1 characters of the old text
+        search_from = max(0, old_len - max(len(s) for s in sp.stop) + 1)
+        if not any(stop in text[search_from:] for stop in sp.stop):
+            return
+        for m in range(1, len(seq.output_token_ids) + 1):
+            t = self.tokenizer.decode(seq.output_token_ids[:m])
+            hit = min(((t.find(stop), stop) for stop in sp.stop if stop in t), default=None)
+            if hit is None:
+                continue
+            idx, stop = hit
+            seq.output_token_ids = seq.output_token_ids[:m]
+            seq.output_logprobs = seq.output_logprobs[:m]
+            seq.output_top_logprobs = seq.output_top_logprobs[:m]
+            seq.stop_text = t[:idx + len(stop)] if sp.include_stop_str_in_output else t[:idx]
+            seq.status = SequenceStatus.FINISHED_STOPPED
+            seq.finish_reason = "stop"
+            return
 
     def _spec_disabled(self, batch_size: int) -> bool:
         dbs = self.spec.disable_by_batch_size
@@ -262,9 +373,13 @@ class LLMEngine:
                                       self.config.model.vocab_size,
                                       self.eos_token_id),
                 len(chunks), logits.shape[0])
-            toks, lps = self.runner.sample_tokens(logits, st)
+            want_top = self._wants_top([chunks[i][0] for i in completing])
+            toks, lps, top = self.runner.sample_tokens(logits, st, want_top=want_top)
             for i in completing:
-                chunks[i][0].append_token(int(toks[i]), float(lps[i]))
+                s = chunks[i][0]
+                s.append_token(int(toks[i]), float(lps[i]),
+                               top=self._top_dict(s, top[0][i], top[1][i])
+                               if top is not None else None)
         if eagle_h is not None:
             # the span seed: the hidden state at a finished prompt's last
             # position pairs with the token after it (the one just sampled,
@@ -274,20 +389,35 @@ class LLMEngine:
                     s.eagle_span = (eagle_h[i][None], np.asarray([s.last_token()], np.int32),
                                     end - 1, 1)
 
+    @staticmethod
+    def _wants_top(seqs) -> bool:
+        return any((s.sampling_params.logprobs or 0) > 1 for s in seqs)
+
+    @staticmethod
+    def _top_dict(s: Sequence, topv, topi) -> Optional[dict]:
+        """A sequence's first ``logprobs`` alternatives as {token id:
+        logprob}; None where it did not ask for more than one."""
+        n = min(int(s.sampling_params.logprobs or 0), topi.shape[-1])
+        if n <= 1:
+            return None
+        return {int(topi[j]): float(topv[j]) for j in range(n)}
+
     def _run_decode(self, seqs: List[Sequence]) -> None:
         if not seqs:
             return
         st = make_sampling_tensors(seqs, self.config.model.vocab_size,
                                    self.eos_token_id)
-        tokens, lps = self.runner.run_decode(seqs, st)
+        tokens, lps, top = self.runner.run_decode(seqs, st, want_top=self._wants_top(seqs))
         for i, s in enumerate(seqs):
-            s.append_token(int(tokens[0, i]), float(lps[0, i]))
+            s.append_token(int(tokens[0, i]), float(lps[0, i]),
+                           top=self._top_dict(s, top[0][0, i], top[1][0, i])
+                           if top is not None else None)
             s.num_computed_tokens = s.num_tokens - 1
 
     def _chain_for(self, seqs: List[Sequence], per_call: int) -> int:
         """How many fused calls to issue back to back without reading tokens
         in between. Only safe when no host-side control depends on
-        mid-chain tokens (EOS / stop tokens / penalties force 1); overshoot
+        mid-chain tokens (EOS, stop tokens or strings, penalties force 1); overshoot
         past max_tokens is budget-masked on the device. Pages for the whole
         chain must be reservable up front."""
         MAXCHAIN = 8
@@ -295,7 +425,7 @@ class LLMEngine:
         for s in seqs:
             sp = s.sampling_params
             if ((not sp.ignore_eos and self.eos_token_id is not None)
-                    or sp.stop_token_ids
+                    or sp.stop or sp.stop_token_ids
                     or sp.presence_penalty or sp.frequency_penalty):
                 return 1
             rem = max(rem, sp.max_tokens - len(s.output_token_ids))
@@ -352,13 +482,36 @@ class LLMEngine:
             emitted=emitted, wall_s=dt, per_seq_round=accepted[accepted > 0])
 
     # ------------------------------------------------------------------
-    def _to_output(self, seq: Sequence, finished: bool = True) -> RequestOutput:
+    def _to_output(self, seq: Sequence, finished: bool = True,
+                   trace: Optional[RequestTrace] = None) -> RequestOutput:
+        """A request's output; a finished one carries its text (the stop
+        string's cut, or the decode of its tokens, given a tokenizer) and,
+        with its ``trace``, its latencies (the trace's span is emitted)."""
+        text = ""
+        if finished and seq.stop_text is not None:
+            text = seq.stop_text
+        elif finished and self.tokenizer is not None:
+            text = self.tokenizer.decode(seq.output_token_ids)
+        metrics = {}
+        if trace is not None:
+            trace.mark_finished()
+            trace.emit(self.tracer, seq.seq_id, seq.prompt_len,
+                       len(seq.output_token_ids), seq.sampling_params)
+            metrics = {"time_in_queue": trace.first_scheduled - trace.arrival
+                       if trace.first_scheduled is not None else None,
+                       "time_to_first_token": trace.first_token - trace.arrival
+                       if trace.first_token is not None else None,
+                       "e2e": trace.finished - trace.arrival}
         return RequestOutput(
             request_id=seq.seq_id,
             prompt_token_ids=seq.prompt_token_ids,
             output_token_ids=list(seq.output_token_ids),
             finished=finished,
             finish_reason=seq.finish_reason,
+            text=text,
             logprobs=list(seq.output_logprobs)
             if seq.sampling_params.logprobs else None,
+            top_logprobs=list(seq.output_top_logprobs)
+            if (seq.sampling_params.logprobs or 0) > 1 else None,
+            metrics=metrics,
         )

@@ -64,11 +64,17 @@ from qspec_tpu_torch.ops.attention import TreeMask, tree_mask
 from qspec_tpu_torch.ops.ngram import ngram_match_device
 from qspec_tpu_torch.ops.sampling import (SamplingTensors, rejection_sample,
                                           rejection_sample_onehot, sample,
-                                          sample_with_logprob, sampling_probs)
+                                          sample_with_logprob, sampling_probs,
+                                          top_logprobs)
 from qspec_tpu_torch.spec_decode.eagle import eagle_cfg_for, eagle_layer_step, fuse_features
 from qspec_tpu_torch.spec_decode.medusa import medusa_propose, medusa_propose_tree
 from qspec_tpu_torch.spec_decode.medusa_tree import TreeSpec, build_tree
 from qspec_tpu_torch.spec_decode.mlp_speculator import mlp_speculator_propose
+
+
+# the top-n alternatives computed when a request asks for logprobs > 1: the
+# JAX package's TOPN; a request's dict holds its first ``logprobs`` of them
+TOPN = 20
 
 
 def _slot_of(block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -116,10 +122,11 @@ def prefill_step(params, cache, token_ids, positions, block_tables, ctx_len, *,
 
 
 def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
-                *, cfg, scheme):
+                *, cfg, scheme, num_top: int = 0):
     """Autoregressive decode: one token per sequence. last_tokens [B] (not
     yet processed), start_pos [B] = their positions. Returns
-    (next_tokens [B], logprobs [B], cache)."""
+    (next_tokens [B], logprobs [B], cache); with ``num_top`` > 0 also the
+    top-n alternatives (values [B, n], ids [B, n]) before the cache."""
     pos = start_pos[:, None]
     slot = _slot_of(block_tables, pos, cache.page_size)
     batch = AttentionBatch(positions=pos, slot_mapping=slot,
@@ -127,6 +134,9 @@ def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
     logits, cache = model_forward(params, cfg, last_tokens[:, None], cache,
                                   batch, scheme=scheme)
     next_tokens, lp = sample_with_logprob(logits[:, 0], st, gen)
+    if num_top:
+        topv, topi = top_logprobs(logits[:, 0], num_top)
+        return next_tokens, lp, topv, topi, cache
     return next_tokens, lp, cache
 
 
@@ -996,11 +1006,16 @@ class ModelRunner:
             ring_cap=self.ring_cap if ring else None)
         return logits
 
-    def sample_tokens(self, logits, st: SamplingTensors):
-        """Sample one token per row of [B, V] device logits.
-        Returns numpy (tokens [B], logprobs [B])."""
+    def sample_tokens(self, logits, st: SamplingTensors, want_top: bool = False):
+        """Sample one token per row of [B, V] device logits. Returns numpy
+        (tokens [B], logprobs [B], top): ``top`` is (values [B, TOPN], ids
+        [B, TOPN]) when ``want_top``, else None."""
         toks, lps = sample_with_logprob(logits, st, self.gen)
-        return toks.cpu().numpy(), lps.cpu().numpy()
+        top = None
+        if want_top:
+            topv, topi = top_logprobs(logits, TOPN)
+            top = (topv.cpu().numpy(), topi.cpu().numpy())
+        return toks.cpu().numpy(), lps.cpu().numpy(), top
 
     def _decode_inputs(self, seqs):
         B = self._bucket_batch(len(seqs))
@@ -1019,16 +1034,21 @@ class ModelRunner:
             tables[i] = s.page_ids
         return B, last, prev, pos, max_new, self._pad_block_tables(tables)
 
-    def run_decode(self, seqs, sampling: SamplingTensors):
-        """One autoregressive step. Returns numpy (tokens [1, n], logprobs [1, n])."""
+    def run_decode(self, seqs, sampling: SamplingTensors, want_top: bool = False):
+        """One autoregressive step. Returns numpy (tokens [1, n], logprobs
+        [1, n], top): ``top`` is (values [1, n, TOPN], ids [1, n, TOPN])
+        when ``want_top``, else None."""
         B, last, _, pos, _, tables = self._decode_inputs(seqs)
         st = self.sampling_tensors(sampling, len(seqs), B)
-        toks, lps, _ = decode_step(self.params, self.cache, self._t(last),
-                                   self._t(pos), tables, st, self.gen,
-                                   cfg=self.cfg, scheme=self.verify_scheme)
+        out = decode_step(self.params, self.cache, self._t(last), self._t(pos), tables,
+                          st, self.gen, cfg=self.cfg, scheme=self.verify_scheme,
+                          num_top=TOPN if want_top else 0)
         self.target_forwards += 1
         n = len(seqs)
-        return toks.cpu().numpy()[None, :n], lps.cpu().numpy()[None, :n]
+        top = None
+        if want_top:
+            top = (out[2].cpu().numpy()[None, :n], out[3].cpu().numpy()[None, :n])
+        return out[0].cpu().numpy()[None, :n], out[1].cpu().numpy()[None, :n], top
 
     def run_spec_rounds(self, seqs, sampling: SamplingTensors, num_rounds: int = 1,
                         chain: int = 1, enable: bool = True):

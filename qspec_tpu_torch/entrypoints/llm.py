@@ -1,6 +1,11 @@
 """Offline inference API.
 
-Port of ``qspec_tpu/entrypoints/llm.py`` for token-id prompts:
+Port of ``qspec_tpu/entrypoints/llm.py``. Prompts are token-id lists, or
+strings given a tokenizer (``tokenizer=``: anything with ``encode`` /
+``decode``; for a checkpoint directory a Hugging Face tokenizer is loaded from
+it when ``transformers`` imports). With one, ``chat`` takes OpenAI-style
+messages, through the tokenizer's chat template or, lacking one, a template
+of ``conversation.py``:
 
     from qspec_tpu_torch import LLM, SamplingParams
     llm = LLM(model="llama3-8b", num_speculative_tokens=3)
@@ -58,6 +63,7 @@ import os
 from typing import List, Optional, Sequence, Union
 
 from qspec_tpu_torch.config import ModelConfig
+from qspec_tpu_torch.conversation import get_conv_template
 from qspec_tpu_torch.engine.arg_utils import EngineArgs, proposer_of
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
 from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
@@ -71,12 +77,57 @@ from qspec_tpu_torch.spec_decode.medusa import load_medusa
 from qspec_tpu_torch.spec_decode.mlp_speculator import load_mlp_speculator
 
 
+# the files a Hugging Face tokenizer is loaded from
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
+
+
+def load_tokenizer(path: str):
+    """The Hugging Face tokenizer of a checkpoint directory, or None where
+    the directory holds no tokenizer file or ``transformers`` does not
+    import (the card's machine has none)."""
+    if not any(os.path.isfile(os.path.join(path, f)) for f in TOKENIZER_FILES):
+        return None
+    try:
+        import transformers
+    except ImportError:
+        return None
+    return transformers.AutoTokenizer.from_pretrained(path)
+
+
+def chat_token_ids(tokenizer, messages: List[dict], chat_template: Optional[str] = None,
+                   **template_kw) -> List[int]:
+    """One conversation's prompt ids: the tokenizer's own chat template
+    (``apply_chat_template``, with ``template_kw`` such as ``tools=``) unless
+    a ``conversation.py`` template is named or the tokenizer has none (no
+    such method, or a Hugging Face tokenizer whose ``chat_template`` is
+    None); the fallback is the "llama-3" template."""
+    own = (hasattr(tokenizer, "apply_chat_template")
+           and getattr(tokenizer, "chat_template", "") is not None)
+    if chat_template is None and own:
+        return list(tokenizer.apply_chat_template(messages, tokenize=True,
+                                                  add_generation_prompt=True,
+                                                  **template_kw))
+    conv = get_conv_template(chat_template or "llama-3")
+    for msg in messages:
+        if msg["role"] == "system":
+            conv.system_message = msg["content"]
+        else:
+            conv.append_message(msg["role"], msg["content"])
+    conv.append_message(conv.roles[1], None)
+    return list(tokenizer.encode(conv.get_prompt()))
+
+
 class LLM:
     def __init__(self, model: str = "tiny", params=None, seed: int = 0,
                  device="cuda", eos_token_id: Optional[int] = None,
                  draft_model: Optional[Union[str, ModelConfig]] = None,
-                 draft_params=None, **engine_kwargs):
+                 draft_params=None, tokenizer=None, **engine_kwargs):
         args = EngineArgs(model=model, seed=seed, **engine_kwargs)
+        self.tokenizer = tokenizer
+        if tokenizer is None and os.path.isdir(model):
+            self.tokenizer = load_tokenizer(model)
+        if eos_token_id is None and self.tokenizer is not None:
+            eos_token_id = getattr(self.tokenizer, "eos_token_id", None)
         self.engine_config = args.create_engine_config()
         if params is None and os.path.isdir(model):
             params = self._load_dir(model, device)
@@ -102,7 +153,8 @@ class LLM:
                                                         device=dev)}
         self.llm_engine = LLMEngine(self.engine_config, params,
                                     eos_token_id=eos_token_id, device=device,
-                                    seed=seed, draft_params=draft_params)
+                                    seed=seed, draft_params=draft_params,
+                                    tokenizer=self.tokenizer)
 
     def _load_dir(self, path: str, device):
         """A checkpoint directory, loaded on ``device`` by the routes of
@@ -149,16 +201,24 @@ class LLM:
             self.engine_config, speculative=dataclasses.replace(spec, draft_model=dcfg))
         return draft_params
 
-    def generate(self, prompts: Sequence[List[int]],
+    def _encode(self, prompt: Union[str, List[int]]) -> List[int]:
+        if isinstance(prompt, str):
+            if self.tokenizer is None:
+                raise ValueError("string prompts need a tokenizer")
+            return list(self.tokenizer.encode(prompt))
+        return list(prompt)
+
+    def generate(self, prompts: Sequence[Union[str, List[int]]],
                  sampling_params: Optional[Union[SamplingParams,
                                                  List[SamplingParams]]] = None,
                  ) -> List[RequestOutput]:
-        """Each prompt is a list of token ids."""
+        """Each prompt is a list of token ids, or a string (given a
+        tokenizer)."""
         if sampling_params is None:
             sampling_params = SamplingParams()
         if isinstance(sampling_params, SamplingParams):
             sampling_params = [sampling_params] * len(prompts)
-        ids = [self.llm_engine.add_request(list(p), sp)
+        ids = [self.llm_engine.add_request(self._encode(p), sp)
                for p, sp in zip(prompts, sampling_params)]
         results = {}
         while self.llm_engine.has_unfinished_requests():
@@ -166,6 +226,17 @@ class LLM:
                 if out.finished:
                     results[out.request_id] = out
         return [results[i] for i in ids]
+
+    def chat(self, messages, sampling_params: Optional[SamplingParams] = None,
+             chat_template: Optional[str] = None) -> List[RequestOutput]:
+        """``messages``: one conversation (a list of {role, content}) or a
+        list of them; each goes through ``chat_token_ids``."""
+        if self.tokenizer is None:
+            raise ValueError("chat needs a tokenizer")
+        if messages and isinstance(messages[0], dict):
+            messages = [messages]
+        return self.generate([chat_token_ids(self.tokenizer, m, chat_template)
+                              for m in messages], sampling_params)
 
     @property
     def spec_metrics(self):

@@ -126,6 +126,14 @@ def sample_with_logprob(logits: torch.Tensor, st: SamplingTensors,
     return toks, chosen
 
 
+def top_logprobs(logits: torch.Tensor, n: int):
+    """Top-n alternatives under the unfiltered softmax (the reference's
+    Logprob dicts): [B, V] -> (values [B, n] f32, ids [B, n] int32)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    vals, ids = torch.topk(logp, n, dim=-1)
+    return vals, ids.to(torch.int32)
+
+
 class RejectionResult(NamedTuple):
     tokens: torch.Tensor            # [B, k+1] int32, -1 past accepted_len
     accepted_len: torch.Tensor      # [B] int32 in [1, k+1]: accepted draft + 1

@@ -93,3 +93,28 @@ def test_chip_smoke_without_card_fails_and_prints_no_result():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+SERVER_PROBE = r"""
+import json, sys
+import qspec_tpu_torch.scripts
+import qspec_tpu_torch.entrypoints.openai.api_server
+import qspec_tpu_torch.entrypoints.openai.run_batch
+import qspec_tpu_torch.engine.async_engine
+import qspec_tpu_torch.engine.metrics
+import qspec_tpu_torch.tracing
+tops = {m.split(".")[0] for m in sys.modules}
+print(json.dumps(sorted(tops & {"jax", "jaxlib", "qspec_tpu", "aiohttp", "transformers",
+                                "prometheus_client", "opentelemetry"})))
+"""
+
+
+def test_server_modules_import_no_optional_packages():
+    """The server, its async engine, metrics and traces load none of jax,
+    qspec_tpu, aiohttp, transformers, prometheus_client or opentelemetry
+    (the card's machine has none of them): the optional ones are imported
+    only where used."""
+    out = subprocess.run([sys.executable, "-c", SERVER_PROBE], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
