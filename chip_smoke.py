@@ -146,10 +146,24 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    its medusa_null oracle; each launches exactly matmul_w4a16, the int8
    head, rmsnorm (EAGLE's layer with a gamma too) and the bf16 attention,
    in the counts its target forwards and EAGLE's layer passes give (the
-   kernel line's ``proposer_launches``: [E1, E2]).
+   kernel line's ``proposer_launches``: [E1, E2]);
+17. the sparse MoE (G), the 8B phases' parameters released first:
+   matmul_w4a16 / matmul_w4a4 at Qwen1.5-MoE-A2.7B's expert, shared-expert
+   and qkv shapes (K = 1408 among them) and the int8 head at its vocab,
+   M = 4 and 16, against their plain versions (w4a4 bit for bit), through
+   an expert-stacked weight read in place, and timed beside their
+   yardsticks (check_moe_shapes, time_moe_shapes); (G1) Mixtral-8x7B at
+   full width and depth (random int4 weights made on the card) and (G2)
+   Qwen1.5-MoE-A2.7B's widths at QWEN15_LAYERS layers through LLMEngine,
+   QSpec (k = 3) at W4A4 and W4A8 / W4A8 == qspec_null, exactly the six
+   QuaRot kernels in the counts check_moe_counts gives; (G3) Mixtral,
+   Qwen2-MoE and Qwen3-MoE directories (2 layers) quantized at load, W4A4
+   QSpec == qspec_null, and a DeepSeek-MoE directory in bf16, n-gram ==
+   null (the kernel line's ``moe_launches``; the MoE shapes' times in the
+   log).
 
 It prints the kernel summary as one JSON line (every field of each kernel,
-with its launches in the paths of phases 12-16) and, last, the device JSON
+with its launches in the paths of phases 12-17) and, last, the device JSON
 line. Every line also goes to chiprun_out/chip_smoke.log, which alone has
 the per-case detail the standard output gives in short (the kernels' full
 `-Xptxas -v` summary, each tiny forward check, each long attention check,
@@ -159,6 +173,7 @@ each grouped-GEMM shape's time).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1399,9 +1414,10 @@ def _int_mm_rows(x8, w8) -> int:
 
 
 def time_w4_layer(gen, name: str, m: int, head: bool = False, plain: bool = True,
-                  library: bool = True, gen_lib=None) -> dict:
+                  library: bool = True, gen_lib=None, shapes=None) -> dict:
     """One Llama-3-8B layer's four projections (``head``: the int4 head, K=4096,
-    N=128256, f32 out) at M = ``m`` through ``name`` (csrc/w4.cu), each input
+    N=128256, f32 out; ``shapes``: these (K, N) instead, bf16 out) at M =
+    ``m`` through ``name`` (csrc/w4.cu), each input
     set rotated past L2: kernel, plain version, library call
     (torch._weight_int4pack_mm for w4a16; for w4a4 torch._int_mm on the
     weights widened to int8 once, column-major (its fast layout for int8),
@@ -1412,7 +1428,10 @@ def time_w4_layer(gen, name: str, m: int, head: bool = False, plain: bool = True
     from qspec_tpu_torch.ops.packing import unpack_int4
     from qspec_tpu_torch.ops.quant import sym_quant_int4
     w4a4 = name == "matmul_w4a4"
-    shapes = (HEAD_SHAPE[1:],) if head else GEMM_SHAPES
+    label = (f"K,N={shapes[0]} at M={m}" if shapes else
+             f"int4 head M={m}, K,N={HEAD_SHAPE[1:]}, f32 out" if head else
+             f"one layer's qkv+o+gate_up+down at M={m}")
+    shapes = shapes or ((HEAD_SHAPE[1:],) if head else GEMM_SHAPES)
     out_dtype = torch.float32 if head else torch.bfloat16
     tot = {"ms": 0.0, "plain_ms": 0.0 if plain else None, "bound_ms": 0.0,
            "library_ms": 0.0 if library else None}
@@ -1480,10 +1499,8 @@ def time_w4_layer(gen, name: str, m: int, head: bool = False, plain: bool = True
         torch.cuda.empty_cache()
     lib = (("_int_mm" + (f" at M={lib_rows}" if lib_rows != m else "")) if w4a4
            else "_weight_int4pack_mm") if tot["library_ms"] is not None else None
-    shape = (f"int4 head M={m}, K,N={HEAD_SHAPE[1:]}, f32 out" if head
-             else f"one layer's qkv+o+gate_up+down at M={m}")
     return dict(tot, bound_by=bound_ms(nbytes_tot, ops_tot, "int8" if w4a4 else "bf16")[1],
-                per=per, library=lib, shape=shape)
+                per=per, library=lib, shape=label)
 
 
 def time_kernels(gen, gen_w4, report, int4pack_missing):
@@ -3135,6 +3152,395 @@ def phase_proposers_8b(smi: str):
     return out
 
 
+# ------------------------------------------------------- (G) the sparse-MoE MLP
+
+# the shapes the MoE presets give csrc/w4.cu that no dense path gives it
+# (Mixtral-8x7B's experts are Llama-3-8B's gate_up / down, checked above):
+# Qwen1.5-MoE-A2.7B's expert gate_up and down (K = 1408: a half-full last
+# 256-k stage), its shared expert's and its qkv (with the bias); and its int8
+# head for csrc/w8a16.cu
+MOE_SHAPES = {"expert gate_up": (2048, 2816), "expert down": (1408, 2048),
+              "shared gate_up": (2048, 11264), "shared down": (5632, 2048),
+              "qkv": (2048, 6144)}
+MOE_HEAD = (2048, 151936)
+MOE_M = (4, 16)           # the draft's rows and the verify's (4 sequences x k + 1)
+
+
+def check_moe_shapes(gen, report):
+    """matmul_w4a16 (within rtol / atol 2e-2) and matmul_w4a4 (bit for bit,
+    int4 and int8 activations) against their plain versions at MOE_SHAPES,
+    M = 4 and 16; the same through an expert-stacked [2, 3, K//8, N] weight
+    read in place at (layer, expert) = (1, 2), bit for bit the unstacked
+    call; the int8 head at MOE_HEAD (f32 out, rtol / atol 2e-2)."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
+    err16 = err_h = 0.0
+    for label, (k, n) in MOE_SHAPES.items():
+        qw = torch.empty(2, 3, k // 8, n, dtype=torch.int32, device="cuda")
+        qs = torch.empty(2, 3, n, device="cuda")
+        for i in range(2):
+            for e in range(3):
+                qw[i, e], qs[i, e] = _w4(gen, k, n)
+        w, s = qw[1, 2], qs[1, 2]
+        for m in MOE_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out = lk.matmul_w4a16(x, w, s)
+            ref = lk.matmul_w4a16_ref(x, w, s)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            err16 = max(err16, (out.float() - ref.float()).abs().max().item())
+            same = torch.equal(lk.matmul_w4a16(x, qw, qs, layer_idx=(1, 2)), out)
+            for xq in (sym_quant_int4(x), sym_quant_int8(x)):
+                out = lk.matmul_w4a4(xq.values, xq.scales, w, s)
+                same &= torch.equal(out, lk.matmul_w4a4_ref(xq.values, xq.scales, w, s))
+                same &= torch.equal(lk.matmul_w4a4(xq.values, xq.scales, qw, qs,
+                                                   layer_idx=(1, 2)), out)
+            if not same:
+                raise AssertionError(f"MoE shape {label} K={k} N={n} M={m}: matmul_w4a4 not "
+                                     "bit-equal to its plain version, or a stacked (layer, "
+                                     "expert) call not to the unstacked one")
+        del qw, qs, w, s
+    k, n = MOE_HEAD
+    qw, qs = _w8(gen, k, n)
+    for m in MOE_M:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        out = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
+        ref = lk.matmul_w8a16_ref(x, qw, qs, out_dtype=torch.float32)
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+        err_h = max(err_h, (out - ref).abs().max().item())
+    del qw, qs
+    torch.cuda.empty_cache()
+    report["matmul_w4a16"]["moe_max_err"] = err16
+    report["matmul_w8a16"]["moe_head_max_err"] = err_h
+    log(f"check (G) MoE shapes {sorted(MOE_SHAPES.values())} at M=4,16: matmul_w4a16 max_abs_err "
+        f"{err16:.3g} (tol 2e-2), matmul_w4a4 bit-equal (int4, int8 act), stacked "
+        f"(layer, expert) reads == unstacked; int8 head K,N={MOE_HEAD} {err_h:.3g}")
+
+
+def time_moe_shapes(gen, report, int4pack_missing):
+    """At MOE_SHAPES and M = 4, 16: matmul_w4a16 and matmul_w4a4 beside
+    their plain versions, their yardsticks (torch._weight_int4pack_mm;
+    torch._int_mm on int8 weights plus the scale epilogue, at the least M it
+    takes) and the bound, each input rotated past L2; the int8 head at
+    MOE_HEAD beside torch._weight_int8pack_mm. Per kernel, shape and M:
+    [ms, plain_ms, bound_ms, library_ms] in report[kernel]["moe"], and a
+    line each in the log."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    for name in ("matmul_w4a16", "matmul_w4a4"):
+        rows = {}
+        for label, (k, n) in MOE_SHAPES.items():
+            for m in MOE_M:
+                r = time_w4_layer(gen, name, m, shapes=((k, n),),
+                                  library=name == "matmul_w4a4" or int4pack_missing is None)
+                rows[f"{label} {k}x{n} M={m}"] = [float(f"{r[f]:.5g}") if r[f] is not None
+                                                  else None for f in ("ms", "plain_ms",
+                                                                      "bound_ms", "library_ms")]
+                log(f"time (G) {name} {label} K={k} N={n} M={m}: {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f}, {r['library']} "
+                    + (f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "none")
+                    + f", bound {r['bound_ms']:.4f} ({r['bound_by']})", stdout=False)
+        report[name]["moe"] = rows
+        torch.cuda.empty_cache()
+    k, n = MOE_HEAD
+    wbytes = k * n + 4 * n
+    rot = Rotating(lambda: _w8(gen, k, n), wbytes)
+
+    def transposed():
+        qw, qs = _w8(gen, k, n)
+        return qw.t().contiguous(), qs.to(torch.bfloat16)
+    rot_t = Rotating(transposed, wbytes)
+    rows = {}
+    for m in MOE_M:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def kern():
+            lk.matmul_w8a16(x, *rot.next(), out_dtype=torch.float32)
+
+        def plain():
+            lk.matmul_w8a16_ref(x, *rot.next(), out_dtype=torch.float32)
+
+        def library():
+            torch._weight_int8pack_mm(x, *rot_t.next())
+        b, kind = bound_ms(m * k * 2 + wbytes + m * n * 4, 2 * m * k * n, "bf16")
+        t = [graph_ms(kern), graph_ms(plain, reps=3), b, graph_ms(library)]
+        rows[f"head {k}x{n} M={m}"] = [float(f"{v:.5g}") for v in t]
+        log(f"time (G) matmul_w8a16 head K={k} N={n} M={m}: {t[0]:.4f} ms, plain {t[1]:.4f}, "
+            f"_weight_int8pack_mm {t[3]:.4f}, bound {b:.4f} ({kind})", stdout=False)
+    report["matmul_w8a16"]["moe"] = rows
+    del rot, rot_t
+    torch.cuda.empty_cache()
+    w16, w4 = report["matmul_w4a16"]["moe"], report["matmul_w4a4"]["moe"]
+    down = "expert down 1408x2048 M=16"
+    log(f"time (G) MoE shapes ({len(w16) + len(w4) + len(rows)} rows in the log): "
+        f"w4a16 {down} {w16[down][0]} ms (bound {w16[down][2]}), w4a4 "
+        f"{w4[down][0]} ms (bound {w4[down][2]})")
+
+
+def moe_prompts(vocab: int):
+    """e2e_prompts (98-173 random ids below 128000) folded into ``vocab``."""
+    return [[t % vocab for t in p] for p in e2e_prompts()]
+
+
+def moe_engine(cfg, params, tally=None, **spec_kw):
+    """The factory of an LLMEngine of ``cfg`` serving QSpec (k = 3) with
+    ``spec_kw`` over a KV pool of 80 pages of 128; with ``tally`` (a list)
+    each engine's rounds are wrapped by ``round_tally``, its tally appended."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+
+    def make(method, p):
+        eng = LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=128, num_pages=80),
+            scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=512),
+            speculative=SpeculativeConfig(num_speculative_tokens=3, method=method,
+                                          **spec_kw)), p or params, device="cuda", seed=0)
+        if tally is not None:
+            tally.append(round_tally(eng))
+        return eng
+    return make
+
+
+def round_tally(eng) -> dict:
+    """Wrap ``eng.runner.run_spec_rounds``: the int4 GEMMs' launches inside
+    the QSpec rounds, beside the rounds' target (verify) and draft forwards."""
+    from qspec_tpu_torch.ops.linear_kernels import matmul_w4a4, matmul_w4a16
+    runner, inner = eng.runner, eng.runner.run_spec_rounds
+    tally = {"matmul_w4a16": 0, "matmul_w4a4": 0, "verify": 0, "draft": 0}
+
+    def run(*a, **kw):
+        before = (matmul_w4a16.launches, matmul_w4a4.launches, runner.target_forwards,
+                  runner.draft_forwards)
+        out = inner(*a, **kw)
+        tally["matmul_w4a16"] += matmul_w4a16.launches - before[0]
+        tally["matmul_w4a4"] += matmul_w4a4.launches - before[1]
+        tally["verify"] += runner.target_forwards - before[2]
+        tally["draft"] += runner.draft_forwards - before[3]
+        return out
+    runner.run_spec_rounds = run
+    return tally
+
+
+def moe_launches(cfg) -> int:
+    """int4 GEMM launches of one forward of ``cfg``'s MoE layers: per layer
+    qkv, o, each expert's gate_up and down, the shared expert's two."""
+    return cfg.num_layers * (2 + 2 * cfg.num_experts
+                             + 2 * bool(cfg.shared_expert_intermediate_size))
+
+
+def check_moe_counts(label: str, cfg, launches: dict, summary: dict, tally: dict) -> None:
+    """Exact launch counts of a QSpec run on an MoE ``cfg`` (t target and d
+    draft forwards): inside the rounds matmul_w4a16 moe_launches(cfg) a
+    verify forward and matmul_w4a4 as many a draft forward; over the run
+    matmul_w4a4 that a draft forward (the draft prefill has no torch branch),
+    rmsnorm_quant 2 L a draft forward, rmsnorm 2 L + 1 a target forward and
+    1 (the final norm) a draft one, the attention L a forward of either, the
+    int8 head 1 a forward of either."""
+    L, per = cfg.num_layers, moe_launches(cfg)
+    t, d = summary["target_forwards"], summary["draft_forwards"]
+    want = {"matmul_w4a4": per * d, "rmsnorm_quant": 2 * L * d, "rmsnorm": (2 * L + 1) * t + d,
+            "paged_attention": L * (t + d), "matmul_w8a16": t + d}
+    got = {n: launches[n] for n in want}
+    rounds = {"matmul_w4a16": per * tally["verify"], "matmul_w4a4": per * tally["draft"]}
+    if got != want or {n: tally[n] for n in rounds} != rounds or not tally["verify"]:
+        raise AssertionError(f"{label}: launches {got}, expected {want}; in the rounds "
+                             f"{tally}, expected {rounds}")
+
+
+def moe_run(label: str, cfg, params, prompts, schemes, max_tokens: int = 32) -> dict:
+    """QSpec (k = 3) on ``cfg`` through LLMEngine against qspec_null, per
+    draft scheme: tokens equal, exactly QUAROT_KERNELS launched, the counts
+    of check_moe_counts; acceptance, tok/s (host clock) and peak GiB."""
+    out = {}
+    for scheme in schemes:
+        name = f"{label} ({scheme} draft, int8 head, bf16 KV)"
+        tally = []
+        torch.cuda.reset_peak_memory_stats()
+        spec, launches, _, summary = spec_vs_oracle(
+            moe_engine(cfg, params, tally, draft_scheme=scheme), name, QUAROT_KERNELS,
+            prompts, max_tokens)
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_moe_counts(name, cfg, launches, summary, tally[0])
+        summary["verify_forwards_in_rounds"] = tally[0]["verify"]
+        e2e_log(name, prompts, spec, summary)
+        out[scheme] = (launches, summary)
+    return out
+
+
+def moe_line(label: str, runs: dict, extra: str = "") -> None:
+    parts = [f"{s} accept {r[1]['acceptance_rate']:.4f}, {r[1]['spec_tokens_per_s']:.1f} tok/s "
+             f"(oracle {r[1]['oracle_tokens_per_s']:.1f}), peak "
+             f"{r[1]['peak_mem_gib']:.2f} GiB" for s, r in runs.items()]
+    log(f"e2e {label}: == qspec_null, exact launch counts; " + "; ".join(parts) + extra)
+
+
+def phase_moe_mixtral(smi: str):
+    """(G1) Mixtral-8x7B at full width and depth (ModelConfig.mixtral_8x7b:
+    32 layers of 8 experts of 14336, top-2, hidden 4096, vocab 32000),
+    quant="w4" with the int8 head, random weights made on the card by
+    init_params (the experts one (layer, expert) at a time: 22.5 GB of int4
+    that never pass through host memory), through LLMEngine over a bf16
+    cache: QSpec (k = 3) with the W4A4 and the W4A8 draft against
+    qspec_null, 4 prompts x 32 tokens."""
+    from qspec_tpu_torch.config import ModelConfig
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.mixtral_8x7b(quant="w4")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=20, device="cuda")
+    torch.cuda.synchronize()
+    secs, weights = time.perf_counter() - t0, torch.cuda.memory_allocated() / 2 ** 30
+    runs = moe_run("(G1) mixtral-8x7b", cfg, params, moe_prompts(cfg.vocab_size),
+                   ("w4a4", "w4a8"))
+    moe_line("(G1) mixtral-8x7b, 32 layers x 8 experts", runs,
+             f"; weights {weights:.2f} GiB made in {secs:.1f} s")
+    log(f"e2e (G1): card {smi}", stdout=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+# (G2)'s depth: Qwen1.5-MoE-A2.7B's 24 layers cut to 6, for the script's
+# time limit: at 24 a forward runs 1440 expert iterations on the host, and
+# (G2) took 143.4 s of (G)'s ~200 on an H100 80GB HBM3 at 700 W (PERF.md §6)
+QWEN15_LAYERS = 6
+
+
+def phase_moe_qwen15(smi: str):
+    """(G2) Qwen1.5-MoE-A2.7B's widths (ModelConfig.qwen15_moe_a2_7b: 60
+    experts of 1408, top-4, a gated shared expert of 5632, the qkv bias,
+    vocab 151936) at QWEN15_LAYERS layers, quant="w4", random weights made
+    on the card, QSpec with the W4A8 draft against qspec_null, the checks of
+    (G1). Only the depth is cut (QWEN15_LAYERS)."""
+    from qspec_tpu_torch.config import ModelConfig
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.qwen15_moe_a2_7b(quant="w4", num_layers=QWEN15_LAYERS)
+    params = init_params(cfg, seed=21, device="cuda")
+    runs = moe_run(f"(G2) qwen1.5-moe-a2.7b, {cfg.num_layers} layers", cfg, params,
+                   moe_prompts(cfg.vocab_size), ("w4a8",))
+    moe_line(f"(G2) qwen1.5-moe-a2.7b, {cfg.num_layers} of its 24 layers (the script's time "
+             "limit) x 60 experts + shared", runs)
+    log(f"e2e (G2): card {smi}", stdout=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+# (G3)'s directories: each family's Hugging Face config.json fields at 2
+# layers and narrow widths (hidden 1024, 8 heads of 128, 4 KV heads, vocab
+# 8192); expert widths the Hadamard takes, Qwen2-MoE's 1408 the shape (G2)
+# runs
+MOE_DIRS = {
+    "mixtral": dict(architectures=["MixtralForCausalLM"], model_type="mixtral",
+                    intermediate_size=1536, num_local_experts=4, num_experts_per_tok=2),
+    "qwen2_moe": dict(architectures=["Qwen2MoeForCausalLM"], model_type="qwen2_moe",
+                      intermediate_size=2816, moe_intermediate_size=1408,
+                      shared_expert_intermediate_size=2816, num_experts=8,
+                      num_experts_per_tok=4),
+    "qwen3_moe": dict(architectures=["Qwen3MoeForCausalLM"], model_type="qwen3_moe",
+                      intermediate_size=2816, moe_intermediate_size=768, num_experts=8,
+                      num_experts_per_tok=2, norm_topk_prob=True, head_dim=128),
+    "deepseek": dict(architectures=["DeepseekForCausalLM"], model_type="deepseek",
+                     intermediate_size=2816, moe_intermediate_size=704, n_routed_experts=8,
+                     n_shared_experts=2, num_experts_per_tok=2, first_k_dense_replace=1),
+}
+MOE_DIR_COMMON = dict(hidden_size=1024, num_hidden_layers=2, num_attention_heads=8,
+                      num_key_value_heads=4, vocab_size=8192, rms_norm_eps=1e-6,
+                      rope_theta=1000000.0, max_position_embeddings=4096,
+                      tie_word_embeddings=False)
+
+
+def moe_entries(cfg, family: str):
+    """A Hugging Face MoE checkpoint's names and shapes: Mixtral's
+    block_sparse_moe.experts.{e}.w1 / w3 / w2, Qwen-MoE's mlp.experts.{e}.*_proj
+    with Qwen2-MoE's shared expert and its gate and qkv biases, Qwen3-MoE's
+    q / k norms, DeepSeek's dense first layer and shared_experts."""
+    H, V = cfg.hidden_size, cfg.vocab_size
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        out += [(p + "input_layernorm.weight", (H,), "gamma"),
+                (p + "post_attention_layernorm.weight", (H,), "gamma"),
+                (p + "self_attn.q_proj.weight", (cfg.q_size, H), "w"),
+                (p + "self_attn.k_proj.weight", (cfg.kv_size, H), "w"),
+                (p + "self_attn.v_proj.weight", (cfg.kv_size, H), "w"),
+                (p + "self_attn.o_proj.weight", (H, cfg.q_size), "w")]
+        if cfg.qkv_bias:
+            out += [(p + f"self_attn.{n}_proj.bias", (w,), "b")
+                    for n, w in (("q", cfg.q_size), ("k", cfg.kv_size), ("v", cfg.kv_size))]
+        if cfg.qk_norm:
+            out += [(p + f"self_attn.{n}_norm.weight", (cfg.head_dim,), "gamma") for n in "qk"]
+        mix = family == "mixtral"
+        m = p + ("block_sparse_moe." if mix else "mlp.")
+        names = ("w1", "w3", "w2") if mix else ("gate_proj", "up_proj", "down_proj")
+        if li < cfg.first_k_dense:
+            mlps = [(m, cfg.intermediate_size)]
+        else:
+            out.append((m + "gate.weight", (cfg.num_experts, H), "w"))
+            mlps = [(f"{m}experts.{e}.", cfg.expert_intermediate_size)
+                    for e in range(cfg.num_experts)]
+            if cfg.shared_expert_intermediate_size:
+                mlps.append((m + ("shared_expert." if cfg.shared_expert_gated
+                                  else "shared_experts."), cfg.shared_expert_intermediate_size))
+                if cfg.shared_expert_gated:
+                    out.append((m + "shared_expert_gate.weight", (1, H), "w"))
+        for q, width in mlps:
+            out += [(q + names[0] + ".weight", (width, H), "w"),
+                    (q + names[1] + ".weight", (width, H), "w"),
+                    (q + names[2] + ".weight", (H, width), "w")]
+    return out + [("model.norm.weight", (H,), "gamma"), ("lm_head.weight", (V, H), "w")]
+
+
+def phase_moe_dirs(smi: str):
+    """(G3) LLM(model=<dir>) on a Mixtral, a Qwen2-MoE and a Qwen3-MoE
+    directory written here (MOE_DIRS: config.json and model.safetensors of
+    random bf16 made on the card, by the script's write_safetensors; the
+    card's machine has no transformers), each quantized at load by
+    quantize_float on the card, QSpec with the W4A4 draft == qspec_null,
+    exactly QUAROT_KERNELS launched; and a DeepSeek-MoE directory (a dense
+    first layer, ungated shared experts) in bf16 (quantization=None,
+    convert_deepseek), n-gram (k = 3) == its "null" oracle, only the gamma
+    norm and the bf16 attention launched."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.models.registry import resolve
+    kw = dict(device="cuda", max_model_len=512, max_num_seqs=4, seed=0, num_pages=80)
+    out = {}
+    for i, (family, fields) in enumerate(MOE_DIRS.items()):
+        hf = {**MOE_DIR_COMMON, **fields}
+        cfg = resolve(hf)
+        label = f"(G3) {family} dir, 2 layers x {cfg.num_experts} experts"
+        with tempfile.TemporaryDirectory() as d:
+            sd = random_state_dict(moe_entries(cfg, family), seed=30 + i)
+            write_safetensors(os.path.join(d, "model.safetensors"), sd)
+            del sd
+            write_config(d, hf)
+            if family == "deepseek":
+                prompts = float_prompts(cfg.vocab_size)
+                spec, launches, _, summary = spec_vs_oracle(
+                    lambda m, p: LLM(model=d, quantization=None, num_speculative_tokens=3,
+                                     speculative_model="[ngram]", speculative_method=m,
+                                     **kw).llm_engine,
+                    label + " bf16, n-gram", FLOAT_LLAMA_KERNELS, prompts, 32,
+                    methods=("ngram", "null"))
+            else:
+                prompts = moe_prompts(cfg.vocab_size)
+                spec, launches, _, summary = spec_vs_oracle(
+                    lambda m, p: LLM(model=d, num_speculative_tokens=3, speculative_method=m,
+                                     **kw).llm_engine,
+                    label + " quantize_float, w4a4 draft", QUAROT_KERNELS, prompts, 32)
+            e2e_log(label, prompts, spec, summary)
+            out[family] = (launches, summary)
+        torch.cuda.empty_cache()
+    log("e2e (G3) LLM(model=<dir>): mixtral / qwen2_moe / qwen3_moe quantize_float, w4a4 QSpec "
+        "== qspec_null (accept " + ", ".join(f"{out[f][1]['acceptance_rate']:.3f}"
+                                             for f in ("mixtral", "qwen2_moe", "qwen3_moe"))
+        + f"); deepseek bf16 n-gram == null (accept {out['deepseek'][1]['acceptance_rate']:.3f})")
+    log(f"e2e (G3): card {smi}", stdout=False)
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -3215,9 +3621,23 @@ def main():
     del params8
     torch.cuda.empty_cache()
     proposers = phase_proposers_8b(smi)
+    # (G) the sparse-MoE MLP, with the 8B phases' parameters released
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_moe = time.perf_counter()
+    gen_moe = torch.Generator(device="cuda").manual_seed(2)
+    check_moe_shapes(gen_moe, report)
+    time_moe_shapes(gen_moe, report, int4pack_missing)
+    moe = {"G1": phase_moe_mixtral(smi), "G2": phase_moe_qwen15(smi)}
+    moe_dirs = phase_moe_dirs(smi)
+    log(f"(G) took {time.perf_counter() - t_moe:.1f} s")
     log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
-        "BLOOM-7B1, MPT, (A)-(E)), each greedy == its oracle; chip_smoke.log has each "
-        "run's line")
+        "BLOOM-7B1, MPT, (A)-(E), the MoE (G)), each greedy == its oracle; chip_smoke.log "
+        "has each run's line")
+    # each kernel's launches in the MoE paths: (G1) W4A4 and W4A8, (G2) W4A8,
+    # (G3) each directory
+    moe_paths = {f"{g}_{s}": r[0] for g, runs in moe.items() for s, r in runs.items()}
+    moe_paths.update({f"G3_{f}": r[0] for f, r in moe_dirs.items()})
     # each kernel's launches in the real-weights loaders' paths: (A) W4A4 and
     # W4A8, (B) the separate draft, (C) forced, (D1) the bf16 directory,
     # (D2) the float directory quantized at load, (D3) the QSpec directory
@@ -3288,6 +3708,12 @@ def main():
             extra["proposer_launches"] = [proposers[k][0][name] for k in ("E1", "E2")]
         if name in server[0]:
             extra["server_launches"] = server[0][name]
+        moe_launch = {k: v[name] for k, v in moe_paths.items() if v.get(name)}
+        if moe_launch:
+            extra["moe_launches"] = moe_launch
+        for key in ("moe_max_err", "moe_head_max_err"):
+            if key in r:
+                extra[key] = r[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],

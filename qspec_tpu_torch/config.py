@@ -1,8 +1,9 @@
 """Configuration dataclasses.
 
 The port's own copy of the parts of ``qspec_tpu/config.py`` that the dense
-Llama QSpec path, the Gemma-2 grouped-int4 path and the BLOOM / MPT bf16
-path read, with the same field names and defaults. Fields of model
+Llama QSpec path, the Gemma-2 grouped-int4 path, the BLOOM / MPT bf16 path
+and the sparse-MoE families (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)
+read, with the same field names and defaults. Fields of model
 families, loaders, parallelism and proposers that are not ported yet are
 left out rather than accepted and ignored.
 """
@@ -15,10 +16,12 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of one dense Llama, Gemma-2, BLOOM or MPT
-    model."""
+    """Architecture hyperparameters of one Llama, Gemma-2, BLOOM, MPT or
+    sparse-MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE) model."""
 
-    arch: str = "llama"               # "llama" | "gemma2" | "bloom" | "mpt"
+    # "llama" | "gemma2" | "bloom" | "mpt" | "mixtral" | "qwen2moe" |
+    # "qwen3moe" | "deepseek"
+    arch: str = "llama"
     vocab_size: int = 128256
     hidden_size: int = 4096
     intermediate_size: int = 14336
@@ -31,6 +34,13 @@ class ModelConfig:
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 8192
     tie_word_embeddings: bool = False
+    # Qwen2-style bias on the q, k and v projections
+    qkv_bias: bool = False
+    # Qwen3-style per-head RMSNorm of q and k after the projection, before
+    # rope ([head_dim] gammas, live under QuaRot too: they sit after the
+    # rotated projection); "head" is the only style ported
+    qk_norm: bool = False
+    qk_norm_style: str = "head"
     # MLP activation: "silu" (llama) | "gelu_tanh" (gemma's approximate
     # GeGLU, HF gelu_pytorch_tanh; BLOOM's gelu) | "gelu" (exact, MPT)
     hidden_act: str = "silu"
@@ -76,13 +86,43 @@ class ModelConfig:
     linear_bias: bool = False
     # clamp the qkv projection to [-clip_qkv, clip_qkv] (MPT attn_config)
     clip_qkv: Optional[float] = None
+    # sparse MoE (models/llama.py _moe_block): each layer's MLP is
+    # num_experts expert MLPs of width moe_intermediate_size (None: the
+    # dense width) mixed by a router's top num_experts_per_tok; 0 = dense
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    # an always-on shared expert of this width (0: none), its output gated
+    # by sigmoid(x @ shared_gate) (Qwen2-MoE) or added as is (DeepSeek)
+    shared_expert_intermediate_size: int = 0
+    shared_expert_gated: bool = True
+    # renormalize the top-k weights to sum 1
+    moe_norm_topk_prob: bool = False
+    # softmax over all experts, then top-k (Qwen-MoE, DeepSeek); False:
+    # top-k of the logits, then a softmax over the winners (Mixtral)
+    moe_softmax_before_topk: bool = False
+    # "topk" (refined by the two flags above) | "sparsemixer" (Phi-3.5-MoE)
+    # | "noaux_tc" (DeepSeek-V3: sigmoid scores, a per-expert selection
+    # bias, group-limited to the moe_topk_group best of moe_n_group groups)
+    moe_routing: str = "topk"
+    moe_n_group: int = 1
+    moe_topk_group: int = 1
+    # DeepSeek-MoE: the first first_k_dense layers keep a dense MLP
+    # (params["layers_dense"]); the KV cache still counts layers globally
+    first_k_dense: int = 0
+    # the routed experts' sum is scaled by this before the shared expert
+    # adds (DeepSeek-V2/V3)
+    routed_scaling_factor: float = 1.0
 
     def __post_init__(self):
         allowed = (("quant", ("w4", "w4g", "none")),
-                   ("arch", ("llama", "gemma2", "bloom", "mpt")),
+                   ("arch", ("llama", "gemma2", "bloom", "mpt", "mixtral", "qwen2moe",
+                             "qwen3moe", "deepseek")),
                    ("hidden_act", ("silu", "gelu_tanh", "gelu")),
                    ("norm_type", ("rmsnorm", "layernorm")),
-                   ("position_embedding", ("rope", "alibi")))
+                   ("position_embedding", ("rope", "alibi")),
+                   ("qk_norm_style", ("head",)),
+                   ("moe_routing", ("topk", "sparsemixer", "noaux_tc")))
         for name, values in allowed:
             if getattr(self, name) not in values:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r}: the port "
@@ -95,6 +135,10 @@ class ModelConfig:
         # the JAX package's default: int8 for a quantized checkpoint, the
         # bf16 head of a float one
         return "bf16" if self.quant == "none" else "int8"
+
+    @property
+    def expert_intermediate_size(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
 
     @property
     def cache_kv_heads(self) -> int:
@@ -136,44 +180,89 @@ class ModelConfig:
         return dataclasses.replace(ModelConfig.from_hf_config(BLOOM_7B1_HF), **over)
 
     @staticmethod
+    def qwen15_moe_a2_7b(**over) -> "ModelConfig":
+        """Qwen/Qwen1.5-MoE-A2.7B (the JAX package's preset): 60 experts of
+        width 1408, top-4, a gated shared expert of 5632, the qkv bias."""
+        d = dict(arch="qwen2moe", vocab_size=151936, hidden_size=2048,
+                 intermediate_size=5632, num_layers=24, num_heads=16,
+                 num_kv_heads=16, head_dim=128, rope_theta=1000000.0,
+                 max_position_embeddings=8192, qkv_bias=True,
+                 num_experts=60, num_experts_per_tok=4,
+                 moe_intermediate_size=1408,
+                 shared_expert_intermediate_size=5632,
+                 moe_softmax_before_topk=True)
+        d.update(over)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def mixtral_8x7b(**over) -> "ModelConfig":
+        """mistralai/Mixtral-8x7B (the JAX package's preset): 32 layers of 8
+        experts of width 14336, top-2."""
+        d = dict(arch="mixtral", vocab_size=32000, hidden_size=4096,
+                 intermediate_size=14336, num_layers=32, num_heads=32,
+                 num_kv_heads=8, rope_theta=1000000.0,
+                 max_position_embeddings=32768, num_experts=8,
+                 num_experts_per_tok=2)
+        d.update(over)
+        return ModelConfig(**d)
+
+    @staticmethod
     def from_hf_config(hf: dict) -> "ModelConfig":
         """Build from a Hugging Face config.json dict of model type "llama",
-        "gemma2", "bloom" or "mpt", with the fields ``qspec_tpu/config.py``'s
-        ``from_hf_config`` gives them; other model types raise."""
+        "gemma2", "mixtral", "qwen2_moe", "qwen3_moe", "deepseek", "bloom" or
+        "mpt", with the fields ``qspec_tpu/config.py``'s ``from_hf_config``
+        gives them; other model types raise."""
         mt = hf.get("model_type", "")
         if mt == "bloom":
             return _from_bloom(hf)
         if mt == "mpt":
             return _from_mpt(hf)
-        if mt not in ("llama", "gemma2"):
-            raise NotImplementedError(f"model_type {mt!r}: only llama, gemma2, bloom "
-                                      "and mpt configs are ported")
-        gemma2 = mt == "gemma2"
+        if mt == "deepseek":
+            return _from_deepseek(hf)
+        arch = {"llama": "llama", "gemma2": "gemma2", "mixtral": "mixtral",
+                "qwen2_moe": "qwen2moe", "qwen3_moe": "qwen3moe"}.get(mt)
+        if arch is None:
+            raise NotImplementedError(f"model_type {mt!r}: only llama, gemma2, mixtral, "
+                                      "qwen2_moe, qwen3_moe, deepseek, bloom and mpt "
+                                      "configs are ported")
+        gemma2 = arch == "gemma2"
+        # Qwen3-MoE routes like Qwen2-MoE (softmax over all experts, top-k,
+        # the norm_topk_prob renormalization) and has no shared expert
+        moe = arch in ("qwen2moe", "qwen3moe")
         nh = hf["num_attention_heads"]
         return ModelConfig(
-            arch=mt,
+            arch=arch,
             sliding_window_pattern=2 if gemma2 else 1,
             attn_logit_softcap=hf.get("attn_logit_softcapping") if gemma2 else None,
             final_logit_softcap=hf.get("final_logit_softcapping") if gemma2 else None,
             query_pre_attn_scalar=hf.get("query_pre_attn_scalar") if gemma2 else None,
             post_norms=gemma2,
+            moe_intermediate_size=hf.get("moe_intermediate_size"),
+            shared_expert_intermediate_size=(hf.get("shared_expert_intermediate_size", 0)
+                                             if arch == "qwen2moe" else 0),
+            moe_norm_topk_prob=hf.get("norm_topk_prob", False),
+            moe_softmax_before_topk=moe,
+            qk_norm=arch == "qwen3moe",
             hidden_act=("gelu_tanh" if gemma2 or "gelu" in
                         hf.get("hidden_act", hf.get("hidden_activation", ""))
                         else "silu"),
             embed_scale=hf["hidden_size"] ** 0.5 if gemma2 else None,
             norm_weight_offset=1.0 if gemma2 else 0.0,
+            num_experts=hf.get("num_local_experts", hf.get("num_experts", 0) if moe else 0),
+            num_experts_per_tok=hf.get("num_experts_per_tok", 2),
             vocab_size=hf["vocab_size"],
             hidden_size=hf["hidden_size"],
             intermediate_size=hf["intermediate_size"],
             num_layers=hf["num_hidden_layers"],
             num_heads=nh,
             num_kv_heads=hf.get("num_key_value_heads", nh),
-            head_dim=hf.get("head_dim", hf["hidden_size"] // nh),
+            head_dim=hf.get("head_dim") or hf["hidden_size"] // nh,
             rope_theta=hf.get("rope_theta", 10000.0),
             rope_scaling=hf.get("rope_scaling"),
             rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
             max_position_embeddings=hf.get("max_position_embeddings", 8192),
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            qkv_bias=arch == "qwen2moe",
             sliding_window=hf.get("sliding_window"),
         )
 
@@ -185,6 +274,31 @@ class ModelConfig:
                  rope_theta=10000.0, max_position_embeddings=512)
         d.update(over)
         return ModelConfig(**d)
+
+
+def _from_deepseek(hf: dict) -> ModelConfig:
+    """DeepSeek-MoE V1: Llama attention; an MoE MLP on every layer past the
+    dense prefix (first_k_dense_replace), softmax-then-top-k routing and
+    ungated shared experts of n_shared_experts * moe_intermediate_size
+    (``qspec_tpu/config.py``'s deepseek branch, with its refusal)."""
+    if hf.get("moe_layer_freq", 1) != 1:
+        raise ValueError("deepseek moe_layer_freq != 1 unsupported")
+    nh = hf["num_attention_heads"]
+    return ModelConfig(
+        arch="deepseek", num_experts=hf["n_routed_experts"],
+        num_experts_per_tok=hf["num_experts_per_tok"],
+        moe_intermediate_size=hf["moe_intermediate_size"],
+        shared_expert_intermediate_size=(hf.get("n_shared_experts", 0) or 0)
+        * hf["moe_intermediate_size"],
+        shared_expert_gated=False, first_k_dense=hf.get("first_k_dense_replace", 0),
+        moe_softmax_before_topk=True, moe_norm_topk_prob=hf.get("norm_topk_prob", False),
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"], num_layers=hf["num_hidden_layers"],
+        num_heads=nh, num_kv_heads=hf.get("num_key_value_heads", nh),
+        head_dim=hf["hidden_size"] // nh, rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
 
 
 def _from_bloom(hf: dict) -> ModelConfig:

@@ -801,6 +801,11 @@ class ModelRunner:
         self._ngram = spec is not None and spec.method in ("ngram", "null")
         self._eagle = spec is not None and spec.method == "eagle"
         sep_draft = spec is not None and spec.draft_model is not None
+        if (self._medusa or self._eagle) and self.cfg.num_experts:
+            raise NotImplementedError(
+                f"{spec.method} on a mixture-of-experts target is not ported (ROADMAP "
+                "queue 1 item 9): its proposers serve dense targets; QSpec, the "
+                "separate draft model and n-gram serve an MoE")
         if draft_params is not None and not sep_draft:
             raise ValueError("draft_params passed without speculative.draft_model, "
                              "the draft's ModelConfig")

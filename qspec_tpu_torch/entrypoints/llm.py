@@ -159,17 +159,20 @@ class LLM:
     def _load_dir(self, path: str, device):
         """A checkpoint directory, loaded on ``device`` by the routes of
         ``qspec_tpu/entrypoints/llm.py``: under QuaRot quantization a QSpec
-        checkpoint, else (no ``weight_scales``) a float one quantized at load;
-        without quantization the family converter of a BLOOM / MPT, else the
+        checkpoint, else (no ``weight_scales``) a float one quantized at load
+        (a Llama, Mixtral, Qwen2-MoE or Qwen3-MoE); without quantization the
+        family converter of a BLOOM / MPT / DeepSeek-MoE, else the
         llama-keyed float loader. (AWQ / GPTQ directories raise in
         EngineArgs.)"""
         cfg = self.engine_config.model
         dev = resolve_device(device)
         sd = read_safetensors(path)
         if cfg.quant == "w4":
-            try:
+            # a QSpec checkpoint has weight_scales; without them (the JAX
+            # route's KeyError from load_qspec) a float one is quantized
+            if any(k.endswith(".weight_scales") for k in sd):
                 params, cfg = load_qspec(sd, cfg, device=dev)
-            except KeyError:
+            else:
                 params, cfg = quantize_float(sd, cfg, device=dev)
         elif cfg.arch in CONVERTERS:
             params, cfg = load_family_float(sd, cfg, device=dev)

@@ -1,10 +1,12 @@
 """Float state-dict converters of the non-llama-keyed families the port serves.
 
-Port of ``qspec_tpu/model_loader/families.py`` for BLOOM and MPT: a family's
-checkpoint layout (BLOOM's head-interleaved fused ``query_key_value``, MPT's
-``transformer.blocks.*`` naming) is translated into the bf16 parameter tree
-that ``models/llama.py`` serves with the GPT-family knobs (LayerNorm, linear
-biases, the non-gated MLP, ALiBi), the layout of the JAX converters' output.
+Port of ``qspec_tpu/model_loader/families.py`` for BLOOM, MPT and
+DeepSeek-MoE: a family's checkpoint layout (BLOOM's head-interleaved fused
+``query_key_value``, MPT's ``transformer.blocks.*`` naming, DeepSeek's dense
+prefix and shared experts) is translated into the bf16 parameter tree that
+``models/llama.py`` serves with the family's knobs (LayerNorm, linear
+biases, the non-gated MLP, ALiBi; the MoE MLP), the layout of the JAX
+converters' output.
 
 The converters take numpy arrays or torch tensors (of any float dtype, on
 any device: a state dict made on the card converts there) and consume the
@@ -13,7 +15,7 @@ the layer stacks are filled one at a time, so the peak memory stays near one
 copy of the weights plus one stack (a 4 GB MLP stack at BLOOM-7B1). The weights are rounded
 to bf16 as the JAX converters round them (from the source's exact float32
 value, to nearest even). The rope cache that the JAX ``_finish`` adds is
-left out: ALiBi has no rope.
+left out of BLOOM's and MPT's trees: ALiBi has no rope.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from qspec_tpu_torch.config import ModelConfig
-from qspec_tpu_torch.models.llama import alibi_params
+from qspec_tpu_torch.models.llama import alibi_params, layer_segments, layer_stacks
+from qspec_tpu_torch.ops.rotary import make_rope_cache
 
 
 def _take(sd: Dict, name: str, device) -> torch.Tensor:
@@ -43,7 +46,7 @@ def _device(sd: Dict, device):
 
 
 class _Stacker:
-    """Layer-stacked bf16 tensors filled one layer at a time, the source of
+    """Layer-stacked tensors filled one layer at a time, the source of
     each layer freed as it is copied in; the converters fill one stack at a
     time, so the peak holds one copy of the weights plus one stack."""
 
@@ -51,11 +54,21 @@ class _Stacker:
         self.sd, self.L, self.device = sd, num_layers, device
         self.out: Dict[str, torch.Tensor] = {}
 
-    def put(self, key: str, li: int, value: torch.Tensor) -> None:
-        if key not in self.out:
-            self.out[key] = torch.empty((self.L, *value.shape), dtype=torch.bfloat16,
-                                        device=self.device)
-        self.out[key][li].copy_(value)
+    def put(self, key: str, li, value, experts: int = 0, out=None) -> None:
+        """Copy ``value`` into layer ``li`` of stack ``key``, or with
+        ``experts`` into (layer, expert) ``li`` of an [L, experts, ...] one,
+        in ``value``'s dtype; a dict of tensors (a packed projection) fills
+        a dict of stacks, ``key``'s."""
+        out = self.out if out is None else out
+        if isinstance(value, dict):
+            for k, v in value.items():
+                self.put(k, li, v, experts, out.setdefault(key, {}))
+            return
+        if key not in out:
+            lead = (self.L, experts) if experts else (self.L,)
+            out[key] = torch.empty((*lead, *value.shape), dtype=value.dtype,
+                                   device=self.device)
+        out[key][li].copy_(value)
 
     def weight(self, key: str, li: int, name: str, rows=None) -> None:
         """An HF [out, in] weight, stored [in, out]; ``rows`` reorders its
@@ -147,8 +160,66 @@ def convert_mpt(sd: Dict, cfg: ModelConfig, device=None) -> dict:
     return params
 
 
+def convert_deepseek(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """DeepSeek-MoE V1 (``qspec_tpu/model_loader/families.py::
+    convert_deepseek``): llama attention keys; the first ``first_k_dense``
+    layers keep a dense MLP (``layers_dense``), the rest carry the router
+    ``mlp.gate``, the experts ``mlp.experts.{e}.*_proj`` stacked [L, E, ...]
+    and the ungated shared experts ``mlp.shared_experts.*``; the head
+    untied unless the checkpoint has none; the rope cache."""
+    dev = _device(sd, device)
+    E = cfg.num_experts
+    segs = {key: _Stacker(sd, L, dev) for key, L, _ in layer_stacks(cfg)}
+
+    def t(name):
+        return _take(sd, name, dev).t()
+
+    for key, seg_cfg, li, wi in layer_segments(cfg):
+        p = f"model.layers.{li}."
+        st = segs[key]
+        st.put("qkv", wi, torch.cat([t(p + f"self_attn.{n}_proj.weight") for n in "qkv"], 1))
+        st.put("o", wi, t(p + "self_attn.o_proj.weight"))
+        st.vector("input_norm", wi, p + "input_layernorm.weight")
+        st.vector("post_norm", wi, p + "post_attention_layernorm.weight")
+        m = p + "mlp."
+        if not seg_cfg.num_experts:
+            st.put("gate_up", wi, torch.cat([t(m + "gate_proj.weight"),
+                                             t(m + "up_proj.weight")], 1))
+            st.put("down", wi, t(m + "down_proj.weight"))
+            continue
+        st.put("router", wi, t(m + "gate.weight"))
+        for e in range(E):
+            x = f"{m}experts.{e}."
+            st.put("experts_gate_up", (wi, e), torch.cat([t(x + "gate_proj.weight"),
+                                                          t(x + "up_proj.weight")], 1),
+                   experts=E)
+            st.put("experts_down", (wi, e), t(x + "down_proj.weight"), experts=E)
+        if cfg.shared_expert_intermediate_size:
+            x = m + "shared_experts."
+            st.put("shared_gate_up", wi, torch.cat([t(x + "gate_proj.weight"),
+                                                    t(x + "up_proj.weight")], 1))
+            st.put("shared_down", wi, t(x + "down_proj.weight"))
+    params = {}
+    for key, st in segs.items():
+        o = st.out
+        params[key] = {**{n: {"w": o.pop(n)} for n in PROJ_KEYS if n in o}, **o}
+    embed = _take(sd, "model.embed_tokens.weight", dev)
+    head = _take(sd, "lm_head.weight", dev) if "lm_head.weight" in sd else None
+    params.update(embed=embed, lm_head=embed.t() if head is None else head.t().contiguous(),
+                  final_norm=_take(sd, "model.norm.weight", dev),
+                  rope_cache=make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
+                                             cfg.rope_theta, rope_scaling=cfg.rope_scaling,
+                                             device=dev))
+    return params
+
+
+# the projections of a layer-stacked tree: dense, or an MoE's
+PROJ_KEYS = ("qkv", "o", "gate_up", "down", "experts_gate_up", "experts_down",
+             "shared_gate_up", "shared_down")
+
 # only the ported converters: a family not here raises in load_family_float
-CONVERTERS: Dict[str, Callable] = {"bloom": convert_bloom, "mpt": convert_mpt}
+CONVERTERS: Dict[str, Callable] = {"bloom": convert_bloom, "mpt": convert_mpt,
+                                   "deepseek": convert_deepseek}
 
 
 def load_family_float(sd: Dict, cfg: ModelConfig, device=None):

@@ -27,12 +27,17 @@ Port of ``qspec_tpu/model_loader/loader.py``:
 - ``load_qspec``: a reference-format QSpec checkpoint (uint8 [out, in // 2]
   + ``weight_scales``) -> the interchange format (``ops/packing.py``).
 
-Scope: dense Llama graphs without tensor parallelism, split or fused (phi-3)
-q/k/v and gate/up. The other layouts the JAX loaders take (MoE, per-head
-q/k norms, biased projections, the families its ``LLAMA_KEY_REMAPS`` maps
+Scope: Llama graphs without tensor parallelism, split or fused (phi-3)
+q/k/v and gate/up, and in ``load_hf_float`` / ``quantize_float`` the
+sparse-MoE layouts (Mixtral's ``block_sparse_moe``, Qwen2-MoE's and
+Qwen3-MoE's ``mlp.experts`` with the shared expert and its gate), the qkv
+bias and Qwen3's q/k norms, where the config declares them (an undeclared
+one raises, naming the config field). The other layouts the JAX loaders
+take (other biased projections, the families its ``LLAMA_KEY_REMAPS`` maps
 onto llama keys, sequence-classification heads, tensor-parallel layouts,
-the VLM and audio towers) raise ``NotImplementedError`` naming their
-ROADMAP item. The state-dict loaders ``load_hf_float`` and
+the VLM and audio towers; in ``load_qspec``, as in the JAX one, experts,
+biases and q/k norms) raise ``NotImplementedError`` naming their ROADMAP
+item. The state-dict loaders ``load_hf_float`` and
 ``quantize_float`` consume the dict they are given (each entry is removed
 as it is converted, as ``families.py`` does), so the peak memory stays
 near one copy of the float weights; ``load_qspec`` leaves it as it is.
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 
 from qspec_tpu_torch.config import ModelConfig
-from qspec_tpu_torch.model_loader.families import _Stacker, _take
+from qspec_tpu_torch.model_loader.families import PROJ_KEYS, _Stacker, _take
 from qspec_tpu_torch.models.llama import (_f32_tensor, check_served, make_hadamards,
                                           pack_lm_head, pack_proj_weight, resolve_device)
 from qspec_tpu_torch.models.registry import resolve
@@ -123,13 +128,9 @@ def config_from_hf_dir(path: str) -> ModelConfig:
 # key fragments of the layouts the JAX loaders take and the port does not,
 # each with what it is and its ROADMAP item
 UNPORTED_KEYS = (
-    ((".mlp.experts.", ".block_sparse_moe.", ".mlp.shared_expert."),
-     "a mixture-of-experts MLP (_moe_block)", "queue 1 item 9"),
-    (("self_attn.q_norm.", "self_attn.k_norm."),
-     "per-head q/k norms (qk_norm)", "queue 1 item 9"),
-    (("self_attn.q_proj.bias", "self_attn.qkv_proj.bias", "self_attn.o_proj.bias",
-      "mlp.down_proj.bias"),
-     "biased projections (qkv_bias, attention_bias)", "queue 1 item 9"),
+    (("self_attn.qkv_proj.bias", "self_attn.o_proj.bias", "mlp.down_proj.bias"),
+     "biased projections (a fused qkv bias, attention_bias's o bias, a down bias)",
+     "queue 1 item 9"),
     (("self_attn.W_pack.", "attention.wqkv.", "model.tok_embeddings.", "attn.c_attn.",
       "attn.attention.q_proj.", "self_attention.query."),
      "a layout the JAX package maps onto llama keys (LLAMA_KEY_REMAPS: baichuan, "
@@ -138,22 +139,60 @@ UNPORTED_KEYS = (
      "a sequence-classification / reward head (score_head)", "queue 1 item 10"),
 )
 
+# key fragments of the layouts load_hf_float and quantize_float take where
+# the config declares them, each with what it is and the config field that
+# declares it; load_qspec takes none of them (the JAX load_qspec reads no
+# expert, bias or q/k norm)
+DECLARED_KEYS = (
+    ((".mlp.experts.", ".block_sparse_moe.", ".mlp.gate.weight"),
+     "a mixture-of-experts MLP (_moe_block)", "num_experts"),
+    ((".mlp.shared_expert.", ".mlp.shared_expert_gate."),
+     "a shared expert", "shared_expert_intermediate_size"),
+    (("self_attn.q_norm.", "self_attn.k_norm."), "per-head q/k norms", "qk_norm"),
+    (("self_attn.q_proj.bias", "self_attn.k_proj.bias", "self_attn.v_proj.bias"),
+     "biased projections (the qkv bias)", "qkv_bias"),
+)
 
-def _check_llama_keyed(sd: Dict, cfg: ModelConfig) -> None:
+
+def _check_llama_keyed(sd: Dict, cfg: ModelConfig, qspec: bool = False) -> None:
     """Raise for what the port's llama-keyed loaders do not take: Gemma-2's
-    post-block norms under QuaRot (the JAX package refuses them too) and the
-    layouts of ``UNPORTED_KEYS``."""
+    post-block norms under QuaRot (the JAX package refuses them too),
+    DeepSeek-MoE's layout (``families.convert_deepseek``), the layouts of
+    ``UNPORTED_KEYS``, and those of ``DECLARED_KEYS`` where the config does
+    not declare them (under ``qspec``: at all, nor an MoE config)."""
     if cfg.post_norms and cfg.quant == "w4":
         raise NotImplementedError(
             "QuaRot folds each norm's gamma into the projections after it, and "
             "Gemma-2's post-block norms break that adjacency (the JAX package "
             "refuses it too): serve Gemma-2 as AWQ / GPTQ (load_awq / load_gptq; "
             "directories: ROADMAP queue 1 item 6)")
+    if cfg.arch == "deepseek":
+        check_served(cfg)       # a QuaRot dense prefix of another width: that reason first
+        raise NotImplementedError(
+            "DeepSeek-MoE (a dense prefix, mlp.shared_experts) is not a llama-keyed "
+            "layout: it loads in bf16 through model_loader.families.convert_deepseek "
+            "(LLM(model=<dir>, quantization=None))")
     for fragments, what, item in UNPORTED_KEYS:
         hit = next((k for k in sd if any(f in k for f in fragments)), None)
         if hit is not None:
             raise NotImplementedError(f"checkpoint key {hit!r}: {what} is not ported "
                                       f"(ROADMAP {item})")
+    if qspec and cfg.num_experts:
+        raise NotImplementedError("load_qspec of a mixture-of-experts config: the "
+                                  "reference QSpec format has no experts (the JAX "
+                                  "load_qspec reads none; ROADMAP queue 1 item 9)")
+    for fragments, what, field in DECLARED_KEYS:
+        hit = next((k for k in sd if any(f in k for f in fragments)), None)
+        if hit is None:
+            continue
+        if qspec:
+            raise NotImplementedError(f"checkpoint key {hit!r}: {what} is not ported in "
+                                      "load_qspec (the JAX load_qspec reads none; "
+                                      "ROADMAP queue 1 item 9)")
+        if not getattr(cfg, field):
+            raise NotImplementedError(f"checkpoint key {hit!r}: {what}, which the config "
+                                      f"does not declare ({field}="
+                                      f"{getattr(cfg, field)!r})")
 
 
 def _source(path_or_sd, cfg: Optional[ModelConfig]):
@@ -202,24 +241,59 @@ def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
         else:
             st.put("qkv", li, torch.cat([t(p + f"self_attn.{n}_proj.weight")
                                          for n in "qkv"], dim=1))
+        if cfg.qkv_bias:
+            st.put("qkv.b", li, torch.cat([_take(sd, p + f"self_attn.{n}_proj.bias", dev)
+                                           for n in "qkv"]))
         st.put("o", li, t(p + "self_attn.o_proj.weight"))
-        if p + "mlp.gate_up_proj.weight" in sd:
+        if cfg.num_experts:
+            m, names = _moe_names(sd, p)
+            st.put("router", li, t(m + "gate.weight"))
+            for e in range(cfg.num_experts):
+                x = f"{m}experts.{e}."
+                st.put("experts_gate_up", (li, e), torch.cat(
+                    [t(x + names[0] + ".weight"), t(x + names[1] + ".weight")], dim=1),
+                    experts=cfg.num_experts)
+                st.put("experts_down", (li, e), t(x + names[2] + ".weight"),
+                       experts=cfg.num_experts)
+            if cfg.shared_expert_intermediate_size:
+                x = m + "shared_expert."
+                st.put("shared_gate_up", li, torch.cat([t(x + "gate_proj.weight"),
+                                                        t(x + "up_proj.weight")], dim=1))
+                st.put("shared_down", li, t(x + "down_proj.weight"))
+                if cfg.shared_expert_gated:
+                    st.put("shared_gate", li, t(m + "shared_expert_gate.weight"))
+        elif p + "mlp.gate_up_proj.weight" in sd:
             st.put("gate_up", li, t(p + "mlp.gate_up_proj.weight"))
         else:
             st.put("gate_up", li, torch.cat([t(p + "mlp.gate_proj.weight"),
                                              t(p + "mlp.up_proj.weight")], dim=1))
-        st.put("down", li, t(p + "mlp.down_proj.weight"))
+        if not cfg.num_experts:
+            st.put("down", li, t(p + "mlp.down_proj.weight"))
         st.put("input_norm", li, norm(p + "input_layernorm.weight"))
         st.put("post_norm", li, norm(p + "post_attention_layernorm.weight"))
+        if cfg.qk_norm:
+            st.put("q_norm", li, norm(p + "self_attn.q_norm.weight"))
+            st.put("k_norm", li, norm(p + "self_attn.k_norm.weight"))
     o = st.out
-    layers = {name: {"w": o[name]} for name in ("qkv", "o", "gate_up", "down")}
-    layers.update(input_norm=o["input_norm"], post_norm=o["post_norm"])
+    layers = {name: {"w": o.pop(name)} for name in PROJ_KEYS if name in o}
+    if "qkv.b" in o:
+        layers["qkv"]["b"] = o.pop("qkv.b")
+    layers.update(o)
     embed = _take(sd, "model.embed_tokens.weight", dev)
     head = (_take(sd, "lm_head.weight", dev).t().contiguous() if "lm_head.weight" in sd
             else embed.t())
     params = {"embed": embed, "lm_head": head, "layers": layers,
               "final_norm": norm("model.norm.weight"), **_common(cfg, dev)}
     return params, cfg
+
+
+def _moe_names(sd: Dict, p: str):
+    """(module prefix, (gate, up, down) names) of layer prefix ``p``'s
+    experts: Qwen-MoE's ``mlp.experts.{e}.*_proj`` or Mixtral's
+    ``block_sparse_moe.experts.{e}.w1 / w3 / w2``."""
+    if f"{p}mlp.experts.0.gate_proj.weight" in sd:
+        return p + "mlp.", ("gate_proj", "up_proj", "down_proj")
+    return p + "block_sparse_moe.", ("w1", "w3", "w2")
 
 
 def _require_exact_f32(device: torch.device) -> None:
@@ -253,12 +327,15 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     seed), per layer and in float32 on ``device`` (the card unless the
     caller asks for the CPU):
 
-        qkv      <- Q^T (gamma_in * W_qkv)
+        qkv      <- Q^T (gamma_in * W_qkv)   (its bias as it is)
         o        <- (H_heads mixing the heads of W_o's rows) Q
-        gate|up  <- Q^T (gamma_post * W)
-        down     <- (H_I W_down) Q
+        gate|up  <- Q^T (gamma_post * W)     (each expert's, the shared one's)
+        down     <- (H_I W_down) Q           (each expert's; the shared
+                                              expert's by H of its width)
+        router, shared_gate <- Q^T (gamma_post * W), in bf16
         embed    <- embed Q;  lm_head <- Q^T (gamma_final * W_lm)
 
+    (the q/k norms stay as they are)
     each projection quantized per output channel and packed
     (``pack_proj_weight``), the head by ``pack_lm_head``. ``bits=None``
     keeps the rotated weights in bf16 (the rotation algebra without
@@ -273,12 +350,17 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     _require_exact_f32(dev)
     kind = "w4" if bits == 4 else "none"
     H, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    E, Ie, Is = (cfg.num_experts, cfg.expert_intermediate_size,
+                 cfg.shared_expert_intermediate_size)
     nh, hd = cfg.num_heads, cfg.head_dim
     f32 = dict(dtype=torch.float32, device=dev)
     Q = torch.as_tensor(random_hadamard_matrix(H, seed=seed).astype(np.float32), device=dev)
     H_heads = (torch.as_tensor(hadamard_matrix(nh), **f32)
                / torch.tensor(math.sqrt(nh), **f32))
-    H_I = _hadamard_f32(I, dev)
+    # the intermediate Hadamard: the MLP's width, or the experts'; the
+    # shared expert's of its own width
+    H_I = _hadamard_f32(Ie if E else I, dev)
+    H_S = _hadamard_f32(Is, dev) if Is else None
 
     def t(name):
         return _f32_tensor(sd.pop(name), dev).t()       # [in, out]
@@ -286,14 +368,13 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     def gamma(name):
         return _f32_tensor(sd.pop(name), dev) + cfg.norm_weight_offset
 
-    layers: Dict[str, dict] = {}
+    st = _Stacker(sd, L, dev)
+    put, layers = st.put, st.out
 
-    def put(name, li, d):
-        for key, v in d.items():
-            stack = layers.setdefault(name, {})
-            if key not in stack:
-                stack[key] = torch.empty((L, *v.shape), dtype=v.dtype, device=dev)
-            stack[key][li].copy_(v)
+    def rotate_in(w):
+        """A weight reading the post-attention norm's output: its gamma
+        folded in, its input rotated by Q."""
+        return Q.T @ (gpost * w)
 
     for li in range(L):
         p = f"model.layers.{li}."
@@ -304,26 +385,60 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
         else:
             qkv = torch.cat([Q.T @ (gin * t(p + f"self_attn.{n}_proj.weight"))
                              for n in "qkv"], dim=1)
-        put("qkv", li, pack_proj_weight(qkv, kind, col_blocks=(cfg.q_size, cfg.kv_size,
-                                                                 cfg.kv_size)))
+        # the bias adds after the product: it stays as it is
+        bias = (torch.cat([_f32_tensor(sd.pop(p + f"self_attn.{n}_proj.bias"), dev)
+                           for n in "qkv"]) if cfg.qkv_bias else None)
+        put("qkv", li, pack_proj_weight(qkv, kind, bias=bias,
+                                        col_blocks=(cfg.q_size, cfg.kv_size, cfg.kv_size)))
         del qkv
         # o's input: undo the online per-head Hadamard; its output: Q
         o_w = t(p + "self_attn.o_proj.weight").reshape(nh, hd, H)
         o_w = torch.einsum("jh,hdk->jdk", H_heads, o_w).reshape(nh * hd, H) @ Q
         put("o", li, pack_proj_weight(o_w, kind))
         del o_w
-        if p + "mlp.gate_up_proj.weight" in sd:             # phi-3's fused layout
-            gate_up = Q.T @ (gpost * t(p + "mlp.gate_up_proj.weight"))
+        if E:
+            # every expert as the dense MLP; the router and the shared gate
+            # read the same rotated, gamma-folded hidden
+            m, names = _moe_names(sd, p)
+            put("router", li, rotate_in(t(m + "gate.weight")).to(torch.bfloat16))
+            for e in range(E):
+                x = f"{m}experts.{e}."
+                gate_up = torch.cat([rotate_in(t(x + names[0] + ".weight")),
+                                     rotate_in(t(x + names[1] + ".weight"))], dim=1)
+                put("experts_gate_up", (li, e),
+                    pack_proj_weight(gate_up, kind, col_blocks=(Ie, Ie)), experts=E)
+                down = (H_I @ t(x + names[2] + ".weight")) @ Q
+                put("experts_down", (li, e), pack_proj_weight(down, kind), experts=E)
+                del gate_up, down
+            if Is:
+                x = m + "shared_expert."
+                gate_up = torch.cat([rotate_in(t(x + "gate_proj.weight")),
+                                     rotate_in(t(x + "up_proj.weight"))], dim=1)
+                put("shared_gate_up", li, pack_proj_weight(gate_up, kind, col_blocks=(Is, Is)))
+                put("shared_down", li,
+                    pack_proj_weight((H_S @ t(x + "down_proj.weight")) @ Q, kind))
+                if cfg.shared_expert_gated:
+                    put("shared_gate", li, rotate_in(
+                        t(m + "shared_expert_gate.weight")).to(torch.bfloat16))
+                del gate_up
         else:
-            gate_up = torch.cat([Q.T @ (gpost * t(p + "mlp.gate_proj.weight")),
-                                 Q.T @ (gpost * t(p + "mlp.up_proj.weight"))], dim=1)
-        put("gate_up", li, pack_proj_weight(gate_up, kind, col_blocks=(I, I)))
-        del gate_up
-        # the online transform is y_row = a_row @ H_I^T, so the weight takes
-        # the untransposed H_I (H_28 is not symmetric)
-        down = (H_I @ t(p + "mlp.down_proj.weight")) @ Q
-        put("down", li, pack_proj_weight(down, kind))
-        del down
+            if p + "mlp.gate_up_proj.weight" in sd:         # phi-3's fused layout
+                gate_up = rotate_in(t(p + "mlp.gate_up_proj.weight"))
+            else:
+                gate_up = torch.cat([rotate_in(t(p + "mlp.gate_proj.weight")),
+                                     rotate_in(t(p + "mlp.up_proj.weight"))], dim=1)
+            put("gate_up", li, pack_proj_weight(gate_up, kind, col_blocks=(I, I)))
+            del gate_up
+            # the online transform is y_row = a_row @ H_I^T, so the weight
+            # takes the untransposed H_I (H_28 is not symmetric)
+            down = (H_I @ t(p + "mlp.down_proj.weight")) @ Q
+            put("down", li, pack_proj_weight(down, kind))
+            del down
+        if cfg.qk_norm:
+            # after the projection, in the per-head basis the rotations do
+            # not touch: the gammas stay live, as they are
+            for n in ("q_norm", "k_norm"):
+                put(n, li, gamma(p + f"self_attn.{n}.weight").to(torch.bfloat16))
 
     gfin = gamma("model.norm.weight")[:, None]
     embed = _f32_tensor(sd.pop("model.embed_tokens.weight"), dev)
@@ -350,7 +465,7 @@ def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
     check_served(cfg)
     sd = {k.replace("o_proj.1.", "o_proj.").replace("down_proj.1.", "down_proj."): v
           for k, v in sd.items()}
-    _check_llama_keyed(sd, cfg)
+    _check_llama_keyed(sd, cfg, qspec=True)
     dev = resolve_device(device)
 
     def qproj(prefix):

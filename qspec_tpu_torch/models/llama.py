@@ -62,6 +62,17 @@ LayerNorm the betas ``layers["input_norm_b"]`` / ``["post_norm_b"]`` and
 under ALiBi, ``alibi_slopes`` f32 [Hq] and no rope cache. The layer-stacked
 weights are read in place by the kernels (``layer_idx``).
 
+A sparse-MoE model (``num_experts > 0``: Mixtral, Qwen2-MoE, Qwen3-MoE,
+DeepSeek-MoE) replaces the MLP with :func:`_moe_block`; its layers hold
+``router`` bf16 [L, H, E] (``router_bias`` f32 [L, E] under noaux_tc), the
+expert stacks ``experts_gate_up`` / ``experts_down`` with a leading
+[L, E] (``{"qw": int32 [L, E, K//8, N], "qs": f32 [L, E, N]}`` or
+``{"w": bf16 [L, E, K, N]}``), and with a shared expert ``shared_gate_up``,
+``shared_down`` and (gated) ``shared_gate`` bf16 [L, H, 1]; DeepSeek's dense
+prefix is a stack of its own, ``params["layers_dense"]``. The qkv bias is
+``layers["qkv"]["b"]`` under every scheme, Qwen3's per-head q/k gammas
+``layers["q_norm"]`` / ``["k_norm"]`` [L, head_dim].
+
 The Hadamard rotations are computed in float64: their ±1 sums of bf16
 inputs are then exact, so the result does not depend on how the GEMM library
 orders the sums for a given batch size. With the row-independent kernels this
@@ -71,6 +82,8 @@ shrinks in one run and not in the other.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
 from typing import NamedTuple, Optional
 
@@ -85,7 +98,7 @@ from qspec_tpu_torch.ops.linear_kernels import (matmul_w4a4, matmul_w4a16,
                                                 matmul_w4a16_g, matmul_w8a16)
 from qspec_tpu_torch.ops.packing import (quantize_weight_int4_torch,
                                          quantize_weight_int8_torch)
-from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
+from qspec_tpu_torch.ops.quant import sym_dequant, sym_quant_int4, sym_quant_int8
 from qspec_tpu_torch.ops.rmsnorm_quant import rmsnorm, rmsnorm_quant
 from qspec_tpu_torch.ops.rotary import apply_rope, make_rope_cache
 
@@ -108,7 +121,9 @@ def _linear(x, w, scheme, xq=None, li=None):
     """One projection by scheme; ``w`` holds the layer-stacked "qw"/"qs"
     (QuaRot), "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only) or "w" (bf16:
     a float checkpoint, or ``quantize_float(bits=None)``'s rotated weights
-    under W4A16), and a bias "b" where the checkpoint has one."""
+    under W4A16), and a bias "b" where the checkpoint has one. ``li`` is a
+    layer, or a (layer, expert) pair of the expert-stacked [L, E, ...]
+    weights: the kernels read that slice in place."""
     if "w" in w:
         out = bf16_matmul(x, w["w"][li])
     elif "qo_g" in w:
@@ -131,10 +146,14 @@ def _f32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     float64, whose sums of bf16 products are exact to far below f32."""
     if not x.is_cuda:
         return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
-    m = x.shape[0]
+    m, n = x.shape[0], w.shape[1]
     m_pad = -(-max(m, 1) // 128) * 128
     xp = torch.nn.functional.pad(x, (0, 0, 0, m_pad - m))
-    return torch.mm(xp, w, out_dtype=torch.float32)[:m]
+    if n % 8:
+        # a narrow weight (a router's E columns, the shared expert's gate)
+        # padded to 8 columns, a width the GEMM library takes at every M
+        w = torch.nn.functional.pad(w, (0, -n % 8))
+    return torch.mm(xp, w, out_dtype=torch.float32)[:m, :n]
 
 
 def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -220,6 +239,134 @@ def _plain_act(x, hidden_act: str):
     return a.to(torch.bfloat16)
 
 
+def _head_rmsnorm(x, gamma, eps):
+    """Qwen3's per-head RMSNorm of q or k ([T, heads, head_dim], gamma
+    [head_dim]) in f32, in x's dtype out: the JAX package's ``rmsnorm_ref``,
+    plain ops there too."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (y * gamma.to(torch.float32)).to(x.dtype)
+
+
+def _topk(v: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last dim, descending,
+    the lower index first among equal values, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` on the card promises no order on ties)."""
+    vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_combine(logits: torch.Tensor, cfg: ModelConfig, router_bias=None) -> torch.Tensor:
+    """The router's combine matrix [T, E] f32 from its logits [T, E] f32:
+    each token's weight on each expert, zero off its top k, by
+    ``cfg.moe_routing`` (``qspec_tpu/models/llama.py::_moe_block``'s
+    router):
+
+    - "topk": top-k of the logits, then a softmax over the winners
+      (Mixtral); with ``moe_softmax_before_topk`` a softmax over all experts,
+      then the top k, renormalized under ``moe_norm_topk_prob`` (Qwen2-MoE,
+      Qwen3-MoE, DeepSeek-MoE);
+    - "sparsemixer" (Phi-3.5-MoE, top-2): per pick, the softmax over the
+      experts within 2 * 0.01 (relative) of the max, at the argmax; the
+      second pick repeats with the first expert removed;
+    - "noaux_tc" (DeepSeek-V3): sigmoid scores, plus ``router_bias`` for the
+      selection only, top-k inside the ``moe_topk_group`` groups (of
+      ``moe_n_group``) with the largest top-2 sums; the weights are the
+      unbiased scores, renormalized under ``moe_norm_topk_prob``."""
+    T, E = logits.shape
+    k = cfg.num_experts_per_tok
+    if cfg.moe_routing == "sparsemixer":
+        if k != 2:
+            raise ValueError("sparsemixer routing is top-2")
+        eps = 0.01
+        i1 = logits.argmax(dim=-1, keepdim=True)
+        mx1 = logits.amax(dim=-1, keepdim=True)
+        m1 = ((mx1 - logits) / torch.maximum(logits.abs(), mx1)) > 2 * eps
+        w1 = torch.softmax(logits.masked_fill(m1, -math.inf), dim=-1).gather(1, i1)
+        masked = logits.scatter(1, i1, -math.inf)
+        i2 = masked.argmax(dim=-1, keepdim=True)
+        mx2 = masked.amax(dim=-1, keepdim=True)
+        m2 = ((mx2 - logits) / torch.maximum(logits.abs(), mx2)) > 2 * eps
+        w2 = torch.softmax(masked.masked_fill(m2, -math.inf), dim=-1).gather(1, i2)
+        w, topi = torch.cat([w1, w2], dim=-1), torch.cat([i1, i2], dim=-1)
+    elif cfg.moe_routing == "noaux_tc":
+        scores = torch.sigmoid(logits)
+        biased = scores + router_bias.to(torch.float32)[None]
+        gsz = E // cfg.moe_n_group
+        g_rank = _topk(biased.reshape(T, cfg.moe_n_group, gsz), 2)[0].sum(dim=-1)
+        gi = _topk(g_rank, cfg.moe_topk_group)[1]
+        gmask = torch.zeros((T, cfg.moe_n_group), dtype=torch.bool, device=logits.device)
+        allowed = gmask.scatter(1, gi, True).repeat_interleave(gsz, dim=-1)
+        topi = _topk(biased.masked_fill(~allowed, -math.inf), k)[1]
+        w = scores.gather(1, topi)
+        if cfg.moe_norm_topk_prob:
+            w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    elif cfg.moe_softmax_before_topk:
+        w, topi = _topk(torch.softmax(logits, dim=-1), k)
+        if cfg.moe_norm_topk_prob:
+            w = w / w.sum(dim=-1, keepdim=True)
+    else:
+        topv, topi = _topk(logits, k)
+        w = torch.softmax(topv, dim=-1)
+    return torch.zeros((T, E), dtype=torch.float32,
+                       device=logits.device).scatter_add_(1, topi, w)
+
+
+def _expert_mlp(xn, xq, gate_up, down, idx, scheme, cfg: ModelConfig, hK, hP):
+    """One expert's (or the shared expert's) gated MLP over every token:
+    gate_up, GLU, under QuaRot the intermediate Hadamard (``hK``, ``hP``)
+    and, under the draft schemes, the activation quant before down.
+    ``idx``: (layer, expert) of the expert-stacked weights, or the layer."""
+    gu = _linear(xn, gate_up, scheme, xq, idx)
+    i_size = gu.shape[-1] // 2
+    act = _glu_act(gu[:, :i_size], gu[:, i_size:], cfg.hidden_act)
+    if hK is not None:
+        act = _mlp_hadamard(act, hK, hP)
+    if scheme in QUANT_ACT_SCHEMES:
+        return _linear(None, down, scheme, _act_quant(act, scheme), idx)
+    return _linear(act, down, scheme, li=idx)
+
+
+def _moe_block(xn, xq, layers, li: int, cfg: ModelConfig, scheme: str, hadamards):
+    """The sparse-MoE MLP (``qspec_tpu/models/llama.py::_moe_block``):
+    returns the residual delta [T, H] f32.
+
+    The router and the shared expert's gate read the float hidden: the
+    normed rows, or under the draft schemes the dequantized ``xq`` (so a
+    draft may route a token otherwise than the verify, as in the JAX
+    package); the router GEMM goes through :func:`_f32_matmul`, whose rows
+    do not depend on the batch. Every token then goes through every expert,
+    in index order, weighted by its column of the combine matrix and summed
+    in f32: no expert is skipped and no row gathered, so nothing is read
+    back to the host and each GEMM sees the same rows at every routing.
+    The expert weights are the stacked [L, E, ...] tensors, read in place
+    per (layer, expert). Then ``routed_scaling_factor``, then the shared
+    expert, gated by sigmoid(x @ shared_gate) (Qwen2-MoE) or not
+    (DeepSeek)."""
+    x_fp = xn if xn is not None else sym_dequant(xq)
+    logits = _f32_matmul(x_fp, layers["router"][li])
+    combine = moe_combine(logits, cfg, layers["router_bias"][li]
+                          if cfg.moe_routing == "noaux_tc" else None)
+    quarot = cfg.quant == "w4"
+    hK, hP = (hadamards["mlp_K"], hadamards["mlp_P"]) if quarot else (None, None)
+    delta = torch.zeros((x_fp.shape[0], cfg.hidden_size), dtype=torch.float32,
+                        device=x_fp.device)
+    for e in range(cfg.num_experts):
+        d = _expert_mlp(xn, xq, layers["experts_gate_up"], layers["experts_down"], (li, e),
+                        scheme, cfg, hK, hP)
+        delta = delta + d.to(torch.float32) * combine[:, e:e + 1]
+    if cfg.routed_scaling_factor != 1.0:
+        delta = delta * cfg.routed_scaling_factor
+    if cfg.shared_expert_intermediate_size:
+        sK, sP = (hadamards["shared_K"], hadamards["shared_P"]) if quarot else (None, None)
+        se = _expert_mlp(xn, xq, layers["shared_gate_up"], layers["shared_down"], li,
+                         scheme, cfg, sK, sP).to(torch.float32)
+        if cfg.shared_expert_gated:
+            se = torch.sigmoid(_f32_matmul(x_fp, layers["shared_gate"][li])) * se
+        delta = delta + se
+    return delta
+
+
 def layer_window(cfg: ModelConfig, li: int) -> Optional[int]:
     """The sliding window of layer ``li``: ``cfg.sliding_window`` on every
     layer, or with Gemma-2's alternation only on the layers
@@ -241,7 +388,9 @@ def check_served(cfg: ModelConfig) -> None:
     only as a grouped-int4 checkpoint (the QuaRot pipeline's gamma folding
     does not compose with its post-block norms, as in the JAX package); the
     float families' knobs come only with bf16 weights (the JAX package
-    serves BLOOM and MPT as float checkpoints)."""
+    serves BLOOM and MPT as float checkpoints); an MoE comes as a QuaRot
+    (w4) or a float checkpoint, and under QuaRot a dense prefix only of the
+    experts' width."""
     if cfg.arch == "gemma2" and cfg.quant != "w4g":
         raise NotImplementedError("Gemma-2 is served as an AWQ / GPTQ "
                                   "(quant='w4g') checkpoint only; QuaRot w4 "
@@ -250,38 +399,57 @@ def check_served(cfg: ModelConfig) -> None:
         raise NotImplementedError("LayerNorm, the non-gated MLP, ALiBi, linear "
                                   "biases and clip_qkv are served with bf16 "
                                   "weights (quant='none') only")
+    if cfg.num_experts and cfg.quant == "w4g":
+        raise NotImplementedError("an AWQ / GPTQ (quant='w4g') MoE is not ported: the "
+                                  "JAX package's grouped loaders have no experts")
+    if (cfg.num_experts and cfg.first_k_dense and cfg.quant == "w4"
+            and cfg.intermediate_size != cfg.expert_intermediate_size):
+        raise NotImplementedError(
+            f"QuaRot (quant='w4') with a dense prefix (first_k_dense={cfg.first_k_dense}) "
+            f"whose MLP width {cfg.intermediate_size} differs from the experts' "
+            f"{cfg.expert_intermediate_size}: one intermediate Hadamard, of the experts' "
+            "width, would rotate both (the JAX package's make_hadamards and "
+            "quantize_float fail on this shape); serve DeepSeek-MoE in bf16 "
+            "(quantization=None)")
 
 
 def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
                   batch: AttentionBatch, rope_cache, hadamards, scheme: str,
-                  tree=None, alibi=None):
+                  tree=None, alibi=None, wi: Optional[int] = None):
     """One decoder layer. x: [T, hidden] bf16, and ``addend`` [T, hidden]
     bf16 or None: the previous layer's MLP output, not yet added to x (the
     layer's input is x + addend, added inside its input norm); ``layers``
     is the layer-stacked param dict and ``li`` selects both the weight layer
     and the KV-cache layer; ``tree``: the Medusa tree mask of the attention
     (ops/attention.py); ``alibi``: the [Hq] f32 ALiBi slopes, in place of
-    rope. Returns (x, down, cache): the layer's output is x + down, left
-    for the next norm to add; the cache is written in place."""
+    rope; ``wi``: the weight layer, where ``layers`` is one segment of the
+    model (DeepSeek's dense prefix, its MoE rest; default ``li``), ``li``
+    still the KV-cache layer. Returns (x, down, cache): the layer's output
+    is x + down (under MoE the routed delta in bf16), left for the next norm
+    to add; the cache is written in place."""
+    wi = li if wi is None else wi
     B, Q = batch.positions.shape
     T = B * Q
     eps = cfg.rms_norm_eps
     quant_act = scheme in QUANT_ACT_SCHEMES
     bits = {"w4a4": 4, "w4a8": 8}.get(scheme)
     quarot = cfg.quant == "w4"
-    gamma_in = None if quarot else layers["input_norm"][li]
-    gamma_post = None if quarot else layers["post_norm"][li]
-    beta_in, beta_post = (layers[n][li] if n in layers else None
+    gamma_in = None if quarot else layers["input_norm"][wi]
+    gamma_post = None if quarot else layers["post_norm"][wi]
+    beta_in, beta_post = (layers[n][wi] if n in layers else None
                           for n in ("input_norm_b", "post_norm_b"))
 
     xn, xq, x = _norm_maybe_quant(x, addend, gamma_in, eps, bits, beta_in, cfg.norm_type)
-    qkv = _linear(xn, layers["qkv"], scheme, xq, li)
+    qkv = _linear(xn, layers["qkv"], scheme, xq, wi)
     if cfg.clip_qkv is not None:
         qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
     q = q.reshape(T, cfg.num_heads, cfg.head_dim)
     k = k.reshape(T, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(T, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
+    if cfg.qk_norm:
+        q = _head_rmsnorm(q, layers["q_norm"][wi], eps)
+        k = _head_rmsnorm(k, layers["k_norm"][wi], eps)
     if alibi is None:
         q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache)
     q = q.to(torch.bfloat16)
@@ -298,16 +466,19 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         attn = _head_hadamard(attn, hadamards["heads"])
     attn_flat = attn.reshape(T, cfg.q_size)
     if quant_act:
-        o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), li)
+        o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), wi)
     else:
-        o = _linear(attn_flat, layers["o"], scheme, li=li)
+        o = _linear(attn_flat, layers["o"], scheme, li=wi)
     if cfg.post_norms:
         # Gemma-2's post-attention norm, on the block output before the add
-        o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][li], eps=eps)
+        o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][wi], eps=eps)
 
     xn, xq, x = _norm_maybe_quant(x, o.to(x.dtype), gamma_post, eps, bits, beta_post,
                                   cfg.norm_type)
-    gate_up = _linear(xn, layers["gate_up"], scheme, xq, li)
+    if cfg.num_experts:
+        delta = _moe_block(xn, xq, layers, wi, cfg, scheme, hadamards)
+        return x, delta.to(x.dtype), cache
+    gate_up = _linear(xn, layers["gate_up"], scheme, xq, wi)
     if cfg.mlp_gated:
         i_size = gate_up.shape[-1] // 2
         act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:], cfg.hidden_act)
@@ -317,12 +488,26 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
     if quarot:
         act = _mlp_hadamard(act, hadamards["mlp_K"], hadamards["mlp_P"])
     if quant_act:
-        down = _linear(None, layers["down"], scheme, _act_quant(act, scheme), li)
+        down = _linear(None, layers["down"], scheme, _act_quant(act, scheme), wi)
     else:
-        down = _linear(act, layers["down"], scheme, li=li)
+        down = _linear(act, layers["down"], scheme, li=wi)
     if cfg.post_norms:
-        down = rmsnorm(down.to(torch.bfloat16), layers["post_ffw_norm"][li], eps=eps)
+        down = rmsnorm(down.to(torch.bfloat16), layers["post_ffw_norm"][wi], eps=eps)
     return x, down.to(x.dtype), cache
+
+
+def layer_segments(cfg: ModelConfig):
+    """(params key, cfg, KV-cache layer, weight layer) of each layer in
+    order, by the stacks of :func:`layer_stacks`: DeepSeek-MoE's dense prefix
+    (``params["layers_dense"]``, served with the cfg's dense MLP) first, then
+    the rest from ``params["layers"]`` (the JAX package's two scan
+    segments); one segment for every other model."""
+    li = 0
+    for key, L, moe in layer_stacks(cfg):
+        seg_cfg = cfg if moe == bool(cfg.num_experts) else dataclasses.replace(cfg, num_experts=0)
+        for wi in range(L):
+            yield key, seg_cfg, li + wi, wi
+        li += L
 
 
 def embed_rows(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -371,10 +556,10 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         x = layernorm(x, params["embed_norm"], params["embed_norm_b"], cfg.rms_norm_eps)
     alibi = params["alibi_slopes"] if cfg.position_embedding == "alibi" else None
     addend = None
-    for li in range(cfg.num_layers):
-        x, addend, cache = decoder_layer(x, addend, params["layers"], cache, li, cfg, batch,
+    for key, seg_cfg, li, wi in layer_segments(cfg):
+        x, addend, cache = decoder_layer(x, addend, params[key], cache, li, seg_cfg, batch,
                                          params.get("rope_cache"), params.get("hadamards"),
-                                         scheme, tree, alibi)
+                                         scheme, tree, alibi, wi)
     flat = None
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q
@@ -419,20 +604,53 @@ def compute_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
 
 
 def make_hadamards(cfg: ModelConfig, device=None):
-    """The constant Hadamard factors (float64, see the module docstring)."""
-    K, P = decompose_dim(cfg.intermediate_size)
-
+    """The constant Hadamard factors (float64, see the module docstring):
+    ``mlp_K`` / ``mlp_P`` over the MLP's intermediate width (an MoE's
+    expert width), ``shared_K`` / ``shared_P`` over the shared expert's."""
     def t(n):
         return torch.as_tensor(hadamard_matrix(n), dtype=torch.float64,
                                device=device)
 
-    return {"heads": t(cfg.num_heads), "mlp_K": t(K), "mlp_P": t(P)}
+    K, P = decompose_dim(cfg.expert_intermediate_size if cfg.num_experts
+                         else cfg.intermediate_size)
+    h = {"heads": t(cfg.num_heads), "mlp_K": t(K), "mlp_P": t(P)}
+    if cfg.shared_expert_intermediate_size:
+        Ks, Ps = decompose_dim(cfg.shared_expert_intermediate_size)
+        h.update(shared_K=t(Ks), shared_P=t(Ps))
+    return h
 
 
 def _proj_shapes(cfg: ModelConfig):
     H, I = cfg.hidden_size, cfg.intermediate_size
     return {"qkv": (H, cfg.qkv_out), "o": (cfg.q_size, H),
             "gate_up": (H, 2 * I), "down": (I, H)}
+
+
+def layer_projections(cfg: ModelConfig, moe: bool):
+    """name -> (expert dims, K, N) of the projections of a layer: the
+    attention's, then a dense layer's MLP (gate_up [H, I] when not gated)
+    or an MoE layer's (``moe``): the experts' stacked [E, ...] and the
+    shared expert's."""
+    shapes = {name: ((), k, n) for name, (k, n) in _proj_shapes(cfg).items()}
+    H = cfg.hidden_size
+    if moe:
+        del shapes["gate_up"], shapes["down"]
+        Ie, Is = cfg.expert_intermediate_size, cfg.shared_expert_intermediate_size
+        E = (cfg.num_experts,)
+        shapes.update(experts_gate_up=(E, H, 2 * Ie), experts_down=(E, Ie, H))
+        if Is:
+            shapes.update(shared_gate_up=((), H, 2 * Is), shared_down=((), Is, H))
+    elif not cfg.mlp_gated:
+        shapes["gate_up"] = ((), H, cfg.intermediate_size)
+    return shapes
+
+
+def layer_stacks(cfg: ModelConfig):
+    """(params key, layers, MoE) of each layer stack: DeepSeek's dense
+    prefix in "layers_dense", the rest in "layers"."""
+    kd = cfg.first_k_dense if cfg.num_experts else 0
+    out = [("layers", cfg.num_layers - kd, bool(cfg.num_experts))]
+    return ([("layers_dense", kd, False)] if kd else []) + out
 
 
 def resolve_device(device) -> torch.device:
@@ -531,27 +749,55 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         sd = make_grouped_state_dict(cfg, "awq", group_size, seed, dev)
         return load_awq(sd, cfg, device=dev)[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    H, L = cfg.hidden_size, cfg.num_layers
+    H = cfg.hidden_size
 
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device=dev) * 0.02
+    def normal(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device=dev) * std
 
-    layers = {}
-    for name, (k, n) in _proj_shapes(cfg).items():
-        qw = torch.empty((L, k // 8, n), dtype=torch.int32, device=dev)
-        qs = torch.empty((L, n), dtype=torch.float32, device=dev)
-        for li in range(L):
-            qw[li], qs[li] = quantize_weight_int4_torch(normal(k, n))
-        layers[name] = {"qw": qw, "qs": qs}
+    params = {}
+    for key, L, moe in layer_stacks(cfg):
+        layers = {}
+        for name, (lead, k, n) in layer_projections(cfg, moe).items():
+            # one (layer, expert) at a time: an expert stack never exists in
+            # float (Mixtral-8x7B's is 22.5 GB of int4)
+            qw = torch.empty((L, *lead, k // 8, n), dtype=torch.int32, device=dev)
+            qs = torch.empty((L, *lead, n), dtype=torch.float32, device=dev)
+            for idx in itertools.product(range(L), *map(range, lead)):
+                qw[idx], qs[idx] = quantize_weight_int4_torch(normal(k, n))
+            layers[name] = {"qw": qw, "qs": qs}
+        params[key] = _extra_layer_params(layers, cfg, L, moe, normal, dev)
     return {
+        **params,
         "embed": normal(cfg.vocab_size, H).to(torch.bfloat16),
         "lm_head": _make_lm_head(normal(H, cfg.vocab_size), head_kind),
-        "layers": layers,
         "rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
                                       cfg.rope_theta, rope_scaling=cfg.rope_scaling,
                                       device=dev),
         "hadamards": make_hadamards(cfg, dev),
     }
+
+
+def _extra_layer_params(layers: dict, cfg: ModelConfig, L: int, moe: bool, normal,
+                        dev) -> dict:
+    """The layer-stacked parameters besides the projections' weights, as
+    the JAX package's init_params makes them: the qkv bias (normal(0.01),
+    bf16), the q/k norms' unit gammas, an MoE layer's bf16 router [L, H, E]
+    (normal(0.02)), its zero selection bias under noaux_tc and the shared
+    expert's gate [L, H, 1]."""
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    if cfg.qkv_bias:
+        layers["qkv"]["b"] = normal(L, cfg.qkv_out, std=0.01).to(torch.bfloat16)
+    if cfg.qk_norm:
+        layers["q_norm"] = torch.ones((L, cfg.head_dim), **bf16)
+        layers["k_norm"] = torch.ones((L, cfg.head_dim), **bf16)
+    if moe:
+        H, E = cfg.hidden_size, cfg.num_experts
+        layers["router"] = normal(L, H, E).to(torch.bfloat16)
+        if cfg.moe_routing == "noaux_tc":
+            layers["router_bias"] = torch.zeros((L, E), dtype=torch.float32, device=dev)
+        if cfg.shared_expert_intermediate_size and cfg.shared_expert_gated:
+            layers["shared_gate"] = normal(L, H, 1).to(torch.bfloat16)
+    return layers
 
 
 def alibi_params(cfg: ModelConfig, device) -> dict:
@@ -569,7 +815,7 @@ def _init_float_params(cfg: ModelConfig, seed: int, dev: torch.device):
     gammas, zero betas), BLOOM's embedding LayerNorm, a tied head sharing
     the embedding's storage."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    H, L = cfg.hidden_size, cfg.num_layers
+    H = cfg.hidden_size
 
     def normal(*shape, std=0.02):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
@@ -580,19 +826,20 @@ def _init_float_params(cfg: ModelConfig, seed: int, dev: torch.device):
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
 
-    shapes = _proj_shapes(cfg)
-    if not cfg.mlp_gated:
-        shapes["gate_up"] = (H, cfg.intermediate_size)
-    layers = {}
-    for name, (k, n) in shapes.items():
-        layers[name] = {"w": normal(L, k, n)}
-        if cfg.linear_bias:
-            layers[name]["b"] = normal(L, n, std=0.01)
-    layers["input_norm"], layers["post_norm"] = ones(L, H), ones(L, H)
-    params = {"embed": normal(cfg.vocab_size, H), "layers": layers,
-              "final_norm": ones(H), **alibi_params(cfg, dev)}
+    params = {}
+    for key, L, moe in layer_stacks(cfg):
+        layers = {}
+        for name, (lead, k, n) in layer_projections(cfg, moe).items():
+            layers[name] = {"w": normal(L, *lead, k, n)}
+            if cfg.linear_bias:
+                layers[name]["b"] = normal(L, n, std=0.01)
+        layers["input_norm"], layers["post_norm"] = ones(L, H), ones(L, H)
+        if cfg.norm_type == "layernorm":
+            layers["input_norm_b"], layers["post_norm_b"] = zeros(L, H), zeros(L, H)
+        params[key] = _extra_layer_params(
+            layers, cfg, L, moe, lambda *shape, std=0.02: normal(*shape, std=std).float(), dev)
+    params.update(embed=normal(cfg.vocab_size, H), final_norm=ones(H), **alibi_params(cfg, dev))
     if cfg.norm_type == "layernorm":
-        layers["input_norm_b"], layers["post_norm_b"] = zeros(L, H), zeros(L, H)
         params["final_norm_b"] = zeros(H)
     if cfg.arch == "bloom":
         params["embed_norm"], params["embed_norm_b"] = ones(H), zeros(H)
@@ -617,7 +864,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     ``np.asarray``) over to the port: ``init_params`` of a QuaRot model,
     ``load_awq`` / ``load_gptq`` of a w4g one, or ``init_params`` /
     ``load_family_float`` of a float one (bf16 weights and biases, the
-    gammas and LayerNorm betas, BLOOM's ``embed_norm``, the bf16 head).
+    gammas and LayerNorm betas, BLOOM's ``embed_norm``, the bf16 head); an
+    MoE's router, expert stacks [L, E, ...], shared expert and gate, and
+    DeepSeek's ``layers_dense``; the qkv bias and the q/k norms.
     Packed int4 (plain or grouped, with its scales and offsets), the gammas
     and the int8 head stay as they are: the kernels read the interchange
     layouts directly. The proposer nets come along: ``"medusa"``
@@ -626,27 +875,32 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     its ``alibi_slopes``."""
     _head_kind(cfg)
     dev = resolve_device(device)
-    keys = {"w4": ("qw", "qs"), "w4g": ("qw", "qs_g", "qo_g"), "none": ("w", "b")}[cfg.quant]
-    layers = {name: {k: _tensor(tree["layers"][name][k], dev) for k in keys
-                     if k in tree["layers"][name]}
-              for name in PROJECTIONS}
+    keys = {"w4": ("qw", "qs", "b"), "w4g": ("qw", "qs_g", "qo_g"),
+            "none": ("w", "b")}[cfg.quant]
+    norms = ("input_norm", "post_norm", "input_norm_b", "post_norm_b") + (
+        ("post_attn_norm", "post_ffw_norm") if cfg.post_norms else ())
     params = {
         "embed": _tensor(tree["embed"], dev),
         "lm_head": ({k: _tensor(v, dev) for k, v in tree["lm_head"].items()}
                     if isinstance(tree["lm_head"], dict) else _tensor(tree["lm_head"], dev)),
-        "layers": layers,
         **alibi_params(cfg, dev),
     }
+    for seg, _, moe in layer_stacks(cfg):
+        src = tree[seg]
+        layers = {name: {k: _tensor(src[name][k], dev) for k in keys if k in src[name]}
+                  for name in layer_projections(cfg, moe)}
+        # the router, its selection bias and the shared expert's gate; the
+        # q/k norms' gammas (live in every quant mode); the float gammas
+        for name in ("router", "router_bias", "shared_gate", "q_norm", "k_norm") + (
+                () if cfg.quant == "w4" else norms):
+            if name in src:
+                layers[name] = _tensor(src[name], dev)
+        params[seg] = layers
     if cfg.position_embedding == "rope":
         params["rope_cache"] = _tensor(tree["rope_cache"], dev).to(torch.float32)
     if cfg.quant == "w4":
         params["hadamards"] = make_hadamards(cfg, dev)
     else:
-        norms = ("input_norm", "post_norm", "input_norm_b", "post_norm_b") + (
-            ("post_attn_norm", "post_ffw_norm") if cfg.post_norms else ())
-        for name in norms:
-            if name in tree["layers"]:
-                layers[name] = _tensor(tree["layers"][name], dev)
         for name in ("final_norm", "final_norm_b", "embed_norm", "embed_norm_b"):
             if name in tree:
                 params[name] = _tensor(tree[name], dev)

@@ -5,7 +5,11 @@ whose graph the port has, all the llama graph of ``models/llama.py`` with
 its knobs: ``LlamaForCausalLM``, ``Gemma2ForCausalLM`` (softcaps, post-block
 norms, alternating window), ``BloomForCausalLM`` and ``MPTForCausalLM``
 (ALiBi, LayerNorm, non-gated MLP; bf16 checkpoints,
-``model_loader/families.py``). Any other architecture raises.
+``model_loader/families.py``), and the sparse-MoE families (``_moe_block``):
+``MixtralForCausalLM``, ``Qwen2MoeForCausalLM`` (the shared expert, the qkv
+bias), ``Qwen3MoeForCausalLM`` (the q/k norms) and ``DeepseekForCausalLM``
+(a dense prefix, ungated shared experts; bf16 checkpoints). Any other
+architecture raises.
 """
 
 from __future__ import annotations
@@ -16,7 +20,11 @@ from qspec_tpu_torch.config import ModelConfig
 # -> the model type its config is read as
 ARCHITECTURES = {"LlamaForCausalLM": "llama", "Gemma2ForCausalLM": "gemma2",
                  "gemma2": "gemma2", "BloomForCausalLM": "bloom", "bloom": "bloom",
-                 "MPTForCausalLM": "mpt", "MptForCausalLM": "mpt", "mpt": "mpt"}
+                 "MPTForCausalLM": "mpt", "MptForCausalLM": "mpt", "mpt": "mpt",
+                 "MixtralForCausalLM": "mixtral", "mixtral": "mixtral",
+                 "Qwen2MoeForCausalLM": "qwen2_moe", "qwen2_moe": "qwen2_moe",
+                 "Qwen3MoeForCausalLM": "qwen3_moe", "qwen3_moe": "qwen3_moe",
+                 "DeepseekForCausalLM": "deepseek", "deepseek": "deepseek"}
 
 
 def resolve(hf_config: dict) -> ModelConfig:

@@ -12,6 +12,9 @@ the port's on the state dict. A separate draft model comes from a directory
 the port's llama-keyed loaders do not take raises, naming its ROADMAP item.
 """
 
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,11 +23,14 @@ from safetensors.torch import save_file
 
 from qspec_tpu.config import ModelConfig as JModelConfig
 from qspec_tpu.model_loader import loader as jloader
+from qspec_tpu.models import registry as jregistry
 from qspec_tpu_torch import LLM, SamplingParams
 from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.model_loader import loader as tloader
+from qspec_tpu_torch.models import registry as tregistry
 from qspec_tpu_torch.ops.packing import pack_reference, unpack_int4
+from tests.test_torch_quantize_float import CODE_DIFF_SHARE
 
 PROJ = ("qkv", "o", "gate_up", "down")
 # a tiny Llama at the port's ModelConfig.tiny widths (vocab 512, hidden 256,
@@ -227,14 +233,79 @@ EXTRA = {
 }
 
 
+# the layouts the state-dict loaders take where the config declares them
+# (the MoE MLP, the q/k norms, the qkv bias): under CFG, which declares none,
+# they raise naming the config field; load_qspec refuses them as before (the
+# JAX load_qspec reads none of them)
+DECLARED = {"moe": "num_experts=0", "qwen2-moe": "num_experts=0", "qk_norm": "qk_norm=False",
+            "bias": "qkv_bias=False"}
+
+
 @pytest.mark.parametrize("case", sorted(EXTRA))
 @pytest.mark.parametrize("loader", ["quantize_float", "load_hf_float", "load_qspec"])
 def test_unported_layouts_raise(case, loader):
     key, what = EXTRA[case]
     sd = small_sd()
     sd[key] = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP queue 1 item"):
+    match = (f"{what}.*which the config does not declare \\({DECLARED[case]}\\)"
+             if case in DECLARED and loader != "load_qspec" else f"{what}.*ROADMAP queue 1 item")
+    with pytest.raises(NotImplementedError, match=match):
         getattr(tloader, loader)(sd, CFG, device="cpu")
+
+
+def declared_layout(case: str):
+    """(state dict, port cfg, JAX cfg) of the full layout of a DECLARED
+    case: a tiny Mixtral, Qwen2-MoE or Qwen3-MoE from transformers at the
+    tiny Llama's widths, or the tiny Llama with q / k / v biases."""
+    if case == "bias":
+        sd = small_sd()
+        r = np.random.default_rng(2)
+        for n, width in (("q", 256), ("k", 128), ("v", 128)):
+            for li in range(2):
+                sd[f"model.layers.{li}.self_attn.{n}_proj.bias"] = torch.tensor(
+                    0.05 * r.standard_normal(width), dtype=torch.float32)
+        kw = {f.name: getattr(CFG, f.name) for f in dataclasses.fields(CFG)}
+        return sd, ModelConfig(**{**kw, "qkv_bias": True}), JModelConfig(**{**kw, "qkv_bias": True})
+    conf, model, over = {
+        "moe": (transformers.MixtralConfig, transformers.MixtralForCausalLM,
+                dict(num_local_experts=4, sliding_window=None)),
+        "qwen2-moe": (transformers.Qwen2MoeConfig, transformers.Qwen2MoeForCausalLM,
+                      dict(num_experts=4, moe_intermediate_size=128,
+                           shared_expert_intermediate_size=192, use_sliding_window=False)),
+        "qk_norm": (transformers.Qwen3MoeConfig, transformers.Qwen3MoeForCausalLM,
+                    dict(num_experts=4, moe_intermediate_size=128, norm_topk_prob=True)),
+    }[case]
+    torch.manual_seed(0)
+    kw = {k: v for k, v in HF_KW.items() if k != "intermediate_size"}
+    hf = model(conf(**kw, intermediate_size=448, num_experts_per_tok=2, **over))
+    with torch.no_grad():
+        for name, p in hf.named_parameters():
+            if name.endswith("norm.weight"):
+                p.copy_(1 + 0.1 * torch.randn_like(p))
+    hf_dict = hf.config.to_dict()
+    return ({k: v.detach() for k, v in hf.state_dict().items()}, tregistry.resolve(hf_dict),
+            jregistry.resolve(hf_dict))
+
+
+@pytest.mark.parametrize("case", sorted(DECLARED))
+@pytest.mark.parametrize("loader", ["quantize_float", "load_hf_float"])
+def test_declared_layouts_load(case, loader):
+    """Each refusal above has its counterpart: the full layout, under a
+    config that declares it, loads to the JAX loader's arrays (load_hf_float
+    bit for bit; quantize_float as tests/test_torch_moe_hf.py holds it)."""
+    from tests.test_torch_moe_hf import assert_quantized_tree_like_jax, assert_same_tree
+    sd, tcfg, jcfg = declared_layout(case)
+    np_sd = {k: v.float().numpy() for k, v in sd.items()}
+    tp, _ = getattr(tloader, loader)(dict(sd), tcfg, device="cpu")
+    jp, _ = getattr(jloader, loader)(dict(np_sd), jcfg)
+    jp = jax.tree_util.tree_map(np.asarray, jp)
+    if loader == "load_hf_float":
+        assert_same_tree({k: v for k, v in jp.items() if k != "rope_cache"},
+                         {k: v for k, v in tp.items() if k != "rope_cache"})
+    else:
+        counts = [0, 0]
+        assert_quantized_tree_like_jax(jp["layers"], tp["layers"], counts)
+        assert counts[0] <= CODE_DIFF_SHARE * counts[1], counts
 
 
 def test_post_norms_raise_under_quarot():

@@ -27,7 +27,8 @@ from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.kv_cache import PagedKVCache
 from qspec_tpu_torch.ops.packing import (quantize_weight_int4_torch,
                                          quantize_weight_int8_torch)
-from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
+from qspec_tpu_torch.ops.quant import (QuantizedActivation, sym_dequant, sym_quant_int4,
+                                       sym_quant_int8)
 
 pytestmark = pytest.mark.gpu
 
@@ -1288,3 +1289,97 @@ def test_proposers_at_8b_width_on_card(gen, method):
     oracle = (None if method == "eagle" else
               SpeculativeConfig(num_speculative_tokens=3, method="medusa_null"))
     assert spec == _greedy(_engine(cfg, params, oracle, **sched), prompts, 24)
+
+
+def _to_cpu(t):
+    """A copy of a tensor tree (dicts, QuantizedActivation) on the CPU."""
+    if isinstance(t, torch.Tensor):
+        return t.cpu()
+    if isinstance(t, dict):
+        return {k: _to_cpu(v) for k, v in t.items()}
+    if isinstance(t, QuantizedActivation):
+        return QuantizedActivation(*map(_to_cpu, t))
+    return t
+
+
+# the JAX block tolerances (tests/test_torch_moe.py), of the largest |delta|
+MOE_CPU_TOL = {"w4a16": 2e-2, "w4a4": 1e-2, "w4a8": 1e-2}
+
+
+@pytest.mark.parametrize("scheme", ["w4a16", "w4a4", "w4a8"])
+def test_moe_block_at_qwen15_moe_widths(gen, scheme, monkeypatch):
+    """_moe_block at Qwen1.5-MoE-A2.7B's widths (one layer: 60 experts of
+    1408, top-4, the gated shared expert of 5632) on the card at the
+    verify's 16 rows, its GEMMs the kernels (expert down at K = 1408, a
+    half-full last stage; 2 x 61 launches), held
+
+    - against the same block on the card with the GEMMs' plain versions:
+      at W4A4 and W4A8 bit for bit (the kernel is exact, every other op the
+      same), at W4A16 within the JAX kernel test's 2e-2 of the largest
+      |delta|;
+    - against the block on the CPU (the plain versions throughout): the
+      same experts for every row, and MOE_CPU_TOL. At W4A4 an ulp of the
+      card's eager silu can move one int4 code of a down GEMM's input a
+      step (seen on one row of 16), so there an element may also be off by
+      one such step, the largest over its row's GEMMs: 8 x the row's
+      activation scale x the column's weight scale x the expert's combine
+      weight (the shared expert's: its sigmoid gate); and every int4 code
+      of every down GEMM's input is within one step of the CPU's."""
+    from qspec_tpu_torch.models import llama as tl
+    cfg = ModelConfig.qwen15_moe_a2_7b(quant="w4", num_layers=1)
+    params = tl.init_params(cfg, seed=0, device="cuda")
+    layers, had = params["layers"], params["hadamards"]
+    x = torch.randn(16, cfg.hidden_size, generator=gen, device="cuda").to(torch.bfloat16)
+    args = ((x, None) if scheme == "w4a16" else
+            (None, (sym_quant_int4 if scheme == "w4a4" else sym_quant_int8)(x)))
+    act_quant = tl._act_quant
+    recorded = {"card": [], "cpu": []}   # each down GEMM's quantized input
+
+    def recording(where):
+        def quant(a, s):
+            q = act_quant(a, s)
+            recorded[where].append(q)
+            return q
+        return quant
+    counters = kernel_wrappers()
+    for c in counters.values():
+        c.launches = 0
+    monkeypatch.setattr(tl, "_act_quant", recording("card"))
+    out = tl._moe_block(*args, layers, 0, cfg, scheme, had)
+    gemm = "matmul_w4a16" if scheme == "w4a16" else "matmul_w4a4"
+    assert counters[gemm].launches == 2 * (cfg.num_experts + 1)
+
+    cpu_layers, cpu_args = _to_cpu(layers), tuple(map(_to_cpu, args))
+    monkeypatch.setattr(tl, "_act_quant", recording("cpu"))
+    cpu = tl._moe_block(*cpu_args, cpu_layers, 0, cfg, scheme, _to_cpu(had))
+    monkeypatch.setattr(tl, "_act_quant", act_quant)
+    x_fp = x if scheme == "w4a16" else sym_dequant(args[1])
+    combine = tl.moe_combine(tl._f32_matmul(x_fp.cpu(), cpu_layers["router"][0]), cfg)
+    assert torch.equal(
+        tl.moe_combine(tl._f32_matmul(x_fp, layers["router"][0]), cfg).cpu() > 0, combine > 0)
+    tol = MOE_CPU_TOL[scheme]
+    err = (out.cpu() - cpu).abs()
+    bound = tol * cpu.abs().max() + tol * cpu.abs()
+    if scheme == "w4a4":
+        qs = torch.cat([cpu_layers["experts_down"]["qs"][0], cpu_layers["shared_down"]["qs"][:1]])
+        gate = torch.sigmoid(tl._f32_matmul(x_fp.cpu(), cpu_layers["shared_gate"][0]))
+        weight = torch.cat([combine, gate], dim=1)
+        scales = torch.stack([q.scales.reshape(-1) for q in recorded["cpu"]], dim=1)
+        step = (8 * (weight * scales)[:, :, None] * qs[None]).amax(dim=1)
+        assert bool((err <= bound + step).all())
+        for card_q, cpu_q in zip(recorded["card"], recorded["cpu"], strict=True):
+            codes = card_q.values.cpu().to(torch.int16) - cpu_q.values.to(torch.int16)
+            assert int(codes.abs().max()) <= 1
+    else:
+        assert bool((err <= bound).all())
+
+    monkeypatch.setattr(tl, "matmul_w4a16", lambda x, w, s, layer_idx=None:
+                        lk.matmul_w4a16_ref(x, w[layer_idx], s[layer_idx]))
+    monkeypatch.setattr(tl, "matmul_w4a4", lambda xv, xs, w, s, layer_idx=None:
+                        lk.matmul_w4a4_ref(xv, xs, w[layer_idx], s[layer_idx]))
+    ref = tl._moe_block(*args, layers, 0, cfg, scheme, had)
+    assert counters[gemm].launches == 2 * (cfg.num_experts + 1)
+    if scheme == "w4a16":
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2 * ref.abs().max().item())
+    else:
+        assert torch.equal(out, ref)

@@ -69,13 +69,22 @@ W4G_SPLITS = {
 }
 
 
+# the MoE presets' shapes that the dense configurations above lack, apart so
+# that W4G_SPLITS stays as it was: Qwen1.5-MoE-A2.7B's experts (gate_up N =
+# 2816; down K = 1408, whose last 256-k stage is half full), shared expert,
+# qkv with its bias and int8 head's (K, N), and Qwen3-30B-A3B's experts (K =
+# 768); Mixtral-8x7B's experts are the dense 8x7B widths above
+EXPERT_SHAPES = [(2048, 2816), (1408, 2048), (2048, 11264), (5632, 2048), (2048, 6144),
+                 (2048, 151936), (2048, 1536), (768, 2048)]
+
+
 def test_shapes_cover_the_presets_and_the_kernel_takes_them():
     """Every projection and head of these configurations (the Llama-3-8B
     int4 head at N = 128256 among them) is one the kernel takes: K a
     multiple of 32 and under 2^17."""
     assert len(SHAPES) >= 30 and (4096, 128256) in SHAPES
     assert set(SHAPES) == set(W4G_SPLITS)
-    for k, n in SHAPES:
+    for k, n in SHAPES + EXPERT_SHAPES:
         assert k % 32 == 0 and k < 2 ** 17, (k, n)
 
 
@@ -94,7 +103,7 @@ def test_runs_fill_the_card_in_equal_shares(k, n, n_sm):
 
 
 @pytest.mark.parametrize("n_sm", SM_COUNTS)
-@pytest.mark.parametrize("k,n", SHAPES)
+@pytest.mark.parametrize("k,n", SHAPES + EXPERT_SHAPES)
 def test_segments_cover_k_once_per_stripe(k, n, n_sm):
     """Each stripe's segments, in the order the kernel adds them, tile the
     k of a plane [0, K/2) exactly once; a stripe is cut only where a run
@@ -115,7 +124,7 @@ def test_segments_cover_k_once_per_stripe(k, n, n_sm):
 
 
 @pytest.mark.parametrize("k,n", [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
-                                 (4096, 128256), (448, 200)])
+                                 (4096, 128256), (448, 200), *EXPERT_SHAPES])
 def test_plan_does_not_depend_on_m(k, n):
     """The runs are the same at every M (the draft's 4 and 8, the verify's
     16, the tree verify's 60, past one block's 64 rows, the prefill's 1024);
@@ -135,9 +144,10 @@ def test_w4g_splits_unchanged(k, n, n_sm):
 
 # (M, K, N, SMs): stripes split across runs and runs across stripes, N not a
 # multiple of 128 (nor, at 130, of 4), K not a multiple of the 256-k stage
-# (448, 288), the whole mode's M past 64
+# (448, 288, and Qwen1.5-MoE's expert down 1408), the whole mode's M past 64
 SPLIT_CASES = [(4, 512, 384, 7), (16, 448, 200, 5), (60, 1024, 130, 13), (5, 256, 96, 132),
-               (8, 2048, 640, 11), (70, 288, 256, 3), (16, 4096, 1024, 132)]
+               (8, 2048, 640, 11), (70, 288, 256, 3), (16, 4096, 1024, 132),
+               (16, 1408, 384, 7)]
 
 
 def _weights(rng, k, n):
