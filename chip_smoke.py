@@ -160,14 +160,35 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    Qwen2-MoE and Qwen3-MoE directories (2 layers) quantized at load, W4A4
    QSpec == qspec_null, and a DeepSeek-MoE directory in bf16, n-gram ==
    null (the kernel line's ``moe_launches``; the MoE shapes' times in the
-   log).
+   log);
+18. the dense families (H), the MoE phases' parameters released first:
+   every kernel at the shapes they bring (the attention at Qwen2-7B's GQA
+   group 7, Q = 1, 2, 4, to context 8192; matmul_w4a16 / matmul_w4a4 (bit
+   for bit) / the grouped GEMM at one Qwen2-7B layer's projections, K up to
+   18944 and N up to 37888; both norms at H = 3584 and 3072; the int8 head
+   at DENSE_HEADS, Granite's 49155 columns padded at load) against its
+   plain version, and timed at Qwen2-7B's shapes beside its library call
+   and bound (check_dense_shapes, time_dense_shapes); (H1)
+   LLM(model="qwen2-7b") at full width and depth, random int4 weights made
+   on the card, QSpec (k = 3) at W4A4 and W4A8 == qspec_null in
+   check_moe_counts' exact counts (phase_qwen2_7b); (H2) Qwen2.5-7B,
+   Qwen3-8B, Mistral-7B-v0.1, Gemma-7B, Phi-3-mini-128k-instruct and
+   Granite-3.0-8B directories (their published config.json fields at 2
+   layers, random bf16 written here) quantized at load, W4A4 QSpec ==
+   qspec_null (phase_dense_dirs); (H3) a qwen2_quarot QSpec-format
+   directory with its q/k/v biases and a QuarotLlamaForCausalLM one,
+   written from (H2)'s parameters and loading to them bit for bit, and an
+   AWQ directory at Qwen2-7B's widths routed by its quant_method, each ==
+   its oracle (phase_quarot_dirs; the kernel line's ``dense_launches``).
 
-It prints the kernel summary as one JSON line (every field of each kernel,
-with its launches in the paths of phases 12-17) and, last, the device JSON
-line. Every line also goes to chiprun_out/chip_smoke.log, which alone has
-the per-case detail the standard output gives in short (the kernels' full
-`-Xptxas -v` summary, each tiny forward check, each long attention check,
-each grouped-GEMM shape's time).
+It prints the kernel summary as one JSON line (each kernel's summary
+fields, and its times at Qwen2-7B's shapes, ``qwen2_7b``: ms, plain ms,
+bound ms, library ms) and, last, the device JSON line. Every line also
+goes to chiprun_out/chip_smoke.log, which alone has the per-case detail the
+standard output gives in short (the kernels line with every field and its
+launches in the paths of phases 12-18, the kernels' full `-Xptxas -v`
+summary, each tiny forward check, each long attention check, each
+grouped-GEMM shape's time).
 """
 
 from __future__ import annotations
@@ -2362,7 +2383,8 @@ def write_safetensors(path: str, tensors: dict) -> None:
     for name, t in tensors.items():
         n = t.numel() * t.element_size()
         header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32",
-                                  torch.float16: "F16", torch.uint8: "U8"}[t.dtype],
+                                  torch.float16: "F16", torch.uint8: "U8",
+                                  torch.int32: "I32"}[t.dtype],
                         "shape": list(t.shape), "data_offsets": [off, off + n]}
         off += n
     raw = json.dumps(header).encode()
@@ -2688,7 +2710,6 @@ def phase_llama_dirs(params8, cfg8, smi: str):
     from qspec_tpu_torch.config import LLAMA3_8B_HF
     from qspec_tpu_torch.models.registry import resolve
     from qspec_tpu_torch.ops import kernel_wrappers
-    from qspec_tpu_torch.ops.packing import pack_reference, unpack_int4
     hf = {**LLAMA3_8B_HF, "num_hidden_layers": 2}
     cfg = resolve(hf)
     kw = dict(device="cuda", max_model_len=512, max_num_seqs=4, seed=0)
@@ -2735,26 +2756,7 @@ def phase_llama_dirs(params8, cfg8, smi: str):
         e2e_log(label, prompts, spec, summary)
         out["D2"] = (launches, summary)
     with tempfile.TemporaryDirectory() as d:
-        sd = {"model.embed_tokens.weight": params8["embed"],
-              "lm_head.weight": (params8["lm_head"]["qw8"].float()
-                                 * params8["lm_head"]["qs"]).t().to(torch.bfloat16)}
-        modules = {"qkv": (("self_attn.q_proj", cfg.q_size), ("self_attn.k_proj", cfg.kv_size),
-                           ("self_attn.v_proj", cfg.kv_size)),
-                   "o": (("self_attn.o_proj.1", cfg.hidden_size),),
-                   "gate_up": (("mlp.gate_proj", cfg.intermediate_size),
-                               ("mlp.up_proj", cfg.intermediate_size)),
-                   "down": (("mlp.down_proj.1", cfg.hidden_size),)}
-        for li in range(cfg.num_layers):
-            for name, parts in modules.items():
-                vals = unpack_int4(params8["layers"][name]["qw"][li])
-                start = 0
-                for module, width in parts:
-                    key = f"model.layers.{li}.{module}"
-                    sd[key + ".weight"] = pack_reference(vals[:, start:start + width])
-                    sd[key + ".weight_scales"] = params8["layers"][name]["qs"][li,
-                                                                             start:start + width]
-                    start += width
-                del vals
+        sd = reference_qspec_sd(params8, cfg)
         write_safetensors(os.path.join(d, "model.safetensors"), sd)
         del sd
         write_config(d, hf)
@@ -2762,7 +2764,7 @@ def phase_llama_dirs(params8, cfg8, smi: str):
         llm = LLM(model=d, num_speculative_tokens=3, **kw)
         loaded = llm.llm_engine.runner.params
         same = all(torch.equal(loaded["layers"][n][k], params8["layers"][n][k][:2])
-                   for n in modules for k in ("qw", "qs"))
+                   for n in ("qkv", "o", "gate_up", "down") for k in ("qw", "qs"))
         if not (same and torch.equal(loaded["embed"], params8["embed"])):
             raise AssertionError(f"{label}: the packed tensors differ from (A)'s layers 0-1")
         del llm, loaded
@@ -3320,9 +3322,10 @@ def round_tally(eng) -> dict:
 
 
 def moe_launches(cfg) -> int:
-    """int4 GEMM launches of one forward of ``cfg``'s MoE layers: per layer
-    qkv, o, each expert's gate_up and down, the shared expert's two."""
-    return cfg.num_layers * (2 + 2 * cfg.num_experts
+    """int4 GEMM launches of one forward of ``cfg``'s layers: per layer
+    qkv, o, and the MLP's gate_up and down (of each expert, and the shared
+    expert's two, in an MoE)."""
+    return cfg.num_layers * (2 + 2 * max(cfg.num_experts, 1)
                              + 2 * bool(cfg.shared_expert_intermediate_size))
 
 
@@ -3541,6 +3544,513 @@ def phase_moe_dirs(smi: str):
     return out
 
 
+# ------------------------------------------------- (H) the dense families
+
+# one Qwen2-7B layer's projections (K, N): qkv with the bias (3584 + 2 x 512),
+# o, gate_up (2 x 18944) and down (K = 18944); 28 query heads over 4 KV heads
+QWEN2_7B_PROJ = {"qkv": (3584, 4608), "o": (3584, 3584), "gate_up": (3584, 37888),
+                 "down": (18944, 3584)}
+QWEN2_7B_HEADS = (28, 4)
+# the int8 heads of (H)'s models, (K, N): Qwen2-7B's, Phi-3's (a half last
+# tile), Granite-3.0's (49155: padded at load to 49280, sliced back) and
+# Gemma-7B's
+DENSE_HEADS = {"qwen2-7b": (3584, 152064), "phi-3-mini": (3072, 32064),
+               "granite-3.0-8b": (4096, 49155), "gemma-7b": (3072, 256000)}
+DENSE_M = (4, 16)         # the draft's rows and the verify's (4 sequences x k + 1)
+
+
+def check_dense_shapes(gen, report):
+    """(H) the kernels at the shapes of the dense families: the attention at
+    Qwen2-7B's GQA group 7 (Q = 1, 2, 4: 7, 14, 28 rows a KV head) at the
+    verify's contexts and at 8192 (32 splits), against its plain version;
+    matmul_w4a16 (2e-2) and matmul_w4a4 (bit for bit, int4 and int8
+    activations) at one Qwen2-7B layer's projections, M = 4 and 16, read in
+    place from a layer stack; the grouped GEMM there (g = 128, 2e-2); both
+    norms with and without the residual add at H = 3584 and 3072; the int8
+    head through compute_logits at DENSE_HEADS (2e-2)."""
+    from qspec_tpu_torch.models.llama import _make_lm_head, compute_logits
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
+    Hq, Hkv = QWEN2_7B_HEADS
+    err = {"paged_attention": 0.0, "matmul_w4a16": 0.0, "matmul_w4a16_g": 0.0,
+           "matmul_w8a16": 0.0, "rmsnorm": 0.0, "rmsnorm_quant": 0.0}
+    for q_len in (1, 2, 4):
+        for ctx in (_ctx_lens(q_len), (LONG_CTX, LONG_CTX - 1, 4097, 40)):
+            q, cache, tables, c = _attn_inputs(gen, q_len, Hq=Hq, Hkv=Hkv, ctx=list(ctx))
+            out = paged_attention_cuda(q, cache.kv_pages, tables, c, 128 ** -0.5, layer=1)
+            ref = paged_attention_ref(q, cache, 1, tables, c, 128 ** -0.5)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+            err["paged_attention"] = max(err["paged_attention"],
+                                         (out.float() - ref.float()).abs().max().item())
+            del q, cache
+    for k, n in QWEN2_7B_PROJ.values():
+        qw = torch.empty(2, k // 8, n, dtype=torch.int32, device="cuda")
+        qs = torch.empty(2, n, device="cuda")
+        for li in range(2):
+            qw[li], qs[li] = _w4(gen, k, n)
+        gw = _w4g(gen, k, n)
+        for m in DENSE_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out = lk.matmul_w4a16(x, qw, qs, layer_idx=1)
+            ref = lk.matmul_w4a16_ref(x, qw[1], qs[1])
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            err["matmul_w4a16"] = max(err["matmul_w4a16"],
+                                      (out.float() - ref.float()).abs().max().item())
+            for xq in (sym_quant_int4(x), sym_quant_int8(x)):
+                if not torch.equal(lk.matmul_w4a4(xq.values, xq.scales, qw, qs, layer_idx=1),
+                                   lk.matmul_w4a4_ref(xq.values, xq.scales, qw[1], qs[1])):
+                    raise AssertionError(f"(H) matmul_w4a4 K={k} N={n} M={m}: not bit-equal "
+                                         "to its plain version")
+            out, ref = lk.matmul_w4a16_g(x, *gw), lk.matmul_w4a16_g_ref(x, *gw)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            err["matmul_w4a16_g"] = max(err["matmul_w4a16_g"],
+                                        (out.float() - ref.float()).abs().max().item())
+        del qw, qs, gw
+    for h in (3584, 3072):
+        for m in DENSE_M:
+            x, r = _norm_set(gen, m, h)
+            for name, bits, gamma in (("rmsnorm_quant", 4, None), ("rmsnorm_quant", 8, None),
+                                      ("rmsnorm", None, None), ("rmsnorm", None, _gamma(gen, h))):
+                for res in (None, r):
+                    got = norm_fn(name, bits, gamma)(x, res)
+                    want = norm_fn(name, bits, gamma, True)(x, res)
+                    if res is not None and not torch.equal(got[-1], x + r):
+                        raise AssertionError(f"(H) {name} H={h}: h is not x + r")
+                    if name == "rmsnorm_quant":
+                        torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=0)
+                        d = (got[0].int() - want[0].int()).abs()
+                        if d.max().item() > 1 or (d == 0).float().mean().item() <= 0.99:
+                            raise AssertionError(f"(H) rmsnorm_quant H={h} M={m}: values")
+                        err[name] = max(err[name], float(d.max().item()))
+                    else:
+                        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                                   rtol=2e-2, atol=2e-2)
+                        err[name] = max(err[name],
+                                        (got[0].float() - want[0].float()).abs().max().item())
+    for label, (k, n) in DENSE_HEADS.items():
+        head = _make_lm_head(torch.randn(k, n, generator=gen, device="cuda") * 0.05, "int8")
+        for m in DENSE_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out = compute_logits(x, head, n)
+            ref = lk.matmul_w8a16_ref(x, head["qw8"][:, :n], head["qs"][:n],
+                                      out_dtype=torch.float32)
+            if tuple(out.shape) != (m, n):
+                raise AssertionError(f"(H) int8 head {label}: logits {tuple(out.shape)}")
+            torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+            err["matmul_w8a16"] = max(err["matmul_w8a16"], (out - ref).abs().max().item())
+        del head
+    torch.cuda.empty_cache()
+    for name, e in err.items():
+        report[name]["dense_max_err"] = e
+    log("check (H) dense shapes: attention GQA group 7 (Q=1,2,4; ctx to 8192), w4a16 / w4a4 "
+        "(bit-equal) / w4a16_g at Qwen2-7B's projections M=4,16, norms H=3584,3072, int8 heads "
+        f"{sorted(n for _, n in DENSE_HEADS.values())}: max_abs_err "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}, separators=(",", ":")))
+
+
+def time_dense_shapes(gen, report, int4pack_missing):
+    """Every kernel at Qwen2-7B's shapes, beside its plain version, the
+    library call where one computes the same function and the bound, each
+    input set rotated past L2: matmul_w4a16 and matmul_w4a4 per layer (the
+    four projections) and the grouped GEMM per layer (g = 128) at M = 4 and
+    16; the attention at group 7, B = 4, Q = 4 over the verify's contexts;
+    the int8 head at N = 152064, M = 4 and 16; rmsnorm (M = 16) and
+    rmsnorm_quant (4 bits, M = 4) at H = 3584 with the residual add. Per
+    kernel [ms, plain_ms, bound_ms, library_ms] in report[kernel]["qwen2_7b"]
+    (the verify's M for w4a16 and its norm, the draft's for w4a4 and its
+    norm) and every row in the log."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    shapes = tuple(QWEN2_7B_PROJ.values())
+    rows = {}
+    for name in ("matmul_w4a16", "matmul_w4a4"):
+        for m in DENSE_M:
+            r = time_w4_layer(gen, name, m, shapes=shapes,
+                              library=name == "matmul_w4a4" or int4pack_missing is None)
+            rows[(name, m)] = r
+            log(f"time (H) {name} Qwen2-7B layer M={m} ({', '.join(r['per'])} ms): "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, {r['library']} "
+                + (f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "none")
+                + f", bound {r['bound_ms']:.4f} ({r['bound_by']})", stdout=False)
+    for m in DENSE_M:
+        r = _time_w4g_layer(gen, shapes, m, int4pack_missing is None)
+        r["library"] = "_weight_int4pack_mm" if r["library_ms"] is not None else None
+        rows[("matmul_w4a16_g", m)] = r
+        log(f"time (H) matmul_w4a16_g Qwen2-7B layer M={m} g={GROUP} ({', '.join(r['per'])} "
+            f"ms): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
+            + (f"{r['library_ms']:.4f}" if r["library_ms"] is not None else "none")
+            + f", bound {r['bound_ms']:.4f} ({r['bound_by']})", stdout=False)
+    # the attention at group 7, the verify shape
+    Hq, Hkv = QWEN2_7B_HEADS
+    live = _ctx_lens(4)
+    kv_bytes = sum(live) * Hkv * 128 * 2 * 2
+    rot = Rotating(lambda: _attn_inputs(gen, 4, Hq=Hq, Hkv=Hkv), kv_bytes)
+    q, _, tables, _ = rot.sets[0]
+
+    def kern():
+        q, cache, tables, ctx = rot.next()
+        paged_attention_cuda(q, cache.kv_pages, tables, ctx, 128 ** -0.5, layer=1)
+
+    def plain():
+        q, cache, tables, ctx = rot.next()
+        paged_attention_ref(q, cache, 1, tables, ctx, 128 ** -0.5)
+    nbytes = 2 * q.numel() * 2 + kv_bytes + tables.numel() * 4 + 8 * 4
+    seen = sum(sum(c - 4 + i + 1 for i in range(4)) for c in live)
+    b, kind = bound_ms(nbytes, 4 * Hq * 128 * seen, "bf16")
+    rows[("paged_attention", 4)] = dict(ms=graph_ms(kern, reps=max(20, len(rot.sets))),
+                                        plain_ms=graph_ms(plain, reps=3), bound_ms=b,
+                                        bound_by=kind, library_ms=None)
+    del rot, q, tables
+    # the int8 head at Qwen2-7B's vocabulary
+    k, n = DENSE_HEADS["qwen2-7b"]
+    wbytes = k * n + 4 * n
+    rot = Rotating(lambda: _w8(gen, k, n), wbytes)
+
+    def transposed():
+        qw, qs = _w8(gen, k, n)
+        return qw.t().contiguous(), qs.to(torch.bfloat16)
+    rot_t = Rotating(transposed, wbytes)
+    for m in DENSE_M:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        b, kind = bound_ms(m * k * 2 + wbytes + m * n * 4, 2 * m * k * n, "bf16")
+        rows[("matmul_w8a16", m)] = dict(
+            ms=graph_ms(lambda: lk.matmul_w8a16(x, *rot.next(), out_dtype=torch.float32)),
+            plain_ms=graph_ms(lambda: lk.matmul_w8a16_ref(x, *rot.next(),
+                                                          out_dtype=torch.float32), reps=3),
+            bound_ms=b, bound_by=kind,
+            library_ms=graph_ms(lambda: torch._weight_int8pack_mm(x, *rot_t.next())))
+    del rot, rot_t
+    torch.cuda.empty_cache()
+    # the norms at H = 3584 with the residual add
+    for name, m, bits in (("rmsnorm", 16, None), ("rmsnorm_quant", 4, 4)):
+        h = 3584
+        rot = _norm_rot(gen, m, h)
+        kern_f, plain_f = norm_fn(name, bits, None), norm_fn(name, bits, None, True)
+        reps = max(20, len(rot.sets))
+        out_bytes = m * h + 4 * m if name == "rmsnorm_quant" else m * h * 2
+        b, kind = bound_ms(m * h * 2 * 2 + out_bytes + m * h * 2,
+                           (7 if bits else 5) * m * h, "f32")
+        rows[(name, m)] = dict(ms=graph_ms(lambda: kern_f(*rot.next()), reps),
+                               plain_ms=graph_ms(lambda: plain_f(*rot.next()), reps),
+                               bound_ms=b, bound_by=kind, library_ms=None)
+        del rot
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+    for (name, m), r in rows.items():
+        log(f"time (H) {name} Qwen2-7B M={m}: " + ", ".join(
+            f"{f} {r[f]:.5f}" if r[f] is not None else f"{f} none" for f in fields)
+            + f" ({r['bound_by']})", stdout=False)
+    pick = {"matmul_w4a16": 16, "matmul_w4a4": 4, "matmul_w4a16_g": 16, "paged_attention": 4,
+            "matmul_w8a16": 16, "rmsnorm": 16, "rmsnorm_quant": 4}
+    for name, m in pick.items():
+        report[name]["qwen2_7b"] = [float(f"{rows[(name, m)][f]:.5g}")
+                                    if rows[(name, m)][f] is not None else None for f in fields]
+        report[name]["qwen2_7b_shape"] = f"M={m}"
+    log("time (H) Qwen2-7B shapes, ms kernel/bound: " + "; ".join(
+        f"{name} M={m} {rows[(name, m)]['ms']:.4f}/{rows[(name, m)]['bound_ms']:.4f}"
+        for name, m in pick.items()))
+
+
+def phase_qwen2_7b(smi: str):
+    """(H1) LLM(model="qwen2-7b"): Qwen2-7B at full width and depth (28
+    layers, hidden 3584, intermediate 18944, 28 / 4 heads, vocab 152064, the
+    qkv bias), quant="w4" with the int8 head over a bf16 cache, random int4
+    weights made on the card from the seed, QSpec (k = 3) with the W4A4 and
+    the W4A8 draft, each against qspec_null on moe_prompts: tokens equal,
+    exactly QUAROT_KERNELS launched, in check_moe_counts' counts (4 x 28
+    matmul_w4a16 a verify forward, 4 x 28 matmul_w4a4 a draft forward, 28
+    attention launches a forward of either)."""
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import ModelConfig
+    cfg = ModelConfig.qwen2_7b(quant="w4")
+    prompts = moe_prompts(cfg.vocab_size)
+    out, made = {}, {}
+    for scheme in ("w4a4", "w4a8"):
+        tally = []
+
+        def make(method, p, scheme=scheme, tally=tally):
+            # the weights are made once, by the first run, from the seed
+            t0 = time.perf_counter()
+            llm = LLM(model="qwen2-7b", params=p or made.get("params"), device="cuda",
+                      seed=22, num_speculative_tokens=3, speculative_draft_scheme=scheme,
+                      speculative_method=method, max_model_len=512, max_num_seqs=4,
+                      num_pages=80)
+            if not made:
+                torch.cuda.synchronize()
+                made.update(params=llm.llm_engine.runner.params,
+                            seconds=time.perf_counter() - t0,
+                            gib=torch.cuda.memory_allocated() / 2 ** 30)
+            tally.append(round_tally(llm.llm_engine))
+            return llm.llm_engine
+        name = f"(H1) qwen2-7b ({scheme} draft, int8 head, bf16 KV)"
+        torch.cuda.reset_peak_memory_stats()
+        spec, launches, _, summary = spec_vs_oracle(make, name, QUAROT_KERNELS, prompts, 32)
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_moe_counts(name, cfg, launches, summary, tally[0])
+        summary["verify_forwards_in_rounds"] = tally[0]["verify"]
+        e2e_log(name, prompts, spec, summary)
+        out[scheme] = (launches, summary)
+        torch.cuda.empty_cache()
+    moe_line("(H1) qwen2-7b, 28 layers", out, f"; weights made in {made['seconds']:.1f} s, "
+             f"{made['gib']:.2f} GiB with the KV pools")
+    del made
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"e2e (H1): card {smi}", stdout=False)
+    return out
+
+
+# (H2)'s directories: each family's reference checkpoint's published
+# config.json fields, only num_hidden_layers cut (to 2). Phi-3's 48 longrope
+# factors a list are placeholders (the published values are not in the
+# repo): the count and the roles are the published ones, and every prompt
+# position lies inside the original window of 4096, where the short factors
+# and the attention factor apply
+QWEN25_7B_HF = dict(
+    architectures=["Qwen2ForCausalLM"], model_type="qwen2", hidden_act="silu",
+    hidden_size=3584, intermediate_size=18944, max_position_embeddings=131072,
+    max_window_layers=28, num_attention_heads=28, num_hidden_layers=28,
+    num_key_value_heads=4, rms_norm_eps=1e-06, rope_theta=1000000.0, sliding_window=131072,
+    tie_word_embeddings=False, use_sliding_window=False, vocab_size=152064)
+DENSE_DIRS = {
+    "qwen2.5-7b": QWEN25_7B_HF,
+    "qwen3-8b": dict(
+        architectures=["Qwen3ForCausalLM"], model_type="qwen3", attention_bias=False,
+        head_dim=128, hidden_act="silu", hidden_size=4096, intermediate_size=12288,
+        max_position_embeddings=40960, max_window_layers=36, num_attention_heads=32,
+        num_hidden_layers=36, num_key_value_heads=8, rms_norm_eps=1e-06, rope_scaling=None,
+        rope_theta=1000000, sliding_window=None, tie_word_embeddings=False,
+        use_sliding_window=False, vocab_size=151936),
+    "mistral-7b-v0.1": dict(
+        architectures=["MistralForCausalLM"], model_type="mistral", hidden_act="silu",
+        hidden_size=4096, intermediate_size=14336, max_position_embeddings=32768,
+        num_attention_heads=32, num_hidden_layers=32, num_key_value_heads=8,
+        rms_norm_eps=1e-05, rope_theta=10000.0, sliding_window=4096,
+        tie_word_embeddings=False, vocab_size=32000),
+    "gemma-7b": dict(
+        architectures=["GemmaForCausalLM"], model_type="gemma", attention_bias=False,
+        head_dim=256, hidden_act="gelu", hidden_size=3072, intermediate_size=24576,
+        max_position_embeddings=8192, num_attention_heads=16, num_hidden_layers=28,
+        num_key_value_heads=16, rms_norm_eps=1e-06, rope_scaling=None, rope_theta=10000.0,
+        vocab_size=256000),
+    "phi-3-mini-128k": dict(
+        architectures=["Phi3ForCausalLM"], model_type="phi3", attention_bias=False,
+        hidden_act="silu", hidden_size=3072, intermediate_size=8192,
+        max_position_embeddings=131072, original_max_position_embeddings=4096,
+        num_attention_heads=32, num_hidden_layers=32, num_key_value_heads=32,
+        rms_norm_eps=1e-05, rope_theta=10000.0, sliding_window=262144,
+        tie_word_embeddings=False, vocab_size=32064,
+        rope_scaling={"type": "longrope",
+                      "short_factor": np.linspace(1.0, 2.0, 48).round(4).tolist(),
+                      "long_factor": np.geomspace(1.0, 64.0, 48).round(4).tolist()}),
+    "granite-3.0-8b": dict(
+        architectures=["GraniteForCausalLM"], model_type="granite", attention_bias=False,
+        attention_multiplier=0.0078125, embedding_multiplier=12.0, hidden_act="silu",
+        hidden_size=4096, intermediate_size=12800, logits_scaling=16.0,
+        max_position_embeddings=4096, mlp_bias=False, num_attention_heads=32,
+        num_hidden_layers=40, num_key_value_heads=8, residual_multiplier=0.22,
+        rms_norm_eps=1e-05, rope_scaling=None, rope_theta=10000.0,
+        tie_word_embeddings=True, vocab_size=49155),
+}
+DENSE_LAYERS = 2
+
+
+def dense_entries(cfg, fused: bool):
+    """A dense family's checkpoint names and shapes: split q / k / v and
+    gate / up (``fused``: Phi-3's qkv_proj and gate_up_proj), Qwen2's q/k/v
+    biases, Qwen3's q / k norms, the lm_head unless it is tied (Gemma,
+    Granite: none, as save_pretrained writes it)."""
+    H, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        out += [(p + "input_layernorm.weight", (H,), "gamma"),
+                (p + "post_attention_layernorm.weight", (H,), "gamma"),
+                (p + "self_attn.o_proj.weight", (H, cfg.q_size), "w"),
+                (p + "mlp.down_proj.weight", (H, I), "w")]
+        if fused:
+            out += [(p + "self_attn.qkv_proj.weight", (cfg.qkv_out, H), "w"),
+                    (p + "mlp.gate_up_proj.weight", (2 * I, H), "w")]
+        else:
+            out += [(p + f"self_attn.{n}_proj.weight", (w, H), "w")
+                    for n, w in (("q", cfg.q_size), ("k", cfg.kv_size), ("v", cfg.kv_size))]
+            out += [(p + f"mlp.{n}_proj.weight", (I, H), "w") for n in ("gate", "up")]
+        if cfg.qkv_bias:
+            out += [(p + f"self_attn.{n}_proj.bias", (w,), "b")
+                    for n, w in (("q", cfg.q_size), ("k", cfg.kv_size), ("v", cfg.kv_size))]
+        if cfg.qk_norm:
+            out += [(p + f"self_attn.{n}_norm.weight", (cfg.head_dim,), "gamma") for n in "qk"]
+    out.append(("model.norm.weight", (H,), "gamma"))
+    return out + ([] if cfg.tie_word_embeddings else [("lm_head.weight", (V, H), "w")])
+
+
+def dense_dir_run(label: str, d: str, cfg, prompts, held: dict, every=(), **extra):
+    """QSpec (k = 3, W4A4 draft unless ``extra`` says otherwise) through
+    LLM(model=d) against qspec_null on the same parameters (loaded once, by
+    the QSpec run: its load seconds and peak GiB into the summary, its
+    params into ``held``); exactly the path's kernels launched."""
+    from qspec_tpu_torch import LLM
+    kw = dict(device="cuda", max_model_len=512, max_num_seqs=4, seed=0, num_pages=80)
+
+    def make(method, p):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        llm = LLM(model=d, params=p, num_speculative_tokens=3, speculative_method=method,
+                  **kw, **extra)
+        if p is None:
+            torch.cuda.synchronize()
+            held.update(params=llm.llm_engine.runner.params, cfg=llm.engine_config.model,
+                        load_s=time.perf_counter() - t0,
+                        load_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return llm.llm_engine
+    expect = W4G_KERNELS if cfg.quant == "w4g" else QUAROT_KERNELS
+    spec, launches, _, summary = spec_vs_oracle(make, label, expect, prompts, 32,
+                                                every_launch=every)
+    summary.update(load_s=held["load_s"], load_peak_gib=held["load_peak_gib"])
+    e2e_log(label, prompts, spec, summary)
+    return launches, summary
+
+
+def phase_dense_dirs(smi: str):
+    """(H2) LLM(model=<dir>) on a Qwen2.5-7B, Qwen3-8B, Mistral-7B-v0.1,
+    Gemma-7B, Phi-3-mini-128k-instruct and Granite-3.0-8B directory written
+    here (DENSE_DIRS: the published config.json fields, num_hidden_layers
+    cut to DENSE_LAYERS; model.safetensors of random bf16 made on the card),
+    each quantized at load by quantize_float on the card, QSpec with the
+    W4A4 draft == qspec_null, exactly the QuaRot kernels launched (Gemma's
+    attention at head dim 256 on every launch). Returns each run's
+    (launches, summary) and the Qwen2.5 and Mistral parameters, which (H3)
+    writes back in the reference's QSpec format."""
+    import tempfile
+    from qspec_tpu_torch.models.registry import resolve
+    out, kept = {}, {}
+    for i, (name, published) in enumerate(DENSE_DIRS.items()):
+        hf = {**published, "num_hidden_layers": DENSE_LAYERS}
+        cfg = resolve(hf)
+        held = {}
+        with tempfile.TemporaryDirectory() as d:
+            sd = random_state_dict(dense_entries(cfg, fused=name.startswith("phi")),
+                                   seed=50 + i)
+            write_safetensors(os.path.join(d, "model.safetensors"), sd)
+            del sd
+            write_config(d, hf)
+            out[name] = dense_dir_run(
+                f"(H2) {name} dir, {DENSE_LAYERS} layers, quantize_float, w4a4 draft", d, cfg,
+                moe_prompts(cfg.vocab_size), held,
+                every=("d256",) if cfg.head_dim == 256 else ())
+        if name in ("qwen2.5-7b", "mistral-7b-v0.1"):
+            kept[name] = (held["params"], held["cfg"], hf)
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("e2e (H2) LLM(model=<dir>), published widths at 2 layers, quantize_float, w4a4 QSpec == "
+        "qspec_null: " + ", ".join(
+            f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s, "
+            f"{r[1]['load_peak_gib']:.1f} GiB)" for n, r in out.items()))
+    log(f"e2e (H2): card {smi}", stdout=False)
+    return out, kept
+
+
+def reference_qspec_sd(params, cfg) -> dict:
+    """A reference-format QSpec state dict from QuaRot params on the card,
+    of ``cfg.num_layers`` layers (the params' first ones): each projection's
+    int4 values as uint8 [out, in // 2] with its weight_scales, o / down
+    under the reference's ``o_proj.1.`` / ``down_proj.1.`` keys, the q/k/v
+    biases where the params have them, the rotated embedding and the int8
+    head dequantized to bf16."""
+    from qspec_tpu_torch.ops.packing import pack_reference, unpack_int4
+    head = params["lm_head"]
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "lm_head.weight": (head["qw8"].float() * head["qs"]).t()[:cfg.vocab_size]
+          .to(torch.bfloat16)}
+    modules = {"qkv": (("self_attn.q_proj", cfg.q_size), ("self_attn.k_proj", cfg.kv_size),
+                       ("self_attn.v_proj", cfg.kv_size)),
+               "o": (("self_attn.o_proj.1", cfg.hidden_size),),
+               "gate_up": (("mlp.gate_proj", cfg.intermediate_size),
+                           ("mlp.up_proj", cfg.intermediate_size)),
+               "down": (("mlp.down_proj.1", cfg.hidden_size),)}
+    for li in range(cfg.num_layers):
+        for name, parts in modules.items():
+            layer = params["layers"][name]
+            vals, start = unpack_int4(layer["qw"][li]), 0
+            for module, width in parts:
+                key = f"model.layers.{li}.{module}"
+                sd[key + ".weight"] = pack_reference(vals[:, start:start + width])
+                sd[key + ".weight_scales"] = layer["qs"][li, start:start + width]
+                if "b" in layer:
+                    sd[key + ".bias"] = layer["b"][li, start:start + width]
+                start += width
+            del vals
+    return sd
+
+
+def phase_quarot_dirs(kept: dict, smi: str):
+    """(H3) the reference's QuaRot directories and an AWQ one, each through
+    LLM(model=<dir>) against its oracle: (a) a qwen2_quarot QSpec-format
+    directory (architectures Qwen2QuaRotForCausalLM) written from (H2)'s
+    Qwen2.5-7B layers with their q/k/v biases, and (b) a
+    QuarotLlamaForCausalLM one (model type llama_quarot) from (H2)'s
+    Mistral-7B layers: each loads (load_qspec) to the (H2) parameters' int4
+    codes, scales, biases and embedding bit for bit, W4A4 QSpec ==
+    qspec_null; (c) an AWQ directory at Qwen2-7B's widths (g = 128, the
+    biases, DENSE_LAYERS layers; made on the card by
+    model_loader.grouped.make_grouped_state_dict, its config.json naming
+    quant_method "awq"), routed to load_awq by that field alone, QSpec with
+    the W4A16 draft == qspec_null, exactly the grouped path's kernels."""
+    import tempfile
+    from qspec_tpu_torch.config import ModelConfig
+    from qspec_tpu_torch.model_loader.grouped import make_grouped_state_dict
+    out = {}
+    for key, (src, arch, mtype) in {"a": ("qwen2.5-7b", "Qwen2QuaRotForCausalLM", "qwen2_quarot"),
+                                    "b": ("mistral-7b-v0.1", "QuarotLlamaForCausalLM",
+                                          "llama_quarot")}.items():
+        params, cfg, hf = kept[src]
+        label = f"(H3{key}) {arch} QSpec dir from (H2)'s {src}, load_qspec, w4a4 draft"
+        held = {}
+        with tempfile.TemporaryDirectory() as d:
+            write_safetensors(os.path.join(d, "model.safetensors"), reference_qspec_sd(params, cfg))
+            write_config(d, {**hf, "architectures": [arch], "model_type": mtype})
+            out[key] = dense_dir_run(label, d, cfg, moe_prompts(cfg.vocab_size), held)
+        loaded = held["params"]["layers"]
+        same = all(torch.equal(loaded[n][k], params["layers"][n][k])
+                   for n in ("qkv", "o", "gate_up", "down") for k in params["layers"][n])
+        if not (same and torch.equal(held["params"]["embed"], params["embed"])
+                and held["cfg"].qkv_bias == cfg.qkv_bias):
+            raise AssertionError(f"{label}: the loaded tensors differ from (H2)'s")
+        del held, loaded
+        torch.cuda.empty_cache()
+    cfg = ModelConfig.qwen2_7b(quant="w4g", num_layers=DENSE_LAYERS)
+    hf = {**QWEN25_7B_HF, "num_hidden_layers": DENSE_LAYERS, "max_position_embeddings": 32768,
+          "quantization_config": {"quant_method": "awq", "bits": 4, "group_size": GROUP,
+                                  "version": "gemm", "zero_point": True}}
+    held = {}
+    with tempfile.TemporaryDirectory() as d:
+        sd = make_grouped_state_dict(cfg, "awq", GROUP, seed=60, device="cuda")
+        sd = {k: v.to(torch.bfloat16) if v.is_floating_point() and v.dtype != torch.float16
+              else v for k, v in sd.items()}
+        write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        del sd
+        write_config(d, hf)
+        out["c"] = dense_dir_run("(H3c) qwen2-7b widths AWQ dir (g=128, qkv bias), load_awq, "
+                                 "w4a16 draft", d, cfg, moe_prompts(cfg.vocab_size), held,
+                                 speculative_draft_scheme="w4a16")
+    if held["cfg"].quant != "w4g" or "b" not in held["params"]["layers"]["qkv"]:
+        raise AssertionError("(H3c) the AWQ directory did not load as w4g with its biases")
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("e2e (H3) LLM(model=<dir>): qwen2_quarot (biases) and QuarotLlama QSpec dirs == (H2)'s "
+        "tensors bit for bit, w4a4 == qspec_null (accept "
+        f"{out['a'][1]['acceptance_rate']:.3f}, {out['b'][1]['acceptance_rate']:.3f}); AWQ "
+        f"qwen2-7b widths by quant_method, w4a16 == qspec_null (accept "
+        f"{out['c'][1]['acceptance_rate']:.3f})")
+    log(f"e2e (H3): card {smi}", stdout=False)
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -3560,6 +4070,10 @@ KERNEL_META = {
                        "qspec_tpu/ops/linear_kernels.py:372 (_w4a16_g_kernel; stacked "
                        "_stacked_g_kernel, :402)"),
 }
+# the fields of the kernels line on the standard output (the log has all)
+STDOUT_KEYS = ("name", "route", "source", "replaces", "launches", "launches_in",
+               "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "shape", "qwen2_7b", "qwen2_7b_shape")
 # the 8-bit instantiations of the attention kernel: (source, TPU kernel)
 KV8_META = {f"paged_attention_{dt}": (
     "qspec_tpu_torch/csrc/paged_attention.cu",
@@ -3631,13 +4145,32 @@ def main():
     moe = {"G1": phase_moe_mixtral(smi), "G2": phase_moe_qwen15(smi)}
     moe_dirs = phase_moe_dirs(smi)
     log(f"(G) took {time.perf_counter() - t_moe:.1f} s")
+    # (H) the dense families, with the MoE phases' parameters released
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dense = time.perf_counter()
+    gen_dense = torch.Generator(device="cuda").manual_seed(4)
+    check_dense_shapes(gen_dense, report)
+    time_dense_shapes(gen_dense, report, int4pack_missing)
+    qwen2 = phase_qwen2_7b(smi)
+    dense_dirs, kept = phase_dense_dirs(smi)
+    quarot_dirs = phase_quarot_dirs(kept, smi)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(H) took {time.perf_counter() - t_dense:.1f} s")
     log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
-        "BLOOM-7B1, MPT, (A)-(E), the MoE (G)), each greedy == its oracle; chip_smoke.log "
-        "has each run's line")
+        "BLOOM-7B1, MPT, (A)-(E), the MoE (G), the dense families (H)), each greedy == its "
+        "oracle; chip_smoke.log has each run's line")
     # each kernel's launches in the MoE paths: (G1) W4A4 and W4A8, (G2) W4A8,
     # (G3) each directory
     moe_paths = {f"{g}_{s}": r[0] for g, runs in moe.items() for s, r in runs.items()}
     moe_paths.update({f"G3_{f}": r[0] for f, r in moe_dirs.items()})
+    # each kernel's launches in the dense families' paths: (H1) Qwen2-7B at
+    # W4A4 and W4A8, (H2) each directory, (H3) the QuaRot and AWQ directories
+    dense_paths = {f"H1_{s}": r[0] for s, r in qwen2.items()}
+    dense_paths.update({f"H2_{n}": r[0] for n, r in dense_dirs.items()})
+    dense_paths.update({f"H3{k}": r[0] for k, r in quarot_dirs.items()})
     # each kernel's launches in the real-weights loaders' paths: (A) W4A4 and
     # W4A8, (B) the separate draft, (C) forced, (D1) the bf16 directory,
     # (D2) the float directory quantized at load, (D3) the QSpec directory
@@ -3711,9 +4244,13 @@ def main():
         moe_launch = {k: v[name] for k, v in moe_paths.items() if v.get(name)}
         if moe_launch:
             extra["moe_launches"] = moe_launch
-        for key in ("moe_max_err", "moe_head_max_err"):
+        for key in ("moe_max_err", "moe_head_max_err", "dense_max_err", "qwen2_7b",
+                    "qwen2_7b_shape"):
             if key in r:
                 extra[key] = r[key]
+        dense_launch = {k: v[name] for k, v in dense_paths.items() if v.get(name)}
+        if dense_launch:
+            extra["dense_launches"] = dense_launch
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],
@@ -3721,7 +4258,11 @@ def main():
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], **extra})
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels}, separators=(",", ":")))
+    # every field to the log; to the standard output, which a runner may
+    # keep only the end of, each kernel's summary fields
+    log(json.dumps({"kernels": kernels}, separators=(",", ":")), stdout=False)
+    print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k in STDOUT_KEYS}
+                                  for kern in kernels]}, separators=(",", ":")), flush=True)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,11 +1,15 @@
 """Configuration dataclasses.
 
-The port's own copy of the parts of ``qspec_tpu/config.py`` that the dense
-Llama QSpec path, the Gemma-2 grouped-int4 path, the BLOOM / MPT bf16 path
-and the sparse-MoE families (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)
-read, with the same field names and defaults. Fields of model
-families, loaders, parallelism and proposers that are not ported yet are
-left out rather than accepted and ignored.
+The port's own copy of the parts of ``qspec_tpu/config.py`` that the ported
+families read, with the same field names and defaults: the dense llama graph
+and its knobs (Llama, Mistral, Phi-3 with its longrope, Qwen2 with the qkv
+bias, Qwen3 with the q/k norms, Gemma with its tanh GeGLU, embedding scale
+and (1+w) norms, Granite with its four multipliers, the reference's QuaRot
+``llama_quarot`` / ``qwen2_quarot``), the Gemma-2 grouped-int4 path, the
+BLOOM / MPT bf16 path and the sparse-MoE families (Mixtral, Qwen2-MoE,
+Qwen3-MoE, DeepSeek-MoE). Fields of model families, loaders, parallelism
+and proposers that are not ported yet are left out rather than accepted
+and ignored.
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of one Llama, Gemma-2, BLOOM, MPT or
-    sparse-MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE) model."""
+    """Architecture hyperparameters of one dense llama-graph model (Llama,
+    Mistral, Phi-3, Qwen2, Qwen3, Gemma, Granite), a Gemma-2, a BLOOM, an MPT
+    or a sparse MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)."""
 
-    # "llama" | "gemma2" | "bloom" | "mpt" | "mixtral" | "qwen2moe" |
+    # "llama" (Mistral and Phi-3 too) | "qwen2" | "qwen3" | "gemma" |
+    # "granite" | "gemma2" | "bloom" | "mpt" | "mixtral" | "qwen2moe" |
     # "qwen3moe" | "deepseek"
     arch: str = "llama"
     vocab_size: int = 128256
@@ -73,6 +79,12 @@ class ModelConfig:
     final_logit_softcap: Optional[float] = None
     query_pre_attn_scalar: Optional[float] = None
     post_norms: bool = False
+    # Granite's scalar multipliers: each block's output is scaled by
+    # residual_multiplier before the residual add, the final logits divided
+    # by logits_scaling (embedding_multiplier rides embed_scale,
+    # attention_multiplier rides query_pre_attn_scalar as its ** -2)
+    residual_multiplier: float = 1.0
+    logits_scaling: Optional[float] = None
     # the GPT-family graph knobs of the float families (BLOOM, MPT), served
     # as bf16 checkpoints only: "layernorm" is mean-subtracting with an
     # optional bias (layers.input_norm_b / post_norm_b, final_norm_b)
@@ -116,8 +128,9 @@ class ModelConfig:
 
     def __post_init__(self):
         allowed = (("quant", ("w4", "w4g", "none")),
-                   ("arch", ("llama", "gemma2", "bloom", "mpt", "mixtral", "qwen2moe",
-                             "qwen3moe", "deepseek")),
+                   ("arch", ("llama", "qwen2", "qwen3", "gemma", "granite", "gemma2",
+                             "bloom", "mpt", "mixtral", "qwen2moe", "qwen3moe",
+                             "deepseek")),
                    ("hidden_act", ("silu", "gelu_tanh", "gelu")),
                    ("norm_type", ("rmsnorm", "layernorm")),
                    ("position_embedding", ("rope", "alibi")),
@@ -207,11 +220,63 @@ class ModelConfig:
         return ModelConfig(**d)
 
     @staticmethod
+    def llama3_70b(**over) -> "ModelConfig":
+        d = dict(hidden_size=8192, intermediate_size=28672, num_layers=80,
+                 num_heads=64, num_kv_heads=8)
+        d.update(over)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def qwen2_7b(**over) -> "ModelConfig":
+        """Qwen/Qwen2-7B (the JAX package's preset): 28 layers, hidden 3584,
+        intermediate 18944, 28 query heads over 4 KV heads, the qkv bias."""
+        d = dict(arch="qwen2", vocab_size=152064, hidden_size=3584,
+                 intermediate_size=18944, num_layers=28, num_heads=28,
+                 num_kv_heads=4, rope_theta=1000000.0, qkv_bias=True,
+                 max_position_embeddings=32768)
+        d.update(over)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def gemma_7b(**over) -> "ModelConfig":
+        d = dict(arch="gemma", vocab_size=256000, hidden_size=3072,
+                 intermediate_size=24576, num_layers=28, num_heads=16,
+                 num_kv_heads=16, head_dim=256, rope_theta=10000.0,
+                 max_position_embeddings=8192, tie_word_embeddings=True,
+                 hidden_act="gelu_tanh", embed_scale=3072.0 ** 0.5,
+                 norm_weight_offset=1.0)
+        d.update(over)
+        return ModelConfig(**d)
+
+    @staticmethod
+    def gemma_2b(**over) -> "ModelConfig":
+        d = dict(arch="gemma", vocab_size=256000, hidden_size=2048,
+                 intermediate_size=16384, num_layers=18, num_heads=8,
+                 num_kv_heads=1, head_dim=256, rope_theta=10000.0,
+                 max_position_embeddings=8192, tie_word_embeddings=True,
+                 hidden_act="gelu_tanh", embed_scale=2048.0 ** 0.5,
+                 norm_weight_offset=1.0)
+        d.update(over)
+        return ModelConfig(**d)
+
+    @staticmethod
     def from_hf_config(hf: dict) -> "ModelConfig":
-        """Build from a Hugging Face config.json dict of model type "llama",
-        "gemma2", "mixtral", "qwen2_moe", "qwen3_moe", "deepseek", "bloom" or
-        "mpt", with the fields ``qspec_tpu/config.py``'s ``from_hf_config``
-        gives them; other model types raise."""
+        """Build from a Hugging Face config.json dict, with the fields
+        ``qspec_tpu/config.py``'s ``from_hf_config`` gives them. The model
+        type is read as the JAX package reads it, by substring (so the
+        reference's ``llama_quarot`` is a llama, ``qwen2_quarot`` a qwen2):
+        bloom, mpt and deepseek have their own readers; qwen3_moe, qwen3,
+        qwen2_moe, qwen2, mixtral, gemma2, gemma, granite, and llama, mistral
+        and phi3 (all three the llama arch) the llama graph's. Any other
+        model type raises, and so do the families whose type holds one of
+        those names but whose graph the port lacks (``UNPORTED_TYPES``).
+
+        Two readings follow Hugging Face where the JAX package does not
+        (ROADMAP §3): a dense Qwen2 / Qwen3 gets no window unless
+        ``use_sliding_window`` is set (one that windows only the layers
+        from ``max_window_layers`` on raises), and Phi-3's top-level
+        ``original_max_position_embeddings`` goes into its longrope
+        scaling."""
         mt = hf.get("model_type", "")
         if mt == "bloom":
             return _from_bloom(hf)
@@ -219,13 +284,17 @@ class ModelConfig:
             return _from_mpt(hf)
         if mt == "deepseek":
             return _from_deepseek(hf)
-        arch = {"llama": "llama", "gemma2": "gemma2", "mixtral": "mixtral",
-                "qwen2_moe": "qwen2moe", "qwen3_moe": "qwen3moe"}.get(mt)
+        bad = next((f for f in UNPORTED_TYPES if f in mt), None)
+        arch = None if bad else next((a for f, a in LLAMA_GRAPH_TYPES if f in mt), None)
         if arch is None:
-            raise NotImplementedError(f"model_type {mt!r}: only llama, gemma2, mixtral, "
-                                      "qwen2_moe, qwen3_moe, deepseek, bloom and mpt "
-                                      "configs are ported")
+            raise NotImplementedError(
+                f"model_type {mt!r}: the port reads model types holding "
+                f"{', '.join(f for f, _ in LLAMA_GRAPH_TYPES)}, or bloom, mpt and "
+                "deepseek" + (f"; {bad!r} names a family not ported (ROADMAP queue 1 "
+                              "item 9)" if bad else ""))
+        gemma = arch in ("gemma", "gemma2")
         gemma2 = arch == "gemma2"
+        granite = arch == "granite"
         # Qwen3-MoE routes like Qwen2-MoE (softmax over all experts, top-k,
         # the norm_topk_prob renormalization) and has no shared expert
         moe = arch in ("qwen2moe", "qwen3moe")
@@ -235,19 +304,26 @@ class ModelConfig:
             sliding_window_pattern=2 if gemma2 else 1,
             attn_logit_softcap=hf.get("attn_logit_softcapping") if gemma2 else None,
             final_logit_softcap=hf.get("final_logit_softcapping") if gemma2 else None,
-            query_pre_attn_scalar=hf.get("query_pre_attn_scalar") if gemma2 else None,
+            # Granite replaces 1/sqrt(d) by attention_multiplier: the scalar
+            # whose ** -0.5 it is
+            query_pre_attn_scalar=(hf.get("query_pre_attn_scalar") if gemma2
+                                   else hf["attention_multiplier"] ** -2
+                                   if granite and hf.get("attention_multiplier") else None),
             post_norms=gemma2,
+            residual_multiplier=hf.get("residual_multiplier", 1.0) if granite else 1.0,
+            logits_scaling=hf.get("logits_scaling") if granite else None,
             moe_intermediate_size=hf.get("moe_intermediate_size"),
             shared_expert_intermediate_size=(hf.get("shared_expert_intermediate_size", 0)
                                              if arch == "qwen2moe" else 0),
             moe_norm_topk_prob=hf.get("norm_topk_prob", False),
             moe_softmax_before_topk=moe,
-            qk_norm=arch == "qwen3moe",
-            hidden_act=("gelu_tanh" if gemma2 or "gelu" in
+            qk_norm=arch in ("qwen3", "qwen3moe"),
+            hidden_act=("gelu_tanh" if gemma or "gelu" in
                         hf.get("hidden_act", hf.get("hidden_activation", ""))
                         else "silu"),
-            embed_scale=hf["hidden_size"] ** 0.5 if gemma2 else None,
-            norm_weight_offset=1.0 if gemma2 else 0.0,
+            embed_scale=(hf["hidden_size"] ** 0.5 if gemma
+                         else hf.get("embedding_multiplier") if granite else None),
+            norm_weight_offset=1.0 if gemma else 0.0,
             num_experts=hf.get("num_local_experts", hf.get("num_experts", 0) if moe else 0),
             num_experts_per_tok=hf.get("num_experts_per_tok", 2),
             vocab_size=hf["vocab_size"],
@@ -258,12 +334,13 @@ class ModelConfig:
             num_kv_heads=hf.get("num_key_value_heads", nh),
             head_dim=hf.get("head_dim") or hf["hidden_size"] // nh,
             rope_theta=hf.get("rope_theta", 10000.0),
-            rope_scaling=hf.get("rope_scaling"),
+            rope_scaling=_rope_scaling(hf),
             rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
             max_position_embeddings=hf.get("max_position_embeddings", 8192),
             tie_word_embeddings=hf.get("tie_word_embeddings", False),
-            qkv_bias=arch == "qwen2moe",
-            sliding_window=hf.get("sliding_window"),
+            qkv_bias=arch in ("qwen2", "qwen2moe"),
+            sliding_window=(_qwen_window(hf) if arch in ("qwen2", "qwen3")
+                            else hf.get("sliding_window")),
         )
 
     @staticmethod
@@ -274,6 +351,50 @@ class ModelConfig:
                  rope_theta=10000.0, max_position_embeddings=512)
         d.update(over)
         return ModelConfig(**d)
+
+
+# model-type fragments of the llama graph's families, in the JAX package's
+# order of matching (a type is read by the first fragment it holds)
+LLAMA_GRAPH_TYPES = (("qwen3_moe", "qwen3moe"), ("qwen3", "qwen3"), ("qwen2_moe", "qwen2moe"),
+                     ("qwen2", "qwen2"), ("mixtral", "mixtral"), ("gemma2", "gemma2"),
+                     ("gemma", "gemma"), ("granite", "granite"), ("llama", "llama"),
+                     ("mistral", "llama"), ("phi3", "llama"))
+# model types that hold one of those fragments but name a family whose graph
+# the port lacks (the JAX package serves some of them with knobs of its own)
+UNPORTED_TYPES = ("gemma3", "paligemma", "recurrent_gemma", "granitemoe", "_vl", "audio",
+                  "qwen3_next", "mllama", "llama4", "phi3small", "phi3_v", "phimoe")
+
+
+def _qwen_window(hf: dict) -> Optional[int]:
+    """A dense Qwen2 / Qwen3's window as Hugging Face applies it: none
+    unless ``use_sliding_window`` is set, and then only on the layers from
+    ``max_window_layers`` on (none where that is past the last layer). The
+    JAX package reads ``sliding_window`` whatever the flag says; Qwen2.5-7B
+    ships 131072 with the flag off."""
+    if not hf.get("use_sliding_window", False) or hf.get("sliding_window") is None:
+        return None
+    first = hf.get("max_window_layers", hf["num_hidden_layers"])
+    if first >= hf["num_hidden_layers"]:
+        return None
+    if first > 0:
+        raise NotImplementedError(
+            f"use_sliding_window with max_window_layers={first} < num_hidden_layers="
+            f"{hf['num_hidden_layers']}: a window on some layers only is not ported "
+            "(ROADMAP queue 1 item 9)")
+    return hf["sliding_window"]
+
+
+def _rope_scaling(hf: dict) -> Optional[dict]:
+    """config.json's rope_scaling; a longrope one (Phi-3) also gets the
+    top-level ``original_max_position_embeddings`` where it lacks its own,
+    as Hugging Face reads it (the JAX package leaves it out, and so scales
+    every position by the short factors with no attention factor)."""
+    rs = hf.get("rope_scaling")
+    if (rs and rs.get("rope_type", rs.get("type")) in ("longrope", "su")
+            and "original_max_position_embeddings" not in rs
+            and "original_max_position_embeddings" in hf):
+        rs = {**rs, "original_max_position_embeddings": hf["original_max_position_embeddings"]}
+    return rs
 
 
 def _from_deepseek(hf: dict) -> ModelConfig:

@@ -6,14 +6,19 @@ gets its ``--no-`` form, and an Optional one takes "none"), and
 ``from_cli_args`` reads them back, as in the JAX package.
 
 Port of ``qspec_tpu/engine/arg_utils.py`` for the flags the port serves; the
-names are the JAX package's. ``model`` names a preset ("tiny", "llama3-8b"
-or "gemma2-9b") or a Hugging Face checkpoint directory, whose config.json
-gives the ModelConfig (``model_loader/loader.py::config_from_hf_dir``; the
-``LLM`` entry point loads its weights). ``quantization`` "qspec" is a
-QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one, the only
-kind a Gemma-2 is served as, None a float one (bf16 weights, the only kind
-a BLOOM or an MPT is served as). ``speculative_model="[medusa]"`` (heads in
-``params["medusa"]``) selects Medusa, ``spec_medusa_tree`` its candidate
+names are the JAX package's. ``model`` names a preset ("tiny", "llama3-8b",
+"llama3-70b", "qwen2-7b" or "gemma2-9b") or a Hugging Face checkpoint
+directory, whose config.json gives the ModelConfig
+(``model_loader/loader.py::config_from_hf_dir``; the ``LLM`` entry point
+loads its weights). ``quantization`` "qspec" is a QuaRot w4 checkpoint,
+"awq" / "gptq" a grouped-int4 (w4g) one, the only kind a Gemma-2 is served
+as, None a float one (bf16 weights, the only kind a BLOOM or an MPT is
+served as). A directory whose config.json names an AWQ or GPTQ
+``quantization_config.quant_method`` is a w4g checkpoint whatever
+``quantization`` says, as in the JAX package (a ``quantization`` naming the
+other method raises); any other method (compressed-tensors, ...) and a
+GGUF file raise, naming ROADMAP queue 1 item 8. ``speculative_model=
+"[medusa]"`` (heads in ``params["medusa"]``) selects Medusa, ``spec_medusa_tree`` its candidate
 tree; ``"[mlp_speculator]"`` (``params["mlp_spec"]``) MLPSpeculator,
 ``"[eagle]"`` (``params["eagle"]``) EAGLE; a proposer net's ``.npz``
 (loaded by the ``LLM`` entry point) selects its method by its arrays, as in
@@ -35,10 +40,11 @@ import numpy as np
 
 from qspec_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
                                     SchedulerConfig, SpeculativeConfig)
-from qspec_tpu_torch.model_loader.loader import config_from_hf_dir
+from qspec_tpu_torch.model_loader.loader import config_from_hf_dir, quant_method_of
 from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE
 
-PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "gemma2-9b": ModelConfig.gemma2_9b,
+PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "llama3-70b": ModelConfig.llama3_70b,
+           "qwen2-7b": ModelConfig.qwen2_7b, "gemma2-9b": ModelConfig.gemma2_9b,
            "tiny": ModelConfig.tiny}
 # quantization -> ModelConfig.quant
 QUANT = {"qspec": "w4", "w4": "w4", "int4": "w4", "awq": "w4g", "gptq": "w4g",
@@ -135,11 +141,24 @@ class EngineArgs:
             raise NotImplementedError(f"quantization {self.quantization!r}: only "
                                       f"{sorted(map(str, QUANT))} are ported")
         quant = QUANT[self.quantization]
+        if self.model.endswith(".gguf"):
+            raise NotImplementedError(f"model {self.model!r}: GGUF checkpoints are not "
+                                      "ported (ROADMAP queue 1 item 8)")
         if os.path.isdir(self.model):
-            if quant == "w4g":
+            method = quant_method_of(self.model)
+            if method in ("awq", "gptq"):
+                if self.quantization in ("awq", "gptq") and self.quantization != method:
+                    raise ValueError(f"quantization={self.quantization!r}, but "
+                                     f"{self.model}'s quantization_config names {method!r}")
+                quant = "w4g"
+            elif method is not None:
                 raise NotImplementedError(
-                    "loading an AWQ / GPTQ checkpoint directory is not ported "
-                    "(ROADMAP queue 1 item 6); load_awq / load_gptq take a state dict")
+                    f"{self.model}: quantization_config.quant_method {method!r} is not "
+                    "ported (ROADMAP queue 1 item 8: compressed-tensors, GGUF); AWQ and "
+                    "GPTQ directories are")
+            elif quant == "w4g":
+                raise ValueError(f"quantization={self.quantization!r}, but {self.model}'s "
+                                 "config.json has no AWQ / GPTQ quantization_config")
             return dataclasses.replace(config_from_hf_dir(self.model), quant=quant,
                                        lm_head_quant=self.lm_head_quant)
         if self.model not in PRESETS:

@@ -632,7 +632,8 @@ def eagle_rounds_step(params, draft_cache, cache, espan_h, espan_t, espan_pos, e
         # (2) k drafts on predicted hidden states (top-1)
         props = []
         for j in range(k):
-            d = compute_logits(h_hat, lm_head).argmax(dim=-1).to(torch.int32)  # @ pos+1+j
+            d = compute_logits(h_hat, lm_head, cfg.vocab_size).argmax(dim=-1)  # @ pos+1+j
+            d = d.to(torch.int32)
             props.append(d)
             fp = (pos + j)[:, None]
             f = fuse_features(eagle, embed_rows(params, cfg, d[:, None]), h_hat[:, None])

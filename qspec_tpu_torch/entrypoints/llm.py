@@ -33,16 +33,28 @@ method (``w1``: Medusa, ``proj_first``: MLPSpeculator, else EAGLE):
               speculative_model="heads.npz")
 
 A checkpoint directory (Hugging Face layout: config.json and
-``*.safetensors``) loads by its kind, as in the JAX package: under the
+``*.safetensors``) loads by its kind, as in the JAX package: an AWQ or
+GPTQ directory (``quantization_config.quant_method``) through
+``load_awq`` / ``load_gptq``, drafted by its own weights at W4A16; under the
 default ``quantization="qspec"`` a reference-format QSpec checkpoint
-(``load_qspec``) or, failing that, a Llama float checkpoint rotated and
-quantized at load (QuaRot, ``quantize_float``); with ``quantization=None`` a
-Llama float checkpoint in bf16 (``load_hf_float``) or a BLOOM / MPT one
+(``load_qspec``; the reference's ``QuarotLlamaForCausalLM`` and
+``qwen2_quarot`` with its q/k/v biases) or, failing that, a float checkpoint
+of the llama graph's families (Llama, Mistral, Phi-3, Qwen2, Qwen3, Gemma,
+Granite, Mixtral, Qwen2-MoE, Qwen3-MoE) rotated and quantized at load
+(QuaRot, ``quantize_float``); with ``quantization=None`` such a float
+checkpoint in bf16 (``load_hf_float``) or a BLOOM / MPT / DeepSeek-MoE one
 (``load_family_float``), which speculate by n-gram prompt lookup:
 
     llm = LLM(model="/path/to/Meta-Llama-3-8B", num_speculative_tokens=3)
+    llm = LLM(model="/path/to/Qwen2.5-7B", num_speculative_tokens=3)
+    llm = LLM(model="/path/to/Qwen2-7B-Instruct-AWQ", num_speculative_tokens=3,
+              speculative_draft_scheme="w4a16")
     llm = LLM(model="/path/to/bloom-7b1", quantization=None,
               num_speculative_tokens=3, speculative_model="[ngram]")
+
+Qwen2-7B at its published widths, random int4 weights made on the card:
+
+    llm = LLM(model="qwen2-7b", num_speculative_tokens=3)
 
 A separate, smaller draft model comes from a directory (quantized by
 ``quantize_float``), or as a cfg with its parameters:
@@ -67,9 +79,10 @@ from qspec_tpu_torch.conversation import get_conv_template
 from qspec_tpu_torch.engine.arg_utils import EngineArgs, proposer_of
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
 from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
+from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
 from qspec_tpu_torch.model_loader.loader import (config_from_hf_dir, load_hf_float,
-                                                 load_qspec, quantize_float,
-                                                 read_safetensors)
+                                                 load_qspec, quant_method_of,
+                                                 quantize_float, read_safetensors)
 from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.eagle import load_eagle
@@ -158,16 +171,22 @@ class LLM:
 
     def _load_dir(self, path: str, device):
         """A checkpoint directory, loaded on ``device`` by the routes of
-        ``qspec_tpu/entrypoints/llm.py``: under QuaRot quantization a QSpec
-        checkpoint, else (no ``weight_scales``) a float one quantized at load
-        (a Llama, Mixtral, Qwen2-MoE or Qwen3-MoE); without quantization the
-        family converter of a BLOOM / MPT / DeepSeek-MoE, else the
-        llama-keyed float loader. (AWQ / GPTQ directories raise in
-        EngineArgs.)"""
+        ``qspec_tpu/entrypoints/llm.py``: an AWQ / GPTQ one (its
+        ``quantization_config.quant_method``, which EngineArgs turned into
+        ``quant="w4g"``) by ``load_awq`` / ``load_gptq``; under QuaRot
+        quantization a QSpec checkpoint (``weight_scales``), else a float one
+        quantized at load (any llama-keyed family: Llama, Mistral, Phi-3,
+        Qwen2, Qwen3, Gemma, Granite, Mixtral, Qwen2-MoE, Qwen3-MoE); without
+        quantization the family converter of a BLOOM / MPT / DeepSeek-MoE,
+        else the llama-keyed float loader. Compressed-tensors and GGUF raise
+        in EngineArgs (ROADMAP queue 1 item 8)."""
         cfg = self.engine_config.model
         dev = resolve_device(device)
         sd = read_safetensors(path)
-        if cfg.quant == "w4":
+        if cfg.quant == "w4g":
+            load = load_awq if quant_method_of(path) == "awq" else load_gptq
+            params, cfg = load(sd, cfg, device=dev)
+        elif cfg.quant == "w4":
             # a QSpec checkpoint has weight_scales; without them (the JAX
             # route's KeyError from load_qspec) a float one is quantized
             if any(k.endswith(".weight_scales") for k in sd):

@@ -27,6 +27,12 @@ writers (``make_awq_tensors``, ``make_gptq_tensors``) take a tensor and
 quantize it on its device, with the JAX package's numpy writers' bits. Models served this way keep their gamma norms and have no QuaRot
 rotations: only the W4A16 scheme applies, so QSpec drafts with the same
 weights at ``draft_scheme="w4a16"``, usually under ``draft_kv_window``.
+
+``load_awq`` / ``load_gptq`` take a state dict with its ModelConfig, or a
+checkpoint directory (its ``*.safetensors`` through
+``model_loader.loader.read_safetensors``, its config.json through
+``config_from_hf_dir`` unless a cfg is given), as the JAX loaders do; a
+Qwen2's q/k/v biases (``qkv_bias``) come along as ``layers["qkv"]["b"]``.
 """
 
 from __future__ import annotations
@@ -110,7 +116,7 @@ def unpack_gptq(qweight, qzeros, scales, g_idx=None):
 
 
 def pack_grouped_proj(q, zp, s, *, shard_in: bool = False, col_blocks=None,
-                      tp_size: int = 1) -> Dict[str, torch.Tensor]:
+                      tp_size: int = 1, bias=None) -> Dict[str, torch.Tensor]:
     """One projection's grouped-quant param dict with the JAX package's
     tensor-parallel layouts.
 
@@ -128,6 +134,8 @@ def pack_grouped_proj(q, zp, s, *, shard_in: bool = False, col_blocks=None,
             return torch.cat([p[:, r * (p.shape[1] // tp_size):(r + 1) * (p.shape[1] // tp_size)]
                               for r in range(tp_size) for p in parts], dim=1)
         q, zp, s = rearrange(q), rearrange(zp), rearrange(s)
+        if bias is not None:
+            bias = rearrange(_t(bias)[None, :])[0]
     qs = q.to(torch.int16) - 8          # excess-8 storage => nibble == q
     if shard_in and tp_size > 1:
         if (K // tp_size) % max(g, 8) != 0:
@@ -136,7 +144,10 @@ def pack_grouped_proj(q, zp, s, *, shard_in: bool = False, col_blocks=None,
     else:
         packed = pack_int4(qs)
     s = s.to(torch.float32)
-    return {"qw": packed, "qs_g": s, "qo_g": zp.to(torch.float32) * s}
+    out = {"qw": packed, "qs_g": s, "qo_g": zp.to(torch.float32) * s}
+    if bias is not None:
+        out["b"] = _t(bias, packed.device).to(torch.float32).to(torch.bfloat16)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +183,13 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
         p = f"model.layers.{i}.self_attn."
         mp = f"model.layers.{i}.mlp."
         ln = f"model.layers.{i}."
+        bias = (torch.cat([_t(sd[p + n + ".bias"], dev).to(torch.float32)
+                           for n in ("q_proj", "k_proj", "v_proj")]) if cfg.qkv_bias else None)
         layer = {
             "qkv": pack_grouped_proj(
                 *cat([proj(p + "q_proj"), proj(p + "k_proj"), proj(p + "v_proj")]),
-                col_blocks=(cfg.q_size, cfg.kv_size, cfg.kv_size), tp_size=tp_size),
+                col_blocks=(cfg.q_size, cfg.kv_size, cfg.kv_size), tp_size=tp_size,
+                bias=bias),
             "o": pack_grouped_proj(*proj(p + "o_proj"), shard_in=True, tp_size=tp_size),
             "gate_up": pack_grouped_proj(
                 *cat([proj(mp + "gate_proj"), proj(mp + "up_proj")]),
@@ -191,6 +205,9 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
         if cfg.post_norms:   # Gemma-2's norms on the block outputs
             layer["post_attn_norm"] = norm_w(ln + "post_attention_layernorm.weight")
             layer["post_ffw_norm"] = norm_w(ln + "post_feedforward_layernorm.weight")
+        if cfg.qk_norm:      # Qwen3's per-head q/k norms (the JAX loader reads none)
+            layer["q_norm"] = norm_w(p + "q_norm.weight")
+            layer["k_norm"] = norm_w(p + "k_norm.weight")
         layers.append(layer)
     stacked = {}
     for name, first in layers[0].items():
@@ -217,28 +234,28 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
 
 def load_awq(path_or_sd, cfg: Optional[ModelConfig] = None, tp_size: int = 1,
              device="cuda"):
-    """AWQ (gemm-format) state dict -> (grouped-int4 params on ``device``,
-    cfg with quant="w4g")."""
-    return _load_grouped(_resolve(path_or_sd, cfg), cfg, "awq", tp_size, device)
+    """AWQ (gemm-format) state dict or checkpoint directory -> (grouped-int4
+    params on ``device``, cfg with quant="w4g")."""
+    return _load_grouped(*_resolve(path_or_sd, cfg), "awq", tp_size, device)
 
 
 def load_gptq(path_or_sd, cfg: Optional[ModelConfig] = None, tp_size: int = 1,
               device="cuda"):
-    """GPTQ (desc_act=False) state dict -> (grouped-int4 params on
-    ``device``, cfg with quant="w4g")."""
-    return _load_grouped(_resolve(path_or_sd, cfg), cfg, "gptq", tp_size, device)
+    """GPTQ (desc_act=False) state dict or checkpoint directory ->
+    (grouped-int4 params on ``device``, cfg with quant="w4g")."""
+    return _load_grouped(*_resolve(path_or_sd, cfg), "gptq", tp_size, device)
 
 
 def _resolve(path_or_sd, cfg):
-    if not isinstance(path_or_sd, dict):
-        raise NotImplementedError(
-            "the directory form of load_awq / load_gptq is not ported yet "
-            "(ROADMAP queue 1 item 6: its safetensors shards through "
-            "model_loader.loader's reader and config_from_hf_dir); pass a "
-            "state dict and a ModelConfig")
-    if cfg is None:
-        raise ValueError("a state dict needs its ModelConfig")
-    return path_or_sd
+    """(state dict, cfg) of a state dict (its cfg required) or a directory
+    (its tensors read once; its config.json unless ``cfg`` is given)."""
+    if isinstance(path_or_sd, dict):
+        if cfg is None:
+            raise ValueError("a state dict needs its ModelConfig")
+        return path_or_sd, cfg
+    from qspec_tpu_torch.model_loader.loader import config_from_hf_dir, read_safetensors
+    sd = read_safetensors(path_or_sd)
+    return sd, cfg or config_from_hf_dir(path_or_sd)
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +318,9 @@ def make_grouped_state_dict(cfg: ModelConfig, fmt: str = "awq",
     embeddings and (unless ``tie_word_embeddings``) lm_head. Norm gammas are
     ``norm_weight_offset``-free: 1 + normal(0.05) for a Llama, normal(0.05)
     around 0 for a Gemma-2, whose loader adds the offset; a Gemma-2 also gets
-    its pre- and post-feedforward norms. An 8B-wide checkpoint so never
-    passes through host memory."""
+    its pre- and post-feedforward norms, a Qwen2 its q/k/v biases
+    (normal(0.02), in float32), a Qwen3 its q/k norms. An 8B-wide
+    checkpoint so never passes through host memory."""
     make = make_awq_tensors if fmt == "awq" else make_gptq_tensors
     gen = torch.Generator(device=device).manual_seed(seed)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -329,4 +347,10 @@ def make_grouped_state_dict(cfg: ModelConfig, fmt: str = "awq",
                 sd[f"{p}{name}.{key}"] = val
         for name in norms:
             sd[f"{p}{name}.weight"] = gamma()
+        if cfg.qkv_bias:
+            for n, width in (("q", cfg.q_size), ("k", cfg.kv_size), ("v", cfg.kv_size)):
+                sd[f"{p}self_attn.{n}_proj.bias"] = normal(width)
+        if cfg.qk_norm:
+            for n in "qk":
+                sd[f"{p}self_attn.{n}_norm.weight"] = 1 + normal(cfg.head_dim, std=0.05)
     return sd

@@ -25,20 +25,24 @@ Port of ``qspec_tpu/model_loader/loader.py``:
   for the order of a product's sums, so an int4 code may differ by one step
   where w / scale falls within rounding of a tie.
 - ``load_qspec``: a reference-format QSpec checkpoint (uint8 [out, in // 2]
-  + ``weight_scales``) -> the interchange format (``ops/packing.py``).
+  + ``weight_scales``) -> the interchange format (``ops/packing.py``), with
+  ``qwen2_quarot``'s q/k/v biases where the config declares ``qkv_bias``
+  (the JAX ``load_qspec`` reads no bias and so serves such a checkpoint
+  without them: ROADMAP §3).
 
-Scope: Llama graphs without tensor parallelism, split or fused (phi-3)
-q/k/v and gate/up, and in ``load_hf_float`` / ``quantize_float`` the
-sparse-MoE layouts (Mixtral's ``block_sparse_moe``, Qwen2-MoE's and
-Qwen3-MoE's ``mlp.experts`` with the shared expert and its gate), the qkv
-bias and Qwen3's q/k norms, where the config declares them (an undeclared
-one raises, naming the config field). The other layouts the JAX loaders
-take (other biased projections, the families its ``LLAMA_KEY_REMAPS`` maps
-onto llama keys, sequence-classification heads, tensor-parallel layouts,
-the VLM and audio towers; in ``load_qspec``, as in the JAX one, experts,
-biases and q/k norms) raise ``NotImplementedError`` naming their ROADMAP
-item. The state-dict loaders ``load_hf_float`` and
-``quantize_float`` consume the dict they are given (each entry is removed
+Scope: the llama graph's dense families (Llama, Mistral, Phi-3, Qwen2,
+Qwen3, Gemma, Granite) without tensor parallelism, split or fused (phi-3)
+q/k/v and gate/up, the qkv bias (split or fused) where the config declares
+it, and in ``load_hf_float`` / ``quantize_float`` the sparse-MoE layouts
+(Mixtral's ``block_sparse_moe``, Qwen2-MoE's and Qwen3-MoE's
+``mlp.experts`` with the shared expert and its gate) and Qwen3's q/k norms,
+where the config declares them (an undeclared one raises, naming the config
+field). The other layouts the JAX loaders take (other biased projections,
+the families its ``LLAMA_KEY_REMAPS`` maps onto llama keys,
+sequence-classification heads, tensor-parallel layouts, the VLM and audio
+towers; in ``load_qspec``, as in the JAX one, experts and q/k norms) raise
+``NotImplementedError`` naming their ROADMAP item. The state-dict loaders
+``load_hf_float`` and ``quantize_float`` consume the dict they are given (each entry is removed
 as it is converted, as ``families.py`` does), so the peak memory stays
 near one copy of the float weights; ``load_qspec`` leaves it as it is.
 """
@@ -121,6 +125,14 @@ def config_from_hf_dir(path: str) -> ModelConfig:
     return ModelConfig.from_hf_config(hf)
 
 
+def quant_method_of(path: str) -> Optional[str]:
+    """``quantization_config.quant_method`` of a checkpoint directory's
+    config.json ("awq", "gptq", "compressed-tensors", ...), or None: what
+    ``LLM(model=<dir>)`` routes by, as the JAX package does."""
+    with open(os.path.join(path, "config.json")) as f:
+        return (json.load(f).get("quantization_config") or {}).get("quant_method")
+
+
 # ---------------------------------------------------------------------------
 # llama-keyed checkpoints
 # ---------------------------------------------------------------------------
@@ -128,9 +140,9 @@ def config_from_hf_dir(path: str) -> ModelConfig:
 # key fragments of the layouts the JAX loaders take and the port does not,
 # each with what it is and its ROADMAP item
 UNPORTED_KEYS = (
-    (("self_attn.qkv_proj.bias", "self_attn.o_proj.bias", "mlp.down_proj.bias"),
-     "biased projections (a fused qkv bias, attention_bias's o bias, a down bias)",
-     "queue 1 item 9"),
+    (("self_attn.o_proj.bias", "mlp.down_proj.bias", "mlp.gate_proj.bias",
+      "mlp.up_proj.bias", "mlp.gate_up_proj.bias"),
+     "biased projections (attention_bias's o bias, an MLP bias)", "queue 1 item 9"),
     (("self_attn.W_pack.", "attention.wqkv.", "model.tok_embeddings.", "attn.c_attn.",
       "attn.attention.q_proj.", "self_attention.query."),
      "a layout the JAX package maps onto llama keys (LLAMA_KEY_REMAPS: baichuan, "
@@ -141,16 +153,17 @@ UNPORTED_KEYS = (
 
 # key fragments of the layouts load_hf_float and quantize_float take where
 # the config declares them, each with what it is and the config field that
-# declares it; load_qspec takes none of them (the JAX load_qspec reads no
-# expert, bias or q/k norm)
+# declares it; load_qspec takes only the qkv bias of them (the JAX
+# load_qspec reads no expert or q/k norm, and drops the bias)
+QKV_BIAS_KEYS = ("self_attn.q_proj.bias", "self_attn.k_proj.bias", "self_attn.v_proj.bias",
+                 "self_attn.qkv_proj.bias")
 DECLARED_KEYS = (
     ((".mlp.experts.", ".block_sparse_moe.", ".mlp.gate.weight"),
      "a mixture-of-experts MLP (_moe_block)", "num_experts"),
     ((".mlp.shared_expert.", ".mlp.shared_expert_gate."),
      "a shared expert", "shared_expert_intermediate_size"),
     (("self_attn.q_norm.", "self_attn.k_norm."), "per-head q/k norms", "qk_norm"),
-    (("self_attn.q_proj.bias", "self_attn.k_proj.bias", "self_attn.v_proj.bias"),
-     "biased projections (the qkv bias)", "qkv_bias"),
+    (QKV_BIAS_KEYS, "biased projections (the qkv bias)", "qkv_bias"),
 )
 
 
@@ -164,8 +177,9 @@ def _check_llama_keyed(sd: Dict, cfg: ModelConfig, qspec: bool = False) -> None:
         raise NotImplementedError(
             "QuaRot folds each norm's gamma into the projections after it, and "
             "Gemma-2's post-block norms break that adjacency (the JAX package "
-            "refuses it too): serve Gemma-2 as AWQ / GPTQ (load_awq / load_gptq; "
-            "directories: ROADMAP queue 1 item 6)")
+            "refuses it too): serve Gemma-2 as AWQ / GPTQ (load_awq / load_gptq of a "
+            "state dict or a directory, or LLM(model=<dir>) of a directory whose "
+            "quantization_config names it; ROADMAP queue 1 item 6, done)")
     if cfg.arch == "deepseek":
         check_served(cfg)       # a QuaRot dense prefix of another width: that reason first
         raise NotImplementedError(
@@ -185,14 +199,25 @@ def _check_llama_keyed(sd: Dict, cfg: ModelConfig, qspec: bool = False) -> None:
         hit = next((k for k in sd if any(f in k for f in fragments)), None)
         if hit is None:
             continue
-        if qspec:
+        if qspec and field != "qkv_bias":
             raise NotImplementedError(f"checkpoint key {hit!r}: {what} is not ported in "
                                       "load_qspec (the JAX load_qspec reads none; "
                                       "ROADMAP queue 1 item 9)")
         if not getattr(cfg, field):
-            raise NotImplementedError(f"checkpoint key {hit!r}: {what}, which the config "
-                                      f"does not declare ({field}="
-                                      f"{getattr(cfg, field)!r})")
+            raise NotImplementedError(
+                f"checkpoint key {hit!r}: {what}, which the config does not declare "
+                f"({field}={getattr(cfg, field)!r})" + (
+                    "; load_qspec reads a qkv bias only where it does (qwen2_quarot); "
+                    "other biased layouts: ROADMAP queue 1 item 9" if qspec else ""))
+
+
+def _qkv_bias(sd: Dict, p: str, take) -> torch.Tensor:
+    """Layer prefix ``p``'s q|k|v bias, split or fused (``qkv_proj.bias``),
+    each entry through ``take`` (which removes it where the loader consumes
+    the dict)."""
+    if p + "self_attn.qkv_proj.bias" in sd:
+        return take(p + "self_attn.qkv_proj.bias")
+    return torch.cat([take(p + f"self_attn.{n}_proj.bias") for n in "qkv"])
 
 
 def _source(path_or_sd, cfg: Optional[ModelConfig]):
@@ -242,8 +267,7 @@ def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
             st.put("qkv", li, torch.cat([t(p + f"self_attn.{n}_proj.weight")
                                          for n in "qkv"], dim=1))
         if cfg.qkv_bias:
-            st.put("qkv.b", li, torch.cat([_take(sd, p + f"self_attn.{n}_proj.bias", dev)
-                                           for n in "qkv"]))
+            st.put("qkv.b", li, _qkv_bias(sd, p, lambda k: _take(sd, k, dev)))
         st.put("o", li, t(p + "self_attn.o_proj.weight"))
         if cfg.num_experts:
             m, names = _moe_names(sd, p)
@@ -386,8 +410,8 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
             qkv = torch.cat([Q.T @ (gin * t(p + f"self_attn.{n}_proj.weight"))
                              for n in "qkv"], dim=1)
         # the bias adds after the product: it stays as it is
-        bias = (torch.cat([_f32_tensor(sd.pop(p + f"self_attn.{n}_proj.bias"), dev)
-                           for n in "qkv"]) if cfg.qkv_bias else None)
+        bias = (_qkv_bias(sd, p, lambda k: _f32_tensor(sd.pop(k), dev))
+                if cfg.qkv_bias else None)
         put("qkv", li, pack_proj_weight(qkv, kind, bias=bias,
                                         col_blocks=(cfg.q_size, cfg.kv_size, cfg.kv_size)))
         del qkv
@@ -458,8 +482,11 @@ def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
     ``weight_scales`` repacked into the interchange format
     (``repack_from_reference``), the reference's ``o_proj.1.`` /
     ``down_proj.1.`` keys remapped, split or fused q/k/v and gate/up
-    concatenated, the float head packed by ``pack_lm_head``. A checkpoint
-    without ``weight_scales`` (a float one) raises KeyError."""
+    concatenated, the float head packed by ``pack_lm_head``; where the
+    config declares ``qkv_bias`` (``qwen2_quarot``), the q/k/v biases, split
+    or fused, as ``layers["qkv"]["b"]`` (bf16, as the other loaders keep
+    them). A checkpoint without ``weight_scales`` (a float one) raises
+    KeyError."""
     sd, cfg = _source(path_or_sd, cfg)
     cfg = dataclasses.replace(cfg, quant="w4")
     check_served(cfg)
@@ -478,11 +505,13 @@ def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
         return {"qw": torch.cat([q for q, _ in parts], dim=1),
                 "qs": torch.cat([s for _, s in parts])}
 
-    layers = []
+    layers, biases = [], []
     for li in range(cfg.num_layers):
         p = f"model.layers.{li}."
         fused_qkv = p + "self_attn.qkv_proj.weight" in sd
         fused_gu = p + "mlp.gate_up_proj.weight" in sd
+        if cfg.qkv_bias:
+            biases.append(_qkv_bias(sd, p, lambda k: _f32_tensor(sd[k], dev)))
         layers.append({
             "qkv": cat([p + "self_attn.qkv_proj"] if fused_qkv else
                        [p + f"self_attn.{n}_proj" for n in "qkv"]),
@@ -492,12 +521,15 @@ def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
             "down": cat([p + "mlp.down_proj"]),
         })
     lm = sd.get("lm_head.weight", sd["model.embed_tokens.weight"])
+    stacked = {name: {key: torch.stack([layer[name][key] for layer in layers])
+                      for key in ("qw", "qs")}
+               for name in ("qkv", "o", "gate_up", "down")}
+    if biases:
+        stacked["qkv"]["b"] = torch.stack(biases).to(torch.bfloat16)
     params = {
         "embed": _f32_tensor(sd["model.embed_tokens.weight"], dev).to(torch.bfloat16),
         "lm_head": pack_lm_head(_f32_tensor(lm, dev).t(), cfg, dev),
-        "layers": {name: {key: torch.stack([layer[name][key] for layer in layers])
-                          for key in ("qw", "qs")}
-                   for name in ("qkv", "o", "gate_up", "down")},
+        "layers": stacked,
         "hadamards": make_hadamards(cfg, dev),
         **_common(cfg, dev),
     }

@@ -39,6 +39,13 @@ and post-feedforward norms on the block outputs before each residual add
 (``layers["post_norm"]`` is then the MLP's pre-norm); GeGLU with the tanh
 gelu; the final-logit softcap after the head.
 
+The dense families ride the QuaRot, w4g and bf16 graphs above with their
+config knobs: Qwen2's qkv bias, Qwen3's per-head q/k norms, Mistral's
+window, Gemma's tanh GeGLU, embedding scale and (1+w) norms (folded at load,
+so Gemma v1 takes QuaRot), Phi-3's longrope cache, and Granite's
+``residual_multiplier`` on both block outputs (before the add the next norm
+does) and ``logits_scaling`` dividing the final logits.
+
 Attention runs under ``cfg.sliding_window`` on every layer, or under
 Gemma-2's alternation on the layers ``li % sliding_window_pattern == 0``
 (the others are global); the windowed draft's cfg sets a window with pattern
@@ -472,11 +479,16 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
     if cfg.post_norms:
         # Gemma-2's post-attention norm, on the block output before the add
         o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][wi], eps=eps)
+    if cfg.residual_multiplier != 1.0:
+        # Granite scales each block's output before the residual add
+        o = o * cfg.residual_multiplier
 
     xn, xq, x = _norm_maybe_quant(x, o.to(x.dtype), gamma_post, eps, bits, beta_post,
                                   cfg.norm_type)
     if cfg.num_experts:
         delta = _moe_block(xn, xq, layers, wi, cfg, scheme, hadamards)
+        if cfg.residual_multiplier != 1.0:
+            delta = delta * cfg.residual_multiplier
         return x, delta.to(x.dtype), cache
     gate_up = _linear(xn, layers["gate_up"], scheme, xq, wi)
     if cfg.mlp_gated:
@@ -493,6 +505,8 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         down = _linear(act, layers["down"], scheme, li=wi)
     if cfg.post_norms:
         down = rmsnorm(down.to(torch.bfloat16), layers["post_ffw_norm"][wi], eps=eps)
+    if cfg.residual_multiplier != 1.0:
+        down = down * cfg.residual_multiplier
     return x, down.to(x.dtype), cache
 
 
@@ -572,29 +586,34 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     hidden = x.reshape(B, -1, x.shape[-1])
     if flat is not None and return_hidden == "all":
         x = x[flat]
-    logits = compute_logits(x, params["lm_head"])
+    logits = compute_logits(x, params["lm_head"], cfg.vocab_size)
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
+    if cfg.logits_scaling:
+        # Granite divides the final logits by logits_scaling
+        logits = logits / cfg.logits_scaling
     logits = logits.reshape(B, -1, logits.shape[-1])
     if return_hidden:
         return logits, hidden, cache
     return logits, cache
 
 
-def compute_logits(x: torch.Tensor, lm_head) -> torch.Tensor:
+def compute_logits(x: torch.Tensor, lm_head, vocab: Optional[int] = None) -> torch.Tensor:
     """Vocab projection -> f32 logits. ``lm_head`` is a quantized dict
     (``{"qw8", "qs"}``: int8 by ``matmul_w8a16``; ``{"qw", "qs"}``: packed
     int4 by ``matmul_w4a16``) or a dense bf16 [H, V] array (a tied head:
     a transposed view of the embedding), by :func:`_f32_matmul`, so a row's
     logits do not depend on the batch size. The quantized heads' kernels are
-    row-independent by design.
+    row-independent by design. A quantized head stored wider than the
+    vocabulary (:func:`_make_lm_head`) is sliced back to ``vocab`` columns.
     """
     if isinstance(lm_head, dict):
         if "qw8" in lm_head:
-            return matmul_w8a16(x, lm_head["qw8"], lm_head["qs"],
-                                out_dtype=torch.float32)
-        return matmul_w4a16(x, lm_head["qw"], lm_head["qs"], out_dtype=torch.float32)
+            out = matmul_w8a16(x, lm_head["qw8"], lm_head["qs"], out_dtype=torch.float32)
+        else:
+            out = matmul_w4a16(x, lm_head["qw"], lm_head["qs"], out_dtype=torch.float32)
+        return out if vocab is None or out.shape[-1] == vocab else out[:, :vocab]
     return _f32_matmul(x, lm_head)
 
 
@@ -718,16 +737,26 @@ def pack_proj_weight(w, cfg_quant: str, *, col_blocks=None, bias=None,
     return d
 
 
+# a quantized head's columns are padded to a multiple of this where the
+# vocabulary is not a multiple of 8 (the head kernels' widths: csrc/w8a16.cu
+# reads 8 columns of a row at once)
+HEAD_PAD = 128
+
+
 def _make_lm_head(w: torch.Tensor, kind: str):
     """The resolved head from a float [H, V] tensor, on its device (the JAX
-    package's ``init_params_device.make_lm_head``)."""
-    if kind == "int8":
-        q, s = quantize_weight_int8_torch(w)
-        return {"qw8": q, "qs": s}
-    if kind == "int4":
-        qw, qs = quantize_weight_int4_torch(w)
-        return {"qw": qw, "qs": qs}
-    return w.to(torch.bfloat16)
+    package's ``init_params_device.make_lm_head``). A quantized head of a
+    vocabulary that is not a multiple of 8 (Granite-3.0's 49155) gets
+    columns of scale 0 up to a multiple of ``HEAD_PAD``, once, here: the
+    kernels take that width, the extra logits are 0, and ``compute_logits``
+    slices them off."""
+    if kind == "bf16":
+        return w.to(torch.bfloat16)
+    qw, qs = (quantize_weight_int8_torch if kind == "int8" else quantize_weight_int4_torch)(w)
+    pad = -w.shape[1] % HEAD_PAD if w.shape[1] % 8 else 0
+    if pad:
+        qw, qs = torch.nn.functional.pad(qw, (0, pad)), torch.nn.functional.pad(qs, (0, pad))
+    return {"qw8": qw, "qs": qs} if kind == "int8" else {"qw": qw, "qs": qs}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",

@@ -2,29 +2,53 @@
 
 Port of ``qspec_tpu/models/registry.py::resolve`` for the architectures
 whose graph the port has, all the llama graph of ``models/llama.py`` with
-its knobs: ``LlamaForCausalLM``, ``Gemma2ForCausalLM`` (softcaps, post-block
-norms, alternating window), ``BloomForCausalLM`` and ``MPTForCausalLM``
-(ALiBi, LayerNorm, non-gated MLP; bf16 checkpoints,
-``model_loader/families.py``), and the sparse-MoE families (``_moe_block``):
-``MixtralForCausalLM``, ``Qwen2MoeForCausalLM`` (the shared expert, the qkv
-bias), ``Qwen3MoeForCausalLM`` (the q/k norms) and ``DeepseekForCausalLM``
-(a dense prefix, ungated shared experts; bf16 checkpoints). Any other
-architecture raises.
+its knobs: the dense families ``LlamaForCausalLM`` (and the reference's
+QuaRot ``QuarotLlamaForCausalLM`` / ``llama_quarot``),
+``MistralForCausalLM`` (the window), ``Phi3ForCausalLM`` (fused q/k/v and
+gate/up, longrope), ``Qwen2ForCausalLM`` (and the reference's
+``Qwen2QuaRotForCausalLM`` / ``qwen2_quarot``: the qkv bias),
+``Qwen3ForCausalLM`` (the q/k norms), ``GemmaForCausalLM`` (tanh GeGLU,
+embedding scale, (1+w) norms, head dim 256) and ``GraniteForCausalLM`` (its
+four multipliers), QuaRot-quantized at load, read as QSpec or AWQ / GPTQ
+checkpoints, or served in bf16; ``Gemma2ForCausalLM`` (softcaps, post-block
+norms, alternating window; AWQ / GPTQ); ``BloomForCausalLM`` and
+``MPTForCausalLM`` (ALiBi, LayerNorm, non-gated MLP; bf16 checkpoints,
+``model_loader/families.py``); and the sparse-MoE families
+(``_moe_block``): ``MixtralForCausalLM``, ``Qwen2MoeForCausalLM`` (the
+shared expert, the qkv bias), ``Qwen3MoeForCausalLM`` (the q/k norms) and
+``DeepseekForCausalLM`` (a dense prefix, ungated shared experts; bf16
+checkpoints). Any other architecture raises.
 """
 
 from __future__ import annotations
 
-from qspec_tpu_torch.config import ModelConfig
+from qspec_tpu_torch.config import LLAMA_GRAPH_TYPES, ModelConfig
 
 # architecture (or, as in the JAX package's registry, the bare model type)
 # -> the model type its config is read as
-ARCHITECTURES = {"LlamaForCausalLM": "llama", "Gemma2ForCausalLM": "gemma2",
+ARCHITECTURES = {"LlamaForCausalLM": "llama", "QuarotLlamaForCausalLM": "llama",
+                 "llama_quarot": "llama", "MistralForCausalLM": "mistral",
+                 "Phi3ForCausalLM": "phi3", "phi3": "phi3",
+                 "Qwen2ForCausalLM": "qwen2", "Qwen2QuaRotForCausalLM": "qwen2",
+                 "qwen2_quarot": "qwen2", "Qwen3ForCausalLM": "qwen3", "qwen3": "qwen3",
+                 "GemmaForCausalLM": "gemma", "gemma": "gemma",
+                 "GraniteForCausalLM": "granite", "granite": "granite",
+                 "Gemma2ForCausalLM": "gemma2",
                  "gemma2": "gemma2", "BloomForCausalLM": "bloom", "bloom": "bloom",
                  "MPTForCausalLM": "mpt", "MptForCausalLM": "mpt", "mpt": "mpt",
                  "MixtralForCausalLM": "mixtral", "mixtral": "mixtral",
                  "Qwen2MoeForCausalLM": "qwen2_moe", "qwen2_moe": "qwen2_moe",
                  "Qwen3MoeForCausalLM": "qwen3_moe", "qwen3_moe": "qwen3_moe",
                  "DeepseekForCausalLM": "deepseek", "deepseek": "deepseek"}
+# the architectures whose config.json model type the JAX registry keeps (its
+# LlamaForCausalLM, MistralForCausalLM and Phi3ForCausalLM entries call
+# from_hf_config on the dict as it is; a Qwen2 entry then sets the qwen2
+# arch and the qkv bias): a QuaRot checkpoint's "llama_quarot" or
+# "qwen2_quarot" model type reads as llama or qwen2 by substring there too;
+# a model type that names none of the llama graph's families reads as the
+# architecture's own, as the JAX package's llama fallback reads it
+KEEP_MODEL_TYPE = {"LlamaForCausalLM", "QuarotLlamaForCausalLM", "llama_quarot",
+                   "MistralForCausalLM", "Phi3ForCausalLM", "phi3"}
 
 
 def resolve(hf_config: dict) -> ModelConfig:
@@ -33,6 +57,9 @@ def resolve(hf_config: dict) -> ModelConfig:
     archs = hf_config.get("architectures") or [hf_config.get("model_type", "")]
     for a in archs:
         if a in ARCHITECTURES:
-            return ModelConfig.from_hf_config({**hf_config, "model_type": ARCHITECTURES[a]})
+            mt = hf_config.get("model_type", "") if a in KEEP_MODEL_TYPE else ""
+            if not any(f in mt for f, _ in LLAMA_GRAPH_TYPES):
+                mt = ARCHITECTURES[a]
+            return ModelConfig.from_hf_config({**hf_config, "model_type": mt})
     raise NotImplementedError(f"unsupported architectures {archs}; ported: "
                               f"{sorted(ARCHITECTURES)}")

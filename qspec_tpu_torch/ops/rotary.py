@@ -1,7 +1,9 @@
 """Rotary position embedding (neox style).
 
-Port of ``qspec_tpu/ops/rotary.py`` (plain rope and llama3-style scaling;
-the JAX package leaves rope to XLA, so it stays torch ops here).
+Port of ``qspec_tpu/ops/rotary.py`` (plain rope, llama3-style scaling and
+Phi-3's longrope; the JAX package leaves rope to XLA, so it stays torch ops
+here). Any other rope scaling raises: the JAX package returns the unscaled
+cache for it (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ def make_rope_cache(head_dim: int, max_positions: int = 8192, base: float = 5000
                     rope_scaling: Optional[dict] = None,
                     device=None) -> torch.Tensor:
     """[2, max_positions, head_dim//2] float32 (cos, sin); llama3-style
-    rope scaling (low/high frequency factors) as in the JAX package."""
+    rope scaling (low/high frequency factors) and Phi-3's longrope ("su"),
+    as in the JAX package."""
     cache = _cos_sin_cache(head_dim, max_positions, base, scaling_factor)
     if rope_scaling and rope_scaling.get("rope_type", rope_scaling.get("type")) == "llama3":
         factor = rope_scaling["factor"]
@@ -46,6 +49,21 @@ def make_rope_cache(head_dim: int, max_positions: int = 8192, base: float = 5000
         t = np.arange(max_positions, dtype=np.float64)
         freqs = np.outer(t, new_inv)
         cache = np.stack([np.cos(freqs), np.sin(freqs)], axis=0).astype(np.float32)
+    elif rope_scaling and rope_scaling.get(
+            "rope_type", rope_scaling.get("type")) in ("longrope", "su"):
+        # per-dim inv_freq divisors, the short ones for positions inside the
+        # original window and the long ones past it (chosen by position),
+        # and the sqrt-log attention factor folded into cos and sin
+        orig_ctx = rope_scaling.get("original_max_position_embeddings", max_positions)
+        short = np.asarray(rope_scaling["short_factor"], np.float64)
+        long = np.asarray(rope_scaling["long_factor"], np.float64)
+        inv_freq = 1.0 / (base ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+        scale = max_positions / orig_ctx
+        mscale = 1.0 if scale <= 1.0 else np.sqrt(1.0 + np.log(scale) / np.log(orig_ctx))
+        t = np.arange(max_positions, dtype=np.float64)
+        freqs = np.where((t >= orig_ctx)[:, None], np.outer(t, inv_freq / long),
+                         np.outer(t, inv_freq / short))
+        cache = (np.stack([np.cos(freqs), np.sin(freqs)], axis=0) * mscale).astype(np.float32)
     elif rope_scaling:
         raise NotImplementedError(f"rope_scaling {rope_scaling!r} is not ported")
     return torch.as_tensor(np.ascontiguousarray(cache), device=device)

@@ -451,14 +451,16 @@ def test_llm_directory_equals_jax_engine(tmp_path, family):
 def test_directory_routes_not_ported(tmp_path):
     """A BLOOM directory under QuaRot quantization raises the port's
     check_served refusal (the JAX package's quantize_float finds no llama
-    keys there); an AWQ directory raises naming ROADMAP item 6; a
+    keys there); asked for as AWQ, a directory whose config.json names no
+    AWQ / GPTQ quantization_config raises (AWQ / GPTQ directories load by
+    their quant_method: tests/test_torch_grouped_dirs.py); a
     llama-keyed float directory at quantization=None loads and serves in
     bf16 (load_hf_float, tests/test_torch_checkpoint_routes.py)."""
     hf, _ = _hf_bloom()
     d = _save(hf, tmp_path / "bloom")
     with pytest.raises(NotImplementedError, match="served with bf16 weights"):
         LLM(model=str(d), device="cpu")                       # quantization="qspec"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="no AWQ / GPTQ quantization_config"):
         EngineArgs(model=str(d), quantization="awq").model_config()
     lcfg = transformers.LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128,
                                     num_hidden_layers=1, num_attention_heads=4)

@@ -118,8 +118,9 @@ def test_config_and_registry_match_jax(which):
 
 
 def test_other_architectures_raise():
-    for hf in ({"architectures": ["MistralForCausalLM"], "model_type": "mistral"},
-               {"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2"}):
+    """Families the port does not serve raise."""
+    for hf in ({"architectures": ["Gemma3ForCausalLM"], "model_type": "gemma3_text"},
+               {"architectures": ["GraniteMoeForCausalLM"], "model_type": "granitemoe"}):
         with pytest.raises(NotImplementedError):
             resolve(hf)
         with pytest.raises(NotImplementedError):

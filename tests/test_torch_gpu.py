@@ -1383,3 +1383,95 @@ def test_moe_block_at_qwen15_moe_widths(gen, scheme, monkeypatch):
         torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2 * ref.abs().max().item())
     else:
         assert torch.equal(out, ref)
+
+
+# ------------------------------------------------ Qwen2-7B's layer shapes
+
+# one Qwen2-7B layer's projections (K, N): qkv (3584 + 2 x 512 with the
+# bias), o, gate_up (2 x 18944) and down (K = 18944, 74 stages of 256)
+QWEN2_7B_PROJ = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
+
+
+@pytest.mark.parametrize("ctx", [(379, 263, 512, 40), (8192, 8191, 4097, 0)],
+                         ids=["verify", "long"])
+@pytest.mark.parametrize("q_len", [1, 2, 4])
+def test_paged_attention_kernel_gqa_group7(gen, q_len, ctx):
+    """Qwen2-7B's 28 query heads over 4 KV heads: G = 7 Q rows a KV head
+    (7, 14 and 28: one or two 16-row tiles, the last one partial), at the
+    verify's contexts and at long ones (32 splits), against the plain
+    version; a padding row writes zeros."""
+    ctx = [max(c, q_len) if c else 0 for c in ctx]
+    q, cache, tables, ctx_t = _window_case(gen, q_len, "bfloat16", ctx, S=128, B=4, Hq=28,
+                                           Hkv=4)
+    out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, 128 ** -0.5, layer=1)
+    live = ctx_t > 0
+    ref = paged_attention_ref(q[live], cache, 1, tables[live], ctx_t[live], 128 ** -0.5)
+    torch.testing.assert_close(out[live].float(), ref.float(), rtol=3e-2, atol=3e-2)
+    assert torch.count_nonzero(out[~live]) == 0
+    assert _replayed(lambda: paged_attention_cuda(q, cache.kv_pages, tables, ctx_t,
+                                                  128 ** -0.5, layer=1), out)
+
+
+@pytest.mark.parametrize("k,n", QWEN2_7B_PROJ)
+def test_w4_kernels_at_qwen2_7b_shapes(gen, k, n):
+    """matmul_w4a16 within 2e-2 of its plain version, a row's bits the same
+    at every M up to 64, and matmul_w4a4 bit for bit (int4 and int8
+    activations) at the draft's and the verify's M and past the split mode,
+    read in place from a layer stack."""
+    qw, qs = _w4_stacked(gen, k, n)
+    x = torch.randn(64, k, generator=gen, device="cuda").to(torch.bfloat16) * 3
+    full = lk.matmul_w4a16(x, qw, qs, layer_idx=1, out_dtype=torch.float32)
+    torch.testing.assert_close(full, lk.matmul_w4a16_ref(x, qw[1], qs[1],
+                                                         out_dtype=torch.float32),
+                               rtol=2e-2, atol=2e-2)
+    for m in (1, 4, 16, 60):
+        out = lk.matmul_w4a16(x[:m], qw, qs, layer_idx=1, out_dtype=torch.float32)
+        assert torch.equal(out, full[:m]), m
+    for m in (4, 8, 16, 64):
+        for xq in (sym_quant_int4(x[:m]), sym_quant_int8(x[:m])):
+            out = lk.matmul_w4a4(xq.values, xq.scales, qw, qs, layer_idx=1)
+            assert torch.equal(out, lk.matmul_w4a4_ref(xq.values, xq.scales, qw[1], qs[1])), m
+
+
+@pytest.mark.parametrize("k,n", [(3584, 152064), (3072, 32064), (4096, 49155),
+                                 (3072, 256000)])
+def test_int8_head_at_published_vocabularies(gen, k, n):
+    """The int8 head at Qwen2-7B's, Phi-3's (32064: half of the last
+    128-column tile), Granite-3.0's (49155: padded at load to 49280, the
+    logits sliced back) and Gemma's vocabularies: the logits of
+    compute_logits through the kernel equal the plain version's on the
+    unpadded head, M = 4 and 16, one launch a call."""
+    from qspec_tpu_torch.models import llama as tl
+    head = tl._make_lm_head(torch.randn(k, n, generator=gen, device="cuda") * 0.05, "int8")
+    assert head["qw8"].shape[1] % 8 == 0
+    x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for m in (4, 16):
+        before = lk.matmul_w8a16.launches
+        out = tl.compute_logits(x[:m], head, n)
+        assert lk.matmul_w8a16.launches == before + 1
+        assert tuple(out.shape) == (m, n)
+        ref = lk.matmul_w8a16_ref(x[:m], head["qw8"][:, :n], head["qs"][:n],
+                                  out_dtype=torch.float32)
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("h", [3584, 3072])
+def test_norm_kernels_at_qwen2_and_gemma_widths(gen, h):
+    """Qwen2-7B's hidden 3584 and Gemma-7B's / Phi-3's 3072 (neither a
+    multiple of 1024): both norms with and without the residual add against
+    their plain versions (tests/test_torch_gpu.py's NORM_CASES tolerances)."""
+    for kind, bits in (("quant", 4), ("quant", 8), ("norm", None), ("gamma", None)):
+        for m in (4, 16):
+            x, r, g = _norm_inputs(gen, m, h)
+            for res in (None, r):
+                got = _norm(kind, x, g, bits, res)
+                want = _norm(kind, x, g, bits, res, ref=True)
+                if kind == "quant":
+                    torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=0)
+                    d = (got[0].int() - want[0].int()).abs()
+                    assert d.max().item() <= 1 and (d == 0).float().mean().item() > 0.99
+                else:
+                    torch.testing.assert_close(got[0].float(), want[0].float(),
+                                               rtol=2e-2, atol=2e-2)
+                if res is not None:
+                    assert torch.equal(got[-1], want[-1])

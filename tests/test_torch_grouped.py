@@ -110,9 +110,14 @@ def test_gptq_act_order_rejected():
 
 
 def test_load_from_a_path_is_not_ported():
-    with pytest.raises(NotImplementedError, match="safetensors"):
+    """A path is read as a checkpoint directory (the directory form:
+    tests/test_torch_grouped_dirs.py), so a missing one raises
+    FileNotFoundError; a state dict needs its ModelConfig."""
+    with pytest.raises(FileNotFoundError, match="awq-checkpoint"):
         tg.load_awq("/nonexistent/awq-checkpoint", ModelConfig.tiny(quant="w4g"),
                     device="cpu")
+    with pytest.raises(ValueError, match="ModelConfig"):
+        tg.load_gptq({}, device="cpu")
 
 
 def test_pack_grouped_proj_tp_layouts():
