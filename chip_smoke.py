@@ -2574,9 +2574,10 @@ def quantize_on_card(cfg, seed: int, label: str):
     return params, qcfg, secs, peak
 
 
-def qspec_engine(cfg, params, draft=None, **spec_kw):
+def qspec_engine(cfg, params, draft=None, engine_kw=None, **spec_kw):
     """The factory of an LLMEngine of ``cfg`` serving QSpec (k = 3) with
-    ``spec_kw``; ``draft``: (draft cfg, draft params), a separate draft."""
+    ``spec_kw``; ``draft``: (draft cfg, draft params), a separate draft;
+    ``engine_kw``: more LLMEngine arguments."""
     from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
                                  SpeculativeConfig)
 
@@ -2587,7 +2588,7 @@ def qspec_engine(cfg, params, draft=None, **spec_kw):
                                       scheduler=SchedulerConfig(max_num_seqs=4,
                                                                 max_model_len=512),
                                       speculative=spec), p or params, device="cuda",
-                         seed=0, draft_params=draft and draft[1])
+                         seed=0, draft_params=draft and draft[1], **(engine_kw or {}))
     return make
 
 
@@ -3078,6 +3079,457 @@ def phase_server_8b(params8, cfg8, smi: str):
         f"chunks carry several tokens, median gap {si['median_chunk_gap_ms']:.4g} ms; "
         f"phase {wall:.1f} s; card {smi}")
     return launches, full
+
+
+# ------------------------------------------------- (I) grammar-guided decoding
+
+# Llama-3's <|eot_id|>: the EOS of the byte-level vocabulary of (I1) / (I3)
+GUIDED_EOS = 128009
+# tokens of several bytes that cross DFA edges
+GUIDED_PIECES = (b'",', b'": ', b'":', b'[1', b'{"', b'"}', b',"', b'1,', b'],', b'red',
+                 b'yes', b'no', b'name', b'arguments', b'get_weather', b'":{"', b'}}')
+GUIDED_REGEX = r"\[\d(,\d)*\]"
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "n": {"type": "integer"}, "color": {"enum": ["red", "green", "blue"]}},
+    "required": ["n", "color"]}
+GUIDED_CHOICE = ["yes", "no", "maybe"]
+# (I3)'s completion: a list of one to four digits
+GUIDED_REGEX_SHORT = r"\[\d(,\d){0,3}\]"
+GUIDED_TOOLS = [
+    {"type": "function", "function": {"name": "get_weather", "parameters": {
+        "type": "object", "properties": {"unit": {"enum": ["c", "f"]},
+                                         "days": {"enum": [1, 2, 3]}},
+        "required": ["unit", "days"]}}},
+    {"type": "function", "function": {"name": "get_time"}}]
+
+
+def guided_pieces(V: int) -> dict:
+    """id -> text of the byte-level vocabulary at ``V`` ids: each printable
+    ASCII byte on three ids (spread over the table), then GUIDED_PIECES;
+    every other id has no text (a grammar bans it), GUIDED_EOS included."""
+    out = {}
+    for rep in range(3):
+        for i, b in enumerate(range(32, 127)):
+            out[1000 + 40000 * rep + i] = chr(b)
+    for i, p in enumerate(GUIDED_PIECES):
+        out[120000 + i] = p.decode()
+    assert V > 120000 + len(GUIDED_PIECES) and GUIDED_EOS not in out
+    return out
+
+
+def guided_vocab(V: int) -> list:
+    """The grammar vocabulary (token id -> bytes, None: no text)."""
+    vocab = [None] * V
+    for i, t in guided_pieces(V).items():
+        vocab[i] = t.encode()
+    return vocab
+
+
+class GuidedTokenizer:
+    """A byte-level tokenizer over guided_pieces() that hf_vocab_bytes
+    reads (get_vocab, convert_tokens_to_string, all_special_ids): token i's
+    string is "<i>", its text the piece; a character encodes to its first
+    id. A chat template joins the messages' contents."""
+
+    eos_token_id = GUIDED_EOS
+    all_special_ids = [GUIDED_EOS]
+
+    def __init__(self, V: int):
+        self.vocab_size = V
+        self.text = guided_pieces(V)
+        self.first = {}
+        for i, t in sorted(self.text.items()):
+            if len(t) == 1:
+                self.first.setdefault(t, i)
+
+    def get_vocab(self):
+        return {**{f"<{i}>": i for i in self.text}, "<|eot_id|>": GUIDED_EOS}
+
+    def convert_tokens_to_string(self, toks):
+        return "".join(self.text[int(t[1:-1])] for t in toks)
+
+    def encode(self, text):
+        return [self.first.get(c, self.first["?"]) for c in text]
+
+    def decode(self, ids):
+        return "".join(self.text.get(int(i), "") for i in ids)
+
+    def apply_chat_template(self, messages, tokenize=True, add_generation_prompt=True):
+        return self.encode("\n".join(m["content"] for m in messages) + "\n")
+
+
+def fsm_walk(fsm, toks) -> int:
+    """The FSM's state after ``toks`` (EOS self-loops where it accepts); -1
+    at the first token it does not allow."""
+    s = 0
+    for t in toks:
+        s = int(fsm.next_state[s, t])
+        if s < 0:
+            return -1
+    return s
+
+
+def guided_requests(gc, max_tokens: int, **sp_kw):
+    """(I1)'s four requests: a regex, a JSON schema, a choice, an unguided
+    row; returns (SamplingParams, their FSMs (None: unguided))."""
+    from qspec_tpu_torch import SamplingParams
+    opts = [{"guided_regex": GUIDED_REGEX}, {"guided_json": GUIDED_SCHEMA},
+            {"guided_choice": GUIDED_CHOICE}, {}]
+    fsms = [gc.from_regex(GUIDED_REGEX), gc.from_json_schema(GUIDED_SCHEMA),
+            gc.from_choice(GUIDED_CHOICE), None]
+    sps = [SamplingParams(max_tokens=max_tokens, ignore_eos=True, **{"temperature": 0.0,
+                                                                       **sp_kw}, **o)
+           for o in opts]
+    return sps, fsms
+
+
+class TableProbe:
+    """Wraps a runner's stack_grammars: the device, the shape and the bytes
+    of every grammar stack the engine's steps read, and the host ms of
+    stacking."""
+
+    def __init__(self, eng):
+        self.devices, self.shapes, self.ms = set(), set(), []
+        self.stack = eng.runner.stack_grammars
+        eng.runner.stack_grammars = self
+
+    def __call__(self, fsms):
+        t0 = time.perf_counter()
+        out = self.stack(fsms)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.devices.add(out.device.type)
+        self.shapes.add(tuple(out.shape))
+        return out
+
+
+def guided_run(make, method: str, prompts, sps, count: bool = False, k: int = 3):
+    """One engine run of ``prompts`` under per-request ``sps``: (tokens,
+    launches (count: set to 0 just before the run, read just after), the
+    engine's counts and metrics with the wall ms per verify round (host
+    clock: an unguided batch may chain several calls a step, a guided one
+    never), each step's wall ms, the table probe)."""
+    from qspec_tpu_torch.ops import kernel_wrappers
+    eng = make(method)
+    probe = TableProbe(eng)
+    counters = kernel_wrappers()
+    torch.cuda.synchronize()
+    if count:
+        for c in counters.values():
+            c.launches = 0
+    ids = [eng.add_request(list(p), sp) for p, sp in zip(prompts, sps)]
+    outs, step_ms = {}, []
+    t0 = time.perf_counter()
+    while eng.has_unfinished_requests():
+        ts = time.perf_counter()
+        for o in eng.step():
+            if o.finished:
+                outs[o.request_id] = o.output_token_ids
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches} if count else None
+    r, m = eng.runner, eng.spec_metrics
+    info = {"target_forwards": r.target_forwards, "draft_forwards": r.draft_forwards,
+            "drafted_accepted_emitted": [m.num_draft_tokens, m.num_draft_accepted,
+                                         m.num_emitted_tokens],
+            "acceptance_rate": m.draft_acceptance_rate if m.num_spec_rounds else None,
+            "tokens_per_s": sum(len(outs[i]) for i in ids) / wall,
+            "ms_per_round": wall * 1e3 / max((r.draft_forwards - r.target_forwards) // (k - 1),
+                                             1)}
+    del eng
+    torch.cuda.empty_cache()
+    return [outs[i] for i in ids], launches, info, step_ms, probe
+
+
+def check_walks(label, toks, fsms):
+    for i, (t, f) in enumerate(zip(toks, fsms)):
+        if f is not None and (not t or fsm_walk(f, t) < 0):
+            raise AssertionError(f"{label}: request {i}'s tokens leave its grammar: {t[:12]}")
+
+
+def qspec_launches(L: int, info: dict, k: int) -> dict:
+    """The launches a shared-weights QSpec run on a QuaRot Llama must make
+    (phase (B)'s rule): per draft forward (prompt chunk or draft step) 4
+    w4a4 and 2 rmsnorm_quant a layer, per forward of either scheme the
+    attention once a layer and the int8 head once, per verify pass 4 w4a16
+    a layer (the prompt rectangles take the dequantize-once branch)."""
+    t_fw, d_fw = info["target_forwards"], info["draft_forwards"]
+    verify = (d_fw - t_fw) // (k - 1)
+    return {"matmul_w4a4": 4 * L * d_fw, "rmsnorm_quant": 2 * L * d_fw,
+            "matmul_w8a16": t_fw + d_fw, "paged_attention": L * (t_fw + d_fw),
+            "matmul_w4a16": 4 * L * verify}
+
+
+def phase_guided_8b(params8, cfg8, smi: str):
+    """(I1) Grammar-guided decoding inside QSpec's loop at Llama-3-8B width:
+    (A)'s parameters (int8 head, bf16 KV), k = 3, the byte-level vocabulary
+    of guided_vocab() at V = 128256; one batch of a regex, a JSON schema, a
+    choice and an unguided request, 32 greedy tokens each (EOS ignored, so
+    a finished grammar emits EOS): at W4A4 and at W4A8 == qspec_null's
+    tokens under the same grammars, exactly the launches of
+    qspec_launches; typical acceptance (W4A8, greedy) == the same oracle; a
+    sampled run (temperature 0.8, top_p 0.95) whose outputs all walk their
+    FSMs; the grammar tables on the card. (I2) induction_lm_v2 with a
+    grammar its copied continuation satisfies: acceptance == the CPU's.
+    (I3) the server at 8B width with GuidedTokenizer: forced tool choices
+    ("required", named) and a guided_regex completion == LLM.generate."""
+    from qspec_tpu_torch.guided import GrammarCompiler, hf_vocab_bytes
+    t_phase = time.perf_counter()
+    V, L, k = cfg8.vocab_size, cfg8.num_layers, 3
+    vocab = guided_vocab(V)
+    compile_ms = {}
+    gc = GrammarCompiler(vocab, GUIDED_EOS)
+    for name, fn, arg in (("regex", gc.from_regex, GUIDED_REGEX),
+                          ("json", gc.from_json_schema, GUIDED_SCHEMA),
+                          ("choice", gc.from_choice, GUIDED_CHOICE)):
+        t0 = time.perf_counter()
+        fsm = fn(arg)
+        compile_ms[name] = ((time.perf_counter() - t0) * 1e3, fsm.num_states)
+    prompts = e2e_prompts()
+    sps, fsms = guided_requests(gc, 32)
+
+    def make(scheme, **spec_kw):
+        f = qspec_engine(cfg8, params8, engine_kw={"grammar_vocab": vocab,
+                                                    "eos_token_id": GUIDED_EOS},
+                         draft_scheme=scheme, **spec_kw)
+        return lambda method: f(method, None)
+
+    oracle, _, o_info, _, _ = guided_run(make("w4a8"), "qspec_null", prompts, sps)
+    check_walks("(I1) oracle", oracle, fsms)
+    runs = {}
+    for scheme in ("w4a4", "w4a8"):
+        label = f"(I1) llama3-8b guided ({scheme} draft, int8 head, bf16 KV)"
+        toks, launches, info, step_ms, probe = guided_run(make(scheme), "qspec", prompts, sps,
+                                                          count=True)
+        if toks != oracle:
+            raise AssertionError(f"{label}: guided tokens differ from qspec_null's: "
+                                 f"{[t[:8] for t in toks]} vs {[t[:8] for t in oracle]}")
+        want = qspec_launches(L, info, k)
+        got = {n: launches.get(n, 0) for n in want}
+        if set(launches) != QUAROT_KERNELS or got != want:
+            raise AssertionError(f"{label}: launches {launches}, expected {want} and only "
+                                 f"{sorted(QUAROT_KERNELS)}")
+        if probe.devices != {"cuda"}:
+            raise AssertionError(f"{label}: grammar tables on {probe.devices}")
+        runs[scheme] = (launches, info, step_ms, probe)
+    if runs["w4a8"][1]["drafted_accepted_emitted"][1] <= 0:
+        raise AssertionError("(I1) w4a8: no grammar-masked draft was accepted")
+    typ, _, t_info, _, _ = guided_run(make("w4a8", acceptance_method="typical_acceptance_sampler"),
+                                      "qspec", prompts, sps)
+    if typ != oracle:
+        raise AssertionError(f"(I1) typical acceptance (w4a8, greedy) differs from qspec_null: "
+                             f"{[t[:8] for t in typ]} vs {[t[:8] for t in oracle]}")
+    sampled_sps, _ = guided_requests(gc, 32, temperature=0.8, top_p=0.95)
+    sampled, _, s_info, _, _ = guided_run(make("w4a8"), "qspec", prompts, sampled_sps)
+    check_walks("(I1) sampled w4a8", sampled, fsms)
+    if sampled == oracle:
+        raise AssertionError("(I1) the sampled run gave the greedy tokens")
+    plain_sps = [dataclasses.replace(sp, guided_regex=None, guided_json=None,
+                                     guided_choice=None) for sp in sps]
+    _, _, u_info, u_step_ms, _ = guided_run(make("w4a8"), "qspec", prompts, plain_sps)
+    probe8 = runs["w4a8"][3]
+    table_bytes = max(int(np.prod(s)) * 4 for s in probe8.shapes)
+    i1 = {"compile_ms_states": compile_ms, "table_shapes": sorted(probe8.shapes),
+          "table_bytes": table_bytes, "stack_host_ms_median": float(np.median(probe8.ms)),
+          "oracle_tokens_per_s": o_info["tokens_per_s"],
+          **{f"{s}_tokens_per_s": runs[s][1]["tokens_per_s"] for s in runs},
+          **{f"{s}_acceptance": runs[s][1]["acceptance_rate"] for s in runs},
+          **{f"{s}_drafted_accepted_emitted": runs[s][1]["drafted_accepted_emitted"]
+             for s in runs},
+          "typical_acceptance": t_info["acceptance_rate"],
+          "typical_tokens_per_s": t_info["tokens_per_s"],
+          "sampled_acceptance": s_info["acceptance_rate"],
+          "sampled_tokens_per_s": s_info["tokens_per_s"],
+          "step_ms_median_guided_w4a8": float(np.median(runs["w4a8"][2])),
+          "step_ms_median_unguided_w4a8": float(np.median(u_step_ms)),
+          "round_ms_guided_w4a8": runs["w4a8"][1]["ms_per_round"],
+          "round_ms_unguided_w4a8": u_info["ms_per_round"],
+          "unguided_w4a8_tokens_per_s": u_info["tokens_per_s"],
+          "unguided_w4a8_acceptance": u_info["acceptance_rate"]}
+    log("guided (I1) " + json.dumps(i1, separators=(",", ":")), stdout=False)
+    log(f"guided (I1) llama3-8b, 4 requests (regex, JSON schema, choice, unguided) x 32 "
+        f"greedy tokens == qspec_null at w4a4 and w4a8 and under typical acceptance, exact "
+        f"launches; sampled outputs walk their FSMs. Acceptance w4a4 "
+        f"{i1['w4a4_acceptance']:.4g}, w4a8 {i1['w4a8_acceptance']:.4g}; tok/s w4a8 "
+        f"{i1['w4a8_tokens_per_s']:.4g} vs oracle {i1['oracle_tokens_per_s']:.4g}; FSM "
+        f"compile ms at V={V}: " + ", ".join(f"{n} {ms:.1f} ({s} states)"
+                                            for n, (ms, s) in compile_ms.items())
+        + f"; table {table_bytes / 1e6:.2f} MB on cuda; w4a8 ms a round guided "
+        f"{i1['round_ms_guided_w4a8']:.2f} vs unguided {i1['round_ms_unguided_w4a8']:.2f} "
+        f"(host clock)")
+    i2 = phase_guided_induction()
+    i3, i3_launches = phase_guided_server(params8, cfg8)
+    wall = time.perf_counter() - t_phase
+    log(f"guided (I) took {wall:.1f} s; card {smi}")
+    return {"I1_w4a4": runs["w4a4"][0], "I1_w4a8": runs["w4a8"][0], "I3": i3_launches}, \
+        {"I1": i1, "I2": i2, "I3": i3, "wall_s": wall}
+
+
+# (I2): greedy W4A4 QSpec (k = 3) on induction_lm_v2, 4 prompts of 128, 32
+# tokens, each under the grammar of its own segment's tokens: drafted /
+# accepted / emitted on the CPU (tests/test_torch_guided_engine.py)
+GUIDED_INDUCTION_DAE = [96, 92, 124]
+
+
+def induction_grammar(prompt) -> str:
+    """A regex that the copy of an induction prompt's segment satisfies and
+    that bans every other token: (<a>|<b>|...)+ over the prompt's tokens,
+    token t's text "<t>"."""
+    return "(" + "|".join(f"<{t}>" for t in sorted(set(prompt))) + ")+"
+
+
+def phase_guided_induction() -> dict:
+    """(I2) induction_lm_v2 (quantize_float on the card, bf16 head), W4A4,
+    k = 3, each prompt under induction_grammar(): tokens == qspec_null's,
+    drafted / accepted / emitted == GUIDED_INDUCTION_DAE (the CPU's), some
+    accepted."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, ModelConfig,
+                                 SamplingParams, SchedulerConfig, SpeculativeConfig)
+    from qspec_tpu_torch.guided import GrammarCompiler
+    from qspec_tpu_torch.model_loader.loader import quantize_float
+    with open(INDUCTION + ".json") as f:
+        meta = json.load(f)["cfg"]
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    with np.load(INDUCTION + ".npz") as z:
+        sd = {k: z[k] for k in z.files}
+    params, cfg = quantize_float(sd, ModelConfig(**{k: v for k, v in meta.items()
+                                                   if k in names}), device="cuda")
+    prompts = induction_prompts(4, 128, cfg.vocab_size)
+    vocab = [None, None] + [f"<{t}>".encode() for t in range(2, cfg.vocab_size)]
+    sched = SchedulerConfig(max_num_seqs=4, max_model_len=512, prefill_chunk_size=128,
+                            decode_batch_buckets=(4,), prefill_token_buckets=(128,))
+    out = {}
+    for method in ("qspec", "qspec_null"):
+        eng = LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16),
+                                     scheduler=sched,
+                                     speculative=SpeculativeConfig(num_speculative_tokens=3,
+                                                                   method=method)),
+                        params, device="cuda", grammar_vocab=vocab)
+        ids = [eng.add_request(p, SamplingParams(temperature=0.0, max_tokens=32,
+                                                 ignore_eos=True,
+                                                 guided_regex=induction_grammar(p)))
+               for p in prompts]
+        done = {}
+        while eng.has_unfinished_requests():
+            for o in eng.step():
+                if o.finished:
+                    done[o.request_id] = o.output_token_ids
+        m = eng.spec_metrics
+        out[method] = ([done[i] for i in ids], [m.num_draft_tokens, m.num_draft_accepted,
+                                                m.num_emitted_tokens])
+        del eng
+    toks, dae = out["qspec"]
+    if toks != out["qspec_null"][0]:
+        raise AssertionError("(I2) induction_lm_v2 guided: tokens differ from qspec_null's")
+    if dae != GUIDED_INDUCTION_DAE or dae[1] <= 0:
+        raise AssertionError(f"(I2) induction_lm_v2 guided: drafted / accepted / emitted "
+                             f"{dae}, the CPU's {GUIDED_INDUCTION_DAE}")
+    gc = GrammarCompiler(vocab)
+    check_walks("(I2)", toks, [gc.from_regex(induction_grammar(p)) for p in prompts])
+    log(f"guided (I2) induction_lm_v2, each prompt under its segment's grammar, w4a4: "
+        f"drafted / accepted / emitted {dae} (the CPU's), == qspec_null")
+    del params
+    torch.cuda.empty_cache()
+    return {"drafted_accepted_emitted": dae}
+
+
+def guided_http(port: int, path: str, body: dict):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    r = c.getresponse()
+    data = json.loads(r.read())
+    c.close()
+    if r.status != 200:
+        raise AssertionError(f"(I3) {path}: HTTP {r.status} {data}")
+    return data
+
+
+def phase_guided_server(params8, cfg8):
+    """(I3) build_server over (A)'s 8B parameters (W4A8 draft, k = 3) with
+    GuidedTokenizer, whose vocabulary hf_vocab_bytes reads (== guided_vocab):
+    chat completions with tool_choice "required" and naming get_weather, and
+    a completion under guided_regex, one at a time; each reply's tool_calls
+    parse and equal LLM.generate's under forced_call_schema's guided_json,
+    the completion's text LLM.generate's; exactly QUAROT_KERNELS launch."""
+    from qspec_tpu_torch import LLM, SamplingParams
+    from qspec_tpu_torch.engine.arg_utils import EngineArgs
+    from qspec_tpu_torch.entrypoints.llm import chat_token_ids
+    from qspec_tpu_torch.entrypoints.openai.api_server import ServerThread, build_server
+    from qspec_tpu_torch.entrypoints.openai.tool_parser import (forced_call_schema,
+                                                                parse_tool_calls,
+                                                                tools_system_message)
+    from qspec_tpu_torch.guided import hf_vocab_bytes
+    from qspec_tpu_torch.ops import kernel_wrappers
+    tok = GuidedTokenizer(cfg8.vocab_size)
+    if hf_vocab_bytes(tok) != guided_vocab(cfg8.vocab_size):
+        raise AssertionError("(I3) hf_vocab_bytes(GuidedTokenizer) != guided_vocab")
+    args = EngineArgs(model="llama3-8b", num_speculative_tokens=3,
+                      speculative_draft_scheme="w4a8", max_model_len=1024, max_num_seqs=4)
+    names = [t["function"]["name"] for t in GUIDED_TOOLS]
+    messages = [{"role": "user", "content": "What is the weather?"}]
+    jobs = [("/v1/chat/completions", {"messages": messages, "tools": GUIDED_TOOLS,
+                                      "tool_choice": "required"}, None),
+            ("/v1/chat/completions", {"messages": messages, "tools": GUIDED_TOOLS,
+                                      "tool_choice": {"type": "function",
+                                                      "function": {"name": "get_weather"}}},
+             "get_weather"),
+            ("/v1/completions", {"prompt": "Numbers: ", "guided_regex": GUIDED_REGEX_SHORT},
+             None)]
+    server = build_server(args, model_name="llama3-8b-guided", params=params8, tokenizer=tok,
+                          device="cuda")
+    counters = kernel_wrappers()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    replies = []
+    t0 = time.perf_counter()
+    with ServerThread(server) as st:
+        for path, body, _ in jobs:
+            replies.append(guided_http(st.port, path, {**body, "temperature": 0.0,
+                                                       "max_tokens": 96}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    del server
+    torch.cuda.empty_cache()
+    if set(launches) != QUAROT_KERNELS:
+        raise AssertionError(f"(I3) kernels launched while serving: {sorted(launches)}")
+    llm = LLM(params=params8, tokenizer=tok, device="cuda", **dataclasses.asdict(args))
+    sys_ids = chat_token_ids(tok, [tools_system_message(GUIDED_TOOLS)] + messages)
+    out = {}
+    for (path, body, name), reply in zip(jobs, replies):
+        c = reply["choices"][0]
+        if path.endswith("chat/completions"):
+            calls = c["message"].get("tool_calls")
+            if c["finish_reason"] != "tool_calls" or not calls:
+                raise AssertionError(f"(I3) {body['tool_choice']}: no tool call: {c}")
+            want = llm.generate([sys_ids], SamplingParams(
+                temperature=0.0, max_tokens=96, guided_json=forced_call_schema(
+                    GUIDED_TOOLS, name)))[0]
+            _, want_calls = parse_tool_calls(want.text, names)
+            got = [x["function"] for x in calls]
+            if got != [x["function"] for x in want_calls] or (name and got[0]["name"] != name):
+                raise AssertionError(f"(I3) {body['tool_choice']}: {got} vs LLM.generate "
+                                     f"{want.text!r}")
+            json.loads(got[0]["arguments"])
+            out[str(name or "required")] = got[0]
+        else:
+            want = llm.generate([tok.encode(body["prompt"])], SamplingParams(
+                temperature=0.0, max_tokens=96, guided_regex=GUIDED_REGEX_SHORT))[0]
+            if c["text"] != want.text or not re.fullmatch(GUIDED_REGEX_SHORT, c["text"]):
+                raise AssertionError(f"(I3) guided_regex completion {c['text']!r} vs "
+                                     f"LLM.generate {want.text!r}")
+            out["regex"] = c["text"]
+    del llm
+    torch.cuda.empty_cache()
+    log("guided (I3) " + json.dumps({**out, "serve_wall_s": wall}, separators=(",", ":")),
+        stdout=False)
+    log(f"guided (I3) llama3-8b server: tool_choice required -> {out['required']['name']}, "
+        f"named -> {out['get_weather']['name']}({out['get_weather']['arguments']}), "
+        f"guided_regex completion {out['regex']!r}; each == LLM.generate; serve wall "
+        f"{wall:.2f} s")
+    return out, launches
 
 
 # the kernels of the EAGLE and MLPSpeculator paths on a QuaRot target:
@@ -4132,6 +4584,7 @@ def main():
     forced = phase_forced_8b(params8, cfg8, smi)
     dirs = phase_llama_dirs(params8, cfg8, smi)
     server = phase_server_8b(params8, cfg8, smi)
+    guided = phase_guided_8b(params8, cfg8, smi)
     del params8
     torch.cuda.empty_cache()
     proposers = phase_proposers_8b(smi)
@@ -4241,6 +4694,9 @@ def main():
             extra["proposer_launches"] = [proposers[k][0][name] for k in ("E1", "E2")]
         if name in server[0]:
             extra["server_launches"] = server[0][name]
+        guided_launch = {k: v[name] for k, v in guided[0].items() if v.get(name)}
+        if guided_launch:
+            extra["guided_launches"] = guided_launch
         moe_launch = {k: v[name] for k, v in moe_paths.items() if v.get(name)}
         if moe_launch:
             extra["moe_launches"] = moe_launch

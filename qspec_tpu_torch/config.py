@@ -530,6 +530,9 @@ class SchedulerConfig:
     prefill_token_buckets: tuple = (128, 256, 512, 1024, 2048)
 
 
+ACCEPTANCE_METHODS = ("rejection_sampler", "typical_acceptance_sampler")
+
+
 @dataclasses.dataclass(frozen=True)
 class SpeculativeConfig:
     """Speculative decoding: QSpec over shared weights or with a separate
@@ -587,6 +590,15 @@ class SpeculativeConfig:
     # greedy continuation, except at 0, where a round emits the verify's
     # first token, the AR token. None: the real acceptance.
     force_accept_len: Optional[int] = None
+    # the QSpec rounds' acceptance rule: "rejection_sampler" (lossless) or
+    # "typical_acceptance_sampler" (lossy: accept a draft whose target
+    # probability passes an entropy-scaled threshold, else emit the argmax)
+    acceptance_method: str = "rejection_sampler"
+
+    def __post_init__(self):
+        if self.acceptance_method not in ACCEPTANCE_METHODS:
+            raise ValueError(f"acceptance_method {self.acceptance_method!r}: one of "
+                             f"{ACCEPTANCE_METHODS}")
 
 
 @dataclasses.dataclass(frozen=True)

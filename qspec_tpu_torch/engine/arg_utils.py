@@ -95,6 +95,8 @@ class EngineArgs:
     num_speculative_tokens: Optional[int] = None
     speculative_draft_scheme: str = "w4a4"   # w4a4|w4a8|w4a16
     speculative_disable_by_batch_size: Optional[int] = None
+    # "rejection_sampler" (lossless) | "typical_acceptance_sampler" (lossy)
+    spec_acceptance_method: str = "rejection_sampler"
     spec_rounds_per_step: int = 1
     # MagicDec-style sliding window on the shared-weights draft KV reads
     spec_draft_kv_window: Optional[int] = None
@@ -210,7 +212,8 @@ class EngineArgs:
                 draft_kv_window=self.spec_draft_kv_window,
                 medusa_tree=self.medusa_tree(),
                 ngram_prompt_lookup_max=self.ngram_prompt_lookup_max,
-                ngram_prompt_lookup_min=self.ngram_prompt_lookup_min)
+                ngram_prompt_lookup_min=self.ngram_prompt_lookup_min,
+                acceptance_method=self.spec_acceptance_method)
         return EngineConfig(
             model=self.model_config(),
             cache=CacheConfig(page_size=self.block_size,

@@ -23,10 +23,13 @@ incrementally) and fills ``RequestOutput.text``; ``logprobs`` > 1 returns
 the top-n alternatives of each position sampled by a prefill or an AR step
 (a speculative round's positions get None, as in the JAX package). Every
 request carries a ``tracing.RequestTrace``; ``stat_loggers`` receive one
-``metrics.Stats`` a step. Still refused: grammar-guided decoding (ROADMAP
-queue 1 item 7), and ``repetition_penalty`` and a per-request ``seed`` for
-sampled requests, which the JAX package accepts and ignores (no sampler
-applies them).
+``metrics.Stats`` a step. ``guided_regex`` / ``guided_json`` /
+``guided_choice`` compile to a token FSM (``qspec_tpu_torch/guided/``) over
+``grammar_vocab`` (token id -> bytes), or over the tokenizer's vocabulary
+(``hf_vocab_bytes``), whose table the rounds read on the device (not with
+the Medusa candidate tree, as in the JAX package). Still refused:
+``repetition_penalty`` and a per-request ``seed`` for sampled requests,
+which the JAX package accepts and ignores (no sampler applies them).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from qspec_tpu_torch.detokenizer import DetokState, detokenize_incrementally
 from qspec_tpu_torch.engine.metrics import Stats
 from qspec_tpu_torch.engine.model_runner import (ModelRunner, make_sampling_tensors,
                                                  ring_pages, ring_rows)
+from qspec_tpu_torch.guided import GrammarCompiler, hf_vocab_bytes
 from qspec_tpu_torch.models.llama import check_served, resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.sampling_params import SamplingParams
@@ -104,18 +108,30 @@ def _check_supported(config: EngineConfig) -> None:
         if spec.force_accept_len is not None and not (qspec and spec.force_accept_len >= 0):
             raise ValueError("force_accept_len (>= 0) times the QSpec rounds "
                              "(method='qspec' / 'qspec_null')")
+        if spec.acceptance_method != "rejection_sampler" and not qspec:
+            # the JAX package reads it in the QSpec rounds only
+            raise ValueError(f"acceptance_method={spec.acceptance_method!r} decides the "
+                             "QSpec rounds (method='qspec' / 'qspec_null')")
     if config.scheduler.preemption_mode != "recompute":
         raise NotImplementedError("only recompute preemption is ported")
+
+
+def _guided(sp: SamplingParams) -> bool:
+    return bool(sp.guided_regex or sp.guided_json is not None or sp.guided_choice)
 
 
 class LLMEngine:
     def __init__(self, config: EngineConfig, params, num_pages: Optional[int] = None,
                  eos_token_id: Optional[int] = None, device="cuda", seed: int = 0,
-                 draft_params=None, tokenizer=None):
+                 draft_params=None, tokenizer=None, grammar_vocab=None):
         _check_supported(config)
         self.config = config
         self.eos_token_id = eos_token_id
         self.tokenizer = tokenizer
+        # token id -> emitted bytes, for grammar-guided decoding; derived
+        # from the tokenizer at the first guided request if not given
+        self._grammar_vocab = grammar_vocab
+        self._grammar_compiler = None
         self.device = resolve_device(device)
         self.spec = config.speculative
         lookahead = ((self.spec.num_speculative_tokens + 1)
@@ -198,9 +214,17 @@ class LLMEngine:
         """Raise for a request option the port does not serve (what
         ``add_request`` refuses); it changes no state, so a caller on another
         thread may call it while a step runs."""
-        if sp.guided_regex or sp.guided_json is not None or sp.guided_choice:
-            raise NotImplementedError("guided decoding is not ported (ROADMAP "
-                                      "queue 1 item 7)")
+        if _guided(sp):
+            if self.spec is not None and self.spec.medusa_tree is not None:
+                raise ValueError("guided decoding does not compose with the "
+                                 "medusa candidate tree (medusa_tree); use the "
+                                 "single-chain medusa rounds")
+            if self._grammar_vocab is None and (self.tokenizer is None or not hasattr(
+                    self.tokenizer, "get_vocab")):
+                raise ValueError("guided decoding needs a tokenizer or grammar_vocab "
+                                 "(token-id -> bytes) at engine construction"
+                                 + ("" if self.tokenizer is None else
+                                    "; the tokenizer has no get_vocab"))
         if sp.stop and self.tokenizer is None:
             # the token ids cannot be matched against text without one
             raise NotImplementedError("stop strings need a tokenizer (LLMEngine "
@@ -218,13 +242,28 @@ class LLMEngine:
                     request_id: Optional[int] = None) -> int:
         sp = sampling_params or SamplingParams()
         self.check_request(sp)
+        fsm = None
+        if _guided(sp):
+            gc = self._get_grammar_compiler()
+            if sp.guided_regex:
+                fsm = gc.from_regex(sp.guided_regex)
+            elif sp.guided_json is not None:
+                fsm = gc.from_json_schema(sp.guided_json)
+            else:
+                fsm = gc.from_choice(sp.guided_choice)
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
-        self.scheduler.add_seq(Sequence(seq_id=rid,
-                                        prompt_token_ids=list(prompt_token_ids),
-                                        sampling_params=sp))
+        self.scheduler.add_seq(Sequence(seq_id=rid, prompt_token_ids=list(prompt_token_ids),
+                                        sampling_params=sp, grammar_fsm=fsm))
         self._traces[rid] = RequestTrace()
         return rid
+
+    def _get_grammar_compiler(self) -> GrammarCompiler:
+        if self._grammar_compiler is None:
+            if self._grammar_vocab is None:
+                self._grammar_vocab = hf_vocab_bytes(self.tokenizer)
+            self._grammar_compiler = GrammarCompiler(self._grammar_vocab, self.eos_token_id)
+        return self._grammar_compiler
 
     def abort_request(self, request_id: int) -> None:
         """Drop a request wherever it is (waiting or running) and release
@@ -371,7 +410,7 @@ class LLMEngine:
             st = self.runner.sampling_tensors(
                 make_sampling_tensors([c[0] for c in chunks],
                                       self.config.model.vocab_size,
-                                      self.eos_token_id),
+                                      self.eos_token_id, self.runner.stack_grammars),
                 len(chunks), logits.shape[0])
             want_top = self._wants_top([chunks[i][0] for i in completing])
             toks, lps, top = self.runner.sample_tokens(logits, st, want_top=want_top)
@@ -406,7 +445,7 @@ class LLMEngine:
         if not seqs:
             return
         st = make_sampling_tensors(seqs, self.config.model.vocab_size,
-                                   self.eos_token_id)
+                                   self.eos_token_id, self.runner.stack_grammars)
         tokens, lps, top = self.runner.run_decode(seqs, st, want_top=self._wants_top(seqs))
         for i, s in enumerate(seqs):
             s.append_token(int(tokens[0, i]), float(lps[0, i]),
@@ -417,7 +456,8 @@ class LLMEngine:
     def _chain_for(self, seqs: List[Sequence], per_call: int) -> int:
         """How many fused calls to issue back to back without reading tokens
         in between. Only safe when no host-side control depends on
-        mid-chain tokens (EOS, stop tokens or strings, penalties force 1); overshoot
+        mid-chain tokens (EOS, stop tokens or strings, penalties, a grammar,
+        whose state the host walks, force 1); overshoot
         past max_tokens is budget-masked on the device. Pages for the whole
         chain must be reservable up front."""
         MAXCHAIN = 8
@@ -425,7 +465,7 @@ class LLMEngine:
         for s in seqs:
             sp = s.sampling_params
             if ((not sp.ignore_eos and self.eos_token_id is not None)
-                    or sp.stop or sp.stop_token_ids
+                    or sp.stop or sp.stop_token_ids or s.grammar_fsm is not None
                     or sp.presence_penalty or sp.frequency_penalty):
                 return 1
             rem = max(rem, sp.max_tokens - len(s.output_token_ids))
@@ -443,7 +483,7 @@ class LLMEngine:
             return
         k = self.spec.num_speculative_tokens
         st = make_sampling_tensors(seqs, self.config.model.vocab_size,
-                                   self.eos_token_id)
+                                   self.eos_token_id, self.runner.stack_grammars)
         per_call = (k + 1) * self.spec.rounds_per_step
         chain = 1 if mixed else self._chain_for(seqs, per_call)
         t0 = time.perf_counter()
@@ -471,6 +511,14 @@ class LLMEngine:
             s.output_token_ids.extend(toks_list)
             s.output_logprobs.extend(lps[:, i, :].reshape(-1)[valid].tolist())
             s.output_top_logprobs.extend([None] * len(toks_list))
+            if s.grammar_fsm is not None and s.grammar_state >= 0:
+                # the host's copy of the state the rounds carried
+                ns = s.grammar_fsm.next_state
+                for t in toks_list:
+                    if s.grammar_state < 0:
+                        break
+                    if 0 <= t < ns.shape[1]:
+                        s.grammar_state = int(ns[s.grammar_state, t])
             s.num_computed_tokens = s.num_tokens - 1
             s.truncate_stop_overshoot(self.eos_token_id)
         emitted = int(accepted.sum())

@@ -45,6 +45,14 @@ tokens appended to the row, all inside ``ngram_rounds_step``.
 All control flow inside a step (token advancement, accepted lengths, budgets)
 stays in tensors on the device, so a fused call reads nothing back until the
 caller asks for the tokens.
+
+Grammar-guided decoding rides every path but the Medusa tree, as in the JAX
+package: the batch's token-FSM tables sit on the device
+(``SamplingTensors.grammar_next``) and each row's automaton state is a
+device tensor that the steps carry. QSpec's draft masks its backfill and
+every draft step; every verify masks position i by the state reached
+through drafts 0..i-1; and each rounds loop advances the state through the
+tokens a round emitted (``_grammar_advance_emitted``).
 """
 
 from __future__ import annotations
@@ -62,10 +70,10 @@ from qspec_tpu_torch.models.llama import (AttentionBatch, check_served, compute_
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import TreeMask, tree_mask
 from qspec_tpu_torch.ops.ngram import ngram_match_device
-from qspec_tpu_torch.ops.sampling import (SamplingTensors, rejection_sample,
+from qspec_tpu_torch.ops.sampling import (SamplingTensors, grammar_advance, rejection_sample,
                                           rejection_sample_onehot, sample,
                                           sample_with_logprob, sampling_probs,
-                                          top_logprobs)
+                                          top_logprobs, typical_acceptance_sample)
 from qspec_tpu_torch.spec_decode.eagle import eagle_cfg_for, eagle_layer_step, fuse_features
 from qspec_tpu_torch.spec_decode.medusa import medusa_propose, medusa_propose_tree
 from qspec_tpu_torch.spec_decode.medusa_tree import TreeSpec, build_tree
@@ -75,6 +83,8 @@ from qspec_tpu_torch.spec_decode.mlp_speculator import mlp_speculator_propose
 # the top-n alternatives computed when a request asks for logprobs > 1: the
 # JAX package's TOPN; a request's dict holds its first ``logprobs`` of them
 TOPN = 20
+# compiled grammars whose transition tables a runner keeps on its device
+GRAMMAR_TABLES = 32
 
 
 def _slot_of(block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -126,7 +136,10 @@ def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
     """Autoregressive decode: one token per sequence. last_tokens [B] (not
     yet processed), start_pos [B] = their positions. Returns
     (next_tokens [B], logprobs [B], cache); with ``num_top`` > 0 also the
-    top-n alternatives (values [B, n], ids [B, n]) before the cache."""
+    top-n alternatives (values [B, n], ids [B, n]) before the cache. A
+    guided row samples under the grammar state of ``st.grammar_state``: one
+    step a call, so the host's per-sequence state (advanced as each token is
+    appended) is the state the step starts from."""
     pos = start_pos[:, None]
     slot = _slot_of(block_tables, pos, cache.page_size)
     batch = AttentionBatch(positions=pos, slot_mapping=slot,
@@ -140,8 +153,24 @@ def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
     return next_tokens, lp, cache
 
 
+def _grammar_advance_emitted(st, g, toks):
+    """Advance grammar states through one round's emitted tokens (toks
+    [B, k+1], -1 past the accepted length)."""
+    if g is None:
+        return None
+    for i in range(toks.shape[1]):
+        t = toks[:, i]
+        g = torch.where(t >= 0, grammar_advance(st, g, t.clamp_min(0)), g)
+    return g
+
+
+def _entry_states(st):
+    # the grammar states the rounds carry: None when no row is guided
+    return st.grammar_state if st.grammar_next is not None else None
+
+
 def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
-                *, cfg, scheme, k, prev_tokens=None):
+                *, cfg, scheme, k, prev_tokens=None, gstate=None):
     """k sequential draft forwards; returns (tokens [B, k], probs [B, k, V],
     cache).
 
@@ -151,8 +180,14 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
     round, so a fully accepted round would leave a hole in the draft cache
     that later draft attention reads. Rows at start_pos == 0 send the
     phantom query's KV write to the null page; its output is discarded.
+
+    ``gstate`` [B]: the grammar states at ``start_pos`` (default the
+    call-entry states); the backfill's sample and every draft step's are
+    masked by the grammar and advance it, so the proposals stay inside it.
     """
     page_size = cache.page_size
+    if gstate is None:
+        gstate = _entry_states(st)
     first_k = k
     toks0 = probs0 = None
     if prev_tokens is not None:
@@ -165,8 +200,9 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
                                ctx_lens=start_pos + 1)
         t2 = torch.stack([prev_tokens, last_tokens], dim=1)
         logits, cache = model_forward(params, cfg, t2, cache, batch, scheme=scheme)
-        probs0 = sampling_probs(logits[:, 1], st)
-        toks0 = sample(logits[:, 1], st, gen)
+        probs0 = sampling_probs(logits[:, 1], st, gstate)
+        toks0 = sample(logits[:, 1], st, gen, gstate)
+        gstate = grammar_advance(st, gstate, toks0)
         last_tokens, start_pos = toks0, start_pos + 1
         first_k = k - 1
 
@@ -179,8 +215,9 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
                                block_tables=block_tables, ctx_lens=pos + 1)
         logits, cache = model_forward(params, cfg, tok[:, None], cache, batch,
                                       scheme=scheme)
-        probs.append(sampling_probs(logits[:, 0], st))
-        tok = sample(logits[:, 0], st, gen)
+        probs.append(sampling_probs(logits[:, 0], st, gstate))
+        tok = sample(logits[:, 0], st, gen, gstate)
+        gstate = grammar_advance(st, gstate, tok)
         toks.append(tok)
         pos = pos + 1
     if toks0 is not None:
@@ -207,10 +244,17 @@ def _repeat_rows(st: SamplingTensors, n: int) -> SamplingTensors:
 
 
 def _verify_impl(params, cache, last_tokens, draft_tokens, draft_probs, start_pos,
-                 block_tables, st, gen, *, cfg, scheme, return_hidden=False):
+                 block_tables, st, gen, *, cfg, scheme, return_hidden=False,
+                 acceptance="rejection_sampler", gstate=None):
     """Score [last, d_1..d_k] in one pass and rejection-sample. ``draft_probs``
-    None: deterministic proposals (Medusa), verified by the one-hot rule.
-    ``return_hidden``: ((result, hidden [B, k+1, H]), cache)."""
+    None: deterministic proposals (Medusa), verified by the one-hot rule;
+    ``acceptance="typical_acceptance_sampler"``: the lossy typical rule.
+    ``return_hidden``: ((result, hidden [B, k+1, H]), cache).
+
+    Under a grammar, position i's target distribution is masked by the state
+    reached from ``gstate`` (default the call-entry states) through drafts
+    0..i-1; a nulled proposal (-1) advances as token 0, as in the JAX
+    package (the position is rejected whatever its state)."""
     B, k = draft_tokens.shape
     tokens = torch.cat([last_tokens[:, None], draft_tokens], dim=1)  # [B, k+1]
     positions = start_pos[:, None] + torch.arange(k + 1, device=start_pos.device)[None, :]
@@ -221,9 +265,20 @@ def _verify_impl(params, cache, last_tokens, draft_tokens, draft_probs, start_po
                         return_hidden=return_hidden)
     logits, cache = out[0], out[-1]
     V = logits.shape[-1]
-    target_probs = sampling_probs(logits.reshape(B * (k + 1), V), _repeat_rows(st, k + 1))
+    if gstate is None:
+        gstate = _entry_states(st)
+    pos_states = None
+    if gstate is not None:
+        states = [gstate]
+        for i in range(k):
+            states.append(grammar_advance(st, states[-1], draft_tokens[:, i].clamp_min(0)))
+        pos_states = torch.stack(states, dim=1).reshape(B * (k + 1))
+    target_probs = sampling_probs(logits.reshape(B * (k + 1), V), _repeat_rows(st, k + 1),
+                                  pos_states)
     target_probs = target_probs.reshape(B, k + 1, V)
-    if draft_probs is None:
+    if acceptance == "typical_acceptance_sampler":
+        result = typical_acceptance_sample(draft_tokens, target_probs)
+    elif draft_probs is None:
         result = rejection_sample_onehot(draft_tokens, target_probs, gen)
     else:
         result = rejection_sample(draft_tokens, draft_probs, target_probs, gen)
@@ -244,7 +299,7 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
                      start_pos, block_tables, draft_block_tables, max_new,
                      enable: bool, st, gen, *, cfg, draft_scheme, verify_scheme,
                      k, num_rounds=1, draft_cfg=None, draft_params=None,
-                     force_accept=None):
+                     force_accept=None, acceptance="rejection_sampler"):
     """``num_rounds`` full QSpec rounds (k drafts + verify + rejection).
 
     ``draft_params`` / ``draft_cfg``: a separate draft model's (None: the
@@ -258,6 +313,8 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     round's accepted length becomes min(force_accept + 1, k + 1) whatever
     the verify decided, and the emitted slots past the real acceptance
     (-1) become token 0; every draft and verify forward still runs.
+    ``acceptance``: SpeculativeConfig.acceptance_method. A guided row's
+    grammar state is carried across the rounds on the device.
 
     ``max_new`` [B] caps the tokens emitted per sequence. ``enable=False``
     nulls every proposal (tokens -> -1, draft probs -> 0, so the recovery
@@ -271,17 +328,18 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     d_params = params if draft_params is None else draft_params
     d_cfg = cfg if draft_cfg is None else draft_cfg
     last, prev, pos, budget = last_tokens, prev_tokens, start_pos, max_new
+    g = _entry_states(st)
     out_t, out_a, out_l = [], [], []
     for _ in range(num_rounds):
         d_toks, d_probs, draft_cache = _draft_impl(
             d_params, draft_cache, last, pos, draft_block_tables, st, gen,
-            cfg=d_cfg, scheme=draft_scheme, k=k, prev_tokens=prev)
+            cfg=d_cfg, scheme=draft_scheme, k=k, prev_tokens=prev, gstate=g)
         if not enable:
             d_toks = torch.full_like(d_toks, -1)
             d_probs = torch.zeros_like(d_probs)
         result, cache = _verify_impl(params, cache, last, d_toks, d_probs, pos,
                                      block_tables, st, gen, cfg=cfg,
-                                     scheme=verify_scheme)
+                                     scheme=verify_scheme, acceptance=acceptance, gstate=g)
         if force_accept is not None:
             result = result._replace(
                 accepted_len=torch.full_like(result.accepted_len, min(force_accept + 1, k + 1)),
@@ -297,6 +355,7 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
         last = new_last
         pos = pos + acc
         budget = budget - acc
+        g = _grammar_advance_emitted(st, g, toks)
         out_t.append(toks)
         out_a.append(acc)
         out_l.append(lps)
@@ -343,13 +402,14 @@ def ngram_rounds_step(params, cache, history, hist_rows, hist_len, last_tokens,
     trash = history.shape[1] - 1
     last, pos, hlen, budget = last_tokens, start_pos, hist_len, max_new
     slots = torch.arange(k + 1, device=last.device)[None, :]
+    g = _entry_states(st)
     out_t, out_a, out_l = [], [], []
     for _ in range(num_rounds):
         props = ngram_match_device(history[rows, :trash], hlen, k=k, nmin=nmin, nmax=nmax)
         if not enable:
             props = torch.full_like(props, -1)
         result, cache = _verify_impl(params, cache, last, props, None, pos, block_tables,
-                                     st, gen, cfg=cfg, scheme=scheme)
+                                     st, gen, cfg=cfg, scheme=scheme, gstate=g)
         acc, toks, lps, last = _advance(result, budget, last, k)
         # append the emitted tokens to each row; the slots past a round's
         # tokens (and past the bank's end) go to the trash column
@@ -357,6 +417,7 @@ def ngram_rounds_step(params, cache, history, hist_rows, hist_len, last_tokens,
         cols = torch.where((slots < acc[:, None]) & (cols < trash), cols, trash)
         history.index_put_((rows[:, None].expand_as(cols), cols), toks.to(history.dtype))
         pos, hlen, budget = pos + acc, hlen + acc, budget - acc
+        g = _grammar_advance_emitted(st, g, toks)
         out_t.append(toks)
         out_a.append(acc)
         out_l.append(lps)
@@ -388,6 +449,7 @@ def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
     """
     rows = prop_rows.to(torch.int64)
     last, pos, budget = last_tokens, start_pos, max_new
+    g = _entry_states(st)
     out_t, out_a, out_l = [], [], []
     for _ in range(num_rounds):
         p_b = props[rows][:, :k]
@@ -395,7 +457,7 @@ def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
             p_b = torch.full_like(p_b, -1)
         (result, hidden), cache = _verify_impl(params, cache, last, p_b, None, pos,
                                                block_tables, st, gen, cfg=cfg,
-                                               scheme=scheme, return_hidden=True)
+                                               scheme=scheme, return_hidden=True, gstate=g)
         acc, toks, lps, new_last = _advance(result, budget, last, k)
         idx = (acc - 1).clamp_min(0).to(torch.int64)[:, None]
         h_star = hidden.gather(1, idx[:, :, None].expand(-1, 1, hidden.shape[-1]))[:, 0]
@@ -405,6 +467,7 @@ def medusa_rounds_step(params, cache, props, prop_rows, last_tokens, start_pos,
             new_p = medusa_propose(params["medusa"], h_star)
         props[rows] = torch.where((budget > 0)[:, None], new_p, props[rows])
         last, pos, budget = new_last, pos + acc, budget - acc
+        g = _grammar_advance_emitted(st, g, toks)
         out_t.append(toks)
         out_a.append(acc)
         out_l.append(lps)
@@ -471,7 +534,9 @@ def _verify_tree_impl(params, cache, recent_tokens, tree_tokens, start_pos,
                                           tree=tree.mask)
     n = T + 1
     lg = logits[:, prefix - 1:]                                       # [B, 1+T, V]
-    samp, lp = sample_with_logprob(lg.reshape(B * n, lg.shape[-1]), _repeat_rows(st, n), gen)
+    # the tree does not compose with guided decoding (LLMEngine refuses it)
+    samp, lp = sample_with_logprob(lg.reshape(B * n, lg.shape[-1]),
+                                   _repeat_rows(st, n)._replace(grammar_next=None), gen)
     return samp.reshape(B, n), lp.reshape(B, n), hidden[:, prefix - 1:], cache
 
 
@@ -615,6 +680,7 @@ def eagle_rounds_step(params, draft_cache, cache, espan_h, espan_t, espan_pos, e
     dev = budget.device
     span_w = k + 1
     H = h_span.shape[-1]
+    g = _entry_states(st)
     out_t, out_a, out_l = [], [], []
     for _ in range(num_rounds):
         pos = span_pos + span_len               # the position of the pending last token
@@ -644,7 +710,7 @@ def eagle_rounds_step(params, draft_cache, cache, espan_h, espan_t, espan_pos, e
         # (3) verify under the one-hot rule
         (result, hidden), cache = _verify_impl(params, cache, last, torch.stack(props, 1),
                                                None, pos, block_tables, st, gen, cfg=cfg,
-                                               scheme=scheme, return_hidden=True)
+                                               scheme=scheme, return_hidden=True, gstate=g)
         acc, toks, lps, _ = _advance(result, budget, last, k)
         # (4) the next span: the true hidden states at pos .. pos + k paired
         # with the emitted tokens
@@ -655,6 +721,7 @@ def eagle_rounds_step(params, draft_cache, cache, espan_h, espan_t, espan_pos, e
         span_pos = torch.where(active, pos, span_pos)
         span_len = torch.where(active, acc.to(span_len.dtype), span_len)
         budget = budget - acc
+        g = _grammar_advance_emitted(st, g, toks)
         out_t.append(toks)
         out_a.append(acc)
         out_l.append(lps)
@@ -861,6 +928,9 @@ class ModelRunner:
             # a float draft model runs the bf16 scheme
             self.draft_scheme = "bf16"
         self.force_accept = spec.force_accept_len if spec else None
+        self.acceptance = spec.acceptance_method if spec else "rejection_sampler"
+        # the grammars' transition tables on the device (grammar_table)
+        self._gtables: dict = {}
         # the target's scheme: bf16 for a float checkpoint, else W4A16
         self.verify_scheme = "bf16" if self.cfg.quant == "none" else "w4a16"
         # verify passes run by run_medusa_rounds / run_ngram_rounds /
@@ -954,9 +1024,45 @@ class ModelRunner:
             out[i, :n] = t[:n]
         return self._t(out)
 
+    def grammar_table(self, fsm) -> torch.Tensor:
+        """A compiled TokenFSM's transition table [S, V] int32 on the device,
+        copied there once per grammar (the last GRAMMAR_TABLES used are
+        kept; the GrammarCompiler hands out one object a grammar). A
+        vocabulary shorter than the model's (a tokenizer's against a padded
+        embedding) bans the ids past its end."""
+        key = id(fsm)
+        hit = self._gtables.pop(key, None)
+        if hit is None or hit[0] is not fsm:
+            ns = fsm.next_state
+            V = self.cfg.vocab_size
+            if ns.shape[1] > V:
+                raise ValueError(f"the grammar's vocabulary has {ns.shape[1]} tokens, the "
+                                 f"model {V}")
+            table = torch.full((ns.shape[0], V), -1, dtype=torch.int32, device=self.device)
+            table[:, :ns.shape[1]] = torch.as_tensor(ns, dtype=torch.int32, device=self.device)
+            hit = (fsm, table)
+        self._gtables[key] = hit           # most recently used last
+        while len(self._gtables) > GRAMMAR_TABLES:
+            self._gtables.pop(next(iter(self._gtables)))
+        return hit[1]
+
+    def stack_grammars(self, fsms) -> torch.Tensor:
+        """The batch's distinct grammars stacked on the device, [G, S, V]
+        int32, the state axis padded with -1 to the largest automaton (a
+        copy on the device; a single grammar is its resident table)."""
+        tables = [self.grammar_table(f) for f in fsms]
+        if len(tables) == 1:
+            return tables[0][None]
+        out = torch.full((len(tables), max(t.shape[0] for t in tables), tables[0].shape[1]),
+                         -1, dtype=torch.int32, device=self.device)
+        for i, t in enumerate(tables):
+            out[i, :t.shape[0]] = t
+        return out
+
     def sampling_tensors(self, st: SamplingTensors, n: int, bucket: int) -> SamplingTensors:
         """Pad host (numpy) sampling knobs to the bucket and move them to the
-        device."""
+        device (``grammar_next`` is there already: ``stack_grammars``);
+        padded lanes are unguided."""
         def pad(x, fill, dtype):
             arr = np.full(bucket, fill, dtype)
             arr[:n] = np.asarray(x)[:n]
@@ -971,12 +1077,18 @@ class ModelRunner:
             bb = np.zeros((bucket, st.logit_bias.shape[1]), np.float32)
             bb[:n] = np.asarray(st.logit_bias)[:n]
             bias = torch.as_tensor(bb, device=self.device)
+        gnext = gidx = gstate = None
+        if st.grammar_next is not None:
+            gnext = st.grammar_next
+            gidx = pad(st.grammar_idx, -1, np.int32)
+            gstate = pad(st.grammar_state, 0, np.int32)
         return SamplingTensors(
             temperature=pad(st.temperature, 0.0, np.float32),
             top_k=pad(st.top_k, 0, np.int32),
             top_p=pad(st.top_p, 1.0, np.float32),
             min_p=pad(st.min_p, 0.0, np.float32),
-            vocab_mask=mask, logit_bias=bias, needs_filter=st.needs_filter)
+            vocab_mask=mask, logit_bias=bias, needs_filter=st.needs_filter,
+            grammar_next=gnext, grammar_idx=gidx, grammar_state=gstate)
 
     # -- phases -----------------------------------------------------------
     def run_prefill_chunks(self, chunks, *, draft: bool = False) -> torch.Tensor:
@@ -1077,7 +1189,8 @@ class ModelRunner:
                 d_tables, state[3], enable, st, self.gen, cfg=self.cfg,
                 draft_scheme=self.draft_scheme, verify_scheme=self.verify_scheme,
                 k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg,
-                draft_params=self.draft_params, force_accept=self.force_accept)
+                draft_params=self.draft_params, force_accept=self.force_accept,
+                acceptance=self.acceptance)
             parts.append((toks, accs, lps))
         n = len(seqs)
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()
@@ -1319,11 +1432,18 @@ class ModelRunner:
 
 
 def make_sampling_tensors(seqs, vocab_size: Optional[int] = None,
-                          eos_token_id: Optional[int] = None) -> SamplingTensors:
+                          eos_token_id: Optional[int] = None,
+                          grammar_tables=None) -> SamplingTensors:
     """Batch the per-sequence knobs on the host (numpy); builds a [B, V]
     vocab mask only when a row carries allowed/banned token sets or a
     min-tokens EOS suppression, and a logit bias only for penalties and
-    logit_bias."""
+    logit_bias.
+
+    Guided rows (``seq.grammar_fsm``): the batch's distinct grammars, by
+    object identity, stacked [G, S, V] on the device by ``grammar_tables``
+    (``ModelRunner.stack_grammars``: the state axis padded by -1 to the
+    largest automaton), each row's grammar index (-1: unguided) and
+    state."""
     mask = None
     if vocab_size is not None:
         need = any(s.sampling_params.allowed_token_ids
@@ -1364,6 +1484,20 @@ def make_sampling_tensors(seqs, vocab_size: Optional[int] = None,
                     t = int(tok)
                     if 0 <= t < vocab_size:
                         bias[i, t] += float(b)
+    gnext = gidx = gstate = None
+    if any(s.grammar_fsm is not None for s in seqs):
+        fsms, which = [], []
+        for s in seqs:
+            f = s.grammar_fsm
+            if f is None:
+                which.append(-1)
+                continue
+            if all(f is not g for g in fsms):
+                fsms.append(f)
+            which.append(next(i for i, g in enumerate(fsms) if g is f))
+        gnext = grammar_tables(fsms)
+        gidx = np.asarray(which, np.int32)
+        gstate = np.asarray([s.grammar_state for s in seqs], np.int32)
     sps = [s.sampling_params for s in seqs]
     needs_filter = any(sp.top_k > 0 or sp.top_p < 1.0 or sp.min_p > 0.0
                        for sp in sps)
@@ -1372,4 +1506,5 @@ def make_sampling_tensors(seqs, vocab_size: Optional[int] = None,
         top_k=np.array([sp.top_k for sp in sps], np.int32),
         top_p=np.array([sp.top_p for sp in sps], np.float32),
         min_p=np.array([sp.min_p for sp in sps], np.float32),
-        vocab_mask=mask, logit_bias=bias, needs_filter=needs_filter)
+        vocab_mask=mask, logit_bias=bias, needs_filter=needs_filter,
+        grammar_next=gnext, grammar_idx=gidx, grammar_state=gstate)

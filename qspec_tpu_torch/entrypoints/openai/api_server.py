@@ -10,14 +10,17 @@ wire format is the reference's:
 - ``GET /health``, ``GET /v1/models``, ``GET /metrics`` (Prometheus text
   when ``prometheus_client`` imports, else 501);
 - ``POST /v1/completions`` and ``/v1/chat/completions`` (``n`` choices,
-  stop strings, top-n logprobs, tools without a forced choice, streaming
-  with incremental detokenization ending in ``data: [DONE]``);
+  stop strings, top-n logprobs, ``guided_regex`` / ``guided_json`` /
+  ``guided_choice``, tools, a forced tool choice decoded under the grammar
+  of ``forced_call_schema``, streaming with incremental detokenization
+  ending in ``data: [DONE]``);
 - ``POST /tokenize`` and ``/detokenize``.
 
 The routes of modules not ported answer 501 with the ROADMAP item that
 ports them: ``/v1/embeddings``, ``/v1/score``, ``/score``,
 ``/v1/audio/transcriptions`` and the LoRA routes. A request option the
-engine refuses (``LLMEngine.check_request``) is a 400 with its message.
+engine refuses (``LLMEngine.check_request``, or a grammar that does not
+compile in ``add_request``) is a 400 with its message.
 
     python -m qspec_tpu_torch.scripts serve --model llama3-8b \\
         --num-speculative-tokens 3 --port 8000
@@ -41,6 +44,7 @@ from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.engine.async_engine import AsyncEngineDeadError, AsyncLLMEngine
 from qspec_tpu_torch.entrypoints.llm import chat_token_ids
 from qspec_tpu_torch.entrypoints.openai.tool_parser import (StreamingToolParser,
+                                                            forced_call_schema,
                                                             parse_tool_calls,
                                                             tools_system_message)
 from qspec_tpu_torch.sampling_params import SamplingParams
@@ -319,9 +323,10 @@ class OpenAIServer:
 
     # ------------------------------------------------------------ requests
     def _sampling(self, body: dict) -> SamplingParams:
-        """The reference's request fields, plus those the port refuses
-        (``repetition_penalty``, the guided ones), so that a request never
-        has an option silently dropped."""
+        """The reference's request fields, the guided ones among them, plus
+        those the port refuses (``repetition_penalty``, a sampled request's
+        ``seed``), so that a request never has an option silently
+        dropped."""
         banned, bias = None, None
         try:
             if body.get("logit_bias"):
@@ -411,10 +416,25 @@ class OpenAIServer:
             return sp
         return dataclasses.replace(sp, seed=sp.seed + j)
 
+    async def _generate(self, token_ids, sp):
+        """The engine's outputs of one request; a request ``add_request``
+        refuses (a guided pattern or schema that does not compile) is a
+        400 with its message, raised before anything is sent."""
+        outs = self.engine.generate(token_ids, sp, request_id=next(self._request_counter))
+        try:
+            try:
+                first = await outs.__anext__()
+            except ValueError as e:
+                raise HTTPError(400, str(e)) from e
+            yield first
+            async for out in outs:
+                yield out
+        finally:
+            await outs.aclose()
+
     async def _generate_one(self, token_ids, sp):
         final = None
-        async for out in self.engine.generate(token_ids, sp,
-                                              request_id=next(self._request_counter)):
+        async for out in self._generate(token_ids, sp):
             final = out
         return final
 
@@ -466,9 +486,6 @@ class OpenAIServer:
                 m["content"] = "".join(p["text"] for p in parts)
         if not tools or tool_choice == "none":
             return chat_token_ids(tok, messages)
-        if tool_choice == "required" or isinstance(tool_choice, dict):
-            raise HTTPError(400, "a forced tool choice needs grammar-guided decoding, "
-                                 "which is not ported (ROADMAP queue 1 item 7)")
         # a chat template that does not use `tools` silently drops the
         # keyword: look for it in the template's source
         if "tools" in str(getattr(tok, "chat_template", None) or ""):
@@ -485,6 +502,17 @@ class OpenAIServer:
         want_tools = bool(tools) and tool_choice != "none"
         token_ids = self._chat_ids(messages, tools, tool_choice)
         sp = self._sampling(body)
+        # a forced tool choice ("required" or a named function) is decoded
+        # under the JSON grammar of the call, so it parses by construction
+        forced = tools and (tool_choice == "required" or isinstance(tool_choice, dict))
+        if forced:
+            name = (tool_choice.get("function", {}).get("name")
+                    if isinstance(tool_choice, dict) else None)
+            try:
+                sp.guided_json = forced_call_schema(tools, name)
+            except (KeyError, TypeError, AttributeError, ValueError) as e:
+                raise HTTPError(400, f"bad tools / tool_choice: {e!r}") from e
+            self._check(sp)
         tool_names = [t.get("function", t).get("name") for t in (tools or ())]
         n = self._n(body)
         cid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
@@ -501,6 +529,10 @@ class OpenAIServer:
             finish = final.finish_reason
             if want_tools:
                 content, calls = parse_tool_calls(final.text, tool_names)
+                if forced and not calls:
+                    # the grammar makes the call parse, but max_tokens can
+                    # cut it half-way
+                    raise HTTPError(400, "forced tool call truncated; raise max_tokens")
                 if calls:
                     msg = {"role": "assistant", "content": content, "tool_calls": calls}
                     finish = "tool_calls"
@@ -544,8 +576,7 @@ class OpenAIServer:
                                         "finish_reason": finish}]}
             await events.send(json.dumps(payload))
 
-        async for out in self.engine.generate(token_ids, sp,
-                                              request_id=next(self._request_counter)):
+        async for out in self._generate(token_ids, sp):
             if out.finished:
                 text = out.text
             elif tok is not None:

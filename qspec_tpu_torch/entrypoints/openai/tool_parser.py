@@ -5,9 +5,9 @@ canonical wire format, the hermes-style
 ``<tool_call>{"name": ..., "arguments": {...}}</tool_call>`` block, plus a
 permissive extractor that also accepts a bare JSON object and mistral's
 ``[TOOL_CALLS]`` array. A forced tool choice ("required" or a named
-function) needs grammar-guided decoding, which the port does not have
-(ROADMAP queue 1 item 7): the server answers it with HTTP 400, so the JAX
-package's ``forced_call_schema`` is not copied.
+function) rides grammar-guided decoding (``qspec_tpu_torch/guided/``): the
+server compiles ``forced_call_schema`` into the request's ``guided_json``,
+so the emitted call parses by construction.
 """
 
 from __future__ import annotations
@@ -35,6 +35,28 @@ def tools_system_message(tools: List[dict]) -> dict:
              for t in tools]
     return {"role": "system",
             "content": SYSTEM_TEMPLATE.format(tools="\n".join(specs))}
+
+
+def forced_call_schema(tools: List[dict], name: Optional[str] = None) -> dict:
+    """JSON schema for a guided (grammar-constrained) tool call.
+
+    name=None -> any of the listed tools (tool_choice="required");
+    name=str  -> exactly that tool (named tool_choice). The schema feeds
+    SamplingParams.guided_json, so the emitted call parses by construction.
+    """
+    def one(t):
+        fn = t.get("function", t)
+        return {"type": "object",
+                "properties": {"name": {"const": fn["name"]},
+                               "arguments": fn.get("parameters", {"type": "object"})},
+                "required": ["name", "arguments"]}
+
+    picked = [t for t in tools if name is None or t.get("function", t).get("name") == name]
+    if not picked:
+        raise ValueError(f"tool_choice names unknown tool {name!r}")
+    if len(picked) == 1:
+        return one(picked[0])
+    return {"anyOf": [one(t) for t in picked]}
 
 
 def _call_payload(obj: dict) -> Optional[dict]:

@@ -1,7 +1,9 @@
-"""Sampling: top-k/p/min-p filters, seeded draws, and the lossless speculative
-rejection sampler.
+"""Sampling: top-k/p/min-p filters, seeded draws, the grammar masks of guided
+decoding, the lossless speculative rejection sampler and typical acceptance.
 
-Port of ``qspec_tpu/ops/sampling.py`` (grammar-guided decoding is not ported).
+Port of ``qspec_tpu/ops/sampling.py``. The grammar mask and advance are a
+gather from the stacked token-FSM tables and a ``where``, as there (XLA code
+outside any Pallas body in the JAX package).
 Random draws come from an explicit ``torch.Generator``; the rejection
 sampler's uniforms may be injected instead. A generator and a JAX key give
 different numbers, so sampled paths are held against the JAX package by
@@ -26,6 +28,14 @@ class SamplingTensors(NamedTuple):
     uses them. ``needs_filter`` is worked out on the host when the tensors
     are built: False skips the full-vocabulary sorts of the top-k/top-p/min-p
     filters (no row asks for them) without reading the card.
+
+    Grammar-guided decoding (``qspec_tpu_torch/guided/``): ``grammar_next``
+    stacks the token-FSM transition tables of the batch's distinct grammars
+    (-1 = banned), ``grammar_idx`` is each row's grammar (-1 = unguided) and
+    ``grammar_state`` each row's automaton state at call entry. The rounds
+    advance copies of the states on the device; the host advances each
+    sequence's own by walking its emitted tokens. All three are None when no
+    row is guided.
     """
 
     temperature: torch.Tensor  # [B] f32; 0 => greedy
@@ -35,6 +45,39 @@ class SamplingTensors(NamedTuple):
     vocab_mask: Optional[torch.Tensor] = None
     logit_bias: Optional[torch.Tensor] = None
     needs_filter: bool = True
+    grammar_next: Optional[torch.Tensor] = None   # [G, S, V] int32
+    grammar_idx: Optional[torch.Tensor] = None    # [B] int32
+    grammar_state: Optional[torch.Tensor] = None  # [B] int32
+
+
+def _grammar_index(st: SamplingTensors, gstate: torch.Tensor):
+    """(guided [R] bool, grammar [R], state [R]) for per-row states, the
+    indices clamped into the table; the verify scores k+1 positions a
+    sequence, so ``gstate`` may have B*(k+1) rows against the [B]
+    ``grammar_idx``."""
+    gidx = _per_row(st.grammar_idx, gstate.shape[0])
+    guided = (gidx >= 0) & (gstate >= 0)
+    return guided, gidx.clamp_min(0).to(torch.int64), gstate.clamp_min(0).to(torch.int64)
+
+
+def grammar_mask(st: SamplingTensors, gstate: Optional[torch.Tensor]):
+    """[R, V] bool allowed-mask, or None when unguided. A dead state
+    (gstate < 0, reachable only if the vocabulary cannot realize the
+    grammar) degrades to unconstrained rather than masking everything."""
+    if st.grammar_next is None or gstate is None:
+        return None
+    guided, g, s = _grammar_index(st, gstate)
+    return (st.grammar_next[g, s] >= 0) | ~guided[:, None]
+
+
+def grammar_advance(st: SamplingTensors, gstate: Optional[torch.Tensor],
+                    tokens: torch.Tensor):
+    """Advance each row's automaton by one emitted token (one table entry a
+    row is read, not the row's [V] slice)."""
+    if st.grammar_next is None or gstate is None:
+        return gstate
+    guided, g, s = _grammar_index(st, gstate)
+    return torch.where(guided, st.grammar_next[g, s, tokens.to(torch.int64)], gstate)
 
 
 def _apply_top_k(logits, top_k):
@@ -73,25 +116,44 @@ def _per_row(arr, rows):
     return arr
 
 
-def _masked_logits(logits, st):
+def _masked_logits(logits, st, gm=None):
     lf = logits.to(torch.float32)
     if st.logit_bias is not None:
         lf = lf + _per_row(st.logit_bias, lf.shape[0])
     if st.vocab_mask is not None:
         lf = torch.where(_per_row(st.vocab_mask, lf.shape[0]), lf,
                          torch.full_like(lf, NEG_INF))
+    if gm is not None:
+        lf = torch.where(gm, lf, torch.full_like(lf, NEG_INF))
     return lf
 
 
-def sampling_probs(logits: torch.Tensor, st: SamplingTensors) -> torch.Tensor:
+def _row_states(st, gstate, rows):
+    # the call-entry states unless the caller carries its own
+    if gstate is None and st.grammar_state is not None:
+        return _per_row(st.grammar_state, rows)
+    return gstate
+
+
+def sampling_probs(logits: torch.Tensor, st: SamplingTensors,
+                   gstate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits [R, V] -> post-filter sampling distribution [R, V] (f32).
 
     Greedy rows (temperature 0) give the one-hot of the argmax, which makes
     rejection sampling reduce exactly to 'accept iff the argmax matches' —
     the invariant behind greedy spec == greedy AR.
+
+    ``gstate`` [R]: each row's grammar state (default: the call-entry states
+    of ``st.grammar_state``; the rounds pass their carried copy, the verify
+    one state a scored position).
     """
+    return _sampling_probs(logits, st, grammar_mask(st, _row_states(st, gstate,
+                                                                    logits.shape[0])))
+
+
+def _sampling_probs(logits, st, gm):
     rows = logits.shape[0]
-    lf = _masked_logits(logits, st)
+    lf = _masked_logits(logits, st, gm)
     temp_raw = _per_row(st.temperature, rows)
     temp = torch.where(temp_raw > 0, temp_raw, torch.ones_like(temp_raw))
     lf = lf / temp[:, None]
@@ -100,26 +162,29 @@ def sampling_probs(logits: torch.Tensor, st: SamplingTensors) -> torch.Tensor:
         lf = _apply_top_p(lf, _per_row(st.top_p, rows))
         lf = _apply_min_p(lf, _per_row(st.min_p, rows))
     probs = torch.softmax(lf, dim=-1)
-    greedy_src = lf if (st.vocab_mask is not None or st.logit_bias is not None) \
-        else logits
+    greedy_src = lf if (st.vocab_mask is not None or st.logit_bias is not None
+                        or gm is not None) else logits
     onehot = torch.nn.functional.one_hot(greedy_src.argmax(dim=-1),
                                          logits.shape[-1]).to(torch.float32)
     return torch.where((temp_raw == 0)[:, None], onehot, probs)
 
 
 def sample(logits: torch.Tensor, st: SamplingTensors,
-           gen: Optional[torch.Generator] = None) -> torch.Tensor:
+           gen: Optional[torch.Generator] = None,
+           gstate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample one token per row. [B, V] -> [B] int32."""
-    return sample_with_logprob(logits, st, gen)[0]
+    return sample_with_logprob(logits, st, gen, gstate)[0]
 
 
 def sample_with_logprob(logits: torch.Tensor, st: SamplingTensors,
-                        gen: Optional[torch.Generator] = None):
+                        gen: Optional[torch.Generator] = None,
+                        gstate: Optional[torch.Tensor] = None):
     """[B, V] -> ([B] int32 tokens, [B] f32 logprob of the chosen token under
-    the unfiltered softmax)."""
-    probs = sampling_probs(logits, st)
+    the unfiltered softmax). ``gstate`` as in :func:`sampling_probs`."""
+    gm = grammar_mask(st, _row_states(st, gstate, logits.shape[0]))
+    probs = _sampling_probs(logits, st, gm)
     sampled = torch.multinomial(probs, 1, generator=gen)[:, 0]
-    greedy = _masked_logits(logits, st).argmax(dim=-1)
+    greedy = _masked_logits(logits, st, gm).argmax(dim=-1)
     toks = torch.where(st.temperature == 0, greedy, sampled).to(torch.int32)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     chosen = logp.gather(-1, toks.to(torch.int64)[:, None])[:, 0]
@@ -139,6 +204,48 @@ class RejectionResult(NamedTuple):
     accepted_len: torch.Tensor      # [B] int32 in [1, k+1]: accepted draft + 1
     num_draft_accepted: torch.Tensor  # [B] int32 in [0, k]
     token_logprobs: torch.Tensor    # [B, k+1] f32 log p_target(token), 0 past len
+
+
+def typical_acceptance_sample(draft_tokens: torch.Tensor, target_probs: torch.Tensor,
+                              posterior_threshold: float = 0.09,
+                              posterior_alpha: float = 0.3) -> RejectionResult:
+    """Typical acceptance (the reference's
+    layers/typical_acceptance_sampler.py): accept d_i while p_target(d_i)
+    exceeds min(threshold, alpha * exp(-H(p_i))); at the first failure emit
+    argmax(p) there (after k accepts, argmax(p_k)). Lossy, draws nothing.
+    A -1 slot carries no proposal and is never accepted. Port of
+    ``qspec_tpu/ops/sampling.py:typical_acceptance_sample``.
+
+    draft_tokens [B, k]; target_probs [B, k+1, V].
+    """
+    B, k = draft_tokens.shape
+    dev = target_probs.device
+    V = target_probs.shape[-1]
+    d = draft_tokens.to(torch.int64)
+    p_k = target_probs[:, :k]
+    p_at_d = p_k.gather(-1, d.clamp_min(0)[..., None])[..., 0]               # [B, k]
+    ent = -(p_k * torch.log(p_k.clamp_min(1e-30))).sum(dim=-1)
+    thresh = torch.minimum(torch.full_like(ent, posterior_threshold),
+                           posterior_alpha * torch.exp(-ent))
+    accept = (p_at_d > thresh) & (d >= 0)
+
+    rejected = ~accept
+    any_rej = rejected.any(dim=1)
+    first_rej = rejected.to(torch.int32).argmax(dim=1)
+    n_acc = torch.where(any_rej, first_rej, torch.full_like(first_rej, k))
+    p_next = target_probs.gather(1, n_acc.to(torch.int64)[:, None, None].expand(B, 1, V))[:, 0]
+    final_tok = p_next.argmax(dim=-1)
+
+    slots = torch.arange(k + 1, device=dev)[None, :]
+    padded = torch.cat([d, torch.full((B, 1), -1, dtype=torch.int64, device=dev)], 1)
+    n_acc64 = n_acc.to(torch.int64)[:, None]
+    out = torch.where(slots < n_acc64, padded, torch.full_like(padded, -1))
+    out = torch.where(slots == n_acc64, final_tok[:, None], out)
+    p_at_out = target_probs.gather(-1, out.clamp_min(0)[..., None])[..., 0]
+    logp = torch.where(out >= 0, torch.log(p_at_out.clamp_min(1e-30)),
+                       torch.zeros_like(p_at_out))
+    return RejectionResult(out.to(torch.int32), (n_acc + 1).to(torch.int32),
+                           n_acc.to(torch.int32), logp.to(torch.float32))
 
 
 def rejection_sample(draft_tokens: torch.Tensor, draft_probs: torch.Tensor,

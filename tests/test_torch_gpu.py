@@ -1291,6 +1291,41 @@ def test_proposers_at_8b_width_on_card(gen, method):
     assert spec == _greedy(_engine(cfg, params, oracle, **sched), prompts, 24)
 
 
+def test_guided_qspec_at_8b_width_on_card(gen):
+    """chip_smoke.py's (I1) W4A4 case at Llama-3-8B widths cut to 2 layers
+    (random int4 weights made on the card, int8 head): the regex, JSON
+    schema, choice and unguided requests over the byte-level vocabulary at
+    V = 128256, greedy QSpec (k = 3) == qspec_null under the same grammars,
+    every guided output walks its FSM, the grammar tables sit on the card,
+    and only the QuaRot kernels launch."""
+    import dataclasses
+    import chip_smoke as cs
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    from qspec_tpu_torch.guided import GrammarCompiler
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = dataclasses.replace(ModelConfig.llama3_8b(), num_layers=2)
+    params = init_params(cfg, seed=0, device="cuda")
+    vocab = cs.guided_vocab(cfg.vocab_size)
+    sps, fsms = cs.guided_requests(GrammarCompiler(vocab, cs.GUIDED_EOS), 24)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 128000, size=int(n)).tolist() for n in (64, 100, 150, 192)]
+
+    def make(method):
+        return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=128),
+                                      scheduler=SchedulerConfig(max_num_seqs=4,
+                                                                max_model_len=512),
+                                      speculative=SpeculativeConfig(num_speculative_tokens=3,
+                                                                    method=method)),
+                         params, device="cuda", grammar_vocab=vocab,
+                         eos_token_id=cs.GUIDED_EOS)
+    oracle, _, _, _, _ = cs.guided_run(make, "qspec_null", prompts, sps)
+    spec, launches, _, _, probe = cs.guided_run(make, "qspec", prompts, sps, count=True)
+    assert spec == oracle and all(len(t) == 24 for t in spec)
+    assert all(cs.fsm_walk(f, t) >= 0 for f, t in zip(fsms, spec) if f is not None)
+    assert probe.devices == {"cuda"} and set(launches) == cs.QUAROT_KERNELS
+
+
 def _to_cpu(t):
     """A copy of a tensor tree (dicts, QuantizedActivation) on the CPU."""
     if isinstance(t, torch.Tensor):

@@ -55,9 +55,11 @@ def test_port_imports_no_jax():
     bad, port = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
     # every module was imported, the checkpoint loaders' (the float and
-    # QSpec Llama loaders among them), Medusa's, EAGLE's, MLPSpeculator's
-    # and the n-gram matcher's
-    assert {"qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
+    # QSpec Llama loaders among them), Medusa's, EAGLE's, MLPSpeculator's,
+    # the n-gram matcher's and the grammar compiler's
+    assert {"qspec_tpu_torch.guided", "qspec_tpu_torch.guided.regex_dfa",
+            "qspec_tpu_torch.guided.json_schema", "qspec_tpu_torch.guided.tokenfsm",
+            "qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
             "qspec_tpu_torch.model_loader.families", "qspec_tpu_torch.model_loader.loader",
             "qspec_tpu_torch.ops.linear_kernels", "qspec_tpu_torch.ops.ngram",
             "qspec_tpu_torch.engine.model_runner", "qspec_tpu_torch.ops.hadamard",

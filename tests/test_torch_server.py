@@ -343,6 +343,61 @@ def test_same_answers_as_the_jax_server(weights):
                 assert gt == wt
 
 
+# ------------------------------------------------- forced tool choices
+
+class VocabTokenizer(FakeTokenizer):
+    """FakeTokenizer with a vocabulary that hf_vocab_bytes reads: id 0 the
+    EOS special, ids 1..95 the printable ASCII characters, and a decode
+    that gives each id's character; the model's other ids map to nothing."""
+
+    all_special_ids = [0]
+    CHARS = [chr(c) for c in range(32, 127)]
+    vocab_size = len(CHARS) + 1
+
+    def get_vocab(self):
+        return {"</s>": 0, **{c: i + 1 for i, c in enumerate(self.CHARS)}}
+
+    def convert_tokens_to_string(self, toks):
+        return "".join(toks)
+
+    def encode(self, s):
+        return [ord(c) - 31 if 32 <= ord(c) < 127 else 1 for c in s][:32]
+
+    def decode(self, ids):
+        return "".join(self.CHARS[i - 1] for i in ids if 1 <= i <= len(self.CHARS))
+
+
+@pytest.mark.parametrize("choice", [
+    "required", {"type": "function", "function": {"name": "f"}}],
+    ids=["tool_required", "tool_named"])
+def test_forced_tool_choice_is_served(weights, choice):
+    """A forced tool choice ("required" or a named function) is decoded
+    under the grammar of its call (forced_call_schema): the reply's
+    tool_calls parse, streamed or not. Served where a vocabulary is (these
+    cases answered 400 while guided decoding was not ported)."""
+    tools = [{"type": "function", "function": {"name": "f"}},
+             {"type": "function", "function": {"name": "g", "parameters": {
+                 "type": "object", "properties": {"x": {"enum": [1, 2]}},
+                 "required": ["x"]}}}]
+    body = {"messages": [{"role": "user", "content": "hi"}], "tools": tools,
+            "tool_choice": choice, "temperature": 0.0, "max_tokens": 40}
+    with ServerThread(make_server(weights, tokenizer=VocabTokenizer(),
+                                  max_model_len=1024)) as st:
+        status, data = post(st.port, "/v1/chat/completions", body)
+        assert status == 200, data
+        c = data["choices"][0]
+        assert c["finish_reason"] == "tool_calls"
+        fn = c["message"]["tool_calls"][0]["function"]
+        assert fn in ({"name": "f", "arguments": "{}"}, {"name": "g", "arguments": '{"x":1}'},
+                      {"name": "g", "arguments": '{"x":2}'})
+        if isinstance(choice, dict):
+            assert fn["name"] == "f"
+        chunks = stream(st.port, "/v1/chat/completions", {**body, "stream": True})
+        calls = [ch["choices"][0]["delta"]["tool_calls"][0]["function"] for ch in chunks
+                 if "tool_calls" in ch["choices"][0]["delta"]]
+        assert calls == [fn] and chunks[-1]["choices"][0]["finish_reason"] == "tool_calls"
+
+
 # ------------------------------------------------- what the port refuses
 
 def test_not_ported_routes_answer_501(weights):
@@ -360,13 +415,10 @@ def test_not_ported_routes_answer_501(weights):
     ({"temperature": 0.8, "seed": 3}, "seed"),
     ({"guided_regex": "a+"}, "guided decoding"),
     ({"temperature": -1.0}, "temperature"),
-    ({"tools": [{"type": "function", "function": {"name": "f"}}],
-      "tool_choice": "required"}, "item 7"),
-    ({"tools": [{"type": "function", "function": {"name": "f"}}],
-      "tool_choice": {"type": "function", "function": {"name": "f"}}}, "item 7"),
-], ids=["repetition_penalty", "sampled_seed", "guided", "bad_temperature",
-        "tool_required", "tool_named"])
+], ids=["repetition_penalty", "sampled_seed", "guided", "bad_temperature"])
 def test_refused_options_answer_400(weights, body, match):
+    """The guided case: FakeTokenizer has no vocabulary (get_vocab) and the
+    server no grammar_vocab, so the engine's ValueError is the answer."""
     with ServerThread(make_server(weights)) as st:
         chat = "tools" in body
         path = "/v1/chat/completions" if chat else "/v1/completions"
