@@ -179,14 +179,32 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    directory with its q/k/v biases and a QuarotLlamaForCausalLM one,
    written from (H2)'s parameters and loading to them bit for bit, and an
    AWQ directory at Qwen2-7B's widths routed by its quant_method, each ==
-   its oracle (phase_quarot_dirs; the kernel line's ``dense_launches``).
+   its oracle (phase_quarot_dirs; the kernel line's ``dense_launches``);
+19. the llama graph under other key names and the float families (J): the
+   attention at Qwen-7B's MHA, Falcon-7B's 71 query heads over one KV head
+   and Falcon-40B's group 16 at D=64 (stored 128-padded), ALiBi at 40 heads
+   and at falcon-rw's D=64; matmul_w4a16 / matmul_w4a4 at one Qwen-7B
+   layer (K = 11008); the int8 head at J_HEADS, against their plain
+   versions, and timed (check_remap_shapes, time_remap_shapes; the kernel
+   line's ``j_times``); (J1) InternLM2.5-7B at full width and depth, random
+   bf16 made on the card in InternLM2's keys, remapped and quantized by
+   quantize_float there, LLM(model=<config.json dir>, params=...), QSpec
+   (k = 3) at W4A4 and W4A8 == qspec_null in check_moe_counts' counts
+   (phase_internlm2_7b); (J2) Baichuan-7B, Baichuan2-7B, Qwen-7B,
+   EXAONE-3.0-7.8B and TeleChat2-7B directories (published widths, 2
+   layers, their own keys) remapped and quantized at load, W4A4 QSpec ==
+   qspec_null (phase_remap_dirs); (J3) Baichuan2-13B, JAIS-13B,
+   falcon-rw-7b, Falcon-7B and Falcon-40B directories in bf16, n-gram ==
+   null, Baichuan2-13B refused under QuaRot by its width
+   (phase_float_dirs; the kernel line's ``remap_launches``).
 
 It prints the kernel summary as one JSON line (each kernel's summary
-fields, and its times at Qwen2-7B's shapes, ``qwen2_7b``: ms, plain ms,
-bound ms, library ms) and, last, the device JSON line. Every line also
+fields, its times at Qwen2-7B's shapes, ``qwen2_7b``, and at (J)'s,
+``j_times``: ms, plain ms, bound ms, library ms) and, last, the device JSON
+line. Every line also
 goes to chiprun_out/chip_smoke.log, which alone has the per-case detail the
 standard output gives in short (the kernels line with every field and its
-launches in the paths of phases 12-18, the kernels' full `-Xptxas -v`
+launches in the paths of phases 12-19, the kernels' full `-Xptxas -v`
 summary, each tiny forward check, each long attention check, each
 grouped-GEMM shape's time).
 """
@@ -4503,6 +4521,540 @@ def phase_quarot_dirs(kept: dict, smi: str):
     return out
 
 
+# (J) the llama graph under other key names (LLAMA_KEY_REMAPS) and the
+# float families: each family's reference checkpoint's published
+# config.json fields. Fields marked "recalled" are written from memory of
+# the published file, not read from it (no copy is in the repository)
+INTERNLM25_7B_HF = dict(
+    architectures=["InternLM2ForCausalLM"], model_type="internlm2", bias=False,
+    hidden_act="silu", hidden_size=4096, intermediate_size=14336,
+    max_position_embeddings=32768, num_attention_heads=32, num_hidden_layers=32,
+    num_key_value_heads=8, rms_norm_eps=1e-05, rope_scaling={"type": "dynamic", "factor": 2.0},
+    rope_theta=1000000, tie_word_embeddings=False, vocab_size=92544)
+REMAP_DIRS = {
+    "baichuan-7b": dict(
+        architectures=["BaiChuanForCausalLM"], model_type="baichuan", hidden_act="silu",
+        hidden_size=4096, intermediate_size=11008, max_position_embeddings=4096,
+        num_attention_heads=32, num_hidden_layers=32, rms_norm_eps=1e-06,
+        tie_word_embeddings=False, vocab_size=64000),
+    # rope (hidden 4096), the NormHead of vocab 125696
+    "baichuan2-7b": dict(
+        architectures=["BaichuanForCausalLM"], model_type="baichuan", hidden_act="silu",
+        hidden_size=4096, intermediate_size=11008, max_position_embeddings=4096,
+        model_max_length=4096, num_attention_heads=32, num_hidden_layers=32,
+        rms_norm_eps=1e-06, tie_word_embeddings=False, vocab_size=125696),
+    # intermediate_size is twice the MLP's (the reader halves it);
+    # max_position_embeddings recalled
+    "qwen-7b": dict(
+        architectures=["QWenLMHeadModel"], model_type="qwen", hidden_size=4096,
+        intermediate_size=22016, kv_channels=128, layer_norm_epsilon=1e-06,
+        max_position_embeddings=32768, no_bias=True, num_attention_heads=32,
+        num_hidden_layers=32, rotary_emb_base=10000, rotary_pct=1.0, seq_length=8192,
+        tie_word_embeddings=False, use_dynamic_ntk=True, use_logn_attn=True,
+        vocab_size=151936),
+    "exaone-3.0-7.8b": dict(
+        architectures=["ExaoneForCausalLM"], model_type="exaone", activation_function="silu",
+        hidden_size=4096, intermediate_size=14336, layer_norm_epsilon=1e-05,
+        max_position_embeddings=4096, num_attention_heads=32, num_key_value_heads=8,
+        num_layers=32, rope_theta=500000.0, tie_word_embeddings=False, vocab_size=102400),
+    # n_layer, ffn_hidden_size and vocab_size recalled
+    "telechat2-7b": dict(
+        architectures=["TeleChat2ForCausalLM"], model_type="telechat", hidden_size=4096,
+        ffn_hidden_size=12288, layer_norm_epsilon=1e-05, n_head=32, n_layer=30,
+        seq_length=8192, tie_word_embeddings=False, vocab_size=131072),
+}
+FLOAT_DIRS = {
+    # ALiBi (hidden 5120), MLP width 13696 = 2^7 x 107: bf16 only
+    "baichuan2-13b": dict(
+        architectures=["BaichuanForCausalLM"], model_type="baichuan", hidden_act="silu",
+        hidden_size=5120, intermediate_size=13696, model_max_length=4096,
+        num_attention_heads=40, num_hidden_layers=40, rms_norm_eps=1e-06,
+        tie_word_embeddings=False, vocab_size=125696),
+    # n_inner, embeddings_scale and width_scale recalled
+    "jais-13b": dict(
+        architectures=["JAISLMHeadModel"], model_type="jais", activation_function="swiglu",
+        embeddings_scale=14.6, layer_norm_epsilon=1e-05, n_embd=5120, n_head=40,
+        n_inner=13653, n_layer=40, n_positions=2048, position_embedding_type="alibi",
+        scale_qk_dot_by_d=True, vocab_size=84992, width_scale=0.0390625),
+    "falcon-rw-7b": dict(
+        architectures=["FalconForCausalLM"], model_type="falcon", alibi=True, bias=True,
+        hidden_size=4096, layer_norm_epsilon=1e-05, multi_query=False,
+        new_decoder_architecture=False, num_attention_heads=64, num_hidden_layers=36,
+        parallel_attn=False, vocab_size=65024),
+    "falcon-7b": dict(
+        architectures=["FalconForCausalLM"], model_type="falcon", alibi=False, bias=False,
+        hidden_size=4544, layer_norm_epsilon=1e-05, multi_query=True,
+        new_decoder_architecture=False, num_attention_heads=71, num_hidden_layers=32,
+        parallel_attn=True, vocab_size=65024),
+    "falcon-40b": dict(
+        architectures=["FalconForCausalLM"], model_type="falcon", alibi=False, bias=False,
+        hidden_size=8192, layer_norm_epsilon=1e-05, new_decoder_architecture=True,
+        num_attention_heads=128, num_hidden_layers=60, num_kv_heads=8, parallel_attn=True,
+        vocab_size=65024),
+}
+J_LAYERS = 2
+# one Qwen-7B layer's projections (K, N): qkv with the bias (3 x 4096), o,
+# gate_up (2 x 11008) and down (K = 11008); 32 heads over 32 KV heads
+QWEN_7B_PROJ = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
+                "down": (11008, 4096)}
+# the attention shapes (J) brings, (label, Hq, Hkv, head dim, ALiBi slopes'
+# scale or None): Qwen-7B's MHA, Falcon-7B's 71 heads over one KV head and
+# Falcon-40B's 16 a group at D=64 (stored 128-padded), Baichuan2-13B's and
+# JAIS-13B's ALiBi at 40 heads, falcon-rw's at D=64 with Falcon's 1 / sqrt(d)
+J_ATTN = (("mha-32", 32, 32, 128, None), ("group71-d64", 71, 1, 64, None),
+          ("group16-d64", 16, 1, 64, None), ("alibi-40", 40, 40, 128, 1.0),
+          ("alibi-64-d64", 64, 64, 64, 0.125))
+# the int8 heads (K, N) of (J)'s vocabularies
+J_HEADS = {"internlm2": (4096, 92544), "qwen": (4096, 151936), "baichuan2": (4096, 125696),
+           "exaone": (4096, 102400), "telechat2": (4096, 131072)}
+
+
+def _j_attn(gen, q_len, Hq, Hkv, D, B=4):
+    """(J)'s attention inputs: _attn_inputs' contexts over a 128-wide cache
+    (a head dim of 64 is stored padded, as ModelConfig.cache_head_dim has
+    it), q at the model's head dim."""
+    q, cache, tables, ctx = _attn_inputs(gen, q_len, B=B, Hq=Hq, Hkv=Hkv)
+    return q[..., :D].contiguous(), cache, tables, ctx
+
+
+def _j_slopes(Hq: int, scale_alibi):
+    """The ALiBi slopes of J_ATTN's entry on the card (times Falcon's
+    1 / sqrt(d) where it has one), or None."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes
+    if scale_alibi is None:
+        return None
+    return torch.as_tensor(alibi_slopes(Hq) * np.float32(scale_alibi), device="cuda")
+
+
+def _j_attn_call(q, cache, tables, ctx, D, slopes, plain=False):
+    """The attention as the model calls it (ops.attention.paged_attention:
+    q padded to the cache's 128 lanes, the output sliced back), or its
+    plain version on the same padded inputs."""
+    from qspec_tpu_torch.ops.attention import paged_attention, paged_attention_ref
+    scale = D ** -0.5
+    if plain:
+        qp = torch.nn.functional.pad(q, (0, 128 - D))
+        return paged_attention_ref(qp, cache, 1, tables, ctx, scale, alibi=slopes)[..., :D]
+    return paged_attention(q, cache, 1, tables, ctx, scale, alibi=slopes)
+
+
+def check_remap_shapes(gen, report):
+    """(J) the kernels at the shapes its families bring, against their plain
+    versions: the attention at J_ATTN (Q = 1 and 4, the verify's contexts),
+    each ALiBi output moved by its bias; matmul_w4a16 (2e-2) and matmul_w4a4
+    (bit for bit, int4 and int8 activations) at one Qwen-7B layer (K up to
+    11008), M = 4 and 16, read in place from a layer stack; the int8 head
+    through compute_logits at J_HEADS (2e-2)."""
+    from qspec_tpu_torch.models.llama import _make_lm_head, compute_logits
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
+    err = {"paged_attention": 0.0, "matmul_w4a16": 0.0, "matmul_w8a16": 0.0}
+    for label, Hq, Hkv, D, alibi in J_ATTN:
+        for q_len in (1, 4):
+            q, cache, tables, ctx = _j_attn(gen, q_len, Hq, Hkv, D)
+            slopes = _j_slopes(Hq, alibi)
+            out = _j_attn_call(q, cache, tables, ctx, D, slopes)
+            ref = _j_attn_call(q, cache, tables, ctx, D, slopes, plain=True)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+            err["paged_attention"] = max(err["paged_attention"],
+                                         (out.float() - ref.float()).abs().max().item())
+            if alibi is not None and torch.allclose(
+                    out.float(), _j_attn_call(q, cache, tables, ctx, D, None).float(),
+                    atol=3e-2):
+                raise AssertionError(f"(J) attention {label} Q={q_len}: ALiBi moves nothing")
+            del q, cache
+    for k, n in QWEN_7B_PROJ.values():
+        qw = torch.empty(2, k // 8, n, dtype=torch.int32, device="cuda")
+        qs = torch.empty(2, n, device="cuda")
+        for li in range(2):
+            qw[li], qs[li] = _w4(gen, k, n)
+        for m in DENSE_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out = lk.matmul_w4a16(x, qw, qs, layer_idx=1)
+            ref = lk.matmul_w4a16_ref(x, qw[1], qs[1])
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+            err["matmul_w4a16"] = max(err["matmul_w4a16"],
+                                      (out.float() - ref.float()).abs().max().item())
+            for xq in (sym_quant_int4(x), sym_quant_int8(x)):
+                if not torch.equal(lk.matmul_w4a4(xq.values, xq.scales, qw, qs, layer_idx=1),
+                                   lk.matmul_w4a4_ref(xq.values, xq.scales, qw[1], qs[1])):
+                    raise AssertionError(f"(J) matmul_w4a4 K={k} N={n} M={m}: not bit-equal "
+                                         "to its plain version")
+        del qw, qs
+    for label, (k, n) in J_HEADS.items():
+        head = _make_lm_head(torch.randn(k, n, generator=gen, device="cuda") * 0.05, "int8")
+        for m in DENSE_M:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out = compute_logits(x, head, n)
+            ref = lk.matmul_w8a16_ref(x, head["qw8"][:, :n], head["qs"][:n],
+                                      out_dtype=torch.float32)
+            torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+            err["matmul_w8a16"] = max(err["matmul_w8a16"], (out - ref).abs().max().item())
+        del head
+    torch.cuda.empty_cache()
+    for name, e in err.items():
+        report[name]["j_max_err"] = e
+    log("check (J) shapes: attention " + ", ".join(a[0] for a in J_ATTN) + " (Q=1,4; ALiBi "
+        "moves each output), w4a16 / w4a4 (bit-equal) at Qwen-7B's projections M=4,16, int8 "
+        f"heads {sorted(n for _, n in J_HEADS.values())}: max_abs_err "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}, separators=(",", ":")))
+
+
+def time_remap_shapes(gen, report, int4pack_missing):
+    """(J)'s kernel times beside their plain versions, library calls and
+    bounds, inputs rotated past L2: matmul_w4a16 and matmul_w4a4 per Qwen-7B
+    layer at M = 4 and 16; the attention at the verify (B = 4, Q = 4, the
+    verify's contexts, bf16 cache) at Qwen-7B's MHA, Falcon-7B's group 71 at
+    D=64 (its cache stored 128 wide; the bound counts the D lanes the
+    attention needs, the padding is the kernel's excess) and Baichuan2-13B's
+    ALiBi at 40 heads. report[kernel]["j_times"]: label ->
+    [ms, plain_ms, bound_ms, library_ms]."""
+    rows = {}
+    for name in ("matmul_w4a16", "matmul_w4a4"):
+        for m in DENSE_M:
+            r = time_w4_layer(gen, name, m, shapes=tuple(QWEN_7B_PROJ.values()),
+                              library=name == "matmul_w4a4" or int4pack_missing is None)
+            rows[(name, f"qwen-7b layer M={m}")] = r
+    for label, Hq, Hkv, D, alibi in J_ATTN:
+        if label not in ("mha-32", "group71-d64", "alibi-40"):
+            continue
+        live = _ctx_lens(4)
+        stored = sum(live) * Hkv * 128 * 2 * 2
+        rot = Rotating(lambda Hq=Hq, Hkv=Hkv, D=D: _j_attn(gen, 4, Hq, Hkv, D), stored)
+        q0, _, tables, _ = rot.sets[0]
+        slopes = _j_slopes(Hq, alibi)
+
+        def kern(D=D, slopes=slopes):
+            _j_attn_call(*rot.next(), D, slopes)
+
+        def plain(D=D, slopes=slopes):
+            _j_attn_call(*rot.next(), D, slopes, plain=True)
+        needed = sum(live) * Hkv * D * 2 * 2
+        nbytes = 2 * q0.numel() * 2 + needed + tables.numel() * 4 + 8 * 4 + (
+            4 * Hq if alibi else 0)
+        seen = sum(sum(c - 4 + i + 1 for i in range(4)) for c in live)
+        b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+        rows[("paged_attention", label)] = dict(
+            ms=graph_ms(kern, reps=max(20, len(rot.sets))), plain_ms=graph_ms(plain, reps=3),
+            bound_ms=b, bound_by=kind, library_ms=None)
+        del rot, q0, tables
+        torch.cuda.empty_cache()
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+    for (name, label), r in rows.items():
+        log(f"time (J) {name} {label}: " + ", ".join(
+            f"{f} {r[f]:.5f}" if r[f] is not None else f"{f} none" for f in fields)
+            + f" ({r['bound_by']})", stdout=False)
+        report[name].setdefault("j_times", {})[label] = [
+            float(f"{r[f]:.5g}") if r[f] is not None else None for f in fields]
+    log("time (J), ms kernel/bound: " + "; ".join(
+        f"{name} {label} {r['ms']:.4f}/{r['bound_ms']:.4f}" for (name, label), r in rows.items()))
+
+
+def internlm2_entries(cfg):
+    """InternLM2's checkpoint names and shapes: model.tok_embeddings, the
+    wqkv rows [nkv, q_per_group + 2, dh] (random, so any interleave is one
+    draw), attention.wo, feed_forward.w1 / w3 / w2, the untied output."""
+    H, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    out = [("model.tok_embeddings.weight", (V, H), "w")]
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        out += [(p + "attention_norm.weight", (H,), "gamma"),
+                (p + "attention.wqkv.weight", (cfg.qkv_out, H), "w"),
+                (p + "attention.wo.weight", (H, cfg.q_size), "w"),
+                (p + "ffn_norm.weight", (H,), "gamma"),
+                (p + "feed_forward.w1.weight", (I, H), "w"),
+                (p + "feed_forward.w3.weight", (I, H), "w"),
+                (p + "feed_forward.w2.weight", (H, I), "w")]
+    return out + [("model.norm.weight", (H,), "gamma"), ("output.weight", (V, H), "w")]
+
+
+def remap_entries(cfg, family: str):
+    """A family's checkpoint names and shapes in its own keys (norm gammas
+    1 + 0.1 N(0, 1); Qwen's c_attn bias, TeleChat2's o / down biases; the
+    float families' LayerNorm weights 1 + 0.1 N and biases, JAIS's Conv1D
+    weights [in, out])."""
+    if family == "internlm2":
+        return internlm2_entries(cfg)
+    H, V, I, L = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size, cfg.num_layers
+    q, kv = cfg.q_size, cfg.kv_size
+    if family == "baichuan":
+        out = [("model.embed_tokens.weight", (V, H), "w")]
+        for li in range(L):
+            p = f"model.layers.{li}."
+            out += [(p + "input_layernorm.weight", (H,), "gamma"),
+                    (p + "self_attn.W_pack.weight", (3 * H, H), "w"),
+                    (p + "self_attn.o_proj.weight", (H, H), "w"),
+                    (p + "post_attention_layernorm.weight", (H,), "gamma"),
+                    (p + "mlp.gate_proj.weight", (I, H), "w"),
+                    (p + "mlp.up_proj.weight", (I, H), "w"),
+                    (p + "mlp.down_proj.weight", (H, I), "w")]
+        return out + [("model.norm.weight", (H,), "gamma"), ("lm_head.weight", (V, H), "w")]
+    if family in ("qwen", "exaone", "telechat2"):
+        emb = {"telechat2": "transformer.word_embeddings.weight"}.get(family,
+                                                                      "transformer.wte.weight")
+        out = [(emb, (V, H), "w")]
+        for li in range(L):
+            p = f"transformer.h.{li}."
+            if family == "qwen":
+                out += [(p + "ln_1.weight", (H,), "gamma"),
+                        (p + "attn.c_attn.weight", (3 * H, H), "w"),
+                        (p + "attn.c_attn.bias", (3 * H,), "b"),
+                        (p + "attn.c_proj.weight", (H, H), "w"), (p + "ln_2.weight", (H,), "gamma"),
+                        (p + "mlp.w1.weight", (I, H), "w"), (p + "mlp.w2.weight", (I, H), "w"),
+                        (p + "mlp.c_proj.weight", (H, I), "w")]
+            elif family == "exaone":
+                a = p + "attn.attention."
+                out += [(p + "ln_1.weight", (H,), "gamma"), (a + "q_proj.weight", (q, H), "w"),
+                        (a + "k_proj.weight", (kv, H), "w"), (a + "v_proj.weight", (kv, H), "w"),
+                        (a + "out_proj.weight", (H, q), "w"), (p + "ln_2.weight", (H,), "gamma"),
+                        (p + "mlp.c_fc_0.weight", (I, H), "w"),
+                        (p + "mlp.c_fc_1.weight", (I, H), "w"),
+                        (p + "mlp.c_proj.weight", (H, I), "w")]
+            else:
+                s = p + "self_attention."
+                out += [(p + "input_layernorm.weight", (H,), "gamma"),
+                        (s + "query.weight", (q, H), "w"), (s + "key_value.weight", (2 * kv, H), "w"),
+                        (s + "dense.weight", (H, q), "w"), (s + "dense.bias", (H,), "b"),
+                        (p + "post_attention_layernorm.weight", (H,), "gamma"),
+                        (p + "mlp.gate_proj.weight", (I, H), "w"),
+                        (p + "mlp.up_proj.weight", (I, H), "w"),
+                        (p + "mlp.down_proj.weight", (H, I), "w"),
+                        (p + "mlp.down_proj.bias", (H,), "b")]
+        return out + [("transformer.ln_f.weight", (H,), "gamma"), ("lm_head.weight", (V, H), "w")]
+    ln = [("{}.weight", (H,), "gamma"), ("{}.bias", (H,), "b")]
+    if family == "jais":
+        out = [("transformer.wte.weight", (V, H), "w")]
+        for li in range(L):
+            p = f"transformer.h.{li}."
+            for n in ("ln_1", "ln_2"):
+                out += [(x.format(p + n), s, k) for x, s, k in ln]
+            for n, (k_in, n_out) in {"attn.c_attn": (H, 3 * H), "attn.c_proj": (H, H),
+                                     "mlp.c_fc": (H, I), "mlp.c_fc2": (H, I),
+                                     "mlp.c_proj": (I, H)}.items():
+                out += [(p + n + ".weight", (k_in, n_out), "w"), (p + n + ".bias", (n_out,), "b")]
+        return out + [(x.format("transformer.ln_f"), s, k) for x, s, k in ln]
+    # falcon: the fused rows [nkv, nh / nkv + 2, dh]; biases under
+    # linear_bias; ln_attn / ln_mlp under two norms, else input_layernorm
+    # (and falcon-rw's post_attention_layernorm)
+    out = [("transformer.word_embeddings.weight", (V, H), "w")]
+    bias = cfg.linear_bias
+    for li in range(L):
+        p = f"transformer.h.{li}."
+        norms = (("ln_attn", "ln_mlp") if cfg.parallel_norms == 2 else ("input_layernorm",)
+                 if cfg.parallel_block else ("input_layernorm", "post_attention_layernorm"))
+        for n in norms:
+            out += [(x.format(p + n), s, k) for x, s, k in ln]
+        for n, (n_out, k_in) in {"self_attention.query_key_value": (cfg.qkv_out, H),
+                                 "self_attention.dense": (H, q), "mlp.dense_h_to_4h": (I, H),
+                                 "mlp.dense_4h_to_h": (H, I)}.items():
+            out.append((p + n + ".weight", (n_out, k_in), "w"))
+            if bias:
+                out.append((p + n + ".bias", (n_out,), "b"))
+    return out + [(x.format("transformer.ln_f"), s, k) for x, s, k in ln]
+
+
+def phase_internlm2_7b(smi: str):
+    """(J1) InternLM2.5-7B at full width and depth (INTERNLM25_7B_HF: 32
+    layers, hidden 4096, intermediate 14336, 32 / 8 heads, vocab 92544, the
+    dynamic rope inside its window of 32768): a state dict of random bf16
+    made on the card in InternLM2's own keys (about 15.5 GB), remapped and
+    quantized there by quantize_float (seconds and peak GiB printed), then
+    LLM(model=<a directory holding only its config.json>, params=...) with
+    max_model_len 512, QSpec (k = 3) with the W4A4 and the W4A8 draft, each
+    against qspec_null on moe_prompts: tokens equal, exactly QUAROT_KERNELS
+    launched, in check_moe_counts' counts (4 x 32 matmul_w4a16 a verify
+    forward, 4 x 32 matmul_w4a4 a draft forward, 32 attention launches a
+    forward of either)."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.model_loader.loader import quantize_float
+    from qspec_tpu_torch.models.registry import resolve
+    cfg = resolve(INTERNLM25_7B_HF)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sd = random_state_dict(internlm2_entries(cfg), seed=70)
+    n_bytes = sum(t.numel() * 2 for t in sd.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qcfg = quantize_float(sd, cfg, device="cuda")
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+    if sd:
+        raise AssertionError(f"(J1) quantize_float left {len(sd)} tensors unconverted")
+    log(f"load (J1) internlm2.5-7b: {n_bytes / 1e9:.2f} GB bf16 in InternLM2's keys, remapped "
+        f"and quantized by quantize_float on the card in {secs:.2f} s, peak {peak:.2f} GiB")
+    prompts = moe_prompts(cfg.vocab_size)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_config(d, INTERNLM25_7B_HF)
+        for scheme in ("w4a4", "w4a8"):
+            tally = []
+
+            def make(method, p, scheme=scheme, tally=tally):
+                llm = LLM(model=d, params=p or params, device="cuda", seed=0,
+                          num_speculative_tokens=3, speculative_draft_scheme=scheme,
+                          speculative_method=method, max_model_len=512, max_num_seqs=4,
+                          num_pages=80)
+                if llm.engine_config.model != qcfg:
+                    raise AssertionError("(J1) the directory's config is not the quantized "
+                                         f"one: {llm.engine_config.model} vs {qcfg}")
+                tally.append(round_tally(llm.llm_engine))
+                return llm.llm_engine
+            name = f"(J1) internlm2.5-7b ({scheme} draft, int8 head, bf16 KV)"
+            torch.cuda.reset_peak_memory_stats()
+            spec, launches, _, summary = spec_vs_oracle(make, name, QUAROT_KERNELS, prompts, 32)
+            summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_moe_counts(name, qcfg, launches, summary, tally[0])
+            summary["verify_forwards_in_rounds"] = tally[0]["verify"]
+            e2e_log(name, prompts, spec, summary)
+            out[scheme] = (launches, summary)
+            torch.cuda.empty_cache()
+    moe_line("(J1) internlm2.5-7b, 32 layers", out,
+             f"; quantize_float {secs:.1f} s, peak {peak:.2f} GiB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"e2e (J1): card {smi}", stdout=False)
+    return out, {"load_s": secs, "load_peak_gib": peak}
+
+
+def _family_dir(d: str, hf: dict, cfg, family: str, seed: int) -> None:
+    sd = random_state_dict(remap_entries(cfg, family), seed=seed)
+    write_safetensors(os.path.join(d, "model.safetensors"), sd)
+    del sd
+    write_config(d, hf)
+
+
+def phase_remap_dirs(smi: str):
+    """(J2) LLM(model=<dir>) on Baichuan-7B, Baichuan2-7B, Qwen-7B,
+    EXAONE-3.0-7.8B and TeleChat2-7B directories (REMAP_DIRS: the published
+    config.json fields, num_hidden_layers cut to J_LAYERS; random bf16 in the
+    family's own keys written here), each remapped and quantized at load by
+    quantize_float on the card, QSpec with the W4A4 draft == qspec_null,
+    exactly the QuaRot kernels launched. Baichuan2's head rows, through its
+    remap on the card, have norm 1 before quantization; Qwen-7B carries its
+    qkv bias and its window of seq_length; TeleChat2 its rotated o / down
+    biases."""
+    import tempfile
+    from qspec_tpu_torch.model_loader.families import baichuan_to_llama_keys
+    from qspec_tpu_torch.models.registry import resolve
+    out = {}
+    for i, (name, published) in enumerate(REMAP_DIRS.items()):
+        layers = {"n_layer": J_LAYERS} if "n_layer" in published else (
+            {"num_layers": J_LAYERS} if "num_layers" in published
+            else {"num_hidden_layers": J_LAYERS})
+        hf = {**published, **layers}
+        cfg = resolve(hf)
+        family = cfg.arch
+        held = {}
+        with tempfile.TemporaryDirectory() as d:
+            _family_dir(d, hf, cfg, family, seed=80 + i)
+            if name == "baichuan2-7b":
+                from qspec_tpu_torch.model_loader.loader import read_safetensors
+                head = {"lm_head.weight": read_safetensors(d)["lm_head.weight"].cuda()}
+                norms = baichuan_to_llama_keys(head, cfg)["lm_head.weight"].norm(dim=1)
+                if (norms - 1).abs().max().item() > 1e-5:
+                    raise AssertionError("(J2) baichuan2-7b: the remapped head's rows are not "
+                                         "unit-norm")
+                del head, norms
+            out[name] = dense_dir_run(
+                f"(J2) {name} dir, {J_LAYERS} layers, remap + quantize_float, w4a4 draft", d,
+                cfg, moe_prompts(cfg.vocab_size), held)
+        loaded, lcfg = held["params"]["layers"], held["cfg"]
+        if lcfg.arch != family or (family == "qwen") != ("b" in loaded["qkv"]) or (
+                family == "telechat2") != ("b" in loaded["o"] and "b" in loaded["down"]):
+            raise AssertionError(f"(J2) {name}: loaded {lcfg.arch}, biases "
+                                 f"{[n for n in loaded if 'b' in loaded[n]]}")
+        if family == "qwen" and lcfg.scaling_window != 8192:
+            raise AssertionError(f"(J2) qwen-7b: window {lcfg.scaling_window}")
+        del held, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("e2e (J2) LLM(model=<dir>), published widths at 2 layers, remap + quantize_float, w4a4 "
+        "QSpec == qspec_null: " + ", ".join(
+            f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s, "
+            f"{r[1]['load_peak_gib']:.1f} GiB)" for n, r in out.items()))
+    log(f"e2e (J2): card {smi}", stdout=False)
+    return out
+
+
+def phase_float_dirs(smi: str):
+    """(J3) LLM(model=<dir>, quantization=None) on Baichuan2-13B (ALiBi at
+    40 heads, gamma RMSNorm), JAIS-13B (ALiBi, the muP scales), falcon-rw-7b
+    (ALiBi at D=64, Falcon's scaled slopes), Falcon-7B (parallel, 71 heads
+    over one KV head, D=64) and Falcon-40B (new-decoder GQA, 16 a group, two
+    parallel norms) directories (FLOAT_DIRS at J_LAYERS layers, random bf16
+    in the family's keys): n-gram (k = 3) == its null oracle, only the
+    path's kernels launched (the attention, and Baichuan2-13B's gamma
+    norm), the attention J_LAYERS a forward, every launch ALiBi where the
+    family has it. Under QuaRot (quantization="qspec") Baichuan2-13B's
+    directory raises, naming its MLP width 13696, before the directory is
+    read."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.models.registry import resolve
+    out = {}
+    for i, (name, published) in enumerate(FLOAT_DIRS.items()):
+        layers = {"n_layer": J_LAYERS} if "n_layer" in published else {
+            "num_hidden_layers": J_LAYERS}
+        hf = {**published, **layers}
+        cfg = resolve(hf)
+        family = cfg.arch
+        held = {}
+        with tempfile.TemporaryDirectory() as d:
+            _family_dir(d, hf, cfg, family, seed=90 + i)
+            if name == "baichuan2-13b":
+                try:
+                    LLM(model=d, quantization="qspec", device="cuda")
+                except NotImplementedError as e:
+                    if "MLP width 13696" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("(J3) baichuan2-13b under QuaRot did not raise")
+
+            def make(method, p):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                llm = LLM(model=d, params=p, quantization=None, num_speculative_tokens=3,
+                          speculative_model="[ngram]", speculative_method=method,
+                          device="cuda", max_model_len=512, max_num_seqs=4, seed=0,
+                          num_pages=80)
+                if p is None:
+                    torch.cuda.synchronize()
+                    held.update(params=llm.llm_engine.runner.params,
+                                cfg=llm.engine_config.model,
+                                load_s=time.perf_counter() - t0,
+                                load_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                return llm.llm_engine
+            expect = FLOAT_LLAMA_KERNELS if cfg.norm_type == "rmsnorm" else FLOAT_KERNELS
+            alibi = cfg.position_embedding == "alibi"
+            label = f"(J3) {name} dir, {J_LAYERS} layers, bf16, n-gram k=3"
+            spec, launches, _, summary = spec_vs_oracle(
+                make, label, expect, float_prompts(cfg.vocab_size), 32,
+                every_launch=("alibi",) if alibi else (), methods=("ngram", "null"))
+            if launches["paged_attention"] != J_LAYERS * summary["forwards"]:
+                raise AssertionError(f"{label}: {launches['paged_attention']} attention launches, "
+                                     f"not {J_LAYERS} x {summary['forwards']} forwards")
+            summary.update(load_s=held["load_s"], load_peak_gib=held["load_peak_gib"])
+            e2e_log(label, float_prompts(cfg.vocab_size), spec, summary)
+            out[name] = (launches, summary)
+        lcfg = held["cfg"]
+        if (lcfg.parallel_block, lcfg.parallel_norms, lcfg.num_kv_heads) != (
+                cfg.parallel_block, cfg.parallel_norms, cfg.num_kv_heads) or lcfg.quant != "none":
+            raise AssertionError(f"(J3) {name}: loaded as {lcfg}")
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("e2e (J3) LLM(model=<dir>, quantization=None), published widths at 2 layers, n-gram == "
+        "null: " + ", ".join(
+            f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s)"
+            for n, r in out.items()) + "; baichuan2-13b under QuaRot raises (MLP width 13696)")
+    log(f"e2e (J3): card {smi}", stdout=False)
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -4525,7 +5077,7 @@ KERNEL_META = {
 # the fields of the kernels line on the standard output (the log has all)
 STDOUT_KEYS = ("name", "route", "source", "replaces", "launches", "launches_in",
                "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-               "shape", "qwen2_7b", "qwen2_7b_shape")
+               "shape", "qwen2_7b", "qwen2_7b_shape", "j_times")
 # the 8-bit instantiations of the attention kernel: (source, TPU kernel)
 KV8_META = {f"paged_attention_{dt}": (
     "qspec_tpu_torch/csrc/paged_attention.cu",
@@ -4612,9 +5164,25 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"(H) took {time.perf_counter() - t_dense:.1f} s")
+    # (J) the llama graph under other key names and the float families
+    t_remap = time.perf_counter()
+    gen_remap = torch.Generator(device="cuda").manual_seed(5)
+    check_remap_shapes(gen_remap, report)
+    time_remap_shapes(gen_remap, report, int4pack_missing)
+    internlm2, internlm2_load = phase_internlm2_7b(smi)
+    remap_dirs = phase_remap_dirs(smi)
+    float_dirs = phase_float_dirs(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(J) took {time.perf_counter() - t_remap:.1f} s")
     log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
-        "BLOOM-7B1, MPT, (A)-(E), the MoE (G), the dense families (H)), each greedy == its "
-        "oracle; chip_smoke.log has each run's line")
+        "BLOOM-7B1, MPT, (A)-(E), the MoE (G), the dense families (H), the remap and float "
+        "families (J)), each greedy == its oracle; chip_smoke.log has each run's line")
+    # each kernel's launches in (J)'s paths: (J1) InternLM2.5-7B at W4A4 and
+    # W4A8, (J2) each remap directory, (J3) each float directory
+    remap_paths = {f"J1_{s}": r[0] for s, r in internlm2.items()}
+    remap_paths.update({f"J2_{n}": r[0] for n, r in remap_dirs.items()})
+    remap_paths.update({f"J3_{n}": r[0] for n, r in float_dirs.items()})
     # each kernel's launches in the MoE paths: (G1) W4A4 and W4A8, (G2) W4A8,
     # (G3) each directory
     moe_paths = {f"{g}_{s}": r[0] for g, runs in moe.items() for s, r in runs.items()}
@@ -4701,9 +5269,14 @@ def main():
         if moe_launch:
             extra["moe_launches"] = moe_launch
         for key in ("moe_max_err", "moe_head_max_err", "dense_max_err", "qwen2_7b",
-                    "qwen2_7b_shape"):
+                    "qwen2_7b_shape", "j_max_err", "j_times"):
             if key in r:
                 extra[key] = r[key]
+        remap_launch = {k: v[name] for k, v in remap_paths.items() if v.get(name)}
+        if remap_launch:
+            extra["remap_launches"] = remap_launch
+        if name == "matmul_w4a16":
+            extra["internlm2_load"] = {k: float(f"{v:.4g}") for k, v in internlm2_load.items()}
         dense_launch = {k: v[name] for k, v in dense_paths.items() if v.get(name)}
         if dense_launch:
             extra["dense_launches"] = dense_launch

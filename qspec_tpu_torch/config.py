@@ -5,9 +5,11 @@ families read, with the same field names and defaults: the dense llama graph
 and its knobs (Llama, Mistral, Phi-3 with its longrope, Qwen2 with the qkv
 bias, Qwen3 with the q/k norms, Gemma with its tanh GeGLU, embedding scale
 and (1+w) norms, Granite with its four multipliers, the reference's QuaRot
-``llama_quarot`` / ``qwen2_quarot``), the Gemma-2 grouped-int4 path, the
-BLOOM / MPT bf16 path and the sparse-MoE families (Mixtral, Qwen2-MoE,
-Qwen3-MoE, DeepSeek-MoE). Fields of model families, loaders, parallelism
+``llama_quarot`` / ``qwen2_quarot``; the llama graph under other key names:
+Baichuan, InternLM2, Qwen v1, EXAONE, TeleChat2), the Gemma-2 grouped-int4
+path, the float families' bf16 path (BLOOM, MPT, Falcon with its parallel
+blocks, JAIS, Baichuan-13B's ALiBi) and the sparse-MoE families (Mixtral,
+Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE). Fields of model families, loaders, parallelism
 and proposers that are not ported yet are left out rather than accepted
 and ignored.
 """
@@ -21,12 +23,15 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyperparameters of one dense llama-graph model (Llama,
-    Mistral, Phi-3, Qwen2, Qwen3, Gemma, Granite), a Gemma-2, a BLOOM, an MPT
-    or a sparse MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)."""
+    Mistral, Phi-3, Qwen2, Qwen3, Gemma, Granite; Baichuan, InternLM2, Qwen
+    v1, EXAONE, TeleChat2), a Gemma-2, a float family's (BLOOM, MPT, Falcon,
+    JAIS) or a sparse MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)."""
 
     # "llama" (Mistral and Phi-3 too) | "qwen2" | "qwen3" | "gemma" |
     # "granite" | "gemma2" | "bloom" | "mpt" | "mixtral" | "qwen2moe" |
-    # "qwen3moe" | "deepseek"
+    # "qwen3moe" | "deepseek" | "falcon" | "jais"; the llama graph under
+    # other key names (model_loader/families.py LLAMA_KEY_REMAPS):
+    # "baichuan" | "internlm2" | "qwen" (v1) | "exaone" | "telechat2"
     arch: str = "llama"
     vocab_size: int = 128256
     hidden_size: int = 4096
@@ -98,6 +103,12 @@ class ModelConfig:
     linear_bias: bool = False
     # clamp the qkv projection to [-clip_qkv, clip_qkv] (MPT attn_config)
     clip_qkv: Optional[float] = None
+    # Falcon's parallel blocks: x + attn(norm(x)) + mlp(norm'(x)), where the
+    # MLP reads the attention's normed input (parallel_norms 1: Falcon-7B)
+    # or its own norm of the same residual (2: Falcon-40B's ln_mlp,
+    # layers["post_norm"]); served with bf16 weights
+    parallel_block: bool = False
+    parallel_norms: int = 1
     # sparse MoE (models/llama.py _moe_block): each layer's MLP is
     # num_experts expert MLPs of width moe_intermediate_size (None: the
     # dense width) mixed by a router's top num_experts_per_tok; 0 = dense
@@ -130,12 +141,13 @@ class ModelConfig:
         allowed = (("quant", ("w4", "w4g", "none")),
                    ("arch", ("llama", "qwen2", "qwen3", "gemma", "granite", "gemma2",
                              "bloom", "mpt", "mixtral", "qwen2moe", "qwen3moe",
-                             "deepseek")),
+                             "deepseek", "falcon", "jais", *REMAP_ARCHS)),
                    ("hidden_act", ("silu", "gelu_tanh", "gelu")),
                    ("norm_type", ("rmsnorm", "layernorm")),
                    ("position_embedding", ("rope", "alibi")),
                    ("qk_norm_style", ("head",)),
-                   ("moe_routing", ("topk", "sparsemixer", "noaux_tc")))
+                   ("moe_routing", ("topk", "sparsemixer", "noaux_tc")),
+                   ("parallel_norms", (1, 2)))
         for name, values in allowed:
             if getattr(self, name) not in values:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r}: the port "
@@ -148,6 +160,20 @@ class ModelConfig:
         # the JAX package's default: int8 for a quantized checkpoint, the
         # bf16 head of a float one
         return "bf16" if self.quant == "none" else "int8"
+
+    @property
+    def scaling_window(self) -> Optional[int]:
+        """The positions inside which the checkpoint's position scaling
+        leaves rope and attention plain: a dynamic NTK rope_scaling's
+        ``original_max_position_embeddings`` (InternLM2's
+        max_position_embeddings; Qwen v1's seq_length, past which its
+        use_dynamic_ntk and use_logn_attn act). The port serves such a
+        model only inside it (EngineConfig, ops/rotary.py); None: no such
+        scaling."""
+        rs = self.rope_scaling
+        if rs and rs.get("rope_type", rs.get("type")) == "dynamic":
+            return rs["original_max_position_embeddings"]
+        return None
 
     @property
     def expert_intermediate_size(self) -> int:
@@ -276,22 +302,37 @@ class ModelConfig:
         ``use_sliding_window`` is set (one that windows only the layers
         from ``max_window_layers`` on raises), and Phi-3's top-level
         ``original_max_position_embeddings`` goes into its longrope
-        scaling."""
+        scaling.
+
+        The llama graph under other key names reads as the JAX package
+        reads it: baichuan and internlm2 by substring, on the llama branch
+        (Baichuan ALiBi where the registry says so; an InternLM2 with
+        ``bias`` raises), and Qwen v1, EXAONE and TeleChat2 (``qwen``,
+        ``exaone``, ``telechat2`` / ``telechat``) by their own readers; so
+        do Falcon (``falcon``, ``RefinedWeb``, ``RefinedWebModel``) and
+        JAIS. Past the JAX package, a dynamic NTK rope (Qwen v1's logn
+        attention too) records its window (``scaling_window``: served only
+        inside it) and Qwen v1 reads its base from ``rotary_emb_base``."""
         mt = hf.get("model_type", "")
-        if mt == "bloom":
-            return _from_bloom(hf)
-        if mt == "mpt":
-            return _from_mpt(hf)
-        if mt == "deepseek":
-            return _from_deepseek(hf)
+        own = {"bloom": _from_bloom, "mpt": _from_mpt, "deepseek": _from_deepseek,
+               "falcon": _from_falcon, "RefinedWeb": _from_falcon,
+               "RefinedWebModel": _from_falcon, "jais": _from_jais, "qwen": _from_qwen1,
+               "exaone": _from_exaone, "telechat2": _from_telechat2,
+               "telechat": _from_telechat2}
+        if mt in own:
+            return own[mt](hf)
         bad = next((f for f in UNPORTED_TYPES if f in mt), None)
         arch = None if bad else next((a for f, a in LLAMA_GRAPH_TYPES if f in mt), None)
         if arch is None:
             raise NotImplementedError(
                 f"model_type {mt!r}: the port reads model types holding "
-                f"{', '.join(f for f, _ in LLAMA_GRAPH_TYPES)}, or bloom, mpt and "
-                "deepseek" + (f"; {bad!r} names a family not ported (ROADMAP queue 1 "
-                              "item 9)" if bad else ""))
+                f"{', '.join(f for f, _ in LLAMA_GRAPH_TYPES)}, or "
+                f"{', '.join(own)}" + (f"; {bad!r} names a family not ported (ROADMAP "
+                                       "queue 1 item 9)" if bad else ""))
+        if arch == "internlm2" and hf.get("bias"):
+            raise NotImplementedError(
+                "InternLM2 with bias: true (biased wqkv and wo): not ported (ROADMAP "
+                "queue 1 item 9); the JAX package's remap drops those biases")
         gemma = arch in ("gemma", "gemma2")
         gemma2 = arch == "gemma2"
         granite = arch == "granite"
@@ -357,8 +398,12 @@ class ModelConfig:
 # order of matching (a type is read by the first fragment it holds)
 LLAMA_GRAPH_TYPES = (("qwen3_moe", "qwen3moe"), ("qwen3", "qwen3"), ("qwen2_moe", "qwen2moe"),
                      ("qwen2", "qwen2"), ("mixtral", "mixtral"), ("gemma2", "gemma2"),
-                     ("gemma", "gemma"), ("granite", "granite"), ("llama", "llama"),
+                     ("gemma", "gemma"), ("granite", "granite"), ("baichuan", "baichuan"),
+                     ("internlm2", "internlm2"), ("llama", "llama"),
                      ("mistral", "llama"), ("phi3", "llama"))
+# the archs of the llama graph whose checkpoints carry other key names,
+# mapped onto llama keys at load (model_loader/families.py LLAMA_KEY_REMAPS)
+REMAP_ARCHS = ("baichuan", "internlm2", "qwen", "exaone", "telechat2")
 # model types that hold one of those fragments but name a family whose graph
 # the port lacks (the JAX package serves some of them with knobs of its own)
 UNPORTED_TYPES = ("gemma3", "paligemma", "recurrent_gemma", "granitemoe", "_vl", "audio",
@@ -388,13 +433,139 @@ def _rope_scaling(hf: dict) -> Optional[dict]:
     """config.json's rope_scaling; a longrope one (Phi-3) also gets the
     top-level ``original_max_position_embeddings`` where it lacks its own,
     as Hugging Face reads it (the JAX package leaves it out, and so scales
-    every position by the short factors with no attention factor)."""
+    every position by the short factors with no attention factor); a
+    dynamic NTK one (InternLM2) gets ``max_position_embeddings`` as its
+    original window, where Hugging Face starts scaling the base (the JAX
+    package ignores the scaling, which is right only inside that window)."""
     rs = hf.get("rope_scaling")
-    if (rs and rs.get("rope_type", rs.get("type")) in ("longrope", "su")
-            and "original_max_position_embeddings" not in rs
+    kind = rs and rs.get("rope_type", rs.get("type"))
+    if (kind in ("longrope", "su") and "original_max_position_embeddings" not in rs
             and "original_max_position_embeddings" in hf):
         rs = {**rs, "original_max_position_embeddings": hf["original_max_position_embeddings"]}
+    if kind == "dynamic" and "original_max_position_embeddings" not in rs:
+        rs = {**rs, "original_max_position_embeddings": hf.get("max_position_embeddings", 8192)}
     return rs
+
+
+def _llama_keyed(hf: dict, arch: str, **over) -> ModelConfig:
+    """A remap family's config by the llama reader, with ``over`` replacing
+    config.json fields (its own names) and ``arch`` set after, as the JAX
+    registry's readers do."""
+    cfg = ModelConfig.from_hf_config({**hf, **over, "model_type": "llama"})
+    return dataclasses.replace(cfg, arch=arch)
+
+
+def _from_qwen1(hf: dict) -> ModelConfig:
+    """Qwen v1 (``QWenLMHeadModel``; the JAX registry's ``_qwen1``): the
+    llama graph with the fused c_attn and its bias, multi-head, the halved
+    ``intermediate_size`` (config.json gives twice the MLP width), its
+    eps in ``layer_norm_epsilon``. Its base is ``rotary_emb_base`` (the JAX
+    package reads ``rope_theta``, absent there, and so 10000 whatever the
+    checkpoint says); its ``use_dynamic_ntk`` and ``use_logn_attn`` act
+    only past ``seq_length``: they are recorded as a dynamic rope_scaling
+    of that window (``scaling_window``), and the rope cache ends there
+    (``max_position_embeddings`` cut to ``seq_length``). A partial rotary
+    (``rotary_pct`` below 1) raises."""
+    if hf.get("rotary_pct", 1.0) != 1.0:
+        raise NotImplementedError(f"Qwen v1 rotary_pct={hf['rotary_pct']}: a partial "
+                                  "rotary is not ported (ROADMAP queue 1 item 9)")
+    nh = hf["num_attention_heads"]
+    seq = hf.get("seq_length", 8192)
+    max_pos = hf.get("max_position_embeddings", seq)
+    scaled = hf.get("use_dynamic_ntk") or hf.get("use_logn_attn")
+    cfg = _llama_keyed(hf, "qwen", num_key_value_heads=nh,
+                       intermediate_size=hf["intermediate_size"] // 2,
+                       head_dim=hf.get("kv_channels") or hf["hidden_size"] // nh,
+                       rms_norm_eps=hf.get("layer_norm_epsilon", 1e-6),
+                       rope_theta=hf.get("rotary_emb_base", 10000.0),
+                       max_position_embeddings=min(max_pos, seq) if scaled else max_pos)
+    return dataclasses.replace(cfg, qkv_bias=True, rope_scaling=(
+        {"type": "dynamic", "original_max_position_embeddings": seq} if scaled else None))
+
+
+def _from_exaone(hf: dict) -> ModelConfig:
+    """EXAONE (the JAX registry's ``_exaone``): the llama graph under GPT
+    key names, its widths under GPT or llama field names."""
+    return _llama_keyed(hf, "exaone", hidden_size=hf.get("hidden_size", hf.get("n_embd")),
+                        num_hidden_layers=hf.get("num_hidden_layers", hf.get("num_layers")),
+                        num_attention_heads=hf.get("num_attention_heads", hf.get("n_head")),
+                        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5))
+
+
+def _from_telechat2(hf: dict) -> ModelConfig:
+    """TeleChat2 (the JAX registry's ``_telechat2``): the llama graph,
+    multi-head, ``n_head`` / ``n_layer`` / ``ffn_hidden_size``, its window
+    ``seq_length``; the o / down biases come with the checkpoint."""
+    nh = hf.get("n_head", hf.get("num_attention_heads"))
+    return _llama_keyed(hf, "telechat2", num_attention_heads=nh, num_key_value_heads=nh,
+                        num_hidden_layers=hf.get("n_layer", hf.get("num_hidden_layers")),
+                        intermediate_size=hf.get("ffn_hidden_size", hf.get("intermediate_size")),
+                        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+                        max_position_embeddings=hf.get("seq_length", 8192))
+
+
+def _from_falcon(hf: dict) -> ModelConfig:
+    """Falcon (the JAX package's falcon branch): LayerNorm with biases, the
+    fused query_key_value, an exact-gelu MLP of ``ffn_hidden_size``; the
+    7B / 40B lineage in parallel blocks with rope (multi-query: one KV head;
+    ``new_decoder_architecture``: ``num_kv_heads``), falcon-rw in
+    sequential blocks with ALiBi and biases. Where Hugging Face builds
+    ``ln_attn`` and ``ln_mlp`` (``new_decoder_architecture`` with
+    ``num_ln_in_parallel_attn`` 2, its default there) the MLP reads its own
+    norm (``parallel_norms=2``; the JAX package reads ``ln_attn`` only and so
+    norms the MLP's input with the attention's). A bf16 checkpoint."""
+    nh = hf.get("num_attention_heads", hf.get("n_head"))
+    new = bool(hf.get("new_decoder_architecture"))
+    parallel = hf.get("parallel_attn", True)
+    if new and not parallel:
+        raise NotImplementedError("Falcon new_decoder_architecture without parallel_attn "
+                                  "(Hugging Face adds the attention output twice there)")
+    nkv = hf.get("num_kv_heads", nh) if new else (1 if hf.get("multi_query", True) else nh)
+    H = hf["hidden_size"]
+    return ModelConfig(
+        arch="falcon", norm_type="layernorm", mlp_gated=False, parallel_block=parallel,
+        parallel_norms=2 if new and (hf.get("num_ln_in_parallel_attn") or 2) == 2 else 1,
+        linear_bias=hf.get("bias", False),
+        position_embedding="alibi" if hf.get("alibi") else "rope", hidden_act="gelu",
+        vocab_size=hf["vocab_size"], hidden_size=H,
+        intermediate_size=hf.get("ffn_hidden_size") or 4 * H,
+        num_layers=hf.get("num_hidden_layers", hf.get("n_layer")), num_heads=nh,
+        num_kv_heads=nkv, head_dim=H // nh, rope_theta=hf.get("rope_theta", 10000.0),
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5), quant="none",
+        tie_word_embeddings=hf.get("tie_word_embeddings", True))
+
+
+def _from_jais(hf: dict) -> ModelConfig:
+    """JAIS (the JAX package's jais branch): GPT-2's skeleton (LayerNorm
+    with biases, Conv1D weights, the fused c_attn) with ALiBi and a gated
+    silu MLP; its muP scales ride ``embed_scale`` (``embeddings_scale``),
+    ``logits_scaling`` (1 / ``width_scale``) and ``query_pre_attn_scalar``
+    (d^2 under ``scale_qk_dot_by_d``: scores scaled by 1/d). Learned
+    positions and ``alibi_scaling`` raise. A bf16 checkpoint."""
+    if hf.get("position_embedding_type", "alibi") != "alibi":
+        raise NotImplementedError("JAIS with learned positions is not ported (ROADMAP "
+                                  "queue 1 item 9)")
+    if hf.get("alibi_scaling"):
+        raise NotImplementedError(f"JAIS alibi_scaling={hf['alibi_scaling']!r} is not ported")
+    nh, H = hf["n_head"], hf["n_embd"]
+    dh = H // nh
+    emb = hf.get("embeddings_scale", hf.get("mup_embeddings_scale", 1.0))
+    width = (hf["width_scale"] if "width_scale" in hf
+             else hf.get("mup_output_alpha", 1.0) * hf.get("mup_width_scale", 1.0))
+    by_d = hf.get("scale_qk_dot_by_d", hf.get("mup_scale_qk_dot_by_d", False))
+    return ModelConfig(
+        arch="jais", norm_type="layernorm", mlp_gated=True, position_embedding="alibi",
+        linear_bias=True, hidden_act="silu",
+        embed_scale=emb if emb != 1.0 else None,
+        logits_scaling=1.0 / width if width != 1.0 else None,
+        query_pre_attn_scalar=dh * dh if by_d else None,
+        vocab_size=hf["vocab_size"], hidden_size=H,
+        intermediate_size=hf.get("n_inner") or 4 * H, num_layers=hf["n_layer"],
+        num_heads=nh, num_kv_heads=nh, head_dim=dh,
+        max_position_embeddings=hf.get("n_positions", 2048),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5), quant="none",
+        tie_word_embeddings=True)
 
 
 def _from_deepseek(hf: dict) -> ModelConfig:
@@ -607,3 +778,13 @@ class EngineConfig:
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     speculative: Optional[SpeculativeConfig] = None
+
+    def __post_init__(self):
+        window = self.model.scaling_window
+        if window is not None and self.scheduler.max_model_len > window:
+            raise NotImplementedError(
+                f"max_model_len={self.scheduler.max_model_len} past the model's scaling "
+                f"window of {window} positions: its dynamic NTK rope (rope_scaling "
+                "'dynamic', Qwen v1's use_dynamic_ntk) and Qwen v1's logn attention "
+                "act past it, and the port serves the plain rope and attention they "
+                "leave inside it")

@@ -40,9 +40,11 @@ default ``quantization="qspec"`` a reference-format QSpec checkpoint
 (``load_qspec``; the reference's ``QuarotLlamaForCausalLM`` and
 ``qwen2_quarot`` with its q/k/v biases) or, failing that, a float checkpoint
 of the llama graph's families (Llama, Mistral, Phi-3, Qwen2, Qwen3, Gemma,
-Granite, Mixtral, Qwen2-MoE, Qwen3-MoE) rotated and quantized at load
-(QuaRot, ``quantize_float``); with ``quantization=None`` such a float
-checkpoint in bf16 (``load_hf_float``) or a BLOOM / MPT / DeepSeek-MoE one
+Granite, Mixtral, Qwen2-MoE, Qwen3-MoE, and under other key names
+Baichuan-7B / Baichuan2-7B, InternLM2, Qwen v1, EXAONE, TeleChat2) rotated
+and quantized at load (QuaRot, ``quantize_float``); with
+``quantization=None`` such a float checkpoint in bf16 (``load_hf_float``,
+Baichuan-13B's ALiBi too) or a BLOOM / MPT / DeepSeek-MoE / Falcon / JAIS one
 (``load_family_float``), which speculate by n-gram prompt lookup:
 
     llm = LLM(model="/path/to/Meta-Llama-3-8B", num_speculative_tokens=3)
@@ -50,6 +52,9 @@ checkpoint in bf16 (``load_hf_float``) or a BLOOM / MPT / DeepSeek-MoE one
     llm = LLM(model="/path/to/Qwen2-7B-Instruct-AWQ", num_speculative_tokens=3,
               speculative_draft_scheme="w4a16")
     llm = LLM(model="/path/to/bloom-7b1", quantization=None,
+              num_speculative_tokens=3, speculative_model="[ngram]")
+    llm = LLM(model="/path/to/internlm2_5-7b-chat", num_speculative_tokens=3)
+    llm = LLM(model="/path/to/falcon-40b", quantization=None,
               num_speculative_tokens=3, speculative_model="[ngram]")
 
 Qwen2-7B at its published widths, random int4 weights made on the card:
@@ -80,9 +85,10 @@ from qspec_tpu_torch.engine.arg_utils import EngineArgs, proposer_of
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
 from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
 from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
-from qspec_tpu_torch.model_loader.loader import (config_from_hf_dir, load_hf_float,
-                                                 load_qspec, quant_method_of,
-                                                 quantize_float, read_safetensors)
+from qspec_tpu_torch.model_loader.loader import (check_rotatable, config_from_hf_dir,
+                                                 load_hf_float, load_qspec,
+                                                 quant_method_of, quantize_float,
+                                                 read_safetensors)
 from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.eagle import load_eagle
@@ -176,12 +182,17 @@ class LLM:
         ``quant="w4g"``) by ``load_awq`` / ``load_gptq``; under QuaRot
         quantization a QSpec checkpoint (``weight_scales``), else a float one
         quantized at load (any llama-keyed family: Llama, Mistral, Phi-3,
-        Qwen2, Qwen3, Gemma, Granite, Mixtral, Qwen2-MoE, Qwen3-MoE); without
-        quantization the family converter of a BLOOM / MPT / DeepSeek-MoE,
-        else the llama-keyed float loader. Compressed-tensors and GGUF raise
-        in EngineArgs (ROADMAP queue 1 item 8)."""
+        Qwen2, Qwen3, Gemma, Granite, Mixtral, Qwen2-MoE, Qwen3-MoE, and the
+        remap families, whose keys ``quantize_float`` maps first); without
+        quantization the family converter of a BLOOM / MPT / DeepSeek-MoE /
+        Falcon / JAIS, else the llama-keyed float loader (the remap families
+        too). A QuaRot config whose widths have no Hadamard raises before
+        the checkpoint is read. Compressed-tensors and GGUF raise in
+        EngineArgs (ROADMAP queue 1 item 8)."""
         cfg = self.engine_config.model
         dev = resolve_device(device)
+        if cfg.quant == "w4":
+            check_rotatable(cfg)
         sd = read_safetensors(path)
         if cfg.quant == "w4g":
             load = load_awq if quant_method_of(path) == "awq" else load_gptq

@@ -1,12 +1,23 @@
-"""Float state-dict converters of the non-llama-keyed families the port serves.
+"""Float state-dict converters of the non-llama-keyed families the port
+serves, and the key remaps of the llama graph under other key names.
 
-Port of ``qspec_tpu/model_loader/families.py`` for BLOOM, MPT and
-DeepSeek-MoE: a family's checkpoint layout (BLOOM's head-interleaved fused
-``query_key_value``, MPT's ``transformer.blocks.*`` naming, DeepSeek's dense
-prefix and shared experts) is translated into the bf16 parameter tree that
+Port of ``qspec_tpu/model_loader/families.py`` for BLOOM, MPT,
+DeepSeek-MoE, Falcon and JAIS: a family's checkpoint layout (BLOOM's
+head-interleaved fused ``query_key_value``, MPT's ``transformer.blocks.*``
+naming, DeepSeek's dense prefix and shared experts, Falcon's three
+``query_key_value`` layouts and its parallel blocks, JAIS's Conv1D weights
+and swiglu pair) is translated into the bf16 parameter tree that
 ``models/llama.py`` serves with the family's knobs (LayerNorm, linear
-biases, the non-gated MLP, ALiBi; the MoE MLP), the layout of the JAX
-converters' output.
+biases, the non-gated MLP, ALiBi, the parallel block; the MoE MLP), the
+layout of the JAX converters' output.
+
+``LLAMA_KEY_REMAPS`` (Baichuan, InternLM2, Qwen v1, EXAONE, TeleChat2) map
+a checkpoint onto llama keys in place, so the llama-keyed loaders
+(``loader.py``: ``load_hf_float``, ``quantize_float``) serve it, QuaRot
+included. They work on the tensors as they are, on their own device (no
+round trip through host float32 as the JAX remaps take): a fused tensor is
+split into views or de-interleaved into copies, and the source entry leaves
+the dict as it is consumed.
 
 The converters take numpy arrays or torch tensors (of any float dtype, on
 any device: a state dict made on the card converts there) and consume the
@@ -29,6 +40,10 @@ import torch
 from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.models.llama import alibi_params, layer_segments, layer_stacks
 from qspec_tpu_torch.ops.rotary import make_rope_cache
+
+# Baichuan2's vocabulary: its NormHead L2-normalizes the head's rows (vLLM's
+# baichuan.py tells Baichuan2 from Baichuan by this size, as does the port)
+BAICHUAN2_VOCAB = 125696
 
 
 def _take(sd: Dict, name: str, device) -> torch.Tensor:
@@ -81,10 +96,20 @@ class _Stacker:
         self.put(key, li, b if rows is None else rows(b))
 
 
+def position_params(cfg: ModelConfig, device) -> dict:
+    """An ALiBi model's slopes, or a rope model's cache (the JAX package's
+    ``_finish``; ALiBi has no rope)."""
+    if cfg.position_embedding == "alibi":
+        return alibi_params(cfg, device)
+    return {"rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
+                                          cfg.rope_theta, rope_scaling=cfg.rope_scaling,
+                                          device=device)}
+
+
 def _tree(st: _Stacker, cfg: ModelConfig, embed: torch.Tensor, lm_head) -> dict:
     """The served tree from the stacks: projections {"w"[, "b"]}, the norms
     and their betas, the head (the embedding's transposed storage when
-    tied), the ALiBi slopes."""
+    tied), the ALiBi slopes or the rope cache."""
     o = st.out
     layers = {name: {"w": o[f"{name}.w"], **({"b": o[f"{name}.b"]} if f"{name}.b" in o else {})}
               for name in ("qkv", "o", "gate_up", "down")}
@@ -93,7 +118,7 @@ def _tree(st: _Stacker, cfg: ModelConfig, embed: torch.Tensor, lm_head) -> dict:
             layers[name] = o[name]
     head = embed.t() if lm_head is None else lm_head.t().contiguous()
     return {"embed": embed, "layers": layers, "lm_head": head,
-            **alibi_params(cfg, embed.device)}
+            **position_params(cfg, embed.device)}
 
 
 def convert_bloom(sd: Dict, cfg: ModelConfig, device=None) -> dict:
@@ -206,11 +231,241 @@ def convert_deepseek(sd: Dict, cfg: ModelConfig, device=None) -> dict:
     embed = _take(sd, "model.embed_tokens.weight", dev)
     head = _take(sd, "lm_head.weight", dev) if "lm_head.weight" in sd else None
     params.update(embed=embed, lm_head=embed.t() if head is None else head.t().contiguous(),
-                  final_norm=_take(sd, "model.norm.weight", dev),
-                  rope_cache=make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
-                                             cfg.rope_theta, rope_scaling=cfg.rope_scaling,
-                                             device=dev))
+                  final_norm=_take(sd, "model.norm.weight", dev), **position_params(cfg, dev))
     return params
+
+
+def _tied_head(sd: Dict, cfg: ModelConfig, dev):
+    """The untied head's [V, H] tensor, or None for a tied model (a tied
+    checkpoint's own ``lm_head.weight``, where it has one, is dropped)."""
+    head = sd.pop("lm_head.weight", None)
+    if cfg.tie_word_embeddings or head is None:
+        return None
+    return _take({"h": head}, "h", dev)
+
+
+def convert_falcon(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """Falcon (``qspec_tpu/model_loader/families.py::convert_falcon``):
+    ``transformer.h.*`` names, the fused ``query_key_value`` in its three
+    layouts, one formula: rows [nkv, q_per_group + 2, dh] de-interleaved to
+    q|k|v (multi-query 7B: one group, already q|k|v; new-decoder GQA 40B /
+    180B: nkv groups; falcon-rw: nh groups of one, [nh, 3, dh], with its
+    bias); exact-gelu MLP; biases under ``linear_bias``; the tied head. The
+    norms: ``input_layernorm`` (7B, rw) or ``ln_attn`` (new decoder) as the
+    input norm; falcon-rw's ``post_attention_layernorm``, or under
+    ``parallel_norms=2`` ``ln_mlp``, as ``post_norm`` (the JAX converter
+    reads no ``ln_mlp``: ROADMAP §3)."""
+    dev = _device(sd, device)
+    nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = nh // nkv
+    st = _Stacker(sd, cfg.num_layers, dev)
+
+    def qkv_rows(t):
+        r = t.reshape(nkv, g + 2, dh, *t.shape[1:])
+        return torch.cat([r[:, :g].reshape(nh * dh, *t.shape[1:]),
+                          r[:, g].reshape(nkv * dh, *t.shape[1:]),
+                          r[:, g + 1].reshape(nkv * dh, *t.shape[1:])])
+
+    layer = [f"transformer.h.{li}." for li in range(cfg.num_layers)]
+    for key, name, rows in (("qkv", "self_attention.query_key_value", qkv_rows),
+                            ("o", "self_attention.dense", None),
+                            ("gate_up", "mlp.dense_h_to_4h", None),
+                            ("down", "mlp.dense_4h_to_h", None)):
+        for li, p in enumerate(layer):
+            st.weight(f"{key}.w", li, p + name + ".weight", rows)
+        if cfg.linear_bias:
+            for li, p in enumerate(layer):
+                st.vector(f"{key}.b", li, p + name + ".bias", rows)
+    post = ("ln_mlp" if cfg.parallel_norms == 2 else
+            None if cfg.parallel_block else "post_attention_layernorm")
+    for li, p in enumerate(layer):
+        first = "input_layernorm" if p + "input_layernorm.weight" in sd else "ln_attn"
+        for key, name in (("input_norm", first), ("post_norm", post)):
+            if name is not None:
+                st.vector(key, li, p + name + ".weight")
+                st.vector(key + "_b", li, p + name + ".bias")
+    pre = "transformer."
+    embed = _take(sd, pre + "word_embeddings.weight", dev)
+    params = _tree(st, cfg, embed, _tied_head(sd, cfg, dev))
+    params["final_norm"] = _take(sd, pre + "ln_f.weight", dev)
+    params["final_norm_b"] = _take(sd, pre + "ln_f.bias", dev)
+    return params
+
+
+def convert_jais(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """JAIS (``qspec_tpu/model_loader/families.py::convert_jais``): GPT-2's
+    ``transformer.h.*`` names and Conv1D weights, stored [in, out] (no
+    transpose), the fused c_attn already q|k|v, biases everywhere, the tied
+    head, ALiBi. The swiglu pair: JAIS's MLP is c_fc(x) * silu(c_fc2(x))
+    (its SwiGLUActivation(x1, x2) = x1 * silu(x2), x1 = c_fc), so the gate
+    is ``c_fc2`` and ``gate_up`` = [c_fc2 | c_fc]; the JAX converter puts
+    c_fc first and so applies the silu to the other half (ROADMAP §3)."""
+    dev = _device(sd, device)
+    st = _Stacker(sd, cfg.num_layers, dev)
+
+    def conv(name):
+        return _take(sd, name, dev)
+
+    for li in range(cfg.num_layers):
+        p = f"transformer.h.{li}."
+        for key, names in (("qkv", ("attn.c_attn",)), ("o", ("attn.c_proj",)),
+                           ("gate_up", ("mlp.c_fc2", "mlp.c_fc")), ("down", ("mlp.c_proj",))):
+            st.put(f"{key}.w", li, torch.cat([conv(p + n + ".weight") for n in names], 1))
+            st.put(f"{key}.b", li, torch.cat([conv(p + n + ".bias") for n in names]))
+        for key, name in (("input_norm", "ln_1"), ("post_norm", "ln_2")):
+            st.vector(key, li, p + name + ".weight")
+            st.vector(key + "_b", li, p + name + ".bias")
+    pre = "transformer."
+    params = _tree(st, cfg, _take(sd, pre + "wte.weight", dev), None)
+    sd.pop("lm_head.weight", None)          # tied
+    params["final_norm"] = _take(sd, pre + "ln_f.weight", dev)
+    params["final_norm_b"] = _take(sd, pre + "ln_f.bias", dev)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# the llama graph under other key names
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a) -> torch.Tensor:
+    """A state dict entry as a tensor, on its own device and in its own
+    dtype (a numpy array as float32)."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _rename(sd: Dict, cfg: ModelConfig, layer_prefix: str, layer_names: Dict[str, str],
+            top_names: Dict[str, str]) -> None:
+    """Move ``{layer_prefix}{li}.{a}`` to ``model.layers.{li}.{b}`` for each
+    (a, b) of ``layer_names`` (every one required), and each present
+    top-level name of ``top_names`` to its llama name, in place."""
+    for li in range(cfg.num_layers):
+        for a, b in layer_names.items():
+            sd[f"model.layers.{li}.{b}"] = sd.pop(f"{layer_prefix}{li}.{a}")
+    for a, b in top_names.items():
+        if a in sd:
+            sd[b] = sd.pop(a)
+
+
+def _split_rows(sd: Dict, src: str, dst: str, names, width: int) -> None:
+    """Pop the fused ``src`` ([len(names) * width, ...] rows) and store its
+    row blocks under ``dst`` + each name (views of the one tensor)."""
+    t = _tensor(sd.pop(src))
+    for i, n in enumerate(names):
+        sd[dst.format(n)] = t[i * width:(i + 1) * width]
+
+
+def baichuan_to_llama_keys(sd: Dict, cfg: ModelConfig) -> Dict:
+    """Baichuan / Baichuan2 (``qspec_tpu/model_loader/families.py::
+    baichuan_to_llama_keys``): llama keys but the fused ``W_pack`` ([3H, H]
+    rows q|k|v), split here; Baichuan2's NormHead (vocab 125696): the head's
+    rows L2-normalized in float32, as its modeling code and vLLM's
+    ``baichuan.py`` normalize them (the JAX remap does not: ROADMAP §3)."""
+    H = cfg.hidden_size
+    for k in [k for k in sd if k.endswith("self_attn.W_pack.weight")]:
+        base = k[:-len("W_pack.weight")]
+        _split_rows(sd, k, base + "{}_proj.weight", "qkv", H)
+    if cfg.vocab_size == BAICHUAN2_VOCAB and "lm_head.weight" in sd:
+        head = _tensor(sd.pop("lm_head.weight")).to(torch.float32)
+        sd["lm_head.weight"] = torch.nn.functional.normalize(head, dim=1)
+        del head
+    return sd
+
+
+def internlm2_to_llama_keys(sd: Dict, cfg: ModelConfig) -> Dict:
+    """InternLM2 (``...::internlm2_to_llama_keys``): ``tok_embeddings`` /
+    ``output`` naming, ``attention.wqkv`` packed per KV group as rows
+    [nkv, q_per_group + 2, dh] (de-interleaved to q|k|v here),
+    ``feed_forward.w1 / w3 / w2`` the gate, up and down."""
+    nh, nkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = nh // nkv
+    for li in range(cfg.num_layers):
+        p = f"model.layers.{li}."
+        w = _tensor(sd.pop(p + "attention.wqkv.weight"))
+        r = w.reshape(nkv, g + 2, dh, w.shape[-1])
+        sd[p + "self_attn.q_proj.weight"] = r[:, :g].reshape(nh * dh, -1)
+        sd[p + "self_attn.k_proj.weight"] = r[:, g].reshape(nkv * dh, -1)
+        sd[p + "self_attn.v_proj.weight"] = r[:, g + 1].reshape(nkv * dh, -1)
+        del w, r
+    _rename(sd, cfg, "model.layers.", {
+        "attention.wo.weight": "self_attn.o_proj.weight",
+        "feed_forward.w1.weight": "mlp.gate_proj.weight",
+        "feed_forward.w3.weight": "mlp.up_proj.weight",
+        "feed_forward.w2.weight": "mlp.down_proj.weight",
+        "attention_norm.weight": "input_layernorm.weight",
+        "ffn_norm.weight": "post_attention_layernorm.weight"},
+        {"model.tok_embeddings.weight": "model.embed_tokens.weight",
+         "output.weight": "lm_head.weight"})
+    return sd
+
+
+def qwen1_to_llama_keys(sd: Dict, cfg: ModelConfig) -> Dict:
+    """Qwen v1 (``...::qwen1_to_llama_keys``): ``transformer.h.*`` names,
+    the fused ``attn.c_attn`` ([3H, H] rows q|k|v) with its bias, RMSNorm
+    ``ln_1`` / ``ln_2``, swiglu with the gate ``w2`` and the up ``w1``."""
+    H = cfg.hidden_size
+    for li in range(cfg.num_layers):
+        p, o = f"transformer.h.{li}.attn.c_attn.", f"model.layers.{li}.self_attn."
+        _split_rows(sd, p + "weight", o + "{}_proj.weight", "qkv", H)
+        _split_rows(sd, p + "bias", o + "{}_proj.bias", "qkv", H)
+    _rename(sd, cfg, "transformer.h.", {
+        "attn.c_proj.weight": "self_attn.o_proj.weight",
+        "mlp.w2.weight": "mlp.gate_proj.weight", "mlp.w1.weight": "mlp.up_proj.weight",
+        "mlp.c_proj.weight": "mlp.down_proj.weight", "ln_1.weight": "input_layernorm.weight",
+        "ln_2.weight": "post_attention_layernorm.weight"},
+        {"transformer.wte.weight": "model.embed_tokens.weight",
+         "transformer.ln_f.weight": "model.norm.weight"})
+    return sd
+
+
+def exaone_to_llama_keys(sd: Dict, cfg: ModelConfig) -> Dict:
+    """EXAONE (``...::exaone_to_llama_keys``): the llama graph under
+    ``transformer.h.{i}.{ln_1, attn.attention.*, ln_2, mlp.c_fc_0 / c_fc_1
+    / c_proj}`` names, the gate ``c_fc_0`` and the up ``c_fc_1``."""
+    _rename(sd, cfg, "transformer.h.", {
+        **{f"attn.attention.{n}_proj.weight": f"self_attn.{n}_proj.weight" for n in "qkv"},
+        "attn.attention.out_proj.weight": "self_attn.o_proj.weight",
+        "mlp.c_fc_0.weight": "mlp.gate_proj.weight", "mlp.c_fc_1.weight": "mlp.up_proj.weight",
+        "mlp.c_proj.weight": "mlp.down_proj.weight", "ln_1.weight": "input_layernorm.weight",
+        "ln_2.weight": "post_attention_layernorm.weight"},
+        {"transformer.wte.weight": "model.embed_tokens.weight",
+         "transformer.ln_f.weight": "model.norm.weight"})
+    return sd
+
+
+def telechat2_to_llama_keys(sd: Dict, cfg: ModelConfig) -> Dict:
+    """TeleChat2 (``...::telechat2_to_llama_keys``): a separate
+    ``self_attention.query``, ``key_value`` fused per head as rows [h, 2,
+    dh] (de-interleaved here), the o (``dense``) and down projections with
+    biases, which the llama-keyed loaders read (and ``quantize_float``
+    rotates), qkv and gate / up without."""
+    nkv, dh = cfg.num_kv_heads, cfg.head_dim
+    for li in range(cfg.num_layers):
+        p, o = f"transformer.h.{li}.", f"model.layers.{li}.self_attn."
+        kv = _tensor(sd.pop(p + "self_attention.key_value.weight"))
+        r = kv.reshape(nkv, 2, dh, kv.shape[-1])
+        sd[o + "k_proj.weight"] = r[:, 0].reshape(nkv * dh, -1)
+        sd[o + "v_proj.weight"] = r[:, 1].reshape(nkv * dh, -1)
+        del kv, r
+    _rename(sd, cfg, "transformer.h.", {
+        "self_attention.query.weight": "self_attn.q_proj.weight",
+        "self_attention.dense.weight": "self_attn.o_proj.weight",
+        "self_attention.dense.bias": "self_attn.o_proj.bias",
+        **{f"mlp.{n}_proj.weight": f"mlp.{n}_proj.weight" for n in ("gate", "up", "down")},
+        "mlp.down_proj.bias": "mlp.down_proj.bias",
+        "input_layernorm.weight": "input_layernorm.weight",
+        "post_attention_layernorm.weight": "post_attention_layernorm.weight"},
+        {"transformer.word_embeddings.weight": "model.embed_tokens.weight",
+         "transformer.ln_f.weight": "model.norm.weight"})
+    return sd
+
+
+# arch -> its remap onto llama keys (config.REMAP_ARCHS), applied in place
+# by the llama-keyed loaders
+LLAMA_KEY_REMAPS: Dict[str, Callable] = {
+    "baichuan": baichuan_to_llama_keys, "internlm2": internlm2_to_llama_keys,
+    "qwen": qwen1_to_llama_keys, "exaone": exaone_to_llama_keys,
+    "telechat2": telechat2_to_llama_keys}
 
 
 # the projections of a layer-stacked tree: dense, or an MoE's
@@ -219,7 +474,8 @@ PROJ_KEYS = ("qkv", "o", "gate_up", "down", "experts_gate_up", "experts_down",
 
 # only the ported converters: a family not here raises in load_family_float
 CONVERTERS: Dict[str, Callable] = {"bloom": convert_bloom, "mpt": convert_mpt,
-                                   "deepseek": convert_deepseek}
+                                   "deepseek": convert_deepseek, "falcon": convert_falcon,
+                                   "jais": convert_jais}
 
 
 def load_family_float(sd: Dict, cfg: ModelConfig, device=None):

@@ -33,15 +33,23 @@ Port of ``qspec_tpu/model_loader/loader.py``:
 Scope: the llama graph's dense families (Llama, Mistral, Phi-3, Qwen2,
 Qwen3, Gemma, Granite) without tensor parallelism, split or fused (phi-3)
 q/k/v and gate/up, the qkv bias (split or fused) where the config declares
-it, and in ``load_hf_float`` / ``quantize_float`` the sparse-MoE layouts
-(Mixtral's ``block_sparse_moe``, Qwen2-MoE's and Qwen3-MoE's
-``mlp.experts`` with the shared expert and its gate) and Qwen3's q/k norms,
-where the config declares them (an undeclared one raises, naming the config
-field). The other layouts the JAX loaders take (other biased projections,
-the families its ``LLAMA_KEY_REMAPS`` maps onto llama keys,
-sequence-classification heads, tensor-parallel layouts, the VLM and audio
-towers; in ``load_qspec``, as in the JAX one, experts and q/k norms) raise
-``NotImplementedError`` naming their ROADMAP item. The state-dict loaders
+it, the o and down biases where the checkpoint has them (TeleChat2;
+``quantize_float`` rotates them into the residual basis, b -> b Q, where
+the JAX one drops them), and in ``load_hf_float`` / ``quantize_float`` the
+sparse-MoE layouts (Mixtral's ``block_sparse_moe``, Qwen2-MoE's and
+Qwen3-MoE's ``mlp.experts`` with the shared expert and its gate) and Qwen3's
+q/k norms, where the config declares them (an undeclared one raises, naming
+the config field). ``load_hf_float`` and ``quantize_float`` first map a
+remap family's checkpoint (Baichuan, InternLM2, Qwen v1, EXAONE, TeleChat2:
+``families.LLAMA_KEY_REMAPS``) onto llama keys; such a layout under a config
+of another arch raises, naming the arch that reads it. The other layouts
+the JAX loaders take (a gate / up bias, sequence-classification heads,
+tensor-parallel layouts, the VLM and audio towers; in ``load_qspec``, as
+in the JAX one, experts, q/k norms and the o / down biases) raise
+``NotImplementedError`` naming their ROADMAP item. Under QuaRot every width
+the rotations need (the hidden size, the head count, the MLP's) must have a
+Hadamard construction: one without (Baichuan-13B's 13696 = 2^7 x 107)
+raises before any work. The state-dict loaders
 ``load_hf_float`` and ``quantize_float`` consume the dict they are given (each entry is removed
 as it is converted, as ``families.py`` does), so the peak memory stays
 near one copy of the float weights; ``load_qspec`` leaves it as it is.
@@ -59,14 +67,14 @@ import numpy as np
 import torch
 
 from qspec_tpu_torch.config import ModelConfig
-from qspec_tpu_torch.model_loader.families import PROJ_KEYS, _Stacker, _take
+from qspec_tpu_torch.model_loader.families import (LLAMA_KEY_REMAPS, PROJ_KEYS, _Stacker,
+                                                   _take, position_params)
 from qspec_tpu_torch.models.llama import (_f32_tensor, check_served, make_hadamards,
                                           pack_lm_head, pack_proj_weight, resolve_device)
 from qspec_tpu_torch.models.registry import resolve
 from qspec_tpu_torch.ops.hadamard import (decompose_dim, hadamard_matrix,
                                           random_hadamard_matrix)
 from qspec_tpu_torch.ops.packing import repack_from_reference
-from qspec_tpu_torch.ops.rotary import make_rope_cache
 
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
           "I32": torch.int32, "I8": torch.int8, "U8": torch.uint8}
@@ -140,16 +148,20 @@ def quant_method_of(path: str) -> Optional[str]:
 # key fragments of the layouts the JAX loaders take and the port does not,
 # each with what it is and its ROADMAP item
 UNPORTED_KEYS = (
-    (("self_attn.o_proj.bias", "mlp.down_proj.bias", "mlp.gate_proj.bias",
-      "mlp.up_proj.bias", "mlp.gate_up_proj.bias"),
-     "biased projections (attention_bias's o bias, an MLP bias)", "queue 1 item 9"),
-    (("self_attn.W_pack.", "attention.wqkv.", "model.tok_embeddings.", "attn.c_attn.",
-      "attn.attention.q_proj.", "self_attention.query."),
-     "a layout the JAX package maps onto llama keys (LLAMA_KEY_REMAPS: baichuan, "
-     "internlm2, qwen, exaone, telechat2)", "queue 1 item 9"),
+    (("mlp.gate_proj.bias", "mlp.up_proj.bias", "mlp.gate_up_proj.bias"),
+     "an MLP's gate / up bias (mlp_bias)", "queue 1 item 9"),
     (("score.weight", "score.0.weight", "classifier.weight", "v_head.weight"),
      "a sequence-classification / reward head (score_head)", "queue 1 item 10"),
 )
+# key fragments of the layouts LLAMA_KEY_REMAPS maps onto llama keys, each
+# with the arch that reads it: under a config of that arch the loaders
+# remap them first, under any other they raise
+REMAP_KEYS = (("self_attn.W_pack.", "baichuan"), ("attention.wqkv.", "internlm2"),
+              ("model.tok_embeddings.", "internlm2"), ("attn.c_attn.", "qwen"),
+              ("attn.attention.q_proj.", "exaone"), ("self_attention.query.", "telechat2"))
+# the o / down biases: read by load_hf_float and quantize_float, not by
+# load_qspec (the JAX load_qspec reads no bias)
+OD_BIAS_KEYS = ("self_attn.o_proj.bias", "mlp.down_proj.bias")
 
 # key fragments of the layouts load_hf_float and quantize_float take where
 # the config declares them, each with what it is and the config field that
@@ -167,12 +179,10 @@ DECLARED_KEYS = (
 )
 
 
-def _check_llama_keyed(sd: Dict, cfg: ModelConfig, qspec: bool = False) -> None:
-    """Raise for what the port's llama-keyed loaders do not take: Gemma-2's
-    post-block norms under QuaRot (the JAX package refuses them too),
-    DeepSeek-MoE's layout (``families.convert_deepseek``), the layouts of
-    ``UNPORTED_KEYS``, and those of ``DECLARED_KEYS`` where the config does
-    not declare them (under ``qspec``: at all, nor an MoE config)."""
+def _check_graph(cfg: ModelConfig) -> None:
+    """Raise for a graph the llama-keyed loaders do not build: Gemma-2's
+    post-block norms under QuaRot (the JAX package refuses them too) and
+    DeepSeek-MoE's layout (``families.convert_deepseek``)."""
     if cfg.post_norms and cfg.quant == "w4":
         raise NotImplementedError(
             "QuaRot folds each norm's gamma into the projections after it, and "
@@ -186,11 +196,34 @@ def _check_llama_keyed(sd: Dict, cfg: ModelConfig, qspec: bool = False) -> None:
             "DeepSeek-MoE (a dense prefix, mlp.shared_experts) is not a llama-keyed "
             "layout: it loads in bf16 through model_loader.families.convert_deepseek "
             "(LLM(model=<dir>, quantization=None))")
+
+
+def _check_llama_keyed(sd: Dict, cfg: ModelConfig, qspec: bool = False) -> None:
+    """Raise for what the port's llama-keyed loaders do not take: Gemma-2's
+    post-block norms under QuaRot (the JAX package refuses them too),
+    DeepSeek-MoE's layout (``families.convert_deepseek``), the layouts of
+    ``UNPORTED_KEYS``, and those of ``DECLARED_KEYS`` where the config does
+    not declare them (under ``qspec``: at all, nor an MoE config)."""
+    _check_graph(cfg)
     for fragments, what, item in UNPORTED_KEYS:
         hit = next((k for k in sd if any(f in k for f in fragments)), None)
         if hit is not None:
             raise NotImplementedError(f"checkpoint key {hit!r}: {what} is not ported "
                                       f"(ROADMAP {item})")
+    for fragment, arch in REMAP_KEYS:
+        hit = next((k for k in sd if fragment in k), None)
+        if hit is not None:
+            raise NotImplementedError(
+                f"checkpoint key {hit!r}: a layout that LLAMA_KEY_REMAPS maps onto llama "
+                f"keys, read under arch {arch!r} (its config.json's architectures name "
+                f"it), not under a config of arch {cfg.arch!r}"
+                + ("; load_qspec reads llama keys only" if qspec else ""))
+    if qspec:
+        hit = next((k for k in sd if any(f in k for f in OD_BIAS_KEYS)), None)
+        if hit is not None:
+            raise NotImplementedError(f"checkpoint key {hit!r}: load_qspec reads no o / down "
+                                      "bias (the JAX load_qspec reads none; ROADMAP queue 1 "
+                                      "item 9)")
     if qspec and cfg.num_experts:
         raise NotImplementedError("load_qspec of a mixture-of-experts config: the "
                                   "reference QSpec format has no experts (the JAX "
@@ -230,11 +263,47 @@ def _source(path_or_sd, cfg: Optional[ModelConfig]):
     return read_safetensors(path_or_sd), cfg or config_from_hf_dir(path_or_sd)
 
 
-def _common(cfg: ModelConfig, device) -> dict:
-    """The rope cache (``loader.py::_common`` of the JAX package)."""
-    return {"rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
-                                          cfg.rope_theta, rope_scaling=cfg.rope_scaling,
-                                          device=device)}
+def _remap(sd: Dict, cfg: ModelConfig) -> Dict:
+    """A remap family's checkpoint onto llama keys, in place
+    (``families.LLAMA_KEY_REMAPS``; the JAX ``quantize_float`` remaps the
+    same way, its ``load_family_float`` too)."""
+    fn = LLAMA_KEY_REMAPS.get(cfg.arch)
+    return sd if fn is None else fn(sd, cfg)
+
+
+def check_rotatable(cfg: ModelConfig) -> None:
+    """Raise, before any work, where QuaRot has no Hadamard for one of the
+    widths it rotates: the hidden size (Q), the head count and the MLP's
+    width (an MoE's expert and shared-expert widths)."""
+    widths = (("hidden size", cfg.hidden_size), ("head count", cfg.num_heads),
+              ("MLP width", cfg.expert_intermediate_size if cfg.num_experts
+               else cfg.intermediate_size),
+              ("shared expert width", cfg.shared_expert_intermediate_size))
+    for what, n in widths:
+        if not n:
+            continue
+        try:
+            decompose_dim(n) if what != "head count" else hadamard_matrix(n)
+        except NotImplementedError:
+            raise NotImplementedError(
+                f"QuaRot rotation of {cfg.arch!r}: its {what} {n} has no Hadamard "
+                "construction (n = K x 2^p needs a Sylvester, Paley or stored H_K; "
+                "Baichuan-13B's 13696 = 2^7 x 107 has none), so it cannot be rotated "
+                "and quantized; serve it in bf16 (quantization=None)") from None
+
+
+def _od_biases(sd, num_layers: int) -> tuple:
+    """Whether the checkpoint has the o bias and the down bias (OD_BIAS_KEYS):
+    where any layer has one, every layer must, or it raises naming them."""
+    out = []
+    for b in OD_BIAS_KEYS:
+        have = [f"model.layers.{li}.{b}" in sd for li in range(num_layers)]
+        if any(have) and not all(have):
+            raise ValueError(f"{b} on layers {[i for i, h in enumerate(have) if h]} but not "
+                             f"on {[i for i, h in enumerate(have) if not h]}: a bias read on "
+                             "some layers only would leave the others without it")
+        out.append(any(have))
+    return tuple(out)
 
 
 def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
@@ -244,14 +313,19 @@ def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
     CPU), the
     JAX ``load_hf_float``'s llama-keyed branch: q|k|v and gate|up
     concatenated (or phi-3's fused ``qkv_proj`` / ``gate_up_proj``), the
+    biases it reads (qkv where declared, o and down where present), the
     gammas (plus ``norm_weight_offset``) in bf16, the head tied to the
-    embedding's storage when the checkpoint has no ``lm_head.weight``."""
+    embedding's storage when the checkpoint has no ``lm_head.weight``. A
+    remap family's checkpoint is mapped onto llama keys first (the JAX
+    package's ``load_family_float`` of it)."""
     sd, cfg = _source(path_or_sd, cfg)
     cfg = dataclasses.replace(cfg, quant="none")
     check_served(cfg)
+    sd = _remap(sd, cfg)
     _check_llama_keyed(sd, cfg)
     dev = resolve_device(device)
     st = _Stacker(sd, cfg.num_layers, dev)
+    o_bias, down_bias = _od_biases(sd, cfg.num_layers)
 
     def t(name):
         return _take(sd, name, dev).t()
@@ -269,6 +343,10 @@ def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
         if cfg.qkv_bias:
             st.put("qkv.b", li, _qkv_bias(sd, p, lambda k: _take(sd, k, dev)))
         st.put("o", li, t(p + "self_attn.o_proj.weight"))
+        if o_bias:
+            st.put("o.b", li, _take(sd, p + "self_attn.o_proj.bias", dev))
+        if down_bias:
+            st.put("down.b", li, _take(sd, p + "mlp.down_proj.bias", dev))
         if cfg.num_experts:
             m, names = _moe_names(sd, p)
             st.put("router", li, t(m + "gate.weight"))
@@ -300,14 +378,15 @@ def load_hf_float(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
             st.put("k_norm", li, norm(p + "self_attn.k_norm.weight"))
     o = st.out
     layers = {name: {"w": o.pop(name)} for name in PROJ_KEYS if name in o}
-    if "qkv.b" in o:
-        layers["qkv"]["b"] = o.pop("qkv.b")
+    for name in ("qkv", "o", "down"):
+        if f"{name}.b" in o:
+            layers[name]["b"] = o.pop(f"{name}.b")
     layers.update(o)
     embed = _take(sd, "model.embed_tokens.weight", dev)
     head = (_take(sd, "lm_head.weight", dev).t().contiguous() if "lm_head.weight" in sd
             else embed.t())
     params = {"embed": embed, "lm_head": head, "layers": layers,
-              "final_norm": norm("model.norm.weight"), **_common(cfg, dev)}
+              "final_norm": norm("model.norm.weight"), **position_params(cfg, dev)}
     return params, cfg
 
 
@@ -352,9 +431,9 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     caller asks for the CPU):
 
         qkv      <- Q^T (gamma_in * W_qkv)   (its bias as it is)
-        o        <- (H_heads mixing the heads of W_o's rows) Q
+        o        <- (H_heads mixing the heads of W_o's rows) Q, its bias b Q
         gate|up  <- Q^T (gamma_post * W)     (each expert's, the shared one's)
-        down     <- (H_I W_down) Q           (each expert's; the shared
+        down     <- (H_I W_down) Q, b Q      (each expert's; the shared
                                               expert's by H of its width)
         router, shared_gate <- Q^T (gamma_post * W), in bf16
         embed    <- embed Q;  lm_head <- Q^T (gamma_final * W_lm)
@@ -363,13 +442,19 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     each projection quantized per output channel and packed
     (``pack_proj_weight``), the head by ``pack_lm_head``. ``bits=None``
     keeps the rotated weights in bf16 (the rotation algebra without
-    quantization). Each layer's float tensors are freed as it is packed."""
+    quantization). Each layer's float tensors are freed as it is packed.
+    A remap family's checkpoint is mapped onto llama keys first, as the JAX
+    ``quantize_float`` maps it; the o / down biases it drops are rotated
+    here. A width without a Hadamard raises first (``check_rotatable``)."""
     if bits not in (4, None):
         raise ValueError(f"bits={bits!r}: 4 or None")
     sd, cfg = _source(path_or_sd, cfg)
     cfg = dataclasses.replace(cfg, quant="w4")
-    _check_llama_keyed(sd, cfg)
+    check_rotatable(cfg)
+    _check_graph(cfg)
     check_served(cfg)
+    sd = _remap(sd, cfg)
+    _check_llama_keyed(sd, cfg)
     dev = resolve_device(device)
     _require_exact_f32(dev)
     kind = "w4" if bits == 4 else "none"
@@ -394,6 +479,14 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
 
     st = _Stacker(sd, L, dev)
     put, layers = st.put, st.out
+    o_bias, down_bias = _od_biases(sd, L)
+
+    def rotated_bias(name):
+        """The o / down bias ``name`` rotated into the residual basis, where
+        the checkpoint has them (each layer's then required)."""
+        if not (o_bias if name.endswith("o_proj.bias") else down_bias):
+            return None
+        return _f32_tensor(sd.pop(name), dev) @ Q
 
     def rotate_in(w):
         """A weight reading the post-attention norm's output: its gamma
@@ -418,7 +511,8 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
         # o's input: undo the online per-head Hadamard; its output: Q
         o_w = t(p + "self_attn.o_proj.weight").reshape(nh, hd, H)
         o_w = torch.einsum("jh,hdk->jdk", H_heads, o_w).reshape(nh * hd, H) @ Q
-        put("o", li, pack_proj_weight(o_w, kind))
+        # a bias on o or down adds to the residual stream: into its basis, b Q
+        put("o", li, pack_proj_weight(o_w, kind, bias=rotated_bias(p + "self_attn.o_proj.bias")))
         del o_w
         if E:
             # every expert as the dense MLP; the router and the shared gate
@@ -456,7 +550,8 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
             # the online transform is y_row = a_row @ H_I^T, so the weight
             # takes the untransposed H_I (H_28 is not symmetric)
             down = (H_I @ t(p + "mlp.down_proj.weight")) @ Q
-            put("down", li, pack_proj_weight(down, kind))
+            put("down", li, pack_proj_weight(down, kind,
+                                             bias=rotated_bias(p + "mlp.down_proj.bias")))
             del down
         if cfg.qk_norm:
             # after the projection, in the per-head basis the rotations do
@@ -470,7 +565,7 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     lm_head = pack_lm_head(Q.T @ (gfin * lm), cfg, dev)
     del lm
     params = {"embed": (embed @ Q).to(torch.bfloat16), "lm_head": lm_head,
-              "layers": layers, "hadamards": make_hadamards(cfg, dev), **_common(cfg, dev)}
+              "layers": layers, "hadamards": make_hadamards(cfg, dev), **position_params(cfg, dev)}
     return params, cfg
 
 
@@ -531,6 +626,6 @@ def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
         "lm_head": pack_lm_head(_f32_tensor(lm, dev).t(), cfg, dev),
         "layers": stacked,
         "hadamards": make_hadamards(cfg, dev),
-        **_common(cfg, dev),
+        **position_params(cfg, dev),
     }
     return params, cfg

@@ -23,13 +23,21 @@ On these rmsnorm graphs each "+residual" runs inside the norm after it
 x + o, stores it and normalizes it), the last one inside the final norm; a
 layer hands its ``down`` to the next unadded.
 
-A float checkpoint (``quant="none"``: BLOOM, MPT) runs the bf16 scheme, a
-plain bf16 GEMM with an f32 result per projection (``jnp.dot`` in the JAX
-package, no Pallas kernel there either), with the GPT-family knobs:
+A float checkpoint (``quant="none"``: BLOOM, MPT, Falcon, JAIS) runs the
+bf16 scheme, a plain bf16 GEMM with an f32 result per projection
+(``jnp.dot`` in the JAX package, no Pallas kernel there either), with the
+GPT-family knobs:
 
     x - [embed LayerNorm] - LayerNorm(+beta) - qkv(+b) - [clip] - paged KV
       write - attention with ALiBi (no rope) - o(+b) - +residual
       - LayerNorm(+beta) - fc1(+b) - gelu - fc2(+b) - +residual
+
+and Falcon's parallel block (``parallel_block``), both branches reading the
+same residual x:
+
+    x - LayerNorm - qkv - rope - attention - o ---------------+
+      - (the same normed x, or under parallel_norms=2 a second  x + o + down
+         LayerNorm of x) - fc1 - gelu - fc2 - down -----------+
 
 Gemma-2 (``arch="gemma2"``, served as ``quant="w4g"``) is the same w4g
 graph with its own knobs, as in the JAX package: embeddings times
@@ -385,9 +393,11 @@ def layer_window(cfg: ModelConfig, li: int) -> Optional[int]:
 
 def float_knobs(cfg: ModelConfig) -> bool:
     """Whether ``cfg`` takes a knob of the GPT-family float graph: LayerNorm,
-    the non-gated MLP, ALiBi, linear biases or clip_qkv."""
+    the non-gated MLP, ALiBi, linear biases, clip_qkv or the parallel
+    block."""
     return (cfg.norm_type != "rmsnorm" or not cfg.mlp_gated or cfg.linear_bias
-            or cfg.position_embedding != "rope" or cfg.clip_qkv is not None)
+            or cfg.position_embedding != "rope" or cfg.clip_qkv is not None
+            or cfg.parallel_block)
 
 
 def check_served(cfg: ModelConfig) -> None:
@@ -404,8 +414,8 @@ def check_served(cfg: ModelConfig) -> None:
                                   "does not compose with its post-block norms")
     if float_knobs(cfg) and cfg.quant != "none":
         raise NotImplementedError("LayerNorm, the non-gated MLP, ALiBi, linear "
-                                  "biases and clip_qkv are served with bf16 "
-                                  "weights (quant='none') only")
+                                  "biases, clip_qkv and the parallel block are "
+                                  "served with bf16 weights (quant='none') only")
     if cfg.num_experts and cfg.quant == "w4g":
         raise NotImplementedError("an AWQ / GPTQ (quant='w4g') MoE is not ported: the "
                                   "JAX package's grouped loaders have no experts")
@@ -442,7 +452,8 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
     bits = {"w4a4": 4, "w4a8": 8}.get(scheme)
     quarot = cfg.quant == "w4"
     gamma_in = None if quarot else layers["input_norm"][wi]
-    gamma_post = None if quarot else layers["post_norm"][wi]
+    # a parallel block of one norm has no post-attention norm
+    gamma_post = None if quarot or "post_norm" not in layers else layers["post_norm"][wi]
     beta_in, beta_post = (layers[n][wi] if n in layers else None
                           for n in ("input_norm_b", "post_norm_b"))
 
@@ -483,8 +494,17 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         # Granite scales each block's output before the residual add
         o = o * cfg.residual_multiplier
 
-    xn, xq, x = _norm_maybe_quant(x, o.to(x.dtype), gamma_post, eps, bits, beta_post,
-                                  cfg.norm_type)
+    if cfg.parallel_block:
+        # the MLP reads the layer's input too: the attention's normed rows,
+        # or its own norm of them (Falcon-40B's ln_mlp); x + o now, the
+        # down by the next norm, as the JAX package's (x + o) + down rounds
+        if cfg.parallel_norms == 2:
+            xn, xq, _ = _norm_maybe_quant(x, None, gamma_post, eps, bits, beta_post,
+                                          cfg.norm_type)
+        x = x + o.to(x.dtype)
+    else:
+        xn, xq, x = _norm_maybe_quant(x, o.to(x.dtype), gamma_post, eps, bits, beta_post,
+                                      cfg.norm_type)
     if cfg.num_experts:
         delta = _moe_block(xn, xq, layers, wi, cfg, scheme, hadamards)
         if cfg.residual_multiplier != 1.0:
@@ -832,10 +852,16 @@ def _extra_layer_params(layers: dict, cfg: ModelConfig, L: int, moe: bool, norma
 def alibi_params(cfg: ModelConfig, device) -> dict:
     """``{"alibi_slopes": f32 [Hq]}`` on ``device`` for an ALiBi model, made
     once per model (the attention kernel indexes them by query head), else
-    ``{}``."""
+    ``{}``. Falcon (falcon-rw) adds its bias before the 1 / sqrt(d) score
+    scale, as Hugging Face's ``FalconAttention`` and vLLM's ``falcon.py``
+    do, so its slopes carry that scale (the JAX package's do not: ROADMAP
+    §3)."""
     if cfg.position_embedding != "alibi":
         return {}
-    return {"alibi_slopes": torch.as_tensor(alibi_slopes(cfg.num_heads), device=device)}
+    slopes = alibi_slopes(cfg.num_heads)
+    if cfg.arch == "falcon":
+        slopes = slopes * np.float32(1.0 / math.sqrt(cfg.head_dim))
+    return {"alibi_slopes": torch.as_tensor(slopes, device=device)}
 
 
 def _init_float_params(cfg: ModelConfig, seed: int, dev: torch.device):
@@ -862,9 +888,12 @@ def _init_float_params(cfg: ModelConfig, seed: int, dev: torch.device):
             layers[name] = {"w": normal(L, *lead, k, n)}
             if cfg.linear_bias:
                 layers[name]["b"] = normal(L, n, std=0.01)
-        layers["input_norm"], layers["post_norm"] = ones(L, H), ones(L, H)
-        if cfg.norm_type == "layernorm":
-            layers["input_norm_b"], layers["post_norm_b"] = zeros(L, H), zeros(L, H)
+        norms = ("input_norm",) + (() if cfg.parallel_block and cfg.parallel_norms == 1
+                                    else ("post_norm",))
+        for n in norms:
+            layers[n] = ones(L, H)
+            if cfg.norm_type == "layernorm":
+                layers[n + "_b"] = zeros(L, H)
         params[key] = _extra_layer_params(
             layers, cfg, L, moe, lambda *shape, std=0.02: normal(*shape, std=std).float(), dev)
     params.update(embed=normal(cfg.vocab_size, H), final_norm=ones(H), **alibi_params(cfg, dev))

@@ -17,10 +17,22 @@ norms, alternating window; AWQ / GPTQ); ``BloomForCausalLM`` and
 (``_moe_block``): ``MixtralForCausalLM``, ``Qwen2MoeForCausalLM`` (the
 shared expert, the qkv bias), ``Qwen3MoeForCausalLM`` (the q/k norms) and
 ``DeepseekForCausalLM`` (a dense prefix, ungated shared experts; bf16
-checkpoints). Any other architecture raises.
+checkpoints).
+
+The llama graph under other key names (``LLAMA_KEY_REMAPS``), QuaRot at
+load or bf16: ``BaiChuanForCausalLM`` (Baichuan-7B, rope),
+``BaichuanForCausalLM`` (rope at hidden 4096: Baichuan2-7B; ALiBi
+otherwise: Baichuan-13B, Baichuan2-13B, served in bf16, as vLLM's
+``baichuan.py`` picks; the JAX registry gives every one ALiBi),
+``InternLM2ForCausalLM`` / ``InternLM2VEForCausalLM``, ``QWenLMHeadModel``
+(Qwen v1), ``ExaoneForCausalLM``, ``TeleChat2ForCausalLM``; and in bf16
+``FalconForCausalLM`` / ``RWForCausalLM`` (parallel blocks, or falcon-rw's
+ALiBi) and ``JAISLMHeadModel``. Any other architecture raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from qspec_tpu_torch.config import LLAMA_GRAPH_TYPES, ModelConfig
 
@@ -39,7 +51,15 @@ ARCHITECTURES = {"LlamaForCausalLM": "llama", "QuarotLlamaForCausalLM": "llama",
                  "MixtralForCausalLM": "mixtral", "mixtral": "mixtral",
                  "Qwen2MoeForCausalLM": "qwen2_moe", "qwen2_moe": "qwen2_moe",
                  "Qwen3MoeForCausalLM": "qwen3_moe", "qwen3_moe": "qwen3_moe",
-                 "DeepseekForCausalLM": "deepseek", "deepseek": "deepseek"}
+                 "DeepseekForCausalLM": "deepseek", "deepseek": "deepseek",
+                 "BaiChuanForCausalLM": "baichuan", "BaichuanForCausalLM": "baichuan",
+                 "baichuan": "baichuan", "InternLM2ForCausalLM": "internlm2",
+                 "InternLM2VEForCausalLM": "internlm2", "internlm2": "internlm2",
+                 "QWenLMHeadModel": "qwen", "qwen": "qwen",
+                 "ExaoneForCausalLM": "exaone", "exaone": "exaone",
+                 "TeleChat2ForCausalLM": "telechat2", "telechat2": "telechat2",
+                 "FalconForCausalLM": "falcon", "RWForCausalLM": "falcon", "falcon": "falcon",
+                 "JAISLMHeadModel": "jais", "jais": "jais"}
 # the architectures whose config.json model type the JAX registry keeps (its
 # LlamaForCausalLM, MistralForCausalLM and Phi3ForCausalLM entries call
 # from_hf_config on the dict as it is; a Qwen2 entry then sets the qwen2
@@ -60,6 +80,10 @@ def resolve(hf_config: dict) -> ModelConfig:
             mt = hf_config.get("model_type", "") if a in KEEP_MODEL_TYPE else ""
             if not any(f in mt for f, _ in LLAMA_GRAPH_TYPES):
                 mt = ARCHITECTURES[a]
-            return ModelConfig.from_hf_config({**hf_config, "model_type": mt})
+            cfg = ModelConfig.from_hf_config({**hf_config, "model_type": mt})
+            if a == "BaichuanForCausalLM" and hf_config["hidden_size"] != 4096:
+                # Baichuan-13B / Baichuan2-13B
+                cfg = dataclasses.replace(cfg, position_embedding="alibi")
+            return cfg
     raise NotImplementedError(f"unsupported architectures {archs}; ported: "
                               f"{sorted(ARCHITECTURES)}")

@@ -2,8 +2,10 @@
 
 Port of ``qspec_tpu/ops/rotary.py`` (plain rope, llama3-style scaling and
 Phi-3's longrope; the JAX package leaves rope to XLA, so it stays torch ops
-here). Any other rope scaling raises: the JAX package returns the unscaled
-cache for it (ROADMAP §3).
+here). A dynamic NTK scaling (InternLM2) changes the base only past its
+original window, so inside it the cache is the plain one; a cache past that
+window raises. Any other rope scaling raises: the JAX package returns the
+unscaled cache for it (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def make_rope_cache(head_dim: int, max_positions: int = 8192, base: float = 5000
                     device=None) -> torch.Tensor:
     """[2, max_positions, head_dim//2] float32 (cos, sin); llama3-style
     rope scaling (low/high frequency factors) and Phi-3's longrope ("su"),
-    as in the JAX package."""
+    as in the JAX package; "dynamic" (NTK) inside its
+    ``original_max_position_embeddings``, where it is the plain cache."""
     cache = _cos_sin_cache(head_dim, max_positions, base, scaling_factor)
     if rope_scaling and rope_scaling.get("rope_type", rope_scaling.get("type")) == "llama3":
         factor = rope_scaling["factor"]
@@ -64,6 +67,13 @@ def make_rope_cache(head_dim: int, max_positions: int = 8192, base: float = 5000
         freqs = np.where((t >= orig_ctx)[:, None], np.outer(t, inv_freq / long),
                          np.outer(t, inv_freq / short))
         cache = (np.stack([np.cos(freqs), np.sin(freqs)], axis=0) * mscale).astype(np.float32)
+    elif rope_scaling and rope_scaling.get("rope_type", rope_scaling.get("type")) == "dynamic":
+        window = rope_scaling.get("original_max_position_embeddings")
+        if window is None or max_positions > window:
+            raise NotImplementedError(
+                f"dynamic NTK rope over {max_positions} positions, past its window of "
+                f"{window}: the base grows with the sequence past the window, which the "
+                "port does not serve (inside it the rope is the plain one)")
     elif rope_scaling:
         raise NotImplementedError(f"rope_scaling {rope_scaling!r} is not ported")
     return torch.as_tensor(np.ascontiguousarray(cache), device=device)

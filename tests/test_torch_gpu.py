@@ -1510,3 +1510,117 @@ def test_norm_kernels_at_qwen2_and_gemma_widths(gen, h):
                                                rtol=2e-2, atol=2e-2)
                 if res is not None:
                     assert torch.equal(got[-1], want[-1])
+
+
+# ------------------------------------------ the remap and float families
+
+
+def _tiny_family(family):
+    """(cfg, state dict on the CPU in the family's own keys): a tiny
+    InternLM2 (hidden 256, 4 heads of 64 over 2 KV heads, the wqkv rows
+    interleaved per KV group, intermediate 448) or a tiny Falcon-40B layout
+    (hidden 256, 4 heads of 64 over 2, ln_attn and ln_mlp perturbed)."""
+    from qspec_tpu_torch.models.registry import resolve
+    g = torch.Generator().manual_seed(11)
+
+    def w(*shape, s=0.05):
+        return torch.randn(shape, generator=g) * s
+    H, V, L = 256, 512, 2
+    if family == "internlm2":
+        cfg = resolve(dict(architectures=["InternLM2ForCausalLM"], model_type="internlm2",
+                           hidden_size=H, intermediate_size=448, num_attention_heads=4,
+                           num_key_value_heads=2, num_hidden_layers=L, vocab_size=V,
+                           rope_theta=1e6, rope_scaling={"type": "dynamic", "factor": 2.0},
+                           max_position_embeddings=256))
+        sd = {"model.tok_embeddings.weight": w(V, H), "model.norm.weight": 1 + w(H, s=0.1),
+              "output.weight": w(V, H)}
+        for li in range(L):
+            p = f"model.layers.{li}."
+            sd.update({p + "attention_norm.weight": 1 + w(H, s=0.1),
+                       p + "attention.wqkv.weight": w(cfg.qkv_out, H),
+                       p + "attention.wo.weight": w(H, H), p + "ffn_norm.weight": 1 + w(H, s=0.1),
+                       p + "feed_forward.w1.weight": w(448, H),
+                       p + "feed_forward.w3.weight": w(448, H),
+                       p + "feed_forward.w2.weight": w(H, 448)})
+        return cfg, sd
+    cfg = resolve(dict(architectures=["FalconForCausalLM"], model_type="falcon", alibi=False,
+                       bias=False, hidden_size=H, new_decoder_architecture=True,
+                       num_attention_heads=4, num_kv_heads=2, num_hidden_layers=L,
+                       parallel_attn=True, vocab_size=V, max_position_embeddings=256))
+    sd = {"transformer.word_embeddings.weight": w(V, H),
+          "transformer.ln_f.weight": 1 + w(H, s=0.3), "transformer.ln_f.bias": w(H, s=0.3)}
+    for li in range(L):
+        p = f"transformer.h.{li}."
+        for n in ("ln_attn", "ln_mlp"):
+            sd[p + n + ".weight"], sd[p + n + ".bias"] = 1 + w(H, s=0.3), w(H, s=0.3)
+        sd.update({p + "self_attention.query_key_value.weight": w(cfg.qkv_out, H),
+                   p + "self_attention.dense.weight": w(H, H),
+                   p + "mlp.dense_h_to_4h.weight": w(4 * H, H),
+                   p + "mlp.dense_4h_to_h.weight": w(H, 4 * H)})
+    return cfg, sd
+
+
+@pytest.mark.parametrize("family", ["internlm2", "falcon40b"])
+def test_tiny_remap_and_falcon_on_card_match_cpu(gen, family):
+    """A tiny InternLM2 (remapped and quantized by quantize_float on the
+    CPU, QuaRot) and a tiny Falcon-40B layout (load_family_float, bf16, two
+    parallel norms) on the card against the same parameters on the CPU:
+    logits within a relative L2 of 2e-2; the CPU's greedy tokens,
+    teacher-forced through the card's forward, are its argmax but at the
+    CPU's near-ties (top-2 margin under 2e-2); through the engine on the
+    card, greedy QSpec W4A4 (InternLM2) or n-gram (Falcon) equals its oracle
+    and gives the CPU engine's tokens wherever the CPU's margins are
+    clear."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SamplingParams,
+                                 SchedulerConfig, SpeculativeConfig)
+    from qspec_tpu_torch.model_loader.families import load_family_float
+    from qspec_tpu_torch.model_loader.loader import quantize_float
+    from qspec_tpu_torch.models.llama import AttentionBatch, model_forward
+    cfg, sd = _tiny_family("internlm2" if family == "internlm2" else "falcon")
+    if family == "internlm2":
+        cpu, cfg = quantize_float(sd, cfg, device="cpu")
+        method, scheme = "qspec", "w4a16"
+    else:
+        cpu, cfg = load_family_float(sd, cfg, device="cpu")
+        method, scheme = "ngram", "bf16"
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+    card = to(cpu, "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, size=int(n)).tolist() for n in (9, 20, 31)]
+    prompts[1] = prompts[1][:5] * 4
+
+    def run(dev, params, m):
+        spec = SpeculativeConfig(num_speculative_tokens=3, method=m) if m else None
+        eng = LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=16, num_pages=32),
+            scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=128, prefill_chunk_size=64),
+            speculative=spec), params, device=dev, seed=0)
+        return _greedy(eng, prompts, 12)
+
+    def logits(dev, params, toks):
+        S, T = 16, len(toks)
+        cache = kvc.allocate(kvc.KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
+                                               cfg.cache_head_dim, 8, S), dev)
+        pos = torch.arange(T, device=dev)[None]
+        batch = AttentionBatch(pos, pos + S, torch.arange(1, 8, dtype=torch.int32,
+                                                          device=dev)[None],
+                               torch.tensor([T], dtype=torch.int32, device=dev))
+        out, _ = model_forward(params, cfg, torch.tensor([toks], device=dev), cache, batch,
+                               scheme=scheme)
+        return out[0].float().cpu()
+
+    cpu_toks = run("cpu", cpu, None)
+    card_spec = run("cuda", card, method)
+    assert card_spec == run("cuda", card, "qspec_null" if method == "qspec" else "null")
+    for p, got, want in zip(prompts, card_spec, cpu_toks):
+        seq = p + want
+        ref, out = logits("cpu", cpu, seq), logits("cuda", card, seq)
+        assert ((out - ref).norm() / ref.norm()).item() <= 2e-2
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) >= 2e-2
+        gen_pos = torch.arange(len(p) - 1, len(seq) - 1)
+        assert (out.argmax(-1) == ref.argmax(-1))[clear].all()
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        assert first is None or not clear[gen_pos[first]], (got, want)
