@@ -153,7 +153,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    M = 4 and 16, against their plain versions (w4a4 bit for bit), through
    an expert-stacked weight read in place, and timed beside their
    yardsticks (check_moe_shapes, time_moe_shapes); (G1) Mixtral-8x7B at
-   full width and depth (random int4 weights made on the card) and (G2)
+   full width and MIXTRAL_LAYERS of its 32 layers (random int4 weights
+   made on the card) and (G2)
    Qwen1.5-MoE-A2.7B's widths at QWEN15_LAYERS layers through LLMEngine,
    QSpec (k = 3) at W4A4 and W4A8 / W4A8 == qspec_null, exactly the six
    QuaRot kernels in the counts check_moe_counts gives; (G3) Mixtral,
@@ -196,15 +197,30 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    qspec_null (phase_remap_dirs); (J3) Baichuan2-13B, JAIS-13B,
    falcon-rw-7b, Falcon-7B and Falcon-40B directories in bf16, n-gram ==
    null, Baichuan2-13B refused under QuaRot by its width
-   (phase_float_dirs; the kernel line's ``remap_launches``).
+   (phase_float_dirs; the kernel line's ``remap_launches``);
+20. the gptj rope and partial rotary (K): the attention at K_ATTN (GPT-J's
+   16 heads of 256, GPT-NeoX-20B's 64 of 96 and Phi-2's 32 of 80, both
+   stored 128-padded, Command-R's 64 of 128, GLM-4's group 16) and the
+   gamma rmsnorm at Helium's H = 2560 and GLM-4's 4096, alone and with the
+   residual add, against their plain versions, and timed at GPT-J-6B's and
+   GPT-NeoX-20B's verify and Helium's (check_k_shapes, time_k_shapes; the
+   kernel line's ``k_max_err`` and ``k_times``); (K1)
+   GPT-J-6B at full width and depth, random bf16 made on the card in GPT-J's
+   keys, converted by load_family_float there, n-gram (k = 3) == null, only
+   the D=256 attention launched, 28 a forward (phase_gptj_6b); (K2)
+   Pythia-6.9B, GPT-NeoX-20B, Phi-2, StableLM-2-1.6B, Command-R v01,
+   GLM-4-9B and Helium directories (published widths, 2 layers, their own
+   keys) through LLM(model=<dir>, quantization=None), n-gram == null, and
+   the refused layouts raising before a weight is read (phase_k_dirs; the
+   kernel line's ``k_launches``).
 
 It prints the kernel summary as one JSON line (each kernel's summary
-fields, its times at Qwen2-7B's shapes, ``qwen2_7b``, and at (J)'s,
-``j_times``: ms, plain ms, bound ms, library ms) and, last, the device JSON
-line. Every line also
+fields, its times at Qwen2-7B's shapes, ``qwen2_7b``, at (J)'s, ``j_times``,
+and at (K)'s, ``k_times``: ms, plain ms, bound ms, library ms) and, last,
+the device JSON line. Every line also
 goes to chiprun_out/chip_smoke.log, which alone has the per-case detail the
 standard output gives in short (the kernels line with every field and its
-launches in the paths of phases 12-19, the kernels' full `-Xptxas -v`
+launches in the paths of phases 12-20, the kernels' full `-Xptxas -v`
 summary, each tiny forward check, each long attention check, each
 grouped-GEMM shape's time).
 """
@@ -771,6 +787,53 @@ def check_norms_fused(report):
         "same across M, place, a second call and graph replay")
 
 
+def time_norm_shape(gen, name, m, h, bits, gamma) -> dict:
+    """One norm shape's times (time_norms' fields), its line to the log."""
+    from qspec_tpu_torch import _build
+    lib = _build.lib()
+    label = norm_label(name, m, h, bits, gamma)
+    rot = _norm_rot(gen, m, h)
+    g = _gamma(gen, h) if gamma else None
+    kern, plain = norm_fn(name, bits, g), norm_fn(name, bits, g, True)
+    reps = max(20, len(rot.sets))
+
+    def run(fn, fused):
+        x, r = rot.next()
+        fn(x, r if fused else None)
+
+    def pair():
+        x, r = rot.next()
+        kern(x + r)
+
+    def floor():
+        _build.check("launch floor", lib.qspec_norm_launch_floor(
+            m, h, torch.cuda.current_stream().cuda_stream))
+    t = {"ms": graph_ms(lambda: run(kern, False), reps),
+         "fused_ms": graph_ms(lambda: run(kern, True), reps),
+         "pair_ms": graph_ms(pair, reps), "floor_ms": graph_ms(floor),
+         "plain_ms": graph_ms(lambda: run(plain, False), reps),
+         "plain_fused_ms": graph_ms(lambda: run(plain, True), reps), "library_ms": None}
+    if name == "rmsnorm":
+        def library():
+            x, _ = rot.next()
+            torch.nn.functional.rms_norm(x, (h,), weight=g, eps=1e-5)
+        t["library_ms"] = graph_ms(library, reps)
+    out_bytes = m * h + 4 * m if name == "rmsnorm_quant" else m * h * 2
+    nb = m * h * 2 + (2 * h if gamma else 0) + out_bytes
+    ops = (6 if name == "rmsnorm_quant" else 4) * m * h
+    t["bound_ms"], t["bound_by"] = bound_ms(nb, ops, "f32")
+    t["fused_bound_ms"] = bound_ms(nb + 2 * m * h * 2, ops + m * h, "f32")[0]
+    log(f"time {name} {label}: alone {t['ms']:.5f} ms, fused {t['fused_ms']:.5f}, "
+        f"add + alone {t['pair_ms']:.5f}, floor {t['floor_ms']:.5f}, plain "
+        f"{t['plain_ms']:.5f} / fused {t['plain_fused_ms']:.5f}"
+        + (f", F.rms_norm {t['library_ms']:.5f}" if t["library_ms"] else "")
+        + f", bound {t['bound_ms']:.6f} / fused {t['fused_bound_ms']:.6f} "
+        f"({t['bound_by']})", stdout=False)
+    del rot
+    torch.cuda.empty_cache()
+    return t
+
+
 def time_norms(report):
     """Each NORM_TIMED shape: the kernel alone and with the residual add
     (fused), the torch add followed by the kernel alone in one graph (the
@@ -780,52 +843,8 @@ def time_norms(report):
     fused (x, the residual and gamma read once; out, h and the scales
     written once). Inputs rotated past L2 at M >= 512. One line a shape to
     the log, a summary to the standard output."""
-    from qspec_tpu_torch import _build
     gen = torch.Generator(device="cuda").manual_seed(3)
-    lib = _build.lib()
-    rows = {}
-    for name, m, h, bits, gamma in NORM_TIMED:
-        label = norm_label(name, m, h, bits, gamma)
-        rot = _norm_rot(gen, m, h)
-        g = _gamma(gen, h) if gamma else None
-        kern, plain = norm_fn(name, bits, g), norm_fn(name, bits, g, True)
-        reps = max(20, len(rot.sets))
-
-        def run(fn, fused):
-            x, r = rot.next()
-            fn(x, r if fused else None)
-
-        def pair():
-            x, r = rot.next()
-            kern(x + r)
-
-        def floor():
-            _build.check("launch floor", lib.qspec_norm_launch_floor(
-                m, h, torch.cuda.current_stream().cuda_stream))
-        t = {"ms": graph_ms(lambda: run(kern, False), reps),
-             "fused_ms": graph_ms(lambda: run(kern, True), reps),
-             "pair_ms": graph_ms(pair, reps), "floor_ms": graph_ms(floor),
-             "plain_ms": graph_ms(lambda: run(plain, False), reps),
-             "plain_fused_ms": graph_ms(lambda: run(plain, True), reps), "library_ms": None}
-        if name == "rmsnorm":
-            def library():
-                x, _ = rot.next()
-                torch.nn.functional.rms_norm(x, (h,), weight=g, eps=1e-5)
-            t["library_ms"] = graph_ms(library, reps)
-        out_bytes = m * h + 4 * m if name == "rmsnorm_quant" else m * h * 2
-        nb = m * h * 2 + (2 * h if gamma else 0) + out_bytes
-        ops = (6 if name == "rmsnorm_quant" else 4) * m * h
-        t["bound_ms"], t["bound_by"] = bound_ms(nb, ops, "f32")
-        t["fused_bound_ms"] = bound_ms(nb + 2 * m * h * 2, ops + m * h, "f32")[0]
-        rows[label] = t
-        log(f"time {name} {label}: alone {t['ms']:.5f} ms, fused {t['fused_ms']:.5f}, "
-            f"add + alone {t['pair_ms']:.5f}, floor {t['floor_ms']:.5f}, plain "
-            f"{t['plain_ms']:.5f} / fused {t['plain_fused_ms']:.5f}"
-            + (f", F.rms_norm {t['library_ms']:.5f}" if t["library_ms"] else "")
-            + f", bound {t['bound_ms']:.6f} / fused {t['fused_bound_ms']:.6f} "
-            f"({t['bound_by']})", stdout=False)
-        del rot
-        torch.cuda.empty_cache()
+    rows = {norm_label(*shape): time_norm_shape(gen, *shape) for shape in NORM_TIMED}
     # the rows of the kernels line: the verify's rmsnorm (M=16) and the
     # W4A4 draft's rmsnorm_quant (M=4), alone and fused
     for name, label in (("rmsnorm", "rmsnorm_m16_h4096"), ("rmsnorm_quant", "quant4_m4_h4096")):
@@ -3845,17 +3864,23 @@ def moe_line(label: str, runs: dict, extra: str = "") -> None:
     log(f"e2e {label}: == qspec_null, exact launch counts; " + "; ".join(parts) + extra)
 
 
+# (G1)'s depth: Mixtral-8x7B's 32 layers cut to 16, for the script's time
+# limit: at 32 (G) took 170.3 s and the script 970.8 s of the chip tool's
+# 1200, at 16 (G) 122.0 s, on an H100 80GB HBM3 at 700 W (PERF.md §6)
+MIXTRAL_LAYERS = 16
+
+
 def phase_moe_mixtral(smi: str):
-    """(G1) Mixtral-8x7B at full width and depth (ModelConfig.mixtral_8x7b:
-    32 layers of 8 experts of 14336, top-2, hidden 4096, vocab 32000),
-    quant="w4" with the int8 head, random weights made on the card by
-    init_params (the experts one (layer, expert) at a time: 22.5 GB of int4
-    that never pass through host memory), through LLMEngine over a bf16
-    cache: QSpec (k = 3) with the W4A4 and the W4A8 draft against
-    qspec_null, 4 prompts x 32 tokens."""
+    """(G1) Mixtral-8x7B's widths (ModelConfig.mixtral_8x7b: 8 experts of
+    14336, top-2, hidden 4096, vocab 32000) at MIXTRAL_LAYERS of its 32
+    layers, quant="w4" with the int8 head, random weights made on the card
+    by init_params (the experts one (layer, expert) at a time: int4 that
+    never passes through host memory), through LLMEngine over a bf16 cache:
+    QSpec (k = 3) with the W4A4 and the W4A8 draft against qspec_null, 4
+    prompts x 32 tokens. Only the depth is cut (MIXTRAL_LAYERS)."""
     from qspec_tpu_torch.config import ModelConfig
     from qspec_tpu_torch.models.llama import init_params
-    cfg = ModelConfig.mixtral_8x7b(quant="w4")
+    cfg = ModelConfig.mixtral_8x7b(quant="w4", num_layers=MIXTRAL_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3864,7 +3889,8 @@ def phase_moe_mixtral(smi: str):
     secs, weights = time.perf_counter() - t0, torch.cuda.memory_allocated() / 2 ** 30
     runs = moe_run("(G1) mixtral-8x7b", cfg, params, moe_prompts(cfg.vocab_size),
                    ("w4a4", "w4a8"))
-    moe_line("(G1) mixtral-8x7b, 32 layers x 8 experts", runs,
+    moe_line(f"(G1) mixtral-8x7b, {cfg.num_layers} of its 32 layers (the script's time "
+             "limit) x 8 experts", runs,
              f"; weights {weights:.2f} GiB made in {secs:.1f} s")
     log(f"e2e (G1): card {smi}", stdout=False)
     del params
@@ -4609,16 +4635,19 @@ J_HEADS = {"internlm2": (4096, 92544), "qwen": (4096, 151936), "baichuan2": (409
            "exaone": (4096, 102400), "telechat2": (4096, 131072)}
 
 
-def _j_attn(gen, q_len, Hq, Hkv, D, B=4):
-    """(J)'s attention inputs: _attn_inputs' contexts over a 128-wide cache
-    (a head dim of 64 is stored padded, as ModelConfig.cache_head_dim has
-    it), q at the model's head dim."""
-    q, cache, tables, ctx = _attn_inputs(gen, q_len, B=B, Hq=Hq, Hkv=Hkv)
+def _model_attn(gen, q_len, Hq, Hkv, D, B=4):
+    """(J)'s and (K)'s attention inputs: _attn_inputs' contexts over a cache
+    of the model's stored head dim (ModelConfig.cache_head_dim: 256 as is,
+    a smaller one 128-padded, the pad lanes zero as update_layer writes
+    them), q at the model's head dim."""
+    stored = -(-D // 128) * 128
+    q, cache, tables, ctx = _attn_inputs(gen, q_len, B=B, Hq=Hq, Hkv=Hkv, D=stored)
+    cache.kv_pages[..., D:] = 0
     return q[..., :D].contiguous(), cache, tables, ctx
 
 
-def _j_slopes(Hq: int, scale_alibi):
-    """The ALiBi slopes of J_ATTN's entry on the card (times Falcon's
+def _model_slopes(Hq: int, scale_alibi):
+    """The ALiBi slopes of a J_ATTN entry on the card (times Falcon's
     1 / sqrt(d) where it has one), or None."""
     from qspec_tpu_torch.ops.attention import alibi_slopes
     if scale_alibi is None:
@@ -4626,16 +4655,71 @@ def _j_slopes(Hq: int, scale_alibi):
     return torch.as_tensor(alibi_slopes(Hq) * np.float32(scale_alibi), device="cuda")
 
 
-def _j_attn_call(q, cache, tables, ctx, D, slopes, plain=False):
+def _model_attn_call(q, cache, tables, ctx, slopes=None, plain=False):
     """The attention as the model calls it (ops.attention.paged_attention:
-    q padded to the cache's 128 lanes, the output sliced back), or its
+    q padded to the cache's stored lanes, the output sliced back), or its
     plain version on the same padded inputs."""
     from qspec_tpu_torch.ops.attention import paged_attention, paged_attention_ref
+    D = q.shape[-1]
     scale = D ** -0.5
     if plain:
-        qp = torch.nn.functional.pad(q, (0, 128 - D))
+        qp = torch.nn.functional.pad(q, (0, cache.kv_pages.shape[-1] - D))
         return paged_attention_ref(qp, cache, 1, tables, ctx, scale, alibi=slopes)[..., :D]
     return paged_attention(q, cache, 1, tables, ctx, scale, alibi=slopes)
+
+
+def check_attention_rows(gen, shapes, tag: str) -> float:
+    """The attention at ``shapes`` ((label, Hq, Hkv, head dim, ALiBi slopes'
+    scale or None); Q = 1 and 4, the verify's contexts) against its plain
+    version (3e-2), each ALiBi output moved by its bias; the largest
+    error."""
+    err = 0.0
+    for label, Hq, Hkv, D, alibi in shapes:
+        for q_len in (1, 4):
+            q, cache, tables, ctx = _model_attn(gen, q_len, Hq, Hkv, D)
+            slopes = _model_slopes(Hq, alibi)
+            out = _model_attn_call(q, cache, tables, ctx, slopes)
+            ref = _model_attn_call(q, cache, tables, ctx, slopes, plain=True)
+            torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+            err = max(err, (out.float() - ref.float()).abs().max().item())
+            if alibi is not None and torch.allclose(
+                    out.float(), _model_attn_call(q, cache, tables, ctx).float(), atol=3e-2):
+                raise AssertionError(f"{tag} attention {label} Q={q_len}: ALiBi moves nothing")
+            del q, cache
+    return err
+
+
+def time_attention_rows(gen, shapes) -> dict:
+    """label -> the attention's times at the verify (B = 4, Q = 4, the
+    verify's contexts, bf16 cache) for each of ``shapes`` (as
+    check_attention_rows takes them), beside its plain version and its
+    bound, inputs rotated past L2 and made before the graph captures; a
+    padded cache's bound counts the D lanes the attention needs (the
+    padding is the kernel's excess)."""
+    rows = {}
+    for label, Hq, Hkv, D, alibi in shapes:
+        live = _ctx_lens(4)
+        stored = sum(live) * Hkv * -(-D // 128) * 128 * 2 * 2
+        rot = Rotating(lambda Hq=Hq, Hkv=Hkv, D=D: _model_attn(gen, 4, Hq, Hkv, D), stored)
+        q0, _, tables, _ = rot.sets[0]
+        slopes = _model_slopes(Hq, alibi)
+
+        def kern(slopes=slopes):
+            _model_attn_call(*rot.next(), slopes)
+
+        def plain(slopes=slopes):
+            _model_attn_call(*rot.next(), slopes, plain=True)
+        needed = sum(live) * Hkv * D * 2 * 2
+        nbytes = 2 * q0.numel() * 2 + needed + tables.numel() * 4 + 8 * 4 + (
+            4 * Hq if alibi else 0)
+        seen = sum(sum(c - 4 + i + 1 for i in range(4)) for c in live)
+        b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
+        rows[label] = dict(
+            ms=graph_ms(kern, reps=max(20, len(rot.sets))), plain_ms=graph_ms(plain, reps=3),
+            bound_ms=b, bound_by=kind, library_ms=None)
+        del rot, q0, tables
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_remap_shapes(gen, report):
@@ -4648,21 +4732,8 @@ def check_remap_shapes(gen, report):
     from qspec_tpu_torch.models.llama import _make_lm_head, compute_logits
     from qspec_tpu_torch.ops import linear_kernels as lk
     from qspec_tpu_torch.ops.quant import sym_quant_int4, sym_quant_int8
-    err = {"paged_attention": 0.0, "matmul_w4a16": 0.0, "matmul_w8a16": 0.0}
-    for label, Hq, Hkv, D, alibi in J_ATTN:
-        for q_len in (1, 4):
-            q, cache, tables, ctx = _j_attn(gen, q_len, Hq, Hkv, D)
-            slopes = _j_slopes(Hq, alibi)
-            out = _j_attn_call(q, cache, tables, ctx, D, slopes)
-            ref = _j_attn_call(q, cache, tables, ctx, D, slopes, plain=True)
-            torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
-            err["paged_attention"] = max(err["paged_attention"],
-                                         (out.float() - ref.float()).abs().max().item())
-            if alibi is not None and torch.allclose(
-                    out.float(), _j_attn_call(q, cache, tables, ctx, D, None).float(),
-                    atol=3e-2):
-                raise AssertionError(f"(J) attention {label} Q={q_len}: ALiBi moves nothing")
-            del q, cache
+    err = {"paged_attention": check_attention_rows(gen, J_ATTN, "(J)"), "matmul_w4a16": 0.0,
+           "matmul_w8a16": 0.0}
     for k, n in QWEN_7B_PROJ.values():
         qw = torch.empty(2, k // 8, n, dtype=torch.int32, device="cuda")
         qs = torch.empty(2, n, device="cuda")
@@ -4715,30 +4786,9 @@ def time_remap_shapes(gen, report, int4pack_missing):
             r = time_w4_layer(gen, name, m, shapes=tuple(QWEN_7B_PROJ.values()),
                               library=name == "matmul_w4a4" or int4pack_missing is None)
             rows[(name, f"qwen-7b layer M={m}")] = r
-    for label, Hq, Hkv, D, alibi in J_ATTN:
-        if label not in ("mha-32", "group71-d64", "alibi-40"):
-            continue
-        live = _ctx_lens(4)
-        stored = sum(live) * Hkv * 128 * 2 * 2
-        rot = Rotating(lambda Hq=Hq, Hkv=Hkv, D=D: _j_attn(gen, 4, Hq, Hkv, D), stored)
-        q0, _, tables, _ = rot.sets[0]
-        slopes = _j_slopes(Hq, alibi)
-
-        def kern(D=D, slopes=slopes):
-            _j_attn_call(*rot.next(), D, slopes)
-
-        def plain(D=D, slopes=slopes):
-            _j_attn_call(*rot.next(), D, slopes, plain=True)
-        needed = sum(live) * Hkv * D * 2 * 2
-        nbytes = 2 * q0.numel() * 2 + needed + tables.numel() * 4 + 8 * 4 + (
-            4 * Hq if alibi else 0)
-        seen = sum(sum(c - 4 + i + 1 for i in range(4)) for c in live)
-        b, kind = bound_ms(nbytes, 4 * Hq * D * seen, "bf16")
-        rows[("paged_attention", label)] = dict(
-            ms=graph_ms(kern, reps=max(20, len(rot.sets))), plain_ms=graph_ms(plain, reps=3),
-            bound_ms=b, bound_by=kind, library_ms=None)
-        del rot, q0, tables
-        torch.cuda.empty_cache()
+    timed = [a for a in J_ATTN if a[0] in ("mha-32", "group71-d64", "alibi-40")]
+    rows.update({("paged_attention", label): r
+                 for label, r in time_attention_rows(gen, timed).items()})
     fields = ("ms", "plain_ms", "bound_ms", "library_ms")
     for (name, label), r in rows.items():
         log(f"time (J) {name} {label}: " + ", ".join(
@@ -4979,6 +5029,48 @@ def phase_remap_dirs(smi: str):
     return out
 
 
+def float_run(label: str, make, cfg, prompts, every=()):
+    """n-gram (k = 3) against its null oracle through ``make`` (32 tokens):
+    the tokens equal, only the attention (and, on an RMSNorm family, the
+    gamma norm) launched, the attention cfg.num_layers times a forward, each
+    option of ``every`` on every attention launch."""
+    expect = FLOAT_LLAMA_KERNELS if cfg.norm_type == "rmsnorm" else FLOAT_KERNELS
+    spec, launches, _, summary = spec_vs_oracle(make, label, expect, prompts, 32,
+                                                every_launch=every, methods=("ngram", "null"))
+    if launches["paged_attention"] != cfg.num_layers * summary["forwards"]:
+        raise AssertionError(f"{label}: {launches['paged_attention']} attention launches, "
+                             f"not {cfg.num_layers} x {summary['forwards']} forwards")
+    return spec, launches, summary
+
+
+def float_dir_run(label: str, d: str, cfg, held: dict, every=()):
+    """LLM(model=d, quantization=None) with n-gram (k = 3) against its null
+    oracle on float_prompts (float_run); ``held`` gets the loaded params and
+    cfg, the load's seconds and peak GiB. Returns (launches, summary)."""
+    from qspec_tpu_torch import LLM
+
+    def make(method, p):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        llm = LLM(model=d, params=p, quantization=None, num_speculative_tokens=3,
+                  speculative_model="[ngram]", speculative_method=method,
+                  device="cuda", max_model_len=512, max_num_seqs=4, seed=0,
+                  num_pages=80)
+        if p is None:
+            torch.cuda.synchronize()
+            held.update(params=llm.llm_engine.runner.params,
+                        cfg=llm.engine_config.model,
+                        load_s=time.perf_counter() - t0,
+                        load_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return llm.llm_engine
+    prompts = float_prompts(cfg.vocab_size)
+    spec, launches, summary = float_run(label, make, cfg, prompts, every)
+    summary.update(load_s=held["load_s"], load_peak_gib=held["load_peak_gib"])
+    e2e_log(label, prompts, spec, summary)
+    return launches, summary
+
+
 def phase_float_dirs(smi: str):
     """(J3) LLM(model=<dir>, quantization=None) on Baichuan2-13B (ALiBi at
     40 heads, gamma RMSNorm), JAIS-13B (ALiBi, the muP scales), falcon-rw-7b
@@ -5012,34 +5104,9 @@ def phase_float_dirs(smi: str):
                         raise
                 else:
                     raise AssertionError("(J3) baichuan2-13b under QuaRot did not raise")
-
-            def make(method, p):
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                llm = LLM(model=d, params=p, quantization=None, num_speculative_tokens=3,
-                          speculative_model="[ngram]", speculative_method=method,
-                          device="cuda", max_model_len=512, max_num_seqs=4, seed=0,
-                          num_pages=80)
-                if p is None:
-                    torch.cuda.synchronize()
-                    held.update(params=llm.llm_engine.runner.params,
-                                cfg=llm.engine_config.model,
-                                load_s=time.perf_counter() - t0,
-                                load_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-                return llm.llm_engine
-            expect = FLOAT_LLAMA_KERNELS if cfg.norm_type == "rmsnorm" else FLOAT_KERNELS
-            alibi = cfg.position_embedding == "alibi"
-            label = f"(J3) {name} dir, {J_LAYERS} layers, bf16, n-gram k=3"
-            spec, launches, _, summary = spec_vs_oracle(
-                make, label, expect, float_prompts(cfg.vocab_size), 32,
-                every_launch=("alibi",) if alibi else (), methods=("ngram", "null"))
-            if launches["paged_attention"] != J_LAYERS * summary["forwards"]:
-                raise AssertionError(f"{label}: {launches['paged_attention']} attention launches, "
-                                     f"not {J_LAYERS} x {summary['forwards']} forwards")
-            summary.update(load_s=held["load_s"], load_peak_gib=held["load_peak_gib"])
-            e2e_log(label, float_prompts(cfg.vocab_size), spec, summary)
-            out[name] = (launches, summary)
+            out[name] = float_dir_run(
+                f"(J3) {name} dir, {J_LAYERS} layers, bf16, n-gram k=3", d, cfg, held,
+                every=("alibi",) if cfg.position_embedding == "alibi" else ())
         lcfg = held["cfg"]
         if (lcfg.parallel_block, lcfg.parallel_norms, lcfg.num_kv_heads) != (
                 cfg.parallel_block, cfg.parallel_norms, cfg.num_kv_heads) or lcfg.quant != "none":
@@ -5052,6 +5119,326 @@ def phase_float_dirs(smi: str):
             f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s)"
             for n, r in out.items()) + "; baichuan2-13b under QuaRot raises (MLP width 13696)")
     log(f"e2e (J3): card {smi}", stdout=False)
+    return out
+
+
+# ------------------------------------------------- (K) the gptj rope and partial rotary
+
+# EleutherAI/gpt-j-6b's config.json, the fields the port reads (n_inner null:
+# 4 x 4096 = 16384)
+GPTJ_6B_HF = dict(
+    architectures=["GPTJForCausalLM"], model_type="gptj", activation_function="gelu_new",
+    n_embd=4096, n_head=16, n_inner=None, n_layer=28, n_positions=2048, rotary_dim=64,
+    vocab_size=50400, layer_norm_epsilon=1e-05, tie_word_embeddings=False)
+# the published config.json fields of (K2)'s families; fields marked
+# recalled are typed from memory of the published file, not copied from it
+K_DIRS = {
+    "pythia-6.9b": dict(
+        architectures=["GPTNeoXForCausalLM"], model_type="gpt_neox", hidden_act="gelu",
+        hidden_size=4096, intermediate_size=16384, layer_norm_eps=1e-05,
+        max_position_embeddings=2048, num_attention_heads=32, num_hidden_layers=32,
+        rotary_emb_base=10000, rotary_pct=0.25, tie_word_embeddings=False,
+        use_parallel_residual=True, vocab_size=50432),
+    # head dim 96 (stored 128-padded); hidden_act gelu_fast and
+    # intermediate_size recalled
+    "gpt-neox-20b": dict(
+        architectures=["GPTNeoXForCausalLM"], model_type="gpt_neox", hidden_act="gelu_fast",
+        hidden_size=6144, intermediate_size=24576, layer_norm_eps=1e-05,
+        max_position_embeddings=2048, num_attention_heads=64, num_hidden_layers=44,
+        rotary_emb_base=10000, rotary_pct=0.25, tie_word_embeddings=False,
+        use_parallel_residual=True, vocab_size=50432),
+    "phi-2": dict(
+        architectures=["PhiForCausalLM"], model_type="phi", hidden_act="gelu_new",
+        hidden_size=2560, intermediate_size=10240, layer_norm_eps=1e-05,
+        max_position_embeddings=2048, num_attention_heads=32, num_hidden_layers=32,
+        num_key_value_heads=32, partial_rotary_factor=0.4, qk_layernorm=False,
+        rope_theta=10000.0, tie_word_embeddings=False, vocab_size=51200),
+    # intermediate_size recalled
+    "stablelm-2-1.6b": dict(
+        architectures=["StableLmForCausalLM"], model_type="stablelm", hidden_act="silu",
+        hidden_size=2048, intermediate_size=5632, layer_norm_eps=1e-05,
+        max_position_embeddings=4096, num_attention_heads=32, num_hidden_layers=24,
+        num_key_value_heads=32, partial_rotary_factor=0.25, qk_layernorm=False,
+        rope_theta=10000, tie_word_embeddings=False, use_parallel_residual=False,
+        use_qkv_bias=True, vocab_size=100352),
+    # intermediate_size and max_position_embeddings recalled (transformers'
+    # CohereConfig defaults, which it ties to c4ai-command-r-v01)
+    "command-r-v01": dict(
+        architectures=["CohereForCausalLM"], model_type="cohere", hidden_act="silu",
+        hidden_size=8192, intermediate_size=22528, layer_norm_eps=1e-05, logit_scale=0.0625,
+        max_position_embeddings=8192, num_attention_heads=64, num_hidden_layers=40,
+        num_key_value_heads=64, rope_theta=8000000.0, tie_word_embeddings=True,
+        use_qk_norm=False, vocab_size=256000),
+    # max_position_embeddings and rms_norm_eps recalled (transformers'
+    # GlmConfig defaults, which it ties to THUDM/glm-4-9b)
+    "glm-4-9b-hf": dict(
+        architectures=["GlmForCausalLM"], model_type="glm", attention_bias=True, head_dim=128,
+        hidden_act="silu", hidden_size=4096, intermediate_size=13696,
+        max_position_embeddings=131072, num_attention_heads=32, num_hidden_layers=40,
+        num_key_value_heads=2, partial_rotary_factor=0.5, rms_norm_eps=1.5625e-07,
+        rope_theta=10000.0, tie_word_embeddings=False, vocab_size=151552),
+    # every field recalled (transformers' HeliumConfig defaults, which it
+    # ties to kyutai/helium-1-preview-2b)
+    "helium-1-preview-2b": dict(
+        architectures=["HeliumForCausalLM"], model_type="helium", attention_bias=False,
+        head_dim=128, hidden_act="silu", hidden_size=2560, intermediate_size=7040,
+        max_position_embeddings=4096, mlp_bias=False, num_attention_heads=20,
+        num_hidden_layers=24, num_key_value_heads=20, rms_norm_eps=1e-08,
+        rope_theta=100000.0, tie_word_embeddings=False, vocab_size=48000),
+}
+# (label, published config, its fields changed): the layouts the port
+# refuses (ROADMAP queue 1 item 9), each checked to raise before a weight is
+# read
+K_REFUSALS = (("cohere use_qk_norm", "command-r-v01", dict(use_qk_norm=True)),
+              ("Cohere2ForCausalLM", "command-r-v01",
+               dict(architectures=["Cohere2ForCausalLM"], model_type="cohere2")),
+              ("stablelm qk_layernorm", "stablelm-2-1.6b", dict(qk_layernorm=True)),
+              ("stablelm use_parallel_residual", "stablelm-2-1.6b",
+               dict(use_parallel_residual=True)),
+              ("phi qk_layernorm", "phi-2", dict(qk_layernorm=True)))
+K_LAYERS = 2
+# the attention shapes (K) brings, as J_ATTN's (no ALiBi): GPT-J's 16 heads
+# at D=256, GPT-NeoX-20B's 64 at D=96 and Phi-2's 32 at D=80 (both stored
+# 128-padded), Command-R's 64 at D=128, GLM-4's 32 over 2
+K_ATTN = (("gptj-mha16-d256", 16, 16, 256, None), ("neox20b-mha64-d96", 64, 64, 96, None),
+          ("phi2-mha32-d80", 32, 32, 80, None), ("commandr-mha64", 64, 64, 128, None),
+          ("glm4-group16", 32, 2, 128, None))
+K_TIMED = ("gptj-mha16-d256", "neox20b-mha64-d96")
+# the gamma rmsnorm's widths in (K): Helium's hidden 2560 (no multiple of
+# 1024) and GLM-4's 4096, each launched after the residual add
+K_NORM_H = (2560, 4096)
+
+
+def check_k_shapes(gen, report):
+    """(K) the attention at K_ATTN against its plain version
+    (check_attention_rows: Q = 1 and 4, 3e-2, the JAX tests' bf16
+    tolerance); the gamma rmsnorm at K_NORM_H, M = 4 and 16 (Helium's and
+    GLM-4's draft and verify), alone and with the residual add, against its
+    plain version (2e-2, h bit for bit the torch add)."""
+    err = check_attention_rows(gen, K_ATTN, "(K)")
+    torch.cuda.empty_cache()
+    report["paged_attention"]["k_max_err"] = err
+    e_norm = 0.0
+    for h in K_NORM_H:
+        g = _gamma(gen, h)
+        kern, plain = norm_fn("rmsnorm", None, g), norm_fn("rmsnorm", None, g, True)
+        for m in DENSE_M:
+            x, r = _norm_set(gen, m, h)
+            for res in (None, r):
+                got, want = kern(x, res), plain(x, res)
+                if res is not None and not (torch.equal(got[-1], x + r)
+                                            and torch.equal(want[-1], x + r)):
+                    raise AssertionError(f"(K) rmsnorm gamma H={h} M={m}: h is not x + r")
+                torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                                           atol=2e-2)
+                e_norm = max(e_norm, (got[0].float() - want[0].float()).abs().max().item())
+    report["rmsnorm"]["k_max_err"] = e_norm
+    log("check (K) shapes: attention " + ", ".join(a[0] for a in K_ATTN)
+        + f" (Q=1,4): max_abs_err {err:.3g} (tol rtol=atol=3e-2); rmsnorm with a gamma at "
+        f"H={','.join(map(str, K_NORM_H))}, M=4,16, alone and with the add: max_abs_err "
+        f"{e_norm:.3g} (tol rtol=atol=2e-2), h == x + r bit for bit")
+
+
+def time_k_shapes(gen, report):
+    """(K3) the attention at GPT-J-6B's verify (B = 4, Q = 4, 16 heads of
+    256, contexts 379 / 263 / 512 / 40, bf16 cache) and GPT-NeoX-20B's (64
+    heads of 96, stored 128 wide; the bound counts the 96 lanes the function
+    needs, the padding is the kernel's excess), inputs rotated past L2,
+    every input made before the graph captures; the gamma rmsnorm at
+    Helium's verify (time_norm_shape). report[kernel]["k_times"]: label ->
+    [ms, plain_ms, bound_ms, library_ms]."""
+    rows = time_attention_rows(gen, [a for a in K_ATTN if a[0] in K_TIMED])
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+    for label, r in rows.items():
+        log(f"time (K) paged_attention {label}: " + ", ".join(
+            f"{f} {r[f]:.5f}" if r[f] is not None else f"{f} none" for f in fields)
+            + f" ({r['bound_by']})", stdout=False)
+        report["paged_attention"].setdefault("k_times", {})[label] = [
+            float(f"{r[f]:.5g}") if r[f] is not None else None for f in fields]
+    # Helium's verify norm (M = 16, H = 2560, a gamma): alone (F.rms_norm its
+    # library call) and with the residual add (no one library call)
+    t = time_norm_shape(gen, "rmsnorm", 16, 2560, None, True)
+    report["rmsnorm"]["k_times"] = {
+        "gamma_m16_h2560": [float(f"{t[f]:.5g}") for f in fields],
+        "gamma_m16_h2560_fused": [float(f"{t[f]:.5g}") for f in (
+            "fused_ms", "plain_fused_ms", "fused_bound_ms")] + [None]}
+    log("time (K), ms kernel/bound: " + "; ".join(
+        f"paged_attention {label} {r['ms']:.4f}/{r['bound_ms']:.5f}" for label, r in rows.items())
+        + f"; rmsnorm gamma_m16_h2560 {t['ms']:.5f}/{t['bound_ms']:.6f}, with the add "
+        f"{t['fused_ms']:.5f}/{t['fused_bound_ms']:.6f}")
+
+
+def k_entries(cfg):
+    """A (K) family's checkpoint names and shapes in its own keys: weights
+    normal(0.02), biases normal(0.01), norm gammas 1 + 0.1 N(0, 1);
+    GPT-NeoX's fused query_key_value rows [nh, 3, dh] (random, so any
+    interleave is one draw), GLM's fused gate_up_proj, the heads (and Phi's
+    and GPT-J's head biases) untied but Command-R's."""
+    H, V, I, L = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size, cfg.num_layers
+    q, kv = cfg.q_size, cfg.kv_size
+
+    def lin(name, n_out, n_in, bias):
+        return [(name + ".weight", (n_out, n_in), "w")] + (
+            [(name + ".bias", (n_out,), "b")] if bias else [])
+
+    def norm(name, beta=True):
+        return [(name + ".weight", (H,), "gamma")] + ([(name + ".bias", (H,), "b")] if beta
+                                                      else [])
+    arch = cfg.arch
+    if arch == "helium":
+        return llama_entries(cfg)
+    if arch == "gptj":
+        out = [("transformer.wte.weight", (V, H), "w")]
+        for li in range(L):
+            p = f"transformer.h.{li}."
+            out += (norm(p + "ln_1") + lin(p + "attn.q_proj", q, H, False)
+                    + lin(p + "attn.k_proj", kv, H, False) + lin(p + "attn.v_proj", kv, H, False)
+                    + lin(p + "attn.out_proj", H, q, False) + lin(p + "mlp.fc_in", I, H, True)
+                    + lin(p + "mlp.fc_out", H, I, True))
+        return out + norm("transformer.ln_f") + lin("lm_head", V, H, True)
+    if arch == "gpt_neox":
+        out = [("gpt_neox.embed_in.weight", (V, H), "w")]
+        for li in range(L):
+            p = f"gpt_neox.layers.{li}."
+            out += (norm(p + "input_layernorm") + norm(p + "post_attention_layernorm")
+                    + lin(p + "attention.query_key_value", 3 * H, H, True)
+                    + lin(p + "attention.dense", H, H, True)
+                    + lin(p + "mlp.dense_h_to_4h", I, H, True)
+                    + lin(p + "mlp.dense_4h_to_h", H, I, True))
+        return out + norm("gpt_neox.final_layer_norm") + [("embed_out.weight", (V, H), "w")]
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for li in range(L):
+        p = f"model.layers.{li}."
+        a = p + "self_attn."
+        qkv = (lin(a + "q_proj", q, H, cfg.qkv_bias or cfg.linear_bias)
+               + lin(a + "k_proj", kv, H, cfg.qkv_bias or cfg.linear_bias)
+               + lin(a + "v_proj", kv, H, cfg.qkv_bias or cfg.linear_bias))
+        if arch == "phi":
+            out += (norm(p + "input_layernorm") + qkv + lin(a + "dense", H, q, True)
+                    + lin(p + "mlp.fc1", I, H, True) + lin(p + "mlp.fc2", H, I, True))
+            continue
+        layernorm = cfg.norm_type == "layernorm"
+        out += norm(p + "input_layernorm", beta=layernorm and arch != "cohere") + qkv
+        out += lin(a + "o_proj", H, q, False)
+        if arch != "cohere":
+            out += norm(p + "post_attention_layernorm", beta=layernorm)
+        out += (lin(p + "mlp.gate_up_proj", 2 * I, H, False) if arch == "glm" else
+                lin(p + "mlp.gate_proj", I, H, False) + lin(p + "mlp.up_proj", I, H, False))
+        out += lin(p + "mlp.down_proj", H, I, False)
+    final = "model.final_layernorm" if arch == "phi" else "model.norm"
+    out += norm(final, beta=cfg.norm_type == "layernorm" and arch != "cohere")
+    if not cfg.tie_word_embeddings:
+        out += lin("lm_head", V, H, cfg.lm_head_bias)
+    return out
+
+
+def phase_gptj_6b(smi: str):
+    """(K1) GPT-J-6B at full width and depth (GPTJ_6B_HF: 28 layers, hidden
+    4096, 16 heads of 256, the interleaved rope over 64 of them, vocab 50400,
+    the head's bias): a state dict of random bf16 made on the card in GPT-J's
+    own keys (about 12.1 GB), converted there by load_family_float (seconds
+    and peak GiB printed), then LLMEngine with n-gram (k = 3) against its
+    null oracle on float_prompts: tokens equal, only the attention launched
+    (no norm kernel: LayerNorm is torch ops), every launch the D=256
+    instantiation, 28 a forward."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    from qspec_tpu_torch.model_loader.families import load_family_float
+    from qspec_tpu_torch.models.registry import resolve
+    cfg = resolve(GPTJ_6B_HF)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sd = random_state_dict(k_entries(cfg), seed=100)
+    n_bytes = sum(t.numel() * 2 for t in sd.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg = load_family_float(sd, cfg)
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+    if sd:
+        raise AssertionError(f"(K1) load_family_float left {sorted(sd)[:4]} unconverted")
+    if params["rope_cache"].shape[-1] != 32 or params["lm_head_b"].shape != (cfg.vocab_size,):
+        raise AssertionError("(K1) gpt-j-6b: the rope cache or the head bias is not GPT-J's")
+    log(f"load (K1) gpt-j-6b: {n_bytes / 1e9:.2f} GB bf16 in GPT-J's keys, converted by "
+        f"load_family_float on the card in {secs:.2f} s, peak {peak:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    prompts = float_prompts(cfg.vocab_size)
+
+    def make(method, p):
+        spec = SpeculativeConfig(num_speculative_tokens=3, method=method)
+        return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=128, num_pages=80),
+                                      scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=512),
+                                      speculative=spec), p or params, device="cuda", seed=0)
+    label = f"(K1) gpt-j-6b bf16 ({cfg.num_layers} layers, head bias, bf16 KV, n-gram k=3)"
+    spec, launches, summary = float_run(label, make, cfg, prompts, every=("d256",))
+    summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, load_s=secs,
+                   load_peak_gib=peak)
+    e2e_log(label, prompts, spec, summary)
+    log(f"e2e (K1) gpt-j-6b, {cfg.num_layers} layers: n-gram == null, acceptance "
+        f"{summary['acceptance_rate']:.5g}, {summary['spec_tokens_per_s']:.5g} / "
+        f"{summary['oracle_tokens_per_s']:.5g} tok/s (host clock), attention "
+        f"{launches['paged_attention']} = {cfg.num_layers} x {summary['forwards']} forwards, all "
+        "D=256; "
+        f"load {secs:.2f} s, peak {peak:.2f} GiB")
+    log(f"e2e (K1): card {smi}", stdout=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_k_dirs(smi: str):
+    """(K2) LLM(model=<dir>, quantization=None) on Pythia-6.9B, GPT-NeoX-20B
+    (D=96), Phi-2 (the head bias, D=80), StableLM-2-1.6B (the qkv bias,
+    D=64), Command-R v01 (the tied head, logit_scale), GLM-4-9B (the gptj
+    rope over half of each head, group 16, the gamma norm) and Helium
+    directories (K_DIRS at K_LAYERS layers, random bf16 in the family's own
+    keys written here): n-gram (k = 3) == its null oracle, only the
+    attention (and the gamma norm of the RMSNorm families) launched, the
+    attention K_LAYERS a forward. First, each of K_REFUSALS raises
+    NotImplementedError naming ROADMAP queue 1 item 9 from a directory
+    holding only its config.json."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.models.registry import resolve
+    for what, base, over in K_REFUSALS:
+        with tempfile.TemporaryDirectory() as d:
+            write_config(d, {**K_DIRS[base], **over, "num_hidden_layers": K_LAYERS})
+            try:
+                LLM(model=d, quantization=None, device="cuda")
+            except NotImplementedError as e:
+                if "queue 1 item 9" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"(K2) {what}: not refused")
+    out = {}
+    for i, (name, published) in enumerate(K_DIRS.items()):
+        hf = {**published, "num_hidden_layers": K_LAYERS}
+        cfg = resolve(hf)
+        held = {}
+        with tempfile.TemporaryDirectory() as d:
+            sd = random_state_dict(k_entries(cfg), seed=110 + i)
+            write_safetensors(os.path.join(d, "model.safetensors"), sd)
+            del sd
+            write_config(d, hf)
+            out[name] = float_dir_run(f"(K2) {name} dir, {K_LAYERS} layers, bf16, n-gram k=3",
+                                      d, cfg, held)
+        lcfg, lp = held["cfg"], held["params"]
+        if (lcfg.rotary_dim, lcfg.rope_style, lcfg.quant) != (cfg.rotary_dim, cfg.rope_style,
+                                                              "none") or \
+                lp["rope_cache"].shape[-1] != cfg.rope_dim // 2 or \
+                ("lm_head_b" in lp) != cfg.lm_head_bias:
+            raise AssertionError(f"(K2) {name}: loaded as {lcfg}")
+        del held, lp
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("e2e (K2) LLM(model=<dir>, quantization=None), published widths at 2 layers, n-gram == "
+        "null: " + ", ".join(
+            f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s)"
+            for n, r in out.items()) + f"; {len(K_REFUSALS)} refusals raise before a weight "
+        "is read")
+    log(f"e2e (K2): card {smi}", stdout=False)
     return out
 
 
@@ -5077,7 +5464,7 @@ KERNEL_META = {
 # the fields of the kernels line on the standard output (the log has all)
 STDOUT_KEYS = ("name", "route", "source", "replaces", "launches", "launches_in",
                "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-               "shape", "qwen2_7b", "qwen2_7b_shape", "j_times")
+               "shape", "qwen2_7b", "qwen2_7b_shape", "j_times", "k_max_err", "k_times")
 # the 8-bit instantiations of the attention kernel: (source, TPU kernel)
 KV8_META = {f"paged_attention_{dt}": (
     "qspec_tpu_torch/csrc/paged_attention.cu",
@@ -5175,9 +5562,23 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"(J) took {time.perf_counter() - t_remap:.1f} s")
+    # (K) the gptj rope and partial rotary: the parallel-residual families,
+    # GLM-4 and Helium
+    t_k = time.perf_counter()
+    gen_k = torch.Generator(device="cuda").manual_seed(6)
+    check_k_shapes(gen_k, report)
+    time_k_shapes(gen_k, report)
+    gptj = phase_gptj_6b(smi)
+    k_dirs = phase_k_dirs(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(K) took {time.perf_counter() - t_k:.1f} s")
     log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
         "BLOOM-7B1, MPT, (A)-(E), the MoE (G), the dense families (H), the remap and float "
-        "families (J)), each greedy == its oracle; chip_smoke.log has each run's line")
+        "families (J), the gptj-rope families (K)), each greedy == its oracle; "
+        "chip_smoke.log has each run's line")
+    # each kernel's launches in (K)'s paths: (K1) GPT-J-6B, (K2) each directory
+    k_paths = {"K1": gptj[0], **{f"K2_{n}": r[0] for n, r in k_dirs.items()}}
     # each kernel's launches in (J)'s paths: (J1) InternLM2.5-7B at W4A4 and
     # W4A8, (J2) each remap directory, (J3) each float directory
     remap_paths = {f"J1_{s}": r[0] for s, r in internlm2.items()}
@@ -5269,7 +5670,7 @@ def main():
         if moe_launch:
             extra["moe_launches"] = moe_launch
         for key in ("moe_max_err", "moe_head_max_err", "dense_max_err", "qwen2_7b",
-                    "qwen2_7b_shape", "j_max_err", "j_times"):
+                    "qwen2_7b_shape", "j_max_err", "j_times", "k_max_err", "k_times"):
             if key in r:
                 extra[key] = r[key]
         remap_launch = {k: v[name] for k, v in remap_paths.items() if v.get(name)}
@@ -5277,6 +5678,9 @@ def main():
             extra["remap_launches"] = remap_launch
         if name == "matmul_w4a16":
             extra["internlm2_load"] = {k: float(f"{v:.4g}") for k, v in internlm2_load.items()}
+        k_launch = {k: v[name] for k, v in k_paths.items() if v.get(name)}
+        if k_launch:
+            extra["k_launches"] = k_launch
         dense_launch = {k: v[name] for k, v in dense_paths.items() if v.get(name)}
         if dense_launch:
             extra["dense_launches"] = dense_launch

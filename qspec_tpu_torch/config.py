@@ -8,10 +8,12 @@ and (1+w) norms, Granite with its four multipliers, the reference's QuaRot
 ``llama_quarot`` / ``qwen2_quarot``; the llama graph under other key names:
 Baichuan, InternLM2, Qwen v1, EXAONE, TeleChat2), the Gemma-2 grouped-int4
 path, the float families' bf16 path (BLOOM, MPT, Falcon with its parallel
-blocks, JAIS, Baichuan-13B's ALiBi) and the sparse-MoE families (Mixtral,
-Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE). Fields of model families, loaders, parallelism
-and proposers that are not ported yet are left out rather than accepted
-and ignored.
+blocks, JAIS, Baichuan-13B's ALiBi; since the gptj rope and partial
+rotary, the parallel-residual families GPT-J, GPT-NeoX / Pythia, Phi-2,
+StableLM and Cohere, and the llama graph with the gptj rope: GLM-4, Helium)
+and the sparse-MoE families (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE).
+Fields of model families, loaders, parallelism and proposers that are not
+ported yet are left out rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -24,12 +26,14 @@ from typing import Optional
 class ModelConfig:
     """Architecture hyperparameters of one dense llama-graph model (Llama,
     Mistral, Phi-3, Qwen2, Qwen3, Gemma, Granite; Baichuan, InternLM2, Qwen
-    v1, EXAONE, TeleChat2), a Gemma-2, a float family's (BLOOM, MPT, Falcon,
-    JAIS) or a sparse MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)."""
+    v1, EXAONE, TeleChat2; GLM-4, Helium), a Gemma-2, a float family's
+    (BLOOM, MPT, Falcon, JAIS, GPT-J, GPT-NeoX, Phi-2, StableLM, Cohere) or
+    a sparse MoE (Mixtral, Qwen2-MoE, Qwen3-MoE, DeepSeek-MoE)."""
 
     # "llama" (Mistral and Phi-3 too) | "qwen2" | "qwen3" | "gemma" |
     # "granite" | "gemma2" | "bloom" | "mpt" | "mixtral" | "qwen2moe" |
-    # "qwen3moe" | "deepseek" | "falcon" | "jais"; the llama graph under
+    # "qwen3moe" | "deepseek" | "falcon" | "jais" | "gptj" | "gpt_neox" |
+    # "phi" | "stablelm" | "cohere" | "glm" | "helium"; the llama graph under
     # other key names (model_loader/families.py LLAMA_KEY_REMAPS):
     # "baichuan" | "internlm2" | "qwen" (v1) | "exaone" | "telechat2"
     arch: str = "llama"
@@ -42,6 +46,14 @@ class ModelConfig:
     head_dim: int = 128
     rope_theta: float = 500000.0
     rope_scaling: Optional[dict] = None
+    # partial rotary: rope only the first rotary_dim dims of each head, the
+    # rest pass through (GPT-NeoX rotary_pct, Phi / StableLM / GLM
+    # partial_rotary_factor, GPT-J rotary_dim, Qwen v1 rotary_pct); None:
+    # the whole head
+    rotary_dim: Optional[int] = None
+    # "neox": rotate half-split pairs (x_i, x_{i+d/2}); "gptj": interleaved
+    # pairs (x_{2i}, x_{2i+1}) (GPT-J, Cohere, GLM, Helium)
+    rope_style: str = "neox"
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 8192
     tie_word_embeddings: bool = False
@@ -53,7 +65,8 @@ class ModelConfig:
     qk_norm: bool = False
     qk_norm_style: str = "head"
     # MLP activation: "silu" (llama) | "gelu_tanh" (gemma's approximate
-    # GeGLU, HF gelu_pytorch_tanh; BLOOM's gelu) | "gelu" (exact, MPT)
+    # GeGLU, HF gelu_pytorch_tanh; BLOOM's gelu; HF gelu_new and gelu_fast:
+    # GPT-J, Phi-2, GPT-NeoX-20B) | "gelu" (exact, MPT, Pythia)
     hidden_act: str = "silu"
     # multiply embeddings by this after lookup (gemma: sqrt(hidden_size)),
     # in the hidden dtype
@@ -109,6 +122,9 @@ class ModelConfig:
     # layers["post_norm"]); served with bf16 weights
     parallel_block: bool = False
     parallel_norms: int = 1
+    # an additive bias on the vocab projection (Phi, GPT-J), params
+    # ["lm_head_b"] f32-added to the logits after logits_scaling
+    lm_head_bias: bool = False
     # sparse MoE (models/llama.py _moe_block): each layer's MLP is
     # num_experts expert MLPs of width moe_intermediate_size (None: the
     # dense width) mixed by a router's top num_experts_per_tok; 0 = dense
@@ -141,17 +157,23 @@ class ModelConfig:
         allowed = (("quant", ("w4", "w4g", "none")),
                    ("arch", ("llama", "qwen2", "qwen3", "gemma", "granite", "gemma2",
                              "bloom", "mpt", "mixtral", "qwen2moe", "qwen3moe",
-                             "deepseek", "falcon", "jais", *REMAP_ARCHS)),
+                             "deepseek", "falcon", "jais", *REMAP_ARCHS, "gptj",
+                             "gpt_neox", "phi", "stablelm", "cohere", "glm", "helium")),
                    ("hidden_act", ("silu", "gelu_tanh", "gelu")),
                    ("norm_type", ("rmsnorm", "layernorm")),
                    ("position_embedding", ("rope", "alibi")),
                    ("qk_norm_style", ("head",)),
+                   ("rope_style", ("neox", "gptj")),
                    ("moe_routing", ("topk", "sparsemixer", "noaux_tc")),
                    ("parallel_norms", (1, 2)))
         for name, values in allowed:
             if getattr(self, name) not in values:
                 raise NotImplementedError(f"{name}={getattr(self, name)!r}: the port "
                                           f"takes {', '.join(map(repr, values))}")
+        if self.rotary_dim is not None and not (
+                0 < self.rotary_dim <= self.head_dim and self.rotary_dim % 2 == 0):
+            raise ValueError(f"rotary_dim={self.rotary_dim}: an even width in (0, "
+                             f"head_dim={self.head_dim}]")
 
     @property
     def resolved_lm_head_quant(self) -> str:
@@ -174,6 +196,11 @@ class ModelConfig:
         if rs and rs.get("rope_type", rs.get("type")) == "dynamic":
             return rs["original_max_position_embeddings"]
         return None
+
+    @property
+    def rope_dim(self) -> int:
+        """The rotated width of a head: the rope cache is built at it."""
+        return self.rotary_dim or self.head_dim
 
     @property
     def expert_intermediate_size(self) -> int:
@@ -312,13 +339,25 @@ class ModelConfig:
         do Falcon (``falcon``, ``RefinedWeb``, ``RefinedWebModel``) and
         JAIS. Past the JAX package, a dynamic NTK rope (Qwen v1's logn
         attention too) records its window (``scaling_window``: served only
-        inside it) and Qwen v1 reads its base from ``rotary_emb_base``."""
+        inside it) and Qwen v1 reads its base from ``rotary_emb_base``.
+
+        The parallel-residual families (``gptj``, ``gpt_neox``, ``phi``,
+        ``stablelm``, ``cohere``) read as the JAX package's branches read
+        them, and ``glm`` and ``helium`` as its registry does; a layout
+        whose graph the port lacks raises (``REFUSED``: Cohere's
+        ``use_qk_norm``, ``cohere2``, StableLM's ``qk_layernorm`` and
+        parallel residual, Phi's ``qk_layernorm``, ``glm4``'s post-block
+        norms), where the JAX package reads most of them wrong without a
+        word (ROADMAP §3)."""
         mt = hf.get("model_type", "")
         own = {"bloom": _from_bloom, "mpt": _from_mpt, "deepseek": _from_deepseek,
                "falcon": _from_falcon, "RefinedWeb": _from_falcon,
                "RefinedWebModel": _from_falcon, "jais": _from_jais, "qwen": _from_qwen1,
                "exaone": _from_exaone, "telechat2": _from_telechat2,
-               "telechat": _from_telechat2}
+               "telechat": _from_telechat2, "gptj": _from_gptj, "gpt_neox": _from_gpt_neox,
+               "phi": _from_phi, "stablelm": _from_stablelm, "cohere": _from_cohere,
+               "glm": _from_glm, "helium": _from_helium}
+        _refuse(mt, hf)
         if mt in own:
             return own[mt](hf)
         bad = next((f for f in UNPORTED_TYPES if f in mt), None)
@@ -464,11 +503,10 @@ def _from_qwen1(hf: dict) -> ModelConfig:
     checkpoint says); its ``use_dynamic_ntk`` and ``use_logn_attn`` act
     only past ``seq_length``: they are recorded as a dynamic rope_scaling
     of that window (``scaling_window``), and the rope cache ends there
-    (``max_position_embeddings`` cut to ``seq_length``). A partial rotary
-    (``rotary_pct`` below 1) raises."""
-    if hf.get("rotary_pct", 1.0) != 1.0:
-        raise NotImplementedError(f"Qwen v1 rotary_pct={hf['rotary_pct']}: a partial "
-                                  "rotary is not ported (ROADMAP queue 1 item 9)")
+    (``max_position_embeddings`` cut to ``seq_length``). A ``rotary_pct``
+    below 1 ropes only that share of each head (its modeling code's
+    ``rotary_ndims``; the JAX package ropes the whole head whatever it
+    says: ROADMAP §3)."""
     nh = hf["num_attention_heads"]
     seq = hf.get("seq_length", 8192)
     max_pos = hf.get("max_position_embeddings", seq)
@@ -479,8 +517,10 @@ def _from_qwen1(hf: dict) -> ModelConfig:
                        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-6),
                        rope_theta=hf.get("rotary_emb_base", 10000.0),
                        max_position_embeddings=min(max_pos, seq) if scaled else max_pos)
+    pct = hf.get("rotary_pct", 1.0)
     return dataclasses.replace(cfg, qkv_bias=True, rope_scaling=(
-        {"type": "dynamic", "original_max_position_embeddings": seq} if scaled else None))
+        {"type": "dynamic", "original_max_position_embeddings": seq} if scaled else None),
+        rotary_dim=None if pct == 1.0 else _rotary_dim(cfg.head_dim, pct))
 
 
 def _from_exaone(hf: dict) -> ModelConfig:
@@ -566,6 +606,177 @@ def _from_jais(hf: dict) -> ModelConfig:
         max_position_embeddings=hf.get("n_positions", 2048),
         rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5), quant="none",
         tie_word_embeddings=True)
+
+
+# (model type, config.json flag or None, why) of the layouts those families
+# bring whose graph the port lacks: each raises where its config is read
+REFUSED = (
+    ("cohere", "use_qk_norm", "Cohere with use_qk_norm (per-head LayerNorms of q and "
+     "k; the JAX package raises a ValueError)"),
+    ("cohere2", None, "Cohere2 (Command R7B: a sliding window on three layers of four and "
+     "rope-free global layers; the JAX registry maps it onto Cohere and ignores both)"),
+    ("stablelm", "qk_layernorm", "StableLM with qk_layernorm (per-head LayerNorms of q "
+     "and k; the JAX package ignores the flag)"),
+    ("stablelm", "use_parallel_residual", "StableLM with use_parallel_residual "
+     "(StableLM-2-12B's parallel block; the JAX package ignores the flag)"),
+    ("phi", "qk_layernorm", "Phi with qk_layernorm (LayerNorms of q and k; the JAX "
+     "package ignores the flag)"),
+    ("glm4", None, "GLM-4-0414 (Glm4ForCausalLM: post-attention and post-MLP norms; the "
+     "JAX registry maps it onto GLM and drops them)"),
+)
+
+
+def _refuse(mt: str, hf: dict) -> None:
+    """Raise for a REFUSED layout, before anything else of its config."""
+    for t, flag, why in REFUSED:
+        if mt == t and (flag is None or hf.get(flag)):
+            raise NotImplementedError(f"{why}: not ported (ROADMAP queue 1 item 9)")
+
+
+def _rotary_dim(head_dim: int, pct: float) -> int:
+    """The rotated width of a head at rotary share ``pct``, even and at least
+    2 (the JAX package's formula)."""
+    return max(2, int(head_dim * pct)) // 2 * 2
+
+
+def _act(name: str) -> str:
+    """A Hugging Face activation name as ``hidden_act``: gelu_new,
+    gelu_fast and gelu_pytorch_tanh are the tanh-approximate gelu (one
+    formula under three names); any other name is kept (gelu, silu), and
+    ModelConfig refuses one it does not take."""
+    return {"gelu_new": "gelu_tanh", "gelu_fast": "gelu_tanh",
+            "gelu_pytorch_tanh": "gelu_tanh"}.get(name, name)
+
+
+def _from_gptj(hf: dict) -> ModelConfig:
+    """GPT-J (the JAX package's gptj branch): parallel blocks sharing ln_1,
+    the interleaved (gptj) rope over ``rotary_dim``, a gelu_new fc MLP with
+    biases, attention without, the head with a bias, untied. A bf16
+    checkpoint."""
+    nh, H = hf["n_head"], hf["n_embd"]
+    dh = H // nh
+    return ModelConfig(
+        arch="gptj", norm_type="layernorm", mlp_gated=False, parallel_block=True,
+        parallel_norms=1, linear_bias=False, lm_head_bias=True, rope_style="gptj",
+        hidden_act=_act(hf.get("activation_function", "gelu_new")),
+        rotary_dim=hf.get("rotary_dim") or dh, vocab_size=hf["vocab_size"], hidden_size=H,
+        intermediate_size=hf.get("n_inner") or 4 * H, num_layers=hf["n_layer"],
+        num_heads=nh, num_kv_heads=nh, head_dim=dh, rope_theta=10000.0,
+        max_position_embeddings=hf.get("n_positions", 2048),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5), quant="none",
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
+
+
+def _from_gpt_neox(hf: dict) -> ModelConfig:
+    """GPT-NeoX / Pythia (the JAX package's gpt_neox branch): LayerNorms
+    with biases, biases everywhere, a non-gated gelu MLP, the neox rope over
+    ``rotary_pct`` of each head, ``use_parallel_residual`` blocks whose
+    attention and MLP each norm the same residual (``parallel_norms=2``),
+    sequential blocks without it; the base from ``rope_theta`` or
+    ``rotary_emb_base``. A bf16 checkpoint."""
+    nh, H = hf["num_attention_heads"], hf["hidden_size"]
+    dh = H // nh
+    return ModelConfig(
+        arch="gpt_neox", norm_type="layernorm", mlp_gated=False,
+        parallel_block=hf.get("use_parallel_residual", True), parallel_norms=2,
+        linear_bias=True, hidden_act=_act(hf.get("hidden_act", "gelu")),
+        rotary_dim=_rotary_dim(dh, hf.get("rotary_pct", 0.25)), vocab_size=hf["vocab_size"],
+        hidden_size=H, intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"], num_heads=nh, num_kv_heads=nh, head_dim=dh,
+        rope_theta=hf.get("rope_theta", hf.get("rotary_emb_base", 10000.0)),
+        rope_scaling=_rope_scaling(hf),
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        rms_norm_eps=hf.get("layer_norm_eps", 1e-5), quant="none",
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
+
+
+def _from_phi(hf: dict) -> ModelConfig:
+    """Phi-1 / 1.5 / 2 (the JAX package's phi branch): parallel blocks
+    sharing one LayerNorm, the neox rope over ``partial_rotary_factor`` of
+    each head, a gelu_new MLP, biases everywhere, the head with a bias,
+    untied. A bf16 checkpoint."""
+    nh, H = hf["num_attention_heads"], hf["hidden_size"]
+    dh = H // nh
+    return ModelConfig(
+        arch="phi", norm_type="layernorm", mlp_gated=False, parallel_block=True,
+        parallel_norms=1, linear_bias=True, lm_head_bias=True,
+        hidden_act=_act(hf.get("hidden_act", "gelu_new")),
+        rotary_dim=_rotary_dim(dh, hf.get("partial_rotary_factor", 0.5)),
+        vocab_size=hf["vocab_size"], hidden_size=H, intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"], num_heads=nh,
+        num_kv_heads=hf.get("num_key_value_heads") or nh, head_dim=dh,
+        rope_theta=hf.get("rope_theta", 10000.0), rope_scaling=_rope_scaling(hf),
+        max_position_embeddings=hf.get("max_position_embeddings", 2048),
+        rms_norm_eps=hf.get("layer_norm_eps", 1e-5), quant="none",
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
+
+
+def _from_stablelm(hf: dict) -> ModelConfig:
+    """StableLM (the JAX package's stablelm branch): LayerNorms with
+    biases, a gated silu MLP, the neox rope over ``partial_rotary_factor``
+    (``rope_pct``) of each head, the qkv bias under ``use_qkv_bias``, GQA.
+    A bf16 checkpoint."""
+    nh, H = hf["num_attention_heads"], hf["hidden_size"]
+    dh = H // nh
+    return ModelConfig(
+        arch="stablelm", norm_type="layernorm", mlp_gated=True, hidden_act="silu",
+        linear_bias=False, qkv_bias=hf.get("use_qkv_bias", False),
+        rotary_dim=_rotary_dim(dh, hf.get("partial_rotary_factor", hf.get("rope_pct", 0.25))),
+        vocab_size=hf["vocab_size"], hidden_size=H, intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"], num_heads=nh,
+        num_kv_heads=hf.get("num_key_value_heads", nh), head_dim=dh,
+        rope_theta=hf.get("rope_theta", 10000.0), rope_scaling=_rope_scaling(hf),
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        rms_norm_eps=hf.get("layer_norm_eps", 1e-5), quant="none",
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
+
+
+def _from_cohere(hf: dict) -> ModelConfig:
+    """Cohere / Command-R (the JAX package's cohere branch): parallel
+    blocks sharing one bias-free LayerNorm, the gptj rope over the whole
+    head, a gated silu MLP, the qkv bias under ``attention_bias``, the head
+    always tied, the final logits times ``logit_scale`` (as
+    ``logits_scaling`` = 1 / logit_scale). A bf16 checkpoint."""
+    nh, H = hf["num_attention_heads"], hf["hidden_size"]
+    scale = hf.get("logit_scale", 1.0)
+    return ModelConfig(
+        arch="cohere", norm_type="layernorm", mlp_gated=True, parallel_block=True,
+        parallel_norms=1, linear_bias=False, qkv_bias=hf.get("attention_bias", False),
+        rope_style="gptj", hidden_act="silu",
+        logits_scaling=(1.0 / scale) if scale != 1.0 else None,
+        vocab_size=hf["vocab_size"], hidden_size=H, intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"], num_heads=nh,
+        num_kv_heads=hf.get("num_key_value_heads", nh), head_dim=H // nh,
+        rope_theta=hf.get("rope_theta", 10000.0), rope_scaling=_rope_scaling(hf),
+        max_position_embeddings=hf.get("max_position_embeddings", 8192),
+        rms_norm_eps=hf.get("layer_norm_eps", 1e-5), quant="none", tie_word_embeddings=True)
+
+
+def _from_glm(hf: dict) -> ModelConfig:
+    """GLM-4 (``GlmForCausalLM``; the JAX registry's ``_glm``): the llama
+    graph with the qkv bias (``attention_bias``), the gptj rope over
+    ``partial_rotary_factor`` of each head, the fused gate_up_proj
+    (``load_hf_float``'s phi-3 path), a bf16 checkpoint with a bf16 head."""
+    H, nh = hf["hidden_size"], hf["num_attention_heads"]
+    hd = hf.get("head_dim") or H // nh
+    return ModelConfig(
+        arch="glm", vocab_size=hf["vocab_size"], hidden_size=H,
+        intermediate_size=hf["intermediate_size"], num_layers=hf["num_hidden_layers"],
+        num_heads=nh, num_kv_heads=hf.get("num_key_value_heads", nh), head_dim=hd,
+        rope_theta=hf.get("rope_theta", 10000.0), rope_scaling=_rope_scaling(hf),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        max_position_embeddings=hf.get("max_position_embeddings", 8192),
+        rotary_dim=_rotary_dim(hd, hf.get("partial_rotary_factor", 0.5)), rope_style="gptj",
+        qkv_bias=hf.get("attention_bias", True),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False), quant="none",
+        lm_head_quant="bf16")
+
+
+def _from_helium(hf: dict) -> ModelConfig:
+    """Helium (kyutai; the JAX registry's ``_helium``): the llama graph
+    with the gptj rope."""
+    return dataclasses.replace(ModelConfig.from_hf_config({**hf, "model_type": "llama"}),
+                               arch="helium", rope_style="gptj")
 
 
 def _from_deepseek(hf: dict) -> ModelConfig:

@@ -12,7 +12,8 @@ directory, whose config.json gives the ModelConfig
 (``model_loader/loader.py::config_from_hf_dir``; the ``LLM`` entry point
 loads its weights). ``quantization`` "qspec" is a QuaRot w4 checkpoint, "awq" / "gptq" a grouped-int4 (w4g) one, the only kind a
 Gemma-2 is served as, None a float one (bf16 weights, the only kind a
-BLOOM, an MPT, a Falcon, a JAIS or a Baichuan-13B is served as). A directory whose config.json names an AWQ or GPTQ
+BLOOM, an MPT, a Falcon, a JAIS, a Baichuan-13B, a GPT-J, a GPT-NeoX, a Phi,
+a StableLM or a Cohere is served as). A directory whose config.json names an AWQ or GPTQ
 ``quantization_config.quant_method`` is a w4g checkpoint whatever
 ``quantization`` says, as in the JAX package (a ``quantization`` naming the
 other method raises); any other method (compressed-tensors, ...) and a

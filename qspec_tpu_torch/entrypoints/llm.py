@@ -182,11 +182,12 @@ class LLM:
         ``quant="w4g"``) by ``load_awq`` / ``load_gptq``; under QuaRot
         quantization a QSpec checkpoint (``weight_scales``), else a float one
         quantized at load (any llama-keyed family: Llama, Mistral, Phi-3,
-        Qwen2, Qwen3, Gemma, Granite, Mixtral, Qwen2-MoE, Qwen3-MoE, and the
-        remap families, whose keys ``quantize_float`` maps first); without
-        quantization the family converter of a BLOOM / MPT / DeepSeek-MoE /
-        Falcon / JAIS, else the llama-keyed float loader (the remap families
-        too). A QuaRot config whose widths have no Hadamard raises before
+        Qwen2, Qwen3, Gemma, Granite, Mixtral, Qwen2-MoE, Qwen3-MoE, Helium,
+        GLM-4, and the remap families, whose keys ``quantize_float`` maps
+        first); without quantization the family converter of a BLOOM / MPT /
+        DeepSeek-MoE / Falcon / JAIS / GPT-J / GPT-NeoX / Phi / StableLM /
+        Cohere, else the llama-keyed float loader (the remap families, GLM-4
+        and Helium too). A QuaRot config whose widths have no Hadamard raises before
         the checkpoint is read. Compressed-tensors and GGUF raise in
         EngineArgs (ROADMAP queue 1 item 8)."""
         cfg = self.engine_config.model

@@ -2,14 +2,16 @@
 serves, and the key remaps of the llama graph under other key names.
 
 Port of ``qspec_tpu/model_loader/families.py`` for BLOOM, MPT,
-DeepSeek-MoE, Falcon and JAIS: a family's checkpoint layout (BLOOM's
-head-interleaved fused ``query_key_value``, MPT's ``transformer.blocks.*``
-naming, DeepSeek's dense prefix and shared experts, Falcon's three
-``query_key_value`` layouts and its parallel blocks, JAIS's Conv1D weights
-and swiglu pair) is translated into the bf16 parameter tree that
-``models/llama.py`` serves with the family's knobs (LayerNorm, linear
-biases, the non-gated MLP, ALiBi, the parallel block; the MoE MLP), the
-layout of the JAX converters' output.
+DeepSeek-MoE, Falcon, JAIS and the parallel-residual families GPT-J,
+GPT-NeoX / Pythia, Phi, StableLM and Cohere: a family's checkpoint layout
+(BLOOM's and GPT-NeoX's head-interleaved fused ``query_key_value``, MPT's
+``transformer.blocks.*`` naming, DeepSeek's dense prefix and shared experts,
+Falcon's three ``query_key_value`` layouts and its parallel blocks, JAIS's
+Conv1D weights and swiglu pair; GPT-J's and Phi's head biases) is
+translated into the bf16 parameter tree that ``models/llama.py`` serves
+with the family's knobs (LayerNorm, linear biases, the non-gated MLP,
+ALiBi, the parallel block, the partial and interleaved rope; the MoE MLP),
+the layout of the JAX converters' output.
 
 ``LLAMA_KEY_REMAPS`` (Baichuan, InternLM2, Qwen v1, EXAONE, TeleChat2) map
 a checkpoint onto llama keys in place, so the llama-keyed loaders
@@ -25,8 +27,9 @@ dict they are given: each source entry is removed as it is converted, and
 the layer stacks are filled one at a time, so the peak memory stays near one
 copy of the weights plus one stack (a 4 GB MLP stack at BLOOM-7B1). The weights are rounded
 to bf16 as the JAX converters round them (from the source's exact float32
-value, to nearest even). The rope cache that the JAX ``_finish`` adds is
-left out of BLOOM's and MPT's trees: ALiBi has no rope.
+value, to nearest even). The rope cache that the JAX ``_finish`` adds, at
+the rotated width (``ModelConfig.rope_dim``), is left out of BLOOM's and
+MPT's trees: ALiBi has no rope.
 """
 
 from __future__ import annotations
@@ -96,12 +99,24 @@ class _Stacker:
         self.put(key, li, b if rows is None else rows(b))
 
 
+def _on_every_layer(sd: Dict, layer, names) -> bool:
+    """Whether every layer's prefix in ``layer`` has each of ``names`` in
+    ``sd``; where only some layers do, it raises a ValueError naming them (a
+    tensor read on some layers only would leave the others' rows unset)."""
+    some = [any(p + n in sd for n in names) for p in layer]
+    every = [all(p + n in sd for n in names) for p in layer]
+    if any(some) and not all(every):
+        raise ValueError(f"{' / '.join(names)} on layers {[i for i, h in enumerate(every) if h]} "
+                         f"but not on {[i for i, h in enumerate(every) if not h]}")
+    return all(every)
+
+
 def position_params(cfg: ModelConfig, device) -> dict:
     """An ALiBi model's slopes, or a rope model's cache (the JAX package's
     ``_finish``; ALiBi has no rope)."""
     if cfg.position_embedding == "alibi":
         return alibi_params(cfg, device)
-    return {"rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
+    return {"rope_cache": make_rope_cache(cfg.rope_dim, cfg.max_position_embeddings,
                                           cfg.rope_theta, rope_scaling=cfg.rope_scaling,
                                           device=device)}
 
@@ -121,18 +136,23 @@ def _tree(st: _Stacker, cfg: ModelConfig, embed: torch.Tensor, lm_head) -> dict:
             **position_params(cfg, embed.device)}
 
 
+def _per_head_qkv(nh: int, dh: int):
+    """Rows [nh, 3, dh, ...] (each head's q, k, v together: BLOOM's and
+    GPT-NeoX's fused query_key_value) de-interleaved to q|k|v."""
+    def rows(t):
+        return t.reshape(nh, 3, dh, *t.shape[1:]).transpose(0, 1).reshape(3 * nh * dh,
+                                                                          *t.shape[1:])
+    return rows
+
+
 def convert_bloom(sd: Dict, cfg: ModelConfig, device=None) -> dict:
     """BLOOM (``qspec_tpu/model_loader/families.py::convert_bloom``):
     ``transformer.*`` names, the embedding LayerNorm, the head-interleaved
     fused ``query_key_value`` (rows [nh, 3, dh], de-interleaved to q|k|v
     with its bias), tanh-gelu MLP with biases, tied head."""
     dev = _device(sd, device)
-    nh, dh, H = cfg.num_heads, cfg.head_dim, cfg.hidden_size
     st = _Stacker(sd, cfg.num_layers, dev)
-
-    def qkv_rows(t):
-        return t.reshape(nh, 3, dh, *t.shape[1:]).transpose(0, 1).reshape(3 * H, *t.shape[1:])
-
+    qkv_rows = _per_head_qkv(cfg.num_heads, cfg.head_dim)
     layer = [f"transformer.h.{li}." for li in range(cfg.num_layers)]
     for key, name, rows in (("qkv", "self_attention.query_key_value", qkv_rows),
                             ("o", "self_attention.dense", None),
@@ -169,13 +189,14 @@ def convert_mpt(sd: Dict, cfg: ModelConfig, device=None) -> dict:
                       ("gate_up", "ffn.up_proj"), ("down", "ffn.down_proj")):
         for li, p in enumerate(layer):
             st.weight(f"{key}.w", li, p + name + ".weight")
-        for li, p in enumerate(layer):
-            if cfg.linear_bias and p + name + ".bias" in sd:
+        if cfg.linear_bias and _on_every_layer(sd, layer, (name + ".bias",)):
+            for li, p in enumerate(layer):
                 st.vector(f"{key}.b", li, p + name + ".bias")
     for key, name in (("input_norm", "norm_1"), ("post_norm", "norm_2")):
+        beta = _on_every_layer(sd, layer, (name + ".bias",))
         for li, p in enumerate(layer):
             st.vector(key, li, p + name + ".weight")
-            if p + name + ".bias" in sd:
+            if beta:
                 st.vector(key + "_b", li, p + name + ".bias")
     pre = "transformer."
     params = _tree(st, cfg, _take(sd, pre + "wte.weight", dev), None)
@@ -235,10 +256,10 @@ def convert_deepseek(sd: Dict, cfg: ModelConfig, device=None) -> dict:
     return params
 
 
-def _tied_head(sd: Dict, cfg: ModelConfig, dev):
-    """The untied head's [V, H] tensor, or None for a tied model (a tied
-    checkpoint's own ``lm_head.weight``, where it has one, is dropped)."""
-    head = sd.pop("lm_head.weight", None)
+def _tied_head(sd: Dict, cfg: ModelConfig, dev, name: str = "lm_head.weight"):
+    """The untied head's [V, H] tensor (``name``), or None for a tied model
+    (a tied checkpoint's own head, where it has one, is dropped)."""
+    head = sd.pop(name, None)
     if cfg.tie_word_embeddings or head is None:
         return None
     return _take({"h": head}, "h", dev)
@@ -321,6 +342,106 @@ def convert_jais(sd: Dict, cfg: ModelConfig, device=None) -> dict:
     params["final_norm"] = _take(sd, pre + "ln_f.weight", dev)
     params["final_norm_b"] = _take(sd, pre + "ln_f.bias", dev)
     return params
+
+
+def _family(sd: Dict, cfg: ModelConfig, device, layer_prefix: str, projections: Dict,
+            norms: Dict[str, str], embed: str, final_norm: str,
+            head: str = "lm_head.weight") -> dict:
+    """One converter of the parallel-residual families' layouts:
+    ``projections`` maps qkv / o / gate_up / down to (the HF [out, in]
+    weights whose rows it stacks, a row reorder or None), each with its
+    bias where every layer has it (some layers only: a ValueError);
+    ``norms`` input_norm / post_norm to their LayerNorm names (a beta where
+    every layer has one, as for the biases: Cohere's have none); the
+    embedding, the final norm and the head (untied unless the config ties
+    it; its bias ``lm_head_b`` under ``lm_head_bias``). One stack is filled
+    at a time, the state dict consumed."""
+    dev = _device(sd, device)
+    st = _Stacker(sd, cfg.num_layers, dev)
+    layer = [f"{layer_prefix}{li}." for li in range(cfg.num_layers)]
+
+    for key, (names, rows) in projections.items():
+        bias = _on_every_layer(sd, layer, [n + ".bias" for n in names])
+        for kind in (".weight", ".bias") if bias else (".weight",):
+            for li, p in enumerate(layer):
+                t = torch.cat([_take(sd, p + n + kind, dev) for n in names])
+                t = t if rows is None else rows(t)
+                st.put(key + kind[:2], li, t.t() if kind == ".weight" else t)
+    for key, name in norms.items():
+        beta = _on_every_layer(sd, layer, (name + ".bias",))
+        for li, p in enumerate(layer):
+            st.vector(key, li, p + name + ".weight")
+            if beta:
+                st.vector(key + "_b", li, p + name + ".bias")
+    params = _tree(st, cfg, _take(sd, embed, dev), _tied_head(sd, cfg, dev, head))
+    params["final_norm"] = _take(sd, final_norm + ".weight", dev)
+    if final_norm + ".bias" in sd:
+        params["final_norm_b"] = _take(sd, final_norm + ".bias", dev)
+    if cfg.lm_head_bias:
+        params["lm_head_b"] = _take(sd, head[:-len("weight")] + "bias", dev)
+    return params
+
+
+QKV = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")
+INPUT_NORM = {"input_norm": "input_layernorm"}
+BOTH_NORMS = {**INPUT_NORM, "post_norm": "post_attention_layernorm"}
+GATED = {"gate_up": (("mlp.gate_proj", "mlp.up_proj"), None), "down": (("mlp.down_proj",), None)}
+
+
+def convert_gptj(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """GPT-J (``qspec_tpu/model_loader/families.py::convert_gptj``):
+    ``transformer.h.*`` names, unbiased q / k / v / out projections, the
+    fc_in / fc_out MLP with biases, ln_1 shared by the parallel block,
+    ``ln_f``, the head with its bias."""
+    return _family(sd, cfg, device, "transformer.h.", {
+        "qkv": (("attn.q_proj", "attn.k_proj", "attn.v_proj"), None),
+        "o": (("attn.out_proj",), None), "gate_up": (("mlp.fc_in",), None),
+        "down": (("mlp.fc_out",), None)}, {"input_norm": "ln_1"},
+        "transformer.wte.weight", "transformer.ln_f")
+
+
+def convert_gpt_neox(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """GPT-NeoX / Pythia (``...::convert_gpt_neox``): ``gpt_neox.*`` names,
+    the fused ``query_key_value`` interleaved per head (rows [nh, 3, dh],
+    de-interleaved to q|k|v with its bias), biases everywhere, the
+    attention's and the MLP's LayerNorms (each the MLP's own input under
+    the parallel residual), the untied ``embed_out`` head."""
+    return _family(sd, cfg, device, "gpt_neox.layers.", {
+        "qkv": (("attention.query_key_value",), _per_head_qkv(cfg.num_heads, cfg.head_dim)),
+        "o": (("attention.dense",), None), "gate_up": (("mlp.dense_h_to_4h",), None),
+        "down": (("mlp.dense_4h_to_h",), None)}, BOTH_NORMS,
+        "gpt_neox.embed_in.weight", "gpt_neox.final_layer_norm", head="embed_out.weight")
+
+
+def convert_phi(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """Phi-1 / 1.5 / 2 (``...::convert_phi``): llama-style names with
+    biases, ``self_attn.dense``, the fc1 / fc2 MLP, one input LayerNorm a
+    block (the parallel block), ``final_layernorm``, the head with its
+    bias."""
+    return _family(sd, cfg, device, "model.layers.", {
+        "qkv": (QKV, None), "o": (("self_attn.dense",), None),
+        "gate_up": (("mlp.fc1",), None), "down": (("mlp.fc2",), None)}, INPUT_NORM,
+        "model.embed_tokens.weight", "model.final_layernorm")
+
+
+def convert_stablelm(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """StableLM (``...::convert_stablelm``): llama names, LayerNorms with
+    biases, the gated MLP, the qkv bias where the checkpoint has it
+    (``use_qkv_bias``), ``model.norm`` with its bias."""
+    return _family(sd, cfg, device, "model.layers.", {
+        "qkv": (QKV, None), "o": (("self_attn.o_proj",), None), **GATED}, BOTH_NORMS,
+        "model.embed_tokens.weight", "model.norm")
+
+
+def convert_cohere(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """Cohere / Command-R (``...::convert_cohere``): llama names, one
+    bias-free LayerNorm a block (the parallel block), the gated MLP, the
+    q / k / v (and o) biases where the checkpoint has them
+    (``attention_bias``; the JAX converter reads no o bias), a bias-free
+    final norm, the head tied to the embedding."""
+    return _family(sd, cfg, device, "model.layers.", {
+        "qkv": (QKV, None), "o": (("self_attn.o_proj",), None), **GATED}, INPUT_NORM,
+        "model.embed_tokens.weight", "model.norm")
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +596,9 @@ PROJ_KEYS = ("qkv", "o", "gate_up", "down", "experts_gate_up", "experts_down",
 # only the ported converters: a family not here raises in load_family_float
 CONVERTERS: Dict[str, Callable] = {"bloom": convert_bloom, "mpt": convert_mpt,
                                    "deepseek": convert_deepseek, "falcon": convert_falcon,
-                                   "jais": convert_jais}
+                                   "jais": convert_jais, "gptj": convert_gptj,
+                                   "gpt_neox": convert_gpt_neox, "phi": convert_phi,
+                                   "stablelm": convert_stablelm, "cohere": convert_cohere}
 
 
 def load_family_float(sd: Dict, cfg: ModelConfig, device=None):

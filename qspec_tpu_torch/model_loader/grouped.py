@@ -225,7 +225,7 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
         "lm_head": _make_lm_head(lm.to(torch.float32).t().contiguous(), _head_kind(cfg)),
         "final_norm": norm_w("model.norm.weight"),
         "layers": stacked,
-        "rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
+        "rope_cache": make_rope_cache(cfg.rope_dim, cfg.max_position_embeddings,
                                       cfg.rope_theta, rope_scaling=cfg.rope_scaling,
                                       device=dev),
     }

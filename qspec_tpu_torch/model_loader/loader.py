@@ -31,8 +31,9 @@ Port of ``qspec_tpu/model_loader/loader.py``:
   without them: ROADMAP §3).
 
 Scope: the llama graph's dense families (Llama, Mistral, Phi-3, Qwen2,
-Qwen3, Gemma, Granite) without tensor parallelism, split or fused (phi-3)
-q/k/v and gate/up, the qkv bias (split or fused) where the config declares
+Qwen3, Gemma, Granite; Helium, and GLM-4 with its fused gate_up_proj and
+q/k/v biases, both with the gptj rope) without tensor parallelism, split or
+fused (phi-3, GLM-4) q/k/v and gate/up, the qkv bias (split or fused) where the config declares
 it, the o and down biases where the checkpoint has them (TeleChat2;
 ``quantize_float`` rotates them into the residual basis, b -> b Q, where
 the JAX one drops them), and in ``load_hf_float`` / ``quantize_float`` the

@@ -32,12 +32,19 @@ GPT-family knobs:
       write - attention with ALiBi (no rope) - o(+b) - +residual
       - LayerNorm(+beta) - fc1(+b) - gelu - fc2(+b) - +residual
 
-and Falcon's parallel block (``parallel_block``), both branches reading the
-same residual x:
+and the parallel block (``parallel_block``: Falcon, GPT-J, GPT-NeoX, Phi,
+Cohere), both branches reading the same residual x:
 
     x - LayerNorm - qkv - rope - attention - o ---------------+
       - (the same normed x, or under parallel_norms=2 a second  x + o + down
          LayerNorm of x) - fc1 - gelu - fc2 - down -----------+
+
+Rope is neox (half-split pairs) or gptj (interleaved pairs: GPT-J, Cohere,
+GLM, Helium) by ``cfg.rope_style``, over the cache's width: the whole head,
+or its first ``cfg.rotary_dim`` dims (GPT-NeoX, Phi, GPT-J, StableLM, GLM,
+Qwen v1's rotary_pct). A head bias (``params["lm_head_b"]``, Phi and GPT-J)
+adds to the f32 logits last, after ``logits_scaling``; Cohere's LayerNorms
+have no beta.
 
 Gemma-2 (``arch="gemma2"``, served as ``quant="w4g"``) is the same w4g
 graph with its own knobs, as in the JAX package: embeddings times
@@ -73,8 +80,8 @@ has ``layers[name] = {"w": bf16 [L, K, N]}`` with ``"b": bf16 [L, N]`` under
 ``linear_bias`` (BLOOM: every projection; MPT: none), the gammas, under
 LayerNorm the betas ``layers["input_norm_b"]`` / ``["post_norm_b"]`` and
 ``final_norm_b`` where the checkpoint has them, BLOOM's ``embed_norm`` /
-``embed_norm_b``, a bf16 head (tied: a view of ``embed``'s storage) and,
-under ALiBi, ``alibi_slopes`` f32 [Hq] and no rope cache. The layer-stacked
+``embed_norm_b``, a bf16 head (tied: a view of ``embed``'s storage), its
+bias ``lm_head_b`` bf16 [V] (Phi, GPT-J) and, under ALiBi, ``alibi_slopes`` f32 [Hq] and no rope cache. The layer-stacked
 weights are read in place by the kernels (``layer_idx``).
 
 A sparse-MoE model (``num_experts > 0``: Mixtral, Qwen2-MoE, Qwen3-MoE,
@@ -178,12 +185,18 @@ def bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def layernorm(x, gamma, beta, eps):
-    """Mean-subtracting LayerNorm with an optional bias, in f32, bf16 out
-    (``qspec_tpu/models/llama.py::layernorm``; XLA there, torch ops here)."""
-    x32 = x.to(torch.float32)
-    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    """Mean-subtracting LayerNorm with an optional bias, bf16 out
+    (``qspec_tpu/models/llama.py::layernorm``; XLA in f32 there, torch ops
+    here). The row statistics are taken in float64, where the mean of bf16
+    inputs is exact and the variance within a few units of 2^-53 of it: a
+    row's bf16 result then does not depend on how the reduction kernel
+    splits its sums for the batch's row count. In float32 it did: on the
+    card one GPT-J-6B row normed at 8 rows and at 16 came out a bf16 step
+    apart, and greedy n-gram left its oracle."""
+    x64 = x.to(torch.float64)
+    xc = x64 - x64.mean(dim=-1, keepdim=True)
     out = xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
-    out = out * gamma.to(torch.float32)
+    out = out.to(torch.float32) * gamma.to(torch.float32)
     if beta is not None:
         out = out + beta.to(torch.float32)
     return out.to(torch.bfloat16)
@@ -469,7 +482,7 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         q = _head_rmsnorm(q, layers["q_norm"][wi], eps)
         k = _head_rmsnorm(k, layers["k_norm"][wi], eps)
     if alibi is None:
-        q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache)
+        q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache, cfg.rope_style)
     q = q.to(torch.bfloat16)
     k = k.to(torch.bfloat16)
 
@@ -611,8 +624,12 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         cap = cfg.final_logit_softcap
         logits = torch.tanh(logits / cap) * cap
     if cfg.logits_scaling:
-        # Granite divides the final logits by logits_scaling
+        # Granite divides the final logits by logits_scaling (Cohere's
+        # logit_scale, JAIS's width scale ride it too)
         logits = logits / cfg.logits_scaling
+    if "lm_head_b" in params:
+        # Phi's and GPT-J's head bias, last, as the JAX package adds it
+        logits = logits + params["lm_head_b"].to(torch.float32)
     logits = logits.reshape(B, -1, logits.shape[-1])
     if return_hidden:
         return logits, hidden, cache
@@ -819,7 +836,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         **params,
         "embed": normal(cfg.vocab_size, H).to(torch.bfloat16),
         "lm_head": _make_lm_head(normal(H, cfg.vocab_size), head_kind),
-        "rope_cache": make_rope_cache(cfg.head_dim, cfg.max_position_embeddings,
+        "rope_cache": make_rope_cache(cfg.rope_dim, cfg.max_position_embeddings,
                                       cfg.rope_theta, rope_scaling=cfg.rope_scaling,
                                       device=dev),
         "hadamards": make_hadamards(cfg, dev),
@@ -903,7 +920,7 @@ def _init_float_params(cfg: ModelConfig, seed: int, dev: torch.device):
         params["embed_norm"], params["embed_norm_b"] = ones(H), zeros(H)
     if cfg.position_embedding == "rope":
         params["rope_cache"] = make_rope_cache(
-            cfg.head_dim, cfg.max_position_embeddings, cfg.rope_theta,
+            cfg.rope_dim, cfg.max_position_embeddings, cfg.rope_theta,
             rope_scaling=cfg.rope_scaling, device=dev)
     params["lm_head"] = (params["embed"].t() if cfg.tie_word_embeddings
                          else normal(H, cfg.vocab_size))
@@ -922,8 +939,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     ``np.asarray``) over to the port: ``init_params`` of a QuaRot model,
     ``load_awq`` / ``load_gptq`` of a w4g one, or ``init_params`` /
     ``load_family_float`` of a float one (bf16 weights and biases, the
-    gammas and LayerNorm betas, BLOOM's ``embed_norm``, the bf16 head); an
-    MoE's router, expert stacks [L, E, ...], shared expert and gate, and
+    gammas and LayerNorm betas, BLOOM's ``embed_norm``, the bf16 head and
+    its bias ``lm_head_b``); the rope cache as it is (at a partial rotary
+    width too); an MoE's router, expert stacks [L, E, ...], shared expert and gate, and
     DeepSeek's ``layers_dense``; the qkv bias and the q/k norms.
     Packed int4 (plain or grouped, with its scales and offsets), the gammas
     and the int8 head stay as they are: the kernels read the interchange
@@ -959,7 +977,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     if cfg.quant == "w4":
         params["hadamards"] = make_hadamards(cfg, dev)
     else:
-        for name in ("final_norm", "final_norm_b", "embed_norm", "embed_norm_b"):
+        for name in ("final_norm", "final_norm_b", "embed_norm", "embed_norm_b", "lm_head_b"):
             if name in tree:
                 params[name] = _tensor(tree[name], dev)
 

@@ -27,7 +27,19 @@ otherwise: Baichuan-13B, Baichuan2-13B, served in bf16, as vLLM's
 ``InternLM2ForCausalLM`` / ``InternLM2VEForCausalLM``, ``QWenLMHeadModel``
 (Qwen v1), ``ExaoneForCausalLM``, ``TeleChat2ForCausalLM``; and in bf16
 ``FalconForCausalLM`` / ``RWForCausalLM`` (parallel blocks, or falcon-rw's
-ALiBi) and ``JAISLMHeadModel``. Any other architecture raises.
+ALiBi) and ``JAISLMHeadModel``.
+
+The gptj rope and partial rotary: in bf16 the parallel-residual families
+``GPTJForCausalLM``, ``GPTNeoXForCausalLM`` (Pythia), ``PhiForCausalLM``
+(Phi-1 / 1.5 / 2), ``StableLmForCausalLM`` / ``StableLMEpochForCausalLM``
+and ``CohereForCausalLM`` (Command-R), converted by
+``model_loader/families.py``; the llama-keyed ``GlmForCausalLM`` (GLM-4:
+the qkv bias, the fused gate_up_proj, half-width interleaved rope) and
+``HeliumForCausalLM`` (the interleaved rope), through the llama-keyed
+loaders, Helium under QuaRot too. ``Cohere2ForCausalLM`` and
+``Glm4ForCausalLM`` are named only to raise, naming ROADMAP queue 1 item 9
+(the JAX registry maps them onto Cohere and GLM and drops their other
+layers' knobs). Any other architecture raises.
 """
 
 from __future__ import annotations
@@ -59,7 +71,14 @@ ARCHITECTURES = {"LlamaForCausalLM": "llama", "QuarotLlamaForCausalLM": "llama",
                  "ExaoneForCausalLM": "exaone", "exaone": "exaone",
                  "TeleChat2ForCausalLM": "telechat2", "telechat2": "telechat2",
                  "FalconForCausalLM": "falcon", "RWForCausalLM": "falcon", "falcon": "falcon",
-                 "JAISLMHeadModel": "jais", "jais": "jais"}
+                 "JAISLMHeadModel": "jais", "jais": "jais",
+                 "GPTJForCausalLM": "gptj", "gptj": "gptj",
+                 "GPTNeoXForCausalLM": "gpt_neox", "gpt_neox": "gpt_neox",
+                 "PhiForCausalLM": "phi", "phi": "phi",
+                 "StableLmForCausalLM": "stablelm", "StableLMEpochForCausalLM": "stablelm",
+                 "stablelm": "stablelm", "CohereForCausalLM": "cohere", "cohere": "cohere",
+                 "Cohere2ForCausalLM": "cohere2", "GlmForCausalLM": "glm", "glm": "glm",
+                 "Glm4ForCausalLM": "glm4", "HeliumForCausalLM": "helium", "helium": "helium"}
 # the architectures whose config.json model type the JAX registry keeps (its
 # LlamaForCausalLM, MistralForCausalLM and Phi3ForCausalLM entries call
 # from_hf_config on the dict as it is; a Qwen2 entry then sets the qwen2

@@ -1,7 +1,9 @@
-"""Rotary position embedding (neox style).
+"""Rotary position embedding, neox or gptj style, over all of a head or
+the first ``rotary_dim`` dims of it.
 
 Port of ``qspec_tpu/ops/rotary.py`` (plain rope, llama3-style scaling and
-Phi-3's longrope; the JAX package leaves rope to XLA, so it stays torch ops
+Phi-3's longrope; the half-split (neox) and interleaved (gptj) pairings;
+partial rotary; the JAX package leaves rope to XLA, so it stays torch ops
 here). A dynamic NTK scaling (InternLM2) changes the base only past its
 original window, so inside it the cache is the plain one; a cache past that
 window raises. Any other rope scaling raises: the JAX package returns the
@@ -80,10 +82,16 @@ def make_rope_cache(head_dim: int, max_positions: int = 8192, base: float = 5000
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
-               cache: torch.Tensor):
-    """Neox rotary rotation (half-split pairs). q: [T, Hq, D], k: [T, Hk, D],
-    positions: [T]. The rotated width is 2 * cache.shape[-1]; dims past it
-    pass through."""
+               cache: torch.Tensor, style: str = "neox"):
+    """Rotary rotation. q: [T, Hq, D], k: [T, Hk, D], positions: [T].
+
+    The rotated width is the cache's, 2 * cache.shape[-1]; the dims past it
+    pass through unrotated (partial rotary: GPT-NeoX / Pythia, Phi, GPT-J,
+    StableLM, GLM, Qwen v1's rotary_pct).
+
+    style: "neox" rotates half-split pairs (x_i, x_{i+rd/2}); "gptj"
+    rotates interleaved pairs (x_{2i}, x_{2i+1}) (GPT-J, Cohere, GLM,
+    Helium). ``ModelConfig`` refuses any other ``rope_style``."""
     pos = positions.to(torch.int64)
     cos = cache[0][pos][:, None, :]  # [T, 1, rd/2]
     sin = cache[1][pos][:, None, :]
@@ -92,9 +100,14 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
     def rot(x):
         xf = x.to(torch.float32)
         xr, xp = xf[..., :rd], xf[..., rd:]
-        half = rd // 2
-        x1, x2 = xr[..., :half], xr[..., half:]
-        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        if style == "gptj":
+            x1, x2 = xr[..., 0::2], xr[..., 1::2]
+            out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                              dim=-1).reshape(xr.shape)
+        else:
+            half = rd // 2
+            x1, x2 = xr[..., :half], xr[..., half:]
+            out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
         if rd < x.shape[-1]:
             out = torch.cat([out, xp], dim=-1)
         return out.to(x.dtype)

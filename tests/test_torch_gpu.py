@@ -1624,3 +1624,134 @@ def test_tiny_remap_and_falcon_on_card_match_cpu(gen, family):
         assert (out.argmax(-1) == ref.argmax(-1))[clear].all()
         first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
         assert first is None or not clear[gen_pos[first]], (got, want)
+
+
+# ------------------------------- the gptj rope and the parallel-residual families
+
+
+@pytest.mark.parametrize("q_len", [1, 2, 4])
+@pytest.mark.parametrize("Hq,D", [(16, 256), (64, 96), (32, 80)],
+                         ids=["gptj-d256", "neox20b-d96", "phi2-d80"])
+def test_paged_attention_kernel_at_gptj_and_neox20b_shapes(gen, Hq, D, q_len):
+    """GPT-J-6B's 16 heads of 256 (multi-head: one Q row a KV head), and
+    GPT-NeoX-20B's 64 heads of 96 and Phi-2's 32 of 80, stored 128-padded
+    (the pad lanes zero, as update_layer writes them) and called through
+    ops.attention.paged_attention as the model calls it (q padded, the
+    output sliced back): against the plain version at the verify's
+    contexts, 3e-2; a padding row writes zeros."""
+    from qspec_tpu_torch.ops.attention import paged_attention
+    stored = -(-D // 128) * 128
+    ctx = [max(c, q_len) if c else 0 for c in (379, 263, 512, 40)]
+    q, cache, tables, ctx_t = _window_case(gen, q_len, "bfloat16", ctx, S=128, B=4, Hq=Hq,
+                                           Hkv=Hq, D=stored)
+    cache.kv_pages[..., D:] = 0
+    q = q[..., :D].contiguous()
+    out = paged_attention(q, cache, 1, tables, ctx_t, D ** -0.5)
+    assert out.shape == q.shape
+    ref = paged_attention_ref(torch.nn.functional.pad(q, (0, stored - D)), cache, 1, tables,
+                              ctx_t, D ** -0.5)[..., :D]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=3e-2, atol=3e-2)
+
+
+def test_tiny_gptj_ngram_equals_ar_on_card(gen):
+    """A tiny GPT-J (hidden 512, 2 heads of 256, the interleaved rope over
+    64 of them, the head's bias; its LayerNorms and biases perturbed)
+    converted by load_family_float on the CPU and moved to the card: its
+    logits within a relative L2 of 2e-2 of the CPU's, and through the engine
+    on the card greedy n-gram (k = 3) == the null oracle == AR, every
+    attention launch the D=256 instantiation."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    from qspec_tpu_torch.model_loader.families import load_family_float
+    from qspec_tpu_torch.models.llama import AttentionBatch, model_forward
+    from qspec_tpu_torch.models.registry import resolve
+    cfg = resolve(dict(architectures=["GPTJForCausalLM"], model_type="gptj", n_embd=512,
+                       n_head=2, n_layer=2, n_inner=1024, rotary_dim=64, vocab_size=512,
+                       n_positions=256, activation_function="gelu_new"))
+    assert cfg.head_dim == 256 and cfg.rotary_dim == 64 and cfg.rope_style == "gptj"
+    g = torch.Generator().manual_seed(21)
+
+    def w(*shape, s=0.05):
+        return torch.randn(shape, generator=g) * s
+    H, I, V = 512, 1024, 512
+    sd = {"transformer.wte.weight": w(V, H), "transformer.ln_f.weight": 1 + w(H, s=0.3),
+          "transformer.ln_f.bias": w(H, s=0.1), "lm_head.weight": w(V, H),
+          "lm_head.bias": w(V, s=0.1)}
+    for li in range(2):
+        p = f"transformer.h.{li}."
+        sd.update({p + "ln_1.weight": 1 + w(H, s=0.3), p + "ln_1.bias": w(H, s=0.1),
+                   p + "mlp.fc_in.weight": w(I, H), p + "mlp.fc_in.bias": w(I, s=0.1),
+                   p + "mlp.fc_out.weight": w(H, I), p + "mlp.fc_out.bias": w(H, s=0.1),
+                   **{p + f"attn.{n}_proj.weight": w(H, H, s=0.2) for n in "qkv"},
+                   p + "attn.out_proj.weight": w(H, H)})
+    cpu, cfg = load_family_float(sd, cfg, device="cpu")
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+    card = to(cpu, "cuda")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, V, size=int(n)).tolist() for n in (9, 20, 31)]
+    prompts[1] = prompts[1][:5] * 4
+    toks = prompts[2]
+
+    def logits(dev, params):
+        S, T = 16, len(toks)
+        cache = kvc.allocate(kvc.KVCacheConfig(cfg.num_layers, cfg.num_kv_heads,
+                                               cfg.cache_head_dim, 8, S), dev)
+        pos = torch.arange(T, device=dev)[None]
+        batch = AttentionBatch(pos, pos + S, torch.arange(1, 8, dtype=torch.int32,
+                                                          device=dev)[None],
+                               torch.tensor([T], dtype=torch.int32, device=dev))
+        out, _ = model_forward(params, cfg, torch.tensor([toks], device=dev), cache, batch,
+                               scheme="bf16")
+        return out[0].float().cpu()
+    ref, out = logits("cpu", cpu), logits("cuda", card)
+    assert ((out - ref).norm() / ref.norm()).item() <= 2e-2
+
+    def run(method):
+        spec = SpeculativeConfig(num_speculative_tokens=3, method=method) if method else None
+        eng = LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=16, num_pages=32),
+            scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=128, prefill_chunk_size=64),
+            speculative=spec), card, device="cuda", seed=0)
+        return _greedy(eng, prompts, 12)
+    attn = kernel_wrappers()["paged_attention"]
+    attn.launches = attn.d256_launches = 0
+    spec = run("ngram")
+    assert attn.launches > 0 and attn.d256_launches == attn.launches
+    assert spec == run("null") == run(None)
+
+
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("h", [2560, 4096])
+def test_gamma_rmsnorm_at_helium_and_glm4_widths(gen, h, m):
+    """The gamma rmsnorm at Helium's hidden 2560 (no multiple of 1024) and
+    GLM-4's 4096, at the draft's and the verify's M, alone and with the
+    residual add: against its plain version (NORM_CASES' tolerance), h bit
+    for bit the torch add."""
+    x, r, g = _norm_inputs(gen, m, h)
+    for res in (None, r):
+        got = _norm("gamma", x, g, None, res)
+        want = _norm("gamma", x, g, None, res, ref=True)
+        torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2, atol=2e-2)
+        if res is not None:
+            assert torch.equal(got[-1], x + r) and torch.equal(want[-1], x + r)
+
+
+@pytest.mark.parametrize("h", [2560, 4096, 6144])
+def test_layernorm_rows_independent_of_batch(gen, h):
+    """models/llama.layernorm (torch ops, its statistics in float64): a
+    row's bits do not depend on the batch's row count (M = 1 to 504, the
+    first rows and the last), over rows of scales 1e-2 to 1e2, with a beta
+    and without (Cohere). In float32 a GPT-J-6B row normed at 8 rows and at
+    16 came out a bf16 step apart."""
+    from qspec_tpu_torch.models.llama import layernorm
+    scale = torch.logspace(-2, 2, 504, device="cuda")[:, None]
+    x = (torch.randn(504, h, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+    g = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = (0.01 * torch.randn(h, generator=gen, device="cuda")).to(torch.bfloat16)
+    for beta in (b, None):
+        full = layernorm(x, g, beta, 1e-5)
+        for m in (1, 4, 8, 12, 16, 126):
+            assert torch.equal(layernorm(x[:m], g, beta, 1e-5), full[:m]), m
+            assert torch.equal(layernorm(x[-m:], g, beta, 1e-5), full[-m:]), m

@@ -502,11 +502,12 @@ def test_dynamic_rope_and_logn_only_inside_their_window():
 
 def test_qwen_reads_rotary_emb_base():
     """Qwen v1 names its base rotary_emb_base; the JAX registry reads
-    rope_theta, absent there, and so 10000 whatever the checkpoint says."""
+    rope_theta, absent there, and so 10000 whatever the checkpoint says. A
+    rotary_pct below 1 ropes that share of each head (the JAX registry
+    ignores it: tests/test_torch_parallel_families.py holds it)."""
     jcfg, tcfg = cfgs("qwen", rotary_emb_base=50000)
     assert tcfg.rope_theta == 50000 and jcfg.rope_theta == 10000.0
-    with pytest.raises(NotImplementedError, match="rotary_pct"):
-        cfgs("qwen", rotary_pct=0.5)
+    assert cfgs("qwen", rotary_pct=0.5)[1].rotary_dim == DH // 2
 
 
 def test_width_without_hadamard_raises_before_any_work(tmp_path):
