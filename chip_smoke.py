@@ -212,7 +212,24 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    GLM-4-9B and Helium directories (published widths, 2 layers, their own
    keys) through LLM(model=<dir>, quantization=None), n-gram == null, and
    the refused layouts raising before a weight is read (phase_k_dirs; the
-   kernel line's ``k_launches``).
+   kernel line's ``k_launches``);
+21. the engine surface (L), run after (I) on (A)'s parameters (int8 head,
+   bf16 KV, QSpec k = 3, W4A8 draft), against (A)'s W4A8 tokens
+   (phase_engine_surface_8b): (L1) a LoRA bank of 3 slots at rank 16, two
+   PEFT adapters made on the card (q/k/v/o/gate/up/down, rotated into (A)'s
+   recorded QuaRot basis), one loaded by ``engine.lora.load``, one by
+   ``load_path`` from a directory written here; prompts on slots 0, a, b, a
+   == qspec_null, slot 0 == (A), each adapter row unlike (A)'s, exactly
+   qspec_launches' counts (the kernel line's ``lora_launches``); (L2) swap
+   preemption in an 8-page pool over bf16 and int8 KV == the same engine
+   with pages to spare, sequences swapped out and in; recompute mode and a
+   0 GiB swap pool == each other and == the unconstrained run up to the
+   preemption; (L3) a soft prompt of 8 rows == the same rows given as
+   ``prompt_embeds``, == qspec_null; (L4) ``LLM.beam_search`` (width 4, 8
+   tokens, 2 prompts): distinct sorted beams, each cumulative logprob within
+   L_BEAM_TOL of a teacher-forced re-scoring; (L5) the LoRA routes over HTTP
+   (load, a completion whose ``model`` names the adapter, unload) ==
+   ``LLM.generate(lora_name=)``.
 
 It prints the kernel summary as one JSON line (each kernel's summary
 fields, its times at Qwen2-7B's shapes, ``qwen2_7b``, at (J)'s, ``j_times``,
@@ -220,7 +237,7 @@ and at (K)'s, ``k_times``: ms, plain ms, bound ms, library ms) and, last,
 the device JSON line. Every line also
 goes to chiprun_out/chip_smoke.log, which alone has the per-case detail the
 standard output gives in short (the kernels line with every field and its
-launches in the paths of phases 12-20, the kernels' full `-Xptxas -v`
+launches in the paths of phases 12-21, the kernels' full `-Xptxas -v`
 summary, each tiny forward check, each long attention check, each
 grouped-GEMM shape's time).
 """
@@ -228,6 +245,7 @@ grouped-GEMM shape's time).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -2647,7 +2665,7 @@ def phase_quarot_float_8b(smi: str):
             qspec_engine(cfg, params, draft_scheme=scheme), label, QUAROT_KERNELS, prompts, 32)
         summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         e2e_log(label, prompts, spec, summary)
-        out[scheme] = (launches, summary)
+        out[scheme] = (launches, summary, spec)
     log(f"e2e (A): card {smi}", stdout=False)
     return params, cfg, out
 
@@ -2895,8 +2913,9 @@ def serve_requests(server, port: int, jobs):
         gate.wait(60)
         return add(*a, **kw)
 
-    async def counted(fn, *a):
-        fut = asyncio.get_running_loop().run_in_executor(aeng._worker, fn, *a)
+    async def counted(fn, *a, **kw):
+        fut = asyncio.get_running_loop().run_in_executor(aeng._worker,
+                                                         functools.partial(fn, *a, **kw))
         if fn is gated:  # queued behind the ones before it
             queued.append(1)
         return await fut
@@ -3569,6 +3588,394 @@ def phase_guided_server(params8, cfg8):
     return out, launches
 
 
+# ----------------------------------------------------- (L) the engine surface
+
+# (L1)'s bank: 3 slots (the base and two adapters) of rank 16; each adapter
+# is rank 4 on q, k, v, o, gate, up and down (q / k / v take 12 of the 16,
+# gate / up 8), lora_alpha 8 (alpha / r = 2), normal(L_SCALE) entries
+L_SLOTS, L_RANK, L_PART_RANK, L_ALPHA, L_SCALE = 3, 16, 4, 8.0, 0.02
+# (L3)'s soft prompt: rows normal(0.02), the embedding table's scale
+L_VIRTUAL = 8
+# (L4): the beams' cumulative logprob against a teacher-forced prefill's
+# re-scoring of the prompt and the beam in one rectangle. The beam steps'
+# logprobs come from prefills of the beam's tail over cached prompt pages,
+# the re-scoring's from one prefill of the whole: other GEMM shapes, so
+# each token's logprob moves by bf16 rounding: 0.05 a token (8 tokens).
+# On an H100 80GB HBM3 at 700 W the largest difference was 0.225 (PERF.md
+# §6). The same beam scored after the other prompt is the control: a
+# misplaced position or token moves a logprob by nats, not hundredths.
+L_BEAM_TOL = 0.4
+
+
+def lora_peft(cfg, seed: int) -> dict:
+    """A PEFT LoRA state dict on q/k/v/o/gate/up/down of every layer of
+    ``cfg`` (lora_A [r, in], lora_B [out, r]), made on the card from
+    ``seed``: bf16 normal(L_SCALE)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    mods = (("self_attn.q_proj", H, cfg.q_size), ("self_attn.k_proj", H, cfg.kv_size),
+            ("self_attn.v_proj", H, cfg.kv_size), ("self_attn.o_proj", cfg.q_size, H),
+            ("mlp.gate_proj", H, I), ("mlp.up_proj", H, I), ("mlp.down_proj", I, H))
+    sd = {}
+    for li in range(cfg.num_layers):
+        for mod, n_in, n_out in mods:
+            pre = f"base_model.model.model.layers.{li}.{mod}"
+            for ab, shape in (("A", (L_PART_RANK, n_in)), ("B", (n_out, L_PART_RANK))):
+                sd[f"{pre}.lora_{ab}.weight"] = (torch.randn(
+                    shape, generator=gen, device="cuda") * L_SCALE).to(torch.bfloat16)
+    return sd
+
+
+def l_engine(cfg, params, method: str = "qspec", kv: str = "bfloat16", num_pages=None,
+             mode: str = "recompute", swap_gb: float = 4.0):
+    """(A)'s engine (qspec_engine: page 128, 4 sequences, W4A8 draft, k = 3)
+    with the KV entry type, the page count and the preemption mode given."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    return LLMEngine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=128, num_pages=num_pages, kv_cache_dtype=kv,
+                                     swap_space_gb=swap_gb),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=512, preemption_mode=mode),
+        speculative=SpeculativeConfig(num_speculative_tokens=3, method=method,
+                                      draft_scheme="w4a8")), params, device="cuda", seed=0)
+
+
+def l_run(eng, reqs, count: bool = False, max_tokens: int = 32):
+    """Greedy tokens of ``reqs`` ((prompt, add_request keywords) each)
+    through ``eng``: (tokens, launches (count: set to 0 just before the
+    run, read just after), the engine's forwards, acceptance and tok/s on
+    the host clock)."""
+    from qspec_tpu_torch import SamplingParams
+    from qspec_tpu_torch.ops import kernel_wrappers
+    counters = kernel_wrappers()
+    torch.cuda.synchronize()
+    if count:
+        for c in counters.values():
+            c.launches = 0
+    sp = SamplingParams(temperature=0.0, max_tokens=max_tokens, ignore_eos=True)
+    t0 = time.perf_counter()
+    ids = [eng.add_request(p, sp, **kw) for p, kw in reqs]
+    outs = {}
+    while eng.has_unfinished_requests():
+        for o in eng.step():
+            if o.finished:
+                outs[o.request_id] = o.output_token_ids
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches} if count else None
+    r, m = eng.runner, eng.spec_metrics
+    toks = [outs[i] for i in ids]
+    return toks, launches, {
+        "target_forwards": r.target_forwards, "draft_forwards": r.draft_forwards,
+        "acceptance_rate": m.draft_acceptance_rate if m.num_spec_rounds else None,
+        "tokens_per_s": sum(map(len, toks)) / wall, "wall_s": wall}
+
+
+def write_peft_dir(d: str, sd: dict, alpha: float) -> None:
+    """A PEFT adapter directory: adapter_model.safetensors and the
+    adapter_config.json that names its lora_alpha."""
+    os.makedirs(d, exist_ok=True)
+    write_safetensors(os.path.join(d, "adapter_model.safetensors"), sd)
+    with open(os.path.join(d, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": L_PART_RANK, "lora_alpha": alpha}, f)
+
+
+def phase_lora_8b(params8, cfg8, base_toks, d: str):
+    """(L1) A bank of L_SLOTS slots at rank L_RANK beside (A)'s parameters:
+    adapter a loaded by ``engine.lora.load``, b by ``load_path`` from a PEFT
+    directory written here; 4 prompts on slots 0, a, b, a through QSpec ==
+    qspec_null's (the same adapters), the slot-0 row == (A)'s W4A8 tokens
+    without a bank, each adapter row unlike its prompt's base tokens, the
+    launches those of qspec_launches (LoRA launches no counted kernel)."""
+    from qspec_tpu_torch.lora import LoRAConfig, init_lora_params
+    prompts = e2e_prompts()
+    bank = init_lora_params(cfg8, LoRAConfig(L_SLOTS, L_RANK), device="cuda")
+    bank_bytes = sum(t.numel() * t.element_size() for ab in bank["layers"].values()
+                     for t in ab.values())
+    write_peft_dir(d, lora_peft(cfg8, 42), L_ALPHA)
+    sd_a = lora_peft(cfg8, 41)
+    params = {**params8, "lora": bank}
+    reqs = [(prompts[0], {}), (prompts[1], {"lora_name": "a"}), (prompts[2], {"lora_name": "b"}),
+            (prompts[3], {"lora_name": "a"})]
+    runs, load_s = {}, 0.0
+    for method in ("qspec", "qspec_null"):
+        eng = l_engine(cfg8, params, method)
+        t0 = time.perf_counter()
+        slots = (eng.lora.load("a", sd_a, alpha=L_ALPHA), eng.lora.load_path("b", d))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if slots != (1, 2):
+            raise AssertionError(f"(L1) adapters in slots {slots}, expected (1, 2)")
+        runs[method] = l_run(eng, reqs, count=method == "qspec")
+        del eng
+    (toks, launches, info), (oracle, _, o_info) = runs["qspec"], runs["qspec_null"]
+    if toks != oracle:
+        raise AssertionError(f"(L1) QSpec with adapters differs from qspec_null: "
+                             f"{[t[:8] for t in toks]} vs {[t[:8] for t in oracle]}")
+    if toks[0] != base_toks[0] or any(toks[i] == base_toks[i] for i in (1, 2, 3)):
+        raise AssertionError(f"(L1) slot 0 must give (A)'s tokens and each adapter other "
+                             f"tokens: {[t[:8] for t in toks]} vs {[t[:8] for t in base_toks]}")
+    want = qspec_launches(cfg8.num_layers, info, 3)
+    got = {n: launches.get(n, 0) for n in want}
+    if set(launches) != QUAROT_KERNELS or got != want:
+        raise AssertionError(f"(L1) launches {launches}, expected {want} and only "
+                             f"{sorted(QUAROT_KERNELS)}")
+    return launches, toks, {
+        "bank_bytes": bank_bytes, "load_two_adapters_s": load_s,
+        "tokens_per_s": info["tokens_per_s"],
+        "oracle_tokens_per_s": o_info["tokens_per_s"], "acceptance": info["acceptance_rate"],
+        "target_forwards": info["target_forwards"], "draft_forwards": info["draft_forwards"]}
+
+
+# (L2)'s pool: 8 pages of 128 (7 usable): the 4 prompts (98-173 tokens)
+# take all 7 at admission, so the shortest, crossing 124 tokens with its
+# lookahead after 27 of its L_SWAP_TOKENS, preempts itself while the others
+# run (at 32 tokens the others can finish first: the page frees then)
+L_SWAP_PAGES, L_SWAP_TOKENS = 8, 48
+
+
+def track_preemptions(eng) -> dict:
+    """seq id -> its output count when the scheduler first preempted it to
+    recompute (the victim goes to the front of the waiting queue)."""
+    sch, inner, victims = eng.scheduler, eng.scheduler._preempt_one, {}
+
+    def preempt(*a, **kw):
+        ok = inner(*a, **kw)
+        if ok and sch.waiting and sch.waiting[0].num_computed_tokens == 0:
+            s = sch.waiting[0]
+            victims.setdefault(s.seq_id, len(s.output_token_ids))
+        return ok
+    sch._preempt_one = preempt
+    return victims
+
+
+def phase_swap_8b(params8, cfg8, base_toks):
+    """(L2) QSpec (W4A8) on (A)'s parameters, L_SWAP_TOKENS tokens, with
+    L_SWAP_PAGES pages under preemption_mode="swap": over bf16 and int8 KV,
+    tokens == the same engine's with pages to spare (whose first 32 over
+    bf16 are (A)'s), sequences swapped out and in, the parked KV returned
+    bit for bit. Over bf16, recompute mode and a swap pool of 0 GiB (which
+    falls back to recompute) give the same tokens as each other; against
+    the unconstrained run they agree on every sequence not preempted and on
+    a preempted one up to its preemption: its re-prefill computes the
+    generated tokens' KV through the prompt GEMM branch, where the first
+    pass ran the kernels, so its stream may part at a near-tie (logged,
+    not required)."""
+    prompts = [(p, {}) for p in e2e_prompts()]
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        ref, _, r_info = l_run(l_engine(cfg8, params8, kv=kv), prompts, max_tokens=L_SWAP_TOKENS)
+        if kv == "bfloat16" and [t[:32] for t in ref] != base_toks:
+            raise AssertionError(f"(L2) the first 32 of {L_SWAP_TOKENS} tokens differ from "
+                                 f"(A)'s: {[t[:8] for t in ref]}")
+        eng = l_engine(cfg8, params8, kv=kv, num_pages=L_SWAP_PAGES, mode="swap")
+        toks, _, info = l_run(eng, prompts, max_tokens=L_SWAP_TOKENS)
+        pool = eng._swap_pool
+        if toks != ref or not pool.num_swap_outs or pool.num_swap_ins != pool.num_swap_outs:
+            raise AssertionError(f"(L2) {kv}: swapped run {[t[:8] for t in toks]} vs "
+                                 f"{[t[:8] for t in ref]}, {pool.num_swap_outs} out, "
+                                 f"{pool.num_swap_ins} in")
+        out[kv] = {"swap_outs": pool.num_swap_outs, "swap_ins": pool.num_swap_ins,
+                   "bytes_parked": eng.swap_bytes_out, "tokens_per_s": info["tokens_per_s"],
+                   "unconstrained_tokens_per_s": r_info["tokens_per_s"]}
+        del eng
+        if kv != "bfloat16":
+            continue
+        rec = {}
+        for mode, gb in (("recompute", 4.0), ("swap", 0.0)):
+            eng = l_engine(cfg8, params8, num_pages=L_SWAP_PAGES, mode=mode, swap_gb=gb)
+            victims = track_preemptions(eng)
+            got, _, info = l_run(eng, prompts, max_tokens=L_SWAP_TOKENS)
+            if eng._swap_pool is not None and eng._swap_pool.num_swap_outs:
+                raise AssertionError(f"(L2) swap_space_gb={gb} swapped")
+            parted = {i: next((j for j, (a, b) in enumerate(zip(got[i], ref[i])) if a != b),
+                              None) for i in range(len(ref))}
+            bad = [i for i, j in parted.items() if j is not None
+                   and (i not in victims or j < victims[i])]
+            if not victims or bad:
+                raise AssertionError(f"(L2) {mode} (swap_space_gb={gb}): preempted "
+                                     f"{victims}, streams parted at {parted}")
+            rec[mode] = got
+            out[f"{mode}_{gb:g}gb"] = {"tokens_per_s": info["tokens_per_s"],
+                                       "preempted_at_output": victims,
+                                       "parted_at_output": parted}
+            del eng
+        if rec["recompute"] != rec["swap"]:
+            raise AssertionError("(L2) the 0 GiB swap pool's fallback differs from recompute "
+                                 "mode")
+    return out
+
+
+def phase_soft_prompt_8b(params8, cfg8, base_toks):
+    """(L3) A soft prompt of L_VIRTUAL rows (float basis, rotated into (A)'s
+    by its recorded seed) on prompts 0 and 3, and prompt 0 with the same
+    rows given as prompt_embeds: rows 0 and 1 give the same tokens, the
+    plain row 2 (A)'s, QSpec == qspec_null."""
+    from qspec_tpu_torch.lora.layers import Rotation
+    from qspec_tpu_torch.models.llama import embed_rows
+    prompts = e2e_prompts()
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    rows = torch.randn(L_VIRTUAL, cfg8.hidden_size, generator=gen, device="cuda") * 0.02
+    virt = Rotation(cfg8, params8["quarot"], "cuda").embeddings(rows).to(torch.bfloat16)
+    manual = torch.cat([virt, embed_rows(params8, cfg8, torch.tensor(prompts[0],
+                                                                      device="cuda"))])
+    reqs = [(prompts[0], {"prompt_adapter": "sp"}),
+            ([0] * L_VIRTUAL + prompts[0], {"prompt_embeds": manual.float()}),
+            (prompts[2], {}), (prompts[3], {"prompt_adapter": "sp"})]
+    runs = {}
+    for method in ("qspec", "qspec_null"):
+        eng = l_engine(cfg8, params8, method)
+        eng.prompt_adapters.load("sp", rows)
+        runs[method] = l_run(eng, reqs)
+        del eng
+    toks, oracle = runs["qspec"][0], runs["qspec_null"][0]
+    if toks != oracle or toks[0] != toks[1] or toks[2] != base_toks[2] or \
+            toks[0] == base_toks[0]:
+        raise AssertionError(f"(L3) soft prompt: {[t[:8] for t in toks]}, oracle "
+                             f"{[t[:8] for t in oracle]}, base {[t[:8] for t in base_toks]}")
+    return {"tokens_per_s": runs["qspec"][2]["tokens_per_s"],
+            "oracle_tokens_per_s": runs["qspec_null"][2]["tokens_per_s"],
+            "acceptance": runs["qspec"][2]["acceptance_rate"]}
+
+
+def rescore(params, cfg, prompt, tokens) -> float:
+    """The summed logprobs of ``tokens`` after ``prompt`` from one
+    teacher-forced prefill of both (a fresh bf16 cache, W4A16)."""
+    from qspec_tpu_torch.models.llama import AttentionBatch, model_forward
+    from qspec_tpu_torch.ops import kv_cache as kvc
+    ids = torch.tensor(prompt + tokens, device="cuda")
+    T, S = len(ids), 128
+    P = -(-T // S) + 1
+    cache = kvc.allocate(kvc.KVCacheConfig(cfg.num_layers, cfg.cache_kv_heads,
+                                           cfg.cache_head_dim, P, S), "cuda")
+    pos = torch.arange(T, device="cuda")[None]
+    batch = AttentionBatch(pos, pos + S, torch.arange(1, P, dtype=torch.int32,
+                                                      device="cuda")[None],
+                           torch.tensor([T], dtype=torch.int32, device="cuda"))
+    logits, _ = model_forward(params, cfg, ids[None].to(torch.int32), cache, batch,
+                              scheme="w4a16")
+    lp = torch.log_softmax(logits[0, len(prompt) - 1:T - 1].float(), dim=-1)
+    return float(lp.gather(1, ids[len(prompt):, None]).sum())
+
+
+def phase_beam_8b(params8, cfg8):
+    """(L4) LLM.beam_search (width 4, 8 tokens) on 2 prompts over (A)'s
+    parameters and engine: 4 distinct beams a prompt, sorted by score, each
+    beam's cumulative logprob within L_BEAM_TOL of a teacher-forced
+    re-scoring."""
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.beam_search import BeamSearchParams
+    prompts = e2e_prompts()[:2]
+    llm = LLM(model="llama3-8b", params=params8, num_speculative_tokens=3,
+              speculative_draft_scheme="w4a8", max_model_len=512, max_num_seqs=8, seed=0)
+    t0 = time.perf_counter()
+    outs = llm.beam_search(prompts, BeamSearchParams(beam_width=4, max_tokens=8,
+                                                     ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del llm
+    err, control = 0.0, []
+    for p, other, o in zip(prompts, prompts[::-1], outs):
+        scores = [s.score(1.0) for s in o.sequences]
+        if len({tuple(s.tokens) for s in o.sequences}) != 4 or scores != sorted(scores,
+                                                                              reverse=True):
+            raise AssertionError(f"(L4) beams not distinct and sorted: "
+                                 f"{[(s.tokens, s.cum_logprob) for s in o.sequences]}")
+        for s in o.sequences:
+            err = max(err, abs(rescore(params8, cfg8, p, s.tokens) - s.cum_logprob))
+        control.append(abs(rescore(params8, cfg8, other, o.sequences[0].tokens)
+                           - o.sequences[0].cum_logprob))
+    if err > L_BEAM_TOL or min(control) <= L_BEAM_TOL:
+        raise AssertionError(f"(L4) a beam's cumulative logprob is {err} from its re-scoring "
+                             f"(tol {L_BEAM_TOL}); after the other prompt {control}")
+    return {"wall_s": wall, "steps": 8, "beams": 8, "max_rescore_err": err,
+            "control_err": control, "top_cum_logprob": [o.sequences[0].cum_logprob
+                                                        for o in outs]}
+
+
+def phase_lora_server(params8, cfg8, d: str, l1_toks):
+    """(L5) build_server over (A)'s parameters with a fresh bank: load b
+    from its PEFT directory over HTTP, a completion whose ``model`` names
+    it (32 greedy tokens of prompt 2), unload; the tokens == LLM.generate's
+    with lora_name="b" (where they part from (L1)'s row of b is logged)."""
+    import http.client
+
+    from qspec_tpu_torch import LLM, SamplingParams
+    from qspec_tpu_torch.engine.arg_utils import EngineArgs
+    from qspec_tpu_torch.entrypoints.openai.api_server import ServerThread, build_server
+    from qspec_tpu_torch.lora import LoRAConfig, init_lora_params
+    prompt = e2e_prompts()[2]
+    args = EngineArgs(model="llama3-8b", num_speculative_tokens=3,
+                      speculative_draft_scheme="w4a8", max_model_len=512, max_num_seqs=4)
+    params = {**params8, "lora": init_lora_params(cfg8, LoRAConfig(L_SLOTS, L_RANK),
+                                                  device="cuda")}
+    server = build_server(args, model_name="llama3-8b", params=params,
+                          tokenizer=SmokeTokenizer(), device="cuda")
+    t0 = time.perf_counter()
+    with ServerThread(server) as st:
+        loaded = http_json(st.port, "/v1/load_lora_adapter", {"lora_name": "b", "lora_path": d})
+        c = http.client.HTTPConnection("127.0.0.1", st.port, timeout=600)
+        c.request("GET", "/v1/models")
+        models = [m["id"] for m in json.loads(c.getresponse().read())["data"]]
+        c.close()
+        reply = http_json(st.port, "/v1/completions", {
+            "model": "b", "prompt": prompt, "max_tokens": 32, "temperature": 0.0,
+            "ignore_eos": True, "logprobs": 1})
+        http_json(st.port, "/v1/unload_lora_adapter", {"lora_name": "b"})
+    wall = time.perf_counter() - t0
+    del server
+    got = [int(t) for t in reply["choices"][0]["logprobs"]["tokens"]]
+    llm = LLM(params=params, device="cuda", **dataclasses.asdict(args))
+    llm.llm_engine.lora.load_path("b", d)
+    want = llm.generate([prompt], SamplingParams(temperature=0.0, max_tokens=32,
+                                                 ignore_eos=True),
+                        lora_name="b")[0].output_token_ids
+    del llm, params
+    if loaded["slot"] != 1 or models != ["llama3-8b", "b"] or got != want:
+        raise AssertionError(f"(L5) slot {loaded['slot']}, models {models}, server "
+                             f"{got[:8]}, LLM.generate {want[:8]}")
+    # (L1) served b's prompt in a batch of 4, whose prompt rectangle ran the
+    # prompt GEMM branch at another M (not row-independent): logged only
+    return {"serve_wall_s": wall,
+            "parts_from_l1_at": next((j for j, (a, b) in enumerate(zip(got, l1_toks[2]))
+                                      if a != b), None)}
+
+
+def phase_engine_surface_8b(params8, cfg8, base_toks, smi: str):
+    """(L) LoRA, swap preemption, soft prompts, beam search and the LoRA
+    routes on (A)'s Llama-3-8B (int8 head, bf16 KV, QSpec k = 3 with the
+    W4A8 draft), each greedy run against its oracle in this call."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out, times = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        l1_launches, l1_toks, out["L1"] = phase_lora_8b(params8, cfg8, base_toks, d)
+        times["L1"] = time.perf_counter() - t0
+        for name, fn in (("L2", lambda: phase_swap_8b(params8, cfg8, base_toks)),
+                         ("L3", lambda: phase_soft_prompt_8b(params8, cfg8, base_toks)),
+                         ("L4", lambda: phase_beam_8b(params8, cfg8)),
+                         ("L5", lambda: phase_lora_server(params8, cfg8, d, l1_toks))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.empty_cache()
+            times[name] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    out["seconds"] = times
+    log("surface (L) " + json.dumps(out, separators=(",", ":")), stdout=False)
+    l1, l2, l3, l4 = out["L1"], out["L2"], out["L3"], out["L4"]
+    log(f"surface (L) llama3-8b: (L1) LoRA slots 0/a/b/a == qspec_null, slot 0 == (A), exact "
+        f"launches, {l1['tokens_per_s']:.4g} tok/s (oracle {l1['oracle_tokens_per_s']:.4g}); "
+        f"(L2) swap == unconstrained, bf16 {l2['bfloat16']['swap_outs']} out / "
+        f"{l2['bfloat16']['bytes_parked'] / 2 ** 20:.1f} MiB, int8 "
+        f"{l2['int8']['swap_outs']} out, recompute parted at "
+        f"{l2['recompute_4gb']['parted_at_output']}; (L3) soft prompt == prompt_embeds == "
+        f"qspec_null; "
+        f"(L4) 2 x 4 beams, rescore err {l4['max_rescore_err']:.3g}; (L5) server LoRA "
+        f"load/complete/unload == LLM.generate; {wall:.1f} s; card {smi}")
+    return l1_launches, out
+
+
 # the kernels of the EAGLE and MLPSpeculator paths on a QuaRot target:
 # the verify scheme's; EAGLE's layer adds the gamma norm and the bf16
 # attention over its own cache, and drafts through the int8 head
@@ -3864,10 +4271,11 @@ def moe_line(label: str, runs: dict, extra: str = "") -> None:
     log(f"e2e {label}: == qspec_null, exact launch counts; " + "; ".join(parts) + extra)
 
 
-# (G1)'s depth: Mixtral-8x7B's 32 layers cut to 16, for the script's time
+# (G1)'s depth: Mixtral-8x7B's 32 layers cut to 8, for the script's time
 # limit: at 32 (G) took 170.3 s and the script 970.8 s of the chip tool's
-# 1200, at 16 (G) 122.0 s, on an H100 80GB HBM3 at 700 W (PERF.md §6)
-MIXTRAL_LAYERS = 16
+# 1200, at 16 (G) 122.0 s and the script 933 s (H100 80GB HBM3, 700 W,
+# PERF.md §6); phase (L) adds about 140 s
+MIXTRAL_LAYERS = 8
 
 
 def phase_moe_mixtral(smi: str):
@@ -5524,6 +5932,9 @@ def main():
     dirs = phase_llama_dirs(params8, cfg8, smi)
     server = phase_server_8b(params8, cfg8, smi)
     guided = phase_guided_8b(params8, cfg8, smi)
+    # (L) the engine surface: LoRA, swap, soft prompts, beam search, the
+    # LoRA routes, on (A)'s parameters against (A)'s W4A8 tokens
+    surface = phase_engine_surface_8b(params8, cfg8, quarot["w4a8"][2], smi)
     del params8
     torch.cuda.empty_cache()
     proposers = phase_proposers_8b(smi)
@@ -5663,6 +6074,8 @@ def main():
             extra["proposer_launches"] = [proposers[k][0][name] for k in ("E1", "E2")]
         if name in server[0]:
             extra["server_launches"] = server[0][name]
+        if name in surface[0]:
+            extra["lora_launches"] = surface[0][name]
         guided_launch = {k: v[name] for k, v in guided[0].items() if v.get(name)}
         if guided_launch:
             extra["guided_launches"] = guided_launch

@@ -891,6 +891,9 @@ class CacheConfig:
     kv_cache_dtype: str = "bfloat16"
     enable_prefix_caching: bool = True
     gpu_memory_utilization: float = 0.9
+    # host RAM for swap-mode preemption (SchedulerConfig.preemption_mode =
+    # "swap"): a preempted sequence's KV pages park there
+    swap_space_gb: float = 4.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -904,7 +907,9 @@ class SchedulerConfig:
     prefill_chunk_size: int = 512
     # co-schedule running decodes with prefill chunks
     mix_decode_with_prefill: bool = True
-    # "recompute" re-prefills preempted sequences
+    # "recompute" re-prefills preempted sequences; "swap" parks their KV
+    # pages in host RAM (CacheConfig.swap_space_gb) and scatters them back
+    # on resume, falling back to recompute when that is full
     preemption_mode: str = "recompute"
     # batch and token buckets: every step runs at a bucketed shape, so the
     # QSpec run and its AR oracle see identical shapes

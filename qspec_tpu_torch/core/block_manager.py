@@ -1,7 +1,8 @@
 """Paged-KV page allocator with prefix caching.
 
 The port's copy of qspec_tpu/core/block_manager.py (imports rewritten; the
-optional native hash replaced by Python's). Analogue of the reference's block manager + allocators
+optional native hash replaced by Python's; a request with a LoRA adapter
+kept out of the prefix cache). Analogue of the reference's block manager + allocators
 (vllm/core/block_manager.py:20 SelfAttnBlockSpaceManager,
 vllm/core/block/prefix_caching_block.py). Pages index into the single
 [L, Hkv, P, page, D] HBM arrays (ops/kv_cache.py); page 0 is reserved as the
@@ -143,10 +144,12 @@ class BlockManager:
         cached_tokens = 0
         prev_hash: Optional[int] = None
         reused = True
-        # embeds-fed prompts hold placeholder token ids: their pages must
-        # neither hit nor feed the token-content-keyed prefix cache
-        # (reference: prompt_embeds requests bypass prefix caching)
-        cacheable = getattr(seq, "prompt_embeds", None) is None
+        # embeds-fed prompts hold placeholder token ids, and an adapter's
+        # KV is not the base model's: their pages must neither hit nor feed
+        # the token-content-keyed prefix cache (reference: prompt_embeds
+        # requests bypass prefix caching; the JAX package's cache keys an
+        # adapter's pages by their tokens alone)
+        cacheable = seq.prompt_embeds is None and not seq.lora_id
         seq.pending_page_hashes = []
         for i in range(n_full):
             chunk = tokens[i * self.page_size:(i + 1) * self.page_size]

@@ -86,6 +86,9 @@ class EngineArgs:
     block_size: int = 128
     num_pages: Optional[int] = None      # None -> derive from free memory
     gpu_memory_utilization: float = 0.9
+    # swap-mode preemption: preempted sequences park their KV in host RAM
+    swap_space: float = 4.0              # GiB
+    preemption_mode: str = "recompute"   # recompute|swap
     lm_head_quant: str = "auto"          # auto|bf16|int8|int4
     kv_cache_dtype: str = "bfloat16"     # bfloat16|int8|fp8_e4m3|fp8_e5m2
     enable_chunked_prefill: bool = True
@@ -220,13 +223,15 @@ class EngineArgs:
                               num_pages=self.num_pages,
                               kv_cache_dtype=self.kv_cache_dtype,
                               enable_prefix_caching=self.enable_prefix_caching,
-                              gpu_memory_utilization=self.gpu_memory_utilization),
+                              gpu_memory_utilization=self.gpu_memory_utilization,
+                              swap_space_gb=self.swap_space),
             scheduler=SchedulerConfig(
                 max_num_seqs=self.max_num_seqs,
                 max_num_batched_tokens=self.max_num_batched_tokens,
                 max_model_len=self.max_model_len,
                 enable_chunked_prefill=self.enable_chunked_prefill,
                 prefill_chunk_size=self.prefill_chunk_size,
-                mix_decode_with_prefill=self.mix_decode_with_prefill),
+                mix_decode_with_prefill=self.mix_decode_with_prefill,
+                preemption_mode=self.preemption_mode),
             speculative=spec,
         )

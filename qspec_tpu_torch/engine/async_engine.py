@@ -16,6 +16,7 @@ is the engine's own. A request added while a step runs joins the next one.
 from __future__ import annotations
 
 import asyncio
+import functools
 from concurrent.futures import ThreadPoolExecutor
 from typing import AsyncIterator, Dict, List, Optional
 
@@ -38,8 +39,9 @@ class AsyncLLMEngine:
         self._worker = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="qspec-engine")
 
-    async def _call(self, fn, *args):
-        return await asyncio.get_running_loop().run_in_executor(self._worker, fn, *args)
+    async def _call(self, fn, *args, **kw):
+        return await asyncio.get_running_loop().run_in_executor(
+            self._worker, functools.partial(fn, *args, **kw))
 
     # ------------------------------------------------------------------
     def _ensure_loop(self):
@@ -72,17 +74,24 @@ class AsyncLLMEngine:
             raise
 
     # ------------------------------------------------------------------
+    async def run(self, fn, *args, **kw):
+        """``fn(*args, **kw)`` on the engine's worker thread, between two
+        steps (the LoRA routes write the adapter bank this way)."""
+        return await self._call(fn, *args, **kw)
+
     async def generate(self, prompt_token_ids: List[int],
                        sampling_params: SamplingParams,
-                       request_id: Optional[int] = None) -> AsyncIterator[RequestOutput]:
-        """Stream a request's outputs until its finished one. A refused
-        request raises what ``LLMEngine.add_request`` raises."""
+                       request_id: Optional[int] = None,
+                       lora_name: Optional[str] = None) -> AsyncIterator[RequestOutput]:
+        """Stream a request's outputs until its finished one (under the
+        adapter ``lora_name``). A refused request raises what
+        ``LLMEngine.add_request`` raises."""
         if self._dead is not None:
             raise AsyncEngineDeadError("engine loop died") from self._dead
         self._ensure_loop()
         q: asyncio.Queue = asyncio.Queue()
-        rid = await self._call(self.engine.add_request, prompt_token_ids,
-                               sampling_params, request_id)
+        rid = await self._call(self.engine.add_request, prompt_token_ids, sampling_params,
+                               request_id, lora_name=lora_name)
         self._queues[rid] = q
         self._wake.set()
         try:

@@ -30,6 +30,29 @@ request carries a ``tracing.RequestTrace``; ``stat_loggers`` receive one
 the Medusa candidate tree, as in the JAX package). Still refused:
 ``repetition_penalty`` and a per-request ``seed`` for sampled requests,
 which the JAX package accepts and ignores (no sampler applies them).
+
+The engine surface around the rounds:
+
+- ``preemption_mode="swap"``: a preempted sequence's KV pages (the target
+  cache's, the draft cache's or its ring row's, EAGLE's pool, the 8-bit
+  scales) park in host RAM (``core/swap.py``, ``CacheConfig.swap_space_gb``)
+  and are scattered back into fresh pages on resume; a full pool falls back
+  to recompute. The per-sequence rows of the Medusa, n-gram and EAGLE banks
+  stay assigned while a sequence is parked; a row taken meanwhile is
+  rebuilt from the host's copy, as after any row loss (the proposals of one
+  round, never the tokens, change).
+- LoRA: ``params["lora"]`` (``lora/layers.py``) is a bank of adapter slots;
+  ``add_request(lora_id=)`` or ``lora_name=`` (``LLMEngine.lora``, the
+  slot manager) picks a request's, whose deltas ride every forward of its
+  rows: prefill, decode, QSpec's shared-weights draft and verify (a
+  separate draft model runs none). Where the JAX package drops the ids
+  (Medusa, MLPSpeculator, EAGLE and n-gram rounds; an MoE's MLP) a request
+  with an adapter is refused.
+- ``add_request(prompt_embeds=)``: embedding rows in place of the prompt's
+  table rows (refused with a separate draft model, as in the JAX package,
+  and under EAGLE, whose prefill the JAX package feeds the placeholder
+  ids); ``prompt_adapter=``: a soft prompt of ``LLMEngine.prompt_adapters``
+  (``prompt_adapter.py``) prepended through that path.
 """
 
 from __future__ import annotations
@@ -45,13 +68,17 @@ from qspec_tpu_torch.config import EngineConfig
 from qspec_tpu_torch.core.block_manager import BlockManager
 from qspec_tpu_torch.core.scheduler import ScheduledBatch, Scheduler
 from qspec_tpu_torch.core.sequence import Sequence, SequenceStatus
+from qspec_tpu_torch.core.swap import HostSwapPool
 from qspec_tpu_torch.detokenizer import DetokState, detokenize_incrementally
 from qspec_tpu_torch.engine.metrics import Stats
 from qspec_tpu_torch.engine.model_runner import (ModelRunner, make_sampling_tensors,
                                                  ring_pages, ring_rows)
 from qspec_tpu_torch.guided import GrammarCompiler, hf_vocab_bytes
+from qspec_tpu_torch.lora.manager import LoRAManager
 from qspec_tpu_torch.models.llama import check_served, resolve_device
 from qspec_tpu_torch.ops import kv_cache as kvc
+from qspec_tpu_torch.plugins import load_general_plugins
+from qspec_tpu_torch.prompt_adapter import PromptAdapterManager
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.eagle import eagle_cfg_for
 from qspec_tpu_torch.spec_decode.metrics import SpecDecodeMetrics
@@ -112,8 +139,9 @@ def _check_supported(config: EngineConfig) -> None:
             # the JAX package reads it in the QSpec rounds only
             raise ValueError(f"acceptance_method={spec.acceptance_method!r} decides the "
                              "QSpec rounds (method='qspec' / 'qspec_null')")
-    if config.scheduler.preemption_mode != "recompute":
-        raise NotImplementedError("only recompute preemption is ported")
+    if config.scheduler.preemption_mode not in ("recompute", "swap"):
+        raise ValueError(f"preemption_mode={config.scheduler.preemption_mode!r}: "
+                         "'recompute' or 'swap'")
 
 
 def _guided(sp: SamplingParams) -> bool:
@@ -124,6 +152,7 @@ class LLMEngine:
     def __init__(self, config: EngineConfig, params, num_pages: Optional[int] = None,
                  eos_token_id: Optional[int] = None, device="cuda", seed: int = 0,
                  draft_params=None, tokenizer=None, grammar_vocab=None):
+        load_general_plugins()
         _check_supported(config)
         self.config = config
         self.eos_token_id = eos_token_id
@@ -158,6 +187,17 @@ class LLMEngine:
             enable_prefix_caching=config.cache.enable_prefix_caching)
         self.scheduler = Scheduler(config.scheduler, self.block_manager,
                                    lookahead=lookahead)
+        self._lora_manager = None           # built at first use (.lora)
+        self._prompt_adapter_manager = None     # (.prompt_adapters)
+        # swap-mode preemption: the host pool, its budget in bytes a page of
+        # both caches; the bytes parked over the engine's life
+        self._swap_pool = None
+        self.swap_bytes_out = 0
+        if config.scheduler.preemption_mode == "swap":
+            self._swap_pool = HostSwapPool(
+                max_bytes=int(config.cache.swap_space_gb * (1 << 30)),
+                page_bytes=self._swap_page_bytes())
+            self.scheduler.swap_ok = self._swap_pool.can_reserve
         self._next_id = 0
         self.spec_metrics = SpecDecodeMetrics()
         self._num_total_pages = num_pages
@@ -171,6 +211,17 @@ class LLMEngine:
         spans) without OpenTelemetry."""
         self.tracer = init_tracer(service_name, otlp_endpoint)
         return self.tracer is not None
+
+    def _swap_page_bytes(self) -> int:
+        """Host bytes one parked page takes: a page of every layer of the
+        target cache and of the draft cache (a ring parks its R pages
+        whatever the sequence's length, counted as one each, as in the JAX
+        package)."""
+        def page(cache):
+            return sum(t[:, :1].numel() * t.element_size()
+                       for t in (cache.kv_pages, cache.kv_scales) if t is not None)
+        r = self.runner
+        return page(r.cache) + (page(r.draft_cache) if r.draft_cache is not None else 0)
 
     def _derive_num_pages(self) -> int:
         """Size the cache: what the scheduler can address, capped by
@@ -237,11 +288,80 @@ class LLMEngine:
                                       "is not ported: the engine's generator "
                                       "(LLMEngine seed) samples every request")
 
+    @property
+    def lora(self) -> LoRAManager:
+        """The adapter manager over ``params["lora"]`` (load, unload, list
+        named adapters); raises ``LoRASlotError`` without a bank."""
+        if self._lora_manager is None:
+            self._lora_manager = LoRAManager(self)
+        return self._lora_manager
+
+    @property
+    def prompt_adapters(self) -> PromptAdapterManager:
+        """The registry of named soft prompts (``prompt_adapter.py``)."""
+        if self._prompt_adapter_manager is None:
+            self._prompt_adapter_manager = PromptAdapterManager(self)
+        return self._prompt_adapter_manager
+
+    def _check_lora(self, lora_id: int) -> None:
+        """Raise for an adapter slot the engine cannot serve: no bank, a slot
+        past it, or a path whose rounds (or an MoE's MLP) the JAX package
+        runs without the adapter."""
+        if "lora" not in self.runner.params:
+            raise ValueError(f"lora_id={lora_id}, but the engine has no adapter bank "
+                             "(params['lora'] = lora.init_lora_params(...))")
+        n = self.runner.params["lora"]["layers"]["qkv"]["A"].shape[1]
+        if not 0 < lora_id < n:
+            raise ValueError(f"lora_id={lora_id}: the bank has slots 1..{n - 1}")
+        if self.config.model.num_experts:
+            raise ValueError("LoRA on a mixture-of-experts model: the JAX package applies "
+                             "no adapter to its experts' MLP (ROADMAP queue 3)")
+        if self.spec is not None and (self._medusa or self._ngram or self._eagle):
+            raise ValueError(f"LoRA with speculative method {self.spec.method!r}: the JAX "
+                             "package runs its rounds without the adapter (ROADMAP queue 3); "
+                             "QSpec's rounds serve adapters")
+
+    def _check_embeds(self, prompt_token_ids, prompt_embeds) -> tuple:
+        """(token ids, the embeddings as an f32 tensor on the device) of a
+        prompt-embeds request; placeholder ids 0 where none are given."""
+        if self.spec is not None and self.spec.draft_model is not None:
+            raise ValueError("prompt_embeds with a separate draft model: its embedding "
+                             "table and width are its own")
+        if self._eagle:
+            raise ValueError("prompt_embeds with EAGLE: the JAX package feeds EAGLE's "
+                             "prefill the placeholder ids (ROADMAP queue 3)")
+        pe = torch.as_tensor(np.asarray(prompt_embeds, np.float32)
+                             if not isinstance(prompt_embeds, torch.Tensor) else prompt_embeds)
+        pe = pe.to(device=self.device, dtype=torch.float32)
+        if pe.ndim != 2 or pe.shape[1] != self.config.model.hidden_size:
+            raise ValueError(f"prompt_embeds must be [n, {self.config.model.hidden_size}], "
+                             f"got {tuple(pe.shape)}")
+        ids = list(prompt_token_ids) if prompt_token_ids else [0] * pe.shape[0]
+        if len(ids) != pe.shape[0]:
+            raise ValueError(f"{pe.shape[0]} prompt_embeds rows for {len(ids)} prompt ids")
+        return ids, pe
+
     def add_request(self, prompt_token_ids: List[int],
                     sampling_params: Optional[SamplingParams] = None,
-                    request_id: Optional[int] = None) -> int:
+                    request_id: Optional[int] = None, lora_id: int = 0,
+                    lora_name: Optional[str] = None, prompt_embeds=None,
+                    prompt_adapter: Optional[str] = None) -> int:
+        """Queue a request. ``lora_name`` (an adapter of ``.lora``) or
+        ``lora_id`` (a slot of ``params["lora"]``) picks its adapter;
+        ``prompt_embeds`` [n, H] gives its prompt's embedding rows (the ids
+        placeholders); ``prompt_adapter`` prepends a named soft prompt."""
         sp = sampling_params or SamplingParams()
         self.check_request(sp)
+        if lora_name:
+            lora_id = self.lora.slot_of(lora_name)
+        if lora_id:
+            self._check_lora(lora_id)
+        if prompt_adapter:
+            prompt_token_ids, prompt_embeds = self.prompt_adapters.splice(
+                prompt_adapter, list(prompt_token_ids))
+        if prompt_embeds is not None:
+            prompt_token_ids, prompt_embeds = self._check_embeds(prompt_token_ids,
+                                                                 prompt_embeds)
         fsm = None
         if _guided(sp):
             gc = self._get_grammar_compiler()
@@ -254,7 +374,8 @@ class LLMEngine:
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
         self.scheduler.add_seq(Sequence(seq_id=rid, prompt_token_ids=list(prompt_token_ids),
-                                        sampling_params=sp, grammar_fsm=fsm))
+                                        sampling_params=sp, grammar_fsm=fsm,
+                                        lora_id=lora_id, prompt_embeds=prompt_embeds))
         self._traces[rid] = RequestTrace()
         return rid
 
@@ -266,13 +387,16 @@ class LLMEngine:
         return self._grammar_compiler
 
     def abort_request(self, request_id: int) -> None:
-        """Drop a request wherever it is (waiting or running) and release
-        its pages and rows; no output follows."""
-        seq = next((s for q in (self.scheduler.waiting, self.scheduler.running)
+        """Drop a request wherever it is (waiting, running or swapped out)
+        and release its pages, rows and parked KV; no output follows."""
+        sch = self.scheduler
+        seq = next((s for q in (sch.waiting, sch.running, sch.swapped)
                     for s in q if s.seq_id == request_id), None)
         if seq is None:
             return
-        self.scheduler.abort_seq(request_id)
+        sch.abort_seq(request_id)
+        if self._swap_pool is not None:
+            self._swap_pool.discard(request_id)
         self.runner.free_rows(seq)
         self._traces.pop(request_id, None)
 
@@ -282,6 +406,8 @@ class LLMEngine:
     # ------------------------------------------------------------------
     def step(self) -> List[RequestOutput]:
         batch = self.scheduler.schedule()
+        if batch.swap_out or batch.swap_in:
+            self._process_swaps(batch)
         for s in self.scheduler.waiting:
             # a preempted sequence re-prefills its draft KV into a new row
             self.runner.free_ring_row(s)
@@ -327,6 +453,50 @@ class LLMEngine:
         if self.stat_loggers:
             self._log_stats(batch)
         return outputs
+
+    def _process_swaps(self, batch: ScheduledBatch) -> None:
+        """The scheduler's swaps, before the batch runs (the JAX package's
+        ``_process_swaps``). Every gather runs before any scatter: a
+        victim's pages may have gone to a sequence swapped in by the same
+        schedule, and must be read before they are overwritten."""
+        r = self.runner
+        swapped_in = {s.seq_id for s in batch.swap_in}
+        for seq, page_ids in batch.swap_out:
+            if seq.seq_id in swapped_in:
+                # swapped in and out again by one schedule: its parked copy
+                # never left the pool
+                continue
+            pages, scales = r.gather_pages(page_ids)
+            payload = {"n_pages": len(page_ids), "pages": pages, "scales": scales}
+            if r.draft_cache is not None:
+                if r._ring_pages:
+                    # the ring's pages map position lp to lp % R in any row:
+                    # they are restored into whatever row the sequence gets
+                    ring = r.ring_page_ids(seq)
+                    if ring is not None:
+                        payload["draft_ring"] = r.gather_pages(ring, draft=True)
+                    r.free_ring_row(seq)
+                else:
+                    payload["draft"] = r.gather_pages(page_ids, draft=True)
+            self.swap_bytes_out += sum(t.numel() * t.element_size() for v in payload.values()
+                                       for t in (v if isinstance(v, tuple) else (v,))
+                                       if isinstance(t, torch.Tensor))
+            self._swap_pool.put(seq.seq_id, len(page_ids), payload)
+        live = {s.seq_id for s in self.scheduler.running}
+        for seq in batch.swap_in:
+            if seq.status != SequenceStatus.RUNNING:
+                # preempted again by the same schedule: a swapped one keeps
+                # its pool entry, a recomputed one restarts from its tokens
+                if seq.status == SequenceStatus.WAITING:
+                    self._swap_pool.discard(seq.seq_id)
+                continue
+            payload = self._swap_pool.pop(seq.seq_id)
+            ids = seq.page_ids[:payload["n_pages"]]
+            r.write_pages(ids, payload["pages"], payload["scales"])
+            if "draft" in payload:
+                r.write_pages(ids, *payload["draft"], draft=True)
+            elif "draft_ring" in payload:
+                r.write_pages(r.assign_ring_row(seq, live), *payload["draft_ring"], draft=True)
 
     def _log_stats(self, batch: ScheduledBatch) -> None:
         m = self.spec_metrics

@@ -53,17 +53,24 @@ device tensor that the steps carry. QSpec's draft masks its backfill and
 every draft step; every verify masks position i by the state reached
 through drafts 0..i-1; and each rounds loop advances the state through the
 tokens a round emitted (``_grammar_advance_emitted``).
+
+LoRA: the prefill, decode and QSpec steps take ``lora_ids`` [B], each row's
+slot in ``params["lora"]`` (None when no row of the batch has an adapter);
+a separate draft model runs none. The prefill takes prompt embeddings
+(``input_embeds`` with the positions they replace). ``gather_pages`` /
+``write_pages`` copy a sequence's pages of either cache to host memory and
+back (swap preemption).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from qspec_tpu_torch import envs
 from qspec_tpu_torch.config import EngineConfig
 from qspec_tpu_torch.models.llama import (AttentionBatch, check_served, compute_logits,
                                           embed_rows, model_forward, resolve_device)
@@ -103,7 +110,8 @@ def _slot_of(block_tables: torch.Tensor, pos: torch.Tensor, page_size: int) -> t
 
 
 def prefill_step(params, cache, token_ids, positions, block_tables, ctx_len, *,
-                 cfg, scheme, ring_cap=None):
+                 cfg, scheme, ring_cap=None, lora_ids=None, input_embeds=None,
+                 embeds_rows=None):
     """One prompt-chunk rectangle. token_ids [B, Q]; returns the logits of
     each row's last valid position ([B, V]) and the cache (written in
     place). ``ctx_len`` [B] counts tokens including this chunk; padded tail
@@ -115,7 +123,11 @@ def prefill_step(params, cache, token_ids, positions, block_tables, ctx_len, *,
     positions before each row's ctx_len may be written; older positions
     would alias the same physical pages in a single scatter (undefined write
     order). Their KV is dead anyway: the windowed draft never reads past the
-    window, and early-query attention outputs of a prefill are discarded."""
+    window, and early-query attention outputs of a prefill are discarded.
+
+    ``lora_ids`` [B]: each row's adapter slot; ``input_embeds`` [B, Q, H]
+    with ``embeds_rows`` [B, Q]: the flagged positions' embedding rows
+    (prompt embeddings), as ``model_forward`` takes them."""
     page_size = cache.page_size
     Q = token_ids.shape[1]
     valid = positions < ctx_len[:, None]
@@ -127,12 +139,13 @@ def prefill_step(params, cache, token_ids, positions, block_tables, ctx_len, *,
                            block_tables=block_tables, ctx_lens=ctx_len)
     last_idx = (ctx_len - 1 - positions[:, 0]).clamp(0, Q - 1)
     logits, cache = model_forward(params, cfg, token_ids, cache, batch,
-                                  scheme=scheme, logits_indices=last_idx)
+                                  scheme=scheme, logits_indices=last_idx, lora_ids=lora_ids,
+                                  input_embeds=input_embeds, embeds_rows=embeds_rows)
     return logits[:, 0], cache
 
 
 def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
-                *, cfg, scheme, num_top: int = 0):
+                *, cfg, scheme, num_top: int = 0, lora_ids=None):
     """Autoregressive decode: one token per sequence. last_tokens [B] (not
     yet processed), start_pos [B] = their positions. Returns
     (next_tokens [B], logprobs [B], cache); with ``num_top`` > 0 also the
@@ -145,7 +158,7 @@ def decode_step(params, cache, last_tokens, start_pos, block_tables, st, gen,
     batch = AttentionBatch(positions=pos, slot_mapping=slot,
                            block_tables=block_tables, ctx_lens=start_pos + 1)
     logits, cache = model_forward(params, cfg, last_tokens[:, None], cache,
-                                  batch, scheme=scheme)
+                                  batch, scheme=scheme, lora_ids=lora_ids)
     next_tokens, lp = sample_with_logprob(logits[:, 0], st, gen)
     if num_top:
         topv, topi = top_logprobs(logits[:, 0], num_top)
@@ -170,7 +183,7 @@ def _entry_states(st):
 
 
 def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
-                *, cfg, scheme, k, prev_tokens=None, gstate=None):
+                *, cfg, scheme, k, prev_tokens=None, gstate=None, lora_ids=None):
     """k sequential draft forwards; returns (tokens [B, k], probs [B, k, V],
     cache).
 
@@ -184,6 +197,7 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
     ``gstate`` [B]: the grammar states at ``start_pos`` (default the
     call-entry states); the backfill's sample and every draft step's are
     masked by the grammar and advance it, so the proposals stay inside it.
+    ``lora_ids`` [B]: each row's adapter slot, on every draft forward.
     """
     page_size = cache.page_size
     if gstate is None:
@@ -199,7 +213,8 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
                                block_tables=block_tables,
                                ctx_lens=start_pos + 1)
         t2 = torch.stack([prev_tokens, last_tokens], dim=1)
-        logits, cache = model_forward(params, cfg, t2, cache, batch, scheme=scheme)
+        logits, cache = model_forward(params, cfg, t2, cache, batch, scheme=scheme,
+                                      lora_ids=lora_ids)
         probs0 = sampling_probs(logits[:, 1], st, gstate)
         toks0 = sample(logits[:, 1], st, gen, gstate)
         gstate = grammar_advance(st, gstate, toks0)
@@ -214,7 +229,7 @@ def _draft_impl(params, cache, last_tokens, start_pos, block_tables, st, gen,
                                slot_mapping=_slot_of(block_tables, p, page_size),
                                block_tables=block_tables, ctx_lens=pos + 1)
         logits, cache = model_forward(params, cfg, tok[:, None], cache, batch,
-                                      scheme=scheme)
+                                      scheme=scheme, lora_ids=lora_ids)
         probs.append(sampling_probs(logits[:, 0], st, gstate))
         tok = sample(logits[:, 0], st, gen, gstate)
         gstate = grammar_advance(st, gstate, tok)
@@ -245,7 +260,7 @@ def _repeat_rows(st: SamplingTensors, n: int) -> SamplingTensors:
 
 def _verify_impl(params, cache, last_tokens, draft_tokens, draft_probs, start_pos,
                  block_tables, st, gen, *, cfg, scheme, return_hidden=False,
-                 acceptance="rejection_sampler", gstate=None):
+                 acceptance="rejection_sampler", gstate=None, lora_ids=None):
     """Score [last, d_1..d_k] in one pass and rejection-sample. ``draft_probs``
     None: deterministic proposals (Medusa), verified by the one-hot rule;
     ``acceptance="typical_acceptance_sampler"``: the lossy typical rule.
@@ -262,7 +277,7 @@ def _verify_impl(params, cache, last_tokens, draft_tokens, draft_probs, start_po
     batch = AttentionBatch(positions=positions, slot_mapping=slot,
                            block_tables=block_tables, ctx_lens=start_pos + k + 1)
     out = model_forward(params, cfg, tokens, cache, batch, scheme=scheme,
-                        return_hidden=return_hidden)
+                        return_hidden=return_hidden, lora_ids=lora_ids)
     logits, cache = out[0], out[-1]
     V = logits.shape[-1]
     if gstate is None:
@@ -299,7 +314,7 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
                      start_pos, block_tables, draft_block_tables, max_new,
                      enable: bool, st, gen, *, cfg, draft_scheme, verify_scheme,
                      k, num_rounds=1, draft_cfg=None, draft_params=None,
-                     force_accept=None, acceptance="rejection_sampler"):
+                     force_accept=None, acceptance="rejection_sampler", lora_ids=None):
     """``num_rounds`` full QSpec rounds (k drafts + verify + rejection).
 
     ``draft_params`` / ``draft_cfg``: a separate draft model's (None: the
@@ -314,7 +329,9 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     the verify decided, and the emitted slots past the real acceptance
     (-1) become token 0; every draft and verify forward still runs.
     ``acceptance``: SpeculativeConfig.acceptance_method. A guided row's
-    grammar state is carried across the rounds on the device.
+    grammar state is carried across the rounds on the device. ``lora_ids``
+    [B]: each row's adapter slot, on the verify and on the shared-weights
+    draft (a separate draft model runs none, as in the JAX package).
 
     ``max_new`` [B] caps the tokens emitted per sequence. ``enable=False``
     nulls every proposal (tokens -> -1, draft probs -> 0, so the recovery
@@ -327,19 +344,21 @@ def spec_rounds_step(params, draft_cache, cache, last_tokens, prev_tokens,
     """
     d_params = params if draft_params is None else draft_params
     d_cfg = cfg if draft_cfg is None else draft_cfg
+    d_lora = lora_ids if draft_params is None else None
     last, prev, pos, budget = last_tokens, prev_tokens, start_pos, max_new
     g = _entry_states(st)
     out_t, out_a, out_l = [], [], []
     for _ in range(num_rounds):
         d_toks, d_probs, draft_cache = _draft_impl(
             d_params, draft_cache, last, pos, draft_block_tables, st, gen,
-            cfg=d_cfg, scheme=draft_scheme, k=k, prev_tokens=prev, gstate=g)
+            cfg=d_cfg, scheme=draft_scheme, k=k, prev_tokens=prev, gstate=g, lora_ids=d_lora)
         if not enable:
             d_toks = torch.full_like(d_toks, -1)
             d_probs = torch.zeros_like(d_probs)
         result, cache = _verify_impl(params, cache, last, d_toks, d_probs, pos,
                                      block_tables, st, gen, cfg=cfg,
-                                     scheme=verify_scheme, acceptance=acceptance, gstate=g)
+                                     scheme=verify_scheme, acceptance=acceptance, gstate=g,
+                                     lora_ids=lora_ids)
         if force_accept is not None:
             result = result._replace(
                 accepted_len=torch.full_like(result.accepted_len, min(force_accept + 1, k + 1)),
@@ -787,7 +806,7 @@ def ring_pages(config: EngineConfig) -> int:
     writes at most k + 1 ahead; the +2 pages cover a span straddling page
     boundaries and the window's off-by-ones."""
     w = draft_window(config)
-    if w is None or os.environ.get("QSPEC_RING_DRAFT", "1") == "0":
+    if w is None or not envs.QSPEC_RING_DRAFT:
         return 0
     k = config.speculative.num_speculative_tokens
     return -(-(w + k + 1) // config.cache.page_size) + 2
@@ -1017,6 +1036,16 @@ class ModelRunner:
                 return cand
         return self.config.scheduler.prefill_token_buckets[-1]
 
+    def _lora_ids(self, seqs, bucket: int, draft: bool = False) -> Optional[torch.Tensor]:
+        """[bucket] adapter slots, or None when no row has an adapter (or
+        for a separate draft model's forwards, which run none)."""
+        if (draft and self.draft_params is not None) or "lora" not in self.params \
+                or not any(s.lora_id for s in seqs):
+            return None
+        ids = np.zeros(bucket, np.int32)
+        ids[:len(seqs)] = [s.lora_id for s in seqs]
+        return self._t(ids)
+
     def _pad_block_tables(self, tables: list) -> torch.Tensor:
         out = np.zeros((len(tables), self.max_pages_per_seq), np.int32)
         for i, t in enumerate(tables):
@@ -1111,8 +1140,10 @@ class ModelRunner:
             ctx[i] = end
             tables[i] = seq.page_ids
         ring = draft and self._ring_pages
-        tables = (self._t(self._ring_tables([c[0] for c in chunks], B)) if ring
+        seqs = [c[0] for c in chunks]
+        tables = (self._t(self._ring_tables(seqs, B)) if ring
                   else self._pad_block_tables(tables))
+        embeds, rows = self._prefill_embeds(chunks, B, Q)
         self.target_forwards += not draft
         self.draft_forwards += draft
         logits, _ = prefill_step(
@@ -1121,8 +1152,28 @@ class ModelRunner:
             self._t(toks), self._t(positions), tables, self._t(ctx),
             cfg=self.draft_cfg if draft else self.cfg,
             scheme=self.draft_scheme if draft else self.verify_scheme,
-            ring_cap=self.ring_cap if ring else None)
+            ring_cap=self.ring_cap if ring else None,
+            lora_ids=self._lora_ids(seqs, B, draft), input_embeds=embeds, embeds_rows=rows)
         return logits
+
+    def _prefill_embeds(self, chunks, B: int, Q: int):
+        """(input_embeds [B, Q, H] f32, embeds_rows [B, Q]) of the chunks'
+        prompt-embeds positions, or (None, None) when no sequence has
+        prompt embeddings. A resumed sequence's positions past its prompt
+        (its generated tokens) keep their table rows."""
+        if all(s.prompt_embeds is None for s, _, _ in chunks):
+            return None, None
+        H = self.cfg.hidden_size
+        embeds = torch.zeros((B, Q, H), dtype=torch.float32, device=self.device)
+        rows = torch.zeros((B, Q), dtype=torch.bool, device=self.device)
+        for i, (seq, start, end) in enumerate(chunks):
+            pe = seq.prompt_embeds
+            if pe is None or start >= len(pe):
+                continue
+            piece = pe[start:min(end, len(pe))]
+            embeds[i, :len(piece)] = piece
+            rows[i, :len(piece)] = True
+        return embeds, rows
 
     def sample_tokens(self, logits, st: SamplingTensors, want_top: bool = False):
         """Sample one token per row of [B, V] device logits. Returns numpy
@@ -1160,7 +1211,7 @@ class ModelRunner:
         st = self.sampling_tensors(sampling, len(seqs), B)
         out = decode_step(self.params, self.cache, self._t(last), self._t(pos), tables,
                           st, self.gen, cfg=self.cfg, scheme=self.verify_scheme,
-                          num_top=TOPN if want_top else 0)
+                          num_top=TOPN if want_top else 0, lora_ids=self._lora_ids(seqs, B))
         self.target_forwards += 1
         n = len(seqs)
         top = None
@@ -1182,6 +1233,7 @@ class ModelRunner:
         st = self.sampling_tensors(sampling, len(seqs), B)
         state = (self._t(last), self._t(prev), self._t(pos), self._t(max_new))
         d_tables = self._t(self._ring_tables(seqs, B)) if self._ring_pages else tables
+        lora = self._lora_ids(seqs, B)
         parts = []
         for _ in range(max(1, chain)):
             toks, accs, lps, state, _, _ = spec_rounds_step(
@@ -1190,7 +1242,7 @@ class ModelRunner:
                 draft_scheme=self.draft_scheme, verify_scheme=self.verify_scheme,
                 k=self.k, num_rounds=num_rounds, draft_cfg=self.draft_cfg,
                 draft_params=self.draft_params, force_accept=self.force_accept,
-                acceptance=self.acceptance)
+                acceptance=self.acceptance, lora_ids=lora)
             parts.append((toks, accs, lps))
         n = len(seqs)
         toks = torch.cat([p[0] for p in parts]).cpu().numpy()
@@ -1398,6 +1450,43 @@ class ModelRunner:
             self._ebank.synced[s.seq_id] = s.num_tokens + int(accs[:, i].sum())
         return toks, accs, lps
 
+    # -- swap-mode preemption ----------------------------------------------
+    def gather_pages(self, page_ids, draft: bool = False):
+        """Host copies of the pages ``page_ids`` of every layer of the
+        target cache, or of the draft cache (``draft``: a pool over the
+        same page ids, or the ring's own pages): (entries [L, n, 2, Hkv, S,
+        D * bytes] as raw bytes, the 8-bit scales [L, n, 2, Hkv, S] or
+        None), in page-locked memory from the card. The entries travel as
+        bytes, so one path serves bf16 and every 8-bit type."""
+        cache = self.draft_cache if draft else self.cache
+        ids = self._t(page_ids, torch.int64)
+        pages = _to_host(cache.kv_pages.view(torch.uint8).index_select(1, ids))
+        scales = (None if cache.kv_scales is None
+                  else _to_host(cache.kv_scales.index_select(1, ids)))
+        return pages, scales
+
+    def write_pages(self, page_ids, pages, scales=None, draft: bool = False) -> None:
+        """Scatter :meth:`gather_pages`' copies into the pages ``page_ids``
+        (of the draft cache with ``draft``), in place."""
+        cache = self.draft_cache if draft else self.cache
+        ids = self._t(page_ids, torch.int64)
+        cache.kv_pages.view(torch.uint8).index_copy_(1, ids, pages.to(self.device))
+        if scales is not None:
+            cache.kv_scales.index_copy_(1, ids, scales.to(self.device))
+
+    def ring_page_ids(self, seq) -> Optional[list]:
+        """The ring pool's pages of a sequence's row (None without one)."""
+        row = self._ring.slot.get(seq.seq_id)
+        if row is None:
+            return None
+        return list(range(1 + row * self._ring_pages, 1 + (row + 1) * self._ring_pages))
+
+    def assign_ring_row(self, seq, live_ids) -> list:
+        """A ring row for a resumed sequence (a free one, or one of a
+        sequence outside ``live_ids``); returns its pages."""
+        self._ring.assign(seq.seq_id, live_ids)
+        return self.ring_page_ids(seq)
+
     def free_rows(self, seq) -> None:
         """Release a finished sequence's rows of every bank (each a no-op
         without one)."""
@@ -1429,6 +1518,16 @@ class ModelRunner:
     def free_ring_row(self, seq) -> None:
         """Release a sequence's ring row (a no-op without a ring or a row)."""
         self._ring.free(seq.seq_id)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of a device tensor, page-locked so the copy runs at the
+    link's rate; a CPU tensor (a fresh gather) as it is."""
+    if not t.is_cuda:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
 
 
 def make_sampling_tensors(seqs, vocab_size: Optional[int] = None,

@@ -79,6 +79,7 @@ import dataclasses
 import os
 from typing import List, Optional, Sequence, Union
 
+from qspec_tpu_torch.beam_search import BeamSearchOutput, BeamSearchParams, beam_search
 from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.conversation import get_conv_template
 from qspec_tpu_torch.engine.arg_utils import EngineArgs, proposer_of
@@ -245,14 +246,15 @@ class LLM:
     def generate(self, prompts: Sequence[Union[str, List[int]]],
                  sampling_params: Optional[Union[SamplingParams,
                                                  List[SamplingParams]]] = None,
-                 ) -> List[RequestOutput]:
+                 lora_name: Optional[str] = None) -> List[RequestOutput]:
         """Each prompt is a list of token ids, or a string (given a
-        tokenizer)."""
+        tokenizer); ``lora_name``: a loaded adapter (``llm_engine.lora``)
+        for every prompt."""
         if sampling_params is None:
             sampling_params = SamplingParams()
         if isinstance(sampling_params, SamplingParams):
             sampling_params = [sampling_params] * len(prompts)
-        ids = [self.llm_engine.add_request(self._encode(p), sp)
+        ids = [self.llm_engine.add_request(self._encode(p), sp, lora_name=lora_name)
                for p, sp in zip(prompts, sampling_params)]
         results = {}
         while self.llm_engine.has_unfinished_requests():
@@ -260,6 +262,13 @@ class LLM:
                 if out.finished:
                     results[out.request_id] = out
         return [results[i] for i in ids]
+
+    def beam_search(self, prompts: Sequence[Union[str, List[int]]],
+                    params: Optional[BeamSearchParams] = None) -> List[BeamSearchOutput]:
+        """Deterministic beam search (``beam_search.py``): one
+        BeamSearchOutput a prompt, ``beam_width`` sequences best first."""
+        return beam_search(self.llm_engine, [self._encode(p) for p in prompts],
+                           params or BeamSearchParams())
 
     def chat(self, messages, sampling_params: Optional[SamplingParams] = None,
              chat_template: Optional[str] = None) -> List[RequestOutput]:

@@ -14,11 +14,16 @@ wire format is the reference's:
   ``guided_choice``, tools, a forced tool choice decoded under the grammar
   of ``forced_call_schema``, streaming with incremental detokenization
   ending in ``data: [DONE]``);
-- ``POST /tokenize`` and ``/detokenize``.
+- ``POST /tokenize`` and ``/detokenize``;
+- LoRA adapters over the engine's bank (``params["lora"]``):
+  ``POST /v1/load_lora_adapter`` (``lora_name``, ``lora_path``: a PEFT
+  directory or file, optional ``alpha``), ``POST /v1/unload_lora_adapter``,
+  ``GET /v1/lora_adapters``; a completion whose ``model`` names a loaded
+  adapter runs under it, and ``/v1/models`` lists the adapters.
 
 The routes of modules not ported answer 501 with the ROADMAP item that
-ports them: ``/v1/embeddings``, ``/v1/score``, ``/score``,
-``/v1/audio/transcriptions`` and the LoRA routes. A request option the
+ports them: ``/v1/embeddings``, ``/v1/score``, ``/score`` and
+``/v1/audio/transcriptions``. A request option the
 engine refuses (``LLMEngine.check_request``, or a grammar that does not
 compile in ``add_request``) is a 400 with its message.
 
@@ -43,6 +48,7 @@ from qspec_tpu_torch.detokenizer import DetokState, detokenize_incrementally
 from qspec_tpu_torch.engine.arg_utils import EngineArgs
 from qspec_tpu_torch.engine.async_engine import AsyncEngineDeadError, AsyncLLMEngine
 from qspec_tpu_torch.entrypoints.llm import chat_token_ids
+from qspec_tpu_torch.lora.manager import LoRASlotError
 from qspec_tpu_torch.entrypoints.openai.tool_parser import (StreamingToolParser,
                                                             forced_call_schema,
                                                             parse_tool_calls,
@@ -67,12 +73,6 @@ NOT_PORTED = {
                         "(ROADMAP queue 1 items 9 and 10)",
     ("POST", "/v1/audio/transcriptions"): "whisper is not ported (ROADMAP queue 1 "
                                           "item 9)",
-    ("POST", "/v1/load_lora_adapter"): "LoRA adapters are not ported (ROADMAP queue "
-                                       "1 item 10)",
-    ("POST", "/v1/unload_lora_adapter"): "LoRA adapters are not ported (ROADMAP "
-                                         "queue 1 item 10)",
-    ("GET", "/v1/lora_adapters"): "LoRA adapters are not ported (ROADMAP queue 1 "
-                                  "item 10)",
 }
 
 
@@ -218,6 +218,9 @@ class OpenAIServer:
             ("POST", "/v1/chat/completions"): self.chat_completions,
             ("POST", "/tokenize"): self.tokenize,
             ("POST", "/detokenize"): self.detokenize,
+            ("POST", "/v1/load_lora_adapter"): self.load_lora,
+            ("POST", "/v1/unload_lora_adapter"): self.unload_lora,
+            ("GET", "/v1/lora_adapters"): self.list_lora,
         }
 
     # ------------------------------------------------------------ transport
@@ -295,9 +298,63 @@ class OpenAIServer:
         return Response.of_text("ok")
 
     async def models(self, req) -> Response:
-        return Response.of_json({"object": "list", "data": [
-            {"id": self.model_name, "object": "model", "created": _now(),
-             "owned_by": "qspec_tpu_torch"}]})
+        data = [{"id": self.model_name, "object": "model", "created": _now(),
+                 "owned_by": "qspec_tpu_torch"}]
+        lm = self.engine.engine._lora_manager
+        if lm is not None:
+            # a loaded adapter is a model a request's "model" field names
+            data += [{"id": a["name"], "object": "model", "created": int(a["loaded_at"]),
+                      "owned_by": "qspec_tpu_torch", "parent": self.model_name}
+                     for a in lm.list_adapters()]
+        return Response.of_json({"object": "list", "data": data})
+
+    # ------------------------------------------------------------ LoRA
+    def _lora_manager(self):
+        try:
+            return self.engine.engine.lora
+        except LoRASlotError as e:
+            raise HTTPError(400, str(e)) from e
+
+    async def load_lora(self, req) -> Response:
+        """Load a PEFT adapter under a name. It runs on the engine's worker
+        thread, between two steps: the bank is written in place."""
+        body = req.json()
+        name, path = body.get("lora_name"), body.get("lora_path")
+        if not name or not path:
+            raise HTTPError(400, "lora_name and lora_path are required")
+        mgr = self._lora_manager()
+        try:
+            slot = await self.engine.run(mgr.load_path, name, path, alpha=body.get("alpha"))
+        except (LoRASlotError, OSError, KeyError, ValueError) as e:
+            raise HTTPError(400, f"load failed: {e}") from e
+        return Response.of_json({"name": name, "slot": slot})
+
+    async def unload_lora(self, req) -> Response:
+        body = req.json()
+        name = body.get("lora_name")
+        if not name:
+            raise HTTPError(400, "lora_name is required")
+        mgr = self._lora_manager()
+        try:
+            await self.engine.run(mgr.unload, name)
+        except LoRASlotError as e:
+            raise HTTPError(400, str(e)) from e
+        return Response.of_json({"unloaded": name})
+
+    async def list_lora(self, req) -> Response:
+        return Response.of_json({"adapters": self._lora_manager().list_adapters()})
+
+    def _lora_name_of(self, body: dict) -> Optional[str]:
+        """The adapter a request's ``model`` field names, or None (the
+        served model, or no field). A name that is neither is a 404."""
+        m = body.get("model")
+        if not m or m == self.model_name:
+            return None
+        lm = self.engine.engine._lora_manager
+        if lm is None or all(a["name"] != m for a in lm.list_adapters()):
+            raise HTTPError(404, f"model {m!r} is neither the served model "
+                                 f"({self.model_name!r}) nor a loaded adapter")
+        return m
 
     async def metrics(self, req) -> Response:
         if self.metrics_registry is None:
@@ -416,15 +473,17 @@ class OpenAIServer:
             return sp
         return dataclasses.replace(sp, seed=sp.seed + j)
 
-    async def _generate(self, token_ids, sp):
+    async def _generate(self, token_ids, sp, lora_name=None):
         """The engine's outputs of one request; a request ``add_request``
-        refuses (a guided pattern or schema that does not compile) is a
-        400 with its message, raised before anything is sent."""
-        outs = self.engine.generate(token_ids, sp, request_id=next(self._request_counter))
+        refuses (a guided pattern or schema that does not compile, an
+        adapter the path does not serve) is a 400 with its message, raised
+        before anything is sent."""
+        outs = self.engine.generate(token_ids, sp, request_id=next(self._request_counter),
+                                    lora_name=lora_name)
         try:
             try:
                 first = await outs.__anext__()
-            except ValueError as e:
+            except (ValueError, LoRASlotError) as e:
                 raise HTTPError(400, str(e)) from e
             yield first
             async for out in outs:
@@ -432,9 +491,9 @@ class OpenAIServer:
         finally:
             await outs.aclose()
 
-    async def _generate_one(self, token_ids, sp):
+    async def _generate_one(self, token_ids, sp, lora_name=None):
         final = None
-        async for out in self._generate(token_ids, sp):
+        async for out in self._generate(token_ids, sp, lora_name):
             final = out
         return final
 
@@ -448,16 +507,17 @@ class OpenAIServer:
         prompts = self._encode_prompts(body)
         sp = self._sampling(body)
         n = self._n(body)
+        lora = self._lora_name_of(body)
         cid = f"cmpl-{uuid.uuid4().hex[:24]}"
         if body.get("stream"):
             if len(prompts) > 1 or n > 1:
                 raise HTTPError(400, "streaming supports a single prompt with n=1")
-            return await self._stream(req, prompts[0], sp, cid, chat=False)
+            return await self._stream(req, prompts[0], sp, cid, chat=False, lora_name=lora)
         # n > 1 fans out n engine requests a prompt (independent samples;
         # prefix caching shares the prompt's KV), all at once
         jobs = [(i * n + j, token_ids, self._nth_sp(sp, j))
                 for i, token_ids in enumerate(prompts) for j in range(n)]
-        finals = await asyncio.gather(*(self._generate_one(t, s) for _, t, s in jobs))
+        finals = await asyncio.gather(*(self._generate_one(t, s, lora) for _, t, s in jobs))
         choices = [{"index": idx, "text": final.text,
                     "logprobs": self._logprobs_payload(final, sp.logprobs),
                     "finish_reason": final.finish_reason}
@@ -515,13 +575,15 @@ class OpenAIServer:
             self._check(sp)
         tool_names = [t.get("function", t).get("name") for t in (tools or ())]
         n = self._n(body)
+        lora = self._lora_name_of(body)
         cid = f"chatcmpl-{uuid.uuid4().hex[:24]}"
         if body.get("stream"):
             if n > 1:
                 raise HTTPError(400, "streaming supports n=1")
             return await self._stream(req, token_ids, sp, cid, chat=True,
-                                      tool_names=tool_names if want_tools else None)
-        finals = await asyncio.gather(*(self._generate_one(token_ids, self._nth_sp(sp, j))
+                                      tool_names=tool_names if want_tools else None,
+                                      lora_name=lora)
+        finals = await asyncio.gather(*(self._generate_one(token_ids, self._nth_sp(sp, j), lora)
                                         for j in range(n)))
         choices = []
         for j, final in enumerate(finals):
@@ -545,7 +607,8 @@ class OpenAIServer:
             "usage": self._usage(len(token_ids),
                                  sum(len(f.output_token_ids) for f in finals))})
 
-    async def _stream(self, req, token_ids, sp, cid, chat: bool, tool_names=None):
+    async def _stream(self, req, token_ids, sp, cid, chat: bool, tool_names=None,
+                      lora_name=None):
         """Server-Sent Events: one chunk an engine output that adds text,
         the last with the finish reason, then ``data: [DONE]``. The text is
         detokenized incrementally; with stop strings, the last
@@ -576,7 +639,7 @@ class OpenAIServer:
                                         "finish_reason": finish}]}
             await events.send(json.dumps(payload))
 
-        async for out in self._generate(token_ids, sp):
+        async for out in self._generate(token_ids, sp, lora_name):
             if out.finished:
                 text = out.text
             elif tok is not None:

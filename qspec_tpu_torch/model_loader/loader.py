@@ -70,10 +70,11 @@ import torch
 from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.model_loader.families import (LLAMA_KEY_REMAPS, PROJ_KEYS, _Stacker,
                                                    _take, position_params)
+from qspec_tpu_torch.lora.layers import quarot_basis
 from qspec_tpu_torch.models.llama import (_f32_tensor, check_served, make_hadamards,
                                           pack_lm_head, pack_proj_weight, resolve_device)
 from qspec_tpu_torch.models.registry import resolve
-from qspec_tpu_torch.ops.hadamard import (decompose_dim, hadamard_matrix,
+from qspec_tpu_torch.ops.hadamard import (decompose_dim, hadamard_f32, hadamard_matrix,
                                           random_hadamard_matrix)
 from qspec_tpu_torch.ops.packing import repack_from_reference
 
@@ -411,17 +412,6 @@ def _require_exact_f32(device: torch.device) -> None:
                            "rounds every input to a 10-bit mantissa")
 
 
-def _hadamard_f32(n: int, device) -> torch.Tensor:
-    """(H_K (x) H_P) / sqrt(n) in float32, n = K * P (decompose_dim), made
-    on ``device``: the JAX ``quantize_float``'s dense H_I (np.kron, then
-    float32, then the float32 division) value for value."""
-    K, P = decompose_dim(n)
-    f32 = dict(dtype=torch.float32, device=device)
-    h = torch.kron(torch.as_tensor(hadamard_matrix(K), **f32),
-                   torch.as_tensor(hadamard_matrix(P), **f32))
-    return h / torch.tensor(math.sqrt(n), **f32)
-
-
 def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
                    bits: Optional[int] = 4, device="cuda"):
     """Offline QuaRot rotation and int4 quantization of a Hugging Face
@@ -441,7 +431,10 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
 
     (the q/k norms stay as they are)
     each projection quantized per output channel and packed
-    (``pack_proj_weight``), the head by ``pack_lm_head``. ``bits=None``
+    (``pack_proj_weight``), the head by ``pack_lm_head``; the basis
+    (``seed``, the folded gammas) is kept in ``params["quarot"]``
+    (``lora.layers.quarot_basis``), so that float-basis LoRA adapters and
+    soft prompts can be rotated into it. ``bits=None``
     keeps the rotated weights in bf16 (the rotation algebra without
     quantization). Each layer's float tensors are freed as it is packed.
     A remap family's checkpoint is mapped onto llama keys first, as the JAX
@@ -469,8 +462,8 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
                / torch.tensor(math.sqrt(nh), **f32))
     # the intermediate Hadamard: the MLP's width, or the experts'; the
     # shared expert's of its own width
-    H_I = _hadamard_f32(Ie if E else I, dev)
-    H_S = _hadamard_f32(Is, dev) if Is else None
+    H_I = hadamard_f32(Ie if E else I, dev)
+    H_S = hadamard_f32(Is, dev) if Is else None
 
     def t(name):
         return _f32_tensor(sd.pop(name), dev).t()       # [in, out]
@@ -494,10 +487,13 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
         folded in, its input rotated by Q."""
         return Q.T @ (gpost * w)
 
+    gins, gposts = [], []
     for li in range(L):
         p = f"model.layers.{li}."
         gin = gamma(p + "input_layernorm.weight")[:, None]
         gpost = gamma(p + "post_attention_layernorm.weight")[:, None]
+        gins.append(gin[:, 0])
+        gposts.append(gpost[:, 0])
         if p + "self_attn.qkv_proj.weight" in sd:           # phi-3's fused layout
             qkv = Q.T @ (gin * t(p + "self_attn.qkv_proj.weight"))
         else:
@@ -566,7 +562,9 @@ def quantize_float(path_or_sd, cfg: Optional[ModelConfig] = None, seed: int = 0,
     lm_head = pack_lm_head(Q.T @ (gfin * lm), cfg, dev)
     del lm
     params = {"embed": (embed @ Q).to(torch.bfloat16), "lm_head": lm_head,
-              "layers": layers, "hadamards": make_hadamards(cfg, dev), **position_params(cfg, dev)}
+              "layers": layers, "hadamards": make_hadamards(cfg, dev),
+              "quarot": quarot_basis(cfg, seed, torch.stack(gins), torch.stack(gposts)),
+              **position_params(cfg, dev)}
     return params, cfg
 
 

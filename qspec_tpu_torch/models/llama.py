@@ -113,6 +113,7 @@ import numpy as np
 import torch
 
 from qspec_tpu_torch.config import ModelConfig
+from qspec_tpu_torch.lora.layers import lora_delta
 from qspec_tpu_torch.ops import kv_cache as kvc
 from qspec_tpu_torch.ops.attention import alibi_slopes, paged_attention
 from qspec_tpu_torch.ops.hadamard import decompose_dim, hadamard_matrix
@@ -219,6 +220,20 @@ def _norm_maybe_quant(x, residual, gamma, eps, bits=None, beta=None,
         out = rmsnorm_quant(x, eps=eps, bits=bits, residual=residual)
     normed, h = (out, x) if residual is None else out
     return (None, normed, h) if bits else (normed, None, h)
+
+
+def _add_lora(out, lora, name, x_fp, ids):
+    """``out`` plus the per-token LoRA delta of target ``name``
+    (``lora/layers.py``); ``x_fp`` is the projection's float input."""
+    if lora is None:
+        return out
+    return out + lora_delta(x_fp, lora[name]["A"], lora[name]["B"], ids).to(out.dtype)
+
+
+def _fp_input(xn, xq):
+    """A projection's float input: the normed rows, or under the draft
+    schemes the dequantized ones, as the JAX package's ``_fp_input``."""
+    return xn if xn is not None else sym_dequant(xq)
 
 
 def _act_quant(x, scheme):
@@ -445,7 +460,8 @@ def check_served(cfg: ModelConfig) -> None:
 
 def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
                   batch: AttentionBatch, rope_cache, hadamards, scheme: str,
-                  tree=None, alibi=None, wi: Optional[int] = None):
+                  tree=None, alibi=None, wi: Optional[int] = None, lora=None,
+                  lora_ids=None):
     """One decoder layer. x: [T, hidden] bf16, and ``addend`` [T, hidden]
     bf16 or None: the previous layer's MLP output, not yet added to x (the
     layer's input is x + addend, added inside its input norm); ``layers``
@@ -454,9 +470,13 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
     (ops/attention.py); ``alibi``: the [Hq] f32 ALiBi slopes, in place of
     rope; ``wi``: the weight layer, where ``layers`` is one segment of the
     model (DeepSeek's dense prefix, its MoE rest; default ``li``), ``li``
-    still the KV-cache layer. Returns (x, down, cache): the layer's output
-    is x + down (under MoE the routed delta in bf16), left for the next norm
-    to add; the cache is written in place."""
+    still the KV-cache layer; ``lora``: the layer's slice of the adapter
+    bank ({target: {"A": [n, in, r], "B": [n, r, out]}}) and ``lora_ids``
+    [T] each token's slot, whose deltas add to qkv, o, gate_up and down
+    (on their float inputs: the normed or dequantized rows, the
+    head-mixed attention, the Hadamard-mixed activation). Returns (x, down,
+    cache): the layer's output is x + down (under MoE the routed delta in
+    bf16), left for the next norm to add; the cache is written in place."""
     wi = li if wi is None else wi
     B, Q = batch.positions.shape
     T = B * Q
@@ -471,7 +491,8 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
                           for n in ("input_norm_b", "post_norm_b"))
 
     xn, xq, x = _norm_maybe_quant(x, addend, gamma_in, eps, bits, beta_in, cfg.norm_type)
-    qkv = _linear(xn, layers["qkv"], scheme, xq, wi)
+    qkv = _add_lora(_linear(xn, layers["qkv"], scheme, xq, wi), lora, "qkv",
+                    _fp_input(xn, xq) if lora is not None else None, lora_ids)
     if cfg.clip_qkv is not None:
         qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
     q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
@@ -500,6 +521,7 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), wi)
     else:
         o = _linear(attn_flat, layers["o"], scheme, li=wi)
+    o = _add_lora(o, lora, "o", attn_flat, lora_ids)
     if cfg.post_norms:
         # Gemma-2's post-attention norm, on the block output before the add
         o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][wi], eps=eps)
@@ -523,7 +545,8 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         if cfg.residual_multiplier != 1.0:
             delta = delta * cfg.residual_multiplier
         return x, delta.to(x.dtype), cache
-    gate_up = _linear(xn, layers["gate_up"], scheme, xq, wi)
+    gate_up = _add_lora(_linear(xn, layers["gate_up"], scheme, xq, wi), lora, "gate_up",
+                        _fp_input(xn, xq) if lora is not None else None, lora_ids)
     if cfg.mlp_gated:
         i_size = gate_up.shape[-1] // 2
         act = _glu_act(gate_up[:, :i_size], gate_up[:, i_size:], cfg.hidden_act)
@@ -536,6 +559,7 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
         down = _linear(None, layers["down"], scheme, _act_quant(act, scheme), wi)
     else:
         down = _linear(act, layers["down"], scheme, li=wi)
+    down = _add_lora(down, lora, "down", act, lora_ids)
     if cfg.post_norms:
         down = rmsnorm(down.to(torch.bfloat16), layers["post_ffw_norm"][wi], eps=eps)
     if cfg.residual_multiplier != 1.0:
@@ -571,7 +595,9 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
                   cache: kvc.PagedKVCache, batch: AttentionBatch, *,
                   scheme: str = "w4a16",
                   logits_indices: Optional[torch.Tensor] = None,
-                  return_hidden=False, tree=None):
+                  return_hidden=False, tree=None, lora_ids: Optional[torch.Tensor] = None,
+                  input_embeds: Optional[torch.Tensor] = None,
+                  embeds_rows: Optional[torch.Tensor] = None):
     """Full forward. token_ids: [B, Q] -> (logits [B, Q, V] f32, cache).
 
     ``logits_indices`` [B]: compute logits only at one query index per row
@@ -584,6 +610,13 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     a time, so the rows at ``logits_indices`` are those the gathered form
     gives). ``tree``: an ops.attention.TreeMask; every layer's attention
     runs under the Medusa tree mask (the tree-verify rectangle).
+
+    ``lora_ids`` [B]: each row's adapter slot in ``params["lora"]``
+    (``lora/layers.py``; 0 the base), for every token of the row; None
+    runs no adapter. ``input_embeds`` [B, Q, H]: embedding rows given by
+    the caller (prompt embeddings, soft prompts) in place of the table's,
+    at the positions ``embeds_rows`` [B, Q] flags (all of them when None);
+    they are taken as they are, after the embedding scale.
     """
     if scheme not in SCHEMES:
         raise ValueError(f"scheme {scheme!r} not in {SCHEMES}")
@@ -598,15 +631,27 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
     check_served(cfg)
     B, Q = token_ids.shape
     x = embed_rows(params, cfg, token_ids.reshape(-1))
+    if input_embeds is not None:
+        ie = input_embeds.reshape(B * Q, -1).to(torch.bfloat16)
+        x = ie if embeds_rows is None else torch.where(embeds_rows.reshape(B * Q, 1), ie, x)
+    tok_lora = None
+    if lora_ids is not None and "lora" in params:
+        if cfg.num_experts:
+            raise NotImplementedError("LoRA on a mixture-of-experts model is not ported: "
+                                      "the JAX package applies no adapter to its experts")
+        tok_lora = lora_ids.to(torch.int64).repeat_interleave(Q)
     if "embed_norm" in params:
         # BLOOM's word_embeddings_layernorm, before layer 0
         x = layernorm(x, params["embed_norm"], params["embed_norm_b"], cfg.rms_norm_eps)
     alibi = params["alibi_slopes"] if cfg.position_embedding == "alibi" else None
     addend = None
     for key, seg_cfg, li, wi in layer_segments(cfg):
+        lora = None if tok_lora is None else {
+            t: {"A": ab["A"][li], "B": ab["B"][li]}
+            for t, ab in params["lora"]["layers"].items()}
         x, addend, cache = decoder_layer(x, addend, params[key], cache, li, seg_cfg, batch,
                                          params.get("rope_cache"), params.get("hadamards"),
-                                         scheme, tree, alibi, wi)
+                                         scheme, tree, alibi, wi, lora, tok_lora)
     flat = None
     if logits_indices is not None:
         flat = logits_indices.to(torch.int64) + torch.arange(B, device=x.device) * Q

@@ -39,12 +39,15 @@ the qkv bias, the fused gate_up_proj, half-width interleaved rope) and
 loaders, Helium under QuaRot too. ``Cohere2ForCausalLM`` and
 ``Glm4ForCausalLM`` are named only to raise, naming ROADMAP queue 1 item 9
 (the JAX registry maps them onto Cohere and GLM and drops their other
-layers' knobs). Any other architecture raises.
+layers' knobs). A plugin (``plugins.py``) registers more with
+``register_model``: its function maps the config.json dict to a
+ModelConfig, and comes before the table. Any other architecture raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Dict
 
 from qspec_tpu_torch.config import LLAMA_GRAPH_TYPES, ModelConfig
 
@@ -90,11 +93,33 @@ KEEP_MODEL_TYPE = {"LlamaForCausalLM", "QuarotLlamaForCausalLM", "llama_quarot",
                    "MistralForCausalLM", "Phi3ForCausalLM", "phi3"}
 
 
+# architecture -> a function (config.json dict -> ModelConfig), registered by
+# plugins (register_model)
+_REGISTRY: Dict[str, Callable[[dict], ModelConfig]] = {}
+
+
+def register_model(arch: str):
+    """Decorator: register ``fn(hf_config) -> ModelConfig`` for ``arch``
+    (the plugin-facing name of the JAX package's ``register``)."""
+    def deco(fn):
+        _REGISTRY[arch] = fn
+        return fn
+    return deco
+
+
+def supported_architectures():
+    return sorted({*ARCHITECTURES, *_REGISTRY})
+
+
 def resolve(hf_config: dict) -> ModelConfig:
     """The ModelConfig of a Hugging Face config.json dict, by its first
-    ported architecture."""
+    ported or registered architecture (the plugins are loaded first)."""
+    from qspec_tpu_torch.plugins import load_general_plugins
+    load_general_plugins()
     archs = hf_config.get("architectures") or [hf_config.get("model_type", "")]
     for a in archs:
+        if a in _REGISTRY:
+            return _REGISTRY[a](hf_config)
         if a in ARCHITECTURES:
             mt = hf_config.get("model_type", "") if a in KEEP_MODEL_TYPE else ""
             if not any(f in mt for f, _ in LLAMA_GRAPH_TYPES):
@@ -105,4 +130,4 @@ def resolve(hf_config: dict) -> ModelConfig:
                 cfg = dataclasses.replace(cfg, position_embedding="alibi")
             return cfg
     raise NotImplementedError(f"unsupported architectures {archs}; ported: "
-                              f"{sorted(ARCHITECTURES)}")
+                              f"{supported_architectures()}")

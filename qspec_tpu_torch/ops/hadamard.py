@@ -261,3 +261,14 @@ def random_hadamard_matrix(n: int, seed: int = 0) -> np.ndarray:
     K, P = decompose_dim(n)
     H = np.kron(hadamard_matrix(K), hadamard_matrix(P)).astype(np.float64)
     return (H * d[None, :]) / math.sqrt(n)
+
+
+def hadamard_f32(n: int, device) -> torch.Tensor:
+    """(H_K (x) H_P) / sqrt(n) in float32, n = K * P (decompose_dim), made
+    on ``device``: the JAX ``quantize_float``'s dense H_I (np.kron, then
+    float32, then the float32 division) value for value."""
+    K, P = decompose_dim(n)
+    f32 = dict(dtype=torch.float32, device=device)
+    h = torch.kron(torch.as_tensor(hadamard_matrix(K), **f32),
+                   torch.as_tensor(hadamard_matrix(P), **f32))
+    return h / torch.tensor(math.sqrt(n), **f32)

@@ -1755,3 +1755,37 @@ def test_layernorm_rows_independent_of_batch(gen, h):
         for m in (1, 4, 8, 12, 16, 126):
             assert torch.equal(layernorm(x[:m], g, beta, 1e-5), full[:m]), m
             assert torch.equal(layernorm(x[-m:], g, beta, 1e-5), full[-m:]), m
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+def test_swap_pages_round_trip(gen, kv_dtype):
+    """Swap's page gather (the pages of every layer, as bytes, with the
+    8-bit scales, into page-locked host memory) and its scatter into other
+    pages, on the card: the scattered pages hold the gathered bits, and the
+    other pages are untouched."""
+    from qspec_tpu_torch.config import CacheConfig, EngineConfig
+    from qspec_tpu_torch.engine.model_runner import ModelRunner
+    from qspec_tpu_torch.models.llama import init_params
+    cfg = ModelConfig.tiny(quant="w4")
+    r = ModelRunner(EngineConfig(model=cfg, cache=CacheConfig(page_size=16,
+                                                              kv_cache_dtype=kv_dtype)),
+                    init_params(cfg, device="cuda"), num_pages=10, device="cuda")
+    T = 10 * 16
+    for li in range(cfg.num_layers):
+        k = torch.randn(T, cfg.num_kv_heads, cfg.head_dim, generator=gen, device="cuda")
+        v = torch.randn(T, cfg.num_kv_heads, cfg.head_dim, generator=gen, device="cuda")
+        kvc.update_layer(r.cache, li, k.to(torch.bfloat16), v.to(torch.bfloat16),
+                         torch.arange(T, device="cuda"))
+    before = [t.clone() for t in r.cache if t is not None]
+    pages, scales = r.gather_pages([3, 5, 7])
+    assert pages.device.type == "cpu" and pages.is_pinned()
+    assert (scales is not None) == (kv_dtype in ("int8", "fp8_e4m3"))
+    r.write_pages([2, 4, 9], pages, scales)
+
+    def bits(t):
+        # torch.equal is not defined for the fp8 types: compare bytes
+        return t if t.dtype == torch.float32 else t.view(torch.uint8)
+    for old, new in zip(before, (t for t in r.cache if t is not None)):
+        assert torch.equal(bits(new)[:, [2, 4, 9]], bits(old)[:, [3, 5, 7]])
+        keep = [0, 1, 3, 5, 6, 7, 8]
+        assert torch.equal(bits(new)[:, keep], bits(old)[:, keep])

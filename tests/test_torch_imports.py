@@ -31,6 +31,12 @@ from qspec_tpu_torch.ops.hadamard import random_hadamard_matrix
 from qspec_tpu_torch.ops.packing import pack_reference, repack_from_reference
 from qspec_tpu_torch.models.llama import pack_proj_weight
 from qspec_tpu_torch.ops.ngram import ngram_match_device
+from qspec_tpu_torch.lora import init_lora_params, load_peft_adapter, lora_delta
+from qspec_tpu_torch.lora.manager import LoRAManager
+from qspec_tpu_torch.core.swap import HostSwapPool
+from qspec_tpu_torch.prompt_adapter import PromptAdapterManager
+from qspec_tpu_torch.beam_search import beam_search
+from qspec_tpu_torch import envs, plugins
 for m in pkgutil.walk_packages(qspec_tpu_torch.__path__, "qspec_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
@@ -56,7 +62,8 @@ def test_port_imports_no_jax():
     assert bad == []
     # every module was imported, the checkpoint loaders' (the float and
     # QSpec Llama loaders among them), Medusa's, EAGLE's, MLPSpeculator's,
-    # the n-gram matcher's and the grammar compiler's
+    # the n-gram matcher's, the grammar compiler's, and the engine
+    # surface's (LoRA, swap, prompt adapters, beam search, envs, plugins)
     assert {"qspec_tpu_torch.guided", "qspec_tpu_torch.guided.regex_dfa",
             "qspec_tpu_torch.guided.json_schema", "qspec_tpu_torch.guided.tokenfsm",
             "qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
@@ -66,7 +73,11 @@ def test_port_imports_no_jax():
             "qspec_tpu_torch.ops.packing", "qspec_tpu_torch.entrypoints.llm",
             "qspec_tpu_torch.spec_decode.medusa",
             "qspec_tpu_torch.spec_decode.medusa_tree", "qspec_tpu_torch.spec_decode.eagle",
-            "qspec_tpu_torch.spec_decode.mlp_speculator"} <= set(port)
+            "qspec_tpu_torch.spec_decode.mlp_speculator", "qspec_tpu_torch.lora",
+            "qspec_tpu_torch.lora.layers", "qspec_tpu_torch.lora.manager",
+            "qspec_tpu_torch.core.swap", "qspec_tpu_torch.prompt_adapter",
+            "qspec_tpu_torch.beam_search", "qspec_tpu_torch.envs",
+            "qspec_tpu_torch.plugins"} <= set(port)
 
 
 def test_port_sources_name_no_jax():

@@ -410,6 +410,58 @@ def test_not_ported_routes_answer_501(weights):
         assert request(st.port, "GET", "/v1/completions")[0] == 405
 
 
+def test_lora_routes_and_the_model_field(weights, tmp_path):
+    """Load an adapter from a PEFT directory, list it (also in /v1/models),
+    complete under it by naming it in ``model`` (the tokens LLM.generate
+    gives with lora_name; the served model's name gives the base's), then
+    unload it; the errors are 400 / 404, and a server without a bank
+    answers 400."""
+    from qspec_tpu_torch.lora import LoRAConfig, init_lora_params
+    from tests.test_torch_lora import peft_adapter
+    cfg = ModelConfig.tiny(quant="w4")
+    np.savez(tmp_path / "adapter_model.npz", **peft_adapter(cfg, 31))
+    (tmp_path / "adapter_config.json").write_text(json.dumps({"lora_alpha": 8}))
+    params = {**weights[2], "lora": init_lora_params(cfg, LoRAConfig(3, 16), device="cpu")}
+    prompt = list(range(3, 20))
+    body = {"prompt": prompt, "max_tokens": 8, "temperature": 0.0, "ignore_eos": True,
+            "logprobs": 1}
+    server = build_server(EngineArgs(**ENGINE), model_name="tiny-test", params=params,
+                          device="cpu", tokenizer=FakeTokenizer())
+    with ServerThread(server) as st:
+        assert request(st.port, "GET", "/v1/lora_adapters") == (200, {"adapters": []})
+        status, data = post(st.port, "/v1/load_lora_adapter",
+                            {"lora_name": "ad", "lora_path": str(tmp_path)})
+        assert (status, data) == (200, {"name": "ad", "slot": 1})
+        _, listed = request(st.port, "GET", "/v1/lora_adapters")
+        assert [a["name"] for a in listed["adapters"]] == ["ad"]
+        _, models = request(st.port, "GET", "/v1/models")
+        assert [m["id"] for m in models["data"]] == ["tiny-test", "ad"]
+        status, data = post(st.port, "/v1/completions", {**body, "model": "ad"})
+        assert status == 200
+        got = tokens_of(data["choices"][0])
+        base = tokens_of(post(st.port, "/v1/completions", {**body, "model": "tiny-test"})[1]
+                         ["choices"][0])
+        assert post(st.port, "/v1/completions", {**body, "model": "nope"})[0] == 404
+        assert post(st.port, "/v1/load_lora_adapter", {"lora_name": "x"})[0] == 400
+        assert post(st.port, "/v1/load_lora_adapter",
+                    {"lora_name": "x", "lora_path": str(tmp_path / "missing.npz")})[0] == 400
+        assert post(st.port, "/v1/unload_lora_adapter", {"lora_name": "ad"}) == \
+            (200, {"unloaded": "ad"})
+        assert post(st.port, "/v1/unload_lora_adapter", {"lora_name": "ad"})[0] == 400
+        assert request(st.port, "GET", "/v1/lora_adapters") == (200, {"adapters": []})
+    llm = LLM(params={**weights[2], "lora": init_lora_params(cfg, LoRAConfig(3, 16),
+                                                             device="cpu")},
+              device="cpu", **ENGINE)
+    llm.llm_engine.lora.load_path("ad", str(tmp_path))
+    sp = SamplingParams(temperature=0.0, max_tokens=8, ignore_eos=True)
+    assert got == llm.generate([prompt], sp, lora_name="ad")[0].output_token_ids
+    assert base == llm.generate([prompt], sp)[0].output_token_ids != got
+    with ServerThread(make_server(weights)) as st:
+        status, data = post(st.port, "/v1/load_lora_adapter",
+                            {"lora_name": "ad", "lora_path": str(tmp_path)})
+        assert status == 400 and "adapter bank" in data["message"]
+
+
 @pytest.mark.parametrize("body,match", [
     ({"repetition_penalty": 1.2}, "repetition_penalty"),
     ({"temperature": 0.8, "seed": 3}, "seed"),
