@@ -170,8 +170,9 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    at DENSE_HEADS, Granite's 49155 columns padded at load) against its
    plain version, and timed at Qwen2-7B's shapes beside its library call
    and bound (check_dense_shapes, time_dense_shapes); (H1)
-   LLM(model="qwen2-7b") at full width and depth, random int4 weights made
-   on the card, QSpec (k = 3) at W4A4 and W4A8 == qspec_null in
+   LLM(model=<Qwen2-7B's config.json dir>, params=...) at full width and
+   H1_LAYERS of its 28 layers, random int4 weights made on the card, QSpec
+   (k = 3) at W4A4 and W4A8 == qspec_null in
    check_moe_counts' exact counts (phase_qwen2_7b); (H2) Qwen2.5-7B,
    Qwen3-8B, Mistral-7B-v0.1, Gemma-7B, Phi-3-mini-128k-instruct and
    Granite-3.0-8B directories (their published config.json fields at 2
@@ -187,7 +188,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    and at falcon-rw's D=64; matmul_w4a16 / matmul_w4a4 at one Qwen-7B
    layer (K = 11008); the int8 head at J_HEADS, against their plain
    versions, and timed (check_remap_shapes, time_remap_shapes; the kernel
-   line's ``j_times``); (J1) InternLM2.5-7B at full width and depth, random
+   line's ``j_times``); (J1) InternLM2.5-7B at full width, J1_LAYERS of its
+   32 layers, random
    bf16 made on the card in InternLM2's keys, remapped and quantized by
    quantize_float there, LLM(model=<config.json dir>, params=...), QSpec
    (k = 3) at W4A4 and W4A8 == qspec_null in check_moe_counts' counts
@@ -229,7 +231,27 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    tokens, 2 prompts): distinct sorted beams, each cumulative logprob within
    L_BEAM_TOL of a teacher-forced re-scoring; (L5) the LoRA routes over HTTP
    (load, a completion whose ``model`` names the adapter, unload) ==
-   ``LLM.generate(lora_name=)``.
+   ``LLM.generate(lora_name=)``;
+22. compressed-tensors and GGUF (M): matmul_w8a16 over int8 and fp8
+   weights at Llama-3-8B's four trunk shapes (a 2-layer stack, M = 4 and
+   16) and the fp8 head shape against the plain version, all 256 e4m3 codes,
+   a row's bits across M, and the trunk timed per layer beside
+   torch._weight_int8pack_mm (int8; fp8 has no library call)
+   (check_w8a16_trunk, time_w8a16_trunk); (M1) Llama-3-8B at full width and
+   depth as a compressed-tensors int8 checkpoint made on the card
+   (make_ct_state_dict, load_compressed_tensors), QSpec with the W4A16
+   draft (a) under a window of 64 on its ring pool and (b) without, each
+   == qspec_null, exactly CT_KERNELS, (b) accepting more than half; (M2)
+   the same checkpoint as fp8, (a): every trunk launch the fp8
+   instantiation, the int8 counter the head's alone; (M3) induction_lm_v2
+   through M3_LOADERS (ct int8, fp8, pack-quantized g = 128, a GGUF Q4_0
+   file) with the trained induction_eagle_v1 net: QSpec (windowed W4A16,
+   k = 3) == qspec_null and EAGLE (k = 4) == AR, the counts printed beside
+   the CPU's (M3_CPU); (M4) at 8B widths, 2 layers, a GGUF Q4_0 file (g =
+   32) and a compressed-tensors fp8 directory through LLM(model=<dir>),
+   each == qspec_null, the directory's replies == the state-dict route's
+   (phase_ct_8b, phase_ct_induction, phase_ct_dirs; the kernel line's
+   ``ct_launches``).
 
 It prints the kernel summary as one JSON line (each kernel's summary
 fields, its times at Qwen2-7B's shapes, ``qwen2_7b``, at (J)'s, ``j_times``,
@@ -273,6 +295,18 @@ def log(*a, stdout: bool = True):
         print(*a, flush=True)
     for f in _LOG:
         print(*a, file=f, flush=True)
+
+
+# the seconds each step of main took, in order (the log's "steps (s)" line)
+_STEPS = {}
+_STEP_T = [time.perf_counter()]
+
+
+def step(name: str) -> None:
+    """Close the step ``name``: the seconds since the previous one."""
+    now = time.perf_counter()
+    _STEPS[name] = round(now - _STEP_T[0], 1)
+    _STEP_T[0] = now
 
 
 # ---------------------------------------------------------------- timing
@@ -517,14 +551,14 @@ def check_w8a16(gen, report):
 GROUP = 128                         # AWQ / GPTQ group size of the 8B checkpoint
 
 
-def _w4g(gen, k, n, layers=None):
+def _w4g(gen, k, n, layers=None, group=GROUP):
     """AWQ weights made on the card (model_loader.grouped's torch writer),
     unpacked and repacked by the loader: packed int4, f32 scales and offsets
     per (group, column); layer-stacked when ``layers`` is given."""
     from qspec_tpu_torch.model_loader import grouped as tg
 
     def one():
-        t = tg.make_awq_tensors(torch.randn(k, n, generator=gen, device="cuda") * 0.02, GROUP)
+        t = tg.make_awq_tensors(torch.randn(k, n, generator=gen, device="cuda") * 0.02, group)
         return tg.pack_grouped_proj(*tg.unpack_awq(t["qweight"], t["qzeros"], t["scales"]))
     ps = [one() for _ in range(layers or 1)]
     return tuple(torch.stack([p[key] for p in ps]) if layers else ps[0][key]
@@ -1690,18 +1724,19 @@ def time_kernels(gen, gen_w4, report, int4pack_missing):
         torch.cuda.empty_cache()
 
 
-def _time_w4g_layer(gen, shapes, m, library: bool) -> dict:
-    """One layer's four grouped projections at M = ``m``: kernel, plain
-    version and torch._weight_int4pack_mm (weights converted once, outside
-    the timing), each input set rotated past L2; the bound from this call's
-    bytes (x, packed weights, scales and offsets, out) and operations."""
+def _time_w4g_layer(gen, shapes, m, library: bool, group: int = GROUP) -> dict:
+    """One layer's four grouped projections at M = ``m`` and group size
+    ``group``: kernel, plain version and torch._weight_int4pack_mm (weights
+    converted once, outside the timing), each input set rotated past L2;
+    the bound from this call's bytes (x, packed weights, scales and
+    offsets, out) and operations."""
     from qspec_tpu_torch.ops import linear_kernels as lk
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0 if library else None}
     nbytes_tot = ops_tot = 0
     per = []
     for k, n in shapes:
-        wbytes = k * n // 2 + 2 * (k // GROUP) * n * 4
-        rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n), wbytes)
+        wbytes = k * n // 2 + 2 * (k // group) * n * 4
+        rot = Rotating(lambda k=k, n=n: _w4g(gen, k, n, group=group), wbytes)
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
 
         def kern():
@@ -1716,11 +1751,11 @@ def _time_w4g_layer(gen, shapes, m, library: bool) -> dict:
         tot["plain_ms"] += graph_ms(plain, reps=3)
         t_l = None
         if library:
-            rot_l = Rotating(lambda k=k, n=n: _int4pack(*_w4g(gen, k, n)), wbytes)
+            rot_l = Rotating(lambda k=k, n=n: _int4pack(*_w4g(gen, k, n, group=group)), wbytes)
 
             def lib_call():
                 packed, sz = rot_l.next()
-                torch._weight_int4pack_mm(x, packed, GROUP, sz)
+                torch._weight_int4pack_mm(x, packed, group, sz)
             t_l = graph_ms(lib_call, reps=max(20, len(rot_l.sets)))
             tot["library_ms"] += t_l
             del rot_l
@@ -2430,24 +2465,37 @@ def mpt_entries(cfg):
     return out + [("transformer.norm_f.weight", (H,), "one")]
 
 
+@functools.lru_cache(maxsize=1)
+def _pinned_chunk() -> torch.Tensor:
+    # page-locked where there is a card (the CPU tests write through it too)
+    return torch.empty(64 << 20, dtype=torch.uint8, pin_memory=torch.cuda.is_available())
+
+
 def write_safetensors(path: str, tensors: dict) -> None:
     """A .safetensors file: the 8-byte little-endian header length, the JSON
     header (dtype, shape, byte range of each tensor, padded to 8 bytes) and
-    the raw little-endian buffers."""
+    the raw little-endian buffers, each copied to the file through one
+    page-locked chunk of 64 MiB (no host tensor of its size)."""
     header, off = {}, 0
     for name, t in tensors.items():
         n = t.numel() * t.element_size()
         header[name] = {"dtype": {torch.bfloat16: "BF16", torch.float32: "F32",
                                   torch.float16: "F16", torch.uint8: "U8",
-                                  torch.int32: "I32"}[t.dtype],
+                                  torch.int32: "I32", torch.int64: "I64", torch.int8: "I8",
+                                  torch.float8_e4m3fn: "F8_E4M3"}[t.dtype],
                         "shape": list(t.shape), "data_offsets": [off, off + n]}
         off += n
     raw = json.dumps(header).encode()
     raw += b" " * (-len(raw) % 8)
     with open(path, "wb") as f:
         f.write(len(raw).to_bytes(8, "little") + raw)
+        buf = _pinned_chunk()
         for t in tensors.values():
-            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+            flat = t.contiguous().reshape(-1).view(torch.uint8)
+            for off in range(0, flat.numel(), buf.numel()):
+                part = flat[off:off + buf.numel()]
+                buf[:part.numel()].copy_(part)
+                f.write(buf[:part.numel()].numpy().data)
 
 
 def float_prompts(vocab: int):
@@ -4657,49 +4705,65 @@ def time_dense_shapes(gen, report, int4pack_missing):
         for name, m in pick.items()))
 
 
-def phase_qwen2_7b(smi: str):
-    """(H1) LLM(model="qwen2-7b"): Qwen2-7B at full width and depth (28
-    layers, hidden 3584, intermediate 18944, 28 / 4 heads, vocab 152064, the
-    qkv bias), quant="w4" with the int8 head over a bf16 cache, random int4
-    weights made on the card from the seed, QSpec (k = 3) with the W4A4 and
-    the W4A8 draft, each against qspec_null on moe_prompts: tokens equal,
-    exactly QUAROT_KERNELS launched, in check_moe_counts' counts (4 x 28
-    matmul_w4a16 a verify forward, 4 x 28 matmul_w4a4 a draft forward, 28
-    attention launches a forward of either)."""
-    from qspec_tpu_torch import LLM
-    from qspec_tpu_torch.config import ModelConfig
-    cfg = ModelConfig.qwen2_7b(quant="w4")
-    prompts = moe_prompts(cfg.vocab_size)
-    out, made = {}, {}
-    for scheme in ("w4a4", "w4a8"):
-        tally = []
+# (H1)'s and (J1)'s depth: Qwen2-7B's 28 layers and InternLM2.5-7B's 32 cut
+# to 4, to pay for phase (M) inside the script's time limit (at full depth
+# (H) took 137 s and (J) 132 s of a 987 s run; (M) took 93 s alone, on an
+# H100 80GB HBM3 at 700 W: PERF.md §6)
+H1_LAYERS = 4
 
-        def make(method, p, scheme=scheme, tally=tally):
-            # the weights are made once, by the first run, from the seed
-            t0 = time.perf_counter()
-            llm = LLM(model="qwen2-7b", params=p or made.get("params"), device="cuda",
-                      seed=22, num_speculative_tokens=3, speculative_draft_scheme=scheme,
-                      speculative_method=method, max_model_len=512, max_num_seqs=4,
-                      num_pages=80)
-            if not made:
-                torch.cuda.synchronize()
-                made.update(params=llm.llm_engine.runner.params,
-                            seconds=time.perf_counter() - t0,
-                            gib=torch.cuda.memory_allocated() / 2 ** 30)
-            tally.append(round_tally(llm.llm_engine))
-            return llm.llm_engine
-        name = f"(H1) qwen2-7b ({scheme} draft, int8 head, bf16 KV)"
-        torch.cuda.reset_peak_memory_stats()
-        spec, launches, _, summary = spec_vs_oracle(make, name, QUAROT_KERNELS, prompts, 32)
-        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        check_moe_counts(name, cfg, launches, summary, tally[0])
-        summary["verify_forwards_in_rounds"] = tally[0]["verify"]
-        e2e_log(name, prompts, spec, summary)
-        out[scheme] = (launches, summary)
-        torch.cuda.empty_cache()
-    moe_line("(H1) qwen2-7b, 28 layers", out, f"; weights made in {made['seconds']:.1f} s, "
-             f"{made['gib']:.2f} GiB with the KV pools")
-    del made
+
+def phase_qwen2_7b(smi: str):
+    """(H1) LLM(model=<a directory holding only Qwen2-7B's config.json>,
+    params=...): Qwen2-7B at full width and H1_LAYERS of its 28 layers
+    (hidden 3584, intermediate 18944, 28 / 4 heads, vocab 152064, the qkv
+    bias; QWEN25_7B_HF's fields, which Qwen2-7B's config.json shares, at
+    ModelConfig.qwen2_7b's window of 32768), quant="w4" with the int8 head
+    over a bf16 cache, random int4 weights made on the card from the seed
+    (init_params), QSpec (k = 3) with the W4A4 and the W4A8 draft, each
+    against qspec_null on moe_prompts: tokens equal, exactly QUAROT_KERNELS
+    launched, in check_moe_counts' counts (4 x H1_LAYERS matmul_w4a16 a
+    verify forward, as many matmul_w4a4 a draft forward, H1_LAYERS
+    attention launches a forward of either)."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.models.llama import init_params
+    from qspec_tpu_torch.models.registry import resolve
+    hf = {**QWEN25_7B_HF, "num_hidden_layers": H1_LAYERS, "max_position_embeddings": 32768}
+    cfg = dataclasses.replace(resolve(hf), quant="w4")
+    prompts = moe_prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=22, device="cuda")
+    torch.cuda.synchronize()
+    made = {"seconds": time.perf_counter() - t0,
+            "gib": torch.cuda.memory_allocated() / 2 ** 30}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_config(d, hf)
+        for scheme in ("w4a4", "w4a8"):
+            tally = []
+
+            def make(method, p, scheme=scheme, tally=tally):
+                llm = LLM(model=d, params=p or params, device="cuda", seed=22,
+                          num_speculative_tokens=3, speculative_draft_scheme=scheme,
+                          speculative_method=method, max_model_len=512, max_num_seqs=4,
+                          num_pages=80)
+                if llm.engine_config.model != cfg:
+                    raise AssertionError("(H1) the directory's config is not Qwen2-7B's: "
+                                         f"{llm.engine_config.model} vs {cfg}")
+                tally.append(round_tally(llm.llm_engine))
+                return llm.llm_engine
+            name = f"(H1) qwen2-7b ({scheme} draft, int8 head, bf16 KV)"
+            torch.cuda.reset_peak_memory_stats()
+            spec, launches, _, summary = spec_vs_oracle(make, name, QUAROT_KERNELS, prompts, 32)
+            summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_moe_counts(name, cfg, launches, summary, tally[0])
+            summary["verify_forwards_in_rounds"] = tally[0]["verify"]
+            e2e_log(name, prompts, spec, summary)
+            out[scheme] = (launches, summary)
+            torch.cuda.empty_cache()
+    moe_line(f"(H1) qwen2-7b, {H1_LAYERS} of its 28 layers", out,
+             f"; weights made in {made['seconds']:.1f} s, {made['gib']:.2f} GiB")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"e2e (H1): card {smi}", stdout=False)
@@ -5311,23 +5375,27 @@ def remap_entries(cfg, family: str):
     return out + [(x.format("transformer.ln_f"), s, k) for x, s, k in ln]
 
 
+J1_LAYERS = 4
+
+
 def phase_internlm2_7b(smi: str):
-    """(J1) InternLM2.5-7B at full width and depth (INTERNLM25_7B_HF: 32
-    layers, hidden 4096, intermediate 14336, 32 / 8 heads, vocab 92544, the
-    dynamic rope inside its window of 32768): a state dict of random bf16
-    made on the card in InternLM2's own keys (about 15.5 GB), remapped and
+    """(J1) InternLM2.5-7B at full width and J1_LAYERS of its 32 layers
+    (INTERNLM25_7B_HF: hidden 4096, intermediate 14336, 32 / 8 heads, vocab
+    92544, the dynamic rope inside its window of 32768): a state dict of
+    random bf16 made on the card in InternLM2's own keys, remapped and
     quantized there by quantize_float (seconds and peak GiB printed), then
     LLM(model=<a directory holding only its config.json>, params=...) with
     max_model_len 512, QSpec (k = 3) with the W4A4 and the W4A8 draft, each
     against qspec_null on moe_prompts: tokens equal, exactly QUAROT_KERNELS
-    launched, in check_moe_counts' counts (4 x 32 matmul_w4a16 a verify
-    forward, 4 x 32 matmul_w4a4 a draft forward, 32 attention launches a
-    forward of either)."""
+    launched, in check_moe_counts' counts (4 x J1_LAYERS matmul_w4a16 a
+    verify forward, as many matmul_w4a4 a draft forward, J1_LAYERS attention
+    launches a forward of either)."""
     import tempfile
     from qspec_tpu_torch import LLM
     from qspec_tpu_torch.model_loader.loader import quantize_float
     from qspec_tpu_torch.models.registry import resolve
-    cfg = resolve(INTERNLM25_7B_HF)
+    hf = {**INTERNLM25_7B_HF, "num_hidden_layers": J1_LAYERS}
+    cfg = resolve(hf)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     sd = random_state_dict(internlm2_entries(cfg), seed=70)
@@ -5345,7 +5413,7 @@ def phase_internlm2_7b(smi: str):
     prompts = moe_prompts(cfg.vocab_size)
     out = {}
     with tempfile.TemporaryDirectory() as d:
-        write_config(d, INTERNLM25_7B_HF)
+        write_config(d, hf)
         for scheme in ("w4a4", "w4a8"):
             tally = []
 
@@ -5368,7 +5436,7 @@ def phase_internlm2_7b(smi: str):
             e2e_log(name, prompts, spec, summary)
             out[scheme] = (launches, summary)
             torch.cuda.empty_cache()
-    moe_line("(J1) internlm2.5-7b, 32 layers", out,
+    moe_line(f"(J1) internlm2.5-7b, {J1_LAYERS} of its 32 layers", out,
              f"; quantize_float {secs:.1f} s, peak {peak:.2f} GiB")
     del params
     gc.collect()
@@ -5850,6 +5918,558 @@ def phase_k_dirs(smi: str):
     return out
 
 
+# ----------------------------------- (M) compressed-tensors and GGUF checkpoints
+
+# Llama-3-8B's four trunk projections (qkv, o, gate_up, down) as the W8A16
+# trunk runs them, K x N
+W8_TRUNK = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+W8_TRUNK_NAMES = ("qkv", "o", "gate_up", "down")
+# the kernels of a compressed-tensors int8 Llama (W8A16 trunk and int8 head);
+# an fp8 checkpoint's trunk launches the fp8 instantiation, counted apart
+CT_KERNELS = {"matmul_w8a16", "rmsnorm", "paged_attention"}
+CT_FP8_KERNELS = CT_KERNELS | {"matmul_w8a16_fp8"}
+M_WINDOW = 64
+# (M3)'s loaders of induction_lm_v2
+M3_LOADERS = ("ct-int8", "ct-fp8", "ct-packed-g128", "gguf-q4_0")
+# (M3) on the CPU (tests/test_torch_ct_induction.py), same prompts and
+# settings: per loader, drafted / accepted / emitted of QSpec (windowed
+# W4A16 draft, k = 3) and of EAGLE (induction_eagle_v1, k = 4), and where
+# each prompt's greedy tokens first leave its segment's copy (-1: never)
+M3_CPU = {
+    "ct-int8": {"qspec": [102, 90, 124], "eagle": [480, 4, 124], "copy_breaks": [-1, -1, 11, -1]},
+    "ct-fp8": {"qspec": [102, 90, 124], "eagle": [480, 4, 124], "copy_breaks": [-1, -1, 11, -1]},
+    "ct-packed-g128": {"qspec": [102, 90, 124], "eagle": [476, 5, 124],
+                       "copy_breaks": [-1, -1, 11, -1]},
+    "gguf-q4_0": {"qspec": [99, 91, 124], "eagle": [480, 4, 124],
+                  "copy_breaks": [-1, -1, 11, -1]}}
+EAGLE_NET = INDUCTION[:-len("induction_lm_v2")] + "induction_eagle_v1.npz"
+
+
+def _w8_trunk_weights(gen, k, n, kind, layers=None):
+    """Per-channel byte weights [K, N] (or [L, K, N]) and scales made on the
+    card by the compressed-tensors writers: int8 or float8_e4m3fn."""
+    from qspec_tpu_torch.model_loader import ct
+    make = ct.make_ct_fp8_tensors if kind == "fp8" else ct.make_ct_int8_tensors
+    ws, ss = [], []
+    for _ in range(layers or 1):
+        t, _ = make(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+        ws.append(t["weight"].t().contiguous())
+        ss.append(t["weight_scale"].reshape(-1).contiguous())
+    if layers is None:
+        return ws[0], ss[0]
+    return torch.stack(ws), torch.stack(ss)
+
+
+def check_w8a16_trunk(gen, report):
+    """matmul_w8a16 over int8 and float8_e4m3fn weights against the plain
+    version at Llama-3-8B's four trunk shapes (a 2-layer stack read in
+    place, M = 4 and 16, bf16 and f32 out) and the fp8 instantiation at the
+    head's (M = 16, f32 out); all 256 e4m3 codes decoded (NaN codes give
+    NaN); a row's bits independent of M (1 to 16) and of its place."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    errs = {"int8": 0.0, "fp8": 0.0}
+    for kind in ("int8", "fp8"):
+        for k, n in W8_TRUNK:
+            qw, qs = _w8_trunk_weights(gen, k, n, kind, layers=2)
+            for m in (4, 16):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+                for li in (0, 1):
+                    for dt in (torch.float32, torch.bfloat16):
+                        out = lk.matmul_w8a16(x, qw, qs, out_dtype=dt, layer_idx=li).float()
+                        ref = lk.matmul_w8a16_ref(x, qw[li], qs[li], out_dtype=dt).float()
+                        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+                        errs[kind] = max(errs[kind], (out - ref).abs().max().item())
+            del qw, qs
+    m, k, n = HEAD_SHAPE
+    qw, qs = _w8_trunk_weights(gen, k, n, "fp8")
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    out = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
+    ref = lk.matmul_w8a16_ref(x, qw, qs, out_dtype=torch.float32)
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    errs["fp8"] = max(errs["fp8"], (out - ref).abs().max().item())
+    del qw, qs, out, ref
+    # every e4m3 code: x = I picks weight row k, so out[k, n] = bf16(w[k, n]);
+    # the NaN codes sit in columns 0..7 only (0 x NaN fills their column)
+    K = N = 256
+    codes = torch.arange(K, dtype=torch.int32, device="cuda")[:, None].expand(K, N).clone()
+    nan_code = (codes == 0x7F) | (codes == 0xFF)
+    codes[nan_code & (torch.arange(N, device="cuda")[None, :] >= 8)] = 0
+    w = codes.to(torch.uint8).view(torch.float8_e4m3fn)
+    out = lk.matmul_w8a16(torch.eye(K, device="cuda").to(torch.bfloat16), w,
+                          torch.ones(N, device="cuda"), out_dtype=torch.float32)
+    if not (torch.equal(out[:, 8:], w.to(torch.float32)[:, 8:]) and out[:, :8].isnan().all()):
+        raise AssertionError("matmul_w8a16 fp8: an e4m3 code decodes wrong")
+    # a row's bits across M and place, at the down projection's shape
+    for kind in ("int8", "fp8"):
+        qw, qs = _w8_trunk_weights(gen, *W8_TRUNK[3], kind)
+        x = torch.randn(16, W8_TRUNK[3][0], generator=gen, device="cuda").to(torch.bfloat16)
+        full = lk.matmul_w8a16(x, qw, qs)
+        same = all(torch.equal(lk.matmul_w8a16(x[:mm].contiguous(), qw, qs), full[:mm])
+                   for mm in range(1, 17))
+        if not (same and torch.equal(lk.matmul_w8a16(x.flip(0).contiguous(), qw, qs),
+                                     full.flip(0))):
+            raise AssertionError(f"matmul_w8a16 {kind}: a row's bits depend on M or place")
+    report["matmul_w8a16"]["trunk_max_err"] = errs["int8"]
+    report["matmul_w8a16_fp8"].update(max_err=errs["fp8"], tol="rtol=atol=2e-2")
+    log(f"check matmul_w8a16 trunk (8B qkv/o/gate_up/down stacked, M=4,16; fp8 head): "
+        f"max_abs_err int8 {errs['int8']:.3g}, fp8 {errs['fp8']:.3g} (tol 2e-2); 256 e4m3 "
+        "codes exact; row bits independent of M, place")
+
+
+def time_w8a16_trunk(gen, report):
+    """One Llama-3-8B layer's four trunk projections at M = 4 and 16, over
+    int8 and fp8 weights: kernel, plain version and, for int8,
+    torch._weight_int8pack_mm (weights [N, K], bf16 scales); fp8 has no one
+    PyTorch call of bf16 x fp8-weight with per-column scales
+    (torch._scaled_mm wants fp8 activations too). Each input set rotated
+    past L2; the bound from the bytes (x, weights, scales, out) and
+    operations of this call."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    wbytes = sum(k * n + 4 * n for k, n in W8_TRUNK)
+    rows = {}
+    for kind in ("int8", "fp8"):
+        rot = Rotating(lambda: [_w8_trunk_weights(gen, k, n, kind) for k, n in W8_TRUNK],
+                       wbytes)
+        rot_t = (Rotating(lambda: [(w.t().contiguous(), s.to(torch.bfloat16)) for w, s in
+                                   (_w8_trunk_weights(gen, k, n, "int8") for k, n in W8_TRUNK)],
+                          wbytes) if kind == "int8" else None)
+        for m in (4, 16):
+            xs = [torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+                  for k, _ in W8_TRUNK]
+            per = []
+            tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if rot_t else None}
+            for i, (k, n) in enumerate(W8_TRUNK):
+                def kern(i=i):
+                    w, s = rot.next()[i]
+                    lk.matmul_w8a16(xs[i], w, s)
+
+                def plain(i=i):
+                    w, s = rot.next()[i]
+                    lk.matmul_w8a16_ref(xs[i], w, s)
+
+                def library(i=i):
+                    w, s = rot_t.next()[i]
+                    torch._weight_int8pack_mm(xs[i], w, s)
+                t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
+                tot["ms"] += t_k
+                tot["plain_ms"] += t_p
+                if rot_t:
+                    tot["library_ms"] += graph_ms(library)
+                per.append(f"{W8_TRUNK_NAMES[i]} {t_k:.4f}")
+            nbytes = sum(m * k * 2 + k * n + 4 * n + m * n * 2 for k, n in W8_TRUNK)
+            b, kind_b = bound_ms(nbytes, sum(2 * m * k * n for k, n in W8_TRUNK), "bf16")
+            r = {**tot, "bound_ms": b, "bound_by": kind_b,
+                 "gb_per_s": nbytes / (tot["ms"] * 1e-3) / 1e9,
+                 "per_projection_ms": per}
+            rows[(kind, m)] = r
+            log(f"time matmul_w8a16 {kind} trunk, one Llama-3-8B layer M={m} ({', '.join(per)} "
+                f"ms; down: {(W8_TRUNK[3][1] + 63) // 64} blocks of 64 columns on "
+                f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs): "
+                f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}"
+                + (f", _weight_int8pack_mm {tot['library_ms']:.4f}" if rot_t else
+                   ", library none") + f", bound {b:.4f} ({kind_b}), "
+                f"{r['gb_per_s']:.0f} GB/s", stdout=False)
+        del rot, rot_t
+        torch.cuda.empty_cache()
+    log("time matmul_w8a16 trunk, one 8B layer, M=4 / 16 ms: " + "; ".join(
+        f"{kind} {rows[(kind, 4)]['ms']:.4f} / {rows[(kind, 16)]['ms']:.4f}"
+        + (f" (_weight_int8pack_mm {rows[(kind, 4)]['library_ms']:.3f} / "
+           f"{rows[(kind, 16)]['library_ms']:.3f})" if kind == "int8" else " (library none)")
+        for kind in ("int8", "fp8"))
+        + f"; bound {rows[('fp8', 4)]['bound_ms']:.4f} / {rows[('fp8', 16)]['bound_ms']:.4f}")
+    shape = "one Llama-3-8B layer's qkv+o+gate_up+down, M=16, bf16 out"
+    report["matmul_w8a16_fp8"].update(
+        {f: rows[("fp8", 16)][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")},
+        shape=shape, m4={f: rows[("fp8", 4)][f] for f in ("ms", "plain_ms", "bound_ms")})
+    report["matmul_w8a16"]["trunk"] = {
+        f"m{m}": {f: rows[("int8", m)][f] for f in ("ms", "plain_ms", "library_ms",
+                                                    "bound_ms", "bound_by")} for m in (4, 16)}
+
+
+def time_w4a16_g32(gen, report, int4pack_missing):
+    """The grouped GEMM at group 32 (GGUF Q4_0's, phase (M4)'s trunk) per
+    Llama-3-8B layer at M = 4 and 16, beside torch._weight_int4pack_mm at
+    the same group size (to the log: the standard output has the g = 128
+    rows)."""
+    library = int4pack_missing is None
+    rows = {}
+    for m in (4, 16):
+        r = _time_w4g_layer(gen, GEMM_SHAPES, m, library, group=32)
+        per = r.pop("per")
+        r.pop("nbytes")
+        rows[f"m{m}"] = r
+        log(f"time matmul_w4a16_g llama3-8b M={m} g=32, one layer: {r['ms']:.4f} ms (per "
+            f"projection {', '.join(per)}), plain {r['plain_ms']:.4f}, library "
+            + (f"{r['library_ms']:.4f}" if library else "none")
+            + f", bound {r['bound_ms']:.4f} ms", stdout=False)
+    report["matmul_w4a16_g"]["g32"] = rows
+
+
+def w8_tally(eng) -> dict:
+    """Wrap ``eng.runner.run_spec_rounds``: the rounds' target (verify) and
+    draft forwards, whose rows always take the W8A16 kernel (the prompt
+    forwards' rectangles take the torch product past BIGM_BYTES)."""
+    runner, inner = eng.runner, eng.runner.run_spec_rounds
+    tally = {"forwards": 0}
+
+    def run(*a, **kw):
+        before = runner.target_forwards + runner.draft_forwards
+        out = inner(*a, **kw)
+        tally["forwards"] += runner.target_forwards + runner.draft_forwards - before
+        return out
+    runner.run_spec_rounds = run
+    return tally
+
+
+def phase_ct_8b(smi: str):
+    """(M1) Llama-3-8B at full width and depth as a compressed-tensors
+    int-quantized checkpoint (per-channel int8, made on the card by
+    make_ct_state_dict from normal(0.02) weights, loaded by
+    load_compressed_tensors), QSpec with the W4A16 draft (a) under
+    draft_kv_window=64 on its ring pool and (b) with no window, each ==
+    qspec_null, exactly CT_KERNELS launched (trunk and head int8), (b)
+    accepting more than half its drafts (its draft is the target's
+    arithmetic); (M2) the same checkpoint as float-quantized fp8, run (a):
+    == qspec_null, exactly CT_FP8_KERNELS, the peak memory printed. The
+    launches are counted exactly: the trunk 4 L a forward of the rounds
+    (w8_tally; the prompt forwards take the torch product), on the fp8
+    counter for (M2), and the int8 head 1 a forward of either model."""
+    from qspec_tpu_torch.config import ModelConfig
+    from qspec_tpu_torch.model_loader.ct import load_compressed_tensors, make_ct_state_dict
+    base = ModelConfig.llama3_8b(quant="w8")
+    L = base.num_layers
+    prompts = e2e_prompts()
+    out = {}
+    for fmt, runs in (("int-quantized", (("M1a", M_WINDOW), ("M1b", None))),
+                      ("float-quantized", (("M2a", M_WINDOW),))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sd = make_ct_state_dict(base, fmt, seed=0, device="cuda")
+        params, cfg = load_compressed_tensors(sd, base, device="cuda")
+        del sd
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        w8 = params["layers"]["qkv"]["w8"]
+        log(f"load (M) llama3-8b compressed-tensors {fmt}: {L} layers, trunk {w8.dtype}, made "
+            f"and loaded on the card in {secs:.1f} s, peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+            stdout=False)
+        fp8 = fmt == "float-quantized"
+        for key, window in runs:
+            label = (f"({key}) llama3-8b compressed-tensors {'fp8' if fp8 else 'int8'} W8A16 "
+                     f"(int8 head, bf16 KV, w4a16 draft, "
+                     + (f"window {window}, ring pool)" if window else "no window)"))
+            tally = []
+            engine = qspec_engine(cfg, params, draft_scheme="w4a16", draft_kv_window=window)
+
+            def make(method, p, engine=engine, tally=tally):
+                eng = engine(method, p)
+                tally.append(w8_tally(eng))
+                return eng
+            spec, launches, opts, summary = spec_vs_oracle(
+                make, label, CT_FP8_KERNELS if fp8 else CT_KERNELS, prompts, 32)
+            summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                           load_s=secs)
+            e2e_log(label, prompts, spec, summary)
+            if (opts["paged_attention"]["window"] > 0) != bool(window):
+                raise AssertionError(f"{label}: {opts['paged_attention']['window']} windowed "
+                                     "attention launches")
+            fw = summary["target_forwards"] + summary["draft_forwards"]
+            trunk = 4 * L * tally[0]["forwards"]
+            want = ({"matmul_w8a16": fw, "matmul_w8a16_fp8": trunk} if fp8 else
+                    {"matmul_w8a16": fw + trunk, "matmul_w8a16_fp8": 0})
+            got = {n: launches[n] for n in want}
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, expected {want} (4 x {L} "
+                                     f"trunk a forward of the rounds' {tally[0]['forwards']}, "
+                                     f"the head 1 a forward of {fw})")
+            summary["round_forwards"] = tally[0]["forwards"]
+            out[key] = (launches, opts, summary)
+        # the engine factories hold the parameters too
+        del params, w8, engine, make
+    acc_b = out["M1b"][2]["acceptance_rate"]
+    if acc_b <= 0.5:
+        raise AssertionError(f"(M1b) compressed-tensors int8, no window: acceptance {acc_b} "
+                             "<= 0.5")
+    log("e2e (M1) llama3-8b ct int8, 32 layers, == qspec_null: (a) window 64 "
+        f"{out['M1a'][2]['spec_tokens_per_s']:.1f} tok/s, accept "
+        f"{out['M1a'][2]['acceptance_rate']:.3f}; (b) {out['M1b'][2]['spec_tokens_per_s']:.1f}, "
+        f"accept {acc_b:.3f}; (M2) fp8 (a) {out['M2a'][2]['spec_tokens_per_s']:.1f}, head / "
+        f"trunk launches {out['M2a'][0]['matmul_w8a16']} / "
+        f"{out['M2a'][0]['matmul_w8a16_fp8']}, peak {out['M2a'][2]['peak_mem_gib']:.2f} GiB")
+    log(f"e2e (M1)/(M2): card {smi}", stdout=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _induction_cfg(device):
+    """induction_lm_v2's ModelConfig and float state dict (tensors on
+    ``device``)."""
+    from qspec_tpu_torch.config import ModelConfig
+    with open(INDUCTION + ".json") as f:
+        meta = json.load(f)["cfg"]
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    cfg = ModelConfig(**{k: v for k, v in meta.items() if k in names})
+    with np.load(INDUCTION + ".npz") as z:
+        sd = {k: torch.as_tensor(z[k]).to(device) for k in z.files}
+    return cfg, sd
+
+
+def gguf_permute(w: torch.Tensor, heads: int) -> torch.Tensor:
+    """llama.cpp's convert_hf_to_gguf permute of q / k rows (HF -> gguf)."""
+    return (w.reshape(heads, 2, w.shape[0] // heads // 2, *w.shape[1:])
+            .transpose(1, 2).reshape(w.shape))
+
+
+def write_llama_gguf(path: str, cfg, sd: dict, embed_type: str = "F32") -> None:
+    """A GGUF file of a Hugging Face-named Llama state dict (tensors on any
+    device) by the port's writers, as llama.cpp's converter lays it out:
+    q / k rows permuted, every trunk projection Q4_0 (model_loader.gguf's
+    torch quantize_q4_0, on the tensors' device), token_embd and output in
+    ``embed_type`` ("F32" or "F16"), the norms F32."""
+    from qspec_tpu_torch.model_loader import gguf as tg
+    blk = {v: k for k, v in tg._BLK_MAP.items()}
+    top = {v: k for k, v in tg._NAME_MAP.items()}
+    flt = {"F32": (tg.GGML_F32, torch.float32), "F16": (tg.GGML_F16, torch.float16)}
+    tensors = {}
+    for name, w in sd.items():
+        ne = list(reversed(w.shape))
+        if name in top:
+            ty, dt = flt["F32" if w.dim() == 1 else embed_type]
+            tensors[top[name]] = (ty, w.to(dt).cpu().numpy(), ne)
+            continue
+        li, rest = name[len("model.layers."):].split(".", 1)
+        if w.dim() == 1:
+            tensors[f"blk.{li}.{blk[rest]}"] = (tg.GGML_F32, w.float().cpu().numpy(), ne)
+            continue
+        heads = (cfg.num_heads if "q_proj" in rest else cfg.num_kv_heads
+                 if "k_proj" in rest else None)
+        w = gguf_permute(w, heads) if heads else w
+        tensors[f"blk.{li}.{blk[rest]}"] = (tg.GGML_Q4_0, tg.quantize_q4_0(w), ne)
+    meta = {"general.architecture": "llama", "llama.embedding_length": cfg.hidden_size,
+            "llama.block_count": cfg.num_layers, "llama.attention.head_count": cfg.num_heads,
+            "llama.attention.head_count_kv": cfg.num_kv_heads,
+            "llama.feed_forward_length": cfg.intermediate_size,
+            "llama.context_length": cfg.max_position_embeddings,
+            "llama.rope.freq_base": float(cfg.rope_theta),
+            "llama.attention.layer_norm_rms_epsilon": float(cfg.rms_norm_eps)}
+    tg.write_gguf(path, meta, tensors)
+
+
+def m3_params(loader: str, device: str):
+    """induction_lm_v2 through one of M3_LOADERS, on ``device``, with the
+    trained induction_eagle_v1 net: ct-int8 / ct-fp8 / ct-packed-g128 (the
+    port's compressed-tensors writers, then load_compressed_tensors), or
+    gguf-q4_0 (write_llama_gguf into a temporary directory, then
+    load_gguf). -> (params, cfg)."""
+    import tempfile
+    from qspec_tpu_torch.model_loader import ct
+    from qspec_tpu_torch.model_loader.gguf import load_gguf
+    from qspec_tpu_torch.spec_decode.eagle import load_eagle
+    cfg, sd = _induction_cfg(device)
+    if loader == "gguf-q4_0":
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "induction_lm_v2.Q4_0.gguf")
+            write_llama_gguf(path, cfg, sd)
+            params, cfg = load_gguf(path, device=device)
+    else:
+        fmt, kw = {"ct-int8": ("int-quantized", {}), "ct-fp8": ("float-quantized", {}),
+                   "ct-packed-g128": ("pack-quantized", {"group_size": 128})}[loader]
+        qsd = {}
+        for name, w in sd.items():
+            if name.endswith("proj.weight"):
+                base = name[:-len(".weight")]
+                for key, val in ct.WRITERS[fmt](w.t().float(), **kw)[0].items():
+                    qsd[f"{base}.{key}"] = val
+            else:
+                qsd[name] = w
+        params, cfg = ct.load_compressed_tensors(qsd, cfg, device=device)
+    params["eagle"] = load_eagle(EAGLE_NET, cfg, device=device)
+    return params, cfg
+
+
+def m3_engine(cfg, params, method: str, device: str):
+    """(M3)'s engines: "qspec" / "qspec_null" with the windowed W4A16 draft
+    (window 64, k = 3), "eagle" (k = 4, 2 rounds a step, the trained-pair
+    card test's settings), "ar" without speculation."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+    spec = (None if method == "ar" else
+            SpeculativeConfig(num_speculative_tokens=4, method="eagle", rounds_per_step=2)
+            if method == "eagle" else
+            SpeculativeConfig(num_speculative_tokens=3, method=method, draft_scheme="w4a16",
+                              draft_kv_window=M_WINDOW))
+    sched = SchedulerConfig(max_num_seqs=4, max_model_len=512, prefill_chunk_size=128,
+                            decode_batch_buckets=(4,), prefill_token_buckets=(128,))
+    return LLMEngine(EngineConfig(model=cfg, cache=CacheConfig(page_size=16), scheduler=sched,
+                                  speculative=spec), params, device=device, seed=0)
+
+
+def m3_prompts(vocab: int):
+    return induction_prompts(4, 128, vocab, seed=13)
+
+
+def copy_breaks(prompts, toks) -> list:
+    """Per prompt, the first generated position where the tokens leave the
+    prompt's periodic copy (-1: never): where a card run and a CPU run
+    part shows here."""
+    out = []
+    for p, t in zip(prompts, toks):
+        period = next(q for q in range(16, 65) if p[q:] == p[:-q])
+        want = [p[(len(p) + i) % period] for i in range(len(t))]
+        out.append(next((i for i, (a, b) in enumerate(zip(t, want)) if a != b), -1))
+    return out
+
+
+# the kernels of each (M3) loader's path: its trunk GEMM, the gamma norm and
+# the bf16 attention; the GGUF file's int8 head (the ct loaders keep
+# induction_lm_v2's bf16 head, a torch product)
+M3_KERNELS = {"ct-int8": {"matmul_w8a16"}, "ct-fp8": {"matmul_w8a16_fp8"},
+              "ct-packed-g128": {"matmul_w4a16_g"},
+              "gguf-q4_0": {"matmul_w4a16_g", "matmul_w8a16"}}
+
+
+def phase_ct_induction(smi: str):
+    """(M3) induction_lm_v2 through the four loaders of M3_LOADERS, each
+    with greedy QSpec (windowed W4A16 draft, k = 3) == qspec_null and EAGLE
+    (induction_eagle_v1, k = 4) == AR, exactly its loader's kernels; the
+    drafted / accepted / emitted counts and the copy breaks printed beside
+    the CPU's (M3_CPU). No acceptance floor: the EAGLE net was trained on
+    the QuaRot basis, which these checkpoints lack."""
+    out, lines = {}, []
+    for loader in M3_LOADERS:
+        params, cfg = m3_params(loader, "cuda")
+        prompts = m3_prompts(cfg.vocab_size)
+        expect = M3_KERNELS[loader] | {"rmsnorm", "paged_attention"}
+        got = {}
+        for method, oracle in (("qspec", "qspec_null"), ("eagle", "ar")):
+            label = f"(M3) induction_lm_v2 {loader} {method}"
+            toks, launches, _, summary = spec_vs_oracle(
+                lambda m, p: m3_engine(cfg, p or params, m, "cuda"), label, expect, prompts,
+                32, methods=(method, oracle))
+            e2e_log(label, prompts, toks, summary)
+            got[method] = summary["drafted_accepted_emitted"]
+            out[f"{loader}_{method}"] = (launches, summary)
+        got["copy_breaks"] = copy_breaks(prompts, toks)
+        cpu = M3_CPU.get(loader, {})
+        lines.append(f"{loader} " + ", ".join(
+            "/".join(map(str, v)) + ("" if cpu.get(k) == v else
+                                     f" (CPU {'/'.join(map(str, cpu.get(k, [])))})")
+            for k, v in got.items()))
+        del params
+        torch.cuda.empty_cache()
+    log("e2e (M3) induction_lm_v2 drafted/accepted/emitted of QSpec (w4a16, window 64, "
+        "k=3), EAGLE (k=4), and copy breaks, each == its oracle, == the CPU's unless "
+        "bracketed: " + "; ".join(lines))
+    log(f"e2e (M3): card {smi}", stdout=False)
+    return out
+
+
+def phase_ct_dirs(smi: str):
+    """(M4) at Llama-3-8B's widths cut to 2 layers: (a) a GGUF Q4_0 file
+    (the port's writers: trunk Q4_0 at g = 32 quantized on the card,
+    token_embd and output F16) read by load_gguf onto the grouped-int4 path,
+    QSpec (windowed W4A16 draft) == qspec_null, exactly W4G_KERNELS, every
+    trunk weight at group 32; (b) a compressed-tensors directory
+    (config.json with its quantization_config, model.safetensors holding
+    F8_E4M3 weights) through LLM(model=<dir>): its tensors load bit for bit
+    to the state-dict route's, its QSpec == qspec_null, and its replies ==
+    LLM(model=<dir>, params=<the state-dict route's>)."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import LLAMA3_8B_HF
+    from qspec_tpu_torch.model_loader.ct import load_compressed_tensors, make_ct_state_dict
+    from qspec_tpu_torch.model_loader.gguf import load_gguf
+    from qspec_tpu_torch.model_loader.grouped import random_state_dict
+    from qspec_tpu_torch.models.registry import resolve
+    hf = {**LLAMA3_8B_HF, "num_hidden_layers": 2}
+    cfg2 = resolve(hf)
+    prompts = e2e_prompts()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        sd = random_state_dict(cfg2, lambda w: {"weight": w.t().contiguous()}, seed=31,
+                               device="cuda")
+        path = os.path.join(d, "llama3-8b-2l.Q4_0.gguf")
+        write_llama_gguf(path, cfg2, sd, embed_type="F16")
+        del sd
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, cfg = load_gguf(path, device="cuda")
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - t0
+        groups = {n: params["layers"][n]["qs_g"].shape[1] for n in ("qkv", "o", "gate_up", "down")}
+        want = {"qkv": 4096 // 32, "o": 4096 // 32, "gate_up": 4096 // 32, "down": 14336 // 32}
+        if cfg.quant != "w4g" or groups != want:
+            raise AssertionError(f"(M4a) GGUF Q4_0: quant {cfg.quant}, groups {groups}")
+        label = "(M4a) llama3-8b 2 layers GGUF Q4_0 (g=32, int8 head, w4a16 draft, window 64)"
+        spec, launches, _, summary = spec_vs_oracle(
+            qspec_engine(cfg, params, draft_scheme="w4a16", draft_kv_window=M_WINDOW), label,
+            W4G_KERNELS, prompts, 32)
+        summary.update(write_s=t_w, load_s=t_r, file_gb=os.path.getsize(path) / 1e9)
+        e2e_log(label, prompts, spec, summary)
+        out["M4a"] = (launches, summary)
+        os.remove(path)
+        del params
+        torch.cuda.empty_cache()
+
+        ctdir = os.path.join(d, "ct")
+        os.makedirs(ctdir)
+        cfg_ct = dataclasses.replace(cfg2, quant="w8")
+        sd = make_ct_state_dict(cfg_ct, "float-quantized", seed=32, device="cuda")
+        write_config(ctdir, {**hf, "quantization_config": {
+            "quant_method": "compressed-tensors", "format": "float-quantized",
+            "config_groups": {"group_0": {"targets": ["Linear"], "weights": {
+                "num_bits": 8, "type": "float", "strategy": "channel", "symmetric": True}}},
+            "ignore": ["lm_head"]}})
+        t0 = time.perf_counter()
+        write_safetensors(os.path.join(ctdir, "model.safetensors"), sd)
+        t_w = time.perf_counter() - t0
+        own, _ = load_compressed_tensors(sd, cfg_ct, device="cuda")
+        del sd
+        kw = dict(device="cuda", num_speculative_tokens=3, speculative_draft_scheme="w4a16",
+                  spec_draft_kv_window=M_WINDOW, max_model_len=512, max_num_seqs=4,
+                  block_size=128, seed=0)
+        held = {}
+
+        def make(m, p):
+            t0 = time.perf_counter()
+            llm = LLM(model=ctdir, params=p, speculative_method=m, **kw)
+            if p is None:
+                held.update(params=llm.llm_engine.runner.params, load_s=time.perf_counter() - t0,
+                            quant=llm.engine_config.model.quant)
+            return llm.llm_engine
+        label = "(M4b) llama3-8b 2 layers compressed-tensors fp8 dir, LLM(model=<dir>)"
+        spec, launches, _, summary = spec_vs_oracle(make, label, CT_FP8_KERNELS, prompts, 32)
+        summary.update(write_s=t_w, load_s=held["load_s"])
+        e2e_log(label, prompts, spec, summary)
+
+        def raw(t):
+            return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+        if held["quant"] != "w8" or not all(
+                torch.equal(raw(held["params"]["layers"][n][k]), raw(own["layers"][n][k]))
+                for n in ("qkv", "o", "gate_up", "down") for k in ("w8", "s8")):
+            raise AssertionError("(M4b) the directory's tensors differ from the state dict's")
+        del held
+        sd_route = generate(LLM(model=ctdir, params=own, **kw).llm_engine, prompts, 32)
+        if sd_route != spec:
+            raise AssertionError("(M4b) LLM(model=<dir>) replies differ from the state-dict "
+                                 "route's")
+        out["M4b"] = (launches, summary)
+        del own
+    log(f"e2e (M4) 8B widths, 2 layers, == qspec_null: (a) GGUF Q4_0 g=32, "
+        f"{out['M4a'][1]['file_gb']:.2f} GB written {out['M4a'][1]['write_s']:.1f} s, loaded "
+        f"{out['M4a'][1]['load_s']:.1f} s; (b) ct fp8 dir, LLM(model=<dir>) "
+        f"{out['M4b'][1]['load_s']:.1f} s, tensors and replies == the state-dict route's")
+    log(f"e2e (M4): card {smi}", stdout=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -5865,6 +6485,9 @@ KERNEL_META = {
                         ":131-139,188-194, ALiBi :175-182)"),
     "matmul_w8a16": ("qspec_tpu_torch/csrc/w8a16.cu",
                      "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel)"),
+    "matmul_w8a16_fp8": ("qspec_tpu_torch/csrc/w8a16.cu",
+                         "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel over "
+                         "float8_e4m3fn weights; pallas_call :596, stacked :615)"),
     "matmul_w4a16_g": ("qspec_tpu_torch/csrc/w4a16_g.cu",
                        "qspec_tpu/ops/linear_kernels.py:372 (_w4a16_g_kernel; stacked "
                        "_stacked_g_kernel, :402)"),
@@ -5886,7 +6509,9 @@ def main():
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     _LOG.append(open(os.path.join(out_dir, "chip_smoke.log"), "w"))
+    step("start")
     phase_build()
+    step("build")
     gen = torch.Generator(device="cuda").manual_seed(0)
     gen_w4 = torch.Generator(device="cuda").manual_seed(1)
     report = {name: {} for name in (*KERNEL_META, *KV8_META)}
@@ -5894,6 +6519,7 @@ def main():
     check_w4a16_g(gen, report)
     int4pack_missing = check_int4pack(gen)
     check_w8a16(gen, report)
+    check_w8a16_trunk(torch.Generator(device="cuda").manual_seed(8), report)
     check_norms(gen, report)
     check_norms_fused(report)
     check_attention(gen, report)
@@ -5903,6 +6529,7 @@ def main():
     check_attention_tree(gen, report)
     check_attention_tree_main(gen, report)
     check_attention_alibi(gen, report)
+    step("kernel checks")
     time_kernels(gen, gen_w4, report, int4pack_missing)
     time_w4a16_g(gen, report, int4pack_missing)
     time_attention_window(gen, report)
@@ -5911,6 +6538,9 @@ def main():
     time_attention_tree(gen, report)
     time_attention_alibi(gen, report)
     time_bloom_projections(gen)
+    time_w8a16_trunk(torch.Generator(device="cuda").manual_seed(9), report)
+    time_w4a16_g32(torch.Generator(device="cuda").manual_seed(10), report, int4pack_missing)
+    step("kernel times")
     phase_small_reference("bf16", "bfloat16")
     phase_small_reference("auto", "int8")
     phase_small_reference("auto", "bfloat16", quant="w4g")
@@ -5920,24 +6550,39 @@ def main():
           "KVs, w4g, gemma2, bloom): each within its tolerance vs the CPU (the log has "
           "each)", flush=True)
     tiny = phase_tiny_end_to_end()
+    step("tiny")
     first, default = phase_end_to_end(smi)
+    step("llama3-8b")
     awq = phase_grouped_8b("llama3-8b", smi)
+    step("awq")
     gemma = phase_grouped_8b("gemma2-9b", smi)
+    step("gemma2")
     medusa = phase_medusa_8b(smi)
+    step("medusa")
     bloom = phase_bloom_7b1(smi)
+    step("bloom")
     mpt = phase_mpt_dir(smi)
+    step("mpt")
     params8, cfg8, quarot = phase_quarot_float_8b(smi)
+    step("A")
     draft = phase_draft_1b(params8, cfg8, smi)
+    step("B")
     forced = phase_forced_8b(params8, cfg8, smi)
+    step("C")
     dirs = phase_llama_dirs(params8, cfg8, smi)
+    step("D")
     server = phase_server_8b(params8, cfg8, smi)
+    step("F")
     guided = phase_guided_8b(params8, cfg8, smi)
+    step("I")
     # (L) the engine surface: LoRA, swap, soft prompts, beam search, the
     # LoRA routes, on (A)'s parameters against (A)'s W4A8 tokens
     surface = phase_engine_surface_8b(params8, cfg8, quarot["w4a8"][2], smi)
+    step("L")
     del params8
     torch.cuda.empty_cache()
     proposers = phase_proposers_8b(smi)
+    step("E")
     # (G) the sparse-MoE MLP, with the 8B phases' parameters released
     gc.collect()
     torch.cuda.empty_cache()
@@ -5945,8 +6590,11 @@ def main():
     gen_moe = torch.Generator(device="cuda").manual_seed(2)
     check_moe_shapes(gen_moe, report)
     time_moe_shapes(gen_moe, report, int4pack_missing)
+    step("G shapes")
     moe = {"G1": phase_moe_mixtral(smi), "G2": phase_moe_qwen15(smi)}
+    step("G1 G2")
     moe_dirs = phase_moe_dirs(smi)
+    step("G3")
     log(f"(G) took {time.perf_counter() - t_moe:.1f} s")
     # (H) the dense families, with the MoE phases' parameters released
     gc.collect()
@@ -5955,9 +6603,13 @@ def main():
     gen_dense = torch.Generator(device="cuda").manual_seed(4)
     check_dense_shapes(gen_dense, report)
     time_dense_shapes(gen_dense, report, int4pack_missing)
+    step("H shapes")
     qwen2 = phase_qwen2_7b(smi)
+    step("H1")
     dense_dirs, kept = phase_dense_dirs(smi)
+    step("H2")
     quarot_dirs = phase_quarot_dirs(kept, smi)
+    step("H3")
     del kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -5967,9 +6619,13 @@ def main():
     gen_remap = torch.Generator(device="cuda").manual_seed(5)
     check_remap_shapes(gen_remap, report)
     time_remap_shapes(gen_remap, report, int4pack_missing)
+    step("J shapes")
     internlm2, internlm2_load = phase_internlm2_7b(smi)
+    step("J1")
     remap_dirs = phase_remap_dirs(smi)
+    step("J2")
     float_dirs = phase_float_dirs(smi)
+    step("J3")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"(J) took {time.perf_counter() - t_remap:.1f} s")
@@ -5979,15 +6635,37 @@ def main():
     gen_k = torch.Generator(device="cuda").manual_seed(6)
     check_k_shapes(gen_k, report)
     time_k_shapes(gen_k, report)
+    step("K shapes")
     gptj = phase_gptj_6b(smi)
+    step("K1")
     k_dirs = phase_k_dirs(smi)
+    step("K2")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"(K) took {time.perf_counter() - t_k:.1f} s")
+    # (M) compressed-tensors and GGUF checkpoints: the W8A16 trunk (int8 and
+    # fp8), the trained pair through four loaders, a GGUF file and a
+    # compressed-tensors directory
+    t_m = time.perf_counter()
+    ct8b = phase_ct_8b(smi)
+    step("M1 M2")
+    ct_ind = phase_ct_induction(smi)
+    step("M3")
+    ct_dirs = phase_ct_dirs(smi)
+    step("M4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(M) took {time.perf_counter() - t_m:.1f} s")
     log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
         "BLOOM-7B1, MPT, (A)-(E), the MoE (G), the dense families (H), the remap and float "
-        "families (J), the gptj-rope families (K)), each greedy == its oracle; "
+        "families (J), the gptj-rope families (K), compressed-tensors and GGUF (M)), each "
+        "greedy == its oracle; "
         "chip_smoke.log has each run's line")
+    # each kernel's launches in (M)'s paths: (M1) a / b, (M2) a, (M3) each
+    # loader's QSpec and EAGLE, (M4) a / b
+    ct_paths = {k: r[0] for k, r in ct8b.items()}
+    ct_paths.update({f"M3_{k}": r[0] for k, r in ct_ind.items()})
+    ct_paths.update({k: r[0] for k, r in ct_dirs.items()})
     # each kernel's launches in (K)'s paths: (K1) GPT-J-6B, (K2) each directory
     k_paths = {"K1": gptj[0], **{f"K2_{n}": r[0] for n, r in k_dirs.items()}}
     # each kernel's launches in (J)'s paths: (J1) InternLM2.5-7B at W4A4 and
@@ -6044,6 +6722,9 @@ def main():
             n_launch, where = awq["a"][0][name], "llama3-8b AWQ, w4a16 draft, window 64"
             extra = {key: r[key] for key in ("m4_draft", "gemma2_9b", "library_note") if key in r}
             extra["gemma2_tree_launches"] = gemma["tree"][0][name]
+        elif name == "matmul_w8a16_fp8":
+            n_launch, where = ct8b["M2a"][0][name], "llama3-8b ct fp8, w4a16 draft, window 64"
+            extra["m4"] = r["m4"]
         elif name.startswith("paged_attention_fp8"):
             dt = name.split("_", 2)[2]
             n_launch, where = tiny[dt][name], f"tiny, int8 head, {dt} KV, w4a4 draft"
@@ -6091,6 +6772,12 @@ def main():
             extra["remap_launches"] = remap_launch
         if name == "matmul_w4a16":
             extra["internlm2_load"] = {k: float(f"{v:.4g}") for k, v in internlm2_load.items()}
+        ct_launch = {k: v[name] for k, v in ct_paths.items() if v.get(name)}
+        if ct_launch:
+            extra["ct_launches"] = ct_launch
+        for key in ("trunk", "trunk_max_err", "g32"):
+            if key in r:
+                extra[key] = r[key]
         k_launch = {k: v[name] for k, v in k_paths.items() if v.get(name)}
         if k_launch:
             extra["k_launches"] = k_launch
@@ -6103,7 +6790,9 @@ def main():
             "tol": r["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], **extra})
+    step("kernels line")
     log(f"wall: {time.perf_counter() - t_start:.1f} s")
+    log("steps (s): " + json.dumps(_STEPS, separators=(",", ":")), stdout=False)
     # every field to the log; to the standard output, which a runner may
     # keep only the end of, each kernel's summary fields
     log(json.dumps({"kernels": kernels}, separators=(",", ":")), stdout=False)

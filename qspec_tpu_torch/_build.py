@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
 Each source under ``csrc/`` is compiled for ``sm_90a`` by an ``nvcc`` process
-of its own, all started together, and one more ``nvcc`` call links the
+of its own (``paged_attention.cu`` by four, one per KV entry type: see
+``VARIANTS``), all started together, and one more ``nvcc`` call links the
 objects into a shared library with a plain ``extern "C"`` interface, loaded
 with ``ctypes``. Nothing includes PyTorch's headers, so the build takes
-seconds; its wall time is that of the slowest source.
+seconds; its wall time is that of the slowest object.
 The library lands in ``_build/<hash>/libqspec_kernels.so``, keyed by a hash of
 the sources and flags, and is built at the first kernel launch of a process.
 
@@ -31,6 +32,10 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("w4.cu", "w4a16_g.cu", "w8a16.cu", "rmsnorm.cu", "paged_attention.cu")
+# the sources compiled more than once, each time with other macros (one
+# object each): the attention kernel once per KV entry type, its slowest
+# source split four ways
+VARIANTS = {"paged_attention.cu": tuple(f"-DQSPEC_ATTN_KV={k}" for k in range(4))}
 # seconds the build may take before it is abandoned (a hung compiler would
 # otherwise hang the first kernel launch)
 NVCC_TIMEOUT_S = 300
@@ -45,6 +50,7 @@ SIGNATURES = {
     "qspec_w4a16_g": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "qspec_w4a4": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qspec_w8a16_fp8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "qspec_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     "qspec_rmsnorm_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     "qspec_norm_launch_floor": (_I, _I, _P),
@@ -93,11 +99,22 @@ def _ptxas_summary(log: str) -> dict:
     return out
 
 
+def units() -> dict:
+    """Every object of the build: name -> (source, its extra flags)."""
+    out = {}
+    for s in SOURCES:
+        for flag in VARIANTS.get(s, ("",)):
+            name = f"{s}[{flag.rsplit('=', 1)[1]}]" if flag else s
+            out[name] = (s, (flag,) if flag else ())
+    return out
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(VARIANTS.items())).encode())
     return BUILD_DIR / h.hexdigest()[:16] / "libqspec_kernels.so"
 
 
@@ -136,14 +153,14 @@ def build() -> Path:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
-    objs = {s: path.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES}
+    objs = {u: path.with_name(re.sub(r"\W", "_", u) + f".{tag}.o") for u in units()}
     tmp = path.with_name(f"{path.name}.{tag}")
     nvcc = _nvcc()
     t0 = time.perf_counter()
     deadline = t0 + NVCC_TIMEOUT_S
     try:
-        compiled = _run_all({s: [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
-                             for s, o in objs.items()}, deadline)
+        compiled = _run_all({u: [nvcc, *NVCC_FLAGS, *f, "-c", "-o", str(objs[u]), str(CSRC / s)]
+                             for u, (s, f) in units().items()}, deadline)
         _run_all({"link": [nvcc, *ARCH, "-shared", "-o", str(tmp),
                            *(str(o) for o in objs.values())]}, deadline)
         os.replace(tmp, path)

@@ -77,8 +77,13 @@ class ModelConfig:
     # quantization of the stored checkpoint:
     # "w4"   QuaRot packed int4, per-channel symmetric (dual-scheme QSpec);
     #        weightless norms, Hadamard rotations
-    # "w4g"  grouped asymmetric int4 (AWQ / GPTQ, model_loader/grouped.py);
-    #        gamma norms, no rotations, W4A16 only
+    # "w4g"  grouped asymmetric int4 (AWQ / GPTQ / compressed-tensors
+    #        pack-quantized / GGUF Q4_0, model_loader/grouped.py); gamma
+    #        norms, no rotations, W4A16 only
+    # "w8"   per-channel byte weights, int8 or float8_e4m3fn
+    #        (compressed-tensors int-quantized / float-quantized,
+    #        model_loader/ct.py), W8A16: gamma norms, no rotations, its
+    #        verify and draft run the W4A16 scheme's slot
     # "none" bf16 weights (the float families: BLOOM, MPT), the bf16 scheme
     quant: str = "w4"
     # vocab-projection weight dtype; "auto" = int8 for quantized checkpoints
@@ -154,7 +159,7 @@ class ModelConfig:
     routed_scaling_factor: float = 1.0
 
     def __post_init__(self):
-        allowed = (("quant", ("w4", "w4g", "none")),
+        allowed = (("quant", ("w4", "w4g", "w8", "none")),
                    ("arch", ("llama", "qwen2", "qwen3", "gemma", "granite", "gemma2",
                              "bloom", "mpt", "mixtral", "qwen2moe", "qwen3moe",
                              "deepseek", "falcon", "jais", *REMAP_ARCHS, "gptj",

@@ -123,6 +123,16 @@
 // slopes are one [Hq] f32 array per model, read once per lane and row; the
 // bias of a masked token is never used, and padded rows (r >= G) carry slope 0
 // and see nothing, as without it.
+//
+// The file is compiled once per KV entry type, with -DQSPEC_ATTN_KV=k (0
+// bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2), so that the four objects build in
+// parallel (_build.py): object k holds that type's instantiations behind
+// qspec_paged_attention_kv<k>, and object 0 also the entry point, which picks
+// the object by the entry type.
+
+#ifndef QSPEC_ATTN_KV
+#error "compile with -DQSPEC_ATTN_KV=0, 1, 2 or 3 (one object per KV entry type)"
+#endif
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -911,25 +921,44 @@ int launch_dim(int head_dim, const AttnArgs& a) {
   }
 }
 
-// every instantiation with (kTree) or without the tree mask, with (kAlibi)
-// or without ALiBi, by entry type: 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
-template <bool kTree, bool kAlibi>
-int dispatch(int kv_dtype, int head_dim, const AttnArgs& a) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_dim<__nv_bfloat16, false, kTree, kAlibi>(head_dim, a);
-    case 1:
-      return launch_dim<int8_t, true, kTree, kAlibi>(head_dim, a);
-    case 2:
-      return launch_dim<__nv_fp8_e4m3, true, kTree, kAlibi>(head_dim, a);
-    case 3:
-      return launch_dim<__nv_fp8_e5m2, false, kTree, kAlibi>(head_dim, a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+// this object's KV entry type (its scales: int8 and fp8_e4m3)
+#if QSPEC_ATTN_KV == 0
+using KvT = __nv_bfloat16;
+constexpr bool kKvScaled = false;
+#elif QSPEC_ATTN_KV == 1
+using KvT = int8_t;
+constexpr bool kKvScaled = true;
+#elif QSPEC_ATTN_KV == 2
+using KvT = __nv_fp8_e4m3;
+constexpr bool kKvScaled = true;
+#elif QSPEC_ATTN_KV == 3
+using KvT = __nv_fp8_e5m2;
+constexpr bool kKvScaled = false;
+#else
+#error "QSPEC_ATTN_KV is 0, 1, 2 or 3"
+#endif
 
 }  // namespace
+
+#define QSPEC_CAT2(a, b) a##b
+#define QSPEC_CAT(a, b) QSPEC_CAT2(a, b)
+
+// every instantiation of this object's entry type: with (tree) or without
+// the tree mask, with (alibi) or without ALiBi; args points to the entry
+// point's AttnArgs (every object compiles the same struct from this file)
+extern "C" int QSPEC_CAT(qspec_paged_attention_kv, QSPEC_ATTN_KV)(int tree, int alibi,
+                                                                  int head_dim,
+                                                                  const void* args) {
+  const AttnArgs& a = *static_cast<const AttnArgs*>(args);
+  if (alibi) return launch_dim<KvT, kKvScaled, false, true>(head_dim, a);
+  if (tree) return launch_dim<KvT, kKvScaled, true, false>(head_dim, a);
+  return launch_dim<KvT, kKvScaled, false, false>(head_dim, a);
+}
+
+#if QSPEC_ATTN_KV == 0
+extern "C" int qspec_paged_attention_kv1(int tree, int alibi, int head_dim, const void* args);
+extern "C" int qspec_paged_attention_kv2(int tree, int alibi, int head_dim, const void* args);
+extern "C" int qspec_paged_attention_kv3(int tree, int alibi, int head_dim, const void* args);
 
 // q [B, Q, Hq, D] bf16, D = head_dim in {128, 256}; kv = the layer's
 // [P, 2, Hkv, S, D] pages of kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3,
@@ -979,10 +1008,12 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
                  static_cast<const unsigned long long*>(tree_anc), tree_prefix,
                  static_cast<const float*>(alibi)};
   const AttnArgs a{p, B, tiles, static_cast<cudaStream_t>(stream)};
-  if (alibi != nullptr) {
-    if (tree_anc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch<false, true>(kv_dtype, head_dim, a);
-  }
-  if (tree_anc != nullptr) return dispatch<true, false>(kv_dtype, head_dim, a);
-  return dispatch<false, false>(kv_dtype, head_dim, a);
+  if (alibi != nullptr && tree_anc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // the object of each entry type: 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
+  int (*const parts[4])(int, int, int, const void*) = {
+      qspec_paged_attention_kv0, qspec_paged_attention_kv1, qspec_paged_attention_kv2,
+      qspec_paged_attention_kv3};
+  if (kv_dtype < 0 || kv_dtype > 3) return static_cast<int>(cudaErrorInvalidValue);
+  return parts[kv_dtype](tree_anc != nullptr, alibi != nullptr, head_dim, &a);
 }
+#endif

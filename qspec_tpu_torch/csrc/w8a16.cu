@@ -1,17 +1,22 @@
-// W8A16 GEMM for Hopper: bf16 activations x int8 weights (the int8 lm_head).
+// W8A16 GEMM for Hopper: bf16 activations x byte weights, int8 (the int8
+// lm_head, the W8A16 trunk of compressed-tensors int-quantized checkpoints)
+// or float8_e4m3fn (the trunk of float-quantized / fbgemm_fp8 ones).
 //
 // Replaces the TPU kernel qspec_tpu/ops/linear_kernels.py:_w8a16_kernel
-// (entry point matmul_w8a16, plain and layer-stacked forms).
+// (entry point matmul_w8a16, plain and layer-stacked forms), which widens
+// either byte type to bf16 in VMEM.
 //
-//   out[m, n] = (sum_k x[m, k] * w[k, n]) * s[n]
+//   out[m, n] = (sum_k x[m, k] * bf16(w[k, n])) * s[n]
 //
-// x bf16 [M, K]; w int8 [K, N] row-major; s f32 [N]; f32 accumulation;
-// out bf16 or f32 [M, N].
+// x bf16 [M, K]; w int8 or e4m3 [K, N] row-major; s f32 [N]; f32
+// accumulation; out bf16 or f32 [M, N].
 //
-// What bounds it on the H100: at the head's widths (M <= 16) the weights
-// are nearly all of the bytes (K*N, 525 MB for Llama-3's 128256-word vocab)
-// and each weight byte is used for 2*M operations, far under the card's
-// ~295 op/byte ridge, so the kernel is bound by device-memory bytes.
+// What bounds it on the H100: at decode and verify widths (M <= 16) the
+// weights are nearly all of the bytes (K*N: 525 MB for Llama-3's
+// 128256-word head, 218 MB for one Llama-3-8B layer's four trunk
+// projections) and each weight byte is used for 2*M operations, far under
+// the card's ~295 op/byte ridge, so the kernel is bound by device-memory
+// bytes.
 //
 // What the design does about that: each block owns a 64-column stripe of the
 // output for one 16-row M tile, so while M <= 16 every weight byte is read
@@ -24,14 +29,20 @@
 // fragment slots (2t, 2t+1, 2t+8, 2t+9 <- rows 4t .. 4t+3) and the columns
 // onto the n8 tiles (tile j, fragment column c <- column 8c + j) such that
 // those bytes are exactly the thread's B fragments of 8 tiles: no shuffles,
-// no shared memory on the way in. An int8 becomes an exact f32 through the
-// 2^23 bias (its byte, sign bit flipped, is the low mantissa byte of
-// 0x4B000000), then a bf16 pair (exact: |v| <= 128). The 8 warps' partial
-// sums are added in a fixed order in shared memory: a row's result does not
-// depend on M, on its place in the batch or on the other rows (the greedy
-// spec == AR invariant needs that).
+// no shared memory on the way in. Only the byte -> bf16 decode differs
+// between the two weight types, both exact:
+//  - int8: the 2^23 bias (the byte, sign bit flipped, is the low mantissa
+//    byte of 0x4B000000), then a bf16 pair (|v| <= 128);
+//  - e4m3: a row pair's bytes side by side, cvt.rn.f16x2.e4m3x2 (sm_89+),
+//    then f16 -> f32 -> bf16. Every e4m3 value, subnormals down to 2^-9
+//    included, is an f16 and a bf16 value; the NaN codes 0x7F / 0xFF stay
+//    NaN (e4m3fn has no infinity), so a NaN weight gives a NaN output.
+// The 8 warps' partial sums are added in a fixed order in shared memory: a
+// row's result does not depend on M, on its place in the batch or on the
+// other rows (the greedy spec == AR invariant needs that).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,6 +65,24 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The bf16 pair (lo <- word a's byte, hi <- word b's byte) of one column in
+// two weight rows. int8: a and b hold the bytes with their sign bits
+// flipped (v + 128). e4m3: the raw bytes.
+template <bool kFp8>
+__device__ __forceinline__ uint32_t decode_pair(uint32_t a, uint32_t b, int byte) {
+  if constexpr (kFp8) {
+    const uint32_t pair = __byte_perm(a, b, byte | ((4 + byte) << 4));
+    uint32_t h2;
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n"
+        : "=r"(h2) : "h"(static_cast<unsigned short>(pair)));
+    const __half2 h = *reinterpret_cast<const __half2*>(&h2);
+    const float2 f = __half22float2(h);
+    return pack_bf16x2(f.x, f.y);
+  } else {
+    return pack_bf16x2(i8f(a, byte), i8f(b, byte));
+  }
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint32_t b0, uint32_t b1) {
@@ -69,9 +98,10 @@ __device__ __forceinline__ uint2 load8(const void* p, bool ok) {
   return __ldg(reinterpret_cast<const uint2*>(p));
 }
 
+template <bool kFp8>
 __global__ void __launch_bounds__(kWarps * 32)
 w8a16_kernel(const __nv_bfloat16* __restrict__ x,
-             const int8_t* __restrict__ w, const float* __restrict__ s,
+             const uint8_t* __restrict__ w, const float* __restrict__ s,
              void* __restrict__ out, int M, int K, int N, int out_f32) {
   __shared__ float red[kWarps][kRows][kCols];
 
@@ -89,7 +119,7 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,
   const __nv_bfloat16* x_hi = x + (size_t)(m0 + g + 8) * K;
   const int col = n_base + 8 * g;     // this thread's 8 weight columns
   const bool col_ok = col < N;        // N % 8 == 0: all 8 or none
-  const int8_t* w_col = w + col;
+  const uint8_t* w_col = w + col;
 
   float acc[kNT][4];
 #pragma unroll
@@ -114,11 +144,12 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (c0 + u * kWarps >= nchunks) break;   // warp-uniform
+      const uint32_t flip = kFp8 ? 0u : 0x80808080u;
       uint32_t wb[4][2];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        wb[r][0] = wv[u][r].x ^ 0x80808080u;
-        wb[r][1] = wv[u][r].y ^ 0x80808080u;
+        wb[r][0] = wv[u][r].x ^ flip;
+        wb[r][1] = wv[u][r].y ^ flip;
       }
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
@@ -126,8 +157,8 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,
         const int byte = j & 3;
         // slots 2t, 2t+1 <- rows 4t, 4t+1; slots 2t+8, 2t+9 <- rows 4t+2, 4t+3
         mma_bf16(acc[j], xa[u][0].x, xa[u][1].x, xa[u][0].y, xa[u][1].y,
-                 pack_bf16x2(i8f(wb[0][h], byte), i8f(wb[1][h], byte)),
-                 pack_bf16x2(i8f(wb[2][h], byte), i8f(wb[3][h], byte)));
+                 decode_pair<kFp8>(wb[0][h], wb[1][h], byte),
+                 decode_pair<kFp8>(wb[2][h], wb[3][h], byte));
       }
     }
   }
@@ -160,16 +191,29 @@ w8a16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+template <bool kFp8>
+int launch(const void* x, const void* w, const void* s, void* out, int M, int K,
+           int N, int out_f32, void* stream) {
+  dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows);
+  w8a16_kernel<kFp8><<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(s), out, M, K, N, out_f32);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x bf16 [M, K], w int8 [K, N], s f32 [N], out [M, N] (bf16, or f32 when
-// out_f32). K % 16 == 0, N % 8 == 0; pointers 16-byte aligned.
+// x bf16 [M, K], w int8 [K, N] (qspec_w8a16) or float8_e4m3fn [K, N]
+// (qspec_w8a16_fp8), s f32 [N], out [M, N] (bf16, or f32 when out_f32).
+// K % 16 == 0, N % 8 == 0; pointers 16-byte aligned.
 extern "C" int qspec_w8a16(const void* x, const void* w, const void* s,
                            void* out, int M, int K, int N, int out_f32,
                            void* stream) {
-  dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows);
-  w8a16_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), out, M, K, N, out_f32);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, w, s, out, M, K, N, out_f32, stream);
+}
+
+extern "C" int qspec_w8a16_fp8(const void* x, const void* w, const void* s,
+                               void* out, int M, int K, int N, int out_f32,
+                               void* stream) {
+  return launch<true>(x, w, s, out, M, K, N, out_f32, stream);
 }

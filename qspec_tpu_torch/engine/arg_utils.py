@@ -16,8 +16,11 @@ BLOOM, an MPT, a Falcon, a JAIS, a Baichuan-13B, a GPT-J, a GPT-NeoX, a Phi,
 a StableLM or a Cohere is served as). A directory whose config.json names an AWQ or GPTQ
 ``quantization_config.quant_method`` is a w4g checkpoint whatever
 ``quantization`` says, as in the JAX package (a ``quantization`` naming the
-other method raises); any other method (compressed-tensors, ...) and a
-GGUF file raise, naming ROADMAP queue 1 item 8. ``speculative_model=
+other method raises); a ``compressed-tensors`` one is w4g
+(``pack-quantized``) or w8 (``int-quantized``, ``float-quantized``), the
+quant its loader (``model_loader.ct``) settles; any other method raises. A
+GGUF file raises here, naming its way in: ``model_loader.gguf.load_gguf``
+then ``LLMEngine``, as in the JAX package. ``speculative_model=
 "[medusa]"`` (heads in ``params["medusa"]``) selects Medusa, ``spec_medusa_tree`` its candidate
 tree; ``"[mlp_speculator]"`` (``params["mlp_spec"]``) MLPSpeculator,
 ``"[eagle]"`` (``params["eagle"]``) EAGLE; a proposer net's ``.npz``
@@ -40,7 +43,7 @@ import numpy as np
 
 from qspec_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
                                     SchedulerConfig, SpeculativeConfig)
-from qspec_tpu_torch.model_loader.loader import config_from_hf_dir, quant_method_of
+from qspec_tpu_torch.model_loader.loader import config_from_hf_dir, quantization_config_of
 from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE
 
 PRESETS = {"llama3-8b": ModelConfig.llama3_8b, "llama3-70b": ModelConfig.llama3_70b,
@@ -147,20 +150,26 @@ class EngineArgs:
                                       f"{sorted(map(str, QUANT))} are ported")
         quant = QUANT[self.quantization]
         if self.model.endswith(".gguf"):
-            raise NotImplementedError(f"model {self.model!r}: GGUF checkpoints are not "
-                                      "ported (ROADMAP queue 1 item 8)")
+            raise NotImplementedError(
+                f"model {self.model!r}: a GGUF file is not a model for EngineArgs / LLM, "
+                "as in the JAX package: load it with "
+                "qspec_tpu_torch.model_loader.gguf.load_gguf(path) -> (params, cfg), then "
+                "LLMEngine(EngineConfig(model=cfg, ...), params)")
         if os.path.isdir(self.model):
-            method = quant_method_of(self.model)
-            if method in ("awq", "gptq"):
+            qconfig = quantization_config_of(self.model)
+            method = qconfig.get("quant_method")
+            if method in ("awq", "gptq", "compressed-tensors"):
                 if self.quantization in ("awq", "gptq") and self.quantization != method:
                     raise ValueError(f"quantization={self.quantization!r}, but "
                                      f"{self.model}'s quantization_config names {method!r}")
-                quant = "w4g"
+                # a compressed-tensors format other than pack-quantized is w8;
+                # without a format its loader sniffs the tensors and settles it
+                quant = ("w8" if method == "compressed-tensors"
+                         and qconfig.get("format") != "pack-quantized" else "w4g")
             elif method is not None:
                 raise NotImplementedError(
                     f"{self.model}: quantization_config.quant_method {method!r} is not "
-                    "ported (ROADMAP queue 1 item 8: compressed-tensors, GGUF); AWQ and "
-                    "GPTQ directories are")
+                    "ported; AWQ, GPTQ and compressed-tensors directories are")
             elif quant == "w4g":
                 raise ValueError(f"quantization={self.quantization!r}, but {self.model}'s "
                                  "config.json has no AWQ / GPTQ quantization_config")

@@ -838,11 +838,12 @@ def _check_eagle(cfg, params) -> None:
     if "eagle" not in params:
         raise ValueError("speculative.method='eagle' but params carry no 'eagle' draft "
                          "net (load it with spec_decode.eagle.load_eagle)")
-    if cfg.arch != "llama" or cfg.quant not in ("w4", "none"):
+    if cfg.arch != "llama" or cfg.quant not in ("w4", "w4g", "w8", "none"):
         raise NotImplementedError(
-            f"EAGLE on an {cfg.arch} quant={cfg.quant!r} target is not ported: its draft "
-            "layer serves Llama targets, QuaRot (quant='w4') or bf16 ('none'); an AWQ / "
-            "GPTQ (w4g) target waits")
+            f"EAGLE on an {cfg.arch} quant={cfg.quant!r} target is not ported (ROADMAP "
+            "queue 1 item 7): its draft layer serves Llama targets, QuaRot (quant='w4'), "
+            "weight-only int4 / int8 / fp8 (AWQ, GPTQ, compressed-tensors, GGUF Q4_0: "
+            "'w4g', 'w8') or bf16 ('none')")
 
 
 class ModelRunner:
@@ -906,11 +907,11 @@ class ModelRunner:
                 raise ValueError("a bf16 (quant='none') checkpoint has no int4 "
                                  "weights, so QSpec's shared-weights draft cannot "
                                  "run on it; use method='ngram' or 'medusa'")
-            if self.cfg.quant == "w4g" and spec.draft_scheme != "w4a16":
+            if self.cfg.quant in ("w4g", "w8") and spec.draft_scheme != "w4a16":
                 raise ValueError(
-                    "AWQ/GPTQ (w4g) checkpoints have no QuaRot rotations, so the "
-                    "shared-weights w4a4/w4a8 draft scheme is unavailable; use "
-                    "draft_scheme='w4a16' (with draft_kv_window)")
+                    "AWQ/GPTQ/compressed-tensors (w4g/w8) checkpoints have no QuaRot "
+                    "rotations, so the shared-weights w4a4/w4a8 draft scheme is "
+                    "unavailable; use draft_scheme='w4a16' (with draft_kv_window)")
         kv_cfg = kvc.KVCacheConfig(
             num_layers=self.cfg.num_layers, num_kv_heads=self.cfg.cache_kv_heads,
             head_dim=self.cfg.cache_head_dim, num_pages=num_pages,
@@ -950,7 +951,8 @@ class ModelRunner:
         self.acceptance = spec.acceptance_method if spec else "rejection_sampler"
         # the grammars' transition tables on the device (grammar_table)
         self._gtables: dict = {}
-        # the target's scheme: bf16 for a float checkpoint, else W4A16
+        # the target's scheme: bf16 for a float checkpoint, else W4A16 (a
+        # w8 checkpoint's W8A16 GEMM runs in W4A16's slot)
         self.verify_scheme = "bf16" if self.cfg.quant == "none" else "w4a16"
         # verify passes run by run_medusa_rounds / run_ngram_rounds /
         # run_eagle_rounds, every forward of the target (prompt chunks,

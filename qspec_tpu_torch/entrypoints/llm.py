@@ -35,7 +35,15 @@ method (``w1``: Medusa, ``proj_first``: MLPSpeculator, else EAGLE):
 A checkpoint directory (Hugging Face layout: config.json and
 ``*.safetensors``) loads by its kind, as in the JAX package: an AWQ or
 GPTQ directory (``quantization_config.quant_method``) through
-``load_awq`` / ``load_gptq``, drafted by its own weights at W4A16; under the
+``load_awq`` / ``load_gptq``, and a compressed-tensors one (pack-quantized
+int4, int-quantized int8, float-quantized fp8) through
+``load_compressed_tensors``, each drafted by its own weights at W4A16:
+
+    llm = LLM(model="/path/to/Meta-Llama-3-8B-FP8", num_speculative_tokens=3,
+              speculative_draft_scheme="w4a16", spec_draft_kv_window=64)
+
+A GGUF file goes through ``model_loader.gguf.load_gguf`` (-> params, cfg)
+and ``LLMEngine``, as in the JAX package. Under the
 default ``quantization="qspec"`` a reference-format QSpec checkpoint
 (``load_qspec``; the reference's ``QuarotLlamaForCausalLM`` and
 ``qwen2_quarot`` with its q/k/v biases) or, failing that, a float checkpoint
@@ -84,11 +92,12 @@ from qspec_tpu_torch.config import ModelConfig
 from qspec_tpu_torch.conversation import get_conv_template
 from qspec_tpu_torch.engine.arg_utils import EngineArgs, proposer_of
 from qspec_tpu_torch.engine.llm_engine import LLMEngine, RequestOutput
+from qspec_tpu_torch.model_loader.ct import load_compressed_tensors
 from qspec_tpu_torch.model_loader.families import CONVERTERS, load_family_float
 from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
 from qspec_tpu_torch.model_loader.loader import (check_rotatable, config_from_hf_dir,
                                                  load_hf_float, load_qspec,
-                                                 quant_method_of, quantize_float,
+                                                 quantization_config_of, quantize_float,
                                                  read_safetensors)
 from qspec_tpu_torch.models.llama import init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
@@ -188,16 +197,24 @@ class LLM:
         first); without quantization the family converter of a BLOOM / MPT /
         DeepSeek-MoE / Falcon / JAIS / GPT-J / GPT-NeoX / Phi / StableLM /
         Cohere, else the llama-keyed float loader (the remap families, GLM-4
-        and Helium too). A QuaRot config whose widths have no Hadamard raises before
-        the checkpoint is read. Compressed-tensors and GGUF raise in
-        EngineArgs (ROADMAP queue 1 item 8)."""
+        and Helium too); a compressed-tensors one (its ``quant_method``) by
+        ``load_compressed_tensors`` with its ``quantization_config``, whose
+        cfg (quant "w4g" or "w8") replaces EngineArgs', as in the JAX route.
+        A QuaRot config whose widths have no Hadamard raises before the
+        checkpoint is read. A GGUF file raises in EngineArgs, naming
+        ``model_loader.gguf.load_gguf`` and ``LLMEngine``, the JAX package's
+        way in."""
         cfg = self.engine_config.model
         dev = resolve_device(device)
         if cfg.quant == "w4":
             check_rotatable(cfg)
         sd = read_safetensors(path)
-        if cfg.quant == "w4g":
-            load = load_awq if quant_method_of(path) == "awq" else load_gptq
+        qconfig = quantization_config_of(path)
+        method = qconfig.get("quant_method")
+        if method == "compressed-tensors":
+            params, cfg = load_compressed_tensors(sd, cfg, qconfig=qconfig, device=dev)
+        elif cfg.quant == "w4g":
+            load = load_awq if method == "awq" else load_gptq
             params, cfg = load(sd, cfg, device=dev)
         elif cfg.quant == "w4":
             # a QSpec checkpoint has weight_scales; without them (the JAX

@@ -24,7 +24,11 @@ The unpackers, the packer and the loaders are torch ops that run where their
 input tensors lie (numpy arrays are taken as CPU tensors), so an 8B-wide
 checkpoint made on the card is repacked there. The synthetic-checkpoint
 writers (``make_awq_tensors``, ``make_gptq_tensors``) take a tensor and
-quantize it on its device, with the JAX package's numpy writers' bits. Models served this way keep their gamma norms and have no QuaRot
+quantize it on its device, with the JAX package's numpy writers' bits;
+``random_state_dict`` makes a whole checkpoint of a config on a device with
+any format's writer (``ct.py``'s too). ``_load_grouped`` takes a
+``proj_reader`` in place of the AWQ / GPTQ unpacking, as the JAX one does:
+compressed-tensors and GGUF feed it their (q, zp, s) triples. Models served this way keep their gamma norms and have no QuaRot
 rotations: only the W4A16 scheme applies, so QSpec drafts with the same
 weights at ``draft_scheme="w4a16"``, usually under ``draft_kv_window``.
 
@@ -155,7 +159,14 @@ def pack_grouped_proj(q, zp, s, *, shard_in: bool = False, col_blocks=None,
 # ---------------------------------------------------------------------------
 
 
-def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
+def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device,
+                  proj_reader=None):
+    """``proj_reader(prefix) -> (q [K, N], zp [G, N], s [G, N])`` on the
+    device replaces the AWQ / GPTQ tensor-name unpacking (compressed-tensors
+    pack-quantized and GGUF Q4_0 ingestion, ``ct.py`` / ``gguf.py``), as in
+    the JAX package. The o / down biases are read where the checkpoint has
+    them (``loader.OD_BIAS_KEYS``; the JAX grouped loader reads none)."""
+    from qspec_tpu_torch.model_loader.loader import OD_BIAS_KEYS, _od_biases
     from qspec_tpu_torch.models.llama import (_head_kind, _make_lm_head,
                                               resolve_device)
     from qspec_tpu_torch.ops.rotary import make_rope_cache
@@ -163,8 +174,11 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
     cfg = dataclasses.replace(cfg, quant="w4g")
     dev = resolve_device(device)
     unpack = unpack_awq if fmt == "awq" else unpack_gptq
+    od_bias = _od_biases(sd, cfg.num_layers)
 
     def proj(prefix):
+        if proj_reader is not None:
+            return proj_reader(prefix)
         args = [_t(sd[prefix + n], dev) for n in (".qweight", ".qzeros", ".scales")]
         if fmt == "gptq" and prefix + ".g_idx" in sd:
             args.append(_t(sd[prefix + ".g_idx"], dev))
@@ -172,6 +186,9 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
 
     def cat(parts):
         return tuple(torch.cat(xs, dim=1) for xs in zip(*parts))
+
+    def od(ln, i):
+        return _t(sd[ln + OD_BIAS_KEYS[i]], dev).to(torch.float32) if od_bias[i] else None
 
     def norm_w(name):
         # gemma's (1 + w) norms: the offset is folded into the stored gamma
@@ -190,13 +207,14 @@ def _load_grouped(sd: dict, cfg: ModelConfig, fmt: str, tp_size: int, device):
                 *cat([proj(p + "q_proj"), proj(p + "k_proj"), proj(p + "v_proj")]),
                 col_blocks=(cfg.q_size, cfg.kv_size, cfg.kv_size), tp_size=tp_size,
                 bias=bias),
-            "o": pack_grouped_proj(*proj(p + "o_proj"), shard_in=True, tp_size=tp_size),
+            "o": pack_grouped_proj(*proj(p + "o_proj"), shard_in=True, tp_size=tp_size,
+                                   bias=od(ln, 0)),
             "gate_up": pack_grouped_proj(
                 *cat([proj(mp + "gate_proj"), proj(mp + "up_proj")]),
                 col_blocks=(cfg.intermediate_size, cfg.intermediate_size),
                 tp_size=tp_size),
             "down": pack_grouped_proj(*proj(mp + "down_proj"), shard_in=True,
-                                      tp_size=tp_size),
+                                      tp_size=tp_size, bias=od(ln, 1)),
             "input_norm": norm_w(ln + "input_layernorm.weight"),
             # the MLP's pre-norm: Gemma-2 names it pre_feedforward_layernorm
             "post_norm": norm_w(ln + ("pre_feedforward_layernorm.weight" if cfg.post_norms
@@ -313,15 +331,22 @@ def _group_quantize(w: torch.Tensor, g: int, seed: int):
 def make_grouped_state_dict(cfg: ModelConfig, fmt: str = "awq",
                             group_size: int = 128, seed: int = 0, device="cuda"):
     """A Hugging Face-named AWQ or GPTQ state dict of a Llama or a Gemma-2
-    of ``cfg``'s shapes, made on ``device`` from a torch.Generator:
-    normal(0.02) float weights quantized by the writers above, float
-    embeddings and (unless ``tie_word_embeddings``) lm_head. Norm gammas are
-    ``norm_weight_offset``-free: 1 + normal(0.05) for a Llama, normal(0.05)
-    around 0 for a Gemma-2, whose loader adds the offset; a Gemma-2 also gets
-    its pre- and post-feedforward norms, a Qwen2 its q/k/v biases
-    (normal(0.02), in float32), a Qwen3 its q/k norms. An 8B-wide
-    checkpoint so never passes through host memory."""
+    of ``cfg``'s shapes, made on ``device`` by :func:`random_state_dict`,
+    every projection quantized by the format's writer above."""
     make = make_awq_tensors if fmt == "awq" else make_gptq_tensors
+    return random_state_dict(cfg, lambda w: make(w, group_size), seed, device)
+
+
+def random_state_dict(cfg: ModelConfig, make, seed: int = 0, device="cuda") -> dict:
+    """A Hugging Face-named state dict of ``cfg``'s shapes made on ``device``
+    from a torch.Generator: normal(0.02) float weights, each projection's
+    [K, N] given to ``make``, which returns its checkpoint tensors (a
+    format's writer), float embeddings and (unless ``tie_word_embeddings``)
+    lm_head. Norm gammas are ``norm_weight_offset``-free: 1 + normal(0.05)
+    for a Llama, normal(0.05) around 0 for a Gemma-2, whose loader adds the
+    offset; a Gemma-2 also gets its pre- and post-feedforward norms, a Qwen2
+    its q/k/v biases (normal(0.02), in float32), a Qwen3 its q/k norms. An
+    8B-wide checkpoint so never passes through host memory."""
     gen = torch.Generator(device=device).manual_seed(seed)
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
 
@@ -343,7 +368,7 @@ def make_grouped_state_dict(cfg: ModelConfig, fmt: str = "awq",
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
         for name, (k, n) in shapes.items():
-            for key, val in make(normal(k, n), group_size).items():
+            for key, val in make(normal(k, n)).items():
                 sd[f"{p}{name}.{key}"] = val
         for name in norms:
             sd[f"{p}{name}.weight"] = gamma()

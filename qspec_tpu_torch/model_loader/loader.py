@@ -25,7 +25,8 @@ Port of ``qspec_tpu/model_loader/loader.py``:
   for the order of a product's sums, so an int4 code may differ by one step
   where w / scale falls within rounding of a tie.
 - ``load_qspec``: a reference-format QSpec checkpoint (uint8 [out, in // 2]
-  + ``weight_scales``) -> the interchange format (``ops/packing.py``), with
+  + ``weight_scales``) -> the interchange format (``ops/packing.py``,
+  repacked on the device), with
   ``qwen2_quarot``'s q/k/v biases where the config declares ``qkv_bias``
   (the JAX ``load_qspec`` reads no bias and so serves such a checkpoint
   without them: ROADMAP §3).
@@ -78,17 +79,22 @@ from qspec_tpu_torch.ops.hadamard import (decompose_dim, hadamard_f32, hadamard_
                                           random_hadamard_matrix)
 from qspec_tpu_torch.ops.packing import repack_from_reference
 
+# the safetensors dtypes the reader takes (compressed-tensors adds F8_E4M3
+# weights and an I64 weight_shape); any other raises, naming itself
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
-          "I32": torch.int32, "I8": torch.int8, "U8": torch.uint8}
+          "I64": torch.int64, "I32": torch.int32, "I8": torch.int8,
+          "U8": torch.uint8, "F8_E4M3": torch.float8_e4m3fn}
 
 
 def read_safetensors_file(path: str) -> Dict[str, torch.Tensor]:
     """Every tensor of one ``.safetensors`` file, CPU tensors of the stored
-    dtype viewing one buffer of the file's bytes."""
+    dtype viewing one buffer of the file's bytes (read into it in one pass,
+    without zeroing it first)."""
     with open(path, "rb") as f:
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n))
-        buf = bytearray(f.read())
+        buf = torch.empty(os.path.getsize(path) - 8 - n, dtype=torch.uint8)
+        f.readinto(memoryview(buf.numpy()))
     out = {}
     for name, meta in header.items():
         if name == "__metadata__":
@@ -98,13 +104,13 @@ def read_safetensors_file(path: str) -> Dict[str, torch.Tensor]:
                                       f"the reader takes {sorted(DTYPES)}")
         dtype, shape = DTYPES[meta["dtype"]], meta["shape"]
         begin, end = meta["data_offsets"]
-        if end - begin != dtype.itemsize * int(torch.Size(shape).numel()):
-            raise ValueError(f"{path}: tensor {name!r}: {end - begin} bytes for "
-                             f"{meta['dtype']} {shape}")
+        if end - begin != dtype.itemsize * int(torch.Size(shape).numel()) or end > buf.numel():
+            raise ValueError(f"{path}: tensor {name!r}: bytes {begin}-{end} of "
+                             f"{buf.numel()} for {meta['dtype']} {shape}")
         if end == begin:
             out[name] = torch.empty(shape, dtype=dtype)
             continue
-        raw = torch.frombuffer(buf, dtype=torch.uint8, count=end - begin, offset=begin)
+        raw = buf[begin:end]
         if begin % dtype.itemsize:
             raw = raw.clone()     # a header not padded to the element size
         out[name] = raw.view(dtype).reshape(shape)
@@ -135,12 +141,14 @@ def config_from_hf_dir(path: str) -> ModelConfig:
     return ModelConfig.from_hf_config(hf)
 
 
-def quant_method_of(path: str) -> Optional[str]:
-    """``quantization_config.quant_method`` of a checkpoint directory's
-    config.json ("awq", "gptq", "compressed-tensors", ...), or None: what
-    ``LLM(model=<dir>)`` routes by, as the JAX package does."""
+def quantization_config_of(path: str) -> dict:
+    """The ``quantization_config`` of a checkpoint directory's config.json
+    ({} without one): its ``quant_method`` ("awq", "gptq",
+    "compressed-tensors", ...) is what ``LLM(model=<dir>)`` routes by, as
+    the JAX package does; a compressed-tensors one's ``format`` picks the
+    loader."""
     with open(os.path.join(path, "config.json")) as f:
-        return (json.load(f).get("quantization_config") or {}).get("quant_method")
+        return json.load(f).get("quantization_config") or {}
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +599,7 @@ def load_qspec(path_or_sd, cfg: Optional[ModelConfig] = None, device="cuda"):
 
     def qproj(prefix):
         scales = _f32_tensor(sd[prefix + ".weight_scales"], dev).reshape(-1)
-        packed = torch.as_tensor(repack_from_reference(sd[prefix + ".weight"]), device=dev)
+        packed = repack_from_reference(torch.as_tensor(sd[prefix + ".weight"]).to(dev))
         return packed, scales
 
     def cat(prefixes):

@@ -142,13 +142,17 @@ class AttentionBatch(NamedTuple):
 
 def _linear(x, w, scheme, xq=None, li=None):
     """One projection by scheme; ``w`` holds the layer-stacked "qw"/"qs"
-    (QuaRot), "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only) or "w" (bf16:
+    (QuaRot), "qw"/"qs_g"/"qo_g" (grouped int4, W4A16 only), "w8"/"s8"
+    (per-channel int8 or float8_e4m3fn, W4A16's slot only) or "w" (bf16:
     a float checkpoint, or ``quantize_float(bits=None)``'s rotated weights
     under W4A16), and a bias "b" where the checkpoint has one. ``li`` is a
     layer, or a (layer, expert) pair of the expert-stacked [L, E, ...]
     weights: the kernels read that slice in place."""
     if "w" in w:
         out = bf16_matmul(x, w["w"][li])
+    elif "w8" in w:
+        # per-channel byte weights, int8 or fp8 (compressed-tensors, quant="w8")
+        out = matmul_w8a16(x, w["w8"], w["s8"], layer_idx=li)
     elif "qo_g" in w:
         out = matmul_w4a16_g(x, w["qw"], w["qs_g"], w["qo_g"], layer_idx=li)
     elif scheme == "w4a16":
@@ -447,6 +451,11 @@ def check_served(cfg: ModelConfig) -> None:
     if cfg.num_experts and cfg.quant == "w4g":
         raise NotImplementedError("an AWQ / GPTQ (quant='w4g') MoE is not ported: the "
                                   "JAX package's grouped loaders have no experts")
+    if cfg.quant == "w8" and (cfg.num_experts or cfg.arch == "gemma2"):
+        raise NotImplementedError(
+            f"a compressed-tensors int8 / fp8 (quant='w8') {cfg.arch} is not ported "
+            "(ROADMAP queue 1 item 9): the JAX package's _load_channelwise reads dense "
+            "llama-keyed layers only, no expert and no Gemma-2 post-block norm")
     if (cfg.num_experts and cfg.first_k_dense and cfg.quant == "w4"
             and cfg.intermediate_size != cfg.expert_intermediate_size):
         raise NotImplementedError(
@@ -624,10 +633,12 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         raise ValueError(f"scheme {scheme!r} on a quant={cfg.quant!r} checkpoint: "
                          "the bf16 scheme serves float (quant='none') checkpoints, "
                          "and only it does")
-    if scheme in QUANT_ACT_SCHEMES and cfg.quant == "w4g":
+    if scheme in QUANT_ACT_SCHEMES and cfg.quant in ("w4g", "w8"):
+        # no QuaRot rotations: quantized activations would be
+        # outlier-dominated; only W4A16's slot (weight-only dequant) serves
         raise ValueError("w4a4/w4a8 drafting requires a QuaRot (quant='w4') "
-                         "checkpoint; AWQ/GPTQ (w4g) models are "
-                         "weight-only-quant")
+                         "checkpoint; AWQ/GPTQ/compressed-tensors (w4g/w8) models "
+                         "are weight-only-quant")
     check_served(cfg)
     B, Q = token_ids.shape
     x = embed_rows(params, cfg, token_ids.reshape(-1))
@@ -785,10 +796,13 @@ def pack_lm_head(w, cfg: ModelConfig, device=None):
 
 def _f32_tensor(w, device=None) -> torch.Tensor:
     """A float32 tensor of ``w`` (numpy array or tensor) on ``device``
-    (default: the tensor's own, or the CPU for an array)."""
+    (default: the tensor's own, or the CPU for an array). A tensor moves in
+    its own dtype and widens there (exact either way): a bf16 checkpoint
+    tensor crosses to the card at half the bytes, and the host does no
+    conversion."""
     if not isinstance(w, torch.Tensor):
         w = torch.as_tensor(np.asarray(w, np.float32))
-    return w.to(device=w.device if device is None else device, dtype=torch.float32)
+    return w.to(device=w.device if device is None else device).to(torch.float32)
 
 
 def pack_proj_weight(w, cfg_quant: str, *, col_blocks=None, bias=None,
@@ -848,7 +862,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     through host memory. Same layout as :func:`params_from_numpy`. QuaRot
     (w4): per output channel to packed int4. w4g: an AWQ checkpoint of
     ``group_size`` (model_loader.grouped.make_grouped_state_dict) through
-    ``load_awq``."""
+    ``load_awq``. w8: a compressed-tensors int-quantized checkpoint
+    (model_loader.ct.make_ct_state_dict) through ``load_ct_int8``."""
     check_served(cfg)
     head_kind = _head_kind(cfg)
     dev = resolve_device(device)
@@ -859,6 +874,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                                                           make_grouped_state_dict)
         sd = make_grouped_state_dict(cfg, "awq", group_size, seed, dev)
         return load_awq(sd, cfg, device=dev)[0]
+    if cfg.quant == "w8":
+        from qspec_tpu_torch.model_loader.ct import load_ct_int8, make_ct_state_dict
+        sd = make_ct_state_dict(cfg, "int-quantized", seed, dev)
+        return load_ct_int8(sd, cfg, device=dev)[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
     H = cfg.hidden_size
 
@@ -976,6 +995,9 @@ def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes bf16: exact through float32
         return torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":   # ml_dtypes fp8: its bytes, bit for bit
+        return torch.tensor(np.ascontiguousarray(a).view(np.uint8),
+                            device=device).view(torch.float8_e4m3fn)
     return torch.tensor(a, device=device)
 
 
@@ -988,16 +1010,17 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     its bias ``lm_head_b``); the rope cache as it is (at a partial rotary
     width too); an MoE's router, expert stacks [L, E, ...], shared expert and gate, and
     DeepSeek's ``layers_dense``; the qkv bias and the q/k norms.
-    Packed int4 (plain or grouped, with its scales and offsets), the gammas
-    and the int8 head stay as they are: the kernels read the interchange
+    Packed int4 (plain or grouped, with its scales and offsets), the
+    per-channel int8 / fp8 weights of a quant="w8" tree (``"w8"``, ``"s8"``,
+    fp8 bit for bit), the gammas and the int8 head stay as they are: the kernels read the interchange
     layouts directly. The proposer nets come along: ``"medusa"``
     (``spec_decode/medusa.py``'s heads), ``"mlp_spec"`` (an MLPSpeculator)
     and ``"eagle"`` (EAGLE's fc, layer and rope cache). An ALiBi model gets
     its ``alibi_slopes``."""
     _head_kind(cfg)
     dev = resolve_device(device)
-    keys = {"w4": ("qw", "qs", "b"), "w4g": ("qw", "qs_g", "qo_g"),
-            "none": ("w", "b")}[cfg.quant]
+    keys = {"w4": ("qw", "qs", "b"), "w4g": ("qw", "qs_g", "qo_g", "b"),
+            "w8": ("w8", "s8", "b"), "none": ("w", "b")}[cfg.quant]
     norms = ("input_norm", "post_norm", "input_norm_b", "post_norm_b") + (
         ("post_attn_norm", "post_ffw_norm") if cfg.post_norms else ())
     params = {

@@ -30,17 +30,21 @@ model_loader/grouped.py) serves
   prefill-width branch is ``_w4a16_g_bigm`` (the JAX package's, at the same
   threshold): dequantize once with torch ops, then ``torch.mm``.
 
-and an int8 [K, N] weight with per-channel scales serves
+and a byte-wide [K, N] weight, int8 or float8_e4m3fn, with per-channel
+scales serves
 
-* ``matmul_w8a16``: bf16 activations x int8 weights with f32 accumulation,
-  the default (int8) lm_head of QuaRot checkpoints (kernel
-  ``csrc/w8a16.cu``). Past the same prefill threshold it is one
-  ``torch.mm`` over the weights widened to bf16, with an f32 result, as the
-  JAX package leaves that case to XLA.
+* ``matmul_w8a16``: bf16 activations x byte weights widened exactly to bf16,
+  f32 accumulation (kernel ``csrc/w8a16.cu``, one instantiation per weight
+  type): the int8 lm_head of the quantized checkpoints and the W8A16 trunk
+  of compressed-tensors checkpoints (quant="w8", model_loader/ct.py), int8
+  (``int-quantized``) or fp8 (``float-quantized``). Past the same prefill
+  threshold it is one ``torch.mm`` over the weights widened to bf16, with an
+  f32 result, as the JAX package leaves that case to XLA.
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; each launch adds one to the
-wrapper's ``launches`` count. With ``layer_idx`` the weights are the
+wrapper's ``launches`` count (``matmul_w8a16``'s fp8 instantiation counts
+in ``matmul_w8a16_fp8.launches`` instead). With ``layer_idx`` the weights are the
 layer-stacked ``[L, K//8, N]`` / ``[L, N]`` arrays and the kernel reads layer
 ``layer_idx`` in place (a pointer offset, no copy).
 """
@@ -48,6 +52,7 @@ layer-stacked ``[L, K//8, N]`` / ``[L, N]`` arrays and the kernel reads layer
 from __future__ import annotations
 
 import functools
+import types
 from typing import Optional
 
 import torch
@@ -92,10 +97,12 @@ def matmul_w4a4_ref(x_q: torch.Tensor, x_scales: torch.Tensor,
 def matmul_w8a16_ref(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *,
                      out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain version: x [M, K] bf16, w_q int8 [K, N], scales [N]. The sums
-    of bf16 x int8 products are taken in float64, where they are exact at
-    these widths, then rounded to f32: a row's result does not depend on
-    the batch (the CPU path keeps greedy QSpec equal to greedy AR)."""
+    """Plain version: x [M, K] bf16, w_q int8 or float8_e4m3fn [K, N] (every
+    value of either is a bf16 value: the widening is exact, an fp8 NaN code
+    stays NaN), scales [N]. The sums of the bf16 x byte products are taken
+    in float64, where they are exact at these widths, then rounded to f32: a
+    row's result does not depend on the batch (the CPU path keeps greedy
+    QSpec equal to greedy AR)."""
     acc = x.to(torch.bfloat16).to(torch.float64) @ w_q.to(torch.float64)
     out = acc.to(torch.float32) * w_scales.to(torch.float32)[None, :]
     if bias is not None:
@@ -476,18 +483,25 @@ def matmul_w4a4(x_q: torch.Tensor, x_scales: torch.Tensor, w_packed: torch.Tenso
 matmul_w4a4.launches = 0
 
 
+# the weight types of matmul_w8a16 -> the exported kernel of each
+W8_KERNELS = {torch.int8: "qspec_w8a16", torch.float8_e4m3fn: "qspec_w8a16_fp8"}
+
+
 def matmul_w8a16(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
                  layer_idx: Optional[int] = None) -> torch.Tensor:
-    """x [M, K] bf16 @ int8 w [K, N] (per-channel scales [N]) -> [M, N]
-    out_dtype. With ``layer_idx`` the weights are the stacked [L, K, N] /
-    [L, N] arrays and the kernel reads layer ``layer_idx`` in place."""
+    """x [M, K] bf16 @ byte weights w [K, N], int8 or float8_e4m3fn
+    (per-channel scales [N]) -> [M, N] out_dtype. With ``layer_idx`` the
+    weights are the stacked [L, K, N] / [L, N] arrays and the kernel reads
+    layer ``layer_idx`` in place."""
     w, s = _layer(layer_idx, w_q, w_scales)
+    _build.require(w.dtype in W8_KERNELS,
+                   f"matmul_w8a16: int8 or float8_e4m3fn weights, got {w.dtype}")
     if not x.is_cuda:
         return matmul_w8a16_ref(x, w, s, bias, out_dtype=out_dtype)
     m, k = x.shape
-    _build.require(w.dtype == torch.int8 and w.dim() == 2 and w.shape[0] == k,
-                   f"matmul_w8a16: int8 weights [K, N] with K={k}")
+    _build.require(w.dim() == 2 and w.shape[0] == k,
+                   f"matmul_w8a16: weights [K, N] with K={k}")
     n = w.shape[1]
     _build.require(s.dtype == torch.float32 and tuple(s.shape) == (n,),
                    "matmul_w8a16: weight scales f32 [N]")
@@ -505,13 +519,17 @@ def matmul_w8a16(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
         out = torch.empty((m, n), dtype=out_dtype, device=x.device)
         if m:
             _build.cuda_args_ok(x, w, s, out)
-            _build.check("matmul_w8a16", _build.lib().qspec_w8a16(
+            kernel = W8_KERNELS[w.dtype]
+            _build.check(f"matmul_w8a16 ({w.dtype})", getattr(_build.lib(), kernel)(
                 x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
                 m, k, n, int(out_dtype == torch.float32), _build.stream_of(x)))
-            matmul_w8a16.launches += 1
+            W8_COUNTERS[w.dtype].launches += 1
     if bias is not None:
         out = out + bias[None, :].to(out.dtype)
     return out
 
 
 matmul_w8a16.launches = 0
+# the fp8-weight instantiation's launch counter
+matmul_w8a16_fp8 = types.SimpleNamespace(launches=0)
+W8_COUNTERS = {torch.int8: matmul_w8a16, torch.float8_e4m3fn: matmul_w8a16_fp8}

@@ -93,20 +93,23 @@ def unpack_int4_np(packed: np.ndarray) -> np.ndarray:
     return np.concatenate(halves, axis=0).astype(np.int8)
 
 
-def repack_from_reference(ref_weight) -> np.ndarray:
-    """A reference-layout weight (uint8 [out, in // 2], numpy or a tensor)
-    -> the interchange format int32 [in // 8, out]
-    (``qspec_tpu/ops/packing.py::repack_from_reference``)."""
-    b = np.asarray(ref_weight.cpu() if isinstance(ref_weight, torch.Tensor) else ref_weight,
-                   np.uint8).astype(np.int32)
+def repack_from_reference(ref_weight):
+    """A reference-layout weight (uint8 [out, in // 2]) -> the interchange
+    format int32 [in // 8, out]
+    (``qspec_tpu/ops/packing.py::repack_from_reference``), computed in torch
+    on a tensor's device (a checkpoint on the card is repacked there) and
+    returned as a tensor there; a numpy array gives a numpy array."""
+    if not isinstance(ref_weight, torch.Tensor):
+        return repack_from_reference(torch.as_tensor(np.asarray(ref_weight, np.uint8))).numpy()
+    b = ref_weight.to(torch.int32)
     lo = b & 0x0F
-    lo = np.where(lo < 8, lo, lo - 16).astype(np.int8)      # in-position 2c
+    lo = torch.where(lo < 8, lo, lo - 16)                    # in-position 2c
     hi = b >> 4
-    hi = np.where(hi < 8, hi, hi - 16).astype(np.int8)      # in-position 2c + 1
-    unpacked = np.empty((b.shape[1] * 2, b.shape[0]), dtype=np.int8)
-    unpacked[0::2] = lo.T
-    unpacked[1::2] = hi.T
-    return pack_int4_np(unpacked)
+    hi = torch.where(hi < 8, hi, hi - 16)                    # in-position 2c + 1
+    unpacked = torch.empty((b.shape[1] * 2, b.shape[0]), dtype=torch.int32, device=b.device)
+    unpacked[0::2] = lo.t()
+    unpacked[1::2] = hi.t()
+    return pack_int4(unpacked)
 
 
 def pack_reference(w: torch.Tensor) -> torch.Tensor:

@@ -371,8 +371,9 @@ def test_eagle_steps_match_jax(setup):
 # ------------------------------------------------ options and entry points
 
 def test_eagle_bf16_target_and_refusals(setup):
-    """EAGLE on a bf16 (quant='none') Llama target equals AR; a w4g target,
-    a tree and a draft window are refused."""
+    """EAGLE on a bf16 (quant='none') Llama target equals AR, and so does it
+    on an AWQ (w4g) one; a tree and a draft window are refused, and so is a
+    Gemma-2 target, naming ROADMAP queue 1 item 7."""
     _, _, _, _, sched = setup
     cfg = ModelConfig.tiny(quant="none")
     params = {**tllama.init_params(cfg, seed=1, device="cpu"),
@@ -388,8 +389,12 @@ def test_eagle_bf16_target_and_refusals(setup):
     w4g = ModelConfig.tiny(quant="w4g")
     gparams = {**tllama.init_params(w4g, seed=1, device="cpu", group_size=64),
                "eagle": params["eagle"]}
-    with pytest.raises(NotImplementedError, match="w4g"):
-        run_engine(w4g, gparams, sched, eagle(2), ps)
+    gar, _ = run_engine(w4g, gparams, sched, None, ps, max_tokens=12)
+    gsp, geng = run_engine(w4g, gparams, sched, eagle(2), ps, max_tokens=12)
+    assert gsp == gar and geng.runner.verify_scheme == "w4a16"
+    gemma2 = dataclasses.replace(w4g, arch="gemma2", post_norms=True)
+    with pytest.raises(NotImplementedError, match="gemma2.*item 7"):
+        run_engine(gemma2, gparams, sched, eagle(2), ps)
 
 
 def test_llm_entry_points(setup, tmp_path):

@@ -1789,3 +1789,90 @@ def test_swap_pages_round_trip(gen, kv_dtype):
         assert torch.equal(bits(new)[:, [2, 4, 9]], bits(old)[:, [3, 5, 7]])
         keep = [0, 1, 3, 5, 6, 7, 8]
         assert torch.equal(bits(new)[:, keep], bits(old)[:, keep])
+
+
+# ------------------------------------------ the W8A16 trunk: int8 and fp8
+
+# Llama-3-8B's four trunk projections (qkv, o, gate_up, down) and its head
+W8_TRUNK = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+W8_HEAD = (4096, 128256)
+
+
+def _w8_weights(gen, k, n, kind, layers=None):
+    """Per-channel byte weights [K, N] (or [L, K, N]) and scales made on the
+    card by the compressed-tensors writers: int8 or float8_e4m3fn."""
+    from qspec_tpu_torch.model_loader import ct
+    make = ct.make_ct_fp8_tensors if kind == "fp8" else ct.make_ct_int8_tensors
+    ws, ss = [], []
+    for _ in range(layers or 1):
+        t, _ = make(torch.randn(k, n, generator=gen, device="cuda") * 0.02)
+        ws.append(t["weight"].t().contiguous())
+        ss.append(t["weight_scale"].reshape(-1))
+    if layers is None:
+        return ws[0], ss[0]
+    return torch.stack(ws), torch.stack(ss)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("k,n", [*W8_TRUNK, W8_HEAD])
+def test_w8a16_trunk_kernel(gen, kind, k, n):
+    """Each weight type's instantiation against its plain version at the
+    Llama-3-8B trunk shapes and the head, M = 4 and 16, bf16 and f32 out,
+    plain and read in place from a 2-layer stack; each launch counted on its
+    type's counter."""
+    counters = kernel_wrappers()
+    own = counters["matmul_w8a16_fp8" if kind == "fp8" else "matmul_w8a16"]
+    other = counters["matmul_w8a16" if kind == "fp8" else "matmul_w8a16_fp8"]
+    qw, qs = _w8_weights(gen, k, n, kind, layers=None if (k, n) == W8_HEAD else 2)
+    before, before_other = own.launches, other.launches
+    calls = 0
+    for m in (4, 16):
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        for li in ((None,) if qw.dim() == 2 else (0, 1)):
+            w, s = (qw, qs) if li is None else (qw[li], qs[li])
+            for dt in (torch.float32, torch.bfloat16):
+                out = lk.matmul_w8a16(x, qw, qs, out_dtype=dt, layer_idx=li)
+                calls += 1
+                assert out.dtype == dt and tuple(out.shape) == (m, n)
+                torch.testing.assert_close(out.float(), lk.matmul_w8a16_ref(
+                    x, w, s, out_dtype=dt).float(), rtol=2e-2, atol=2e-2)
+    assert own.launches == before + calls and other.launches == before_other
+
+
+def test_w8a16_fp8_decodes_every_code(gen):
+    """All 256 e4m3 codes through the kernel: x = I picks row k of the
+    weight, so out[k, n] is the decoded byte w[k, n] (scale 1). Every
+    finite code decodes exactly to its float value; a NaN code (0x7F, 0xFF)
+    gives NaN, and so does every row of its column (0 x NaN)."""
+    K = N = 256
+    codes = torch.arange(K, dtype=torch.int32, device="cuda")[:, None].expand(K, N).clone()
+    nan_code = (codes == 0x7F) | (codes == 0xFF)
+    # the NaN codes only in columns 0..7; elsewhere a zero there
+    codes[nan_code & (torch.arange(N, device="cuda")[None, :] >= 8)] = 0
+    w = codes.to(torch.uint8).view(torch.float8_e4m3fn)
+    s = torch.ones(N, device="cuda")
+    x = torch.eye(K, device="cuda").to(torch.bfloat16)
+    out = lk.matmul_w8a16(x, w, s, out_dtype=torch.float32)
+    want = w.to(torch.float32)
+    assert torch.equal(out[:, 8:], want[:, 8:])
+    assert out[:, :8].isnan().all()
+    torch.testing.assert_close(out, lk.matmul_w8a16_ref(x, w, s, out_dtype=torch.float32),
+                               rtol=0, atol=0, equal_nan=True)
+    # every finite code once: 254 distinct values, the subnormals 2^-9 .. 7 x 2^-9 among them
+    finite = want[:, 8][~want[:, 8].isnan()]
+    assert finite.unique().numel() == 253      # +0 and -0 are one value
+    assert (want[1:8, 8] == torch.arange(1, 8, device="cuda") * 2.0 ** -9).all()
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_w8a16_rows_independent_of_m_and_place(gen, kind):
+    """A row's bits do not depend on M (1 to 16) or on its place in the
+    batch, for either weight type, at the down projection's shape."""
+    k, n = W8_TRUNK[3]
+    qw, qs = _w8_weights(gen, k, n, kind)
+    x = torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+    full = lk.matmul_w8a16(x, qw, qs)
+    for m in range(1, 17):
+        assert torch.equal(lk.matmul_w8a16(x[:m].contiguous(), qw, qs), full[:m])
+    assert torch.equal(lk.matmul_w8a16(x.flip(0).contiguous(), qw, qs), full.flip(0))
+    assert torch.equal(lk.matmul_w8a16(x[7:8].contiguous(), qw, qs), full[7:8])

@@ -158,11 +158,21 @@ def test_llm_routes_a_grouped_dir_by_its_quant_method(tmp_path, fmt):
 
 def test_other_quant_methods_and_a_float_dir_asked_as_awq_raise(tmp_path):
     d, sd, _ = grouped_dir(tmp_path, "awq")
-    ct = write(tmp_path / "ct", sd, {**QWEN2, "quantization_config": {
-        "quant_method": "compressed-tensors"}})
-    with pytest.raises(NotImplementedError, match="compressed-tensors.*item 8"):
-        EngineArgs(model=ct).model_config()
-    with pytest.raises(NotImplementedError, match="GGUF.*item 8"):
+    # a compressed-tensors directory is routed (model_loader.ct), its quant
+    # from its format (its loader settles it); another method still raises
+    for fmt, quant in (("pack-quantized", "w4g"), ("int-quantized", "w8"),
+                       ("float-quantized", "w8")):
+        ct = write(tmp_path / f"ct-{fmt}", sd, {**QWEN2, "quantization_config": {
+            "quant_method": "compressed-tensors", "format": fmt}})
+        assert EngineArgs(model=ct).model_config().quant == quant
+    with pytest.raises(ValueError, match="names 'compressed-tensors'"):
+        EngineArgs(model=ct, quantization="awq").model_config()
+    bnb = write(tmp_path / "bnb", sd, {**QWEN2, "quantization_config": {
+        "quant_method": "bitsandbytes"}})
+    with pytest.raises(NotImplementedError, match="'bitsandbytes' is not ported"):
+        EngineArgs(model=bnb).model_config()
+    # a GGUF file's way in is the JAX package's: load_gguf, then LLMEngine
+    with pytest.raises(NotImplementedError, match="gguf.load_gguf.*LLMEngine"):
         EngineArgs(model=str(tmp_path / "model.gguf")).model_config()
     flt = write(tmp_path / "float", {"x": torch.zeros(1)}, QWEN2)
     for q in ("awq", "gptq"):

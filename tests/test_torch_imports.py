@@ -21,6 +21,8 @@ import importlib, json, pkgutil, sys
 import qspec_tpu_torch
 from qspec_tpu_torch.engine.llm_engine import LLMEngine
 from qspec_tpu_torch.model_loader.grouped import load_awq, load_gptq
+from qspec_tpu_torch.model_loader.ct import load_compressed_tensors, make_ct_state_dict
+from qspec_tpu_torch.model_loader.gguf import load_gguf, write_gguf
 from qspec_tpu_torch.spec_decode.medusa import load_medusa, medusa_propose_tree
 from qspec_tpu_torch.spec_decode.eagle import load_eagle, eagle_layer_step
 from qspec_tpu_torch.spec_decode.mlp_speculator import load_mlp_speculator
@@ -61,13 +63,14 @@ def test_port_imports_no_jax():
     bad, port = json.loads(out.stdout.strip().splitlines()[-1])
     assert bad == []
     # every module was imported, the checkpoint loaders' (the float and
-    # QSpec Llama loaders among them), Medusa's, EAGLE's, MLPSpeculator's,
+    # QSpec Llama loaders, compressed-tensors and GGUF among them), Medusa's, EAGLE's, MLPSpeculator's,
     # the n-gram matcher's, the grammar compiler's, and the engine
     # surface's (LoRA, swap, prompt adapters, beam search, envs, plugins)
     assert {"qspec_tpu_torch.guided", "qspec_tpu_torch.guided.regex_dfa",
             "qspec_tpu_torch.guided.json_schema", "qspec_tpu_torch.guided.tokenfsm",
             "qspec_tpu_torch.model_loader", "qspec_tpu_torch.model_loader.grouped",
             "qspec_tpu_torch.model_loader.families", "qspec_tpu_torch.model_loader.loader",
+            "qspec_tpu_torch.model_loader.ct", "qspec_tpu_torch.model_loader.gguf",
             "qspec_tpu_torch.ops.linear_kernels", "qspec_tpu_torch.ops.ngram",
             "qspec_tpu_torch.engine.model_runner", "qspec_tpu_torch.ops.hadamard",
             "qspec_tpu_torch.ops.packing", "qspec_tpu_torch.entrypoints.llm",
