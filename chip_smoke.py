@@ -17,8 +17,10 @@ matmul_w4a16 and matmul_w4a4 at W4_TIMED (per Llama-3-8B layer: w4a16 at
 M = 16 and 60 and the int4 head at M = 16; w4a4 at M = 4, 8 and 1024),
 then the norms at NORM_TIMED alone and after the residual add (for a
 checkout whose norm takes no residual, the torch add and the norm in one
-graph). It
-prints, per AB_SHAPES entry, the times in the order given and the ratio of the
+graph), then matmul_w8a16 at W8_AB (one Llama-3-8B trunk layer over int8
+and fp8 weights at M = 4 and 16, its down projection alone, the int8 head
+at M = 4, 16 and 60, Qwen1.5-MoE's and Qwen2-7B's heads at M = 4 and 16).
+It prints, per AB_SHAPES entry, the times in the order given and the ratio of the
 first checkout's mean to the second's, and a summary of the 36; every
 checkout's JSON line (with its ptxas registers and spills) and the
 per-instantiation times go to chiprun_out/chip_smoke.log. No result line.
@@ -46,6 +48,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    Llama-3-8B projections, M = 4, 8, 16, 60, 64 and, w4a4 only, the draft
    prefill's 1024, w4a4 bit for bit equal to its plain version on int4 and
    int8 activations, and the int4 head (w4a16, f32 out, N = 128256); the
+   int8 head (matmul_w8a16, csrc/w8a16.cu) at M = 16, the tree verify's 60
+   and one block's 64, and a stacked trunk shape; the
    grouped GEMM at the Llama-3-8B and Gemma-2-9B AWQ
    shapes, M up to the prefill threshold, stacked and not, a row's bits
    across batch sizes and places, on a second call and on graph replay);
@@ -64,6 +68,7 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    M = 4, 8 and the draft prefill's 1024, with torch._int_mm on the weights
    widened to int8 once, plus the scale epilogue (at M = 17 where it refuses
    smaller M);
+   the int8 head at M = 4, 16 and 60 beside torch._weight_int8pack_mm;
    the grouped GEMM per Llama-3-8B and Gemma-2-9B layer at M = 4, 16 and 60
    beside the same yardstick; the norms at NORM_TIMED alone, with the
    residual add and as the torch add plus the norm, beside an empty kernel
@@ -233,10 +238,12 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    (load, a completion whose ``model`` names the adapter, unload) ==
    ``LLM.generate(lora_name=)``;
 22. compressed-tensors and GGUF (M): matmul_w8a16 over int8 and fp8
-   weights at Llama-3-8B's four trunk shapes (a 2-layer stack, M = 4 and
-   16) and the fp8 head shape against the plain version, all 256 e4m3 codes,
-   a row's bits across M, and the trunk timed per layer beside
-   torch._weight_int8pack_mm (int8; fp8 has no library call)
+   weights at Llama-3-8B's four trunk shapes (a 2-layer stack, M = 4, 16,
+   60 and 64) and the fp8 head shape against the plain version, all 256
+   e4m3 codes, a row's bits across M (to the prefill threshold) and place,
+   the torch.mm branch past BIGM_BYTES (M = 1024 at K = 4096, 256 at
+   14336), and the trunk timed per layer and its down projection alone
+   beside torch._weight_int8pack_mm (int8; fp8 has no library call)
    (check_w8a16_trunk, time_w8a16_trunk); (M1) Llama-3-8B at full width and
    depth as a compressed-tensors int8 checkpoint made on the card
    (make_ct_state_dict, load_compressed_tensors), QSpec with the W4A16
@@ -431,11 +438,12 @@ def phase_build():
     def spills(v: str) -> bool:      # "<regs>r <bytes>s ...": a spill entry
         return re.search(r" \d+s\b", v) is not None
     # the instantiations of the grouped GEMM <m16 tiles, N % 4 == 0>, of
-    # csrc/w4.cu <int8, m16 tiles, N % 4 == 0, whole mode> and of the norm
-    # <quant, gamma, residual, vectors a thread> in one entry each
+    # csrc/w4.cu <int8, m16 tiles, N % 4 == 0, whole mode>, of csrc/w8a16.cu
+    # <fp8, m16 tiles, N % 16 == 0, whole mode> and of the norm <quant,
+    # gamma, residual, vectors a thread> in one entry each
     rest = {k: v for k, v in short.items()
-            if not k.startswith(("attn", "w4a16_g", "w4_", "rmsnorm_kernel"))}
-    for prefix in ("w4a16_g", "w4_kernel", "rmsnorm_kernel"):
+            if not k.startswith(("attn", "w4a16_g", "w4_", "w8a16_kernel", "rmsnorm_kernel"))}
+    for prefix in ("w4a16_g", "w4_kernel", "w8a16_kernel", "rmsnorm_kernel"):
         group = {k: v for k, v in short.items() if k.startswith(prefix)}
         if group:
             g_regs = sorted(int(v.split("r")[0]) for v in group.values())
@@ -525,16 +533,22 @@ def _w8(gen, k, n, layers=None):
 
 
 def check_w8a16(gen, report):
-    """The int8 head at its shape (f32 out) and a stacked trunk shape
-    (bf16 out), at the JAX test's tolerance."""
+    """The int8 head at its shape (f32 out) at the verify's M = 16 and,
+    from a generator of their own (``gen`` draws what it drew before they
+    were added), the tree verify's 60 and one block's 64 rows; a stacked
+    trunk shape (bf16 out); at the JAX test's tolerance."""
     from qspec_tpu_torch.ops import linear_kernels as lk
     m, k, n = HEAD_SHAPE
     qw, qs = _w8(gen, k, n)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-    out = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
-    ref = lk.matmul_w8a16_ref(x, qw, qs, out_dtype=torch.float32)
-    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
-    err = (out - ref).abs().max().item()
+    x64 = torch.randn(64, k, generator=torch.Generator(device="cuda").manual_seed(11),
+                      device="cuda").to(torch.bfloat16)
+    err = 0.0
+    for xm in (x, x64[:60], x64):
+        out = lk.matmul_w8a16(xm, qw, qs, out_dtype=torch.float32)
+        ref = lk.matmul_w8a16_ref(xm, qw, qs, out_dtype=torch.float32)
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+        err = max(err, (out - ref).abs().max().item())
     del qw, qs, out, ref
     L, k, n = TRUNK_STACK
     qw, qs = _w8(gen, k, n, layers=L)
@@ -545,7 +559,7 @@ def check_w8a16(gen, report):
         err = max(err, (out.float() - ref.float()).abs().max().item())
     report["matmul_w8a16"].update(max_err=err, tol="rtol=atol=2e-2")
     log(f"check matmul_w8a16: max_abs_err {err:.3g} (tol rtol=atol=2e-2; head "
-        f"M,K,N={HEAD_SHAPE} f32 out, stacked L,K,N={TRUNK_STACK} bf16 out)")
+        f"M=16,60,64 K,N={HEAD_SHAPE[1:]} f32 out, stacked L,K,N={TRUNK_STACK} bf16 out)")
 
 
 GROUP = 128                         # AWQ / GPTQ group size of the 8B checkpoint
@@ -1646,8 +1660,10 @@ def time_kernels(gen, gen_w4, report, int4pack_missing):
     # the norms, alone and with the residual add, beside their launch floor
     time_norms(report)
 
-    # the int8 head: draft width M=4 and verify width M=16; the yardstick is
-    # torch._weight_int8pack_mm (same function, weights [N, K], bf16 out)
+    # the int8 head: draft width M=4, verify width M=16 and the tree verify's
+    # M=60 (its input from gen_w4, so gen draws what it drew before); the
+    # yardstick is torch._weight_int8pack_mm (same function, weights [N, K],
+    # bf16 out), at M=60 over 3 calls
     _, k, n = HEAD_SHAPE
     wbytes = k * n + 4 * n
     rot = Rotating(lambda: _w8(gen, k, n), wbytes)
@@ -1656,8 +1672,9 @@ def time_kernels(gen, gen_w4, report, int4pack_missing):
         qw, qs = _w8(gen, k, n)
         return qw.t().contiguous(), qs.to(torch.bfloat16)
     rot_t = Rotating(transposed, wbytes)
-    for m in (4, 16):
-        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    for m in (4, 16, 60):
+        x = torch.randn(m, k, generator=gen_w4 if m == 60 else gen,
+                        device="cuda").to(torch.bfloat16)
 
         def kern():
             qw, qs = rot.next()
@@ -1672,14 +1689,16 @@ def time_kernels(gen, gen_w4, report, int4pack_missing):
             torch._weight_int8pack_mm(x, qwt, qsb)
         nbytes = m * k * 2 + wbytes + m * n * 4
         b, kind = bound_ms(nbytes, 2 * m * k * n, "bf16")
-        t_k, t_p, t_l = graph_ms(kern), graph_ms(plain, reps=3), graph_ms(library)
+        t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
+        t_l = graph_ms(library, reps=3 if m == 60 else 20)
         log(f"time matmul_w8a16 M={m} K={k} N={n}: {t_k:.4f} ms, plain {t_p:.4f} ms, "
             f"_weight_int8pack_mm {t_l:.4f} ms, bound {b:.4f} ms ({kind}), "
-            f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s")
+            f"{nbytes / (t_k * 1e-3) / 1e9:.0f} GB/s", stdout=m == 16)
+        row = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b, bound_by=kind)
         if m == 16:
-            report["matmul_w8a16"].update(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                          bound_ms=b, bound_by=kind,
-                                          shape=f"lm_head M=16, K={k}, N={n}, f32 out")
+            report["matmul_w8a16"].update(row, shape=f"lm_head M=16, K={k}, N={n}, f32 out")
+        else:
+            report["matmul_w8a16"][f"head_m{m}"] = row
     del rot, rot_t
     torch.cuda.empty_cache()
 
@@ -5963,15 +5982,18 @@ def _w8_trunk_weights(gen, k, n, kind, layers=None):
 def check_w8a16_trunk(gen, report):
     """matmul_w8a16 over int8 and float8_e4m3fn weights against the plain
     version at Llama-3-8B's four trunk shapes (a 2-layer stack read in
-    place, M = 4 and 16, bf16 and f32 out) and the fp8 instantiation at the
-    head's (M = 16, f32 out); all 256 e4m3 codes decoded (NaN codes give
-    NaN); a row's bits independent of M (1 to 16) and of its place."""
+    place, M = 4, 16, 60 and 64, bf16 and f32 out) and the fp8
+    instantiation at the head's (M = 16, f32 out); all 256 e4m3 codes
+    decoded (NaN codes give NaN); a row's bits independent of M (1 to the
+    prefill threshold, 176 at K = 14336) and of its place; the torch.mm
+    branch past BIGM_BYTES (M = 1024 at K = 4096, 256 at 14336) against the
+    plain version, no kernel launched."""
     from qspec_tpu_torch.ops import linear_kernels as lk
     errs = {"int8": 0.0, "fp8": 0.0}
     for kind in ("int8", "fp8"):
         for k, n in W8_TRUNK:
             qw, qs = _w8_trunk_weights(gen, k, n, kind, layers=2)
-            for m in (4, 16):
+            for m in (4, 16, 60, 64):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                 for li in (0, 1):
                     for dt in (torch.float32, torch.bfloat16):
@@ -5999,21 +6021,37 @@ def check_w8a16_trunk(gen, report):
                           torch.ones(N, device="cuda"), out_dtype=torch.float32)
     if not (torch.equal(out[:, 8:], w.to(torch.float32)[:, 8:]) and out[:, :8].isnan().all()):
         raise AssertionError("matmul_w8a16 fp8: an e4m3 code decodes wrong")
-    # a row's bits across M and place, at the down projection's shape
+    # a row's bits across M (split mode to 64 rows, whole mode past them) and
+    # place, at the down projection's shape
+    k, n = W8_TRUNK[3]
+    mbig = _max_kernel_m(k)
     for kind in ("int8", "fp8"):
-        qw, qs = _w8_trunk_weights(gen, *W8_TRUNK[3], kind)
-        x = torch.randn(16, W8_TRUNK[3][0], generator=gen, device="cuda").to(torch.bfloat16)
+        qw, qs = _w8_trunk_weights(gen, k, n, kind)
+        x = torch.randn(mbig, k, generator=gen, device="cuda").to(torch.bfloat16)
         full = lk.matmul_w8a16(x, qw, qs)
         same = all(torch.equal(lk.matmul_w8a16(x[:mm].contiguous(), qw, qs), full[:mm])
-                   for mm in range(1, 17))
+                   for mm in (*range(1, 17), 33, 60, 64, 65, 100))
         if not (same and torch.equal(lk.matmul_w8a16(x.flip(0).contiguous(), qw, qs),
                                      full.flip(0))):
             raise AssertionError(f"matmul_w8a16 {kind}: a row's bits depend on M or place")
-    report["matmul_w8a16"]["trunk_max_err"] = errs["int8"]
+    # the torch.mm branch past BIGM_BYTES: no launch, the plain version's result
+    err_mm = 0.0
+    launched = (lk.matmul_w8a16.launches, lk.matmul_w8a16_fp8.launches)
+    for kind in ("int8", "fp8"):
+        for (k, n), m in ((W8_TRUNK[1], 1024), (W8_TRUNK[3], 256)):
+            qw, qs = _w8_trunk_weights(gen, k, n, kind)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            out = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
+            ref = lk.matmul_w8a16_ref(x, qw, qs, out_dtype=torch.float32)
+            torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+            err_mm = max(err_mm, (out - ref).abs().max().item())
+    if (lk.matmul_w8a16.launches, lk.matmul_w8a16_fp8.launches) != launched:
+        raise AssertionError("matmul_w8a16 past BIGM_BYTES launched the kernel")
+    report["matmul_w8a16"].update(trunk_max_err=errs["int8"], bigm_max_err=err_mm)
     report["matmul_w8a16_fp8"].update(max_err=errs["fp8"], tol="rtol=atol=2e-2")
-    log(f"check matmul_w8a16 trunk (8B qkv/o/gate_up/down stacked, M=4,16; fp8 head): "
+    log(f"check matmul_w8a16 trunk (8B qkv/o/gate_up/down stacked, M=4,16,60,64; fp8 head): "
         f"max_abs_err int8 {errs['int8']:.3g}, fp8 {errs['fp8']:.3g} (tol 2e-2); 256 e4m3 "
-        "codes exact; row bits independent of M, place")
+        f"codes exact; row bits independent of M, place; torch.mm branch {err_mm:.3g}")
 
 
 def time_w8a16_trunk(gen, report):
@@ -6036,7 +6074,7 @@ def time_w8a16_trunk(gen, report):
         for m in (4, 16):
             xs = [torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                   for k, _ in W8_TRUNK]
-            per = []
+            per, t_down = [], None
             tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0 if rot_t else None}
             for i, (k, n) in enumerate(W8_TRUNK):
                 def kern(i=i):
@@ -6053,18 +6091,24 @@ def time_w8a16_trunk(gen, report):
                 t_k, t_p = graph_ms(kern), graph_ms(plain, reps=3)
                 tot["ms"] += t_k
                 tot["plain_ms"] += t_p
+                t_l = graph_ms(library) if rot_t else None
                 if rot_t:
-                    tot["library_ms"] += graph_ms(library)
+                    tot["library_ms"] += t_l
                 per.append(f"{W8_TRUNK_NAMES[i]} {t_k:.4f}")
+                if W8_TRUNK_NAMES[i] == "down":
+                    b_d = bound_ms(m * k * 2 + k * n + 4 * n + m * n * 2, 2 * m * k * n, "bf16")
+                    t_down = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_d[0],
+                              "bound_by": b_d[1]}
             nbytes = sum(m * k * 2 + k * n + 4 * n + m * n * 2 for k, n in W8_TRUNK)
             b, kind_b = bound_ms(nbytes, sum(2 * m * k * n for k, n in W8_TRUNK), "bf16")
             r = {**tot, "bound_ms": b, "bound_by": kind_b,
                  "gb_per_s": nbytes / (tot["ms"] * 1e-3) / 1e9,
-                 "per_projection_ms": per}
+                 "per_projection_ms": per, "down": t_down}
             rows[(kind, m)] = r
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
             log(f"time matmul_w8a16 {kind} trunk, one Llama-3-8B layer M={m} ({', '.join(per)} "
-                f"ms; down: {(W8_TRUNK[3][1] + 63) // 64} blocks of 64 columns on "
-                f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs): "
+                f"ms; down alone bound {t_down['bound_ms']:.4f}, "
+                f"{lk.w8_workers(*W8_TRUNK[3], sms)} runs on {sms} SMs): "
                 f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}"
                 + (f", _weight_int8pack_mm {tot['library_ms']:.4f}" if rot_t else
                    ", library none") + f", bound {b:.4f} ({kind_b}), "
@@ -6081,10 +6125,12 @@ def time_w8a16_trunk(gen, report):
     report["matmul_w8a16_fp8"].update(
         {f: rows[("fp8", 16)][f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                             "bound_by")},
-        shape=shape, m4={f: rows[("fp8", 4)][f] for f in ("ms", "plain_ms", "bound_ms")})
+        shape=shape, m4={f: rows[("fp8", 4)][f] for f in ("ms", "plain_ms", "bound_ms")},
+        down={f"m{m}": rows[("fp8", m)]["down"] for m in (4, 16)})
     report["matmul_w8a16"]["trunk"] = {
         f"m{m}": {f: rows[("int8", m)][f] for f in ("ms", "plain_ms", "library_ms",
-                                                    "bound_ms", "bound_by")} for m in (4, 16)}
+                                                    "bound_ms", "bound_by", "down")}
+        for m in (4, 16)}
 
 
 def time_w4a16_g32(gen, report, int4pack_missing):
@@ -6724,7 +6770,7 @@ def main():
             extra["gemma2_tree_launches"] = gemma["tree"][0][name]
         elif name == "matmul_w8a16_fp8":
             n_launch, where = ct8b["M2a"][0][name], "llama3-8b ct fp8, w4a16 draft, window 64"
-            extra["m4"] = r["m4"]
+            extra.update(m4=r["m4"], down=r["down"])
         elif name.startswith("paged_attention_fp8"):
             dt = name.split("_", 2)[2]
             n_launch, where = tiny[dt][name], f"tiny, int8 head, {dt} KV, w4a4 draft"
@@ -6775,7 +6821,7 @@ def main():
         ct_launch = {k: v[name] for k, v in ct_paths.items() if v.get(name)}
         if ct_launch:
             extra["ct_launches"] = ct_launch
-        for key in ("trunk", "trunk_max_err", "g32"):
+        for key in ("trunk", "trunk_max_err", "g32", "head_m4", "head_m60", "bigm_max_err"):
             if key in r:
                 extra[key] = r[key]
         k_launch = {k: v[name] for k, v in k_paths.items() if v.get(name)}
@@ -6911,13 +6957,51 @@ def ab_norms_ms() -> dict:
     return out
 
 
+# matmul_w8a16's --ab shapes: (label, [(K, N)], M, weight type): one
+# Llama-3-8B trunk layer (time_w8a16_trunk's, bf16 out) over int8 and fp8 at
+# the draft's M = 4 and the verify's 16, its down projection alone, and
+# (f32 out) the int8 head at the draft's 4, the verify's 16 and the tree
+# verify's 60 (time_kernels'), and Qwen1.5-MoE's and Qwen2-7B's heads
+# (time_moe_shapes', time_dense_shapes')
+W8_AB = (*((f"w8_trunk_{kind}_m{m}", W8_TRUNK, m, kind) for kind in ("int8", "fp8")
+           for m in (4, 16)),
+         *((f"w8_down_{kind}_m{m}", W8_TRUNK[3:], m, kind) for kind in ("int8", "fp8")
+           for m in (4, 16)),
+         *((f"w8_head_m{m}", (HEAD_SHAPE[1:],), m, "head") for m in (4, 16, 60)),
+         *((f"w8_head_qwen15moe_m{m}", (MOE_HEAD,), m, "head") for m in MOE_M),
+         *((f"w8_head_qwen2_7b_m{m}", (DENSE_HEADS["qwen2-7b"],), m, "head") for m in DENSE_M))
+
+
+def w8_ms(gen, shapes, m: int, kind: str) -> list:
+    """Kernel ms of matmul_w8a16 at each (K, N) of ``shapes``, M = ``m``:
+    trunk weights of ``kind`` (int8 / fp8) made by the compressed-tensors
+    writers, bf16 out; ``kind`` "head": int8 head weights
+    (quantize_weight_int8_torch), f32 out. Each input set rotated past L2,
+    CUDA-graph replays (graph_ms)."""
+    from qspec_tpu_torch.ops import linear_kernels as lk
+    head = kind == "head"
+    out_dtype = torch.float32 if head else torch.bfloat16
+    per = []
+    for k, n in shapes:
+        rot = Rotating(lambda k=k, n=n: _w8(gen, k, n) if head else
+                       _w8_trunk_weights(gen, k, n, kind), k * n + 4 * n)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        per.append(graph_ms(lambda: lk.matmul_w8a16(x, *rot.next(), out_dtype=out_dtype),
+                            reps=max(20, len(rot.sets))))
+        del rot
+        torch.cuda.empty_cache()
+    return per
+
+
 def ab_child(root: str):
     """One checkout's attention times at AB_SHAPES and at the 36
     instantiations, its grouped GEMM's per layer (the four projections,
     kernel only, weights made by that checkout's model_loader.grouped) of
     Llama-3-8B and Gemma-2-9B at M = 4, 16 and 60, its matmul_w4a16 and
-    matmul_w4a4 at W4_TIMED (kernel only), and those kernels' ptxas
-    registers and spills, as one JSON line (--ab's child process)."""
+    matmul_w4a4 at W4_TIMED (kernel only), its norms at NORM_TIMED, its
+    matmul_w8a16 at W8_AB (kernel only, weights made by that checkout's
+    writers), and those kernels' ptxas registers and spills, as one JSON
+    line (--ab's child process)."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     from qspec_tpu_torch import _build
@@ -6943,10 +7027,14 @@ def ab_child(root: str):
         r = time_w4_layer(gen, name, m, head=key == "head", plain=False, library=False)
         out[f"{name[7:]}_m{m}" + ("_head" if key == "head" else "")] = [r["ms"], r["per"]]
     out.update(ab_norms_ms())
+    gen_w8 = torch.Generator(device="cuda").manual_seed(12)
+    for label, shapes, m, kind in W8_AB:
+        per = w8_ms(gen_w8, shapes, m, kind)
+        out[label] = [sum(per), per]
     regs = {_kernel_name(k): [v.get("regs"), v.get("spill_stores", 0)]
             for k, v in _build.build_info.get("ptxas", {}).items()
             if any(f in k for f in ("paged_attention", "w4a16_g", "w4_kernel", "w4a4_kernel",
-                                    "w4a16_kernel", "rmsnorm_kernel"))}
+                                    "w4a16_kernel", "w8a16_kernel", "rmsnorm_kernel"))}
     print(json.dumps({"checkout": root, "ms": out, "instantiations_ms": inst,
                       "ptxas_regs_spills": regs}, separators=(",", ":")), flush=True)
 

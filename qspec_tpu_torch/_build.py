@@ -49,8 +49,8 @@ SIGNATURES = {
     "qspec_w4a16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "qspec_w4a16_g": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "qspec_w4a4": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "qspec_w8a16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "qspec_w8a16_fp8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qspec_w8a16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "qspec_w8a16_fp8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "qspec_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     "qspec_rmsnorm_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     "qspec_norm_launch_floor": (_I, _I, _P),

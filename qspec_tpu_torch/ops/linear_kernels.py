@@ -37,9 +37,12 @@ scales serves
   f32 accumulation (kernel ``csrc/w8a16.cu``, one instantiation per weight
   type): the int8 lm_head of the quantized checkpoints and the W8A16 trunk
   of compressed-tensors checkpoints (quant="w8", model_loader/ct.py), int8
-  (``int-quantized``) or fp8 (``float-quantized``). Past the same prefill
-  threshold it is one ``torch.mm`` over the weights widened to bf16, with an
-  f32 result, as the JAX package leaves that case to XLA.
+  (``int-quantized``) or fp8 (``float-quantized``). It cuts the weight's
+  (128-column stripe, 128-k stage) units into ``w8_workers`` equal runs and
+  adds a stripe's pieces in a fixed order, as ``csrc/w4.cu`` does
+  (``matmul_w8_split_ref`` is that order in plain PyTorch). Past the same
+  prefill threshold it is one ``torch.mm`` over the weights widened to bf16,
+  with an f32 result, as the JAX package leaves that case to XLA.
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; each launch adds one to the
@@ -282,7 +285,8 @@ def w4g_plan(m: int, k: int, n: int, G: int, n_sm: int) -> tuple:
             -(-n // W4G_COLS) * -(-m // 64))
 
 
-# per device: the split counters of csrc/w4a16_g.cu and csrc/w4.cu, int32
+# per device: the split counters of csrc/w4a16_g.cu, csrc/w4.cu and
+# csrc/w8a16.cu, int32
 # zeros that each launch leaves at zero (so launches on one device must not
 # overlap in time on two streams), at least SPLIT_COUNTERS of them
 _SPLIT_COUNTERS: dict = {}
@@ -293,7 +297,7 @@ def _split_counters(x: torch.Tensor, tiles: int) -> torch.Tensor:
     buf = _SPLIT_COUNTERS.get(x.device)
     if buf is None or buf.numel() < tiles:
         _build.require(not torch.cuda.is_current_stream_capturing(),
-                       "the int4 GEMMs' split counters are allocated at their first "
+                       "the split GEMMs' counters are allocated at their first "
                        "call on a device: make one before a CUDA graph capture")
         buf = torch.zeros(max(tiles, SPLIT_COUNTERS), dtype=torch.int32, device=x.device)
         _SPLIT_COUNTERS[x.device] = buf
@@ -306,6 +310,25 @@ def _split_counters(x: torch.Tensor, tiles: int) -> torch.Tensor:
 W4_COLS = 128
 W4_STAGE_K = 256
 W4_BLOCK_ROWS = 64
+
+
+def _stream_k_runs(units: int, p: int) -> list:
+    """[(first, end)] of ``p`` runs cutting ``units`` units in order: run i
+    takes [i U / P, (i + 1) U / P)."""
+    return [(i * units // p, (i + 1) * units // p) for i in range(p)]
+
+
+def _stream_k_segments(runs: list, stripes: int, T: int, unit_k: int, end_k: int) -> list:
+    """Per stripe of ``T`` units of ``unit_k`` k each, the k range [a, b) of
+    each run's piece of it (clipped at ``end_k``), in run order."""
+    segs = [[] for _ in range(stripes)]
+    for u0, u1 in runs:
+        u = u0
+        while u < u1:
+            s, end = u // T, min(u1, (u // T + 1) * T)
+            segs[s].append(((u - s * T) * unit_k, min((end - s * T) * unit_k, end_k)))
+            u = end
+    return segs
 
 
 @functools.lru_cache(maxsize=None)
@@ -323,24 +346,15 @@ def w4_workers(k: int, n: int, n_sm: int) -> int:
 def w4_runs(k: int, n: int, n_sm: int) -> list:
     """[(first, end)] units of each run of csrc/w4.cu, in block order."""
     units = -(-n // W4_COLS) * -(-k // W4_STAGE_K)
-    p = w4_workers(k, n, n_sm)
-    return [(i * units // p, (i + 1) * units // p) for i in range(p)]
+    return _stream_k_runs(units, w4_workers(k, n, n_sm))
 
 
 def w4_segments(k: int, n: int, n_sm: int) -> list:
     """Per 128-column stripe, its segments in the order csrc/w4.cu adds
     them: the k range [a, b) of each nibble plane that one run covers (of
     the low plane; the high plane's are K/2 + a .. K/2 + b)."""
-    T = -(-k // W4_STAGE_K)
-    half = W4_STAGE_K // 2
-    segs = [[] for _ in range(-(-n // W4_COLS))]
-    for u0, u1 in w4_runs(k, n, n_sm):
-        u = u0
-        while u < u1:
-            s, end = u // T, min(u1, (u // T + 1) * T)
-            segs[s].append(((u - s * T) * half, min((end - s * T) * half, k // 2)))
-            u = end
-    return segs
+    return _stream_k_segments(w4_runs(k, n, n_sm), -(-n // W4_COLS), -(-k // W4_STAGE_K),
+                              W4_STAGE_K // 2, k // 2)
 
 
 def w4_plan(m: int, k: int, n: int, n_sm: int) -> tuple:
@@ -486,6 +500,88 @@ matmul_w4a4.launches = 0
 # the weight types of matmul_w8a16 -> the exported kernel of each
 W8_KERNELS = {torch.int8: "qspec_w8a16", torch.float8_e4m3fn: "qspec_w8a16_fp8"}
 
+# csrc/w8a16.cu's tiling: output columns (weight bytes a row) per stripe, k
+# per pipeline stage (a 16 KB unit), the rows a block carries (past them, a
+# block owns one 64-row block of one stripe over all of K: no workspace)
+W8_COLS = 128
+W8_STAGE_K = 128
+W8_BLOCK_ROWS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def w8_workers(k: int, n: int, n_sm: int) -> int:
+    """The number of runs P that csrc/w8a16.cu cuts a [K, N] byte weight
+    into on a card of ``n_sm`` SMs: the U = ceil(N / 128) ceil(K / 128)
+    (128-column stripe, 128-k stage) units, stripe after stripe, cut into P =
+    min(n_sm, U) runs of equal length, one a block (w4_workers' plan at
+    other units). A function of the weight's shape and the card only, never
+    of M."""
+    return min(n_sm, -(-n // W8_COLS) * -(-k // W8_STAGE_K))
+
+
+def w8_runs(k: int, n: int, n_sm: int) -> list:
+    """[(first, end)] units of each run of csrc/w8a16.cu, in block order."""
+    units = -(-n // W8_COLS) * -(-k // W8_STAGE_K)
+    return _stream_k_runs(units, w8_workers(k, n, n_sm))
+
+
+def w8_segments(k: int, n: int, n_sm: int) -> list:
+    """Per 128-column stripe, its segments in the order csrc/w8a16.cu adds
+    them: the k range [a, b) that one run covers."""
+    return _stream_k_segments(w8_runs(k, n, n_sm), -(-n // W8_COLS), -(-k // W8_STAGE_K),
+                              W8_STAGE_K, k)
+
+
+def w8_plan(m: int, k: int, n: int, n_sm: int) -> tuple:
+    """(runs, whole mode, workspace slots) of one csrc/w8a16.cu launch at M
+    = ``m``: the runs do not depend on ``m``; past 64 rows the kernel takes
+    its whole mode (a block per 64-row block and stripe, the same segments
+    added in the same order inside it), which needs no workspace."""
+    workers = w8_workers(k, n, n_sm)
+    whole = m > W8_BLOCK_ROWS
+    return workers, whole, 0 if whole else 2 * workers
+
+
+def _check_w8_call(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, out_dtype) -> tuple:
+    """(M, K, N) of a call matmul_w8a16 takes on the card; raises otherwise.
+    Past the prefill threshold (the torch.mm branch) only the weight type and
+    the shapes are checked."""
+    _build.require(w.dtype in W8_KERNELS,
+                   f"matmul_w8a16: int8 or float8_e4m3fn weights, got {w.dtype}")
+    m, k = x.shape
+    _build.require(w.dim() == 2 and w.shape[0] == k,
+                   f"matmul_w8a16: weights [K, N] with K={k}")
+    n = w.shape[1]
+    _build.require(s.dtype == torch.float32 and tuple(s.shape) == (n,),
+                   "matmul_w8a16: weight scales f32 [N]")
+    if not _bigm(m, k):
+        _build.require(k % 16 == 0 and n % 8 == 0,
+                       f"matmul_w8a16: K % 16 == 0 and N % 8 == 0, got K={k} N={n}")
+        _build.require(x.dtype == torch.bfloat16, "matmul_w8a16: x bf16")
+        _build.require(out_dtype in (torch.bfloat16, torch.float32),
+                       "matmul_w8a16: out_dtype bf16 or f32")
+    return m, k, n
+
+
+def matmul_w8_split_ref(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor, *,
+                        n_sm: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """csrc/w8a16.cu's order of sums in plain PyTorch: per stripe, each
+    segment's sum (exact in float64) rounded to f32, the segments added in
+    block order in f32, then the plain version's epilogue."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    w = w_q.to(torch.float64)
+    xd = x.to(torch.bfloat16).to(torch.float64)
+    acc = torch.empty((m, n), dtype=torch.float32)
+    for s, segs in enumerate(w8_segments(k, n, n_sm)):
+        cols = slice(s * W8_COLS, min((s + 1) * W8_COLS, n))
+        total = None
+        for a, b in segs:
+            part = (xd[:, a:b] @ w[a:b, cols]).to(torch.float32)
+            total = part if total is None else total + part
+        acc[:, cols] = total
+    return (acc * w_scales.to(torch.float32)[None, :]).to(out_dtype)
+
 
 def matmul_w8a16(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *, out_dtype=torch.bfloat16,
@@ -493,36 +589,34 @@ def matmul_w8a16(x: torch.Tensor, w_q: torch.Tensor, w_scales: torch.Tensor,
     """x [M, K] bf16 @ byte weights w [K, N], int8 or float8_e4m3fn
     (per-channel scales [N]) -> [M, N] out_dtype. With ``layer_idx`` the
     weights are the stacked [L, K, N] / [L, N] arrays and the kernel reads
-    layer ``layer_idx`` in place."""
+    layer ``layer_idx`` in place. The kernel cuts the weight into
+    ``w8_workers`` equal runs, one a block; a stripe's pieces go to an f32
+    workspace and are added in a fixed order inside the launch (one launch
+    a call)."""
     w, s = _layer(layer_idx, w_q, w_scales)
     _build.require(w.dtype in W8_KERNELS,
                    f"matmul_w8a16: int8 or float8_e4m3fn weights, got {w.dtype}")
     if not x.is_cuda:
         return matmul_w8a16_ref(x, w, s, bias, out_dtype=out_dtype)
-    m, k = x.shape
-    _build.require(w.dim() == 2 and w.shape[0] == k,
-                   f"matmul_w8a16: weights [K, N] with K={k}")
-    n = w.shape[1]
-    _build.require(s.dtype == torch.float32 and tuple(s.shape) == (n,),
-                   "matmul_w8a16: weight scales f32 [N]")
+    m, k, n = _check_w8_call(x, w, s, out_dtype)
     if _bigm(m, k):
         # prefill width: widen the weights once, one bf16 GEMM, f32 result
         acc = torch.mm(x.to(torch.bfloat16), w.to(torch.bfloat16),
                        out_dtype=torch.float32)
         out = (acc * s[None, :]).to(out_dtype)
     else:
-        _build.require(k % 16 == 0 and n % 8 == 0,
-                       f"matmul_w8a16: K % 16 == 0 and N % 8 == 0, got K={k} N={n}")
-        _build.require(x.dtype == torch.bfloat16, "matmul_w8a16: x bf16")
-        _build.require(out_dtype in (torch.bfloat16, torch.float32),
-                       "matmul_w8a16: out_dtype bf16 or f32")
         out = torch.empty((m, n), dtype=out_dtype, device=x.device)
         if m:
-            _build.cuda_args_ok(x, w, s, out)
+            workers, _, slots = w8_plan(m, k, n, _build.sm_count(x.device))
+            ws = (torch.empty((slots, m, W8_COLS), dtype=torch.float32, device=x.device)
+                  if slots else out)
+            counters = _split_counters(x, -(-n // W8_COLS))
+            _build.cuda_args_ok(x, w, s, out, ws)
             kernel = W8_KERNELS[w.dtype]
             _build.check(f"matmul_w8a16 ({w.dtype})", getattr(_build.lib(), kernel)(
-                x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                m, k, n, int(out_dtype == torch.float32), _build.stream_of(x)))
+                x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                counters.data_ptr(), m, k, n, workers, int(out_dtype == torch.float32),
+                _build.stream_of(x)))
             W8_COUNTERS[w.dtype].launches += 1
     if bias is not None:
         out = out + bias[None, :].to(out.dtype)

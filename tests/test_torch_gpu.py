@@ -1876,3 +1876,106 @@ def test_w8a16_rows_independent_of_m_and_place(gen, kind):
         assert torch.equal(lk.matmul_w8a16(x[:m].contiguous(), qw, qs), full[:m])
     assert torch.equal(lk.matmul_w8a16(x.flip(0).contiguous(), qw, qs), full.flip(0))
     assert torch.equal(lk.matmul_w8a16(x[7:8].contiguous(), qw, qs), full[7:8])
+
+
+# ------------------------------ matmul_w8a16's stream-K plan (csrc/w8a16.cu)
+
+W8_KS = (256, 4096, 14336)
+W8_NS = (200, 4096, 128256)            # 200: not a multiple of the 128-column stripe
+W8_MS = (1, 4, 16, 17, 60, 64, 65, 200, 640)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("n", W8_NS)
+@pytest.mark.parametrize("k", W8_KS)
+def test_w8a16_kernel_against_plain_across_m(gen, kind, k, n):
+    """Both weight types against the plain version at M = 1 .. 640 (split
+    mode to 64 rows, whole mode past them, the torch.mm branch past the
+    prefill threshold: M > 176 at K = 14336), read in place from a 2-layer
+    stack, f32 and bf16 out (the JAX tests' rtol = atol = 2e-2)."""
+    qw, qs = _w8_weights(gen, k, n, kind, layers=2)
+    x = torch.randn(max(W8_MS), k, generator=gen, device="cuda").to(torch.bfloat16)
+    for m in W8_MS:
+        for dt in (torch.float32, torch.bfloat16):
+            out = lk.matmul_w8a16(x[:m], qw, qs, out_dtype=dt, layer_idx=1)
+            assert out.dtype == dt and tuple(out.shape) == (m, n)
+            torch.testing.assert_close(out.float(), lk.matmul_w8a16_ref(
+                x[:m], qw[1], qs[1], out_dtype=dt).float(), rtol=2e-2, atol=2e-2)
+
+
+def _w8_integer_inputs(gen, m, k, n, kind):
+    """Inputs whose every segment sum is an integer under 2^24, so the
+    kernel's sums inside a segment are exact in f32 whatever their order,
+    while a stripe's total (K = 14336: about 2^25) rounds where the segments
+    are added: x in 128..255 (bf16 integers), weights in 8..15 (int8 and
+    e4m3 integers alike), scales 1."""
+    x = torch.randint(128, 256, (m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(8, 16, (k, n), generator=gen, device="cuda")
+    w = w.float().to(torch.float8_e4m3fn) if kind == "fp8" else w.to(torch.int8)
+    return x, w, torch.ones(n, device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("k,n", [*W8_TRUNK, W8_HEAD])
+def test_w8a16_kernel_bits_equal_split_model(gen, kind, k, n):
+    """The kernel is bit for bit matmul_w8_split_ref (its segments, added in
+    block order) at the Llama-3-8B trunk and head shapes, M = 4, 16, 60 and
+    100 (whole mode), f32 and bf16 out; at the down projection (K = 14336)
+    the fold rounds, and the split model differs from the plain version."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    x, w, s = _w8_integer_inputs(gen, 100, k, n, kind)
+    for m in (4, 16, 60, 100):
+        want = lk.matmul_w8_split_ref(x[:m].cpu(), w.cpu(), s.cpu(), n_sm=n_sm,
+                                      out_dtype=torch.float32)
+        out = lk.matmul_w8a16(x[:m], w, s, out_dtype=torch.float32).cpu()
+        assert torch.equal(out, want), (m, (out - want).abs().max().item())
+        assert torch.equal(lk.matmul_w8a16(x[:m], w, s).cpu(), want.to(torch.bfloat16))
+        if k == 14336:
+            plain = lk.matmul_w8a16_ref(x[:m].cpu(), w.cpu(), s.cpu(), out_dtype=torch.float32)
+            assert not torch.equal(want, plain)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 128256), (14336, 4096), (448, 200)])
+def test_w8a16_kernel_row_bits(gen, kind, k, n):
+    """A row's bits do not depend on M (1 to the largest M the kernel takes
+    before the prefill branch: split mode to 64 rows, whole mode past
+    them), on its place in the batch or the batch's order, and equal a
+    second call's and a CUDA-graph replay's, at split shapes (o, down) and
+    at the head's (most stripes one block's) and a 2-stripe one."""
+    qw, qs = _w8_weights(gen, k, n, kind)
+    mbig = max(m for m in range(1, 1025) if not lk._bigm(m, k))
+    x = torch.randn(mbig, k, generator=gen, device="cuda").to(torch.bfloat16)
+    full = lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32)
+    assert torch.equal(lk.matmul_w8a16(x, qw, qs, out_dtype=torch.float32), full)
+    for m in (1, 4, 8, 15, 16, 17, 33, 48, 60, 64, 65, 128, 200, 640):
+        if m <= mbig:
+            assert torch.equal(lk.matmul_w8a16(x[:m], qw, qs, out_dtype=torch.float32),
+                               full[:m]), m
+    for rows in (slice(5, 9), slice(mbig // 2, mbig // 2 + 60), slice(3, mbig)):
+        assert torch.equal(lk.matmul_w8a16(x[rows].contiguous(), qw, qs,
+                                           out_dtype=torch.float32), full[rows])
+    assert torch.equal(lk.matmul_w8a16(x.flip(0).contiguous(), qw, qs, out_dtype=torch.float32),
+                       full.flip(0))
+    for m in (4, 16, 60, min(mbig, 100)):
+        want = full[:m].to(torch.bfloat16)
+        assert _replayed(lambda m=m: lk.matmul_w8a16(x[:m], qw, qs), want), m
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", [(1024, 4096, 4096), (256, 14336, 4096)])
+def test_w8a16_torch_mm_branch(gen, kind, m, k, n):
+    """Past BIGM_BYTES (M > 640 at K = 4096, M > 176 at 14336) matmul_w8a16
+    is one torch.mm over the weights widened to bf16, f32 result: no kernel
+    launch, and the plain version's result within rtol = atol = 2e-2."""
+    qw, qs = _w8_weights(gen, k, n, kind)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    assert lk._bigm(m, k)
+    counters = kernel_wrappers()
+    before = (counters["matmul_w8a16"].launches, counters["matmul_w8a16_fp8"].launches)
+    for dt in (torch.float32, torch.bfloat16):
+        out = lk.matmul_w8a16(x, qw, qs, out_dtype=dt)
+        assert out.dtype == dt and tuple(out.shape) == (m, n)
+        torch.testing.assert_close(out.float(), lk.matmul_w8a16_ref(x, qw, qs, out_dtype=dt).float(),
+                                   rtol=2e-2, atol=2e-2)
+    assert (counters["matmul_w8a16"].launches, counters["matmul_w8a16_fp8"].launches) == before
