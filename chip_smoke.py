@@ -228,10 +228,10 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    ``load_path`` from a directory written here; prompts on slots 0, a, b, a
    == qspec_null, slot 0 == (A), each adapter row unlike (A)'s, exactly
    qspec_launches' counts (the kernel line's ``lora_launches``); (L2) swap
-   preemption in an 8-page pool over bf16 and int8 KV == the same engine
-   with pages to spare, sequences swapped out and in; recompute mode and a
-   0 GiB swap pool == each other and == the unconstrained run up to the
-   preemption; (L3) a soft prompt of 8 rows == the same rows given as
+   preemption in an 8-page pool over bf16 and int8 KV, on (A)'s first
+   L_SWAP_LAYERS layers, == the same engine with pages to spare,
+   sequences swapped out and in; recompute mode and a 0 GiB swap pool ==
+   each other and == the unconstrained run up to the preemption; (L3) a soft prompt of 8 rows == the same rows given as
    ``prompt_embeds``, == qspec_null; (L4) ``LLM.beam_search`` (width 4, 8
    tokens, 2 prompts): distinct sorted beams, each cumulative logprob within
    L_BEAM_TOL of a teacher-forced re-scoring; (L5) the LoRA routes over HTTP
@@ -258,15 +258,35 @@ Phases (any failure raises and the script exits non-zero, printing no result):
    32) and a compressed-tensors fp8 directory through LLM(model=<dir>),
    each == qspec_null, the directory's replies == the state-dict route's
    (phase_ct_8b, phase_ct_induction, phase_ct_dirs; the kernel line's
-   ``ct_launches``).
+   ``ct_launches``);
+23. multi-head latent attention (N): the attention kernel's MLA
+   instantiations (head dims 384 and 640, each KV entry type) at
+   MiniCPM3-4B's 40, DeepSeek-V2-Lite's 16 and DeepSeek-V3's 128 query
+   heads over one latent row, Q = 1, 4 and 64, and the gamma rmsnorm at
+   the MLA widths (hidden 2560 / 2048 / 7168, latents 768 / 1536 / 256 /
+   512) against their plain versions, and the attention timed at the
+   verify over every KV type (check_mla_shapes, time_mla_shapes; the
+   kernel line's ``mla_max_err`` and ``mla_times``); (N1) MiniCPM3-4B at
+   full width and depth (62 layers, q-LoRA, the muP scales, the tied head),
+   random bf16 made on the card in its own keys, converted by
+   load_family_float there, greedy n-gram (k = 3) == greedy AR over a bf16
+   and an int8 latent cache; (N2) DeepSeek-V2-Lite at full width, N2_LAYERS
+   of its 27 layers (the dense first, 3 MoE layers of 64 experts), the
+   same; (N3) LLM(model=<dir>, quantization=None) on 2-layer
+   DeepSeek-V2-Lite and MiniCPM3-4B directories, the same, the default
+   quantization refused before a weight is read; each run launches exactly
+   the gamma rmsnorm and the attention instantiation of its cache, every
+   attention launch at the latent head dim (mla_run; the kernel line's
+   ``mla_launches``).
 
 It prints the kernel summary as one JSON line (each kernel's summary
 fields, its times at Qwen2-7B's shapes, ``qwen2_7b``, at (J)'s, ``j_times``,
-and at (K)'s, ``k_times``: ms, plain ms, bound ms, library ms) and, last,
+at (K)'s, ``k_times``, and at (N)'s, ``mla_times``: ms, plain ms, bound
+ms, library ms) and, last,
 the device JSON line. Every line also
 goes to chiprun_out/chip_smoke.log, which alone has the per-case detail the
 standard output gives in short (the kernels line with every field and its
-launches in the paths of phases 12-21, the kernels' full `-Xptxas -v`
+launches in the paths of phases 12-23, the kernels' full `-Xptxas -v`
 summary, each tiny forward check, each long attention check, each
 grouped-GEMM shape's time).
 """
@@ -412,8 +432,11 @@ def phase_build():
     from qspec_tpu_torch import _build
     t0 = time.perf_counter()
     _build.lib()
+    per = _build.build_info.get("compile_seconds", {})
+    log(f"build: per object {json.dumps(per)}", stdout=False)
+    slowest = max(per, key=per.get) if per else None
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.build_info['seconds']:.2f} s, "
-        f"per source {json.dumps(_build.build_info.get('compile_seconds', {}))})")
+        f"{len(per)} objects, the slowest {slowest} {per.get(slowest, 0):.2f} s)")
     # registers (r), spilled bytes (s) and static shared memory per kernel;
     # attn<entry, scaled, head dim, softcap, tree, alibi> is
     # paged_attention_kernel; in full to the log file, in short to stdout
@@ -439,11 +462,13 @@ def phase_build():
         return re.search(r" \d+s\b", v) is not None
     # the instantiations of the grouped GEMM <m16 tiles, N % 4 == 0>, of
     # csrc/w4.cu <int8, m16 tiles, N % 4 == 0, whole mode>, of csrc/w8a16.cu
-    # <fp8, m16 tiles, N % 16 == 0, whole mode> and of the norm <quant,
-    # gamma, residual, vectors a thread> in one entry each
-    rest = {k: v for k, v in short.items()
-            if not k.startswith(("attn", "w4a16_g", "w4_", "w8a16_kernel", "rmsnorm_kernel"))}
-    for prefix in ("w4a16_g", "w4_kernel", "w8a16_kernel", "rmsnorm_kernel"):
+    # <fp8, m16 tiles, N % 16 == 0, whole mode>, of the norm <quant, gamma,
+    # residual, vectors a thread>, of the MLA attention <entry type, scaled,
+    # head dim> and of the split merge <head dim> in one entry each
+    groups = ("w4a16_g", "w4_kernel", "w8a16_kernel", "rmsnorm_kernel",
+              "paged_attention_mla_kernel", "paged_attention_merge_kernel")
+    rest = {k: v for k, v in short.items() if not k.startswith(("attn", "w4_", *groups))}
+    for prefix in groups:
         group = {k: v for k, v in short.items() if k.startswith(prefix)}
         if group:
             g_regs = sorted(int(v.split("r")[0]) for v in group.values())
@@ -2052,7 +2077,7 @@ def generate(engine, prompts, max_tokens: int):
     return [outs[i] for i in ids]
 
 
-ATTN_OPTIONS = ("window", "softcap", "d256", "tree", "alibi")
+ATTN_OPTIONS = ("window", "softcap", "d256", "d384", "d640", "tree", "alibi")
 NORMS = ("rmsnorm", "rmsnorm_quant")
 
 
@@ -2065,9 +2090,10 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
     those of the speculative run only (set to 0 just before it, read just
     after): every kernel of ``expect`` must have launched, and no other (each
     attention instantiation on its own path). The attention's launches under
-    a window, with a softcap, at head dim 256 and under a tree mask are
-    counted apart: each option of ``every_launch`` must be on every attention
-    launch, the softcap, D=256 and ALiBi on none otherwise; the launches
+    a window, with a softcap, at head dims 256, 384 and 640 and under a tree
+    mask are counted apart: each option of ``every_launch`` must be on every
+    attention launch, the softcap, those head dims and ALiBi on none
+    otherwise; the launches
     come back with each norm's fused ones (``<norm>_fused``) and rmsnorm's
     with a gamma (``rmsnorm_gamma``); the tree launches are returned
     (``rounds_run`` beside them: the verify passes of
@@ -2128,7 +2154,7 @@ def spec_vs_oracle(make, label: str, expect: set, prompts, max_tokens: int,
         launches[f"{name}_fused"] = k
     launches["rmsnorm_gamma"] = gamma
     for name, o in opts.items():
-        for opt in ("softcap", "d256", "alibi", *every_launch):
+        for opt in ("softcap", "d256", "d384", "d640", "alibi", *every_launch):
             if o[opt] != (launches[name] if opt in every_launch else 0):
                 raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
                                      f"{o[opt]} of them with {opt}")
@@ -3799,6 +3825,17 @@ def phase_lora_8b(params8, cfg8, base_toks, d: str):
 # lookahead after 27 of its L_SWAP_TOKENS, preempts itself while the others
 # run (at 32 tokens the others can finish first: the page frees then)
 L_SWAP_PAGES, L_SWAP_TOKENS = 8, 48
+# (L2) runs on the first L_SWAP_LAYERS of (A)'s 32 layers (the script's time
+# limit): the pages, and so every preemption, are the full depth's
+L_SWAP_LAYERS = 8
+
+
+def first_layers(params, cfg, n: int):
+    """(params, cfg) of a dense model's first ``n`` layers: each
+    layer-stacked tensor sliced in place (views, no copy)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+    return {**params, "layers": cut(params["layers"])}, dataclasses.replace(cfg, num_layers=n)
 
 
 def track_preemptions(eng) -> dict:
@@ -3816,12 +3853,12 @@ def track_preemptions(eng) -> dict:
     return victims
 
 
-def phase_swap_8b(params8, cfg8, base_toks):
-    """(L2) QSpec (W4A8) on (A)'s parameters, L_SWAP_TOKENS tokens, with
-    L_SWAP_PAGES pages under preemption_mode="swap": over bf16 and int8 KV,
-    tokens == the same engine's with pages to spare (whose first 32 over
-    bf16 are (A)'s), sequences swapped out and in, the parked KV returned
-    bit for bit. Over bf16, recompute mode and a swap pool of 0 GiB (which
+def phase_swap_8b(params8, cfg8):
+    """(L2) QSpec (W4A8) on the first L_SWAP_LAYERS of (A)'s layers,
+    L_SWAP_TOKENS tokens, with L_SWAP_PAGES pages under
+    preemption_mode="swap": over bf16 and int8 KV, tokens == the same
+    engine's with pages to spare, sequences swapped out and in, the parked
+    KV returned bit for bit. Over bf16, recompute mode and a swap pool of 0 GiB (which
     falls back to recompute) give the same tokens as each other; against
     the unconstrained run they agree on every sequence not preempted and on
     a preempted one up to its preemption: its re-prefill computes the
@@ -3829,12 +3866,10 @@ def phase_swap_8b(params8, cfg8, base_toks):
     pass ran the kernels, so its stream may part at a near-tie (logged,
     not required)."""
     prompts = [(p, {}) for p in e2e_prompts()]
+    params8, cfg8 = first_layers(params8, cfg8, L_SWAP_LAYERS)
     out = {}
     for kv in ("bfloat16", "int8"):
         ref, _, r_info = l_run(l_engine(cfg8, params8, kv=kv), prompts, max_tokens=L_SWAP_TOKENS)
-        if kv == "bfloat16" and [t[:32] for t in ref] != base_toks:
-            raise AssertionError(f"(L2) the first 32 of {L_SWAP_TOKENS} tokens differ from "
-                                 f"(A)'s: {[t[:8] for t in ref]}")
         eng = l_engine(cfg8, params8, kv=kv, num_pages=L_SWAP_PAGES, mode="swap")
         toks, _, info = l_run(eng, prompts, max_tokens=L_SWAP_TOKENS)
         pool = eng._swap_pool
@@ -4019,7 +4054,7 @@ def phase_engine_surface_8b(params8, cfg8, base_toks, smi: str):
         t0 = time.perf_counter()
         l1_launches, l1_toks, out["L1"] = phase_lora_8b(params8, cfg8, base_toks, d)
         times["L1"] = time.perf_counter() - t0
-        for name, fn in (("L2", lambda: phase_swap_8b(params8, cfg8, base_toks)),
+        for name, fn in (("L2", lambda: phase_swap_8b(params8, cfg8)),
                          ("L3", lambda: phase_soft_prompt_8b(params8, cfg8, base_toks)),
                          ("L4", lambda: phase_beam_8b(params8, cfg8)),
                          ("L5", lambda: phase_lora_server(params8, cfg8, d, l1_toks))):
@@ -4033,7 +4068,8 @@ def phase_engine_surface_8b(params8, cfg8, base_toks, smi: str):
     l1, l2, l3, l4 = out["L1"], out["L2"], out["L3"], out["L4"]
     log(f"surface (L) llama3-8b: (L1) LoRA slots 0/a/b/a == qspec_null, slot 0 == (A), exact "
         f"launches, {l1['tokens_per_s']:.4g} tok/s (oracle {l1['oracle_tokens_per_s']:.4g}); "
-        f"(L2) swap == unconstrained, bf16 {l2['bfloat16']['swap_outs']} out / "
+        f"(L2, {L_SWAP_LAYERS} layers) swap == unconstrained, bf16 "
+        f"{l2['bfloat16']['swap_outs']} out / "
         f"{l2['bfloat16']['bytes_parked'] / 2 ** 20:.1f} MiB, int8 "
         f"{l2['int8']['swap_outs']} out, recompute parted at "
         f"{l2['recompute_4gb']['parted_at_output']}; (L3) soft prompt == prompt_embeds == "
@@ -6516,6 +6552,388 @@ def phase_ct_dirs(smi: str):
     return out
 
 
+# ----------------------------------- (N) multi-head latent attention (MLA)
+
+# the latent attention shapes (N) brings: (label, query heads over one
+# latent KV row, stored head dim, K lanes r + dr, V lanes r, qk_nope +
+# qk_rope): MiniCPM3-4B, DeepSeek-V2-Lite and DeepSeek-V2 / V3
+MLA_ATTN = (("minicpm3-4b", 40, 384, 288, 256, 96),
+            ("deepseek-v2-lite", 16, 640, 576, 512, 192),
+            ("deepseek-v3", 128, 640, 576, 512, 192))
+MLA_TOL = {"bfloat16": 3e-2, **KV8_TOL}
+# the gamma rmsnorm's widths in (N): the hidden sizes of MiniCPM3-4B,
+# DeepSeek-V2-Lite and DeepSeek-V3, each also after the residual add, and
+# the latents' (q-LoRA's 768 and 1536, c_kv's 256 and 512: no residual)
+MLA_NORM_H = (2560, 2048, 7168)
+MLA_LATENT_H = (768, 1536, 256, 512)
+N2_LAYERS = 4         # DeepSeek-V2-Lite's dense first layer and 3 of its 26 MoE layers
+N3_LAYERS = 2
+
+
+def _attn_name(kv_dtype: str) -> str:
+    return "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
+
+
+def _mla_inputs(gen, q_len, kv_dtype, Hq, D, dk, dv, B=4, S=128):
+    """A latent cache of ``kv_dtype`` as MLA writes it (update_layer of one
+    KV head a token: K rows [c, 0...] over the K lanes, V rows [c[:dv],
+    0...]) under _ctx_lens' contexts, pages shuffled; q over the K lanes,
+    zero past them."""
+    from qspec_tpu_torch.ops import kv_cache as kvc
+    ctx = _ctx_lens(q_len, S)
+    pages = [-(-c // S) for c in ctx]
+    P = 1 + sum(pages)
+    cache = kvc.allocate(kvc.KVCacheConfig(2, 1, D, P, S, kv_dtype), "cuda")
+    T = (P - 1) * S
+    lat = torch.randn(T, 1, dk, generator=gen, device="cuda")
+    pad = torch.nn.functional.pad
+    kvc.update_layer(cache, 1, pad(lat, (0, D - dk)).to(torch.bfloat16),
+                     pad(lat[..., :dv], (0, D - dv)).to(torch.bfloat16),
+                     torch.arange(T, device="cuda") + S)
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(q_len)) + 1
+    tables = torch.zeros(B, max(pages), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(pages):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    q = pad(torch.randn(B, q_len, Hq, dk, generator=gen, device="cuda"), (0, D - dk))
+    return (q.to(torch.bfloat16), cache, tables.cuda(),
+            torch.tensor(ctx, dtype=torch.int32, device="cuda"))
+
+
+def _mla_call(inputs, dqk, dk, dv, plain=False):
+    """The latent attention as _mla_attention calls it (the kernel over K's
+    first dk lanes and V's first dv), or its plain version on the same
+    inputs."""
+    from qspec_tpu_torch.ops.attention import paged_attention_ref
+    from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
+    q, cache, tables, ctx = inputs
+    if plain:
+        return paged_attention_ref(q, cache, 1, tables, ctx, dqk ** -0.5, lanes=(dk, dv))
+    return paged_attention_cuda(q, cache.kv_pages, tables, ctx, dqk ** -0.5, layer=1,
+                                kv_scales=cache.kv_scales, lanes=(dk, dv))
+
+
+def check_mla_shapes(gen, report):
+    """(N) the MLA instantiations (head dims 384 and 640, each KV entry type)
+    at MLA_ATTN's groups over one latent row, B = 4, the verify's contexts,
+    decode (Q = 1), the n-gram verify (Q = 4) and a prefill rectangle (Q =
+    64), against the plain version over the same lanes (MLA_TOL: the other
+    entry-type checks' tolerances), the output zero past the V lanes; the
+    gamma rmsnorm at MLA_NORM_H (alone and with the residual add, h bit for
+    bit the torch add) and MLA_LATENT_H (alone), M = 4 and 16, against its
+    plain version (2e-2)."""
+    errs = {}
+    for kv_dtype in ("bfloat16", *KV8):
+        err, tol = 0.0, MLA_TOL[kv_dtype]
+        for label, Hq, D, dk, dv, dqk in MLA_ATTN:
+            for q_len in (1, 4, 64):
+                inputs = _mla_inputs(gen, q_len, kv_dtype, Hq, D, dk, dv)
+                out = _mla_call(inputs, dqk, dk, dv)
+                ref = _mla_call(inputs, dqk, dk, dv, plain=True)
+                torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+                if torch.count_nonzero(out[..., dv:]):
+                    raise AssertionError(f"(N) {label} {kv_dtype} Q={q_len}: output past "
+                                         f"the V lanes ({dv}) is not zero")
+                err = max(err, (out.float() - ref.float()).abs().max().item())
+                del inputs, out, ref
+        report[_attn_name(kv_dtype)]["mla_max_err"] = float(f"{err:.3g}")
+        errs[kv_dtype] = err
+    torch.cuda.empty_cache()
+    e_norm = 0.0
+    for h in (*MLA_NORM_H, *MLA_LATENT_H):
+        g = _gamma(gen, h)
+        kern, plain = norm_fn("rmsnorm", None, g), norm_fn("rmsnorm", None, g, True)
+        for m in DENSE_M:
+            x, r = _norm_set(gen, m, h)
+            for res in (None, r) if h in MLA_NORM_H else (None,):
+                got, want = kern(x, res), plain(x, res)
+                if res is not None and not (torch.equal(got[-1], x + r)
+                                            and torch.equal(want[-1], x + r)):
+                    raise AssertionError(f"(N) rmsnorm gamma H={h} M={m}: h is not x + r")
+                torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2e-2,
+                                           atol=2e-2)
+                e_norm = max(e_norm, (got[0].float() - want[0].float()).abs().max().item())
+    report["rmsnorm"]["mla_max_err"] = float(f"{e_norm:.3g}")
+    log("check (N) MLA attention D=384/640, " + "/".join(str(a[1]) for a in MLA_ATTN)
+        + " heads over 1, Q=1,4,64, max_abs_err " + "/".join(f"{v:.3g}" for v in errs.values())
+        + " (bf16/int8/e4m3/e5m2; tol " + "/".join(f"{MLA_TOL[k]:g}" for k in errs)
+        + f"), 0 past the V lanes; rmsnorm gamma at {len(MLA_NORM_H + MLA_LATENT_H)} MLA "
+        f"widths {e_norm:.3g} (tol 2e-2)")
+
+
+def time_mla_shapes(gen, report):
+    """(N) each MLA instantiation at MLA_ATTN's three groups at the n-gram
+    verify (B = 4, Q = 4, the verify's contexts 379 / 263 / 512 / 40),
+    inputs rotated past L2 and made before the graph captures, beside its
+    plain version; the bound counts the lanes the function needs (q's and
+    K's dk, V's and the output's dv, each live token's row read once, the
+    per-token scales of int8 and fp8_e4m3): the padding lanes and the
+    rereads of a row by the group's 16-row tiles are the kernel's excess.
+    No one PyTorch call computes paged attention over a latent cache
+    (library none). report[entry]["mla_times"]: label -> [ms, plain_ms,
+    bound_ms, library_ms]."""
+    live = _ctx_lens(4)
+    seen = sum(sum(c - 4 + i + 1 for i in range(4)) for c in live)
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+    short = []
+    for kv_dtype in ("bfloat16", *KV8):
+        entry = 2 if kv_dtype == "bfloat16" else 1
+        scaled = kv_dtype in ("int8", "fp8_e4m3")
+        times = report[_attn_name(kv_dtype)].setdefault("mla_times", {})
+        for label, Hq, D, dk, dv, dqk in MLA_ATTN:
+            stored = sum(live) * 2 * D * entry
+            rot = Rotating(lambda Hq=Hq, D=D, dk=dk, dv=dv: _mla_inputs(
+                gen, 4, kv_dtype, Hq, D, dk, dv), stored)
+            pps = rot.sets[0][2].shape[1]
+            nbytes = (sum(live) * ((dk + dv) * entry + (8 if scaled else 0))
+                      + 4 * 4 * Hq * (dk + dv) * 2 + 4 * pps * 4 + 4 * 4)
+            b, kind = bound_ms(nbytes, 2 * Hq * (dk + dv) * seen, "bf16")
+            r = dict(ms=graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv),
+                                 reps=max(20, len(rot.sets))),
+                     plain_ms=graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv, True), reps=3),
+                     bound_ms=b, bound_by=kind, library_ms=None)
+            times[label] = [float(f"{r[f]:.4g}") if r[f] is not None else None for f in fields]
+            log(f"time (N) {_attn_name(kv_dtype)} {label} Hq={Hq} D={D} (K {dk}, V {dv}) B=4 "
+                f"Q=4 ctx={live}: " + ", ".join(f"{f} {r[f]:.5f}" for f in fields[:3])
+                + f" ({kind}), library none", stdout=False)
+            if kv_dtype == "bfloat16":
+                short.append(f"{label} {r['ms']:.4f}/{r['plain_ms']:.4f}/{b:.5f}")
+            del rot
+            torch.cuda.empty_cache()
+    log("time (N) MLA verify B=4 Q=4 bf16 KV, ms kernel/plain/bound (every KV type: "
+        "mla_times): " + "; ".join(short), stdout=False)
+
+
+def mla_entries(cfg):
+    """A DeepSeek-V2 / V3 or MiniCPM3 checkpoint's names and shapes (the keys
+    convert_deepseek_v2 reads): weights normal(0.02), norm gammas 1 + 0.1
+    N(0, 1); q_proj, or q-LoRA's q_a_proj / q_a_layernorm / q_b_proj;
+    kv_a_proj_with_mqa (the latent and the rope key), kv_a_layernorm,
+    kv_b_proj [heads x (qk_nope + v), r], o_proj; the dense MLP below
+    first_k_dense_replace, the routed experts, their router and the shared
+    experts above it; the head unless tied."""
+    H, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    nh, r, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv, ql = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.q_lora_rank
+
+    def mlp(p, inter):
+        return [(p + "gate_proj.weight", (inter, H), "w"), (p + "up_proj.weight", (inter, H), "w"),
+                (p + "down_proj.weight", (H, inter), "w")]
+    out = [("model.embed_tokens.weight", (V, H), "w")]
+    for li in range(L):
+        p = f"model.layers.{li}."
+        a = p + "self_attn."
+        out.append((p + "input_layernorm.weight", (H,), "gamma"))
+        if ql:
+            out += [(a + "q_a_proj.weight", (ql, H), "w"),
+                    (a + "q_a_layernorm.weight", (ql,), "gamma"),
+                    (a + "q_b_proj.weight", (nh * (dn + dr), ql), "w")]
+        else:
+            out.append((a + "q_proj.weight", (nh * (dn + dr), H), "w"))
+        out += [(a + "kv_a_proj_with_mqa.weight", (r + dr, H), "w"),
+                (a + "kv_a_layernorm.weight", (r,), "gamma"),
+                (a + "kv_b_proj.weight", (nh * (dn + dv), r), "w"),
+                (a + "o_proj.weight", (H, nh * dv), "w"),
+                (p + "post_attention_layernorm.weight", (H,), "gamma")]
+        m = p + "mlp."
+        if cfg.num_experts and li >= cfg.first_k_dense:
+            out.append((m + "gate.weight", (cfg.num_experts, H), "w"))
+            for e in range(cfg.num_experts):
+                out += mlp(f"{m}experts.{e}.", cfg.moe_intermediate_size)
+            if cfg.shared_expert_intermediate_size:
+                out += mlp(m + "shared_experts.", cfg.shared_expert_intermediate_size)
+        else:
+            out += mlp(m, cfg.intermediate_size)
+    out.append(("model.norm.weight", (H,), "gamma"))
+    return out + ([] if cfg.tie_word_embeddings else [("lm_head.weight", (V, H), "w")])
+
+
+def mla_run(label: str, make, cfg, prompts, kv: str = "bfloat16"):
+    """Greedy n-gram (k = 3) against greedy AR (``make("ar", params)``: no
+    speculation) through ``make``, 32 tokens each: the tokens equal; exactly
+    the gamma rmsnorm and the attention instantiation of ``kv`` launched,
+    every attention launch at the latent head dim (cfg.cache_head_dim),
+    cfg.num_layers a forward, and the norm L x (3 + q-LoRA) + 1 a forward
+    (input, q-LoRA's q, the latent and post-attention norms of each layer,
+    the final one), 2 L of them with the residual add. Returns (launches,
+    summary)."""
+    name = _attn_name(kv)
+    D, L = cfg.cache_head_dim, cfg.num_layers
+    spec, launches, _, summary = spec_vs_oracle(make, label, {"rmsnorm", name}, prompts, 32,
+                                                every_launch=(f"d{D}",),
+                                                methods=("ngram", "ar"))
+    n = summary["forwards"]
+    want = {name: L * n, "rmsnorm": (L * (3 + bool(cfg.q_lora_rank)) + 1) * n,
+            "rmsnorm_gamma": (L * (3 + bool(cfg.q_lora_rank)) + 1) * n, "rmsnorm_fused": 2 * L * n}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, not {want} ({n} forwards)")
+    e2e_log(label, prompts, spec, summary)
+    return launches, summary
+
+
+def _mla_engine(cfg, params, kv="bfloat16"):
+    """The (N) engine factory: LLMEngine over ``params`` with n-gram (k = 3)
+    or, for "ar", no speculation, 4 sequences, pages of 128."""
+    from qspec_tpu_torch import (CacheConfig, EngineConfig, LLMEngine, SchedulerConfig,
+                                 SpeculativeConfig)
+
+    def make(method, p):
+        spec = None if method == "ar" else SpeculativeConfig(num_speculative_tokens=3,
+                                                              method=method)
+        return LLMEngine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=128, num_pages=40, kv_cache_dtype=kv),
+            scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=512), speculative=spec),
+            p or params, device="cuda", seed=0)
+    return make
+
+
+def _mla_load(hf: dict, seed: int, tag: str):
+    """A published MLA config's random checkpoint made on the card in its
+    own keys (mla_entries), converted there by load_family_float: (params,
+    cfg, GB of bf16, seconds, peak GiB)."""
+    from qspec_tpu_torch.model_loader.families import load_family_float
+    from qspec_tpu_torch.models.registry import resolve
+    cfg = resolve(hf)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sd = random_state_dict(mla_entries(cfg), seed=seed)
+    n_bytes = sum(t.numel() * 2 for t in sd.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg = load_family_float(sd, cfg)
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+    if sd:
+        raise AssertionError(f"{tag} load_family_float left {sorted(sd)[:4]} unconverted")
+    if cfg.attention_type != "mla" or cfg.quant != "none" or cfg.cache_kv_heads != 1:
+        raise AssertionError(f"{tag} loaded as {cfg}")
+    return params, cfg, n_bytes / 1e9, secs, peak
+
+
+def _mla_summary(s: dict) -> str:
+    return (f"accept {s['acceptance_rate']:.4f}, {s['spec_tokens_per_s']:.1f} tok/s (AR "
+            f"{s['oracle_tokens_per_s']:.1f})")
+
+
+def phase_minicpm3_4b(smi: str):
+    """(N1) MiniCPM3-4B at full width and depth (config.py's MINICPM3_4B_HF:
+    62 layers, hidden 2560, 40 heads, q_lora_rank 768, kv_lora_rank 256,
+    qk_nope 64 / qk_rope 32 / v 64, vocab 73448, the muP scales, the tied
+    head; its longrope left out: the published factors are not in the
+    repository): random bf16 made on the card in its keys, converted by
+    load_family_float there, then greedy n-gram (k = 3) == greedy AR over a
+    bf16 and an int8 latent cache (mla_run's exact launches, every attention
+    launch the D=384 instantiation)."""
+    from qspec_tpu_torch.config import MINICPM3_4B_HF
+    params, cfg, gb, secs, peak = _mla_load(MINICPM3_4B_HF, 120, "(N1)")
+    if (cfg.cache_head_dim, cfg.embed_scale, cfg.logits_scaling) != (384, 12.0, 10.0):
+        raise AssertionError(f"(N1) minicpm3-4b read as {cfg}")
+    prompts = float_prompts(cfg.vocab_size)
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        out[kv] = mla_run(f"(N1) minicpm3-4b bf16, {cfg.num_layers} layers, {kv} KV, n-gram "
+                          "k=3 vs AR", _mla_engine(cfg, params, kv), cfg, prompts, kv)
+        out[kv][1]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"e2e (N1) minicpm3-4b, {cfg.num_layers} layers, {gb:.2f} GB in {secs:.2f} s: n-gram "
+        "== AR, exact launches, all D=384; " + "; ".join(
+            f"{'bf16' if kv == 'bfloat16' else kv} KV {_mla_summary(r[1])}, peak "
+            f"{r[1]['peak_mem_gib']:.2f} GiB"
+            for kv, r in out.items()))
+    log(f"e2e (N1): card {smi}", stdout=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_deepseek_v2_lite(smi: str):
+    """(N2) DeepSeek-V2-Lite at full width (config.py's DEEPSEEK_V2_LITE_HF:
+    hidden 2048, 16 heads, a direct q, kv_lora_rank 512, qk_nope 128 / qk_rope
+    64 / v 128, 64 routed experts of 1408 and 2 shared, top 6, vocab 102400)
+    at N2_LAYERS of its 27 layers (the dense first and 3 MoE layers: the
+    expert loop is host-bound), random bf16 made on the card in its keys,
+    converted there, greedy n-gram (k = 3) == greedy AR over a bf16 latent
+    cache, every attention launch the D=640 instantiation."""
+    from qspec_tpu_torch.config import DEEPSEEK_V2_LITE_HF
+    hf = {**DEEPSEEK_V2_LITE_HF, "num_hidden_layers": N2_LAYERS}
+    params, cfg, gb, secs, peak = _mla_load(hf, 121, "(N2)")
+    if (cfg.cache_head_dim, cfg.first_k_dense, cfg.num_experts) != (640, 1, 64):
+        raise AssertionError(f"(N2) deepseek-v2-lite read as {cfg}")
+    prompts = float_prompts(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    launches, summary = mla_run(f"(N2) deepseek-v2-lite bf16, {N2_LAYERS} layers, bf16 KV, "
+                                "n-gram k=3 vs AR", _mla_engine(cfg, params), cfg, prompts)
+    summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"e2e (N2) deepseek-v2-lite, {N2_LAYERS} of 27 layers, {gb:.2f} GB in {secs:.2f} s: "
+        f"n-gram == AR, exact launches, all D=640; {_mla_summary(summary)}, peak "
+        f"{summary['peak_mem_gib']:.2f} GiB")
+    log(f"e2e (N2): card {smi}", stdout=False)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_mla_dirs(smi: str):
+    """(N3) LLM(model=<dir>, quantization=None) on a DeepSeek-V2-Lite and a
+    MiniCPM3-4B directory (published widths at N3_LAYERS layers, random bf16
+    in their keys written here): greedy n-gram (k = 3) == greedy AR (the
+    directory without a speculative model) in mla_run's exact launches; the
+    default quantization refuses the directory before a weight is read."""
+    import tempfile
+    from qspec_tpu_torch import LLM
+    from qspec_tpu_torch.config import DEEPSEEK_V2_LITE_HF, MINICPM3_4B_HF
+    from qspec_tpu_torch.models.registry import resolve
+    out = {}
+    for i, (name, published) in enumerate((("deepseek-v2-lite", DEEPSEEK_V2_LITE_HF),
+                                           ("minicpm3-4b", MINICPM3_4B_HF))):
+        hf = {**published, "num_hidden_layers": N3_LAYERS}
+        cfg = resolve(hf)
+        held = {}
+        with tempfile.TemporaryDirectory() as d:
+            write_config(d, hf)
+            try:
+                LLM(model=d, device="cuda")
+            except NotImplementedError as e:
+                if "bf16" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"(N3) {name}: the default quantization did not raise")
+            sd = random_state_dict(mla_entries(cfg), seed=130 + i)
+            write_safetensors(os.path.join(d, "model.safetensors"), sd)
+            del sd
+
+            def make(method, p):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                spec = {} if method == "ar" else dict(num_speculative_tokens=3,
+                                                      speculative_model="[ngram]")
+                llm = LLM(model=d, params=p, quantization=None, device="cuda", max_model_len=512,
+                          max_num_seqs=4, seed=0, num_pages=40, **spec)
+                if p is None:
+                    torch.cuda.synchronize()
+                    held.update(cfg=llm.engine_config.model, load_s=time.perf_counter() - t0)
+                return llm.llm_engine
+            out[name] = mla_run(f"(N3) {name} dir, {N3_LAYERS} layers, bf16, n-gram k=3 vs AR",
+                                make, cfg, float_prompts(cfg.vocab_size))
+        if held["cfg"] != cfg:
+            raise AssertionError(f"(N3) {name}: loaded as {held['cfg']}")
+        out[name][1]["load_s"] = held["load_s"]
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"e2e (N3) LLM(model=<dir>, quantization=None), {N3_LAYERS} layers, n-gram == AR, exact "
+        "launches: " + ", ".join(f"{n} accept {r[1]['acceptance_rate']:.3f} (load "
+                                 f"{r[1]['load_s']:.1f} s)" for n, r in out.items())
+        + "; the default quantization refused")
+    log(f"e2e (N3): card {smi}", stdout=False)
+    return out
+
+
 KERNEL_META = {
     "matmul_w4a16": ("qspec_tpu_torch/csrc/w4.cu",
                      "qspec_tpu/ops/linear_kernels.py:139 (_w4a16_kernel)"),
@@ -6527,7 +6945,7 @@ KERNEL_META = {
                       "qspec_tpu/ops/rmsnorm_quant.py:68 (_rmsnorm_quant_kernel)"),
     "paged_attention": ("qspec_tpu_torch/csrc/paged_attention.cu",
                         "qspec_tpu/ops/attention_pallas.py:52 (_paged_attn_kernel; "
-                        "window, softcap :183, head dims 128 and 256, tree mask "
+                        "window, softcap :183, head dims 128, 256, 384, 640, tree mask "
                         ":131-139,188-194, ALiBi :175-182)"),
     "matmul_w8a16": ("qspec_tpu_torch/csrc/w8a16.cu",
                      "qspec_tpu/ops/linear_kernels.py:538 (_w8a16_kernel)"),
@@ -6541,7 +6959,8 @@ KERNEL_META = {
 # the fields of the kernels line on the standard output (the log has all)
 STDOUT_KEYS = ("name", "route", "source", "replaces", "launches", "launches_in",
                "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-               "shape", "qwen2_7b", "qwen2_7b_shape", "j_times", "k_max_err", "k_times")
+               "shape", "qwen2_7b", "qwen2_7b_shape", "j_times", "k_max_err", "k_times",
+               "mla_times")
 # the 8-bit instantiations of the attention kernel: (source, TPU kernel)
 KV8_META = {f"paged_attention_{dt}": (
     "qspec_tpu_torch/csrc/paged_attention.cu",
@@ -6702,11 +7121,28 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     log(f"(M) took {time.perf_counter() - t_m:.1f} s")
-    log(f"e2e: {len(_E2E)} runs (tiny, llama3-8b, AWQ Llama-3-8B and Gemma-2-9B, Medusa, "
-        "BLOOM-7B1, MPT, (A)-(E), the MoE (G), the dense families (H), the remap and float "
-        "families (J), the gptj-rope families (K), compressed-tensors and GGUF (M)), each "
-        "greedy == its oracle; "
-        "chip_smoke.log has each run's line")
+    # (N) multi-head latent attention: the attention kernel at the latent
+    # head dims 384 and 640, MiniCPM3-4B and DeepSeek-V2-Lite
+    t_n = time.perf_counter()
+    gen_n = torch.Generator(device="cuda").manual_seed(11)
+    check_mla_shapes(gen_n, report)
+    time_mla_shapes(gen_n, report)
+    step("N shapes")
+    minicpm3 = phase_minicpm3_4b(smi)
+    step("N1")
+    v2_lite = phase_deepseek_v2_lite(smi)
+    step("N2")
+    mla_dirs = phase_mla_dirs(smi)
+    step("N3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"(N) took {time.perf_counter() - t_n:.1f} s")
+    log(f"e2e: {len(_E2E)} runs of phases 5-23, each greedy == its oracle (the log has each)")
+    # each kernel's launches in (N)'s paths: (N1) over bf16 and int8 KV,
+    # (N2), (N3) each directory
+    mla_paths = {f"N1_{kv}": r[0] for kv, r in minicpm3.items()}
+    mla_paths["N2"] = v2_lite[0]
+    mla_paths.update({f"N3_{n}": r[0] for n, r in mla_dirs.items()})
     # each kernel's launches in (M)'s paths: (M1) a / b, (M2) a, (M3) each
     # loader's QSpec and EAGLE, (M4) a / b
     ct_paths = {k: r[0] for k, r in ct8b.items()}
@@ -6830,6 +7266,12 @@ def main():
         dense_launch = {k: v[name] for k, v in dense_paths.items() if v.get(name)}
         if dense_launch:
             extra["dense_launches"] = dense_launch
+        for key in ("mla_max_err", "mla_times"):
+            if key in r:
+                extra[key] = r[key]
+        mla_launch = {k: v[name] for k, v in mla_paths.items() if v.get(name)}
+        if mla_launch:
+            extra["mla_launches"] = mla_launch
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launch, "launches_in": where, "max_abs_err": r["max_err"],

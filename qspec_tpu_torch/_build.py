@@ -1,8 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
 Each source under ``csrc/`` is compiled for ``sm_90a`` by an ``nvcc`` process
-of its own (``paged_attention.cu`` by four, one per KV entry type: see
-``VARIANTS``), all started together, and one more ``nvcc`` call links the
+of its own (``paged_attention.cu`` by six, one per KV entry type and one per
+MLA head dim: see ``VARIANTS``), all started together, and one more ``nvcc`` call links the
 objects into a shared library with a plain ``extern "C"`` interface, loaded
 with ``ctypes``. Nothing includes PyTorch's headers, so the build takes
 seconds; its wall time is that of the slowest object.
@@ -34,8 +34,10 @@ BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("w4.cu", "w4a16_g.cu", "w8a16.cu", "rmsnorm.cu", "paged_attention.cu")
 # the sources compiled more than once, each time with other macros (one
 # object each): the attention kernel once per KV entry type, its slowest
-# source split four ways
-VARIANTS = {"paged_attention.cu": tuple(f"-DQSPEC_ATTN_KV={k}" for k in range(4))}
+# source split four ways, and its MLA kernel once per latent head dim (384,
+# 640), each over the four entry types
+VARIANTS = {"paged_attention.cu": (*(f"-DQSPEC_ATTN_KV={k}" for k in range(4)),
+                                   "-DQSPEC_ATTN_MLA=384", "-DQSPEC_ATTN_MLA=640")}
 # seconds the build may take before it is abandoned (a hung compiler would
 # otherwise hang the first kernel launch)
 NVCC_TIMEOUT_S = 300
@@ -55,8 +57,8 @@ SIGNATURES = {
     "qspec_rmsnorm_quant": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     "qspec_norm_launch_floor": (_I, _I, _P),
     "qspec_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _I, _P,
-                              _P),
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+                              _I, _P, _P),
 }
 
 _lib = None

@@ -157,13 +157,28 @@ class ModelConfig:
     # the routed experts' sum is scaled by this before the shared expert
     # adds (DeepSeek-V2/V3)
     routed_scaling_factor: float = 1.0
+    # DeepSeek-V2 multi-head latent attention ("mla": DeepSeek-V2 / V3,
+    # MiniCPM3; models/llama.py _mla_attention): keys and values come from a
+    # shared low-rank latent c_kv [kv_lora_rank] and one decoupled rope key
+    # [qk_rope_head_dim]; the cache keeps one latent row a token (MQA over
+    # the latent, cache_kv_heads 1) and W_UK / W_UV fold into the query and
+    # output sides. q_lora_rank None: a direct q projection. "mha": the
+    # standard attention
+    attention_type: str = "mha"       # "mha" | "mla"
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
     def __post_init__(self):
         allowed = (("quant", ("w4", "w4g", "w8", "none")),
                    ("arch", ("llama", "qwen2", "qwen3", "gemma", "granite", "gemma2",
                              "bloom", "mpt", "mixtral", "qwen2moe", "qwen3moe",
                              "deepseek", "falcon", "jais", *REMAP_ARCHS, "gptj",
-                             "gpt_neox", "phi", "stablelm", "cohere", "glm", "helium")),
+                             "gpt_neox", "phi", "stablelm", "cohere", "glm", "helium",
+                             "deepseek_v2", "deepseek_v3")),
+                   ("attention_type", ("mha", "mla")),
                    ("hidden_act", ("silu", "gelu_tanh", "gelu")),
                    ("norm_type", ("rmsnorm", "layernorm")),
                    ("position_embedding", ("rope", "alibi")),
@@ -179,6 +194,18 @@ class ModelConfig:
                 0 < self.rotary_dim <= self.head_dim and self.rotary_dim % 2 == 0):
             raise ValueError(f"rotary_dim={self.rotary_dim}: an even width in (0, "
                              f"head_dim={self.head_dim}]")
+        if self.attention_type == "mla" and not (
+                self.kv_lora_rank > 0 and self.qk_rope_head_dim > 0
+                and self.qk_rope_head_dim % 2 == 0 and self.qk_nope_head_dim > 0
+                and self.v_head_dim > 0 and (self.q_lora_rank is None or self.q_lora_rank > 0)
+                and self.head_dim == self.qk_nope_head_dim + self.qk_rope_head_dim
+                and self.rope_dim == self.qk_rope_head_dim):
+            raise ValueError(
+                f"MLA: kv_lora_rank={self.kv_lora_rank}, q_lora_rank={self.q_lora_rank}, "
+                f"qk_nope_head_dim={self.qk_nope_head_dim}, qk_rope_head_dim="
+                f"{self.qk_rope_head_dim} (even), v_head_dim={self.v_head_dim} all positive, "
+                f"head_dim={self.head_dim} their qk sum and rotary_dim={self.rotary_dim} "
+                "the rope width")
 
     @property
     def resolved_lm_head_quant(self) -> str:
@@ -213,14 +240,19 @@ class ModelConfig:
 
     @property
     def cache_kv_heads(self) -> int:
-        return self.num_kv_heads
+        # MLA caches one latent "head" a token
+        return 1 if self.attention_type == "mla" else self.num_kv_heads
 
     @property
     def cache_head_dim(self) -> int:
-        # small head dims are stored 128-padded, as in the JAX package: the
-        # attention kernel takes one head dim (128); update_layer zero-pads
-        # writes and ops.attention.paged_attention pads q and slices back
-        return -(-self.head_dim // 128) * 128
+        # MLA's latent row, kv_lora_rank + qk_rope_head_dim, and small head
+        # dims are stored 128-padded, as in the JAX package: the attention
+        # kernel takes head dims 128, 256, 384 and 640; update_layer
+        # zero-pads writes and ops.attention.paged_attention pads q and
+        # slices back
+        d = (self.kv_lora_rank + self.qk_rope_head_dim if self.attention_type == "mla"
+             else self.head_dim)
+        return -(-d // 128) * 128
 
     @property
     def q_size(self) -> int:
@@ -356,6 +388,7 @@ class ModelConfig:
         word (ROADMAP §3)."""
         mt = hf.get("model_type", "")
         own = {"bloom": _from_bloom, "mpt": _from_mpt, "deepseek": _from_deepseek,
+               "deepseek_v2": _from_deepseek_v2,
                "falcon": _from_falcon, "RefinedWeb": _from_falcon,
                "RefinedWebModel": _from_falcon, "jais": _from_jais, "qwen": _from_qwen1,
                "exaone": _from_exaone, "telechat2": _from_telechat2,
@@ -809,6 +842,44 @@ def _from_deepseek(hf: dict) -> ModelConfig:
         tie_word_embeddings=hf.get("tie_word_embeddings", False))
 
 
+def _from_deepseek_v2(hf: dict) -> ModelConfig:
+    """DeepSeek-V2 / V2-Lite (``qspec_tpu/config.py``'s deepseek_v2 branch,
+    with both its refusals): multi-head latent attention (``kv_lora_rank``,
+    ``q_lora_rank`` or a direct q, the decoupled rope over
+    ``qk_rope_head_dim``) over DeepSeek-MoE's layout with
+    ``routed_scaling_factor``; a bf16 checkpoint. Group-limited routing
+    (``topk_method`` other than greedy) and a yarn ``rope_scaling`` raise, as
+    they do there, so neither package serves a published DeepSeek-V2
+    config.json as it is (ROADMAP §3); another rope scaling is read as
+    Hugging Face reads it (``make_rope_cache`` raises for a type it lacks),
+    where the JAX package drops it."""
+    if hf.get("topk_method", "greedy") not in ("greedy", None):
+        raise ValueError(f"deepseek-v2 group-limited routing unsupported (topk_method="
+                         f"{hf['topk_method']!r})")
+    if (hf.get("rope_scaling") or {}).get("type") == "yarn":
+        raise ValueError("deepseek-v2 yarn rope scaling unsupported")
+    nh = hf["num_attention_heads"]
+    moe_i = hf.get("moe_intermediate_size")
+    return ModelConfig(
+        arch="deepseek_v2", attention_type="mla", kv_lora_rank=hf["kv_lora_rank"],
+        q_lora_rank=hf.get("q_lora_rank"), qk_nope_head_dim=hf["qk_nope_head_dim"],
+        qk_rope_head_dim=hf["qk_rope_head_dim"], v_head_dim=hf["v_head_dim"],
+        rotary_dim=hf["qk_rope_head_dim"],
+        routed_scaling_factor=hf.get("routed_scaling_factor", 1.0),
+        num_experts=hf.get("n_routed_experts", 0) or 0,
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2), moe_intermediate_size=moe_i,
+        shared_expert_intermediate_size=(hf.get("n_shared_experts", 0) or 0) * (moe_i or 0),
+        shared_expert_gated=False, first_k_dense=hf.get("first_k_dense_replace", 0),
+        moe_softmax_before_topk=True, moe_norm_topk_prob=hf.get("norm_topk_prob", False),
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"], num_layers=hf["num_hidden_layers"],
+        num_heads=nh, num_kv_heads=nh, head_dim=hf["qk_nope_head_dim"] + hf["qk_rope_head_dim"],
+        quant="none", rope_theta=hf.get("rope_theta", 10000.0),
+        rope_scaling=_rope_scaling(hf), rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False))
+
+
 def _from_bloom(hf: dict) -> ModelConfig:
     """BLOOM: ALiBi, LayerNorm with biases, a non-gated tanh-gelu MLP of
     width 4H, the head-interleaved fused query_key_value (de-interleaved by
@@ -883,6 +954,44 @@ GEMMA2_9B_HF = {
     "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
     "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "max_position_embeddings": 8192,
     "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+}
+
+# the published config.json fields of the multi-head latent attention
+# models the port reads, each without its rope_scaling: DeepSeek-V2-Lite's
+# and DeepSeek-V3's are yarn, which both packages refuse; MiniCPM3-4B's is a
+# longrope whose 16 short and 16 long factors are not in the repository
+DEEPSEEK_V2_LITE_HF = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+    "vocab_size": 102400, "hidden_size": 2048, "intermediate_size": 10944,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "n_routed_experts": 64, "n_shared_experts": 2,
+    "num_experts_per_tok": 6, "first_k_dense_replace": 1, "moe_layer_freq": 1,
+    "kv_lora_rank": 512, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "routed_scaling_factor": 1.0,
+    "topk_method": "greedy", "norm_topk_prob": False, "scoring_func": "softmax",
+    "max_position_embeddings": 163840, "rms_norm_eps": 1e-6, "rope_theta": 10000,
+    "tie_word_embeddings": False,
+}
+DEEPSEEK_V3_HF = {
+    "architectures": ["DeepseekV3ForCausalLM"], "model_type": "deepseek_v3",
+    "vocab_size": 129280, "hidden_size": 7168, "intermediate_size": 18432,
+    "moe_intermediate_size": 2048, "num_hidden_layers": 61, "num_attention_heads": 128,
+    "num_key_value_heads": 128, "n_routed_experts": 256, "n_shared_experts": 1,
+    "num_experts_per_tok": 8, "n_group": 8, "topk_group": 4, "first_k_dense_replace": 3,
+    "moe_layer_freq": 1, "kv_lora_rank": 512, "q_lora_rank": 1536, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "routed_scaling_factor": 2.5,
+    "topk_method": "noaux_tc", "norm_topk_prob": True, "scoring_func": "sigmoid",
+    "max_position_embeddings": 163840, "rms_norm_eps": 1e-6, "rope_theta": 10000,
+    "tie_word_embeddings": False,
+}
+MINICPM3_4B_HF = {
+    "architectures": ["MiniCPM3ForCausalLM"], "model_type": "minicpm3",
+    "vocab_size": 73448, "hidden_size": 2560, "intermediate_size": 6400,
+    "num_hidden_layers": 62, "num_attention_heads": 40, "num_key_value_heads": 40,
+    "q_lora_rank": 768, "kv_lora_rank": 256, "qk_nope_head_dim": 64, "qk_rope_head_dim": 32,
+    "v_head_dim": 64, "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "scale_emb": 12, "scale_depth": 1.4, "dim_model_base": 256,
+    "hidden_act": "silu", "tie_word_embeddings": True,
 }
 
 

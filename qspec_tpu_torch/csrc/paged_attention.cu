@@ -124,14 +124,53 @@
 // bias of a masked token is never used, and padded rows (r >= G) carry slope 0
 // and see nothing, as without it.
 //
+// Multi-head latent attention (MLA: DeepSeek-V2 / V2-Lite / V3, MiniCPM3)
+// takes a kernel of its own, paged_attention_mla_kernel below, at the latent
+// head dims 384 and 640 (kv_lora_rank + qk_rope_head_dim rounded up to 128),
+// over all four entry types: the same causal function, MQA over one latent
+// KV row per token, with query groups of 16, 40 or 128 heads and no window,
+// softcap, ALiBi or tree (the JAX package passes none of them there). What
+// differs from the kernel above, and why:
+// - Only the lanes the function needs are read: K's first k_dims (r + dr:
+//   576, 288) and V's first v_dims (r: 512, 256) of each stored row; the
+//   output's lanes past v_dims are written as zeros. The callers' padding
+//   lanes are zero, so this is the full function on their rows.
+// - The output accumulator is split over the warps by dims: every warp
+//   computes S = Q.K^T for 8 of a step's 32 tokens over all k_dims (the
+//   query tile and K read from shared memory by ldmatrix), the block's
+//   scores go through shared memory, 128 threads (8 a row) take the online
+//   softmax over the step, and warp w then runs P.V for dims [w v_dims / 4,
+//   (w + 1) v_dims / 4): at most 20 n8 tiles, 80 f32 registers a thread.
+// - One block-wide ring of 2 steps of 32 tokens (K and V of a step: 80 KB in
+//   bf16 at D = 640), copied with cp.async, warp w the rows of tokens 8w to
+//   8w + 7 (one address a row); 8-bit entries are widened to bf16 in shared
+//   memory once a step. The block waits on these copies for about half its
+//   time (tools/mla_variants_ab.py on an H100), which more blocks in flight
+//   hide. The fold of a row's splits keeps O in shared memory (f32 [16][D +
+//   8]). 224-225 KB a block at D = 640, 136-137 KB at 384: one block an SM.
+// - Each (sequence, tile of 16 query rows) block reads the KV rows of its
+//   live tokens once; a sequence's rows are read once per tile: G / 16
+//   times (1 for DeepSeek-V2-Lite's 16 heads at Q = 1, 10 for MiniCPM3's 40
+//   at Q = 4, 32 for DeepSeek-V3's 128 at Q = 4), the repeats mostly from L2.
+// The numerics and the splits are the kernel above's (q scaled and rounded
+// to bf16 once, f32 scores times K's scale, p times V's scale rounded to
+// bf16 for P.V, the splits at fixed positions folded in ascending order by
+// fold_ml / fold_o, in the block or by the merge kernel; the plan's splits
+// are 128 tokens here, and a block takes one of them wherever that fills
+// more SMs: ops/attention_cuda.py), and the steps sit at fixed positions
+// (multiples of 32), so a row's bits depend on no other row, on Q, on the
+// schedule or on its place in the batch.
+//
 // The file is compiled once per KV entry type, with -DQSPEC_ATTN_KV=k (0
 // bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2), so that the four objects build in
 // parallel (_build.py): object k holds that type's instantiations behind
 // qspec_paged_attention_kv<k>, and object 0 also the entry point, which picks
-// the object by the entry type.
+// the object by the entry type; and once per latent head dim, with
+// -DQSPEC_ATTN_MLA=384 or 640: that dim's MLA instantiations over the four
+// entry types, behind qspec_paged_attention_mla<dim>.
 
-#ifndef QSPEC_ATTN_KV
-#error "compile with -DQSPEC_ATTN_KV=0, 1, 2 or 3 (one object per KV entry type)"
+#if defined(QSPEC_ATTN_KV) == defined(QSPEC_ATTN_MLA)
+#error "compile with -DQSPEC_ATTN_KV=0, 1, 2 or 3, or with -DQSPEC_ATTN_MLA=384 or 640"
 #endif
 
 #include <cuda_bf16.h>
@@ -195,6 +234,7 @@ struct Params {
   float* ws_o;          // [B * Hkv, n_splits, G, kD] f32 (split states), or null
   float* ws_ml;         // [B * Hkv, n_splits, G, 2] f32 (m, l), or null
   int Q, Hq, Hkv, S, pps;
+  int dk, dv;           // the MLA kernel's lanes of K and of V read (kD elsewhere)
   int split, n_splits, spb;   // tokens a split, splits, splits a block
   float scale, softcap;
   int window;
@@ -807,6 +847,14 @@ paged_attention_kernel(const Params p) {
   }
 }
 
+// the merge kernel's rows a block: as many whole rows of kD / 4 float4s as
+// 128 threads hold (4 at D = 128, 2 at 256), one at the latent dims 384
+// and 640 (96 and 160 threads)
+template <int kD>
+constexpr int kMergeRows = kD / 4 >= kThreads ? 1 : kThreads / (kD / 4);
+template <int kD>
+constexpr int kMergeThreads = kMergeRows<kD> * (kD / 4);
+
 // The rows of the tiles whose live tokens span several splits: their split
 // states folded in ascending order with fold() (from the empty state, as the
 // attention kernel folds a block's own splits), then divided by the sum.
@@ -814,10 +862,10 @@ paged_attention_kernel(const Params p) {
 // kRowsPer), B * Hkv). Tiles of at most one live split were written by the
 // attention kernel and are skipped.
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMergeThreads<kD>)
 paged_attention_merge_kernel(const Params p) {
   constexpr int kCols = kD / 4;                 // float4s a row
-  constexpr int kRowsPer = kThreads / kCols;
+  constexpr int kRowsPer = kMergeRows<kD>;
   const int bh = blockIdx.y;
   const int b = bh / p.Hkv;
   const int h = bh % p.Hkv;
@@ -860,33 +908,32 @@ struct AttnArgs {
   cudaStream_t stream;
 };
 
-template <typename T, bool kScaled, int kD, bool kCap, bool kTree, bool kAlibi>
-int launch(const AttnArgs& a) {
-  constexpr int smem = Smem<T, kD, kScaled>::kBytes;   // above the 48 KB default
-  static bool attr_set = false;
-  if (!attr_set) {
-    auto* kernel = paged_attention_kernel<T, kScaled, kD, kCap, kTree, kAlibi>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)   // all of the SM's shared memory, so two D=128 blocks fit
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
-  }
-  const int split_blocks = (a.p.n_splits + a.p.spb - 1) / a.p.spb;
-  paged_attention_kernel<T, kScaled, kD, kCap, kTree, kAlibi>
-      <<<dim3(a.tiles, split_blocks, a.B * a.p.Hkv), kThreads, smem, a.stream>>>(a.p);
+// the dynamic shared memory of an attention kernel (above the 48 KB
+// default), set once per instantiation
+template <typename Kernel>
+cudaError_t set_smem(Kernel* kernel, int smem) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)   // all of the SM's shared memory, so two D=128 blocks fit
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// after an attention kernel of split_blocks split blocks: the merge kernel,
+// when there is more than one
+template <int kD>
+int launch_merge(const AttnArgs& a, int split_blocks) {
   if (split_blocks > 1) {   // the split states of multi-split tiles, folded
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int rows_per = kThreads / (kD / 4);
+    const int rows_per = kMergeRows<kD>;
     const int G = (a.p.Hq / a.p.Hkv) * a.p.Q;
     // its launch overlaps the attention kernel's last blocks, which let it
     // start (griddepcontrol.launch_dependents) once their copies are issued
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((G + rows_per - 1) / rows_per, a.B * a.p.Hkv);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3(kMergeThreads<kD>);
     cfg.stream = a.stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -897,6 +944,441 @@ int launch(const AttnArgs& a) {
     if (e2 != cudaSuccess) return static_cast<int>(e2);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kScaled, int kD, bool kCap, bool kTree, bool kAlibi>
+int launch(const AttnArgs& a) {
+  constexpr int smem = Smem<T, kD, kScaled>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err =
+        set_smem(paged_attention_kernel<T, kScaled, kD, kCap, kTree, kAlibi>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const int split_blocks = (a.p.n_splits + a.p.spb - 1) / a.p.spb;
+  paged_attention_kernel<T, kScaled, kD, kCap, kTree, kAlibi>
+      <<<dim3(a.tiles, split_blocks, a.B * a.p.Hkv), kThreads, smem, a.stream>>>(a.p);
+  return launch_merge<kD>(a, split_blocks);
+}
+
+// ---------------------------------------------------------------------------
+// The MLA kernel (see the top of the file): head dims 384 and 640, K's first
+// p.dk lanes and V's first p.dv lanes read, no window, softcap, ALiBi or tree.
+
+constexpr int kMlaStep = 32;     // tokens a step: 8 a warp in S = Q.K^T
+constexpr int kMlaStages = 2;    // the block's cp.async ring of steps
+constexpr float kDead = -3e38f;   // a masked score in the step's score tile (< kNegInf)
+
+// the shared memory of one MLA block
+template <typename T, int kD, bool kScaled>
+struct MlaSmem {
+  static constexpr bool kWide = sizeof(T) == 1;                // 8-bit entries, widened
+  static constexpr int kRow = kD * (int)sizeof(T);             // a token row as stored
+  static constexpr int kStage = 2 * kMlaStep * kRow;           // K, then V, of a step
+  static constexpr int kRing = kMlaStages * kStage;
+  static constexpr int kWideTile = kMlaStep * kD * 2;          // a step's K or V in bf16
+  static constexpr int kWideAll = kWide ? 2 * kWideTile : 0;
+  static constexpr int kScl = kScaled ? kMlaStages * 2 * kMlaStep * 4 : 0;
+  static constexpr int kSStride = kMlaStep + 8;                // floats: the step's scores
+  static constexpr int kPStride = kMlaStep + 8;                // bf16: the step's P
+  static constexpr int kFStride = kD + 8;                      // floats: the fold's O
+  static constexpr int kOffWide = kRing;
+  static constexpr int kOffScl = kOffWide + kWideAll;
+  static constexpr int kOffQ = kOffScl + kScl;                 // bf16 [16][kD], swizzled
+  static constexpr int kOffFold = kOffQ + kRows * kD * 2;      // f32 [16][kFStride]
+  static constexpr int kOffS = kOffFold + kRows * kFStride * 4;
+  static constexpr int kOffP = kOffS + kRows * kSStride * 4;
+  static constexpr int kOffStat = kOffP + kRows * kPStride * 2;   // alpha, fold a, fold b
+  static constexpr int kBytes = kOffStat + 3 * kRows * 4;
+};
+
+template <typename T, bool kScaled, int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_attention_mla_kernel(const Params p) {
+  using L = MlaSmem<T, kD, kScaled>;
+  constexpr int kNt = kD / 32;           // n8 tiles of P.V a warp holds at most (dv = kD)
+  constexpr int kCh = kD / 8;            // 8-lane chunks of an output row
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tile = blockIdx.x;
+  const int bh = blockIdx.z;
+  const int b = bh / p.Hkv;
+  const int h = bh % p.Hkv;
+  const int group = p.Hq / p.Hkv;
+  const int G = group * p.Q;
+  const int row0 = tile * kRows;
+  const int rows = min(kRows, G - row0);
+  const int sp_lo = blockIdx.y * p.spb;
+  const int sp_hi = min(sp_lo + p.spb, p.n_splits);
+  const int dk = p.dk, dv = p.dv;
+  // the softmax's and the output's row of this thread, and its part of it
+  const int srow = tid >> 3;
+  const int part = tid & 7;
+
+  const int split_pages = p.split / p.S;
+  __shared__ int pages_s[kMaxSplitPages];
+  auto load_pages = [&](int s) {
+    if (tid < split_pages) {
+      const int lp = s * split_pages + tid;
+      pages_s[tid] = lp < p.pps ? __ldg(p.block_tables + (size_t)b * p.pps + lp) : 0;
+    }
+  };
+  load_pages(sp_lo);
+  const Walk wk = tile_walk(p, b, row0, rows);
+  const int ctx = wk.ctx, qs = wk.qs, first_tok = wk.first_tok, n_tok = wk.n_tok;
+  const int fs = wk.fs, ls = wk.ls;
+  const int lo = max(fs, sp_lo);
+  const int hi = min(ls + 1, sp_hi);
+
+  auto out_row = [&](int rr) {
+    const int r = row0 + rr;
+    return p.out + ((size_t)(b * p.Q + r % p.Q) * p.Hq + h * group + r / p.Q) * kD;
+  };
+  if (lo >= hi) {
+    // nothing live in this block's splits; the first block of a tile that
+    // sees nothing at all writes its rows' zeros
+    if (ls < fs && sp_lo == 0 && srow < rows) {
+      for (int c = part; c < kCh; c += 8)
+        *reinterpret_cast<uint4*>(out_row(srow) + 8 * c) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  if (lo != sp_lo) load_pages(lo);   // the walk starts past the block's first split
+  __syncthreads();                   // the page ids are in
+
+  const int lm = lane >> 3;
+  const int lr = lane & 7;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const uint32_t q_base = smem_u32(smem + L::kOffQ);
+  const uint32_t p_base = smem_u32(smem + L::kOffP);
+  const int a_row = lr + 8 * (lm & 1), a_c = lm >> 1;   // A fragments (Q, P): rows on M
+  const int v_row = lr + 8 * (lm & 1), v_c = lm >> 1;   // V by .trans: tokens on K
+  float* f_s = reinterpret_cast<float*>(smem + L::kOffFold);
+  float* s_s = reinterpret_cast<float*>(smem + L::kOffS);
+  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + L::kOffP);
+  float* alpha_s = reinterpret_cast<float*>(smem + L::kOffStat);
+  float* fa_s = alpha_s + kRows;
+  float* fb_s = fa_s + kRows;
+  float* scl = reinterpret_cast<float*>(smem + L::kOffScl);
+
+  const size_t head_stride = (size_t)p.S * kD;
+  const size_t page_stride = 2 * (size_t)p.Hkv * head_stride;
+  const unsigned char* kv_bytes = static_cast<const unsigned char*>(p.kv);
+  const int kc = dk * (int)sizeof(T) / 16;   // 16-byte chunks of a K row read
+  const int vc = dv * (int)sizeof(T) / 16;   // and of a V row
+  int page0 = lo * split_pages;              // the logical page of pages_s[0]
+  int t_lo = 0, t_hi = 0;                    // the split's live tokens
+
+  // a step's copies (32 tokens at t0, a multiple of 32) into stage st: the
+  // tokens of [t_lo, t_hi), zeros for the others (never live, never NaN).
+  // Warp w copies tokens 8w..8w+7: lane j < 8 finds token 8w+j's row once
+  // (its page, its K and V planes), then every lane copies 16-byte chunks
+  // lane, lane + 32, ... of each row, so no chunk divides an index
+  const size_t v_plane = (size_t)p.Hkv * head_stride * sizeof(T);
+  auto issue = [&](int st, int t0) {
+    const uint32_t kd = smem_u32(smem + st * L::kStage);
+    const uint32_t vd = kd + kMlaStep * L::kRow;
+    const int t_me = t0 + 8 * warp + (lane & 7);
+    const int ok_me = t_me >= t_lo && t_me < t_hi;
+    unsigned long long row_me = reinterpret_cast<unsigned long long>(kv_bytes);
+    if (ok_me)
+      row_me += ((size_t)pages_s[t_me / p.S - page0] * page_stride + (size_t)h * head_stride +
+                 (size_t)(t_me % p.S) * kD) * sizeof(T);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int tok = 8 * warp + j;
+      const unsigned char* row =
+          reinterpret_cast<const unsigned char*>(__shfl_sync(0xffffffffu, row_me, j));
+      const int n = __shfl_sync(0xffffffffu, ok_me, j) ? 16 : 0;
+      for (int c = lane; c < kc; c += 32)
+        cp_async16(kd + (L::kWide ? tok * L::kRow + c * 16 : swz<kD>(tok, c)), row + c * 16, n);
+      for (int c = lane; c < vc; c += 32)
+        cp_async16(vd + (L::kWide ? tok * L::kRow + c * 16 : swz<kD>(tok, c)),
+                   row + (n ? v_plane : 0) + c * 16, n);
+    }
+    if (kScaled && tid < 16) {
+      const int sel = tid >> 3;      // 0: K's scales, 1: V's
+      const int c = tid & 7;         // 4 tokens each
+      const int t = t0 + 4 * c;
+      const bool ok = t >= t_lo && t < t_hi;
+      const float* src = p.kv_scales;
+      if (ok)
+        src += (size_t)pages_s[t / p.S - page0] * 2 * p.Hkv * p.S +
+               (size_t)(sel * p.Hkv + h) * p.S + t % p.S;
+      cp_async16(smem_u32(scl + (st * 2 + sel) * kMlaStep + 4 * c), src,
+                 ok ? 4 * min(4, t_hi - t) : 0);
+    }
+  };
+  auto split_range = [&](int s) {
+    t_lo = max(s * p.split, first_tok);
+    t_hi = min((s + 1) * p.split, n_tok);
+  };
+  split_range(lo);
+  const int t_first = t_lo / kMlaStep * kMlaStep;
+  issue(0, t_first);
+  cp_async_commit();
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // the query tile, times the scale, rounded to bf16 once (its reads overlap
+  // the first step's copies); the fold's O at zero
+  for (int idx = tid; idx < kRows * (dk / 8); idx += kThreads) {
+    const int rr = idx / (dk / 8);
+    const int c = idx - rr * (dk / 8);
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (rr < rows) {
+      const int r = row0 + rr;
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+          p.q + ((size_t)(b * p.Q + r % p.Q) * p.Hq + h * group + r / p.Q) * kD + c * 8));
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      uint32_t* o = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] = pack_bf16x2(__fmul_rn(__bfloat162float(e[2 * i]), p.scale),
+                           __fmul_rn(__bfloat162float(e[2 * i + 1]), p.scale));
+    }
+    *reinterpret_cast<uint4*>(smem + L::kOffQ + swz<kD>(rr, c)) = packed;
+  }
+  for (int idx = tid; idx < kRows * L::kFStride / 4; idx += kThreads)
+    reinterpret_cast<float4*>(f_s)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // this lane's two rows of S (g and g + 8): their positions (-1: padding)
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = g + 8 * i;
+    qpos[i] = rr < rows ? qs + (row0 + rr) % p.Q : -1;
+  }
+  // this warp's dims of P.V and O
+  const int nt_w = dv / 32;
+  const int base = warp * (dv / 4);
+  float fM = kNegInf, fL = 0.f;   // the running fold of this thread's srow
+
+  for (int s = lo; s < hi; ++s) {
+    int t_begin = t_first;
+    if (s > lo) {    // a block that takes several splits walks the next
+      load_pages(s);
+      page0 = s * split_pages;
+      split_range(s);
+      __syncthreads();
+      t_begin = t_lo / kMlaStep * kMlaStep;
+      issue(0, t_begin);
+      cp_async_commit();
+    }
+    const int n_steps = (t_hi - t_begin + kMlaStep - 1) / kMlaStep;
+    float o[kNt][4];
+#pragma unroll
+    for (int i = 0; i < kNt; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    float m_run = kNegInf, l_run = 0.f;   // srow's softmax state in this split
+    for (int i = 0; i < n_steps; ++i) {
+      if (i + 1 < n_steps) issue((i + 1) & 1, t_begin + (i + 1) * kMlaStep);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();   // every thread's copies of this step are in
+      const int st = i & 1;
+      const int t0 = t_begin + i * kMlaStep;
+      const unsigned char* stage = smem + st * L::kStage;
+      const float* scl_k = scl + st * 2 * kMlaStep;
+      uint32_t k_base, v_base;
+      if constexpr (L::kWide) {
+        // the step's 8-bit K and V widened exactly to bf16 tiles, warp w
+        // taking the rows it copied, 16 bytes a lane
+        unsigned char* wide = smem + L::kOffWide;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int tok = 8 * warp + j;
+          for (int c = lane; c < kc + vc; c += 32) {
+            const bool isk = c < kc;
+            const int cc = isk ? c : c - kc;
+            const uint4 raw = *reinterpret_cast<const uint4*>(
+                stage + (isk ? 0 : kMlaStep * L::kRow) + tok * L::kRow + cc * 16);
+            uint4 w0, w1;
+            widen4(T{}, raw.x, w0.x, w0.y);
+            widen4(T{}, raw.y, w0.z, w0.w);
+            widen4(T{}, raw.z, w1.x, w1.y);
+            widen4(T{}, raw.w, w1.z, w1.w);
+            unsigned char* dst = wide + (isk ? 0 : L::kWideTile);
+            *reinterpret_cast<uint4*>(dst + swz<kD>(tok, 2 * cc)) = w0;
+            *reinterpret_cast<uint4*>(dst + swz<kD>(tok, 2 * cc + 1)) = w1;
+          }
+        }
+        __syncthreads();
+        k_base = smem_u32(wide);
+        v_base = k_base + L::kWideTile;
+      } else {
+        k_base = smem_u32(stage);
+        v_base = k_base + kMlaStep * L::kRow;
+      }
+
+      // S = Q.K^T: warp w takes tokens 8w..8w+7 over all dk lanes, two
+      // k-steps an ldmatrix of K; sc holds rows g, g+8 x tokens 2 qd + {0, 1}
+      {
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < dk / 32; ++j) {
+          uint32_t a0[4], a1[4], bk[4];
+          ldmatrix_x4(a0, q_base + swz<kD>(a_row, 4 * j + a_c));
+          ldmatrix_x4(a1, q_base + swz<kD>(a_row, 4 * j + 2 + a_c));
+          ldmatrix_x4(bk, k_base + swz<kD>(8 * warp + lr, 4 * j + lm));
+          mma_bf16(sc, a0, bk[0], bk[1]);
+          mma_bf16(sc, a1, bk[2], bk[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = e >> 1;
+          const int tk = 8 * warp + 2 * qd + (e & 1);
+          const int kv_pos = t0 + tk;
+          float sv = sc[e];
+          if (kScaled) sv = __fmul_rn(sv, scl_k[tk]);
+          const bool live = kv_pos >= t_lo && kv_pos < t_hi && kv_pos <= qpos[ri];
+          s_s[(g + 8 * ri) * L::kSStride + tk] = live ? sv : kDead;
+        }
+      }
+      __syncthreads();   // the step's scores are in
+
+      // the online softmax of the step, 8 threads a row, 4 tokens each; P
+      // (times V's scale) rounded to bf16 for P.V, the row sum unrounded
+      {
+        const float4 s4 = *reinterpret_cast<const float4*>(s_s + srow * L::kSStride + 4 * part);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+        float cm = kNegInf;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (sv[k] != kDead) cm = fmaxf(cm, sv[k]);
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 4));
+        const float m_new = fmaxf(m_run, cm);
+        const float alpha = exp_diff(m_run, m_new);
+        m_run = m_new;
+        float pf[4], psum = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          pf[k] = sv[k] != kDead ? exp_diff(sv[k], m_new) : 0.f;
+          psum = __fadd_rn(psum, pf[k]);
+        }
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 1));
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 2));
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 4));
+        l_run = __fadd_rn(__fmul_rn(l_run, alpha), psum);
+        float vs[4] = {1.f, 1.f, 1.f, 1.f};
+        if (kScaled) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) vs[k] = scl_k[kMlaStep + 4 * part + k];
+        }
+        *reinterpret_cast<uint2*>(p_s + srow * L::kPStride + 4 * part) =
+            make_uint2(pack_bf16x2(__fmul_rn(pf[0], vs[0]), __fmul_rn(pf[1], vs[1])),
+                       pack_bf16x2(__fmul_rn(pf[2], vs[2]), __fmul_rn(pf[3], vs[3])));
+        if (part == 0) alpha_s[srow] = alpha;
+      }
+      __syncthreads();   // P and the rows' rescales are in
+
+      // O = O * alpha + P.V over this warp's dims
+      {
+        const float a0 = alpha_s[g], a1 = alpha_s[g + 8];
+        if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {
+#pragma unroll
+          for (int n = 0; n < kNt; ++n) {
+            if (n < nt_w) {
+              o[n][0] = __fmul_rn(o[n][0], a0);
+              o[n][1] = __fmul_rn(o[n][1], a0);
+              o[n][2] = __fmul_rn(o[n][2], a1);
+              o[n][3] = __fmul_rn(o[n][3], a1);
+            }
+          }
+        }
+        uint32_t pa[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          ldmatrix_x4(pa[kk], p_base + a_row * L::kPStride * 2 + (2 * kk + a_c) * 16);
+#pragma unroll
+        for (int dp = 0; dp < kNt / 2; ++dp) {
+          if (2 * dp < nt_w) {
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+              uint32_t bv[4];
+              ldmatrix_x4_trans(bv, v_base + swz<kD>(16 * kk + v_row, base / 8 + 2 * dp + v_c));
+              mma_bf16(o[2 * dp], pa[kk], bv[0], bv[1]);
+              mma_bf16(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
+            }
+          }
+        }
+      }
+      __syncthreads();   // the next step's copies overwrite this stage, S and P
+    }
+    cp_async_wait<0>();
+
+    // the split's state folded into the running one: each row's (a, b) by
+    // its threads, then O by each warp over its dims
+    {
+      float a, bb;
+      fold_ml(fM, fL, m_run, l_run, a, bb);
+      if (part == 0) {
+        fa_s[srow] = a;
+        fb_s[srow] = bb;
+      }
+    }
+    __syncthreads();
+    {
+      const float a0 = fa_s[g], b0 = fb_s[g], a1 = fa_s[g + 8], b1 = fb_s[g + 8];
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        if (n < nt_w) {
+          float* f0 = f_s + g * L::kFStride + base + 8 * n + 2 * qd;
+          float* f1 = f0 + 8 * L::kFStride;
+          f0[0] = fold_o(f0[0], o[n][0], a0, b0);
+          f0[1] = fold_o(f0[1], o[n][1], a0, b0);
+          f1[0] = fold_o(f1[0], o[n][2], a1, b1);
+          f1[1] = fold_o(f1[1], o[n][3], a1, b1);
+        }
+      }
+    }
+  }
+  __syncthreads();   // every warp's dims of O are in
+
+  const float* f_row = f_s + srow * L::kFStride;
+  if (lo == fs && hi == ls + 1) {
+    // every live split of the tile is in this block: write its rows (zeros
+    // past dv, where O stays 0)
+    if (srow < rows) {
+      for (int c = part; c < kCh; c += 8) {
+        uint4 packed;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          w[i] = fL > 0.f ? pack_bf16x2(__fdiv_rn(f_row[8 * c + 2 * i], fL),
+                                        __fdiv_rn(f_row[8 * c + 2 * i + 1], fL))
+                          : 0u;
+        *reinterpret_cast<uint4*>(out_row(srow) + 8 * c) = packed;
+      }
+    }
+    return;
+  }
+  // one split of several (spb == 1): its state, for the merge kernel
+  if (srow < rows) {
+    const size_t slot = ((size_t)bh * p.n_splits + lo) * G + row0 + srow;
+    float* dst = p.ws_o + slot * kD;
+    for (int c = part; c < kD / 4; c += 8)
+      *reinterpret_cast<float4*>(dst + 4 * c) = *reinterpret_cast<const float4*>(f_row + 4 * c);
+    if (part == 0) *reinterpret_cast<float2*>(p.ws_ml + 2 * slot) = make_float2(fM, fL);
+  }
+}
+
+template <typename T, bool kScaled, int kD>
+int launch_mla(const AttnArgs& a) {
+  constexpr int smem = MlaSmem<T, kD, kScaled>::kBytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = set_smem(paged_attention_mla_kernel<T, kScaled, kD>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const int split_blocks = (a.p.n_splits + a.p.spb - 1) / a.p.spb;
+  paged_attention_mla_kernel<T, kScaled, kD>
+      <<<dim3(a.tiles, split_blocks, a.B * a.p.Hkv), kThreads, smem, a.stream>>>(a.p);
+  return launch_merge<kD>(a, split_blocks);
 }
 
 // the (head dim, softcap) instantiations of one entry type; with ALiBi only
@@ -921,6 +1403,7 @@ int launch_dim(int head_dim, const AttnArgs& a) {
   }
 }
 
+#ifdef QSPEC_ATTN_KV
 // this object's KV entry type (its scales: int8 and fp8_e4m3)
 #if QSPEC_ATTN_KV == 0
 using KvT = __nv_bfloat16;
@@ -937,12 +1420,33 @@ constexpr bool kKvScaled = false;
 #else
 #error "QSPEC_ATTN_KV is 0, 1, 2 or 3"
 #endif
+#endif
 
 }  // namespace
 
 #define QSPEC_CAT2(a, b) a##b
 #define QSPEC_CAT(a, b) QSPEC_CAT2(a, b)
 
+#ifdef QSPEC_ATTN_MLA
+#if QSPEC_ATTN_MLA != 384 && QSPEC_ATTN_MLA != 640
+#error "QSPEC_ATTN_MLA is 384 or 640"
+#endif
+// the MLA instantiations of this object's head dim over the four entry types
+// (kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2); args points to the entry
+// point's AttnArgs
+extern "C" int QSPEC_CAT(qspec_paged_attention_mla, QSPEC_ATTN_MLA)(int kv_dtype,
+                                                                    const void* args) {
+  const AttnArgs& a = *static_cast<const AttnArgs*>(args);
+  constexpr int kD = QSPEC_ATTN_MLA;
+  switch (kv_dtype) {
+    case 0: return launch_mla<__nv_bfloat16, false, kD>(a);
+    case 1: return launch_mla<int8_t, true, kD>(a);
+    case 2: return launch_mla<__nv_fp8_e4m3, true, kD>(a);
+    case 3: return launch_mla<__nv_fp8_e5m2, false, kD>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#else
 // every instantiation of this object's entry type: with (tree) or without
 // the tree mask, with (alibi) or without ALiBi; args points to the entry
 // point's AttnArgs (every object compiles the same struct from this file)
@@ -954,14 +1458,17 @@ extern "C" int QSPEC_CAT(qspec_paged_attention_kv, QSPEC_ATTN_KV)(int tree, int 
   if (tree) return launch_dim<KvT, kKvScaled, true, false>(head_dim, a);
   return launch_dim<KvT, kKvScaled, false, false>(head_dim, a);
 }
+#endif
 
-#if QSPEC_ATTN_KV == 0
+#if defined(QSPEC_ATTN_KV) && QSPEC_ATTN_KV == 0
 extern "C" int qspec_paged_attention_kv1(int tree, int alibi, int head_dim, const void* args);
 extern "C" int qspec_paged_attention_kv2(int tree, int alibi, int head_dim, const void* args);
 extern "C" int qspec_paged_attention_kv3(int tree, int alibi, int head_dim, const void* args);
+extern "C" int qspec_paged_attention_mla384(int kv_dtype, const void* args);
+extern "C" int qspec_paged_attention_mla640(int kv_dtype, const void* args);
 
-// q [B, Q, Hq, D] bf16, D = head_dim in {128, 256}; kv = the layer's
-// [P, 2, Hkv, S, D] pages of kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3,
+// q [B, Q, Hq, D] bf16, D = head_dim in {128, 256, 384, 640}; kv = the
+// layer's [P, 2, Hkv, S, D] pages of kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3,
 // 3 fp8_e5m2; kv_scales = the layer's [P, 2, Hkv, S] f32 scales for int8 and
 // fp8_e4m3 (else unused); block_tables [B, pages_per_seq] int32; ctx_lens,
 // q_pos: null (the queries are each row's last Q positions), or the
@@ -974,6 +1481,10 @@ extern "C" int qspec_paged_attention_kv3(int tree, int alibi, int head_dim, cons
 // the rows with q index >= tree_prefix are then tree nodes, node t at slot
 // q_start + tree_prefix + t. alibi: null, or the [Hq] f32 ALiBi slopes (head
 // dim 128, no softcap and no tree: else cudaErrorInvalidValue).
+// k_dims, v_dims: the lanes of K and of V read, head_dim both at 128 and
+// 256; at the MLA head dims 384 and 640 k_dims % 32 == 0 and v_dims % 64 == 0
+// (up to head_dim), the output's lanes past v_dims zero, and no window,
+// softcap, tree or ALiBi (else cudaErrorInvalidValue).
 // The plan (ops/attention_cuda.py:attention_plan): split tokens a split (a
 // multiple of S), n_splits = ceil(pages_per_seq * S / split), spb splits a
 // block (1, or at least n_splits); with spb < n_splits, ws = [B * Hkv *
@@ -987,8 +1498,8 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      void* out, void* ws, int B,
                                      int Q, int Hq, int Hkv, int S, int pages_per_seq,
                                      int split, int n_splits, int spb, int kv_dtype,
-                                     int head_dim, float scale, float softcap,
-                                     int window, const void* tree_anc,
+                                     int head_dim, int k_dims, int v_dims, float scale,
+                                     float softcap, int window, const void* tree_anc,
                                      int tree_prefix, const void* alibi,
                                      void* stream) {
   const int G = (Hq / Hkv) * Q;
@@ -998,22 +1509,31 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
       (long long)n_splits * split < (long long)pages_per_seq * S ||
       (spb < n_splits && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool mla = head_dim == 384 || head_dim == 640;
+  if (mla ? (k_dims <= 0 || k_dims > head_dim || k_dims % 32 != 0 || v_dims <= 0 ||
+             v_dims > head_dim || v_dims % 64 != 0 || window != (1 << 30) ||
+             softcap != 0.f || tree_anc != nullptr || alibi != nullptr)
+          : (k_dims != head_dim || v_dims != head_dim))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* ws_o = static_cast<float*>(ws);
   float* ws_ml = ws_o == nullptr ? nullptr : ws_o + (size_t)B * Hkv * n_splits * G * head_dim;
   const Params p{static_cast<const __nv_bfloat16*>(q), kv, static_cast<const float*>(kv_scales),
                  static_cast<const int*>(block_tables), static_cast<const int*>(ctx_lens),
                  q_pos, q_pos_stride, q_pos_i64, q_pos_col, static_cast<__nv_bfloat16*>(out), ws_o,
-                 ws_ml, Q, Hq, Hkv, S, pages_per_seq, split,
+                 ws_ml, Q, Hq, Hkv, S, pages_per_seq, k_dims, v_dims, split,
                  n_splits, spb, scale, softcap, window,
                  static_cast<const unsigned long long*>(tree_anc), tree_prefix,
                  static_cast<const float*>(alibi)};
   const AttnArgs a{p, B, tiles, static_cast<cudaStream_t>(stream)};
   if (alibi != nullptr && tree_anc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_dtype < 0 || kv_dtype > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (mla)
+    return head_dim == 384 ? qspec_paged_attention_mla384(kv_dtype, &a)
+                           : qspec_paged_attention_mla640(kv_dtype, &a);
   // the object of each entry type: 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
   int (*const parts[4])(int, int, int, const void*) = {
       qspec_paged_attention_kv0, qspec_paged_attention_kv1, qspec_paged_attention_kv2,
       qspec_paged_attention_kv3};
-  if (kv_dtype < 0 || kv_dtype > 3) return static_cast<int>(cudaErrorInvalidValue);
   return parts[kv_dtype](tree_anc != nullptr, alibi != nullptr, head_dim, &a);
 }
 #endif

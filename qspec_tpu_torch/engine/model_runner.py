@@ -894,6 +894,12 @@ class ModelRunner:
                 f"{spec.method} on a mixture-of-experts target is not ported (ROADMAP "
                 "queue 1 item 9): its proposers serve dense targets; QSpec, the "
                 "separate draft model and n-gram serve an MoE")
+        if (self._medusa or self._eagle) and self.cfg.attention_type == "mla":
+            raise NotImplementedError(
+                f"{spec.method} on a multi-head latent attention target (DeepSeek-V2 / V3, "
+                "MiniCPM3) is not ported: its proposers serve dense MHA targets (the "
+                "Medusa tree mask never reaches _mla_attention's attention); n-gram "
+                "serves MLA")
         if draft_params is not None and not sep_draft:
             raise ValueError("draft_params passed without speculative.draft_model, "
                              "the draft's ModelConfig")

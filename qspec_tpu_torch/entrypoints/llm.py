@@ -52,8 +52,9 @@ Granite, Mixtral, Qwen2-MoE, Qwen3-MoE, and under other key names
 Baichuan-7B / Baichuan2-7B, InternLM2, Qwen v1, EXAONE, TeleChat2) rotated
 and quantized at load (QuaRot, ``quantize_float``); with
 ``quantization=None`` such a float checkpoint in bf16 (``load_hf_float``,
-Baichuan-13B's ALiBi too) or a BLOOM / MPT / DeepSeek-MoE / Falcon / JAIS one
-(``load_family_float``), which speculate by n-gram prompt lookup:
+Baichuan-13B's ALiBi too) or a BLOOM / MPT / DeepSeek-MoE / Falcon / JAIS /
+DeepSeek-V2 / DeepSeek-V3 / MiniCPM3 one (``load_family_float``), which
+speculate by n-gram prompt lookup:
 
     llm = LLM(model="/path/to/Meta-Llama-3-8B", num_speculative_tokens=3)
     llm = LLM(model="/path/to/Qwen2.5-7B", num_speculative_tokens=3)
@@ -63,6 +64,8 @@ Baichuan-13B's ALiBi too) or a BLOOM / MPT / DeepSeek-MoE / Falcon / JAIS one
               num_speculative_tokens=3, speculative_model="[ngram]")
     llm = LLM(model="/path/to/internlm2_5-7b-chat", num_speculative_tokens=3)
     llm = LLM(model="/path/to/falcon-40b", quantization=None,
+              num_speculative_tokens=3, speculative_model="[ngram]")
+    llm = LLM(model="/path/to/DeepSeek-V2-Lite-Chat", quantization=None,
               num_speculative_tokens=3, speculative_model="[ngram]")
 
 Qwen2-7B at its published widths, random int4 weights made on the card:
@@ -99,7 +102,7 @@ from qspec_tpu_torch.model_loader.loader import (check_rotatable, config_from_hf
                                                  load_hf_float, load_qspec,
                                                  quantization_config_of, quantize_float,
                                                  read_safetensors)
-from qspec_tpu_torch.models.llama import init_params, resolve_device
+from qspec_tpu_torch.models.llama import check_served, init_params, resolve_device
 from qspec_tpu_torch.sampling_params import SamplingParams
 from qspec_tpu_torch.spec_decode.eagle import load_eagle
 from qspec_tpu_torch.spec_decode.medusa import load_medusa
@@ -196,7 +199,9 @@ class LLM:
         GLM-4, and the remap families, whose keys ``quantize_float`` maps
         first); without quantization the family converter of a BLOOM / MPT /
         DeepSeek-MoE / Falcon / JAIS / GPT-J / GPT-NeoX / Phi / StableLM /
-        Cohere, else the llama-keyed float loader (the remap families, GLM-4
+        Cohere / DeepSeek-V2 / DeepSeek-V3 / MiniCPM3 (multi-head latent
+        attention, which any other quantization refuses before a weight is
+        read), else the llama-keyed float loader (the remap families, GLM-4
         and Helium too); a compressed-tensors one (its ``quant_method``) by
         ``load_compressed_tensors`` with its ``quantization_config``, whose
         cfg (quant "w4g" or "w8") replaces EngineArgs', as in the JAX route.
@@ -206,6 +211,9 @@ class LLM:
         way in."""
         cfg = self.engine_config.model
         dev = resolve_device(device)
+        if cfg.attention_type == "mla":
+            # DeepSeek-V2 / V3, MiniCPM3: bf16 only, before a weight is read
+            check_served(cfg)
         if cfg.quant == "w4":
             check_rotatable(cfg)
         sd = read_safetensors(path)

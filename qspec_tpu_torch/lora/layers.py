@@ -58,6 +58,10 @@ def init_lora_params(cfg, lora_cfg: LoRAConfig, dtype=torch.bfloat16, device="cu
         raise NotImplementedError(
             "LoRA on a mixture-of-experts model is not ported: the JAX package applies "
             "no adapter to its experts' MLP (ROADMAP queue 3)")
+    if cfg.attention_type == "mla":
+        raise NotImplementedError(
+            "LoRA on a multi-head latent attention model (DeepSeek-V2 / V3, MiniCPM3) is "
+            "not ported: the JAX package's _mla_attention applies no adapter")
     dev = resolve_device(device)
     n, r = lora_cfg.max_loras, lora_cfg.max_rank
     return {"layers": {

@@ -2,7 +2,8 @@
 serves, and the key remaps of the llama graph under other key names.
 
 Port of ``qspec_tpu/model_loader/families.py`` for BLOOM, MPT,
-DeepSeek-MoE, Falcon, JAIS and the parallel-residual families GPT-J,
+DeepSeek-MoE, DeepSeek-V2 / V3 and MiniCPM3 (multi-head latent attention),
+Falcon, JAIS and the parallel-residual families GPT-J,
 GPT-NeoX / Pythia, Phi, StableLM and Cohere: a family's checkpoint layout
 (BLOOM's and GPT-NeoX's head-interleaved fused ``query_key_value``, MPT's
 ``transformer.blocks.*`` naming, DeepSeek's dense prefix and shared experts,
@@ -249,6 +250,78 @@ def convert_deepseek(sd: Dict, cfg: ModelConfig, device=None) -> dict:
     for key, st in segs.items():
         o = st.out
         params[key] = {**{n: {"w": o.pop(n)} for n in PROJ_KEYS if n in o}, **o}
+    embed = _take(sd, "model.embed_tokens.weight", dev)
+    head = _take(sd, "lm_head.weight", dev) if "lm_head.weight" in sd else None
+    params.update(embed=embed, lm_head=embed.t() if head is None else head.t().contiguous(),
+                  final_norm=_take(sd, "model.norm.weight", dev), **position_params(cfg, dev))
+    return params
+
+
+def convert_deepseek_v2(sd: Dict, cfg: ModelConfig, device=None) -> dict:
+    """DeepSeek-V2 / V3 and MiniCPM3 (``qspec_tpu/model_loader/families.py::
+    convert_deepseek_v2``): multi-head latent attention's keys, the q
+    projection ``q_proj`` (``mla_q``) or its low-rank pair ``q_a_proj`` /
+    ``q_a_layernorm`` / ``q_b_proj`` (``mla_q_a``, ``mla_q_norm``,
+    ``mla_q_b``), ``kv_a_proj_with_mqa`` (``mla_kv_a``: the latent and the
+    rope key), ``kv_a_layernorm`` (``mla_kv_norm``), ``kv_b_proj`` stored
+    [kv_lora_rank, heads, qk_nope + v] (``mla_kv_b``) for the absorbed form,
+    ``o_proj``; DeepSeek-MoE's MLPs, the dense prefix in ``layers_dense``
+    (as ``convert_deepseek``), V3's selection bias
+    ``e_score_correction_bias`` in f32 (``router_bias``; zeros under
+    noaux_tc where the checkpoint has none); the head untied unless the
+    checkpoint has none; the rope cache at the rope key's width."""
+    dev = _device(sd, device)
+    E = cfg.num_experts
+    nh, r = cfg.num_heads, cfg.kv_lora_rank
+    segs = {key: _Stacker(sd, L, dev) for key, L, _ in layer_stacks(cfg)}
+
+    def t(name):
+        return _take(sd, name, dev).t()
+
+    for key, seg_cfg, li, wi in layer_segments(cfg):
+        p = f"model.layers.{li}."
+        a = p + "self_attn."
+        st = segs[key]
+        if cfg.q_lora_rank:
+            st.put("mla_q_a", wi, t(a + "q_a_proj.weight"))
+            st.vector("mla_q_norm", wi, a + "q_a_layernorm.weight")
+            st.put("mla_q_b", wi, t(a + "q_b_proj.weight"))
+        else:
+            st.put("mla_q", wi, t(a + "q_proj.weight"))
+        st.put("mla_kv_a", wi, t(a + "kv_a_proj_with_mqa.weight"))
+        st.vector("mla_kv_norm", wi, a + "kv_a_layernorm.weight")
+        st.put("mla_kv_b", wi, t(a + "kv_b_proj.weight").reshape(
+            r, nh, cfg.qk_nope_head_dim + cfg.v_head_dim))
+        st.put("o", wi, t(a + "o_proj.weight"))
+        st.vector("input_norm", wi, p + "input_layernorm.weight")
+        st.vector("post_norm", wi, p + "post_attention_layernorm.weight")
+        m = p + "mlp."
+        if not seg_cfg.num_experts:
+            st.put("gate_up", wi, torch.cat([t(m + "gate_proj.weight"),
+                                             t(m + "up_proj.weight")], 1))
+            st.put("down", wi, t(m + "down_proj.weight"))
+            continue
+        st.put("router", wi, t(m + "gate.weight"))
+        bias = sd.pop(m + "gate.e_score_correction_bias", None)
+        if bias is not None or cfg.moe_routing == "noaux_tc":
+            st.put("router_bias", wi, torch.zeros(E, dtype=torch.float32, device=dev)
+                   if bias is None else _tensor(bias).to(device=dev, dtype=torch.float32))
+        for e in range(E):
+            x = f"{m}experts.{e}."
+            st.put("experts_gate_up", (wi, e), torch.cat([t(x + "gate_proj.weight"),
+                                                          t(x + "up_proj.weight")], 1),
+                   experts=E)
+            st.put("experts_down", (wi, e), t(x + "down_proj.weight"), experts=E)
+        if cfg.shared_expert_intermediate_size:
+            x = m + "shared_experts."
+            st.put("shared_gate_up", wi, torch.cat([t(x + "gate_proj.weight"),
+                                                    t(x + "up_proj.weight")], 1))
+            st.put("shared_down", wi, t(x + "down_proj.weight"))
+    params = {}
+    for key, st in segs.items():
+        o = st.out
+        params[key] = {**{n: {"w": o.pop(n)} for n in PROJ_KEYS + MLA_PROJ_KEYS if n in o},
+                       **o}
     embed = _take(sd, "model.embed_tokens.weight", dev)
     head = _take(sd, "lm_head.weight", dev) if "lm_head.weight" in sd else None
     params.update(embed=embed, lm_head=embed.t() if head is None else head.t().contiguous(),
@@ -592,13 +665,17 @@ LLAMA_KEY_REMAPS: Dict[str, Callable] = {
 # the projections of a layer-stacked tree: dense, or an MoE's
 PROJ_KEYS = ("qkv", "o", "gate_up", "down", "experts_gate_up", "experts_down",
              "shared_gate_up", "shared_down")
+# and multi-head latent attention's (models/llama.py _mla_attention)
+MLA_PROJ_KEYS = ("mla_q", "mla_q_a", "mla_q_b", "mla_kv_a")
 
 # only the ported converters: a family not here raises in load_family_float
 CONVERTERS: Dict[str, Callable] = {"bloom": convert_bloom, "mpt": convert_mpt,
                                    "deepseek": convert_deepseek, "falcon": convert_falcon,
                                    "jais": convert_jais, "gptj": convert_gptj,
                                    "gpt_neox": convert_gpt_neox, "phi": convert_phi,
-                                   "stablelm": convert_stablelm, "cohere": convert_cohere}
+                                   "stablelm": convert_stablelm, "cohere": convert_cohere,
+                                   "deepseek_v2": convert_deepseek_v2,
+                                   "deepseek_v3": convert_deepseek_v2}
 
 
 def load_family_float(sd: Dict, cfg: ModelConfig, device=None):

@@ -423,6 +423,53 @@ def layer_window(cfg: ModelConfig, li: int) -> Optional[int]:
     return cfg.sliding_window
 
 
+def _mla_attention(xn, layers, wi: int, li: int, cfg: ModelConfig, cache,
+                   batch: AttentionBatch, rope_cache):
+    """DeepSeek-V2's multi-head latent attention in the weight-absorbed
+    form (``qspec_tpu/models/llama.py::_mla_attention``; DeepSeek-V2 / V3,
+    MiniCPM3), bf16 weights: the q projection (direct, or q_a, its RMSNorm
+    and q_b: q-LoRA), the latent ``kv_a`` = [c_kv | k_pe] with c_kv's
+    RMSNorm (the ``rmsnorm`` kernel), rope on the decoupled dims in the
+    gptj pairing, W_UK absorbed into the query (q_nope . W_UK over each
+    head) and W_UV applied after the attention, which runs as MQA over one
+    latent row a token: K = [c_kv, k_pe, 0...], V = [c_kv, 0...], the query
+    [q_abs, q_pe, 0...], scale (qk_nope + qk_rope) ** -0.5, the kernel
+    reading only the K lanes r + dr and the V lanes r. The JAX package takes
+    the two absorption einsums in f32; here they are float64 sums of the
+    bf16 operands, rounded to f32 (exact to far below an f32 step, so a
+    row's bits do not depend on the batch, which cuBLAS's f32 algorithm
+    choice by M would break). Returns the block's output [T, hidden]."""
+    T = xn.shape[0]
+    B, Q = batch.positions.shape
+    nh, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    eps = cfg.rms_norm_eps
+    if cfg.q_lora_rank:
+        qa = _linear(xn, layers["mla_q_a"], "bf16", li=wi)
+        q = _linear(rmsnorm(qa, layers["mla_q_norm"][wi], eps=eps), layers["mla_q_b"],
+                    "bf16", li=wi)
+    else:
+        q = _linear(xn, layers["mla_q"], "bf16", li=wi)
+    q = q.reshape(T, nh, dn + dr)
+    kv_a = _linear(xn, layers["mla_kv_a"], "bf16", li=wi)           # [T, r + dr]
+    c_kv = rmsnorm(kv_a[:, :r].contiguous(), layers["mla_kv_norm"][wi], eps=eps)
+    q_pe, k_pe = apply_rope(q[..., dn:], kv_a[:, None, r:], batch.positions.reshape(-1),
+                            rope_cache, "gptj")
+    w_kb = layers["mla_kv_b"][wi].to(torch.float64)                 # [r, nh, dn + dv]
+    q_abs = torch.einsum("thd,rhd->thr", q[..., :dn].to(torch.float64),
+                         w_kb[..., :dn]).to(torch.float32)          # [T, nh, r]
+    qk = torch.cat([q_abs, q_pe.to(torch.float32)], dim=-1).to(torch.bfloat16)
+    k_row = torch.cat([c_kv, k_pe[:, 0]], dim=-1)[:, None]           # [T, 1, r + dr]
+    v_row = torch.nn.functional.pad(c_kv, (0, dr))[:, None]
+    kvc.update_layer(cache, li, k_row, v_row, batch.slot_mapping.reshape(-1))
+    attn = paged_attention(qk.reshape(B, Q, nh, r + dr).contiguous(), cache, li,
+                           batch.block_tables, batch.ctx_lens, (dn + dr) ** -0.5,
+                           q_positions=batch.positions, lanes=(r + dr, r))
+    lat = attn.reshape(T, nh, r + dr)[..., :r]
+    out = torch.einsum("thr,rhd->thd", lat.to(torch.float64), w_kb[..., dn:])
+    return _linear(out.reshape(T, nh * dv).to(torch.bfloat16), layers["o"], "bf16", li=wi)
+
+
 def float_knobs(cfg: ModelConfig) -> bool:
     """Whether ``cfg`` takes a knob of the GPT-family float graph: LayerNorm,
     the non-gated MLP, ALiBi, linear biases, clip_qkv or the parallel
@@ -439,7 +486,9 @@ def check_served(cfg: ModelConfig) -> None:
     float families' knobs come only with bf16 weights (the JAX package
     serves BLOOM and MPT as float checkpoints); an MoE comes as a QuaRot
     (w4) or a float checkpoint, and under QuaRot a dense prefix only of the
-    experts' width."""
+    experts' width; multi-head latent attention comes with bf16 weights
+    only and under no window, softcap or ALiBi (as the JAX package builds
+    it: its _mla_attention passes none of them to the attention)."""
     if cfg.arch == "gemma2" and cfg.quant != "w4g":
         raise NotImplementedError("Gemma-2 is served as an AWQ / GPTQ "
                                   "(quant='w4g') checkpoint only; QuaRot w4 "
@@ -456,6 +505,21 @@ def check_served(cfg: ModelConfig) -> None:
             f"a compressed-tensors int8 / fp8 (quant='w8') {cfg.arch} is not ported "
             "(ROADMAP queue 1 item 9): the JAX package's _load_channelwise reads dense "
             "llama-keyed layers only, no expert and no Gemma-2 post-block norm")
+    if cfg.attention_type == "mla":
+        if cfg.quant != "none":
+            raise NotImplementedError(
+                f"multi-head latent attention (DeepSeek-V2 / V3, MiniCPM3) at quant="
+                f"{cfg.quant!r}: served in bf16 (quant='none') only, as the JAX package "
+                "builds it (QuaRot's rotations do not extend to the latent factorization)")
+        knobs = {"a sliding window": cfg.sliding_window is not None,
+                 "a logit softcap": cfg.attn_logit_softcap is not None,
+                 "ALiBi": cfg.position_embedding != "rope"}
+        bad = [k for k, on in knobs.items() if on]
+        if bad:
+            raise NotImplementedError(
+                f"multi-head latent attention under {', '.join(bad)}: the JAX package's "
+                "_mla_attention passes none to its attention, and the port's MLA kernel "
+                "takes none")
     if (cfg.num_experts and cfg.first_k_dense and cfg.quant == "w4"
             and cfg.intermediate_size != cfg.expert_intermediate_size):
         raise NotImplementedError(
@@ -500,37 +564,46 @@ def decoder_layer(x, addend, layers, cache, li: int, cfg: ModelConfig,
                           for n in ("input_norm_b", "post_norm_b"))
 
     xn, xq, x = _norm_maybe_quant(x, addend, gamma_in, eps, bits, beta_in, cfg.norm_type)
-    qkv = _add_lora(_linear(xn, layers["qkv"], scheme, xq, wi), lora, "qkv",
-                    _fp_input(xn, xq) if lora is not None else None, lora_ids)
-    if cfg.clip_qkv is not None:
-        qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
-    q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
-    q = q.reshape(T, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(T, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
-    if cfg.qk_norm:
-        q = _head_rmsnorm(q, layers["q_norm"][wi], eps)
-        k = _head_rmsnorm(k, layers["k_norm"][wi], eps)
-    if alibi is None:
-        q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache, cfg.rope_style)
-    q = q.to(torch.bfloat16)
-    k = k.to(torch.bfloat16)
-
-    kvc.update_layer(cache, li, k, v, batch.slot_mapping.reshape(-1))
-    attn = paged_attention(q.reshape(B, Q, cfg.num_heads, cfg.head_dim).contiguous(),
-                           cache, li, batch.block_tables, batch.ctx_lens,
-                           (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
-                           q_positions=batch.positions, window=layer_window(cfg, li),
-                           softcap=cfg.attn_logit_softcap, alibi=alibi, tree=tree)
-    attn = attn.reshape(T, cfg.num_heads, cfg.head_dim)
-    if quarot:
-        attn = _head_hadamard(attn, hadamards["heads"])
-    attn_flat = attn.reshape(T, cfg.q_size)
-    if quant_act:
-        o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), wi)
+    if cfg.attention_type == "mla":
+        # DeepSeek-V2's latent attention (bf16 weights; _mla_attention)
+        if tree is not None:
+            raise NotImplementedError(
+                "the Medusa tree mask on multi-head latent attention: the JAX package's "
+                "_mla_attention passes no tree to its attention, so its tree verify "
+                "would ignore the mask; the port refuses it")
+        o = _mla_attention(xn, layers, wi, li, cfg, cache, batch, rope_cache)
     else:
-        o = _linear(attn_flat, layers["o"], scheme, li=wi)
-    o = _add_lora(o, lora, "o", attn_flat, lora_ids)
+        qkv = _add_lora(_linear(xn, layers["qkv"], scheme, xq, wi), lora, "qkv",
+                        _fp_input(xn, xq) if lora is not None else None, lora_ids)
+        if cfg.clip_qkv is not None:
+            qkv = qkv.clamp(-cfg.clip_qkv, cfg.clip_qkv)
+        q, k, v = torch.split(qkv, [cfg.q_size, cfg.kv_size, cfg.kv_size], dim=-1)
+        q = q.reshape(T, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(T, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(T, cfg.num_kv_heads, cfg.head_dim).to(torch.bfloat16)
+        if cfg.qk_norm:
+            q = _head_rmsnorm(q, layers["q_norm"][wi], eps)
+            k = _head_rmsnorm(k, layers["k_norm"][wi], eps)
+        if alibi is None:
+            q, k = apply_rope(q, k, batch.positions.reshape(-1), rope_cache, cfg.rope_style)
+        q = q.to(torch.bfloat16)
+        k = k.to(torch.bfloat16)
+
+        kvc.update_layer(cache, li, k, v, batch.slot_mapping.reshape(-1))
+        attn = paged_attention(q.reshape(B, Q, cfg.num_heads, cfg.head_dim).contiguous(),
+                               cache, li, batch.block_tables, batch.ctx_lens,
+                               (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5,
+                               q_positions=batch.positions, window=layer_window(cfg, li),
+                               softcap=cfg.attn_logit_softcap, alibi=alibi, tree=tree)
+        attn = attn.reshape(T, cfg.num_heads, cfg.head_dim)
+        if quarot:
+            attn = _head_hadamard(attn, hadamards["heads"])
+        attn_flat = attn.reshape(T, cfg.q_size)
+        if quant_act:
+            o = _linear(None, layers["o"], scheme, _act_quant(attn_flat, scheme), wi)
+        else:
+            o = _linear(attn_flat, layers["o"], scheme, li=wi)
+        o = _add_lora(o, lora, "o", attn_flat, lora_ids)
     if cfg.post_norms:
         # Gemma-2's post-attention norm, on the block output before the add
         o = rmsnorm(o.to(torch.bfloat16), layers["post_attn_norm"][wi], eps=eps)
@@ -650,6 +723,10 @@ def model_forward(params, cfg: ModelConfig, token_ids: torch.Tensor,
         if cfg.num_experts:
             raise NotImplementedError("LoRA on a mixture-of-experts model is not ported: "
                                       "the JAX package applies no adapter to its experts")
+        if cfg.attention_type == "mla":
+            raise NotImplementedError("LoRA on a multi-head latent attention model is not "
+                                      "ported: the JAX package's _mla_attention applies "
+                                      "no adapter")
         tok_lora = lora_ids.to(torch.int64).repeat_interleave(Q)
     if "embed_norm" in params:
         # BLOOM's word_embeddings_layernorm, before layer 0
@@ -733,9 +810,19 @@ def make_hadamards(cfg: ModelConfig, device=None):
 
 
 def _proj_shapes(cfg: ModelConfig):
+    """(K, N) of a dense layer's projections; multi-head latent attention's
+    in place of qkv: the q projection (``mla_q``, or under q-LoRA
+    ``mla_q_a`` and ``mla_q_b``), ``mla_kv_a`` (the latent and the rope
+    key) and ``o`` over the heads' v dims."""
     H, I = cfg.hidden_size, cfg.intermediate_size
-    return {"qkv": (H, cfg.qkv_out), "o": (cfg.q_size, H),
-            "gate_up": (H, 2 * I), "down": (I, H)}
+    mlp = {"gate_up": (H, 2 * I), "down": (I, H)}
+    if cfg.attention_type == "mla":
+        nh, qd = cfg.num_heads, cfg.num_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+        q = ({"mla_q_a": (H, cfg.q_lora_rank), "mla_q_b": (cfg.q_lora_rank, qd)}
+             if cfg.q_lora_rank else {"mla_q": (H, qd)})
+        return {**q, "mla_kv_a": (H, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                "o": (nh * cfg.v_head_dim, H), **mlp}
+    return {"qkv": (H, cfg.qkv_out), "o": (cfg.q_size, H), **mlp}
 
 
 def layer_projections(cfg: ModelConfig, moe: bool):
@@ -913,8 +1000,17 @@ def _extra_layer_params(layers: dict, cfg: ModelConfig, L: int, moe: bool, norma
     the JAX package's init_params makes them: the qkv bias (normal(0.01),
     bf16), the q/k norms' unit gammas, an MoE layer's bf16 router [L, H, E]
     (normal(0.02)), its zero selection bias under noaux_tc and the shared
-    expert's gate [L, H, 1]."""
+    expert's gate [L, H, 1]; multi-head latent attention's unit gammas of
+    the latent (and of q-LoRA's q) and its kv_b [L, r, heads, qk_nope + v]
+    (normal(0.02), bf16)."""
     bf16 = dict(dtype=torch.bfloat16, device=dev)
+    if cfg.attention_type == "mla":
+        r = cfg.kv_lora_rank
+        layers["mla_kv_norm"] = torch.ones((L, r), **bf16)
+        if cfg.q_lora_rank:
+            layers["mla_q_norm"] = torch.ones((L, cfg.q_lora_rank), **bf16)
+        layers["mla_kv_b"] = normal(L, r, cfg.num_heads,
+                                    cfg.qk_nope_head_dim + cfg.v_head_dim).to(torch.bfloat16)
     if cfg.qkv_bias:
         layers["qkv"]["b"] = normal(L, cfg.qkv_out, std=0.01).to(torch.bfloat16)
     if cfg.qk_norm:
@@ -1013,7 +1109,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     Packed int4 (plain or grouped, with its scales and offsets), the
     per-channel int8 / fp8 weights of a quant="w8" tree (``"w8"``, ``"s8"``,
     fp8 bit for bit), the gammas and the int8 head stay as they are: the kernels read the interchange
-    layouts directly. The proposer nets come along: ``"medusa"``
+    layouts directly. Multi-head latent attention's projections (``mla_q`` |
+    ``mla_q_a`` / ``mla_q_b``, ``mla_kv_a``), its gammas (``mla_q_norm``,
+    ``mla_kv_norm``) and ``mla_kv_b`` [L, r, heads, qk_nope + v] come as
+    they are. The proposer nets come along: ``"medusa"``
     (``spec_decode/medusa.py``'s heads), ``"mlp_spec"`` (an MLPSpeculator)
     and ``"eagle"`` (EAGLE's fc, layer and rope cache). An ALiBi model gets
     its ``alibi_slopes``."""
@@ -1035,8 +1134,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
                   for name in layer_projections(cfg, moe)}
         # the router, its selection bias and the shared expert's gate; the
         # q/k norms' gammas (live in every quant mode); the float gammas
-        for name in ("router", "router_bias", "shared_gate", "q_norm", "k_norm") + (
-                () if cfg.quant == "w4" else norms):
+        for name in ("router", "router_bias", "shared_gate", "q_norm", "k_norm", "mla_q_norm",
+                     "mla_kv_norm", "mla_kv_b") + (() if cfg.quant == "w4" else norms):
             if name in src:
                 layers[name] = _tensor(src[name], dev)
         params[seg] = layers

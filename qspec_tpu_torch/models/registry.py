@@ -36,7 +36,16 @@ and ``CohereForCausalLM`` (Command-R), converted by
 ``model_loader/families.py``; the llama-keyed ``GlmForCausalLM`` (GLM-4:
 the qkv bias, the fused gate_up_proj, half-width interleaved rope) and
 ``HeliumForCausalLM`` (the interleaved rope), through the llama-keyed
-loaders, Helium under QuaRot too. ``Cohere2ForCausalLM`` and
+loaders, Helium under QuaRot too.
+
+Multi-head latent attention (``models/llama.py _mla_attention``), in bf16
+through ``convert_deepseek_v2``: ``DeepseekV2ForCausalLM`` (DeepSeek-V2 /
+V2-Lite: the latent cache, direct or low-rank q, the MoE with
+``routed_scaling_factor``), ``DeepseekV3ForCausalLM`` (its noaux_tc
+routing: sigmoid scores, ``n_group`` / ``topk_group``, the selection bias)
+and ``MiniCPM3ForCausalLM`` (dense MLA with q-LoRA and MiniCPM's muP scales,
+read as the JAX registry reads it, arch ``deepseek_v2``; its longrope
+``rope_scaling`` too, which the JAX package drops: ROADMAP §3). ``Cohere2ForCausalLM`` and
 ``Glm4ForCausalLM`` are named only to raise, naming ROADMAP queue 1 item 9
 (the JAX registry maps them onto Cohere and GLM and drops their other
 layers' knobs). A plugin (``plugins.py``) registers more with
@@ -47,9 +56,10 @@ ModelConfig, and comes before the table. Any other architecture raises.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict
 
-from qspec_tpu_torch.config import LLAMA_GRAPH_TYPES, ModelConfig
+from qspec_tpu_torch.config import LLAMA_GRAPH_TYPES, ModelConfig, _rope_scaling
 
 # architecture (or, as in the JAX package's registry, the bare model type)
 # -> the model type its config is read as
@@ -81,7 +91,8 @@ ARCHITECTURES = {"LlamaForCausalLM": "llama", "QuarotLlamaForCausalLM": "llama",
                  "StableLmForCausalLM": "stablelm", "StableLMEpochForCausalLM": "stablelm",
                  "stablelm": "stablelm", "CohereForCausalLM": "cohere", "cohere": "cohere",
                  "Cohere2ForCausalLM": "cohere2", "GlmForCausalLM": "glm", "glm": "glm",
-                 "Glm4ForCausalLM": "glm4", "HeliumForCausalLM": "helium", "helium": "helium"}
+                 "Glm4ForCausalLM": "glm4", "HeliumForCausalLM": "helium", "helium": "helium",
+                 "DeepseekV2ForCausalLM": "deepseek_v2", "deepseek_v2": "deepseek_v2"}
 # the architectures whose config.json model type the JAX registry keeps (its
 # LlamaForCausalLM, MistralForCausalLM and Phi3ForCausalLM entries call
 # from_hf_config on the dict as it is; a Qwen2 entry then sets the qwen2
@@ -98,6 +109,56 @@ KEEP_MODEL_TYPE = {"LlamaForCausalLM", "QuarotLlamaForCausalLM", "llama_quarot",
 _REGISTRY: Dict[str, Callable[[dict], ModelConfig]] = {}
 
 
+def _deepseek_v3(hf: dict) -> ModelConfig:
+    """DeepSeek-V3 / R1 (the JAX registry's ``_deepseek_v3``): DeepSeek-V2's
+    MLA and MoE graph read by the deepseek_v2 reader, with noaux_tc routing:
+    sigmoid scores, the selection bias, ``n_group`` / ``topk_group``,
+    ``norm_topk_prob`` (default true); a ``topk_method`` other than noaux_tc
+    or greedy raises."""
+    if hf.get("topk_method", "noaux_tc") not in ("noaux_tc", "greedy"):
+        raise ValueError(f"deepseek-v3 topk_method {hf['topk_method']!r} unsupported")
+    cfg = ModelConfig.from_hf_config(dict(hf, model_type="deepseek_v2", topk_method="greedy"))
+    return dataclasses.replace(
+        cfg, arch="deepseek_v3", moe_routing="noaux_tc", moe_n_group=hf.get("n_group", 1) or 1,
+        moe_topk_group=hf.get("topk_group", 1) or 1,
+        moe_norm_topk_prob=hf.get("norm_topk_prob", True), moe_softmax_before_topk=False)
+
+
+def _minicpm3(hf: dict) -> ModelConfig:
+    """MiniCPM3 (the JAX registry's ``_minicpm3``): dense MLA with q-LoRA,
+    arch ``deepseek_v2`` (its checkpoint keys), MiniCPM's muP scales
+    (``scale_emb`` on the embeddings, ``scale_depth / sqrt(L)`` on each
+    block's output, the logits divided by ``hidden_size /
+    dim_model_base``), a tied head by default. Past the JAX package, its
+    ``rope_scaling`` (MiniCPM3-4B's longrope) is read as Hugging Face reads
+    it (``make_rope_cache``'s longrope branch); the JAX registry drops it."""
+    nh, L = hf["num_attention_heads"], hf["num_hidden_layers"]
+    return ModelConfig(
+        arch="deepseek_v2", attention_type="mla", kv_lora_rank=hf["kv_lora_rank"],
+        q_lora_rank=hf.get("q_lora_rank"), qk_nope_head_dim=hf["qk_nope_head_dim"],
+        qk_rope_head_dim=hf["qk_rope_head_dim"],
+        v_head_dim=hf.get("v_head_dim", hf["hidden_size"] // nh),
+        rotary_dim=hf["qk_rope_head_dim"], vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"], intermediate_size=hf["intermediate_size"],
+        num_layers=L, num_heads=nh, num_kv_heads=nh,
+        head_dim=hf["qk_nope_head_dim"] + hf["qk_rope_head_dim"],
+        rope_theta=hf.get("rope_theta", 10000.0), rope_scaling=_rope_scaling(hf),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        max_position_embeddings=hf.get("max_position_embeddings", 32768), quant="none",
+        embed_scale=float(hf.get("scale_emb", 1.0)) or None,
+        residual_multiplier=float(hf.get("scale_depth", math.sqrt(L))) / math.sqrt(L),
+        logits_scaling=(hf["hidden_size"] / hf["dim_model_base"]
+                        if hf.get("dim_model_base") else None),
+        tie_word_embeddings=hf.get("tie_word_embeddings", True))
+
+
+# the architectures (and bare model types) read by a translator of their own,
+# as the JAX registry's
+TRANSLATORS: Dict[str, Callable[[dict], ModelConfig]] = {
+    "DeepseekV3ForCausalLM": _deepseek_v3, "deepseek_v3": _deepseek_v3,
+    "MiniCPM3ForCausalLM": _minicpm3, "minicpm3": _minicpm3}
+
+
 def register_model(arch: str):
     """Decorator: register ``fn(hf_config) -> ModelConfig`` for ``arch``
     (the plugin-facing name of the JAX package's ``register``)."""
@@ -108,7 +169,7 @@ def register_model(arch: str):
 
 
 def supported_architectures():
-    return sorted({*ARCHITECTURES, *_REGISTRY})
+    return sorted({*ARCHITECTURES, *TRANSLATORS, *_REGISTRY})
 
 
 def resolve(hf_config: dict) -> ModelConfig:
@@ -120,6 +181,8 @@ def resolve(hf_config: dict) -> ModelConfig:
     for a in archs:
         if a in _REGISTRY:
             return _REGISTRY[a](hf_config)
+        if a in TRANSLATORS:
+            return TRANSLATORS[a](hf_config)
         if a in ARCHITECTURES:
             mt = hf_config.get("model_type", "") if a in KEEP_MODEL_TYPE else ""
             if not any(f in mt for f, _ in LLAMA_GRAPH_TYPES):

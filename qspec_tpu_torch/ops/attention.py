@@ -2,7 +2,8 @@
 
 Port of ``qspec_tpu/ops/attention.py`` (causal, optionally under a sliding
 window, with Gemma-2's logit softcap or with ALiBi, or under the Medusa tree
-mask; bf16, int8, fp8_e4m3 and fp8_e5m2 caches). One chunked formulation
+mask; bf16, int8, fp8_e4m3 and fp8_e5m2 caches; MLA's latent head dims 384
+and 640, causal only, over the lanes they need). One chunked formulation
 serves every phase:
 
 * decode:  Q = 1 new token per sequence;
@@ -134,7 +135,7 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
                         scale: float, q_positions: torch.Tensor = None,
                         window: int = None, softcap: float = None,
                         alibi: torch.Tensor = None, tree=None,
-                        bf16_products: bool = False) -> torch.Tensor:
+                        bf16_products: bool = False, lanes: tuple = None) -> torch.Tensor:
     """q: [B, Q, Hq, D]; ctx_lens[b] counts tokens *including* the new ones.
 
     ``q_positions`` [B, Q] gives each query's absolute position; query i
@@ -153,6 +154,9 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     products (``qspec_tpu/ops/attention_pallas.py:128, 208``), over a bf16
     cache: q times the scale to bf16 before the scores, and the
     probabilities to bf16 before P.V, the row sums taken unrounded.
+    ``lanes``: (k_dims, v_dims), the function over q's and K's first k_dims
+    lanes and V's first v_dims, the output zero past v_dims (MLA's latent
+    rows: the kernel reads only those lanes).
     """
     B, Q, Hq, D = q.shape
     if bf16_products and cache.kv_pages.dtype != torch.bfloat16:
@@ -160,12 +164,14 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     if q_positions is None:
         q_positions = (ctx_lens[:, None] - Q) + torch.arange(Q, device=q.device)[None, :]
     k, v = gather_layer(cache, layer, block_tables)  # [B, Hkv, C, D]
+    if lanes is not None:
+        k, v, q = k[..., :lanes[0]], v[..., :lanes[1]], q[..., :lanes[0]]
     Hkv = k.shape[1]
     group = Hq // Hkv
     qf = q.to(torch.float32) * scale
     if bf16_products:
         qf = qf.to(torch.bfloat16).to(torch.float32)
-    qf = qf.reshape(B, Q, Hkv, group, D)
+    qf = qf.reshape(B, Q, Hkv, group, q.shape[-1])
     scores = torch.einsum("bqhgd,bhcd->bhgqc", qf, k.to(torch.float32))
     C = k.shape[2]
     kv_pos = torch.arange(C, device=q.device)[None, :]
@@ -192,7 +198,8 @@ def paged_attention_ref(q: torch.Tensor, cache: PagedKVCache, layer: int,
     else:
         probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqc,bhcd->bqhgd", probs, v.to(torch.float32))
-    return out.reshape(B, Q, Hq, D).to(q.dtype)
+    out = out.reshape(B, Q, Hq, v.shape[-1]).to(q.dtype)
+    return out if out.shape[-1] == D else torch.nn.functional.pad(out, (0, D - out.shape[-1]))
 
 
 def _check_alibi(alibi: torch.Tensor, num_heads: int, tree) -> None:
@@ -209,8 +216,9 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
                     block_tables: torch.Tensor, ctx_lens: torch.Tensor,
                     scale: float, q_positions: torch.Tensor = None,
                     window=None, softcap=None, alibi=None,
-                    tree=None) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version on the CPU."""
+                    tree=None, lanes=None) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version on the CPU. ``lanes``:
+    (k_dims, v_dims) of MLA's latent rows (see ``paged_attention_ref``)."""
     if alibi is not None:
         _check_alibi(alibi, q.shape[2], tree)
     head_dim = q.shape[-1]
@@ -224,9 +232,9 @@ def paged_attention(q: torch.Tensor, cache: PagedKVCache, layer: int,
         out = paged_attention_cuda(q, cache.kv_pages, block_tables, ctx_lens,
                                    scale, q_positions=q_positions, layer=layer,
                                    kv_scales=cache.kv_scales, window=window,
-                                   softcap=softcap, alibi=alibi, tree=tree)
+                                   softcap=softcap, alibi=alibi, tree=tree, lanes=lanes)
     else:
         out = paged_attention_ref(q, cache, layer, block_tables, ctx_lens,
                                   scale, q_positions=q_positions, window=window,
-                                  softcap=softcap, alibi=alibi, tree=tree)
+                                  softcap=softcap, alibi=alibi, tree=tree, lanes=lanes)
     return out[..., :head_dim] if cache_dim != head_dim else out

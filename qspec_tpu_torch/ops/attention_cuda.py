@@ -2,7 +2,9 @@
 
 Counterpart of ``qspec_tpu/ops/attention_pallas.py:paged_attention_pallas``
 (causal core, sliding window, logit softcap, ALiBi and the Medusa tree mask;
-head dims 128 and 256; bf16, int8, fp8_e4m3 and fp8_e5m2 caches).
+head dims 128 and 256, and MLA's latent head dims 384 and 640 (the causal
+core only, over the lanes it needs); bf16, int8, fp8_e4m3 and fp8_e5m2
+caches).
 The plain version it is held against is ``ops/attention.py:paged_attention_ref``.
 """
 
@@ -22,17 +24,21 @@ KV_CODES = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2,
             torch.float8_e5m2: 3}
 # entry types whose pages carry per-token scales
 SCALED = (torch.int8, torch.float8_e4m3fn)
-# the head dims the kernel is instantiated for (csrc/paged_attention.cu)
-HEAD_DIMS = (128, 256)
+# the head dims the kernel is instantiated for (csrc/paged_attention.cu):
+# 128 and 256, and the MLA kernel's latent head dims 384 and 640
+HEAD_DIMS = (128, 256, 384, 640)
+MLA_DIMS = (384, 640)
 # entry type -> the launch counts of its instantiations: ``launches`` is
 # raised by one at each launch of that entry type (ops.kernel_wrappers names
 # each); ``window_launches`` also at each launch under a window,
 # ``softcap_launches`` at each launch with a logit softcap,
 # ``d256_launches`` at each launch of the head-dim-256 instantiation,
+# ``d384_launches`` and ``d640_launches`` at each of the MLA kernel's,
 # ``tree_launches`` at each launch under a Medusa tree mask and
 # ``alibi_launches`` at each launch of an ALiBi instantiation
 LAUNCHES = {dtype: SimpleNamespace(launches=0, window_launches=0,
                                    softcap_launches=0, d256_launches=0,
+                                   d384_launches=0, d640_launches=0,
                                    tree_launches=0, alibi_launches=0)
             for dtype in KV_CODES}
 # the sliding-window sentinel (qspec_tpu/ops/attention_pallas.py NO_WINDOW):
@@ -50,12 +56,21 @@ SPLIT_MIN = 256
 # verify, the tree: B x Hkv x splits blocks); more tiles take all of a tile's
 # splits in one block (prefill). The folds are the same, so is every bit.
 MAX_SPLIT_TILES = 4
+# the MLA kernel's splits (at the MLA head dims): 128 tokens, and one split a
+# block wherever that at least halves the waves of blocks over the card's
+# SMs against one block a row tile (a big grid keeps the latter, and no
+# workspace). Its blocks, one an SM, wait on their KV copies, so more of
+# them in flight read faster (tools/mla_variants_ab.py on an H100: 1.6-1.8x
+# at MiniCPM3's and DeepSeek-V2-Lite's verify, PERF.md §6)
+MLA_SPLIT_MIN = 128
 
 
-def split_tokens(page_size: int) -> int:
-    """Tokens a split: the fewest whole pages holding SPLIT_MIN tokens. Token
-    t lies in split t // split_tokens(S), whatever B, Q or the card."""
-    return page_size * -(-SPLIT_MIN // page_size)
+def split_tokens(page_size: int, head_dim: int = 128) -> int:
+    """Tokens a split: the fewest whole pages holding SPLIT_MIN tokens
+    (MLA_SPLIT_MIN at the MLA head dims). Token t lies in split t //
+    split_tokens(S, D), whatever B, Q or the card."""
+    least = MLA_SPLIT_MIN if head_dim in MLA_DIMS else SPLIT_MIN
+    return page_size * -(-least // page_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,15 +89,21 @@ class AttentionPlan:
 
 
 def attention_plan(B: int, Q: int, Hq: int, Hkv: int, D: int, S: int,
-                   pages_per_seq: int) -> AttentionPlan:
+                   pages_per_seq: int, sms: int = 132) -> AttentionPlan:
     """The split plan and schedule of a launch. The splits follow from the
-    page size and the block table's width; the schedule (one split a block or
-    all of them) from the row tiles, and changes no bit."""
-    split = split_tokens(S)
+    page size, the head dim and the block table's width; the schedule (one
+    split a block or all of them) from the row tiles (at the MLA head dims,
+    from the waves of blocks over ``sms`` SMs), and changes no bit."""
+    split = split_tokens(S, D)
     n_splits = max(1, -(-pages_per_seq * S // split))
     G = Hq // Hkv * Q
     tiles = -(-G // ROWS)
-    spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits
+    if D in MLA_DIMS:
+        blocks = tiles * B * Hkv
+        halves = 2 * -(-blocks * n_splits // sms) <= -(-blocks // sms) * n_splits
+        spb = 1 if halves else n_splits
+    else:
+        spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits
     grid_y = -(-n_splits // spb)
     return AttentionPlan(split, n_splits, spb, (tiles, grid_y, B * Hkv),
                          B * Hkv * n_splits * G * (D + 2) if grid_y > 1 else 0)
@@ -117,8 +138,9 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                          scale: float, q_positions: torch.Tensor = None,
                          layer: int = 0, kv_scales: torch.Tensor = None,
                          window: int = None, softcap: float = None,
-                         alibi: torch.Tensor = None, tree=None) -> torch.Tensor:
-    """q: [B, Q, Hq, D] bf16, D 128 or 256; kv_pages: the whole stacked cache
+                         alibi: torch.Tensor = None, tree=None,
+                         lanes: tuple = None) -> torch.Tensor:
+    """q: [B, Q, Hq, D] bf16, D in HEAD_DIMS; kv_pages: the whole stacked cache
     [L, P, 2, Hkv, S, D] of bf16, int8, fp8_e4m3 or fp8_e5m2 entries
     (layer ``layer`` is read in place); kv_scales [L, P, 2, Hkv, S] f32 for
     int8 and fp8_e4m3, else None; block_tables [B, PPS]; ctx_lens [B].
@@ -138,7 +160,11 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
     are the T <= 64 tree nodes, node t at slot root + 1 + t, each
     seeing the context up to the root (under the window, past its own AR
     position root + depth less the window) and its ancestors' and its own
-    slots. Returns [B, Q, Hq, D] bf16."""
+    slots. ``lanes``: (k_dims, v_dims), the lanes of K (and q) and of V
+    read, at the MLA head dims 384 and 640 only (k_dims % 32 == 0, v_dims %
+    64 == 0); the output's lanes past v_dims are zero. Those dims take no
+    window, softcap, ALiBi or tree (the JAX package reaches none of them
+    there). Returns [B, Q, Hq, D] bf16."""
     _build.require(q.is_cuda, "paged_attention_cuda: CUDA tensors")
     B, Q, Hq, D = q.shape
     L, P, two, Hkv, S, D2 = kv_pages.shape
@@ -152,8 +178,20 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                        and tuple(kv_scales.shape) == (L, P, 2, Hkv, S),
                        "paged_attention_cuda: kv_scales f32 [L, P, 2, Hkv, S]")
     _build.require(D == D2 and D in HEAD_DIMS and two == 2,
-                   f"paged_attention_cuda: head dim 128 or 256 (q and cache alike), "
+                   "paged_attention_cuda: head dim 128 or 256, or MLA's 384 or 640 (q and "
+                   f"cache alike), "
                    f"got q {D}, cache {D2}")
+    dk, dv = (D, D) if lanes is None else map(int, lanes)
+    if D in MLA_DIMS:
+        _build.require(window is None and softcap is None and alibi is None and tree is None,
+                       f"paged_attention_cuda: head dim {D} (MLA) without a window, "
+                       "softcap, ALiBi or tree")
+        _build.require(0 < dk <= D and dk % 32 == 0 and 0 < dv <= D and dv % 64 == 0,
+                       f"paged_attention_cuda: lanes (k {dk}, v {dv}) at head dim {D}: "
+                       "k_dims % 32 == 0 and v_dims % 64 == 0, at most the head dim")
+    else:
+        _build.require(lanes is None or (dk, dv) == (D, D),
+                       f"paged_attention_cuda: lanes at head dim {D} are all {D}")
     _build.require(Hq % Hkv == 0 and S % 16 == 0,
                    "paged_attention_cuda: Hq % Hkv == 0 and page size % 16 == 0")
     _build.require(0 <= layer < L, "paged_attention_cuda: layer in range")
@@ -211,7 +249,7 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
         sc_layer = kv_scales[layer]
         _build.cuda_args_ok(q, sc_layer)
         sc_ptr = sc_layer.data_ptr()
-    plan = attention_plan(B, Q, Hq, Hkv, D, S, tables.shape[1])
+    plan = attention_plan(B, Q, Hq, Hkv, D, S, tables.shape[1], _build.sm_count(q.device))
     ws = None
     if plan.ws_floats:   # the split blocks' states, for the merge kernel
         ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=q.device)
@@ -220,13 +258,15 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
         ctx.data_ptr(), pos_ptr, pos_stride, pos_i64, pos_col, out.data_ptr(),
         None if ws is None else ws.data_ptr(), B, Q,
         Hq, Hkv, S, tables.shape[1], plan.split, plan.n_splits,
-        plan.splits_per_block, KV_CODES[kv_pages.dtype], D, float(scale), cap, win,
+        plan.splits_per_block, KV_CODES[kv_pages.dtype], D, dk, dv, float(scale), cap, win,
         anc_ptr, prefix, alibi_ptr, _build.stream_of(q)))
     count = LAUNCHES[kv_pages.dtype]
     count.launches += 1
     count.window_launches += window is not None
     count.softcap_launches += softcap is not None
     count.d256_launches += D == 256
+    count.d384_launches += D == 384
+    count.d640_launches += D == 640
     count.tree_launches += tree is not None
     count.alibi_launches += alibi is not None
     return out

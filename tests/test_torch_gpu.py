@@ -1979,3 +1979,126 @@ def test_w8a16_torch_mm_branch(gen, kind, m, k, n):
         torch.testing.assert_close(out.float(), lk.matmul_w8a16_ref(x, qw, qs, out_dtype=dt).float(),
                                    rtol=2e-2, atol=2e-2)
     assert (counters["matmul_w8a16"].launches, counters["matmul_w8a16_fp8"].launches) == before
+
+
+# MLA's latent attention shapes: (query heads over one latent KV row, stored
+# head dim, K lanes r + dr, V lanes r) of MiniCPM3-4B, DeepSeek-V2-Lite and
+# DeepSeek-V2 / V3
+MLA_SHAPES = {"minicpm3-4b": (40, 384, 288, 256), "deepseek-v2-lite": (16, 640, 576, 512),
+              "deepseek-v3": (128, 640, 576, 512)}
+MLA_CTX = (300, 700, 45, 4000)
+
+
+def _mla_case(gen, q_len, kv_dtype, shape, ctx=MLA_CTX, S=16):
+    """A latent cache as MLA writes it (update_layer of K rows [c, 0...] and
+    V rows [c[:r], 0...] over one KV head, c random over the K lanes), one
+    row per context (at least q_len), pages shuffled; q random over the K
+    lanes, zero past them. Returns (q, cache, tables, ctx_t, scale, lanes)."""
+    Hq, D, dk, dv = MLA_SHAPES[shape]
+    ctx = [max(c, q_len) for c in ctx]
+    pages = [-(-c // S) for c in ctx]
+    P = 1 + sum(pages)
+    cache = kvc.allocate(kvc.KVCacheConfig(2, 1, D, P, S, kv_dtype), "cuda")
+    T = (P - 1) * S
+    lat = torch.randn(T, 1, dk, generator=gen, device="cuda")
+    k_new = torch.nn.functional.pad(lat, (0, D - dk)).to(torch.bfloat16)
+    v_new = torch.nn.functional.pad(lat[..., :dv], (0, D - dv)).to(torch.bfloat16)
+    kvc.update_layer(cache, 1, k_new, v_new, torch.arange(T, device="cuda") + S)
+    ids = torch.randperm(P - 1, generator=torch.Generator().manual_seed(q_len)) + 1
+    tables = torch.zeros(len(ctx), max(pages), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(pages):
+        tables[b, :n] = ids[o:o + n]
+        o += n
+    q = torch.randn(len(ctx), q_len, Hq, dk, generator=gen, device="cuda")
+    q = torch.nn.functional.pad(q, (0, D - dk)).to(torch.bfloat16)
+    scale = (96 if D == 384 else 192) ** -0.5     # (qk_nope + qk_rope) ** -0.5
+    return (q, cache, tables.cuda(), torch.tensor(ctx, dtype=torch.int32, device="cuda"),
+            scale, (dk, dv))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_paged_attention_kernel_mla(gen, shape, kv_dtype):
+    """The MLA instantiations (head dims 384 and 640, every entry type) at
+    MiniCPM3-4B's, DeepSeek-V2-Lite's and DeepSeek-V3's query groups, B = 4,
+    contexts to 4000 (16 splits of 256), decode (Q = 1), the n-gram verify
+    (Q = 4) and a prefill rectangle (Q = 64) against the plain version over
+    the same lanes (rtol = atol 3e-2 over bf16, 4e-2 over int8 / fp8_e4m3,
+    8e-2 over fp8_e5m2, as the other entry types' tests); each launch
+    counted once on its entry type and head dim; the output zero past the V
+    lanes; the last row's bits the same alone as in its Q = 4 block."""
+    D = MLA_SHAPES[shape][1]
+    name = "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
+    counter = kernel_wrappers()[name]
+    tol = {"bfloat16": 3e-2, "fp8_e5m2": 8e-2}.get(kv_dtype, 4e-2)
+    for q_len in (1, 4, 64):
+        q, cache, tables, ctx_t, scale, lanes = _mla_case(gen, q_len, kv_dtype, shape)
+        before = (counter.launches, getattr(counter, f"d{D}_launches"))
+        out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1,
+                                   kv_scales=cache.kv_scales, lanes=lanes)
+        assert (counter.launches, getattr(counter, f"d{D}_launches")) == \
+            tuple(n + 1 for n in before)
+        assert torch.count_nonzero(out[..., lanes[1]:]) == 0
+        ref = paged_attention_ref(q, cache, 1, tables, ctx_t, scale, lanes=lanes)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        if q_len == 4:
+            one = paged_attention_cuda(q[:, -1:].contiguous(), cache.kv_pages, tables, ctx_t,
+                                       scale, layer=1, kv_scales=cache.kv_scales, lanes=lanes)
+            assert torch.equal(one[:, 0], out[:, -1])
+
+
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_paged_attention_kernel_mla_row_bits(gen, shape):
+    """A latent row's bits do not depend on Q (1, 2 and 4 last positions:
+    other schedules where the row tiles pass 4), on B, on its place in the
+    batch, on a longer row beside it (a wider block table), on a second
+    call, and equal a CUDA-graph replay's (the attention kernel and, where a
+    tile spans splits, the merge kernel)."""
+    q, cache, tables, ctx_t, scale, lanes = _mla_case(gen, 4, "bfloat16", shape)
+
+    def inputs(rows, width=None, ql=4):
+        rows = torch.as_tensor(rows, device="cuda")
+        tab = tables[rows][:, :width] if width else tables[rows]
+        return q[rows][:, 4 - ql:].contiguous(), tab.contiguous(), ctx_t[rows].contiguous()
+
+    def launch(args):
+        qq, tab, c = args
+        return paged_attention_cuda(qq, cache.kv_pages, tab, c, scale, layer=1, lanes=lanes)
+
+    full = launch(inputs([0, 1, 2, 3]))
+    narrow = -(-max(MLA_CTX[:3]) // 16)
+    assert torch.equal(launch(inputs([0, 1, 2], width=narrow)), full[:3])
+    assert torch.equal(launch(inputs([2, 0], width=narrow)), full[[2, 0]])
+    assert torch.equal(launch(inputs([3, 2, 1, 0])), full.flip(0))
+    assert torch.equal(launch(inputs([0, 1, 2, 3])), full)
+    for ql in (1, 2):
+        assert torch.equal(launch(inputs([0, 1, 2, 3], ql=ql)), full[:, -ql:])
+    every, first3 = inputs([0, 1, 2, 3]), inputs([0, 1, 2], width=narrow)
+    assert _replayed(lambda: launch(every), full)
+    assert _replayed(lambda: launch(first3), full[:3])
+
+
+def test_paged_attention_kernel_mla_refusals(gen):
+    """The MLA head dims take no window, softcap, ALiBi or tree (the JAX
+    package reaches none of them there), and only K lanes % 32 == 0 and V
+    lanes % 64 == 0 up to the head dim; the other head dims read all lanes."""
+    from qspec_tpu_torch.ops.attention import alibi_slopes
+    from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
+    q, cache, tables, ctx_t, scale, lanes = _mla_case(gen, 4, "bfloat16", "deepseek-v2-lite")
+    tspec = build_tree(DEFAULT_TREE)
+    bad = [dict(window=64), dict(softcap=50.0),
+           dict(alibi=torch.as_tensor(alibi_slopes(16), device="cuda")),
+           dict(tree=tree_mask(1, tspec.ancestors, "cuda"))]
+    for kw in bad:
+        with pytest.raises(ValueError, match="MLA"):
+            paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1,
+                                 lanes=lanes, **kw)
+    for wrong in ((560, 512), (576, 480), (672, 512)):
+        with pytest.raises(ValueError, match="lanes"):
+            paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1, lanes=wrong)
+    cache128 = kvc.allocate(kvc.KVCacheConfig(2, 1, 128, 4, 16), "cuda")
+    q128 = torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16, device="cuda")
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="lanes"):
+        paged_attention_cuda(q128, cache128.kv_pages, one[None], one, 0.1, lanes=(96, 64))
