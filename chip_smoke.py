@@ -9,7 +9,9 @@ qspec_tpu_torch (its kernels built there): the paged-attention kernel at
 AB_SHAPES (the verify shapes of the timing phase over bf16 and int8 caches,
 D=256 with and without the softcap 50, context 8192 over bf16 and int8,
 the window-128 decode at context 2048 and the same decode without it, the
-tree verify at Q=15, BLOOM-7B1's ALiBi verify) and at each of its 36
+tree verify at Q=15, BLOOM-7B1's ALiBi verify, the MLA kernel at MiniCPM3-4B's,
+DeepSeek-V2-Lite's and DeepSeek-V3's verify over bf16 and int8, at
+DeepSeek-V2-Lite's decode and at 4096 tokens a sequence over bf16) and at each of its 44
 instantiations, then the grouped GEMM matmul_w4a16_g per layer of
 Llama-3-8B and of Gemma-2-9B (its four projections, g = 128, weights made
 by that checkout's model_loader.grouped) at M = 4, 16 and 60, then
@@ -21,7 +23,7 @@ graph), then matmul_w8a16 at W8_AB (one Llama-3-8B trunk layer over int8
 and fp8 weights at M = 4 and 16, its down projection alone, the int8 head
 at M = 4, 16 and 60, Qwen1.5-MoE's and Qwen2-7B's heads at M = 4 and 16).
 It prints, per AB_SHAPES entry, the times in the order given and the ratio of the
-first checkout's mean to the second's, and a summary of the 36; every
+first checkout's mean to the second's, and a summary of the 44; every
 checkout's JSON line (with its ptxas registers and spills) and the
 per-instantiation times go to chiprun_out/chip_smoke.log. No result line.
 
@@ -3505,7 +3507,7 @@ def phase_guided_8b(params8, cfg8, smi: str):
                                             for n, (ms, s) in compile_ms.items())
         + f"; table {table_bytes / 1e6:.2f} MB on cuda; w4a8 ms a round guided "
         f"{i1['round_ms_guided_w4a8']:.2f} vs unguided {i1['round_ms_unguided_w4a8']:.2f} "
-        f"(host clock)")
+        f"(host clock)", stdout=False)
     i2 = phase_guided_induction()
     i3, i3_launches = phase_guided_server(params8, cfg8)
     wall = time.perf_counter() - t_phase
@@ -4075,7 +4077,7 @@ def phase_engine_surface_8b(params8, cfg8, base_toks, smi: str):
         f"{l2['recompute_4gb']['parted_at_output']}; (L3) soft prompt == prompt_embeds == "
         f"qspec_null; "
         f"(L4) 2 x 4 beams, rescore err {l4['max_rescore_err']:.3g}; (L5) server LoRA "
-        f"load/complete/unload == LLM.generate; {wall:.1f} s; card {smi}")
+        f"load/complete/unload == LLM.generate; {wall:.1f} s; card {smi}", stdout=False)
     return l1_launches, out
 
 
@@ -4654,7 +4656,8 @@ def check_dense_shapes(gen, report):
     log("check (H) dense shapes: attention GQA group 7 (Q=1,2,4; ctx to 8192), w4a16 / w4a4 "
         "(bit-equal) / w4a16_g at Qwen2-7B's projections M=4,16, norms H=3584,3072, int8 heads "
         f"{sorted(n for _, n in DENSE_HEADS.values())}: max_abs_err "
-        + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}, separators=(",", ":")))
+        + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}, separators=(",", ":")),
+        stdout=False)
 
 
 def time_dense_shapes(gen, report, int4pack_missing):
@@ -4972,7 +4975,7 @@ def phase_dense_dirs(smi: str):
     log("e2e (H2) LLM(model=<dir>), published widths at 2 layers, quantize_float, w4a4 QSpec == "
         "qspec_null: " + ", ".join(
             f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s, "
-            f"{r[1]['load_peak_gib']:.1f} GiB)" for n, r in out.items()))
+            f"{r[1]['load_peak_gib']:.1f} GiB)" for n, r in out.items()), stdout=False)
     log(f"e2e (H2): card {smi}", stdout=False)
     return out, kept
 
@@ -5295,7 +5298,8 @@ def check_remap_shapes(gen, report):
     log("check (J) shapes: attention " + ", ".join(a[0] for a in J_ATTN) + " (Q=1,4; ALiBi "
         "moves each output), w4a16 / w4a4 (bit-equal) at Qwen-7B's projections M=4,16, int8 "
         f"heads {sorted(n for _, n in J_HEADS.values())}: max_abs_err "
-        + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}, separators=(",", ":")))
+        + json.dumps({k: float(f"{v:.3g}") for k, v in err.items()}, separators=(",", ":")),
+        stdout=False)
 
 
 def time_remap_shapes(gen, report, int4pack_missing):
@@ -5324,7 +5328,8 @@ def time_remap_shapes(gen, report, int4pack_missing):
         report[name].setdefault("j_times", {})[label] = [
             float(f"{r[f]:.5g}") if r[f] is not None else None for f in fields]
     log("time (J), ms kernel/bound: " + "; ".join(
-        f"{name} {label} {r['ms']:.4f}/{r['bound_ms']:.4f}" for (name, label), r in rows.items()))
+        f"{name} {label} {r['ms']:.4f}/{r['bound_ms']:.4f}" for (name, label), r in rows.items()),
+        stdout=False)
 
 
 def internlm2_entries(cfg):
@@ -5555,7 +5560,7 @@ def phase_remap_dirs(smi: str):
     log("e2e (J2) LLM(model=<dir>), published widths at 2 layers, remap + quantize_float, w4a4 "
         "QSpec == qspec_null: " + ", ".join(
             f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s, "
-            f"{r[1]['load_peak_gib']:.1f} GiB)" for n, r in out.items()))
+            f"{r[1]['load_peak_gib']:.1f} GiB)" for n, r in out.items()), stdout=False)
     log(f"e2e (J2): card {smi}", stdout=False)
     return out
 
@@ -5648,7 +5653,8 @@ def phase_float_dirs(smi: str):
     log("e2e (J3) LLM(model=<dir>, quantization=None), published widths at 2 layers, n-gram == "
         "null: " + ", ".join(
             f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s)"
-            for n, r in out.items()) + "; baichuan2-13b under QuaRot raises (MLP width 13696)")
+            for n, r in out.items()) + "; baichuan2-13b under QuaRot raises (MLP width 13696)",
+            stdout=False)
     log(f"e2e (J3): card {smi}", stdout=False)
     return out
 
@@ -5968,7 +5974,7 @@ def phase_k_dirs(smi: str):
         "null: " + ", ".join(
             f"{n} {r[1]['acceptance_rate']:.3f} (load {r[1]['load_s']:.1f} s)"
             for n, r in out.items()) + f"; {len(K_REFUSALS)} refusals raise before a weight "
-        "is read")
+        "is read", stdout=False)
     log(f"e2e (K2): card {smi}", stdout=False)
     return out
 
@@ -6445,7 +6451,7 @@ def phase_ct_induction(smi: str):
         torch.cuda.empty_cache()
     log("e2e (M3) induction_lm_v2 drafted/accepted/emitted of QSpec (w4a16, window 64, "
         "k=3), EAGLE (k=4), and copy breaks, each == its oracle, == the CPU's unless "
-        "bracketed: " + "; ".join(lines))
+        "bracketed: " + "; ".join(lines), stdout=False)
     log(f"e2e (M3): card {smi}", stdout=False)
     return out
 
@@ -6561,6 +6567,10 @@ MLA_ATTN = (("minicpm3-4b", 40, 384, 288, 256, 96),
             ("deepseek-v2-lite", 16, 640, 576, 512, 192),
             ("deepseek-v3", 128, 640, 576, 512, 192))
 MLA_TOL = {"bfloat16": 3e-2, **KV8_TOL}
+# the long-context verify's tokens a sequence (time_mla_shapes, --ab): there
+# the bound is more than launch cost (DeepSeek-V3's operations, the other
+# groups' bytes)
+MLA_LONG = 4096
 # the gamma rmsnorm's widths in (N): the hidden sizes of MiniCPM3-4B,
 # DeepSeek-V2-Lite and DeepSeek-V3, each also after the residual add, and
 # the latents' (q-LoRA's 768 and 1536, c_kv's 256 and 512: no residual)
@@ -6574,13 +6584,13 @@ def _attn_name(kv_dtype: str) -> str:
     return "paged_attention" if kv_dtype == "bfloat16" else f"paged_attention_{kv_dtype}"
 
 
-def _mla_inputs(gen, q_len, kv_dtype, Hq, D, dk, dv, B=4, S=128):
+def _mla_inputs(gen, q_len, kv_dtype, Hq, D, dk, dv, B=4, S=128, ctx=None):
     """A latent cache of ``kv_dtype`` as MLA writes it (update_layer of one
     KV head a token: K rows [c, 0...] over the K lanes, V rows [c[:dv],
-    0...]) under _ctx_lens' contexts, pages shuffled; q over the K lanes,
-    zero past them."""
+    0...]) under ``ctx`` (B contexts; _ctx_lens' by default), pages
+    shuffled; q over the K lanes, zero past them."""
     from qspec_tpu_torch.ops import kv_cache as kvc
-    ctx = _ctx_lens(q_len, S)
+    ctx = list(ctx or _ctx_lens(q_len, S))
     pages = [-(-c // S) for c in ctx]
     P = 1 + sum(pages)
     cache = kvc.allocate(kvc.KVCacheConfig(2, 1, D, P, S, kv_dtype), "cuda")
@@ -6618,7 +6628,8 @@ def check_mla_shapes(gen, report):
     """(N) the MLA instantiations (head dims 384 and 640, each KV entry type)
     at MLA_ATTN's groups over one latent row, B = 4, the verify's contexts,
     decode (Q = 1), the n-gram verify (Q = 4) and a prefill rectangle (Q =
-    64), against the plain version over the same lanes (MLA_TOL: the other
+    64), and the verify at MLA_LONG tokens a sequence (B = 4: 32 splits of
+    128), against the plain version over the same lanes (MLA_TOL: the other
     entry-type checks' tolerances), the output zero past the V lanes; the
     gamma rmsnorm at MLA_NORM_H (alone and with the residual add, h bit for
     bit the torch add) and MLA_LATENT_H (alone), M = 4 and 16, against its
@@ -6627,8 +6638,8 @@ def check_mla_shapes(gen, report):
     for kv_dtype in ("bfloat16", *KV8):
         err, tol = 0.0, MLA_TOL[kv_dtype]
         for label, Hq, D, dk, dv, dqk in MLA_ATTN:
-            for q_len in (1, 4, 64):
-                inputs = _mla_inputs(gen, q_len, kv_dtype, Hq, D, dk, dv)
+            for q_len, ctx in ((1, None), (4, None), (64, None), (4, (MLA_LONG,) * 4)):
+                inputs = _mla_inputs(gen, q_len, kv_dtype, Hq, D, dk, dv, ctx=ctx)
                 out = _mla_call(inputs, dqk, dk, dv)
                 ref = _mla_call(inputs, dqk, dk, dv, plain=True)
                 torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -6656,53 +6667,94 @@ def check_mla_shapes(gen, report):
                 e_norm = max(e_norm, (got[0].float() - want[0].float()).abs().max().item())
     report["rmsnorm"]["mla_max_err"] = float(f"{e_norm:.3g}")
     log("check (N) MLA attention D=384/640, " + "/".join(str(a[1]) for a in MLA_ATTN)
-        + " heads over 1, Q=1,4,64, max_abs_err " + "/".join(f"{v:.3g}" for v in errs.values())
+        + f" heads over 1, Q=1,4,64 and Q=4 at {MLA_LONG}, max_abs_err "
+        + "/".join(f"{v:.3g}" for v in errs.values())
         + " (bf16/int8/e4m3/e5m2; tol " + "/".join(f"{MLA_TOL[k]:g}" for k in errs)
         + f"), 0 past the V lanes; rmsnorm gamma at {len(MLA_NORM_H + MLA_LATENT_H)} MLA "
         f"widths {e_norm:.3g} (tol 2e-2)")
 
 
+def mla_bound(Hq, dk, dv, kv_dtype, ctx, pps, q_len=4):
+    """The least time the card could take for one latent attention call:
+    (bound ms, "bytes" or "operations", the bound with V's lanes counted
+    apart). Bytes: each live token's K row (dk lanes) read once, its V lanes
+    (dv) apart only over int8 and fp8_e4m3, whose V rows are not K's bits
+    (bf16 and fp8_e5m2 store V's lanes as K's first), the per-token scales
+    of those two, q's dk lanes and the output's dv, the block table and the
+    lengths; operations 2 Hq (dk + dv) a (query row, live token) pair. The
+    third number counts V's lanes apart on every type: the bound of a kernel
+    that reads the V plane."""
+    entry = 2 if kv_dtype == "bfloat16" else 1
+    scaled = kv_dtype in ("int8", "fp8_e4m3")
+    B = len(ctx)
+    seen = sum(sum(c - q_len + i + 1 for i in range(q_len)) for c in ctx)
+    ops = 2 * Hq * (dk + dv) * seen
+    io = B * q_len * Hq * (dk + dv) * 2 + B * pps * 4 + B * 4
+
+    def rows(v_lanes):
+        return sum(ctx) * ((dk + v_lanes) * entry + (8 if scaled else 0))
+    b, kind = bound_ms(rows(dv if scaled else 0) + io, ops, "bf16")
+    return b, kind, bound_ms(rows(dv) + io, ops, "bf16")[0]
+
+
 def time_mla_shapes(gen, report):
     """(N) each MLA instantiation at MLA_ATTN's three groups at the n-gram
-    verify (B = 4, Q = 4, the verify's contexts 379 / 263 / 512 / 40),
-    inputs rotated past L2 and made before the graph captures, beside its
-    plain version; the bound counts the lanes the function needs (q's and
-    K's dk, V's and the output's dv, each live token's row read once, the
-    per-token scales of int8 and fp8_e4m3): the padding lanes and the
-    rereads of a row by the group's 16-row tiles are the kernel's excess.
-    No one PyTorch call computes paged attention over a latent cache
-    (library none). report[entry]["mla_times"]: label -> [ms, plain_ms,
-    bound_ms, library_ms]."""
-    live = _ctx_lens(4)
-    seen = sum(sum(c - 4 + i + 1 for i in range(4)) for c in live)
-    fields = ("ms", "plain_ms", "bound_ms", "library_ms")
+    verify (B = 4, Q = 4, the verify's contexts 379 / 263 / 512 / 40), and
+    the bf16 instantiations also at MLA_LONG tokens a sequence, inputs
+    rotated past L2 and made before the graph captures, beside its plain
+    version; the bound is mla_bound's (K's lanes once where V's are its
+    bits, with V's lanes counted apart beside it). No one PyTorch call
+    computes paged attention over a latent cache (library none).
+    report[entry]["mla_times"]: label -> [ms, plain_ms, bound_ms,
+    library_ms, bound_ms with V apart]."""
+    fields = ("ms", "plain_ms", "bound_ms", "library_ms", "bound_v_ms")
     short = []
     for kv_dtype in ("bfloat16", *KV8):
         entry = 2 if kv_dtype == "bfloat16" else 1
-        scaled = kv_dtype in ("int8", "fp8_e4m3")
         times = report[_attn_name(kv_dtype)].setdefault("mla_times", {})
         for label, Hq, D, dk, dv, dqk in MLA_ATTN:
-            stored = sum(live) * 2 * D * entry
-            rot = Rotating(lambda Hq=Hq, D=D, dk=dk, dv=dv: _mla_inputs(
-                gen, 4, kv_dtype, Hq, D, dk, dv), stored)
-            pps = rot.sets[0][2].shape[1]
-            nbytes = (sum(live) * ((dk + dv) * entry + (8 if scaled else 0))
-                      + 4 * 4 * Hq * (dk + dv) * 2 + 4 * pps * 4 + 4 * 4)
-            b, kind = bound_ms(nbytes, 2 * Hq * (dk + dv) * seen, "bf16")
-            r = dict(ms=graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv),
-                                 reps=max(20, len(rot.sets))),
-                     plain_ms=graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv, True), reps=3),
-                     bound_ms=b, bound_by=kind, library_ms=None)
-            times[label] = [float(f"{r[f]:.4g}") if r[f] is not None else None for f in fields]
-            log(f"time (N) {_attn_name(kv_dtype)} {label} Hq={Hq} D={D} (K {dk}, V {dv}) B=4 "
-                f"Q=4 ctx={live}: " + ", ".join(f"{f} {r[f]:.5f}" for f in fields[:3])
-                + f" ({kind}), library none", stdout=False)
-            if kv_dtype == "bfloat16":
-                short.append(f"{label} {r['ms']:.4f}/{r['plain_ms']:.4f}/{b:.5f}")
-            del rot
-            torch.cuda.empty_cache()
+            for ctx in (_ctx_lens(4), (MLA_LONG,) * 4)[:2 if kv_dtype == "bfloat16" else 1]:
+                stored = sum(ctx) * 2 * D * entry
+                rot = Rotating(lambda Hq=Hq, D=D, dk=dk, dv=dv, ctx=ctx: _mla_inputs(
+                    gen, 4, kv_dtype, Hq, D, dk, dv, ctx=ctx), stored)
+                pps = rot.sets[0][2].shape[1]
+                b, kind, b_v = mla_bound(Hq, dk, dv, kv_dtype, ctx, pps)
+                r = dict(ms=graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv),
+                                     reps=max(20, len(rot.sets))),
+                         plain_ms=graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv, True),
+                                           reps=3),
+                         bound_ms=b, bound_by=kind, library_ms=None, bound_v_ms=b_v)
+                key = label if len(set(ctx)) > 1 else f"{label}_ctx{ctx[0]}"
+                times[key] = [float(f"{r[f]:.4g}") if r[f] is not None else None
+                              for f in fields]
+                log(f"time (N) {_attn_name(kv_dtype)} {key} Hq={Hq} D={D} (K {dk}, V {dv}) "
+                    f"B=4 Q=4 ctx={list(ctx)}: " + ", ".join(
+                        f"{f} {r[f]:.5f}" for f in ("ms", "plain_ms", "bound_ms"))
+                    + f" ({kind}; V apart {b_v:.5f}, {b / r['ms']:.1%} of the bound), "
+                    "library none", stdout=False)
+                if kv_dtype == "bfloat16":
+                    short.append(f"{key} {r['ms']:.4f}/{r['plain_ms']:.4f}/{b:.5f}")
+                del rot
+                torch.cuda.empty_cache()
     log("time (N) MLA verify B=4 Q=4 bf16 KV, ms kernel/plain/bound (every KV type: "
         "mla_times): " + "; ".join(short), stdout=False)
+
+
+def time_mla_norms(report):
+    """(N) the gamma rmsnorm at the latents' widths (MLA_LATENT_H: q-LoRA's
+    768 and 1536, c_kv's 256 and 512) at M = 4 and 16, alone, beside its
+    plain version, F.rms_norm and its byte bound (time_norm_shape's fields).
+    report["rmsnorm"]["mla_norm_times"]: label -> [ms, plain_ms, bound_ms,
+    library_ms]."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = report["rmsnorm"].setdefault("mla_norm_times", {})
+    for h in MLA_LATENT_H:
+        for m in DENSE_M:
+            t = time_norm_shape(gen, "rmsnorm", m, h, None, True)
+            rows[norm_label("rmsnorm", m, h, None, True)] = [
+                float(f"{t[f]:.4g}") for f in ("ms", "plain_ms", "bound_ms", "library_ms")]
+    log("time (N) rmsnorm gamma at the latent widths, ms kernel/plain/bound/F.rms_norm: "
+        + json.dumps(rows, separators=(",", ":")), stdout=False)
 
 
 def mla_entries(cfg):
@@ -7127,6 +7179,7 @@ def main():
     gen_n = torch.Generator(device="cuda").manual_seed(11)
     check_mla_shapes(gen_n, report)
     time_mla_shapes(gen_n, report)
+    time_mla_norms(report)
     step("N shapes")
     minicpm3 = phase_minicpm3_4b(smi)
     step("N1")
@@ -7306,16 +7359,26 @@ AB_SHAPES = (
     ("window128_ctx2048_q1", "bfloat16", 128, 32, 8, 1, (2048,) * 4, {"window": 128}),
     ("ctx2048_q1", "bfloat16", 128, 32, 8, 1, (2048,) * 4, {}),
     ("tree_q15", "bfloat16", 128, 32, 8, None, None, {"tree": True}),
-    ("alibi_bloom_q4", "bfloat16", 128, 32, 32, 4, None, {"alibi": True}))
+    ("alibi_bloom_q4", "bfloat16", 128, 32, 32, 4, None, {"alibi": True}),
+    # the MLA kernel (time_mla_shapes): MLA_ATTN's groups at the verify over
+    # bf16 and int8, DeepSeek-V2-Lite's decode, MLA_LONG tokens over bf16
+    *((f"mla_{a[0]}_{kv}", kv, a[2], a[1], 1, 4, None, {"mla": a[3:]})
+      for kv in ("bfloat16", "int8") for a in MLA_ATTN),
+    ("mla_deepseek-v2-lite_bfloat16_q1", "bfloat16", 640, 16, 1, 1, None,
+     {"mla": MLA_ATTN[1][3:]}),
+    *((f"mla_{a[0]}_bfloat16_ctx{MLA_LONG}", "bfloat16", a[2], a[1], 1, 4, (MLA_LONG,) * 4,
+       {"mla": a[3:]}) for a in MLA_ATTN))
 AB_KV = ("bfloat16", "int8", "fp8_e4m3", "fp8_e5m2")
 
 
 def instantiations():
-    """The attention kernel's 36 instantiations as --ab shapes: every entry
+    """The attention kernel's 44 instantiations as --ab shapes: every entry
     type x head dim 128 / 256 x softcap 50 or none x the tree or not, at the
     verify shape (B=4, Q=4, or the tree rectangle, Q=15; Hq=32 at D=128, 16
-    at D=256, Hkv=8; contexts 379/263/512/40), and ALiBi on every entry type
-    at BLOOM-7B1's (Hq=Hkv=32, Q=4)."""
+    at D=256, Hkv=8; contexts 379/263/512/40), ALiBi on every entry type
+    at BLOOM-7B1's (Hq=Hkv=32, Q=4), and the MLA kernel on every entry type
+    at head dims 384 (MiniCPM3-4B's 40 heads) and 640 (DeepSeek-V2-Lite's
+    16), the same verify."""
     out = []
     for kv in AB_KV:
         for D in (128, 256):
@@ -7327,6 +7390,8 @@ def instantiations():
                     out.append((f"{kv}/D{D}/cap{int(bool(cap))}/tree{int(tree)}", kv, D,
                                 32 if D == 128 else 16, 8, None if tree else 4, None, opt))
         out.append((f"{kv}/D128/alibi", kv, 128, 32, 32, 4, None, {"alibi": True}))
+        for a in MLA_ATTN[:2]:
+            out.append((f"{kv}/D{a[2]}/mla", kv, a[2], a[1], 1, 4, None, {"mla": a[3:]}))
     return out
 
 
@@ -7337,6 +7402,15 @@ def ab_attention_ms(gen, shape) -> float:
     from qspec_tpu_torch.ops.attention_cuda import paged_attention_cuda
     from qspec_tpu_torch.spec_decode.medusa_tree import DEFAULT_TREE, build_tree
     _, kv, D, Hq, Hkv, q_len, ctx, opt = shape
+    if "mla" in opt:   # the latent attention as _mla_attention calls it
+        dk, dv, dqk = opt["mla"]
+        ctx = ctx or _ctx_lens(q_len)
+        rot = Rotating(lambda: _mla_inputs(gen, q_len, kv, Hq, D, dk, dv, ctx=ctx),
+                       sum(ctx) * 2 * D * (2 if kv == "bfloat16" else 1))
+        ms = graph_ms(lambda: _mla_call(rot.next(), dqk, dk, dv), reps=max(20, len(rot.sets)))
+        del rot
+        torch.cuda.empty_cache()
+        return ms
     kw = {k: v for k, v in opt.items() if k in ("softcap", "window")}
     if opt.get("tree"):
         tspec = build_tree(DEFAULT_TREE)
@@ -7436,7 +7510,7 @@ def w8_ms(gen, shapes, m: int, kind: str) -> list:
 
 
 def ab_child(root: str):
-    """One checkout's attention times at AB_SHAPES and at the 36
+    """One checkout's attention times at AB_SHAPES and at the 44
     instantiations, its grouped GEMM's per layer (the four projections,
     kernel only, weights made by that checkout's model_loader.grouped) of
     Llama-3-8B and Gemma-2-9B at M = 4, 16 and 60, its matmul_w4a16 and
@@ -7485,7 +7559,7 @@ def ab(roots):
     """--ab: each checkout of ``roots`` timed by a process of its own, in
     the order given. Every child's JSON line goes to the log; the standard
     output gets, per AB_SHAPES entry, the times in that order and the ratio
-    of the first checkout's mean time to the second's, and for the 36
+    of the first checkout's mean time to the second's, and for the 44
     instantiations how many the second checkout runs faster."""
     if not roots:
         raise SystemExit(__doc__)

@@ -58,7 +58,7 @@ SIGNATURES = {
     "qspec_norm_launch_floor": (_I, _I, _P),
     "qspec_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P,
-                              _I, _P, _P),
+                              _I, _P, _I, _P),
 }
 
 _lib = None

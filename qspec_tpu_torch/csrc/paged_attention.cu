@@ -125,41 +125,66 @@
 // and see nothing, as without it.
 //
 // Multi-head latent attention (MLA: DeepSeek-V2 / V2-Lite / V3, MiniCPM3)
-// takes a kernel of its own, paged_attention_mla_kernel below, at the latent
-// head dims 384 and 640 (kv_lora_rank + qk_rope_head_dim rounded up to 128),
-// over all four entry types: the same causal function, MQA over one latent
-// KV row per token, with query groups of 16, 40 or 128 heads and no window,
-// softcap, ALiBi or tree (the JAX package passes none of them there). What
-// differs from the kernel above, and why:
-// - Only the lanes the function needs are read: K's first k_dims (r + dr:
-//   576, 288) and V's first v_dims (r: 512, 256) of each stored row; the
-//   output's lanes past v_dims are written as zeros. The callers' padding
-//   lanes are zero, so this is the full function on their rows.
-// - The output accumulator is split over the warps by dims: every warp
-//   computes S = Q.K^T for 8 of a step's 32 tokens over all k_dims (the
-//   query tile and K read from shared memory by ldmatrix), the block's
-//   scores go through shared memory, 128 threads (8 a row) take the online
-//   softmax over the step, and warp w then runs P.V for dims [w v_dims / 4,
-//   (w + 1) v_dims / 4): at most 20 n8 tiles, 80 f32 registers a thread.
-// - One block-wide ring of 2 steps of 32 tokens (K and V of a step: 80 KB in
-//   bf16 at D = 640), copied with cp.async, warp w the rows of tokens 8w to
-//   8w + 7 (one address a row); 8-bit entries are widened to bf16 in shared
-//   memory once a step. The block waits on these copies for about half its
-//   time (tools/mla_variants_ab.py on an H100), which more blocks in flight
-//   hide. The fold of a row's splits keeps O in shared memory (f32 [16][D +
-//   8]). 224-225 KB a block at D = 640, 136-137 KB at 384: one block an SM.
-// - Each (sequence, tile of 16 query rows) block reads the KV rows of its
-//   live tokens once; a sequence's rows are read once per tile: G / 16
-//   times (1 for DeepSeek-V2-Lite's 16 heads at Q = 1, 10 for MiniCPM3's 40
-//   at Q = 4, 32 for DeepSeek-V3's 128 at Q = 4), the repeats mostly from L2.
-// The numerics and the splits are the kernel above's (q scaled and rounded
-// to bf16 once, f32 scores times K's scale, p times V's scale rounded to
-// bf16 for P.V, the splits at fixed positions folded in ascending order by
-// fold_ml / fold_o, in the block or by the merge kernel; the plan's splits
-// are 128 tokens here, and a block takes one of them wherever that fills
-// more SMs: ops/attention_cuda.py), and the steps sit at fixed positions
-// (multiples of 32), so a row's bits depend on no other row, on Q, on the
-// schedule or on its place in the batch.
+// takes a kernel of its own, paged_attention_mla_kernel below, designed for
+// Hopper, at the latent head dims 384 and 640 (kv_lora_rank +
+// qk_rope_head_dim rounded up to 128), over all four entry types: the same
+// causal function, MQA over one latent KV row per token, with query groups of
+// 16, 40 or 128 heads and no window, softcap, ALiBi or tree (the JAX package
+// passes none of them there). Only the lanes the function needs are read:
+// K's first k_dims (r + dr: 576, 288) and V's first v_dims (r: 512, 256) of
+// each stored row; the output's lanes past v_dims are written as zeros.
+// What bounds it: a sequence's latent rows serve all G = heads x Q query
+// rows, so at DeepSeek-V3's 128 heads over a long context it is bound by the
+// tensor cores' operations (2 G (dk + dv) a token), at 16 or 40 heads by the
+// rows' bytes. What its design does about that:
+// - wgmma over 64-row query tiles. A block takes 64 GQA rows, so a
+//   sequence's latent rows are read G / 64 times, not G / 16. S = Q.K^T is a
+//   wgmma with the query tile (bf16, 128-byte swizzled [64-lane chunk][64
+//   rows][64]) as A and the step's K rows as B; P.V a wgmma with P (bf16 [64
+//   rows][tokens], swizzled) as A and the step's V rows as B, read with the
+//   transpose bit. Every G and Q, decode's 16 rows too, takes this one path.
+// - Two warpgroups a block and nothing else: each takes half of a step's
+//   tokens in S and half of V's lanes in P.V (64 x 256 f32 accumulators, 128
+//   registers of the up to 255 a thread keeps; a third warp on an SM
+//   sub-partition would cap a thread at 168, and spill far more). The two exchange
+//   their rows' maxima through shared memory, write their halves of P, and
+//   add their halves of the row sums at the end of a split.
+// - A TMA ring. The layer's cache is one 2-D tensor map [P * 2 * Hkv * S
+//   rows, D], encoded on the host at each launch (so a CUDA graph captures
+//   it); a copy is one (64-lane chunk, gcd(S, step) tokens) box, completion
+//   counted on the stage's mbarrier. Thread 0 keeps the ring's stages full,
+//   kRing steps ahead of the walk, refilling a stage once a block barrier
+//   shows every warpgroup past the wgmmas that read it; the block's page ids
+//   wait in shared memory. bf16 lands straight in the 128-byte swizzle
+//   wgmma reads; 8-bit entries land raw and the block widens them exactly
+//   into bf16 stages.
+// - V from the K plane where its bits are the same: MLA writes V's first r
+//   lanes as the c_kv that leads K's row (update_layer), and over bf16 and
+//   fp8_e5m2 the stored bits are equal (a cast with no scale), so those
+//   kinds read no V plane: P.V's B is the K stage's first v_dims lanes, and
+//   the bytes are K's alone. int8 and fp8_e4m3 take a per-row absmax scale,
+//   and K's row also holds k_pe, so there V comes from its own plane.
+// - Shared memory, the budget (MlaSmem): at D = 640 the query tile 72 KB, P
+//   8 KB, and 2 stages of 64 tokens (72 KB each) at bf16, 4 raw stages of 32
+//   tokens (18 KB) and 2 widened (36 KB) at fp8_e5m2, 2 raw (35 KB) and 1
+//   widened (69 KB) at int8 / fp8_e4m3: 221-226 KB; at D = 384 the query tile
+//   40 KB, P 8 KB, 3 stages of 64 tokens (40 KB) at bf16, 2 raw (20 KB) and
+//   2 widened (40 KB) at fp8_e5m2, 2 raw (19 KB) and 2 widened (37 KB) of 32
+//   tokens at int8 / fp8_e4m3: 162-170 KB. One block an SM.
+// - Flash-decoding splits of 128 tokens fill the SMs when B x tiles is
+//   small. A block takes one split and the merge kernel folds a tile's
+//   splits; where the row tiles fill the card (prefill), or those split
+//   states would pass 256 MB, a block walks all its splits and folds them
+//   itself through f32 slabs of its own in device memory
+//   (ops/attention_cuda.py:attention_plan).
+// The numerics are the kernel above's: q scaled and rounded to bf16 once,
+// f32 scores times K's scale, p times V's scale rounded to bf16 for P.V, the
+// row sum the unrounded p (each warpgroup sums its tokens; the halves added
+// in order), the steps at fixed positions (multiples of the step), the
+// splits at fixed positions folded in ascending order by fold_ml / fold_o,
+// in the block or by the merge kernel, and a row's result O times the
+// reciprocal of its sum, in both. So a row's bits depend on no other row, on
+// Q, on the schedule or on its place in the batch.
 //
 // The file is compiled once per KV entry type, with -DQSPEC_ATTN_KV=k (0
 // bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2), so that the four objects build in
@@ -173,6 +198,7 @@
 #error "compile with -DQSPEC_ATTN_KV=0, 1, 2 or 3, or with -DQSPEC_ATTN_MLA=384 or 640"
 #endif
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -241,6 +267,7 @@ struct Params {
   const unsigned long long* tree_anc;
   int tree_prefix;
   const float* alibi;
+  int tile_rows;        // GQA rows a block: 16 here, 64 or 128 in the MLA kernel
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -873,30 +900,38 @@ paged_attention_merge_kernel(const Params p) {
   const int G = group * p.Q;
   const int r = blockIdx.x * kRowsPer + threadIdx.x / kCols;
   if (r >= G) return;
-  const int row0 = r / kRows * kRows;
-  const Walk wk = tile_walk(p, b, row0, min(kRows, G - row0));
+  const int row0 = r / p.tile_rows * p.tile_rows;
+  const Walk wk = tile_walk(p, b, row0, min(p.tile_rows, G - row0));
   if (wk.ls <= wk.fs) return;
   // launched early (programmatic dependent launch): the walk above reads
   // only inputs; the split states wait for the attention kernel to finish
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int d = (threadIdx.x % kCols) * 4;
   const size_t row_slot = (size_t)bh * p.n_splits * G + r;
-  float M = kNegInf, L = 0.f;
-  float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-  for (int sp = wk.fs; sp <= wk.ls; ++sp) {
-    const size_t sl = row_slot + (size_t)sp * G;
-    const float2 ml = __ldg(reinterpret_cast<const float2*>(p.ws_ml + 2 * sl));
-    const float4 u = __ldg(reinterpret_cast<const float4*>(p.ws_o + sl * kD + d));
-    float a, bb;
-    fold_ml(M, L, ml.x, ml.y, a, bb);
-    O = make_float4(fold_o(O.x, u.x, a, bb), fold_o(O.y, u.y, a, bb), fold_o(O.z, u.z, a, bb),
-                    fold_o(O.w, u.w, a, bb));
-  }
   uint2 packed = make_uint2(0u, 0u);
-  if (L > 0.f)
-    packed = make_uint2(pack_bf16x2(__fdiv_rn(O.x, L), __fdiv_rn(O.y, L)),
-                        pack_bf16x2(__fdiv_rn(O.z, L), __fdiv_rn(O.w, L)));
+  if (d < p.dv) {   // past the V lanes read (MLA): zeros, with no state stored
+    float M = kNegInf, L = 0.f;
+    float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int sp = wk.fs; sp <= wk.ls; ++sp) {
+      const size_t sl = row_slot + (size_t)sp * G;
+      const float2 ml = __ldg(reinterpret_cast<const float2*>(p.ws_ml + 2 * sl));
+      const float4 u = __ldg(reinterpret_cast<const float4*>(p.ws_o + sl * kD + d));
+      float a, bb;
+      fold_ml(M, L, ml.x, ml.y, a, bb);
+      O = make_float4(fold_o(O.x, u.x, a, bb), fold_o(O.y, u.y, a, bb), fold_o(O.z, u.z, a, bb),
+                      fold_o(O.w, u.w, a, bb));
+    }
+    if (L > 0.f && (kD == 384 || kD == 640)) {
+      // the MLA kernel's rows are O times the sum's reciprocal
+      const float inv = __frcp_rn(L);
+      packed = make_uint2(pack_bf16x2(__fmul_rn(O.x, inv), __fmul_rn(O.y, inv)),
+                          pack_bf16x2(__fmul_rn(O.z, inv), __fmul_rn(O.w, inv)));
+    } else if (L > 0.f) {
+      packed = make_uint2(pack_bf16x2(__fdiv_rn(O.x, L), __fdiv_rn(O.y, L)),
+                          pack_bf16x2(__fdiv_rn(O.z, L), __fdiv_rn(O.w, L)));
+    }
+  }
   *reinterpret_cast<uint2*>(
       p.out + ((size_t)(b * p.Q + r % p.Q) * p.Hq + h * group + r / p.Q) * kD + d) = packed;
 }
@@ -962,178 +997,434 @@ int launch(const AttnArgs& a) {
   return launch_merge<kD>(a, split_blocks);
 }
 
+#ifdef QSPEC_ATTN_MLA
 // ---------------------------------------------------------------------------
 // The MLA kernel (see the top of the file): head dims 384 and 640, K's first
-// p.dk lanes and V's first p.dv lanes read, no window, softcap, ALiBi or tree.
+// p.dk lanes read, V's first p.dv lanes from K's (bf16, fp8_e5m2) or from the
+// V plane (int8, fp8_e4m3), no window, softcap, ALiBi or tree.
 
-constexpr int kMlaStep = 32;     // tokens a step: 8 a warp in S = Q.K^T
-constexpr int kMlaStages = 2;    // the block's cp.async ring of steps
-constexpr float kDead = -3e38f;   // a masked score in the step's score tile (< kNegInf)
-
-// the shared memory of one MLA block
-template <typename T, int kD, bool kScaled>
-struct MlaSmem {
-  static constexpr bool kWide = sizeof(T) == 1;                // 8-bit entries, widened
-  static constexpr int kRow = kD * (int)sizeof(T);             // a token row as stored
-  static constexpr int kStage = 2 * kMlaStep * kRow;           // K, then V, of a step
-  static constexpr int kRing = kMlaStages * kStage;
-  static constexpr int kWideTile = kMlaStep * kD * 2;          // a step's K or V in bf16
-  static constexpr int kWideAll = kWide ? 2 * kWideTile : 0;
-  static constexpr int kScl = kScaled ? kMlaStages * 2 * kMlaStep * 4 : 0;
-  static constexpr int kSStride = kMlaStep + 8;                // floats: the step's scores
-  static constexpr int kPStride = kMlaStep + 8;                // bf16: the step's P
-  static constexpr int kFStride = kD + 8;                      // floats: the fold's O
-  static constexpr int kOffWide = kRing;
-  static constexpr int kOffScl = kOffWide + kWideAll;
-  static constexpr int kOffQ = kOffScl + kScl;                 // bf16 [16][kD], swizzled
-  static constexpr int kOffFold = kOffQ + kRows * kD * 2;      // f32 [16][kFStride]
-  static constexpr int kOffS = kOffFold + kRows * kFStride * 4;
-  static constexpr int kOffP = kOffS + kRows * kSStride * 4;
-  static constexpr int kOffStat = kOffP + kRows * kPStride * 2;   // alpha, fold a, fold b
-  static constexpr int kBytes = kOffStat + 3 * kRows * 4;
+// an instantiation's shape: the 64-lane chunks of K (kKC) and of V (kVC) it
+// reads at most, the 64-row groups of a block (kRG), and the warpgroups of a
+// row group (kDS), which split the step's tokens in S = Q.K^T and V's lanes
+// in P.V (kRG x kDS = 2; tools/mla_variants_ab.py times 2 x 1 at D = 384)
+template <int kD>
+struct MlaShape;
+template <>
+struct MlaShape<640> {
+  static constexpr int kKC = 9, kVC = 8, kRG = 1, kDS = 2;
+};
+template <>
+struct MlaShape<384> {
+  static constexpr int kKC = 5, kVC = 4, kRG = 1, kDS = 2;
 };
 
-template <typename T, bool kScaled, int kD>
-__global__ void __launch_bounds__(kThreads, 1)
-paged_attention_mla_kernel(const Params p) {
-  using L = MlaSmem<T, kD, kScaled>;
-  constexpr int kNt = kD / 32;           // n8 tiles of P.V a warp holds at most (dv = kD)
-  constexpr int kCh = kD / 8;            // 8-lane chunks of an output row
-  extern __shared__ __align__(128) unsigned char smem[];
+// the entry kinds: 0 bf16 (copied straight into the swizzled tiles wgmma
+// reads; V = K's first lanes), 1 fp8_e5m2 (K widened to bf16; V = its first
+// lanes), 2 int8 / fp8_e4m3 (K and V widened; the per-token scales)
+template <typename T>
+constexpr int kMlaKind = std::is_same<T, __nv_bfloat16>::value   ? 0
+                         : std::is_same<T, __nv_fp8_e5m2>::value ? 1
+                                                                 : 2;
+
+// an instantiation's pipeline: tokens a step, the TMA ring's stages, and the
+// widened (bf16) stages of the 8-bit kinds
+template <int kD, int kKind>
+struct MlaPipe {
+  static constexpr int kStep = kD == 640 ? (kKind == 0 ? 64 : 32) : (kKind == 2 ? 32 : 64);
+  static constexpr int kRing = kD == 640 ? (kKind == 1 ? 4 : 2) : (kKind == 0 ? 3 : 2);
+  static constexpr int kWide = kKind == 0 ? 0 : kD == 640 ? (kKind == 1 ? 2 : 1) : 2;
+};
+
+constexpr float kDead = -3e38f;   // a masked score (< kNegInf)
+
+constexpr int round1024(int x) { return (x + 1023) / 1024 * 1024; }
+
+// the shared memory of one MLA block (offsets from a 1024-byte aligned base,
+// the alignment of the 128-byte swizzle's 8-row atoms)
+template <int kD, int kKind>
+struct MlaSmem {
+  using Sh = MlaShape<kD>;
+  using Pi = MlaPipe<kD, kKind>;
+  static constexpr int kN = Pi::kStep;
+  static constexpr int kNC = Sh::kRG * Sh::kDS;          // warpgroups
+  // two warpgroups and nothing else: an SM sub-partition's 16384 registers
+  // then hold up to 255 a thread (a third warp there would cut that to 168)
+  static constexpr int kThreads = 128 * kNC;
+  static constexpr int kE = kKind == 0 ? 2 : 1;           // bytes an entry as stored
+  static constexpr bool kScaled = kKind == 2;             // per-token scales
+  // V from its own plane (int8, fp8_e4m3), else from K's first lanes
+  static constexpr bool kVPlane = kKind == 2;
+  // a TMA stage: K's chunks [kKC][kN tokens][64 entries] (128-byte swizzled
+  // at bf16), then V's [kVC][kN][64] (V plane) and the scales f32 [K, V][kN]
+  static constexpr int kRawK = Sh::kKC * kN * 64 * kE;
+  static constexpr int kRawV = kVPlane ? Sh::kVC * kN * 64 * kE : 0;
+  static constexpr int kScl = kScaled ? 2 * kN * 4 : 0;
+  static constexpr int kRaw = round1024(kRawK + kRawV + kScl);
+  // a widened stage (kinds 1, 2): K's chunks [kKC][kN][64 bf16] swizzled,
+  // then V's [kVC][kN][64] and the scales (kind 2)
+  static constexpr int kWideK = Sh::kKC * kN * 128;
+  static constexpr int kWideV = kVPlane ? Sh::kVC * kN * 128 : 0;
+  static constexpr int kWide = kKind == 0 ? 0 : round1024(kWideK + kWideV + kScl);
+  static constexpr int kQ = Sh::kKC * 64 * 128;   // a row group's query tile [kKC][64][64 bf16]
+  static constexpr int kP = 64 * 128;             // a row group's P [64][kN <= 64 bf16]
+  static constexpr int kOffP = Sh::kRG * kQ;
+  static constexpr int kOffRing = kOffP + Sh::kRG * kP;
+  static constexpr int kOffWide = kOffRing + Pi::kRing * kRaw;
+  static constexpr int kOffBar = kOffWide + Pi::kWide * kWide;   // the mbarriers
+  static constexpr int kOffMx = kOffBar + 64;             // f32 [kRG][kDS][64]: rows' maxima
+  static constexpr int kOffLx = kOffMx + kNC * 64 * 4;    // f32 [kRG][kDS][64]: rows' sums
+  static constexpr int kPages = 64;                       // the walk's first page ids
+  static constexpr int kOffPages = kOffLx + kNC * 64 * 4;
+  static constexpr int kBytes = kOffPages + kPages * 4 + 1024;   // and the base's alignment
+  // the output rows staged at the last split in the row group's query tile
+  static constexpr int kStg = 64 * Sh::kVC / Sh::kDS * 2 + 16;   // bytes a staged row
+  static_assert(Sh::kDS * 64 * kStg <= kQ, "the MLA output's staging");
+  static_assert(kBytes <= 232448, "an MLA block's shared memory");
+  static_assert(kBytes > 232448 / 2, "one MLA block an SM");
+  static_assert(kN % 16 == 0 && kN <= 64 && kN / Sh::kDS >= 16, "an MLA step's tokens");
+  static_assert(8 * Pi::kRing <= 64, "the MLA mbarriers");
+  static_assert(kNC == 2, "two warpgroups an MLA block");
+};
+
+// one MLA launch's parameters: the layer's cache as a 2-D tensor map
+struct MlaParams {
+  CUtensorMap map;   // [P * 2 * Hkv * S rows, D entries]: (64, box_rows) boxes
+  Params p;
+  int box_rows;      // tokens a box: gcd(S, the step)
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of parity `parity`
+// (a wait that outlasts 2^26 polls, seconds, traps: a lost phase fails the
+// launch instead of hanging the card)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins > (1u << 26)) __trap();
+  }
+}
+// one TMA box of the tensor map at (lane c0, row c1) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// a bulk copy of `bytes` (a multiple of 16) contiguous bytes into shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// this thread's shared-memory writes, visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving an accumulator's reads or writes across
+// the wgmma that owns it
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// a wgmma shared-memory descriptor: 128-byte swizzle, lbo / sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulate, A and B from shared memory (B
+// transposed: kTransB), d += (or, scale_d == 0, =) A.B
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<16> {
+  template <int kTransB>
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+template <>
+struct Wgmma<32> {
+  template <int kTransB>
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+template <>
+struct Wgmma<64> {
+  template <int kTransB>
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+template <>
+struct Wgmma<128> {
+  template <int kTransB>
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+template <>
+struct Wgmma<256> {
+  template <int kTransB>
+  __device__ __forceinline__ static void mma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+};
+
+// T: the cache's entry type; kD: the latent head dim (384, 640)
+template <typename T, int kD>
+__global__ void __launch_bounds__(MlaSmem<kD, kMlaKind<T>>::kThreads, 1)
+paged_attention_mla_kernel(const __grid_constant__ MlaParams mp) {
+  constexpr int kKind = kMlaKind<T>;
+  using Sh = MlaShape<kD>;
+  using Pi = MlaPipe<kD, kKind>;
+  using L = MlaSmem<kD, kKind>;
+  constexpr int kN = L::kN;
+  constexpr int kNS = kN / Sh::kDS;             // a warpgroup's tokens of S
+  constexpr int kPV = 64 * Sh::kVC / Sh::kDS;   // and its V lanes of P.V
+  constexpr int kAcc = kPV / 2;                 // its P.V accumulators a thread
+  constexpr int kRowsB = 64 * Sh::kRG;          // GQA rows a block
+  constexpr bool kScaled = kKind == 2;
+  constexpr int kRgThreads = 128 * Sh::kDS;     // the threads of a row group
+  constexpr int kBarAll = 5;                    // the block's named barrier
+  const Params& p = mp.p;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int tile = blockIdx.x;
   const int bh = blockIdx.z;
   const int b = bh / p.Hkv;
   const int h = bh % p.Hkv;
   const int group = p.Hq / p.Hkv;
   const int G = group * p.Q;
-  const int row0 = tile * kRows;
-  const int rows = min(kRows, G - row0);
+  const int row0 = tile * kRowsB;
+  const int rows = min(kRowsB, G - row0);
   const int sp_lo = blockIdx.y * p.spb;
   const int sp_hi = min(sp_lo + p.spb, p.n_splits);
-  const int dk = p.dk, dv = p.dv;
-  // the softmax's and the output's row of this thread, and its part of it
-  const int srow = tid >> 3;
-  const int part = tid & 7;
-
-  const int split_pages = p.split / p.S;
-  __shared__ int pages_s[kMaxSplitPages];
-  auto load_pages = [&](int s) {
-    if (tid < split_pages) {
-      const int lp = s * split_pages + tid;
-      pages_s[tid] = lp < p.pps ? __ldg(p.block_tables + (size_t)b * p.pps + lp) : 0;
-    }
-  };
-  load_pages(sp_lo);
   const Walk wk = tile_walk(p, b, row0, rows);
-  const int ctx = wk.ctx, qs = wk.qs, first_tok = wk.first_tok, n_tok = wk.n_tok;
-  const int fs = wk.fs, ls = wk.ls;
-  const int lo = max(fs, sp_lo);
-  const int hi = min(ls + 1, sp_hi);
-
-  auto out_row = [&](int rr) {
-    const int r = row0 + rr;
+  const int lo = max(wk.fs, sp_lo);
+  const int hi = min(wk.ls + 1, sp_hi);
+  auto out_row = [&](int r) {
     return p.out + ((size_t)(b * p.Q + r % p.Q) * p.Hq + h * group + r / p.Q) * kD;
   };
   if (lo >= hi) {
     // nothing live in this block's splits; the first block of a tile that
     // sees nothing at all writes its rows' zeros
-    if (ls < fs && sp_lo == 0 && srow < rows) {
-      for (int c = part; c < kCh; c += 8)
-        *reinterpret_cast<uint4*>(out_row(srow) + 8 * c) = make_uint4(0, 0, 0, 0);
+    if (wk.ls < wk.fs && sp_lo == 0) {
+      for (int idx = tid; idx < rows * (kD / 8); idx += L::kThreads)
+        *reinterpret_cast<uint4*>(out_row(row0 + idx / (kD / 8)) + 8 * (idx % (kD / 8))) =
+            make_uint4(0, 0, 0, 0);
     }
     return;
   }
-  if (lo != sp_lo) load_pages(lo);   // the walk starts past the block's first split
-  __syncthreads();                   // the page ids are in
 
-  const int lm = lane >> 3;
-  const int lr = lane & 7;
+  // a split's live tokens [t_lo, t_hi); its steps start at t_lo rounded down
+  // to the step, so every step sits at a multiple of kN
+  auto t_lo_of = [&](int s) { return max(s * p.split, wk.first_tok); };
+  auto t_hi_of = [&](int s) { return min((s + 1) * p.split, wk.n_tok); };
+  // the TMA ring's full barriers (the copies' completion)
+  const uint32_t bars = sbase + L::kOffBar;
+  auto full = [&](int i) { return bars + 8 * i; };
+  // thread 0 issues the copies: of step k (split is, start it0) into stage
+  // k % kRing, kRing steps ahead of the block's walk; the page ids of the
+  // walk's first kPages pages wait in shared memory
+  int is = lo, it0 = t_lo_of(lo) / kN * kN, ik = 0;
+  const int pg0 = it0 / p.S;
+  int* pages_s = reinterpret_cast<int*>(smem + L::kOffPages);
+  auto issue_next = [&](bool direct) {   // direct: read the block table itself
+    if (is >= hi) return;
+    const int st = ik % Pi::kRing;
+    mbar_expect_tx(full(st), L::kRawK + L::kRawV + L::kScl);
+    const uint32_t dst = sbase + L::kOffRing + st * L::kRaw;
+    const int box = mp.box_rows;
+    const int plane = p.Hkv * p.S;   // rows from a page's K plane to its V plane
+    // a box's tokens lie in one page (S % box == 0); past the block table
+    // the null page (masked). The pages' reads first, all in flight at once
+    int krows[kN / 16];
+    for (int r = 0; r < kN / box; ++r) {
+      const int t = it0 + r * box;
+      const int lp = t / p.S;
+      const int page = !direct && lp - pg0 < L::kPages ? pages_s[lp - pg0]
+                       : lp < p.pps ? __ldg(p.block_tables + (size_t)b * p.pps + lp)
+                                    : 0;
+      krows[r] = (page * 2 * p.Hkv + h) * p.S + t % p.S;
+    }
+    for (int r = 0; r < kN / box; ++r) {
+      const int krow = krows[r];
+      for (int c = 0; c < Sh::kKC; ++c)
+        tma_load_2d(dst + (c * kN + r * box) * 64 * L::kE, &mp.map, 64 * c, krow, full(st));
+      if constexpr (L::kVPlane) {
+        for (int c = 0; c < Sh::kVC; ++c)
+          tma_load_2d(dst + L::kRawK + (c * kN + r * box) * 64 * L::kE, &mp.map, 64 * c,
+                      krow + plane, full(st));
+      }
+      if constexpr (L::kScaled) {
+        // the scales [P, 2, Hkv, S] sit at the rows' indices
+        const float* sk = p.kv_scales + (size_t)krow;
+        bulk_load(dst + L::kRawK + L::kRawV + r * box * 4, sk, box * 4, full(st));
+        bulk_load(dst + L::kRawK + L::kRawV + (kN + r * box) * 4, sk + plane, box * 4, full(st));
+      }
+    }
+    ++ik;
+    it0 += kN;
+    if (it0 >= t_hi_of(is)) {
+      ++is;
+      if (is < hi) it0 = t_lo_of(is) / kN * kN;
+    }
+  };
+
+  // warpgroup cw: row group rg, part c of its tokens and lanes
+  const int cw = tid / 128;
+  const int rg = cw / Sh::kDS;
+  const int c = cw % Sh::kDS;
+  const int wt = tid & 127;
+  const int warp = wt >> 5;
+  const int lane = tid & 31;
   const int g = lane >> 2;
-  const int qd = lane & 3;
-  const uint32_t q_base = smem_u32(smem + L::kOffQ);
-  const uint32_t p_base = smem_u32(smem + L::kOffP);
-  const int a_row = lr + 8 * (lm & 1), a_c = lm >> 1;   // A fragments (Q, P): rows on M
-  const int v_row = lr + 8 * (lm & 1), v_c = lm >> 1;   // V by .trans: tokens on K
-  float* f_s = reinterpret_cast<float*>(smem + L::kOffFold);
-  float* s_s = reinterpret_cast<float*>(smem + L::kOffS);
-  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(smem + L::kOffP);
-  float* alpha_s = reinterpret_cast<float*>(smem + L::kOffStat);
-  float* fa_s = alpha_s + kRows;
-  float* fb_s = fa_s + kRows;
-  float* scl = reinterpret_cast<float*>(smem + L::kOffScl);
+  const int q4 = lane & 3;
+  const int rt = c * 128 + wt;   // the thread's place in its row group
+  const uint32_t q_s = sbase + rg * L::kQ;
+  const uint32_t p_s = sbase + L::kOffP + rg * L::kP;
+  unsigned char* p_ptr = smem + L::kOffP + rg * L::kP;
+  float* mx = reinterpret_cast<float*>(smem + L::kOffMx) + rg * Sh::kDS * 64;
+  float* lx = reinterpret_cast<float*>(smem + L::kOffLx) + rg * Sh::kDS * 64;
+  const int bar_a = 1 + 2 * rg, bar_b = 2 + 2 * rg;   // the row group's named barriers
 
-  const size_t head_stride = (size_t)p.S * kD;
-  const size_t page_stride = 2 * (size_t)p.Hkv * head_stride;
-  const unsigned char* kv_bytes = static_cast<const unsigned char*>(p.kv);
-  const int kc = dk * (int)sizeof(T) / 16;   // 16-byte chunks of a K row read
-  const int vc = dv * (int)sizeof(T) / 16;   // and of a V row
-  int page0 = lo * split_pages;              // the logical page of pages_s[0]
-  int t_lo = 0, t_hi = 0;                    // the split's live tokens
-
-  // a step's copies (32 tokens at t0, a multiple of 32) into stage st: the
-  // tokens of [t_lo, t_hi), zeros for the others (never live, never NaN).
-  // Warp w copies tokens 8w..8w+7: lane j < 8 finds token 8w+j's row once
-  // (its page, its K and V planes), then every lane copies 16-byte chunks
-  // lane, lane + 32, ... of each row, so no chunk divides an index
-  const size_t v_plane = (size_t)p.Hkv * head_stride * sizeof(T);
-  auto issue = [&](int st, int t0) {
-    const uint32_t kd = smem_u32(smem + st * L::kStage);
-    const uint32_t vd = kd + kMlaStep * L::kRow;
-    const int t_me = t0 + 8 * warp + (lane & 7);
-    const int ok_me = t_me >= t_lo && t_me < t_hi;
-    unsigned long long row_me = reinterpret_cast<unsigned long long>(kv_bytes);
-    if (ok_me)
-      row_me += ((size_t)pages_s[t_me / p.S - page0] * page_stride + (size_t)h * head_stride +
-                 (size_t)(t_me % p.S) * kD) * sizeof(T);
+  // the query tile, times the scale, rounded to bf16 once, zeros past dk
+  // and past G: kTpr threads a row, each every kTpr-th 16-byte piece
+  {
+    constexpr int kTpr = kRgThreads / 64;
+    const int rr = rt / kTpr;
+    const int r = row0 + rg * 64 + rr;
+    const __nv_bfloat16* qrow =
+        p.q + ((size_t)(b * p.Q + r % p.Q) * p.Hq + h * group + r / p.Q) * kD;
+    constexpr int kPer = Sh::kKC * 8 / kTpr;   // pieces a thread
+    uint4 raws[kPer];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int tok = 8 * warp + j;
-      const unsigned char* row =
-          reinterpret_cast<const unsigned char*>(__shfl_sync(0xffffffffu, row_me, j));
-      const int n = __shfl_sync(0xffffffffu, ok_me, j) ? 16 : 0;
-      for (int c = lane; c < kc; c += 32)
-        cp_async16(kd + (L::kWide ? tok * L::kRow + c * 16 : swz<kD>(tok, c)), row + c * 16, n);
-      for (int c = lane; c < vc; c += 32)
-        cp_async16(vd + (L::kWide ? tok * L::kRow + c * 16 : swz<kD>(tok, c)),
-                   row + (n ? v_plane : 0) + c * 16, n);
+    for (int k = 0; k < kPer; ++k) {
+      const int pc = rt % kTpr + k * kTpr;
+      raws[k] = r < G && pc * 8 < p.dk ? __ldg(reinterpret_cast<const uint4*>(qrow + pc * 8))
+                                       : make_uint4(0, 0, 0, 0);
     }
-    if (kScaled && tid < 16) {
-      const int sel = tid >> 3;      // 0: K's scales, 1: V's
-      const int c = tid & 7;         // 4 tokens each
-      const int t = t0 + 4 * c;
-      const bool ok = t >= t_lo && t < t_hi;
-      const float* src = p.kv_scales;
-      if (ok)
-        src += (size_t)pages_s[t / p.S - page0] * 2 * p.Hkv * p.S +
-               (size_t)(sel * p.Hkv + h) * p.S + t % p.S;
-      cp_async16(smem_u32(scl + (st * 2 + sel) * kMlaStep + 4 * c), src,
-                 ok ? 4 * min(4, t_hi - t) : 0);
+    // while they are in flight: the ring's barriers and its first copies
+    // (thread 0, reading the block table itself), the walk's page ids
+    if (tid == 0) {
+      for (int i = 0; i < Pi::kRing; ++i) mbar_init(full(i), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&mp.map))
+                   : "memory");
+      for (int i = 0; i < Pi::kRing; ++i) issue_next(true);
+      asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     }
-  };
-  auto split_range = [&](int s) {
-    t_lo = max(s * p.split, first_tok);
-    t_hi = min((s + 1) * p.split, n_tok);
-  };
-  split_range(lo);
-  const int t_first = t_lo / kMlaStep * kMlaStep;
-  issue(0, t_first);
-  cp_async_commit();
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-
-  // the query tile, times the scale, rounded to bf16 once (its reads overlap
-  // the first step's copies); the fold's O at zero
-  for (int idx = tid; idx < kRows * (dk / 8); idx += kThreads) {
-    const int rr = idx / (dk / 8);
-    const int c = idx - rr * (dk / 8);
+    if (tid >= L::kThreads - L::kPages) {   // the last warps, not thread 0's
+      const int i = tid - (L::kThreads - L::kPages);
+      pages_s[i] = pg0 + i < p.pps ? __ldg(p.block_tables + (size_t)b * p.pps + pg0 + i) : 0;
+    }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int pc = rt % kTpr + k * kTpr;
     uint4 packed = make_uint4(0, 0, 0, 0);
-    if (rr < rows) {
-      const int r = row0 + rr;
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          p.q + ((size_t)(b * p.Q + r % p.Q) * p.Hq + h * group + r / p.Q) * kD + c * 8));
+    if (r < G && pc * 8 < p.dk) {
+      const uint4 raw = raws[k];
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
       uint32_t* o = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
@@ -1141,245 +1432,368 @@ paged_attention_mla_kernel(const Params p) {
         o[i] = pack_bf16x2(__fmul_rn(__bfloat162float(e[2 * i]), p.scale),
                            __fmul_rn(__bfloat162float(e[2 * i + 1]), p.scale));
     }
-    *reinterpret_cast<uint4*>(smem + L::kOffQ + swz<kD>(rr, c)) = packed;
+    *reinterpret_cast<uint4*>(smem + rg * L::kQ + (pc >> 3) * 8192 + rr * 128 +
+                              (((pc & 7) ^ (rr & 7)) << 4)) = packed;
   }
-  for (int idx = tid; idx < kRows * L::kFStride / 4; idx += kThreads)
-    reinterpret_cast<float4*>(f_s)[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
-  // this lane's two rows of S (g and g + 8): their positions (-1: padding)
-  int qpos[2];
+  }
+  fence_async_smem();
+  named_sync(kBarAll, L::kThreads);   // the query tiles, the page ids, the barriers' init
+
+  // this thread's two rows of every accumulator: rr[i] in the row group,
+  // their positions (-1: padding, which sees nothing)
+  int rr[2], qpos[2];
+  __nv_bfloat16* orow[2];   // their output rows (null: padding)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int rr = g + 8 * i;
-    qpos[i] = rr < rows ? qs + (row0 + rr) % p.Q : -1;
+    rr[i] = 16 * warp + g + 8 * i;
+    const int r = row0 + rg * 64 + rr[i];
+    qpos[i] = r < G ? wk.qs + r % p.Q : -1;
+    orow[i] = r < G ? out_row(r) : nullptr;
   }
-  // this warp's dims of P.V and O
-  const int nt_w = dv / 32;
-  const int base = warp * (dv / 4);
-  float fM = kNegInf, fL = 0.f;   // the running fold of this thread's srow
-
+  const bool covers = lo == wk.fs && hi == wk.ls + 1;
+  float fM[2] = {kNegInf, kNegInf}, fL[2] = {0.f, 0.f};   // the running fold of the rows
+  int n = 0;
   for (int s = lo; s < hi; ++s) {
-    int t_begin = t_first;
-    if (s > lo) {    // a block that takes several splits walks the next
-      load_pages(s);
-      page0 = s * split_pages;
-      split_range(s);
-      __syncthreads();
-      t_begin = t_lo / kMlaStep * kMlaStep;
-      issue(0, t_begin);
-      cp_async_commit();
-    }
-    const int n_steps = (t_hi - t_begin + kMlaStep - 1) / kMlaStep;
-    float o[kNt][4];
+    const int t_lo = t_lo_of(s), t_hi = t_hi_of(s);
+    float o[kAcc];
 #pragma unroll
-    for (int i = 0; i < kNt; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-    float m_run = kNegInf, l_run = 0.f;   // srow's softmax state in this split
-    for (int i = 0; i < n_steps; ++i) {
-      if (i + 1 < n_steps) issue((i + 1) & 1, t_begin + (i + 1) * kMlaStep);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();   // every thread's copies of this step are in
-      const int st = i & 1;
-      const int t0 = t_begin + i * kMlaStep;
-      const unsigned char* stage = smem + st * L::kStage;
-      const float* scl_k = scl + st * 2 * kMlaStep;
-      uint32_t k_base, v_base;
-      if constexpr (L::kWide) {
-        // the step's 8-bit K and V widened exactly to bf16 tiles, warp w
-        // taking the rows it copied, 16 bytes a lane
-        unsigned char* wide = smem + L::kOffWide;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int tok = 8 * warp + j;
-          for (int c = lane; c < kc + vc; c += 32) {
-            const bool isk = c < kc;
-            const int cc = isk ? c : c - kc;
-            const uint4 raw = *reinterpret_cast<const uint4*>(
-                stage + (isk ? 0 : kMlaStep * L::kRow) + tok * L::kRow + cc * 16);
-            uint4 w0, w1;
-            widen4(T{}, raw.x, w0.x, w0.y);
-            widen4(T{}, raw.y, w0.z, w0.w);
-            widen4(T{}, raw.z, w1.x, w1.y);
-            widen4(T{}, raw.w, w1.z, w1.w);
-            unsigned char* dst = wide + (isk ? 0 : L::kWideTile);
-            *reinterpret_cast<uint4*>(dst + swz<kD>(tok, 2 * cc)) = w0;
-            *reinterpret_cast<uint4*>(dst + swz<kD>(tok, 2 * cc + 1)) = w1;
-          }
+    for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // this split's; l over this part's tokens
+    for (int t0 = t_lo / kN * kN; t0 < t_hi; t0 += kN, ++n) {
+      const int st = n % Pi::kRing;
+      mbar_wait(full(st), (n / Pi::kRing) & 1);
+      uint32_t kb = sbase + L::kOffRing + st * L::kRaw;   // K's chunks, bf16, swizzled
+      if constexpr (kKind != 0) {
+        // the block widens the raw stage exactly into a bf16 stage (16
+        // entries a unit: 16 bytes in, two swizzled 16-byte pieces out), the
+        // scales copied beside them, once every wgmma that read that stage
+        // before is done (one stage: the last P.V; two: the one before, done
+        // by the time its warpgroup passed the last step's S)
+        if constexpr (Pi::kWide == 1) wg_wait<0>();
+        named_sync(kBarAll, L::kThreads);
+        const unsigned char* raw = smem + L::kOffRing + st * L::kRaw;
+        unsigned char* wide = smem + L::kOffWide + (n % Pi::kWide) * L::kWide;
+        constexpr int kUnits = (Sh::kKC + (L::kVPlane ? Sh::kVC : 0)) * kN * 4;
+#pragma unroll 2
+        for (int u = tid; u < kUnits; u += L::kThreads) {
+          const int row = u >> 2;   // (chunk, token) over K's chunks, then V's
+          const int pc = u & 3;
+          const int t = row % kN;
+          const uint4 v = *reinterpret_cast<const uint4*>(raw + row * 64 + pc * 16);
+          uint4 w0, w1;
+          widen4(T{}, v.x, w0.x, w0.y);
+          widen4(T{}, v.y, w0.z, w0.w);
+          widen4(T{}, v.z, w1.x, w1.y);
+          widen4(T{}, v.w, w1.z, w1.w);
+          unsigned char* d = wide + row * 128;
+          *reinterpret_cast<uint4*>(d + (((2 * pc) ^ (t & 7)) << 4)) = w0;
+          *reinterpret_cast<uint4*>(d + (((2 * pc + 1) ^ (t & 7)) << 4)) = w1;
         }
-        __syncthreads();
-        k_base = smem_u32(wide);
-        v_base = k_base + L::kWideTile;
-      } else {
-        k_base = smem_u32(stage);
-        v_base = k_base + kMlaStep * L::kRow;
+        if constexpr (L::kScaled) {
+          const float* src = reinterpret_cast<const float*>(raw + L::kRawK + L::kRawV);
+          float* dstf = reinterpret_cast<float*>(wide + L::kWideK + L::kWideV);
+          for (int i = tid; i < 2 * kN; i += L::kThreads) dstf[i] = src[i];
+        }
+        fence_async_smem();
+        named_sync(kBarAll, L::kThreads);   // the widened stage is in; the raw one is free
+        if (tid == 0) issue_next(false);
+        kb = smem_u32(wide);
+      }
+      // V: its own plane, or K's first lanes
+      const uint32_t vb = kb + (!L::kVPlane ? 0 : kKind == 0 ? L::kRawK : L::kWideK);
+      const float* scl = reinterpret_cast<const float*>(smem + (kb - sbase) + L::kWideK + L::kWideV);
+
+      // S = Q.K^T over this part's tokens [c kNS, (c + 1) kNS) and all dk lanes
+      float sc[kNS / 2];
+#pragma unroll
+      for (int i = 0; i < kNS / 2; ++i) sc[i] = 0.f;
+      reg_fence(sc);
+      wg_fence();
+      const int nks = p.dk >> 4;
+      for (int ks = 0; ks < nks; ++ks) {
+        const uint32_t koff = (ks & 3) * 32;
+        Wgmma<kNS>::template mma<0>(
+            sc, sw128_desc(q_s + (ks >> 2) * 8192 + koff, 16, 1024),
+            sw128_desc(kb + (ks >> 2) * (kN * 128) + c * kNS * 128 + koff, 16, 1024), ks > 0);
+      }
+      wg_commit();
+      wg_wait<0>();   // S, and the last step's P.V
+      reg_fence(sc);
+      reg_fence(o);
+      // once every warpgroup is past the last step's P.V (bf16: its stage
+      // takes the copies of the step kRing - 1 ahead; at D = 640 the maxima's
+      // exchange below is that block-wide barrier)
+      constexpr bool kRelAtMax = Sh::kRG == 1 && Sh::kDS == 2;
+      if constexpr (kKind == 0 && !kRelAtMax) {
+        named_sync(kBarAll, L::kThreads);
+        if (tid == 0 && n > 0) issue_next(false);
       }
 
-      // S = Q.K^T: warp w takes tokens 8w..8w+7 over all dk lanes, two
-      // k-steps an ldmatrix of K; sc holds rows g, g+8 x tokens 2 qd + {0, 1}
-      {
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int j = 0; j < dk / 32; ++j) {
-          uint32_t a0[4], a1[4], bk[4];
-          ldmatrix_x4(a0, q_base + swz<kD>(a_row, 4 * j + a_c));
-          ldmatrix_x4(a1, q_base + swz<kD>(a_row, 4 * j + 2 + a_c));
-          ldmatrix_x4(bk, k_base + swz<kD>(8 * warp + lr, 4 * j + lm));
-          mma_bf16(sc, a0, bk[0], bk[1]);
-          mma_bf16(sc, a1, bk[2], bk[3]);
-        }
+      // K's scale, the mask (live: in the split, before the row's position)
+      // and the rows' maxima over this part
+      float cm[2] = {kNegInf, kNegInf};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ri = e >> 1;
-          const int tk = 8 * warp + 2 * qd + (e & 1);
-          const int kv_pos = t0 + tk;
-          float sv = sc[e];
-          if (kScaled) sv = __fmul_rn(sv, scl_k[tk]);
-          const bool live = kv_pos >= t_lo && kv_pos < t_hi && kv_pos <= qpos[ri];
-          s_s[(g + 8 * ri) * L::kSStride + tk] = live ? sv : kDead;
-        }
-      }
-      __syncthreads();   // the step's scores are in
-
-      // the online softmax of the step, 8 threads a row, 4 tokens each; P
-      // (times V's scale) rounded to bf16 for P.V, the row sum unrounded
-      {
-        const float4 s4 = *reinterpret_cast<const float4*>(s_s + srow * L::kSStride + 4 * part);
-        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-        float cm = kNegInf;
+      for (int j = 0; j < kNS / 8; ++j) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (sv[k] != kDead) cm = fmaxf(cm, sv[k]);
-        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
-        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
-        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 4));
-        const float m_new = fmaxf(m_run, cm);
-        const float alpha = exp_diff(m_run, m_new);
-        m_run = m_new;
-        float pf[4], psum = 0.f;
+        for (int i = 0; i < 2; ++i) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          pf[k] = sv[k] != kDead ? exp_diff(sv[k], m_new) : 0.f;
-          psum = __fadd_rn(psum, pf[k]);
-        }
-        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 1));
-        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 2));
-        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 4));
-        l_run = __fadd_rn(__fmul_rn(l_run, alpha), psum);
-        float vs[4] = {1.f, 1.f, 1.f, 1.f};
-        if (kScaled) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) vs[k] = scl_k[kMlaStep + 4 * part + k];
-        }
-        *reinterpret_cast<uint2*>(p_s + srow * L::kPStride + 4 * part) =
-            make_uint2(pack_bf16x2(__fmul_rn(pf[0], vs[0]), __fmul_rn(pf[1], vs[1])),
-                       pack_bf16x2(__fmul_rn(pf[2], vs[2]), __fmul_rn(pf[3], vs[3])));
-        if (part == 0) alpha_s[srow] = alpha;
-      }
-      __syncthreads();   // P and the rows' rescales are in
-
-      // O = O * alpha + P.V over this warp's dims
-      {
-        const float a0 = alpha_s[g], a1 = alpha_s[g + 8];
-        if (__any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f)) {
-#pragma unroll
-          for (int n = 0; n < kNt; ++n) {
-            if (n < nt_w) {
-              o[n][0] = __fmul_rn(o[n][0], a0);
-              o[n][1] = __fmul_rn(o[n][1], a0);
-              o[n][2] = __fmul_rn(o[n][2], a1);
-              o[n][3] = __fmul_rn(o[n][3], a1);
-            }
-          }
-        }
-        uint32_t pa[2][4];
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          ldmatrix_x4(pa[kk], p_base + a_row * L::kPStride * 2 + (2 * kk + a_c) * 16);
-#pragma unroll
-        for (int dp = 0; dp < kNt / 2; ++dp) {
-          if (2 * dp < nt_w) {
-#pragma unroll
-            for (int kk = 0; kk < 2; ++kk) {
-              uint32_t bv[4];
-              ldmatrix_x4_trans(bv, v_base + swz<kD>(16 * kk + v_row, base / 8 + 2 * dp + v_c));
-              mma_bf16(o[2 * dp], pa[kk], bv[0], bv[1]);
-              mma_bf16(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
-            }
+          for (int e = 0; e < 2; ++e) {
+            const int tok = c * kNS + 8 * j + 2 * q4 + e;
+            const int kv = t0 + tok;
+            float v = sc[4 * j + 2 * i + e];
+            if (kScaled) v = __fmul_rn(v, scl[tok]);
+            const bool live = kv >= t_lo && kv < t_hi && kv <= qpos[i];
+            sc[4 * j + 2 * i + e] = live ? v : kDead;
+            if (live) cm[i] = fmaxf(cm[i], v);
           }
         }
       }
-      __syncthreads();   // the next step's copies overwrite this stage, S and P
-    }
-    cp_async_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        cm[i] = fmaxf(cm[i], __shfl_xor_sync(0xffffffffu, cm[i], 1));
+        cm[i] = fmaxf(cm[i], __shfl_xor_sync(0xffffffffu, cm[i], 2));
+      }
+      if constexpr (Sh::kDS > 1) {
+        // the row group's parts exchange their maxima
+        if (q4 == 0) {
+          mx[c * 64 + rr[0]] = cm[0];
+          mx[c * 64 + rr[1]] = cm[1];
+        }
+        named_sync(bar_a, kRgThreads);
+        if constexpr (kKind == 0 && kRelAtMax) {
+          if (tid == 0 && n > 0) issue_next(false);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = mx[rr[i]];
+#pragma unroll
+          for (int cc = 1; cc < Sh::kDS; ++cc) x = fmaxf(x, mx[cc * 64 + rr[i]]);
+          cm[i] = x;
+        }
+      }
+      float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float mn = fmaxf(m[i], cm[i]);
+        alpha[i] = exp_diff(m[i], mn);
+        m[i] = mn;
+      }
+      // P = e^(s - m) (times V's scale) rounded to bf16 into this part's
+      // columns of the row group's P; the row sums over this part unrounded
+#pragma unroll
+      for (int j = 0; j < kNS / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int tok = c * kNS + 8 * j + 2 * q4;
+          const float s0 = sc[4 * j + 2 * i], s1 = sc[4 * j + 2 * i + 1];
+          const float p0 = s0 != kDead ? exp_diff(s0, m[i]) : 0.f;
+          const float p1 = s1 != kDead ? exp_diff(s1, m[i]) : 0.f;
+          ps[i] = __fadd_rn(__fadd_rn(ps[i], p0), p1);
+          const uint32_t word = kScaled ? pack_bf16x2(__fmul_rn(p0, scl[kN + tok]),
+                                                      __fmul_rn(p1, scl[kN + tok + 1]))
+                                        : pack_bf16x2(p0, p1);
+          *reinterpret_cast<uint32_t*>(p_ptr + rr[i] * 128 + (((tok >> 3) ^ (rr[i] & 7)) << 4) +
+                                       (tok & 7) * 2) = word;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ps[i] = __fadd_rn(ps[i], __shfl_xor_sync(0xffffffffu, ps[i], 1));
+        ps[i] = __fadd_rn(ps[i], __shfl_xor_sync(0xffffffffu, ps[i], 2));
+        l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), ps[i]);
+      }
+      fence_async_smem();
+      named_sync(bar_b, kRgThreads);   // the row group's P is in
 
-    // the split's state folded into the running one: each row's (a, b) by
-    // its threads, then O by each warp over its dims
-    {
-      float a, bb;
-      fold_ml(fM, fL, m_run, l_run, a, bb);
-      if (part == 0) {
-        fa_s[srow] = a;
-        fb_s[srow] = bb;
+      // O = O alpha + P.V over this part's lanes [c kPV, (c + 1) kPV)
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+        for (int j = 0; j < kAcc / 4; ++j) {
+          o[4 * j] = __fmul_rn(o[4 * j], alpha[0]);
+          o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha[0]);
+          o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha[1]);
+          o[4 * j + 3] = __fmul_rn(o[4 * j + 3], alpha[1]);
+        }
+      }
+      reg_fence(o);
+      wg_fence();
+#pragma unroll
+      for (int kt = 0; kt < kN / 16; ++kt)
+        Wgmma<kPV>::template mma<1>(
+            o, sw128_desc(p_s + kt * 32, 16, 1024),
+            sw128_desc(vb + c * (Sh::kVC / Sh::kDS) * (kN * 128) + kt * 2048, kN * 128, 1024), 1);
+      wg_commit();
+      reg_fence(o);
+    }
+    wg_wait<0>();
+    reg_fence(o);
+
+    // the split's row sums: the parts' added in order
+    float lt[2] = {l[0], l[1]};
+    if constexpr (Sh::kDS > 1) {
+      if (q4 == 0) {
+        lx[c * 64 + rr[0]] = l[0];
+        lx[c * 64 + rr[1]] = l[1];
+      }
+      named_sync(bar_a, kRgThreads);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x = lx[rr[i]];
+#pragma unroll
+        for (int cc = 1; cc < Sh::kDS; ++cc) x = __fadd_rn(x, lx[cc * 64 + rr[i]]);
+        lt[i] = x;
       }
     }
-    __syncthreads();
-    {
-      const float a0 = fa_s[g], b0 = fb_s[g], a1 = fa_s[g + 8], b1 = fb_s[g + 8];
+    const int r_a = row0 + rg * 64 + rr[0];   // this thread's rows: r_a, r_a + 8
+    if (!covers) {
+      // one split of several (spb == 1): its state, for the merge kernel
 #pragma unroll
-      for (int n = 0; n < kNt; ++n) {
-        if (n < nt_w) {
-          float* f0 = f_s + g * L::kFStride + base + 8 * n + 2 * qd;
-          float* f1 = f0 + 8 * L::kFStride;
-          f0[0] = fold_o(f0[0], o[n][0], a0, b0);
-          f0[1] = fold_o(f0[1], o[n][1], a0, b0);
-          f1[0] = fold_o(f1[0], o[n][2], a1, b1);
-          f1[1] = fold_o(f1[1], o[n][3], a1, b1);
+      for (int i = 0; i < 2; ++i) {
+        const int r = r_a + 8 * i;
+        if (r >= G) continue;
+        const size_t slot = ((size_t)bh * p.n_splits + s) * G + r;
+        float* dst = p.ws_o + slot * kD + c * kPV;
+#pragma unroll
+        for (int j = 0; j < kAcc / 4; ++j)
+          if (c * kPV + 8 * j < p.dv)
+            *reinterpret_cast<float2*>(dst + 8 * j + 2 * q4) =
+                make_float2(o[4 * j + 2 * i], o[4 * j + 2 * i + 1]);
+        if (c == 0 && q4 == 0)
+          *reinterpret_cast<float2*>(p.ws_ml + 2 * slot) = make_float2(m[i], lt[i]);
+      }
+      continue;
+    }
+    // the split folded into the rows' running state (fold_ml / fold_o, as
+    // the merge kernel folds): past the first split the running O comes from
+    // this warpgroup's slab, and the last writes the rows
+    float fa[2], fb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) fold_ml(fM[i], fL[i], m[i], lt[i], fa[i], fb[i]);
+    const bool first = s == lo, last = s == hi - 1;
+    float4* slab = reinterpret_cast<float4*>(p.ws_o) +
+                   (((size_t)bh * gridDim.x + tile) * L::kNC + cw) * 32 * kAcc + wt;
+    // the last split's rows, times the sums' reciprocal (as the merge kernel
+    // takes them), staged as bf16 in the row group's query tile (free after
+    // the last step), then written 16 bytes a thread
+    unsigned char* stg = smem + rg * L::kQ + c * 64 * L::kStg;
+    const float inv[2] = {fL[0] > 0.f ? __frcp_rn(fL[0]) : 0.f,
+                          fL[1] > 0.f ? __frcp_rn(fL[1]) : 0.f};
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j) {
+      const float4 prev = first ? make_float4(0.f, 0.f, 0.f, 0.f) : slab[j * 128];
+      const float4 f = make_float4(fold_o(prev.x, o[4 * j], fa[0], fb[0]),
+                                   fold_o(prev.y, o[4 * j + 1], fa[0], fb[0]),
+                                   fold_o(prev.z, o[4 * j + 2], fa[1], fb[1]),
+                                   fold_o(prev.w, o[4 * j + 3], fa[1], fb[1]));
+      if (!last) {
+        slab[j * 128] = f;
+        continue;
+      }
+      const int d = 8 * j + 2 * q4;
+      const bool lv = c * kPV + d < p.dv;
+      *reinterpret_cast<uint32_t*>(stg + rr[0] * L::kStg + d * 2) =
+          lv ? pack_bf16x2(__fmul_rn(f.x, inv[0]), __fmul_rn(f.y, inv[0])) : 0u;
+      *reinterpret_cast<uint32_t*>(stg + rr[1] * L::kStg + d * 2) =
+          lv ? pack_bf16x2(__fmul_rn(f.z, inv[1]), __fmul_rn(f.w, inv[1])) : 0u;
+    }
+    if (last) {
+      named_sync(6 + cw, 128);   // this warpgroup's rows are staged
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (orow[i] == nullptr) continue;
+#pragma unroll
+        for (int k = 0; k < kPV / 32; ++k) {
+          const int pc = q4 + 4 * k;   // 16-byte pieces of this part's lanes
+          *reinterpret_cast<uint4*>(orow[i] + c * kPV + 8 * pc) =
+              *reinterpret_cast<const uint4*>(stg + rr[i] * L::kStg + pc * 16);
         }
       }
     }
-  }
-  __syncthreads();   // every warp's dims of O are in
-
-  const float* f_row = f_s + srow * L::kFStride;
-  if (lo == fs && hi == ls + 1) {
-    // every live split of the tile is in this block: write its rows (zeros
-    // past dv, where O stays 0)
-    if (srow < rows) {
-      for (int c = part; c < kCh; c += 8) {
-        uint4 packed;
-        uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+    if (last && c == Sh::kDS - 1) {
+      // the lanes past every part's: zeros, 64 bytes a thread and row
+      constexpr int kPast = (kD - 64 * Sh::kVC) / 8;
+      static_assert(kPast == 16, "the lanes past V's");
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          w[i] = fL > 0.f ? pack_bf16x2(__fdiv_rn(f_row[8 * c + 2 * i], fL),
-                                        __fdiv_rn(f_row[8 * c + 2 * i + 1], fL))
-                          : 0u;
-        *reinterpret_cast<uint4*>(out_row(srow) + 8 * c) = packed;
-      }
+      for (int i = 0; i < 2; ++i)
+        if (orow[i] != nullptr) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            *reinterpret_cast<uint4*>(orow[i] + 64 * Sh::kVC + 8 * (4 * q4 + k)) =
+                make_uint4(0, 0, 0, 0);
+        }
     }
-    return;
-  }
-  // one split of several (spb == 1): its state, for the merge kernel
-  if (srow < rows) {
-    const size_t slot = ((size_t)bh * p.n_splits + lo) * G + row0 + srow;
-    float* dst = p.ws_o + slot * kD;
-    for (int c = part; c < kD / 4; c += 8)
-      *reinterpret_cast<float4*>(dst + 4 * c) = *reinterpret_cast<const float4*>(f_row + 4 * c);
-    if (part == 0) *reinterpret_cast<float2*>(p.ws_ml + 2 * slot) = make_float2(fM, fL);
   }
 }
 
-template <typename T, bool kScaled, int kD>
-int launch_mla(const AttnArgs& a) {
-  constexpr int smem = MlaSmem<T, kD, kScaled>::kBytes;
+// cuTensorMapEncodeTiled, looked up by cudaGetDriverEntryPoint (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+template <typename T, int kD>
+int launch_mla(const AttnArgs& a, int num_pages) {
+  using Sh = MlaShape<kD>;
+  using L = MlaSmem<kD, kMlaKind<T>>;
   static bool attr_set = false;
   if (!attr_set) {
-    const cudaError_t err = set_smem(paged_attention_mla_kernel<T, kScaled, kD>, smem);
+    const cudaError_t err = set_smem(paged_attention_mla_kernel<T, kD>, L::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const int split_blocks = (a.p.n_splits + a.p.spb - 1) / a.p.spb;
-  paged_attention_mla_kernel<T, kScaled, kD>
-      <<<dim3(a.tiles, split_blocks, a.B * a.p.Hkv), kThreads, smem, a.stream>>>(a.p);
-  return launch_merge<kD>(a, split_blocks);
+  if (a.p.dk > 64 * Sh::kKC || a.p.dv > 64 * Sh::kVC ||
+      (split_blocks == 1 && a.p.n_splits > 1 && a.p.ws_o == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  MlaParams mp;
+  mp.p = a.p;
+  mp.p.tile_rows = 64 * Sh::kRG;
+  int box = a.p.S, step = L::kN;   // gcd(S, the step)
+  while (step != 0) {
+    const int t = box % step;
+    box = step;
+    step = t;
+  }
+  mp.box_rows = box;
+  const cuuint64_t dims[2] = {(cuuint64_t)kD, (cuuint64_t)num_pages * 2 * a.p.Hkv * a.p.S};
+  const cuuint64_t strides[1] = {(cuuint64_t)kD * sizeof(T)};
+  const cuuint32_t boxes[2] = {64, (cuuint32_t)box};
+  const cuuint32_t elem[2] = {1, 1};
+  const bool bf16 = kMlaKind<T> == 0;
+  if (encode(&mp.map,
+             bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<void*>(a.p.kv), dims, strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = (a.p.Hq / a.p.Hkv) * a.p.Q;
+  const int tiles = (G + 64 * Sh::kRG - 1) / (64 * Sh::kRG);
+  paged_attention_mla_kernel<T, kD>
+      <<<dim3(tiles, split_blocks, a.B * a.p.Hkv), L::kThreads, L::kBytes, a.stream>>>(mp);
+  AttnArgs merge = a;
+  merge.p.tile_rows = mp.p.tile_rows;
+  return launch_merge<kD>(merge, split_blocks);
 }
+#endif  // QSPEC_ATTN_MLA
 
 // the (head dim, softcap) instantiations of one entry type; with ALiBi only
 // head dim 128 without the softcap or the tree (where the JAX package takes it)
@@ -1433,16 +1847,17 @@ constexpr bool kKvScaled = false;
 #endif
 // the MLA instantiations of this object's head dim over the four entry types
 // (kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2); args points to the entry
-// point's AttnArgs
+// point's AttnArgs; num_pages: the layer's pages (its tensor map's rows)
 extern "C" int QSPEC_CAT(qspec_paged_attention_mla, QSPEC_ATTN_MLA)(int kv_dtype,
-                                                                    const void* args) {
+                                                                    const void* args,
+                                                                    int num_pages) {
   const AttnArgs& a = *static_cast<const AttnArgs*>(args);
   constexpr int kD = QSPEC_ATTN_MLA;
   switch (kv_dtype) {
-    case 0: return launch_mla<__nv_bfloat16, false, kD>(a);
-    case 1: return launch_mla<int8_t, true, kD>(a);
-    case 2: return launch_mla<__nv_fp8_e4m3, true, kD>(a);
-    case 3: return launch_mla<__nv_fp8_e5m2, false, kD>(a);
+    case 0: return launch_mla<__nv_bfloat16, kD>(a, num_pages);
+    case 1: return launch_mla<int8_t, kD>(a, num_pages);
+    case 2: return launch_mla<__nv_fp8_e4m3, kD>(a, num_pages);
+    case 3: return launch_mla<__nv_fp8_e5m2, kD>(a, num_pages);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1464,8 +1879,8 @@ extern "C" int QSPEC_CAT(qspec_paged_attention_kv, QSPEC_ATTN_KV)(int tree, int 
 extern "C" int qspec_paged_attention_kv1(int tree, int alibi, int head_dim, const void* args);
 extern "C" int qspec_paged_attention_kv2(int tree, int alibi, int head_dim, const void* args);
 extern "C" int qspec_paged_attention_kv3(int tree, int alibi, int head_dim, const void* args);
-extern "C" int qspec_paged_attention_mla384(int kv_dtype, const void* args);
-extern "C" int qspec_paged_attention_mla640(int kv_dtype, const void* args);
+extern "C" int qspec_paged_attention_mla384(int kv_dtype, const void* args, int num_pages);
+extern "C" int qspec_paged_attention_mla640(int kv_dtype, const void* args, int num_pages);
 
 // q [B, Q, Hq, D] bf16, D = head_dim in {128, 256, 384, 640}; kv = the
 // layer's [P, 2, Hkv, S, D] pages of kv_dtype 0 bf16, 1 int8, 2 fp8_e4m3,
@@ -1484,12 +1899,17 @@ extern "C" int qspec_paged_attention_mla640(int kv_dtype, const void* args);
 // k_dims, v_dims: the lanes of K and of V read, head_dim both at 128 and
 // 256; at the MLA head dims 384 and 640 k_dims % 32 == 0 and v_dims % 64 == 0
 // (up to head_dim), the output's lanes past v_dims zero, and no window,
-// softcap, tree or ALiBi (else cudaErrorInvalidValue).
+// softcap, tree or ALiBi (else cudaErrorInvalidValue); there k_dims is at
+// most 576 / 320 and v_dims 512 / 256 (640 / 384), V's lanes come from K's
+// over bf16 and fp8_e5m2 (MLA writes them equal), and num_pages, the
+// layer's pages, sizes the cache's tensor map.
 // The plan (ops/attention_cuda.py:attention_plan): split tokens a split (a
 // multiple of S), n_splits = ceil(pages_per_seq * S / split), spb splits a
 // block (1, or at least n_splits); with spb < n_splits, ws = [B * Hkv *
 // n_splits * G * (D + 2)] f32 (G = Hq / Hkv * Q), the split states that the
-// merge kernel, launched after the attention kernel, folds.
+// merge kernel, launched after the attention kernel, folds; at the MLA head
+// dims with spb >= n_splits > 1, ws = [B * Hkv * tiles * rows * v lanes] f32,
+// each block's slab for the running fold of its splits.
 extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      const void* kv_scales,
                                      const void* block_tables,
@@ -1500,16 +1920,16 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
                                      int split, int n_splits, int spb, int kv_dtype,
                                      int head_dim, int k_dims, int v_dims, float scale,
                                      float softcap, int window, const void* tree_anc,
-                                     int tree_prefix, const void* alibi,
+                                     int tree_prefix, const void* alibi, int num_pages,
                                      void* stream) {
   const int G = (Hq / Hkv) * Q;
   const int tiles = (G + kRows - 1) / kRows;
-  if (split <= 0 || split % S != 0 || split / S > kMaxSplitPages || n_splits <= 0 ||
+  const bool mla = head_dim == 384 || head_dim == 640;
+  if (split <= 0 || split % S != 0 || (!mla && split / S > kMaxSplitPages) || n_splits <= 0 ||
       (spb != 1 && spb < n_splits) ||
       (long long)n_splits * split < (long long)pages_per_seq * S ||
       (spb < n_splits && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool mla = head_dim == 384 || head_dim == 640;
   if (mla ? (k_dims <= 0 || k_dims > head_dim || k_dims % 32 != 0 || v_dims <= 0 ||
              v_dims > head_dim || v_dims % 64 != 0 || window != (1 << 30) ||
              softcap != 0.f || tree_anc != nullptr || alibi != nullptr)
@@ -1523,13 +1943,13 @@ extern "C" int qspec_paged_attention(const void* q, const void* kv,
                  ws_ml, Q, Hq, Hkv, S, pages_per_seq, k_dims, v_dims, split,
                  n_splits, spb, scale, softcap, window,
                  static_cast<const unsigned long long*>(tree_anc), tree_prefix,
-                 static_cast<const float*>(alibi)};
+                 static_cast<const float*>(alibi), kRows};
   const AttnArgs a{p, B, tiles, static_cast<cudaStream_t>(stream)};
   if (alibi != nullptr && tree_anc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype < 0 || kv_dtype > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (mla)
-    return head_dim == 384 ? qspec_paged_attention_mla384(kv_dtype, &a)
-                           : qspec_paged_attention_mla640(kv_dtype, &a);
+    return head_dim == 384 ? qspec_paged_attention_mla384(kv_dtype, &a, num_pages)
+                           : qspec_paged_attention_mla640(kv_dtype, &a, num_pages);
   // the object of each entry type: 0 bf16, 1 int8, 2 fp8_e4m3, 3 fp8_e5m2
   int (*const parts[4])(int, int, int, const void*) = {
       qspec_paged_attention_kv0, qspec_paged_attention_kv1, qspec_paged_attention_kv2,

@@ -56,13 +56,20 @@ SPLIT_MIN = 256
 # verify, the tree: B x Hkv x splits blocks); more tiles take all of a tile's
 # splits in one block (prefill). The folds are the same, so is every bit.
 MAX_SPLIT_TILES = 4
-# the MLA kernel's splits (at the MLA head dims): 128 tokens, and one split a
-# block wherever that at least halves the waves of blocks over the card's
-# SMs against one block a row tile (a big grid keeps the latter, and no
-# workspace). Its blocks, one an SM, wait on their KV copies, so more of
-# them in flight read faster (tools/mla_variants_ab.py on an H100: 1.6-1.8x
-# at MiniCPM3's and DeepSeek-V2-Lite's verify, PERF.md §6)
+# the MLA kernel's plan (csrc/paged_attention.cu: MlaShape): a block takes
+# MLA_ROWS GQA rows (one 64-row wgmma tile) and reads K's lanes up to
+# MLA_K_LANES and V's up to MLA_V_LANES
+MLA_ROWS = {384: 64, 640: 64}
+MLA_K_LANES = {384: 320, 640: 576}
+MLA_V_LANES = {384: 256, 640: 512}
+# an MLA split: the fewest whole pages holding MLA_SPLIT_MIN tokens (two
+# 64-token steps: a block's walk is a chain of dependent steps, so short
+# splits put more blocks on the card)
 MLA_SPLIT_MIN = 128
+# an MLA launch takes one split a block while its row tiles leave SMs idle
+# and that workspace stays under MLA_WS_BYTES; else (prefill) a block walks
+# all its splits, folding them through a slab of its own
+MLA_WS_BYTES = 1 << 28
 
 
 def split_tokens(page_size: int, head_dim: int = 128) -> int:
@@ -93,17 +100,29 @@ def attention_plan(B: int, Q: int, Hq: int, Hkv: int, D: int, S: int,
     """The split plan and schedule of a launch. The splits follow from the
     page size, the head dim and the block table's width; the schedule (one
     split a block or all of them) from the row tiles (at the MLA head dims,
-    from the waves of blocks over ``sms`` SMs), and changes no bit."""
+    from the blocks against ``sms`` SMs and the workspace's size), and
+    changes no bit. At the MLA head dims a block that takes several splits
+    folds them through a slab of rows x V lanes f32 of its own in the
+    workspace."""
     split = split_tokens(S, D)
     n_splits = max(1, -(-pages_per_seq * S // split))
     G = Hq // Hkv * Q
-    tiles = -(-G // ROWS)
     if D in MLA_DIMS:
-        blocks = tiles * B * Hkv
-        halves = 2 * -(-blocks * n_splits // sms) <= -(-blocks // sms) * n_splits
-        spb = 1 if halves else n_splits
-    else:
-        spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits
+        rows = MLA_ROWS[D]
+        tiles = -(-G // rows)
+        one = B * Hkv * n_splits * G * (D + 2)
+        spb = 1 if n_splits == 1 or (tiles * B * Hkv < sms and 4 * one <= MLA_WS_BYTES) \
+            else n_splits
+        grid_y = -(-n_splits // spb)
+        if grid_y > 1:            # the split states, for the merge kernel
+            ws = one
+        elif n_splits > 1:        # each block's slabs, for its running fold
+            ws = B * Hkv * tiles * rows * MLA_V_LANES[D]
+        else:
+            ws = 0
+        return AttentionPlan(split, n_splits, spb, (tiles, grid_y, B * Hkv), ws)
+    tiles = -(-G // ROWS)
+    spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits
     grid_y = -(-n_splits // spb)
     return AttentionPlan(split, n_splits, spb, (tiles, grid_y, B * Hkv),
                          B * Hkv * n_splits * G * (D + 2) if grid_y > 1 else 0)
@@ -161,10 +180,13 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
     seeing the context up to the root (under the window, past its own AR
     position root + depth less the window) and its ancestors' and its own
     slots. ``lanes``: (k_dims, v_dims), the lanes of K (and q) and of V
-    read, at the MLA head dims 384 and 640 only (k_dims % 32 == 0, v_dims %
-    64 == 0); the output's lanes past v_dims are zero. Those dims take no
-    window, softcap, ALiBi or tree (the JAX package reaches none of them
-    there). Returns [B, Q, Hq, D] bf16."""
+    read, at the MLA head dims 384 and 640 only (k_dims % 32 == 0, at most
+    MLA_K_LANES; v_dims % 64 == 0, at most MLA_V_LANES); the output's lanes
+    past v_dims are zero. Over bf16 and fp8_e5m2 V's lanes are read from
+    K's, which MLA writes with the same bits (models/llama.py
+    _mla_attention, kv_cache.update_layer); int8 and fp8_e4m3 read the V
+    plane. Those dims take no window, softcap, ALiBi or tree (the JAX package
+    reaches none of them there). Returns [B, Q, Hq, D] bf16."""
     _build.require(q.is_cuda, "paged_attention_cuda: CUDA tensors")
     B, Q, Hq, D = q.shape
     L, P, two, Hkv, S, D2 = kv_pages.shape
@@ -186,9 +208,11 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
         _build.require(window is None and softcap is None and alibi is None and tree is None,
                        f"paged_attention_cuda: head dim {D} (MLA) without a window, "
                        "softcap, ALiBi or tree")
-        _build.require(0 < dk <= D and dk % 32 == 0 and 0 < dv <= D and dv % 64 == 0,
+        _build.require(0 < dk <= MLA_K_LANES[D] and dk % 32 == 0
+                       and 0 < dv <= MLA_V_LANES[D] and dv % 64 == 0,
                        f"paged_attention_cuda: lanes (k {dk}, v {dv}) at head dim {D}: "
-                       "k_dims % 32 == 0 and v_dims % 64 == 0, at most the head dim")
+                       f"k_dims % 32 == 0 up to {MLA_K_LANES[D]}, v_dims % 64 == 0 up to "
+                       f"{MLA_V_LANES[D]}")
     else:
         _build.require(lanes is None or (dk, dv) == (D, D),
                        f"paged_attention_cuda: lanes at head dim {D} are all {D}")
@@ -259,7 +283,7 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
         None if ws is None else ws.data_ptr(), B, Q,
         Hq, Hkv, S, tables.shape[1], plan.split, plan.n_splits,
         plan.splits_per_block, KV_CODES[kv_pages.dtype], D, dk, dv, float(scale), cap, win,
-        anc_ptr, prefix, alibi_ptr, _build.stream_of(q)))
+        anc_ptr, prefix, alibi_ptr, kv_layer.shape[0], _build.stream_of(q)))
     count = LAUNCHES[kv_pages.dtype]
     count.launches += 1
     count.window_launches += window is not None

@@ -2079,6 +2079,72 @@ def test_paged_attention_kernel_mla_row_bits(gen, shape):
     assert _replayed(lambda: launch(first3), full[:3])
 
 
+# contexts past 4096 tokens: 33 to 40 splits of 128, a row's walk over
+# several split blocks and the merge kernel
+MLA_LONG_CTX = (4100, 4700, 45, 5000)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_paged_attention_kernel_mla_long_context(gen, shape, kv_dtype):
+    """Every MLA instantiation at MiniCPM3-4B's, DeepSeek-V2-Lite's and
+    DeepSeek-V3's query groups over contexts to 5000 tokens (MLA_LONG_CTX),
+    decode (Q = 1) and the n-gram verify (Q = 4), against the plain version
+    over the same lanes (the tolerances of test_paged_attention_kernel_mla),
+    the output zero past the V lanes."""
+    tol = {"bfloat16": 3e-2, "fp8_e5m2": 8e-2}.get(kv_dtype, 4e-2)
+    for q_len in (1, 4):
+        q, cache, tables, ctx_t, scale, lanes = _mla_case(gen, q_len, kv_dtype, shape,
+                                                          ctx=MLA_LONG_CTX)
+        out = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1,
+                                   kv_scales=cache.kv_scales, lanes=lanes)
+        assert torch.count_nonzero(out[..., lanes[1]:]) == 0
+        ref = paged_attention_ref(q, cache, 1, tables, ctx_t, scale, lanes=lanes)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("shape", ["minicpm3-4b", "deepseek-v2-lite"])
+def test_paged_attention_kernel_mla_v_plane(gen, shape, kv_dtype):
+    """Over bf16 and fp8_e5m2 the MLA kernel reads V's lanes from the K plane,
+    whose first r lanes MLA writes with V's bits (update_layer): a V plane
+    overwritten with other values leaves the output bit for bit unchanged.
+    Over int8 and fp8_e4m3, whose V rows take scales of their own, the kernel
+    reads the V plane: the same overwrite changes the output."""
+    q, cache, tables, ctx_t, scale, lanes = _mla_case(gen, 4, kv_dtype, shape)
+
+    def run():
+        return paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1,
+                                    kv_scales=cache.kv_scales, lanes=lanes)
+    before = run()
+    v_plane = cache.kv_pages[1, :, 1]
+    poison = torch.full(v_plane.shape, 7.0, device="cuda")
+    poison[..., 1::2] = -3.0
+    v_plane.copy_(poison.to(v_plane.dtype))
+    after = run()
+    assert torch.equal(after, before) == (kv_dtype in ("bfloat16", "fp8_e5m2"))
+
+
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_paged_attention_kernel_mla_schedule_bits(gen, shape):
+    """A latent row's bits are the same whether its tile's splits are folded
+    in the block through the block's slab (a Q = 64 prefill rectangle, whose
+    row tiles fill the card, or whose one-split-a-block workspace would pass
+    MLA_WS_BYTES) or by the merge kernel (the same rows' last one alone, Q =
+    1, one split a block), at contexts to 4000 tokens."""
+    from qspec_tpu_torch.ops.attention_cuda import attention_plan
+    q, cache, tables, ctx_t, scale, lanes = _mla_case(gen, 64, "bfloat16", shape)
+    Hq, D = MLA_SHAPES[shape][:2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide = attention_plan(4, 64, Hq, 1, D, 16, tables.shape[1], sms)
+    one = attention_plan(4, 1, Hq, 1, D, 16, tables.shape[1], sms)
+    assert wide.splits_per_block == wide.n_splits > 1 and one.splits_per_block == 1
+    full = paged_attention_cuda(q, cache.kv_pages, tables, ctx_t, scale, layer=1, lanes=lanes)
+    last = paged_attention_cuda(q[:, -1:].contiguous(), cache.kv_pages, tables, ctx_t, scale,
+                                layer=1, lanes=lanes)
+    assert torch.equal(last[:, 0], full[:, -1])
+
+
 def test_paged_attention_kernel_mla_refusals(gen):
     """The MLA head dims take no window, softcap, ALiBi or tree (the JAX
     package reaches none of them there), and only K lanes % 32 == 0 and V

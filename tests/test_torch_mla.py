@@ -128,6 +128,29 @@ def latent_caches(rng, kv_dtype, D, T=64, S=16, P=6):
     return jc, tc
 
 
+@pytest.mark.parametrize("kv_dtype", KV)
+@pytest.mark.parametrize("D", [384, 640])
+def test_update_layer_writes_v_as_k_lanes(rng, D, kv_dtype):
+    """What the MLA kernel's V read relies on: both packages' update_layer,
+    given MLA's rows (K = [c_kv, k_pe, 0...], V = [c_kv, 0...]), store V's
+    first r lanes bit for bit as K's over bf16 and fp8_e5m2 (a cast with no
+    scale), and not over int8 and fp8_e4m3, whose per-row absmax scale
+    differs between a K row (it also holds k_pe) and its V row. The two
+    packages store the same bytes."""
+    jc, tc = latent_caches(rng, kv_dtype, D)
+    dv = LATENT[D][1]
+    jpages = np.asarray(jc.kv_pages.astype(jnp.float32))[0]          # [P, 2, 1, S, D]
+    tpages = tc.kv_pages[0].to(torch.float32).numpy()
+    np.testing.assert_array_equal(jpages, tpages)
+    for pages in (jpages, tpages):
+        k_lanes, v_lanes = pages[1:, 0, 0, :, :dv], pages[1:, 1, 0, :, :dv]
+        same = np.array_equal(k_lanes, v_lanes)
+        assert same == (kv_dtype in ("bfloat16", "fp8_e5m2")), kv_dtype
+    if tc.kv_scales is not None:
+        np.testing.assert_array_equal(np.asarray(jc.kv_scales)[0], tc.kv_scales[0].numpy())
+        assert not np.array_equal(tc.kv_scales[0, 1:, 0].numpy(), tc.kv_scales[0, 1:, 1].numpy())
+
+
 @pytest.mark.parametrize("Hq", [4, 16])
 @pytest.mark.parametrize("kv_dtype", KV)
 @pytest.mark.parametrize("D", [384, 640])
@@ -486,25 +509,36 @@ def test_refusals(models):
 
 
 def test_attention_plan_at_latent_shapes():
-    """The split plan at the latent shapes: splits of 128 tokens (the other
-    head dims' 256), one a block where that at least halves the waves of
-    blocks over 132 SMs. A 4096-token block table: DeepSeek-V2-Lite's 16
-    heads at the verify (Q = 4, 4 row tiles, 16 blocks) and MiniCPM3's 40
-    at decode and the verify take one split a block, the workspace the
-    states of G rows of D + 2 floats; DeepSeek-V3's 128 heads (G = 512, 32
-    tiles, 128 blocks: 32 waves either way) take every split in one block,
-    no workspace; the D = 128 plan keeps its 256-token splits."""
+    """The split plan at the latent shapes over a 4096-token block table (S =
+    128, 32 pages): splits of 128 tokens (the other head dims' 256), 32 of
+    them; a block takes 64 rows. One split a block while the row tiles x B
+    leave SMs idle and that workspace (the states of G rows of D + 2 floats a
+    split) stays within 256 MB:
+    DeepSeek-V2-Lite's verify (G = 64: 1 tile, grid (1, 32, 4), 4 * 32 * 64
+    * 642 floats, 21 MB), DeepSeek-V3's (G = 512: 8 tiles, 32 blocks, grid (8,
+    32, 4), 4 * 32 * 512 * 642 floats, 168 MB), MiniCPM3's decode and verify
+    (G = 40, 160: 1 and 3 tiles, 4 * 32 * G * 386). DeepSeek-V2-Lite's Q = 64
+    prefill rectangle (16 tiles x 4 = 64 blocks, but 336 MB of states) and
+    DeepSeek-V3's (G = 8192: 128 tiles x 4 = 512 blocks, over 132) take
+    every split in one block, the workspace their slabs of 64 rows x 512 V
+    lanes."""
     pps, S = 32, 128
     lite = attention_plan(4, 4, 16, 1, 640, S, pps)
     assert (lite.split, lite.n_splits, lite.splits_per_block, lite.grid, lite.ws_floats) == (
-        128, 32, 1, (4, 32, 4), 4 * 32 * 64 * 642)
+        128, 32, 1, (1, 32, 4), 4 * 32 * 64 * 642)
     v3 = attention_plan(4, 4, 128, 1, 640, S, pps)
-    assert (v3.splits_per_block, v3.grid, v3.ws_floats) == (32, (32, 1, 4), 0)
-    assert attention_plan(4, 1, 40, 1, 384, S, pps).splits_per_block == 1
-    cpm = attention_plan(4, 4, 40, 1, 384, S, pps)
-    assert (cpm.splits_per_block, cpm.ws_floats) == (1, 4 * 32 * 160 * 386)
-    # a prefill rectangle's 256 blocks take their splits in one block
-    assert attention_plan(4, 64, 16, 1, 640, S, pps).splits_per_block == 32
+    assert (v3.splits_per_block, v3.grid, v3.ws_floats) == (1, (8, 32, 4), 4 * 32 * 512 * 642)
+    for q_len in (1, 4):
+        cpm = attention_plan(4, q_len, 40, 1, 384, S, pps)
+        G = 40 * q_len
+        assert (cpm.split, cpm.splits_per_block, cpm.grid, cpm.ws_floats) == (
+            128, 1, (-(-G // 64), 32, 4), 4 * 32 * G * 386)
+    lite_pre = attention_plan(4, 64, 16, 1, 640, S, pps)
+    assert (lite_pre.splits_per_block, lite_pre.grid, lite_pre.ws_floats) == (
+        32, (16, 1, 4), 4 * 16 * 64 * 512)
+    pre = attention_plan(4, 64, 128, 1, 640, S, pps)
+    assert (pre.splits_per_block, pre.grid, pre.ws_floats) == (32, (128, 1, 4),
+                                                                4 * 128 * 64 * 512)
     assert attention_plan(4, 4, 32, 8, 128, S, pps).split == 256
 
 

@@ -4,31 +4,41 @@ against variants of itself on one card.
     python3 tools/mla_variants_ab.py [VARIANT ...]    # from the repository root
 
 Each variant is a copy of qspec_tpu_torch under qspec_tpu_torch/_build/
-variants/ (git-ignored) with a text patch of csrc/paged_attention.cu (or
-of ops/attention_cuda.py's plan), checked to apply. The base (the package as it is) and each variant are
-built and timed by a process of their own, in the order base, the variants,
-base; each builds csrc/paged_attention.cu (and csrc/w4.cu, which holds the
-library's error strings) alone. A process first holds its
-build to the plain version at chip_smoke.MLA_ATTN (bf16 and int8 caches, Q
-= 1, 4 and 64, chip_smoke.MLA_TOL; skipped by the diagnostics, whose
-results are wrong by design), then times the kernel at MLA_ATTN's three
-groups at the n-gram verify (B = 4, Q = 4, contexts 379 / 263 / 512 / 40)
-over bf16 and int8 caches and at DeepSeek-V2-Lite's decode (Q = 1): inputs
-rotated past L2, CUDA events over CUDA-graph replays (chip_smoke's
-time_mla_shapes). It prints the card's name and power limit, one JSON line
-per run and a table of ms per shape.
+variants/ (git-ignored) with text patches of csrc/paged_attention.cu (and of
+ops/attention_cuda.py's plan), each checked to apply once. The base (the
+package as it is) and each variant are built and timed by a process of
+their own, in the order base, the variants, base; each builds
+csrc/paged_attention.cu (and csrc/w4.cu, which holds the library's error
+strings) alone. A process first holds its build to the plain version at
+chip_smoke.MLA_ATTN (bf16 and int8 caches, Q = 1, 4 and 64,
+chip_smoke.MLA_TOL; skipped by the diagnostics, whose results are wrong by
+design), then times the kernel at MLA_ATTN's three groups at the n-gram
+verify (B = 4, Q = 4, contexts 379 / 263 / 512 / 40) over bf16 and int8
+caches, at DeepSeek-V2-Lite's decode (Q = 1) and at chip_smoke.MLA_LONG
+tokens a sequence over bf16: inputs rotated past L2, CUDA events over
+CUDA-graph replays (chip_smoke's time_mla_shapes). It prints the card's
+name and power limit, one JSON line per run and a table of ms per shape.
 
 Variants (all by default):
-  acc2    S = Q.K^T into two accumulators (the even and the odd k16 steps of
-          each 32 lanes), added at the end (the kernel: one chain)
-  acc2u   acc2 with the k loop unrolled 3 times
-  wave    one split a block wherever the launch's split blocks fit in one
-          wave of 132 SMs (ops/attention_cuda.py's plan; the kernel: one
-          split a block at up to 4 row tiles, all of them past)
-  wave128 wave, with MLA's splits of 128 tokens (the kernel: 256)
-  nocopy  diagnostic: no KV copies (the ring is never filled)
-  nos     diagnostic: no S products
-  nopv    diagnostic: no P.V products
+  ring2    a 2-stage TMA ring at D = 384 over bf16 (the kernel: 3)
+  ring4    a 4-stage ring at D = 384 over bf16
+  step32   32-token steps over every entry type, 4-stage bf16 rings at both
+           head dims (the kernel: 64-token bf16 steps, 2 stages at 640, 3 at
+           384)
+  rows128  128 rows a block at D = 384: two row groups of 64, each one
+           warpgroup owning its S, softmax and all 256 V lanes, over
+           shared K stages (the kernel: 64 rows, two warpgroups splitting
+           the step's tokens and V's lanes)
+  vplane   bf16 reads V from the V plane, as int8 does (the kernel: from
+           K's first lanes; 32-token steps at 640 and a 2-stage ring at 384,
+           where K and V stages of 64 tokens do not fit otherwise)
+  split256, split512, split1024
+           MLA splits of 256, 512, 1024 tokens (the kernel: 128)
+  splitg   MLA splits of 8 tokens per query head, 128 to 1024 (V2-Lite's 16
+           heads: 128, MiniCPM3's 40: 320 -> 384, DeepSeek-V3's 128: 1024)
+  nocopy   diagnostic: no KV copies (the stages' barriers complete empty)
+  nos      diagnostic: no S products
+  nopv     diagnostic: no P.V products
 """
 
 from __future__ import annotations
@@ -43,52 +53,40 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "qspec_tpu_torch")
 
-S_LOOP = ('''        float sc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int j = 0; j < dk / 32; ++j) {
-          uint32_t a0[4], a1[4], bk[4];
-          ldmatrix_x4(a0, q_base + swz<kD>(a_row, 4 * j + a_c));
-          ldmatrix_x4(a1, q_base + swz<kD>(a_row, 4 * j + 2 + a_c));
-          ldmatrix_x4(bk, k_base + swz<kD>(8 * warp + lr, 4 * j + lm));
-          mma_bf16(sc, a0, bk[0], bk[1]);
-          mma_bf16(sc, a1, bk[2], bk[3]);
-        }
-''')
+RING = ("  static constexpr int kRing = kD == 640 ? (kKind == 1 ? 4 : 2) : "
+        "(kKind == 0 ? 3 : 2);")
+STEP = ("  static constexpr int kStep = kD == 640 ? (kKind == 0 ? 64 : 32) : "
+        "(kKind == 2 ? 32 : 64);")
 
 
-def acc2(unroll: str) -> tuple:
-    return (S_LOOP, f'''        float sc[4] = {{0.f, 0.f, 0.f, 0.f}}, sc2[4] = {{0.f, 0.f, 0.f, 0.f}};
-{unroll}        for (int j = 0; j < dk / 32; ++j) {{
-          uint32_t a0[4], a1[4], bk[4];
-          ldmatrix_x4(a0, q_base + swz<kD>(a_row, 4 * j + a_c));
-          ldmatrix_x4(a1, q_base + swz<kD>(a_row, 4 * j + 2 + a_c));
-          ldmatrix_x4(bk, k_base + swz<kD>(8 * warp + lr, 4 * j + lm));
-          mma_bf16(sc, a0, bk[0], bk[1]);
-          mma_bf16(sc2, a1, bk[2], bk[3]);
-        }}
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[e] = __fadd_rn(sc[e], sc2[e]);
-''')
+def ring(at384: int, at640: int = 2) -> tuple:
+    return (RING, RING.replace("(kKind == 1 ? 4 : 2) : (kKind == 0 ? 3 : 2)",
+                               f"(kKind == 1 ? 4 : kKind == 0 ? {at640} : 2) : "
+                               f"(kKind == 0 ? {at384} : 2)"))
 
 
 VARIANTS = {
-    "acc2": [acc2("")],
-    "acc2u": [acc2("#pragma unroll 3\n")],
-    "wave": [("py", "    spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits",
-              "    spb = 1 if tiles <= MAX_SPLIT_TILES or (\n"
-              "        D in MLA_DIMS and tiles * B * Hkv * n_splits <= 132) else n_splits")],
-    "wave128": [("py", "    spb = 1 if tiles <= MAX_SPLIT_TILES else n_splits",
-                 "    spb = 1 if tiles <= MAX_SPLIT_TILES or (\n"
-                 "        D in MLA_DIMS and tiles * B * Hkv * n_splits <= 132) else n_splits"),
-                ("py", "    split = split_tokens(S)\n    n_splits",
-                 "    split = split_tokens(S) if D not in MLA_DIMS else S * -(-128 // S)\n"
-                 "    n_splits")],
-    "nocopy": [("      for (int c = lane; c < kc; c += 32)\n        cp_async16(kd",
-                "      for (int c = lane; c < 0; c += 32)\n        cp_async16(kd"),
-               ("      for (int c = lane; c < vc; c += 32)\n        cp_async16(vd",
-                "      for (int c = lane; c < 0; c += 32)\n        cp_async16(vd")],
-    "nos": [("        for (int j = 0; j < dk / 32; ++j) {",
-             "        for (int j = 0; j < 0; ++j) {")],
-    "nopv": [("          if (2 * dp < nt_w) {", "          if (false) {")],
+    "ring2": [ring(2)],
+    "ring4": [ring(4)],
+    "step32": [ring(4, 4), (STEP, STEP.replace("(kKind == 0 ? 64 : 32)", "32")
+                                     .replace("(kKind == 2 ? 32 : 64)", "32"))],
+    "rows128": [("  static constexpr int kKC = 5, kVC = 4, kRG = 1, kDS = 2;",
+                 "  static constexpr int kKC = 5, kVC = 4, kRG = 2, kDS = 1;"),
+                ("py", "MLA_ROWS = {384: 64, 640: 64}", "MLA_ROWS = {384: 128, 640: 64}")],
+    "vplane": [("  static constexpr bool kVPlane = kKind == 2;",
+                "  static constexpr bool kVPlane = kKind != 1;"),
+               (STEP, STEP.replace("(kKind == 0 ? 64 : 32)", "32")), ring(2)],
+    **{f"split{n}": [("py", "MLA_SPLIT_MIN = 128", f"MLA_SPLIT_MIN = {n}")]
+       for n in (256, 512, 1024)},
+    "splitg": [("py", "    split = split_tokens(S, D)\n",
+                "    split = split_tokens(S, D) if D not in MLA_DIMS else \\\n"
+                "        S * -(-min(1024, max(128, 8 * (Hq // Hkv))) // S)\n")],
+    "nocopy": [("    mbar_expect_tx(full(st), L::kRawK + L::kRawV + L::kScl);",
+                "    mbar_expect_tx(full(st), 0);"),
+               ("    for (int r = 0; r < kN / box; ++r) {\n      const int krow = krows[r];",
+                "    for (int r = 0; r < 0; ++r) {\n      const int krow = krows[r];")],
+    "nos": [("      for (int ks = 0; ks < nks; ++ks) {", "      for (int ks = 0; ks < 0; ++ks) {")],
+    "nopv": [("      for (int kt = 0; kt < kN / 16; ++kt)", "      for (int kt = 0; kt < 0; ++kt)")],
 }
 DIAGNOSTIC = {"nocopy", "nos", "nopv"}
 
@@ -139,12 +137,15 @@ def child(root: str, check: bool) -> None:
                         rtol=cs.MLA_TOL[kv], atol=cs.MLA_TOL[kv])
         torch.cuda.empty_cache()
     ms = {}
-    cases = [(a, kv, 4) for kv in ("bfloat16", "int8") for a in cs.MLA_ATTN]
-    cases.append((cs.MLA_ATTN[1], "bfloat16", 1))
-    for (label, Hq, D, dk, dv, dqk), kv, q_len in cases:
-        rot = cs.Rotating(lambda: cs._mla_inputs(gen, q_len, kv, Hq, D, dk, dv),
-                          sum(cs._ctx_lens(q_len)) * 2 * D * 2)
-        ms[f"{label} {kv} Q={q_len}"] = cs.graph_ms(
+    cases = [(a, kv, 4, None) for kv in ("bfloat16", "int8") for a in cs.MLA_ATTN]
+    cases.append((cs.MLA_ATTN[1], "bfloat16", 1, None))
+    cases += [(a, "bfloat16", 4, (cs.MLA_LONG,) * 4) for a in cs.MLA_ATTN]
+    for (label, Hq, D, dk, dv, dqk), kv, q_len, ctx in cases:
+        ctx = ctx or cs._ctx_lens(q_len)
+        rot = cs.Rotating(lambda: cs._mla_inputs(gen, q_len, kv, Hq, D, dk, dv, ctx=ctx),
+                          sum(ctx) * 2 * D * 2)
+        key = f"{label} {kv} Q={q_len}" + (f" ctx{ctx[0]}" if len(set(ctx)) == 1 else "")
+        ms[key] = cs.graph_ms(
             lambda: cs._mla_call(rot.next(), dqk, dk, dv), reps=max(20, len(rot.sets)))
         del rot
         torch.cuda.empty_cache()
@@ -164,10 +165,13 @@ def main(names) -> None:
     roots = {"base": ROOT, **{n: make(n) for n in names}}
     runs = []
     for n in ("base", *names, "base"):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[n],
-                              "0" if n in DIAGNOSTIC else "1"],
-                             check=True, stdout=subprocess.PIPE, text=True).stdout
-        line = out.strip().splitlines()[-1]
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", roots[n],
+                               "0" if n in DIAGNOSTIC else "1"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        if proc.returncode != 0:   # a variant that does not build or check: say so, go on
+            print(f"{n} failed ({proc.returncode}): " + proc.stderr.strip()[-2000:], flush=True)
+            continue
+        line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append((n, json.loads(line)["ms"]))
     shapes = list(runs[0][1])
